@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's flagship serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
-2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. kernel vs plain: every kernel of the serving path against its plain
-   PyTorch version on the card, at multi-tile shapes with ragged tails and at
-   the flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, with
-   the median time of each;
-4. main path: builds the full-width flagship DualQSELD-TCN
+2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
+   nvcc per source, all at once);
+3. kernel vs plain: every kernel of both paths against its plain PyTorch
+   version on the card, at multi-tile shapes with ragged tails and at the
+   flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, forward
+   outputs and every gradient, with the median time of each kernel, of its
+   plain version and of one PyTorch library call where there is one;
+4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
-   checks the outputs and that every kernel launched, and holds one clip
-   against the plain path on the same weights.
+   checks the outputs and that every serving kernel launched, and holds one
+   clip against the plain path on the same weights;
+5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
+   off, on the kernel path (K5, K4 + K6), on the plain path (plain stage 0,
+   full attention) and on the plain path in float64, from the same weights
+   and batch: kernel and plain losses within 1e-4, and every gradient of the
+   kernel path within 1e-3 (relative norm) of float64 or no further from it
+   than twice the plain path with its batch statistics taken in float64;
+   a control with stage 0's BN bias one ulp up shows why 1e-3 between two
+   float32 paths is out of reach, and stage 0 alone against float64 counts
+   the pool windows that rounding routes apart (printed, not gated); (b)
+   bfloat16 at batch 8 on seeded synthetic features: 2 warm-up and 5 timed
+   steps, finite losses, changed parameters, every training kernel
+   launched, ms per step and audio-hours trained per second.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -39,8 +54,17 @@ REQUESTS, CLIPS_PER_REQUEST = 3, 4
 F32_TOL = 2e-4    # x max|ref|: float32 sums in another order (TF32 off)
 BF16_TOL = 2e-2   # x max|ref|: ~2.5 bf16 ulps (the plain versions round elsewhere)
 MAIN_TOL = 0.05   # bf16 serving vs the float32 plain path, on sigmoid/tanh outputs
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
+TRAIN_LOSS_TOL = 1e-4   # relative: f32 kernel path vs plain path, one step
+TRAIN_GRAD_TOL = 1e-3   # relative norm of each parameter's gradient from float64, or
+CONTROL_FACTOR = 2.0    # within this factor of the plain path's with float64 BN statistics
+# the card's published peaks (H100 SXM data sheet, dense): bf16 tensor cores,
+# float32 outside them, and the HBM rate; a kernel's bound is the larger of
+# its operations over the peak for its input type and its bytes over HBM
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
-KERNELS = {  # launch-count name -> (source in the repo, TPU kernel it replaces)
+SERVING_KERNELS = {  # launch-count name -> (source in the repo, TPU kernel it replaces)
     "stft_mag": ("seld_tpu_torch/csrc/stft_mag.cu",
                  "seld_tpu/ops/pallas/stft.py:322"),
     "conv3x3_smallcin": ("seld_tpu_torch/csrc/conv3x3_bn_relu_fpool.cu",
@@ -50,6 +74,23 @@ KERNELS = {  # launch-count name -> (source in the repo, TPU kernel it replaces)
     "flash_attn_fwd": ("seld_tpu_torch/csrc/flash_attn_fwd.cu",
                        "seld_tpu/ops/pallas/attention.py:298"),
 }
+TRAINING_KERNELS = {  # K5's four passes, K6; the training path runs K4 too
+    "conv_train_stats": ("seld_tpu_torch/csrc/conv3x3_train.cu",
+                         "seld_tpu/ops/pallas/conv2d_train.py:138"),
+    # K5's F2 is K2's smallcin kernel fed the batch-statistics affine: its
+    # launches are counted as conv3x3_smallcin's (COUNTED_AS)
+    "conv_train_fwd": ("seld_tpu_torch/csrc/conv3x3_bn_relu_fpool.cu",
+                       "seld_tpu/ops/pallas/conv2d_pool.py:575"),
+    "conv_train_sel_stats": ("seld_tpu_torch/csrc/conv3x3_train.cu",
+                             "seld_tpu/ops/pallas/conv2d_train.py:248"),
+    "conv_train_dw": ("seld_tpu_torch/csrc/conv3x3_train.cu",
+                      "seld_tpu/ops/pallas/conv2d_train.py:195"),
+    "flash_attn_bwd": ("seld_tpu_torch/csrc/flash_attn_bwd.cu",
+                       "seld_tpu/ops/pallas/attention.py:203"),
+}
+KERNELS = {**SERVING_KERNELS, **TRAINING_KERNELS}
+COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin"}   # summary row -> launch-count name
+TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
 
 
 class SmokeFailure(RuntimeError):
@@ -100,12 +141,24 @@ def phase_build() -> None:
     for line in log.read_text().splitlines():   # ptxas -v: entry, spills, registers
         if "Compiling entry function" in line:   # keep "<kernel>I<template args>"
             mangled = line.split("'")[1]
-            m = re.search(r"(stft_mag|conv3x3|flash_fwd)_kernelI\w+?EE", mangled)
+            m = re.search(r"\d+(\w+?_kernel)(I\w+?EE)?", mangled.split("_GLOBAL__N_")[-1])
             entry = m.group(0) if m else mangled
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
             print(f"[build] {entry}: {line.split(':', 1)[1].strip()}; {spill}")
+
+
+def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
+    """(least ms the card could take, 'operations' or 'bytes'): the larger of
+    flops over the peak for the input type and bytes over the HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def time_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
@@ -147,13 +200,18 @@ def compare(torch, name, shape_tag, got, want, dtype, card, timed=None):
 def phase_kernels(torch, card: str) -> dict:
     """Every kernel against its plain version; returns the flagship bf16
     numbers per launch-count name."""
+    from seld_tpu_torch.models.attention import attend_full
     from seld_tpu_torch.ops.kernels import launch_counts
-    from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_plain
+    from seld_tpu_torch.ops.kernels.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
+        flash_attention_train,
+    )
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain,
     )
     from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain
 
+    F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -162,8 +220,14 @@ def phase_kernels(torch, card: str) -> dict:
 
     summary = {}
 
-    def record(name, d, ms, plain_ms):
-        summary[name] = {"max_abs_err": d, "ms": ms, "plain_ms": plain_ms}
+    def record(name, d, timed, flops, moved, dtype_name, library_ms=None):
+        """The JSON entry of one kernel, from its flagship bf16 run."""
+        bound_ms, bound_by = bound(flops, moved, dtype_name)
+        summary[name] = {"max_abs_err": d, "ms": timed[0], "plain_ms": timed[1],
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        print(f"[kernel] {name}: {timed[0]:.3f} ms, plain {timed[1]:.3f} ms, library "
+              f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({card})")
 
     # ---- K1: (rows, n) audio; ragged frames (100 = 64 + 36) and bins (240 = 3*64 + 48)
     stft_cases = [
@@ -177,9 +241,13 @@ def phase_kernels(torch, card: str) -> dict:
             k = lambda: stft_mag(x, nperseg, noverlap, out_dtype=dt)
             p = lambda: stft_mag_plain(x, nperseg, noverlap, out_dtype=dt)
             timed = (time_ms(torch, k), time_ms(torch, p)) if tag == "flagship" else None
-            d = compare(torch, "stft_mag", tag, k(), p(), dt, card, timed)
+            got = k()
+            d = compare(torch, "stft_mag", tag, got, p(), dt, card, timed)
             if tag == "flagship" and dt == torch.bfloat16:
-                record("stft_mag", d, *timed)
+                # a 512 x 512 DFT product per frame, in float32 (the audio's type)
+                frames = got.numel() // got.shape[-1]
+                record("stft_mag", d, timed, 2.0 * frames * nperseg * nperseg,
+                       nbytes(x, got), "float32")
 
     # ---- K2 / K3: x (B, Cin, F, T), w (3, 3, Cin, Cout)
     conv_cases = [  # tag, B, Cin, F, T, Cout, pf
@@ -203,10 +271,14 @@ def phase_kernels(torch, card: str) -> dict:
             p = lambda: conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
             timed = (time_ms(torch, k), time_ms(torch, p)) if tag == "flagship" else None
             label = f"{tag}" if tag != "flagship" else f"stage{1 + (cin > 8) + (f == 4)}"
-            d = compare(torch, name, label, k(), p(), dt, card, timed)
+            got = k()
+            d = compare(torch, name, label, got, p(), dt, card, timed)
             # the summary line carries stage 1 (smallcin) and stage 2 (widecin)
             if tag == "flagship" and dt == torch.bfloat16 and f != 4:
-                record(name, d, *timed)
+                w_nchw = w.permute(3, 2, 0, 1).contiguous()
+                lib_ms = time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1))
+                record(name, d, timed, 2.0 * 9 * cin * cout * b * f * t,
+                       nbytes(x, w, got), "bfloat16", lib_ms)
 
     # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8
     attn_cases = [
@@ -225,10 +297,137 @@ def phase_kernels(torch, card: str) -> dict:
             (o, lse), (o_ref, lse_ref) = kern(), plain()
             d = compare(torch, "flash_attn_fwd", tag, o, o_ref, dt, card, timed)
             compare(torch, "flash_attn_lse", tag, lse, lse_ref, torch.float32, card)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k_, v))
             if tag == "flagship" and dt == torch.bfloat16:
-                record("flash_attn_fwd", d, *timed)
-    require(all(launch_counts[n] > 0 for n in KERNELS), f"kernels not launched: {launch_counts}")
+                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                record("flash_attn_fwd", d, timed, 4.0 * b * h * t * t * d_head,
+                       nbytes(q, k_, v, o, lse), "bfloat16", lib_ms)
+
+            # K6 from the plain forward's (out, lse), against its plain version
+            out_r, lse_r = (a.contiguous() for a in (o_ref, lse_ref))
+            dout = randn(b, t, h, d_head).to(dt)
+            kern = lambda: flash_attention_bwd(q, k_, v, out_r, dout, lse_r, scale)
+            plain = lambda: flash_attention_bwd_plain(q, k_, v, out_r, dout, lse_r, scale)
+            timed = (time_ms(torch, kern), time_ms(torch, plain)) if tag == "flagship" else None
+            got, want = kern(), plain()
+            d = max(compare(torch, "flash_attn_bwd", f"{tag} {n}", a, w_, dt, card,
+                            timed if n == "dq" else None)
+                    for n, a, w_ in zip(("dq", "dk", "dv"), got, want))
+            if tag == "flagship" and dt == torch.bfloat16:
+                # the library's backward: autograd of scaled_dot_product_attention
+                leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
+                o_lib = F.scaled_dot_product_attention(*leaves)
+                dout_t = dout.transpose(1, 2).contiguous()
+                lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, leaves, dout_t, retain_graph=True))
+                # five (T, T, D) products the function needs (S, dP, dV, dK,
+                # dQ); the dq pass's recompute of S and dP is the kernel's choice
+                record("flash_attn_bwd", d, timed, 10.0 * b * h * t * t * d_head,
+                       nbytes(q, k_, v, out_r, dout, lse_r, *got), "bfloat16", lib_ms)
+            elif tag == "ragged":
+                # the autograd Function (K4 + K6) against autograd of full attention
+                grads = []
+                for fn in (flash_attention_train, attend_full):
+                    leaves = [a.detach().clone().requires_grad_() for a in (q, k_, v)]
+                    (fn(*leaves, scale).float() * dout.float()).sum().backward()
+                    grads.append([a.grad for a in leaves])
+                for n, a, w_ in zip(("dq", "dk", "dv"), *grads):
+                    compare(torch, "flash_attn_train", f"{tag} {n}", a, w_, dt, card)
+
+    phase_k5(torch, card, randn, record)
+    require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
+            f"kernels not launched: {launch_counts}")
     return summary
+
+
+def k5_inputs(torch, b, cin, f, t, cout, dtype, gen):
+    """K5 inputs on a grid: x in {-2..2}, w in {-4..4}/16. Every conv sum is
+    then exact in float32, so the kernel's conv and the plain one agree bit
+    for bit and the max-pool routes each window's gradient to the same row in
+    both; random real inputs leave near-ties that round apart and route to
+    different rows, a difference of the two sums' order and not a fault.
+    Exact ties are frequent, which exercises the first-max rule."""
+    dev = torch.device("cuda")
+    x = torch.randint(-2, 3, (b, f, t, cin), generator=gen, device=dev).to(dtype)
+    w = (torch.randint(-4, 5, (3, 3, cin, cout), generator=gen, device=dev) / 16).to(dtype)
+    gamma = 1.0 + 0.3 * torch.randn(cout, generator=gen, device=dev)
+    beta = 0.3 * torch.randn(cout, generator=gen, device=dev)
+    return x, w, gamma, beta
+
+
+def phase_k5(torch, card: str, randn, record) -> None:
+    """K5: the autograd op (four kernels) against autograd of the plain op, and
+    each pass against its plain version, at ragged multi-tile shapes and at
+    the flagship's stage 1 (batch 2); records the flagship bf16 passes."""
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [  # tag, B, Cin, F, T, Cout, pf: >= 3 T splits / Cout tiles / B * F' rows
+        ("ragged", 2, 8, 24, 1300, 200, 8),
+        ("ragged", 2, 5, 24, 1100, 80, 8),
+        ("flagship", 2, CHANNELS, 256, 4800, 192, 8),
+    ]
+    for tag, b, cin, f, t, cout, pf in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            x, w, gamma, beta = k5_inputs(torch, b, cin, f, t, cout, dt, gen)
+            g = randn(b, f // pf, t, cout).to(dt)
+            results = []
+            for fn in (k5.conv2d_bn_relu_fpool_train, k5.conv2d_bn_relu_fpool_train_plain):
+                wr, gr, br = (a.clone().requires_grad_() for a in (w, gamma, beta))
+                out, mean, var = fn(x, wr, gr, br, pf)
+                (out.float() * g.float()).sum().backward()
+                results.append((out, mean, var, wr.grad, gr.grad, br.grad))
+            for n, a, w_ in zip(("out", "mean", "var", "dW", "dgamma", "dbeta"), *results):
+                compare(torch, "conv_train_op", f"{tag} {n}", a, w_,
+                        dt if a.dtype == dt else torch.float32, card)
+            del results
+
+            # each pass on the same inputs as its plain version
+            flag = tag == "flagship" and dt == torch.bfloat16
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            gc = g.permute(0, 3, 1, 2).contiguous()
+            n = b * f * t
+            sums = k5.conv_train_stats(xc, w, pf)
+            mean = sums[:cout] / n
+            var = torch.clamp(sums[cout:] / n - mean * mean, min=0.0)
+            inv = torch.rsqrt(var + 1e-5)
+            scale = gamma * inv
+            bias = beta - mean * scale
+            p_col, q_col = inv / scale, (bias / scale + mean) * inv
+            out = conv2d_bn_relu_fpool(xc, w, scale, bias, pf)
+            sel = k5.sel_stats(out, gc, p_col, q_col)
+            a_col = inv * scale * sel[cout:] / n
+            b_col = scale * sel[:cout] / n - mean * a_col
+            conv_flops = 2.0 * 9 * cin * cout * n
+            g_read = gc.element_size() * int((out > 0).sum())   # B1 and B2 read g where out > 0
+            w_nchw = w.permute(3, 2, 0, 1).contiguous()
+            g_full = gc.repeat_interleave(pf, dim=2) if flag else None   # dW's library input
+            passes = [
+                ("conv_train_stats", lambda: k5.conv_train_stats(xc, w, pf),
+                 lambda: k5.conv_train_stats_plain(xc, w), torch.float32,
+                 conv_flops, nbytes(xc, w) + 8 * cout,
+                 lambda: F.conv2d(xc, w_nchw, padding=1)),
+                ("conv_train_fwd", lambda: conv2d_bn_relu_fpool(xc, w, scale, bias, pf),
+                 lambda: k5.conv_train_fwd_plain(xc, w, scale, bias, pf), dt,
+                 conv_flops, nbytes(xc, w, out), lambda: F.conv2d(xc, w_nchw, padding=1)),
+                ("conv_train_sel_stats", lambda: k5.sel_stats(out, gc, p_col, q_col),
+                 lambda: k5.sel_stats_plain(out, gc, p_col, q_col), torch.float32,
+                 5.0 * out.numel(), nbytes(out) + g_read + 8 * cout, None),
+                ("conv_train_dw",
+                 lambda: k5.conv_train_dw(xc, w, gc, scale, bias, a_col, b_col, pf),
+                 lambda: k5.conv_train_dw_plain(xc, w, gc, scale, bias, a_col, b_col, pf),
+                 torch.float32, 2 * conv_flops, nbytes(xc, w) + g_read + 4 * cout * 74,
+                 lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, g_full, padding=1)),
+            ]
+            for name, kern, plain, tol_dt, flops, moved, library in passes:
+                timed = (time_ms(torch, kern), time_ms(torch, plain)) if flag else None
+                label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
+                d = compare(torch, name, label, kern(), plain(), tol_dt, card, timed)
+                if flag:
+                    lib_ms = None if library is None else time_ms(torch, library)
+                    record(name, d, timed, flops, moved, "bfloat16", lib_ms)
 
 
 def phase_main_path(torch, card: str) -> dict:
@@ -268,7 +467,8 @@ def phase_main_path(torch, card: str) -> dict:
         outputs.append((sed, doa))
     counts = dict(launch_counts)
     print(f"[main] launches during the {REQUESTS} requests: {counts}")
-    require(all(counts[k] > 0 for k in KERNELS), f"a kernel of the path never ran: {counts}")
+    require(all(counts[k] > 0 for k in SERVING_KERNELS),
+            f"a kernel of the serving path never ran: {counts}")
 
     sed_w = int(model.output_classes * model.class_overlaps)
     for i, (sed, doa) in enumerate(outputs):
@@ -303,6 +503,280 @@ def phase_main_path(torch, card: str) -> dict:
 
 
 
+def set_dropout(model, rate: float) -> None:
+    from seld_tpu_torch.models.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = rate
+
+
+def profile_step(torch, run, card: str, top: int = 14) -> None:
+    """One more step under torch.profiler: device time by kernel (top
+    ``top`` by self device time) and the device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    self_ms = lambda e: e.self_device_time_total / 1e3
+    # device kernels only: a CPU op also reports the device time it launched
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(self_ms(e) for e in events)
+    print(f"[profile] one bf16 step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle share {1 - busy / wall_ms:.3f}, {sum(e.count for e in events)} device "
+          f"kernels ({card})")
+    for e in sorted(events, key=self_ms, reverse=True)[:top]:
+        print(f"[profile]   {self_ms(e):8.2f} ms {100 * self_ms(e) / busy:5.1f}% "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def take_bn_statistics_in_float64(torch, model) -> None:
+    """A control of phase 5a: every train-mode BatchNorm of ``model`` takes
+    its batch statistics (E[x^2] - E[x]^2) in float64 and normalizes in the
+    input's dtype; the port's BatchNorm takes them in float32."""
+    import types
+
+    from seld_tpu_torch.models.layers import BN_EPS, BatchNorm
+
+    def forward(self, x, train=False):
+        if not train:
+            return BatchNorm.forward(self, x, train)
+        axes = tuple(range(x.ndim - 1))
+        xd = x.double()
+        mean = xd.mean(axes)
+        var = ((xd * xd).mean(axes) - mean * mean).clamp_min(0.0)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        self.update_running(mean, var, x.numel() // x.shape[-1])
+        return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.scale) + self.bias
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.forward = types.MethodType(forward, m)
+
+
+def stage0_route_study(torch, x, w, gamma, beta, pool_f: int) -> None:
+    """CNN stage 0 alone at the flagship's shape, on phase 5a's batch x
+    (B, C, F, T): dW, dgamma and dbeta of one seeded cotangent as
+    relative norm distances from float64, for the plain stage in float32, the
+    same with its batch statistics taken in float64, the K5 op in float32,
+    and float64 routed through the windows and ReLU edges the float32 plain
+    stage chose; with the number of pool windows each run routes apart from
+    float64. Prints; checks only that every gradient is finite."""
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+
+    F = torch.nn.functional
+    b, _, f, t = x.shape
+    cout = w.shape[-1]
+    gen = torch.Generator(device=x.device).manual_seed(7)
+    g = torch.randn(b, cout, f // pool_f, t, generator=gen, device=x.device)
+
+    def plain(dt, stats_dt=None, route=None):
+        """The plain stage (conv, batch-statistics BN, ReLU, first-max pool);
+        returns its gradients in float64 and its route (row, kept) per window."""
+        wr, gr, br = (a.to(dt).clone().requires_grad_() for a in (w, gamma, beta))
+        z = F.conv2d(x.to(dt), wr.permute(3, 2, 0, 1), padding=1)        # (B, C, F, T)
+        zs = z.to(stats_dt or dt)
+        mean = zs.mean((0, 2, 3))
+        var = ((zs * zs).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        scale = gr * torch.rsqrt(var.to(dt) + 1e-5)
+        y = z * scale[:, None, None] + (br - mean.to(dt) * scale)[:, None, None]
+        y = y.unflatten(2, (f // pool_f, pool_f))                         # (B, C, F', pf, T)
+        if route is None:
+            with torch.no_grad():
+                top, row = y.max(dim=3)                                   # first max
+            route = (row, top > 0)
+        row, kept = route
+        out = y.gather(3, row.unsqueeze(3)).squeeze(3) * kept
+        (out * g.to(dt)).sum().backward()
+        return [a.grad.double() for a in (wr, gr, br)], route
+
+    def apart(r1, r2) -> int:
+        return int(((r1[1] != r2[1]) | (r1[1] & (r1[0] != r2[0]))).sum())
+
+    def dist(a, ref) -> str:
+        return ", ".join(f"{((u - v).norm() / v.norm()).item():.3e}" for u, v in zip(a, ref))
+
+    ref, r64 = plain(torch.float64)
+    p32, r32 = plain(torch.float32)
+    s32, rs32 = plain(torch.float32, stats_dt=torch.float64)
+    routed, _ = plain(torch.float64, route=r32)
+    wr, gr, br = (a.clone().requires_grad_() for a in (w, gamma, beta))
+    out, _, _ = k5.conv2d_bn_relu_fpool_train(x.permute(0, 2, 3, 1), wr, gr, br, pool_f)
+    (out * g.permute(0, 2, 3, 1)).sum().backward()
+    kern = [a.grad.double() for a in (wr, gr, br)]
+    windows = r64[0].numel()
+    require(all(bool(torch.isfinite(a).all()) for a in (*ref, *p32, *s32, *routed, *kern)),
+            "stage 0 study: non-finite gradient")
+    print(f"[route] stage 0 alone, batch {b}: (dW, dgamma, dbeta) "
+          f"relative norm from float64, {windows} pool windows")
+    print(f"[route]   plain f32: {dist(p32, ref)}; windows routed apart from float64: "
+          f"{apart(r32, r64)}")
+    print(f"[route]   plain f32, batch statistics in float64: {dist(s32, ref)}; routed apart: "
+          f"{apart(rs32, r64)}")
+    print(f"[route]   K5 op f32: {dist(kern, ref)}")
+    print(f"[route]   float64 routed as plain f32: {dist(routed, ref)}; from plain f32 "
+          f"{dist(routed, p32)}")
+
+
+def phase_training(torch, card: str) -> dict:
+    """(a) the f32 kernel path against the plain path, one step; (b) bf16
+    training at TRAIN_BATCH; returns the launch counts of (b)'s timed steps."""
+    import copy
+
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import make_task2_batch
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.serve import build_flagship
+    from seld_tpu_torch.training import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    rng = np.random.default_rng(0)
+
+    def batch(n):
+        x, y = make_task2_batch(rng, n, channels=CHANNELS, freq=cfg.freq_dim,
+                                time_frames=4800, label_frames=600)
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    # (a) float32, batch 2, dropout off, one step from the same weights and
+    # batch: the kernel path, the plain path, the plain path in float64 as
+    # the exact reference, and two controls on the plain path. At this size
+    # the float32 gradient below the attention is ill-conditioned: moving
+    # stage 0's BN bias by one ulp moves it by ~1e-3, so no two float32 paths
+    # agree to 1e-3. The plain path's float32 batch statistics (E[x^2] -
+    # E[x]^2) add to its distance from float64; taken in float64 they leave
+    # the rest. So the kernel path's gradients are held to float64: each
+    # within TRAIN_GRAD_TOL of it or no further from it than CONTROL_FACTOR x
+    # the plain path with float64 batch statistics.
+    cfg32 = cfg.replace(compute_dtype="float32", dropout_perc=0.0, spatial_dropout_rate=0.0)
+    base = build_flagship(str(FLAGSHIP_CONFIG), torch.float32, dev,
+                          torch.Generator().manual_seed(0))
+    set_dropout(base, 0.0)
+    x, y = batch(2)
+    step = make_train_step(cfg32)
+    runs = {  # tag: frontend, attention, dtype, control
+        "kernel": ("auto", "flash", torch.float32, None),
+        "plain": ("xla", "full", torch.float32, None),
+        "plain f64": ("xla", "full", torch.float64, None),
+        "plain, stage 0 bias +1 ulp": ("xla", "full", torch.float32, "ulp"),
+        "plain, BN statistics in f64": ("xla", "full", torch.float32, "f64 stats"),
+    }
+    losses, grads, counts = {}, {}, {}
+    for tag, (frontend, attention, dt, control) in runs.items():
+        model = copy.deepcopy(base).to(dt)
+        model.seld_block.frontend_impl, model.seld_block.tcn.attention.impl = frontend, attention
+        if control == "ulp":
+            with torch.no_grad():
+                bias = model.seld_block.cnn_bn_0.bias
+                bias.copy_(torch.nextafter(bias, torch.full_like(bias, float("inf"))))
+        elif control == "f64 stats":
+            take_bn_statistics_in_float64(torch, model)
+        state = create_train_state(model, cfg32, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, x.to(dt), y.to(dt))
+        torch.cuda.synchronize()
+        counts[tag] = dict(launch_counts)
+        losses[tag] = float(loss)
+        grads[tag] = {n: p.grad.double() for n, p in model.named_parameters()
+                      if p.grad is not None}
+        print(f"[train] f32 batch 2, {tag} path: loss {losses[tag]:.8f}, one step "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+        del model, state
+    require(all(counts["kernel"][k] > 0 for k in TRAINING_PATH),
+            f"f32 kernel path: a training kernel never ran: {counts['kernel']}")
+    require(not any(counts["plain"].values()), f"plain path launched kernels: {counts['plain']}")
+    require(all(set(g) == set(grads["plain"]) for g in grads.values()),
+            "the paths give gradients to other parameters")
+
+    def rel(a, b):
+        return {n: ((grads[a][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                for n, g in grads[b].items()}
+
+    def spread(d):
+        w = max(d, key=d.get)
+        return f"worst {d[w]:.3e} at {w}, median {statistics.median(d.values()):.3e}"
+
+    k_64, p_64 = rel("kernel", "plain f64"), rel("plain", "plain f64")
+    s_64 = rel("plain, BN statistics in f64", "plain f64")
+    d_loss = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    print(f"[train] f32 kernel vs plain: loss rel {d_loss:.3e} (tol {TRAIN_LOSS_TOL}); "
+          f"{len(k_64)} gradients, {spread(rel('kernel', 'plain'))}")
+    print(f"[train] from float64: kernel path {spread(k_64)}; plain f32 path {spread(p_64)}")
+    print(f"[train] control, plain f32 with stage 0's BN bias one ulp up, from plain f32: "
+          f"{spread(rel('plain, stage 0 bias +1 ulp', 'plain'))}")
+    print(f"[train] control, plain f32 with every BN's batch statistics in float64, from "
+          f"float64: {spread(s_64)}; kernel path over it: worst ratio "
+          f"{max(k_64[n] / s_64[n] for n in k_64):.3f}")
+    for n in ("seld_block.cnn_0.w", "seld_block.cnn_bn_0.scale", "seld_block.cnn_1.w",
+              "seld_block.tcn.resblock_0.conv_filter.w", "seld_block.tcn.conv1.w",
+              "seld_block.tcn.attention.keys.kernel", "sed_out.kernel"):
+        print(f"[train]   {n}: from float64, kernel {k_64[n]:.3e}, plain {p_64[n]:.3e}, "
+              f"plain with float64 statistics {s_64[n]:.3e}")
+    del base, grads
+    torch.cuda.empty_cache()
+    stage0 = build_flagship(str(FLAGSHIP_CONFIG), torch.float32, dev,
+                            torch.Generator().manual_seed(0)).seld_block
+    stage0_route_study(torch, x, stage0.cnn_0.dense_kernel().detach(),
+                       stage0.cnn_bn_0.scale.detach(), stage0.cnn_bn_0.bias.detach(),
+                       int(cfg.pool_size[0][0]))
+    del x, y, stage0
+    torch.cuda.empty_cache()
+    require(d_loss <= TRAIN_LOSS_TOL, f"f32 losses differ by {d_loss:.3e}")
+    over = [n for n in k_64 if k_64[n] > max(TRAIN_GRAD_TOL, CONTROL_FACTOR * s_64[n])]
+    require(not over, f"gradients further from float64 than max({TRAIN_GRAD_TOL}, "
+            f"{CONTROL_FACTOR} x plain f32 with float64 statistics): "
+            f"{[(n, k_64[n], s_64[n]) for n in over]}")
+
+    # (b) bfloat16 at TRAIN_BATCH from synthetic features and targets
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    model = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, dev,
+                           torch.Generator().manual_seed(0))
+    state = create_train_state(model, cfg16, torch.Generator(device=dev).manual_seed(2))
+    step = make_train_step(cfg16)
+    x, y = batch(TRAIN_BATCH)
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARMUP):
+        state, loss = step(state, x, y)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = dict(launch_counts)
+    print(f"[train] launches during the {TRAIN_STEPS} timed bf16 steps: "
+          f"{ {k: counts[k] for k in TRAINING_PATH} }")
+    require(all(np.isfinite(losses)), f"non-finite bf16 losses {losses}")
+    # every parameter with a gradient moved (the last ResBlock's conv_res feeds nothing)
+    trained = [(a, p) for a, p in zip(before, model.parameters()) if p.grad is not None]
+    changed = sum(not torch.equal(a, p.detach()) for a, p in trained)
+    require(changed == len(trained) >= len(before) - 1,
+            f"only {changed} of {len(trained)} trained parameters changed ({len(before)} in all)")
+    require(all(counts[k] > 0 for k in TRAINING_PATH),
+            f"a kernel of the training path never ran: {counts}")
+    profile_step(torch, lambda: step(state, x, y), card)
+    ms = statistics.median(times) * 1e3
+    audio_h = TRAIN_BATCH * CLIP_SECONDS / 3600.0
+    print(f"[train] bf16 batch {TRAIN_BATCH}: losses {[round(v, 5) for v in losses]}; "
+          f"step {ms:.1f} ms (median of {TRAIN_STEPS}; {[round(1e3 * v, 1) for v in times]}) "
+          f"= {audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -323,14 +797,17 @@ def main() -> int:
         card = phase_environment(torch)
         phase_build()
         summary = phase_kernels(torch, card)
-        counts = phase_main_path(torch, card)
+        serving = phase_main_path(torch, card)
+        training = phase_training(torch, card)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **summary[name]}
+         "path": "serving" if name in SERVING_KERNELS else "training",
+         "launches": (serving if name in SERVING_KERNELS else training)[COUNTED_AS.get(name, name)],
+         **summary[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

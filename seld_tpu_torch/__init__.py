@@ -1,15 +1,19 @@
-"""seld_tpu_torch — the SELD-TCN serving path in PyTorch with hand-written
-Hopper kernels.
+"""seld_tpu_torch — the SELD-TCN serving and training paths in PyTorch with
+hand-written Hopper kernels.
 
 A port of ``seld_tpu`` (JAX/Flax/Pallas on a TPU, kept as the reference) to
-PyTorch and CUDA for an NVIDIA H100. It imports no JAX; from the JAX package
-it takes only the JAX-free config parser ``seld_tpu.config``. Layout mirrors
+PyTorch and CUDA for an NVIDIA H100. It imports neither JAX nor anything of
+the JAX package (``tests/test_torch_isolation.py``). Layout mirrors
 ``seld_tpu``:
 
+- ``config``           — the port's own copy of the text-config parser
 - ``ops``              — Hamilton assembly, quaternion / dual-quaternion ops, inits
 - ``ops.kernels``      — the CUDA kernels (``csrc/*.cu``) with their plain versions
-- ``models``           — eval-mode SELDModel and its blocks; ``fused_infer`` serving
-- ``utils.jax_bridge`` — JAX variables tree -> port state_dict
+- ``models``           — SELDModel and its blocks (eval and train mode);
+  ``fused_infer`` serving
+- ``training``         — loss, StepLR, train / eval steps, checkpoints
+- ``data.synthetic``   — seeded synthetic Task-2 features and targets
+- ``utils.jax_bridge`` — JAX variables tree <-> port state_dict
 - ``serve``            — flagship serving entry: audio -> (sed, doa)
 
 Parameters keep the JAX package's names and layouts, so weights move between

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by one ``nvcc`` call into a shared
-library with a plain C interface, ``_build/libseld_kernels_<hash>.so``, where
-the hash covers the sources and the flags, so an edited source builds anew.
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, ``_build/libseld_kernels_<hash>.so``, where the hash
+covers the sources and the flags, so an edited source builds anew.
 The build happens at first use on a CUDA host; the library is then loaded
 with ``ctypes`` and every entry point gets its ``argtypes``: ``c_void_p`` for
 pointers and the stream, ``c_int`` for integers, ``c_float`` for scales.
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes of each C entry point (all return a cudaError_t as int)
@@ -35,6 +36,15 @@ SIGNATURES = {
     "seld_conv3x3_widecin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, batch, t, heads, d, scale, dtype, stream
     "seld_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t, heads, d, scale, dtype, stream
+    "seld_flash_attn_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
+    # x, w, partials, sums, batch, cin, f, t, cout, pf, tiles_per_block, dtype, stream
+    "seld_conv3x3_train_stats": [_P] * 4 + [_I] * 8 + [_P],
+    # out, g, p, q, partials, sums, batch, cout, f_out, t, dtype, stream
+    "seld_conv3x3_train_sel_stats": [_P] * 6 + [_I] * 5 + [_P],
+    # x, w, scale, bias, a, b, g, partials, sums, batch, cin, f, t, cout, pf,
+    # tiles_per_block, dtype, stream
+    "seld_conv3x3_train_dw": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
@@ -73,18 +83,37 @@ def library_path(nvcc: str) -> Path:
 
 
 def build(nvcc: str, out: Path) -> str:
-    """Compile every ``csrc/*.cu`` into ``out``; returns nvcc's log."""
+    """Compile every ``csrc/*.cu`` (one nvcc each, in parallel) and link them
+    into ``out``; returns nvcc's log (commands, ptxas' report, errors)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = out.with_suffix(f".{os.getpid()}.obj")
+    obj_dir.mkdir(exist_ok=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = obj_dir / f"{src.stem}.o"
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
+    text = "\n".join(log)
+    out.with_suffix(".log").write_text(text)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{text}")
     os.replace(tmp, out)
-    return log
+    return text
 
 
 def load() -> ctypes.CDLL:

@@ -26,78 +26,9 @@
 // - widecin: Cin is walked in chunks of 8 for each pool row; each step stages
 //   that row's 3-row halo and weight chunk.
 // SIMT FMA: mma/wgmma tensor-core tiles are a later step.
-#include "common.cuh"
+#include "conv3x3_common.cuh"
 
 namespace {
-
-constexpr int kBCO = 64;   // Cout per block
-constexpr int kBT = 128;   // frames per block
-constexpr int kCC = 8;     // input channels per shared-memory chunk
-constexpr int kXW = kBT + 2;
-constexpr int kThreads = 256;
-
-// acc[i][j] += sum over (ci, dy, dx) of w[dy][dx][ci][co_i] * x[row0+dy][ci][t_j+dx]
-// xs: [rows][kCC][kXW] with row0 the first of the 3 conv rows; ws: [9][kCC][kBCO].
-static __device__ __forceinline__ void conv_rows(const float* __restrict__ xs,
-                                                 const float* __restrict__ ws,
-                                                 int row0, int tx, int ty,
-                                                 float (&acc)[4][8]) {
-#pragma unroll 1
-  for (int ci = 0; ci < kCC; ++ci) {
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const float* xr = xs + ((row0 + dy) * kCC + ci) * kXW + tx;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        float w4[4], x8[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w4[i] = ws[((dy * 3 + dx) * kCC + ci) * kBCO + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x8[j] = xr[16 * j + dx];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(w4[i], x8[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Stage `rows` conv rows (frequency f_first, f_first + 1, ...) of channels
-// [c0, c0 + kCC) for frames [t0 - 1, t0 + kBT + 1); zeros outside the input.
-template <typename T>
-static __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* __restrict__ xb,
-                                               int rows, int f_first, int c0, int t0,
-                                               int cin, int f_dim, int t_dim) {
-  const int total = rows * kCC * kXW;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int tl = e % kXW;
-    const int rest = e / kXW;
-    const int ci = c0 + rest % kCC;
-    const int f = f_first + rest / kCC;
-    const int t = t0 + tl - 1;
-    float v = 0.f;
-    if (ci < cin && f >= 0 && f < f_dim && t >= 0 && t < t_dim)
-      v = to_f(xb[(static_cast<size_t>(ci) * f_dim + f) * t_dim + t]);
-    xs[e] = v;
-  }
-}
-
-// Stage w[:, :, c0:c0+kCC, co0:co0+kBCO] as ws[tap][ci][co]; zeros outside.
-template <typename T>
-static __device__ __forceinline__ void stage_w(float* __restrict__ ws, const T* __restrict__ w,
-                                               int c0, int co0, int cin, int cout) {
-  for (int e = threadIdx.x; e < 9 * kCC * kBCO; e += kThreads) {
-    const int col = e % kBCO;
-    const int rest = e / kBCO;
-    const int ci = c0 + rest % kCC;
-    const int tap = rest / kCC;
-    const int co = co0 + col;
-    ws[e] = (ci < cin && co < cout)
-                ? to_f(w[(static_cast<size_t>(tap) * cin + ci) * cout + co])
-                : 0.f;
-  }
-}
 
 template <typename T, bool kSmall>
 __global__ void __launch_bounds__(kThreads)
@@ -159,7 +90,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        best[i][j] = fmaxf(best[i][j], fmaxf(fmaf(acc[i][j], sc[i], bi[i]), 0.f));
+        best[i][j] = fmaxf(best[i][j], bn_relu(acc[i][j], sc[i], bi[i]));
   }
 
 #pragma unroll

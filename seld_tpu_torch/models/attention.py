@@ -6,9 +6,13 @@ Counterpart of ``seld_tpu/models/attention.py``: bias-free ``values`` /
 softmax over keys with no mask, and a biased ``fc_out``.
 
 ``impl``: ``'full'`` (one softmax over all keys), ``'chunked'`` (the same
-math over query chunks, memory O(chunk * T)), ``'flash'`` (the K4 kernel,
-``ops/kernels/attention.py``), or ``'auto'`` (chunked from T = 1024 on, else
-full; the plain model never picks the kernel itself).
+math over query chunks, memory O(chunk * T)), ``'flash'`` (the K4 forward and
+K6 backward kernels through ``ops/kernels/attention.py::
+flash_attention_train``; their plain versions on CPU tensors), or ``'auto'``,
+resolved as the JAX module does with "on the TPU" read as "on a CUDA
+tensor": chunked from T = 1024 on, else full, and bfloat16 at T >= 1024 on
+a CUDA tensor takes the kernels. float32 stays chunked unless ``'flash'`` is
+asked for.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from seld_tpu_torch.models.layers import Dense
-from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_plain
+from seld_tpu_torch.ops.kernels.attention import flash_attention_plain, flash_attention_train
 
 IMPLS = ("auto", "full", "chunked", "flash")
 CHUNK = 512  # queries per chunk of the 'chunked' path, as in the JAX module
@@ -67,8 +71,11 @@ class MultiHeadAttention(nn.Module):
         impl = impl or self.impl
         if impl == "auto":
             impl = "chunked" if t >= 1024 else "full"
+            if impl == "chunked" and qh.dtype == torch.bfloat16 and qh.is_cuda:
+                impl = "flash"
         if impl == "flash":
-            out = flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous(), scale)[0]
+            out = flash_attention_train(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                                        scale)
         elif impl == "chunked":
             out = attend_chunked(qh, kh, vh, scale, CHUNK)
         else:

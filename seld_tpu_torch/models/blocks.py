@@ -1,4 +1,4 @@
-"""SELD-TCN building blocks, eval mode: gated ResBlock, TC block, CNN front-end.
+"""SELD-TCN building blocks: gated ResBlock, TC block, CNN front-end.
 
 Counterpart of ``seld_tpu/models/blocks.py`` (single-trunk forward). The TCN
 works on channel-last ``(B, T, L)``, the CNN front-end on ``(B, F, T, C)``.
@@ -6,10 +6,17 @@ Two reference quirks are kept: the residual is added to the pre-activated
 ``h`` (``tanh(bn_pre(x))``), not to the block input; and the CNN output is
 flattened channel-major, so TCN feature ``c * F' + f`` is channel c at
 frequency f.
+
+``forward(x, train=False, generator=None)``: train mode normalizes with batch
+statistics (updating the running ones), applies the spatial dropout after
+each ResBlock's gate and the dropout after each CNN stage, drawing from
+``generator``. In train mode CNN stage 0 may run the K5 kernels
+(``ops/kernels/conv2d_train.py``), as ``ConvTCBlock._fused_train_ok`` decides.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -17,10 +24,18 @@ import torch
 from torch import nn
 
 from seld_tpu_torch.models.attention import MultiHeadAttention
-from seld_tpu_torch.models.layers import BatchNorm, make_conv, max_pool_2d, max_pool_time
+from seld_tpu_torch.models.layers import (
+    BN_EPS, BatchNorm, Dropout, SpatialDropout1D, make_conv, max_pool_2d, max_pool_time,
+)
+from seld_tpu_torch.ops.kernels import conv2d_train
 
 BN_ON_TCN = {"BN", "BN_on_TCN", "BNonTCN"}
 BN_ON_CNN = {"BN", "BN_on_CNN", "BNonCNN"}
+# train-mode CNN stage 0: 'auto' takes the K5 kernels on a CUDA tensor when
+# the structural conditions hold; 'xla' (the JAX package's name) the plain
+# stage; 'fused' the K5 op whatever the device (its plain versions on the CPU),
+# raising on a CUDA tensor whose stage 0 the op cannot take
+FRONTEND_IMPLS = ("auto", "xla", "fused")
 
 
 def dilation_schedule(D: Sequence, mode: str) -> List[int]:
@@ -51,11 +66,13 @@ def receptive_field(D: Sequence, kernel_size: int, dilation_mode: str):
 
 class ResBlock(nn.Module):
     """Gated pre-activation residual block on (B, T, L): returns
-    (h + res, skip) with h = tanh(bn_pre(x)) when BN is on the TCN, else x."""
+    (h + res, skip) with h = tanh(bn_pre(x)) when BN is on the TCN, else x;
+    spatial dropout on the gated output in train mode."""
 
     def __init__(self, domain: str, in_features: int, G: int, U: int, kernel_size: int = 3,
-                 dilation: int = 1, use_bias: bool = True, batch_norm: str = "BN", *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 dilation: int = 1, use_bias: bool = True, batch_norm: str = "BN",
+                 spatial_dropout_rate: float = 0.5, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         L = in_features
         self.use_bn = batch_norm in BN_ON_TCN
@@ -73,13 +90,14 @@ class ResBlock(nn.Module):
             self.bn_gate = BatchNorm(G, device=device)
         self.conv_skip = make_conv(domain, G, U, 1, 1, **conv)
         self.conv_res = make_conv(domain, G, L, 1, 1, **conv)
+        self.spatial_dropout = SpatialDropout1D(spatial_dropout_rate)
 
-    def forward(self, x):
-        h = torch.tanh(self.bn_pre(x)) if self.use_bn else x
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        h = torch.tanh(self.bn_pre(x, train)) if self.use_bn else x
         y_f, y_g = self.conv_filter(h), self.conv_gate(h)
         if self.use_bn:
-            y_f, y_g = self.bn_filter(y_f), self.bn_gate(y_g)
-        y = torch.tanh(y_f) * torch.sigmoid(y_g)
+            y_f, y_g = self.bn_filter(y_f, train), self.bn_gate(y_g, train)
+        y = self.spatial_dropout(torch.tanh(y_f) * torch.sigmoid(y_g), train, generator)
         return h + self.conv_res(y), self.conv_skip(y)
 
 
@@ -91,14 +109,15 @@ class TCBlock(nn.Module):
     def __init__(self, domain: str, in_features: int, G: int, U: int, V: Sequence[int],
                  V_kernel_size: int, pool_size, D, dilation_mode: str, pool_time: str,
                  batch_norm: str, kernel_size_dilated_conv: int, attention_impl: str,
-                 use_bias: bool, *, device=None, generator: Optional[torch.Generator] = None):
+                 use_bias: bool, spatial_dropout_rate: float = 0.5, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.pool_size, self.pool_time = pool_size, pool_time
         self.n_blocks = 0
         for idx, dil in enumerate(dilation_schedule(D, dilation_mode)):
             setattr(self, f"resblock_{idx}", ResBlock(
                 domain, in_features, G, U, kernel_size_dilated_conv, dil, use_bias,
-                batch_norm, device=device, generator=generator))
+                batch_norm, spatial_dropout_rate, device=device, generator=generator))
             self.n_blocks += 1
         kw = dict(padding=1, use_bias=use_bias, device=device, generator=generator)
         self.conv1 = make_conv(domain, U, V[0], V_kernel_size, 1, **kw)
@@ -109,10 +128,10 @@ class TCBlock(nn.Module):
     def _pool(self, x, i):
         return max_pool_time(x, int(self.pool_size[i][1])) if self.pool_time == "TCN" else x
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         skip_sum = None
         for idx in range(self.n_blocks):
-            x, skip = getattr(self, f"resblock_{idx}")(x)
+            x, skip = getattr(self, f"resblock_{idx}")(x, train, generator)
             skip_sum = skip if skip_sum is None else skip_sum + skip
         out = self.conv1(self._pool(torch.relu(skip_sum), 0))
         out = self.attention(out, out, out)
@@ -122,16 +141,23 @@ class TCBlock(nn.Module):
 
 class ConvTCBlock(nn.Module):
     """CNN front-end + TCN on (B, F, T, C) -> (B, T_pooled, V[-1]): per stage
-    conv2d k3 p1 -> BN -> ReLU -> MaxPool2d([p_freq, p_time or 1]), then the
-    channel-major flatten to L = cnn_filters[-1] * F'."""
+    conv2d k3 p1 -> BN -> ReLU -> MaxPool2d([p_freq, p_time or 1]) ->
+    dropout, then the channel-major flatten to L = cnn_filters[-1] * F'."""
 
     def __init__(self, domain: str, input_channels: int, freq_dim: int,
                  cnn_filters: Sequence[int], kernel_size_cnn_blocks: int, pool_size,
                  pool_time: str, D, dilation_mode: str, G: int, U: int,
                  kernel_size_dilated_conv: int, V: Sequence[int], V_kernel_size: int,
-                 use_bias: bool, batch_norm: str, attention_impl: str, *, device=None,
+                 use_bias: bool, batch_norm: str, attention_impl: str,
+                 spatial_dropout_rate: float = 0.5, dropout_perc: float = 0.3,
+                 frontend_impl: str = "auto", *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if frontend_impl not in FRONTEND_IMPLS:
+            raise ValueError(f"frontend_impl {frontend_impl!r} not in {FRONTEND_IMPLS}")
+        self.frontend_impl = frontend_impl
+        self.kernel_size, self.use_bias = kernel_size_cnn_blocks, use_bias
+        self.dropout = Dropout(dropout_perc)
         self.use_bn = batch_norm in BN_ON_CNN
         self.pools = [(int(p[0]), int(p[1]) if pool_time == "CNN" else 1) for p in pool_size]
         self.n_stages = len(cnn_filters)
@@ -146,14 +172,50 @@ class ConvTCBlock(nn.Module):
         self.tcn = TCBlock(
             domain, cin * f, G, U, V, V_kernel_size, pool_size, D, dilation_mode, pool_time,
             batch_norm, kernel_size_dilated_conv, attention_impl, use_bias,
-            device=device, generator=generator)
+            spatial_dropout_rate, device=device, generator=generator)
 
-    def forward(self, x):
+    def _fused_train_ok(self, x, pool) -> bool:
+        """Whether train-mode stage 0 runs the K5 op: 'auto' on a float32 or
+        bfloat16 CUDA tensor, or 'fused', when the structural conditions of
+        ``seld_tpu/models/blocks.py::ConvTCBlock._fused_train_ok`` hold (3x3
+        bias-free conv, BN on, Cin <= 8, a frequency-only pool dividing F)."""
+        if self.frontend_impl == "xla":
+            return False
+        if self.frontend_impl == "auto" and not (
+                x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)):
+            return False
+        ok = (self.kernel_size == 3 and not self.use_bias and self.use_bn
+              and x.shape[-1] <= conv2d_train.MAX_CIN and pool[1] == 1
+              and pool[0] <= conv2d_train.MAX_POOL_F and x.shape[1] % pool[0] == 0)
+        if not ok and self.frontend_impl == "fused":
+            msg = ("frontend_impl='fused' asked for, but stage 0 does not meet the K5 "
+                   "conditions (3x3 bias-free conv, BN on, Cin <= 8, a frequency-only pool "
+                   "dividing F)")
+            if x.is_cuda:   # a CUDA tensor launches the kernel or raises
+                raise ValueError(msg)
+            warnings.warn(f"{msg}: the plain stage runs", stacklevel=3)
+        return ok
+
+    def _stage0_fused_train(self, x, pool):
+        """Train-mode stage 0 through the K5 op; updates cnn_bn_0's running
+        statistics with n = B * F * T (the conv output before the pool)."""
+        bn = self.cnn_bn_0
+        w = self.cnn_0.dense_kernel().to(x.dtype)
+        out, mean, var = conv2d_train.conv2d_bn_relu_fpool_train(
+            x, w, bn.scale, bn.bias, pool[0], BN_EPS)
+        bn.update_running(mean, var, x.shape[0] * x.shape[1] * x.shape[2])
+        return out
+
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         for i in range(self.n_stages):
-            x = getattr(self, f"cnn_{i}")(x)
-            if self.use_bn:
-                x = getattr(self, f"cnn_bn_{i}")(x)
-            x = max_pool_2d(torch.relu(x), self.pools[i])
+            if i == 0 and train and self._fused_train_ok(x, self.pools[0]):
+                x = self._stage0_fused_train(x, self.pools[0])
+            else:
+                x = getattr(self, f"cnn_{i}")(x)
+                if self.use_bn:
+                    x = getattr(self, f"cnn_bn_{i}")(x, train)
+                x = max_pool_2d(torch.relu(x), self.pools[i])
+            x = self.dropout(x, train, generator)
         b, f, t, c = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, c * f)
-        return self.tcn(x)
+        return self.tcn(x, train, generator)

@@ -1,5 +1,5 @@
 """Layer modules: quaternion / dual-quaternion / real conv and linear,
-eval-mode BatchNorm, and the max-pool helpers.
+BatchNorm, dropout, and the max-pool helpers.
 
 Counterpart of ``seld_tpu/models/layers.py``. Activations are channel-last,
 as in the JAX package: 1-D convs take ``(B, T, C)``, 2-D convs ``(B, H, W,
@@ -11,12 +11,15 @@ C)``. Parameters keep the JAX names and layouts:
   ``Dense.bias``: ``(out,)``;
 - ``BatchNorm.scale`` / ``.bias`` parameters, ``.mean`` / ``.var`` buffers.
 
+Train mode is an argument, as in flax (``train=True``), not the module's
+``training`` flag: BatchNorm then normalizes with batch statistics and
+updates its running ones, and dropout draws its masks from an explicit
+``torch.Generator`` on the input's device.
+
 Unlike flax, a torch module owns its parameters before it sees an input, so
 each constructor takes the input width. Parameters are made on ``device``;
 with a ``generator`` they are drawn from it (as the JAX initializers draw),
 otherwise they start as zeros (BatchNorm as identity) for a weight import.
-The slice is inference only: there is no dropout and BatchNorm always uses
-its running statistics.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from seld_tpu_torch.ops.quaternion import conv_nd, linear, quaternion_conv, quat
 
 IntOrTuple = Union[int, Sequence[int]]
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax retention; torch's momentum 0.1
 
 
 def _ntuple(v, n):
@@ -155,8 +159,14 @@ def make_linear(domain: str, in_features: int, features: int, use_bias: bool = T
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis (eps 1e-5): learned ``scale`` /
-    ``bias``, running ``mean`` / ``var`` buffers."""
+    """BatchNorm over the last axis (eps 1e-5): learned ``scale`` / ``bias``,
+    running ``mean`` / ``var`` buffers.
+
+    Eval mode normalizes with the running statistics. Train mode
+    (``train=True``, ``seld_tpu/models/layers.py::BatchNorm``) normalizes with
+    the biased batch variance, E[x^2] - E[x]^2 in float32 (float64 for
+    float64 input), and updates the running statistics in place with
+    retention 0.9, the variance with torch's unbiased ``var * n / (n - 1)``."""
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -170,11 +180,65 @@ class BatchNorm(nn.Module):
         inv = self.scale / torch.sqrt(self.var + BN_EPS)
         return inv, self.bias - self.mean * inv
 
-    def forward(self, x):
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Fold batch statistics of ``n`` elements per channel into the running
+        ones (``mean`` / ``var`` biased, as normalization uses them)."""
+        keep = BN_MOMENTUM
+        rdt = self.mean.dtype
+        self.mean.copy_(keep * self.mean + (1 - keep) * mean.to(rdt))
+        self.var.copy_(keep * self.var + (1 - keep) * var.to(rdt) * (n / max(n - 1, 1)))
+
+    def forward(self, x, train: bool = False):
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xs.mean(axes)
+            var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+            self.update_running(mean, var, x.numel() // x.shape[-1])
+            mul = torch.rsqrt(var + BN_EPS) * self.scale.to(xs.dtype)
+            return ((xs - mean) * mul + self.bias.to(xs.dtype)).to(x.dtype)
         # flax _normalize's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         dt = x.dtype
         mul = torch.rsqrt(self.var.to(dt) + BN_EPS) * self.scale.to(dt)
         return (x - self.mean.to(dt)) * mul + self.bias.to(dt)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator], broadcast_dims: Sequence[int] = ()):
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate); the mask has size 1 along
+    ``broadcast_dims``. Draws from ``generator`` (on x's device)."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    shape = [1 if d in broadcast_dims else n for d, n in enumerate(x.shape)]
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout (flax ``nn.Dropout``); parameter-free."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, train, generator)
+
+
+class SpatialDropout1D(Dropout):
+    """Channel-wise dropout on (B, T, C), torch ``nn.Dropout1d`` semantics
+    (``seld_tpu/models/layers.py::SpatialDropout1D``): a dropped channel is
+    dropped across all of time."""
+
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, train, generator, broadcast_dims=(1,))
 
 
 def max_pool_time(x: torch.Tensor, pool: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The SELD model, eval mode: single trunk + SED/DOA heads.
+"""The SELD model: single trunk + SED/DOA heads.
 
 Counterpart of ``seld_tpu/models/seld.py`` and of
 ``seld_tpu/models/__init__.py::model_from_config``. Takes the reference
@@ -8,9 +8,13 @@ typed classifier (``domain_classifier``) are supported; the 2Parallel /
 ``parallel_magphase`` topologies and the SE block are not ported yet and
 raise.
 
-``forward`` is the unfused oracle: it computes in the input's dtype with
-plain torch ops and no kernel. ``compute_dtype`` is the dtype the fused
-serving path (``models/fused_infer.py``) runs in.
+``forward(x, train=False, generator=None)`` computes in the input's dtype.
+In eval mode it is the unfused oracle of the fused serving path
+(``models/fused_infer.py``): plain torch ops and no kernel. In train mode
+(``training/steps.py``) BN uses batch statistics, the dropouts draw from
+``generator``, and the kernels of the training path run where their
+conditions hold (K5 in CNN stage 0, K4 + K6 in the attention).
+``compute_dtype`` is the dtype the serving path and the train step run in.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ import torch
 from torch import nn
 
 from seld_tpu_torch.models.blocks import ConvTCBlock, receptive_field
-from seld_tpu_torch.models.layers import Dense, make_linear
+from seld_tpu_torch.models.layers import Dense, Dropout, make_linear
 
 PARALLEL_2 = {"2Parallel", "2BParallel", "2ParallelBranches", "2PB"}
 _RELU = {"relu", "ReLU", "RELU"}
+_FC_DROPOUT_ALL = {"all", "ALL", "True"}
+_FC_DROPOUT_LAST = {"last", "Last", "LAST"}
 
 
 class SELDModel(nn.Module):
@@ -35,12 +41,15 @@ class SELDModel(nn.Module):
                  dilation_mode: str = "fibonacci", G: int = 128, U: int = 128,
                  kernel_size_dilated_conv: int = 3, V: Sequence[int] = (128, 128),
                  V_kernel_size: int = 3, fc_layers: Sequence[int] = (128,),
-                 fc_activations: str = "Linear", class_overlaps: float = 3.0,
+                 fc_activations: str = "Linear", fc_dropout: str = "all",
+                 dropout_perc: float = 0.3, spatial_dropout_rate: float = 0.5,
+                 class_overlaps: float = 3.0,
                  use_bias_conv: bool = False, use_bias_linear: bool = True,
                  batch_norm: str = "BN", parallel_ConvTC_block: str = "False",
                  parallel_magphase: bool = False, use_se_block: bool = False,
                  attention_impl: str = "auto", compute_dtype: str = "float32",
-                 device=None, generator: Optional[torch.Generator] = None):
+                 frontend_impl: str = "auto", device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if parallel_ConvTC_block in PARALLEL_2:
             raise NotImplementedError("2Parallel / parallel_magphase trunks are not ported yet")
@@ -57,6 +66,8 @@ class SELDModel(nn.Module):
         self.G, self.U, self.V = G, U, tuple(V)
         self.kernel_size_dilated_conv, self.V_kernel_size = kernel_size_dilated_conv, V_kernel_size
         self.fc_layers, self.fc_activations = tuple(fc_layers), fc_activations
+        self.fc_dropout = fc_dropout
+        self.dropout = Dropout(dropout_perc)
         self.use_bias_conv, self.use_bias_linear = use_bias_conv, use_bias_linear
         self.batch_norm, self.attention_impl = batch_norm, attention_impl
         self.compute_dtype = compute_dtype
@@ -64,8 +75,8 @@ class SELDModel(nn.Module):
         self.seld_block = ConvTCBlock(
             domain, input_channels, freq_dim, cnn_filters, kernel_size_cnn_blocks,
             self.pool_size, pool_time, D, dilation_mode, G, U, kernel_size_dilated_conv, V,
-            V_kernel_size, use_bias_conv, batch_norm, attention_impl,
-            device=device, generator=generator)
+            V_kernel_size, use_bias_conv, batch_norm, attention_impl, spatial_dropout_rate,
+            dropout_perc, frontend_impl, device=device, generator=generator)
         sed_out = int(output_classes * class_overlaps)
         kw = dict(device=device, generator=generator)
         for prefix, out_size in (("sed", sed_out), ("doa", 3 * sed_out)):
@@ -83,27 +94,51 @@ class SELDModel(nn.Module):
     def receptive_field(self):
         return receptive_field(self.D, self.kernel_size_dilated_conv, self.dilation_mode)
 
-    def head(self, h: torch.Tensor, prefix: str) -> torch.Tensor:
-        """FC stack and output layer of one head, before its activation."""
+    def head(self, h: torch.Tensor, prefix: str, train: bool = False,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """FC stack and output layer of one head, before its activation; in
+        train mode dropout after every FC layer (``fc_dropout`` 'all') or
+        after the stack ('last')."""
         y = h
         for li in range(len(self.fc_layers)):
             y = getattr(self, f"{prefix}_fc{li}")(y)
             if self.fc_activations in _RELU:
                 y = torch.relu(y)
+            if self.fc_dropout in _FC_DROPOUT_ALL:
+                y = self.dropout(y, train, generator)
+        if self.fc_dropout in _FC_DROPOUT_LAST:
+            y = self.dropout(y, train, generator)
         return getattr(self, f"{prefix}_out")(y)
 
-    def forward(self, x):
-        """x (B, C, F, T) -> (sed, doa), eval mode, in x's dtype (>= float32)."""
-        h = self.seld_block(x.permute(0, 2, 3, 1))
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        """x (B, C, F, T) -> (sed, doa) in x's dtype promoted to >= float32."""
+        h = self.seld_block(x.permute(0, 2, 3, 1), train, generator)
         dt = torch.promote_types(h.dtype, torch.float32)
-        sed = torch.sigmoid(self.head(h, "sed").to(dt))
-        doa = torch.tanh(self.head(h, "doa").to(dt))
+        sed = torch.sigmoid(self.head(h, "sed", train, generator).to(dt))
+        doa = torch.tanh(self.head(h, "doa", train, generator).to(dt))
         return sed, doa
+
+
+_ATTENTION_IMPLS = {"full": "full", "chunked": "chunked", "pallas": "flash", "flash": "flash"}
+
+
+def _frontend_impl(name: str) -> str:
+    """The config's ``frontend_impl`` in the port's terms: 'pallas',
+    'pallas-thin' and 'pallas-interpret*' ask for the K5 op ('fused');
+    'pallas-ct*' asks for the train-mode stages 2-3 kernel, not ported yet."""
+    if name.startswith("pallas-ct"):
+        raise NotImplementedError("frontend_impl 'pallas-ct' (train-mode stages 2-3, K9) "
+                                  "is not ported yet")
+    if name.startswith("pallas"):
+        return "fused"
+    return name
 
 
 def model_from_config(cfg, *, device=None,
                       generator: Optional[torch.Generator] = None) -> SELDModel:
-    """SELDModel from a ``seld_tpu.config.SELDConfig``."""
+    """SELDModel from a ``seld_tpu_torch.config.SELDConfig``. The JAX knobs
+    map as: attention_impl 'pallas' -> 'flash', other values but 'full' /
+    'chunked' -> 'auto'; frontend_impl as :func:`_frontend_impl` says."""
     return SELDModel(
         freq_dim=cfg.freq_dim, input_channels=cfg.input_channels,
         output_classes=cfg.output_classes, domain=cfg.domain,
@@ -113,10 +148,13 @@ def model_from_config(cfg, *, device=None,
         D=tuple(cfg.D), dilation_mode=cfg.dilation_mode, G=cfg.G, U=cfg.U,
         kernel_size_dilated_conv=cfg.kernel_size_dilated_conv, V=tuple(cfg.V),
         V_kernel_size=cfg.V_kernel_size, fc_layers=tuple(cfg.fc_layers),
-        fc_activations=cfg.fc_activations, class_overlaps=cfg.class_overlaps,
+        fc_activations=cfg.fc_activations, fc_dropout=cfg.fc_dropout,
+        dropout_perc=cfg.dropout_perc, spatial_dropout_rate=cfg.spatial_dropout_rate,
+        class_overlaps=cfg.class_overlaps,
         use_bias_conv=cfg.use_bias_conv, use_bias_linear=cfg.use_bias_linear,
         batch_norm=cfg.batch_norm, parallel_ConvTC_block=cfg.parallel_ConvTC_block,
         parallel_magphase=cfg.parallel_magphase, use_se_block=cfg.use_se_block,
-        attention_impl=cfg.attention_impl if cfg.attention_impl in ("full", "chunked") else "auto",
-        compute_dtype=cfg.compute_dtype, device=device, generator=generator,
+        attention_impl=_ATTENTION_IMPLS.get(cfg.attention_impl, "auto"),
+        compute_dtype=cfg.compute_dtype, frontend_impl=_frontend_impl(cfg.frontend_impl),
+        device=device, generator=generator,
     )

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the serving path, each with its plain
-PyTorch version beside it.
+"""Hand-written Hopper kernels of the serving and training paths, each with
+its plain PyTorch version beside it.
 
 Every public wrapper takes the plain version for CPU tensors only (the
 tests' path); for CUDA tensors it launches its kernel or raises. Each
@@ -17,6 +17,10 @@ launch_counts = {
     "conv3x3_smallcin": 0,
     "conv3x3_widecin": 0,
     "flash_attn_fwd": 0,
+    "flash_attn_bwd": 0,
+    "conv_train_stats": 0,
+    "conv_train_sel_stats": 0,
+    "conv_train_dw": 0,
 }
 
 

@@ -1,9 +1,11 @@
-"""Flash-attention forward (K4): kernel wrapper and plain version.
+"""Flash attention: the forward (K4) and backward (K6) kernel wrappers, their
+plain versions, and the autograd Function that joins them.
 
-Counterpart of ``seld_tpu/ops/pallas/attention.py::flash_attention``'s
-forward: unmasked softmax(q k^T * scale) v over (B, T, H, D) tensors, plus
-the per-row logsumexp (B, H, T) float32 that a backward pass would read.
-The kernel is ``csrc/flash_attn_fwd.cu``.
+Counterpart of ``seld_tpu/ops/pallas/attention.py::flash_attention``:
+unmasked softmax(q k^T * scale) v over (B, T, H, D) tensors. The forward
+also returns the per-row logsumexp (B, H, T) float32, which the backward
+reads to recompute the probabilities (FlashAttention-2). The kernels are
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -75,3 +77,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "seld_flash_attn_fwd")
     launch_counts["flash_attn_fwd"] += 1
     return out, lse
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: float):
+    """Plain backward from the forward's lse: P = exp(q k^T * scale - lse),
+    delta = rowsum(dout * out), dS = P * (dout v^T - delta); returns
+    (dq = dS k * scale, dk = dS^T q * scale, dv = P^T dout) in q's dtype,
+    computed in float32 (float64 for float64 input)."""
+    _check(q, k, v)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    q_, k_, v_, o_, do_ = (t.to(cdt) for t in (q, k, v, out, dout))
+    p = torch.exp(torch.einsum("nqhd,nkhd->nhqk", q_, k_) * scale - lse.to(cdt)[..., None])
+    dv = torch.einsum("nhqk,nqhd->nkhd", p, do_)
+    delta = (do_ * o_).sum(-1).transpose(1, 2)                       # (B, H, T)
+    ds = p * (torch.einsum("nqhd,nkhd->nhqk", do_, v_) - delta[..., None])
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, k_) * scale
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, q_) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
+    """q, k, v, out, dout (B, T, H, D) of one dtype, lse (B, H, T) float32 ->
+    (dq, dk, dv). CPU tensors take :func:`flash_attention_bwd_plain`; CUDA
+    tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes)."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
+                         f"{tuple(q.shape)}")
+    b, t, h, d = q.shape
+    if tuple(lse.shape) != (b, h, t):
+        raise ValueError(f"lse must be {(b, h, t)}, got {tuple(lse.shape)}")
+    if not on_cuda(q, k, v, out, dout, lse):
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, scale)
+    require_contiguous(q=q, k=k, v=v, out=out, dout=dout, lse=lse)
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"out / dout must be {q.dtype} and lse float32, got "
+                        f"{out.dtype}, {dout.dtype}, {lse.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no kernel for head dim {d}; supported: {HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError("B * H exceeds the grid's y range")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    err = lib.seld_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, h, d, float(scale), dtype_code(q), stream_handle(q.device),
+    )
+    _build.check(err, "seld_flash_attn_bwd")
+    launch_counts["flash_attn_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Forward :func:`flash_attention`, saving (q, k, v, out, lse); backward
+    :func:`flash_attention_bwd` with the cotangent in q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, g.to(q.dtype).contiguous(), lse,
+                                         ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """Differentiable flash attention: (B, T, H, D) q, k, v -> out; K4 forward,
+    K6 backward on CUDA tensors, the plain versions on CPU tensors."""
+    return _FlashAttentionFn.apply(q, k, v, scale)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from seld_tpu_torch import disable_tf32
+from seld_tpu_torch.config import load_config
 from seld_tpu_torch.models.layers import BatchNorm
 from seld_tpu_torch.models.seld import SELDModel, model_from_config
 from seld_tpu_torch.models.fused_infer import fused_infer
@@ -59,8 +60,6 @@ def build_flagship(cfg_path, dtype: torch.dtype, device,
     drawn from ``generator`` (a CPU generator) and perturbed BN statistics;
     serving runs in ``dtype`` (float32 or bfloat16). Turns TF32 off, so that
     float32 serving computes in full float32 (``disable_tf32``)."""
-    from seld_tpu.config import load_config   # JAX-free: the config parser only
-
     if dtype not in _DTYPE_NAMES:
         raise ValueError(f"dtype {dtype} not in {list(_DTYPE_NAMES)}")
     cfg = load_config(str(cfg_path)).replace(compute_dtype=_DTYPE_NAMES[dtype])

@@ -1,11 +1,13 @@
-"""JAX variables tree -> port state_dict.
+"""JAX variables tree <-> port state_dict.
 
 The inverse direction of ``seld_tpu/utils/torch_import.py``, for the port's
 own module tree: port modules carry the flax names and layouts, so a flax
 leaf ``params/seld_block/cnn_0/w`` is the port tensor ``seld_block.cnn_0.w``
 and ``batch_stats/.../cnn_bn_0/mean`` the buffer ``....cnn_bn_0.mean``. The
 tree is given as nested dicts of numpy arrays (``jax.device_get`` of the
-variables); this module imports no JAX.
+variables); this module imports no JAX. :func:`to_jax_variables` walks the
+other way, for comparing a port model after training steps with the JAX
+package's ``TrainState.params`` / ``.batch_stats``.
 """
 
 from __future__ import annotations
@@ -50,3 +52,18 @@ def from_jax_variables(variables: Mapping, model: torch.nn.Module) -> dict:
         raise KeyError(f"port tensors not set by the JAX tree: {missing}")
     model.load_state_dict(state)
     return state
+
+
+def to_jax_variables(model: torch.nn.Module) -> dict:
+    """``{'params': ..., 'batch_stats': ...}`` nested dicts of numpy arrays
+    from ``model``: parameters go to ``params``, buffers (the BN running
+    statistics) to ``batch_stats``, each at its flax path."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    buffers = {name for name, _ in model.named_buffers()}
+    for name, tensor in model.state_dict().items():
+        node = tree["batch_stats" if name in buffers else "params"]
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = tensor.detach().cpu().numpy().copy()
+    return tree

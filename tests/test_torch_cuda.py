@@ -14,7 +14,10 @@ import torch
 
 import seld_tpu_torch
 from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_plain
+from seld_tpu_torch.ops.kernels import conv2d_train as k5
+from seld_tpu_torch.ops.kernels.attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
+)
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
     conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain,
 )
@@ -78,6 +81,81 @@ def test_flash_attention_kernel(gen, dtype, b, t, h, d):
     _close(lse, lse_ref, torch.float32)
 
 
+def k5_inputs(gen, b, cin, f, t, cout, dtype):
+    """K5 inputs on a grid: x in {-2..2}, w in {-4..4}/16, so every conv sum
+    is exact in float32 and bfloat16 products: the kernel's conv and the
+    plain one agree bit for bit, and the max-pool routes to the same row in
+    both (random real inputs would leave a few near-ties that round apart).
+    Exact ties are frequent, which exercises the first-max rule."""
+    x = torch.randint(-2, 3, (b, f, t, cin), generator=gen, device="cuda").to(dtype)
+    w = (torch.randint(-4, 5, (3, 3, cin, cout), generator=gen, device="cuda") / 16).to(dtype)
+    gamma = 1.0 + 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    beta = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    return x, w, gamma, beta
+
+
+K5_SHAPES = [(2, 8, 24, 1300, 200, 8),   # 3 T splits, 4 Cout tiles, B * F' = 6
+             (2, 5, 24, 1100, 80, 8),    # Cin 5, 2 Cout tiles
+             (3, 8, 12, 777, 80, 4)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", K5_SHAPES)
+def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
+    """K5's four kernels through the autograd op against autograd of the
+    plain composition: out, mean, var, dW, dgamma, dbeta."""
+    x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
+    g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
+    results = []
+    for fn in (k5.conv2d_bn_relu_fpool_train, k5.conv2d_bn_relu_fpool_train_plain):
+        wr, gr, br = (v.clone().requires_grad_() for v in (w, gamma, beta))
+        out, mean, var = fn(x, wr, gr, br, pf)
+        (out.float() * g.float()).sum().backward()
+        results.append((out, mean, var, wr.grad, gr.grad, br.grad))
+    # F2 is K2's smallcin kernel fed the batch-statistics affine
+    assert [launch_counts[n] for n in ("conv_train_stats", "conv3x3_smallcin",
+                                       "conv_train_sel_stats", "conv_train_dw")] == [1] * 4
+    for got, want in zip(*results):
+        _close(got, want, dtype if got.dtype == dtype else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", K5_SHAPES[:2])
+def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
+    """Each K5 pass against its plain version on the same inputs."""
+    x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, dtype)
+    x = x.permute(0, 3, 1, 2).contiguous()
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    _close(k5.conv_train_stats(x, w, pf), k5.conv_train_stats_plain(x, w), torch.float32)
+    out = conv2d_bn_relu_fpool(x, w, scale, bias, pf)   # F2
+    _close(out, k5.conv_train_fwd_plain(x, w, scale, bias, pf), dtype)
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    p, q = 0.5 + torch.rand(cout, generator=gen, device="cuda"), torch.randn(
+        cout, generator=gen, device="cuda")
+    _close(k5.sel_stats(out, g, p, q), k5.sel_stats_plain(out, g, p, q), torch.float32)
+    a, c = 1e-3 * torch.randn(cout, generator=gen, device="cuda"), 1e-3 * torch.randn(
+        cout, generator=gen, device="cuda")
+    dw = k5.conv_train_dw(x, w, g, scale, bias, a, c, pf)
+    _close(dw, k5.conv_train_dw_plain(x, w, g, scale, bias, a, c, pf), torch.float32)
+    # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
+    assert torch.equal(k5.conv_train_dw(x, w, g, scale, bias, a, c, pf), dw)
+    assert torch.equal(k5.conv_train_stats(x, w, pf), k5.conv_train_stats(x, w, pf))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 48), (1, 130, 2, 32), (1, 65, 1, 16)])
+def test_flash_attention_bwd_kernel(gen, dtype, b, t, h, d):
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+                     for _ in range(4))
+    out, lse = (t.contiguous() for t in flash_attention_plain(q, k, v, d ** -0.5))
+    got = flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5)
+    assert launch_counts["flash_attn_bwd"] == 1
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, d ** -0.5)
+    for a, b_ in zip(got, want):
+        _close(a, b_, dtype)
+
+
 def test_cuda_tensors_never_take_the_plain_path(gen):
     """A CUDA tensor launches or raises: mixed devices and unsupported shapes
     raise instead of running the plain version."""
@@ -91,4 +169,19 @@ def test_cuda_tensors_never_take_the_plain_path(gen):
     q = torch.randn(1, 10, 2, 24, device="cuda")
     with pytest.raises(ValueError):   # head dim 24 has no instantiation
         flash_attention(q, q, q, 0.2)
+    assert all(v == 0 for v in launch_counts.values())
+
+
+def test_fused_frontend_raises_where_k5_cannot_run(gen):
+    """frontend_impl='fused' on a CUDA tensor takes K5 or raises: a stage 0
+    with a biased conv does not fall back to the plain stage."""
+    from seld_tpu_torch.models.blocks import ConvTCBlock
+
+    block = ConvTCBlock("DQ", 8, 16, [16], 3, [[2, 1]], "CNN", [1], "fibonacci", 16, 16, 3,
+                        [16, 16], 3, use_bias=True, batch_norm="BN", attention_impl="full",
+                        frontend_impl="fused", device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 16, 8, 8, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="K5 conditions"):
+        block(x, train=True, generator=gen)
     assert all(v == 0 for v in launch_counts.values())

@@ -1,0 +1,135 @@
+"""The training path's kernel ops, through their plain versions (the CPU path
+of each wrapper), against the JAX package.
+
+- K5: ``conv2d_bn_relu_fpool_train`` against
+  ``seld_tpu/ops/pallas/conv2d_train.py::conv2d_smallcin_bn_relu_fpool_train``
+  in interpret mode (thin pack, float32 at HIGHEST precision): out, mean,
+  var, and dW / dgamma / dbeta from ``jax.vjp``, 2e-4 x max|ref|, with a
+  case of Cout not a multiple of 8 and a ragged T.
+- K6: ``flash_attention_train``'s backward against ``jax.vjp`` of the Pallas
+  ``flash_attention`` in interpret mode (float32, 2e-4 x max|ref|) and
+  against torch autograd of ``attend_full`` (float64, 1e-12 x max|ref|).
+
+Inputs are drawn by numpy from a seed and fed to both sides. The port's
+side gets them widened to float64, so its products are exact on every host
+(a host's float32 CPU GEMM may be less accurate than the bound assumes; see
+``tests/test_torch_kernels.py``); the plain versions' float32 branch is the
+same code and is held to the kernels on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu.ops.pallas.attention import flash_attention as jflash
+from seld_tpu.ops.pallas.conv2d_train import conv2d_smallcin_bn_relu_fpool_train as jk5
+from seld_tpu_torch.models.attention import attend_full
+from seld_tpu_torch.ops.kernels import conv2d_train as k5
+from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from seld_tpu_torch.ops.kernels.attention import flash_attention_train
+
+F32_TOL = 2e-4  # x max|ref|
+
+
+def _close(got, want, tol=F32_TOL):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """CPU tensors take the plain versions: no wrapper may count a launch."""
+    reset_launch_counts()
+    yield
+    assert all(v == 0 for v in launch_counts.values()), launch_counts
+
+
+def _k5_case(rng, b, f, t, cin, cout, pf):
+    x = rng.standard_normal((b, f, t, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.2).astype(np.float32)
+    gamma = (1.0 + 0.5 * rng.standard_normal(cout)).astype(np.float32)
+    beta = (0.2 * rng.standard_normal(cout)).astype(np.float32)
+    probe = rng.standard_normal((b, f // pf, t, cout)).astype(np.float32)
+    return x, w, gamma, beta, probe
+
+
+def _port_k5(fn, x, w, gamma, beta, probe, pf):
+    """The op and its gradients on float64 copies of the inputs."""
+    x, w, gamma, beta, probe = (torch.from_numpy(a).double() for a in (x, w, gamma, beta, probe))
+    wt, gt, bt = (a.requires_grad_() for a in (w, gamma, beta))
+    out, mean, var = fn(x, wt, gt, bt, pf)
+    (out * probe).sum().backward()
+    return [t.detach().numpy() for t in (out, mean, var, wt.grad, gt.grad, bt.grad)]
+
+
+@pytest.mark.parametrize("b,f,t,cin,cout,pf", [(2, 16, 40, 8, 16, 8),
+                                               (2, 16, 33, 5, 12, 8)])
+def test_k5_plain_matches_pallas_train_op(rng, b, f, t, cin, cout, pf):
+    x, w, gamma, beta, probe = _k5_case(rng, b, f, t, cin, cout, pf)
+
+    def jfn(w_, g_, b_):
+        return jk5(jnp.asarray(x), w_, g_, b_, pf, 1e-5, True, jax.lax.Precision.HIGHEST,
+                   pack="thin")
+
+    (out, mean, var), vjp = jax.vjp(jfn, *map(jnp.asarray, (w, gamma, beta)))
+    dw, dgamma, dbeta = vjp((jnp.asarray(probe), jnp.zeros_like(mean), jnp.zeros_like(var)))
+    want = [out, mean, var, dw, dgamma, dbeta]
+    got = _port_k5(k5.conv2d_bn_relu_fpool_train, x, w, gamma, beta, probe, pf)
+    for name, g_, w_ in zip(("out", "mean", "var", "dw", "dgamma", "dbeta"), got, want):
+        assert np.isfinite(g_).all(), name
+        _close(g_, w_)
+
+
+def test_k5_backward_matches_autograd_of_the_plain_op(rng):
+    """The hand-derived backward (B1 recovery, B2 routing, subtract-before-dot)
+    against torch autograd of the plain composition, float64."""
+    x, w, gamma, beta, probe = _k5_case(rng, 2, 24, 37, 5, 20, 4)
+    got = _port_k5(k5.conv2d_bn_relu_fpool_train, x, w, gamma, beta, probe, 4)
+    want = _port_k5(k5.conv2d_bn_relu_fpool_train_plain, x, w, gamma, beta, probe, 4)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 1e-12)
+
+
+def test_k5_rejects_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 8, 10, 9)   # Cin 9
+    w = torch.zeros(3, 3, 9, 4)
+    s = torch.ones(4)
+    with pytest.raises(ValueError):
+        k5.conv2d_bn_relu_fpool_train(x, w, s, s, 2)
+    with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
+        k5.conv2d_bn_relu_fpool_train(x[..., :8], w[:, :, :8], s, s, 3)
+
+
+def _qkv(rng, b, t, h, d, dtype):
+    return [rng.standard_normal((b, t, h, d)).astype(dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("d", [16, 48])
+def test_flash_backward_matches_pallas_vjp(rng, d):
+    q, k, v, g = _qkv(rng, 2, 64, 3, d, np.float32)
+    scale = d ** -0.5
+    out, vjp = jax.vjp(lambda a, b_, c: jflash(a, b_, c, scale, block_q=32, block_k=32,
+                                                interpret=True),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(a).double().requires_grad_() for a in (q, k, v))
+    got_out = flash_attention_train(qt, kt, vt, scale)
+    (got_out * torch.from_numpy(g).double()).sum().backward()
+    _close(got_out.detach().numpy(), out)
+    for t_, w_ in zip((qt, kt, vt), want):
+        _close(t_.grad.numpy(), w_)
+
+
+def test_flash_backward_matches_autograd_of_full_attention(rng):
+    q, k, v, g = _qkv(rng, 2, 37, 3, 16, np.float64)
+    grads = []
+    for fn in (flash_attention_train, attend_full):
+        ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        (fn(*ts, 0.25) * torch.from_numpy(g)).sum().backward()
+        grads.append([t.grad.numpy() for t in ts])
+    for a, b_ in zip(*grads):
+        _close(a, b_, 1e-12)
