@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's flagship serving and training paths, and its
+training entry point, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,17 @@ Phases, each printing its own lines:
    the pool windows that rounding routes apart (printed, not gated); (b)
    bfloat16 at batch 8 on seeded synthetic features: 2 warm-up and 5 timed
    steps, finite losses, changed parameters, every training kernel
-   launched, ms per step and audio-hours trained per second.
+   launched, ms per step and audio-hours trained per second;
+6. training entry point: ``python -m seld_tpu_torch.train`` on the flagship
+   config with ``--frontend_impl=pallas-ct`` (every CNN stage on a kernel:
+   K5, then K9 for stages 2-3) in bfloat16 at batch 8, on a synthetic
+   six-pickle dataset of one-minute clips: two epochs, then a resumed third;
+   finite losses, the four checkpoint roles, the CSVs and
+   ``results_dict.json``, and K5, K9 (every pass, both stages), K4 and K6
+   launched in every step (the trainer's ``metrics.jsonl``); then the
+   ``pallas-ct`` step beside the ``auto`` step at batch 8, in turns, with ms
+   per step and audio-hours trained per second, and a profiled ``pallas-ct``
+   step.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -89,8 +99,37 @@ TRAINING_KERNELS = {  # K5's four passes, K6; the training path runs K4 too
                        "seld_tpu/ops/pallas/attention.py:203"),
 }
 KERNELS = {**SERVING_KERNELS, **TRAINING_KERNELS}
-COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin"}   # summary row -> launch-count name
+CT_TRAIN_KERNELS = {  # K9's passes, on the pallas-ct training path (phase 6)
+    "ct_train_stats": ("seld_tpu_torch/csrc/conv3x3_ct_train.cu",
+                       "seld_tpu/ops/pallas/conv2d_ct_train.py:121"),
+    # K9's F2 is K3's widecin kernel fed the batch-statistics affine
+    "ct_train_fwd": ("seld_tpu_torch/csrc/conv3x3_bn_relu_fpool.cu",
+                     "seld_tpu/ops/pallas/conv2d_ct_train.py:139"),
+    "ct_train_sel_stats": ("seld_tpu_torch/csrc/conv3x3_ct_train.cu",
+                           "seld_tpu/ops/pallas/conv2d_ct_train.py:152"),
+    # B2 of the TPU kernel is two kernels here: g_z, written once, and dW
+    "ct_train_gz": ("seld_tpu_torch/csrc/conv3x3_ct_train.cu",
+                    "seld_tpu/ops/pallas/conv2d_ct_train.py:174"),
+    "ct_train_dw": ("seld_tpu_torch/csrc/conv3x3_ct_train.cu",
+                    "seld_tpu/ops/pallas/conv2d_ct_train.py:174"),
+    "ct_train_dx": ("seld_tpu_torch/csrc/conv3x3_ct_train.cu",
+                    "seld_tpu/ops/pallas/conv2d_ct_train.py:208"),
+}
+KERNELS = {**KERNELS, **CT_TRAIN_KERNELS}
+COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin",   # summary row -> launch-count name
+              "ct_train_fwd": "conv3x3_widecin"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
+# launches per pallas-ct training step: K5's passes once, K9's twice (stages 2
+# and 3; F2 is conv3x3_widecin), K4 and K6 at least once
+CT_PER_STEP = {**{COUNTED_AS.get(n, n): 1 for n in TRAINING_KERNELS if n != "flash_attn_bwd"},
+               **{COUNTED_AS.get(n, n): 2 for n in CT_TRAIN_KERNELS}}
+CT_AT_LEAST = ("flash_attn_fwd", "flash_attn_bwd")
+CT_BATCH, CT_CLIPS = 8, {"train": 16, "validation": 4, "test": 4}
+CT_STEPS_TIMED = 5
+# events in half the label slots: an untrained model's tests then score a
+# Global SELD below 1, the trainer's first best-on-test bar (reference
+# train.py:658), so every checkpoint role is written
+CT_SED_RATE = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -335,6 +374,7 @@ def phase_kernels(torch, card: str) -> dict:
                     compare(torch, "flash_attn_train", f"{tag} {n}", a, w_, dt, card)
 
     phase_k5(torch, card, randn, record)
+    phase_k9(torch, card, record)
     require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
             f"kernels not launched: {launch_counts}")
     return summary
@@ -428,6 +468,111 @@ def phase_k5(torch, card: str, randn, record) -> None:
                 if flag:
                     lib_ms = None if library is None else time_ms(torch, library)
                     record(name, d, timed, flops, moved, "bfloat16", lib_ms)
+
+
+def phase_k9(torch, card: str, record) -> None:
+    """K9: the autograd op (five kernels and K3) against autograd of the plain
+    op, and each pass against its plain version on the same inputs, at a
+    ragged multi-tile shape and at the flagship's stages 2 and 3 (batch 2), in
+    float32 and bfloat16; records the flagship stage-2 bf16 passes and prints
+    the whole op's time beside cuDNN's three convolutions of the stage."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = [  # tag, B, C, F, T, Cout, pf: 3 T tiles, 2 Cout tiles, 3 pool groups
+        ("ragged", 2, 24, 24, 300, 72, 8),
+        ("stage2", 2, 192, 32, 4800, 192, 8),
+        ("stage3", 2, 192, 4, 4800, 192, 2),
+    ]
+    for tag, b, c, f, t, cout, pf in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            # on a grid (k5_inputs' reason): both convs exact, so both route alike
+            h = torch.randint(-2, 3, (b, c, f, t), generator=gen, device=dev).to(dt)
+            w = (torch.randint(-4, 5, (3, 3, c, cout), generator=gen, device=dev) / 16).to(dt)
+            gamma = 1.0 + 0.3 * torch.randn(cout, generator=gen, device=dev)
+            beta = 0.3 * torch.randn(cout, generator=gen, device=dev)
+            g = torch.randn(b, cout, f // pf, t, generator=gen, device=dev).to(dt)
+            results = []
+            for fn in (k9.conv2d_ct_bn_relu_fpool_train, k9.conv2d_ct_bn_relu_fpool_train_plain):
+                hr, wr, gr, br = (a.clone().requires_grad_() for a in (h, w, gamma, beta))
+                out, mean, var = fn(hr, wr, gr, br, pf)
+                (out.float() * g.float()).sum().backward()
+                results.append((out, mean, var, hr.grad, wr.grad, gr.grad, br.grad))
+            for n, a, w_ in zip(("out", "mean", "var", "dh", "dW", "dgamma", "dbeta"), *results):
+                compare(torch, "ct_train_op", f"{tag} {n}", a, w_,
+                        dt if a.dtype == dt else torch.float32, card)
+            del results
+
+            # each pass on the same inputs as its plain version
+            flag = tag == "stage2" and dt == torch.bfloat16
+            timed_tag = tag != "ragged" and dt == torch.bfloat16
+            n = b * f * t
+            sums, pre = k9.ct_train_stats(h, w, pf)
+            mean = sums[:cout] / n
+            inv = torch.rsqrt(torch.clamp(sums[cout:] / n - mean * mean, min=0.0) + 1e-5)
+            scale, zero = gamma * inv, torch.zeros_like(gamma)
+            bias = beta - mean * scale
+            out = conv2d_bn_relu_fpool(h, w, scale, bias, pf)
+            cols = torch.stack([scale, bias, mean, inv, zero, zero])
+            sel = k9.ct_sel_stats(pre, g, cols, pf)
+            cols = torch.stack([scale, bias, mean, inv, sel[:cout] / n, sel[cout:] / n])
+            gz = k9.ct_gz(pre, g, cols, pf)
+            conv_flops = 2.0 * 9 * c * cout * n
+            w_nchw = w.permute(3, 2, 0, 1).contiguous()
+            lib = {
+                "fwd": lambda: F.conv2d(h, w_nchw, padding=1),
+                "wgrad": lambda: torch.nn.grad.conv2d_weight(h, w_nchw.shape, gz, padding=1),
+                "dgrad": lambda: torch.nn.grad.conv2d_input(h.shape, w_nchw, gz, padding=1),
+            }
+            passes = [
+                ("ct_train_stats", lambda: k9.ct_train_stats(h, w, pf),
+                 lambda: k9.ct_train_stats_plain(h, w), torch.float32,
+                 conv_flops, nbytes(h, w, pre) + 8 * cout, lib["fwd"]),
+                ("ct_train_fwd", lambda: conv2d_bn_relu_fpool(h, w, scale, bias, pf),
+                 lambda: conv_train_fwd_plain(h, w, scale, bias, pf), dt,
+                 conv_flops, nbytes(h, w, out), lib["fwd"]),
+                ("ct_train_sel_stats", lambda: k9.ct_sel_stats(pre, g, cols, pf),
+                 lambda: k9.ct_sel_stats_plain(pre, g, cols, pf), torch.float32,
+                 5.0 * pre.numel(), nbytes(pre, g) + 8 * cout, None),
+                ("ct_train_gz", lambda: k9.ct_gz(pre, g, cols, pf),
+                 lambda: k9.ct_gz_plain(pre, g, cols, pf), dt,
+                 6.0 * pre.numel(), nbytes(pre, g, gz), None),
+                ("ct_train_dw", lambda: k9.ct_dw(h, gz), lambda: k9.ct_dw_plain(h, gz),
+                 torch.float32, conv_flops, nbytes(h, gz) + 4 * w.numel(), lib["wgrad"]),
+                ("ct_train_dx", lambda: k9.ct_dx(gz, w), lambda: k9.ct_dx_plain(gz, w), dt,
+                 conv_flops, nbytes(gz, w, h), lib["dgrad"]),
+            ]
+            pass_ms = {}
+            for name, kern, plain, tol_dt, flops, moved, library in passes:
+                timed = (time_ms(torch, kern), time_ms(torch, plain)) if timed_tag else None
+                got, want = kern(), plain()
+                if name == "ct_train_stats":   # (sums, pre)
+                    compare(torch, name, f"{tag} pre", got[1], want[1], torch.float32, card)
+                    got, want = got[0], want[0]
+                label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
+                d = compare(torch, name, label, got, want, tol_dt, card, timed)
+                if timed_tag:
+                    pass_ms[name] = timed[0]
+                if flag:
+                    lib_ms = None if library is None else time_ms(torch, library)
+                    record(name, d, timed, flops, moved, "bfloat16", lib_ms)
+            # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
+            require(torch.equal(k9.ct_dw(h, gz), k9.ct_dw(h, gz)), f"{tag}: dW not repeatable")
+            if timed_tag:
+                # the whole op: its kernels' sum against cuDNN's three convs of
+                # the stage; the bound counts the function's three products
+                lib_ms = sum(time_ms(torch, f_) for f_ in lib.values())
+                bound_ms, bound_by = bound(3 * conv_flops, nbytes(h, w, out, g, h, w),
+                                           "bfloat16")
+                print(f"[kernel] K9 op {tag} bf16 batch {b}: passes {sum(pass_ms.values()):.3f} "
+                      f"ms ({', '.join(f'{k} {v:.3f}' for k, v in pass_ms.items())}); cuDNN "
+                      f"fwd + wgrad + dgrad {lib_ms:.3f} ms; bound {bound_ms:.4f} ms by "
+                      f"{bound_by} ({card})")
+            del h, w, g, pre, gz, out
 
 
 def phase_main_path(torch, card: str) -> dict:
@@ -777,6 +922,151 @@ def phase_training(torch, card: str) -> dict:
     return counts
 
 
+def run_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path) -> str:
+    """``python -m seld_tpu_torch.train`` on the flagship config from
+    ``run_dir``; returns its output (also written to ``log``)."""
+    import os
+
+    cmd = [sys.executable, "-m", "seld_tpu_torch.train", f"--TextArgs={FLAGSHIP_CONFIG}",
+           *overrides, f"--max_epochs={max_epochs}"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=run_dir, env=env, capture_output=True, text=True,
+                          timeout=600)
+    text = proc.stdout + proc.stderr
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text(" ".join(cmd) + "\n" + text)
+    print(f"[entry] train CLI, --max_epochs={max_epochs}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s (log {log.relative_to(ROOT)})")
+    for line in text.splitlines():
+        if line.startswith(("epoch ", "TEST epoch", "Resuming from", "train_loss ",
+                            "val_loss ", "test_loss ")):
+            print(f"[entry]   {line}")
+    require(proc.returncode == 0, f"train CLI failed:\n{text[-3000:]}")
+    return text
+
+
+def phase_entry(torch, card: str) -> dict:
+    """The port's training entry point at full width with every CNN stage on
+    a kernel; then the pallas-ct step beside the auto step. Returns the
+    launches of the CLI's first run's training steps."""
+    import shutil
+
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import gen_fake_task2_dataset, make_task2_batch
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.serve import build_flagship
+    from seld_tpu_torch.training import create_train_state, make_train_step
+    from seld_tpu_torch.training.checkpoint import ROLES
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    run_dir = ROOT / "chip_tmp" / "train_cli"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths = gen_fake_task2_dataset(
+            str(run_dir / "data"), n_train=CT_CLIPS["train"], n_val=CT_CLIPS["validation"],
+            n_test=CT_CLIPS["test"], channels=CHANNELS, freq=cfg.freq_dim, time_frames=4800,
+            label_frames=600, sed_rate=CT_SED_RATE)
+        print(f"[entry] synthetic dataset of {sum(CT_CLIPS.values())} one-minute clips "
+              f"({CHANNELS} x {cfg.freq_dim} x 4800) written in {time.perf_counter() - t0:.1f} s")
+        flags = {"training": "train", "validation": "validation", "test": "test"}
+        overrides = [f"--{k}_{kind}_path={paths[split][i]}" for k, split in flags.items()
+                     for i, kind in enumerate(("predictors", "target"))]
+        overrides += ["--results_path=results", "--frontend_impl=pallas-ct",
+                      "--compute_dtype=bfloat16", f"--batch_size={CT_BATCH}", "--test_step=1",
+                      "--checkpoint_step=1"]
+        logs = ROOT / "chip_tmp" / "train_cli_logs"
+        first = run_train_cli(run_dir, overrides, 2, logs / "run1.log")
+        require("Resuming from" not in first, "the first run resumed")
+        model_dirs = list((run_dir / "RESULTS_Original").glob("Task2/*/*"))
+        require(len(model_dirs) == 1, f"model directories: {model_dirs}")
+        model_dir = model_dirs[0]
+        records = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
+                   .splitlines()]
+        second = run_train_cli(run_dir, overrides, 3, logs / "run2.log")
+        require("Resuming from" in second, "the second run did not resume")
+        records2 = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
+                    .splitlines()][len(records):]
+        require([r["epoch"] for r in records] == [1, 2] and [r["epoch"] for r in records2]
+                == [3], f"epochs logged: {[r['epoch'] for r in records + records2]}")
+        steps_per_epoch = -(-CT_CLIPS["train"] // CT_BATCH)
+        for r in records + records2:
+            require(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"]),
+                    f"epoch {r['epoch']}: non-finite loss {r}")
+            got = r["kernel_launches"]
+            want = {k: v * steps_per_epoch for k, v in CT_PER_STEP.items()}
+            require(all(got.get(k) == v for k, v in want.items())
+                    and all(got.get(k, 0) >= steps_per_epoch for k in CT_AT_LEAST),
+                    f"epoch {r['epoch']}: launches {got}, want {want} and >= "
+                    f"{steps_per_epoch} of {CT_AT_LEAST}")
+        for f_ in [*ROLES.values(), "checkpoint_epoch_1", "checkpoint_epoch_2",
+                   "checkpoint_epoch_3"]:
+            require((model_dir / f_).exists(), f"missing {f_} in {model_dir}")
+        csvs = sorted(p_.name for p_ in model_dir.glob("*.csv"))
+        require(any("training_metrics" in n for n in csvs)
+                and any("test_metrics" in n for n in csvs), f"CSVs: {csvs}")
+        results = json.loads((run_dir / "results" / "results_dict.json").read_text())
+        require(all(np.isfinite(results[k]) for k in ("train_loss", "val_loss", "test_loss")),
+                f"results_dict.json: {results}")
+        print(f"[entry] {model_dir.relative_to(run_dir)}: roles {sorted(ROLES.values())}, "
+              f"archives 1-3, {csvs}, results_dict.json; per-epoch launches "
+              f"{[r['kernel_launches'] for r in records + records2]}")
+        counts = {}
+        for r in records:
+            for k, v in r["kernel_launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # the pallas-ct step beside the auto step, batch 8, bf16, in turns
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(a).to(dev) for a in make_task2_batch(
+        rng, CT_BATCH, channels=CHANNELS, freq=cfg.freq_dim, time_frames=4800,
+        label_frames=600))
+    runs = {}
+    c16 = cfg.replace(compute_dtype="bfloat16")
+    for impl in ("auto", "pallas-ct"):
+        model = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, dev,
+                               torch.Generator().manual_seed(0))
+        model.seld_block.frontend_impl = "ct" if impl == "pallas-ct" else "auto"
+        runs[impl] = (create_train_state(model, c16, torch.Generator(device=dev).manual_seed(2)),
+                      make_train_step(c16), [])
+    peak = dict.fromkeys(runs, 0)
+    for impl, (state, step, _) in runs.items():
+        for _ in range(TRAIN_WARMUP):
+            step(state, x, y)
+    torch.cuda.synchronize()
+    for i in range(CT_STEPS_TIMED):
+        for impl in ("auto", "pallas-ct") if i % 2 == 0 else ("pallas-ct", "auto"):
+            state, step, times = runs[impl]
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated())
+            require(bool(torch.isfinite(loss)), f"{impl} step: loss {float(loss)}")
+            if impl == "pallas-ct":
+                require(all(launch_counts[k] == v for k, v in CT_PER_STEP.items()),
+                        f"pallas-ct step launches {dict(launch_counts)}")
+    audio_h = CT_BATCH * CLIP_SECONDS / 3600.0
+    for impl, (_, _, times) in runs.items():
+        ms = statistics.median(times) * 1e3
+        print(f"[entry] {impl} step, bf16 batch {CT_BATCH}: {ms:.1f} ms (median of "
+              f"{len(times)}, in turns; {[round(1e3 * v, 1) for v in times]}) = "
+              f"{audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
+              f"{peak[impl] / 2**30:.1f} GiB ({card})")
+    state, step, _ = runs["pallas-ct"]
+    del runs["auto"]
+    profile_step(torch, lambda: step(state, x, y), card, top=18)
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -799,16 +1089,18 @@ def main() -> int:
         summary = phase_kernels(torch, card)
         serving = phase_main_path(torch, card)
         training = phase_training(torch, card)
+        entry = phase_entry(torch, card)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
+    paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
+             "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry)}
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "path": "serving" if name in SERVING_KERNELS else "training",
-         "launches": (serving if name in SERVING_KERNELS else training)[COUNTED_AS.get(name, name)],
-         **summary[name]}
-        for name, (src, rep) in KERNELS.items()
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
+         "launches": counts.get(COUNTED_AS.get(name, name), 0), **summary[name]}
+        for path, (names, counts) in paths.items()
+        for name, (src, rep) in names.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

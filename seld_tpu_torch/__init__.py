@@ -1,5 +1,5 @@
-"""seld_tpu_torch — the SELD-TCN serving and training paths in PyTorch with
-hand-written Hopper kernels.
+"""seld_tpu_torch — the SELD-TCN serving and training paths and the training
+entry point in PyTorch with hand-written Hopper kernels.
 
 A port of ``seld_tpu`` (JAX/Flax/Pallas on a TPU, kept as the reference) to
 PyTorch and CUDA for an NVIDIA H100. It imports neither JAX nor anything of
@@ -11,10 +11,15 @@ the JAX package (``tests/test_torch_isolation.py``). Layout mirrors
 - ``ops.kernels``      — the CUDA kernels (``csrc/*.cu``) with their plain versions
 - ``models``           — SELDModel and its blocks (eval and train mode);
   ``fused_infer`` serving
-- ``training``         — loss, StepLR, train / eval steps, checkpoints
-- ``data.synthetic``   — seeded synthetic Task-2 features and targets
-- ``utils.jax_bridge`` — JAX variables tree <-> port state_dict
+- ``training``         — loss, StepLR, train / eval / infer steps, checkpoints;
+  ``training.trainer`` the epoch loop
+- ``data``             — seeded synthetic Task-2 sets, the pickle loader,
+  normalization
+- ``metrics``          — the L3DAS21 and DCASE21 metrics and the decode
+- ``utils``            — JAX variables tree <-> port state_dict, CSV rows,
+  step timing, model summary
 - ``serve``            — flagship serving entry: audio -> (sed, doa)
+- ``train``            — the training CLI (``python -m seld_tpu_torch.train``)
 
 Parameters keep the JAX package's names and layouts, so weights move between
 the two packages by a tree walk.

@@ -24,7 +24,8 @@
 // - smallcin: all taps and channels (K = 9 x 8 = 72) and all pf + 2 halo rows
 //   are staged once per block.
 // - widecin: Cin is walked in chunks of 8 for each pool row; each step stages
-//   that row's 3-row halo and weight chunk.
+//   that row's 3-row halo and weight chunk (conv_row_widecin, which the
+//   train-mode stages 2-3 share so that their conv rows equal these bitwise).
 // SIMT FMA: mma/wgmma tensor-core tiles are a later step.
 #include "conv3x3_common.cuh"
 
@@ -78,13 +79,8 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (kSmall) {
       conv_rows(xs, ws, r, tx, ty, acc);
     } else {
-      for (int c0 = 0; c0 < cin; c0 += kCC) {
-        __syncthreads();   // the previous chunk's readers are done
-        stage_w(ws, w, c0, co0, cin, cout);
-        stage_x(xs, xb, 3, fo * pf + r - 1, c0, t0, cin, f_dim, t_dim);
-        __syncthreads();
-        conv_rows(xs, ws, 0, tx, ty, acc);
-      }
+      conv_row_widecin(xs, ws, xb, w, fo * pf + r, co0, t0, cin, f_dim, t_dim, cout, tx, ty,
+                       acc);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)

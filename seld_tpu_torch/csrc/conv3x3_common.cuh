@@ -1,12 +1,14 @@
-// The 3x3 conv tile shared by the CNN-frontend kernels: the serving stage
-// (conv3x3_bn_relu_fpool.cu) and the train-mode stage 1 (conv3x3_train.cu).
+// The 3x3 conv tile shared by the CNN-frontend kernels: the serving stages
+// (conv3x3_bn_relu_fpool.cu), the train-mode stage 1 (conv3x3_train.cu) and
+// the train-mode stages 2-3 (conv3x3_ct_train.cu).
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels
 // co0 + ty + 16 i (i < 4) at frames t0 + tx + 16 j (j < 8). The train-mode
-// backward recomputes the forward's conv rows and routes the pool gradient
-// by comparing them, so both kernels must get bitwise the same values: they
-// share conv_rows (one fixed fmaf order) and bn_relu below.
+// backwards route the pool gradient by comparing conv rows with the
+// forward's, so every kernel must get bitwise the same values: they share
+// conv_rows (one fixed fmaf order), conv_row_widecin (one fixed Cin chunk
+// order) and bn_relu below.
 #pragma once
 
 #include "common.cuh"
@@ -83,9 +85,85 @@ static __device__ __forceinline__ void stage_w(float* __restrict__ ws, const T* 
   }
 }
 
+// Stage the transposed conv's weights: ws[tap][ci][co] = w[8 - tap][co][ci]
+// for w stored (3, 3, cout, cin), i.e. the input gradient of a conv whose
+// weights are w runs as a conv of its output gradient with these weights.
+template <typename T>
+static __device__ __forceinline__ void stage_w_t(float* __restrict__ ws, const T* __restrict__ w,
+                                                 int c0, int co0, int cin, int cout) {
+  for (int e = threadIdx.x; e < 9 * kCC * kBCO; e += kThreads) {
+    const int col = e % kBCO;
+    const int rest = e / kBCO;
+    const int ci = c0 + rest % kCC;
+    const int tap = rest / kCC;
+    const int co = co0 + col;
+    ws[e] = (ci < cin && co < cout)
+                ? to_f(w[(static_cast<size_t>(8 - tap) * cout + co) * cin + ci])
+                : 0.f;
+  }
+}
+
+// acc += conv row f_row of the block's tile, Cin walked in chunks of kCC in
+// increasing order; each chunk stages its 3-row halo and weight slice into
+// xs ([3][kCC][kXW]) and ws. kTransposedW stages w with stage_w_t. Every
+// thread of the block must call it (it synchronises).
+template <bool kTransposedW = false, typename T>
+static __device__ __forceinline__ void conv_row_widecin(float* __restrict__ xs,
+                                                        float* __restrict__ ws,
+                                                        const T* __restrict__ xb,
+                                                        const T* __restrict__ w, int f_row,
+                                                        int co0, int t0, int cin, int f_dim,
+                                                        int t_dim, int cout, int tx, int ty,
+                                                        float (&acc)[4][8]) {
+  for (int c0 = 0; c0 < cin; c0 += kCC) {
+    __syncthreads();   // the previous chunk's readers are done
+    if (kTransposedW)
+      stage_w_t(ws, w, c0, co0, cin, cout);
+    else
+      stage_w(ws, w, c0, co0, cin, cout);
+    stage_x(xs, xb, 3, f_row - 1, c0, t0, cin, f_dim, t_dim);
+    __syncthreads();
+    conv_rows(xs, ws, 0, tx, ty, acc);
+  }
+}
+
 // relu(acc * scale + bias), the one expression every conv-pool kernel uses.
 static __device__ __forceinline__ float bn_relu(float acc, float scale, float bias) {
   return fmaxf(fmaf(acc, scale, bias), 0.f);
+}
+
+// Sum v over the 16 frame lanes (tx) that share a channel lane; every lane
+// gets the total. The 16 lanes are one half of a warp.
+static __device__ __forceinline__ float sum_tx(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// out[m] = sum over p of partials[p][m], p in increasing order within each of
+// 32 strands, strands summed in order: the same bits on every run.
+__global__ void __launch_bounds__(1024)
+reduce_kernel(const float* __restrict__ partials, float* __restrict__ out, int rows, int width) {
+  __shared__ double part[32][33];
+  const int m = blockIdx.x * 32 + threadIdx.x;
+  double s = 0.0;
+  if (m < width)
+    for (int p = threadIdx.y; p < rows; p += 32) s += partials[static_cast<size_t>(p) * width + m];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && m < width) {
+    double total = 0.0;
+    for (int k = 0; k < 32; ++k) total += part[k][threadIdx.x];
+    out[m] = static_cast<float>(total);
+  }
+}
+
+// Every train-mode pass writes one row of per-block partial sums; this sums
+// the rows in a fixed order (double accumulators): no float atomics.
+static inline cudaError_t launch_reduce(const float* partials, float* out, int rows, int width,
+                                        cudaStream_t s) {
+  reduce_kernel<<<ceil_div(width, 32), dim3(32, 32), 0, s>>>(partials, out, rows, width);
+  return cudaGetLastError();
 }
 
 }  // namespace

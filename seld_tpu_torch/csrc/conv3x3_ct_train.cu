@@ -1,0 +1,410 @@
+// Train-mode CNN stages 2-3: 3x3 conv (Cin % 8 == 0, zero pad 1) ->
+// BatchNorm with batch statistics -> ReLU -> max over `pf` frequency rows,
+// with the backward for the input (stage 2 passes gradient to stage 1), the
+// weights and the BN affine.
+//
+// Replaces seld_tpu/ops/pallas/conv2d_ct_train.py::
+// conv2d_widecin_ct_bn_relu_fpool_train: its passes _ct_stats_kernel (F1),
+// _ct_bwd_stats_kernel (B1), _ct_dw_kernel (B2) and _ct_dx_kernel (B3); the
+// forward pass F2 (_ct_fwd_kernel) is the serving kernel seld_conv3x3_widecin
+// (conv3x3_bn_relu_fpool.cu) fed the batch-statistics affine. Layout: h
+// (B, Cin, F, T), w (3, 3, Cin, Cout), out and its cotangent g
+// (B, Cout, F/pf, T); every pass reads only t < T.
+//
+// - F1  seld_ct_train_stats: the conv rows with the serving kernel's
+//       conv_row_widecin (same Cin chunk order, same fmaf order, so bitwise
+//       the values F2 pools), written once as pre (B, Cout, F, T) float, and
+//       per-channel partial sums and sums of squares.
+// - B1  seld_ct_train_sel_stats: routes g to the FIRST row of each pool
+//       window holding the max of relu(pre * scale + bias) (a strict >
+//       running argmax, reduce_window's first-match rule) where that max is
+//       > 0, and sums S_g = sum g_pre and S_gx = sum g_pre * xhat with
+//       xhat = (pre - mean) * inv.
+// - B2  seld_ct_train_gz: the same routing, then the batch-stats BN backward
+//       g_z = scale * (g_pre - S_g/N - xhat * S_gx/N) (the subtraction before
+//       any product), rounded to the input dtype and written once as
+//       gz (B, Cout, F, T); seld_ct_train_dw: dW[dy][dx][ci][co] = sum over
+//       (b, f, t) of gz[b][co][f][t] * h[b][ci][f + dy - 1][t + dx - 1].
+// - B3  seld_ct_train_dx: dh = the transposed conv of gz with w (taps
+//       flipped, Cin and Cout swapped), conv_row_widecin with the weights
+//       staged by stage_w_t; no affine, ReLU or pool.
+// - the sums (F1, B1, dW) go through per-block partial rows and
+//   launch_reduce: a fixed order in double, no atomics, so a run repeats
+//   bitwise.
+//
+// What bounds it on the H100: arithmetic. The function needs three
+// conv-sized products (the forward conv, dW and dh: 2 * 9 * Cin * Cout
+// operations per conv pixel each, 0.8 TFLOP for a flagship stage 2 at
+// batch 8). F1 and F2 each run the forward conv (F2 is the serving kernel,
+// which pools on the fly and keeps no pre-activation), B2 and B3 one product
+// each; the TPU kernel's recomputes in B1, B2 and B3 become reads of pre and
+// gz, which an 80 GB card holds (944 MB of pre and 472 MB of bf16 gz for
+// that stage). Design: F1 and B3 are K3's tile (64 channels x 128 frames,
+// 256 threads, halo and weights in shared memory); B1 and B2's gz pass
+// stream one (b, channel, pooled row) per block; the dW pass gives each
+// block a 64 Cout x 8 Cin x 9 tap tile, 18 outputs per thread, a sliding
+// 3-frame window of h in registers, and a share of the (b, f) rows.
+// SIMT FMA: tensor cores come later.
+#include "conv3x3_common.cuh"
+
+namespace {
+
+constexpr int kGzW = kBT + 1;   // padded row of the staged gz tile (no bank conflicts)
+constexpr int kCols = 6;        // rows of the per-channel columns: scale, bias, mean, inv, c1, c2
+
+// The first row r < pf whose relu(pre * scale + bias) is the window's max
+// (strict >, so ties keep the earlier row); returns that max and sets `sel`.
+static __device__ __forceinline__ float route_first_max(const float* __restrict__ prow,
+                                                        size_t row_stride, int pf, int t,
+                                                        float sc, float bi, int& sel) {
+  float m = 0.f;
+  sel = 0;
+  for (int r = 0; r < pf; ++r) {
+    const float y = bn_relu(prow[r * row_stride + t], sc, bi);
+    if (r == 0 || y > m) {
+      m = y;
+      sel = r;
+    }
+  }
+  return m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ct_stats_kernel(const T* __restrict__ h, const T* __restrict__ w, float* __restrict__ pre,
+                float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf) {
+  extern __shared__ float smem[];
+  float* xs = smem;                    // [3][kCC][kXW]
+  float* ws = smem + 3 * kCC * kXW;    // [9][kCC][kBCO]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int t0 = blockIdx.x * kBT;
+  const int co0 = blockIdx.y * kBCO;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const T* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
+
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = 0; r < pf; ++r) {
+    const int f = fo * pf + r;
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    conv_row_widecin(xs, ws, hb, w, f, co0, t0, cin, f_dim, t_dim, cout, tx, ty, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int co = co0 + ty + 16 * i;
+      if (co >= cout) continue;
+      float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + tx + 16 * j;
+        if (t >= t_dim) continue;
+        prow[t] = acc[i][j];
+        s1[i] += acc[i][j];
+        s2[i] = fmaf(acc[i][j], acc[i][j], s2[i]);
+      }
+    }
+  }
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = sum_tx(s1[i]), q = sum_tx(s2[i]);
+    const int co = co0 + ty + 16 * i;
+    if (tx == 0 && co < cout) {
+      row[co] = a;
+      row[cout + co] = q;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ct_sel_stats_kernel(const float* __restrict__ pre, const T* __restrict__ g,
+                    const float* __restrict__ cols, float* __restrict__ partials, int cout,
+                    int f_dim, int t_dim, int pf) {
+  __shared__ float red[2][kThreads];
+  const int co = blockIdx.x;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.y / f_out, fo = blockIdx.y % f_out;
+  const float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + fo * pf) * t_dim;
+  const T* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
+  const float sc = cols[co], bi = cols[cout + co];
+  const float mu = cols[2 * cout + co], iv = cols[3 * cout + co];
+  float sg = 0.f, sgx = 0.f;
+  for (int t = threadIdx.x; t < t_dim; t += kThreads) {
+    int sel;
+    if (route_first_max(prow, t_dim, pf, t, sc, bi, sel) > 0.f) {
+      const float gv = to_f(grow[t]);
+      sg += gv;
+      sgx = fmaf(gv, (prow[static_cast<size_t>(sel) * t_dim + t] - mu) * iv, sgx);
+    }
+  }
+  red[0][threadIdx.x] = sg;
+  red[1][threadIdx.x] = sgx;
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    if (threadIdx.x < s) {
+      red[0][threadIdx.x] += red[0][threadIdx.x + s];
+      red[1][threadIdx.x] += red[1][threadIdx.x + s];
+    }
+  }
+  if (threadIdx.x == 0) {
+    float* row = partials + static_cast<size_t>(blockIdx.y) * 2 * cout;
+    row[co] = red[0][0];
+    row[cout + co] = red[1][0];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ct_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
+             const float* __restrict__ cols, T* __restrict__ gz, int cout, int f_dim,
+             int t_dim, int pf) {
+  const int co = blockIdx.x;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.y / f_out, fo = blockIdx.y % f_out;
+  const size_t base = ((static_cast<size_t>(b) * cout + co) * f_dim + fo * pf) * t_dim;
+  const float* prow = pre + base;
+  T* zrow = gz + base;
+  const T* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
+  const float sc = cols[co], bi = cols[cout + co];
+  const float mu = cols[2 * cout + co], iv = cols[3 * cout + co];
+  const float c1 = cols[4 * cout + co], c2 = cols[5 * cout + co];
+  for (int t = threadIdx.x; t < t_dim; t += kThreads) {
+    int sel;
+    const float gv = route_first_max(prow, t_dim, pf, t, sc, bi, sel) > 0.f ? to_f(grow[t]) : 0.f;
+    for (int r = 0; r < pf; ++r) {
+      const size_t at = static_cast<size_t>(r) * t_dim + t;
+      const float xhat = (prow[at] - mu) * iv;
+      store_f(zrow + at, sc * ((r == sel ? gv : 0.f) - c1 - xhat * c2));
+    }
+  }
+}
+
+// dW partial tile of one block: Cout [co0, co0 + 64) x Cin [c0, c0 + 8) x 9
+// taps over the (b, f) rows [row0, row0 + rows); thread (ci = tid % 8,
+// cp = tid / 8) holds channels co0 + cp and co0 + cp + 32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ct_dw_kernel(const T* __restrict__ h, const T* __restrict__ gz, float* __restrict__ partials,
+             int batch, int cin, int f_dim, int t_dim, int cout, int rows_per_split) {
+  extern __shared__ float smem[];
+  float* hs = smem;                    // [3][kCC][kXW]: h rows f-1..f+1, frames t0-1..
+  float* gs = smem + 3 * kCC * kXW;    // [kBCO][kGzW]: gz row f, frames t0..
+  const int tid = threadIdx.x;
+  const int ci_l = tid % kCC, cp = tid / kCC;
+  const int co0 = blockIdx.y * kBCO, c0 = blockIdx.z * kCC;
+  const int row0 = blockIdx.x * rows_per_split;
+  const int row1 = min(batch * f_dim, row0 + rows_per_split);
+  float acc0[9], acc1[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc0[k] = acc1[k] = 0.f;
+
+  for (int row = row0; row < row1; ++row) {
+    const int b = row / f_dim, f = row % f_dim;
+    const T* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
+    const T* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
+    for (int t0 = 0; t0 < t_dim; t0 += kBT) {
+      __syncthreads();   // the previous tile's readers are done
+      stage_x(hs, hb, 3, f - 1, c0, t0, cin, f_dim, t_dim);
+      for (int e = tid; e < kBCO * kBT; e += kThreads) {
+        const int tl = e % kBT, c = e / kBT;
+        const int co = co0 + c, t = t0 + tl;
+        gs[c * kGzW + tl] = (co < cout && t < t_dim)
+                                ? to_f(gb[(static_cast<size_t>(co) * f_dim + f) * t_dim + t])
+                                : 0.f;
+      }
+      __syncthreads();
+      const float* g0 = gs + cp * kGzW;
+      const float* g1 = gs + (cp + 32) * kGzW;
+      const float* xr[3];
+      float xw[3][3];   // [dy][dx]: h at frames t - 1, t, t + 1 of row f + dy - 1
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        xr[dy] = hs + (dy * kCC + ci_l) * kXW;
+        xw[dy][0] = xr[dy][0];
+        xw[dy][1] = xr[dy][1];
+      }
+#pragma unroll 4
+      for (int t = 0; t < kBT; ++t) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) xw[dy][2] = xr[dy][t + 2];
+        const float a = g0[t], c = g1[t];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            acc0[dy * 3 + dx] = fmaf(a, xw[dy][dx], acc0[dy * 3 + dx]);
+            acc1[dy * 3 + dx] = fmaf(c, xw[dy][dx], acc1[dy * 3 + dx]);
+          }
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          xw[dy][0] = xw[dy][1];
+          xw[dy][1] = xw[dy][2];
+        }
+      }
+    }
+  }
+  // the partial row is dW in w's layout: [tap][ci][co]
+  float* prow = partials + static_cast<size_t>(blockIdx.x) * 9 * cin * cout;
+  const int ci = c0 + ci_l;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const size_t at = (static_cast<size_t>(k) * cin + ci) * cout + co0 + cp;
+    if (co0 + cp < cout) prow[at] = acc0[k];
+    if (co0 + cp + 32 < cout) prow[at + 32] = acc1[k];
+  }
+}
+
+// dh row f of the block's tile: the conv of gz (channels cout) with the
+// transposed, flipped weights, giving channels [c0, c0 + 64) of cin.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ dh, int cin,
+             int f_dim, int t_dim, int cout) {
+  extern __shared__ float smem[];
+  float* xs = smem;                    // [3][kCC][kXW]
+  float* ws = smem + 3 * kCC * kXW;    // [9][kCC][kBCO]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int t0 = blockIdx.x * kBT;
+  const int c0 = blockIdx.y * kBCO;
+  const int b = blockIdx.z / f_dim, f = blockIdx.z % f_dim;
+  const T* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  conv_row_widecin<true>(xs, ws, gb, w, f, c0, t0, cout, f_dim, t_dim, cin, tx, ty, acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty + 16 * i;
+    if (c >= cin) continue;
+    T* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + f) * t_dim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = t0 + tx + 16 * j;
+      if (t < t_dim) store_f(drow + t, acc[i][j]);
+    }
+  }
+}
+
+// Run f(T{}) with T the storage type of `dtype`.
+template <typename F>
+cudaError_t by_dtype(int dtype, F&& f) {
+  if (dtype == kF32) return f(float{});
+  if (dtype == kBF16) return f(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+constexpr size_t kConvSmem = sizeof(float) * (3 * kCC * kXW + 9 * kCC * kBCO);
+constexpr size_t kDwSmem = sizeof(float) * (3 * kCC * kXW + kBCO * kGzW);
+
+}  // namespace
+
+// F1 + its reduction: pre (B, Cout, F, T) float = conv(h, w); sums
+// (2 * Cout,) = [sum | sum of squares] of pre over (B, F, T). partials:
+// (B * F/pf * ceil(T / 128), 2 * Cout) float.
+extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void* partials,
+                                   void* sums, int batch, int cin, int f_dim, int t_dim,
+                                   int cout, int pf, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  if (cin < 1 || cin % kCC || cout < 1 || pf < 1 || f_dim % pf) return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
+  cudaError_t err = by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    cudaError_t e = set_smem(ct_stats_kernel<T>, kConvSmem);
+    if (e != cudaSuccess) return e;
+    ct_stats_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
+        static_cast<const T*>(h), static_cast<const T*>(w), static_cast<float*>(pre), part, cin,
+        f_dim, t_dim, cout, pf);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums),
+                                        static_cast<int>(grid.x * grid.z), 2 * cout, s));
+}
+
+// B1 + its reduction: sums (2 * Cout,) = [S_g | S_gx]. pre (B, Cout, F, T)
+// float, g (B, Cout, F/pf, T), cols (6, Cout) float (rows scale, bias, mean,
+// inv used), partials (B * F/pf, 2 * Cout).
+extern "C" int seld_ct_train_sel_stats(const void* pre, const void* g, const void* cols,
+                                       void* partials, void* sums, int batch, int cout,
+                                       int f_dim, int t_dim, int pf, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  if (cout < 1 || cout > 65535 || pf < 1 || f_dim % pf || batch * (f_dim / pf) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(cout, batch * (f_dim / pf));
+  cudaError_t err = by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    ct_sel_stats_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(pre), static_cast<const T*>(g),
+        static_cast<const float*>(cols), part, cout, f_dim, t_dim, pf);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums),
+                                        static_cast<int>(grid.y), 2 * cout, s));
+}
+
+// B2, g_z: gz (B, Cout, F, T) in the input dtype. pre, g as for B1; cols
+// (6, Cout) float: scale, bias, mean, inv, c1 = S_g / N, c2 = S_gx / N.
+extern "C" int seld_ct_train_gz(const void* pre, const void* g, const void* cols, void* gz,
+                                int batch, int cout, int f_dim, int t_dim, int pf, int dtype,
+                                void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cout < 1 || cout > 65535 || pf < 1 || f_dim % pf || batch * (f_dim / pf) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(cout, batch * (f_dim / pf));
+  return static_cast<int>(by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    ct_gz_kernel<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(pre), static_cast<const T*>(g),
+        static_cast<const float*>(cols), static_cast<T*>(gz), cout, f_dim, t_dim, pf);
+    return cudaGetLastError();
+  }));
+}
+
+// B2, dW + its reduction: sums (3, 3, Cin, Cout) float. h (B, Cin, F, T), gz
+// (B, Cout, F, T); partials (ceil(B * F / rows_per_split), 9 * Cin * Cout).
+extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, void* sums,
+                                int batch, int cin, int f_dim, int t_dim, int cout,
+                                int rows_per_split, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  if (cin < 1 || cin % kCC || cout < 1 || rows_per_split < 1) return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(batch * f_dim, rows_per_split), ceil_div(cout, kBCO), cin / kCC);
+  cudaError_t err = by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    cudaError_t e = set_smem(ct_dw_kernel<T>, kDwSmem);
+    if (e != cudaSuccess) return e;
+    ct_dw_kernel<T><<<grid, kThreads, kDwSmem, s>>>(
+        static_cast<const T*>(h), static_cast<const T*>(gz), part, batch, cin, f_dim, t_dim,
+        cout, rows_per_split);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums),
+                                        static_cast<int>(grid.x), 9 * cin * cout, s));
+}
+
+// B3: dh (B, Cin, F, T) in the input dtype from gz (B, Cout, F, T) and w.
+extern "C" int seld_ct_train_dx(const void* gz, const void* w, void* dh, int batch, int cin,
+                                int f_dim, int t_dim, int cout, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cin < 1 || cout < 1 || batch * f_dim > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cin, kBCO), batch * f_dim);
+  return static_cast<int>(by_dtype(dtype, [&](auto tag) {
+    using T = decltype(tag);
+    cudaError_t e = set_smem(ct_dx_kernel<T>, kConvSmem);
+    if (e != cudaSuccess) return e;
+    ct_dx_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
+        static_cast<const T*>(gz), static_cast<const T*>(w), static_cast<T*>(dh), cin, f_dim,
+        t_dim, cout);
+    return cudaGetLastError();
+  }));
+}

@@ -26,9 +26,9 @@
 //       dtype, and accumulates dW[co][tap][ci] += g_z * x in float. It also
 //       emits the exact routed sums S_g and sum g_pre * acc, from which the
 //       caller forms dgamma and dbeta.
-// - seld_reduce_partials: every pass writes one row of per-block partial
-//   sums; this sums the rows in a fixed order (double accumulators), so a
-//   run repeats bitwise (no float atomics).
+// - every pass writes one row of per-block partial sums; launch_reduce
+//   (conv3x3_common.cuh) sums the rows in a fixed order (double
+//   accumulators), so a run repeats bitwise (no float atomics).
 //
 // What bounds it on the H100: arithmetic. Each conv recompute is
 // 2 * 72 * Cout FLOP per conv pixel (34 GFLOP per pass for a batch of 8
@@ -46,14 +46,6 @@ namespace {
 
 constexpr int kGzW = kBT + 1;   // padded row of the g_z tile (no bank conflicts)
 constexpr int kK = 9 * kCC;     // 72: the dW row per output channel
-
-// Sum v over the 16 frame lanes (tx) that share a channel lane; lane tx == 0
-// gets the total. The 16 lanes are one half of a warp.
-static __device__ __forceinline__ float sum_tx(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -273,24 +265,6 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
   }
 }
 
-// out[m] = sum over p of partials[p][m], p in increasing order within each of
-// 32 strands, strands summed in order: the same bits on every run.
-__global__ void __launch_bounds__(1024)
-reduce_kernel(const float* __restrict__ partials, float* __restrict__ out, int rows, int width) {
-  __shared__ double part[32][33];
-  const int m = blockIdx.x * 32 + threadIdx.x;
-  double s = 0.0;
-  if (m < width)
-    for (int p = threadIdx.y; p < rows; p += 32) s += partials[static_cast<size_t>(p) * width + m];
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && m < width) {
-    double total = 0.0;
-    for (int k = 0; k < 32; ++k) total += part[k][threadIdx.x];
-    out[m] = static_cast<float>(total);
-  }
-}
-
 int n_split(int t_dim, int tiles_per_block) {
   return ceil_div(ceil_div(t_dim, kBT), tiles_per_block);
 }
@@ -321,12 +295,6 @@ cudaError_t launch_dw(const void* x, const void* w, const float* scale, const fl
   dw_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, bias, a_col, b_col,
       static_cast<const T*>(g), partials, cin, f_dim, t_dim, cout, pf, tpb);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_reduce(const float* partials, float* out, int rows, int width,
-                          cudaStream_t s) {
-  reduce_kernel<<<ceil_div(width, 32), dim3(32, 32), 0, s>>>(partials, out, rows, width);
   return cudaGetLastError();
 }
 

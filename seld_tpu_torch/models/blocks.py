@@ -11,7 +11,10 @@ frequency f.
 statistics (updating the running ones), applies the spatial dropout after
 each ResBlock's gate and the dropout after each CNN stage, drawing from
 ``generator``. In train mode CNN stage 0 may run the K5 kernels
-(``ops/kernels/conv2d_train.py``), as ``ConvTCBlock._fused_train_ok`` decides.
+(``ops/kernels/conv2d_train.py``), as ``ConvTCBlock._fused_train_ok`` decides;
+with ``frontend_impl='ct'`` every CNN stage runs a kernel op in the (B, C, F,
+T) layout, K5 for stage 0 and K9 (``ops/kernels/conv2d_ct_train.py``) for
+the stages after it (``ConvTCBlock._ct_train_ok``).
 """
 
 from __future__ import annotations
@@ -27,15 +30,17 @@ from seld_tpu_torch.models.attention import MultiHeadAttention
 from seld_tpu_torch.models.layers import (
     BN_EPS, BatchNorm, Dropout, SpatialDropout1D, make_conv, max_pool_2d, max_pool_time,
 )
-from seld_tpu_torch.ops.kernels import conv2d_train
+from seld_tpu_torch.ops.kernels import conv2d_ct_train, conv2d_train
 
 BN_ON_TCN = {"BN", "BN_on_TCN", "BNonTCN"}
 BN_ON_CNN = {"BN", "BN_on_CNN", "BNonCNN"}
 # train-mode CNN stage 0: 'auto' takes the K5 kernels on a CUDA tensor when
 # the structural conditions hold; 'xla' (the JAX package's name) the plain
 # stage; 'fused' the K5 op whatever the device (its plain versions on the CPU),
-# raising on a CUDA tensor whose stage 0 the op cannot take
-FRONTEND_IMPLS = ("auto", "xla", "fused")
+# raising on a CUDA tensor whose stage 0 the op cannot take; 'ct' (opt-in, the
+# JAX package's 'pallas-ct') the K5 op for stage 0 and the K9 op for every
+# later stage, with the same rule for a CUDA tensor
+FRONTEND_IMPLS = ("auto", "xla", "fused", "ct")
 
 
 def dilation_schedule(D: Sequence, mode: str) -> List[int]:
@@ -161,6 +166,7 @@ class ConvTCBlock(nn.Module):
         self.use_bn = batch_norm in BN_ON_CNN
         self.pools = [(int(p[0]), int(p[1]) if pool_time == "CNN" else 1) for p in pool_size]
         self.n_stages = len(cnn_filters)
+        self.cnn_filters = tuple(int(c) for c in cnn_filters)
         cin, f = input_channels, freq_dim
         for i, c in enumerate(cnn_filters):
             setattr(self, f"cnn_{i}", make_conv(
@@ -173,6 +179,56 @@ class ConvTCBlock(nn.Module):
             domain, cin * f, G, U, V, V_kernel_size, pool_size, D, dilation_mode, pool_time,
             batch_norm, kernel_size_dilated_conv, attention_impl, use_bias,
             spatial_dropout_rate, device=device, generator=generator)
+
+    def _ct_train_ok(self, x) -> bool:
+        """Whether train mode runs every CNN stage through the kernel ops
+        (``frontend_impl='ct'``): the conditions of
+        ``seld_tpu/models/blocks.py::ConvTCBlock._ct_train_ok`` (3x3 bias-free
+        conv, BN on, Cin <= 8 for stage 0, frequency-only pools dividing F at
+        every stage, every stage's width a multiple of 8). On a CUDA tensor
+        that fails them it raises; on the CPU it warns and the plain stages
+        run."""
+        if self.frontend_impl != "ct":
+            return False
+        f, ok = x.shape[1], True
+        for pf, pt in self.pools[:self.n_stages]:
+            ok = ok and pt == 1 and 1 <= pf <= conv2d_train.MAX_POOL_F and f % pf == 0
+            f //= max(pf, 1)
+        ok = (ok and self.kernel_size == 3 and not self.use_bias and self.use_bn
+              and x.shape[-1] <= conv2d_train.MAX_CIN
+              and all(c % conv2d_ct_train.CIN_CHUNK == 0 for c in self.cnn_filters))
+        if not ok:
+            msg = ("frontend_impl='ct' asked for, but the CNN stages do not meet the K5/K9 "
+                   "conditions (3x3 bias-free conv, BN on, Cin <= 8, frequency-only pools "
+                   "dividing F, stage widths a multiple of 8)")
+            if x.is_cuda:   # a CUDA tensor launches the kernels or raises
+                raise ValueError(msg)
+            warnings.warn(f"{msg}: the plain stages run", stacklevel=3)
+        return ok
+
+    def _frontend_ct_train(self, x, generator):
+        """Train-mode CNN front-end in the (B, C, F, T) layout: stage 0
+        through the K5 op (``out_layout='CT'``), the later stages through the
+        K9 op, dropout after each stage (drawn on the (B, C, F, T) tensor, so
+        its masks differ from the channel-last stages' for the same
+        generator). Each stage's BN running statistics update with
+        n = B * F * T of its conv output. Returns (B, C', F', T)."""
+        b, f_cur, t, _ = x.shape
+        h = None
+        for i in range(self.n_stages):
+            pf = self.pools[i][0]
+            bn = getattr(self, f"cnn_bn_{i}")
+            w = getattr(self, f"cnn_{i}").dense_kernel().to(x.dtype)
+            if i == 0:
+                h, mean, var = conv2d_train.conv2d_bn_relu_fpool_train(
+                    x, w, bn.scale, bn.bias, pf, BN_EPS, out_layout="CT")
+            else:
+                h, mean, var = conv2d_ct_train.conv2d_ct_bn_relu_fpool_train(
+                    h, w, bn.scale, bn.bias, pf, BN_EPS)
+            bn.update_running(mean, var, b * f_cur * t)
+            f_cur //= pf
+            h = self.dropout(h, True, generator)
+        return h
 
     def _fused_train_ok(self, x, pool) -> bool:
         """Whether train-mode stage 0 runs the K5 op: 'auto' on a float32 or
@@ -207,6 +263,11 @@ class ConvTCBlock(nn.Module):
         return out
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        if train and self._ct_train_ok(x):
+            h = self._frontend_ct_train(x, generator)             # (B, C, F', T)
+            b, c, f, t = h.shape
+            x = h.permute(0, 3, 1, 2).reshape(b, t, c * f)
+            return self.tcn(x, train, generator)
         for i in range(self.n_stages):
             if i == 0 and train and self._fused_train_ok(x, self.pools[0]):
                 x = self._stage0_fused_train(x, self.pools[0])

@@ -28,9 +28,35 @@ from seld_tpu_torch.models.blocks import ConvTCBlock, receptive_field
 from seld_tpu_torch.models.layers import Dense, Dropout, make_linear
 
 PARALLEL_2 = {"2Parallel", "2BParallel", "2ParallelBranches", "2PB"}
+_Q_NAMES = {"q", "Q", "quaternion", "Quaternion"}
+_DQ_NAMES = {"dq", "dQ", "DQ", "dual_quaternion", "Dual_Quaternion"}
+_OFF = {"False", "false", "None", "none"}
 _RELU = {"relu", "ReLU", "RELU"}
 _FC_DROPOUT_ALL = {"all", "ALL", "True"}
 _FC_DROPOUT_LAST = {"last", "Last", "LAST"}
+
+
+def synthesize_model_name(domain: str, dilation_mode: str, D: Sequence,
+                          parallel_ConvTC_block: str, batch_norm: str, pool_time: str, rf: int,
+                          n_resblocks: int, extra_name: str = "") -> str:
+    """The model name of ``seld_tpu/models/seld.py::synthesize_model_name``
+    (reference model.py:347-372): it names the trainer's result directories,
+    so it must match exactly."""
+    name = "Q" if domain in _Q_NAMES else ("DualQ" if domain in _DQ_NAMES else "")
+    name += "SELD-TCN"
+    if dilation_mode == "fibonacci":
+        name += "-PHI"
+    name += "-"
+    if len(D) > 1 and D[0] < D[1]:
+        name += "I"
+    name += f"S{len(D)}"
+    if parallel_ConvTC_block not in _OFF:
+        name += "_" + parallel_ConvTC_block
+    name += "_" + batch_norm
+    if pool_time == "CNN":
+        name += "_pooltCNN"
+    name += f"_RF{rf}_{n_resblocks}RB"
+    return name + extra_name
 
 
 class SELDModel(nn.Module):
@@ -70,6 +96,7 @@ class SELDModel(nn.Module):
         self.dropout = Dropout(dropout_perc)
         self.use_bias_conv, self.use_bias_linear = use_bias_conv, use_bias_linear
         self.batch_norm, self.attention_impl = batch_norm, attention_impl
+        self.parallel_ConvTC_block = parallel_ConvTC_block
         self.compute_dtype = compute_dtype
 
         self.seld_block = ConvTCBlock(
@@ -93,6 +120,13 @@ class SELDModel(nn.Module):
 
     def receptive_field(self):
         return receptive_field(self.D, self.kernel_size_dilated_conv, self.dilation_mode)
+
+    @property
+    def model_name(self) -> str:
+        rf, n_rb = self.receptive_field()
+        return synthesize_model_name(self.domain, self.dilation_mode, self.D,
+                                     self.parallel_ConvTC_block, self.batch_norm,
+                                     self.pool_time, rf, n_rb)
 
     def head(self, h: torch.Tensor, prefix: str, train: bool = False,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -123,12 +157,11 @@ _ATTENTION_IMPLS = {"full": "full", "chunked": "chunked", "pallas": "flash", "fl
 
 
 def _frontend_impl(name: str) -> str:
-    """The config's ``frontend_impl`` in the port's terms: 'pallas',
-    'pallas-thin' and 'pallas-interpret*' ask for the K5 op ('fused');
-    'pallas-ct*' asks for the train-mode stages 2-3 kernel, not ported yet."""
-    if name.startswith("pallas-ct"):
-        raise NotImplementedError("frontend_impl 'pallas-ct' (train-mode stages 2-3, K9) "
-                                  "is not ported yet")
+    """The config's ``frontend_impl`` in the port's terms: 'pallas-ct' and
+    'pallas-ct-interpret' ask for the K5 + K9 chain ('ct'); 'pallas',
+    'pallas-thin' and 'pallas-interpret*' for the K5 op ('fused')."""
+    if name in ("pallas-ct", "pallas-ct-interpret"):
+        return "ct"
     if name.startswith("pallas"):
         return "fused"
     return name

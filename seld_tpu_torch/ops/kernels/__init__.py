@@ -21,6 +21,11 @@ launch_counts = {
     "conv_train_stats": 0,
     "conv_train_sel_stats": 0,
     "conv_train_dw": 0,
+    "ct_train_stats": 0,
+    "ct_train_sel_stats": 0,
+    "ct_train_gz": 0,
+    "ct_train_dw": 0,
+    "ct_train_dx": 0,
 }
 
 

@@ -1,0 +1,332 @@
+"""Train-mode CNN stages 2-3 (K9): kernel wrappers, plain versions and the
+autograd Function.
+
+Counterpart of ``seld_tpu/ops/pallas/conv2d_ct_train.py::
+conv2d_widecin_ct_bn_relu_fpool_train``: h (B, C, F, T) with C % 8 == 0, w
+(3, 3, C, Cout), gamma / beta (Cout,) -> (out (B, Cout, F/pf, T) =
+maxpool_f(relu(bn_batchstats(conv(h, w)))), mean, var), with the biased
+batch statistics over N = B * F * T, and a backward for (h, w, gamma, beta):
+stage 2 passes its gradient on to stage 1. The max-pool routes its gradient
+to the first row holding the max, the ReLU to where the pre-activation is
+> 0; g_z = scale * (g_pre - S_g/N - xhat * S_gx/N) is formed before any
+product and rounded to the input dtype before both the dW and the dh
+products; dgamma = S_gx, dbeta = S_g; the cotangents of mean and var (the
+running statistics' inputs) are ignored.
+
+Passes; each wrapper launches its kernel (``csrc/conv3x3_ct_train.cu``) for
+CUDA tensors and runs its plain version for CPU tensors:
+
+- F1 :func:`ct_train_stats` — the conv written once as ``pre`` (float), and
+  its per-channel sum and sum of squares;
+- (torch) mean, var, the BN affine;
+- F2 — conv + affine + ReLU + frequency max-pool: on CUDA tensors
+  ``conv2d_pool.conv2d_bn_relu_fpool`` (K3's ``seld_conv3x3_widecin``, its
+  launches counted under that name; K2's ``seld_conv3x3_smallcin`` for C = 8,
+  whose single chunk sums in the same order) fed the batch-statistics affine;
+  its conv rows equal ``pre`` bit for bit (one shared conv row); on CPU
+  tensors ``conv2d_train.conv_train_fwd_plain``;
+- B1 :func:`ct_sel_stats` — S_g and S_gx, routed from ``pre``;
+- B2 :func:`ct_gz` — g_z, written once in the input dtype, and
+  :func:`ct_dw` — dW from g_z and h;
+- B3 :func:`ct_dx` — dh, the transposed conv of g_z with w.
+
+B1 and B2 read ``pre`` where the TPU kernel recomputed the conv: on an 80 GB
+card the float pre-activation of a flagship stage 2 at batch 8 (944 MB) is
+cheaper to keep than a fourth and fifth conv.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from seld_tpu_torch import _build
+from seld_tpu_torch.ops.kernels import (
+    dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
+)
+from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
+
+BLOCK_T = 128        # frames per kernel tile (kBT in conv3x3_common.cuh)
+CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
+DW_SPLITS = 64       # the dW pass shares the B * F rows among at most this many blocks
+GRID_MAX = 65535     # the grid's y and z range
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _check(h, w, pool_f) -> None:
+    if h.ndim != 4:
+        raise ValueError(f"h must be (B, C, F, T), got {tuple(h.shape)}")
+    c = h.shape[1]
+    if c % CIN_CHUNK:
+        raise ValueError(f"stages 2-3 take C % {CIN_CHUNK} == 0, got C={c}")
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"w must be (3, 3, {c}, Cout), got {tuple(w.shape)}")
+    if pool_f < 1 or h.shape[2] % pool_f:
+        raise ValueError(f"F={h.shape[2]} must divide into pool_f={pool_f} rows")
+
+
+def _check_rows(pre, g, cols, pool_f) -> None:
+    b, cout, f, t = pre.shape
+    if pool_f < 1 or f % pool_f:
+        raise ValueError(f"F={f} must divide into pool_f={pool_f} rows")
+    if tuple(g.shape) != (b, cout, f // pool_f, t):
+        raise ValueError(f"g must be {(b, cout, f // pool_f, t)}, got {tuple(g.shape)}")
+    if tuple(cols.shape) != (6, cout):
+        raise ValueError(f"cols must be (6, {cout}), got {tuple(cols.shape)}")
+
+
+def _conv_plain(h, w) -> torch.Tensor:
+    """The conv in float32 (float64 for float64 input) on the input's values:
+    (B, Cout, F, T), as the kernels accumulate it."""
+    cdt = _acc_dtype(h)
+    return F.conv2d(h.to(cdt), w.to(cdt).permute(3, 2, 0, 1), padding=1)
+
+
+def _launch_prelude(x, w, name):
+    require_contiguous(x=x, w=w)
+    if w.dtype != x.dtype:
+        raise TypeError(f"{name}: w is {w.dtype}, input is {x.dtype}")
+    return dtype_code(x), _build.load()
+
+
+def _rows_prelude(pre, g, cols, name):
+    require_contiguous(pre=pre, g=g, cols=cols)
+    if pre.dtype != torch.float32 or cols.dtype != torch.float32:
+        raise TypeError(f"{name}: pre and cols must be float32")
+    if pre.shape[1] > GRID_MAX or g.shape[0] * g.shape[2] > GRID_MAX:
+        raise ValueError(f"{name}: Cout or B * F' exceeds the grid's range")
+    return dtype_code(g), _build.load()
+
+
+# ---- F1: the conv, once, and its batch statistics ----------------------------
+
+def ct_train_stats_plain(h, w):
+    """(sums (2 * Cout,) = [sum | sum of squares] over (B, F, T), pre (B,
+    Cout, F, T)) of the float conv."""
+    pre = _conv_plain(h, w)
+    return torch.cat([pre.sum((0, 2, 3)), (pre * pre).sum((0, 2, 3))]), pre
+
+
+def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
+    """h (B, C, F, T), w (3, 3, C, Cout) -> (sums (2 * Cout,) float32, pre
+    (B, Cout, F, T) float32). ``pool_f`` sets the kernel's tiling (one block
+    per pooled row, as F2's)."""
+    _check(h, w, pool_f)
+    if not on_cuda(h, w):
+        return ct_train_stats_plain(h, w)
+    code, lib = _launch_prelude(h, w, "ct_train_stats")
+    b, c, f, t = h.shape
+    cout = w.shape[3]
+    if b * (f // pool_f) > GRID_MAX:
+        raise ValueError("B * F / pool_f exceeds the grid's z range")
+    pre = torch.empty((b, cout, f, t), dtype=torch.float32, device=h.device)
+    rows = b * (f // pool_f) * -(-t // BLOCK_T)
+    partials = torch.empty((rows, 2 * cout), dtype=torch.float32, device=h.device)
+    sums = torch.empty(2 * cout, dtype=torch.float32, device=h.device)
+    err = lib.seld_ct_train_stats(
+        h.data_ptr(), w.data_ptr(), pre.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+        b, c, f, t, cout, pool_f, code, stream_handle(h.device))
+    _build.check(err, "seld_ct_train_stats")
+    launch_counts["ct_train_stats"] += 1
+    return sums, pre
+
+
+# ---- B1, B2: routing from pre ------------------------------------------------
+
+def _route_plain(pre, g, cols, pool_f):
+    """(g_pre, xhat), both (B, Cout, F, T): g routed to the first row of each
+    pool window holding the max of relu(pre * scale + bias), where that max
+    is > 0; xhat = (pre - mean) * inv."""
+    b, cout, f, t = pre.shape
+    col = lambda i: cols[i].to(pre.dtype)[:, None, None]
+    y = torch.relu(pre * col(0) + col(1)).view(b, cout, f // pool_f, pool_f, t)
+    m, idx = y.max(dim=3)                                          # first max
+    zero = torch.zeros((), dtype=pre.dtype, device=pre.device)
+    gsel = torch.where(m > 0, g.to(pre.dtype), zero)
+    g_pre = torch.zeros_like(y).scatter_(3, idx.unsqueeze(3), gsel.unsqueeze(3))
+    return g_pre.view(b, cout, f, t), (pre - col(2)) * col(3)
+
+
+def ct_sel_stats_plain(pre, g, cols, pool_f: int) -> torch.Tensor:
+    """(2 * Cout,) = [S_g | S_gx] = [sum g_pre | sum g_pre * xhat]."""
+    g_pre, xhat = _route_plain(pre, g, cols, pool_f)
+    return torch.cat([g_pre.sum((0, 2, 3)), (g_pre * xhat).sum((0, 2, 3))])
+
+
+def ct_sel_stats(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor,
+                 pool_f: int) -> torch.Tensor:
+    """pre (B, Cout, F, T) float, g (B, Cout, F/pf, T), cols (6, Cout) float
+    (rows scale, bias, mean, inv; rows 4-5 unused) -> (2 * Cout,) float."""
+    _check_rows(pre, g, cols, pool_f)
+    if not on_cuda(pre, g, cols):
+        return ct_sel_stats_plain(pre, g, cols, pool_f)
+    code, lib = _rows_prelude(pre, g, cols, "ct_sel_stats")
+    b, cout, f, t = pre.shape
+    partials = torch.empty((b * (f // pool_f), 2 * cout), dtype=torch.float32,
+                           device=pre.device)
+    sums = torch.empty(2 * cout, dtype=torch.float32, device=pre.device)
+    err = lib.seld_ct_train_sel_stats(
+        pre.data_ptr(), g.data_ptr(), cols.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+        b, cout, f, t, pool_f, code, stream_handle(pre.device))
+    _build.check(err, "seld_ct_train_sel_stats")
+    launch_counts["ct_train_sel_stats"] += 1
+    return sums
+
+
+def ct_gz_plain(pre, g, cols, pool_f: int) -> torch.Tensor:
+    """g_z = scale * (g_pre - c1 - xhat * c2) (B, Cout, F, T), rounded to g's
+    dtype."""
+    g_pre, xhat = _route_plain(pre, g, cols, pool_f)
+    col = lambda i: cols[i].to(pre.dtype)[:, None, None]
+    return (col(0) * (g_pre - col(4) - xhat * col(5))).to(g.dtype)
+
+
+def ct_gz(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """pre, g as for :func:`ct_sel_stats`; cols (6, Cout): scale, bias, mean,
+    inv, c1 = S_g / N, c2 = S_gx / N -> g_z (B, Cout, F, T) in g's dtype."""
+    _check_rows(pre, g, cols, pool_f)
+    if not on_cuda(pre, g, cols):
+        return ct_gz_plain(pre, g, cols, pool_f)
+    code, lib = _rows_prelude(pre, g, cols, "ct_gz")
+    b, cout, f, t = pre.shape
+    gz = torch.empty(pre.shape, dtype=g.dtype, device=pre.device)
+    err = lib.seld_ct_train_gz(pre.data_ptr(), g.data_ptr(), cols.data_ptr(), gz.data_ptr(),
+                               b, cout, f, t, pool_f, code, stream_handle(pre.device))
+    _build.check(err, "seld_ct_train_gz")
+    launch_counts["ct_train_gz"] += 1
+    return gz
+
+
+# ---- B2: dW; B3: dh ------------------------------------------------------------
+
+def ct_dw_plain(h, gz) -> torch.Tensor:
+    """(3, 3, C, Cout) = sum over (b, f, t) of gz * the shifted h, in float."""
+    cdt = _acc_dtype(h)
+    dw = torch.nn.grad.conv2d_weight(h.to(cdt), (gz.shape[1], h.shape[1], 3, 3),
+                                     gz.to(cdt), padding=1)
+    return dw.permute(2, 3, 1, 0)
+
+
+def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
+    """h (B, C, F, T), gz (B, Cout, F, T) of one dtype -> dW (3, 3, C, Cout)
+    float32."""
+    if h.ndim != 4 or gz.ndim != 4 or h.shape[0] != gz.shape[0] or h.shape[2:] != gz.shape[2:]:
+        raise ValueError(f"h {tuple(h.shape)} and gz {tuple(gz.shape)} must be (B, *, F, T) "
+                         "of one B, F and T")
+    if h.shape[1] % CIN_CHUNK:
+        raise ValueError(f"stages 2-3 take C % {CIN_CHUNK} == 0, got C={h.shape[1]}")
+    if not on_cuda(h, gz):
+        return ct_dw_plain(h, gz)
+    code, lib = _launch_prelude(h, gz, "ct_dw")
+    b, c, f, t = h.shape
+    cout = gz.shape[1]
+    rows_per_split = -(-(b * f) // DW_SPLITS)
+    splits = -(-(b * f) // rows_per_split)
+    partials = torch.empty((splits, 9 * c * cout), dtype=torch.float32, device=h.device)
+    dw = torch.empty((3, 3, c, cout), dtype=torch.float32, device=h.device)
+    err = lib.seld_ct_train_dw(h.data_ptr(), gz.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+                               b, c, f, t, cout, rows_per_split, code, stream_handle(h.device))
+    _build.check(err, "seld_ct_train_dw")
+    launch_counts["ct_train_dw"] += 1
+    return dw
+
+
+def ct_dx_plain(gz, w) -> torch.Tensor:
+    """dh (B, C, F, T) in gz's dtype: the input gradient of the conv with
+    weights w at output gradient gz, in float."""
+    cdt = _acc_dtype(gz)
+    b, _, f, t = gz.shape
+    dh = torch.nn.grad.conv2d_input((b, w.shape[2], f, t), w.to(cdt).permute(3, 2, 0, 1),
+                                    gz.to(cdt), padding=1)
+    return dh.to(gz.dtype)
+
+
+def ct_dx(gz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """gz (B, Cout, F, T), w (3, 3, C, Cout) of one dtype -> dh (B, C, F, T)
+    in that dtype."""
+    if gz.ndim != 4 or w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[3] != gz.shape[1]:
+        raise ValueError(f"gz {tuple(gz.shape)} and w {tuple(w.shape)} must be (B, Cout, F, T) "
+                         "and (3, 3, C, Cout)")
+    if not on_cuda(gz, w):
+        return ct_dx_plain(gz, w)
+    code, lib = _launch_prelude(gz, w, "ct_dx")
+    b, cout, f, t = gz.shape
+    c = w.shape[2]
+    if b * f > GRID_MAX:
+        raise ValueError("B * F exceeds the grid's z range")
+    dh = torch.empty((b, c, f, t), dtype=gz.dtype, device=gz.device)
+    err = lib.seld_ct_train_dx(gz.data_ptr(), w.data_ptr(), dh.data_ptr(), b, c, f, t, cout,
+                               code, stream_handle(gz.device))
+    _build.check(err, "seld_ct_train_dx")
+    launch_counts["ct_train_dx"] += 1
+    return dh
+
+
+# ---- the op ---------------------------------------------------------------------
+
+def conv2d_ct_bn_relu_fpool_train_plain(h, w, gamma, beta, pool_f: int, eps: float = 1e-5):
+    """Plain version of the op, differentiated by torch autograd: the float
+    conv, batch statistics (E[z^2] - E[z]^2), BN, ReLU, max-pool (gradient to
+    the first max). h (B, C, F, T) -> (out (B, Cout, F/pf, T) in h's dtype,
+    mean, var)."""
+    z = _conv_plain(h, w)
+    mean = z.mean((0, 2, 3))
+    var = torch.clamp((z * z).mean((0, 2, 3)) - mean * mean, min=0.0)
+    scale = gamma.to(z.dtype) * torch.rsqrt(var + eps)
+    y = z * scale[:, None, None] + (beta.to(z.dtype) - mean * scale)[:, None, None]
+    out = F.max_pool2d(torch.relu(y), (pool_f, 1)).to(h.dtype)
+    return out, mean.detach(), var.detach()
+
+
+class _ConvCTTrainFn(torch.autograd.Function):
+    """(h (B, C, F, T), w, gamma, beta) -> (out (B, Cout, F/pf, T), mean, var)."""
+
+    @staticmethod
+    def forward(ctx, h, w, gamma, beta, pool_f, eps):
+        cout = w.shape[3]
+        n = h.shape[0] * h.shape[2] * h.shape[3]
+        sums, pre = ct_train_stats(h, w, pool_f)
+        mean = sums[:cout] / n
+        var = torch.clamp(sums[cout:] / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        scale = gamma.to(inv.dtype) * inv
+        bias = beta.to(inv.dtype) - mean * scale
+        if on_cuda(h, w):   # F2: K3's widecin kernel fed the batch-statistics affine
+            out = conv2d_bn_relu_fpool(h, w, scale.contiguous(), bias.contiguous(), pool_f)
+        else:
+            out = conv_train_fwd_plain(h, w, scale, bias, pool_f)
+        ctx.save_for_backward(h, w, pre, mean, inv, scale, bias)
+        ctx.pool_f, ctx.n = pool_f, n
+        ctx.param_dtypes = (gamma.dtype, beta.dtype)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g_out, _g_mean, _g_var):
+        h, w, pre, mean, inv, scale, bias = ctx.saved_tensors
+        cout, n, pf = w.shape[3], ctx.n, ctx.pool_f
+        g = g_out.to(h.dtype).contiguous()
+        zero = torch.zeros_like(scale)
+        sel = ct_sel_stats(pre, g, torch.stack([scale, bias, mean, inv, zero, zero]), pf)
+        sg, sgx = sel[:cout], sel[cout:]
+        gz = ct_gz(pre, g, torch.stack([scale, bias, mean, inv, sg / n, sgx / n]), pf)
+        dw = ct_dw(h, gz)
+        dh = ct_dx(gz, w) if ctx.needs_input_grad[0] else None
+        g_dt, b_dt = ctx.param_dtypes
+        return dh, dw.to(w.dtype), sgx.to(g_dt), sg.to(b_dt), None, None
+
+
+def conv2d_ct_bn_relu_fpool_train(h: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
+                                  beta: torch.Tensor, pool_f: int, eps: float = 1e-5):
+    """h (B, C, F, T) with C % 8 == 0, w (3, 3, C, Cout) in h's dtype,
+    gamma / beta (Cout,) -> (out (B, Cout, F/pf, T) in h's dtype, mean
+    (Cout,), var (Cout,)).
+
+    Differentiable in h, w, gamma and beta; mean and var are the biased
+    batch statistics for the caller's running-average update."""
+    _check(h, w, pool_f)
+    return _ConvCTTrainFn.apply(h.contiguous(), w.contiguous(), gamma, beta, pool_f, eps)

@@ -286,13 +286,17 @@ class _ConvTrainFn(torch.autograd.Function):
 
 
 def conv2d_bn_relu_fpool_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
-                               beta: torch.Tensor, pool_f: int, eps: float = 1e-5):
+                               beta: torch.Tensor, pool_f: int, eps: float = 1e-5,
+                               out_layout: str = "channel_last"):
     """x (B, F, T, Cin), w (3, 3, Cin, Cout) in x's dtype, gamma / beta (Cout,)
     -> (out (B, F/pf, T, Cout) in x's dtype, mean (Cout,), var (Cout,)).
 
     Differentiable in w, gamma and beta (not x); mean and var are the biased
     batch statistics for the caller's running-average update. out is a
-    channel-last view of the kernels' (B, Cout, F/pf, T) result."""
+    channel-last view of the kernels' (B, Cout, F/pf, T) result, or that
+    result itself with ``out_layout='CT'`` (the layout stages 2-3 take)."""
+    if out_layout not in ("channel_last", "CT"):
+        raise ValueError(f"out_layout {out_layout!r} not in ('channel_last', 'CT')")
     xc = x.permute(0, 3, 1, 2).contiguous()
     out, mean, var = _ConvTrainFn.apply(xc, w.contiguous(), gamma, beta, pool_f, eps)
-    return out.permute(0, 2, 3, 1), mean, var
+    return (out if out_layout == "CT" else out.permute(0, 2, 3, 1)), mean, var

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -69,3 +70,15 @@ def load_checkpoint(path: str, state: TrainState,
         np_rng.bit_generator.state = payload["np_rng_state"]
     sched = StepLRState(**payload["sched"]) if payload["sched"] is not None else None
     return state, payload["loop_state"], sched
+
+
+def archive_checkpoints(model_dir: str, epoch: int, files: Dict[str, str]) -> str:
+    """Copy the given role -> file checkpoints into ``checkpoint_epoch_<epoch>``
+    under ``model_dir`` as ``<role>_epoch_<epoch>`` (reference
+    train.py:676-688); returns the directory."""
+    archive_dir = os.path.join(model_dir, f"checkpoint_epoch_{epoch}")
+    os.makedirs(archive_dir, exist_ok=True)
+    for tag, src in files.items():
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(archive_dir, f"{tag}_epoch_{epoch}"))
+    return archive_dir

@@ -120,3 +120,15 @@ def make_eval_step(cfg):
         return loss_of(sed, doa, y)
 
     return eval_step
+
+
+def make_infer_step(cfg):
+    """Returns ``infer_step(model, x) -> (sed, doa)``: the eval-mode forward
+    (running BN statistics, no dropout) in the step's compute dtype, without
+    gradients."""
+
+    @torch.no_grad()
+    def infer_step(model: SELDModel, x: torch.Tensor):
+        return model(_input(cfg, x), train=False)
+
+    return infer_step

@@ -1,0 +1,228 @@
+"""K9 (train-mode CNN stages 2-3) and the ``frontend_impl='pallas-ct'``
+training step of the port against the JAX package, on the CPU.
+
+- the K9 op (``conv2d_ct_bn_relu_fpool_train``, its passes' plain versions)
+  against ``seld_tpu/ops/pallas/conv2d_ct_train.py::
+  conv2d_widecin_ct_bn_relu_fpool_train`` in interpret mode with
+  ``jax.vjp``: out, mean, var, dh, dW, dgamma, dbeta at
+  ``tests/test_conv2d_ct_train.py``'s two shapes and one with Cout not a
+  multiple of 8; the port in float64 on the same float32 inputs, forward
+  within 2e-4 x max|ref| and gradients within 3e-4 x max|ref|, as the JAX
+  package's own test holds its op;
+- the op's passes (the autograd Function's CPU path) against torch autograd
+  of the plain op, float64, 1e-10 x max|ref|;
+- one train step of a tiny model with every CNN stage on the kernel ops:
+  the port in float64 against ``seld_tpu.training.steps.make_train_step``
+  with ``frontend_impl='xla'`` in float64 on bridged weights (1e-9), and the
+  port in float32 against the JAX model with ``'pallas-ct-interpret'`` in
+  float32 (loss within 5e-5 relative, each gradient within 1e-4 relative
+  norm).
+
+Inputs are drawn by numpy from a seed and fed to both sides.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax._src.config import enable_x64
+
+from seld_tpu.models import model_from_config as jax_model_from_config
+from seld_tpu.ops.pallas.conv2d_ct_train import conv2d_widecin_ct_bn_relu_fpool_train as jk9
+from seld_tpu.training.loss import seld_loss as jax_seld_loss
+from seld_tpu.training.steps import TrainState as JaxTrainState
+from seld_tpu.training.steps import make_optimizer as jax_make_optimizer
+from seld_tpu.training.steps import make_train_step as jax_make_train_step
+from seld_tpu_torch.models.seld import model_from_config
+from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from seld_tpu_torch.training import create_train_state, make_train_step, seld_loss
+from seld_tpu_torch.utils.jax_bridge import from_jax_variables, to_jax_variables
+from tests.test_torch_model import random_variables, tiny_config
+from tests.test_torch_training import _assert_trees_close, _batch, _port_cfg
+
+FWD_TOL, GRAD_TOL = 2e-4, 3e-4   # x max|ref|
+# b, f, t, c, cout, pf: test_conv2d_ct_train.py's stage2ish and stage3ish, and
+# Cout 12 (not a multiple of 8) with a ragged T
+SHAPES = [(2, 16, 250, 16, 24, 8), (2, 4, 130, 16, 16, 2), (2, 8, 37, 8, 12, 4)]
+NAMES = ("out", "mean", "var", "dh", "dw", "dgamma", "dbeta")
+
+
+def _close(got, want, tol):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """CPU tensors take the plain versions: no wrapper may count a launch."""
+    reset_launch_counts()
+    yield
+    assert all(v == 0 for v in launch_counts.values()), launch_counts
+
+
+def _case(rng, b, f, t, c, cout, pf):
+    h = rng.standard_normal((b, c, f, t)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, c, cout)) * 0.2).astype(np.float32)
+    gamma = (1.0 + 0.5 * rng.standard_normal(cout)).astype(np.float32)
+    beta = (0.2 * rng.standard_normal(cout)).astype(np.float32)
+    probe = rng.standard_normal((b, cout, f // pf, t)).astype(np.float32)
+    return h, w, gamma, beta, probe
+
+
+def _port(fn, h, w, gamma, beta, probe, pf):
+    """The op and its gradients on float64 copies of the inputs."""
+    ts = [torch.from_numpy(a).double() for a in (h, w, gamma, beta, probe)]
+    leaves = [a.requires_grad_() for a in ts[:4]]
+    out, mean, var = fn(*leaves, pf)
+    (out * ts[4]).sum().backward()
+    return [a.detach().numpy() for a in (out, mean, var, *(v.grad for v in leaves))]
+
+
+@pytest.mark.parametrize("b,f,t,c,cout,pf", SHAPES)
+def test_k9_matches_pallas_train_op(rng, b, f, t, c, cout, pf):
+    h, w, gamma, beta, probe = _case(rng, b, f, t, c, cout, pf)
+    h_ct = np.ascontiguousarray(h.transpose(0, 2, 1, 3))        # (B, F, C, T)
+
+    def jfn(h_, w_, g_, b_):
+        return jk9(h_, t, w_, g_, b_, pf, 1e-5, interpret=True)
+
+    (out, mean, var), vjp = jax.vjp(jfn, *map(jnp.asarray, (h_ct, w, gamma, beta)))
+    tpad = out.shape[-1]
+    cot = np.zeros(out.shape, np.float32)                         # (B, F', Cout, tpad)
+    cot[..., :t] = probe.transpose(0, 2, 1, 3)
+    dh, dw, dgamma, dbeta = vjp((jnp.asarray(cot), jnp.zeros_like(mean), jnp.zeros_like(var)))
+    assert tpad >= t and np.all(np.asarray(out)[..., t:] == 0.0)
+    want = [np.asarray(out)[..., :t].transpose(0, 2, 1, 3), mean, var,
+            np.asarray(dh).transpose(0, 2, 1, 3), dw, dgamma, dbeta]
+    got = _port(k9.conv2d_ct_bn_relu_fpool_train, h, w, gamma, beta, probe, pf)
+    for name, g_, w_ in zip(NAMES, got, want):
+        assert np.isfinite(g_).all(), name
+        _close(g_, w_, FWD_TOL if name in ("out", "mean", "var") else GRAD_TOL)
+
+
+@pytest.mark.parametrize("b,f,t,c,cout,pf", SHAPES)
+def test_k9_passes_match_autograd_of_the_plain_op(rng, b, f, t, c, cout, pf):
+    """F1 + F2 + B1 + B2 + B3 (each pass's plain version, routed through the
+    autograd Function) against torch autograd of the plain composition."""
+    case = _case(rng, b, f, t, c, cout, pf)
+    got = _port(k9.conv2d_ct_bn_relu_fpool_train, *case, pf)
+    want = _port(k9.conv2d_ct_bn_relu_fpool_train_plain, *case, pf)
+    for name, g_, w_ in zip(NAMES, got, want):
+        _close(g_, w_, 1e-10)
+
+
+def test_k9_rejects_what_the_kernels_do_not_take():
+    h = torch.zeros(1, 12, 8, 10)   # C 12: not a multiple of 8
+    s = torch.ones(4)
+    with pytest.raises(ValueError):
+        k9.conv2d_ct_bn_relu_fpool_train(h, torch.zeros(3, 3, 12, 4), s, s, 2)
+    with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
+        k9.conv2d_ct_bn_relu_fpool_train(h[:, :8], torch.zeros(3, 3, 8, 4), s, s, 3)
+
+
+# ---- the pallas-ct training step ----------------------------------------------
+
+def _ct_cfg(**kw):
+    """tiny_config (CNN 8 / 16, stage pools 2 and 2, Cin 8, bias-free convs, BN
+    on) with dropout off: every CNN stage meets the K5/K9 conditions."""
+    base = dict(dropout_perc=0.0, spatial_dropout_rate=0.0, lr=1e-3)
+    base.update(kw)
+    return tiny_config(**base)
+
+
+def test_ct_train_steps_match_jax_plain_stages(rng):
+    """Three float64 steps, port 'pallas-ct' (K5 + K9 on their plain versions)
+    against the JAX package's 'xla' stages: losses, parameters, BN stats."""
+    cfg = _ct_cfg(frontend_impl="xla")
+    x, y = _batch(rng, 2)
+    variables = random_variables(jax_model_from_config(cfg), x.shape, rng)
+    with enable_x64(True):
+        jmodel = jax_model_from_config(cfg)
+        tx = jax_make_optimizer(cfg.lr)
+        params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+        jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                               batch_stats=jax.tree_util.tree_map(jnp.asarray,
+                                                                  variables["batch_stats"]),
+                               opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
+        jstep = jax_make_train_step(jmodel, tx, cfg)
+        jlosses = []
+        for _ in range(3):
+            jstate, loss = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
+            jlosses.append(float(loss))
+        jstate = jax.device_get(jstate)
+    pcfg = _port_cfg(cfg).replace(frontend_impl="pallas-ct")
+    model = model_from_config(pcfg).double()
+    assert model.seld_block.frontend_impl == "ct"
+    from_jax_variables(variables, model)
+    state = create_train_state(model, pcfg, torch.Generator().manual_seed(0))
+    step = make_train_step(pcfg)
+    plosses = []
+    for _ in range(3):
+        state, loss = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        plosses.append(float(loss))
+    np.testing.assert_allclose(plosses, jlosses, rtol=1e-9)
+    tree = to_jax_variables(model)
+    _assert_trees_close(tree["params"], jstate.params, 1e-9)
+    _assert_trees_close(tree["batch_stats"], jstate.batch_stats, 1e-9)
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat(v, name)
+        else:
+            yield name, np.asarray(v)
+
+
+def test_ct_train_step_f32_matches_jax_pallas_ct_interpret(rng):
+    """float32: the port's 'pallas-ct' forward and backward against the JAX
+    model with its K5 and K9 Pallas ops in interpret mode."""
+    cfg = _ct_cfg(frontend_impl="pallas-ct-interpret")
+    x, y = _batch(rng, 2, np.float32)
+    variables = random_variables(jax_model_from_config(cfg), x.shape, rng, np.float32)
+    jmodel = jax_model_from_config(cfg)
+
+    def loss_fn(params):
+        (sed, doa), _ = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                                     jnp.asarray(x), train=True, mutable=["batch_stats"],
+                                     rngs={"dropout": jax.random.PRNGKey(0)})
+        return jax_seld_loss(sed, doa, jnp.asarray(y))
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(
+        jax.tree_util.tree_map(jnp.asarray, variables["params"]))
+    model = model_from_config(_port_cfg(cfg))
+    assert model.seld_block.frontend_impl == "ct"
+    from_jax_variables(variables, model)
+    sed, doa = model(torch.from_numpy(x), train=True)
+    loss = seld_loss(sed, doa, torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=5e-5)
+    want = dict(_flat(jax.device_get(jgrads)))
+    got = {n: p.grad.numpy() for n, p in model.named_parameters() if p.grad is not None}
+    assert set(got) <= set(want) and len(got) >= len(want) - 1   # the last conv_res feeds nothing
+    for name, g in got.items():
+        rel = np.linalg.norm(g - want[name]) / max(np.linalg.norm(want[name]), 1e-30)
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_ct_frontend_warns_and_runs_the_plain_stages_on_the_cpu(rng):
+    """'pallas-ct' with biased convs (the kernels' convs are bias-free): on the
+    CPU the plain stages run, with a warning, and give the 'xla' model's loss
+    (a CUDA tensor raises: tests/test_torch_cuda.py)."""
+    x, y = (torch.from_numpy(a) for a in _batch(rng, 2))
+    losses = []
+    for impl in ("pallas-ct", "xla"):
+        pcfg = _port_cfg(_ct_cfg(use_bias_conv=True, frontend_impl=impl))
+        model = model_from_config(pcfg, generator=torch.Generator().manual_seed(1)).double()
+        if impl == "pallas-ct":
+            with pytest.warns(UserWarning, match="K5/K9 conditions"):
+                sed, doa = model(x, train=True)
+        else:
+            sed, doa = model(x, train=True)
+        losses.append(float(seld_loss(sed, doa, y).detach()))
+    assert losses[0] == losses[1]

@@ -14,6 +14,7 @@ import torch
 
 import seld_tpu_torch
 from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
 from seld_tpu_torch.ops.kernels import conv2d_train as k5
 from seld_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
@@ -183,5 +184,92 @@ def test_fused_frontend_raises_where_k5_cannot_run(gen):
                         generator=torch.Generator().manual_seed(0))
     x = torch.randn(2, 16, 8, 8, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="K5 conditions"):
+        block(x, train=True, generator=gen)
+    assert all(v == 0 for v in launch_counts.values())
+
+
+K9_SHAPES = [(2, 24, 24, 300, 72, 8),    # 3 T tiles, 2 Cout tiles, 3 pool groups, 3 Cin chunks
+             (3, 16, 12, 777, 200, 4),   # Cout 200: 4 Cout tiles, the last ragged
+             (2, 8, 8, 130, 12, 2)]      # Cout 12: not a multiple of 8
+
+
+def k9_inputs(gen, b, c, f, t, cout, dtype):
+    """K9 inputs on a grid (k5_inputs' reason), h (B, C, F, T)."""
+    h = torch.randint(-2, 3, (b, c, f, t), generator=gen, device="cuda").to(dtype)
+    w = (torch.randint(-4, 5, (3, 3, c, cout), generator=gen, device="cuda") / 16).to(dtype)
+    gamma = 1.0 + 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    beta = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    return h, w, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,c,f,t,cout,pf", K9_SHAPES)
+def test_conv_ct_train_op(gen, dtype, b, c, f, t, cout, pf):
+    """K9's five kernels and K3 through the autograd op against autograd of
+    the plain composition: out, mean, var, dh, dW, dgamma, dbeta."""
+    h, w, gamma, beta = k9_inputs(gen, b, c, f, t, cout, dtype)
+    g = torch.randn(b, cout, f // pf, t, generator=gen, device="cuda").to(dtype)
+    results = []
+    for fn in (k9.conv2d_ct_bn_relu_fpool_train, k9.conv2d_ct_bn_relu_fpool_train_plain):
+        leaves = [v.clone().requires_grad_() for v in (h, w, gamma, beta)]
+        out, mean, var = fn(*leaves, pf)
+        (out.float() * g.float()).sum().backward()
+        results.append((out, mean, var, *(v.grad for v in leaves)))
+    # F2 is K3's widecin kernel fed the batch-statistics affine (K2's for C = 8)
+    fwd = "conv3x3_smallcin" if c <= 8 else "conv3x3_widecin"
+    assert [launch_counts[n] for n in ("ct_train_stats", fwd, "ct_train_sel_stats",
+                                       "ct_train_gz", "ct_train_dw", "ct_train_dx")] == [1] * 6
+    for got, want in zip(*results):
+        _close(got, want, dtype if got.dtype == dtype else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,c,f,t,cout,pf", K9_SHAPES[:2])
+def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
+    """Each K9 pass against its plain version on the same inputs; F1's conv
+    rows equal F2's (K3's) bit for bit."""
+    h, w, gamma, beta = k9_inputs(gen, b, c, f, t, cout, dtype)
+    sums, pre = k9.ct_train_stats(h, w, pf)
+    want_sums, want_pre = k9.ct_train_stats_plain(h, w)
+    _close(sums, want_sums, torch.float32)
+    _close(pre, want_pre, torch.float32)
+    # F2 (K3) with the identity affine pools F1's rows bit for bit, also on
+    # real-valued inputs, where another summation order would round apart
+    one, zero = torch.ones(cout, device="cuda"), torch.zeros(cout, device="cuda")
+    hr = torch.randn(h.shape, generator=gen, device="cuda").to(dtype)
+    wr = (torch.randn(w.shape, generator=gen, device="cuda") / (9 * c) ** 0.5).to(dtype)
+    pre_r = k9.ct_train_stats(hr, wr, pf)[1]
+    want = torch.nn.functional.max_pool2d(torch.relu(pre_r), (pf, 1)).to(dtype)
+    assert torch.equal(conv2d_bn_relu_fpool(hr, wr, one, zero, pf), want)
+    out = conv2d_bn_relu_fpool(h, w, one, zero, pf)
+    scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    cols = torch.stack([scale, bias, 0.1 * torch.randn(cout, generator=gen, device="cuda"),
+                        0.5 + torch.rand(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda")])
+    _close(k9.ct_sel_stats(pre, g, cols, pf), k9.ct_sel_stats_plain(pre, g, cols, pf),
+           torch.float32)
+    gz = k9.ct_gz(pre, g, cols, pf)
+    _close(gz, k9.ct_gz_plain(pre, g, cols, pf), dtype)
+    dw = k9.ct_dw(h, gz)
+    _close(dw, k9.ct_dw_plain(h, gz), torch.float32)
+    _close(k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dtype)
+    # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
+    assert torch.equal(k9.ct_dw(h, gz), dw)
+
+
+def test_ct_frontend_raises_where_the_kernels_cannot_run(gen):
+    """frontend_impl='ct' on a CUDA tensor takes K5 + K9 or raises: stages
+    with biased convs do not fall back to the plain stages."""
+    from seld_tpu_torch.models.blocks import ConvTCBlock
+
+    block = ConvTCBlock("DQ", 8, 16, [8, 16], 3, [[2, 1], [2, 1]], "CNN", [1], "fibonacci", 16,
+                        16, 3, [16, 16], 3, use_bias=True, batch_norm="BN",
+                        attention_impl="full", frontend_impl="ct", device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 16, 8, 8, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="K5/K9 conditions"):
         block(x, train=True, generator=gen)
     assert all(v == 0 for v in launch_counts.values())

@@ -55,6 +55,8 @@ def test_importing_the_entry_points_loads_no_jax():
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import seld_tpu_torch.serve, seld_tpu_torch.training, seld_tpu_torch.data.synthetic\n"
         "import seld_tpu_torch.utils.jax_bridge, seld_tpu_torch.ops.kernels.conv2d_train\n"
+        "import seld_tpu_torch.train, seld_tpu_torch.training.trainer\n"
+        "import seld_tpu_torch.ops.kernels.conv2d_ct_train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(' '.join(bad))\n"
