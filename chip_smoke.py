@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship serving and training paths, and its
-training entry point, once on one NVIDIA GPU.
+training and predict entry points, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Phases, each printing its own lines:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    nvcc per source, all at once);
-3. kernel vs plain: every kernel of both paths against its plain PyTorch
-   version on the card, at multi-tile shapes with ragged tails and at the
+3. kernel vs plain: every kernel of every path (K7 and K8 included, K8
+   within one ulp of its plain version) against its plain PyTorch version
+   on the card, at multi-tile shapes with ragged tails and at the
    flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, forward
    outputs and every gradient, with the median time of each kernel, of its
    plain version and of one PyTorch library call where there is one;
@@ -39,7 +40,17 @@ Phases, each printing its own lines:
    launched in every step (the trainer's ``metrics.jsonl``); then the
    ``pallas-ct`` step beside the ``auto`` step at batch 8, in turns, with ms
    per step and audio-hours trained per second, and a profiled ``pallas-ct``
-   step.
+   step;
+7. predict entry point: ``seld_tpu_torch.predict.main`` on the flagship with
+   phase 6's best checkpoint over three one-minute clips (two .npy, one int16
+   .wav): ``auto`` (the fused bf16 path, K1-K4), ``--impl apply
+   --qconv_impl=pallas`` in float32 (K1, K7) and in bf16 (K1, K7, K4), and
+   ``--qconv_impl=int8`` in bf16 (K1, K8, K4); each writes three valid CSVs
+   with K7 / K8 at 22 launches per clip, and its clip 0 is held to the
+   float32 ``xla`` apply path (K7 f32 at 2e-4 x max, bf16 at 0.05, int8 at
+   the JAX package's PTQ bounds 0.08 / 0.15); then the bf16 batch-8 train
+   step with ``qconv_impl='pallas'`` (K7 forward and dx) beside ``'xla'``,
+   in turns, with ms per step.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -71,7 +82,7 @@ CONTROL_FACTOR = 2.0    # within this factor of the plain path's with float64 BN
 # the card's published peaks (H100 SXM data sheet, dense): bf16 tensor cores,
 # float32 outside them, and the HBM rate; a kernel's bound is the larger of
 # its operations over the peak for its input type and its bytes over HBM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 SERVING_KERNELS = {  # launch-count name -> (source in the repo, TPU kernel it replaces)
@@ -116,6 +127,12 @@ CT_TRAIN_KERNELS = {  # K9's passes, on the pallas-ct training path (phase 6)
                     "seld_tpu/ops/pallas/conv2d_ct_train.py:208"),
 }
 KERNELS = {**KERNELS, **CT_TRAIN_KERNELS}
+PREDICT_KERNELS = {  # the predict CLI's apply path: qconv_impl 'pallas' (K7) and 'int8' (K8)
+    "hamilton_matmul": ("seld_tpu_torch/csrc/hamilton_matmul.cu",
+                        "seld_tpu/ops/pallas/qmatmul.py:95"),
+    "int8_matmul": ("seld_tpu_torch/csrc/int8_matmul.cu", "seld_tpu/ops/pallas/quant.py:56"),
+}
+KERNELS = {**KERNELS, **PREDICT_KERNELS}
 COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin",   # summary row -> launch-count name
               "ct_train_fwd": "conv3x3_widecin"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
@@ -130,6 +147,14 @@ CT_STEPS_TIMED = 5
 # Global SELD below 1, the trainer's first best-on-test bar (reference
 # train.py:658), so every checkpoint role is written
 CT_SED_RATE = 0.5
+PREDICT_DIR = ROOT / "chip_tmp" / "predict"   # phase 6 leaves its best checkpoint here
+PREDICT_CLIPS = 3
+# Hamilton matmuls per flagship forward: 10 ResBlocks x (skip, res) + 2 FC heads;
+# a train step's backward runs K7 for dx on all but the last ResBlock's res conv,
+# whose output feeds nothing (autograd never reaches it)
+QMM_PER_FORWARD, QMM_DX_PER_STEP = 22, 21
+PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/test_pallas.py)
+PREDICT_STEPS_TIMED = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -375,6 +400,7 @@ def phase_kernels(torch, card: str) -> dict:
 
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
+    phase_k7_k8(torch, card, record)
     require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
             f"kernels not launched: {launch_counts}")
     return summary
@@ -573,6 +599,108 @@ def phase_k9(torch, card: str, record) -> None:
                       f"fwd + wgrad + dgrad {lib_ms:.3f} ms; bound {bound_ms:.4f} ms by "
                       f"{bound_by} ({card})")
             del h, w, g, pre, gz, out
+
+
+def ulps_apart(torch, got, want) -> int:
+    """Elements of got further than one ulp of got's dtype (at want) from want."""
+    torch.cuda.synchronize()
+    bits = 23 if got.dtype == torch.float32 else 7
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want.float()), e - 1 - bits)
+    return int(((got.float() - want.float()).abs() > ulp).sum())
+
+
+def phase_k7_k8(torch, card: str, record) -> None:
+    """K7 (forward, and the autograd Function's dx, dcomps, db against plain
+    autograd) and K8 against their plain versions at ragged multi-tile
+    shapes and at the flagship's (batch 2: M = 9600 for the 20 pointwise
+    convs, 1200 for the 2 heads), in float32 and bfloat16; records the
+    flagship M = 9600 bf16 runs and prints the float32 ones."""
+    from seld_tpu_torch.ops.hamilton import assemble_hamilton
+    from seld_tpu_torch.ops.kernels import qmatmul as k7
+    from seld_tpu_torch.ops.kernels import quant as k8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    k7_cases = [  # tag, M, n, cin_c, cout_c, linear_table: tables Q, DQ conv, DQ linear
+        ("ragged", 1037, 4, 12, 20, False),
+        ("ragged", 1037, 8, 6, 10, False),
+        ("ragged", 1037, 8, 6, 10, True),
+        ("flagship", 9600, 8, 48, 48, False),   # the ResBlocks' skip / res convs
+        ("flagship", 1200, 8, 48, 48, True),    # the FC heads
+    ]
+    for tag, m, n, cin_c, cout_c, table in k7_cases:
+        for dt in (torch.float32, torch.bfloat16):
+            x, comps = randn(m, n * cin_c).to(dt), (randn(n, cin_c, cout_c) / cin_c ** 0.5).to(dt)
+            bias = randn(n * cout_c).to(dt)
+            kern = lambda: k7.hamilton_matmul(x, comps, bias, n, table)
+            plain = lambda: k7.hamilton_matmul_plain(x, comps, bias, n, table)
+            timed = (time_ms(torch, kern), time_ms(torch, plain)) if m == 9600 else None
+            label = f"{tag}/{'q' if n == 4 else 'dq'}-{'lin' if table else 'conv'}/{m}"
+            got = kern()
+            d = compare(torch, "hamilton_matmul", label, got, plain(), dt, card, timed)
+            if m == 9600:
+                w_full = assemble_hamilton(comps, table).contiguous()
+                lib_ms = time_ms(torch, lambda: torch.addmm(bias, x, w_full))
+                flops, moved = 2.0 * m * n * cin_c * n * cout_c, nbytes(x, comps, bias, got)
+                if dt == torch.bfloat16:
+                    record("hamilton_matmul", d, timed, flops, moved, "bfloat16", lib_ms)
+                else:
+                    bound_ms, bound_by = bound(flops, moved, "float32")
+                    print(f"[kernel] hamilton_matmul f32 M {m}: {timed[0]:.3f} ms, plain "
+                          f"{timed[1]:.3f} ms, library (addmm) {lib_ms:.3f} ms, bound "
+                          f"{bound_ms:.4f} ms by {bound_by} ({card})")
+            if tag == "ragged":
+                # the autograd Function (K7 forward, K7 on the conjugate for dx)
+                g = randn(m, n * cout_c).to(dt)
+                results = []
+                for fn in (k7._HamiltonMatmulFn.apply, k7.hamilton_matmul_plain):
+                    leaves = [a.clone().requires_grad_() for a in (x, comps, bias)]
+                    (fn(*leaves, n, table).float() * g.float()).sum().backward()
+                    results.append([a.grad for a in leaves])
+                for name, a, w_ in zip(("dx", "dcomps", "db"), *results):
+                    compare(torch, "hamilton_matmul_fn", f"{label} {name}", a, w_, dt, card)
+
+    k8_cases = [  # tag, M, Cin, Cout
+        ("ragged", 1037, 48, 80),
+        ("ragged", 129, 30, 7),
+        ("flagship", 9600, 384, 384),
+        ("flagship", 1200, 384, 384),
+    ]
+    for tag, m, cin, cout in k8_cases:
+        w_q, w_s = k8.quantize_weight_per_channel(randn(cin, cout) / cin ** 0.5)
+        xf = randn(m, cin) * torch.rand(m, 1, generator=gen, device=dev) * 4
+        xf[3] = 0.0   # amax = 0: the bias alone
+        for dt in (torch.float32, torch.bfloat16):
+            x, bias = xf.to(dt), randn(cout).to(dt)
+            kern = lambda: k8.int8_matmul(x, w_q, w_s, bias)
+            plain = lambda: k8.int8_matmul_plain(x, w_q, w_s, bias)
+            timed = (time_ms(torch, kern), time_ms(torch, plain)) if m == 9600 else None
+            got, want = kern(), plain()
+            apart = ulps_apart(torch, got, want)
+            differ = int((got.float() != want.float()).sum())
+            d = (got.float() - want.float()).abs().max().item()
+            msg = (f"[kernel] int8_matmul       {tag}/{m:<5d} {str(dt)[6:]:8s} shape "
+                   f"{tuple(got.shape)} max|d| {d:.3e}; {differ} of {got.numel()} elements "
+                   f"differ, {apart} by more than one ulp")
+            if timed is not None:
+                msg += f" | kernel {timed[0]:.3f} ms plain {timed[1]:.3f} ms ({card})"
+            print(msg)
+            require(apart == 0 and torch.equal(got[3].float(), bias.float()),
+                    f"int8_matmul {tag} {dt}: {apart} elements beyond one ulp")
+            if m == 9600 and dt == torch.bfloat16:
+                # no single PyTorch call quantizes the rows and dequantizes: the
+                # int8 GEMM alone on the pre-quantized operands, and a bf16 addmm
+                xq = k8.quantize_rows(x)[0].to(torch.int8)
+                gemm_ms = time_ms(torch, lambda: torch._int_mm(xq, w_q))
+                w_deq = (w_q.float() * w_s).to(dt)
+                addmm_ms = time_ms(torch, lambda: torch.addmm(bias, x, w_deq))
+                print(f"[kernel] int8_matmul yardsticks M {m}: torch._int_mm on the "
+                      f"pre-quantized operands (the GEMM alone) {gemm_ms:.3f} ms; bf16 addmm "
+                      f"{addmm_ms:.3f} ms ({card})")
+                record("int8_matmul", d, timed, 2.0 * m * cin * cout,
+                       nbytes(x, w_q, w_s, bias, got), "int8", None)
 
 
 def phase_main_path(torch, card: str) -> dict:
@@ -1018,6 +1146,10 @@ def phase_entry(torch, card: str) -> dict:
         for r in records:
             for k, v in r["kernel_launches"].items():
                 counts[k] = counts.get(k, 0) + v
+        # the trained weights the predict phase serves
+        PREDICT_DIR.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(model_dir / ROLES["checkpoint_best"],
+                        PREDICT_DIR / ROLES["checkpoint_best"])
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -1067,6 +1199,186 @@ def phase_entry(torch, card: str) -> dict:
     return counts
 
 
+def set_qconv_impl(model, impl: str) -> None:
+    """Route every Hamilton layer of ``model`` through ``impl`` ('xla',
+    'pallas', 'int8'); only the pointwise convs and the FC layers take it."""
+    from seld_tpu_torch.models.layers import HamiltonConv, HamiltonLinear
+
+    for m in model.modules():
+        if isinstance(m, (HamiltonConv, HamiltonLinear)):
+            m.impl = impl
+    model.qconv_impl = impl
+
+
+def check_submission(path: str, cfg) -> int:
+    """The rows of one submission CSV: [frame, class, x, y, z] with frame in
+    [0, 600), class in [0, classes) and each coordinate within
+    max_loc_value; returns the number of rows."""
+    import numpy as np
+
+    lines = Path(path).read_text().splitlines()
+    rows = np.array([[float(v) for v in line.split(",")] for line in lines]).reshape(-1, 5)
+    frame, cls, xyz = rows[:, 0], rows[:, 1], rows[:, 2:]
+    require(bool(np.all((frame >= 0) & (frame < 600) & (frame == np.round(frame)))),
+            f"{path}: frames outside [0, 600)")
+    require(bool(np.all((cls >= 0) & (cls < cfg.output_classes) & (cls == np.round(cls)))),
+            f"{path}: classes outside [0, {cfg.output_classes})")
+    require(bool(np.all(np.abs(xyz) <= cfg.max_loc_value)), f"{path}: |xyz| > max_loc_value")
+    return len(rows)
+
+
+def phase_predict(torch, card: str) -> dict:
+    """The port's predict CLI on the full-width flagship with phase 6's best
+    checkpoint: three one-minute clips (two .npy, one int16 .wav) through
+    (a) auto -> fused bf16, (b) apply with K7 in float32, (c) apply with K7
+    in bf16, (d) apply with K8 in bf16, each checked for its CSVs and its
+    launches, and clip 0 of each against the float32 'xla' apply path; then
+    the bf16 batch-8 train step with qconv_impl 'pallas' beside 'xla', in
+    turns. Returns the launches of runs (a)-(d)."""
+    import shutil
+
+    try:
+        total = predict_runs(torch, card)
+    finally:
+        shutil.rmtree(PREDICT_DIR, ignore_errors=True)
+    predict_train_steps(torch, card)
+    return total
+
+
+def predict_runs(torch, card: str) -> dict:
+    """Phase 7's four CLI runs and the reference run; returns their launches."""
+    import numpy as np
+    import scipy.io.wavfile as wavfile
+
+    from seld_tpu_torch import predict
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.training.checkpoint import ROLES
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    ckpt = PREDICT_DIR / ROLES["checkpoint_best"]
+    require(ckpt.is_file(), f"phase 6 left no checkpoint at {ckpt}")
+    rng = np.random.default_rng(11)
+    n = SR * CLIP_SECONDS
+    clips = []
+    for i in range(PREDICT_CLIPS - 1):
+        clips.append(PREDICT_DIR / f"clip_{i}.npy")
+        np.save(clips[-1], rng.standard_normal((CHANNELS, n), dtype=np.float32))
+    clips.append(PREDICT_DIR / f"clip_{PREDICT_CLIPS - 1}.wav")
+    wavfile.write(clips[-1], SR, (rng.standard_normal((n, CHANNELS)) * 3000).astype(np.int16))
+    base = [f"--TextArgs={FLAGSHIP_CONFIG}", f"--checkpoint={ckpt}"]
+
+    def run(tag, flags, inputs):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = predict.main([*base, "--inputs", *map(str, inputs),
+                                f"--out-dir={PREDICT_DIR / tag}", *flags])
+        torch.cuda.synchronize()
+        return results, dict(launch_counts), time.perf_counter() - t0
+
+    ref, _, _ = run("ref", ["--impl=apply", "--qconv_impl=xla"], clips[:1])
+    ref_sed, ref_doa = ref[0]["sed"], ref[0]["doa"]
+    bf16 = "--compute_dtype=bfloat16"
+    runs = {  # tag: flags, launches per clip (every other count 0), tolerance on clip 0
+        "a_auto_fused_bf16": ([bf16], {"stft_mag": 1, "conv3x3_smallcin": 1,
+                                       "conv3x3_widecin": 2, "flash_attn_fwd": 1},
+                              {"sed": MAIN_TOL, "doa": MAIN_TOL}),
+        "b_apply_pallas_f32": (["--impl=apply", "--qconv_impl=pallas"],
+                               {"stft_mag": 1, "hamilton_matmul": QMM_PER_FORWARD},
+                               {"sed": F32_TOL * np.abs(ref_sed).max(),
+                                "doa": F32_TOL * np.abs(ref_doa).max()}),
+        "c_apply_pallas_bf16": (["--impl=apply", "--qconv_impl=pallas", bf16],
+                                {"stft_mag": 1, "hamilton_matmul": QMM_PER_FORWARD,
+                                 "flash_attn_fwd": 1}, {"sed": MAIN_TOL, "doa": MAIN_TOL}),
+        "d_apply_int8_bf16": (["--impl=apply", "--qconv_impl=int8", bf16],
+                              {"stft_mag": 1, "int8_matmul": QMM_PER_FORWARD,
+                               "flash_attn_fwd": 1}, PTQ_TOL),
+    }
+    total = {}
+    for tag, (flags, per_clip, tol) in runs.items():
+        results, counts, wall = run(tag, flags, clips)
+        want = {k: per_clip.get(k, 0) * len(clips) for k in counts}
+        require(counts == want, f"predict {tag}: launches {counts}, want {want}")
+        rows = [check_submission(r["csv"], cfg) for r in results]
+        d = {"sed": float(np.abs(results[0]["sed"] - ref_sed).max()),
+             "doa": float(np.abs(results[0]["doa"] - ref_doa).max())}
+        secs = [r["seconds"] for r in results]
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"[predict] {tag}: {len(results)} CSVs, rows {rows}, launches {launched}; clip 0 vs "
+              f"the f32 xla apply path: max|d sed| {d['sed']:.3e} (tol {tol['sed']:.3e}), "
+              f"max|d doa| {d['doa']:.3e} (tol {tol['doa']:.3e}); per clip "
+              f"{[round(1e3 * v, 1) for v in secs]} ms (median {1e3 * statistics.median(secs):.1f}"
+              f"), CLI {wall:.1f} s ({card})")
+        require(all(d[k] <= tol[k] for k in d), f"predict {tag}: clip 0 {d} beyond {tol}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def predict_train_steps(torch, card: str) -> None:
+    """The bf16 batch-8 train step with qconv_impl 'pallas' beside 'xla'."""
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import make_task2_batch
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.serve import build_flagship
+    from seld_tpu_torch.training import create_train_state, make_train_step
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    # the bf16 batch-8 train step with qconv_impl 'pallas' (K7 forward and dx)
+    # beside 'xla', from the same weights, in turns
+    dev = torch.device("cuda")
+    c16 = cfg.replace(compute_dtype="bfloat16")
+    x, y = (torch.from_numpy(a).to(dev) for a in make_task2_batch(
+        np.random.default_rng(0), TRAIN_BATCH, channels=CHANNELS, freq=cfg.freq_dim,
+        time_frames=4800, label_frames=600))
+    steps = {}
+    for impl in ("xla", "pallas"):
+        model = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, dev,
+                               torch.Generator().manual_seed(0))
+        set_qconv_impl(model, impl)
+        state = create_train_state(model, c16, torch.Generator(device=dev).manual_seed(2))
+        steps[impl] = (state, make_train_step(c16), [], [p.detach().clone()
+                                                         for p in model.parameters()])
+    for state, step, _, _ in steps.values():
+        for _ in range(TRAIN_WARMUP):
+            step(state, x, y)
+    torch.cuda.synchronize()
+    per_step = QMM_PER_FORWARD + QMM_DX_PER_STEP
+    for i in range(PREDICT_STEPS_TIMED):
+        for impl in ("xla", "pallas") if i % 2 == 0 else ("pallas", "xla"):
+            state, step, times, _ = steps[impl]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            require(bool(torch.isfinite(loss)), f"{impl} step: loss {float(loss)}")
+            got = launch_counts["hamilton_matmul"]
+            require(got == (per_step if impl == "pallas" else 0),
+                    f"{impl} step: {got} Hamilton matmul launches, want "
+                    f"{per_step if impl == 'pallas' else 0} ({QMM_PER_FORWARD} forward + "
+                    f"{QMM_DX_PER_STEP} dx)")
+    state, _, _, before = steps["pallas"]
+    trained = [(a, p) for a, p in zip(before, state.model.parameters()) if p.grad is not None]
+    changed = sum(not torch.equal(a, p.detach()) for a, p in trained)
+    require(changed == len(trained) >= len(before) - 1,
+            f"pallas step: only {changed} of {len(trained)} trained parameters changed")
+    audio_h = TRAIN_BATCH * CLIP_SECONDS / 3600.0
+    for impl, (_, _, times, _) in steps.items():
+        ms = statistics.median(times) * 1e3
+        print(f"[predict] train step qconv_impl={impl}, bf16 batch {TRAIN_BATCH}: {ms:.1f} ms "
+              f"(median of {len(times)}, in turns; {[round(1e3 * v, 1) for v in times]}) = "
+              f"{audio_h / (ms / 1e3):.4f} audio-hours trained/s; K7 launches per step "
+              f"{per_step if impl == 'pallas' else 0} ({card})")
+    for impl, (state, step, _, _) in steps.items():
+        print(f"[predict] profiled train step, qconv_impl={impl}:")
+        profile_step(torch, lambda: step(state, x, y), card, top=10)
+    del steps
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1090,12 +1402,14 @@ def main() -> int:
         serving = phase_main_path(torch, card)
         training = phase_training(torch, card)
         entry = phase_entry(torch, card)
+        predicted = phase_predict(torch, card)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
-             "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry)}
+             "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
+             "predict": (PREDICT_KERNELS, predicted)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": counts.get(COUNTED_AS.get(name, name), 0), **summary[name]}

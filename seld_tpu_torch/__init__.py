@@ -1,5 +1,5 @@
 """seld_tpu_torch — the SELD-TCN serving and training paths and the training
-entry point in PyTorch with hand-written Hopper kernels.
+and inference entry points in PyTorch with hand-written Hopper kernels.
 
 A port of ``seld_tpu`` (JAX/Flax/Pallas on a TPU, kept as the reference) to
 PyTorch and CUDA for an NVIDIA H100. It imports neither JAX nor anything of
@@ -20,6 +20,7 @@ the JAX package (``tests/test_torch_isolation.py``). Layout mirrors
   step timing, model summary
 - ``serve``            — flagship serving entry: audio -> (sed, doa)
 - ``train``            — the training CLI (``python -m seld_tpu_torch.train``)
+- ``predict``          — the inference CLI (``python -m seld_tpu_torch.predict``)
 
 Parameters keep the JAX package's names and layouts, so weights move between
 the two packages by a tree walk.

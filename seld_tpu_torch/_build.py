@@ -55,6 +55,10 @@ SIGNATURES = {
     "seld_ct_train_dw": [_P] * 4 + [_I] * 7 + [_P],
     # gz, w, dh, batch, cin, f, t, cout, dtype, stream
     "seld_ct_train_dx": [_P] * 3 + [_I] * 6 + [_P],
+    # x, comps, bias, out, m, n_comp, cin_c, cout_c, linear_table, dtype, stream
+    "seld_hamilton_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    # x, w_q, w_scale, bias, out, m, cin, cout, dtype, stream
+    "seld_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,9 @@ each ResBlock's gate and the dropout after each CNN stage, drawing from
 (``ops/kernels/conv2d_train.py``), as ``ConvTCBlock._fused_train_ok`` decides;
 with ``frontend_impl='ct'`` every CNN stage runs a kernel op in the (B, C, F,
 T) layout, K5 for stage 0 and K9 (``ops/kernels/conv2d_ct_train.py``) for
-the stages after it (``ConvTCBlock._ct_train_ok``).
+the stages after it (``ConvTCBlock._ct_train_ok``). ``qconv_impl`` ('xla',
+'pallas', 'int8') reaches every conv, as in the JAX package; only the
+pointwise ones (each ResBlock's skip and res) take it (``layers.py``).
 """
 
 from __future__ import annotations
@@ -76,14 +78,14 @@ class ResBlock(nn.Module):
 
     def __init__(self, domain: str, in_features: int, G: int, U: int, kernel_size: int = 3,
                  dilation: int = 1, use_bias: bool = True, batch_norm: str = "BN",
-                 spatial_dropout_rate: float = 0.5, *, device=None,
+                 spatial_dropout_rate: float = 0.5, *, qconv_impl: str = "xla", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         L = in_features
         self.use_bn = batch_norm in BN_ON_TCN
         self.dilation = dilation
         self.padding = ((kernel_size - 1) * dilation) // 2
-        conv = dict(use_bias=use_bias, device=device, generator=generator)
+        conv = dict(use_bias=use_bias, impl=qconv_impl, device=device, generator=generator)
         if self.use_bn:
             self.bn_pre = BatchNorm(L, device=device)
         self.conv_filter = make_conv(domain, L, G, kernel_size, 1, padding=self.padding,
@@ -114,17 +116,19 @@ class TCBlock(nn.Module):
     def __init__(self, domain: str, in_features: int, G: int, U: int, V: Sequence[int],
                  V_kernel_size: int, pool_size, D, dilation_mode: str, pool_time: str,
                  batch_norm: str, kernel_size_dilated_conv: int, attention_impl: str,
-                 use_bias: bool, spatial_dropout_rate: float = 0.5, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 use_bias: bool, spatial_dropout_rate: float = 0.5, *, qconv_impl: str = "xla",
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.pool_size, self.pool_time = pool_size, pool_time
         self.n_blocks = 0
         for idx, dil in enumerate(dilation_schedule(D, dilation_mode)):
             setattr(self, f"resblock_{idx}", ResBlock(
                 domain, in_features, G, U, kernel_size_dilated_conv, dil, use_bias,
-                batch_norm, spatial_dropout_rate, device=device, generator=generator))
+                batch_norm, spatial_dropout_rate, qconv_impl=qconv_impl, device=device,
+                generator=generator))
             self.n_blocks += 1
-        kw = dict(padding=1, use_bias=use_bias, device=device, generator=generator)
+        kw = dict(padding=1, use_bias=use_bias, impl=qconv_impl, device=device,
+                  generator=generator)
         self.conv1 = make_conv(domain, U, V[0], V_kernel_size, 1, **kw)
         self.attention = MultiHeadAttention(V[0], 8, attention_impl, device=device,
                                             generator=generator)
@@ -155,7 +159,7 @@ class ConvTCBlock(nn.Module):
                  kernel_size_dilated_conv: int, V: Sequence[int], V_kernel_size: int,
                  use_bias: bool, batch_norm: str, attention_impl: str,
                  spatial_dropout_rate: float = 0.5, dropout_perc: float = 0.3,
-                 frontend_impl: str = "auto", *, device=None,
+                 frontend_impl: str = "auto", *, qconv_impl: str = "xla", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if frontend_impl not in FRONTEND_IMPLS:
@@ -171,14 +175,14 @@ class ConvTCBlock(nn.Module):
         for i, c in enumerate(cnn_filters):
             setattr(self, f"cnn_{i}", make_conv(
                 domain, cin, c, kernel_size_cnn_blocks, 2, padding=1, use_bias=use_bias,
-                device=device, generator=generator))
+                impl=qconv_impl, device=device, generator=generator))
             if self.use_bn:
                 setattr(self, f"cnn_bn_{i}", BatchNorm(c, device=device))
             cin, f = c, f // self.pools[i][0]
         self.tcn = TCBlock(
             domain, cin * f, G, U, V, V_kernel_size, pool_size, D, dilation_mode, pool_time,
             batch_norm, kernel_size_dilated_conv, attention_impl, use_bias,
-            spatial_dropout_rate, device=device, generator=generator)
+            spatial_dropout_rate, qconv_impl=qconv_impl, device=device, generator=generator)
 
     def _ct_train_ok(self, x) -> bool:
         """Whether train mode runs every CNN stage through the kernel ops

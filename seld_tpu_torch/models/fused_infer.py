@@ -14,7 +14,9 @@ parameters, in ``model.compute_dtype``:
   and gate dilated convs are merged into one L -> 2G conv, and the skip and
   res 1x1 convs into one G -> (U + L) matmul;
 - the tail runs conv1, the K4 flash-attention kernel, conv2 and the pools;
-- the heads run in float32 with sigmoid (SED) and tanh (DOA).
+- the heads run in float32 with sigmoid (SED) and tanh (DOA), as plain
+  matmuls whatever the model's ``qconv_impl`` (the JAX package's heads call
+  the plain ops too): neither K7 nor K8 is on this path.
 
 BN and any conv bias fold as ``inv = scale / sqrt(var + eps)``,
 ``bias' = bn_bias - mean * inv (+ conv_b * inv)``.
@@ -115,6 +117,6 @@ def fused_infer(model: SELDModel, x: torch.Tensor, input_layout: str = "BCFT",
         if input_layout == "BCTF":
             feats = feats.transpose(2, 3)
         h = _tcn(model, _frontend(model, feats, dtype), dtype).float()
-        sed = torch.sigmoid(model.head(h, "sed"))
-        doa = torch.tanh(model.head(h, "doa"))
+        sed = torch.sigmoid(model.head(h, "sed", qconv_impl="xla"))
+        doa = torch.tanh(model.head(h, "doa", qconv_impl="xla"))
     return sed, doa

@@ -33,9 +33,14 @@ from torch import nn
 from seld_tpu_torch.ops.dual_quaternion import dual_quaternion_conv, dual_quaternion_linear
 from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel, assemble_q_kernel
 from seld_tpu_torch.ops.inits import component_init, he_uniform, lecun_normal
+from seld_tpu_torch.ops.kernels.qmatmul import pallas_dq_linear, pallas_q_linear
+from seld_tpu_torch.ops.kernels.quant import int8_matmul, quantize_hamilton
 from seld_tpu_torch.ops.quaternion import conv_nd, linear, quaternion_conv, quaternion_linear
 
 IntOrTuple = Union[int, Sequence[int]]
+# the Hamilton layers' matmul route: plain ops, K7 (fused Hamilton matmul) or
+# K8 (int8 post-training quantization, serving only)
+QCONV_IMPLS = ("xla", "pallas", "int8")
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax retention; torch's momentum 0.1
 
@@ -49,20 +54,50 @@ def _param(shape, device, init=None) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in QCONV_IMPLS:
+        raise ValueError(f"impl {impl!r} not in {QCONV_IMPLS}")
+
+
+def _hamilton_matmul(x, comps, bias, impl: str, dq_linear: bool):
+    """The Hamilton matmul x (..., Cin) @ assemble(comps (n, Cin/n, Cout/n))
+    + bias through K7 ('pallas', differentiable) or K8 ('int8': the weight
+    quantized per output channel from the float32 components on every call,
+    as the JAX layers do; no gradient), in x's dtype; the bias rounded to
+    x's dtype first. A quaternion weight has one orientation; a DQ weight
+    takes the linear table with ``dq_linear``, else the conv table."""
+    bd = None if bias is None else bias.to(x.dtype)
+    linear_table = dq_linear and comps.shape[0] == 8
+    if impl == "pallas":
+        if comps.shape[0] == 4:
+            return pallas_q_linear(x, comps.to(x.dtype), bd)
+        return pallas_dq_linear(x, comps.to(x.dtype), bd, conv_table=not linear_table)
+    w_q, w_scale = quantize_hamilton(comps, linear_table)
+    return int8_matmul(x, w_q, w_scale, bd)
+
+
 class HamiltonConv(nn.Module):
-    """Quaternion (n_components=4) or dual-quaternion (8) convolution."""
+    """Quaternion (n_components=4) or dual-quaternion (8) convolution.
+
+    ``impl`` 'pallas' (K7) or 'int8' (K8) routes a pointwise conv (every
+    kernel size 1; the port's convs are stride 1) through the Hamilton
+    matmul on the conv table, as ``seld_tpu/models/layers.py::HamiltonConv``
+    does; spatial convs and 'xla' take the plain conv."""
 
     def __init__(self, in_features: int, features: int, kernel_size: IntOrTuple,
                  ndim: int = 1, n_components: int = 4, padding: IntOrTuple = 0,
-                 dilation: IntOrTuple = 1, use_bias: bool = True, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 dilation: IntOrTuple = 1, use_bias: bool = True, impl: str = "xla", *,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         n = n_components
         if in_features % n or features % n:
             raise ValueError(f"channels ({in_features}->{features}) must divide "
                              f"n_components={n}")
+        _check_impl(impl)
         self.n_components = n
         self.padding, self.dilation = padding, dilation
+        self.impl = impl
+        self.pointwise = all(k == 1 for k in _ntuple(kernel_size, ndim))
         shape = (*_ntuple(kernel_size, ndim), in_features // n, features // n)
         init = component_init(shape, generator, n) if generator is not None else None
         self.w = _param((n, *shape), device, init)
@@ -74,6 +109,10 @@ class HamiltonConv(nn.Module):
         return assemble(self.w)
 
     def forward(self, x):
+        if self.pointwise and self.impl != "xla":
+            n, cin_c, cout_c = self.n_components, self.w.shape[-2], self.w.shape[-1]
+            return _hamilton_matmul(x, self.w.reshape(n, cin_c, cout_c), self.b, self.impl,
+                                    dq_linear=False)
         fn = quaternion_conv if self.n_components == 4 else dual_quaternion_conv
         return fn(x, self.w.to(x.dtype), self.b, padding=self.padding, dilation=self.dilation)
 
@@ -100,23 +139,31 @@ class RealConv(nn.Module):
 
 
 class HamiltonLinear(nn.Module):
-    """Quaternion (4) or dual-quaternion (8) linear layer."""
+    """Quaternion (4) or dual-quaternion (8) linear layer; ``impl`` 'pallas'
+    (K7) or 'int8' (K8) runs the Hamilton matmul on the linear table (the
+    reference's DQ-linear orientation). ``forward(x, impl=...)`` overrides
+    the layer's impl for one call."""
 
     def __init__(self, in_features: int, features: int, n_components: int = 4,
-                 use_bias: bool = True, *, device=None,
+                 use_bias: bool = True, impl: str = "xla", *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         n = n_components
         if in_features % n or features % n:
             raise ValueError(f"features ({in_features}->{features}) must divide "
                              f"n_components={n}")
+        _check_impl(impl)
         self.n_components = n
+        self.impl = impl
         shape = (in_features // n, features // n)
         init = component_init(shape, generator, n) if generator is not None else None
         self.w = _param((n, *shape), device, init)
         self.b = _param((features,), device) if use_bias else None
 
-    def forward(self, x):
+    def forward(self, x, impl: Optional[str] = None):
+        impl = self.impl if impl is None else impl
+        if impl != "xla":
+            return _hamilton_matmul(x, self.w, self.b, impl, dq_linear=True)
         fn = quaternion_linear if self.n_components == 4 else dual_quaternion_linear
         return fn(x, self.w.to(x.dtype), self.b)
 
@@ -131,30 +178,33 @@ class Dense(nn.Module):
         self.kernel = _param((in_features, features), device, init)
         self.bias = _param((features,), device) if use_bias else None
 
-    def forward(self, x):
+    def forward(self, x, impl: Optional[str] = None):
+        """``impl`` is accepted for the Hamilton layers' interface and ignored."""
         return linear(x, self.kernel, self.bias)
 
 
 def make_conv(domain: str, in_features: int, features: int, kernel_size: IntOrTuple,
               ndim: int, *, padding: IntOrTuple = 0, dilation: IntOrTuple = 1,
-              use_bias: bool = True, device=None,
+              use_bias: bool = True, impl: str = "xla", device=None,
               generator: Optional[torch.Generator] = None) -> nn.Module:
     """Domain-dispatched stride-1 conv: the exact strings 'Q' and 'DQ'; anything
-    else real."""
+    else real (``impl`` is the Hamilton layers' and is ignored by RealConv)."""
     kw = dict(padding=padding, dilation=dilation, use_bias=use_bias, device=device,
               generator=generator)
     if domain in ("Q", "DQ"):
         return HamiltonConv(in_features, features, kernel_size, ndim,
-                            n_components=4 if domain == "Q" else 8, **kw)
+                            n_components=4 if domain == "Q" else 8, impl=impl, **kw)
     return RealConv(in_features, features, kernel_size, ndim, **kw)
 
 
 def make_linear(domain: str, in_features: int, features: int, use_bias: bool = True, *,
-                device=None, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Domain-dispatched linear: 'Q' / 'DQ' Hamilton, anything else Dense."""
+                impl: str = "xla", device=None,
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Domain-dispatched linear: 'Q' / 'DQ' Hamilton (with ``impl``), anything
+    else Dense."""
     if domain in ("Q", "DQ"):
         return HamiltonLinear(in_features, features, 4 if domain == "Q" else 8, use_bias,
-                              device=device, generator=generator)
+                              impl, device=device, generator=generator)
     return Dense(in_features, features, use_bias, device=device, generator=generator)
 
 

@@ -9,8 +9,11 @@ typed classifier (``domain_classifier``) are supported; the 2Parallel /
 raise.
 
 ``forward(x, train=False, generator=None)`` computes in the input's dtype.
-In eval mode it is the unfused oracle of the fused serving path
-(``models/fused_infer.py``): plain torch ops and no kernel. In train mode
+In eval mode with ``qconv_impl='xla'`` it is the unfused oracle of the fused
+serving path (``models/fused_infer.py``): plain torch ops and no kernel;
+``'pallas'`` and ``'int8'`` put the pointwise convs and the FC heads on K7 or
+K8 (the predict CLI's ``apply`` path, ``seld_tpu_torch/predict.py``). In
+train mode
 (``training/steps.py``) BN uses batch statistics, the dropouts draw from
 ``generator``, and the kernels of the training path run where their
 conditions hold (K5 in CNN stage 0, K4 + K6 in the attention).
@@ -74,7 +77,7 @@ class SELDModel(nn.Module):
                  batch_norm: str = "BN", parallel_ConvTC_block: str = "False",
                  parallel_magphase: bool = False, use_se_block: bool = False,
                  attention_impl: str = "auto", compute_dtype: str = "float32",
-                 frontend_impl: str = "auto", device=None,
+                 frontend_impl: str = "auto", qconv_impl: str = "xla", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if parallel_ConvTC_block in PARALLEL_2:
@@ -97,20 +100,21 @@ class SELDModel(nn.Module):
         self.use_bias_conv, self.use_bias_linear = use_bias_conv, use_bias_linear
         self.batch_norm, self.attention_impl = batch_norm, attention_impl
         self.parallel_ConvTC_block = parallel_ConvTC_block
-        self.compute_dtype = compute_dtype
+        self.compute_dtype, self.qconv_impl = compute_dtype, qconv_impl
 
         self.seld_block = ConvTCBlock(
             domain, input_channels, freq_dim, cnn_filters, kernel_size_cnn_blocks,
             self.pool_size, pool_time, D, dilation_mode, G, U, kernel_size_dilated_conv, V,
             V_kernel_size, use_bias_conv, batch_norm, attention_impl, spatial_dropout_rate,
-            dropout_perc, frontend_impl, device=device, generator=generator)
+            dropout_perc, frontend_impl, qconv_impl=qconv_impl, device=device,
+            generator=generator)
         sed_out = int(output_classes * class_overlaps)
         kw = dict(device=device, generator=generator)
         for prefix, out_size in (("sed", sed_out), ("doa", 3 * sed_out)):
             width = self.V[-1]
             for li, fc in enumerate(self.fc_layers):
                 setattr(self, f"{prefix}_fc{li}", make_linear(
-                    self.classifier_domain, width, fc, use_bias_linear, **kw))
+                    self.classifier_domain, width, fc, use_bias_linear, impl=qconv_impl, **kw))
                 width = fc
             setattr(self, f"{prefix}_out", Dense(width, out_size, use_bias_linear, **kw))
 
@@ -129,13 +133,15 @@ class SELDModel(nn.Module):
                                      self.pool_time, rf, n_rb)
 
     def head(self, h: torch.Tensor, prefix: str, train: bool = False,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             qconv_impl: Optional[str] = None) -> torch.Tensor:
         """FC stack and output layer of one head, before its activation; in
         train mode dropout after every FC layer (``fc_dropout`` 'all') or
-        after the stack ('last')."""
+        after the stack ('last'). ``qconv_impl`` overrides the FC layers'
+        (``fused_infer`` runs them plain, as the JAX package's does)."""
         y = h
         for li in range(len(self.fc_layers)):
-            y = getattr(self, f"{prefix}_fc{li}")(y)
+            y = getattr(self, f"{prefix}_fc{li}")(y, impl=qconv_impl)
             if self.fc_activations in _RELU:
                 y = torch.relu(y)
             if self.fc_dropout in _FC_DROPOUT_ALL:
@@ -171,7 +177,9 @@ def model_from_config(cfg, *, device=None,
                       generator: Optional[torch.Generator] = None) -> SELDModel:
     """SELDModel from a ``seld_tpu_torch.config.SELDConfig``. The JAX knobs
     map as: attention_impl 'pallas' -> 'flash', other values but 'full' /
-    'chunked' -> 'auto'; frontend_impl as :func:`_frontend_impl` says."""
+    'chunked' -> 'auto'; frontend_impl as :func:`_frontend_impl` says;
+    qconv_impl 'pallas' (K7) and 'int8' (K8) as they are, anything else 'xla'
+    (``seld_tpu/models/__init__.py::model_from_config``)."""
     return SELDModel(
         freq_dim=cfg.freq_dim, input_channels=cfg.input_channels,
         output_classes=cfg.output_classes, domain=cfg.domain,
@@ -189,5 +197,6 @@ def model_from_config(cfg, *, device=None,
         parallel_magphase=cfg.parallel_magphase, use_se_block=cfg.use_se_block,
         attention_impl=_ATTENTION_IMPLS.get(cfg.attention_impl, "auto"),
         compute_dtype=cfg.compute_dtype, frontend_impl=_frontend_impl(cfg.frontend_impl),
+        qconv_impl=cfg.qconv_impl if cfg.qconv_impl in ("pallas", "int8") else "xla",
         device=device, generator=generator,
     )

@@ -67,3 +67,16 @@ def assemble_dq_linear_kernel(comps: torch.Tensor) -> torch.Tensor:
     top = torch.cat([q, torch.zeros_like(q)], dim=-1)
     bot = torch.cat([qe, q], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def assemble_hamilton(comps: torch.Tensor, linear_table: bool) -> torch.Tensor:
+    """The Hamilton matmul's weight (``seld_tpu/ops/pallas/qmatmul.py``'s
+    in-kernel assembly): comps (n, cin, cout), n = 4 or 8 -> (n cin, n cout).
+    ``linear_table=False`` is the conv orientation (blocks T[b][a], the DQ zero
+    block at in >= 4, out < 4); ``True`` the linear one (T[a][b], the DQ zero
+    block at in < 4, out >= 4)."""
+    if comps.shape[0] == 4:
+        return _block_rows(comps, Q_TABLE, transpose=linear_table)
+    if comps.shape[0] == 8:
+        return assemble_dq_linear_kernel(comps) if linear_table else assemble_dq_conv_kernel(comps)
+    raise ValueError(f"comps must stack 4 or 8 components, got {tuple(comps.shape)}")

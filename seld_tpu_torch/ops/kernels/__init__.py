@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the serving and training paths, each with
-its plain PyTorch version beside it.
+"""Hand-written Hopper kernels of the serving, training and predict paths,
+each with its plain PyTorch version beside it.
 
 Every public wrapper takes the plain version for CPU tensors only (the
 tests' path); for CUDA tensors it launches its kernel or raises. Each
@@ -26,6 +26,8 @@ launch_counts = {
     "ct_train_gz": 0,
     "ct_train_dw": 0,
     "ct_train_dx": 0,
+    "hamilton_matmul": 0,
+    "int8_matmul": 0,
 }
 
 

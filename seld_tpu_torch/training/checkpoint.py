@@ -7,7 +7,8 @@ dict, the LR schedule and a numpy generator's state. Written atomically (a
 temporary file, then ``os.replace``), so a crash leaves the old file whole.
 
 The trainer keeps four roles per model directory, named as the JAX trainer
-names them (reference train.py:577-616, 658-669): :data:`ROLES`.
+names them (reference train.py:577-616, 658-669): :data:`ROLES`. The predict
+CLI reads only a checkpoint's model state (:func:`load_model_weights`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +71,51 @@ def load_checkpoint(path: str, state: TrainState,
         np_rng.bit_generator.state = payload["np_rng_state"]
     sched = StepLRState(**payload["sched"]) if payload["sched"] is not None else None
     return state, payload["loop_state"], sched
+
+
+def state_shape_mismatches(expected: Mapping[str, torch.Tensor],
+                           loaded: Mapping[str, torch.Tensor], max_items: int = 8) -> List[str]:
+    """Readable differences between two state_dicts, the counterpart of
+    ``seld_tpu/training/checkpoint.py::variable_shape_mismatches``:
+    ``expected`` from the model the config builds, ``loaded`` from a
+    checkpoint. [] when they fit; else 'missing' / 'unexpected' / 'shape'
+    lines, at most ``max_items`` and a count of the rest."""
+    e = {k: tuple(v.shape) for k, v in expected.items()}
+    g = {k: tuple(v.shape) for k, v in loaded.items()}
+    diffs = []
+    for key in sorted(set(e) | set(g)):
+        if key not in g:
+            diffs.append(f"missing in checkpoint: {key} {e[key]}")
+        elif key not in e:
+            diffs.append(f"unexpected in checkpoint: {key} {g[key]}")
+        elif e[key] != g[key]:
+            diffs.append(f"shape mismatch: {key} config {e[key]} != checkpoint {g[key]}")
+    if len(diffs) > max_items:
+        diffs = diffs[:max_items] + [f"... and {len(diffs) - max_items} more"]
+    return diffs
+
+
+class CheckpointMismatch(ValueError):
+    """A checkpoint's model state does not fit the model; ``diffs`` lists how."""
+
+    def __init__(self, path: str, diffs: List[str]):
+        super().__init__(f"checkpoint {path!r} does not match the model:\n  " + "\n  ".join(diffs))
+        self.diffs = diffs
+
+
+def load_model_weights(path: str, model: torch.nn.Module) -> None:
+    """Load only the model state (parameters and BN running statistics) of a
+    checkpoint into ``model``, for inference; the optimizer, generators and
+    loop state are not read. Raises :class:`CheckpointMismatch` when its
+    names or shapes differ from the model's."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if payload.get("format_version") != FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint format: {payload.get('format_version')}")
+    state = payload["model"]
+    diffs = state_shape_mismatches(model.state_dict(), state)
+    if diffs:
+        raise CheckpointMismatch(path, diffs)
+    model.load_state_dict(state)
 
 
 def archive_checkpoints(model_dir: str, epoch: int, files: Dict[str, str]) -> str:

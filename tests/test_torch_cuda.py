@@ -273,3 +273,97 @@ def test_ct_frontend_raises_where_the_kernels_cannot_run(gen):
     with pytest.raises(ValueError, match="K5/K9 conditions"):
         block(x, train=True, generator=gen)
     assert all(v == 0 for v in launch_counts.values())
+
+
+# ---- K7 (Hamilton matmul) and K8 (int8 matmul): the predict path ------------
+
+from seld_tpu_torch.ops.kernels import qmatmul as k7   # noqa: E402
+from seld_tpu_torch.ops.kernels import quant as k8     # noqa: E402
+
+# (M, n, cin_c, cout_c, linear_table): 17 row tiles with a ragged tail; widths
+# 48 / 80 and 64 / 48 cross the 64-wide tiles and the Hamilton blocks
+K7_CASES = [(1037, 4, 12, 20, False), (1037, 8, 6, 10, False), (1037, 8, 6, 10, True),
+            (300, 8, 8, 6, True)]
+
+
+def ulps_apart(got, want, dtype):
+    """Elements of got further than one ulp of dtype (at want) from want."""
+    torch.cuda.synchronize()
+    bits = 23 if dtype == torch.float32 else 7
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want.float()), e - 1 - bits)
+    return int(((got.float() - want.float()).abs() > ulp).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,cin_c,cout_c,linear_table", K7_CASES)
+def test_hamilton_matmul_kernel(gen, dtype, m, n, cin_c, cout_c, linear_table):
+    x = torch.randn(m, n * cin_c, generator=gen, device="cuda").to(dtype)
+    comps = torch.randn(n, cin_c, cout_c, generator=gen, device="cuda").to(dtype)
+    bias = torch.randn(n * cout_c, generator=gen, device="cuda").to(dtype)
+    for b in (bias, None):
+        reset_launch_counts()
+        got = k7.hamilton_matmul(x, comps, b, n, linear_table)
+        assert launch_counts["hamilton_matmul"] == 1
+        _close(got, k7.hamilton_matmul_plain(x, comps, b, n, linear_table), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,cin_c,cout_c,linear_table", K7_CASES[:3])
+def test_hamilton_matmul_function_gradients(gen, dtype, m, n, cin_c, cout_c, linear_table):
+    """The autograd Function (K7 forward, K7 on the conjugate for dx) against
+    autograd of the plain version: out, dx, dcomps, db."""
+    x = torch.randn(m, n * cin_c, generator=gen, device="cuda").to(dtype)
+    comps = torch.randn(n, cin_c, cout_c, generator=gen, device="cuda").to(dtype)
+    bias = torch.randn(n * cout_c, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(m, n * cout_c, generator=gen, device="cuda").to(dtype)
+    results = []
+    for fn in (k7._HamiltonMatmulFn.apply, k7.hamilton_matmul_plain):
+        leaves = [v.clone().requires_grad_() for v in (x, comps, bias)]
+        out = fn(*leaves, n, linear_table)
+        (out.float() * g.float()).sum().backward()
+        results.append((out, *(v.grad for v in leaves)))
+    assert launch_counts["hamilton_matmul"] == 2   # forward and dx
+    for got, want in zip(*results):
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,cin,cout", [(1037, 48, 80), (300, 384, 384), (129, 30, 7)])
+def test_int8_matmul_kernel(gen, dtype, m, cin, cout):
+    """K8 against its plain version: within one ulp of the output dtype (the
+    same arithmetic; expected bit-equal), a zero row giving the bias."""
+    x = torch.randn(m, cin, generator=gen, device="cuda")
+    x = (x * torch.rand(m, 1, generator=gen, device="cuda") * 10).to(dtype)
+    x[5] = 0
+    w_q, w_s = k8.quantize_weight_per_channel(
+        torch.randn(cin, cout, generator=gen, device="cuda"))
+    bias = torch.randn(cout, generator=gen, device="cuda").to(dtype)
+    got = k8.int8_matmul(x, w_q, w_s, bias)
+    assert launch_counts["int8_matmul"] == 1
+    want = k8.int8_matmul_plain(x, w_q, w_s, bias)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert ulps_apart(got, want, dtype) == 0
+    assert torch.equal(got[5].float(), bias.float())
+
+
+def test_predict_cli_on_the_card_launches_k7_and_k8(gen, tmp_path):
+    """python -m seld_tpu_torch.predict --impl apply on a tiny config, with
+    qconv_impl 'pallas' (K7 on 2 skip + 2 res + 2 heads = 6 launches per
+    clip) and 'int8' (K8, the same 6)."""
+    import numpy as np
+
+    from seld_tpu_torch import predict
+
+    cfg = tmp_path / "cfg.txt"
+    cfg.write_text("--domain=DQ\n--cnn_filters=[8,8,8]\n--input_channels=8\n--G=8\n--U=8\n"
+                   "--V=[16,16]\n--fc_layers=[16]\n--D=[2]\n--use_bias_conv=False\n"
+                   "--pool_size=[[8,2],[8,2],[2,2]]\n--pool_time=TCN\n--attention_impl=full\n")
+    clip = tmp_path / "clip.npy"
+    np.save(clip, np.random.default_rng(0).standard_normal((8, 32000)).astype(np.float32))
+    for impl, name in (("pallas", "hamilton_matmul"), ("int8", "int8_matmul")):
+        reset_launch_counts()
+        res = predict.main([f"--TextArgs={cfg}", "--inputs", str(clip), f"--out-dir={tmp_path}",
+                            "--impl=apply", f"--qconv_impl={impl}"])
+        assert launch_counts[name] == 6 and launch_counts["stft_mag"] == 1
+        assert np.isfinite(res[0]["sed"]).all() and res[0]["sed"].shape == (10, 42)
