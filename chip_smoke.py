@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship serving and training paths, and its
-training and predict entry points, once on one NVIDIA GPU.
+"""Drive the PyTorch port's flagship serving and training paths, its
+training and predict entry points, and its front-end variants and per-stage
+profiler, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,8 @@ Phases, each printing its own lines:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    nvcc per source, all at once);
-3. kernel vs plain: every kernel of every path (K7 and K8 included, K8
+3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
+   K10b included, K8
    within one ulp of its plain version) against its plain PyTorch version
    on the card, at multi-tile shapes with ragged tails and at the
    flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, forward
@@ -50,7 +52,17 @@ Phases, each printing its own lines:
    float32 ``xla`` apply path (K7 f32 at 2e-4 x max, bf16 at 0.05, int8 at
    the JAX package's PTQ bounds 0.08 / 0.15); then the bf16 batch-8 train
    step with ``qconv_impl='pallas'`` (K7 forward and dx) beside ``'xla'``,
-   in turns, with ms per step.
+   in turns, with ms per step;
+8. front-end variants: (a) ``serve(..., smallcin_impl='wide')`` (stage 1 on
+   K2w, the wide pack) beside 'thin' on the flagship in bf16, in turns, 3
+   requests of 4 one-minute clips each: K2w at one launch per 'wide' request
+   and K2 at none, audio-hours/s of both, clip 0 against the float32 plain
+   path; (b) ``fused_infer`` on the full-width R-domain config
+   (``config/SELD-TCN-S1-PHI_8ch.txt``) with 10 and 12 input channels (stage
+   1 on K2w, then on K10b), float32 at batch 2, each against its plain
+   ``model(x)``; (c) ``python -m seld_tpu_torch.profile_stages`` at
+   PROF_BATCH=4 over every section: every row timed, K2w, K10a and K10b
+   launched.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -133,6 +145,15 @@ PREDICT_KERNELS = {  # the predict CLI's apply path: qconv_impl 'pallas' (K7) an
     "int8_matmul": ("seld_tpu_torch/csrc/int8_matmul.cu", "seld_tpu/ops/pallas/quant.py:56"),
 }
 KERNELS = {**KERNELS, **PREDICT_KERNELS}
+FRONTEND_KERNELS = {  # phase 8: the serving stage's other packs and the profiler's kernels
+    "conv3x3_smallcin_wide": ("seld_tpu_torch/csrc/conv3x3_smallcin_wide.cu",
+                              "seld_tpu/ops/pallas/conv2d_pool.py:363"),
+    "conv3x3_im2col": ("seld_tpu_torch/csrc/conv3x3_im2col.cu",
+                       "seld_tpu/ops/pallas/conv2d_pool.py:100"),
+    "conv3x3_windows": ("seld_tpu_torch/csrc/conv3x3_windows.cu",
+                        "seld_tpu/ops/pallas/conv2d_pool.py:749"),
+}
+KERNELS = {**KERNELS, **FRONTEND_KERNELS}
 COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin",   # summary row -> launch-count name
               "ct_train_fwd": "conv3x3_widecin"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
@@ -155,6 +176,9 @@ PREDICT_CLIPS = 3
 QMM_PER_FORWARD, QMM_DX_PER_STEP = 22, 21
 PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/test_pallas.py)
 PREDICT_STEPS_TIMED = 3
+R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
+PROFILE_BATCH = 4
+PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,v3"
 
 
 class SmokeFailure(RuntimeError):
@@ -308,10 +332,17 @@ def phase_kernels(torch, card: str) -> dict:
             got = k()
             d = compare(torch, "stft_mag", tag, got, p(), dt, card, timed)
             if tag == "flagship" and dt == torch.bfloat16:
-                # a 512 x 512 DFT product per frame, in float32 (the audio's type)
+                # a 512 x 512 DFT product per frame, in float32 (the audio's type);
+                # the library's |STFT| with K1's window and hop, uncentred (the
+                # kernel's zero boundary and its dropped DC bin and last frame aside)
                 frames = got.numel() // got.shape[-1]
+                win = torch.hamming_window(nperseg, periodic=True, device=dev)
+                rows = x.reshape(-1, x.shape[-1])
+                lib_ms = time_ms(torch, lambda: torch.stft(
+                    rows, nperseg, nperseg - noverlap, window=win, center=False,
+                    return_complex=True).abs())
                 record("stft_mag", d, timed, 2.0 * frames * nperseg * nperseg,
-                       nbytes(x, got), "float32")
+                       nbytes(x, got), "float32", lib_ms)
 
     # ---- K2 / K3: x (B, Cin, F, T), w (3, 3, Cin, Cout)
     conv_cases = [  # tag, B, Cin, F, T, Cout, pf
@@ -401,6 +432,7 @@ def phase_kernels(torch, card: str) -> dict:
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
     phase_k7_k8(torch, card, record)
+    phase_frontend_kernels(torch, card, randn, record)
     require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
             f"kernels not launched: {launch_counts}")
     return summary
@@ -701,6 +733,72 @@ def phase_k7_k8(torch, card: str, record) -> None:
                       f"{addmm_ms:.3f} ms ({card})")
                 record("int8_matmul", d, timed, 2.0 * m * cin * cout,
                        nbytes(x, w_q, w_s, bias, got), "int8", None)
+
+
+def phase_frontend_kernels(torch, card: str, randn, record) -> None:
+    """K2w, K10a and K10b against their plain versions at ragged multi-tile
+    shapes and at the flagship's stages (batch 2), float32 and bfloat16,
+    each flagship run beside cuDNN's conv of the stage; records K2w and
+    K10a at stage 1 and K10b at stage 2 (bf16). The bound is the function's
+    (x + w + out bytes, 2 * 9 * Cin * Cout operations per output pixel):
+    the packs' bytes are the designs' cost."""
+    from seld_tpu_torch.ops.kernels import conv2d_pool as pool
+
+    F = torch.nn.functional
+    fns = {  # launch-count name -> (kernel wrapper, plain version)
+        "conv3x3_smallcin_wide": (pool.conv2d_smallcin_wide_bn_relu_fpool,
+                                  pool.conv2d_smallcin_wide_bn_relu_fpool_plain),
+        "conv3x3_im2col": (pool.conv2d_im2col_bn_relu_fpool,
+                           pool.conv2d_im2col_bn_relu_fpool_plain),
+        "conv3x3_windows": (pool.conv2d_windows_bn_relu_fpool, pool.conv2d_bn_relu_fpool_plain),
+    }
+    stage = {1: (2, CHANNELS, 256, 4800, 192, 8), 2: (2, 192, 32, 4800, 192, 8),
+             3: (2, 192, 4, 4800, 192, 2)}
+    cases = [  # name, tag, (B, Cin, F, T, Cout, pf): 3 T tiles (the last ragged), >= 2
+        # Cout tiles, several pool groups, F borders; kg 16 and 32; a ragged Cin chunk
+        ("conv3x3_smallcin_wide", "ragged", (2, 5, 24, 300, 80, 8)),
+        ("conv3x3_smallcin_wide", "ragged", (2, 8, 8, 130, 64, 2)),
+        ("conv3x3_smallcin_wide", "ragged", (1, 10, 12, 257, 200, 4)),
+        ("conv3x3_im2col", "ragged", (2, 3, 24, 300, 80, 8)),
+        ("conv3x3_im2col", "ragged", (2, 12, 8, 130, 64, 2)),
+        ("conv3x3_im2col", "ragged", (1, 20, 12, 257, 200, 4)),
+        ("conv3x3_windows", "ragged", (2, 12, 24, 300, 80, 8)),
+        ("conv3x3_windows", "ragged", (2, 20, 9, 130, 64, 3)),
+        ("conv3x3_windows", "ragged", (1, 200, 12, 257, 72, 4)),
+        *((n, "stage1", stage[1]) for n in fns),
+        *((n, f"stage{i}", stage[i]) for i in (2, 3)
+          for n in ("conv3x3_im2col", "conv3x3_windows")),
+    ]
+    recorded = {"conv3x3_smallcin_wide": "stage1", "conv3x3_im2col": "stage1",
+                "conv3x3_windows": "stage2"}
+    for name, tag, (b, cin, f, t, cout, pf) in cases:
+        kern_fn, plain_fn = fns[name]
+        xf = randn(b, cin, f, t).abs()
+        wf = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        scale = randn(cout, scale=0.2) + 1.0
+        bias = randn(cout, scale=0.2)
+        for dt in (torch.float32, torch.bfloat16):
+            x, w = xf.to(dt), wf.to(dt)
+            k = lambda: kern_fn(x, w, scale, bias, pf)
+            p = lambda: plain_fn(x, w, scale, bias, pf)
+            flag = tag != "ragged"
+            timed = (time_ms(torch, k), time_ms(torch, p)) if flag else None
+            got = k()
+            d = compare(torch, name, tag, got, p(), dt, card, timed)
+            if not flag:
+                continue
+            w_nchw = w.permute(3, 2, 0, 1).contiguous()
+            lib_ms = time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1))
+            flops, moved = 2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got)
+            dt_name = str(dt)[6:]
+            if dt == torch.bfloat16 and recorded[name] == tag:
+                record(name, d, timed, flops, moved, "bfloat16", lib_ms)
+            else:
+                bound_ms, bound_by = bound(flops, moved, dt_name)
+                print(f"[kernel] {name} {tag} {dt_name}: {timed[0]:.3f} ms, plain "
+                      f"{timed[1]:.3f} ms, library {lib_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+                      f"{bound_by} ({card})")
+        del xf, wf
 
 
 def phase_main_path(torch, card: str) -> dict:
@@ -1379,6 +1477,165 @@ def predict_train_steps(torch, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_frontend_paths(torch, card: str) -> dict:
+    """Phase 8, the front-end variants: (a) serving with the wide pack, (b)
+    fused_infer on general-Cin stages, (c) the per-stage profiler. Returns
+    {path: ({launch-count name: (source, TPU kernel)}, launches of that run)}."""
+    wide = frontend_serving(torch, card)
+    general = frontend_general_cin(torch, card)
+    profiled = frontend_profiler(torch)
+    pick = lambda name: {name: FRONTEND_KERNELS[name]}
+    return {"serving, smallcin_impl='wide'": (pick("conv3x3_smallcin_wide"), wide),
+            "fused_infer, R config with 12 input channels": (pick("conv3x3_windows"), general),
+            "profile_stages": (pick("conv3x3_im2col"), profiled)}
+
+
+def frontend_serving(torch, card: str) -> dict:
+    """(a) ``serve(..., smallcin_impl='wide')`` beside 'thin' on the
+    full-width flagship in bf16, in turns: REQUESTS requests of
+    CLIPS_PER_REQUEST one-minute clips for each; K2w launches once per
+    'wide' request and K2 never, and the reverse for 'thin'; clip 0 of the
+    first 'wide' request against the float32 plain path. Returns the 'wide'
+    requests' launches."""
+    import numpy as np
+
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.ops.kernels.stft import stft_mag_plain
+    from seld_tpu_torch.serve import build_flagship, serve
+
+    dev = torch.device("cuda")
+    model = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, dev,
+                           torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    requests = [rng.standard_normal((CLIPS_PER_REQUEST, CHANNELS, SR * CLIP_SECONDS),
+                                    dtype=np.float32) for _ in range(REQUESTS)]
+    latencies = {"thin": [], "wide": []}
+    counts = {"thin": {}, "wide": {}}
+    sed_w = int(model.output_classes * model.class_overlaps)
+    for i, audio in enumerate(requests):
+        for impl in ("thin", "wide") if i % 2 == 0 else ("wide", "thin"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sed, doa = serve(model, torch.from_numpy(audio).to(dev), smallcin_impl=impl)
+            torch.cuda.synchronize()
+            latencies[impl].append(time.perf_counter() - t0)
+            for k, v in launch_counts.items():
+                counts[impl][k] = counts[impl].get(k, 0) + v
+            require(tuple(sed.shape) == (CLIPS_PER_REQUEST, 600, sed_w)
+                    and tuple(doa.shape) == (CLIPS_PER_REQUEST, 600, 3 * sed_w),
+                    f"{impl} request {i}: shapes {tuple(sed.shape)} {tuple(doa.shape)}")
+            require(bool(torch.isfinite(sed).all() and torch.isfinite(doa).all()),
+                    f"{impl} request {i}: non-finite output")
+            if impl == "wide" and i == 0:
+                first = (sed[:1].float(), doa[:1].float())
+    wide, thin = counts["wide"], counts["thin"]
+    launched = {impl: {k: v for k, v in c.items() if v} for impl, c in counts.items()}
+    print(f"[variants] launches during the {REQUESTS} 'wide' requests: {launched['wide']}; "
+          f"'thin': {launched['thin']}")
+    require(wide["conv3x3_smallcin_wide"] == REQUESTS and wide["conv3x3_smallcin"] == 0,
+            f"'wide' serving: K2w {wide['conv3x3_smallcin_wide']}, K2 {wide['conv3x3_smallcin']}; "
+            f"want {REQUESTS} and 0")
+    require(thin["conv3x3_smallcin"] == REQUESTS and thin["conv3x3_smallcin_wide"] == 0,
+            f"'thin' serving launched {thin}")
+    require(all(wide[k] > 0 for k in ("stft_mag", "conv3x3_widecin", "flash_attn_fwd")),
+            f"'wide' serving skipped a kernel: {wide}")
+    audio_h = CLIPS_PER_REQUEST * CLIP_SECONDS / 3600.0
+    for impl, lat in latencies.items():
+        med = statistics.median(lat)
+        print(f"[variants] serve smallcin_impl='{impl}', bf16, {CLIPS_PER_REQUEST} clips per "
+              f"request from host memory, in turns: {[round(1e3 * v, 1) for v in lat]} ms, "
+              f"median {1e3 * med:.1f} ms = {audio_h / med:.4f} audio-hours/s ({card})")
+    clip = torch.from_numpy(requests[0][:1]).to(dev)
+    with torch.no_grad():
+        feats = stft_mag_plain(clip, out_dtype=torch.float32).transpose(-1, -2)
+        sed_ref, doa_ref = model(feats.contiguous())
+    d_sed = (first[0] - sed_ref.float()).abs().max().item()
+    d_doa = (first[1] - doa_ref.float()).abs().max().item()
+    print(f"[variants] clip 0, 'wide' kernels bf16 vs plain f32: max|d sed| {d_sed:.3e} "
+          f"max|d doa| {d_doa:.3e} (tol {MAIN_TOL})")
+    require(max(d_sed, d_doa) <= MAIN_TOL, "'wide' served clip disagrees with the plain path")
+    del model
+    torch.cuda.empty_cache()
+    return wide
+
+
+def frontend_general_cin(torch, card: str) -> dict:
+    """(b) ``fused_infer`` on the full-width R-domain config with 10 and 12
+    input channels (stage 1 on K2w, then on K10b; stages 2-3 on K3), float32,
+    batch 2 at 256 x 4800, each against its float32 plain ``model(x)``.
+    Returns the Cin-12 run's launches."""
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.models.fused_infer import fused_infer
+    from seld_tpu_torch.models.seld import model_from_config
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.serve import perturb_bn
+
+    dev = torch.device("cuda")
+    counts = {}
+    for cin, name in ((10, "conv3x3_smallcin_wide"), (12, "conv3x3_windows")):
+        gen = torch.Generator().manual_seed(0)
+        cfg = load_config(str(R_CONFIG)).replace(input_channels=cin, compute_dtype="float32")
+        model = model_from_config(cfg, device=dev, generator=gen)
+        perturb_bn(model, gen)
+        model.eval()
+        x = torch.rand(2, cin, cfg.freq_dim, 4800, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(cin))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sed, doa = fused_infer(model, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[cin] = dict(launch_counts)
+        with torch.no_grad():
+            sed_ref, doa_ref = model(x)
+        d = max((a - r).abs().max().item() for a, r in ((sed, sed_ref), (doa, doa_ref)))
+        tol = F32_TOL * max(sed_ref.abs().max().item(), doa_ref.abs().max().item())
+        launched = {k: v for k, v in counts[cin].items() if v}
+        others = {"conv3x3_smallcin", "conv3x3_smallcin_wide", "conv3x3_windows"} - {name}
+        print(f"[variants] fused_infer {R_CONFIG.name} with {cin} input channels, f32 batch 2: "
+              f"{1e3 * wall:.1f} ms, launches {launched}; vs plain model(x): max|d| {d:.3e} "
+              f"(tol {tol:.3e}) ({card})")
+        require(launched.get(name) == 1 and launched.get("conv3x3_widecin") == 2
+                and not others & set(launched), f"Cin {cin}: launches {launched}, want {name} once")
+        require(d <= tol, f"Cin {cin}: fused_infer is {d:.3e} from model(x)")
+        del model, x
+    torch.cuda.empty_cache()
+    return counts[12]
+
+
+def frontend_profiler(torch) -> dict:
+    """(c) ``python -m seld_tpu_torch.profile_stages`` at PROF_BATCH=4 over
+    every section: every row timed (no FAILED), K2w, K10a and K10b launched.
+    Its output goes to chip_tmp/profile_stages.log. Returns its launches."""
+    import os
+
+    torch.cuda.empty_cache()   # the profiler is another process on the same card
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PROF_BATCH": str(PROFILE_BATCH),
+           "PROF_SECTIONS": PROFILE_SECTIONS}
+    cmd = [sys.executable, "-m", "seld_tpu_torch.profile_stages"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    log = ROOT / "chip_tmp" / "profile_stages.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    print(f"[variants] profile_stages at PROF_BATCH={PROFILE_BATCH}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s (log {log.relative_to(ROOT)})")
+    for line in lines[:-1]:
+        print(f"[stages] {line}")
+    require(proc.returncode == 0 and len(lines) > 2,
+            f"profile_stages failed:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    rows = lines[1:-1]
+    require(all(r.endswith(" ms") and "FAILED" not in r for r in rows),
+            f"profile_stages rows without a time: {[r for r in rows if not r.endswith(' ms')]}")
+    counts = json.loads(lines[-1])["launch_counts"]
+    require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
+            f"profile_stages launched {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1403,13 +1660,14 @@ def main() -> int:
         training = phase_training(torch, card)
         entry = phase_entry(torch, card)
         predicted = phase_predict(torch, card)
+        variants = phase_frontend_paths(torch, card)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
         return 1
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
-             "predict": (PREDICT_KERNELS, predicted)}
+             "predict": (PREDICT_KERNELS, predicted), **variants}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
          "launches": counts.get(COUNTED_AS.get(name, name), 0), **summary[name]}

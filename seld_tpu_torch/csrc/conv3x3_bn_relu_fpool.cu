@@ -5,7 +5,8 @@
 //   conv2d_smallcin_thin_bn_relu_fpool (_smallcin_thin_kernel), stage 1,
 //   Cin <= 8: entry seld_conv3x3_smallcin;
 //   conv2d_widecin_ct_bn_relu_fpool (_widecin_ct_kernel), stages 2-3,
-//   Cin % 8 == 0: entry seld_conv3x3_widecin.
+//   Cin % 8 == 0: entry seld_conv3x3_widecin (which conv3x3_windows.cu's
+//   K10b entry also launches, for any Cin).
 // Contract: x (B, Cin, F, T), w (3, 3, Cin, Cout), scale/bias (Cout,) float
 // -> out (B, Cout, F/pf, T) with out = max_r relu(conv(x)[f*pf + r] * scale +
 // bias). The max is taken after the affine and ReLU; T is not pooled.
@@ -26,6 +27,8 @@
 // - widecin: Cin is walked in chunks of 8 for each pool row; each step stages
 //   that row's 3-row halo and weight chunk (conv_row_widecin, which the
 //   train-mode stages 2-3 share so that their conv rows equal these bitwise).
+//   The staging zero-fills channels >= Cin, so a ragged last chunk is exact
+//   and any Cin works; the Python router sends only Cin % 8 == 0 here as K3.
 // SIMT FMA: mma/wgmma tensor-core tiles are a later step.
 #include "conv3x3_common.cuh"
 
@@ -146,7 +149,7 @@ extern "C" int seld_conv3x3_smallcin(const void* x, const void* w, const void* s
                         stream);
 }
 
-// Cin % 8 == 0: Cin walked in chunks of 8.
+// Cin walked in chunks of 8, the last one ragged (K3 routes Cin % 8 == 0).
 extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* scale,
                                     const void* bias, void* out, int batch, int cin,
                                     int f_dim, int t_dim, int cout, int pf, int dtype,

@@ -1,6 +1,9 @@
 // The 3x3 conv tile shared by the CNN-frontend kernels: the serving stages
-// (conv3x3_bn_relu_fpool.cu), the train-mode stage 1 (conv3x3_train.cu) and
-// the train-mode stages 2-3 (conv3x3_ct_train.cu).
+// (conv3x3_bn_relu_fpool.cu, whose general-Cin kernel conv3x3_windows.cu
+// launches too), the train-mode stage 1
+// (conv3x3_train.cu) and the train-mode stages 2-3 (conv3x3_ct_train.cu);
+// the wide-pack and im2col stages (conv3x3_smallcin_wide.cu,
+// conv3x3_im2col.cu) take its tile sizes and epilogue.
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels

@@ -4,12 +4,14 @@ Counterpart of ``seld_tpu/models/fused_infer.py::fused_infer`` for the
 single-trunk models. It runs an eval-mode :class:`SELDModel` from its own
 parameters, in ``model.compute_dtype``:
 
-- every CNN stage runs the fused conv + folded BN + ReLU + frequency-pool
-  kernel (``ops/kernels/conv2d_pool.py``: K2 for Cin <= 8, K3 for
-  Cin % 8 == 0; every shipped config's stages are 3x3 with such Cin and an F
-  that divides by the pool, and the wrapper rejects anything else), in
-  float32 and in bfloat16; the stages stay in (B, C, F, T) between kernels
-  and the flatten to the TCN's channel-major (B, C * F', T) is a reshape;
+- every CNN stage runs a fused conv + folded BN + ReLU + frequency-pool
+  kernel (``ops/kernels/conv2d_pool.py::conv2d_bn_relu_fpool``), in float32
+  and in bfloat16, chosen per stage as the JAX package chooses it: K2 (the
+  thin pack) for Cin <= 8 under ``smallcin_impl='thin'``, else K2w (the wide
+  pack) for 3 * Cin <= 32, else K3 for Cin % 8 == 0, else K10b (per-tap
+  windows, any Cin; the JAX package runs an XLA conv there); the stages stay
+  in (B, C, F, T) between kernels and the flatten to the TCN's channel-major
+  (B, C * F', T) is a reshape;
 - per ResBlock, eval BN is folded into affines and conv weights, the filter
   and gate dilated convs are merged into one L -> 2G conv, and the skip and
   res 1x1 convs into one G -> (U + L) matmul;
@@ -43,7 +45,8 @@ def folded_affine(bn: BatchNorm, conv) -> tuple[torch.Tensor, torch.Tensor]:
     return inv.float(), shift.float()
 
 
-def _frontend(model: SELDModel, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _frontend(model: SELDModel, x: torch.Tensor, dtype: torch.dtype,
+              smallcin_impl: str) -> torch.Tensor:
     """CNN stages on x (B, C, F, T) -> channel-major (B, C' * F', T)."""
     trunk = model.seld_block
     h = x.to(dtype).contiguous()
@@ -52,7 +55,7 @@ def _frontend(model: SELDModel, x: torch.Tensor, dtype: torch.dtype) -> torch.Te
         conv, bn = getattr(trunk, f"cnn_{i}"), getattr(trunk, f"cnn_bn_{i}")
         w = conv.dense_kernel().to(dtype).contiguous()    # (3, 3, Cin, Cout)
         scale, bias = folded_affine(bn, conv)
-        h = conv2d_bn_relu_fpool(h, w, scale, bias, pf)
+        h = conv2d_bn_relu_fpool(h, w, scale, bias, pf, smallcin_impl=smallcin_impl)
     b, c, f, t = h.shape
     return h.reshape(b, c * f, t)
 
@@ -97,13 +100,16 @@ def _tcn(model: SELDModel, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def fused_infer(model: SELDModel, x: torch.Tensor, input_layout: str = "BCFT",
-                featurize=None) -> tuple[torch.Tensor, torch.Tensor]:
+                featurize=None, smallcin_impl: str = "thin") -> tuple[torch.Tensor, torch.Tensor]:
     """(sed, doa) float32 for an eval-mode single-trunk SELDModel.
 
     x: (B, C, F, T) features as ``model(x)`` takes them, or (B, C, T, F) with
     ``input_layout='BCTF'`` (the STFT kernel's native order). With
     ``featurize`` given, x is raw audio and ``featurize(x)`` yields those
-    features."""
+    features. ``smallcin_impl`` ('thin' or 'wide', ``bench.py --smallcin``)
+    picks the pack of the stages with Cin <= 8: K2 or K2w ('wide' is there
+    for parity with the JAX package; 'thin' is the faster one); the stage
+    router (``frontend_stage_kernel``) raises on any other value."""
     if input_layout not in ("BCFT", "BCTF"):
         raise ValueError(f"input_layout {input_layout!r}")
     if model.pool_time != "TCN":
@@ -116,7 +122,7 @@ def fused_infer(model: SELDModel, x: torch.Tensor, input_layout: str = "BCFT",
         feats = featurize(x) if featurize is not None else x
         if input_layout == "BCTF":
             feats = feats.transpose(2, 3)
-        h = _tcn(model, _frontend(model, feats, dtype), dtype).float()
+        h = _tcn(model, _frontend(model, feats, dtype, smallcin_impl), dtype).float()
         sed = torch.sigmoid(model.head(h, "sed", qconv_impl="xla"))
         doa = torch.tanh(model.head(h, "doa", qconv_impl="xla"))
     return sed, doa

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the serving, training and predict paths,
-each with its plain PyTorch version beside it.
+"""Hand-written Hopper kernels of the serving, training and predict paths and
+of the per-stage profiler, each with its plain PyTorch version beside it.
 
 Every public wrapper takes the plain version for CPU tensors only (the
 tests' path); for CUDA tensors it launches its kernel or raises. Each
@@ -16,6 +16,9 @@ launch_counts = {
     "stft_mag": 0,
     "conv3x3_smallcin": 0,
     "conv3x3_widecin": 0,
+    "conv3x3_smallcin_wide": 0,
+    "conv3x3_im2col": 0,
+    "conv3x3_windows": 0,
     "flash_attn_fwd": 0,
     "flash_attn_bwd": 0,
     "conv_train_stats": 0,

@@ -1,12 +1,33 @@
-"""Fused CNN-frontend stage (K2 + K3): kernel wrapper and plain version.
+"""Fused CNN-frontend stage (K2, K2w, K3, K10a, K10b): kernel wrappers and
+plain versions.
 
 ``maxpool_f(relu(conv3x3(x, w) * scale + bias))`` with zero padding 1 and a
 VALID frequency max-pool of ``pool_f`` rows (time is not pooled), writing only
-the pooled output. Counterpart of
-``seld_tpu/ops/pallas/conv2d_pool.py::conv2d_smallcin_thin_bn_relu_fpool``
-(Cin <= 8) and ``::conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0), in the
-NCHW layout (H = frequency, W = time) instead of the TPU's CT/CTH layouts.
-The kernels are ``csrc/conv3x3_bn_relu_fpool.cu``.
+the pooled output, in the NCHW layout (H = frequency, W = time) instead of
+the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``:
+
+- K2 ``conv2d_smallcin_thin_bn_relu_fpool`` (Cin <= 8) and K3
+  ``conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0):
+  ``csrc/conv3x3_bn_relu_fpool.cu``;
+- K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
+  :func:`conv2d_smallcin_wide_bn_relu_fpool`, ``csrc/conv3x3_smallcin_wide.cu``;
+- K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
+  :func:`conv2d_im2col_bn_relu_fpool`, ``csrc/conv3x3_im2col.cu``;
+- K10b ``conv2d_bn_relu_fpool`` (any Cin, per-tap windows):
+  :func:`conv2d_windows_bn_relu_fpool`, ``csrc/conv3x3_windows.cu``.
+
+:func:`conv2d_bn_relu_fpool` is the serving stage's dispatcher; it picks one
+of four kernels per stage by :func:`frontend_stage_kernel`, as
+``seld_tpu/models/fused_infer.py::_trunk_frontend`` does:
+
+- ``smallcin_impl == 'thin'`` and Cin <= 8: K2;
+- else 3 * Cin <= 32: K2w;
+- else Cin % 8 == 0: K3;
+- else: K10b (where the JAX package runs an XLA conv; its module docstring
+  names the windows kernel for such stages).
+
+K10a is reached from the per-stage profiler only
+(``python -m seld_tpu_torch.profile_stages``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +41,8 @@ from seld_tpu_torch.ops.kernels import (
 )
 
 MAX_POOL_F = 48  # keeps the smallcin halo (pool_f + 2 rows) in shared memory
+SMALLCIN_IMPLS = ("thin", "wide")
+GRID_Z_MAX = 65535
 
 
 def _check(x, w, scale, bias, pool_f) -> None:
@@ -36,52 +59,218 @@ def _check(x, w, scale, bias, pool_f) -> None:
         raise ValueError(f"F={x.shape[2]} must divide into pool_f={pool_f} rows")
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _epilogue(y: torch.Tensor, scale, bias, pool_f: int, dtype) -> torch.Tensor:
+    """relu(y * scale + bias) max-pooled over pool_f rows, y (B, Cout, F, T)
+    in the accumulation dtype; the result in ``dtype``."""
+    adt = y.dtype
+    y = y * scale.to(adt)[:, None, None] + bias.to(adt)[:, None, None]
+    return F.max_pool2d(torch.relu(y), (pool_f, 1)).to(dtype)
+
+
 def conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> torch.Tensor:
     """Plain version: conv in x's dtype, affine + ReLU + pool in float32
     (float64 for float64 input), result in x's dtype."""
     _check(x, w, scale, bias, pool_f)
     y = F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), padding=1)
-    adt = torch.promote_types(x.dtype, torch.float32)
-    y = y.to(adt) * scale.to(adt)[:, None, None] + bias.to(adt)[:, None, None]
-    y = F.max_pool2d(torch.relu(y), (pool_f, 1))
-    return y.to(x.dtype)
+    return _epilogue(y.to(_acc_dtype(x)), scale, bias, pool_f, x.dtype)
 
 
-def conv2d_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                         bias: torch.Tensor, pool_f: int) -> torch.Tensor:
-    """x (B, Cin, F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,)
-    float32 -> (B, Cout, F/pool_f, T) in x's dtype.
+def frontend_stage_kernel(cin: int, smallcin_impl: str = "thin") -> str:
+    """Launch-count name of the kernel a serving stage with ``cin`` input
+    channels runs (``seld_tpu/models/fused_infer.py:276-303``)."""
+    if smallcin_impl not in SMALLCIN_IMPLS:
+        raise ValueError(f"smallcin_impl {smallcin_impl!r} not in {SMALLCIN_IMPLS}")
+    if cin < 1:
+        raise ValueError(f"Cin must be >= 1, got {cin}")
+    if smallcin_impl == "thin" and cin <= 8:
+        return "conv3x3_smallcin"
+    if 3 * cin <= 32:
+        return "conv3x3_smallcin_wide"
+    if cin % 8 == 0:
+        return "conv3x3_widecin"
+    return "conv3x3_windows"
 
-    CPU tensors take :func:`conv2d_bn_relu_fpool_plain`. CUDA tensors launch
-    ``seld_conv3x3_smallcin`` for Cin <= 8 and ``seld_conv3x3_widecin`` for
-    Cin % 8 == 0; other Cin raise."""
-    _check(x, w, scale, bias, pool_f)
-    if not on_cuda(x, w, scale, bias):
-        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+
+def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes) -> torch.Tensor:
+    """Check the operands of a CUDA launch, launch ``seld_<name>`` with
+    (x, w, scale, bias, out, *sizes, dtype, stream) and count it."""
     require_contiguous(x=x, w=w, scale=scale, bias=bias)
     if w.dtype != x.dtype:
         raise TypeError(f"w is {w.dtype}, x is {x.dtype}")
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("scale and bias must be float32")
-    b, cin, f, t = x.shape
-    cout = w.shape[3]
-    if cin <= 8:
-        name = "conv3x3_smallcin"
-        if pool_f > MAX_POOL_F:
-            raise ValueError(f"pool_f {pool_f} > {MAX_POOL_F}")
-    elif cin % 8 == 0:
-        name = "conv3x3_widecin"
-    else:
-        raise ValueError(f"no kernel for Cin={cin} (needs Cin <= 8 or Cin % 8 == 0)")
-    if b * (f // pool_f) > 65535:
+    if out_shape[0] * out_shape[2] > GRID_Z_MAX:
         raise ValueError("B * F / pool_f exceeds the grid's z range")
-    out = torch.empty((b, cout, f // pool_f, t), dtype=x.dtype, device=x.device)
     code = dtype_code(x)
-    lib = _build.load()
-    fn = getattr(lib, f"seld_{name}")
-    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), b, cin, f, t, cout, pool_f, code,
-             stream_handle(x.device))
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    fn = getattr(_build.load(), f"seld_{name}")
+    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             *sizes, pool_f, code, stream_handle(x.device))
     _build.check(err, f"seld_{name}")
     launch_counts[name] += 1
     return out
+
+
+def conv2d_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, pool_f: int,
+                         smallcin_impl: str = "thin") -> torch.Tensor:
+    """x (B, Cin, F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,)
+    float32 -> (B, Cout, F/pool_f, T) in x's dtype.
+
+    Runs the kernel :func:`frontend_stage_kernel` picks: K2
+    (``seld_conv3x3_smallcin``) and K3 (``seld_conv3x3_widecin``) here, K2w
+    and K10b through their wrappers. CPU tensors take the chosen kernel's
+    plain version (K2 and K3: :func:`conv2d_bn_relu_fpool_plain`)."""
+    _check(x, w, scale, bias, pool_f)
+    name = frontend_stage_kernel(x.shape[1], smallcin_impl)
+    if name == "conv3x3_smallcin_wide":
+        return conv2d_smallcin_wide_bn_relu_fpool(x, w, scale, bias, pool_f)
+    if name == "conv3x3_windows":
+        return conv2d_windows_bn_relu_fpool(x, w, scale, bias, pool_f)
+    if not on_cuda(x, w, scale, bias):
+        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+    if name == "conv3x3_smallcin" and pool_f > MAX_POOL_F:
+        raise ValueError(f"pool_f {pool_f} > {MAX_POOL_F}")
+    b, cin, f, t = x.shape
+    cout = w.shape[3]
+    return _launch(name, x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
+                   b, cin, f, t, cout)
+
+
+# ---- K2w: the wide pack ------------------------------------------------------
+
+def smallcin_kg(cin: int) -> int:
+    """Rows of one (dx, c) group of the wide pack: 16 if 3 * Cin <= 16, else 32."""
+    if not 1 <= 3 * cin <= 32:
+        raise ValueError(f"the wide pack needs 3 * Cin <= 32, got Cin={cin}")
+    return 16 if 3 * cin <= 16 else 32
+
+
+def smallcin_tpad(t: int) -> int:
+    """Packed frames: T + 1 rounded up to a multiple of 128."""
+    return -(-(t + 1) // 128) * 128
+
+
+def smallcin_pack(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide packer (``seld_tpu/ops/pallas/conv2d_pool.py::smallcin_pack``)
+    on x (B, Cin, F, T) and w (3, 3, Cin, Cout):
+
+    - p0 (B, F + 2, kg, tpad): the F conv halo rows; row dx * Cin + c of the
+      kg holds x[c] shifted by dx - 1 frames (p0[..., dx*Cin + c, t] =
+      x[c, t + dx - 1], zero outside), rows >= 3 * Cin zero, frames
+      zero-padded to tpad (:func:`smallcin_tpad`);
+    - wk (Cout, 3 * kg): weight columns in (dy, (dx, c)) order, zero where
+      the pack's rows are.
+
+    Equal, element for element, to the JAX packer's p0 / wk."""
+    b, cin, f, t = x.shape
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
+    kg, tpad = smallcin_kg(cin), smallcin_tpad(t)
+    xt = F.pad(x.transpose(1, 2), (0, 0, 0, 0, 1, 1))          # (B, F + 2, C, T)
+    shifted = [F.pad(xt, (1, tpad - t - 1)),                   # x[t - 1]
+               F.pad(xt, (0, tpad - t)),                       # x[t]
+               F.pad(xt[..., 1:], (0, tpad - t + 1))]          # x[t + 1]
+    if kg > 3 * cin:
+        shifted.append(xt.new_zeros(b, f + 2, kg - 3 * cin, tpad))
+    p0 = torch.cat(shifted, dim=2).contiguous()
+    cout = w.shape[3]
+    wt = F.pad(w.reshape(3, 3 * cin, cout), (0, 0, 0, kg - 3 * cin))
+    wk = wt.reshape(3 * kg, cout).t().contiguous()
+    return p0, wk
+
+
+def conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> torch.Tensor:
+    """Plain version of :func:`conv2d_smallcin_wide_bn_relu_fpool`: the pack,
+    then per conv row f wk @ p0[:, f:f + 3] flattened to (3 * kg, tpad) in
+    float32 (float64 for float64 input), affine, ReLU and pool; frames >= T
+    dropped."""
+    _check(x, w, scale, bias, pool_f)
+    p0, wk = smallcin_pack(x, w)
+    adt, f = _acc_dtype(x), x.shape[2]
+    stack = torch.cat([p0[:, dy:dy + f] for dy in range(3)], dim=2)   # (B, F, 3 kg, tpad)
+    y = torch.einsum("ok,bfkt->boft", wk.to(adt), stack.to(adt))
+    return _epilogue(y[..., :x.shape[3]], scale, bias, pool_f, x.dtype).contiguous()
+
+
+def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
+                                       scale: torch.Tensor, bias: torch.Tensor,
+                                       pool_f: int) -> torch.Tensor:
+    """K2w: the stage through the wide pack, 3 * Cin <= 32. x (B, Cin, F, T),
+    w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,) float32 -> (B, Cout,
+    F/pool_f, T) in x's dtype.
+
+    The pack (:func:`smallcin_pack`) runs in torch, as the JAX package builds
+    it in XLA; CUDA tensors then launch ``seld_conv3x3_smallcin_wide`` on it,
+    CPU tensors take :func:`conv2d_smallcin_wide_bn_relu_fpool_plain`."""
+    _check(x, w, scale, bias, pool_f)
+    b, cin, f, t = x.shape
+    if not on_cuda(x, w, scale, bias):
+        return conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+    p0, wk = smallcin_pack(x, w)
+    cout = w.shape[3]
+    return _launch("conv3x3_smallcin_wide", p0, wk, scale, bias, pool_f,
+                   (b, cout, f // pool_f, t), b, p0.shape[2], f, t, p0.shape[3], cout)
+
+
+# ---- K10a: im2col -------------------------------------------------------------
+
+def im2col_patches(x: torch.Tensor) -> torch.Tensor:
+    """x (B, Cin, F, T) -> patches (B, F, T, 9 * Cin) of the zero-padded
+    input, column (dy * 3 + dx) * Cin + c = x[c, f + dy - 1, t + dx - 1]
+    (``conv2d_pool.py:129-138``), so patches @ w.reshape(9 * Cin, Cout) is
+    the conv."""
+    b, cin, f, t = x.shape
+    xp = F.pad(x, (1, 1, 1, 1)).permute(0, 2, 3, 1)            # (B, F + 2, T + 2, C)
+    return torch.cat([xp[:, dy:dy + f, dx:dx + t] for dy in range(3) for dx in range(3)],
+                     dim=-1).contiguous()
+
+
+def conv2d_im2col_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> torch.Tensor:
+    """Plain version of :func:`conv2d_im2col_bn_relu_fpool`: the patches,
+    one product with w.reshape(9 * Cin, Cout) in float32 (float64 for
+    float64 input), then affine, ReLU and pool."""
+    _check(x, w, scale, bias, pool_f)
+    adt = _acc_dtype(x)
+    y = torch.matmul(im2col_patches(x).to(adt), w.reshape(-1, w.shape[3]).to(adt))
+    return _epilogue(y.permute(0, 3, 1, 2), scale, bias, pool_f, x.dtype).contiguous()
+
+
+def conv2d_im2col_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """K10a: the stage as one K = 9 * Cin product over materialized patches
+    (:func:`im2col_patches`, 9x the input bytes), any Cin and T. x (B, Cin,
+    F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,) float32 ->
+    (B, Cout, F/pool_f, T) in x's dtype. CUDA tensors launch
+    ``seld_conv3x3_im2col``; CPU tensors take
+    :func:`conv2d_im2col_bn_relu_fpool_plain`."""
+    _check(x, w, scale, bias, pool_f)
+    if not on_cuda(x, w, scale, bias):
+        return conv2d_im2col_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+    b, cin, f, t = x.shape
+    cout = w.shape[3]
+    return _launch("conv3x3_im2col", im2col_patches(x), w, scale, bias, pool_f,
+                   (b, cout, f // pool_f, t), b, 9 * cin, f, t, cout)
+
+
+# ---- K10b: per-tap windows ------------------------------------------------------
+
+def conv2d_windows_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                                 bias: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """K10b, the JAX package's ``conv2d_bn_relu_fpool``: nine per-tap
+    products summed over Cin, any Cin >= 1, T and pool_f dividing F. x (B,
+    Cin, F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,) float32
+    -> (B, Cout, F/pool_f, T) in x's dtype. CUDA tensors launch
+    ``seld_conv3x3_windows``; CPU tensors take
+    :func:`conv2d_bn_relu_fpool_plain`."""
+    _check(x, w, scale, bias, pool_f)
+    if not on_cuda(x, w, scale, bias):
+        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+    b, cin, f, t = x.shape
+    cout = w.shape[3]
+    return _launch("conv3x3_windows", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
+                   b, cin, f, t, cout)

@@ -1,0 +1,300 @@
+"""Per-piece profile of the flagship serving pipeline's stages on the card.
+
+    python -m seld_tpu_torch.profile_stages [--device=cpu]
+
+Counterpart of ``tools/profile_stages.py``. Environment, as there:
+``PROF_BATCH`` (default 16) and ``PROF_SECTIONS`` (comma-separated, default
+``stft,cnn,tcn``; also ``fused``, ``qmm`` and ``v3``). The ``noop`` row, the
+dispatch baseline, always runs. Sections:
+
+- ``stft``: K1 (float32 and bfloat16 out) beside its plain version;
+- ``cnn``: the three DQ conv stages (conv, ReLU, pool) and two convs alone,
+  through ``ops/dual_quaternion.py``;
+- ``tcn``: one ResBlock's DQ convs (dilation 55), the pointwise conv and the
+  dilated conv alone;
+- ``fused``: K10a (im2col) and K10b (per-tap windows) at stages 1-3, float32
+  scale and bias;
+- ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
+- ``v3``: K2w at stage 1, then the flagship's ``model(x)`` beside
+  ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
+
+Each row prints the median of 5 timed runs after one warm-up: CUDA events on
+the card, whose name and power limit the first line gives; the host clock
+with ``--device=cpu``, which says so. A row that runs out of device memory
+prints ``FAILED`` and the profile goes on; the tool then exits non-zero.
+The last line is a JSON object of the kernels' launch counts.
+
+Each section is a generator of rows, a function of (batch, device,
+shapes) with the flagship's shapes as defaults (:data:`FLAGSHIP`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+FLAGSHIP = {
+    "channels": 8,             # microphone channels
+    "samples": 32000 * 60,     # one minute at 32 kHz
+    "freq": 256,               # STFT bins
+    "frames": 4800,            # STFT frames
+    "filters": 192,            # CNN channels
+    "pools": (8, 8, 2),        # frequency pools of the three stages
+    "tcn_width": 384,          # G = U
+    "dilation": 55,            # the widest fibonacci dilation of the ResBlocks
+    "config": ROOT / "config" / "DQSELD-TCN-S1-PHI_8ch.txt",
+}
+DEFAULT_SECTIONS = "stft,cnn,tcn"
+ITERS = 5
+
+
+def _randn(device, *shape, dtype=torch.float32, gen=None):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+def noop(batch, device, shapes=FLAGSHIP):
+    yield "noop (dispatch baseline)", lambda t: t + 1.0, (torch.zeros(8, 128, device=device),)
+
+
+def stft(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    audio = _randn(device, batch, shapes["channels"], shapes["samples"], gen=gen)
+    yield "stft: K1 stft_mag (f32 out)", lambda a: stft_mag(a, out_dtype=torch.float32), (audio,)
+    yield "stft: K1 stft_mag (bf16 out)", lambda a: stft_mag(a, out_dtype=torch.bfloat16), (audio,)
+    yield "stft: plain stft_mag_plain (f32 out)", stft_mag_plain, (audio,)
+
+
+def _dq_stage(pool_f):
+    from seld_tpu_torch.models.layers import max_pool_2d
+    from seld_tpu_torch.ops.dual_quaternion import dual_quaternion_conv
+
+    return lambda x, w: max_pool_2d(torch.relu(dual_quaternion_conv(x, w, None, padding=1)),
+                                    (pool_f, 1))
+
+
+def cnn(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.dual_quaternion import dual_quaternion_conv
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, f, t, c, pools = torch.bfloat16, shapes["freq"], shapes["frames"], shapes["filters"], \
+        shapes["pools"]
+    conv = lambda x, w: dual_quaternion_conv(x, w, None, padding=1)
+    cin = shapes["channels"]
+    x1 = _randn(device, batch, f, t, cin, dtype=bf16, gen=gen)
+    w1 = _randn(device, 8, 3, 3, cin // 8, c // 8, dtype=bf16, gen=gen)
+    yield f"cnn1: DQconv {cin}->{c} ({f},{t})+pool", _dq_stage(pools[0]), (x1, w1)
+    yield "cnn1 conv only (b4)", conv, (x1[:4], w1)
+    del x1
+    f2 = f // pools[0]
+    x2 = _randn(device, batch, f2, t, c, dtype=bf16, gen=gen)
+    w2 = _randn(device, 8, 3, 3, c // 8, c // 8, dtype=bf16, gen=gen)
+    yield f"cnn2: DQconv {c}->{c} ({f2},{t})+pool", _dq_stage(pools[1]), (x2, w2)
+    yield "cnn2 conv only (b4)", conv, (x2[:4], w2)
+    del x2
+    f3 = f2 // pools[1]
+    x3 = _randn(device, batch, f3, t, c, dtype=bf16, gen=gen)
+    yield f"cnn3: DQconv {c}->{c} ({f3},{t})+pool", _dq_stage(pools[2]), (x3, w2)
+
+
+def tcn(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.dual_quaternion import dual_quaternion_conv
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, width, dil = torch.bfloat16, shapes["tcn_width"], shapes["dilation"]
+    xt = _randn(device, batch, shapes["frames"], width, dtype=bf16, gen=gen)
+    wt = _randn(device, 8, 3, width // 8, width // 8, dtype=bf16, gen=gen)
+    wp = _randn(device, 8, 1, width // 8, width // 8, dtype=bf16, gen=gen)
+    dilated = lambda x, w: dual_quaternion_conv(x, w, None, padding=dil, dilation=dil)
+
+    def resblock_convs(x, wf, wg, ws, wr):
+        y = torch.tanh(dilated(x, wf)) * torch.sigmoid(dilated(x, wg))
+        return x + dual_quaternion_conv(y, wr, None), dual_quaternion_conv(y, ws, None)
+
+    yield f"tcn: 1 resblock convs (dil {dil})", resblock_convs, (xt, wt, wt, wp, wp)
+    yield f"tcn: pointwise 1x1 {width}->{width}", lambda x, w: dual_quaternion_conv(x, w, None), \
+        (xt, wp)
+    yield f"tcn: dilated conv only (dil {dil})", dilated, (xt, wt)
+
+
+def fused(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_im2col_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, f, t, c, pools = torch.bfloat16, shapes["freq"], shapes["frames"], shapes["filters"], \
+        shapes["pools"]
+    cin = shapes["channels"]
+    s1, b1 = _randn(device, c, gen=gen), _randn(device, c, gen=gen)
+
+    def stage(kernel_fn, pool_f):
+        return lambda x, w: kernel_fn(x, w, s1, b1, pool_f)
+
+    x1 = _randn(device, batch, cin, f, t, dtype=bf16, gen=gen)
+    w1 = assemble_dq_conv_kernel(_randn(device, 8, 3, 3, cin // 8, c // 8, gen=gen)).to(bf16)
+    x1s = x1[:4]
+    yield f"fused1: K10a im2col (K={9 * cin})", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \
+        (x1, w1)
+    yield f"fused1: K10a im2col (K={9 * cin}) b4", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \
+        (x1s, w1)
+    yield "fused1: K10b windows b4", stage(conv2d_windows_bn_relu_fpool, pools[0]), (x1s, w1)
+    yield f"fused1: K10b windows (K={cin}/tap)", stage(conv2d_windows_bn_relu_fpool, pools[0]), \
+        (x1, w1)
+    del x1, x1s
+    w2 = assemble_dq_conv_kernel(_randn(device, 8, 3, 3, c // 8, c // 8, gen=gen)).to(bf16)
+    f2 = f // pools[0]
+    for i, (fi, pool_f) in enumerate(((f2, pools[1]), (f2 // pools[1], pools[2])), start=2):
+        xi = _randn(device, batch, c, fi, t, dtype=bf16, gen=gen)
+        yield f"fused{i}: K10a im2col (K={9 * c})", stage(conv2d_im2col_bn_relu_fpool, pool_f), \
+            (xi, w2)
+        yield f"fused{i}: K10b windows (K={c}/tap)", stage(conv2d_windows_bn_relu_fpool, pool_f), \
+            (xi, w2)
+        del xi
+
+
+def qmm(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.dual_quaternion import dual_quaternion_linear
+    from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
+    from seld_tpu_torch.ops.kernels.qmatmul import pallas_dq_linear, pallas_q_linear
+    from seld_tpu_torch.ops.kernels.quant import int8_matmul, quantize_weight_per_channel
+    from seld_tpu_torch.ops.quaternion import quaternion_linear
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    width, rows = shapes["tcn_width"], batch * shapes["frames"]
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        xt = _randn(device, rows, width, dtype=dtype, gen=gen)
+        w8 = _randn(device, 8, width // 8, width // 8, dtype=dtype, gen=gen)
+        w4 = _randn(device, 4, width // 4, width // 4, dtype=dtype, gen=gen)
+        dims = f"{width}x{width}"
+        yield f"qmm {tag}: plain DQ {dims}", lambda x, w: dual_quaternion_linear(x, w, None), \
+            (xt, w8)
+        yield f"qmm {tag}: K7 DQ {dims}", \
+            lambda x, w: pallas_dq_linear(x, w, None, conv_table=True), (xt, w8)
+        yield f"qmm {tag}: plain Q {dims}", lambda x, w: quaternion_linear(x, w, None), (xt, w4)
+        yield f"qmm {tag}: K7 Q {dims}", lambda x, w: pallas_q_linear(x, w, None), (xt, w4)
+    xt = _randn(device, rows, width, dtype=torch.bfloat16, gen=gen)
+    wq, ws = quantize_weight_per_channel(
+        assemble_dq_conv_kernel(_randn(device, 8, 1, width // 8, width // 8, gen=gen))[0])
+    yield f"qmm int8: K8 PTQ DQ {width}x{width}", lambda x, q, s: int8_matmul(x, q, s, None), \
+        (xt, wq, ws)
+
+
+def v3(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.models.fused_infer import fused_infer
+    from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_smallcin_wide_bn_relu_fpool
+    from seld_tpu_torch.serve import build_flagship
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, f, t, cin = torch.bfloat16, shapes["freq"], shapes["frames"], shapes["channels"]
+    c = shapes["filters"]
+    x1 = _randn(device, batch, cin, f, t, dtype=bf16, gen=gen)
+    w1 = assemble_dq_conv_kernel(_randn(device, 8, 3, 3, cin // 8, c // 8, gen=gen)).to(bf16)
+    s1, b1 = _randn(device, c, gen=gen), _randn(device, c, gen=gen)
+    yield "v3 stage1: K2w wide pack (K=96)", \
+        lambda x, w: conv2d_smallcin_wide_bn_relu_fpool(x, w, s1, b1, shapes["pools"][0]), (x1, w1)
+    del x1, w1
+    model = build_flagship(shapes["config"], bf16, device, torch.Generator().manual_seed(0))
+    x = _randn(device, batch, cin, f, t, gen=gen)
+
+    def apply(xx):
+        with torch.no_grad():
+            return model(xx.to(bf16))
+
+    yield "v3 model(x) (bf16)", apply, (x,)
+    yield "v3 fused_infer (bf16, thin)", lambda xx: fused_infer(model, xx), (x,)
+    yield "v3 fused_infer (bf16, wide)", lambda xx: fused_infer(model, xx, smallcin_impl="wide"), \
+        (x,)
+
+
+SECTIONS = {"noop": noop, "stft": stft, "cnn": cnn, "tcn": tcn, "fused": fused, "qmm": qmm,
+            "v3": v3}
+
+
+def time_ms(fn, args, device: torch.device, iters: int = ITERS) -> float:
+    """Median milliseconds of fn(*args) over ``iters`` runs after one
+    warm-up: CUDA events on the card, the host clock on the CPU."""
+    fn(*args)
+    times = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize(device)
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run(sections, batch: int, device: torch.device, shapes=FLAGSHIP,
+        iters: int = ITERS) -> dict:
+    """Time every row of ``sections`` (``noop`` first); prints one line per
+    row and returns {row: ms, or None where the card ran out of memory}."""
+    results = {}
+    for name in ["noop", *(s for s in sections if s != "noop")]:
+        for row, fn, args in SECTIONS[name](batch, device, shapes):
+            try:
+                ms = time_ms(fn, args, device, iters)
+            except torch.cuda.OutOfMemoryError as e:
+                results[row] = None
+                print(f"{row:44s}   FAILED: {str(e).splitlines()[0][:100]}", flush=True)
+                del args
+                torch.cuda.empty_cache()
+                continue
+            results[row] = ms
+            print(f"{row:44s} {ms:10.3f} ms", flush=True)
+    return results
+
+
+def device_line(device: torch.device) -> str:
+    if device.type != "cuda":
+        return "device cpu (host clock, not a device time)"
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    return f"device {torch.cuda.get_device_name(device)}; card: {card[0].strip()}"
+
+
+def main(argv=None) -> int:
+    from seld_tpu_torch import disable_tf32
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (default) or 'cpu' (the kernels' plain versions)")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device=cpu to profile the plain versions")
+    batch = int(os.environ.get("PROF_BATCH", "16"))
+    sections = [s for s in os.environ.get("PROF_SECTIONS", DEFAULT_SECTIONS).split(",") if s]
+    unknown = sorted(set(sections) - set(SECTIONS))
+    if unknown:
+        raise ValueError(f"PROF_SECTIONS: unknown {unknown}; known {sorted(SECTIONS)}")
+    disable_tf32()
+    print(f"{device_line(device)}; batch={batch} sections={','.join(sections)}", flush=True)
+    reset_launch_counts()
+    results = run(sections, batch, device)
+    print(json.dumps({"launch_counts": dict(launch_counts)}))
+    return 1 if any(v is None for v in results.values()) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

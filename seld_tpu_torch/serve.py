@@ -9,8 +9,9 @@ with nperseg 512 / hop 400 (256 bins, 4800 frames per 60 s clip).
     model = build_flagship("config/DQSELD-TCN-S1-PHI_8ch.txt", torch.bfloat16, "cuda", gen)
     sed, doa = serve(model, audio)   # audio (B, 8, n) float32 -> (B, 600, 42), (B, 600, 126)
 
-On a CUDA device every kernel of the path launches (K1 here, K2-K4 inside
-``fused_infer``); on the CPU each kernel's plain version runs instead.
+On a CUDA device every kernel of the path launches (K1 here; K2, or K2w
+with ``smallcin_impl='wide'``, K3 and K4 inside ``fused_infer``); on the CPU
+each kernel's plain version runs instead.
 """
 
 from __future__ import annotations
@@ -69,13 +70,17 @@ def build_flagship(cfg_path, dtype: torch.dtype, device,
     return model.eval()
 
 
-def serve(model: SELDModel, audio: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def serve(model: SELDModel, audio: torch.Tensor,
+          smallcin_impl: str = "thin") -> tuple[torch.Tensor, torch.Tensor]:
     """audio (B, C, n) -> (sed (B, T', classes * overlaps), doa (B, T', 3 * ...)).
 
     The grouped (B, C, G, 3200) form of the audio is only a reshape of the
-    flat one: pass ``audio.reshape(B, C, -1)``."""
+    flat one: pass ``audio.reshape(B, C, -1)``. ``smallcin_impl`` goes to
+    :func:`fused_infer`: 'thin' runs stage 1 on K2, 'wide' on K2w (``bench.py
+    --smallcin wide``)."""
     if audio.ndim != 3:
         raise ValueError(f"audio must be (B, C, n), got {tuple(audio.shape)}")
     out_dtype = torch.bfloat16 if model.compute_dtype == "bfloat16" else torch.float32
     featurize = lambda a: stft_mag(a.contiguous(), NPERSEG, NOVERLAP, out_dtype=out_dtype)
-    return fused_infer(model, audio, input_layout="BCTF", featurize=featurize)
+    return fused_infer(model, audio, input_layout="BCTF", featurize=featurize,
+                       smallcin_impl=smallcin_impl)

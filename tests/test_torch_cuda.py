@@ -163,8 +163,8 @@ def test_cuda_tensors_never_take_the_plain_path(gen):
     x = torch.randn(1, 12, 8, 20, generator=gen, device="cuda")
     w = torch.randn(3, 3, 12, 8, device="cuda")
     s = torch.ones(8, device="cuda")
-    with pytest.raises(ValueError):   # Cin 12: neither <= 8 nor a multiple of 8
-        conv2d_bn_relu_fpool(x, w, s, s, 2)
+    with pytest.raises(ValueError):   # K2's halo holds at most MAX_POOL_F + 2 rows
+        conv2d_bn_relu_fpool(torch.zeros(1, 4, 50, 20, device="cuda"), w[:, :, :4], s, s, 50)
     with pytest.raises(ValueError):
         conv2d_bn_relu_fpool(x[:, :8], w[:, :, :8].cpu(), s, s, 2)
     q = torch.randn(1, 10, 2, 24, device="cuda")
@@ -367,3 +367,79 @@ def test_predict_cli_on_the_card_launches_k7_and_k8(gen, tmp_path):
                             "--impl=apply", f"--qconv_impl={impl}"])
         assert launch_counts[name] == 6 and launch_counts["stft_mag"] == 1
         assert np.isfinite(res[0]["sed"]).all() and res[0]["sed"].shape == (10, 42)
+
+
+# ---- K2w (wide pack), K10a (im2col), K10b (per-tap windows) -------------------
+
+from seld_tpu_torch.ops.kernels import conv2d_pool as pool   # noqa: E402
+
+# (b, cin, f, t, cout, pf): 3 T tiles with a ragged last one, >= 2 Cout tiles
+# with a ragged last one, several pool groups, F borders
+FRONTEND_CASES = {
+    "conv3x3_smallcin_wide": (pool.conv2d_smallcin_wide_bn_relu_fpool,
+                              [(2, 5, 24, 300, 80, 8), (2, 8, 8, 130, 64, 2),
+                               (1, 10, 12, 257, 200, 4)]),
+    "conv3x3_im2col": (pool.conv2d_im2col_bn_relu_fpool,
+                       [(2, 3, 24, 300, 80, 8), (2, 12, 8, 130, 64, 2),
+                        (1, 20, 12, 257, 200, 4)]),
+    "conv3x3_windows": (pool.conv2d_windows_bn_relu_fpool,
+                        [(2, 12, 24, 300, 80, 8), (2, 20, 9, 130, 64, 3),
+                         (1, 200, 12, 257, 72, 4)]),
+}
+PLAIN = {"conv3x3_smallcin_wide": pool.conv2d_smallcin_wide_bn_relu_fpool_plain,
+         "conv3x3_im2col": pool.conv2d_im2col_bn_relu_fpool_plain,
+         "conv3x3_windows": pool.conv2d_bn_relu_fpool_plain}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name,case", [(n, c) for n, (_, cs) in FRONTEND_CASES.items()
+                                       for c in cs])
+def test_frontend_variant_kernel(gen, dtype, name, case):
+    """K2w, K10a and K10b against their plain versions (K10b: Cin 200 ends in
+    a ragged chunk of 8, pf 3 an odd pool window); then a CUDA tensor
+    they cannot take raises and launches nothing."""
+    b, cin, f, t, cout, pf = case
+    fn = FRONTEND_CASES[name][0]
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = fn(x, w, scale, bias, pf)
+    assert launch_counts[name] == 1 and sum(launch_counts.values()) == 1
+    _close(got, PLAIN[name](x, w, scale, bias, pf), dtype)
+    reset_launch_counts()
+    with pytest.raises(TypeError):    # no float64 kernel
+        fn(x.double(), w.double(), scale, bias, pf)
+    with pytest.raises(TypeError):    # scale and bias are float32
+        fn(x, w, scale.half(), bias, pf)
+    with pytest.raises(ValueError):   # mixed devices
+        fn(x, w.cpu(), scale, bias, pf)
+    if name == "conv3x3_smallcin_wide":
+        x11 = torch.zeros(1, 11, 8, 20, device="cuda", dtype=dtype)
+        with pytest.raises(ValueError):   # 3 * Cin > 32: beyond the wide pack
+            fn(x11, torch.zeros(3, 3, 11, 8, device="cuda", dtype=dtype), scale[:8], bias[:8], 2)
+    assert not any(launch_counts.values())
+
+
+@pytest.mark.parametrize("cin,impl,name", [(8, "wide", "conv3x3_smallcin_wide"),
+                                           (10, "thin", "conv3x3_smallcin_wide"),
+                                           (12, "thin", "conv3x3_windows")])
+def test_fused_infer_routes_stage_one(gen, cin, impl, name):
+    """fused_infer on an R-domain model: stage 1 on the routed kernel, stages
+    2-3 (Cin 16) on K3, within 1e-4 of the float32 plain model(x) (V 128:
+    the flash kernel's head dim 16)."""
+    from seld_tpu_torch.models.fused_infer import fused_infer
+    from seld_tpu_torch.models.seld import SELDModel
+
+    model = SELDModel(freq_dim=64, input_channels=cin, domain="R", cnn_filters=(16, 16, 16),
+                      pool_size=((4, 2), (4, 2), (2, 2)), D=(3,), G=16, U=16, V=(128, 128),
+                      fc_layers=(16,), attention_impl="full", device="cuda",
+                      generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(2, cin, 64, 200, generator=gen, device="cuda")
+    with torch.no_grad():
+        want = model(x)
+    reset_launch_counts()
+    got = fused_infer(model, x, smallcin_impl=impl)
+    assert launch_counts[name] == 1 and launch_counts["conv3x3_widecin"] == 2
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=1e-4)

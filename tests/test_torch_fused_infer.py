@@ -89,3 +89,54 @@ def test_fused_infer_matches_port_model(domain, bias):
     for g1, g2, w in zip(got_ft, got_tf, want):
         torch.testing.assert_close(g1, w, rtol=0, atol=1e-5)
         torch.testing.assert_close(g2, g1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_fused_infer_wide_matches_jax_serving_slice(rng, compute_dtype):
+    """smallcin_impl='wide': stage 1 (Cin 8) through the wide pack (K2w's
+    plain version here, the Pallas smallcin kernel on the JAX side)."""
+    cfg = slice_config(compute_dtype)
+    jmodel = jax_model_from_config(cfg)
+    variables = random_variables(jmodel, (1, 8, 256, 32), rng, dtype=np.float32)
+    audio = rng.standard_normal((2, 8, N_SAMPLES)).astype(np.float32)
+
+    jdt = jnp.bfloat16 if compute_dtype == "bfloat16" else jnp.float32
+    featurize = lambda a: stft_mag_pallas(a, out_dtype=jdt, interpret=True)
+    sed_ref, doa_ref = jax.jit(lambda v, a: jax_fused_infer(
+        jmodel, v, a, interpret=True, input_layout="BCTF", featurize=featurize,
+        smallcin_impl="wide",
+    ))(variables, jnp.asarray(audio))
+
+    model = model_from_config(cfg)
+    from_jax_variables(variables, model)
+    tdt = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    sed, doa = fused_infer(model, torch.from_numpy(audio), input_layout="BCTF",
+                           featurize=lambda a: stft_mag(a, out_dtype=tdt), smallcin_impl="wide")
+    assert sed.shape == (2, 4, 42) and doa.shape == (2, 4, 126)
+    for got, want in ((sed, sed_ref), (doa, doa_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), rtol=0,
+                                   atol=TOL[compute_dtype])
+
+
+@pytest.mark.parametrize("cin", [10, 12])
+def test_fused_infer_general_cin_matches_jax(rng, cin):
+    """R-domain models with 10 and 12 input channels, float32: stage 1 on
+    K2w (Cin 10; the Pallas smallcin kernel in JAX) and on K10b (Cin 12; an
+    XLA conv in JAX), stage 2 (Cin 8) on K2, stage 3 (Cin 16) on K3."""
+    cfg = tiny_config(domain="R", input_channels=cin, cnn_filters=[8, 16, 16])
+    jmodel = jax_model_from_config(cfg)
+    variables = random_variables(jmodel, (1, cin, 32, 32), rng, dtype=np.float32)
+    x = rng.random((2, cin, 32, 32)).astype(np.float32)
+    sed_ref, doa_ref = jax.jit(lambda v, a: jax_fused_infer(jmodel, v, a, interpret=True))(
+        variables, jnp.asarray(x))
+    model = model_from_config(cfg)
+    from_jax_variables(variables, model)
+    sed, doa = fused_infer(model, torch.from_numpy(x))
+    for got, want in ((sed, sed_ref), (doa, doa_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL["float32"])
+
+
+def test_fused_infer_rejects_an_unknown_smallcin_impl():
+    model = model_from_config(slice_config())
+    with pytest.raises(ValueError, match="smallcin_impl"):
+        fused_infer(model, torch.zeros(1, 8, 256, 32), smallcin_impl="auto")
