@@ -8,19 +8,28 @@ profiler, once on one NVIDIA GPU.
 Phases, each printing its own lines:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
-   nvcc per source, all at once);
+   nvcc per source, all at once); prints ptxas' registers, shared memory and
+   spills per kernel and the HMMA / HGMMA count in the SASS of each bfloat16
+   tensor-core kernel (TC_KERNELS), failing if one has none;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8
    within one ulp of its plain version) against its plain PyTorch version
    on the card, at multi-tile shapes with ragged tails and at the
    flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, forward
    outputs and every gradient, with the median time of each kernel, of its
-   plain version and of one PyTorch library call where there is one;
+   plain version and of one PyTorch library call where there is one; the
+   conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
+   dh, and K3's pooled output against K9 F1's pre bit for bit on random
+   bf16 inputs at the flagship's stage 2;
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
    checks the outputs and that every serving kernel launched, and holds one
-   clip against the plain path on the same weights;
+   clip against the plain path on the same weights; then a window of
+   HOST_WINDOW requests from host memory, and a window of CARD_WINDOW
+   requests with the audio on the card at batches 4 and 16, each reported as
+   its total audio over its total wall time with the spread of its requests,
+   and one profiled request per batch;
 5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
    off, on the kernel path (K5, K4 + K6), on the plain path (plain stage 0,
    full attention) and on the plain path in float64, from the same weights
@@ -56,8 +65,8 @@ Phases, each printing its own lines:
 8. front-end variants: (a) ``serve(..., smallcin_impl='wide')`` (stage 1 on
    K2w, the wide pack) beside 'thin' on the flagship in bf16, in turns, 3
    requests of 4 one-minute clips each: K2w at one launch per 'wide' request
-   and K2 at none, audio-hours/s of both, clip 0 against the float32 plain
-   path; (b) ``fused_infer`` on the full-width R-domain config
+   and K2 at none, clip 0 against the float32 plain path; then a window of
+   HOST_WINDOW requests of each, in turns, as audio-hours/s; (b) ``fused_infer`` on the full-width R-domain config
    (``config/SELD-TCN-S1-PHI_8ch.txt``) with 10 and 12 input channels (stage
    1 on K2w, then on K10b), float32 at batch 2, each against its plain
    ``model(x)``; (c) ``python -m seld_tpu_torch.profile_stages`` at
@@ -176,8 +185,21 @@ PREDICT_CLIPS = 3
 QMM_PER_FORWARD, QMM_DX_PER_STEP = 22, 21
 PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/test_pallas.py)
 PREDICT_STEPS_TIMED = 3
+# the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
+# K9 F1 and dh bodies, and K4's forward
+TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
+              "flash_fwd_tc_kernel")
 R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
 PROFILE_BATCH = 4
+# (B, Cin, F, T, Cout, pf) of the conv tile's ragged checks: Cin chunks ragged
+# (12, 24, 200 against 8 in float32 and 16 in bfloat16), Cout tiles ragged
+# (80, 200), frame tiles ragged (129, 300; 296 stages x by 16-byte loads,
+# T % 8 == 0), pf 2, 4 and 8
+TILE_CASES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
+              (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4)]
+SERVE_ON_CARD_BATCHES = (4, 16)   # the serving forward with the audio already on the card
+CARD_WINDOW = 100   # timed requests per batch with the audio on the card
+HOST_WINDOW = 30    # timed requests from host memory (phase 4; phase 8a: each variant)
 PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,v3"
 
 
@@ -213,28 +235,56 @@ def phase_environment(torch) -> str:
     return card
 
 
+def kernel_name(mangled: str) -> str:
+    """"<kernel>I<template args>" of a mangled kernel symbol."""
+    m = re.search(r"\d+(\w+?_kernel)(I\w+?EE)?", mangled.split("_GLOBAL__N_")[-1])
+    return m.group(0) if m else mangled
+
+
 def phase_build() -> None:
+    """Build (or load) the kernels; print ptxas' registers, shared memory and
+    spills per kernel, and the tensor-core instructions (HMMA / HGMMA) in
+    the SASS of each bfloat16 tile kernel (TC_KERNELS), failing if one has
+    none."""
     from seld_tpu_torch import _build
 
-    path = _build.library_path(_build.find_nvcc())
+    nvcc = _build.find_nvcc()
+    path = _build.library_path(nvcc)
     prebuilt = path.exists()
     t0 = time.perf_counter()
     _build.load()
     print(f"[build] kernels {'loaded' if prebuilt else 'built with nvcc and loaded'} "
           f"in {time.perf_counter() - t0:.1f} s: {path.name}")
     log = path.with_suffix(".log")   # nvcc's command line and ptxas' report
-    if not log.exists():
-        return
-    entry, spill = "?", ""
-    for line in log.read_text().splitlines():   # ptxas -v: entry, spills, registers
-        if "Compiling entry function" in line:   # keep "<kernel>I<template args>"
-            mangled = line.split("'")[1]
-            m = re.search(r"\d+(\w+?_kernel)(I\w+?EE)?", mangled.split("_GLOBAL__N_")[-1])
-            entry = m.group(0) if m else mangled
-        elif "spill stores" in line:
-            spill = line.strip()
-        elif "Used" in line and "registers" in line:
-            print(f"[build] {entry}: {line.split(':', 1)[1].strip()}; {spill}")
+    ptxas = {}
+    if log.exists():
+        entry, spill = "?", ""
+        for line in log.read_text().splitlines():   # ptxas -v: entry, spills, registers
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                ptxas[entry] = f"{line.split(':', 1)[1].strip()}; {spill}"
+                print(f"[build] {entry}: {ptxas[entry]}")
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    mma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :")[1].strip())
+            mma[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            mma[fn] += 1
+    tiles = {fn: n for fn, n in mma.items() if any(k in fn for k in TC_KERNELS)}
+    for fn, n in sorted(tiles.items()):
+        print(f"[build] tensor cores: {fn}: {n} HMMA/HGMMA in its SASS; ptxas: "
+              f"{ptxas.get(fn, '?')}")
+    found = {k for k in TC_KERNELS if any(k in fn for fn in tiles)}
+    require(found == set(TC_KERNELS), f"bf16 tile kernels missing from the SASS: "
+            f"{set(TC_KERNELS) - found}")
+    require(all(tiles.values()), f"bf16 tile kernels without tensor-core instructions: "
+            f"{[fn for fn, n in tiles.items() if not n]}")
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
@@ -375,10 +425,15 @@ def phase_kernels(torch, card: str) -> dict:
                 record(name, d, timed, 2.0 * 9 * cin * cout * b * f * t,
                        nbytes(x, w, got), "bfloat16", lib_ms)
 
-    # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8
+    phase_tile(torch, card, randn)
+
+    # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8 and 130 = 2 * 64 + 2,
+    # every head dim the kernel is built for
     attn_cases = [
         ("ragged", 2, 200, 3, 48),
         ("ragged", 1, 130, 2, 32),
+        *(("ragged", b, t, h, d) for t in (130, 200)
+          for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48), (2, 1, 64), (1, 2, 128))),
         ("flagship", 2, 2400, 8, 48),
     ]
     for tag, b, t, h, d_head in attn_cases:
@@ -438,6 +493,53 @@ def phase_kernels(torch, card: str) -> dict:
     return summary
 
 
+def phase_tile(torch, card: str, randn) -> None:
+    """The conv tile that K3, K10b and K9's F1, F2 and dh share (SIMT in
+    float32, tensor cores in bfloat16), launched as K3 (any Cin) and as K9's
+    dh, against the plain versions at the ragged shapes of TILE_CASES; then
+    the F1 / F2 identity at the flagship's stage 2 on random (not
+    integer-grid) bf16 inputs: K3's pooled output equals max_r relu(pre *
+    scale + bias) from F1's pre bit for bit (the affine as one fma: the
+    float64 product of two floats is exact)."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels import conv2d_pool as pool
+
+    F = torch.nn.functional
+    for b, cin, f, t, cout, pf in TILE_CASES:
+        xf = randn(b, cin, f, t)
+        wf = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        scale = randn(cout, scale=0.2) + 1.0
+        bias = randn(cout, scale=0.2)
+        gzf = randn(b, cout, f, t)
+        tag = f"Cin {cin} Cout {cout} T {t} pf {pf}"
+        for dt in (torch.float32, torch.bfloat16):
+            x, w, gz = xf.to(dt), wf.to(dt), gzf.to(dt)
+            compare(torch, "conv_tile", tag, pool.conv2d_widecin_bn_relu_fpool(
+                x, w, scale, bias, pf), pool.conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf),
+                dt, card)
+            compare(torch, "conv_tile_dh", tag, k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dt, card)
+        del xf, wf, gzf
+
+    b, c, f, t, cout, pf = 2, 192, 32, 4800, 192, 8
+    h = randn(b, c, f, t, dtype=torch.bfloat16)
+    w = randn(3, 3, c, cout, dtype=torch.bfloat16, scale=(9 * c) ** -0.5)
+    sums, pre = k9.ct_train_stats(h, w, pf)
+    n = b * f * t
+    mean = sums[:cout] / n
+    inv = torch.rsqrt(torch.clamp(sums[cout:] / n - mean * mean, min=0.0) + 1e-5)
+    scale = (randn(cout, scale=0.3) + 1.0) * inv
+    bias = randn(cout, scale=0.3) - mean * scale
+    out = pool.conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
+    col = lambda v: v.double()[:, None, None]
+    y = (pre.double() * col(scale) + col(bias)).float()
+    want = F.max_pool2d(torch.relu(y), (pf, 1)).to(torch.bfloat16)
+    differ = int((out != want).sum())
+    print(f"[kernel] conv tile F1 / F2 identity, stage 2 bf16 random inputs: {differ} of "
+          f"{out.numel()} pooled outputs differ from max_r relu(pre * scale + bias)")
+    require(differ == 0, f"K3's pooled rows differ from F1's pre in {differ} places")
+    del h, w, pre, out, y, want
+
+
 def k5_inputs(torch, b, cin, f, t, cout, dtype, gen):
     """K5 inputs on a grid: x in {-2..2}, w in {-4..4}/16. Every conv sum is
     then exact in float32, so the kernel's conv and the plain one agree bit
@@ -458,13 +560,15 @@ def phase_k5(torch, card: str, randn, record) -> None:
     each pass against its plain version, at ragged multi-tile shapes and at
     the flagship's stage 1 (batch 2); records the flagship bf16 passes."""
     from seld_tpu_torch.ops.kernels import conv2d_train as k5
-    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_smallcin_bn_relu_fpool
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = [  # tag, B, Cin, F, T, Cout, pf: >= 3 T splits / Cout tiles / B * F' rows
         ("ragged", 2, 8, 24, 1300, 200, 8),
         ("ragged", 2, 5, 24, 1100, 80, 8),
+        ("ragged", 2, 9, 16, 700, 80, 4),       # Cin 9 and 10: 16 staged channels
+        ("ragged", 1, 10, 24, 1300, 72, 8),
         ("flagship", 2, CHANNELS, 256, 4800, 192, 8),
     ]
     for tag, b, cin, f, t, cout, pf in cases:
@@ -494,7 +598,7 @@ def phase_k5(torch, card: str, randn, record) -> None:
             scale = gamma * inv
             bias = beta - mean * scale
             p_col, q_col = inv / scale, (bias / scale + mean) * inv
-            out = conv2d_bn_relu_fpool(xc, w, scale, bias, pf)
+            out = conv2d_smallcin_bn_relu_fpool(xc, w, scale, bias, pf)
             sel = k5.sel_stats(out, gc, p_col, q_col)
             a_col = inv * scale * sel[cout:] / n
             b_col = scale * sel[:cout] / n - mean * a_col
@@ -507,7 +611,7 @@ def phase_k5(torch, card: str, randn, record) -> None:
                  lambda: k5.conv_train_stats_plain(xc, w), torch.float32,
                  conv_flops, nbytes(xc, w) + 8 * cout,
                  lambda: F.conv2d(xc, w_nchw, padding=1)),
-                ("conv_train_fwd", lambda: conv2d_bn_relu_fpool(xc, w, scale, bias, pf),
+                ("conv_train_fwd", lambda: conv2d_smallcin_bn_relu_fpool(xc, w, scale, bias, pf),
                  lambda: k5.conv_train_fwd_plain(xc, w, scale, bias, pf), dt,
                  conv_flops, nbytes(xc, w, out), lambda: F.conv2d(xc, w_nchw, padding=1)),
                 ("conv_train_sel_stats", lambda: k5.sel_stats(out, gc, p_col, q_col),
@@ -535,7 +639,7 @@ def phase_k9(torch, card: str, record) -> None:
     float32 and bfloat16; records the flagship stage-2 bf16 passes and prints
     the whole op's time beside cuDNN's three convolutions of the stage."""
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
-    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_widecin_bn_relu_fpool
     from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
 
     F = torch.nn.functional
@@ -574,7 +678,7 @@ def phase_k9(torch, card: str, record) -> None:
             inv = torch.rsqrt(torch.clamp(sums[cout:] / n - mean * mean, min=0.0) + 1e-5)
             scale, zero = gamma * inv, torch.zeros_like(gamma)
             bias = beta - mean * scale
-            out = conv2d_bn_relu_fpool(h, w, scale, bias, pf)
+            out = conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
             cols = torch.stack([scale, bias, mean, inv, zero, zero])
             sel = k9.ct_sel_stats(pre, g, cols, pf)
             cols = torch.stack([scale, bias, mean, inv, sel[:cout] / n, sel[cout:] / n])
@@ -590,7 +694,7 @@ def phase_k9(torch, card: str, record) -> None:
                 ("ct_train_stats", lambda: k9.ct_train_stats(h, w, pf),
                  lambda: k9.ct_train_stats_plain(h, w), torch.float32,
                  conv_flops, nbytes(h, w, pre) + 8 * cout, lib["fwd"]),
-                ("ct_train_fwd", lambda: conv2d_bn_relu_fpool(h, w, scale, bias, pf),
+                ("ct_train_fwd", lambda: conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf),
                  lambda: conv_train_fwd_plain(h, w, scale, bias, pf), dt,
                  conv_flops, nbytes(h, w, out), lib["fwd"]),
                 ("ct_train_sel_stats", lambda: k9.ct_sel_stats(pre, g, cols, pf),
@@ -852,12 +956,12 @@ def phase_main_path(torch, card: str) -> dict:
         require(bool(((sed >= 0) & (sed <= 1)).all()), f"request {i}: sed outside [0, 1]")
         require(bool(((doa >= -1) & (doa <= 1)).all()), f"request {i}: doa outside [-1, 1]")
     audio_h = CLIPS_PER_REQUEST * CLIP_SECONDS / 3600.0
-    for i, lat in enumerate(latencies):
-        print(f"[main] request {i}: {CLIPS_PER_REQUEST} clips in {lat * 1e3:.1f} ms "
-              f"= {audio_h / lat:.4f} audio-hours/s ({card})")
-    steady = statistics.median(latencies[1:])
-    print(f"[main] steady (median of requests 1..{REQUESTS - 1}): {steady * 1e3:.1f} ms "
-          f"per {CLIPS_PER_REQUEST} clips = {audio_h / steady:.4f} audio-hours/s ({card})")
+    print(f"[main] the {REQUESTS} counted requests: "
+          f"{[round(1e3 * v, 1) for v in latencies]} ms ({card})")
+    window = timed_window(torch, HOST_WINDOW, lambda i: serve(
+        model, torch.from_numpy(requests[i % REQUESTS]).to(dev)))
+    print(f"[main] from host memory, {CLIPS_PER_REQUEST} clips per request: "
+          f"{window_summary(window, audio_h)} ({card})")
 
     # one clip through the plain path on the same weights: plain STFT + the
     # unfused eval model (no kernels), float32 with TF32 off
@@ -870,7 +974,52 @@ def phase_main_path(torch, card: str) -> dict:
     print(f"[main] clip 0, kernels bf16 vs plain f32: max|d sed| {d_sed:.3e} "
           f"max|d doa| {d_doa:.3e} (tol {MAIN_TOL})")
     require(max(d_sed, d_doa) <= MAIN_TOL, "served clip disagrees with the plain path")
+    serve_on_card(torch, model, card)
     return counts
+
+
+def timed_window(torch, n: int, run) -> list:
+    """Host seconds of each of ``n`` back-to-back requests ``run(i)``, each
+    synchronised with the card before the next starts."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def window_summary(times: list, audio_h: float) -> str:
+    """A window's total audio over its total wall time, and its spread."""
+    ms = sorted(1e3 * v for v in times)
+    p10, p90 = ms[len(ms) // 10], ms[(9 * len(ms)) // 10]
+    return (f"{len(ms)} requests in {sum(ms) / 1e3:.3f} s = "
+            f"{len(ms) * audio_h / (sum(ms) / 1e3):.4f} audio-hours/s; per request min "
+            f"{ms[0]:.2f} p10 {p10:.2f} median {statistics.median(ms):.2f} p90 {p90:.2f} "
+            f"max {ms[-1]:.2f} ms")
+
+
+def serve_on_card(torch, model, card: str) -> None:
+    """The serving forward with the audio already on the card, at each batch
+    of SERVE_ON_CARD_BATCHES: a window of CARD_WINDOW requests (host clock
+    around each synchronised ``serve``) as audio-hours/s, then one profiled
+    request (device time by kernel, the device's idle share)."""
+    from seld_tpu_torch.serve import serve
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for batch in SERVE_ON_CARD_BATCHES:
+        audio = torch.randn(batch, CHANNELS, SR * CLIP_SECONDS, generator=gen, device="cuda")
+        sed, _ = serve(model, audio)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(sed).all()), f"batch {batch}: non-finite sed")
+        window = timed_window(torch, CARD_WINDOW, lambda i: serve(model, audio))
+        print(f"[main] audio on the card, batch {batch}: "
+              f"{window_summary(window, batch * CLIP_SECONDS / 3600.0)} ({card})")
+        profile_step(torch, lambda: serve(model, audio), card, top=8,
+                     label=f"serving request, batch {batch}, audio on the card")
+        del audio, sed
+    torch.cuda.empty_cache()
 
 
 
@@ -882,7 +1031,7 @@ def set_dropout(model, rate: float) -> None:
             m.rate = rate
 
 
-def profile_step(torch, run, card: str, top: int = 14) -> None:
+def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 step") -> None:
     """One more step under torch.profiler: device time by kernel (top
     ``top`` by self device time) and the device's idle share of the step."""
     from torch.autograd import DeviceType
@@ -898,7 +1047,7 @@ def profile_step(torch, run, card: str, top: int = 14) -> None:
     # device kernels only: a CPU op also reports the device time it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(self_ms(e) for e in events)
-    print(f"[profile] one bf16 step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall_ms:.3f}, {sum(e.count for e in events)} device "
           f"kernels ({card})")
     for e in sorted(events, key=self_ms, reverse=True)[:top]:
@@ -1509,17 +1658,14 @@ def frontend_serving(torch, card: str) -> dict:
     rng = np.random.default_rng(8)
     requests = [rng.standard_normal((CLIPS_PER_REQUEST, CHANNELS, SR * CLIP_SECONDS),
                                     dtype=np.float32) for _ in range(REQUESTS)]
-    latencies = {"thin": [], "wide": []}
     counts = {"thin": {}, "wide": {}}
     sed_w = int(model.output_classes * model.class_overlaps)
     for i, audio in enumerate(requests):
         for impl in ("thin", "wide") if i % 2 == 0 else ("wide", "thin"):
             torch.cuda.synchronize()
             reset_launch_counts()
-            t0 = time.perf_counter()
             sed, doa = serve(model, torch.from_numpy(audio).to(dev), smallcin_impl=impl)
             torch.cuda.synchronize()
-            latencies[impl].append(time.perf_counter() - t0)
             for k, v in launch_counts.items():
                 counts[impl][k] = counts[impl].get(k, 0) + v
             require(tuple(sed.shape) == (CLIPS_PER_REQUEST, 600, sed_w)
@@ -1541,11 +1687,14 @@ def frontend_serving(torch, card: str) -> dict:
     require(all(wide[k] > 0 for k in ("stft_mag", "conv3x3_widecin", "flash_attn_fwd")),
             f"'wide' serving skipped a kernel: {wide}")
     audio_h = CLIPS_PER_REQUEST * CLIP_SECONDS / 3600.0
-    for impl, lat in latencies.items():
-        med = statistics.median(lat)
+    windows = {"thin": [], "wide": []}
+    for i in range(HOST_WINDOW):
+        for impl in ("thin", "wide") if i % 2 == 0 else ("wide", "thin"):
+            windows[impl] += timed_window(torch, 1, lambda _: serve(
+                model, torch.from_numpy(requests[i % REQUESTS]).to(dev), smallcin_impl=impl))
+    for impl, window in windows.items():
         print(f"[variants] serve smallcin_impl='{impl}', bf16, {CLIPS_PER_REQUEST} clips per "
-              f"request from host memory, in turns: {[round(1e3 * v, 1) for v in lat]} ms, "
-              f"median {1e3 * med:.1f} ms = {audio_h / med:.4f} audio-hours/s ({card})")
+              f"request from host memory, in turns: {window_summary(window, audio_h)} ({card})")
     clip = torch.from_numpy(requests[0][:1]).to(dev)
     with torch.no_grad():
         feats = stft_mag_plain(clip, out_dtype=torch.float32).transpose(-1, -2)

@@ -17,7 +17,7 @@ static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat1
 static __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 static __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+static inline __host__ __device__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Opt a kernel in to `bytes` of dynamic shared memory (needed above 48 KB)
 // and report the first error, if any.

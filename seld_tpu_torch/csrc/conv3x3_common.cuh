@@ -11,7 +11,10 @@
 // backwards route the pool gradient by comparing conv rows with the
 // forward's, so every kernel must get bitwise the same values: they share
 // conv_rows (one fixed fmaf order), conv_row_widecin (one fixed Cin chunk
-// order) and bn_relu below.
+// order) and bn_relu below. These SIMT tiles stage float operands; the
+// bfloat16 stages 2-3 run the tensor-core tile of conv3x3_tc.cuh instead.
+// conv_rows, stage_x and stage_w take the staged channel count CC as a
+// template argument: kCC, or 2 * kCC for K5's and K2's Cin 9-10.
 #pragma once
 
 #include "common.cuh"
@@ -24,23 +27,27 @@ constexpr int kBT = 128;   // frames per block
 constexpr int kCC = 8;     // input channels per shared-memory chunk
 constexpr int kXW = kBT + 2;
 constexpr int kThreads = 256;
+// Widest Cin of the 2 * kCC staging (K5 and K2's smallcin entry): the
+// reference's 3 * Cin <= 32; channels Cin..2 * kCC - 1 are staged as zeros.
+constexpr int kMaxStagedCin = 10;
 
 // acc[i][j] += sum over (ci, dy, dx) of w[dy][dx][ci][co_i] * x[row0+dy][ci][t_j+dx]
-// xs: [rows][kCC][kXW] with row0 the first of the 3 conv rows; ws: [9][kCC][kBCO].
+// xs: [rows][CC][kXW] with row0 the first of the 3 conv rows; ws: [9][CC][kBCO].
+template <int CC = kCC>
 static __device__ __forceinline__ void conv_rows(const float* __restrict__ xs,
                                                  const float* __restrict__ ws,
                                                  int row0, int tx, int ty,
                                                  float (&acc)[4][8]) {
 #pragma unroll 1
-  for (int ci = 0; ci < kCC; ++ci) {
+  for (int ci = 0; ci < CC; ++ci) {
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
-      const float* xr = xs + ((row0 + dy) * kCC + ci) * kXW + tx;
+      const float* xr = xs + ((row0 + dy) * CC + ci) * kXW + tx;
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         float w4[4], x8[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) w4[i] = ws[((dy * 3 + dx) * kCC + ci) * kBCO + ty + 16 * i];
+        for (int i = 0; i < 4; ++i) w4[i] = ws[((dy * 3 + dx) * CC + ci) * kBCO + ty + 16 * i];
 #pragma unroll
         for (int j = 0; j < 8; ++j) x8[j] = xr[16 * j + dx];
 #pragma unroll
@@ -53,17 +60,17 @@ static __device__ __forceinline__ void conv_rows(const float* __restrict__ xs,
 }
 
 // Stage `rows` conv rows (frequency f_first, f_first + 1, ...) of channels
-// [c0, c0 + kCC) for frames [t0 - 1, t0 + kBT + 1); zeros outside the input.
-template <typename T>
+// [c0, c0 + CC) for frames [t0 - 1, t0 + kBT + 1); zeros outside the input.
+template <int CC = kCC, typename T>
 static __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* __restrict__ xb,
                                                int rows, int f_first, int c0, int t0,
                                                int cin, int f_dim, int t_dim) {
-  const int total = rows * kCC * kXW;
+  const int total = rows * CC * kXW;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int tl = e % kXW;
     const int rest = e / kXW;
-    const int ci = c0 + rest % kCC;
-    const int f = f_first + rest / kCC;
+    const int ci = c0 + rest % CC;
+    const int f = f_first + rest / CC;
     const int t = t0 + tl - 1;
     float v = 0.f;
     if (ci < cin && f >= 0 && f < f_dim && t >= 0 && t < t_dim)
@@ -72,15 +79,15 @@ static __device__ __forceinline__ void stage_x(float* __restrict__ xs, const T* 
   }
 }
 
-// Stage w[:, :, c0:c0+kCC, co0:co0+kBCO] as ws[tap][ci][co]; zeros outside.
-template <typename T>
+// Stage w[:, :, c0:c0+CC, co0:co0+kBCO] as ws[tap][ci][co]; zeros outside.
+template <int CC = kCC, typename T>
 static __device__ __forceinline__ void stage_w(float* __restrict__ ws, const T* __restrict__ w,
                                                int c0, int co0, int cin, int cout) {
-  for (int e = threadIdx.x; e < 9 * kCC * kBCO; e += kThreads) {
+  for (int e = threadIdx.x; e < 9 * CC * kBCO; e += kThreads) {
     const int col = e % kBCO;
     const int rest = e / kBCO;
-    const int ci = c0 + rest % kCC;
-    const int tap = rest / kCC;
+    const int ci = c0 + rest % CC;
+    const int tap = rest / CC;
     const int co = co0 + col;
     ws[e] = (ci < cin && co < cout)
                 ? to_f(w[(static_cast<size_t>(tap) * cin + ci) * cout + co])

@@ -11,10 +11,11 @@
 // (B, Cin, F, T), w (3, 3, Cin, Cout), out and its cotangent g
 // (B, Cout, F/pf, T); every pass reads only t < T.
 //
-// - F1  seld_ct_train_stats: the conv rows with the serving kernel's
-//       conv_row_widecin (same Cin chunk order, same fmaf order, so bitwise
-//       the values F2 pools), written once as pre (B, Cout, F, T) float, and
-//       per-channel partial sums and sums of squares.
+// - F1  seld_ct_train_stats: the conv rows with the serving kernel's row
+//       (conv_row_widecin in float32, conv_rows_tc in bfloat16: same Cin
+//       chunk order, same products, so bitwise the values F2 pools), written
+//       once as pre (B, Cout, F, T) float, and per-channel partial sums and
+//       sums of squares.
 // - B1  seld_ct_train_sel_stats: routes g to the FIRST row of each pool
 //       window holding the max of relu(pre * scale + bias) (a strict >
 //       running argmax, reduce_window's first-match rule) where that max is
@@ -26,8 +27,9 @@
 //       gz (B, Cout, F, T); seld_ct_train_dw: dW[dy][dx][ci][co] = sum over
 //       (b, f, t) of gz[b][co][f][t] * h[b][ci][f + dy - 1][t + dx - 1].
 // - B3  seld_ct_train_dx: dh = the transposed conv of gz with w (taps
-//       flipped, Cin and Cout swapped), conv_row_widecin with the weights
-//       staged by stage_w_t; no affine, ReLU or pool.
+//       flipped, Cin and Cout swapped): conv_row_widecin with the weights
+//       staged by stage_w_t in float32, conv_rows_tc<true> (the weights
+//       staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
 // - the sums (F1, B1, dW) go through per-block partial rows and
 //   launch_reduce: a fixed order in double, no atomics, so a run repeats
 //   bitwise.
@@ -40,12 +42,13 @@
 // each; the TPU kernel's recomputes in B1, B2 and B3 become reads of pre and
 // gz, which an 80 GB card holds (944 MB of pre and 472 MB of bf16 gz for
 // that stage). Design: F1 and B3 are K3's tile (64 channels x 128 frames,
-// 256 threads, halo and weights in shared memory); B1 and B2's gz pass
+// 256 threads, halo and weights in shared memory: SIMT in float32, the
+// tensor-core tile of conv3x3_tc.cuh in bfloat16); B1 and B2's gz pass
 // stream one (b, channel, pooled row) per block; the dW pass gives each
 // block a 64 Cout x 8 Cin x 9 tap tile, 18 outputs per thread, a sliding
-// 3-frame window of h in registers, and a share of the (b, f) rows.
-// SIMT FMA: tensor cores come later.
-#include "conv3x3_common.cuh"
+// 3-frame window of h in registers, and a share of the (b, f) rows (SIMT
+// FMA in both dtypes).
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -291,6 +294,122 @@ ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
+// F1's bfloat16 body: K3's tensor-core rows (conv_rows_tc, the same rows,
+// chunks and fragments as conv3x3_tc_kernel, so pre equals F2's conv rows
+// bitwise), written once as pre, with per-channel sums over the block's
+// frames: each thread's, then its quad's (the lanes sharing a channel), then
+// the four frame warps' in order through shared memory.
+__global__ void __launch_bounds__(kTcThreads, 2)
+ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ pre,
+                   float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
+                   int pf) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+  const int t0 = blockIdx.x * kTcT;
+  const int co0 = blockIdx.y * kTcCo;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const bf16* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
+
+  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  conv_rows_tc<false>(
+      reinterpret_cast<bf16*>(tc_smem), hb, w, fo * pf, pf, co0, t0, cin, f_dim, t_dim, cout,
+      [&](int r, const float (&acc)[2][4][4]) {
+        const int f = fo * pf + r;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int co = co0 + tc_m(warp_m, lane, mi, 2 * hh);
+            if (co >= cout) continue;
+            float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+              const int t = t0 + tc_n(warp_n, lane, ni, 0);
+              const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+              if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(prow + t) % 8 == 0) {
+                *reinterpret_cast<float2*>(prow + t) = make_float2(v0, v1);
+              } else {
+                if (t < t_dim) prow[t] = v0;
+                if (t + 1 < t_dim) prow[t + 1] = v1;
+              }
+              if (t < t_dim) {
+                s1[mi][hh] += v0;
+                s2[mi][hh] = fmaf(v0, v0, s2[mi][hh]);
+              }
+              if (t + 1 < t_dim) {
+                s1[mi][hh] += v1;
+                s2[mi][hh] = fmaf(v1, v1, s2[mi][hh]);
+              }
+            }
+          }
+      });
+  // conv_rows_tc ended synchronised: its buffers are free for the reduction
+  float* red = reinterpret_cast<float*>(tc_smem);   // [4 frame warps][kTcCo][2]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float a = s1[mi][hh], q = s2[mi][hh];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      if (lane % 4 == 0) {
+        const int m = tc_m(warp_m, lane, mi, 2 * hh);
+        red[(warp_n * kTcCo + m) * 2] = a;
+        red[(warp_n * kTcCo + m) * 2 + 1] = q;
+      }
+    }
+  __syncthreads();
+  const int co = co0 + threadIdx.x;
+  if (threadIdx.x < kTcCo && co < cout) {
+    float a = 0.f, q = 0.f;
+#pragma unroll
+    for (int wn = 0; wn < 4; ++wn) {
+      a += red[(wn * kTcCo + threadIdx.x) * 2];
+      q += red[(wn * kTcCo + threadIdx.x) * 2 + 1];
+    }
+    float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+    row[co] = a;
+    row[cout + co] = q;
+  }
+}
+
+// dh's bfloat16 body: conv row f of gz (K = Cout channels) with the
+// transposed, flipped weights on the tensor-core tile, stored in bf16.
+__global__ void __launch_bounds__(kTcThreads, 2)
+ct_dx_tc_kernel(const bf16* __restrict__ gz, const bf16* __restrict__ w, bf16* __restrict__ dh,
+                int cin, int f_dim, int t_dim, int cout) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+  const int t0 = blockIdx.x * kTcT;
+  const int c0 = blockIdx.y * kTcCo;
+  const int b = blockIdx.z / f_dim, f = blockIdx.z % f_dim;
+  const bf16* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
+  conv_rows_tc<true>(
+      reinterpret_cast<bf16*>(tc_smem), gb, w, f, 1, c0, t0, cout, f_dim, t_dim, cin,
+      [&](int, const float (&acc)[2][4][4]) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int c = c0 + tc_m(warp_m, lane, mi, 2 * hh);
+            if (c >= cin) continue;
+            bf16* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + f) * t_dim;
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const int t = t0 + tc_n(warp_n, lane, ni, e2);
+                if (t < t_dim) drow[t] = __float2bfloat16(acc[mi][ni][2 * hh + e2]);
+              }
+          }
+      });
+}
+
 // Run f(T{}) with T the storage type of `dtype`.
 template <typename F>
 cudaError_t by_dtype(int dtype, F&& f) {
@@ -316,11 +435,20 @@ extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void
   const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    cudaError_t e = set_smem(ct_stats_kernel<T>, kConvSmem);
-    if (e != cudaSuccess) return e;
-    ct_stats_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
-        static_cast<const T*>(h), static_cast<const T*>(w), static_cast<float*>(pre), part, cin,
-        f_dim, t_dim, cout, pf);
+    if constexpr (sizeof(T) == 2) {
+      constexpr size_t smem = tc_smem_bytes<false>();
+      cudaError_t e = set_smem(ct_stats_tc_kernel, smem);
+      if (e != cudaSuccess) return e;
+      ct_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(
+          static_cast<const bf16*>(h), static_cast<const bf16*>(w), static_cast<float*>(pre),
+          part, cin, f_dim, t_dim, cout, pf);
+    } else {
+      cudaError_t e = set_smem(ct_stats_kernel<T>, kConvSmem);
+      if (e != cudaSuccess) return e;
+      ct_stats_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
+          static_cast<const T*>(h), static_cast<const T*>(w), static_cast<float*>(pre), part,
+          cin, f_dim, t_dim, cout, pf);
+    }
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -400,11 +528,20 @@ extern "C" int seld_ct_train_dx(const void* gz, const void* w, void* dh, int bat
   const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cin, kBCO), batch * f_dim);
   return static_cast<int>(by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    cudaError_t e = set_smem(ct_dx_kernel<T>, kConvSmem);
-    if (e != cudaSuccess) return e;
-    ct_dx_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
-        static_cast<const T*>(gz), static_cast<const T*>(w), static_cast<T*>(dh), cin, f_dim,
-        t_dim, cout);
+    if constexpr (sizeof(T) == 2) {
+      constexpr size_t smem = tc_smem_bytes<true>();
+      cudaError_t e = set_smem(ct_dx_tc_kernel, smem);
+      if (e != cudaSuccess) return e;
+      ct_dx_tc_kernel<<<grid, kTcThreads, smem, s>>>(
+          static_cast<const bf16*>(gz), static_cast<const bf16*>(w), static_cast<bf16*>(dh),
+          cin, f_dim, t_dim, cout);
+    } else {
+      cudaError_t e = set_smem(ct_dx_kernel<T>, kConvSmem);
+      if (e != cudaSuccess) return e;
+      ct_dx_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
+          static_cast<const T*>(gz), static_cast<const T*>(w), static_cast<T*>(dh), cin,
+          f_dim, t_dim, cout);
+    }
     return cudaGetLastError();
   }));
 }

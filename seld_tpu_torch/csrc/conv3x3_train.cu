@@ -1,4 +1,4 @@
-// Train-mode CNN stage 1: 3x3 conv (Cin <= 8, zero pad 1) -> BatchNorm with
+// Train-mode CNN stage 1: 3x3 conv (Cin <= 10, zero pad 1) -> BatchNorm with
 // batch statistics -> ReLU -> max over `pf` frequency rows, with the
 // backward for the weights and the BN affine (stage 1's input is data, so
 // there is no dx).
@@ -7,8 +7,12 @@
 // conv2d_smallcin_bn_relu_fpool_train: its passes _stats_kernel (F1),
 // _sel_stats_kernel (B1) and _bwd_dw_kernel (B2); the forward pass F2 is the
 // serving kernel seld_conv3x3_smallcin (conv3x3_bn_relu_fpool.cu), fed the
-// batch-statistics affine. Layout: x (B, Cin, F, T), w (3, 3, Cin, Cout),
-// out and its cotangent g (B, Cout, F/pf, T); every pass reads only t < T.
+// batch-statistics affine. The reference takes 3 * Cin <= 32 (its wide
+// pack); here every pass stages CC = 8 input channels for Cin <= 8 and
+// CC = 16 for Cin 9-10 (a K dimension of 9 * CC, zero-filled past Cin), so
+// F1, F2 and B2 share one conv_rows<CC> and its fmaf order whatever Cin is.
+// Layout: x (B, Cin, F, T), w (3, 3, Cin, Cout), out and its cotangent g
+// (B, Cout, F/pf, T); every pass reads only t < T.
 //
 // - F1  seld_conv3x3_train_stats: per-channel sum and sum of squares of the
 //       conv output over (B, F, T), recomputed per tile.
@@ -23,7 +27,8 @@
 //       batch-stats BN backward scale * (g_pre - S_g/N - xhat * S_gx/N) with
 //       A = inv * scale * S_gx/N, Bc = scale * S_g/N - mean * A: the
 //       subtraction happens before the dW product), rounds g_z to the input
-//       dtype, and accumulates dW[co][tap][ci] += g_z * x in float. It also
+//       dtype, and accumulates dW[co][tap][ci] += g_z * x in float (ci
+//       padded to CC). It also
 //       emits the exact routed sums S_g and sum g_pre * acc, from which the
 //       caller forms dgamma and dbeta.
 // - every pass writes one row of per-block partial sums; launch_reduce
@@ -33,27 +38,27 @@
 // What bounds it on the H100: arithmetic. Each conv recompute is
 // 2 * 72 * Cout FLOP per conv pixel (34 GFLOP per pass for a batch of 8
 // one-minute clips) and B2 does three such products (two recomputes and the
-// dW product) on 72-wide operands; the bytes (x, out, g) are a few hundred
+// dW product) on 72-wide operands (144 for CC = 16); the bytes (x, out, g) are a few hundred
 // MB. Design: the K2 tile (64 channels x 128 frames per block, 256
 // threads, halo and weights in shared memory); a block walks kTilesPerBlock
 // frame tiles so that the partial rows stay small. B2 keeps the argmax row
 // index per output in registers (pass A), recomputes each row (pass B),
 // stages that row's g_z tile in shared memory and forms the 64 x 72 dW
-// tile from it, 18 outputs per thread. SIMT FMA: tensor cores come later.
+// tile from it, 18 outputs per thread (36 for CC = 16). SIMT FMA: tensor
+// cores come later.
 #include "conv3x3_common.cuh"
 
 namespace {
 
 constexpr int kGzW = kBT + 1;   // padded row of the g_z tile (no bank conflicts)
-constexpr int kK = 9 * kCC;     // 72: the dW row per output channel
 
-template <typename T>
+template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ partials,
              int cin, int f_dim, int t_dim, int cout, int pf, int tiles_per_block) {
   extern __shared__ float smem[];
-  float* xs = smem;                          // [pf + 2][kCC][kXW]
-  float* ws = smem + (pf + 2) * kCC * kXW;   // [9][kCC][kBCO]
+  float* xs = smem;                         // [pf + 2][CC][kXW]
+  float* ws = smem + (pf + 2) * CC * kXW;   // [9][CC][kBCO]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int co0 = blockIdx.y * kBCO;
   const int f_out = f_dim / pf;
@@ -61,12 +66,12 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __restrict
   const T* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
 
   float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-  stage_w(ws, w, 0, co0, cin, cout);
+  stage_w<CC>(ws, w, 0, co0, cin, cout);
   for (int tile = 0; tile < tiles_per_block; ++tile) {
     const int t0 = (blockIdx.x * tiles_per_block + tile) * kBT;
     if (t0 >= t_dim) break;
     __syncthreads();   // the previous tile's readers are done
-    stage_x(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
+    stage_x<CC>(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
     __syncthreads();
     for (int r = 0; r < pf; ++r) {
       float acc[4][8];
@@ -74,7 +79,7 @@ stats_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __restrict
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows(xs, ws, r, tx, ty, acc);
+      conv_rows<CC>(xs, ws, r, tx, ty, acc);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (t0 + tx + 16 * j >= t_dim) continue;
@@ -133,17 +138,18 @@ sel_stats_kernel(const T* __restrict__ out, const T* __restrict__ g,
   }
 }
 
-template <typename T>
+template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
 dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ scale,
           const float* __restrict__ bias, const float* __restrict__ a_col,
           const float* __restrict__ b_col, const T* __restrict__ g,
           float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf,
           int tiles_per_block) {
+  constexpr int kK = 9 * CC;                 // the dW row per output channel
   extern __shared__ float smem[];
-  float* xs = smem;                          // [pf + 2][kCC][kXW]
-  float* ws = xs + (pf + 2) * kCC * kXW;     // [9][kCC][kBCO]
-  float* gz = ws + 9 * kCC * kBCO;           // [kBCO][kGzW]
+  float* xs = smem;                          // [pf + 2][CC][kXW]
+  float* ws = xs + (pf + 2) * CC * kXW;      // [9][CC][kBCO]
+  float* gz = ws + 9 * CC * kBCO;            // [kBCO][kGzW]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int co0 = blockIdx.y * kBCO;
   const int f_out = f_dim / pf;
@@ -160,25 +166,25 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
     ac[i] = ok ? a_col[co] : 0.f;
     bc[i] = ok ? b_col[co] : 0.f;
   }
-  // dW outputs of this thread: channel co0 + dw_co, k = dw_k0 + 4 j (k = tap * 8 + ci)
+  // dW outputs of this thread: channel co0 + dw_co, k = dw_k0 + 4 j (k = tap * CC + ci)
   const int dw_co = tid % kBCO, dw_k0 = tid / kBCO;
   int x_off[kK / 4];   // offset of (dy, ci, dx) in xs relative to the conv row
 #pragma unroll
   for (int j = 0; j < kK / 4; ++j) {
-    const int k = dw_k0 + 4 * j, tap = k / kCC, ci = k % kCC;
-    x_off[j] = ((tap / 3) * kCC + ci) * kXW + tap % 3;
+    const int k = dw_k0 + 4 * j, tap = k / CC, ci = k % CC;
+    x_off[j] = ((tap / 3) * CC + ci) * kXW + tap % 3;
   }
   float dw[kK / 4];
 #pragma unroll
   for (int j = 0; j < kK / 4; ++j) dw[j] = 0.f;
   float sg[4] = {0.f, 0.f, 0.f, 0.f}, sga[4] = {0.f, 0.f, 0.f, 0.f};
 
-  stage_w(ws, w, 0, co0, cin, cout);
+  stage_w<CC>(ws, w, 0, co0, cin, cout);
   for (int tile = 0; tile < tiles_per_block; ++tile) {
     const int t0 = (blockIdx.x * tiles_per_block + tile) * kBT;
     if (t0 >= t_dim) break;
     __syncthreads();
-    stage_x(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
+    stage_x<CC>(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
     __syncthreads();
 
     // pass A: the first row holding each output's max
@@ -190,7 +196,7 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows(xs, ws, r, tx, ty, acc);
+      conv_rows<CC>(xs, ws, r, tx, ty, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -222,7 +228,7 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows(xs, ws, r, tx, ty, acc);
+      conv_rows<CC>(xs, ws, r, tx, ty, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -236,7 +242,7 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
           gz[(ty + 16 * i) * kGzW + tx + 16 * j] = z;
         }
       __syncthreads();
-      const float* xr = xs + r * kCC * kXW;
+      const float* xr = xs + r * CC * kXW;
       const float* gr = gz + dw_co * kGzW;
 #pragma unroll 2
       for (int t = 0; t < kBT; ++t) {
@@ -269,16 +275,43 @@ int n_split(int t_dim, int tiles_per_block) {
   return ceil_div(ceil_div(t_dim, kBT), tiles_per_block);
 }
 
+// The staged channels of a Cin: 8, or 16 for Cin 9-10.
+int staged_channels(int cin) { return cin <= kCC ? kCC : 2 * kCC; }
+
+template <typename T, int CC>
+cudaError_t launch_stats_cc(const void* x, const void* w, float* partials, int batch, int cin,
+                            int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO);
+  cudaError_t err = set_smem(stats_kernel<T, CC>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
+  stats_kernel<T, CC><<<grid, kThreads, smem, s>>>(static_cast<const T*>(x),
+                                                   static_cast<const T*>(w), partials, cin,
+                                                   f_dim, t_dim, cout, pf, tpb);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* w, float* partials, int batch, int cin,
                          int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((pf + 2) * kCC * kXW + 9 * kCC * kBCO);
-  cudaError_t err = set_smem(stats_kernel<T>, smem);
+  if (staged_channels(cin) == kCC)
+    return launch_stats_cc<T, kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb, s);
+  return launch_stats_cc<T, 2 * kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb,
+                                     s);
+}
+
+template <typename T, int CC>
+cudaError_t launch_dw_cc(const void* x, const void* w, const float* scale, const float* bias,
+                         const float* a_col, const float* b_col, const void* g,
+                         float* partials, int batch, int cin, int f_dim, int t_dim, int cout,
+                         int pf, int tpb, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO + kBCO * kGzW);
+  cudaError_t err = set_smem(dw_kernel<T, CC>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  stats_kernel<T><<<grid, kThreads, smem, s>>>(static_cast<const T*>(x),
-                                               static_cast<const T*>(w), partials, cin, f_dim,
-                                               t_dim, cout, pf, tpb);
+  dw_kernel<T, CC><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), scale, bias, a_col, b_col,
+      static_cast<const T*>(g), partials, cin, f_dim, t_dim, cout, pf, tpb);
   return cudaGetLastError();
 }
 
@@ -287,20 +320,17 @@ cudaError_t launch_dw(const void* x, const void* w, const float* scale, const fl
                       const float* a_col, const float* b_col, const void* g, float* partials,
                       int batch, int cin, int f_dim, int t_dim, int cout, int pf, int tpb,
                       cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * ((pf + 2) * kCC * kXW + 9 * kCC * kBCO + kBCO * kGzW);
-  cudaError_t err = set_smem(dw_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  dw_kernel<T><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), scale, bias, a_col, b_col,
-      static_cast<const T*>(g), partials, cin, f_dim, t_dim, cout, pf, tpb);
-  return cudaGetLastError();
+  if (staged_channels(cin) == kCC)
+    return launch_dw_cc<T, kCC>(x, w, scale, bias, a_col, b_col, g, partials, batch, cin,
+                                f_dim, t_dim, cout, pf, tpb, s);
+  return launch_dw_cc<T, 2 * kCC>(x, w, scale, bias, a_col, b_col, g, partials, batch, cin,
+                                  f_dim, t_dim, cout, pf, tpb, s);
 }
 
 bool bad_shape(int cin, int cout, int pf) {
-  return cin < 1 || cin > kCC || cout < 1 || pf < 1 || pf > 255;
+  return cin < 1 || cin > kMaxStagedCin || cout < 1 || pf < 1 || pf > 255;
 }
+
 
 }  // namespace
 
@@ -353,9 +383,10 @@ extern "C" int seld_conv3x3_train_sel_stats(const void* out, const void* g, cons
                                         2 * cout, s));
 }
 
-// B2 + its reduction: sums (Cout * 74,) = [dW (Cout, 9 taps, 8 ci) | S_g |
-// sum g_pre * acc]. scale, bias, a, b: (Cout,) float; g: (B, Cout, F/pf, T);
-// partials: (B * F/pf * n_split, Cout * 74).
+// B2 + its reduction: sums (Cout * (9 CC + 2),) = [dW (Cout, 9 taps, CC ci) |
+// S_g | sum g_pre * acc], CC = 8 for Cin <= 8, else 16. scale, bias, a, b:
+// (Cout,) float; g: (B, Cout, F/pf, T); partials: (B * F/pf * n_split,
+// Cout * (9 CC + 2)).
 extern "C" int seld_conv3x3_train_dw(const void* x, const void* w, const void* scale,
                                      const void* bias, const void* a, const void* b,
                                      const void* g, void* partials, void* sums, int batch,
@@ -380,5 +411,5 @@ extern "C" int seld_conv3x3_train_dw(const void* x, const void* w, const void* s
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = batch * (f_dim / pf) * n_split(t_dim, tiles_per_block);
   return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows,
-                                        cout * (kK + 2), s));
+                                        cout * (9 * staged_channels(cin) + 2), s));
 }

@@ -9,18 +9,35 @@
 // What bounds it on the H100: arithmetic and the exp per score
 // (4*B*H*T^2*D FLOP; at T = 2400, D = 48 that is 0.9 GFLOP per head), not
 // memory: q, k, v and out are 4 * T * D elements per head and the (T, T)
-// score matrix is never written. Design: one block per (b*h, 64-query tile),
-// 256 threads, four per query row. The block streams 64-key tiles of K and V
-// through shared memory; each thread scores 16 keys of its row, the row's
-// max and sum are reduced across its four threads with warp shuffles, and
-// the running max, sum and the D-wide output accumulator (D/4 floats per
-// thread) are kept in float. D = 48 is handled natively: the TPU kernel's
-// padding of D to 128 was a lane-width rule. The ragged last key tile is
-// masked to -inf before the max; query rows past T are computed on zeros and
-// not stored. SIMT FMA: mma/wgmma tiles are a later step.
+// score matrix is never written. D = 48 is handled natively: the TPU
+// kernel's padding of D to 128 was a lane-width rule. The ragged last key
+// tile is masked to -inf before the max; query rows past T are computed on
+// zeros and not stored.
+//
+// bfloat16: FlashAttention-2 on the tensor cores (flash_fwd_tc_kernel). One
+// block per (b*h, 64-query tile), 4 warps of 16 query rows each; Q's
+// fragments stay in registers. 64-key tiles of K and V stream through a
+// two-stage cp.async ring (the next tile loads while this one multiplies).
+// S = Q K^T is mma.sync.m16n8k16 with float accumulators (D in {16, 32, 48,
+// 64, 128}, all multiples of 16); the online softmax runs on the
+// accumulator fragments (row max and sum across the four lanes of a quad,
+// exp2f with scale * log2(e) folded in, each thread's share of the row sum
+// reduced once at the end); P is rounded to bf16 in registers and fed
+// straight back as the A operand of O += P V (no shared-memory round trip).
+// Rounding P to bf16 departs from the JAX kernel, which multiplies a float p
+// (seld_tpu/ops/pallas/attention.py:52-56); it stays within the bf16
+// tolerance (2e-2 x max|ref|), as the plain version, which rounds the
+// normalized probabilities to v's dtype, shows on the card.
+//
+// float32: the SIMT kernel (flash_fwd_kernel): 256 threads, four per query
+// row; each thread scores 16 keys of its row, the row's max and sum are
+// reduced across its four threads with warp shuffles, and the running max,
+// sum and the D-wide output accumulator (D/4 floats per thread) are kept in
+// float; TF32 stays off.
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -127,16 +144,192 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- bfloat16: FlashAttention-2 on mma.sync.m16n8k16 ----------------------
+
+constexpr int kTcQ = 64;         // queries per block: 4 warps x 16 rows
+constexpr int kTcK = 64;         // keys per tile
+constexpr int kTcThreads = 128;
+
+template <int D>
+constexpr size_t tc_smem_bytes() {   // q, then two (k, v) stages, rows padded to D + 8
+  return sizeof(bf16) * 5 * kTcQ * (D + 8);
+}
+
+// rows [r0, r0 + 64) of a (B, T, H, D) tensor at (b, h) -> dst [64][D + 8],
+// rows past T zero-filled, by 16-byte cp.async copies.
+template <int D>
+static __device__ __forceinline__ void tc_load_rows(bf16* __restrict__ dst,
+                                                    const bf16* __restrict__ src, size_t base,
+                                                    size_t tstride, int r0, int t_dim) {
+  constexpr int kVecs = D / 8;
+  for (int e = threadIdx.x; e < 64 * kVecs; e += kTcThreads) {
+    const int r = e / kVecs, c = e % kVecs;
+    const bool ok = r0 + r < t_dim;
+    cp_async16(dst + r * (D + 8) + 8 * c,
+               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 8 * c : src,
+               ok ? 16 : 0);
+  }
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int t_dim, int heads, float scale_log2) {
+  constexpr int kP = D + 8;   // padded row: 16-byte units odd, so ldmatrix phases do not conflict
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [kTcQ][kP]
+  bf16* kv = qs + kTcQ * kP;                     // per stage: k [kTcK][kP], v [kTcK][kP]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, quad = lane % 4, jq = lane / 8, r8 = lane % 8;
+  const int q0 = blockIdx.x * kTcQ;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kTcK);
+
+  tc_load_rows<D>(qs, q, base, tstride, q0, t_dim);
+  tc_load_rows<D>(kv, k, base, tstride, 0, t_dim);
+  tc_load_rows<D>(kv + kTcK * kP, v, base, tstride, 0, t_dim);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16 of D
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd)
+    ldsm_x4(qs + (warp * 16 + (jq % 2) * 8 + r8) * kP + kd * 16 + (jq / 2) * 8, qf[kd]);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // rows g and g + 8, in log2 units
+  float l_run[2] = {0.f, 0.f};                       // this thread's share of the row sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const bf16* ks = kv + (j & 1) * 2 * kTcK * kP;
+    const bf16* vs = ks + kTcK * kP;
+    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
+      bf16* nk = kv + ((j + 1) & 1) * 2 * kTcK * kP;
+      tc_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcK, t_dim);
+      tc_load_rows<D>(nk + kTcK * kP, v, base, tstride, (j + 1) * kTcK, t_dim);
+      cp_async_commit();
+    }
+    // S = Q K^T for 64 keys: eight m16n8 fragments
+    float s[kTcK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+#pragma unroll
+      for (int np = 0; np < kTcK / 16; ++np) {
+        uint32_t t4[4];   // K rows: (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
+        ldsm_x4(ks + (np * 16 + (jq / 2) * 8 + r8) * kP + kd * 16 + (jq % 2) * 8, t4);
+        mma_bf16(s[2 * np], qf[kd], t4[0], t4[1]);
+        mma_bf16(s[2 * np + 1], qf[kd], t4[2], t4[3]);
+      }
+    // the online softmax on the fragments: keys past T masked to -inf
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * kTcK + nt * 8 + 2 * quad + (e % 2);
+        s[nt][e] = key < t_dim ? s[nt][e] * scale_log2 : -CUDART_INF_F;
+        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_run[hh], mx[hh]);   // finite: every tile holds a key
+      alpha[hh] = exp2f(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+      l_run[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - m_run[e / 2]);
+        l_run[e / 2] += s[nt][e];
+      }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+    // O += P V, P rounded to bf16 in registers as the A operand
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // V transposed: matrices (keys 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+        uint32_t t4[4];
+        ldsm_x4_t(vs + (kk * 16 + (jq % 2) * 8 + r8) * kP + dp * 16 + (jq / 2) * 8, t4);
+        mma_bf16(o[2 * dp], a, t4[0], t4[1]);
+        mma_bf16(o[2 * dp + 1], a, t4[2], t4[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();   // the next stage is complete; this one's readers are done
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_run[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int t = q0 + warp * 16 + g + 8 * hh;
+    if (t >= t_dim) continue;
+    const float inv = 1.f / l;
+    bf16* orow = out + base + static_cast<size_t>(t) * tstride;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * quad) =
+          __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+    if (quad == 0)
+      lse[static_cast<size_t>(bh) * t_dim + t] = (m_run[hh] + log2f(l)) * 0.69314718055994531f;
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int batch, int t_dim, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = set_smem(flash_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(t_dim, kBQ), batch * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, t_dim, heads, scale);
+  if constexpr (sizeof(T) == 2) {
+    const void* rows[] = {q, k, v, out};   // 16-byte copies and bf16x2 stores
+    for (const void* p : rows)
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+    constexpr size_t smem = tc_smem_bytes<D>();
+    cudaError_t err = set_smem(flash_fwd_tc_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(ceil_div(t_dim, kTcQ), batch * heads);
+    flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(out), lse, t_dim, heads, scale * 1.4426950408889634f);
+  } else {
+    const size_t smem = sizeof(float) * smem_floats<D>();
+    cudaError_t err = set_smem(flash_fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(ceil_div(t_dim, kBQ), batch * heads);
+    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, t_dim, heads, scale);
+  }
   return cudaGetLastError();
 }
 

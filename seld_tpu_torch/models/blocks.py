@@ -188,8 +188,9 @@ class ConvTCBlock(nn.Module):
         """Whether train mode runs every CNN stage through the kernel ops
         (``frontend_impl='ct'``): the conditions of
         ``seld_tpu/models/blocks.py::ConvTCBlock._ct_train_ok`` (3x3 bias-free
-        conv, BN on, Cin <= 8 for stage 0, frequency-only pools dividing F at
-        every stage, every stage's width a multiple of 8). On a CUDA tensor
+        conv, BN on, 3 * Cin <= 32 for stage 0, frequency-only pools dividing F
+        at every stage, stage 0's within K5's range, every stage's width a
+        multiple of 8). On a CUDA tensor
         that fails them it raises; on the CPU it warns and the plain stages
         run."""
         if self.frontend_impl != "ct":
@@ -198,13 +199,14 @@ class ConvTCBlock(nn.Module):
         for pf, pt in self.pools[:self.n_stages]:
             ok = ok and pt == 1 and 1 <= pf <= conv2d_train.MAX_POOL_F and f % pf == 0
             f //= max(pf, 1)
+        cin = x.shape[-1]
         ok = (ok and self.kernel_size == 3 and not self.use_bias and self.use_bn
-              and x.shape[-1] <= conv2d_train.MAX_CIN
+              and 3 * cin <= 32 and self.pools[0][0] <= conv2d_train.max_pool_f(cin)
               and all(c % conv2d_ct_train.CIN_CHUNK == 0 for c in self.cnn_filters))
         if not ok:
             msg = ("frontend_impl='ct' asked for, but the CNN stages do not meet the K5/K9 "
-                   "conditions (3x3 bias-free conv, BN on, Cin <= 8, frequency-only pools "
-                   "dividing F, stage widths a multiple of 8)")
+                   "conditions (3x3 bias-free conv, BN on, 3 * Cin <= 32, frequency-only "
+                   "pools dividing F, stage widths a multiple of 8)")
             if x.is_cuda:   # a CUDA tensor launches the kernels or raises
                 raise ValueError(msg)
             warnings.warn(f"{msg}: the plain stages run", stacklevel=3)
@@ -238,19 +240,21 @@ class ConvTCBlock(nn.Module):
         """Whether train-mode stage 0 runs the K5 op: 'auto' on a float32 or
         bfloat16 CUDA tensor, or 'fused', when the structural conditions of
         ``seld_tpu/models/blocks.py::ConvTCBlock._fused_train_ok`` hold (3x3
-        bias-free conv, BN on, Cin <= 8, a frequency-only pool dividing F)."""
+        bias-free conv, BN on, 3 * Cin <= 32, a frequency-only pool dividing F
+        and within K5's range)."""
         if self.frontend_impl == "xla":
             return False
         if self.frontend_impl == "auto" and not (
                 x.is_cuda and x.dtype in (torch.float32, torch.bfloat16)):
             return False
+        cin = x.shape[-1]
         ok = (self.kernel_size == 3 and not self.use_bias and self.use_bn
-              and x.shape[-1] <= conv2d_train.MAX_CIN and pool[1] == 1
-              and pool[0] <= conv2d_train.MAX_POOL_F and x.shape[1] % pool[0] == 0)
+              and 3 * cin <= 32 and pool[1] == 1
+              and pool[0] <= conv2d_train.max_pool_f(cin) and x.shape[1] % pool[0] == 0)
         if not ok and self.frontend_impl == "fused":
             msg = ("frontend_impl='fused' asked for, but stage 0 does not meet the K5 "
-                   "conditions (3x3 bias-free conv, BN on, Cin <= 8, a frequency-only pool "
-                   "dividing F)")
+                   "conditions (3x3 bias-free conv, BN on, 3 * Cin <= 32, a frequency-only "
+                   "pool dividing F)")
             if x.is_cuda:   # a CUDA tensor launches the kernel or raises
                 raise ValueError(msg)
             warnings.warn(f"{msg}: the plain stage runs", stacklevel=3)

@@ -20,11 +20,11 @@ CUDA tensors and runs its plain version for CPU tensors:
   its per-channel sum and sum of squares;
 - (torch) mean, var, the BN affine;
 - F2 — conv + affine + ReLU + frequency max-pool: on CUDA tensors
-  ``conv2d_pool.conv2d_bn_relu_fpool`` (K3's ``seld_conv3x3_widecin``, its
-  launches counted under that name; K2's ``seld_conv3x3_smallcin`` for C = 8,
-  whose single chunk sums in the same order) fed the batch-statistics affine;
-  its conv rows equal ``pre`` bit for bit (one shared conv row); on CPU
-  tensors ``conv2d_train.conv_train_fwd_plain``;
+  ``conv2d_pool.conv2d_widecin_bn_relu_fpool`` (K3's
+  ``seld_conv3x3_widecin`` whatever C is, its launches counted under that
+  name) fed the batch-statistics affine; its conv rows equal ``pre`` bit for
+  bit (one shared conv row: SIMT in float32, the tensor-core tile in
+  bfloat16); on CPU tensors ``conv2d_train.conv_train_fwd_plain``;
 - B1 :func:`ct_sel_stats` — S_g and S_gx, routed from ``pre``;
 - B2 :func:`ct_gz` — g_z, written once in the input dtype, and
   :func:`ct_dw` — dW from g_z and h;
@@ -44,10 +44,9 @@ from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
-from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
+from seld_tpu_torch.ops.kernels.conv2d_pool import BLOCK_T, conv2d_widecin_bn_relu_fpool
 from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
 
-BLOCK_T = 128        # frames per kernel tile (kBT in conv3x3_common.cuh)
 CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
 DW_SPLITS = 64       # the dW pass shares the B * F rows among at most this many blocks
 GRID_MAX = 65535     # the grid's y and z range
@@ -296,7 +295,8 @@ class _ConvCTTrainFn(torch.autograd.Function):
         scale = gamma.to(inv.dtype) * inv
         bias = beta.to(inv.dtype) - mean * scale
         if on_cuda(h, w):   # F2: K3's widecin kernel fed the batch-statistics affine
-            out = conv2d_bn_relu_fpool(h, w, scale.contiguous(), bias.contiguous(), pool_f)
+            out = conv2d_widecin_bn_relu_fpool(h, w, scale.contiguous(), bias.contiguous(),
+                                               pool_f)
         else:
             out = conv_train_fwd_plain(h, w, scale, bias, pool_f)
         ctx.save_for_backward(h, w, pre, mean, inv, scale, bias)

@@ -6,9 +6,11 @@ VALID frequency max-pool of ``pool_f`` rows (time is not pooled), writing only
 the pooled output, in the NCHW layout (H = frequency, W = time) instead of
 the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``:
 
-- K2 ``conv2d_smallcin_thin_bn_relu_fpool`` (Cin <= 8) and K3
+- K2 ``conv2d_smallcin_thin_bn_relu_fpool`` (Cin <= 8):
+  :func:`conv2d_smallcin_bn_relu_fpool`, and K3
   ``conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0):
-  ``csrc/conv3x3_bn_relu_fpool.cu``;
+  :func:`conv2d_widecin_bn_relu_fpool`, both ``csrc/conv3x3_bn_relu_fpool.cu``
+  (K3 in bfloat16 on the tensor-core tile of ``csrc/conv3x3_tc.cuh``);
 - K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
   :func:`conv2d_smallcin_wide_bn_relu_fpool`, ``csrc/conv3x3_smallcin_wide.cu``;
 - K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
@@ -41,6 +43,10 @@ from seld_tpu_torch.ops.kernels import (
 )
 
 MAX_POOL_F = 48  # keeps the smallcin halo (pool_f + 2 rows) in shared memory
+SMALLCIN_MAX_CIN = 10   # K2's kernel: Cin <= 8, and 9-10 (3 * Cin <= 32) for K5's forward
+BLOCK_T = 128           # frames per kernel tile (kBT in conv3x3_common.cuh)
+BLOCK_CO = 64           # output channels per kernel tile (kBCO)
+SMEM_BYTES = 232_448    # shared memory one block may use on the H100
 SMALLCIN_IMPLS = ("thin", "wide")
 GRID_Z_MAX = 65535
 
@@ -121,23 +127,72 @@ def conv2d_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     """x (B, Cin, F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,)
     float32 -> (B, Cout, F/pool_f, T) in x's dtype.
 
-    Runs the kernel :func:`frontend_stage_kernel` picks: K2
-    (``seld_conv3x3_smallcin``) and K3 (``seld_conv3x3_widecin``) here, K2w
-    and K10b through their wrappers. CPU tensors take the chosen kernel's
-    plain version (K2 and K3: :func:`conv2d_bn_relu_fpool_plain`)."""
+    Runs the kernel :func:`frontend_stage_kernel` picks through its wrapper
+    (K2, K2w, K3 or K10b). CPU tensors take the chosen kernel's plain
+    version (K2 and K3: :func:`conv2d_bn_relu_fpool_plain`)."""
     _check(x, w, scale, bias, pool_f)
     name = frontend_stage_kernel(x.shape[1], smallcin_impl)
     if name == "conv3x3_smallcin_wide":
         return conv2d_smallcin_wide_bn_relu_fpool(x, w, scale, bias, pool_f)
     if name == "conv3x3_windows":
         return conv2d_windows_bn_relu_fpool(x, w, scale, bias, pool_f)
+    if name == "conv3x3_smallcin":
+        return conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pool_f)
+    return conv2d_widecin_bn_relu_fpool(x, w, scale, bias, pool_f)
+
+
+def staged_channels(cin: int) -> int:
+    """Input channels K2's and K5's kernels stage at once (kCC = 8, or 16 past
+    Cin 8, zero-filled past Cin)."""
+    return 8 if cin <= 8 else 16
+
+
+def halo_max_pool_f(cin: int, extra_bytes: int = 0) -> int:
+    """The largest pool_f whose pool_f + 2 float halo rows of
+    :func:`staged_channels` channels, the 9 x channels x BLOCK_CO float
+    weights and ``extra_bytes`` fit one block's shared memory."""
+    cc = staged_channels(cin)
+    fixed = 4 * 9 * cc * BLOCK_CO + extra_bytes
+    return min(MAX_POOL_F, (SMEM_BYTES - fixed) // (4 * cc * (BLOCK_T + 2)) - 2)
+
+
+def smallcin_max_pool_f(cin: int) -> int:
+    """The largest pool_f K2's kernel takes at this Cin."""
+    return halo_max_pool_f(cin)
+
+
+def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                                  bias: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """K2's kernel (``seld_conv3x3_smallcin``): every tap and channel of a
+    tile staged once, Cin <= 10. The router sends Cin <= 8 here; K5's
+    forward calls it for Cin 9-10 too, so that its pooled rows are the conv
+    rows K5's backward recomputes. CPU tensors take
+    :func:`conv2d_bn_relu_fpool_plain`."""
+    _check(x, w, scale, bias, pool_f)
     if not on_cuda(x, w, scale, bias):
         return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    if name == "conv3x3_smallcin" and pool_f > MAX_POOL_F:
-        raise ValueError(f"pool_f {pool_f} > {MAX_POOL_F}")
+    b, cin, f, t = x.shape
+    if cin > SMALLCIN_MAX_CIN:
+        raise ValueError(f"K2's kernel stages at most {SMALLCIN_MAX_CIN} channels, got {cin}")
+    if pool_f > smallcin_max_pool_f(cin):
+        raise ValueError(f"pool_f {pool_f} > {smallcin_max_pool_f(cin)} at Cin {cin}")
+    cout = w.shape[3]
+    return _launch("conv3x3_smallcin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
+                   b, cin, f, t, cout)
+
+
+def conv2d_widecin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                                 bias: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """K3's kernel (``seld_conv3x3_widecin``): Cin walked in chunks, any Cin
+    (the router sends Cin % 8 == 0 here); bfloat16 runs on the tensor-core
+    tile that K9's F1 and dh share, so K9's forward calls it whatever C is.
+    CPU tensors take :func:`conv2d_bn_relu_fpool_plain`."""
+    _check(x, w, scale, bias, pool_f)
+    if not on_cuda(x, w, scale, bias):
+        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
     b, cin, f, t = x.shape
     cout = w.shape[3]
-    return _launch(name, x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
+    return _launch("conv3x3_widecin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
                    b, cin, f, t, cout)
 
 

@@ -2,7 +2,8 @@
 autograd Function.
 
 Counterpart of ``seld_tpu/ops/pallas/conv2d_train.py::
-conv2d_smallcin_bn_relu_fpool_train``: x (B, F, T, Cin <= 8), w (3, 3, Cin,
+conv2d_smallcin_bn_relu_fpool_train``: x (B, F, T, Cin) with 3 * Cin <= 32
+(the reference's wide-pack range: Cin <= 10), w (3, 3, Cin,
 Cout), gamma / beta (Cout,) -> (out (B, F/pf, T, Cout) =
 maxpool_f(relu(bn_batchstats(conv(x, w)))), mean, var), with the biased batch
 statistics over N = B * F * T and a backward for (w, gamma, beta) only: the
@@ -17,15 +18,21 @@ for CPU tensors; F2 is the serving stage-1 kernel itself:
 - F1 :func:`conv_train_stats` — per-channel sum and sum of squares of the conv;
 - (torch) mean, var, the BN affine;
 - F2 — conv + affine + ReLU + frequency max-pool: on CUDA tensors
-  ``conv2d_pool.conv2d_bn_relu_fpool`` (K2's ``seld_conv3x3_smallcin``, its
-  launches counted under that name) fed the batch-statistics affine, on CPU
-  tensors :func:`conv_train_fwd_plain`;
+  ``conv2d_pool.conv2d_smallcin_bn_relu_fpool`` (K2's
+  ``seld_conv3x3_smallcin``, its launches counted under that name) fed the
+  batch-statistics affine, on CPU tensors :func:`conv_train_fwd_plain`;
 - B1 :func:`sel_stats` — S_g, S_gx from (out, cotangent) where out > 0;
 - B2 :func:`conv_train_dw` — dW, and the exact routed S_g and sum g * acc
   that give dgamma and dbeta.
 
-The kernels work in (B, C, F, T): the public function takes and returns the
-JAX package's channel-last layout as permuted views of it.
+The kernels stage all Cin channels of a tile at once, 8 for Cin <= 8 and 16
+for Cin 9-10 (:func:`staged_channels`), so F1, F2 and B2 run one conv row
+and one summation order: B2's routing recomputes F2's pooled rows bit for
+bit. (The reference runs Cin 9-10 through its wide pack, whose forward and
+backward likewise share one packed row; F2 on K2w's kernel would sum in
+another order than B2's recompute.) The kernels work in (B, C, F, T): the
+public function takes and returns the JAX package's channel-last layout as
+permuted views of it.
 """
 
 from __future__ import annotations
@@ -37,12 +44,26 @@ from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
-from seld_tpu_torch.ops.kernels.conv2d_pool import MAX_POOL_F, conv2d_bn_relu_fpool
+from seld_tpu_torch.ops.kernels.conv2d_pool import (
+    BLOCK_CO, BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, halo_max_pool_f,
+    staged_channels,
+)
 
-BLOCK_T = 128           # frames per kernel tile (kBT in conv3x3_common.cuh)
 TILES_PER_BLOCK = 4     # frame tiles one block walks (sizes the partial-sum rows)
-MAX_CIN = 8             # input channels the shared-memory tile stages (kCC)
-KDIM = 9 * MAX_CIN      # dW row per output channel: (tap, ci) with ci padded to 8
+MAX_CIN = 10            # the reference's wide-pack range, 3 * Cin <= 32
+
+
+def kdim(cin: int) -> int:
+    """B2's dW row per output channel: (tap, ci) with ci padded to
+    :func:`staged_channels`."""
+    return 9 * staged_channels(cin)
+
+
+def max_pool_f(cin: int) -> int:
+    """The largest pool_f K5 takes at this Cin: B2 keeps the pool_f + 2 halo
+    rows, the weights and a g_z tile in one block's shared memory (41 rows
+    for Cin <= 8, 17 for Cin 9-10)."""
+    return halo_max_pool_f(cin, 4 * BLOCK_CO * (BLOCK_T + 1))
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -54,12 +75,13 @@ def _check(x, w, pool_f) -> None:
         raise ValueError(f"x must be (B, Cin, F, T), got {tuple(x.shape)}")
     cin = x.shape[1]
     if not 1 <= cin <= MAX_CIN:
-        raise ValueError(f"stage 1 takes Cin <= {MAX_CIN}, got {cin}")
+        raise ValueError(f"stage 1 takes 3 * Cin <= 32 (Cin <= {MAX_CIN}), got {cin}")
     if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got {tuple(w.shape)}")
-    if not 1 <= pool_f <= MAX_POOL_F or x.shape[2] % pool_f:
+    top = max_pool_f(cin)
+    if not 1 <= pool_f <= top or x.shape[2] % pool_f:
         raise ValueError(f"F={x.shape[2]} must divide into pool_f={pool_f} rows "
-                         f"(pool_f <= {MAX_POOL_F})")
+                         f"(pool_f <= {top} at Cin {cin})")
 
 
 def _conv_plain(x, w) -> torch.Tensor:
@@ -170,7 +192,8 @@ def sel_stats(out: torch.Tensor, g: torch.Tensor, p: torch.Tensor,
 # ---- B2: dW and the exact routed sums ---------------------------------------
 
 def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
-    """(Cout * 74,) = [dW (Cout, 9 taps, 8 ci) | S_g | sum g_pre * acc].
+    """(Cout * (K + 2),) = [dW (Cout, 9 taps, CC ci) | S_g | sum g_pre * acc]
+    with CC = :func:`staged_channels` and K = 9 * CC (74 or 146 per channel).
 
     g_pre is the pooled cotangent g routed to the first row holding each
     window's max where that max is > 0; g_z = g_pre * scale - acc * a - b,
@@ -188,13 +211,15 @@ def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor
     sga = (g_pre * acc).sum((0, 2, 3))
     g_z = (g_pre * col(scale) - acc * col(a) - col(b)).to(x.dtype).to(cdt)
     dw = torch.nn.grad.conv2d_weight(x.to(cdt), (cout, x.shape[1], 3, 3), g_z, padding=1)
-    dw = F.pad(dw.permute(0, 2, 3, 1), (0, MAX_CIN - x.shape[1]))  # (Cout, 3, 3, 8)
+    cin = x.shape[1]
+    dw = F.pad(dw.permute(0, 2, 3, 1), (0, staged_channels(cin) - cin))  # (Cout, 3, 3, CC)
     return torch.cat([dw.reshape(-1), sg, sga])
 
 
 def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
     """x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf, T) in x's
-    dtype, per-channel scale, bias, a, b -> (Cout * 74,) float32 sums."""
+    dtype, per-channel scale, bias, a, b -> (Cout * (kdim(Cin) + 2),) float32
+    sums."""
     _check(x, w, pool_f)
     bsz, cin, f, t = x.shape
     cout = w.shape[3]
@@ -206,7 +231,7 @@ def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
     require_contiguous(g=g)
     if g.dtype != x.dtype:
         raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
-    width = cout * (KDIM + 2)
+    width = cout * (kdim(cin) + 2)
     partials = torch.empty((_grid_rows(x, pool_f), width), dtype=torch.float32,
                            device=x.device)
     sums = torch.empty(width, dtype=torch.float32, device=x.device)
@@ -251,7 +276,7 @@ class _ConvTrainFn(torch.autograd.Function):
         scale = gamma.to(inv.dtype) * inv
         bias = beta.to(inv.dtype) - mean * scale
         if on_cuda(x, w):   # F2: K2's smallcin kernel fed the batch-statistics affine
-            out = conv2d_bn_relu_fpool(x, w, _col(scale), _col(bias), pool_f)
+            out = conv2d_smallcin_bn_relu_fpool(x, w, _col(scale), _col(bias), pool_f)
         else:
             out = conv_train_fwd_plain(x, w, scale, bias, pool_f)
         ctx.save_for_backward(x, w, out, mean, inv, scale, bias)
@@ -278,8 +303,9 @@ class _ConvTrainFn(torch.autograd.Function):
         b = scale * c1 - mean * a
         # B2: dW and the exact routed sums (dgamma, dbeta come from these)
         sums = conv_train_dw(x, w, g, scale, bias, a, b, ctx.pool_f)
-        dw = sums[:cout * KDIM].view(cout, 3, 3, MAX_CIN)[..., :cin].permute(1, 2, 3, 0)
-        sg, sga = sums[cout * KDIM:cout * (KDIM + 1)], sums[cout * (KDIM + 1):]
+        kd = kdim(cin)
+        dw = sums[:cout * kd].view(cout, 3, 3, kd // 9)[..., :cin].permute(1, 2, 3, 0)
+        sg, sga = sums[cout * kd:cout * (kd + 1)], sums[cout * (kd + 1):]
         dgamma = inv * (sga - mean * sg)
         g_dt, b_dt = ctx.param_dtypes
         return None, dw.to(w.dtype).contiguous(), dgamma.to(g_dt), sg.to(b_dt), None, None
@@ -288,8 +314,9 @@ class _ConvTrainFn(torch.autograd.Function):
 def conv2d_bn_relu_fpool_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                                beta: torch.Tensor, pool_f: int, eps: float = 1e-5,
                                out_layout: str = "channel_last"):
-    """x (B, F, T, Cin), w (3, 3, Cin, Cout) in x's dtype, gamma / beta (Cout,)
-    -> (out (B, F/pf, T, Cout) in x's dtype, mean (Cout,), var (Cout,)).
+    """x (B, F, T, Cin) with 3 * Cin <= 32, w (3, 3, Cin, Cout) in x's dtype,
+    gamma / beta (Cout,) -> (out (B, F/pf, T, Cout) in x's dtype, mean
+    (Cout,), var (Cout,)); pool_f <= :func:`max_pool_f` (Cin).
 
     Differentiable in w, gamma and beta (not x); mean and var are the biased
     batch statistics for the caller's running-average update. out is a

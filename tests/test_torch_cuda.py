@@ -15,6 +15,7 @@ import torch
 import seld_tpu_torch
 from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 from seld_tpu_torch.ops.kernels import conv2d_train as k5
 from seld_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
@@ -70,8 +71,37 @@ def test_conv_kernel(gen, dtype, b, cin, f, t, cout, pf):
     _close(got, conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), dtype)
 
 
+# (b, cin, f, t, cout, pf) for K3's tile, launched directly (any Cin): ragged
+# Cin chunks (12, 24 and 200 against chunks of 8 in float32 and 16 in
+# bfloat16), ragged Cout tiles (80, 200), ragged frame tiles (129, 300; 296
+# stages x by 16-byte loads, T % 8 == 0), pf 2, 4 and 8, several blocks in
+# every grid dimension
+TILE_SHAPES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
+               (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 48), (1, 130, 2, 32), (1, 65, 1, 16)])
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", TILE_SHAPES)
+def test_conv_tile_ragged(gen, dtype, b, cin, f, t, cout, pf):
+    """K3's kernel (the tensor-core tile in bfloat16, SIMT in float32)
+    against its plain version at ragged shapes; then K9's dh pass, the
+    transposed tile, on the same shapes (Cin and Cout swapped)."""
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = pool.conv2d_widecin_bn_relu_fpool(x, w, scale, bias, pf)
+    assert launch_counts["conv3x3_widecin"] == 1
+    _close(got, conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), dtype)
+    gz = torch.randn(b, cout, f, t, generator=gen, device="cuda").to(dtype)
+    _close(k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 48), (1, 130, 2, 32), (1, 65, 1, 16),
+                                     *((b, t, h, d) for t in (130, 200)
+                                       for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48),
+                                                       (2, 1, 64), (1, 2, 128)))])
 def test_flash_attention_kernel(gen, dtype, b, t, h, d):
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -97,7 +127,9 @@ def k5_inputs(gen, b, cin, f, t, cout, dtype):
 
 K5_SHAPES = [(2, 8, 24, 1300, 200, 8),   # 3 T splits, 4 Cout tiles, B * F' = 6
              (2, 5, 24, 1100, 80, 8),    # Cin 5, 2 Cout tiles
-             (3, 8, 12, 777, 80, 4)]
+             (3, 8, 12, 777, 80, 4),
+             (2, 9, 16, 700, 80, 4),     # Cin 9 and 10: 16 staged channels (3 * Cin <= 32)
+             (1, 10, 24, 1300, 72, 8)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -121,7 +153,7 @@ def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,cin,f,t,cout,pf", K5_SHAPES[:2])
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", [*K5_SHAPES[:2], *K5_SHAPES[3:]])
 def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     """Each K5 pass against its plain version on the same inputs."""
     x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, dtype)
@@ -129,7 +161,7 @@ def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
     bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
     _close(k5.conv_train_stats(x, w, pf), k5.conv_train_stats_plain(x, w), torch.float32)
-    out = conv2d_bn_relu_fpool(x, w, scale, bias, pf)   # F2
+    out = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)   # F2
     _close(out, k5.conv_train_fwd_plain(x, w, scale, bias, pf), dtype)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     p, q = 0.5 + torch.rand(cout, generator=gen, device="cuda"), torch.randn(
@@ -186,6 +218,31 @@ def test_fused_frontend_raises_where_k5_cannot_run(gen):
     with pytest.raises(ValueError, match="K5 conditions"):
         block(x, train=True, generator=gen)
     assert all(v == 0 for v in launch_counts.values())
+    x11 = torch.randn(1, 4, 4, 11, device="cuda")   # 3 * Cin > 32: beyond K5 on a CUDA tensor
+    ones = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError):
+        k5.conv2d_bn_relu_fpool_train(x11, torch.zeros(3, 3, 11, 8, device="cuda"), ones, ones, 2)
+    with pytest.raises(ValueError):   # K2's 16-channel staging stops at Cin 10 too
+        pool.conv2d_smallcin_bn_relu_fpool(x11.permute(0, 3, 1, 2).contiguous(),
+                                           torch.zeros(3, 3, 11, 8, device="cuda"), ones, ones, 2)
+    assert all(v == 0 for v in launch_counts.values())
+
+
+@pytest.mark.parametrize("frontend_impl", ["fused", "ct"])
+def test_frontends_run_k5_at_cin_10(gen, frontend_impl):
+    """frontend_impl 'fused' and 'ct' on a CUDA tensor with 10 input
+    channels (the reference's 3 * Cin <= 32) run K5 instead of raising."""
+    from seld_tpu_torch.models.blocks import ConvTCBlock
+
+    block = ConvTCBlock("R", 10, 16, [8, 16], 3, [[2, 1], [2, 1]], "CNN", [1], "fibonacci", 16,
+                        16, 3, [16, 16], 3, use_bias=False, batch_norm="BN",
+                        attention_impl="full", frontend_impl=frontend_impl, device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 16, 40, 10, generator=gen, device="cuda")
+    out = block(x, train=True, generator=gen)
+    assert bool(torch.isfinite(out).all())
+    assert [launch_counts[n] for n in ("conv_train_stats", "conv3x3_smallcin")] == [1, 1]
+    assert launch_counts["ct_train_stats"] == (frontend_impl == "ct")
 
 
 K9_SHAPES = [(2, 24, 24, 300, 72, 8),    # 3 T tiles, 2 Cout tiles, 3 pool groups, 3 Cin chunks
@@ -215,9 +272,8 @@ def test_conv_ct_train_op(gen, dtype, b, c, f, t, cout, pf):
         out, mean, var = fn(*leaves, pf)
         (out.float() * g.float()).sum().backward()
         results.append((out, mean, var, *(v.grad for v in leaves)))
-    # F2 is K3's widecin kernel fed the batch-statistics affine (K2's for C = 8)
-    fwd = "conv3x3_smallcin" if c <= 8 else "conv3x3_widecin"
-    assert [launch_counts[n] for n in ("ct_train_stats", fwd, "ct_train_sel_stats",
+    # F2 is K3's widecin kernel fed the batch-statistics affine, whatever C is
+    assert [launch_counts[n] for n in ("ct_train_stats", "conv3x3_widecin", "ct_train_sel_stats",
                                        "ct_train_gz", "ct_train_dw", "ct_train_dx")] == [1] * 6
     for got, want in zip(*results):
         _close(got, want, dtype if got.dtype == dtype else torch.float32)
@@ -258,6 +314,25 @@ def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
     _close(k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dtype)
     # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
     assert torch.equal(k9.ct_dw(h, gz), dw)
+
+
+def test_conv_tile_f1_f2_bitwise_at_stage_2(gen):
+    """At the flagship's stage 2 (B 2, C 192, F 32, T 4800, pf 8) on random
+    bf16 inputs, K3's pooled output equals max_r relu(pre * scale + bias)
+    from K9 F1's pre bit for bit (the affine as one fma: the float64 product
+    of two floats is exact). Integer-grid inputs would hide a broken F1 / F2
+    identity: there every order of summation gives the same sums."""
+    b, c, f, t, cout, pf = 2, 192, 32, 4800, 192, 8
+    h = torch.randn(b, c, f, t, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(3, 3, c, cout, generator=gen, device="cuda") / (9 * c) ** 0.5).to(
+        torch.bfloat16)
+    _, pre = k9.ct_train_stats(h, w, pf)
+    scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    out = pool.conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
+    y = (pre.double() * scale.double()[:, None, None] + bias.double()[:, None, None]).float()
+    want = torch.nn.functional.max_pool2d(torch.relu(y), (pf, 1)).to(torch.bfloat16)
+    assert torch.equal(out, want)
 
 
 def test_ct_frontend_raises_where_the_kernels_cannot_run(gen):
@@ -370,8 +445,6 @@ def test_predict_cli_on_the_card_launches_k7_and_k8(gen, tmp_path):
 
 
 # ---- K2w (wide pack), K10a (im2col), K10b (per-tap windows) -------------------
-
-from seld_tpu_torch.ops.kernels import conv2d_pool as pool   # noqa: E402
 
 # (b, cin, f, t, cout, pf): 3 T tiles with a ragged last one, >= 2 Cout tiles
 # with a ragged last one, several pool groups, F borders

@@ -3,9 +3,10 @@ of each wrapper), against the JAX package.
 
 - K5: ``conv2d_bn_relu_fpool_train`` against
   ``seld_tpu/ops/pallas/conv2d_train.py::conv2d_smallcin_bn_relu_fpool_train``
-  in interpret mode (thin pack, float32 at HIGHEST precision): out, mean,
-  var, and dW / dgamma / dbeta from ``jax.vjp``, 2e-4 x max|ref|, with a
-  case of Cout not a multiple of 8 and a ragged T.
+  in interpret mode (float32 at HIGHEST precision; the thin pack for Cin
+  <= 8, the wide pack for Cin 9 and 10, the reference's 3 * Cin <= 32): out,
+  mean, var, and dW / dgamma / dbeta from ``jax.vjp``, 2e-4 x max|ref|, with
+  cases of Cout not a multiple of 8 and a ragged T.
 - K6: ``flash_attention_train``'s backward against ``jax.vjp`` of the Pallas
   ``flash_attention`` in interpret mode (float32, 2e-4 x max|ref|) and
   against torch autograd of ``attend_full`` (float64, 1e-12 x max|ref|).
@@ -67,13 +68,15 @@ def _port_k5(fn, x, w, gamma, beta, probe, pf):
 
 
 @pytest.mark.parametrize("b,f,t,cin,cout,pf", [(2, 16, 40, 8, 16, 8),
-                                               (2, 16, 33, 5, 12, 8)])
+                                               (2, 16, 33, 5, 12, 8),
+                                               (2, 8, 21, 9, 12, 4),
+                                               (1, 16, 33, 10, 16, 8)])
 def test_k5_plain_matches_pallas_train_op(rng, b, f, t, cin, cout, pf):
     x, w, gamma, beta, probe = _k5_case(rng, b, f, t, cin, cout, pf)
 
     def jfn(w_, g_, b_):
         return jk5(jnp.asarray(x), w_, g_, b_, pf, 1e-5, True, jax.lax.Precision.HIGHEST,
-                   pack="thin")
+                   pack="thin" if cin <= 8 else "wide")
 
     (out, mean, var), vjp = jax.vjp(jfn, *map(jnp.asarray, (w, gamma, beta)))
     dw, dgamma, dbeta = vjp((jnp.asarray(probe), jnp.zeros_like(mean), jnp.zeros_like(var)))
@@ -95,13 +98,64 @@ def test_k5_backward_matches_autograd_of_the_plain_op(rng):
 
 
 def test_k5_rejects_what_the_kernels_do_not_take():
-    x = torch.zeros(1, 8, 10, 9)   # Cin 9
-    w = torch.zeros(3, 3, 9, 4)
+    x = torch.zeros(1, 8, 10, 11)   # Cin 11: 3 * Cin > 32
+    w = torch.zeros(3, 3, 11, 4)
     s = torch.ones(4)
     with pytest.raises(ValueError):
         k5.conv2d_bn_relu_fpool_train(x, w, s, s, 2)
     with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
         k5.conv2d_bn_relu_fpool_train(x[..., :8], w[:, :, :8], s, s, 3)
+    x = torch.zeros(1, 18, 10, 10)
+    with pytest.raises(ValueError):   # pool 18 > K5's 17 rows at Cin 10
+        k5.conv2d_bn_relu_fpool_train(x, w[:, :, :10], s, s, 18)
+
+
+@pytest.mark.parametrize("cin", [1, 8, 9, 10])
+def test_pool_f_limits_are_the_kernels_shared_memory(cin):
+    """K2's and K5's largest pool_f are the largest whose shared memory (as
+    conv3x3_bn_relu_fpool.cu and conv3x3_train.cu size it: pool_f + 2 halo
+    rows of CC x (128 + 2) floats, 9 x CC x 64 weights, and K5's 64 x 129
+    g_z tile) fits 232,448 bytes, capped at MAX_POOL_F."""
+    from seld_tpu_torch.ops.kernels import conv2d_pool as pool
+
+    cc = 8 if cin <= 8 else 16
+
+    def fits(pf, extra):
+        return 4 * ((pf + 2) * cc * 130 + 9 * cc * 64 + extra) <= 232_448
+
+    for top, extra in ((pool.smallcin_max_pool_f(cin), 0), (k5.max_pool_f(cin), 64 * 129)):
+        assert fits(top, extra)
+        assert top == pool.MAX_POOL_F or not fits(top + 1, extra)
+    assert (k5.max_pool_f(cin), pool.smallcin_max_pool_f(cin)) == ((41, 48) if cin <= 8
+                                                                   else (17, 21))
+
+
+def _stage0_block(cin, frontend_impl, n_stages=1):
+    from seld_tpu_torch.models.blocks import ConvTCBlock
+
+    return ConvTCBlock("R", cin, 8, [8] * n_stages, 3, [[2, 1]] * n_stages, "CNN", [1],
+                       "fibonacci", 8, 8, 3, [8, 8], 3, use_bias=False, batch_norm="BN",
+                       attention_impl="full", frontend_impl=frontend_impl,
+                       generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("frontend_impl", ["fused", "ct"])
+@pytest.mark.parametrize("cin", [9, 10, 11])
+def test_k5_gates_take_the_reference_range(frontend_impl, cin):
+    """ConvTCBlock's K5 / K9 gates test 3 * Cin <= 32, as the reference's
+    do: Cin 9 and 10 take the kernel ops (their plain versions on the CPU)
+    without a warning; Cin 11 warns and runs the plain stages."""
+    import warnings
+
+    block = _stage0_block(cin, frontend_impl, n_stages=2)
+    x = torch.randn(2, 8, 6, cin, generator=torch.Generator().manual_seed(1))
+    gate = block._ct_train_ok if frontend_impl == "ct" else (
+        lambda x_: block._fused_train_ok(x_, block.pools[0]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ok = gate(x)
+    assert ok == (cin <= 10)
+    assert bool(caught) == (cin > 10)
 
 
 def _qkv(rng, b, t, h, d, dtype):
