@@ -20,7 +20,8 @@ Phases, each printing its own lines:
    plain version and of one PyTorch library call where there is one; the
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
    dh, and K3's pooled output against K9 F1's pre bit for bit on random
-   bf16 inputs at the flagship's stage 2;
+   bf16 inputs at the flagship's stage 2; K6 and K9's dW rerun bitwise
+   equal;
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
@@ -51,7 +52,8 @@ Phases, each printing its own lines:
    launched in every step (the trainer's ``metrics.jsonl``); then the
    ``pallas-ct`` step beside the ``auto`` step at batch 8, in turns, with ms
    per step and audio-hours trained per second, and a profiled ``pallas-ct``
-   step;
+   step with K6's and K9 dW's device time in it (phase 5b's profile gives
+   K6's);
 7. predict entry point: ``seld_tpu_torch.predict.main`` on the flagship with
    phase 6's best checkpoint over three one-minute clips (two .npy, one int16
    .wav): ``auto`` (the fused bf16 path, K1-K4), ``--impl apply
@@ -186,9 +188,13 @@ QMM_PER_FORWARD, QMM_DX_PER_STEP = 22, 21
 PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/test_pallas.py)
 PREDICT_STEPS_TIMED = 3
 # the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
-# K9 F1 and dh bodies, and K4's forward
-TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
-              "flash_fwd_tc_kernel")
+# K9 F1 and dh bodies, K9's dW, K4's forward and K6's two backward passes
+TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel", "ct_dw_tc_kernel",
+              "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
+# device kernels read out of the step profiles (phases 5b and 6): K6's three
+# launches and K9's dW tile (its reduction shares reduce_kernel with other passes)
+PROFILE_WATCH = {"K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
+                 "K9 dW": ("ct_dw_tc_kernel",)}
 R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
 PROFILE_BATCH = 4
 # (B, Cin, F, T, Cout, pf) of the conv tile's ragged checks: Cin chunks ragged
@@ -463,6 +469,9 @@ def phase_kernels(torch, card: str) -> dict:
             d = max(compare(torch, "flash_attn_bwd", f"{tag} {n}", a, w_, dt, card,
                             timed if n == "dq" else None)
                     for n, a, w_ in zip(("dq", "dk", "dv"), got, want))
+            # two passes, no atomics: a rerun is bitwise equal
+            require(all(torch.equal(a, b_) for a, b_ in zip(kern(), got)),
+                    f"flash_attn_bwd {tag} {dt} (B {b}, T {t}, H {h}, D {d_head}): not repeatable")
             if tag == "flagship" and dt == torch.bfloat16:
                 # the library's backward: autograd of scaled_dot_product_attention
                 leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
@@ -1031,9 +1040,11 @@ def set_dropout(model, rate: float) -> None:
             m.rate = rate
 
 
-def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 step") -> None:
+def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 step") -> dict:
     """One more step under torch.profiler: device time by kernel (top
-    ``top`` by self device time) and the device's idle share of the step."""
+    ``top`` by self device time) and the device's idle share of the step;
+    returns the device ms of each PROFILE_WATCH group in it and of the
+    whole step ("busy")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1053,6 +1064,15 @@ def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 st
     for e in sorted(events, key=self_ms, reverse=True)[:top]:
         print(f"[profile]   {self_ms(e):8.2f} ms {100 * self_ms(e) / busy:5.1f}% "
               f"x{e.count:<5d} {e.key[:90]}")
+    watched = {name: sum(self_ms(e) for e in events if any(k in e.key for k in keys))
+               for name, keys in PROFILE_WATCH.items()}
+    return {"busy": busy, **watched}
+
+
+def device_share(profiled: dict, name: str) -> str:
+    """'<ms> ms (<share>% of device busy)' of one PROFILE_WATCH group."""
+    ms = profiled[name]
+    return f"{ms:.2f} ms ({100 * ms / profiled['busy']:.1f}% of device busy)"
 
 
 def take_bn_statistics_in_float64(torch, model) -> None:
@@ -1287,13 +1307,14 @@ def phase_training(torch, card: str) -> dict:
             f"only {changed} of {len(trained)} trained parameters changed ({len(before)} in all)")
     require(all(counts[k] > 0 for k in TRAINING_PATH),
             f"a kernel of the training path never ran: {counts}")
-    profile_step(torch, lambda: step(state, x, y), card)
+    profiled = profile_step(torch, lambda: step(state, x, y), card)
     ms = statistics.median(times) * 1e3
     audio_h = TRAIN_BATCH * CLIP_SECONDS / 3600.0
     print(f"[train] bf16 batch {TRAIN_BATCH}: losses {[round(v, 5) for v in losses]}; "
           f"step {ms:.1f} ms (median of {TRAIN_STEPS}; {[round(1e3 * v, 1) for v in times]}) "
           f"= {audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; in the profiled step K6 "
+          f"{device_share(profiled, 'K6')} ({card})")
     return counts
 
 
@@ -1440,9 +1461,12 @@ def phase_entry(torch, card: str) -> dict:
               f"{len(times)}, in turns; {[round(1e3 * v, 1) for v in times]}) = "
               f"{audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
               f"{peak[impl] / 2**30:.1f} GiB ({card})")
-    state, step, _ = runs["pallas-ct"]
+    state, step, times = runs["pallas-ct"]
     del runs["auto"]
-    profile_step(torch, lambda: step(state, x, y), card, top=18)
+    profiled = profile_step(torch, lambda: step(state, x, y), card, top=18)
+    print(f"[entry] pallas-ct step {statistics.median(times) * 1e3:.1f} ms; in the profiled "
+          f"step K6 {device_share(profiled, 'K6')}, K9 dW {device_share(profiled, 'K9 dW')} "
+          f"({card})")
     return counts
 
 

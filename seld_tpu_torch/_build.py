@@ -56,8 +56,9 @@ SIGNATURES = {
     "seld_ct_train_sel_stats": [_P] * 5 + [_I] * 6 + [_P],
     # pre, g, cols, gz, batch, cout, f, t, pf, dtype, stream
     "seld_ct_train_gz": [_P] * 4 + [_I] * 6 + [_P],
-    # h, gz, partials, sums, batch, cin, f, t, cout, rows_per_split, dtype, stream
-    "seld_ct_train_dw": [_P] * 4 + [_I] * 7 + [_P],
+    # h, gz, partials, sums, batch, cin, f, t, cout, rows_per_split, frames_per_split,
+    # dtype, stream
+    "seld_ct_train_dw": [_P] * 4 + [_I] * 8 + [_P],
     # gz, w, dh, batch, cin, f, t, cout, dtype, stream
     "seld_ct_train_dx": [_P] * 3 + [_I] * 6 + [_P],
     # x, comps, bias, out, m, n_comp, cin_c, cout_c, linear_table, dtype, stream

@@ -45,9 +45,15 @@
 // 256 threads, halo and weights in shared memory: SIMT in float32, the
 // tensor-core tile of conv3x3_tc.cuh in bfloat16); B1 and B2's gz pass
 // stream one (b, channel, pooled row) per block; the dW pass gives each
-// block a 64 Cout x 8 Cin x 9 tap tile, 18 outputs per thread, a sliding
-// 3-frame window of h in registers, and a share of the (b, f) rows (SIMT
-// FMA in both dtypes).
+// block a share of the depth, split over the (b, f) rows and, where B * F
+// is small (stage 3: 8 rows at batch 2), over frames, so that every SM
+// has blocks. In bfloat16 the dW pass is the tensor-core GEMM of
+// conv3x3_dw_tc.cuh (ct_dw_tc_kernel: 9 taps x 32 Cin x 64 Cout per
+// block, the frames as the depth, the tap shift built from aligned words by
+// byte permutes); in float32 it stays SIMT FMA (ct_dw_kernel: a 64 Cout x 8
+// Cin x 9 tap tile, 18 outputs per thread, a sliding 3-frame window of h in
+// registers), TF32 off.
+#include "conv3x3_dw_tc.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
@@ -187,20 +193,25 @@ ct_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
 }
 
 // dW partial tile of one block: Cout [co0, co0 + 64) x Cin [c0, c0 + 8) x 9
-// taps over the (b, f) rows [row0, row0 + rows); thread (ci = tid % 8,
-// cp = tid / 8) holds channels co0 + cp and co0 + cp + 32.
+// taps over its share of the depth, split as ct_dw_tc_kernel's (rows [row0,
+// row1), frames [t_lo, t_hi)); thread (ci = tid % 8, cp = tid / 8) holds
+// channels co0 + cp and co0 + cp + 32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ct_dw_kernel(const T* __restrict__ h, const T* __restrict__ gz, float* __restrict__ partials,
-             int batch, int cin, int f_dim, int t_dim, int cout, int rows_per_split) {
+             int batch, int cin, int f_dim, int t_dim, int cout, int rows_per_split,
+             int frames_per_split) {
   extern __shared__ float smem[];
   float* hs = smem;                    // [3][kCC][kXW]: h rows f-1..f+1, frames t0-1..
   float* gs = smem + 3 * kCC * kXW;    // [kBCO][kGzW]: gz row f, frames t0..
   const int tid = threadIdx.x;
   const int ci_l = tid % kCC, cp = tid / kCC;
   const int co0 = blockIdx.y * kBCO, c0 = blockIdx.z * kCC;
-  const int row0 = blockIdx.x * rows_per_split;
+  const int frame_splits = ceil_div(t_dim, frames_per_split);
+  const int rs = blockIdx.x / frame_splits, fs = blockIdx.x % frame_splits;
+  const int row0 = rs * rows_per_split;
   const int row1 = min(batch * f_dim, row0 + rows_per_split);
+  const int t_lo = fs * frames_per_split, t_hi = min(t_dim, t_lo + frames_per_split);
   float acc0[9], acc1[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) acc0[k] = acc1[k] = 0.f;
@@ -209,13 +220,13 @@ ct_dw_kernel(const T* __restrict__ h, const T* __restrict__ gz, float* __restric
     const int b = row / f_dim, f = row % f_dim;
     const T* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
     const T* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
-    for (int t0 = 0; t0 < t_dim; t0 += kBT) {
+    for (int t0 = t_lo; t0 < t_hi; t0 += kBT) {
       __syncthreads();   // the previous tile's readers are done
       stage_x(hs, hb, 3, f - 1, c0, t0, cin, f_dim, t_dim);
       for (int e = tid; e < kBCO * kBT; e += kThreads) {
         const int tl = e % kBT, c = e / kBT;
         const int co = co0 + c, t = t0 + tl;
-        gs[c * kGzW + tl] = (co < cout && t < t_dim)
+        gs[c * kGzW + tl] = (co < cout && t < t_hi)
                                 ? to_f(gb[(static_cast<size_t>(co) * f_dim + f) * t_dim + t])
                                 : 0.f;
       }
@@ -498,26 +509,41 @@ extern "C" int seld_ct_train_gz(const void* pre, const void* g, const void* cols
 }
 
 // B2, dW + its reduction: sums (3, 3, Cin, Cout) float. h (B, Cin, F, T), gz
-// (B, Cout, F, T); partials (ceil(B * F / rows_per_split), 9 * Cin * Cout).
+// (B, Cout, F, T); the depth split into ceil(B * F / rows_per_split) x
+// ceil(T / frames_per_split) shares (frames_per_split a multiple of 64 or
+// at least T); partials (that many shares, 9 * Cin * Cout).
 extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, void* sums,
                                 int batch, int cin, int f_dim, int t_dim, int cout,
-                                int rows_per_split, int dtype, void* stream) {
+                                int rows_per_split, int frames_per_split, int dtype,
+                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (cin < 1 || cin % kCC || cout < 1 || rows_per_split < 1) return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(batch * f_dim, rows_per_split), ceil_div(cout, kBCO), cin / kCC);
+  if (cin < 1 || cin % kCC || cout < 1 || rows_per_split < 1 || frames_per_split < 1 ||
+      (frames_per_split < t_dim && frames_per_split % kDwT))
+    return cudaErrorInvalidValue;
+  const int splits = ceil_div(batch * f_dim, rows_per_split) * ceil_div(t_dim, frames_per_split);
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    cudaError_t e = set_smem(ct_dw_kernel<T>, kDwSmem);
-    if (e != cudaSuccess) return e;
-    ct_dw_kernel<T><<<grid, kThreads, kDwSmem, s>>>(
-        static_cast<const T*>(h), static_cast<const T*>(gz), part, batch, cin, f_dim, t_dim,
-        cout, rows_per_split);
+    if constexpr (sizeof(T) == 2) {
+      cudaError_t e = set_smem(ct_dw_tc_kernel, kDwTcSmem);
+      if (e != cudaSuccess) return e;
+      const dim3 grid(splits, ceil_div(cout, kDwCo), ceil_div(cin, kDwCi));
+      ct_dw_tc_kernel<<<grid, kDwThreads, kDwTcSmem, s>>>(
+          static_cast<const bf16*>(h), static_cast<const bf16*>(gz), part, batch, cin, f_dim,
+          t_dim, cout, rows_per_split, frames_per_split);
+    } else {
+      cudaError_t e = set_smem(ct_dw_kernel<T>, kDwSmem);
+      if (e != cudaSuccess) return e;
+      const dim3 grid(splits, ceil_div(cout, kBCO), cin / kCC);
+      ct_dw_kernel<T><<<grid, kThreads, kDwSmem, s>>>(
+          static_cast<const T*>(h), static_cast<const T*>(gz), part, batch, cin, f_dim, t_dim,
+          cout, rows_per_split, frames_per_split);
+    }
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums),
-                                        static_cast<int>(grid.x), 9 * cin * cout, s));
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), splits,
+                                        9 * cin * cout, s));
 }
 
 // B3: dh (B, Cin, F, T) in the input dtype from gz (B, Cout, F, T) and w.

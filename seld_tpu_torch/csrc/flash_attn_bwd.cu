@@ -12,23 +12,40 @@
 //
 // What bounds it on the H100: arithmetic and the exp per score (each pass
 // recomputes P: 14 * B * H * T^2 * D FLOP in all, 1.6 GFLOP per head at
-// T = 2400, D = 48), not memory: no (T, T) tensor is written. Design, three
-// launches on one stream:
-// - delta: one thread per (b, t, h) row, float;
-// - dq: one block per (b*h, 64-query tile), four threads per query row as
-//   in the forward (csrc/flash_attn_fwd.cu); the block streams 64-key tiles
-//   of K and V through shared memory, each thread scores 16 keys of its
-//   row (s and dout . v), writes dS to a shared tile and accumulates its
-//   D/4 lanes of dq in float;
-// - dk/dv: one block per (b*h, 64-key tile), four threads per key row,
-//   streaming 64-query tiles of q, dout, lse and delta; P^T and dS^T go
-//   through shared tiles into the float dk and dv accumulators.
+// T = 2400, D = 48), not memory: no (T, T) tensor is written. Three launches
+// on one stream, two passes and no atomics (as the JAX kernel), so a rerun
+// is bitwise equal:
+// - delta: one thread per (b, t, h) row, float, a pass over out and dout;
+// - dq: one block per (b*h, 64-query tile), streaming 64-key tiles of K, V;
+// - dk/dv: one block per (b*h, 64-key tile), streaming 64-query tiles of Q,
+//   dO, lse and delta.
 // T = 2400 is not a multiple of 64: keys (dq pass) and queries (dk/dv pass)
-// past T get a score of -inf before the exp, so they add exactly nothing.
-// SIMT FMA: mma/wgmma tiles are a later step.
+// past T get P = 0 (the exp of a -inf score), so they add exactly nothing;
+// rows past T read lse and delta as 0 and are not stored.
+//
+// bfloat16: FlashAttention-2's backward on the tensor cores
+// (flash_dq_tc_kernel, flash_dkv_tc_kernel), built on K4's tiles
+// (flash_attn_tc.cuh): 4 warps of 16 rows, the block's own Q and dO (dq
+// pass) or K and V (dk/dv pass) fragments in registers (reloaded from shared
+// memory at D = 128, where the dk and dv accumulators take 128 floats a
+// thread), the streamed tiles through a two-stage cp.async ring, every
+// product on mma.sync.m16n8k16 with float accumulators. The dk/dv pass
+// computes S^T = K Q^T and dP^T = V dO^T directly (as _flash_dkv_kernel,
+// attention.py:121-133), so P^T and dS^T come out in the accumulator layout
+// that is already the A operand of dV += P^T dO and dK += dS^T Q: no
+// shared-memory round trip, as K4 reuses P. A departure from the reference:
+// P and dS are rounded to bf16 before their products, where the JAX kernel
+// multiplies a float p and ds (attention.py:95-98, :124-134); the result
+// stays within the bf16 tolerance (2e-2 x max|ref|) of
+// flash_attention_bwd_plain on the card, at every head dim and ragged T.
+//
+// float32: the SIMT kernels (dq_kernel, dkv_kernel), TF32 off: 256 threads,
+// four per row as in K4's float32 forward; each thread scores 16 keys (or
+// queries) of its row with fmaf dot products out of float shared tiles, and
+// dS (and P^T) go through shared tiles into D/4 float accumulator lanes.
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "flash_attn_tc.cuh"
 
 namespace {
 
@@ -206,6 +223,227 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
+// ---- bfloat16: FlashAttention-2 backward on mma.sync.m16n8k16 ------------
+
+constexpr int kTcB = kAttnRows;   // queries (dq pass) or keys (dk/dv pass) per block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// q, dout [64][D + 8], then two stages of (k, v) [64][D + 8]
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return sizeof(bf16) * 6 * kTcB * (D + 8);
+}
+
+// k, v [64][D + 8], two stages of (q, dout) [64][D + 8], two of (lse, delta) [64] floats
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  return sizeof(bf16) * 6 * kTcB * (D + 8) + sizeof(float) * 4 * kTcB;
+}
+
+// The A fragments of this warp's rows of a staged tile; (kd, a) hands out
+// step kd. They stay in registers up to D = 64; at D = 128 they are
+// reloaded from the tile for each product, which keeps the dk/dv pass's two
+// D-wide accumulators in registers.
+template <int D>
+struct RowFrags {
+  static constexpr bool kRegs = D <= 64;
+  uint32_t f[kRegs ? D / 16 : 1][4];
+  const bf16* tile;
+
+  __device__ __forceinline__ explicit RowFrags(const bf16* t) : tile(t) {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) attn_ldsm_a<D>(tile, kd, f[kd]);
+    }
+  }
+  __device__ __forceinline__ void operator()(int kd, uint32_t (&a)[4]) const {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = f[kd][i];
+    } else {
+      attn_ldsm_a<D>(tile, kd, a);
+    }
+  }
+};
+
+// rows g and g + 8 of this warp's 16, bf16x2 stores of acc * mul, rows past T skipped
+template <int D>
+static __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, size_t base,
+                                                  size_t tstride, int r0, int t_dim,
+                                                  const float (&acc)[D / 8][4], float mul) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r0 + warp * 16 + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    bf16* row = dst + base + static_cast<size_t>(t) * tstride;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[dt][2 * hh] * mul, acc[dt][2 * hh + 1] * mul);
+  }
+}
+
+template <int D>
+static __device__ __forceinline__ void zero_acc(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+}
+
+// dq rows [q0, q0 + 64) of one (b, h): 4 warps x 16 query rows, Q and dO
+// fragments kept, 64-key tiles of K and V through a two-stage cp.async ring.
+// Per tile: S = Q K^T and dP = dO V^T (float accumulators), P = exp2(S *
+// scale * log2 e - lse * log2 e) with keys past T at P = 0, dS = P (dP -
+// delta), then dQ += dS K with dS rounded to bf16 as the A operand and K
+// read transposed by ldmatrix.trans from its [key][d] tile.
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dq, int t_dim, int heads, float scale, float scale_log2) {
+  constexpr int kP = D + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [64][kP]
+  bf16* dos = qs + kTcB * kP;                    // [64][kP]
+  bf16* kv = dos + kTcB * kP;                    // per stage: k [64][kP], v [64][kP]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int q0 = blockIdx.x * kTcB;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kTcB);
+
+  attn_load_rows<D>(qs, q, base, tstride, q0, t_dim);
+  attn_load_rows<D>(dos, dout, base, tstride, q0, t_dim);
+  attn_load_rows<D>(kv, k, base, tstride, 0, t_dim);
+  attn_load_rows<D>(kv + kTcB * kP, v, base, tstride, 0, t_dim);
+  cp_async_commit();
+  float lse2[2], dl[2];   // rows g and g + 8: lse in log2 units, delta; 0 past T
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + warp * 16 + lane / 4 + 8 * hh;
+    const size_t at = static_cast<size_t>(bh) * t_dim + t;
+    lse2[hh] = t < t_dim ? lse[at] * kLog2e : 0.f;
+    dl[hh] = t < t_dim ? delta[at] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const RowFrags<D> qf(qs), df(dos);
+
+  float acc[D / 8][4];
+  zero_acc<D>(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    const bf16* ks = kv + (j & 1) * 2 * kTcB * kP;
+    const bf16* vs = ks + kTcB * kP;
+    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
+      bf16* nk = kv + ((j + 1) & 1) * 2 * kTcB * kP;
+      attn_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcB, t_dim);
+      attn_load_rows<D>(nk + kTcB * kP, v, base, tstride, (j + 1) * kTcB, t_dim);
+      cp_async_commit();
+    }
+    float s[kTcB / 8][4], dp[kTcB / 8][4];
+    attn_mma_abt<D>(s, qf, ks);
+    attn_mma_abt<D>(dp, df, vs);
+#pragma unroll
+    for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * kTcB + nt * 8 + 2 * quad + (e % 2);
+        const float p = key < t_dim ? exp2f(s[nt][e] * scale_log2 - lse2[e / 2]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[e / 2]);   // dS
+      }
+    attn_mma_pv<D>(acc, s, ks);   // dQ += dS K
+    cp_async_wait_all();
+    __syncthreads();   // the next stage is complete; this one's readers are done
+  }
+  store_rows<D>(dq, base, tstride, q0, t_dim, acc, scale);
+}
+
+// dk, dv rows [k0, k0 + 64) of one (b, h): 4 warps x 16 key rows, K and V
+// fragments kept, 64-query tiles of Q and dO (and their lse, delta) through
+// a two-stage ring. Per tile the transposed products come straight out of
+// the accumulators: S^T = K Q^T and dP^T = V dO^T, P^T = exp2(S^T * scale *
+// log2 e - lse * log2 e) (queries past T at P = 0), dS^T = P^T (dP^T -
+// delta); P^T and dS^T are already the A operands of dV += P^T dO and dK +=
+// dS^T Q (Q and dO read transposed by ldmatrix.trans).
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int t_dim, int heads,
+                    float scale, float scale_log2) {
+  constexpr int kP = D + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);   // [64][kP]
+  bf16* vs = ks + kTcB * kP;                     // [64][kP]
+  bf16* qd = vs + kTcB * kP;                     // per stage: q [64][kP], dout [64][kP]
+  float* stats = reinterpret_cast<float*>(qd + 4 * kTcB * kP);   // per stage: lse2, delta [64]
+  const int lane = threadIdx.x % 32, quad = lane % 4;
+  const int k0 = blockIdx.x * kTcB;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kTcB);
+  // threads 0-63 carry a query's lse (log2 units), 64-127 its delta; 0 past T
+  const float* stat_src = threadIdx.x < kTcB ? lse : delta;
+  const float stat_mul = threadIdx.x < kTcB ? kLog2e : 1.f;
+  const auto stat = [&](int q0) {
+    const int t = q0 + threadIdx.x % kTcB;
+    return t < t_dim ? stat_src[static_cast<size_t>(bh) * t_dim + t] * stat_mul : 0.f;
+  };
+
+  attn_load_rows<D>(ks, k, base, tstride, k0, t_dim);
+  attn_load_rows<D>(vs, v, base, tstride, k0, t_dim);
+  attn_load_rows<D>(qd, q, base, tstride, 0, t_dim);
+  attn_load_rows<D>(qd + kTcB * kP, dout, base, tstride, 0, t_dim);
+  cp_async_commit();
+  stats[threadIdx.x] = stat(0);
+  cp_async_wait_all();
+  __syncthreads();
+  const RowFrags<D> kf(ks), vf(vs);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero_acc<D>(dk_acc);
+  zero_acc<D>(dv_acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    const bf16* qs = qd + (j & 1) * 2 * kTcB * kP;
+    const bf16* dos = qs + kTcB * kP;
+    const float* ls = stats + (j & 1) * 2 * kTcB;
+    const float* dls = ls + kTcB;
+    float next_stat = 0.f;
+    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
+      bf16* nq = qd + ((j + 1) & 1) * 2 * kTcB * kP;
+      attn_load_rows<D>(nq, q, base, tstride, (j + 1) * kTcB, t_dim);
+      attn_load_rows<D>(nq + kTcB * kP, dout, base, tstride, (j + 1) * kTcB, t_dim);
+      cp_async_commit();
+      next_stat = stat((j + 1) * kTcB);
+    }
+    float s[kTcB / 8][4], dp[kTcB / 8][4];
+    attn_mma_abt<D>(s, kf, qs);    // S^T: rows keys, columns queries
+    attn_mma_abt<D>(dp, vf, dos);  // dP^T
+#pragma unroll
+    for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * quad + (e % 2);
+        const float p = j * kTcB + c < t_dim ? exp2f(s[nt][e] * scale_log2 - ls[c]) : 0.f;
+        s[nt][e] = p;                       // P^T
+        dp[nt][e] = p * (dp[nt][e] - dls[c]);   // dS^T
+      }
+    attn_mma_pv<D>(dv_acc, s, dos);   // dV += P^T dO
+    attn_mma_pv<D>(dk_acc, dp, qs);   // dK += dS^T Q
+    if (j + 1 < n_tiles) stats[((j + 1) & 1) * 2 * kTcB + threadIdx.x] = next_stat;
+    cp_async_wait_all();
+    __syncthreads();   // the next stage is complete; this one's readers are done
+  }
+  store_rows<D>(dk, base, tstride, k0, t_dim, dk_acc, scale);
+  store_rows<D>(dv, base, tstride, k0, t_dim, dv_acc, 1.f);
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -215,24 +453,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
       static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows, t_dim, heads, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
   dim3 grid(ceil_div(t_dim, kB), batch * heads);
-  const size_t smem_dq = sizeof(float) * (4 * kB * (D + 1) + kB * kPW);
-  err = set_smem(dq_kernel<T, D>, smem_dq);
-  if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<grid, kThreads, smem_dq, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
 
-  const size_t smem_dkv = sizeof(float) * (4 * kB * (D + 1) + 2 * kB + 2 * kB * kPW);
-  err = set_smem(dkv_kernel<T, D>, smem_dkv);
-  if (err != cudaSuccess) return err;
-  dkv_kernel<T, D><<<grid, kThreads, smem_dkv, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      t_dim, heads, scale);
+  if constexpr (sizeof(T) == 2) {
+    const void* ptrs[] = {q, k, v, dout, dq, dk, dv};   // 16-byte copies, bf16x2 stores
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+    const float scale_log2 = scale * kLog2e;
+    constexpr size_t smem_dq = dq_tc_smem_bytes<D>();
+    err = set_smem(flash_dq_tc_kernel<D>, smem_dq);
+    if (err != cudaSuccess) return err;
+    flash_dq_tc_kernel<D><<<grid, kAttnThreads, smem_dq, s>>>(
+        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), t_dim, heads, scale, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    constexpr size_t smem_dkv = dkv_tc_smem_bytes<D>();
+    err = set_smem(flash_dkv_tc_kernel<D>, smem_dkv);
+    if (err != cudaSuccess) return err;
+    flash_dkv_tc_kernel<D><<<grid, kAttnThreads, smem_dkv, s>>>(
+        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_dim,
+        heads, scale, scale_log2);
+  } else {
+    const size_t smem_dq = sizeof(float) * (4 * kB * (D + 1) + kB * kPW);
+    err = set_smem(dq_kernel<T, D>, smem_dq);
+    if (err != cudaSuccess) return err;
+    dq_kernel<T, D><<<grid, kThreads, smem_dq, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem_dkv = sizeof(float) * (4 * kB * (D + 1) + 2 * kB + 2 * kB * kPW);
+    err = set_smem(dkv_kernel<T, D>, smem_dkv);
+    if (err != cudaSuccess) return err;
+    dkv_kernel<T, D><<<grid, kThreads, smem_dkv, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        t_dim, heads, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@
 // tile is masked to -inf before the max; query rows past T are computed on
 // zeros and not stored.
 //
-// bfloat16: FlashAttention-2 on the tensor cores (flash_fwd_tc_kernel). One
+// bfloat16: FlashAttention-2 on the tensor cores (flash_fwd_tc_kernel, on
+// the tiles of flash_attn_tc.cuh, which K6's backward shares). One
 // block per (b*h, 64-query tile), 4 warps of 16 query rows each; Q's
 // fragments stay in registers. 64-key tiles of K and V stream through a
 // two-stage cp.async ring (the next tile loads while this one multiplies).
@@ -37,7 +38,7 @@
 #include <math_constants.h>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "flash_attn_tc.cuh"
 
 namespace {
 
@@ -146,34 +147,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ---- bfloat16: FlashAttention-2 on mma.sync.m16n8k16 ----------------------
 
-constexpr int kTcQ = 64;         // queries per block: 4 warps x 16 rows
-constexpr int kTcK = 64;         // keys per tile
-constexpr int kTcThreads = 128;
+constexpr int kTcQ = kAttnRows;   // queries per block: 4 warps x 16 rows
+constexpr int kTcK = kAttnRows;   // keys per tile
+constexpr int kTcThreads = kAttnThreads;
 
 template <int D>
 constexpr size_t tc_smem_bytes() {   // q, then two (k, v) stages, rows padded to D + 8
   return sizeof(bf16) * 5 * kTcQ * (D + 8);
-}
-
-// rows [r0, r0 + 64) of a (B, T, H, D) tensor at (b, h) -> dst [64][D + 8],
-// rows past T zero-filled, by 16-byte cp.async copies.
-template <int D>
-static __device__ __forceinline__ void tc_load_rows(bf16* __restrict__ dst,
-                                                    const bf16* __restrict__ src, size_t base,
-                                                    size_t tstride, int r0, int t_dim) {
-  constexpr int kVecs = D / 8;
-  for (int e = threadIdx.x; e < 64 * kVecs; e += kTcThreads) {
-    const int r = e / kVecs, c = e % kVecs;
-    const bool ok = r0 + r < t_dim;
-    cp_async16(dst + r * (D + 8) + 8 * c,
-               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 8 * c : src,
-               ok ? 16 : 0);
-  }
-}
-
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <int D>
@@ -186,16 +166,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [kTcQ][kP]
   bf16* kv = qs + kTcQ * kP;                     // per stage: k [kTcK][kP], v [kTcK][kP]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, quad = lane % 4, jq = lane / 8, r8 = lane % 8;
+  const int g = lane / 4, quad = lane % 4;
   const int q0 = blockIdx.x * kTcQ;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
   const size_t tstride = static_cast<size_t>(heads) * D;
   const int n_tiles = ceil_div(t_dim, kTcK);
 
-  tc_load_rows<D>(qs, q, base, tstride, q0, t_dim);
-  tc_load_rows<D>(kv, k, base, tstride, 0, t_dim);
-  tc_load_rows<D>(kv + kTcK * kP, v, base, tstride, 0, t_dim);
+  attn_load_rows<D>(qs, q, base, tstride, q0, t_dim);
+  attn_load_rows<D>(kv, k, base, tstride, 0, t_dim);
+  attn_load_rows<D>(kv + kTcK * kP, v, base, tstride, 0, t_dim);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -203,8 +183,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this warp's 16 query rows as A fragments, one per 16 of D
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd)
-    ldsm_x4(qs + (warp * 16 + (jq % 2) * 8 + r8) * kP + kd * 16 + (jq / 2) * 8, qf[kd]);
+  for (int kd = 0; kd < D / 16; ++kd) attn_ldsm_a<D>(qs, kd, qf[kd]);
+  const auto qfrag = [&](int kd, uint32_t (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qf[kd][i];
+  };
 
   float o[D / 8][4];
 #pragma unroll
@@ -219,25 +202,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* vs = ks + kTcK * kP;
     if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
       bf16* nk = kv + ((j + 1) & 1) * 2 * kTcK * kP;
-      tc_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcK, t_dim);
-      tc_load_rows<D>(nk + kTcK * kP, v, base, tstride, (j + 1) * kTcK, t_dim);
+      attn_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcK, t_dim);
+      attn_load_rows<D>(nk + kTcK * kP, v, base, tstride, (j + 1) * kTcK, t_dim);
       cp_async_commit();
     }
     // S = Q K^T for 64 keys: eight m16n8 fragments
     float s[kTcK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTcK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd)
-#pragma unroll
-      for (int np = 0; np < kTcK / 16; ++np) {
-        uint32_t t4[4];   // K rows: (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
-        ldsm_x4(ks + (np * 16 + (jq / 2) * 8 + r8) * kP + kd * 16 + (jq % 2) * 8, t4);
-        mma_bf16(s[2 * np], qf[kd], t4[0], t4[1]);
-        mma_bf16(s[2 * np + 1], qf[kd], t4[2], t4[3]);
-      }
+    attn_mma_abt<D>(s, qfrag, ks);
     // the online softmax on the fragments: keys past T masked to -inf
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
@@ -270,21 +241,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
     // O += P V, P rounded to bf16 in registers as the A operand
-#pragma unroll
-    for (int kk = 0; kk < kTcK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // V transposed: matrices (keys 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-        uint32_t t4[4];
-        ldsm_x4_t(vs + (kk * 16 + (jq % 2) * 8 + r8) * kP + dp * 16 + (jq / 2) * 8, t4);
-        mma_bf16(o[2 * dp], a, t4[0], t4[1]);
-        mma_bf16(o[2 * dp + 1], a, t4[2], t4[3]);
-      }
-    }
+    attn_mma_pv<D>(o, s, vs);
     cp_async_wait_all();
     __syncthreads();   // the next stage is complete; this one's readers are done
   }

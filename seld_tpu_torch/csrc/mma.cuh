@@ -1,7 +1,8 @@
 // PTX helpers of the bfloat16 tensor-core kernels (conv3x3_tc.cuh,
-// flash_attn_fwd.cu): ldmatrix, mma.sync.m16n8k16 with float accumulators,
-// and cp.async 16-byte copies. The fragment layouts are PTX's for
-// m16n8k16: lane l holds rows l / 4 (+ 8) and columns 2 (l % 4) (+ 1, + 8).
+// conv3x3_dw_tc.cuh, flash_attn_tc.cuh): ldmatrix, mma.sync.m16n8k16 with
+// float accumulators, and cp.async 16-byte copies. The fragment layouts are
+// PTX's for m16n8k16: lane l holds rows l / 4 (+ 8) and columns 2 (l % 4)
+// (+ 1, + 8).
 #pragma once
 
 #include <cstdint>

@@ -48,7 +48,8 @@ from seld_tpu_torch.ops.kernels.conv2d_pool import BLOCK_T, conv2d_widecin_bn_re
 from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
 
 CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
-DW_SPLITS = 64       # the dW pass shares the B * F rows among at most this many blocks
+DW_SPLITS = 64       # the dW pass shares its depth (B * F rows x T frames) among ~this many
+DW_FRAME_STEP = 64   # frames per depth step of the bf16 dW tile (kDwT): a frame share's unit
 GRID_MAX = 65535     # the grid's y and z range
 
 
@@ -210,6 +211,25 @@ def ct_dw_plain(h, gz) -> torch.Tensor:
     return dw.permute(2, 3, 1, 0)
 
 
+def dw_split(b: int, f: int, t: int) -> tuple[int, int, int]:
+    """(rows_per_split, frames_per_split, splits) of the dW pass: the B * F
+    rows shared among at most DW_SPLITS blocks, and where there are fewer
+    rows than that (stage 3: 8 at batch 2), each row's frames split in
+    multiples of DW_FRAME_STEP until about DW_SPLITS shares. ``splits`` is
+    the kernels' grid.x and the partials' row count; block x takes rows
+    share x // frame_splits and frames share x % frame_splits, frame_splits
+    = ceil(T / frames_per_split)."""
+    rows = b * f
+    if rows >= DW_SPLITS:
+        rows_per_split, frames_per_split = -(-rows // DW_SPLITS), t
+    else:
+        parts = min(-(-DW_SPLITS // rows), -(-t // DW_FRAME_STEP))
+        steps = -(-t // (parts * DW_FRAME_STEP))   # ceil(ceil(t / parts) / step)
+        rows_per_split, frames_per_split = 1, steps * DW_FRAME_STEP
+    return (rows_per_split, frames_per_split,
+            -(-rows // rows_per_split) * -(-t // frames_per_split))
+
+
 def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     """h (B, C, F, T), gz (B, Cout, F, T) of one dtype -> dW (3, 3, C, Cout)
     float32."""
@@ -223,12 +243,12 @@ def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     code, lib = _launch_prelude(h, gz, "ct_dw")
     b, c, f, t = h.shape
     cout = gz.shape[1]
-    rows_per_split = -(-(b * f) // DW_SPLITS)
-    splits = -(-(b * f) // rows_per_split)
+    rows_per_split, frames_per_split, splits = dw_split(b, f, t)
     partials = torch.empty((splits, 9 * c * cout), dtype=torch.float32, device=h.device)
     dw = torch.empty((3, 3, c, cout), dtype=torch.float32, device=h.device)
     err = lib.seld_ct_train_dw(h.data_ptr(), gz.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-                               b, c, f, t, cout, rows_per_split, code, stream_handle(h.device))
+                               b, c, f, t, cout, rows_per_split, frames_per_split, code,
+                               stream_handle(h.device))
     _build.check(err, "seld_ct_train_dw")
     launch_counts["ct_train_dw"] += 1
     return dw

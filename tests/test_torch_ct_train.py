@@ -11,6 +11,8 @@ training step of the port against the JAX package, on the CPU.
   package's own test holds its op;
 - the op's passes (the autograd Function's CPU path) against torch autograd
   of the plain op, float64, 1e-10 x max|ref|;
+- the dW pass's depth split over rows and frames (``dw_split``): every
+  (b, f, t) in exactly one block's share, as many shares as partial rows;
 - one train step of a tiny model with every CNN stage on the kernel ops:
   the port in float64 against ``seld_tpu.training.steps.make_train_step``
   with ``frontend_impl='xla'`` in float64 on bridged weights (1e-9), and the
@@ -122,6 +124,40 @@ def test_k9_rejects_what_the_kernels_do_not_take():
         k9.conv2d_ct_bn_relu_fpool_train(h, torch.zeros(3, 3, 12, 4), s, s, 2)
     with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
         k9.conv2d_ct_bn_relu_fpool_train(h[:, :8], torch.zeros(3, 3, 8, 4), s, s, 3)
+
+
+def _dw_split_ranges(b, f, t):
+    """(row0, row1, t0, t1) of each dW block in grid.x order, indexed as the
+    kernels index them (``dw_split``'s docstring)."""
+    rows_per_split, frames_per_split, splits = k9.dw_split(b, f, t)
+    frame_splits = -(-t // frames_per_split)
+    out = []
+    for x in range(splits):
+        r0, t0 = (x // frame_splits) * rows_per_split, (x % frame_splits) * frames_per_split
+        out.append((r0, min(b * f, r0 + rows_per_split), t0, min(t, t0 + frames_per_split)))
+    return out
+
+
+@pytest.mark.parametrize("b,f,t", [
+    (2, 32, 4800), (8, 32, 4800), (2, 4, 4800), (8, 4, 4800),   # stages 2 and 3, batch 2 / 8
+    (1, 4, 1000), (2, 4, 515), (2, 24, 300), (3, 12, 777), (2, 8, 130), (1, 1, 10),
+    (1, 3, 65), (1, 63, 64), (5, 13, 129),
+])
+def test_dw_split_covers_every_frame_once(b, f, t):
+    """The dW pass's depth split (``dw_split``, the kernels' grid.x and the
+    partials' row count): every (b, f, t) falls in exactly one block's share,
+    frame shares are whole 64-frame steps (or all of T), and there are as
+    many shares as the kernels' grid.x = ceil(B F / rows) x ceil(T / frames)."""
+    rows_per_split, frames_per_split, splits = k9.dw_split(b, f, t)
+    ranges = _dw_split_ranges(b, f, t)
+    assert len(ranges) == splits == -(-(b * f) // rows_per_split) * -(-t // frames_per_split)
+    assert splits <= 2 * k9.DW_SPLITS
+    assert frames_per_split >= t or frames_per_split % k9.DW_FRAME_STEP == 0
+    seen = np.zeros((b * f, t), np.int64)
+    for r0, r1, t0, t1 in ranges:
+        assert r0 < r1 and t0 < t1
+        seen[r0:r1, t0:t1] += 1
+    assert (seen == 1).all()
 
 
 # ---- the pallas-ct training step ----------------------------------------------

@@ -177,8 +177,11 @@ def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 48), (1, 130, 2, 32), (1, 65, 1, 16)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 48), (1, 130, 2, 32), (1, 65, 1, 16),
+                                     (2, 200, 1, 64), (1, 130, 2, 128)])
 def test_flash_attention_bwd_kernel(gen, dtype, b, t, h, d):
+    """K6 at every head dim of HEAD_DIMS, ragged multi-tile T; two passes and
+    no atomics, so a rerun is bitwise equal."""
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                      for _ in range(4))
     out, lse = (t.contiguous() for t in flash_attention_plain(q, k, v, d ** -0.5))
@@ -187,6 +190,8 @@ def test_flash_attention_bwd_kernel(gen, dtype, b, t, h, d):
     want = flash_attention_bwd_plain(q, k, v, out, dout, lse, d ** -0.5)
     for a, b_ in zip(got, want):
         _close(a, b_, dtype)
+    for a, b_ in zip(flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5), got):
+        assert torch.equal(a, b_)
 
 
 def test_cuda_tensors_never_take_the_plain_path(gen):
@@ -280,7 +285,11 @@ def test_conv_ct_train_op(gen, dtype, b, c, f, t, cout, pf):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,c,f,t,cout,pf", K9_SHAPES[:2])
+@pytest.mark.parametrize("b,c,f,t,cout,pf", [
+    *K9_SHAPES[:2],
+    (1, 16, 4, 1000, 72, 2),   # B * F = 4 (as stage 3): dW splits each row's frames 16 ways
+    (2, 24, 4, 515, 12, 2),    # the same at T % 8 != 0 (2-byte staging), Cin 24, Cout 12
+])
 def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
     """Each K9 pass against its plain version on the same inputs; F1's conv
     rows equal F2's (K3's) bit for bit."""

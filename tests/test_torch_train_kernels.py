@@ -29,7 +29,7 @@ from seld_tpu.ops.pallas.conv2d_train import conv2d_smallcin_bn_relu_fpool_train
 from seld_tpu_torch.models.attention import attend_full
 from seld_tpu_torch.ops.kernels import conv2d_train as k5
 from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-from seld_tpu_torch.ops.kernels.attention import flash_attention_train
+from seld_tpu_torch.ops.kernels.attention import HEAD_DIMS, flash_attention_train
 
 F32_TOL = 2e-4  # x max|ref|
 
@@ -162,7 +162,7 @@ def _qkv(rng, b, t, h, d, dtype):
     return [rng.standard_normal((b, t, h, d)).astype(dtype) for _ in range(4)]
 
 
-@pytest.mark.parametrize("d", [16, 48])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_backward_matches_pallas_vjp(rng, d):
     q, k, v, g = _qkv(rng, 2, 64, 3, d, np.float32)
     scale = d ** -0.5
