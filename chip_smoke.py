@@ -20,8 +20,12 @@ Phases, each printing its own lines:
    plain version and of one PyTorch library call where there is one; the
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
    dh, and K3's pooled output against K9 F1's pre bit for bit on random
-   bf16 inputs at the flagship's stage 2; K6 and K9's dW rerun bitwise
-   equal;
+   bf16 inputs at the flagship's stage 2; K5 in both dtypes (float32's SIMT
+   passes, bfloat16's tensor-core ones: F1, F2, the g_z pass and the dW
+   tile, B2 beside cuDNN's weight gradient) and, at the flagship's stage 1
+   on random bf16 inputs, K5's F2 and g_z routing against the tile's rows
+   bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
+   addmm's device time from the profiler;
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
@@ -51,9 +55,9 @@ Phases, each printing its own lines:
    ``results_dict.json``, and K5, K9 (every pass, both stages), K4 and K6
    launched in every step (the trainer's ``metrics.jsonl``); then the
    ``pallas-ct`` step beside the ``auto`` step at batch 8, in turns, with ms
-   per step and audio-hours trained per second, and a profiled ``pallas-ct``
-   step with K6's and K9 dW's device time in it (phase 5b's profile gives
-   K6's);
+   per step, audio-hours trained per second and peak device memory, and a
+   profiled ``pallas-ct`` step with the PROFILE_WATCH kernels' device time
+   in it (K6, K9 dW, K5 dW, K5 F1, K7), as in phase 5b's and phase 7's;
 7. predict entry point: ``seld_tpu_torch.predict.main`` on the flagship with
    phase 6's best checkpoint over three one-minute clips (two .npy, one int16
    .wav): ``auto`` (the fused bf16 path, K1-K4), ``--impl apply
@@ -63,7 +67,7 @@ Phases, each printing its own lines:
    float32 ``xla`` apply path (K7 f32 at 2e-4 x max, bf16 at 0.05, int8 at
    the JAX package's PTQ bounds 0.08 / 0.15); then the bf16 batch-8 train
    step with ``qconv_impl='pallas'`` (K7 forward and dx) beside ``'xla'``,
-   in turns, with ms per step;
+   in turns, with ms per step and peak device memory, both profiled;
 8. front-end variants: (a) ``serve(..., smallcin_impl='wide')`` (stage 1 on
    K2w, the wide pack) beside 'thin' on the flagship in bf16, in turns, 3
    requests of 4 one-minute clips each: K2w at one launch per 'wide' request
@@ -118,15 +122,19 @@ SERVING_KERNELS = {  # launch-count name -> (source in the repo, TPU kernel it r
     "flash_attn_fwd": ("seld_tpu_torch/csrc/flash_attn_fwd.cu",
                        "seld_tpu/ops/pallas/attention.py:298"),
 }
-TRAINING_KERNELS = {  # K5's four passes, K6; the training path runs K4 too
+TRAINING_KERNELS = {  # K5's bf16 passes, K6; the training path runs K4 too
     "conv_train_stats": ("seld_tpu_torch/csrc/conv3x3_train.cu",
                          "seld_tpu/ops/pallas/conv2d_train.py:138"),
-    # K5's F2 is K2's smallcin kernel fed the batch-statistics affine: its
-    # launches are counted as conv3x3_smallcin's (COUNTED_AS)
-    "conv_train_fwd": ("seld_tpu_torch/csrc/conv3x3_bn_relu_fpool.cu",
+    # K5's bf16 F2 is K3's tile through K10b's entry, fed the batch-statistics
+    # affine: its launches are counted as conv3x3_windows' (COUNTED_AS); in
+    # float32 it is K2's smallcin kernel
+    "conv_train_fwd": ("seld_tpu_torch/csrc/conv3x3_windows.cu",
                        "seld_tpu/ops/pallas/conv2d_pool.py:575"),
     "conv_train_sel_stats": ("seld_tpu_torch/csrc/conv3x3_train.cu",
                              "seld_tpu/ops/pallas/conv2d_train.py:248"),
+    # B2 of the TPU kernel is two kernels in bf16: g_z, written once, and the dW tile
+    "conv_train_gz": ("seld_tpu_torch/csrc/conv3x3_train.cu",
+                      "seld_tpu/ops/pallas/conv2d_train.py:195"),
     "conv_train_dw": ("seld_tpu_torch/csrc/conv3x3_train.cu",
                       "seld_tpu/ops/pallas/conv2d_train.py:195"),
     "flash_attn_bwd": ("seld_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -165,11 +173,14 @@ FRONTEND_KERNELS = {  # phase 8: the serving stage's other packs and the profile
                         "seld_tpu/ops/pallas/conv2d_pool.py:749"),
 }
 KERNELS = {**KERNELS, **FRONTEND_KERNELS}
-COUNTED_AS = {"conv_train_fwd": "conv3x3_smallcin",   # summary row -> launch-count name
+COUNTED_AS = {"conv_train_fwd": "conv3x3_windows",   # summary row -> launch-count name
               "ct_train_fwd": "conv3x3_widecin"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
-# launches per pallas-ct training step: K5's passes once, K9's twice (stages 2
-# and 3; F2 is conv3x3_widecin), K4 and K6 at least once
+# the float32 step (phase 5a): K5's SIMT passes, F2 on K2's kernel and no g_z pass
+TRAINING_PATH_F32 = [{"conv3x3_windows": "conv3x3_smallcin"}.get(n, n) for n in TRAINING_PATH
+                     if n != "conv_train_gz"]
+# launches per pallas-ct training step: K5's passes once (F2 is conv3x3_windows),
+# K9's twice (stages 2 and 3; F2 is conv3x3_widecin), K4 and K6 at least once
 CT_PER_STEP = {**{COUNTED_AS.get(n, n): 1 for n in TRAINING_KERNELS if n != "flash_attn_bwd"},
                **{COUNTED_AS.get(n, n): 2 for n in CT_TRAIN_KERNELS}}
 CT_AT_LEAST = ("flash_attn_fwd", "flash_attn_bwd")
@@ -188,13 +199,20 @@ QMM_PER_FORWARD, QMM_DX_PER_STEP = 22, 21
 PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/test_pallas.py)
 PREDICT_STEPS_TIMED = 3
 # the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
-# K9 F1 and dh bodies, K9's dW, K4's forward and K6's two backward passes
-TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel", "ct_dw_tc_kernel",
-              "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
-# device kernels read out of the step profiles (phases 5b and 6): K6's three
-# launches and K9's dW tile (its reduction shares reduce_kernel with other passes)
+# K9 F1 and dh bodies and K5's F1 and g_z bodies, the dW tile (K9's 32-channel Cin
+# tile, K5's 16-channel one), K4's forward, K6's two backward passes and K7
+TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
+              "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
+              "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+              "flash_dkv_tc_kernel", "hamilton_tc_kernel")
+# device kernels read out of the step profiles (phases 5b, 6 and 7), by demangled
+# name: K6's three launches, K9's and K5's dW (K5's B2: the g_z pass and the
+# dW tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
 PROFILE_WATCH = {"K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
-                 "K9 dW": ("ct_dw_tc_kernel",)}
+                 "K9 dW": ("ct_dw_tc_kernel<32>",),
+                 "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
+                 "K5 F1": ("train_stats_tc_kernel",),
+                 "K7": ("hamilton_tc_kernel",)}
 R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
 PROFILE_BATCH = 4
 # (B, Cin, F, T, Cout, pf) of the conv tile's ragged checks: Cin chunks ragged
@@ -319,6 +337,24 @@ def time_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device milliseconds per fn() call: the self device time of every kernel
+    it launches, from torch.profiler over iters calls (no host time; the
+    event timings of time_ms include the host's launch path where it is the
+    longer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def compare(torch, name, shape_tag, got, want, dtype, card, timed=None):
@@ -565,11 +601,18 @@ def k5_inputs(torch, b, cin, f, t, cout, dtype, gen):
 
 
 def phase_k5(torch, card: str, randn, record) -> None:
-    """K5: the autograd op (four kernels) against autograd of the plain op, and
-    each pass against its plain version, at ragged multi-tile shapes and at
-    the flagship's stage 1 (batch 2); records the flagship bf16 passes."""
+    """K5: the autograd op against autograd of the plain op, and each pass
+    against its plain version, at ragged multi-tile shapes and at the
+    flagship's stage 1 (batch 2): in float32 the SIMT passes (F2 K2's
+    kernel), in bfloat16 the tensor-core ones (F1 and g_z on the conv tile,
+    F2 K3's tile through K10b's entry, dW on the dW tile); records the
+    flagship bf16 passes, prints B2 (g_z + dW) beside cuDNN's weight
+    gradient, requires the dW passes to rerun bitwise equal, then checks
+    the bf16 routing against F2 on random inputs (k5_routing_identity)."""
     from seld_tpu_torch.ops.kernels import conv2d_train as k5
-    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_smallcin_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    )
 
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -578,6 +621,7 @@ def phase_k5(torch, card: str, randn, record) -> None:
         ("ragged", 2, 5, 24, 1100, 80, 8),
         ("ragged", 2, 9, 16, 700, 80, 4),       # Cin 9 and 10: 16 staged channels
         ("ragged", 1, 10, 24, 1300, 72, 8),
+        ("ragged", 1, 8, 32, 515, 64, 16),      # T % 8 != 0 (2-byte staging), pf 16
         ("flagship", 2, CHANNELS, 256, 4800, 192, 8),
     ]
     for tag, b, cin, f, t, cout, pf in cases:
@@ -596,7 +640,8 @@ def phase_k5(torch, card: str, randn, record) -> None:
             del results
 
             # each pass on the same inputs as its plain version
-            flag = tag == "flagship" and dt == torch.bfloat16
+            bf16 = k5.tensor_core_path(x)
+            flag = tag == "flagship" and bf16
             xc = x.permute(0, 3, 1, 2).contiguous()
             gc = g.permute(0, 3, 1, 2).contiguous()
             n = b * f * t
@@ -607,38 +652,132 @@ def phase_k5(torch, card: str, randn, record) -> None:
             scale = gamma * inv
             bias = beta - mean * scale
             p_col, q_col = inv / scale, (bias / scale + mean) * inv
-            out = conv2d_smallcin_bn_relu_fpool(xc, w, scale, bias, pf)
+            f2 = conv2d_windows_bn_relu_fpool if bf16 else conv2d_smallcin_bn_relu_fpool
+            out = f2(xc, w, scale, bias, pf)
             sel = k5.sel_stats(out, gc, p_col, q_col)
             a_col = inv * scale * sel[cout:] / n
             b_col = scale * sel[:cout] / n - mean * a_col
             conv_flops = 2.0 * 9 * cin * cout * n
             g_read = gc.element_size() * int((out > 0).sum())   # B1 and B2 read g where out > 0
             w_nchw = w.permute(3, 2, 0, 1).contiguous()
-            g_full = gc.repeat_interleave(pf, dim=2) if flag else None   # dW's library input
+            conv_lib = lambda: F.conv2d(xc, w_nchw, padding=1)
             passes = [
                 ("conv_train_stats", lambda: k5.conv_train_stats(xc, w, pf),
                  lambda: k5.conv_train_stats_plain(xc, w), torch.float32,
-                 conv_flops, nbytes(xc, w) + 8 * cout,
-                 lambda: F.conv2d(xc, w_nchw, padding=1)),
-                ("conv_train_fwd", lambda: conv2d_smallcin_bn_relu_fpool(xc, w, scale, bias, pf),
+                 conv_flops, nbytes(xc, w) + 8 * cout, conv_lib),
+                ("conv_train_fwd", lambda: f2(xc, w, scale, bias, pf),
                  lambda: k5.conv_train_fwd_plain(xc, w, scale, bias, pf), dt,
-                 conv_flops, nbytes(xc, w, out), lambda: F.conv2d(xc, w_nchw, padding=1)),
+                 conv_flops, nbytes(xc, w, out), conv_lib),
                 ("conv_train_sel_stats", lambda: k5.sel_stats(out, gc, p_col, q_col),
                  lambda: k5.sel_stats_plain(out, gc, p_col, q_col), torch.float32,
                  5.0 * out.numel(), nbytes(out) + g_read + 8 * cout, None),
-                ("conv_train_dw",
-                 lambda: k5.conv_train_dw(xc, w, gc, scale, bias, a_col, b_col, pf),
-                 lambda: k5.conv_train_dw_plain(xc, w, gc, scale, bias, a_col, b_col, pf),
-                 torch.float32, 2 * conv_flops, nbytes(xc, w) + g_read + 4 * cout * 74,
-                 lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, g_full, padding=1)),
             ]
+            b2_args = (xc, w, gc, scale, bias, a_col, b_col, pf)
+            if bf16:
+                gz, _ = k5.conv_train_gz(*b2_args)
+                passes += [
+                    # g_z needs the conv again (no pre is kept) and writes (B, Cout, F, T)
+                    ("conv_train_gz", lambda: k5.conv_train_gz(*b2_args),
+                     lambda: k5.conv_train_gz_plain(*b2_args), dt, conv_flops,
+                     nbytes(xc, w, gc, gz) + 8 * cout, None),
+                    ("conv_train_dw", lambda: k5.conv_train_dw_gz(xc, gz),
+                     lambda: k5.dw_plain(xc, gz), torch.float32, conv_flops,
+                     nbytes(xc, gz) + 4 * w.numel(),
+                     lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, gz, padding=1)),
+                ]
+                dw_fn = lambda: k5.conv_train_dw_gz(xc, gz)
+            else:
+                passes.append(
+                    ("conv_train_dw", lambda: k5.conv_train_dw(*b2_args),
+                     lambda: k5.conv_train_dw_plain(*b2_args), torch.float32, 2 * conv_flops,
+                     nbytes(xc, w) + g_read + 4 * cout * 74, None))
+                dw_fn = lambda: k5.conv_train_dw(*b2_args)
+            pass_ms = {}
             for name, kern, plain, tol_dt, flops, moved, library in passes:
                 timed = (time_ms(torch, kern), time_ms(torch, plain)) if flag else None
+                got, want = kern(), plain()
+                if name == "conv_train_gz":   # (g_z, the routed sums)
+                    compare(torch, name, f"{tag} sums", got[1], want[1], torch.float32, card)
+                    got, want = got[0], want[0]
                 label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
-                d = compare(torch, name, label, kern(), plain(), tol_dt, card, timed)
+                if bf16 and name == "conv_train_dw":
+                    # the plain dW in float32 sums B * F * T products per weight (2.46M
+                    # at the flagship) in an order of its own, with an error of its own
+                    # near the tolerance: the tile is held to the plain version's
+                    # float64 value, and the three distances are printed
+                    exact = k5.dw_plain(xc.double(), gz.double())
+                    dist = lambda u, v: (u.double() - v).abs().max().item()
+                    print(f"[kernel] K5 dW {tag}: max|d| kernel - float64 plain "
+                          f"{dist(got, exact):.3e}, float32 plain - float64 plain "
+                          f"{dist(want, exact):.3e}, kernel - float32 plain "
+                          f"{dist(got, want.double()):.3e} (max|ref| "
+                          f"{exact.abs().max().item():.3e})")
+                    want, label = exact, f"{label}/f64-ref"
+                d = compare(torch, name, label, got, want, tol_dt, card, timed)
                 if flag:
+                    pass_ms[name] = timed[0]
                     lib_ms = None if library is None else time_ms(torch, library)
                     record(name, d, timed, flops, moved, "bfloat16", lib_ms)
+            # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
+            require(torch.equal(dw_fn(), dw_fn()), f"K5 dW {tag} {dt}: not repeatable")
+            if flag:
+                wgrad_ms = time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                    xc, w_nchw.shape, gz, padding=1))
+                print(f"[kernel] K5 B2 stage 1 bf16 batch {b}: g_z {pass_ms['conv_train_gz']:.3f}"
+                      f" + dW {pass_ms['conv_train_dw']:.3f} = "
+                      f"{pass_ms['conv_train_gz'] + pass_ms['conv_train_dw']:.3f} ms; cuDNN "
+                      f"wgrad {wgrad_ms:.3f} ms ({card})")
+            del xc, gc, out
+    k5_routing_identity(torch, card, randn)
+
+
+def k5_routing_identity(torch, card: str, randn) -> None:
+    """At the flagship's stage 1 (B 2, Cin 8, F 256, T 4800, pf 8) on random
+    (not integer-grid) bf16 inputs: K5's F2 (K3's tile through K10b's
+    entry) pools max_r relu(pre * scale + bias) of K9 F1's pre (the same
+    tile rows; the affine as one fma: the float64 product of two floats is
+    exact) bit for bit, and K5's g_z pass, fed g = 1 and a = b = 0 so that
+    g_z = scale > 0 exactly where it routes, routes every window to the
+    first row holding that max, where the max is > 0."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_windows_bn_relu_fpool
+
+    b, cin, f, t, cout, pf = 2, CHANNELS, 256, 4800, 192, 8
+    x = randn(b, cin, f, t, dtype=torch.bfloat16)
+    w = randn(3, 3, cin, cout, dtype=torch.bfloat16, scale=(9 * cin) ** -0.5)
+    scale = randn(cout, scale=0.3).abs() + 0.5
+    bias = randn(cout, scale=0.3)
+    pre = k9.ct_train_stats(x, w, pf)[1]
+    out = conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf)
+    col = lambda v: v.double()[:, None, None]
+    y = torch.relu((pre.double() * col(scale) + col(bias)).float())
+    del pre
+    y = y.view(b, cout, f // pf, pf, t)
+    best, row = y[:, :, :, 0], torch.zeros(y[:, :, :, 0].shape, dtype=torch.uint8,
+                                           device=y.device)
+    for r in range(1, pf):   # strict >: ties keep the earlier row
+        up = y[:, :, :, r] > best
+        best = torch.where(up, y[:, :, :, r], best)
+        row = torch.where(up, r, row)
+    differ_out = int((out != best.to(torch.bfloat16)).sum())
+    want = (torch.arange(pf, device=y.device).view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
+        best > 0).unsqueeze(3)
+    del y
+    zero = torch.zeros(cout, device=x.device)
+    ones = torch.ones(b, cout, f // pf, t, dtype=torch.bfloat16, device=x.device)
+    gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
+    routed = (gz != 0).view(want.shape)
+    differ_route = int((routed != want).sum())
+    print(f"[kernel] K5 routing, stage 1 bf16 random inputs: {differ_out} of {out.numel()} "
+          f"pooled outputs differ from max_r relu(pre * scale + bias); {differ_route} of "
+          f"{routed.numel()} conv outputs routed otherwise than the first max > 0; routed "
+          f"windows {int(want.sum())}")
+    require(differ_out == 0, f"K5's F2 differs from the tile's rows in {differ_out} places")
+    require(differ_route == 0, f"K5's g_z pass routes {differ_route} outputs otherwise")
+    require(torch.equal(sums[:cout], want.sum((0, 2, 3, 4)).float()),
+            "K5's routed S_g is not the routed count")
+    del x, gz, routed, want, out
 
 
 def phase_k9(torch, card: str, record) -> None:
@@ -649,7 +788,7 @@ def phase_k9(torch, card: str, record) -> None:
     the whole op's time beside cuDNN's three convolutions of the stage."""
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
     from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_widecin_bn_relu_fpool
-    from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
+    from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_plain
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -712,7 +851,7 @@ def phase_k9(torch, card: str, record) -> None:
                 ("ct_train_gz", lambda: k9.ct_gz(pre, g, cols, pf),
                  lambda: k9.ct_gz_plain(pre, g, cols, pf), dt,
                  6.0 * pre.numel(), nbytes(pre, g, gz), None),
-                ("ct_train_dw", lambda: k9.ct_dw(h, gz), lambda: k9.ct_dw_plain(h, gz),
+                ("ct_train_dw", lambda: k9.ct_dw(h, gz), lambda: dw_plain(h, gz),
                  torch.float32, conv_flops, nbytes(h, gz) + 4 * w.numel(), lib["wgrad"]),
                 ("ct_train_dx", lambda: k9.ct_dx(gz, w), lambda: k9.ct_dx_plain(gz, w), dt,
                  conv_flops, nbytes(gz, w, h), lib["dgrad"]),
@@ -772,6 +911,9 @@ def phase_k7_k8(torch, card: str, record) -> None:
         ("ragged", 1037, 4, 12, 20, False),
         ("ragged", 1037, 8, 6, 10, False),
         ("ragged", 1037, 8, 6, 10, True),
+        ("ragged", 1029, 4, 5, 16, False),      # K % 8 != 0: bf16 x by 2-byte loads
+        ("ragged", 513, 8, 3, 16, True),        # K % 16 != 0: a zero-filled k16 step
+        ("ragged", 777, 4, 96, 24, True),       # the Q configs' cin_c
         ("flagship", 9600, 8, 48, 48, False),   # the ResBlocks' skip / res convs
         ("flagship", 1200, 8, 48, 48, True),    # the FC heads
     ]
@@ -787,8 +929,12 @@ def phase_k7_k8(torch, card: str, record) -> None:
             d = compare(torch, "hamilton_matmul", label, got, plain(), dt, card, timed)
             if m == 9600:
                 w_full = assemble_hamilton(comps, table).contiguous()
-                lib_ms = time_ms(torch, lambda: torch.addmm(bias, x, w_full))
+                lib = lambda: torch.addmm(bias, x, w_full)
+                lib_ms = time_ms(torch, lib)
                 flops, moved = 2.0 * m * n * cin_c * n * cout_c, nbytes(x, comps, bias, got)
+                print(f"[kernel] hamilton_matmul {str(dt)[6:]} M {m} device time (profiler): "
+                      f"kernel {device_ms(torch, kern):.4f} ms, addmm "
+                      f"{device_ms(torch, lib):.4f} ms ({card})")
                 if dt == torch.bfloat16:
                     record("hamilton_matmul", d, timed, flops, moved, "bfloat16", lib_ms)
                 else:
@@ -1069,10 +1215,12 @@ def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 st
     return {"busy": busy, **watched}
 
 
-def device_share(profiled: dict, name: str) -> str:
-    """'<ms> ms (<share>% of device busy)' of one PROFILE_WATCH group."""
-    ms = profiled[name]
-    return f"{ms:.2f} ms ({100 * ms / profiled['busy']:.1f}% of device busy)"
+def device_shares(profiled: dict) -> str:
+    """'<group> <ms> ms (<share>%), ...' of every PROFILE_WATCH group, shares of
+    device busy."""
+    busy = profiled["busy"]
+    return ", ".join(f"{name} {profiled[name]:.2f} ms ({100 * profiled[name] / busy:.1f}%)"
+                     for name in PROFILE_WATCH)
 
 
 def take_bn_statistics_in_float64(torch, model) -> None:
@@ -1231,7 +1379,7 @@ def phase_training(torch, card: str) -> dict:
         print(f"[train] f32 batch 2, {tag} path: loss {losses[tag]:.8f}, one step "
               f"{1e3 * (time.perf_counter() - t0):.1f} ms")
         del model, state
-    require(all(counts["kernel"][k] > 0 for k in TRAINING_PATH),
+    require(all(counts["kernel"][k] > 0 for k in TRAINING_PATH_F32),
             f"f32 kernel path: a training kernel never ran: {counts['kernel']}")
     require(not any(counts["plain"].values()), f"plain path launched kernels: {counts['plain']}")
     require(all(set(g) == set(grads["plain"]) for g in grads.values()),
@@ -1313,8 +1461,8 @@ def phase_training(torch, card: str) -> dict:
     print(f"[train] bf16 batch {TRAIN_BATCH}: losses {[round(v, 5) for v in losses]}; "
           f"step {ms:.1f} ms (median of {TRAIN_STEPS}; {[round(1e3 * v, 1) for v in times]}) "
           f"= {audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; in the profiled step K6 "
-          f"{device_share(profiled, 'K6')} ({card})")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; in the profiled step "
+          f"{device_shares(profiled)} ({card})")
     return counts
 
 
@@ -1460,13 +1608,12 @@ def phase_entry(torch, card: str) -> dict:
         print(f"[entry] {impl} step, bf16 batch {CT_BATCH}: {ms:.1f} ms (median of "
               f"{len(times)}, in turns; {[round(1e3 * v, 1) for v in times]}) = "
               f"{audio_h / (ms / 1e3):.4f} audio-hours trained/s; peak memory "
-              f"{peak[impl] / 2**30:.1f} GiB ({card})")
+              f"{peak[impl] / 2**30:.2f} GiB ({card})")
     state, step, times = runs["pallas-ct"]
     del runs["auto"]
     profiled = profile_step(torch, lambda: step(state, x, y), card, top=18)
     print(f"[entry] pallas-ct step {statistics.median(times) * 1e3:.1f} ms; in the profiled "
-          f"step K6 {device_share(profiled, 'K6')}, K9 dW {device_share(profiled, 'K9 dW')} "
-          f"({card})")
+          f"step {device_shares(profiled)} ({card})")
     return counts
 
 
@@ -1617,14 +1764,17 @@ def predict_train_steps(torch, card: str) -> None:
             step(state, x, y)
     torch.cuda.synchronize()
     per_step = QMM_PER_FORWARD + QMM_DX_PER_STEP
+    peak = dict.fromkeys(steps, 0)
     for i in range(PREDICT_STEPS_TIMED):
         for impl in ("xla", "pallas") if i % 2 == 0 else ("pallas", "xla"):
             state, step, times, _ = steps[impl]
             reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             _, loss = step(state, x, y)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated())
             require(bool(torch.isfinite(loss)), f"{impl} step: loss {float(loss)}")
             got = launch_counts["hamilton_matmul"]
             require(got == (per_step if impl == "pallas" else 0),
@@ -1642,10 +1792,13 @@ def predict_train_steps(torch, card: str) -> None:
         print(f"[predict] train step qconv_impl={impl}, bf16 batch {TRAIN_BATCH}: {ms:.1f} ms "
               f"(median of {len(times)}, in turns; {[round(1e3 * v, 1) for v in times]}) = "
               f"{audio_h / (ms / 1e3):.4f} audio-hours trained/s; K7 launches per step "
-              f"{per_step if impl == 'pallas' else 0} ({card})")
+              f"{per_step if impl == 'pallas' else 0}; peak memory {peak[impl] / 2**30:.2f} GiB "
+              f"({card})")
     for impl, (state, step, _, _) in steps.items():
         print(f"[predict] profiled train step, qconv_impl={impl}:")
-        profile_step(torch, lambda: step(state, x, y), card, top=10)
+        profiled = profile_step(torch, lambda: step(state, x, y), card, top=10)
+        print(f"[predict] qconv_impl={impl}: in the profiled step {device_shares(profiled)} "
+              f"({card})")
     del steps
     torch.cuda.empty_cache()
 

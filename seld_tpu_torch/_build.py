@@ -50,6 +50,12 @@ SIGNATURES = {
     # x, w, scale, bias, a, b, g, partials, sums, batch, cin, f, t, cout, pf,
     # tiles_per_block, dtype, stream
     "seld_conv3x3_train_dw": [_P] * 9 + [_I] * 8 + [_P],
+    # x, w, scale, bias, a, b, g, gz, partials, sums, batch, cin, f, t, cout, pf,
+    # tiles_per_block, dtype, stream
+    "seld_conv3x3_train_gz": [_P] * 10 + [_I] * 8 + [_P],
+    # x, gz, partials, sums, batch, cin, f, t, cout, rows_per_split, frames_per_split,
+    # dtype, stream
+    "seld_conv3x3_train_dw_tc": [_P] * 4 + [_I] * 8 + [_P],
     # h, w, pre, partials, sums, batch, cin, f, t, cout, pf, dtype, stream
     "seld_ct_train_stats": [_P] * 5 + [_I] * 7 + [_P],
     # pre, g, cols, partials, sums, batch, cout, f, t, pf, dtype, stream

@@ -4,7 +4,8 @@
 // Replaces seld_tpu/ops/pallas/conv2d_pool.py::
 //   conv2d_smallcin_thin_bn_relu_fpool (_smallcin_thin_kernel), stage 1,
 //   Cin <= 8: entry seld_conv3x3_smallcin (which also takes Cin 9-10 with
-//   16 staged channels, for K5's forward at the reference's 3 * Cin <= 32);
+//   16 staged channels, for K5's float32 forward at the reference's
+//   3 * Cin <= 32);
 //   conv2d_widecin_ct_bn_relu_fpool (_widecin_ct_kernel), stages 2-3,
 //   Cin % 8 == 0: entry seld_conv3x3_widecin (which conv3x3_windows.cu's
 //   K10b entry also launches, for any Cin).

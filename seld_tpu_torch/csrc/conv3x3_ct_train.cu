@@ -308,8 +308,7 @@ ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ 
 // F1's bfloat16 body: K3's tensor-core rows (conv_rows_tc, the same rows,
 // chunks and fragments as conv3x3_tc_kernel, so pre equals F2's conv rows
 // bitwise), written once as pre, with per-channel sums over the block's
-// frames: each thread's, then its quad's (the lanes sharing a channel), then
-// the four frame warps' in order through shared memory.
+// frames in a fixed order (tc_channel_sums).
 __global__ void __launch_bounds__(kTcThreads, 2)
 ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ pre,
                    float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
@@ -357,35 +356,8 @@ ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float
           }
       });
   // conv_rows_tc ended synchronised: its buffers are free for the reduction
-  float* red = reinterpret_cast<float*>(tc_smem);   // [4 frame warps][kTcCo][2]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float a = s1[mi][hh], q = s2[mi][hh];
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      a += __shfl_xor_sync(0xffffffffu, a, 2);
-      q += __shfl_xor_sync(0xffffffffu, q, 1);
-      q += __shfl_xor_sync(0xffffffffu, q, 2);
-      if (lane % 4 == 0) {
-        const int m = tc_m(warp_m, lane, mi, 2 * hh);
-        red[(warp_n * kTcCo + m) * 2] = a;
-        red[(warp_n * kTcCo + m) * 2 + 1] = q;
-      }
-    }
-  __syncthreads();
-  const int co = co0 + threadIdx.x;
-  if (threadIdx.x < kTcCo && co < cout) {
-    float a = 0.f, q = 0.f;
-#pragma unroll
-    for (int wn = 0; wn < 4; ++wn) {
-      a += red[(wn * kTcCo + threadIdx.x) * 2];
-      q += red[(wn * kTcCo + threadIdx.x) * 2 + 1];
-    }
-    float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-    row[co] = a;
-    row[cout + co] = q;
-  }
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+  tc_channel_sums(reinterpret_cast<float*>(tc_smem), s1, s2, co0, cout, row);
 }
 
 // dh's bfloat16 body: conv row f of gz (K = Cout channels) with the
@@ -525,10 +497,11 @@ extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, v
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     if constexpr (sizeof(T) == 2) {
-      cudaError_t e = set_smem(ct_dw_tc_kernel, kDwTcSmem);
+      constexpr size_t smem = dw_tc_smem<kDwCi>();
+      cudaError_t e = set_smem(ct_dw_tc_kernel<kDwCi>, smem);
       if (e != cudaSuccess) return e;
       const dim3 grid(splits, ceil_div(cout, kDwCo), ceil_div(cin, kDwCi));
-      ct_dw_tc_kernel<<<grid, kDwThreads, kDwTcSmem, s>>>(
+      ct_dw_tc_kernel<kDwCi><<<grid, kDwThreads, smem, s>>>(
           static_cast<const bf16*>(h), static_cast<const bf16*>(gz), part, batch, cin, f_dim,
           t_dim, cout, rows_per_split, frames_per_split);
     } else {

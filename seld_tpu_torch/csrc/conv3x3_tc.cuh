@@ -1,7 +1,8 @@
-// The tensor-core 3x3 conv tile of the bfloat16 CNN stages 2-3, shared by K3
-// and K10b (conv3x3_bn_relu_fpool.cu: the serving stage and K9's F2) and by
-// K9's F1 and dh passes (conv3x3_ct_train.cu). float32 keeps the SIMT tile
-// of conv3x3_common.cuh (TF32 stays off).
+// The tensor-core 3x3 conv tile of the bfloat16 CNN stages, shared by K3
+// and K10b (conv3x3_bn_relu_fpool.cu: the serving stage, K9's F2 and K5's
+// F2), by K9's F1 and dh passes (conv3x3_ct_train.cu) and by K5's F1 and
+// g_z passes (conv3x3_train.cu). float32 keeps the SIMT tile of
+// conv3x3_common.cuh (TF32 stays off).
 //
 // A conv row is an implicit GEMM: M = 64 output channels, N = 128 frames,
 // K = 9 taps x Cin, walked in chunks of 16 input channels (one k16 step of
@@ -28,9 +29,10 @@
 // transposed weights into [tap][co][ci]. Two stages of (x, w) form the
 // ring: the next chunk loads while this one multiplies.
 //
-// Invariants: F1 and F2 call conv_rows_tc with the same rows, chunks and
-// fragments, so their conv rows are bitwise equal (K9's backward routes the
-// pool gradient on F1's rows); a ragged last Cin chunk is zero-filled, so
+// Invariants: F1, F2 and K5's g_z pass call conv_rows_tc with the same
+// rows, chunks and fragments, so their conv rows are bitwise equal (K9's
+// backward routes the pool gradient on F1's rows, K5's on the g_z pass's
+// recompute); a ragged last Cin chunk is zero-filled, so
 // any Cin works; ragged Cout and T are masked by the epilogues; only
 // t < T is read; any number of rows (pf) runs through one pipeline.
 #pragma once
@@ -303,6 +305,48 @@ static __device__ __forceinline__ void conv_rows_tc(bf16* __restrict__ smem,
       cp_async_wait_all();
     }
     __syncthreads();   // nxt is complete; cur's readers are done
+  }
+}
+
+// The per-channel sums of a block's tile: s1[mi][hh], s2[mi][hh] are this
+// thread's for channel co0 + tc_m(warp_m, lane, mi, 2 hh). They are summed
+// over the quad (the lanes that share a channel), then over the four frame
+// warps in order through `red` (shared memory for 4 x kTcCo x 2 floats that
+// no thread still reads, e.g. after conv_rows_tc), and written to row[co]
+// and row[cout + co] for co < cout: one partial row, in a fixed order.
+// Every thread of the block must call it.
+static __device__ __forceinline__ void tc_channel_sums(float* __restrict__ red,
+                                                       const float (&s1)[2][2],
+                                                       const float (&s2)[2][2], int co0,
+                                                       int cout, float* __restrict__ row) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float a = s1[mi][hh], q = s2[mi][hh];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      if (lane % 4 == 0) {
+        const int m = tc_m(warp_m, lane, mi, 2 * hh);
+        red[(warp_n * kTcCo + m) * 2] = a;
+        red[(warp_n * kTcCo + m) * 2 + 1] = q;
+      }
+    }
+  __syncthreads();
+  const int co = co0 + threadIdx.x;
+  if (threadIdx.x < kTcCo && co < cout) {
+    float a = 0.f, q = 0.f;
+#pragma unroll
+    for (int wn = 0; wn < 4; ++wn) {
+      a += red[(wn * kTcCo + threadIdx.x) * 2];
+      q += red[(wn * kTcCo + threadIdx.x) * 2 + 1];
+    }
+    row[co] = a;
+    row[cout + co] = q;
   }
 }
 

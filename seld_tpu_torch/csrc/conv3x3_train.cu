@@ -5,48 +5,65 @@
 //
 // Replaces seld_tpu/ops/pallas/conv2d_train.py::
 // conv2d_smallcin_bn_relu_fpool_train: its passes _stats_kernel (F1),
-// _sel_stats_kernel (B1) and _bwd_dw_kernel (B2); the forward pass F2 is the
-// serving kernel seld_conv3x3_smallcin (conv3x3_bn_relu_fpool.cu), fed the
-// batch-statistics affine. The reference takes 3 * Cin <= 32 (its wide
-// pack); here every pass stages CC = 8 input channels for Cin <= 8 and
-// CC = 16 for Cin 9-10 (a K dimension of 9 * CC, zero-filled past Cin), so
-// F1, F2 and B2 share one conv_rows<CC> and its fmaf order whatever Cin is.
-// Layout: x (B, Cin, F, T), w (3, 3, Cin, Cout), out and its cotangent g
-// (B, Cout, F/pf, T); every pass reads only t < T.
+// _sel_stats_kernel (B1) and _bwd_dw_kernel (B2); the forward pass F2 is a
+// serving kernel fed the batch-statistics affine. Layout: x (B, Cin, F, T),
+// w (3, 3, Cin, Cout), out and its cotangent g (B, Cout, F/pf, T); every
+// pass reads only t < T. B2 routes g by recomputing the conv rows that F2
+// pooled, so F1, F2 and B2 run one conv row function per dtype and get its
+// rows bit for bit:
 //
-// - F1  seld_conv3x3_train_stats: per-channel sum and sum of squares of the
-//       conv output over (B, F, T), recomputed per tile.
-// - B1  seld_conv3x3_train_sel_stats: S_g = sum g and S_gx = sum g * xhat
-//       over the positions where out > 0, from (out, g) alone: there the
-//       pool-selected pre-activation equals out, so xhat = out * p - q with
-//       p = inv / scale, q = (bias / scale + mean) * inv (0 where scale == 0).
-// - B2  seld_conv3x3_train_dw: recomputes each pool row's conv with the
-//       forward's conv_rows, routes g to the FIRST row holding the max (a
-//       strict > running argmax, reduce_window's first-match rule) where
-//       that max is > 0, forms g_z = g_pre * scale - acc * A - Bc (the
-//       batch-stats BN backward scale * (g_pre - S_g/N - xhat * S_gx/N) with
-//       A = inv * scale * S_gx/N, Bc = scale * S_g/N - mean * A: the
-//       subtraction happens before the dW product), rounds g_z to the input
-//       dtype, and accumulates dW[co][tap][ci] += g_z * x in float (ci
-//       padded to CC). It also
-//       emits the exact routed sums S_g and sum g_pre * acc, from which the
-//       caller forms dgamma and dbeta.
-// - every pass writes one row of per-block partial sums; launch_reduce
-//   (conv3x3_common.cuh) sums the rows in a fixed order (double
-//   accumulators), so a run repeats bitwise (no float atomics).
+// float32 (SIMT FMA, TF32 off): conv_rows<CC> (conv3x3_common.cuh), CC = 8
+// staged channels for Cin <= 8 and 16 for Cin 9-10 (zero-filled past Cin).
+// - F1  seld_conv3x3_train_stats (stats_kernel): per-channel sum and sum of
+//       squares of the conv over (B, F, T), recomputed per tile.
+// - F2  K2's seld_conv3x3_smallcin (conv3x3_bn_relu_fpool.cu).
+// - B2  seld_conv3x3_train_dw (dw_kernel): recomputes each pool row's conv,
+//       routes g to the FIRST row holding the max (a strict > running
+//       argmax, reduce_window's first-match rule) where that max is > 0,
+//       forms g_z = g_pre * scale - acc * A - Bc (the batch-stats BN
+//       backward scale * (g_pre - S_g/N - xhat * S_gx/N) with A = inv *
+//       scale * S_gx/N, Bc = scale * S_g/N - mean * A: the subtraction
+//       happens before the dW product), and accumulates dW[co][tap][ci] +=
+//       g_z * x (ci padded to CC), with the exact routed sums S_g and sum
+//       g_pre * acc, from which the caller forms dgamma and dbeta. Two
+//       recomputes (argmax, then g_z) and the dW product, all SIMT.
+// bfloat16 (mma.sync.m16n8k16, bf16 operands, float accumulators):
+// conv_rows_tc (conv3x3_tc.cuh), Cin <= 16 in one zero-filled 16-channel
+// chunk.
+// - F1  seld_conv3x3_train_stats (train_stats_tc_kernel): the same sums, no
+//       pre written (float pre would be 1.9 GB at batch 2).
+// - F2  K3's tile through K10b's entry seld_conv3x3_windows.
+// - B2  split as K9's: seld_conv3x3_train_gz (train_gz_tc_kernel), one
+//       recompute on the tile that writes g_z in bf16 with the same routing
+//       and the exact routed sums, then seld_conv3x3_train_dw_tc, the dW
+//       GEMM over the frames of conv3x3_dw_tc.cuh with a 16-channel Cin
+//       tile.
+// - B1  seld_conv3x3_train_sel_stats (both dtypes): S_g = sum g and S_gx =
+//       sum g * xhat over the positions where out > 0, from (out, g) alone:
+//       there the pool-selected pre-activation equals out, so xhat = out * p
+//       - q with p = inv / scale, q = (bias / scale + mean) * inv (0 where
+//       scale == 0).
+// Every pass writes one row of per-block partial sums; launch_reduce
+// (conv3x3_common.cuh) sums the rows in a fixed order (double
+// accumulators), so a run repeats bitwise (no float atomics).
 //
-// What bounds it on the H100: arithmetic. Each conv recompute is
-// 2 * 72 * Cout FLOP per conv pixel (34 GFLOP per pass for a batch of 8
-// one-minute clips) and B2 does three such products (two recomputes and the
-// dW product) on 72-wide operands (144 for CC = 16); the bytes (x, out, g) are a few hundred
-// MB. Design: the K2 tile (64 channels x 128 frames per block, 256
-// threads, halo and weights in shared memory); a block walks kTilesPerBlock
-// frame tiles so that the partial rows stay small. B2 keeps the argmax row
-// index per output in registers (pass A), recomputes each row (pass B),
-// stages that row's g_z tile in shared memory and forms the 64 x 72 dW
-// tile from it, 18 outputs per thread (36 for CC = 16). SIMT FMA: tensor
-// cores come later.
-#include "conv3x3_common.cuh"
+// What bounds it on the H100. Each conv is 2 * 9 * Cin * Cout operations
+// per conv pixel (68 GFLOP at Cin 8 for a flagship stage 1 at batch 2: 0.07
+// ms on the bf16 tensor cores, 1.0 ms at float32's 67 TFLOP/s). In bf16 the
+// bytes bound the backward: g_z (B, Cout, F, T) is 944 MB at batch 2,
+// written once by the g_z pass and read once by dW (0.28 ms each at 3.35
+// TB/s). The float32 design keeps the K2 tile (64 channels x 128 frames per
+// block, 256 threads, halo and weights in shared memory; a block walks
+// kTilesPerBlock frame tiles so that the partial rows stay small) and never
+// writes g_z: B2 keeps the argmax row per output in registers (pass A),
+// recomputes each row (pass B), stages that row's g_z tile in shared memory
+// and forms the 64 x 72 dW tile from it, 18 outputs per thread (36 for CC
+// = 16). The bf16 design writes g_z once to move the dW product onto the
+// tensor cores: the g_z pass keeps each window's running best conv value
+// and row in registers (one recompute), and the dW tile reads x and g_z
+// once per 64-frame depth step.
+#include "conv3x3_dw_tc.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -238,7 +255,6 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
           sg[i] += gp;
           sga[i] = fmaf(gp, acc[i][j], sga[i]);
           float z = valid ? gp * sc[i] - acc[i][j] * ac[i] - bc[i] : 0.f;
-          if (sizeof(T) == 2) z = to_f(__float2bfloat16(z));   // the dW product's operand dtype
           gz[(ty + 16 * i) * kGzW + tx + 16 * j] = z;
         }
       __syncthreads();
@@ -271,8 +287,233 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
   }
 }
 
+// ---- bfloat16: F1 and B2's g_z pass on the conv tile of conv3x3_tc.cuh ----
+
+// F1 in bfloat16: the conv rows of K3's tile (conv_rows_tc over the block's
+// pf rows and tiles_per_block frame tiles; Cin <= 16 is one zero-filled
+// 16-channel chunk), summed per channel; no pre is written.
+__global__ void __launch_bounds__(kTcThreads, 2)
+train_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                      float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
+                      int pf, int tiles_per_block) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int lane = threadIdx.x % 32, warp_n = (threadIdx.x / 32) % 4;
+  const int co0 = blockIdx.y * kTcCo;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const bf16* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+
+  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int tile = 0; tile < tiles_per_block; ++tile) {
+    const int t0 = (blockIdx.x * tiles_per_block + tile) * kTcT;
+    if (t0 >= t_dim) break;
+    conv_rows_tc<false>(
+        reinterpret_cast<bf16*>(tc_smem), xb, w, fo * pf, pf, co0, t0, cin, f_dim, t_dim, cout,
+        [&](int, const float (&acc)[2][4][4]) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                for (int e2 = 0; e2 < 2; ++e2) {
+                  const float v = acc[mi][ni][2 * hh + e2];
+                  if (t0 + tc_n(warp_n, lane, ni, e2) < t_dim) {
+                    s1[mi][hh] += v;
+                    s2[mi][hh] = fmaf(v, v, s2[mi][hh]);
+                  }
+                }
+        });
+  }
+  // conv_rows_tc ended synchronised: its buffers are free for the reduction
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+  tc_channel_sums(reinterpret_cast<float*>(tc_smem), s1, s2, co0, cout, row);
+}
+
+// (t, t + 1) of a bf16 row; one 4-byte store where the row allows it.
+static __device__ __forceinline__ void store_pair(bf16* __restrict__ row, int t, int t_dim,
+                                                  bool pairs, float v0, float v1) {
+  if (pairs && t + 1 < t_dim) {
+    *reinterpret_cast<__nv_bfloat162*>(row + t) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (t < t_dim) row[t] = __float2bfloat16(v0);
+    if (t + 1 < t_dim) row[t + 1] = __float2bfloat16(v1);
+  }
+}
+
+constexpr int kGzStageRows = 8;           // the largest pool window staged in shared memory
+constexpr int kGzZP = kTcT + 8;           // padded staged g_z row: 136 bf16 (68 words: 4 mod 32)
+constexpr int kGzRowElems = kTcCo * kGzZP;   // one conv row of the block's tile
+
+// Shared memory of the g_z pass: the conv tile's ring, then (kStaged) the
+// pool window's g_z rows.
+template <bool kStaged>
+constexpr size_t gz_smem_bytes() {
+  return tc_smem_bytes<false>() + (kStaged ? sizeof(bf16) * kGzStageRows * kGzRowElems : 0);
+}
+
+// B2's g_z pass in bfloat16: one recompute of the pool rows on the same tile
+// as F1 and F2 (so its rows are theirs bit for bit). Each row's g_z is first
+// formed as if off the route, -acc * A - Bc (one fma), while each element
+// keeps its window's running first max (strict >: its relu value, conv
+// value and row) in registers; at the window's end, where that max is > 0,
+// g is routed to it: its g_z becomes g * scale - acc * A - Bc and the exact
+// routed sums S_g and sum g_pre * acc are taken. kStaged (pf <= 8, the
+// shipped configs' pool): the window's rows wait in shared memory, take the
+// routed values there, and leave in 16-byte coalesced stores; else each row
+// is stored at once and the routed values are rewritten in place (2-byte
+// stores scattered over the window's rows). The staged instance is kept for
+// its speed: at stage 1 (pf 8) it took 1.96 ms against the direct one's 2.68
+// on an H100 80GB at 700 W (python -m seld_tpu_torch.ab_variants --sections
+// train; PERF.md). gz (B, Cout, F, T) in bf16; one
+// partial row [S_g | sum g_pre * acc] per block. One block per SM (255
+// registers): the running max, the four per-channel columns and the tile's
+// pipeline do not fit 128 without spills.
+template <bool kStaged>
+__global__ void __launch_bounds__(kTcThreads, 1)
+train_gz_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ a_col, const float* __restrict__ b_col,
+                   const bf16* __restrict__ g, bf16* __restrict__ gz,
+                   float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
+                   int pf, int tiles_per_block) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* zs = reinterpret_cast<bf16*>(tc_smem + tc_smem_bytes<false>());   // [pf][64][kGzZP]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp_m = warp / 4, warp_n = warp % 4;
+  const int co0 = blockIdx.y * kTcCo;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const bf16* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const size_t plane = static_cast<size_t>(f_dim) * t_dim;   // one channel of gz
+  bf16* gzb = gz + static_cast<size_t>(b) * cout * plane + static_cast<size_t>(fo) * pf * t_dim;
+  const bool pairs = t_dim % 2 == 0 && reinterpret_cast<uintptr_t>(gz) % 4 == 0;
+  const bool vec = t_dim % 8 == 0 && reinterpret_cast<uintptr_t>(gz) % 16 == 0;
+
+  // this thread's channels (clamped: the padding channels' rows are dropped)
+  int co[2][2];
+  float sc[2][2], bi[2][2], ac[2][2], bc[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      co[mi][hh] = co0 + tc_m(warp_m, lane, mi, 2 * hh);
+      const int cc = min(co[mi][hh], cout - 1);
+      sc[mi][hh] = scale[cc];
+      bi[mi][hh] = bias[cc];
+      ac[mi][hh] = a_col[cc];
+      bc[mi][hh] = b_col[cc];
+    }
+  float sg[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, sga[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int tile = 0; tile < tiles_per_block; ++tile) {
+    const int t0 = (blockIdx.x * tiles_per_block + tile) * kTcT;
+    if (t0 >= t_dim) break;
+    // each window's running first max: relu value, conv value, row
+    float best_y[2][4][4], best[2][4][4];
+    int sel[2][4][4];
+    conv_rows_tc<false>(
+        reinterpret_cast<bf16*>(tc_smem), xb, w, fo * pf, pf, co0, t0, cin, f_dim, t_dim, cout,
+        [&](int r, const float (&acc)[2][4][4]) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int m = tc_m(warp_m, lane, mi, 2 * hh);
+              bf16* zrow = gzb + min(co[mi][hh], cout - 1) * plane +
+                           static_cast<size_t>(r) * t_dim;
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni) {
+                const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+                const float z0 = fmaf(-v0, ac[mi][hh], -bc[mi][hh]);
+                const float z1 = fmaf(-v1, ac[mi][hh], -bc[mi][hh]);
+                const int n = tc_n(warp_n, lane, ni, 0);
+                if (kStaged)
+                  *reinterpret_cast<__nv_bfloat162*>(zs + (r * kTcCo + m) * kGzZP + n) =
+                      __floats2bfloat162_rn(z0, z1);
+                else if (co[mi][hh] < cout)
+                  store_pair(zrow, t0 + n, t_dim, pairs, z0, z1);
+#pragma unroll
+                for (int e2 = 0; e2 < 2; ++e2) {
+                  const int e = 2 * hh + e2;
+                  const float v = acc[mi][ni][e];
+                  const float y = bn_relu(v, sc[mi][hh], bi[mi][hh]);
+                  if (r == 0 || y > best_y[mi][ni][e]) {
+                    best_y[mi][ni][e] = y;
+                    best[mi][ni][e] = v;
+                    sel[mi][ni][e] = r;
+                  }
+                }
+              }
+            }
+        });
+    // the windows' ends: g to the first max where that max is > 0
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (co[mi][hh] >= cout) continue;
+        const int m = tc_m(warp_m, lane, mi, 2 * hh);
+        const bf16* grow = g + ((static_cast<size_t>(b) * cout + co[mi][hh]) * f_out + fo) * t_dim;
+        bf16* zc = gzb + co[mi][hh] * plane;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int e = 2 * hh + e2;
+            const int n = tc_n(warp_n, lane, ni, e2);
+            if (t0 + n >= t_dim || !(best_y[mi][ni][e] > 0.f)) continue;
+            const float gp = __bfloat162float(grow[t0 + n]), v = best[mi][ni][e];
+            sg[mi][hh] += gp;
+            sga[mi][hh] = fmaf(gp, v, sga[mi][hh]);
+            const bf16 z = __float2bfloat16(gp * sc[mi][hh] - v * ac[mi][hh] - bc[mi][hh]);
+            if (kStaged)
+              zs[(sel[mi][ni][e] * kTcCo + m) * kGzZP + n] = z;
+            else
+              zc[static_cast<size_t>(sel[mi][ni][e]) * t_dim + t0 + n] = z;
+          }
+      }
+    if (kStaged) {   // the window's rows out: 16-byte stores along the frames
+      __syncthreads();
+      const int units = kTcT / 8;   // 16-byte units per staged row
+      for (int e = threadIdx.x; e < pf * kTcCo * units; e += kTcThreads) {
+        const int u = e % units, rm = e / units;   // rm = r * kTcCo + m
+        const int c = co0 + rm % kTcCo, t = t0 + 8 * u;
+        if (c >= cout || t >= t_dim) continue;
+        const bf16* src = zs + rm * kGzZP + 8 * u;
+        bf16* dst = gzb + c * plane + static_cast<size_t>(rm / kTcCo) * t_dim + t;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else {
+          for (int k = 0; k < 8 && t + k < t_dim; ++k) dst[k] = src[k];
+        }
+      }
+      __syncthreads();   // zs is free for the next tile
+    }
+  }
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+  tc_channel_sums(reinterpret_cast<float*>(tc_smem), sg, sga, co0, cout, row);
+}
+
 int n_split(int t_dim, int tiles_per_block) {
   return ceil_div(ceil_div(t_dim, kBT), tiles_per_block);
+}
+
+template <bool kStaged>
+cudaError_t launch_gz(const void* x, const void* w, const void* scale, const void* bias,
+                      const void* a, const void* b, const void* g, void* gz, float* partials,
+                      int batch, int cin, int f_dim, int t_dim, int cout, int pf, int tpb,
+                      cudaStream_t s) {
+  constexpr size_t smem = gz_smem_bytes<kStaged>();
+  cudaError_t err = set_smem(train_gz_tc_kernel<kStaged>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+  train_gz_tc_kernel<kStaged><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const bf16*>(g), static_cast<bf16*>(gz),
+      partials, cin, f_dim, t_dim, cout, pf, tpb);
+  return cudaGetLastError();
 }
 
 // The staged channels of a Cin: 8, or 16 for Cin 9-10.
@@ -294,10 +535,21 @@ cudaError_t launch_stats_cc(const void* x, const void* w, float* partials, int b
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* w, float* partials, int batch, int cin,
                          int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
-  if (staged_channels(cin) == kCC)
-    return launch_stats_cc<T, kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb, s);
-  return launch_stats_cc<T, 2 * kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb,
-                                     s);
+  if constexpr (sizeof(T) == 2) {   // the tensor-core tile: the same grid (kTcT == kBT)
+    constexpr size_t smem = tc_smem_bytes<false>();
+    cudaError_t err = set_smem(train_stats_tc_kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+    train_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(static_cast<const bf16*>(x),
+                                                         static_cast<const bf16*>(w), partials,
+                                                         cin, f_dim, t_dim, cout, pf, tpb);
+    return cudaGetLastError();
+  } else {
+    if (staged_channels(cin) == kCC)
+      return launch_stats_cc<T, kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb, s);
+    return launch_stats_cc<T, 2 * kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb,
+                                       s);
+  }
 }
 
 template <typename T, int CC>
@@ -383,7 +635,7 @@ extern "C" int seld_conv3x3_train_sel_stats(const void* out, const void* g, cons
                                         2 * cout, s));
 }
 
-// B2 + its reduction: sums (Cout * (9 CC + 2),) = [dW (Cout, 9 taps, CC ci) |
+// B2 in float32 + its reduction: sums (Cout * (9 CC + 2),) = [dW (Cout, 9 taps, CC ci) |
 // S_g | sum g_pre * acc], CC = 8 for Cin <= 8, else 16. scale, bias, a, b:
 // (Cout,) float; g: (B, Cout, F/pf, T); partials: (B * F/pf * n_split,
 // Cout * (9 CC + 2)).
@@ -400,16 +652,63 @@ extern "C" int seld_conv3x3_train_dw(const void* x, const void* w, const void* s
   auto bc = static_cast<const float*>(b);
   if (bad_shape(cin, cout, pf) || tiles_per_block < 1) return cudaErrorInvalidValue;
   cudaError_t err;
-  if (dtype == kF32)
+  if (dtype == kF32)   // bfloat16's B2 is seld_conv3x3_train_gz + seld_conv3x3_train_dw_tc
     err = launch_dw<float>(x, w, sc, bi, ac, bc, g, part, batch, cin, f_dim, t_dim, cout, pf,
                            tiles_per_block, s);
-  else if (dtype == kBF16)
-    err = launch_dw<__nv_bfloat16>(x, w, sc, bi, ac, bc, g, part, batch, cin, f_dim, t_dim,
-                                   cout, pf, tiles_per_block, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = batch * (f_dim / pf) * n_split(t_dim, tiles_per_block);
   return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows,
                                         cout * (9 * staged_channels(cin) + 2), s));
+}
+
+// B2 in bfloat16, g_z + its reduction: gz (B, Cout, F, T) bf16 and sums
+// (2 * Cout,) = [S_g | sum g_pre * acc]. x, w, scale, bias, a, b, g as for
+// seld_conv3x3_train_dw; partials (B * F/pf * n_split, 2 * Cout).
+extern "C" int seld_conv3x3_train_gz(const void* x, const void* w, const void* scale,
+                                     const void* bias, const void* a, const void* b,
+                                     const void* g, void* gz, void* partials, void* sums,
+                                     int batch, int cin, int f_dim, int t_dim, int cout, int pf,
+                                     int tiles_per_block, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  if (dtype != kBF16 || bad_shape(cin, cout, pf) || f_dim % pf || tiles_per_block < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      pf <= kGzStageRows
+          ? launch_gz<true>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim, cout,
+                            pf, tiles_per_block, s)
+          : launch_gz<false>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim,
+                             cout, pf, tiles_per_block, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = batch * (f_dim / pf) * n_split(t_dim, tiles_per_block);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows, 2 * cout, s));
+}
+
+// B2 in bfloat16, dW + its reduction: sums (3, 3, Cin, Cout) float from x
+// (B, Cin, F, T) and gz (B, Cout, F, T) on the dW tile of conv3x3_dw_tc.cuh
+// with a 16-channel Cin tile; the depth split as seld_ct_train_dw's
+// (conv2d_train.dw_split); partials (that many shares, 9 * Cin * Cout).
+extern "C" int seld_conv3x3_train_dw_tc(const void* x, const void* gz, void* partials,
+                                        void* sums, int batch, int cin, int f_dim, int t_dim,
+                                        int cout, int rows_per_split, int frames_per_split,
+                                        int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto part = static_cast<float*>(partials);
+  if (dtype != kBF16 || cin < 1 || cin > kDwCiStage1 || cout < 1 || rows_per_split < 1 ||
+      frames_per_split < 1 || (frames_per_split < t_dim && frames_per_split % kDwT))
+    return cudaErrorInvalidValue;
+  const int splits = ceil_div(batch * f_dim, rows_per_split) * ceil_div(t_dim, frames_per_split);
+  constexpr size_t smem = dw_tc_smem<kDwCiStage1>();
+  cudaError_t err = set_smem(ct_dw_tc_kernel<kDwCiStage1>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, ceil_div(cout, kDwCo), 1);
+  ct_dw_tc_kernel<kDwCiStage1><<<grid, kDwThreads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(gz), part, batch, cin, f_dim, t_dim,
+      cout, rows_per_split, frames_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), splits,
+                                        9 * cin * cout, s));
 }

@@ -18,7 +18,8 @@
 // row at a time, Cin walked in chunks of 8 by conv_row_widecin): its staging
 // zero-fills the channels of a ragged last chunk, so the same kernel takes
 // any Cin, and this entry point launches it under K10b's own name and launch
-// count.
+// count. K5's bfloat16 forward (F2) launches it too, for Cin <= 10: its
+// rows are then those of K5's F1 and g_z passes (conv3x3_train.cu).
 
 extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* scale,
                                     const void* bias, void* out, int batch, int cin,

@@ -12,22 +12,43 @@
 // both diagonal halves, Q_e (idx + 4) in one corner and zero in the other
 // ((in >= 4, out < 4) zero for the conv table, (in < 4, out >= 4) for the
 // linear one). At the flagship cin_c = cout_c = 48, so every 64-wide tile
-// crosses block edges: the block is found per element, not per tile. The
-// assembled weight is never written to device memory.
+// crosses block edges: the block is found per element (per 8 columns in
+// bfloat16), not per tile. The assembled weight is never written to device
+// memory.
 //
 // Products are summed in float32 (no TF32: float32 stays full float32), the
-// bias (rounded to x's dtype by the wrapper) is added in float32, and the
-// result is rounded once to x's dtype.
+// bias (in x's dtype, or none) is added in float32, and the result is
+// rounded once to x's dtype.
 //
 // What bounds it on the H100: in float32, operations (2.8 GFLOP at
 // (9600, 384) x (384, 384) against 67 TFLOP/s outside the tensor cores); in
-// bfloat16, bytes (x and out, 14.7 MB at that shape). Design: one block per
-// (64-row, 64-column) output tile, 256 threads with a 4 x 4 tile each, K in
-// chunks of 32 staged through shared memory: the x chunk transposed, the
-// weight chunk assembled from the components as it is staged (each thread
-// stages one fixed column, so its Hamilton column block is found once).
-// SIMT FMA: tensor cores (mma.sync / wgmma) are a later step.
+// bfloat16, bytes (x and out, 14.7 MB at that shape, 4.4 us at 3.35 TB/s,
+// against 2.9 us of tensor-core work).
+//
+// float32, hamilton_matmul_kernel: one block per (64-row, 64-column) output
+// tile, 256 threads with a 4 x 4 tile each, K in chunks of 32 staged
+// through shared memory: the x chunk transposed, the weight chunk assembled
+// from the components as it is staged. SIMT FMA.
+//
+// bfloat16, hamilton_tc_kernel: mma.sync.m16n8k16 (bf16 operands, float
+// accumulators). One block per (128-row, 64-column) output tile, 4 warps
+// (2 along rows x 2 along columns), each a 64 x 32 tile of 4 x 4 m16n8
+// fragments; K in chunks of 32 through a two-stage shared-memory ring: the
+// next chunk loads while this one multiplies (kTcStages: a third stage
+// measured no faster at the flagship, a fourth slower, its shared memory
+// leaving too few blocks per SM). x comes by 16-byte cp.async
+// into [row][k] (80-byte rows: the 8 rows of an ldmatrix hit 32 banks) and
+// is read by plain ldmatrix as the A operand; a K that is not a multiple
+// of 8 leaves the rows unaligned, so x then takes 2-byte loads. The weight
+// chunk is assembled from comps into [k][n] (144-byte rows) and read by
+// ldmatrix.trans as the B operand: where cout_c % 8 == 0, 8 columns never
+// cross a Hamilton block, so each thread loads 8 components with one
+// 16-byte load, flips their sign bits (exact) or zeroes them, and holds
+// them in registers across the chunk's products; else element by element.
+// Past K and past M or N the tiles are zero-filled, so any M, cin_c and
+// cout_c work (a K % 16 != 0 ends in a zero-filled k16 step).
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -36,15 +57,39 @@ constexpr int kBN = 64;   // columns per block
 constexpr int kBK = 32;   // k per shared-memory chunk
 constexpr int kThreads = 256;
 
+constexpr int kTcBM = 128;            // bf16: rows per block
+constexpr int kTcBN = 64;             // columns per block
+constexpr int kTcBK = 32;             // k per chunk: two k16 steps
+constexpr int kTcThreads = 128;       // 4 warps: 2 (rows) x 2 (columns)
+constexpr int kTcXP = kTcBK + 8;      // padded x row: 40 bf16, 80 bytes
+constexpr int kTcWP = kTcBN + 8;      // padded weight row: 72 bf16, 144 bytes
+constexpr int kTcWVecs = kTcBK * kTcBN / 8 / kTcThreads;   // 8-column groups per thread
+constexpr int kTcStages = 2;          // chunks in the ring: the next loads while one multiplies
+constexpr int kTcStage = kTcBM * kTcXP + kTcBK * kTcWP;   // one chunk's x and weight (bf16)
+constexpr size_t kTcSmem = sizeof(bf16) * kTcStages * kTcStage;
+
 // seld_tpu/ops/hamilton.py::Q_TABLE: T[i][j] = (component, sign)
 __constant__ signed char kIdx[4][4] = {{0, 1, 2, 3}, {1, 0, 3, 2}, {2, 3, 0, 1}, {3, 2, 1, 0}};
 __constant__ signed char kSgn[4][4] = {
     {1, -1, -1, -1}, {1, 1, -1, 1}, {1, 1, 1, -1}, {1, -1, 1, 1}};
 
+// The component of Hamilton block (a, b) (input block a, output block b) and
+// its sign; -1 for the dual-quaternion zero corner.
+static __device__ __forceinline__ int hamilton_block(int a, int b, int linear_table, int& sgn) {
+  const int qa = a & 3, da = a >> 2, qb = b & 3, db = b >> 2;
+  int idx = linear_table ? kIdx[qa][qb] : kIdx[qb][qa];
+  sgn = linear_table ? kSgn[qa][qb] : kSgn[qb][qa];
+  if (da != db) {   // n = 8: the off-diagonal dual blocks
+    if (linear_table ? da == 0 : da == 1) return -1;
+    idx += 4;
+  }
+  return idx;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 hamilton_matmul_kernel(const T* __restrict__ x, const T* __restrict__ comps,
-                       const float* __restrict__ bias, T* __restrict__ out, int m,
+                       const T* __restrict__ bias, T* __restrict__ out, int m,
                        int n_comp, int cin_c, int cout_c, int linear_table) {
   __shared__ float as[kBK][kBM + 1];   // x chunk, transposed: as[k][row]
   __shared__ float bs[kBK][kBN];       // assembled weight chunk
@@ -62,7 +107,6 @@ hamilton_matmul_kernel(const T* __restrict__ x, const T* __restrict__ comps,
   const bool col_ok = col < cout;
   const int b = col_ok ? col / cout_c : 0;
   const int cc = col - b * cout_c;
-  const int qb = b & 3, db = b >> 2;
 
   float acc[4][4];
 #pragma unroll
@@ -81,17 +125,10 @@ hamilton_matmul_kernel(const T* __restrict__ x, const T* __restrict__ comps,
       float v = 0.f;
       if (col_ok && r < cin) {
         const int a = r / cin_c;
-        const int rr = r - a * cin_c;
-        const int qa = a & 3, da = a >> 2;
-        int idx = linear_table ? kIdx[qa][qb] : kIdx[qb][qa];
-        const int sgn = linear_table ? kSgn[qa][qb] : kSgn[qb][qa];
-        bool zero = false;
-        if (da != db) {   // n = 8: the off-diagonal dual blocks
-          zero = linear_table ? (da == 0) : (da == 1);
-          idx += 4;
-        }
-        if (!zero) {
-          v = to_f(comps[(static_cast<size_t>(idx) * cin_c + rr) * cout_c + cc]);
+        int sgn;
+        const int idx = hamilton_block(a, b, linear_table, sgn);
+        if (idx >= 0) {
+          v = to_f(comps[(static_cast<size_t>(idx) * cin_c + r - a * cin_c) * cout_c + cc]);
           v = sgn < 0 ? -v : v;
         }
       }
@@ -117,7 +154,7 @@ hamilton_matmul_kernel(const T* __restrict__ x, const T* __restrict__ comps,
   for (int j = 0; j < 4; ++j) {
     const int c = n0 + tx + 16 * j;
     if (c >= cout) continue;
-    const float bc = bias[c];
+    const float bc = bias ? to_f(bias[c]) : 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = m0 + ty + 16 * i;
@@ -126,33 +163,233 @@ hamilton_matmul_kernel(const T* __restrict__ x, const T* __restrict__ comps,
   }
 }
 
+// ---- bfloat16 on the tensor cores ------------------------------------------
+
+// Stage the x chunk [m0, m0 + 128) x [k0, k0 + 32) into xs [128][kTcXP]:
+// 16-byte cp.async copies where rows are 16-byte aligned (zero-filled past M
+// and K), else 2-byte loads.
+static __device__ __forceinline__ void hm_stage_x(bf16* __restrict__ xs,
+                                                  const bf16* __restrict__ x, int m0, int k0,
+                                                  int m, int k_dim, bool xvec) {
+  if (xvec) {
+    for (int e = threadIdx.x; e < kTcBM * kTcBK / 8; e += kTcThreads) {
+      const int r = e / (kTcBK / 8), u = e % (kTcBK / 8);
+      const int row = m0 + r, k = k0 + 8 * u;
+      const bool ok = row < m && k < k_dim;
+      cp_async16(xs + r * kTcXP + 8 * u, ok ? x + static_cast<size_t>(row) * k_dim + k : x,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTcBM * kTcBK; e += kTcThreads) {
+      const int r = e / kTcBK, kk = e % kTcBK;
+      const int row = m0 + r, k = k0 + kk;
+      xs[r * kTcXP + kk] = row < m && k < k_dim ? x[static_cast<size_t>(row) * k_dim + k]
+                                                : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The weight chunk [k0, k0 + 32) x [n0, n0 + 64) in registers, 8 columns per
+// 16-byte item (cout_c % 8 == 0: the 8 columns lie in one Hamilton block):
+// the components with their sign bits flipped, zero in the DQ zero corner
+// and past K and N.
+static __device__ __forceinline__ void hm_load_w(uint4 (&wr)[kTcWVecs],
+                                                 const bf16* __restrict__ comps, int k0, int n0,
+                                                 int k_dim, int n_dim, int cin_c, int cout_c,
+                                                 int linear_table) {
+#pragma unroll
+  for (int j = 0; j < kTcWVecs; ++j) {
+    const int e = threadIdx.x + j * kTcThreads;
+    const int r = k0 + e / (kTcBN / 8), c = n0 + 8 * (e % (kTcBN / 8));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < k_dim && c < n_dim) {
+      const int a = r / cin_c, b = c / cout_c;
+      int sgn;
+      const int idx = hamilton_block(a, b, linear_table, sgn);
+      if (idx >= 0) {
+        v = __ldg(reinterpret_cast<const uint4*>(
+            comps + (static_cast<size_t>(idx) * cin_c + r - a * cin_c) * cout_c + c - b * cout_c));
+        if (sgn < 0) {
+          v.x ^= 0x80008000u;
+          v.y ^= 0x80008000u;
+          v.z ^= 0x80008000u;
+          v.w ^= 0x80008000u;
+        }
+      }
+    }
+    wr[j] = v;
+  }
+}
+
+static __device__ __forceinline__ void hm_store_w(bf16* __restrict__ ws,
+                                                  const uint4 (&wr)[kTcWVecs]) {
+#pragma unroll
+  for (int j = 0; j < kTcWVecs; ++j) {
+    const int e = threadIdx.x + j * kTcThreads;
+    *reinterpret_cast<uint4*>(ws + (e / (kTcBN / 8)) * kTcWP + 8 * (e % (kTcBN / 8))) = wr[j];
+  }
+}
+
+// The same chunk element by element (any cout_c), stored straight to ws.
+static __device__ __forceinline__ void hm_stage_w_scalar(bf16* __restrict__ ws,
+                                                         const bf16* __restrict__ comps, int k0,
+                                                         int n0, int k_dim, int n_dim, int cin_c,
+                                                         int cout_c, int linear_table) {
+  for (int e = threadIdx.x; e < kTcBK * kTcBN; e += kTcThreads) {
+    const int kk = e / kTcBN, nn = e % kTcBN;
+    const int r = k0 + kk, c = n0 + nn;
+    bf16 v = __float2bfloat16(0.f);
+    if (r < k_dim && c < n_dim) {
+      const int a = r / cin_c, b = c / cout_c;
+      int sgn;
+      const int idx = hamilton_block(a, b, linear_table, sgn);
+      if (idx >= 0) {
+        v = comps[(static_cast<size_t>(idx) * cin_c + r - a * cin_c) * cout_c + c - b * cout_c];
+        if (sgn < 0) v = __hneg(v);
+      }
+    }
+    ws[kk * kTcWP + nn] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 4)
+hamilton_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ comps,
+                   const bf16* __restrict__ bias, bf16* __restrict__ out, int m, int n_comp,
+                   int cin_c, int cout_c, int linear_table) {
+  extern __shared__ __align__(16) unsigned char hm_smem[];   // kTcStages x (x, weight) chunks
+  const auto xs = [&](int c) {
+    return reinterpret_cast<bf16*>(hm_smem) + (c % kTcStages) * kTcStage;
+  };
+  const auto ws = [&](int c) { return xs(c) + kTcBM * kTcXP; };
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warp_m = warp / 2, warp_n = warp % 2;
+  const int m0 = blockIdx.x * kTcBM, n0 = blockIdx.y * kTcBN;
+  const int k_dim = n_comp * cin_c, n_dim = n_comp * cout_c;
+  const int steps = ceil_div(k_dim, kTcBK);
+  const bool xvec = k_dim % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool wvec = cout_c % 8 == 0 && reinterpret_cast<uintptr_t>(comps) % 16 == 0;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // chunk c: x by cp.async (one commit group per chunk, empty past the last),
+  // the weight into registers (wvec, stored after the products) or straight
+  // to shared memory
+  uint4 wr[kTcWVecs];
+  const auto load_chunk = [&](int c) {
+    if (c < steps) {
+      hm_stage_x(xs(c), x, m0, c * kTcBK, m, k_dim, xvec);
+      if (wvec)
+        hm_load_w(wr, comps, c * kTcBK, n0, k_dim, n_dim, cin_c, cout_c, linear_table);
+      else
+        hm_stage_w_scalar(ws(c), comps, c * kTcBK, n0, k_dim, n_dim, cin_c, cout_c,
+                          linear_table);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < kTcStages - 1; ++c) {
+    load_chunk(c);
+    if (wvec && c < steps) hm_store_w(ws(c), wr);
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_group<kTcStages - 2>();   // chunk s has landed (this thread's copies)
+    __syncthreads();   // ... everyone's; chunk s - 1's readers are done with its buffer
+    const int c = s + kTcStages - 1;   // into chunk s - 1's buffer
+    load_chunk(c);
+#pragma unroll
+    for (int ks = 0; ks < kTcBK / 16; ++ks) {
+      uint32_t a[4][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)   // (m 0-7 | 8-15) x (k 0-7 | 8-15) by lane / 8
+        ldsm_x4(xs(s) + (warp_m * 64 + mi * 16 + lane % 16) * kTcXP + ks * 16 + (lane / 16) * 8,
+                a[mi]);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {   // (k 0-7 | 8-15) x (n 0-7 | 8-15), transposed
+        uint32_t t4[4];
+        ldsm_x4_t(ws(s) + (ks * 16 + lane % 16) * kTcWP + warp_n * 32 + nj * 16 + (lane / 16) * 8,
+                  t4);
+        b[2 * nj][0] = t4[0];
+        b[2 * nj][1] = t4[1];
+        b[2 * nj + 1][0] = t4[2];
+        b[2 * nj + 1][1] = t4[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    }
+    if (wvec && c < steps) hm_store_w(ws(c), wr);
+  }
+
+  const bool pairs = n_dim % 2 == 0;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + warp_m * 64 + mi * 16 + lane / 4 + 8 * hh;
+      if (row >= m) continue;
+      bf16* orow = out + static_cast<size_t>(row) * n_dim;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int c = n0 + warp_n * 32 + ni * 8 + 2 * (lane % 4);
+        const float b0 = bias && c < n_dim ? to_f(bias[c]) : 0.f;
+        const float b1 = bias && c + 1 < n_dim ? to_f(bias[c + 1]) : 0.f;
+        const float v0 = acc[mi][ni][2 * hh] + b0, v1 = acc[mi][ni][2 * hh + 1] + b1;
+        if (pairs && c + 1 < n_dim) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < n_dim) orow[c] = __float2bfloat16(v0);
+          if (c + 1 < n_dim) orow[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* comps, const float* bias, void* out, int m,
+cudaError_t launch(const void* x, const void* comps, const void* bias, void* out, int m,
                    int n_comp, int cin_c, int cout_c, int linear_table, cudaStream_t stream) {
-  dim3 grid(ceil_div(m, kBM), ceil_div(n_comp * cout_c, kBN));
-  hamilton_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(comps), bias, static_cast<T*>(out), m,
-      n_comp, cin_c, cout_c, linear_table);
+  if constexpr (sizeof(T) == 2) {
+    const cudaError_t err = set_smem(hamilton_tc_kernel, kTcSmem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(ceil_div(m, kTcBM), ceil_div(n_comp * cout_c, kTcBN));
+    hamilton_tc_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(comps),
+        static_cast<const bf16*>(bias),
+        static_cast<bf16*>(out), m, n_comp, cin_c, cout_c, linear_table);
+  } else {
+    dim3 grid(ceil_div(m, kBM), ceil_div(n_comp * cout_c, kBN));
+    hamilton_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(comps), static_cast<const T*>(bias),
+        static_cast<T*>(out), m, n_comp, cin_c, cout_c, linear_table);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (m, n*cin_c) and comps (n, cin_c, cout_c) in dtype; bias (n*cout_c,)
-// float; out (m, n*cout_c) in dtype; linear_table 0 (conv table) or 1.
+// x (m, n*cin_c), comps (n, cin_c, cout_c) and bias (n*cout_c,) in dtype
+// (bias null: none); out (m, n*cout_c) in dtype; linear_table 0 (conv
+// table) or 1.
+// float32 runs the SIMT kernel, bfloat16 the tensor-core one.
 extern "C" int seld_hamilton_matmul(const void* x, const void* comps, const void* bias,
                                     void* out, int m, int n_comp, int cin_c, int cout_c,
                                     int linear_table, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto b = static_cast<const float*>(bias);
   cudaError_t err;
   if (m <= 0 || (n_comp != 4 && n_comp != 8) || cin_c <= 0 || cout_c <= 0 ||
       ceil_div(n_comp * cout_c, kBN) > 65535)
     err = cudaErrorInvalidValue;
   else if (dtype == kF32)
-    err = launch<float>(x, comps, b, out, m, n_comp, cin_c, cout_c, linear_table, s);
+    err = launch<float>(x, comps, bias, out, m, n_comp, cin_c, cout_c, linear_table, s);
   else if (dtype == kBF16)
-    err = launch<__nv_bfloat16>(x, comps, b, out, m, n_comp, cin_c, cout_c, linear_table, s);
+    err = launch<__nv_bfloat16>(x, comps, bias, out, m, n_comp, cin_c, cout_c, linear_table,
+                                s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

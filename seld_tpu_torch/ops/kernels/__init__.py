@@ -23,6 +23,7 @@ launch_counts = {
     "flash_attn_bwd": 0,
     "conv_train_stats": 0,
     "conv_train_sel_stats": 0,
+    "conv_train_gz": 0,
     "conv_train_dw": 0,
     "ct_train_stats": 0,
     "ct_train_sel_stats": 0,

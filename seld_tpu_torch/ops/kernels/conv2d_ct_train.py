@@ -45,11 +45,9 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import BLOCK_T, conv2d_widecin_bn_relu_fpool
-from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
+from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_plain, dw_split
 
 CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
-DW_SPLITS = 64       # the dW pass shares its depth (B * F rows x T frames) among ~this many
-DW_FRAME_STEP = 64   # frames per depth step of the bf16 dW tile (kDwT): a frame share's unit
 GRID_MAX = 65535     # the grid's y and z range
 
 
@@ -203,33 +201,6 @@ def ct_gz(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor, pool_f: int) -
 
 # ---- B2: dW; B3: dh ------------------------------------------------------------
 
-def ct_dw_plain(h, gz) -> torch.Tensor:
-    """(3, 3, C, Cout) = sum over (b, f, t) of gz * the shifted h, in float."""
-    cdt = _acc_dtype(h)
-    dw = torch.nn.grad.conv2d_weight(h.to(cdt), (gz.shape[1], h.shape[1], 3, 3),
-                                     gz.to(cdt), padding=1)
-    return dw.permute(2, 3, 1, 0)
-
-
-def dw_split(b: int, f: int, t: int) -> tuple[int, int, int]:
-    """(rows_per_split, frames_per_split, splits) of the dW pass: the B * F
-    rows shared among at most DW_SPLITS blocks, and where there are fewer
-    rows than that (stage 3: 8 at batch 2), each row's frames split in
-    multiples of DW_FRAME_STEP until about DW_SPLITS shares. ``splits`` is
-    the kernels' grid.x and the partials' row count; block x takes rows
-    share x // frame_splits and frames share x % frame_splits, frame_splits
-    = ceil(T / frames_per_split)."""
-    rows = b * f
-    if rows >= DW_SPLITS:
-        rows_per_split, frames_per_split = -(-rows // DW_SPLITS), t
-    else:
-        parts = min(-(-DW_SPLITS // rows), -(-t // DW_FRAME_STEP))
-        steps = -(-t // (parts * DW_FRAME_STEP))   # ceil(ceil(t / parts) / step)
-        rows_per_split, frames_per_split = 1, steps * DW_FRAME_STEP
-    return (rows_per_split, frames_per_split,
-            -(-rows // rows_per_split) * -(-t // frames_per_split))
-
-
 def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     """h (B, C, F, T), gz (B, Cout, F, T) of one dtype -> dW (3, 3, C, Cout)
     float32."""
@@ -239,7 +210,7 @@ def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     if h.shape[1] % CIN_CHUNK:
         raise ValueError(f"stages 2-3 take C % {CIN_CHUNK} == 0, got C={h.shape[1]}")
     if not on_cuda(h, gz):
-        return ct_dw_plain(h, gz)
+        return dw_plain(h, gz)
     code, lib = _launch_prelude(h, gz, "ct_dw")
     b, c, f, t = h.shape
     cout = gz.shape[1]

@@ -11,28 +11,32 @@ stage's input is data, and the cotangents of mean and var (which feed the
 running statistics) are ignored. The max-pool routes its gradient to the
 first row holding the max.
 
-Five passes. F1, B1 and B2 are wrappers here that launch their kernels
-(``csrc/conv3x3_train.cu``) for CUDA tensors and run their plain versions
-for CPU tensors; F2 is the serving stage-1 kernel itself:
+The passes, each a wrapper that launches its kernel (``csrc/conv3x3_train.cu``)
+for CUDA tensors and runs its plain version for CPU tensors. Which kernels
+run depends on the dtype alone (:func:`tensor_core_path`):
 
 - F1 :func:`conv_train_stats` — per-channel sum and sum of squares of the conv;
 - (torch) mean, var, the BN affine;
-- F2 — conv + affine + ReLU + frequency max-pool: on CUDA tensors
-  ``conv2d_pool.conv2d_smallcin_bn_relu_fpool`` (K2's
-  ``seld_conv3x3_smallcin``, its launches counted under that name) fed the
-  batch-statistics affine, on CPU tensors :func:`conv_train_fwd_plain`;
+- F2 — conv + affine + ReLU + frequency max-pool, fed the batch-statistics
+  affine: in float32 K2's ``seld_conv3x3_smallcin``
+  (``conv2d_pool.conv2d_smallcin_bn_relu_fpool``, counted under that name),
+  in bfloat16 K3's tensor-core tile through K10b's entry
+  (``conv2d_pool.conv2d_windows_bn_relu_fpool``, counted as
+  ``conv3x3_windows``); on CPU tensors :func:`conv_train_fwd_plain`;
 - B1 :func:`sel_stats` — S_g, S_gx from (out, cotangent) where out > 0;
-- B2 :func:`conv_train_dw` — dW, and the exact routed S_g and sum g * acc
-  that give dgamma and dbeta.
+- B2 — dW, and the exact routed S_g and sum g * acc that give dgamma and
+  dbeta: in float32 one SIMT pass, :func:`conv_train_dw`; in bfloat16 two,
+  as K9's: :func:`conv_train_gz` (g_z written once, on the conv tile) and
+  :func:`conv_train_dw_gz` (the dW tile, a GEMM over the frames).
 
-The kernels stage all Cin channels of a tile at once, 8 for Cin <= 8 and 16
-for Cin 9-10 (:func:`staged_channels`), so F1, F2 and B2 run one conv row
-and one summation order: B2's routing recomputes F2's pooled rows bit for
-bit. (The reference runs Cin 9-10 through its wide pack, whose forward and
-backward likewise share one packed row; F2 on K2w's kernel would sum in
-another order than B2's recompute.) The kernels work in (B, C, F, T): the
-public function takes and returns the JAX package's channel-last layout as
-permuted views of it.
+One conv row function per dtype serves F1, F2 and B2's recompute, so B2's
+routing recomputes F2's pooled rows bit for bit: in float32 the SIMT rows
+stage all Cin channels of a tile at once, 8 for Cin <= 8 and 16 for Cin
+9-10 (:func:`staged_channels`); in bfloat16 the tensor-core tile takes Cin
+<= 16 as one zero-filled 16-channel chunk. (The reference runs Cin 9-10
+through its wide pack, whose forward and backward likewise share one packed
+row.) The kernels work in (B, C, F, T): the public function takes and
+returns the JAX package's channel-last layout as permuted views of it.
 """
 
 from __future__ import annotations
@@ -45,12 +49,16 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
-    BLOCK_CO, BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, halo_max_pool_f,
-    staged_channels,
+    BLOCK_CO, BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    halo_max_pool_f, staged_channels,
 )
 
 TILES_PER_BLOCK = 4     # frame tiles one block walks (sizes the partial-sum rows)
 MAX_CIN = 10            # the reference's wide-pack range, 3 * Cin <= 32
+DW_SPLITS = 64          # the dW tile shares its depth (B * F rows x T frames) among ~this many
+DW_SPLITS_STAGE1 = 512  # K5's: one Cin tile per block, so more depth shares fill the card
+DW_FRAME_STEP = 64      # frames per depth step of the bf16 dW tile (kDwT): a frame share's unit
+DW_MAX_CIN = 16         # K5's dW tile: one 16-channel Cin tile (kDwCiStage1)
 
 
 def kdim(cin: int) -> int:
@@ -60,14 +68,23 @@ def kdim(cin: int) -> int:
 
 
 def max_pool_f(cin: int) -> int:
-    """The largest pool_f K5 takes at this Cin: B2 keeps the pool_f + 2 halo
-    rows, the weights and a g_z tile in one block's shared memory (41 rows
-    for Cin <= 8, 17 for Cin 9-10)."""
+    """The largest pool_f K5 takes at this Cin, in both dtypes: float32's B2
+    keeps the pool_f + 2 halo rows, the weights and a g_z tile in one
+    block's shared memory (41 rows for Cin <= 8, 17 for Cin 9-10); the
+    bfloat16 tiles walk the rows one at a time and take any of these."""
     return halo_max_pool_f(cin, 4 * BLOCK_CO * (BLOCK_T + 1))
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def tensor_core_path(x: torch.Tensor) -> bool:
+    """True where K5 runs its bfloat16 passes (F1 and g_z on the tensor-core
+    conv tile, F2 on K3's tile through K10b's entry, dW on the dW tile; on
+    CPU tensors their plain versions), False where it runs the SIMT passes
+    (float32, TF32 off; float64 on the CPU takes their plain versions)."""
+    return x.dtype == torch.bfloat16
 
 
 def _check(x, w, pool_f) -> None:
@@ -191,13 +208,11 @@ def sel_stats(out: torch.Tensor, g: torch.Tensor, p: torch.Tensor,
 
 # ---- B2: dW and the exact routed sums ---------------------------------------
 
-def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
-    """(Cout * (K + 2),) = [dW (Cout, 9 taps, CC ci) | S_g | sum g_pre * acc]
-    with CC = :func:`staged_channels` and K = 9 * CC (74 or 146 per channel).
-
-    g_pre is the pooled cotangent g routed to the first row holding each
-    window's max where that max is > 0; g_z = g_pre * scale - acc * a - b,
-    rounded to x's dtype, is the dW product's operand."""
+def _route_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
+    """(g_z (B, Cout, F, T) rounded to x's dtype and held in the float type,
+    S_g, sum g_pre * acc): g_pre is the pooled cotangent g routed to the
+    first row holding each window's max where that max is > 0; g_z = g_pre *
+    scale - acc * a - b, the dW product's operand."""
     cdt = _acc_dtype(x)
     acc = _conv_plain(x, w)                                       # (B, C, F, T)
     bsz, cout, f, t = acc.shape
@@ -207,30 +222,62 @@ def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor
     gsel = torch.where(m > 0, g.to(cdt), torch.zeros((), dtype=cdt, device=g.device))
     g_pre = torch.zeros_like(y).scatter_(3, idx.unsqueeze(3), gsel.unsqueeze(3))
     g_pre = g_pre.view(bsz, cout, f, t)
-    sg = g_pre.sum((0, 2, 3))
-    sga = (g_pre * acc).sum((0, 2, 3))
     g_z = (g_pre * col(scale) - acc * col(a) - col(b)).to(x.dtype).to(cdt)
-    dw = torch.nn.grad.conv2d_weight(x.to(cdt), (cout, x.shape[1], 3, 3), g_z, padding=1)
+    return g_z, g_pre.sum((0, 2, 3)), (g_pre * acc).sum((0, 2, 3))
+
+
+def dw_plain(x, gz) -> torch.Tensor:
+    """(3, 3, Cin, Cout) = sum over (b, f, t) of gz * the shifted x, in
+    float: the weight gradient of a zero-padded 3x3 conv (the dW tile's
+    function, for K5 and K9)."""
+    cdt = _acc_dtype(x)
+    dw = torch.nn.grad.conv2d_weight(x.to(cdt), (gz.shape[1], x.shape[1], 3, 3),
+                                     gz.to(cdt), padding=1)
+    return dw.permute(2, 3, 1, 0)
+
+
+def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
+    """(Cout * (K + 2),) = [dW (Cout, 9 taps, CC ci) | S_g | sum g_pre * acc]
+    with CC = :func:`staged_channels` and K = 9 * CC (74 or 146 per channel):
+    float32's fused B2 (see :func:`_route_gz_plain`)."""
+    g_z, sg, sga = _route_gz_plain(x, w, g, scale, bias, a, b, pool_f)
     cin = x.shape[1]
-    dw = F.pad(dw.permute(0, 2, 3, 1), (0, staged_channels(cin) - cin))  # (Cout, 3, 3, CC)
+    dw = dw_plain(x, g_z).permute(3, 0, 1, 2)                      # (Cout, 3, 3, Cin)
+    dw = F.pad(dw, (0, staged_channels(cin) - cin))               # (Cout, 3, 3, CC)
     return torch.cat([dw.reshape(-1), sg, sga])
 
 
-def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
-    """x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf, T) in x's
-    dtype, per-channel scale, bias, a, b -> (Cout * (kdim(Cin) + 2),) float32
-    sums."""
+def _check_g(x, w, g, pool_f) -> None:
     _check(x, w, pool_f)
-    bsz, cin, f, t = x.shape
-    cout = w.shape[3]
-    if tuple(g.shape) != (bsz, cout, f // pool_f, t):
-        raise ValueError(f"g must be {(bsz, cout, f // pool_f, t)}, got {tuple(g.shape)}")
-    if not on_cuda(x, w, g, scale, bias, a, b):
-        return conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f)
-    code, lib = _launch_prelude(x, w, "conv_train_dw")
+    bsz, _, f, t = x.shape
+    want = (bsz, w.shape[3], f // pool_f, t)
+    if tuple(g.shape) != want:
+        raise ValueError(f"g must be {want}, got {tuple(g.shape)}")
+
+
+def _b2_prelude(x, w, g, name, bf16: bool):
+    """Check a B2 launch's operands; the float32 pass and the bfloat16 pair
+    each take their own dtype only."""
+    if tensor_core_path(x) != bf16:
+        want = "bfloat16" if bf16 else "float32 (bfloat16 takes conv_train_gz)"
+        raise TypeError(f"{name} takes {want}, got {x.dtype}")
+    code, lib = _launch_prelude(x, w, name)
     require_contiguous(g=g)
     if g.dtype != x.dtype:
         raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
+    return code, lib
+
+
+def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
+    """float32's B2: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf,
+    T) in x's dtype, per-channel scale, bias, a, b -> (Cout * (kdim(Cin) +
+    2),) float32 sums (:func:`conv_train_dw_plain`'s layout)."""
+    _check_g(x, w, g, pool_f)
+    bsz, cin, f, t = x.shape
+    cout = w.shape[3]
+    if not on_cuda(x, w, g, scale, bias, a, b):
+        return conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f)
+    code, lib = _b2_prelude(x, w, g, "conv_train_dw", bf16=False)
     width = cout * (kdim(cin) + 2)
     partials = torch.empty((_grid_rows(x, pool_f), width), dtype=torch.float32,
                            device=x.device)
@@ -243,6 +290,88 @@ def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
     _build.check(err, "seld_conv3x3_train_dw")
     launch_counts["conv_train_dw"] += 1
     return sums
+
+
+def conv_train_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
+    """(g_z (B, Cout, F, T) in x's dtype, (2 * Cout,) = [S_g | sum g_pre *
+    acc]): :func:`_route_gz_plain`'s routing and g_z, the first half of
+    bfloat16's B2."""
+    g_z, sg, sga = _route_gz_plain(x, w, g, scale, bias, a, b, pool_f)
+    return g_z.to(x.dtype), torch.cat([sg, sga])
+
+
+def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
+    """bfloat16's B2, g_z: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout,
+    F/pf, T) in bfloat16, per-channel scale, bias, a, b -> (g_z (B, Cout, F,
+    T) bf16, (2 * Cout,) float32 routed sums). CUDA tensors launch
+    ``seld_conv3x3_train_gz``; CPU tensors take :func:`conv_train_gz_plain`."""
+    _check_g(x, w, g, pool_f)
+    bsz, cin, f, t = x.shape
+    cout = w.shape[3]
+    if not on_cuda(x, w, g, scale, bias, a, b):
+        return conv_train_gz_plain(x, w, g, scale, bias, a, b, pool_f)
+    code, lib = _b2_prelude(x, w, g, "conv_train_gz", bf16=True)
+    gz = torch.empty((bsz, cout, f, t), dtype=x.dtype, device=x.device)
+    partials = torch.empty((_grid_rows(x, pool_f), 2 * cout), dtype=torch.float32,
+                           device=x.device)
+    sums = torch.empty(2 * cout, dtype=torch.float32, device=x.device)
+    cols = [_col(v) for v in (scale, bias, a, b)]
+    err = lib.seld_conv3x3_train_gz(
+        x.data_ptr(), w.data_ptr(), *[c.data_ptr() for c in cols], g.data_ptr(), gz.data_ptr(),
+        partials.data_ptr(), sums.data_ptr(), bsz, cin, f, t, cout, pool_f, TILES_PER_BLOCK,
+        code, stream_handle(x.device))
+    _build.check(err, "seld_conv3x3_train_gz")
+    launch_counts["conv_train_gz"] += 1
+    return gz, sums
+
+
+def dw_split(b: int, f: int, t: int, target: int = DW_SPLITS) -> tuple[int, int, int]:
+    """(rows_per_split, frames_per_split, splits) of the bf16 dW tile: the B *
+    F rows shared among at most ``target`` blocks, and where there are fewer
+    rows than that (K9's stage 3: 8 at batch 2), each row's frames split in
+    multiples of DW_FRAME_STEP until about ``target`` shares. ``splits`` is
+    the kernels' grid.x and the partials' row count; block x takes rows
+    share x // frame_splits and frames share x % frame_splits, frame_splits
+    = ceil(T / frames_per_split)."""
+    rows = b * f
+    if rows >= target:
+        rows_per_split, frames_per_split = -(-rows // target), t
+    else:
+        parts = min(-(-target // rows), -(-t // DW_FRAME_STEP))
+        steps = -(-t // (parts * DW_FRAME_STEP))   # ceil(ceil(t / parts) / step)
+        rows_per_split, frames_per_split = 1, steps * DW_FRAME_STEP
+    return (rows_per_split, frames_per_split,
+            -(-rows // rows_per_split) * -(-t // frames_per_split))
+
+
+def conv_train_dw_gz(x: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
+    """bfloat16's B2, dW: x (B, Cin, F, T) with Cin <= 16 and gz (B, Cout, F,
+    T) from :func:`conv_train_gz` -> dW (3, 3, Cin, Cout) float32. CUDA
+    tensors launch ``seld_conv3x3_train_dw_tc`` (the dW tile with a
+    16-channel Cin tile, depth shared by :func:`dw_split` among about
+    DW_SPLITS_STAGE1 blocks); CPU tensors take :func:`dw_plain`."""
+    if x.ndim != 4 or gz.ndim != 4 or x.shape[0] != gz.shape[0] or x.shape[2:] != gz.shape[2:]:
+        raise ValueError(f"x {tuple(x.shape)} and gz {tuple(gz.shape)} must be (B, *, F, T) "
+                         "of one B, F and T")
+    if not 1 <= x.shape[1] <= DW_MAX_CIN:
+        raise ValueError(f"K5's dW tile takes Cin <= {DW_MAX_CIN}, got {x.shape[1]}")
+    if not on_cuda(x, gz):
+        return dw_plain(x, gz)
+    require_contiguous(x=x, gz=gz)
+    if not x.dtype == gz.dtype == torch.bfloat16:
+        raise TypeError(f"conv_train_dw_gz takes bfloat16 x and gz, got {x.dtype} and {gz.dtype}")
+    code, lib = dtype_code(x), _build.load()
+    b, cin, f, t = x.shape
+    cout = gz.shape[1]
+    rows_per_split, frames_per_split, splits = dw_split(b, f, t, DW_SPLITS_STAGE1)
+    partials = torch.empty((splits, 9 * cin * cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    err = lib.seld_conv3x3_train_dw_tc(
+        x.data_ptr(), gz.data_ptr(), partials.data_ptr(), dw.data_ptr(), b, cin, f, t, cout,
+        rows_per_split, frames_per_split, code, stream_handle(x.device))
+    _build.check(err, "seld_conv3x3_train_dw_tc")
+    launch_counts["conv_train_dw"] += 1
+    return dw
 
 
 # ---- the op -----------------------------------------------------------------
@@ -275,8 +404,10 @@ class _ConvTrainFn(torch.autograd.Function):
         inv = torch.rsqrt(var + eps)
         scale = gamma.to(inv.dtype) * inv
         bias = beta.to(inv.dtype) - mean * scale
-        if on_cuda(x, w):   # F2: K2's smallcin kernel fed the batch-statistics affine
-            out = conv2d_smallcin_bn_relu_fpool(x, w, _col(scale), _col(bias), pool_f)
+        if on_cuda(x, w):   # F2, fed the batch-statistics affine
+            f2 = (conv2d_windows_bn_relu_fpool if tensor_core_path(x)
+                  else conv2d_smallcin_bn_relu_fpool)
+            out = f2(x, w, _col(scale), _col(bias), pool_f)
         else:
             out = conv_train_fwd_plain(x, w, scale, bias, pool_f)
         ctx.save_for_backward(x, w, out, mean, inv, scale, bias)
@@ -302,10 +433,16 @@ class _ConvTrainFn(torch.autograd.Function):
         a = inv * scale * c2
         b = scale * c1 - mean * a
         # B2: dW and the exact routed sums (dgamma, dbeta come from these)
-        sums = conv_train_dw(x, w, g, scale, bias, a, b, ctx.pool_f)
-        kd = kdim(cin)
-        dw = sums[:cout * kd].view(cout, 3, 3, kd // 9)[..., :cin].permute(1, 2, 3, 0)
-        sg, sga = sums[cout * kd:cout * (kd + 1)], sums[cout * (kd + 1):]
+        if tensor_core_path(x):
+            gz, sums = conv_train_gz(x, w, g, scale, bias, a, b, ctx.pool_f)
+            dw = conv_train_dw_gz(x, gz)
+            del gz
+            sg, sga = sums[:cout], sums[cout:]
+        else:
+            sums = conv_train_dw(x, w, g, scale, bias, a, b, ctx.pool_f)
+            kd = kdim(cin)
+            dw = sums[:cout * kd].view(cout, 3, 3, kd // 9)[..., :cin].permute(1, 2, 3, 0)
+            sg, sga = sums[cout * kd:cout * (kd + 1)], sums[cout * (kd + 1):]
         dgamma = inv * (sga - mean * sg)
         g_dt, b_dt = ctx.param_dtypes
         return None, dw.to(w.dtype).contiguous(), dgamma.to(g_dt), sg.to(b_dt), None, None

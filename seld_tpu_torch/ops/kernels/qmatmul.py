@@ -15,7 +15,10 @@ as the JAX ``custom_vjp``: dx is K7 again on the cotangent with the
 components' axes 1 and 2 swapped and the other table (the Hamilton
 conjugate), dcomps the signed block sums of x^T g (:func:`structured_dw`,
 x^T g a plain float32 matmul, as XLA computes it outside the JAX kernel), db
-the row sum of g. The kernel is ``csrc/hamilton_matmul.cu``.
+the row sum of g. The kernels are in ``csrc/hamilton_matmul.cu``: float32
+runs a SIMT FMA kernel (TF32 off), bfloat16 an ``mma.sync`` tensor-core
+GEMM that assembles the weight tile in shared memory; one entry point picks
+by dtype, so forward and dx take the same kernel.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def hamilton_matmul(x2d: torch.Tensor, comps: torch.Tensor, bias: Optional[torch
     """x2d (M, n cin) @ assemble(comps (n, cin, cout)) + bias -> (M, n cout)
     in x's dtype (float32 or bfloat16; comps in the same dtype). CPU tensors
     take :func:`hamilton_matmul_plain`; CUDA tensors launch
-    ``seld_hamilton_matmul``."""
+    ``seld_hamilton_matmul`` (the SIMT kernel in float32, the tensor-core one
+    in bfloat16)."""
     _check(x2d, comps, bias, n_comp)
     tensors = (x2d, comps) if bias is None else (x2d, comps, bias)
     if not on_cuda(*tensors):
@@ -68,13 +72,13 @@ def hamilton_matmul(x2d: torch.Tensor, comps: torch.Tensor, bias: Optional[torch
     if comps.dtype != x2d.dtype:
         raise TypeError(f"comps must be {x2d.dtype}, got {comps.dtype}")
     m, cout = x2d.shape[0], n_comp * comps.shape[2]
-    b = (torch.zeros(cout, dtype=torch.float32, device=x2d.device) if bias is None
-         else bias.to(x2d.dtype).float().contiguous())
+    b = None if bias is None else bias.to(x2d.dtype).contiguous()   # no copy in the usual case
     out = torch.empty((m, cout), dtype=x2d.dtype, device=x2d.device)
     if m:
         lib = _build.load()
         err = lib.seld_hamilton_matmul(
-            x2d.data_ptr(), comps.data_ptr(), b.data_ptr(), out.data_ptr(), m, n_comp,
+            x2d.data_ptr(), comps.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), m, n_comp,
             comps.shape[1], comps.shape[2], int(linear_table), dtype_code(x2d),
             stream_handle(x2d.device))
         _build.check(err, "seld_hamilton_matmul")

@@ -4,7 +4,7 @@
 
 Counterpart of ``tools/profile_stages.py``. Environment, as there:
 ``PROF_BATCH`` (default 16) and ``PROF_SECTIONS`` (comma-separated, default
-``stft,cnn,tcn``; also ``fused``, ``qmm`` and ``v3``). The ``noop`` row, the
+``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train`` and ``v3``). The ``noop`` row, the
 dispatch baseline, always runs. Sections:
 
 - ``stft``: K1 (float32 and bfloat16 out) beside its plain version;
@@ -15,6 +15,8 @@ dispatch baseline, always runs. Sections:
 - ``fused``: K10a (im2col) and K10b (per-tap windows) at stages 1-3, float32
   scale and bias;
 - ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
+- ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
+  tile) beside cuDNN's weight gradient on the same g_z;
 - ``v3``: K2w at stage 1, then the flagship's ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
 
@@ -192,6 +194,30 @@ def qmm(batch, device, shapes=FLAGSHIP):
         (xt, wq, ws)
 
 
+def train(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_windows_bn_relu_fpool
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, f, t, c, pf = torch.bfloat16, shapes["freq"], shapes["frames"], shapes["filters"], \
+        shapes["pools"][0]
+    cin = shapes["channels"]
+    x = _randn(device, batch, cin, f, t, dtype=bf16, gen=gen)
+    w = (_randn(device, 3, 3, cin, c, gen=gen) / 8).to(bf16)
+    g = _randn(device, batch, c, f // pf, t, dtype=bf16, gen=gen)
+    scale = _randn(device, c, gen=gen).abs() + 0.5
+    bias, a, b = (_randn(device, c, gen=gen) / 4 for _ in range(3))
+    b2 = (x, w, g, scale, bias, a, b, pf)
+    gz = k5.conv_train_gz(*b2)[0]
+    yield f"train1: K5 F1 stats (pf {pf})", lambda xx, ww: k5.conv_train_stats(xx, ww, pf), (x, w)
+    yield "train1: K5 F2 windows", \
+        lambda xx, ww: conv2d_windows_bn_relu_fpool(xx, ww, scale, bias, pf), (x, w)
+    yield "train1: K5 B2 g_z pass", k5.conv_train_gz, b2
+    yield "train1: K5 B2 dW tile", k5.conv_train_dw_gz, (x, gz)
+    yield "train1: cuDNN wgrad on g_z", \
+        lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, cin, 3, 3), zz, padding=1), (x, gz)
+
+
 def v3(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.models.fused_infer import fused_infer
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
@@ -221,7 +247,7 @@ def v3(batch, device, shapes=FLAGSHIP):
 
 
 SECTIONS = {"noop": noop, "stft": stft, "cnn": cnn, "tcn": tcn, "fused": fused, "qmm": qmm,
-            "v3": v3}
+            "train": train, "v3": v3}
 
 
 def time_ms(fn, args, device: torch.device, iters: int = ITERS) -> float:

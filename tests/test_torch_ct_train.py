@@ -38,6 +38,7 @@ from seld_tpu.training.steps import make_optimizer as jax_make_optimizer
 from seld_tpu.training.steps import make_train_step as jax_make_train_step
 from seld_tpu_torch.models.seld import model_from_config
 from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+from seld_tpu_torch.ops.kernels import conv2d_train as k5
 from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from seld_tpu_torch.training import create_train_state, make_train_step, seld_loss
 from seld_tpu_torch.utils.jax_bridge import from_jax_variables, to_jax_variables
@@ -129,7 +130,7 @@ def test_k9_rejects_what_the_kernels_do_not_take():
 def _dw_split_ranges(b, f, t):
     """(row0, row1, t0, t1) of each dW block in grid.x order, indexed as the
     kernels index them (``dw_split``'s docstring)."""
-    rows_per_split, frames_per_split, splits = k9.dw_split(b, f, t)
+    rows_per_split, frames_per_split, splits = k5.dw_split(b, f, t)
     frame_splits = -(-t // frames_per_split)
     out = []
     for x in range(splits):
@@ -148,11 +149,11 @@ def test_dw_split_covers_every_frame_once(b, f, t):
     partials' row count): every (b, f, t) falls in exactly one block's share,
     frame shares are whole 64-frame steps (or all of T), and there are as
     many shares as the kernels' grid.x = ceil(B F / rows) x ceil(T / frames)."""
-    rows_per_split, frames_per_split, splits = k9.dw_split(b, f, t)
+    rows_per_split, frames_per_split, splits = k5.dw_split(b, f, t)
     ranges = _dw_split_ranges(b, f, t)
     assert len(ranges) == splits == -(-(b * f) // rows_per_split) * -(-t // frames_per_split)
-    assert splits <= 2 * k9.DW_SPLITS
-    assert frames_per_split >= t or frames_per_split % k9.DW_FRAME_STEP == 0
+    assert splits <= 2 * k5.DW_SPLITS
+    assert frames_per_split >= t or frames_per_split % k5.DW_FRAME_STEP == 0
     seen = np.zeros((b * f, t), np.int64)
     for r0, r1, t0, t1 in ranges:
         assert r0 < r1 and t0 < t1

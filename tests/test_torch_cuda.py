@@ -129,14 +129,25 @@ K5_SHAPES = [(2, 8, 24, 1300, 200, 8),   # 3 T splits, 4 Cout tiles, B * F' = 6
              (2, 5, 24, 1100, 80, 8),    # Cin 5, 2 Cout tiles
              (3, 8, 12, 777, 80, 4),
              (2, 9, 16, 700, 80, 4),     # Cin 9 and 10: 16 staged channels (3 * Cin <= 32)
-             (1, 10, 24, 1300, 72, 8)]
+             (1, 10, 24, 1300, 72, 8),
+             (1, 8, 32, 515, 64, 16)]    # T % 8 != 0 (2-byte staging), pool 16
+
+
+def k5_launches(dtype) -> dict:
+    """K5's launches for one forward and backward of the op: F2 is K2's kernel
+    in float32 and K3's tile through K10b's entry in bfloat16, whose B2 is
+    the g_z pass and the dW tile."""
+    bf16 = dtype == torch.bfloat16
+    return {"conv_train_stats": 1, "conv3x3_smallcin": int(not bf16),
+            "conv3x3_windows": int(bf16), "conv_train_sel_stats": 1,
+            "conv_train_gz": int(bf16), "conv_train_dw": 1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", K5_SHAPES)
 def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
-    """K5's four kernels through the autograd op against autograd of the
-    plain composition: out, mean, var, dW, dgamma, dbeta."""
+    """K5's kernels through the autograd op against autograd of the plain
+    composition: out, mean, var, dW, dgamma, dbeta."""
     x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
     g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
     results = []
@@ -145,9 +156,8 @@ def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
         out, mean, var = fn(x, wr, gr, br, pf)
         (out.float() * g.float()).sum().backward()
         results.append((out, mean, var, wr.grad, gr.grad, br.grad))
-    # F2 is K2's smallcin kernel fed the batch-statistics affine
-    assert [launch_counts[n] for n in ("conv_train_stats", "conv3x3_smallcin",
-                                       "conv_train_sel_stats", "conv_train_dw")] == [1] * 4
+    want_launches = k5_launches(dtype)
+    assert {n: launch_counts[n] for n in want_launches} == want_launches
     for got, want in zip(*results):
         _close(got, want, dtype if got.dtype == dtype else torch.float32)
 
@@ -155,13 +165,17 @@ def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", [*K5_SHAPES[:2], *K5_SHAPES[3:]])
 def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
-    """Each K5 pass against its plain version on the same inputs."""
+    """Each K5 pass against its plain version on the same inputs: float32's
+    SIMT passes, bfloat16's tensor-core ones (F2 K3's tile through K10b's
+    entry; B2 the g_z pass and the dW tile)."""
     x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, dtype)
     x = x.permute(0, 3, 1, 2).contiguous()
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
     bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
     _close(k5.conv_train_stats(x, w, pf), k5.conv_train_stats_plain(x, w), torch.float32)
-    out = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)   # F2
+    bf16 = dtype == torch.bfloat16
+    f2 = pool.conv2d_windows_bn_relu_fpool if bf16 else pool.conv2d_smallcin_bn_relu_fpool
+    out = f2(x, w, scale, bias, pf)
     _close(out, k5.conv_train_fwd_plain(x, w, scale, bias, pf), dtype)
     g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
     p, q = 0.5 + torch.rand(cout, generator=gen, device="cuda"), torch.randn(
@@ -169,11 +183,50 @@ def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     _close(k5.sel_stats(out, g, p, q), k5.sel_stats_plain(out, g, p, q), torch.float32)
     a, c = 1e-3 * torch.randn(cout, generator=gen, device="cuda"), 1e-3 * torch.randn(
         cout, generator=gen, device="cuda")
-    dw = k5.conv_train_dw(x, w, g, scale, bias, a, c, pf)
-    _close(dw, k5.conv_train_dw_plain(x, w, g, scale, bias, a, c, pf), torch.float32)
+    args = (x, w, g, scale, bias, a, c, pf)
+    if bf16:
+        gz, sums = k5.conv_train_gz(*args)
+        want_gz, want_sums = k5.conv_train_gz_plain(*args)
+        _close(gz, want_gz, dtype)
+        _close(sums, want_sums, torch.float32)
+        dw_fn = lambda: k5.conv_train_dw_gz(x, gz)
+        _close(dw_fn(), k5.dw_plain(x, gz), torch.float32)
+    else:
+        dw_fn = lambda: k5.conv_train_dw(*args)
+        _close(dw_fn(), k5.conv_train_dw_plain(*args), torch.float32)
     # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
-    assert torch.equal(k5.conv_train_dw(x, w, g, scale, bias, a, c, pf), dw)
+    assert torch.equal(dw_fn(), dw_fn())
     assert torch.equal(k5.conv_train_stats(x, w, pf), k5.conv_train_stats(x, w, pf))
+
+
+def test_conv_train_bf16_routing_equals_f2_bitwise(gen):
+    """On random (not integer-grid) bf16 inputs: K5's F2 pools max_r relu(pre *
+    scale + bias) of the tile's rows (K9 F1's pre, the same tile) bit for bit,
+    and K5's g_z pass, fed g = 1 and a = b = 0 (g_z = scale > 0 exactly where
+    it routes), routes each window to the first row holding that max, where
+    the max is > 0."""
+    b, cin, f, t, cout, pf = 2, 8, 64, 1000, 80, 8
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / 72 ** 0.5).to(
+        torch.bfloat16)
+    scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bias = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+    pre = k9.ct_train_stats(x, w, pf)[1]
+    y = (pre.double() * scale.double()[:, None, None] + bias.double()[:, None, None]).float()
+    y = torch.relu(y).view(b, cout, f // pf, pf, t)
+    best, row = y[:, :, :, 0], torch.zeros_like(y[:, :, :, 0], dtype=torch.long)
+    for r in range(1, pf):
+        up = y[:, :, :, r] > best
+        best, row = torch.where(up, y[:, :, :, r], best), torch.where(up, r, row)
+    assert torch.equal(pool.conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf),
+                       best.to(torch.bfloat16))
+    want = (torch.arange(pf, device="cuda").view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
+        best > 0).unsqueeze(3)
+    zero = torch.zeros(cout, device="cuda")
+    ones = torch.ones(b, cout, f // pf, t, dtype=torch.bfloat16, device="cuda")
+    gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
+    assert torch.equal((gz != 0).view(want.shape), want)
+    assert torch.equal(sums[:cout], want.sum((0, 2, 3, 4)).float())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -233,20 +286,24 @@ def test_fused_frontend_raises_where_k5_cannot_run(gen):
     assert all(v == 0 for v in launch_counts.values())
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("frontend_impl", ["fused", "ct"])
-def test_frontends_run_k5_at_cin_10(gen, frontend_impl):
+def test_frontends_run_k5_at_cin_10(gen, frontend_impl, dtype):
     """frontend_impl 'fused' and 'ct' on a CUDA tensor with 10 input
-    channels (the reference's 3 * Cin <= 32) run K5 instead of raising."""
+    channels (the reference's 3 * Cin <= 32) run K5 instead of raising; its
+    F2 is K2's kernel in float32 and K3's tile (K10b's entry) in bfloat16."""
     from seld_tpu_torch.models.blocks import ConvTCBlock
 
     block = ConvTCBlock("R", 10, 16, [8, 16], 3, [[2, 1], [2, 1]], "CNN", [1], "fibonacci", 16,
                         16, 3, [16, 16], 3, use_bias=False, batch_norm="BN",
                         attention_impl="full", frontend_impl=frontend_impl, device="cuda",
                         generator=torch.Generator().manual_seed(0))
-    x = torch.randn(2, 16, 40, 10, generator=gen, device="cuda")
+    block = block.to(dtype)
+    x = torch.randn(2, 16, 40, 10, generator=gen, device="cuda").to(dtype)
     out = block(x, train=True, generator=gen)
     assert bool(torch.isfinite(out).all())
-    assert [launch_counts[n] for n in ("conv_train_stats", "conv3x3_smallcin")] == [1, 1]
+    f2 = "conv3x3_windows" if dtype == torch.bfloat16 else "conv3x3_smallcin"
+    assert [launch_counts[n] for n in ("conv_train_stats", f2)] == [1, 1]
     assert launch_counts["ct_train_stats"] == (frontend_impl == "ct")
 
 
@@ -319,7 +376,7 @@ def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
     gz = k9.ct_gz(pre, g, cols, pf)
     _close(gz, k9.ct_gz_plain(pre, g, cols, pf), dtype)
     dw = k9.ct_dw(h, gz)
-    _close(dw, k9.ct_dw_plain(h, gz), torch.float32)
+    _close(dw, k5.dw_plain(h, gz), torch.float32)
     _close(k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dtype)
     # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
     assert torch.equal(k9.ct_dw(h, gz), dw)
@@ -364,10 +421,14 @@ def test_ct_frontend_raises_where_the_kernels_cannot_run(gen):
 from seld_tpu_torch.ops.kernels import qmatmul as k7   # noqa: E402
 from seld_tpu_torch.ops.kernels import quant as k8     # noqa: E402
 
-# (M, n, cin_c, cout_c, linear_table): 17 row tiles with a ragged tail; widths
-# 48 / 80 and 64 / 48 cross the 64-wide tiles and the Hamilton blocks
+# (M, n, cin_c, cout_c, linear_table): 17 row tiles with a ragged tail (9 of
+# bf16's 128-row tiles); widths 48 / 80 and 64 / 48 cross the 64-wide tiles and
+# the Hamilton blocks; then for the bf16 kernel K = 20 (K % 8 != 0: 2-byte x
+# loads), K = 24 (K % 16 != 0: a zero-filled k16 step; cout_c 16: 16-byte weight
+# loads), the flagship's widths and the Q configs' cin_c 96, both tables
 K7_CASES = [(1037, 4, 12, 20, False), (1037, 8, 6, 10, False), (1037, 8, 6, 10, True),
-            (300, 8, 8, 6, True)]
+            (300, 8, 8, 6, True), (1029, 4, 5, 16, False), (513, 8, 3, 16, True),
+            (2001, 8, 48, 48, False), (777, 4, 96, 24, True)]
 
 
 def ulps_apart(got, want, dtype):

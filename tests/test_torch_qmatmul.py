@@ -69,6 +69,28 @@ def test_forward_matches_the_pallas_op(rng, dtype, lead, name, n, port_op, jax_o
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("name,n,port_op,jax_op,cin_c,cout_c", [
+    (*OPS[0], 5, 16),    # K = 20: K % 8 != 0 (the bf16 kernel's 2-byte x loads)
+    (*OPS[1], 3, 16),    # K = 24: K % 16 != 0 (a zero-filled k16 step)
+    (*OPS[2], 6, 10),    # cout_c % 8 != 0 (the weight assembled element by element)
+    (*OPS[0], 96, 24),   # the Q configs' cin_c
+], ids=["q-k20", "dq_linear-k24", "dq_conv-n10", "q-cin96"])
+def test_forward_at_the_tensor_core_kernels_widths(rng, name, n, port_op, jax_op, cin_c,
+                                                   cout_c):
+    """bfloat16 at the widths that steer the bf16 kernel's staging paths
+    (tests/test_torch_cuda.py::K7_CASES), 67 rows: the plain version the
+    kernel is held to on the card, against the Pallas op."""
+    bf = ml_dtypes.bfloat16
+    x = rng.standard_normal((67, n * cin_c)).astype(np.float32).astype(bf)
+    comps = (rng.standard_normal((n, cin_c, cout_c)) / cin_c ** 0.5).astype(np.float32).astype(bf)
+    b = rng.standard_normal(n * cout_c).astype(np.float32).astype(bf)
+    want = _jax_fwd(jax_op, x, comps, b)
+    to_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    got = port_op(to_t(x), to_t(comps), to_t(b))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0 ** -8 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("name,n,port_op,jax_op", OPS, ids=IDS)
 def test_gradients_match_jax_grad(rng, name, n, port_op, jax_op):
     x = rng.standard_normal((12, n * 2)).astype(np.float32)

@@ -6,7 +6,8 @@ of each wrapper), against the JAX package.
   in interpret mode (float32 at HIGHEST precision; the thin pack for Cin
   <= 8, the wide pack for Cin 9 and 10, the reference's 3 * Cin <= 32): out,
   mean, var, and dW / dgamma / dbeta from ``jax.vjp``, 2e-4 x max|ref|, with
-  cases of Cout not a multiple of 8 and a ragged T.
+  cases of Cout not a multiple of 8 and a ragged T; through float32's fused
+  B2 and through bfloat16's split one (the g_z pass and the dW tile).
 - K6: ``flash_attention_train``'s backward against ``jax.vjp`` of the Pallas
   ``flash_attention`` in interpret mode (float32, 2e-4 x max|ref|) and
   against torch autograd of ``attend_full`` (float64, 1e-12 x max|ref|).
@@ -95,6 +96,93 @@ def test_k5_backward_matches_autograd_of_the_plain_op(rng):
     want = _port_k5(k5.conv2d_bn_relu_fpool_train_plain, x, w, gamma, beta, probe, 4)
     for g_, w_ in zip(got, want):
         _close(g_, w_, 1e-12)
+
+
+# (b, f, t, cin, cout, pf): Cin 5 / 8 / 10, F 16-24 with pool 4 and 8, T not a
+# multiple of 64
+K5_TC_CASES = [(2, 16, 37, 5, 12, 4), (2, 24, 45, 8, 16, 8), (2, 16, 70, 10, 12, 8)]
+
+
+@pytest.mark.parametrize("b,f,t,cin,cout,pf", K5_TC_CASES)
+def test_k5_bf16_passes_match_pallas_train_op(rng, monkeypatch, b, f, t, cin, cout, pf):
+    """bfloat16's split B2 (conv_train_gz's routing, g_z and routed sums, then
+    conv_train_dw_gz, i.e. conv2d_weight(x, g_z)) through the op, run on
+    float64 inputs by forcing the tensor-core route, against jax.vjp of the
+    Pallas op in interpret mode: out, mean, var, dW, dgamma, dbeta at 2e-4 x
+    max|ref|."""
+    monkeypatch.setattr(k5, "tensor_core_path", lambda x: True)
+    calls = []
+    for name in ("conv_train_gz", "conv_train_dw_gz", "conv_train_dw"):
+        fn = getattr(k5, name)
+        monkeypatch.setattr(k5, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    x, w, gamma, beta, probe = _k5_case(rng, b, f, t, cin, cout, pf)
+
+    def jfn(w_, g_, b_):
+        return jk5(jnp.asarray(x), w_, g_, b_, pf, 1e-5, True, jax.lax.Precision.HIGHEST,
+                   pack="thin" if cin <= 8 else "wide")
+
+    (out, mean, var), vjp = jax.vjp(jfn, *map(jnp.asarray, (w, gamma, beta)))
+    dw, dgamma, dbeta = vjp((jnp.asarray(probe), jnp.zeros_like(mean), jnp.zeros_like(var)))
+    got = _port_k5(k5.conv2d_bn_relu_fpool_train, x, w, gamma, beta, probe, pf)
+    assert calls == ["conv_train_gz", "conv_train_dw_gz"]
+    for name, g_, w_ in zip(("out", "mean", "var", "dw", "dgamma", "dbeta"), got,
+                            [out, mean, var, dw, dgamma, dbeta]):
+        assert np.isfinite(g_).all(), name
+        _close(g_, w_)
+
+
+@pytest.mark.parametrize("b,f,t,cin,cout,pf", K5_TC_CASES)
+def test_k5_gz_pass_and_dw_tile_equal_the_fused_b2(rng, b, f, t, cin, cout, pf):
+    """conv_train_gz_plain + dw_plain give float32's fused B2
+    (conv_train_dw_plain) in float64: dW, S_g and sum g_pre * acc, 1e-12 x
+    max|ref|; g_z is (B, Cout, F, T) in x's dtype."""
+    x, w, _, _, _ = _k5_case(rng, b, f, t, cin, cout, pf)
+    xc = torch.from_numpy(x).double().permute(0, 3, 1, 2).contiguous()
+    wt = torch.from_numpy(w).double()
+    col = lambda s_: torch.from_numpy(s_ * rng.standard_normal(cout))
+    g = torch.from_numpy(rng.standard_normal((b, cout, f // pf, t)))
+    scale, bias, a, c = 1.0 + col(0.2), col(0.2), col(1e-2), col(1e-2)
+    gz, sums = k5.conv_train_gz(xc, wt, g, scale, bias, a, c, pf)
+    assert gz.shape == (b, cout, f, t) and gz.dtype == torch.float64
+    fused = k5.conv_train_dw_plain(xc, wt, g, scale, bias, a, c, pf).numpy()
+    kd = k5.kdim(cin)
+    want_dw = fused[:cout * kd].reshape(cout, 3, 3, kd // 9)[..., :cin].transpose(1, 2, 3, 0)
+    _close(k5.conv_train_dw_gz(xc, gz).numpy(), want_dw, 1e-12)
+    _close(sums.numpy(), fused[cout * kd:], 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_routes_b2_by_dtype(monkeypatch, dtype):
+    """bfloat16 takes the tensor-core passes (on CPU tensors their plain
+    versions): the g_z pass, then the dW tile; float32 takes the fused SIMT
+    B2. The route depends on the dtype alone (tensor_core_path)."""
+    assert k5.tensor_core_path(torch.zeros(1, dtype=dtype)) == (dtype == torch.bfloat16)
+    assert not k5.tensor_core_path(torch.zeros(1, dtype=torch.float64))
+    calls = []
+    for name in ("conv_train_gz", "conv_train_dw_gz", "conv_train_dw"):
+        fn = getattr(k5, name)
+        monkeypatch.setattr(k5, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 21, 8, generator=gen).to(dtype)
+    w = (0.2 * torch.randn(3, 3, 8, 12, generator=gen)).to(dtype).requires_grad_()
+    gamma, beta = torch.ones(12, requires_grad=True), torch.zeros(12, requires_grad=True)
+    out, _, _ = k5.conv2d_bn_relu_fpool_train(x, w, gamma, beta, 4)
+    out.float().sum().backward()
+    bf16 = dtype == torch.bfloat16
+    assert calls == (["conv_train_gz", "conv_train_dw_gz"] if bf16 else ["conv_train_dw"])
+    assert w.grad.dtype == dtype and bool(torch.isfinite(w.grad).all())
+
+
+def test_k5_dw_tile_takes_one_16_channel_tile():
+    """conv_train_dw_gz takes Cin <= 16 (the 16-channel Cin tile) and one B,
+    F and T for x and g_z."""
+    gz = torch.zeros(1, 4, 8, 10, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        k5.conv_train_dw_gz(torch.zeros(1, 17, 8, 10, dtype=torch.bfloat16), gz)
+    with pytest.raises(ValueError):
+        k5.conv_train_dw_gz(torch.zeros(1, 8, 8, 12, dtype=torch.bfloat16), gz)
+    assert k5.conv_train_dw_gz(torch.zeros(1, 8, 8, 10, dtype=torch.bfloat16),
+                               gz).shape == (3, 3, 8, 4)
 
 
 def test_k5_rejects_what_the_kernels_do_not_take():
