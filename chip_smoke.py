@@ -10,12 +10,16 @@ Phases, each printing its own lines:
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    nvcc per source, all at once); prints ptxas' registers, shared memory and
    spills per kernel and the HMMA / HGMMA count in the SASS of each bfloat16
-   tensor-core kernel (TC_KERNELS), failing if one has none;
+   tensor-core kernel (TC_KERNELS: K1's bf16 GEMM and K2's bf16 stage 1
+   among them), failing if one has none;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8
    within one ulp of its plain version) against its plain PyTorch version
    on the card, at multi-tile shapes with ragged tails and at the
-   flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16, forward
+   flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16 (K1's
+   and K2's tensor-core kernels also at STFT_TC_CASES and SMALLCIN_TC_CASES:
+   ragged in every grid dimension, K1 at an nperseg ragged against its tap
+   chunk and on bf16 audio, K2 at Cin 5 and 8 up to its largest pool), forward
    outputs and every gradient, with the median time of each kernel, of its
    plain version and of one PyTorch library call where there is one; the
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
@@ -25,7 +29,8 @@ Phases, each printing its own lines:
    tile, B2 beside cuDNN's weight gradient) and, at the flagship's stage 1
    on random bf16 inputs, K5's F2 and g_z routing against the tile's rows
    bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
-   addmm's device time from the profiler;
+   addmm's device time from the profiler; K1's bf16 kernel and torch.stft,
+   K2, K3 and cuDNN's conv timed back to back (stream_ms);
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
@@ -34,7 +39,8 @@ Phases, each printing its own lines:
    HOST_WINDOW requests from host memory, and a window of CARD_WINDOW
    requests with the audio on the card at batches 4 and 16, each reported as
    its total audio over its total wall time with the spread of its requests,
-   and one profiled request per batch;
+   and one profiled request per batch with K1's, K2's and K3's device time
+   read out (SERVING_WATCH);
 5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
    off, on the kernel path (K5, K4 + K6), on the plain path (plain stage 0,
    full attention) and on the plain path in float64, from the same weights
@@ -200,11 +206,13 @@ PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/te
 PREDICT_STEPS_TIMED = 3
 # the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
 # K9 F1 and dh bodies and K5's F1 and g_z bodies, the dW tile (K9's 32-channel Cin
-# tile, K5's 16-channel one), K4's forward, K6's two backward passes and K7
+# tile, K5's 16-channel one), K4's forward, K6's two backward passes, K7, K1's
+# bf16-output GEMM and K2's bf16 stage 1
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
-              "flash_dkv_tc_kernel", "hamilton_tc_kernel")
+              "flash_dkv_tc_kernel", "hamilton_tc_kernel", "stft_mag_tc_kernel",
+              "smallcin_tc_kernel")
 # device kernels read out of the step profiles (phases 5b, 6 and 7), by demangled
 # name: K6's three launches, K9's and K5's dW (K5's B2: the g_z pass and the
 # dW tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
@@ -213,6 +221,9 @@ PROFILE_WATCH = {"K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kern
                  "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
                  "K5 F1": ("train_stats_tc_kernel",),
                  "K7": ("hamilton_tc_kernel",)}
+# device kernels read out of the serving profiles (phase 4), by demangled name
+SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
+                 "K3": ("conv3x3_tc_kernel",)}
 R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
 PROFILE_BATCH = 4
 # (B, Cin, F, T, Cout, pf) of the conv tile's ragged checks: Cin chunks ragged
@@ -221,6 +232,20 @@ PROFILE_BATCH = 4
 # T % 8 == 0), pf 2, 4 and 8
 TILE_CASES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
               (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4)]
+# K1's bf16 kernel: (audio shape, nperseg, noverlap, audio dtype). Frames ragged
+# against its 256-frame tiles (300, 293, 250, 325 frames); bins ragged against 64
+# (240, 244; 244 % 8 != 0 writes element by element); nperseg 488 ragged against
+# its 32-tap chunks; n % 4 != 0 gathers element by element; bf16 audio; 40 rows
+# leave one frame split per (bin tile, row), so each block walks two frame tiles
+STFT_TC_CASES = [((3, 120_000), 512, 112, "float32"), ((2, 117_123), 480, 80, "float32"),
+                 ((2, 100_000), 488, 88, "float32"), ((3, 120_000), 512, 112, "bfloat16"),
+                 ((2, 100_003), 488, 88, "bfloat16"), ((40, 130_000), 512, 112, "float32")]
+# K2's bf16 kernel: (B, Cin, F, T, Cout, pf) at Cin 5 and 8, Cout tiles ragged (80,
+# 200), frame tiles ragged (129, 300; 296 stages x by 16-byte loads), pf 2 and 8,
+# and pf 80, the largest its shared memory takes (conv2d_pool.smallcin_max_pool_f)
+SMALLCIN_TC_CASES = [(2, 5, 24, 300, 80, 8), (2, 8, 16, 296, 200, 2), (1, 8, 16, 129, 200, 8),
+                     (2, 5, 8, 129, 80, 2), (1, 8, 32, 300, 200, 8), (2, 5, 16, 296, 80, 8),
+                     (1, 3, 80, 300, 72, 80)]
 SERVE_ON_CARD_BATCHES = (4, 16)   # the serving forward with the audio already on the card
 CARD_WINDOW = 100   # timed requests per batch with the audio on the card
 HOST_WINDOW = 30    # timed requests from host memory (phase 4; phase 8a: each variant)
@@ -339,6 +364,23 @@ def time_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def stream_ms(torch, fn, iters: int = 20) -> float:
+    """Milliseconds per fn() call over ``iters`` back-to-back calls between two
+    CUDA events: the device's time where a call's kernels outlast its host
+    path (K1, K2, K3 at the flagship's shapes). The profiler's sums lost some
+    of K1's launches in some runs of this script; these events lose none."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(torch, fn, iters: int = 20) -> float:
     """Device milliseconds per fn() call: the self device time of every kernel
     it launches, from torch.profiler over iters calls (no host time; the
@@ -387,7 +429,7 @@ def phase_kernels(torch, card: str) -> dict:
         flash_attention_train,
     )
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
-        conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain,
+        conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain, conv2d_smallcin_bn_relu_fpool,
     )
     from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain
 
@@ -423,18 +465,33 @@ def phase_kernels(torch, card: str) -> dict:
             timed = (time_ms(torch, k), time_ms(torch, p)) if tag == "flagship" else None
             got = k()
             d = compare(torch, "stft_mag", tag, got, p(), dt, card, timed)
+            # a 512 x 512 DFT product per frame: bf16 on the tensor cores for bf16
+            # output, float32 SIMT for float32 output
+            flops = 2.0 * (got.numel() // got.shape[-1]) * nperseg * nperseg
             if tag == "flagship" and dt == torch.bfloat16:
-                # a 512 x 512 DFT product per frame, in float32 (the audio's type);
                 # the library's |STFT| with K1's window and hop, uncentred (the
                 # kernel's zero boundary and its dropped DC bin and last frame aside)
-                frames = got.numel() // got.shape[-1]
                 win = torch.hamming_window(nperseg, periodic=True, device=dev)
                 rows = x.reshape(-1, x.shape[-1])
-                lib_ms = time_ms(torch, lambda: torch.stft(
-                    rows, nperseg, nperseg - noverlap, window=win, center=False,
-                    return_complex=True).abs())
-                record("stft_mag", d, timed, 2.0 * frames * nperseg * nperseg,
-                       nbytes(x, got), "float32", lib_ms)
+                lib = lambda: torch.stft(rows, nperseg, nperseg - noverlap, window=win,
+                                         center=False, return_complex=True).abs()
+                lib_ms = time_ms(torch, lib)
+                print(f"[kernel] stft_mag bfloat16 back to back: kernel "
+                      f"{stream_ms(torch, k):.4f} ms, torch.stft {stream_ms(torch, lib):.4f} ms "
+                      f"({card})")
+                record("stft_mag", d, timed, flops, nbytes(x, got), "bfloat16", lib_ms)
+            elif tag == "flagship":
+                b_ms, b_by = bound(flops, nbytes(x, got), "float32")
+                print(f"[kernel] stft_mag float32 output: {timed[0]:.3f} ms, bound "
+                      f"{b_ms:.4f} ms by {b_by} ({card})")
+    for shape, nperseg, noverlap, xdt in STFT_TC_CASES:   # bf16 output only
+        x = randn(*shape).to(getattr(torch, xdt))
+        before = launch_counts["stft_mag"]
+        got = stft_mag(x, nperseg, noverlap, out_dtype=torch.bfloat16)
+        require(launch_counts["stft_mag"] == before + 1, "stft_mag: no launch counted")
+        compare(torch, "stft_mag", f"tc {nperseg}", got,
+                stft_mag_plain(x, nperseg, noverlap, out_dtype=torch.bfloat16),
+                torch.bfloat16, card)
 
     # ---- K2 / K3: x (B, Cin, F, T), w (3, 3, Cin, Cout)
     conv_cases = [  # tag, B, Cin, F, T, Cout, pf
@@ -463,9 +520,22 @@ def phase_kernels(torch, card: str) -> dict:
             # the summary line carries stage 1 (smallcin) and stage 2 (widecin)
             if tag == "flagship" and dt == torch.bfloat16 and f != 4:
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
-                lib_ms = time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1))
+                lib = lambda: F.conv2d(x, w_nchw, padding=1)
+                lib_ms = time_ms(torch, lib)
+                print(f"[kernel] {name} {label} bfloat16 back to back: kernel "
+                      f"{stream_ms(torch, k):.4f} ms, cuDNN {stream_ms(torch, lib):.4f} ms ({card})")
                 record(name, d, timed, 2.0 * 9 * cin * cout * b * f * t,
                        nbytes(x, w, got), "bfloat16", lib_ms)
+
+    for b, cin, f, t, cout, pf in SMALLCIN_TC_CASES:
+        x = randn(b, cin, f, t).to(torch.bfloat16)
+        w = randn(3, 3, cin, cout, scale=(9 * cin) ** -0.5).to(torch.bfloat16)
+        scale, bias = randn(cout, scale=0.2) + 1.0, randn(cout, scale=0.2)
+        before = launch_counts["conv3x3_smallcin"]
+        got = conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+        require(launch_counts["conv3x3_smallcin"] == before + 1, "K2: no launch counted")
+        compare(torch, "conv3x3_smallcin", f"tc pf{pf}", got,
+                conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), torch.bfloat16, card)
 
     phase_tile(torch, card, randn)
 
@@ -1099,6 +1169,8 @@ def phase_main_path(torch, card: str) -> dict:
     print(f"[main] launches during the {REQUESTS} requests: {counts}")
     require(all(counts[k] > 0 for k in SERVING_KERNELS),
             f"a kernel of the serving path never ran: {counts}")
+    require(counts["stft_mag"] == REQUESTS and counts["conv3x3_smallcin"] == REQUESTS,
+            f"K1 and K2 must launch once per request: {counts}")
 
     sed_w = int(model.output_classes * model.class_overlaps)
     for i, (sed, doa) in enumerate(outputs):
@@ -1160,9 +1232,13 @@ def serve_on_card(torch, model, card: str) -> None:
     of SERVE_ON_CARD_BATCHES: a window of CARD_WINDOW requests (host clock
     around each synchronised ``serve``) as audio-hours/s, then one profiled
     request (device time by kernel, the device's idle share)."""
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_smallcin_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.stft import stft_mag
     from seld_tpu_torch.serve import serve
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    w1 = (torch.randn(3, 3, CHANNELS, 192, generator=gen, device="cuda") / 8).bfloat16()
+    s1, b1 = torch.ones(192, device="cuda"), torch.zeros(192, device="cuda")
     for batch in SERVE_ON_CARD_BATCHES:
         audio = torch.randn(batch, CHANNELS, SR * CLIP_SECONDS, generator=gen, device="cuda")
         sed, _ = serve(model, audio)
@@ -1171,9 +1247,22 @@ def serve_on_card(torch, model, card: str) -> None:
         window = timed_window(torch, CARD_WINDOW, lambda i: serve(model, audio))
         print(f"[main] audio on the card, batch {batch}: "
               f"{window_summary(window, batch * CLIP_SECONDS / 3600.0)} ({card})")
-        profile_step(torch, lambda: serve(model, audio), card, top=8,
-                     label=f"serving request, batch {batch}, audio on the card")
-        del audio, sed
+        profiled = profile_step(torch, lambda: serve(model, audio), card, top=8,
+                                label=f"serving request, batch {batch}, audio on the card",
+                                watch=SERVING_WATCH)
+        print(f"[profile] serving request, batch {batch}: "
+              f"{device_shares(profiled, SERVING_WATCH)} ({card})")
+        # K1 and K2 back to back at the request's shapes: the profile's K1 can
+        # miss launches; a missed K1 is added to the request's busy time
+        k1 = stream_ms(torch, lambda: stft_mag(audio, out_dtype=torch.bfloat16))
+        x1 = torch.randn(batch, CHANNELS, 256, 4800, generator=gen, device="cuda").bfloat16()
+        k2 = stream_ms(torch, lambda: conv2d_smallcin_bn_relu_fpool(x1, w1, s1, b1, 8))
+        busy = profiled["busy"] + (k1 if profiled["K1"] < 0.5 * k1 else 0.0)
+        print(f"[profile] serving request, batch {batch}, K1 and K2 back to back at its "
+              f"shapes: K1 {k1:.2f} ms ({100 * k1 / busy:.1f}%), K2 {k2:.2f} ms "
+              f"({100 * k2 / busy:.1f}%) of {busy:.1f} ms busy, K1 "
+              f"{'recorded' if profiled['K1'] >= 0.5 * k1 else 'added'} ({card})")
+        del audio, sed, x1
     torch.cuda.empty_cache()
 
 
@@ -1186,11 +1275,12 @@ def set_dropout(model, rate: float) -> None:
             m.rate = rate
 
 
-def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 step") -> dict:
+def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 step",
+                 watch: dict = PROFILE_WATCH) -> dict:
     """One more step under torch.profiler: device time by kernel (top
     ``top`` by self device time) and the device's idle share of the step;
-    returns the device ms of each PROFILE_WATCH group in it and of the
-    whole step ("busy")."""
+    returns the device ms of each ``watch`` group in it and of the whole
+    step ("busy")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1211,16 +1301,16 @@ def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 st
         print(f"[profile]   {self_ms(e):8.2f} ms {100 * self_ms(e) / busy:5.1f}% "
               f"x{e.count:<5d} {e.key[:90]}")
     watched = {name: sum(self_ms(e) for e in events if any(k in e.key for k in keys))
-               for name, keys in PROFILE_WATCH.items()}
+               for name, keys in watch.items()}
     return {"busy": busy, **watched}
 
 
-def device_shares(profiled: dict) -> str:
-    """'<group> <ms> ms (<share>%), ...' of every PROFILE_WATCH group, shares of
+def device_shares(profiled: dict, watch: dict = PROFILE_WATCH) -> str:
+    """'<group> <ms> ms (<share>%), ...' of every ``watch`` group, shares of
     device busy."""
     busy = profiled["busy"]
     return ", ".join(f"{name} {profiled[name]:.2f} ms ({100 * profiled[name] / busy:.1f}%)"
-                     for name in PROFILE_WATCH)
+                     for name in watch)
 
 
 def take_bn_statistics_in_float64(torch, model) -> None:

@@ -29,8 +29,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes of each C entry point (all return a cudaError_t as int)
 SIGNATURES = {
-    # x, table, out, rows, n, n_frames, nperseg, hop, x_dtype, out_dtype, stream
-    "seld_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, table, out, rows, n, n_frames, nperseg, hop, x_dtype, stream
+    "seld_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, tiles, out, rows, n, n_frames, nperseg, hop, k_pad, x_dtype, stream
+    "seld_stft_mag_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scale, bias, out, batch, cin, f, t, cout, pf, dtype, stream
     "seld_conv3x3_smallcin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "seld_conv3x3_widecin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -71,11 +71,6 @@ static __device__ __forceinline__ void attn_mma_abt(float (&s)[kAttnRows / 8][4]
   }
 }
 
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // o += p `rows`: p (16 x 64, S-shaped) rounded to bf16 as the A operand,
 // `rows` a staged [64][D + 8] tile read transposed by ldmatrix.trans.
 template <int D>

@@ -1,8 +1,9 @@
 // PTX helpers of the bfloat16 tensor-core kernels (conv3x3_tc.cuh,
-// conv3x3_dw_tc.cuh, flash_attn_tc.cuh): ldmatrix, mma.sync.m16n8k16 with
-// float accumulators, and cp.async 16-byte copies. The fragment layouts are
-// PTX's for m16n8k16: lane l holds rows l / 4 (+ 8) and columns 2 (l % 4)
-// (+ 1, + 8).
+// conv3x3_dw_tc.cuh, flash_attn_tc.cuh, hamilton_matmul.cu, stft_mag.cu and
+// the smallcin kernel of conv3x3_bn_relu_fpool.cu): ldmatrix,
+// mma.sync.m16n8k16 with float accumulators, cp.async 16-byte copies and
+// bf16 packing. The fragment layouts are PTX's for m16n8k16: lane l holds
+// rows l / 4 (+ 8) and columns 2 (l % 4) (+ 1, + 8).
 #pragma once
 
 #include <cstdint>
@@ -29,6 +30,12 @@ static __device__ __forceinline__ void ldsm_x4_t(const void* p, uint32_t (&r)[4]
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
+}
+
+// Two floats rounded to bf16 in one word: lo in the low half, as a fragment holds them.
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // d += a (16 x 16, row-major fragment) * b (16 x 8, column fragment), float sums.

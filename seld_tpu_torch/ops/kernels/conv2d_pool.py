@@ -10,7 +10,9 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
   :func:`conv2d_smallcin_bn_relu_fpool`, and K3
   ``conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0):
   :func:`conv2d_widecin_bn_relu_fpool`, both ``csrc/conv3x3_bn_relu_fpool.cu``
-  (K3 in bfloat16 on the tensor-core tile of ``csrc/conv3x3_tc.cuh``);
+  (K2 in bfloat16 on the tensor cores with K = 9 taps x 8 channels, padded to
+  80; K3 in bfloat16 on the tensor-core tile of ``csrc/conv3x3_tc.cuh``;
+  float32 SIMT);
 - K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
   :func:`conv2d_smallcin_wide_bn_relu_fpool`, ``csrc/conv3x3_smallcin_wide.cu``;
 - K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
@@ -156,15 +158,28 @@ def halo_max_pool_f(cin: int, extra_bytes: int = 0) -> int:
     return min(MAX_POOL_F, (SMEM_BYTES - fixed) // (4 * cc * (BLOCK_T + 2)) - 2)
 
 
-def smallcin_max_pool_f(cin: int) -> int:
-    """The largest pool_f K2's kernel takes at this Cin."""
+TC_SMALLCIN_PAIRS = 4     # channel pairs the bf16 smallcin kernel stages (kScPairs)
+TC_SMALLCIN_K = 80        # its weight rows: 9 taps x 8 channels, padded (kScK)
+TC_PAIR_WORDS = 168       # staged words per (row, channel pair) (kTcXS)
+
+
+def smallcin_max_pool_f(cin: int, dtype: torch.dtype = torch.float32) -> int:
+    """The largest pool_f K2's entry takes at this Cin and dtype: the largest
+    whose shared memory fits one block, for the kernel it launches. The
+    tensor-core kernel (bfloat16 at Cin <= 8) stages pool_f + 2 rows of 4
+    channel-pair rows of TC_PAIR_WORDS words and 80 x (BLOCK_CO + 8) bf16
+    weights; the SIMT kernel (the rest) :func:`halo_max_pool_f`."""
+    if dtype == torch.bfloat16 and cin <= 8:
+        fixed = 2 * TC_SMALLCIN_K * (BLOCK_CO + 8)
+        return (SMEM_BYTES - fixed) // (4 * TC_SMALLCIN_PAIRS * TC_PAIR_WORDS) - 2
     return halo_max_pool_f(cin)
 
 
 def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                                   bias: torch.Tensor, pool_f: int) -> torch.Tensor:
     """K2's kernel (``seld_conv3x3_smallcin``): every tap and channel of a
-    tile staged once, Cin <= 10. The router sends Cin <= 8 here; K5's
+    tile staged once, Cin <= 10. bfloat16 at Cin <= 8 runs on the tensor
+    cores, the rest SIMT. The router sends Cin <= 8 here; K5's float32
     forward calls it for Cin 9-10 too, so that its pooled rows are the conv
     rows K5's backward recomputes. CPU tensors take
     :func:`conv2d_bn_relu_fpool_plain`."""
@@ -174,8 +189,9 @@ def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch
     b, cin, f, t = x.shape
     if cin > SMALLCIN_MAX_CIN:
         raise ValueError(f"K2's kernel stages at most {SMALLCIN_MAX_CIN} channels, got {cin}")
-    if pool_f > smallcin_max_pool_f(cin):
-        raise ValueError(f"pool_f {pool_f} > {smallcin_max_pool_f(cin)} at Cin {cin}")
+    top = smallcin_max_pool_f(cin, x.dtype)
+    if pool_f > top:
+        raise ValueError(f"pool_f {pool_f} > {top} at Cin {cin} in {x.dtype}")
     cout = w.shape[3]
     return _launch("conv3x3_smallcin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
                    b, cin, f, t, cout)

@@ -12,8 +12,8 @@ dispatch baseline, always runs. Sections:
   through ``ops/dual_quaternion.py``;
 - ``tcn``: one ResBlock's DQ convs (dilation 55), the pointwise conv and the
   dilated conv alone;
-- ``fused``: K10a (im2col) and K10b (per-tap windows) at stages 1-3, float32
-  scale and bias;
+- ``fused``: K2 (the smallcin kernel) at stage 1, K10a (im2col) and K10b
+  (per-tap windows) at stages 1-3, float32 scale and bias;
 - ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
 - ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
   tile) beside cuDNN's weight gradient on the same g_z;
@@ -133,7 +133,7 @@ def tcn(batch, device, shapes=FLAGSHIP):
 def fused(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
-        conv2d_im2col_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+        conv2d_im2col_bn_relu_fpool, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -148,6 +148,8 @@ def fused(batch, device, shapes=FLAGSHIP):
     x1 = _randn(device, batch, cin, f, t, dtype=bf16, gen=gen)
     w1 = assemble_dq_conv_kernel(_randn(device, 8, 3, 3, cin // 8, c // 8, gen=gen)).to(bf16)
     x1s = x1[:4]
+    yield f"fused1: K2 smallcin (K={9 * cin})", stage(conv2d_smallcin_bn_relu_fpool, pools[0]), \
+        (x1, w1)
     yield f"fused1: K10a im2col (K={9 * cin})", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \
         (x1, w1)
     yield f"fused1: K10a im2col (K={9 * cin}) b4", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \

@@ -57,6 +57,57 @@ def test_stft_kernel(gen, dtype, shape, nperseg, noverlap):
     _close(got, stft_mag_plain(x, nperseg, noverlap, out_dtype=dtype), dtype)
 
 
+# K1's bf16-output kernel (the tensor-core GEMM): frames ragged against its
+# 256-frame tiles, bins ragged against 64 (240, 244), nperseg 488 ragged against
+# its 32-tap chunks, n % 4 != 0 (element-by-element gathers), bf16 audio, and 40
+# rows, where each block walks two frame tiles
+STFT_TC_CASES = [((3, 120_000), 512, 112, torch.float32), ((2, 117_123), 480, 80, torch.float32),
+                 ((2, 100_000), 488, 88, torch.float32), ((3, 120_000), 512, 112, torch.bfloat16),
+                 ((2, 100_003), 488, 88, torch.bfloat16), ((40, 130_000), 512, 112, torch.float32)]
+
+
+@pytest.mark.parametrize("shape,nperseg,noverlap,xdt", STFT_TC_CASES)
+def test_stft_tc_kernel_ragged(gen, shape, nperseg, noverlap, xdt):
+    x = torch.randn(*shape, generator=gen, device="cuda").to(xdt)
+    got = stft_mag(x, nperseg, noverlap, out_dtype=torch.bfloat16)
+    assert launch_counts["stft_mag"] == 1
+    want = stft_mag_plain(x, nperseg, noverlap, out_dtype=torch.bfloat16)
+    _close(got, want, torch.bfloat16)
+
+
+# K2's bf16 kernel (Cin <= 8 on the tensor cores): Cin 5 and 8, ragged Cout tiles
+# (80, 200), ragged frame tiles (129, 300; 296 stages x by 16-byte loads), pf 2
+# and 8, and pf 80, the largest its shared memory takes
+SMALLCIN_TC_CASES = [(2, 5, 24, 300, 80, 8), (2, 8, 16, 296, 200, 2), (1, 8, 16, 129, 200, 8),
+                     (2, 5, 8, 129, 80, 2), (1, 8, 32, 300, 200, 8), (2, 5, 16, 296, 80, 8),
+                     (1, 3, 80, 300, 72, 80)]
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", SMALLCIN_TC_CASES)
+def test_conv_smallcin_tc_kernel_ragged(gen, b, cin, f, t, cout, pf):
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).bfloat16()
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+    assert launch_counts["conv3x3_smallcin"] == 1
+    _close(got, conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), torch.bfloat16)
+
+
+def test_tc_kernels_raise_past_their_shared_memory(gen):
+    """K1's bf16 kernel holds its table tile in shared memory and K2's its
+    halo: past either limit a CUDA tensor raises, without a launch."""
+    top = pool.smallcin_max_pool_f(3, torch.bfloat16)
+    x = torch.zeros(1, 3, top + 1, 16, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 3, 8, device="cuda", dtype=torch.bfloat16)
+    s = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError):
+        pool.conv2d_smallcin_bn_relu_fpool(x, w, s, s, top + 1)
+    with pytest.raises(ValueError):
+        stft_mag(torch.zeros(1, 4000, device="cuda"), 736, 336, out_dtype=torch.bfloat16)
+    assert all(v == 0 for v in launch_counts.values())
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", [(2, 5, 24, 300, 80, 8), (2, 8, 8, 130, 64, 2),
                                                (2, 24, 12, 300, 80, 4), (1, 16, 4, 129, 200, 2)])

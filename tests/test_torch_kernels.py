@@ -63,21 +63,17 @@ def test_stft_matches_pallas_and_scipy(rng, n):
     _close(got[1, 2], np.abs(z)[1:, :-1].T)
 
 
-@pytest.mark.parametrize("n", [12345, 32000])
-def test_stft_float32_matches_pallas_within_the_gemm_bound(rng, n):
-    """The plain version's float32 branch against the Pallas kernel, each
-    element within what two float32 DFT products of depth 512 may differ by:
-    per side and per real or imaginary part, gamma_513 * S with S the sum of
-    |audio| x |table column| over the frame (gamma_k = k u / (1 - k u), u =
-    2**-24, any summation order, the extra 1 for the table's own rounding),
-    times sqrt(2) for the magnitude, plus 2 u of it for the last square,
-    sum and root."""
-    nperseg, hop = 512, 400
-    x = rng.standard_normal((2, 3, n)).astype(np.float32)
-    got = stft_mag(torch.from_numpy(x), out_dtype=torch.float32).numpy()
-    want = np.asarray(stft_mag_pallas(jnp.asarray(x), out_dtype=jnp.float32, interpret=True))
-    t = n_frames(n, nperseg, 112)
-    right = max(0, (t - 1) * hop + nperseg // 2 - n)
+def _gemm_bound(x, want, nperseg=512, noverlap=112):
+    """What two float32 DFT products of depth nperseg over the audio x may
+    differ by at each output element (want the magnitudes): per side and per
+    real or imaginary part, gamma_(nperseg+1) * S with S the sum of |audio|
+    x |table column| over the frame (gamma_k = k u / (1 - k u), u = 2**-24,
+    any summation order, the extra 1 for the table's own rounding), times
+    sqrt(2) for the magnitude, plus 2 u of it for the last square, sum and
+    root."""
+    hop = nperseg - noverlap
+    t = n_frames(x.shape[-1], nperseg, noverlap)
+    right = max(0, (t - 1) * hop + nperseg // 2 - x.shape[-1])
     padded = np.pad(np.abs(x.astype(np.float64)), ((0, 0), (0, 0), (nperseg // 2, right)))
     frames = np.lib.stride_tricks.sliding_window_view(padded, nperseg, axis=-1)[..., ::hop, :][
         ..., :t, :]
@@ -85,20 +81,81 @@ def test_stft_float32_matches_pallas_within_the_gemm_bound(rng, n):
     s = frames @ (win / win.sum())                                   # (2, 3, T): max |column|
     u = 2.0 ** -24
     gamma = (nperseg + 1) * u / (1 - (nperseg + 1) * u)
-    bound = 2 * (np.sqrt(2.0) * gamma * s[..., None] + 2 * u * np.abs(want))
+    return 2 * (np.sqrt(2.0) * gamma * s[..., None] + 2 * u * np.abs(want))
+
+
+@pytest.mark.parametrize("n", [12345, 32000])
+def test_stft_float32_matches_pallas_within_the_gemm_bound(rng, n):
+    """The plain version's float32 branch against the Pallas kernel, each
+    element within :func:`_gemm_bound`."""
+    x = rng.standard_normal((2, 3, n)).astype(np.float32)
+    got = stft_mag(torch.from_numpy(x), out_dtype=torch.float32).numpy()
+    want = np.asarray(stft_mag_pallas(jnp.asarray(x), out_dtype=jnp.float32, interpret=True))
+    bound = _gemm_bound(x, want)
     err = np.abs(got.astype(np.float64) - want)
     assert got.shape == want.shape == bound.shape
     assert (err <= bound).all(), (err.max(), float((err / bound).max()))
 
 
 def test_stft_bf16_output_rounds_the_f32_result(rng):
-    """bfloat16 output is the float32 result rounded once (the JAX bf16 path
-    computes its DFT in bf16 and is held at bf16 tolerance instead)."""
-    x = torch.from_numpy(rng.standard_normal((2, 9000)).astype(np.float32))
-    f32 = stft_mag(x, out_dtype=torch.float32)
-    bf16 = stft_mag(x, out_dtype=torch.bfloat16)
-    assert bf16.dtype == torch.bfloat16
-    assert torch.equal(bf16, f32.to(torch.bfloat16))
+    """bfloat16 output: the plain version's bf16 branch against the Pallas
+    kernel's bf16 output on the same audio. Both round the frames and the
+    table to bf16 and sum the exact products in float32 (``stft.py:389``),
+    then round the float32 magnitude to bf16 once: each element within the
+    float32 GEMM bound (:func:`_gemm_bound`, times (1 + 2**-8)**2: a bf16
+    operand is within 2**-8 of its float value, so the |audio| x |table|
+    sums grow by at most that) plus one bf16 ulp of the result (2**-7
+    relative: two float32 values that close can round to neighbouring bf16
+    values)."""
+    x = rng.standard_normal((2, 3, 9000)).astype(np.float32)
+    got = stft_mag(torch.from_numpy(x), out_dtype=torch.bfloat16)
+    want = np.asarray(stft_mag_pallas(jnp.asarray(x), out_dtype=jnp.bfloat16, interpret=True)
+                      .astype(jnp.float32), np.float64)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy().astype(np.float64)
+    bound = (1 + 2.0 ** -8) ** 2 * _gemm_bound(x, want) + 2.0 ** -7 * np.abs(want)
+    err = np.abs(got - want)
+    assert got.shape == want.shape == bound.shape
+    assert (err <= bound).all(), (err.max(), float((err / bound).max()))
+    # the operands' rounding shows: float32 audio and table give other bf16 values
+    f32 = stft_mag(torch.from_numpy(x), out_dtype=torch.float32).to(torch.bfloat16)
+    assert not torch.equal(f32.float(), torch.from_numpy(got).float())
+
+
+@pytest.mark.parametrize("nperseg", [512, 488, 480])
+def test_dft_table_tiles_hold_the_bf16_table(nperseg):
+    """The bf16 kernel's tiled table: tile j, tap k holds the float32 table's
+    cos then sin columns of bins 64 j .. 64 j + 63 rounded to bf16, zero past
+    nperseg and past the last bin."""
+    from seld_tpu_torch.ops.kernels.stft import TC_BINS, TC_TAPS, dft_table, dft_table_tiles
+
+    tiles = dft_table_tiles(nperseg, "cpu")
+    table = dft_table(nperseg, "cpu").to(torch.bfloat16)
+    n_bins = nperseg // 2
+    n_tiles, k_pad = -(-n_bins // TC_BINS), -(-nperseg // TC_TAPS) * TC_TAPS
+    assert tiles.shape == (n_tiles, k_pad, 2 * TC_BINS) and tiles.dtype == torch.bfloat16
+    want = torch.zeros(n_tiles, k_pad, 2 * TC_BINS, dtype=torch.bfloat16)
+    for f in range(n_bins):
+        want[f // TC_BINS, :nperseg, f % TC_BINS] = table[:, f]
+        want[f // TC_BINS, :nperseg, TC_BINS + f % TC_BINS] = table[:, n_bins + f]
+    assert torch.equal(tiles, want)
+
+
+@pytest.mark.parametrize("cin", [1, 5, 8, 9])
+def test_smallcin_pool_limit_is_the_launched_kernels(cin):
+    """K2's pool_f limit in bf16 is the tensor-core kernel's at Cin <= 8: the
+    largest pool_f whose pool_f + 2 halo rows of 4 channel-pair rows of 168
+    words and 80 x 72 bf16 weights fit 232,448 bytes; at Cin 9 and in float32
+    it is the SIMT kernel's."""
+    from seld_tpu_torch.ops.kernels import conv2d_pool as pool
+
+    top = pool.smallcin_max_pool_f(cin, torch.bfloat16)
+    if cin > 8:
+        assert top == pool.smallcin_max_pool_f(cin) == pool.halo_max_pool_f(cin)
+        return
+    fits = lambda pf: 4 * (pf + 2) * 4 * 168 + 2 * 80 * 72 <= 232_448
+    assert fits(top) and not fits(top + 1) and top == 80
+    assert pool.smallcin_max_pool_f(cin) == pool.halo_max_pool_f(cin) == 48
 
 
 def _conv_inputs(rng, b, cin, f, t, cout):
