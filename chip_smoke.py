@@ -19,7 +19,7 @@ Phases, each printing its own lines:
    flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16 (K1's
    and K2's tensor-core kernels also at STFT_TC_CASES and SMALLCIN_TC_CASES:
    ragged in every grid dimension, K1 at an nperseg ragged against its tap
-   chunk and on bf16 audio, K2 at Cin 5 and 8 up to its largest pool), forward
+   chunk and on bf16 audio, K2 at Cin 5 and 8 up to pf 256 in chunks), forward
    outputs and every gradient, with the median time of each kernel, of its
    plain version and of one PyTorch library call where there is one; the
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
@@ -30,7 +30,8 @@ Phases, each printing its own lines:
    on random bf16 inputs, K5's F2 and g_z routing against the tile's rows
    bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
    addmm's device time from the profiler; K1's bf16 kernel and torch.stft,
-   K2, K3 and cuDNN's conv timed back to back (stream_ms);
+   K2, K3 and cuDNN's conv, K4 and scaled_dot_product_attention timed back
+   to back (stream_ms), with K4's floor of exponentials beside;
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
@@ -39,7 +40,7 @@ Phases, each printing its own lines:
    HOST_WINDOW requests from host memory, and a window of CARD_WINDOW
    requests with the audio on the card at batches 4 and 16, each reported as
    its total audio over its total wall time with the spread of its requests,
-   and one profiled request per batch with K1's, K2's and K3's device time
+   and one profiled request per batch with K1's, K2's, K3's and K4's device time
    read out (SERVING_WATCH);
 5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
    off, on the kernel path (K5, K4 + K6), on the plain path (plain stage 0,
@@ -223,15 +224,19 @@ PROFILE_WATCH = {"K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kern
                  "K7": ("hamilton_tc_kernel",)}
 # device kernels read out of the serving profiles (phase 4), by demangled name
 SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
-                 "K3": ("conv3x3_tc_kernel",)}
+                 "K3": ("conv3x3_tc_kernel",), "K4": ("flash_fwd_tc_kernel",)}
 R_CONFIG = ROOT / "config" / "SELD-TCN-S1-PHI_8ch.txt"   # R domain, CNN 64 / 64 / 64
 PROFILE_BATCH = 4
 # (B, Cin, F, T, Cout, pf) of the conv tile's ragged checks: Cin chunks ragged
-# (12, 24, 200 against 8 in float32 and 16 in bfloat16), Cout tiles ragged
-# (80, 200), frame tiles ragged (129, 300; 296 stages x by 16-byte loads,
-# T % 8 == 0), pf 2, 4 and 8
+# (12, 24, 40, 200 against 8 in float32 and 16 in bfloat16), Cout tiles ragged
+# against 64 (72, 80, 100, 200), frame tiles ragged (65, 129 and 257 one past a
+# multiple of the bf16 block tile's 64 frames, kTbT; 300; 296 stages x by 16-byte
+# loads, T % 8 == 0), pf 1-8: the block tile's 4 row slots in passes (pf 8),
+# 4 / pf windows a block (pf 1, 2), a short last pass (pf 3, 5), F not a
+# multiple of 4 (dh)
 TILE_CASES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
-              (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4)]
+              (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4), (1, 40, 12, 65, 72, 3),
+              (2, 16, 10, 257, 100, 5), (1, 24, 6, 257, 64, 1)]
 # K1's bf16 kernel: (audio shape, nperseg, noverlap, audio dtype). Frames ragged
 # against its 256-frame tiles (300, 293, 250, 325 frames); bins ragged against 64
 # (240, 244; 244 % 8 != 0 writes element by element); nperseg 488 ragged against
@@ -242,14 +247,15 @@ STFT_TC_CASES = [((3, 120_000), 512, 112, "float32"), ((2, 117_123), 480, 80, "f
                  ((2, 100_003), 488, 88, "bfloat16"), ((40, 130_000), 512, 112, "float32")]
 # K2's bf16 kernel: (B, Cin, F, T, Cout, pf) at Cin 5 and 8, Cout tiles ragged (80,
 # 200), frame tiles ragged (129, 300; 296 stages x by 16-byte loads), pf 2 and 8,
-# and pf 80, the largest its shared memory takes (conv2d_pool.smallcin_max_pool_f)
+# pf 80, the most one halo staging holds (conv2d_pool.smallcin_max_pool_f), and
+# pf 256, all of F in chunks of 80 rows
 SMALLCIN_TC_CASES = [(2, 5, 24, 300, 80, 8), (2, 8, 16, 296, 200, 2), (1, 8, 16, 129, 200, 8),
                      (2, 5, 8, 129, 80, 2), (1, 8, 32, 300, 200, 8), (2, 5, 16, 296, 80, 8),
-                     (1, 3, 80, 300, 72, 80)]
+                     (1, 3, 80, 300, 72, 80), (1, 8, 256, 300, 80, 256)]
 SERVE_ON_CARD_BATCHES = (4, 16)   # the serving forward with the audio already on the card
 CARD_WINDOW = 100   # timed requests per batch with the audio on the card
 HOST_WINDOW = 30    # timed requests from host memory (phase 4; phase 8a: each variant)
-PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,v3"
+PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,attn,v3"
 
 
 class SmokeFailure(RuntimeError):
@@ -267,6 +273,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def phase_environment(torch) -> str:
@@ -397,6 +411,19 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
+def launched_kernels(torch, fn) -> list:
+    """The device kernels one fn() call launches, by the profiler's name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
 def compare(torch, name, shape_tag, got, want, dtype, card, timed=None):
@@ -540,12 +567,13 @@ def phase_kernels(torch, card: str) -> dict:
     phase_tile(torch, card, randn)
 
     # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8 and 130 = 2 * 64 + 2,
-    # every head dim the kernel is built for
+    # every head dim the kernel is built for, and 8 and 24 (zero-padded to 16 and 32)
     attn_cases = [
         ("ragged", 2, 200, 3, 48),
         ("ragged", 1, 130, 2, 32),
         *(("ragged", b, t, h, d) for t in (130, 200)
-          for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48), (2, 1, 64), (1, 2, 128))),
+          for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48), (2, 1, 64), (1, 2, 128),
+                          (2, 3, 8), (1, 2, 24))),
         ("flagship", 2, 2400, 8, 48),
     ]
     for tag, b, t, h, d_head in attn_cases:
@@ -561,7 +589,16 @@ def phase_kernels(torch, card: str) -> dict:
             compare(torch, "flash_attn_lse", tag, lse, lse_ref, torch.float32, card)
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k_, v))
             if tag == "flagship" and dt == torch.bfloat16:
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+                lib_ms = time_ms(torch, lib)
+                # the exponentials' floor: one ex2 a score at the MUFU's 16 a clock an
+                # SM, at the card's largest SM clock
+                clock = max_sm_clock_hz()
+                exp_floor = b * h * t * t / (16 * torch.cuda.get_device_properties(0)
+                                             .multi_processor_count * clock) * 1e3
+                print(f"[kernel] flash_attn_fwd bfloat16 back to back: kernel "
+                      f"{stream_ms(torch, kern):.4f} ms, SDPA {stream_ms(torch, lib):.4f} ms; "
+                      f"exp floor {exp_floor:.4f} ms at {clock / 1e9:.3f} GHz ({card})")
                 record("flash_attn_fwd", d, timed, 4.0 * b * h * t * t * d_head,
                        nbytes(q, k_, v, o, lse), "bfloat16", lib_ms)
 
@@ -598,6 +635,31 @@ def phase_kernels(torch, card: str) -> dict:
                     grads.append([a.grad for a in leaves])
                 for n, a, w_ in zip(("dq", "dk", "dv"), *grads):
                     compare(torch, "flash_attn_train", f"{tag} {n}", a, w_, dt, card)
+
+    # K4's bf16 launch takes 128-query blocks where ceil(T / 128) * B * H blocks fill
+    # two waves of two an SM, else 64-query blocks (flash_attn_fwd.cu): the
+    # flagship's batch 2 takes the 64-query instance, the serving requests'
+    # batches 4 and 16 the 128-query one; each is held to the plain version there
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t, h, d_head = 2400, 8, 48
+    block_rows = set()
+    for b in (2, 4, 16):
+        q, k_, v = (randn(b, t, h, d_head).to(torch.bfloat16) for _ in range(3))
+        kern = lambda: flash_attention(q, k_, v, d_head ** -0.5)
+        want_rows = 128 if -(-t // 128) * b * h >= 4 * sms else 64
+        rows = {int(m.group(2) or m.group(4)) for n in launched_kernels(torch, kern)
+                if (m := re.search(r"flash_fwd_tc_kernel(?:<(\d+), ?(\d+)>|ILi(\d+)ELi(\d+)E)",
+                                   n))}
+        print(f"[kernel] flash_attn_fwd bfloat16 (B {b}, T {t}, H {h}, D {d_head}): "
+              f"{sorted(rows)}-query blocks launched, {want_rows} by the grid rule ({sms} SMs)")
+        require(rows == {want_rows}, f"flash_attn_fwd B {b}: launched {rows}-query blocks, "
+                f"the grid rule gives {want_rows}")
+        block_rows |= rows
+        (o, lse), (o_ref, lse_ref) = kern(), flash_attention_plain(q, k_, v, d_head ** -0.5)
+        compare(torch, "flash_attn_fwd", f"batch {b}", o, o_ref, torch.bfloat16, card)
+        compare(torch, "flash_attn_lse", f"batch {b}", lse, lse_ref, torch.float32, card)
+        del q, k_, v, o, lse, o_ref, lse_ref
+    require(block_rows == {64, 128}, f"flash_attn_fwd: only {block_rows}-query blocks checked")
 
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)

@@ -33,8 +33,9 @@ SIGNATURES = {
     "seld_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, tiles, out, rows, n, n_frames, nperseg, hop, k_pad, x_dtype, stream
     "seld_stft_mag_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, bias, out, batch, cin, f, t, cout, pf, chunk, dtype, stream
+    "seld_conv3x3_smallcin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scale, bias, out, batch, cin, f, t, cout, pf, dtype, stream
-    "seld_conv3x3_smallcin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "seld_conv3x3_widecin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "seld_conv3x3_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # p0, wk, scale, bias, out, batch, kg, f, t, tpad, cout, pf, dtype, stream

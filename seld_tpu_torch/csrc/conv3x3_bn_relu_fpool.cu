@@ -27,7 +27,12 @@
 // the conv's zero padding written at the F and T borders, so the inner loop
 // never branches. The pool rows are computed one after another into the
 // same accumulator and folded into a running max, so only one row of
-// accumulators lives in registers whatever pf is.
+// accumulators lives in registers whatever pf is. The smallcin kernels
+// stage the pool window's rows in chunks of at most kScChunkRows (80, on
+// the tensor cores) or simt_chunk_rows (48, or 21 for 16 staged channels):
+// what one staging of chunk + 2 halo rows and the weights fits in shared
+// memory. The running max is carried in registers from chunk to chunk, so
+// any pf dividing F runs; a window that fits one chunk is staged once.
 // - smallcin: all taps and channels (K = 9 x 8 = 72, or 9 x 16 for Cin
 //   9-10) and all pf + 2 halo rows are staged once per block. bfloat16 at
 //   Cin <= 8 (K2 on the serving path): smallcin_tc_kernel below, on the
@@ -38,25 +43,29 @@
 //   bytes). float32, and bfloat16 at Cin 9-10 (reached only by a direct
 //   call: the router sends Cin <= 8 here, and K5's bf16 forward takes the
 //   tile), stay SIMT.
-// - widecin: Cin is walked in chunks (8 in float32, conv_row_widecin; 16 in
-//   bfloat16, conv_rows_tc) for each pool row; each step stages that row's
-//   3-row halo and weight chunk. The train-mode stages 2-3 share both rows,
-//   so that their conv rows equal these bitwise. The staging zero-fills
-//   channels >= Cin, so a ragged last chunk is exact and any Cin works; the
-//   Python router sends only Cin % 8 == 0 here as K3.
+// - widecin: Cin is walked in chunks. float32: 8 channels
+//   (conv_row_widecin) for each pool row, each step staging that row's
+//   3-row halo and weight chunk. bfloat16: the block tile (TbPipe of
+//   conv3x3_tc.cuh), 16 channels a chunk for 4 conv rows at once, 64
+//   channels x 64 frames a block. The train-mode stages 2-3 share both
+//   tiles, so that their conv rows equal these bitwise. The staging
+//   zero-fills channels >= Cin, so a ragged last chunk is exact and any Cin
+//   works; the Python router sends only Cin % 8 == 0 here as K3.
 #include "conv3x3_tc.cuh"
 
 namespace {
 
 // CC: the channels staged at once (kCC, or 2 * kCC for the smallcin entry's
 // Cin 9-10; the widecin path walks chunks of kCC).
+// chunk (kSmall): pool rows per halo staging.
 template <typename T, bool kSmall, int CC = kCC>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
-               T* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf) {
+               T* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf,
+               int chunk) {
   extern __shared__ float smem[];
-  const int rows = kSmall ? pf + 2 : 3;
+  const int rows = kSmall ? min(pf, chunk) + 2 : 3;
   float* xs = smem;                   // [rows][CC][kXW]
   float* ws = smem + rows * CC * kXW; // [9][CC][kBCO]
 
@@ -84,19 +93,20 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j) best[i][j] = 0.f;
 
-  if (kSmall) {
-    stage_w<CC>(ws, w, 0, co0, cin, cout);
-    stage_x<CC>(xs, xb, rows, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
-    __syncthreads();
-  }
+  if (kSmall) stage_w<CC>(ws, w, 0, co0, cin, cout);
   for (int r = 0; r < pf; ++r) {
+    if (kSmall && r % chunk == 0) {   // the next chunk's rows and their halo
+      if (r > 0) __syncthreads();     // the previous chunk's readers are done
+      stage_x<CC>(xs, xb, min(chunk, pf - r) + 2, fo * pf + r - 1, 0, t0, cin, f_dim, t_dim);
+      __syncthreads();
+    }
     float acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     if (kSmall) {
-      conv_rows<CC>(xs, ws, r, tx, ty, acc);
+      conv_rows<CC>(xs, ws, r % chunk, tx, ty, acc);
     } else {
       conv_row_widecin(xs, ws, xb, w, fo * pf + r, co0, t0, cin, f_dim, t_dim, cout, tx, ty,
                        acc);
@@ -121,65 +131,80 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// K3's bfloat16 body: conv rows fo * pf .. + pf - 1 on the tensor-core tile,
-// each folded into the running max of relu(acc * scale + bias).
-__global__ void __launch_bounds__(kTcThreads, 2)
+// K3's bfloat16 body on the block tile (TbPipe): a block takes
+// tb_block_rows(pf) conv rows (one pool window, or 4 / pf windows where pf
+// is 1 or 2) of 64 channels x 64 frames. Each warp keeps the running max of
+// relu(acc * scale + bias) over its rows in shared memory, rounded to bf16
+// (rounding is monotone, so the max of the rounded rows is the rounded max
+// of the rows: bit for bit what one rounding at the end gives); the block
+// then takes the max over the row slots of each window and stores it along
+// the frames.
+__global__ void __launch_bounds__(kTcThreads, 1)
 conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   const float* __restrict__ scale, const float* __restrict__ bias,
                   bf16* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
+  // per row slot, [64][kTbBP] bf16 maxima, after the ring
+  bf16* best = reinterpret_cast<bf16*>(tc_smem + tb_ring_bytes<false>());
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int t0 = blockIdx.x * kTcT;
+  const int slot = warp / 2, half = warp % 2;
+  const int t0 = blockIdx.x * kTbT;
   const int co0 = blockIdx.y * kTcCo;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.z / f_out;
-  const int fo = blockIdx.z % f_out;
+  const int rows = tb_block_rows(pf);
+  const int blocks_f = ceil_div(f_dim, rows);
+  const int b = blockIdx.z / blocks_f;
+  const int f_first = (blockIdx.z % blocks_f) * rows;
+  const int n_rows = min(rows, f_dim - f_first);
   const bf16* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
 
-  // relu output is >= 0, so 0 is the identity of the running max
-  float best[2][4][4];
+  TbPipe<false> pipe(reinterpret_cast<bf16*>(tc_smem), xb, w, f_first, n_rows, co0, t0, cin,
+                     f_dim, t_dim, cout);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
+    bf16* bs = best + slot * kTcCo * kTbBP;
+    const bool first = pipe.row < kTbSlots;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int h = 0; h < 2; ++h) {
+        const int m = tb_m(lane, mi, 2 * h);
+        // read here, not held in registers across the pipeline
+        const int co = min(co0 + m, cout - 1);
+        const float sc = __ldg(scale + co), bi = __ldg(bias + co);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) best[mi][ni][e] = 0.f;
-
-  conv_rows_tc<false>(reinterpret_cast<bf16*>(tc_smem), xb, w, fo * pf, pf, co0, t0, cin,
-                      f_dim, t_dim, cout, [&](int, const float (&acc)[2][4][4]) {
-#pragma unroll
-                        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                          for (int h = 0; h < 2; ++h) {
-                            // read here, not held in registers across the pipeline
-                            const int co = min(co0 + tc_m(warp_m, lane, mi, 2 * h), cout - 1);
-                            const float sc = __ldg(scale + co), bi = __ldg(bias + co);
-#pragma unroll
-                            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                              for (int e2 = 0; e2 < 2; ++e2)
-                                best[mi][ni][2 * h + e2] = fmaxf(
-                                    best[mi][ni][2 * h + e2],
-                                    bn_relu(acc[mi][ni][2 * h + e2], sc, bi));
-                          }
-                      });
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = co0 + tc_m(warp_m, lane, mi, 2 * h);
-      if (co >= cout) continue;
-      bf16* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int t = t0 + tc_n(warp_n, lane, ni, e2);
-          if (t < t_dim) orow[t] = __float2bfloat16(best[mi][ni][2 * h + e2]);
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          auto* p = reinterpret_cast<__nv_bfloat162*>(bs + m * kTbBP + tb_n(half, lane, ni, 0));
+          const __nv_bfloat162 v = __floats2bfloat162_rn(bn_relu(acc[mi][ni][2 * h], sc, bi),
+                                                         bn_relu(acc[mi][ni][2 * h + 1], sc, bi));
+          *p = first ? v : __hmax2(*p, v);
         }
+      }
+  }
+
+  __syncthreads();   // every slot's maxima are in place
+  // slot s holds rows of window s / spw (its rows s, s + 4, ... for pf >= 4)
+  const int spw = min(pf, kTbSlots), windows = n_rows / pf;
+  const int f_out = f_dim / pf, fo0 = f_first / pf;
+  const bool pairs = t_dim % 2 == 0;
+  for (int e = threadIdx.x; e < windows * kTcCo * (kTbT / 2); e += kTcThreads) {
+    const int n = 2 * (e % (kTbT / 2)), rest = e / (kTbT / 2);
+    const int m = rest % kTcCo, wd = rest / kTcCo;
+    const int co = co0 + m, t = t0 + n;
+    if (co >= cout || t >= t_dim) continue;
+    __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+        best + (wd * spw * kTcCo + m) * kTbBP + n);
+    for (int s2 = 1; s2 < spw; ++s2)
+      v = __hmax2(v, *reinterpret_cast<const __nv_bfloat162*>(
+                         best + ((wd * spw + s2) * kTcCo + m) * kTbBP + n));
+    bf16* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo0 + wd) * t_dim;
+    if (pairs) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + t) = v;
+    } else {
+      orow[t] = v.x;
+      if (t + 1 < t_dim) orow[t + 1] = v.y;
     }
+  }
 }
 
 // ---- K2 in bfloat16, Cin <= 8: the smallcin tensor-core kernel ----------------
@@ -204,16 +229,33 @@ constexpr int kScWP = kTcCo + 8;            // padded weight row (144 B: ldmatri
 constexpr int kScRowWords = kScPairs * kTcXS;   // words per staged conv row
 constexpr int kScInFlight = 4;              // halo items a thread loads before storing
 
-__host__ __device__ constexpr size_t smallcin_tc_smem_bytes(int pf) {
-  return sizeof(uint32_t) * (pf + 2) * kScRowWords + sizeof(bf16) * kScK * kScWP;
+__host__ __device__ constexpr size_t smallcin_tc_smem_bytes(int rows) {
+  return sizeof(uint32_t) * (rows + 2) * kScRowWords + sizeof(bf16) * kScK * kScWP;
 }
 
+// Pool rows per halo staging: the most whose rows + 2 staged rows and the
+// weights fit one block. The tensor-core kernel: 80. SIMT: 48 (capped as
+// conv2d_pool.MAX_POOL_F), or 21 for 16 staged channels. Python's
+// conv2d_pool.smallcin_max_pool_f gives the same numbers.
+constexpr int kScChunkRows =
+    static_cast<int>((kBlockSmem - sizeof(bf16) * kScK * kScWP) /
+                     (sizeof(uint32_t) * kScRowWords)) - 2;
+constexpr int kMaxPoolRows = 48;
+template <int CC>
+constexpr int simt_chunk_rows() {
+  const int rows = static_cast<int>((kBlockSmem - sizeof(float) * 9 * CC * kBCO) /
+                                    (sizeof(float) * CC * kXW)) - 2;
+  return rows < kMaxPoolRows ? rows : kMaxPoolRows;
+}
+
+// The window's pf rows go in stagings of `chunk` rows (one where pf <= chunk).
 __global__ void __launch_bounds__(kTcThreads, 2)
 smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const float* __restrict__ scale, const float* __restrict__ bias,
-                   bf16* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf) {
+                   bf16* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf,
+                   int chunk) {
   extern __shared__ __align__(16) unsigned char sc_smem[];
-  const int rows = pf + 2;
+  const int rows = min(pf, chunk) + 2;
   uint32_t* xs = reinterpret_cast<uint32_t*>(sc_smem);                // [rows][4][kTcXS]
   bf16* ws = reinterpret_cast<bf16*>(xs + rows * kScRowWords);      // [kScK][kScWP]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -223,7 +265,6 @@ smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int f_out = f_dim / pf;
   const int b = blockIdx.z / f_out;
   const int fo = blockIdx.z % f_out;
-  const int f_first = fo * pf - 1;
   const size_t plane = static_cast<size_t>(f_dim) * t_dim;
   const uint16_t* xb = reinterpret_cast<const uint16_t*>(x) + b * cin * plane;
 
@@ -247,69 +288,6 @@ smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                               : __float2bfloat16(0.f);
     }
   }
-  // halo: xs[rr][p][s] holds channels (2p, 2p + 1) of input row f_first + rr
-  // at frame t0 - 8 + s, zero outside the input and past Cin
-  if (t_dim % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    // kScInFlight items a thread in flight: all loads, then all stores
-    const int items = rows * kScPairs * kTcGroups;
-    for (int e0 = threadIdx.x; e0 < items; e0 += kScInFlight * kTcThreads) {
-      uint4 lo[kScInFlight], hi[kScInFlight];
-#pragma unroll
-      for (int j = 0; j < kScInFlight; ++j) {
-        const int e = e0 + j * kTcThreads;
-        const int g = e % kTcGroups, rest = e / kTcGroups;
-        const int ci = 2 * (rest % kScPairs), f = f_first + rest / kScPairs;
-        const int t = t0 - 8 + 8 * g;
-        lo[j] = hi[j] = make_uint4(0u, 0u, 0u, 0u);
-        if (e < items && f >= 0 && f < f_dim && t >= 0 && t < t_dim && ci < cin) {
-          const uint16_t* src = xb + ci * plane + static_cast<size_t>(f) * t_dim + t;
-          lo[j] = __ldg(reinterpret_cast<const uint4*>(src));
-          if (ci + 1 < cin) hi[j] = __ldg(reinterpret_cast<const uint4*>(src + plane));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kScInFlight; ++j) {
-        const int e = e0 + j * kTcThreads;
-        if (e >= items) break;
-        const int g = e % kTcGroups, rest = e / kTcGroups;
-        uint4* dst = reinterpret_cast<uint4*>(xs + rest * kTcXS + 8 * g);
-        const uint4 l = lo[j], h = hi[j];
-        dst[0] = make_uint4(__byte_perm(l.x, h.x, 0x5410), __byte_perm(l.x, h.x, 0x7632),
-                            __byte_perm(l.y, h.y, 0x5410), __byte_perm(l.y, h.y, 0x7632));
-        dst[1] = make_uint4(__byte_perm(l.z, h.z, 0x5410), __byte_perm(l.z, h.z, 0x7632),
-                            __byte_perm(l.w, h.w, 0x5410), __byte_perm(l.w, h.w, 0x7632));
-      }
-    }
-  } else {   // frames t0 - 1 .. t0 + kTcT one word at a time
-    for (int e = threadIdx.x; e < rows * kScPairs * kTcXT; e += kTcThreads) {
-      const int s = e % kTcXT, rest = e / kTcXT;
-      const int ci = 2 * (rest % kScPairs), f = f_first + rest / kScPairs;
-      const int t = t0 - 1 + s;
-      uint32_t v = 0;
-      if (f >= 0 && f < f_dim && t >= 0 && t < t_dim && ci < cin) {
-        const uint16_t* src = xb + ci * plane + static_cast<size_t>(f) * t_dim + t;
-        v = __ldg(src);
-        if (ci + 1 < cin) v |= static_cast<uint32_t>(__ldg(src + plane)) << 16;
-      }
-      xs[rest * kTcXS + s + 7] = v;
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  // A fragments of the five steps: a[s][mi] covers Cout warp_m * 32 + 16 mi ..
-  // and weight rows 16 s .. 16 s + 15 (ldmatrix.trans of ws[k][co])
-  uint32_t a[kScSteps][2][4];
-  {
-    const int q = lane / 8, r = lane % 8;
-#pragma unroll
-    for (int st = 0; st < kScSteps; ++st)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4_t(ws + (st * 16 + (q / 2) * 8 + r) * kScWP + warp_m * 32 + mi * 16 + (q % 2) * 8,
-                  a[st][mi]);
-  }
-
   // relu output is >= 0, so 0 is the identity of the running max
   float best[2][4][4];
 #pragma unroll
@@ -322,41 +300,110 @@ smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   // B of tap (dy, dx) at n8 tile ni: channels (2q, 2q + 1) at frame
   // t0 + n + dx - 1 of conv row r's input row r + dy (q = lane % 4, n = lane / 4)
   const uint32_t* xq = xs + (lane % 4) * kTcXS + warp_n * 32 + lane / 4 + 7;
-#pragma unroll 1
-  for (int r = 0; r < pf; ++r) {
-    float acc[2][4][4];
+  uint32_t a[kScSteps][2][4];
+  for (int r0 = 0;; r0 += chunk) {   // the window's rows in chunks, best carried
+    const int rows_c = min(chunk, pf - r0);
+    const int f_first = fo * pf + r0 - 1;
+    if (r0 > 0) __syncthreads();   // the previous chunk's B loads are done
+    // halo: xs[rr][p][s] holds channels (2p, 2p + 1) of input row f_first + rr
+    // at frame t0 - 8 + s, zero outside the input and past Cin
+    if (t_dim % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+      // kScInFlight items a thread in flight: all loads, then all stores
+      const int items = (rows_c + 2) * kScPairs * kTcGroups;
+      for (int e0 = threadIdx.x; e0 < items; e0 += kScInFlight * kTcThreads) {
+        uint4 lo[kScInFlight], hi[kScInFlight];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+        for (int j = 0; j < kScInFlight; ++j) {
+          const int e = e0 + j * kTcThreads;
+          const int g = e % kTcGroups, rest = e / kTcGroups;
+          const int ci = 2 * (rest % kScPairs), f = f_first + rest / kScPairs;
+          const int t = t0 - 8 + 8 * g;
+          lo[j] = hi[j] = make_uint4(0u, 0u, 0u, 0u);
+          if (e < items && f >= 0 && f < f_dim && t >= 0 && t < t_dim && ci < cin) {
+            const uint16_t* src = xb + ci * plane + static_cast<size_t>(f) * t_dim + t;
+            lo[j] = __ldg(reinterpret_cast<const uint4*>(src));
+            if (ci + 1 < cin) hi[j] = __ldg(reinterpret_cast<const uint4*>(src + plane));
+          }
+        }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    const uint32_t* xr = xq + r * kScRowWords;
-#pragma unroll
-    for (int st = 0; st < kScSteps; ++st) {
-      const int tap0 = 2 * st, tap1 = min(2 * st + 1, 8);   // tap 9: zero weights
-      const uint32_t* x0 = xr + (tap0 / 3) * kScRowWords + tap0 % 3;
-      const uint32_t* x1 = xr + (tap1 / 3) * kScRowWords + tap1 % 3;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint32_t b0 = x0[ni * 8], b1 = x1[ni * 8];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[st][mi], b0, b1);
+        for (int j = 0; j < kScInFlight; ++j) {
+          const int e = e0 + j * kTcThreads;
+          if (e >= items) break;
+          const int g = e % kTcGroups, rest = e / kTcGroups;
+          uint4* dst = reinterpret_cast<uint4*>(xs + rest * kTcXS + 8 * g);
+          const uint4 l = lo[j], h = hi[j];
+          dst[0] = make_uint4(__byte_perm(l.x, h.x, 0x5410), __byte_perm(l.x, h.x, 0x7632),
+                              __byte_perm(l.y, h.y, 0x5410), __byte_perm(l.y, h.y, 0x7632));
+          dst[1] = make_uint4(__byte_perm(l.z, h.z, 0x5410), __byte_perm(l.z, h.z, 0x7632),
+                              __byte_perm(l.w, h.w, 0x5410), __byte_perm(l.w, h.w, 0x7632));
+        }
+      }
+    } else {   // frames t0 - 1 .. t0 + kTcT one word at a time
+      for (int e = threadIdx.x; e < (rows_c + 2) * kScPairs * kTcXT; e += kTcThreads) {
+        const int s = e % kTcXT, rest = e / kTcXT;
+        const int ci = 2 * (rest % kScPairs), f = f_first + rest / kScPairs;
+        const int t = t0 - 1 + s;
+        uint32_t v = 0;
+        if (f >= 0 && f < f_dim && t >= 0 && t < t_dim && ci < cin) {
+          const uint16_t* src = xb + ci * plane + static_cast<size_t>(f) * t_dim + t;
+          v = __ldg(src);
+          if (ci + 1 < cin) v |= static_cast<uint32_t>(__ldg(src + plane)) << 16;
+        }
+        xs[rest * kTcXS + s + 7] = v;
       }
     }
+
+    cp_async_wait_all();
+    __syncthreads();
+    if (r0 == 0) {
+      // A fragments of the five steps: a[s][mi] covers Cout warp_m * 32 + 16 mi ..
+      // and weight rows 16 s .. 16 s + 15 (ldmatrix.trans of ws[k][co])
+      const int q = lane / 8, r = lane % 8;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int st = 0; st < kScSteps; ++st)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int co = min(co0 + tc_m(warp_m, lane, mi, 2 * h), cout - 1);
-        const float sc = __ldg(scale + co), bi = __ldg(bias + co);
+        for (int mi = 0; mi < 2; ++mi)
+          ldsm_x4_t(ws + (st * 16 + (q / 2) * 8 + r) * kScWP + warp_m * 32 + mi * 16 +
+                        (q % 2) * 8,
+                    a[st][mi]);
+    }
+#pragma unroll 1
+    for (int r = 0; r < rows_c; ++r) {
+      float acc[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int e2 = 0; e2 < 2; ++e2)
-            best[mi][ni][2 * h + e2] =
-                fmaxf(best[mi][ni][2 * h + e2], bn_relu(acc[mi][ni][2 * h + e2], sc, bi));
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      const uint32_t* xr = xq + r * kScRowWords;
+#pragma unroll
+      for (int st = 0; st < kScSteps; ++st) {
+        const int tap0 = 2 * st, tap1 = min(2 * st + 1, 8);   // tap 9: zero weights
+        const uint32_t* x0 = xr + (tap0 / 3) * kScRowWords + tap0 % 3;
+        const uint32_t* x1 = xr + (tap1 / 3) * kScRowWords + tap1 % 3;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const uint32_t b0 = x0[ni * 8], b1 = x1[ni * 8];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[st][mi], b0, b1);
+        }
       }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int co = min(co0 + tc_m(warp_m, lane, mi, 2 * h), cout - 1);
+          const float sc = __ldg(scale + co), bi = __ldg(bias + co);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2)
+              best[mi][ni][2 * h + e2] =
+                  fmaxf(best[mi][ni][2 * h + e2], bn_relu(acc[mi][ni][2 * h + e2], sc, bi));
+        }
+    }
+    if (r0 + chunk >= pf) break;
   }
 
   // out (B, Cout, F / pf, T): two frames per store where T is even
@@ -385,39 +432,42 @@ smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 cudaError_t launch_smallcin_tc(const void* x, const void* w, const float* scale,
                                const float* bias, void* out, int batch, int cin, int f_dim,
-                               int t_dim, int cout, int pf, cudaStream_t stream) {
-  const size_t smem = smallcin_tc_smem_bytes(pf);
+                               int t_dim, int cout, int pf, int chunk, cudaStream_t stream) {
+  if (chunk > kScChunkRows) return cudaErrorInvalidValue;
+  const size_t smem = smallcin_tc_smem_bytes(min(pf, chunk));
   cudaError_t err = set_smem(smallcin_tc_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(ceil_div(t_dim, kTcT), ceil_div(cout, kTcCo), batch * (f_dim / pf));
   smallcin_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, bias,
-      static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf);
+      static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf, chunk);
   return cudaGetLastError();
 }
 
 template <typename T, bool kSmall, int CC>
 cudaError_t launch_cc(const void* x, const void* w, const float* scale, const float* bias,
                       void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
-                      cudaStream_t stream) {
-  const int rows = kSmall ? pf + 2 : 3;
+                      int chunk, cudaStream_t stream) {
+  if (kSmall && chunk > simt_chunk_rows<CC>()) return cudaErrorInvalidValue;
+  const int rows = kSmall ? min(pf, chunk) + 2 : 3;
   const size_t smem = sizeof(float) * (rows * CC * kXW + 9 * CC * kBCO);
   cudaError_t err = set_smem(conv3x3_kernel<T, kSmall, CC>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
   conv3x3_kernel<T, kSmall, CC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, bias,
-      static_cast<T*>(out), cin, f_dim, t_dim, cout, pf);
+      static_cast<T*>(out), cin, f_dim, t_dim, cout, pf, chunk);
   return cudaGetLastError();
 }
 
 cudaError_t launch_tc(const void* x, const void* w, const float* scale, const float* bias,
                       void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
                       cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<false>();
+  constexpr size_t smem = tb_ring_bytes<false>() + sizeof(bf16) * kTbSlots * kTcCo * kTbBP;
   cudaError_t err = set_smem(conv3x3_tc_kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(t_dim, kTcT), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+  dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
+            batch * ceil_div(f_dim, tb_block_rows(pf)));
   conv3x3_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, bias,
       static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf);
@@ -427,36 +477,38 @@ cudaError_t launch_tc(const void* x, const void* w, const float* scale, const fl
 template <typename T, bool kSmall>
 cudaError_t launch(const void* x, const void* w, const float* scale, const float* bias,
                    void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
-                   cudaStream_t stream) {
+                   int chunk, cudaStream_t stream) {
   if constexpr (!kSmall && sizeof(T) == 2) {
     return launch_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, stream);
   } else {
     if (kSmall && sizeof(T) == 2 && cin <= kCC)
       return launch_smallcin_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf,
-                                stream);
+                                chunk, stream);
     if (kSmall && cin > kCC)
       return launch_cc<T, true, 2 * kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim,
-                                         cout, pf, stream);
+                                         cout, pf, chunk, stream);
     return launch_cc<T, kSmall, kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout,
-                                     pf, stream);
+                                     pf, chunk, stream);
   }
 }
 
 template <bool kSmall>
 int dispatch(const void* x, const void* w, const void* scale, const void* bias, void* out,
-             int batch, int cin, int f_dim, int t_dim, int cout, int pf, int dtype,
-             void* stream) {
+             int batch, int cin, int f_dim, int t_dim, int cout, int pf, int chunk,
+             int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto sc = static_cast<const float*>(scale);
   auto bi = static_cast<const float*>(bias);
-  if (cin < 1 || cout < 1 || pf < 1 || f_dim % pf || (kSmall && cin > kMaxStagedCin))
+  if (cin < 1 || cout < 1 || pf < 1 || f_dim % pf || chunk < 1 ||
+      (kSmall && cin > kMaxStagedCin))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == kF32)
-    err = launch<float, kSmall>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, s);
+    err = launch<float, kSmall>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
+                                s);
   else if (dtype == kBF16)
     err = launch<__nv_bfloat16, kSmall>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout,
-                                        pf, s);
+                                        pf, chunk, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -464,13 +516,15 @@ int dispatch(const void* x, const void* w, const void* scale, const void* bias, 
 
 }  // namespace
 
-// Cin <= 10: every tap and channel staged once (K = 72, or 144 past Cin 8).
+// Cin <= 10: every tap and channel staged once (K = 72, or 144 past Cin 8);
+// a pool window's rows staged `chunk` at a time (conv2d_pool.smallcin_pool_chunks:
+// at most kScChunkRows, or simt_chunk_rows, else cudaErrorInvalidValue).
 extern "C" int seld_conv3x3_smallcin(const void* x, const void* w, const void* scale,
                                      const void* bias, void* out, int batch, int cin,
-                                     int f_dim, int t_dim, int cout, int pf, int dtype,
-                                     void* stream) {
-  return dispatch<true>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, dtype,
-                        stream);
+                                     int f_dim, int t_dim, int cout, int pf, int chunk,
+                                     int dtype, void* stream) {
+  return dispatch<true>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
+                        dtype, stream);
 }
 
 // Cin walked in chunks (8 in float32, 16 on bfloat16's tensor cores), the
@@ -479,6 +533,6 @@ extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* sc
                                     const void* bias, void* out, int batch, int cin,
                                     int f_dim, int t_dim, int cout, int pf, int dtype,
                                     void* stream) {
-  return dispatch<false>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, dtype,
-                         stream);
+  return dispatch<false>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, 1,
+                         dtype, stream);
 }

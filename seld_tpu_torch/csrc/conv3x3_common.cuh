@@ -30,6 +30,7 @@ constexpr int kThreads = 256;
 // Widest Cin of the 2 * kCC staging (K5 and K2's smallcin entry): the
 // reference's 3 * Cin <= 32; channels Cin..2 * kCC - 1 are staged as zeros.
 constexpr int kMaxStagedCin = 10;
+constexpr size_t kBlockSmem = 232448;   // shared memory one block may use on the H100
 
 // acc[i][j] += sum over (ci, dy, dx) of w[dy][dx][ci][co_i] * x[row0+dy][ci][t_j+dx]
 // xs: [rows][CC][kXW] with row0 the first of the 3 conv rows; ws: [9][CC][kBCO].

@@ -12,7 +12,7 @@
 // (B, Cout, F/pf, T); every pass reads only t < T.
 //
 // - F1  seld_ct_train_stats: the conv rows with the serving kernel's row
-//       (conv_row_widecin in float32, conv_rows_tc in bfloat16: same Cin
+//       (conv_row_widecin in float32, the block tile in bfloat16: same Cin
 //       chunk order, same products, so bitwise the values F2 pools), written
 //       once as pre (B, Cout, F, T) float, and per-channel partial sums and
 //       sums of squares.
@@ -28,7 +28,7 @@
 //       (b, f, t) of gz[b][co][f][t] * h[b][ci][f + dy - 1][t + dx - 1].
 // - B3  seld_ct_train_dx: dh = the transposed conv of gz with w (taps
 //       flipped, Cin and Cout swapped): conv_row_widecin with the weights
-//       staged by stage_w_t in float32, conv_rows_tc<true> (the weights
+//       staged by stage_w_t in float32, TbPipe<true> (the weights
 //       staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
 // - the sums (F1, B1, dW) go through per-block partial rows and
 //   launch_reduce: a fixed order in double, no atomics, so a run repeats
@@ -41,9 +41,10 @@
 // which pools on the fly and keeps no pre-activation), B2 and B3 one product
 // each; the TPU kernel's recomputes in B1, B2 and B3 become reads of pre and
 // gz, which an 80 GB card holds (944 MB of pre and 472 MB of bf16 gz for
-// that stage). Design: F1 and B3 are K3's tile (64 channels x 128 frames,
-// 256 threads, halo and weights in shared memory: SIMT in float32, the
-// tensor-core tile of conv3x3_tc.cuh in bfloat16); B1 and B2's gz pass
+// that stage). Design: F1 and B3 are K3's tile (256 threads, halo and
+// weights in shared memory: SIMT in float32, 64 channels x 128 frames; the
+// tensor-core block tile of conv3x3_tc.cuh in bfloat16, 64 channels x 64
+// frames x 4 rows a pass); B1 and B2's gz pass
 // stream one (b, channel, pooled row) per block; the dW pass gives each
 // block a share of the depth, split over the (b, f) rows and, where B * F
 // is small (stage 3: 8 rows at batch 2), over frames, so that every SM
@@ -305,92 +306,105 @@ ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
-// F1's bfloat16 body: K3's tensor-core rows (conv_rows_tc, the same rows,
-// chunks and fragments as conv3x3_tc_kernel, so pre equals F2's conv rows
-// bitwise), written once as pre, with per-channel sums over the block's
-// frames in a fixed order (tc_channel_sums).
-__global__ void __launch_bounds__(kTcThreads, 2)
+// F1's bfloat16 body: K3's block tile (TbPipe, the same rows of a
+// block, chunks and fragments as conv3x3_tc_kernel, so pre equals F2's conv
+// rows bitwise), written once as pre, with per-channel sums over the
+// block's rows and frames in a fixed order (tb_add_sums, tb_channel_sums).
+__global__ void __launch_bounds__(kTcThreads, 1)
 ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float* __restrict__ pre,
                    float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
                    int pf) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int t0 = blockIdx.x * kTcT;
+  float* red = reinterpret_cast<float*>(tc_smem + tb_ring_bytes<false>());
+  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
+  const int t0 = blockIdx.x * kTbT;
   const int co0 = blockIdx.y * kTcCo;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const int rows = tb_block_rows(pf);
+  const int blocks_f = ceil_div(f_dim, rows);
+  const int b = blockIdx.z / blocks_f, f_first = (blockIdx.z % blocks_f) * rows;
   const bf16* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
 
-  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  conv_rows_tc<false>(
-      reinterpret_cast<bf16*>(tc_smem), hb, w, fo * pf, pf, co0, t0, cin, f_dim, t_dim, cout,
-      [&](int r, const float (&acc)[2][4][4]) {
-        const int f = fo * pf + r;
+  const int n_rows = min(rows, f_dim - f_first);
+  tb_zero_sums(red);
+  TbPipe<false> pipe(reinterpret_cast<bf16*>(tc_smem), hb, w, f_first, n_rows, co0, t0, cin,
+                     f_dim, t_dim, cout);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
+    const int f = f_first + pipe.row;
+    float s1[4][2] = {}, s2[4][2] = {};
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int co = co0 + tc_m(warp_m, lane, mi, 2 * hh);
-            if (co >= cout) continue;
-            float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int co = co0 + tb_m(lane, mi, 2 * hh);
+        if (co >= cout) continue;
+        float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              const int t = t0 + tc_n(warp_n, lane, ni, 0);
-              const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
-              if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(prow + t) % 8 == 0) {
-                *reinterpret_cast<float2*>(prow + t) = make_float2(v0, v1);
-              } else {
-                if (t < t_dim) prow[t] = v0;
-                if (t + 1 < t_dim) prow[t + 1] = v1;
-              }
-              if (t < t_dim) {
-                s1[mi][hh] += v0;
-                s2[mi][hh] = fmaf(v0, v0, s2[mi][hh]);
-              }
-              if (t + 1 < t_dim) {
-                s1[mi][hh] += v1;
-                s2[mi][hh] = fmaf(v1, v1, s2[mi][hh]);
-              }
-            }
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          const int t = t0 + tb_n(half, lane, ni, 0);
+          const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+          if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(prow + t) % 8 == 0) {
+            *reinterpret_cast<float2*>(prow + t) = make_float2(v0, v1);
+          } else {
+            if (t < t_dim) prow[t] = v0;
+            if (t + 1 < t_dim) prow[t + 1] = v1;
           }
-      });
-  // conv_rows_tc ended synchronised: its buffers are free for the reduction
+          if (t < t_dim) {
+            s1[mi][hh] += v0;
+            s2[mi][hh] = fmaf(v0, v0, s2[mi][hh]);
+          }
+          if (t + 1 < t_dim) {
+            s1[mi][hh] += v1;
+            s2[mi][hh] = fmaf(v1, v1, s2[mi][hh]);
+          }
+        }
+      }
+    tb_add_sums(red, s1, s2);
+  }
   float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-  tc_channel_sums(reinterpret_cast<float*>(tc_smem), s1, s2, co0, cout, row);
+  tb_channel_sums(red, co0, cout, row);
 }
 
-// dh's bfloat16 body: conv row f of gz (K = Cout channels) with the
-// transposed, flipped weights on the tensor-core tile, stored in bf16.
-__global__ void __launch_bounds__(kTcThreads, 2)
+// dh's bfloat16 body: conv rows f0 .. f0 + 3 of gz (K = Cout channels) with
+// the transposed, flipped weights on the block tile, stored in bf16.
+__global__ void __launch_bounds__(kTcThreads, 1)
 ct_dx_tc_kernel(const bf16* __restrict__ gz, const bf16* __restrict__ w, bf16* __restrict__ dh,
                 int cin, int f_dim, int t_dim, int cout) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int warp_m = warp / 4, warp_n = warp % 4;
-  const int t0 = blockIdx.x * kTcT;
+  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
+  const int t0 = blockIdx.x * kTbT;
   const int c0 = blockIdx.y * kTcCo;
-  const int b = blockIdx.z / f_dim, f = blockIdx.z % f_dim;
+  const int blocks_f = ceil_div(f_dim, kTbSlots);
+  const int b = blockIdx.z / blocks_f, f0 = (blockIdx.z % blocks_f) * kTbSlots;
   const bf16* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
-  conv_rows_tc<true>(
-      reinterpret_cast<bf16*>(tc_smem), gb, w, f, 1, c0, t0, cout, f_dim, t_dim, cin,
-      [&](int, const float (&acc)[2][4][4]) {
+  const bool pairs = t_dim % 2 == 0;
+  const int n_rows = min(kTbSlots, f_dim - f0);
+  TbPipe<true> pipe(reinterpret_cast<bf16*>(tc_smem), gb, w, f0, n_rows, c0, t0, cout, f_dim,
+                    t_dim, cin);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int c = c0 + tc_m(warp_m, lane, mi, 2 * hh);
-            if (c >= cin) continue;
-            bf16* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + f) * t_dim;
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = c0 + tb_m(lane, mi, 2 * hh);
+        if (c >= cin) continue;
+        bf16* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + f0 + pipe.row) * t_dim;
 #pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-              for (int e2 = 0; e2 < 2; ++e2) {
-                const int t = t0 + tc_n(warp_n, lane, ni, e2);
-                if (t < t_dim) drow[t] = __float2bfloat16(acc[mi][ni][2 * hh + e2]);
-              }
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          const int t = t0 + tb_n(half, lane, ni, 0);
+          const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+          if (pairs && t + 1 < t_dim) {
+            *reinterpret_cast<__nv_bfloat162*>(drow + t) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (t < t_dim) drow[t] = __float2bfloat16(v0);
+            if (t + 1 < t_dim) drow[t + 1] = __float2bfloat16(v1);
           }
-      });
+        }
+      }
+  }
 }
 
 // Run f(T{}) with T the storage type of `dtype`.
@@ -408,18 +422,23 @@ constexpr size_t kDwSmem = sizeof(float) * (3 * kCC * kXW + kBCO * kGzW);
 
 // F1 + its reduction: pre (B, Cout, F, T) float = conv(h, w); sums
 // (2 * Cout,) = [sum | sum of squares] of pre over (B, F, T). partials:
-// (B * F/pf * ceil(T / 128), 2 * Cout) float.
+// (B * F/pf * ceil(T / 128), 2 * Cout) float, or in bf16 (the block tile's
+// grid) (B * ceil(F / tb_block_rows(pf)) * ceil(T / 64), 2 * Cout).
 extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void* partials,
                                    void* sums, int batch, int cin, int f_dim, int t_dim,
                                    int cout, int pf, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
   if (cin < 1 || cin % kCC || cout < 1 || pf < 1 || f_dim % pf) return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
+  // bf16: the block tile's grid (64 frames, tb_block_rows(pf) rows a block)
+  const bool tc = dtype == kBF16;
+  const dim3 grid = tc ? dim3(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
+                              batch * ceil_div(f_dim, tb_block_rows(pf)))
+                       : dim3(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     if constexpr (sizeof(T) == 2) {
-      constexpr size_t smem = tc_smem_bytes<false>();
+      constexpr size_t smem = tb_ring_bytes<false>() + sizeof(float) * kTbRed;
       cudaError_t e = set_smem(ct_stats_tc_kernel, smem);
       if (e != cudaSuccess) return e;
       ct_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(
@@ -524,19 +543,21 @@ extern "C" int seld_ct_train_dx(const void* gz, const void* w, void* dh, int bat
                                 int f_dim, int t_dim, int cout, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (cin < 1 || cout < 1 || batch * f_dim > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cin, kBCO), batch * f_dim);
   return static_cast<int>(by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     if constexpr (sizeof(T) == 2) {
-      constexpr size_t smem = tc_smem_bytes<true>();
+      constexpr size_t smem = tb_ring_bytes<true>();
       cudaError_t e = set_smem(ct_dx_tc_kernel, smem);
       if (e != cudaSuccess) return e;
+      const dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cin, kTcCo),
+                      batch * ceil_div(f_dim, kTbSlots));
       ct_dx_tc_kernel<<<grid, kTcThreads, smem, s>>>(
           static_cast<const bf16*>(gz), static_cast<const bf16*>(w), static_cast<bf16*>(dh),
           cin, f_dim, t_dim, cout);
     } else {
       cudaError_t e = set_smem(ct_dx_kernel<T>, kConvSmem);
       if (e != cudaSuccess) return e;
+      const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cin, kBCO), batch * f_dim);
       ct_dx_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
           static_cast<const T*>(gz), static_cast<const T*>(w), static_cast<T*>(dh), cin,
           f_dim, t_dim, cout);

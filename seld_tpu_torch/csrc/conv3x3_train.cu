@@ -27,14 +27,15 @@
 //       g_z * x (ci padded to CC), with the exact routed sums S_g and sum
 //       g_pre * acc, from which the caller forms dgamma and dbeta. Two
 //       recomputes (argmax, then g_z) and the dW product, all SIMT.
-// bfloat16 (mma.sync.m16n8k16, bf16 operands, float accumulators):
-// conv_rows_tc (conv3x3_tc.cuh), Cin <= 16 in one zero-filled 16-channel
-// chunk.
-// - F1  seld_conv3x3_train_stats (train_stats_tc_kernel): the same sums, no
-//       pre written (float pre would be 1.9 GB at batch 2).
+// bfloat16 (mma.sync.m16n8k16, bf16 operands, float accumulators): the
+// tiles of conv3x3_tc.cuh, Cin <= 16 in one zero-filled 16-channel chunk,
+// on one K walk (so their conv rows are bitwise alike).
+// - F1  seld_conv3x3_train_stats (train_stats_tc_kernel, the block tile
+//       TbPipe): the same sums, no pre written (float pre would be
+//       1.9 GB at batch 2).
 // - F2  K3's tile through K10b's entry seld_conv3x3_windows.
 // - B2  split as K9's: seld_conv3x3_train_gz (train_gz_tc_kernel), one
-//       recompute on the tile that writes g_z in bf16 with the same routing
+//       recompute on the row tile conv_rows_tc that writes g_z in bf16 with the same routing
 //       and the exact routed sums, then seld_conv3x3_train_dw_tc, the dW
 //       GEMM over the frames of conv3x3_dw_tc.cuh with a 16-channel Cin
 //       tile.
@@ -289,46 +290,54 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
 
 // ---- bfloat16: F1 and B2's g_z pass on the conv tile of conv3x3_tc.cuh ----
 
-// F1 in bfloat16: the conv rows of K3's tile (conv_rows_tc over the block's
-// pf rows and tiles_per_block frame tiles; Cin <= 16 is one zero-filled
-// 16-channel chunk), summed per channel; no pre is written.
-__global__ void __launch_bounds__(kTcThreads, 2)
+// F1 in bfloat16: the conv rows of K3's block tile (TbPipe over the
+// block's tb_block_rows(pf) rows and tiles_per_block 128-frame tiles;
+// Cin <= 16 is one zero-filled 16-channel chunk), summed per channel in a
+// fixed order; no pre is written.
+__global__ void __launch_bounds__(kTcThreads, 1)
 train_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
                       int pf, int tiles_per_block) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int lane = threadIdx.x % 32, warp_n = (threadIdx.x / 32) % 4;
+  float* red = reinterpret_cast<float*>(tc_smem + tb_ring_bytes<false>());
+  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
   const int co0 = blockIdx.y * kTcCo;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const int rows = tb_block_rows(pf);
+  const int blocks_f = ceil_div(f_dim, rows);
+  const int b = blockIdx.z / blocks_f, f_first = (blockIdx.z % blocks_f) * rows;
   const bf16* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
 
-  float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int tile = 0; tile < tiles_per_block; ++tile) {
-    const int t0 = (blockIdx.x * tiles_per_block + tile) * kTcT;
+  tb_zero_sums(red);
+  const int tiles = tiles_per_block * (kBT / kTbT);   // the grid counts kBT-frame tiles
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int t0 = (blockIdx.x * tiles + tile) * kTbT;
     if (t0 >= t_dim) break;
-    conv_rows_tc<false>(
-        reinterpret_cast<bf16*>(tc_smem), xb, w, fo * pf, pf, co0, t0, cin, f_dim, t_dim, cout,
-        [&](int, const float (&acc)[2][4][4]) {
+    const int n_rows = min(rows, f_dim - f_first);
+    TbPipe<false> pipe(reinterpret_cast<bf16*>(tc_smem), xb, w, f_first, n_rows, co0, t0, cin,
+                       f_dim, t_dim, cout);
+    TbAcc acc;
+    while (pipe.pass(acc)) {
+      if (pipe.row >= n_rows) continue;
+      float s1[4][2] = {}, s2[4][2] = {};
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-            for (int hh = 0; hh < 2; ++hh)
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-              for (int ni = 0; ni < 4; ++ni)
+          for (int ni = 0; ni < kTbNi; ++ni)
 #pragma unroll
-                for (int e2 = 0; e2 < 2; ++e2) {
-                  const float v = acc[mi][ni][2 * hh + e2];
-                  if (t0 + tc_n(warp_n, lane, ni, e2) < t_dim) {
-                    s1[mi][hh] += v;
-                    s2[mi][hh] = fmaf(v, v, s2[mi][hh]);
-                  }
-                }
-        });
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const float v = acc[mi][ni][2 * hh + e2];
+              if (t0 + tb_n(half, lane, ni, e2) < t_dim) {
+                s1[mi][hh] += v;
+                s2[mi][hh] = fmaf(v, v, s2[mi][hh]);
+              }
+            }
+      tb_add_sums(red, s1, s2);
+    }
   }
-  // conv_rows_tc ended synchronised: its buffers are free for the reduction
   float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-  tc_channel_sums(reinterpret_cast<float*>(tc_smem), s1, s2, co0, cout, row);
+  tb_channel_sums(red, co0, cout, row);
 }
 
 // (t, t + 1) of a bf16 row; one 4-byte store where the row allows it.
@@ -535,11 +544,12 @@ cudaError_t launch_stats_cc(const void* x, const void* w, float* partials, int b
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* w, float* partials, int batch, int cin,
                          int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {   // the tensor-core tile: the same grid (kTcT == kBT)
-    constexpr size_t smem = tc_smem_bytes<false>();
+  if constexpr (sizeof(T) == 2) {   // the block tile: tb_block_rows(pf) rows a block
+    constexpr size_t smem = tb_ring_bytes<false>() + sizeof(float) * kTbRed;
     cudaError_t err = set_smem(train_stats_tc_kernel, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+    dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo),
+              batch * ceil_div(f_dim, tb_block_rows(pf)));
     train_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(static_cast<const bf16*>(x),
                                                          static_cast<const bf16*>(w), partials,
                                                          cin, f_dim, t_dim, cout, pf, tpb);

@@ -14,17 +14,25 @@
 // tile is masked to -inf before the max; query rows past T are computed on
 // zeros and not stored.
 //
-// bfloat16: FlashAttention-2 on the tensor cores (flash_fwd_tc_kernel, on
-// the tiles of flash_attn_tc.cuh, which K6's backward shares). One
-// block per (b*h, 64-query tile), 4 warps of 16 query rows each; Q's
-// fragments stay in registers. 64-key tiles of K and V stream through a
-// two-stage cp.async ring (the next tile loads while this one multiplies).
-// S = Q K^T is mma.sync.m16n8k16 with float accumulators (D in {16, 32, 48,
-// 64, 128}, all multiples of 16); the online softmax runs on the
-// accumulator fragments (row max and sum across the four lanes of a quad,
-// exp2f with scale * log2(e) folded in, each thread's share of the row sum
-// reduced once at the end); P is rounded to bf16 in registers and fed
-// straight back as the A operand of O += P V (no shared-memory round trip).
+// bfloat16: FlashAttention-2 on the tensor cores (flash_fwd_tc_kernel; the
+// A/B tile helpers of flash_attn_tc.cuh, which K6's backward shares). One
+// block per (b*h, query tile) of 4 or 8 warps, 16 query rows each (8
+// warps, 128 queries, where the grid still fills two waves of two blocks
+// an SM: every K and V tile then serves twice the queries); Q's fragments
+// stay in registers. 64-key tiles of K and V stream through a three-stage
+// cp.async ring with one barrier per tile: tile j + 2 loads while tile j is
+// used. S = Q K^T is mma.sync.m16n8k16 with float accumulators (D in {16,
+// 32, 48, 64, 128}, all multiples of 16; the wrapper zero-pads any other D
+// up to one of them). The next tile's S is issued before this tile's
+// softmax, so the tensor cores and the exponentials (the MUFU's 16 a clock
+// an SM, about as long as the products at D = 48) overlap within a warp.
+// Only the last tile's keys past T are masked. The online
+// softmax runs on the accumulator fragments (the row max across the four
+// lanes of a quad, then one fma with scale * log2(e) and one ex2.approx a
+// score); P is rounded to bf16 in registers and fed straight back as the A
+// operand of O += P V (no shared-memory round trip) and of the row sums l
+// += P 1 (a column of ones as B: four products a tile in place of 32 float
+// adds a thread).
 // Rounding P to bf16 departs from the JAX kernel, which multiplies a float p
 // (seld_tpu/ops/pallas/attention.py:52-56); it stays within the bf16
 // tolerance (2e-2 x max|ref|), as the plain version, which rounds the
@@ -147,37 +155,67 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ---- bfloat16: FlashAttention-2 on mma.sync.m16n8k16 ----------------------
 
-constexpr int kTcQ = kAttnRows;   // queries per block: 4 warps x 16 rows
 constexpr int kTcK = kAttnRows;   // keys per tile
-constexpr int kTcThreads = kAttnThreads;
+constexpr int kTcStages = 3;      // (k, v) tiles in the ring
 
-template <int D>
-constexpr size_t tc_smem_bytes() {   // q, then two (k, v) stages, rows padded to D + 8
-  return sizeof(bf16) * 5 * kTcQ * (D + 8);
+// kQ queries a block (64 or 128): kQ / 16 warps of 16 query rows.
+template <int D, int kQ>
+constexpr size_t tc_smem_bytes() {   // q, then kTcStages (k, v) stages, rows padded to D + 8
+  return sizeof(bf16) * (kQ + 2 * kTcStages * kTcK) * (D + 8);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+// 2^x on the MUFU alone (ex2.approx.ftz: results below 2^-126 flush to 0,
+// -inf gives 0); exp2f adds a range fix-up around it.
+static __device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keys past T to -inf in the accumulator fragments of the last tile
+// (columns 8 nt + 2 quad + e % 2; `valid` keys of the tile are real).
+static __device__ __forceinline__ void mask_keys(float (&s)[kTcK / 8][4], int valid) {
+  const int quad = threadIdx.x % 4;
+#pragma unroll
+  for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (nt * 8 + 2 * quad + (e % 2) >= valid) s[nt][e] = -CUDART_INF_F;
+}
+
+template <int D, int kQ>
+__global__ void __launch_bounds__(2 * kQ, D <= 48 ? 2 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int t_dim, int heads, float scale_log2) {
+  constexpr int kBlock = 2 * kQ;   // 32 threads a warp of 16 query rows
   constexpr int kP = D + 8;   // padded row: 16-byte units odd, so ldmatrix phases do not conflict
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [kTcQ][kP]
-  bf16* kv = qs + kTcQ * kP;                     // per stage: k [kTcK][kP], v [kTcK][kP]
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [kQ][kP]
+  bf16* kv = qs + kQ * kP;                       // per stage: k [kTcK][kP], v [kTcK][kP]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, quad = lane % 4;
-  const int q0 = blockIdx.x * kTcQ;
+  const int q0 = blockIdx.x * kQ;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
   const size_t tstride = static_cast<size_t>(heads) * D;
   const int n_tiles = ceil_div(t_dim, kTcK);
+  const int last_valid = t_dim - (n_tiles - 1) * kTcK;   // keys of the last tile
+  const auto ks_of = [&](int j) { return kv + (j % kTcStages) * 2 * kTcK * kP; };
+  // tile j's k and v, one commit group (empty past the last tile)
+  const auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      attn_load_rows<D, kTcK, kBlock>(ks_of(j), k, base, tstride, j * kTcK, t_dim);
+      attn_load_rows<D, kTcK, kBlock>(ks_of(j) + kTcK * kP, v, base, tstride, j * kTcK,
+                                      t_dim);
+    }
+    cp_async_commit();
+  };
 
-  attn_load_rows<D>(qs, q, base, tstride, q0, t_dim);
-  attn_load_rows<D>(kv, k, base, tstride, 0, t_dim);
-  attn_load_rows<D>(kv + kTcK * kP, v, base, tstride, 0, t_dim);
-  cp_async_commit();
-  cp_async_wait_all();
+  attn_load_rows<D, kQ, kBlock>(qs, q, base, tstride, q0, t_dim);
+  load_tile(0);   // with q
+  load_tile(1);
+  cp_async_wait_group<1>();
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16 of D
@@ -195,73 +233,106 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // rows g and g + 8, in log2 units
-  float l_run[2] = {0.f, 0.f};                       // this thread's share of the row sums
+  // the row sums of P on the tensor cores: P times a column of ones, so
+  // l[0] (= l[1]) is row g's and l[2] row g + 8's, over the bf16 P that O
+  // accumulates
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint32_t ones = pack_bf16(1.f, 1.f);
 
+  float s[kTcK / 8][4];   // S = Q K^T of the tile in hand
+  attn_mma_abt<D>(s, qfrag, ks_of(0));
   for (int j = 0; j < n_tiles; ++j) {
-    const bf16* ks = kv + (j & 1) * 2 * kTcK * kP;
-    const bf16* vs = ks + kTcK * kP;
-    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
-      bf16* nk = kv + ((j + 1) & 1) * 2 * kTcK * kP;
-      attn_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcK, t_dim);
-      attn_load_rows<D>(nk + kTcK * kP, v, base, tstride, (j + 1) * kTcK, t_dim);
-      cp_async_commit();
-    }
-    // S = Q K^T for 64 keys: eight m16n8 fragments
-    float s[kTcK / 8][4];
-    attn_mma_abt<D>(s, qfrag, ks);
-    // the online softmax on the fragments: keys past T masked to -inf
+    // tile j + 1 has landed, and every warp is done with tile j - 1, whose
+    // stage tile j + 2 now takes: one barrier per tile
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile(j + 2);
+    if (j == n_tiles - 1 && last_valid < kTcK) mask_keys(s, last_valid);
+    // the next tile's S on the tensor cores while this tile's softmax runs
+    // (the last iteration recomputes its own: one idle tile of products)
+    float sn[kTcK / 8][4];
+    attn_mma_abt<D>(sn, qfrag, ks_of(min(j + 1, n_tiles - 1)));
+    // the online softmax on the fragments: the max of the raw scores, then
+    // p = 2^(s * scale_log2 - m) in one fma and one ex2 a score
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int nt = 0; nt < kTcK / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j * kTcK + nt * 8 + 2 * quad + (e % 2);
-        s[nt][e] = key < t_dim ? s[nt][e] * scale_log2 : -CUDART_INF_F;
-        mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      }
-    float alpha[2];
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+    float alpha[2], neg_m[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m_run[hh], mx[hh]);   // finite: every tile holds a key
-      alpha[hh] = exp2f(m_run[hh] - m_new);
+      // finite: every tile holds a key; scale_log2 > 0 keeps the max's place
+      const float m_new = fmaxf(m_run[hh], mx[hh] * scale_log2);
+      alpha[hh] = fast_exp2(m_run[hh] - m_new);
       m_run[hh] = m_new;
-      l_run[hh] *= alpha[hh];
+      neg_m[hh] = -m_new;
     }
 #pragma unroll
     for (int nt = 0; nt < kTcK / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m_run[e / 2]);
-        l_run[e / 2] += s[nt][e];
-      }
+      for (int e = 0; e < 4; ++e) s[nt][e] = fast_exp2(fmaf(s[nt][e], scale_log2, neg_m[e / 2]));
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
-    // O += P V, P rounded to bf16 in registers as the A operand
-    attn_mma_pv<D>(o, s, vs);
-    cp_async_wait_all();
-    __syncthreads();   // the next stage is complete; this one's readers are done
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e] *= alpha[e / 2];
+    // O += P V and l += P 1, P rounded to bf16 in registers as the A operand
+    attn_mma_pv<D>(o, s, ks_of(j) + kTcK * kP);
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      mma_bf16(l, a, ones, ones);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = sn[nt][e];
   }
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    float l = l_run[hh];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lr = l[2 * hh];
     const int t = q0 + warp * 16 + g + 8 * hh;
     if (t >= t_dim) continue;
-    const float inv = 1.f / l;
+    const float inv = 1.f / lr;
     bf16* orow = out + base + static_cast<size_t>(t) * tstride;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * quad) =
           __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
     if (quad == 0)
-      lse[static_cast<size_t>(bh) * t_dim + t] = (m_run[hh] + log2f(l)) * 0.69314718055994531f;
+      lse[static_cast<size_t>(bh) * t_dim + t] = (m_run[hh] + log2f(lr)) * 0.69314718055994531f;
   }
+}
+
+template <int D, int kQ>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int batch, int t_dim, int heads, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<D, kQ>();
+  cudaError_t err = set_smem(flash_fwd_tc_kernel<D, kQ>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(t_dim, kQ), batch * heads);
+  flash_fwd_tc_kernel<D, kQ><<<grid, 2 * kQ, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, t_dim, heads, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+int sm_count() {
+  static int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
 }
 
 template <typename T, int D>
@@ -271,13 +342,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
     const void* rows[] = {q, k, v, out};   // 16-byte copies and bf16x2 stores
     for (const void* p : rows)
       if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-    constexpr size_t smem = tc_smem_bytes<D>();
-    cudaError_t err = set_smem(flash_fwd_tc_kernel<D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(ceil_div(t_dim, kTcQ), batch * heads);
-    flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), lse, t_dim, heads, scale * 1.4426950408889634f);
+    // 128-query blocks where they still make two waves of two blocks an SM
+    if (ceil_div(t_dim, 128) * batch * heads >= 4 * sm_count())
+      return launch_tc<D, 128>(q, k, v, out, lse, batch, t_dim, heads, scale, stream);
+    return launch_tc<D, 64>(q, k, v, out, lse, batch, t_dim, heads, scale, stream);
   } else {
     const size_t smem = sizeof(float) * smem_floats<D>();
     cudaError_t err = set_smem(flash_fwd_kernel<T, D>, smem);

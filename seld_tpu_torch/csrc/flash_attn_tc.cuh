@@ -1,8 +1,9 @@
-// The bfloat16 attention tiles shared by K4's forward (flash_attn_fwd.cu)
-// and K6's backward (flash_attn_bwd.cu): a block of 4 warps owns 64 rows of
-// one (b, h), 16 per warp, and streams 64-row tiles of the other operand
-// through shared memory. Rows are staged [64][D + 8] (16-byte units per row
-// odd, so the eight row addresses of an ldmatrix phase hit distinct banks).
+// The bfloat16 attention tiles of K6's backward (flash_attn_bwd.cu), whose
+// row loader K4's forward (flash_attn_fwd.cu) shares: a block of 4 warps
+// owns 64 rows of one (b, h), 16 per warp, and streams 64-row tiles of the
+// other operand through shared memory. Rows are staged [64][D + 8]
+// (16-byte units per row odd, so the eight row addresses of an ldmatrix
+// phase hit distinct banks).
 // The two products of FlashAttention on mma.sync.m16n8k16 (bf16 operands,
 // float accumulators):
 // - attn_mma_abt: S (16 x 64) = A (this warp's 16 rows x D) times the tile's
@@ -20,14 +21,15 @@ namespace {
 constexpr int kAttnRows = 64;      // rows per block and per streamed tile
 constexpr int kAttnThreads = 128;  // 4 warps x 16 rows
 
-// rows [r0, r0 + 64) of a (B, T, H, D) tensor at (b, h) -> dst [64][D + 8],
-// rows past T zero-filled, by 16-byte cp.async copies.
-template <int D>
+// rows [r0, r0 + kRows) of a (B, T, H, D) tensor at (b, h) -> dst
+// [kRows][D + 8], rows past T zero-filled, by 16-byte cp.async copies of a
+// block of kThreads threads.
+template <int D, int kRows = kAttnRows, int kThreads = kAttnThreads>
 static __device__ __forceinline__ void attn_load_rows(bf16* __restrict__ dst,
                                                       const bf16* __restrict__ src, size_t base,
                                                       size_t tstride, int r0, int t_dim) {
   constexpr int kVecs = D / 8;
-  for (int e = threadIdx.x; e < kAttnRows * kVecs; e += kAttnThreads) {
+  for (int e = threadIdx.x; e < kRows * kVecs; e += kThreads) {
     const int r = e / kVecs, c = e % kVecs;
     const bool ok = r0 + r < t_dim;
     cp_async16(dst + r * (D + 8) + 8 * c,

@@ -17,7 +17,29 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 
-HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernels are instantiated for
+
+
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a head dim ``d`` runs at: the least of
+    :data:`HEAD_DIMS` >= d. Past 128 there is none (K4 and K6 would need a
+    256 instantiation with fewer query rows a block)."""
+    for hd in HEAD_DIMS:
+        if hd >= d:
+            return hd
+    raise ValueError(f"no kernel for head dim {d}; the kernels take d <= {HEAD_DIMS[-1]}")
+
+
+def pad_heads(d_pad: int, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(B, T, H, D) tensors zero-padded along D to ``d_pad`` (contiguous; the
+    tensors themselves where D == d_pad). The caller keeps the scale of the
+    true D: zero columns of q and k add nothing to a score, zero columns of
+    v give output columns (and gradient columns) that are sliced off, and
+    the logsumexp is unchanged, so out[..., :D] and the sliced gradients are
+    the unpadded attention's (the JAX kernel pads D to 128 the same way)."""
+    return tuple(t if t.shape[-1] == d_pad else
+                 torch.nn.functional.pad(t, (0, d_pad - t.shape[-1])).contiguous()
+                 for t in tensors)
 
 
 def _check(q, k, v, self_attention: bool = True) -> None:
@@ -56,14 +78,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v (B, T, H, D) -> (out (B, T, H, D), lse (B, H, T) float32).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
-    ``seld_flash_attn_fwd`` (D in :data:`HEAD_DIMS`)."""
+    ``seld_flash_attn_fwd`` at D, or at :func:`padded_head_dim` (D) on
+    zero-padded q, k, v (:func:`pad_heads`), out sliced back to D."""
     _check(q, k, v)
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)
     require_contiguous(q=q, k=k, v=v)
-    b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"no kernel for head dim {d}; supported: {HEAD_DIMS}")
+    b, t, h, d_true = q.shape
+    d = padded_head_dim(d_true)
+    q, k, v = pad_heads(d, q, k, v)
     if b * h > 65535:
         raise ValueError("B * H exceeds the grid's y range")
     out = torch.empty_like(q)
@@ -76,6 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     _build.check(err, "seld_flash_attn_fwd")
     launch_counts["flash_attn_fwd"] += 1
+    if d != d_true:
+        out = out[..., :d_true].contiguous()
     return out, lse
 
 
@@ -99,7 +124,9 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: float):
 def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     """q, k, v, out, dout (B, T, H, D) of one dtype, lse (B, H, T) float32 ->
     (dq, dk, dv). CPU tensors take :func:`flash_attention_bwd_plain`; CUDA
-    tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes)."""
+    tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes), at
+    :func:`padded_head_dim` (D) on zero-padded operands where D is not an
+    instantiated dim, the gradients sliced back to D."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
@@ -113,8 +140,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"out / dout must be {q.dtype} and lse float32, got "
                         f"{out.dtype}, {dout.dtype}, {lse.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"no kernel for head dim {d}; supported: {HEAD_DIMS}")
+    d_true, d = d, padded_head_dim(d)
+    q, k, v, out, dout = pad_heads(d, q, k, v, out, dout)
     if b * h > 65535:
         raise ValueError("B * H exceeds the grid's y range")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -127,6 +154,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     )
     _build.check(err, "seld_flash_attn_bwd")
     launch_counts["flash_attn_bwd"] += 1
+    if d != d_true:
+        dq, dk, dv = (g[..., :d_true].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

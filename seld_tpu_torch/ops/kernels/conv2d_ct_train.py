@@ -44,7 +44,9 @@ from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
-from seld_tpu_torch.ops.kernels.conv2d_pool import BLOCK_T, conv2d_widecin_bn_relu_fpool
+from seld_tpu_torch.ops.kernels.conv2d_pool import (
+    BLOCK_T, TC_BLOCK_T, conv2d_widecin_bn_relu_fpool, tc_block_rows,
+)
 from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_plain, dw_split
 
 CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
@@ -111,8 +113,9 @@ def ct_train_stats_plain(h, w):
 
 def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
     """h (B, C, F, T), w (3, 3, C, Cout) -> (sums (2 * Cout,) float32, pre
-    (B, Cout, F, T) float32). ``pool_f`` sets the kernel's tiling (one block
-    per pooled row, as F2's)."""
+    (B, Cout, F, T) float32). ``pool_f`` sets the kernel's tiling as F2's
+    (float32: one block per pooled row; bfloat16: ``tc_block_rows(pool_f)``
+    rows a block)."""
     _check(h, w, pool_f)
     if not on_cuda(h, w):
         return ct_train_stats_plain(h, w)
@@ -122,7 +125,10 @@ def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
     if b * (f // pool_f) > GRID_MAX:
         raise ValueError("B * F / pool_f exceeds the grid's z range")
     pre = torch.empty((b, cout, f, t), dtype=torch.float32, device=h.device)
-    rows = b * (f // pool_f) * -(-t // BLOCK_T)
+    if h.dtype == torch.bfloat16:   # the block tile's grid
+        rows = b * -(-f // tc_block_rows(pool_f)) * -(-t // TC_BLOCK_T)
+    else:
+        rows = b * (f // pool_f) * -(-t // BLOCK_T)
     partials = torch.empty((rows, 2 * cout), dtype=torch.float32, device=h.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=h.device)
     err = lib.seld_ct_train_stats(

@@ -44,11 +44,13 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 
-MAX_POOL_F = 48  # keeps the smallcin halo (pool_f + 2 rows) in shared memory
+MAX_POOL_F = 48  # most pool rows one SIMT smallcin halo staging takes (rows + 2 staged)
 SMALLCIN_MAX_CIN = 10   # K2's kernel: Cin <= 8, and 9-10 (3 * Cin <= 32) for K5's forward
 BLOCK_T = 128           # frames per kernel tile (kBT in conv3x3_common.cuh)
 BLOCK_CO = 64           # output channels per kernel tile (kBCO)
 SMEM_BYTES = 232_448    # shared memory one block may use on the H100
+TC_BLOCK_T = 64         # frames per block of the bf16 block tile (kTbT in conv3x3_tc.cuh)
+TC_SLOTS = 4            # conv rows per pass of the block tile (kTbSlots)
 SMALLCIN_IMPLS = ("thin", "wide")
 GRID_Z_MAX = 65535
 
@@ -103,9 +105,17 @@ def frontend_stage_kernel(cin: int, smallcin_impl: str = "thin") -> str:
     return "conv3x3_windows"
 
 
-def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes) -> torch.Tensor:
+def tc_block_rows(pool_f: int) -> int:
+    """Conv rows one block of the bf16 block tile takes (``tb_block_rows``):
+    one pool window, or 4 rows (4 / pool_f windows) where pool_f is 1 or 2,
+    so that a pass fills its 4 row slots."""
+    return TC_SLOTS if pool_f <= 2 else pool_f
+
+
+def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes, chunk=None) -> torch.Tensor:
     """Check the operands of a CUDA launch, launch ``seld_<name>`` with
-    (x, w, scale, bias, out, *sizes, dtype, stream) and count it."""
+    (x, w, scale, bias, out, *sizes, pool_f[, chunk], dtype, stream) and
+    count it."""
     require_contiguous(x=x, w=w, scale=scale, bias=bias)
     if w.dtype != x.dtype:
         raise TypeError(f"w is {w.dtype}, x is {x.dtype}")
@@ -117,7 +127,8 @@ def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes) -> torch.Tensor:
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     fn = getattr(_build.load(), f"seld_{name}")
     err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-             *sizes, pool_f, code, stream_handle(x.device))
+             *sizes, pool_f, *(() if chunk is None else (chunk,)), code,
+             stream_handle(x.device))
     _build.check(err, f"seld_{name}")
     launch_counts[name] += 1
     return out
@@ -164,22 +175,40 @@ TC_PAIR_WORDS = 168       # staged words per (row, channel pair) (kTcXS)
 
 
 def smallcin_max_pool_f(cin: int, dtype: torch.dtype = torch.float32) -> int:
-    """The largest pool_f K2's entry takes at this Cin and dtype: the largest
-    whose shared memory fits one block, for the kernel it launches. The
-    tensor-core kernel (bfloat16 at Cin <= 8) stages pool_f + 2 rows of 4
-    channel-pair rows of TC_PAIR_WORDS words and 80 x (BLOCK_CO + 8) bf16
-    weights; the SIMT kernel (the rest) :func:`halo_max_pool_f`."""
+    """The most pool rows one halo staging of K2's kernel holds at this Cin
+    and dtype (``kScChunkRows`` / ``simt_chunk_rows``): the largest count
+    whose rows + 2 halo rows fit one block's shared memory beside the
+    weights, for the kernel the entry launches. The tensor-core kernel
+    (bfloat16 at Cin <= 8) stages rows + 2 rows of 4 channel-pair rows of
+    TC_PAIR_WORDS words and 80 x (BLOCK_CO + 8) bf16 weights; the SIMT
+    kernel (the rest) :func:`halo_max_pool_f`. A larger pool_f runs in
+    chunks of this many rows (:func:`smallcin_pool_chunks`); the kernel
+    refuses a chunk above its own count of the same limit."""
     if dtype == torch.bfloat16 and cin <= 8:
         fixed = 2 * TC_SMALLCIN_K * (BLOCK_CO + 8)
         return (SMEM_BYTES - fixed) // (4 * TC_SMALLCIN_PAIRS * TC_PAIR_WORDS) - 2
     return halo_max_pool_f(cin)
 
 
+def smallcin_pool_chunks(pool_f: int, cin: int,
+                         dtype: torch.dtype = torch.float32) -> list[tuple[int, int]]:
+    """(first row, rows) of each halo staging K2's kernel walks in one pool
+    window: chunks of :func:`smallcin_max_pool_f` rows in order, the last
+    one short. The wrapper passes the first chunk's rows to the kernel,
+    which walks the window in steps of that many rows just so. The running
+    max goes from chunk to chunk in registers, so the pooled output does
+    not depend on the chunking; a window that fits one chunk is one
+    staging."""
+    step = smallcin_max_pool_f(cin, dtype)
+    return [(r0, min(step, pool_f - r0)) for r0 in range(0, pool_f, step)]
+
+
 def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                                   bias: torch.Tensor, pool_f: int) -> torch.Tensor:
     """K2's kernel (``seld_conv3x3_smallcin``): every tap and channel of a
-    tile staged once, Cin <= 10. bfloat16 at Cin <= 8 runs on the tensor
-    cores, the rest SIMT. The router sends Cin <= 8 here; K5's float32
+    tile staged once, Cin <= 10, any pool_f dividing F (the window's rows
+    staged in :func:`smallcin_pool_chunks`). bfloat16 at Cin <= 8 runs on
+    the tensor cores, the rest SIMT. The router sends Cin <= 8 here; K5's float32
     forward calls it for Cin 9-10 too, so that its pooled rows are the conv
     rows K5's backward recomputes. CPU tensors take
     :func:`conv2d_bn_relu_fpool_plain`."""
@@ -189,12 +218,10 @@ def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch
     b, cin, f, t = x.shape
     if cin > SMALLCIN_MAX_CIN:
         raise ValueError(f"K2's kernel stages at most {SMALLCIN_MAX_CIN} channels, got {cin}")
-    top = smallcin_max_pool_f(cin, x.dtype)
-    if pool_f > top:
-        raise ValueError(f"pool_f {pool_f} > {top} at Cin {cin} in {x.dtype}")
     cout = w.shape[3]
+    chunk = smallcin_pool_chunks(pool_f, cin, x.dtype)[0][1]
     return _launch("conv3x3_smallcin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
-                   b, cin, f, t, cout)
+                   b, cin, f, t, cout, chunk=chunk)
 
 
 def conv2d_widecin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,

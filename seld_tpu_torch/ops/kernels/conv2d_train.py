@@ -50,7 +50,7 @@ from seld_tpu_torch.ops.kernels import (
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
     BLOCK_CO, BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
-    halo_max_pool_f, staged_channels,
+    halo_max_pool_f, staged_channels, tc_block_rows,
 )
 
 TILES_PER_BLOCK = 4     # frame tiles one block walks (sizes the partial-sum rows)
@@ -108,10 +108,14 @@ def _conv_plain(x, w) -> torch.Tensor:
     return F.conv2d(x.to(cdt), w.to(cdt).permute(3, 2, 0, 1), padding=1)
 
 
-def _grid_rows(x, pool_f) -> int:
+def _grid_rows(x, pool_f, block_rows: int | None = None,
+               tiles_per_block: int = TILES_PER_BLOCK) -> int:
+    """Partial rows of a pass whose blocks take ``block_rows`` conv rows
+    (default one pool window) and ``tiles_per_block`` 128-frame tiles."""
     b, _, f, t = x.shape
     n_tiles = -(-t // BLOCK_T)
-    return b * (f // pool_f) * -(-n_tiles // TILES_PER_BLOCK)
+    rows = block_rows or pool_f
+    return b * -(-f // rows) * -(-n_tiles // tiles_per_block)
 
 
 def _launch_prelude(x, w, name):
@@ -136,19 +140,24 @@ def conv_train_stats_plain(x, w) -> torch.Tensor:
 
 def conv_train_stats(x: torch.Tensor, w: torch.Tensor, pool_f: int) -> torch.Tensor:
     """x (B, Cin, F, T), w (3, 3, Cin, Cout) -> (2 * Cout,) float32 sums.
-    ``pool_f`` only sets the kernel's tiling (one block per pooled row)."""
+    ``pool_f`` only sets the kernel's tiling (float32: one block per pooled
+    row; bfloat16: ``tc_block_rows(pool_f)`` rows a block)."""
     _check(x, w, pool_f)
     if not on_cuda(x, w):
         return conv_train_stats_plain(x, w)
     code, lib = _launch_prelude(x, w, "conv_train_stats")
     b, cin, f, t = x.shape
     cout = w.shape[3]
-    partials = torch.empty((_grid_rows(x, pool_f), 2 * cout), dtype=torch.float32,
+    # bf16 runs the block tile: tc_block_rows(pool_f) rows and one frame tile
+    # a block (its one pipeline per block; one block an SM)
+    bf16 = x.dtype == torch.bfloat16
+    rows, tpb = (tc_block_rows(pool_f), 1) if bf16 else (pool_f, TILES_PER_BLOCK)
+    partials = torch.empty((_grid_rows(x, pool_f, rows, tpb), 2 * cout), dtype=torch.float32,
                            device=x.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=x.device)
     err = lib.seld_conv3x3_train_stats(
         x.data_ptr(), w.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-        b, cin, f, t, cout, pool_f, TILES_PER_BLOCK, code, stream_handle(x.device))
+        b, cin, f, t, cout, pool_f, tpb, code, stream_handle(x.device))
     _build.check(err, "seld_conv3x3_train_stats")
     launch_counts["conv_train_stats"] += 1
     return sums

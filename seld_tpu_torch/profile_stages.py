@@ -4,7 +4,7 @@
 
 Counterpart of ``tools/profile_stages.py``. Environment, as there:
 ``PROF_BATCH`` (default 16) and ``PROF_SECTIONS`` (comma-separated, default
-``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train`` and ``v3``). The ``noop`` row, the
+``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train``, ``attn`` and ``v3``). The ``noop`` row, the
 dispatch baseline, always runs. Sections:
 
 - ``stft``: K1 (float32 and bfloat16 out) beside its plain version;
@@ -17,6 +17,9 @@ dispatch baseline, always runs. Sections:
 - ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
 - ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
   tile) beside cuDNN's weight gradient on the same g_z;
+- ``attn``: K4 and K6 (bfloat16) at the flagship's attention (T = frames
+  / 2 after the TCN's time pool, 8 heads of 48) beside
+  ``scaled_dot_product_attention`` and its backward on the same inputs;
 - ``v3``: K2w at stage 1, then the flagship's ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
 
@@ -54,6 +57,8 @@ FLAGSHIP = {
     "pools": (8, 8, 2),        # frequency pools of the three stages
     "tcn_width": 384,          # G = U
     "dilation": 55,            # the widest fibonacci dilation of the ResBlocks
+    "heads": 8,                # attention heads
+    "head_dim": 48,            # V[0] / heads
     "config": ROOT / "config" / "DQSELD-TCN-S1-PHI_8ch.txt",
 }
 DEFAULT_SECTIONS = "stft,cnn,tcn"
@@ -220,6 +225,27 @@ def train(batch, device, shapes=FLAGSHIP):
         lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, cin, 3, 3), zz, padding=1), (x, gz)
 
 
+def attn(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf16, t, h, d = torch.bfloat16, shapes["frames"] // 2, shapes["heads"], shapes["head_dim"]
+    q, k, v, dout = (_randn(device, batch, t, h, d, dtype=bf16, gen=gen) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = flash_attention(q, k, v, scale)
+    yield f"attn: K4 forward (T {t}, {h} x {d})", \
+        lambda a, b_, c: flash_attention(a, b_, c, scale), (q, k, v)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    yield "attn: SDPA forward", \
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, scale=scale), (qt, kt, vt)
+    yield "attn: K6 backward", lambda *a: flash_attention_bwd(*a, scale), (q, k, v, out, dout, lse)
+    leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+    yield "attn: SDPA backward", \
+        lambda g: torch.autograd.grad(o_lib, leaves, g, retain_graph=True), \
+        (dout.transpose(1, 2).contiguous(),)
+
+
 def v3(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.models.fused_infer import fused_infer
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
@@ -249,7 +275,7 @@ def v3(batch, device, shapes=FLAGSHIP):
 
 
 SECTIONS = {"noop": noop, "stft": stft, "cnn": cnn, "tcn": tcn, "fused": fused, "qmm": qmm,
-            "train": train, "v3": v3}
+            "train": train, "attn": attn, "v3": v3}
 
 
 def time_ms(fn, args, device: torch.device, iters: int = ITERS) -> float:

@@ -13,12 +13,17 @@ import pytest
 import torch
 
 import seld_tpu_torch
-from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from seld_tpu_torch import _build
+from seld_tpu_torch.models.attention import attend_full
+from seld_tpu_torch.ops.kernels import (
+    dtype_code, launch_counts, reset_launch_counts, stream_handle,
+)
 from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
 from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 from seld_tpu_torch.ops.kernels import conv2d_train as k5
 from seld_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
+    flash_attention_train,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
     conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain,
@@ -95,17 +100,66 @@ def test_conv_smallcin_tc_kernel_ragged(gen, b, cin, f, t, cout, pf):
 
 
 def test_tc_kernels_raise_past_their_shared_memory(gen):
-    """K1's bf16 kernel holds its table tile in shared memory and K2's its
-    halo: past either limit a CUDA tensor raises, without a launch."""
-    top = pool.smallcin_max_pool_f(3, torch.bfloat16)
-    x = torch.zeros(1, 3, top + 1, 16, device="cuda", dtype=torch.bfloat16)
-    w = torch.zeros(3, 3, 3, 8, device="cuda", dtype=torch.bfloat16)
-    s = torch.ones(8, device="cuda")
-    with pytest.raises(ValueError):
-        pool.conv2d_smallcin_bn_relu_fpool(x, w, s, s, top + 1)
+    """K1's bf16 kernel holds its table tile in shared memory: past that
+    limit a CUDA tensor raises, without a launch. K2's halo no longer
+    limits its pool: a window one row past one staging runs in two chunks
+    and matches the plain version."""
     with pytest.raises(ValueError):
         stft_mag(torch.zeros(1, 4000, device="cuda"), 736, 336, out_dtype=torch.bfloat16)
     assert all(v == 0 for v in launch_counts.values())
+    top = pool.smallcin_max_pool_f(3, torch.bfloat16)
+    x = torch.randn(1, 3, top + 1, 16, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(3, 3, 3, 8, generator=gen, device="cuda") / 27 ** 0.5).bfloat16()
+    s = torch.ones(8, device="cuda")
+    got = pool.conv2d_smallcin_bn_relu_fpool(x, w, s, s, top + 1)
+    assert launch_counts["conv3x3_smallcin"] == 1
+    _close(got, conv2d_bn_relu_fpool_plain(x, w, s, s, top + 1), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pf", [128, 256])
+def test_conv_smallcin_pools_in_chunks(gen, dtype, pf):
+    """K2 at Cin 8, F 256 with a pool past one halo staging (80 rows in
+    bf16, 48 in float32): the window's rows go in chunks, the running max
+    carried, and the result matches the plain version."""
+    x = torch.randn(2, 8, 256, 300, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, 8, 80, generator=gen, device="cuda") / 72 ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(80, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(80, generator=gen, device="cuda")
+    got = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+    assert launch_counts["conv3x3_smallcin"] == 1
+    _close(got, conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin", [8, 10])
+def test_conv_smallcin_chunk_is_the_kernels_limit(gen, dtype, cin):
+    """The wrapper's chunk plan (smallcin_pool_chunks) hands the kernel its
+    rows per staging. The kernel takes smallcin_max_pool_f rows and refuses
+    one more, so the Python limit is the kernel's; and any chunking gives
+    the same pooled output bit for bit (the running max is carried)."""
+    top = pool.smallcin_max_pool_f(cin, dtype)
+    pf = 2 * top + 2
+    x = torch.randn(1, cin, pf, 40, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, cin, 64, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(64, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(64, generator=gen, device="cuda")
+
+    def launch(chunk):
+        out = torch.empty(1, 64, 1, 40, dtype=dtype, device="cuda")
+        err = _build.load().seld_conv3x3_smallcin(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            1, cin, pf, 40, 64, pf, chunk, dtype_code(x), stream_handle(x.device))
+        return err, out
+
+    assert launch(top + 1)[0] != 0
+    outs = []
+    for chunk in (top, 3):
+        err, out = launch(chunk)
+        assert err == 0
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -123,12 +177,15 @@ def test_conv_kernel(gen, dtype, b, cin, f, t, cout, pf):
 
 
 # (b, cin, f, t, cout, pf) for K3's tile, launched directly (any Cin): ragged
-# Cin chunks (12, 24 and 200 against chunks of 8 in float32 and 16 in
-# bfloat16), ragged Cout tiles (80, 200), ragged frame tiles (129, 300; 296
-# stages x by 16-byte loads, T % 8 == 0), pf 2, 4 and 8, several blocks in
-# every grid dimension
+# Cin chunks (12, 24, 40 and 200 against chunks of 8 in float32 and 16 in
+# bfloat16), ragged Cout tiles (80, 100, 200 against 64), ragged frame tiles
+# (129 = 2 * 64 + 1, 193 = 3 * 64 + 1, 65, 300; 296 stages x by 16-byte
+# loads, T % 8 == 0), pf 1-8 (the bf16 block tile's 4 row slots: one window
+# in passes of 4, 4 / pf windows a block, a short last pass at pf 3 and 5,
+# F not a multiple of 4 for dh), several blocks in every grid dimension
 TILE_SHAPES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
-               (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4)]
+               (1, 24, 12, 296, 200, 2), (1, 40, 12, 65, 72, 3), (2, 16, 10, 193, 100, 5),
+               (1, 24, 6, 257, 64, 1), (2, 12, 16, 129, 80, 4)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -161,6 +218,35 @@ def test_flash_attention_kernel(gen, dtype, b, t, h, d):
     out_ref, lse_ref = flash_attention_plain(q, k, v, d ** -0.5)
     _close(out, out_ref, dtype)
     _close(lse, lse_ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 8), (1, 130, 2, 24), (64, 300, 8, 24)])
+def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
+    """Head dims without an instantiation (8 and 24) run zero-padded to the
+    next one (16, 32): K4, K6 and the autograd Function against their plain
+    versions; the 64 x 8 heads at T 300 take K4's 128-query blocks."""
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+                     for _ in range(4))
+    scale = d ** -0.5
+    out, lse = flash_attention(q, k, v, scale)
+    out_ref, lse_ref = flash_attention_plain(q, k, v, scale)
+    assert out.shape == q.shape
+    _close(out, out_ref, dtype)
+    _close(lse, lse_ref, torch.float32)
+    out_r, lse_r = out_ref.contiguous(), lse_ref.contiguous()
+    got = flash_attention_bwd(q, k, v, out_r, dout, lse_r, scale)
+    for a, b_ in zip(got, flash_attention_bwd_plain(q, k, v, out_r, dout, lse_r, scale)):
+        assert a.shape == q.shape
+        _close(a, b_, dtype)
+    grads = []
+    for fn in (flash_attention_train, attend_full):
+        leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+        (fn(*leaves, scale).float() * dout.float()).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for a, b_ in zip(*grads):
+        _close(a, b_, dtype)
+    assert launch_counts["flash_attn_fwd"] == 2 and launch_counts["flash_attn_bwd"] == 2
 
 
 def k5_inputs(gen, b, cin, f, t, cout, dtype):
@@ -302,16 +388,23 @@ def test_cuda_tensors_never_take_the_plain_path(gen):
     """A CUDA tensor launches or raises: mixed devices and unsupported shapes
     raise instead of running the plain version."""
     x = torch.randn(1, 12, 8, 20, generator=gen, device="cuda")
-    w = torch.randn(3, 3, 12, 8, device="cuda")
+    w = torch.randn(3, 3, 12, 8, generator=gen, device="cuda")
     s = torch.ones(8, device="cuda")
-    with pytest.raises(ValueError):   # K2's halo holds at most MAX_POOL_F + 2 rows
-        conv2d_bn_relu_fpool(torch.zeros(1, 4, 50, 20, device="cuda"), w[:, :, :4], s, s, 50)
     with pytest.raises(ValueError):
         conv2d_bn_relu_fpool(x[:, :8], w[:, :, :8].cpu(), s, s, 2)
-    q = torch.randn(1, 10, 2, 24, device="cuda")
-    with pytest.raises(ValueError):   # head dim 24 has no instantiation
+    q = torch.randn(1, 10, 2, 160, device="cuda")
+    with pytest.raises(ValueError):   # head dims past 128 have no instantiation
         flash_attention(q, q, q, 0.2)
     assert all(v == 0 for v in launch_counts.values())
+    # a pool past one float32 halo staging (48 rows) and head dim 24 run on the
+    # kernels (in chunks; zero-padded to 32) and match the plain versions
+    x4, w4 = torch.randn(1, 4, 50, 20, generator=gen, device="cuda"), w[:, :, :4].contiguous()
+    _close(conv2d_bn_relu_fpool(x4, w4, s, s, 50), conv2d_bn_relu_fpool_plain(x4, w4, s, s, 50),
+           torch.float32)
+    q = torch.randn(1, 10, 2, 24, generator=gen, device="cuda")
+    _close(flash_attention(q, q, q, 0.2)[0], flash_attention_plain(q, q, q, 0.2)[0],
+           torch.float32)
+    assert launch_counts["conv3x3_smallcin"] == 1 and launch_counts["flash_attn_fwd"] == 1
 
 
 def test_fused_frontend_raises_where_k5_cannot_run(gen):

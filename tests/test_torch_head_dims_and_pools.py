@@ -1,0 +1,118 @@
+"""Two entry limits the port's kernels had and the JAX kernels lack, closed.
+
+- K4 / K6 take any head dim up to 128: the wrappers zero-pad D to the next
+  instantiated dim (``attention.padded_head_dim`` / ``pad_heads``) and slice
+  the outputs back. Here the padding runs through the plain versions (the
+  CPU path of the kernels) at D 8 and 24 and is held to the unpadded plain
+  version (float64, 1e-12 x max|ref|: zero columns add exact zeros, only
+  the summation's blocking may differ) and to the JAX ``flash_attention`` in
+  interpret mode (float32, 2e-4 x max|ref|, as tests/test_torch_train_kernels.py
+  holds K6), forward and gradients.
+- K2's entry takes any pool_f dividing F: the kernel stages the window's
+  rows in chunks of ``smallcin_max_pool_f`` rows
+  (``conv2d_pool.smallcin_pool_chunks``, whose rows per chunk the wrapper
+  hands the kernel), each pool row exactly once.
+- The port's ``fused_infer`` at tiny configs whose attention head dim is 8
+  and 24 (V[0] = 64 and 192, 8 heads; otherwise tests/test_torch_fused_infer.py's
+  slice) against the JAX package's, float32, 1e-4 as that file.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu.models import model_from_config as jax_model_from_config
+from seld_tpu.models.fused_infer import fused_infer as jax_fused_infer
+from seld_tpu.ops.pallas.attention import flash_attention as jflash
+from seld_tpu.ops.pallas.stft import stft_mag_pallas
+from seld_tpu_torch.models.fused_infer import fused_infer
+from seld_tpu_torch.models.seld import model_from_config
+from seld_tpu_torch.ops.kernels import conv2d_pool as pool
+from seld_tpu_torch.ops.kernels.attention import (
+    HEAD_DIMS, flash_attention_bwd_plain, flash_attention_plain, pad_heads, padded_head_dim,
+)
+from seld_tpu_torch.ops.kernels.stft import stft_mag
+from seld_tpu_torch.utils.jax_bridge import from_jax_variables
+from tests.test_torch_fused_infer import N_SAMPLES
+from tests.test_torch_model import random_variables, tiny_config
+
+F64_TOL, F32_TOL = 1e-12, 2e-4
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def test_padded_head_dim_is_the_next_instantiation():
+    assert [padded_head_dim(d) for d in (1, 8, 16, 24, 40, 48, 49, 96, 128)] == [
+        16, 16, 16, 32, 48, 48, 64, 128, 128]
+    assert all(padded_head_dim(d) == d for d in HEAD_DIMS)
+    with pytest.raises(ValueError):
+        padded_head_dim(129)
+
+
+@pytest.mark.parametrize("d", [8, 24])
+def test_padded_attention_matches_unpadded_and_jax(rng, d):
+    b, t, h = 2, 70, 3
+    q, k, v, g = (rng.standard_normal((b, t, h, d)) for _ in range(4))
+    scale = d ** -0.5
+    dp = padded_head_dim(d)
+    q64, k64, v64, g64 = (torch.from_numpy(a) for a in (q, k, v, g))
+    qp, kp, vp = pad_heads(dp, q64, k64, v64)
+    assert qp.shape == (b, t, h, dp) and torch.equal(qp[..., :d], q64)
+    assert not qp[..., d:].any()
+    out_p, lse_p = flash_attention_plain(qp, kp, vp, scale)
+    out, lse = flash_attention_plain(q64, k64, v64, scale)
+    _close(out_p[..., :d], out, F64_TOL)
+    _close(lse_p, lse, F64_TOL)
+    # the backward on the padded operands, sliced back
+    grads_p = flash_attention_bwd_plain(qp, kp, vp, *pad_heads(dp, out_p, g64), lse_p, scale)
+    grads = flash_attention_bwd_plain(q64, k64, v64, out, g64, lse, scale)
+    for a, w_ in zip(grads_p, grads):
+        _close(a[..., :d], w_, F64_TOL)
+    # against the Pallas kernel in interpret mode, float32
+    want, vjp = jax.vjp(lambda a, b_, c: jflash(a, b_, c, scale, block_q=32, block_k=32,
+                                                interpret=True),
+                        *(jnp.asarray(a, jnp.float32) for a in (q, k, v)))
+    _close(out_p[..., :d].numpy(), want, F32_TOL)
+    for a, w_ in zip(grads_p, vjp(jnp.asarray(g, jnp.float32))):
+        _close(a[..., :d].numpy(), w_, F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_f", [64, 128, 256])
+def test_smallcin_pool_chunks_cover_each_row_once(pool_f, dtype):
+    step = pool.smallcin_max_pool_f(8, dtype)
+    chunks = pool.smallcin_pool_chunks(pool_f, 8, dtype)
+    rows = [r0 + i for r0, n in chunks for i in range(n)]
+    assert rows == list(range(pool_f))
+    assert all(1 <= n <= step for _, n in chunks)
+    assert len(chunks) == -(-pool_f // step)
+    assert pool.smallcin_pool_chunks(step, 8, dtype) == [(0, step)]
+
+
+@pytest.mark.parametrize("v0,head_dim", [(64, 8), (192, 24)])
+def test_fused_infer_at_small_head_dims_matches_jax(rng, v0, head_dim):
+    cfg = tiny_config(freq_dim=256, time_dim=32, cnn_filters=[8, 16, 16],
+                      pool_size=[[8, 2], [8, 2], [2, 2]], D=[3], G=16, U=16, V=[v0, 16],
+                      domain_classifier="DQ")
+    jmodel = jax_model_from_config(cfg)
+    variables = random_variables(jmodel, (1, 8, 256, 32), rng, dtype=np.float32)
+    audio = rng.standard_normal((2, 8, N_SAMPLES)).astype(np.float32)
+    featurize = lambda a: stft_mag_pallas(a, out_dtype=jnp.float32, interpret=True)
+    sed_ref, doa_ref = jax.jit(lambda v, a: jax_fused_infer(
+        jmodel, v, a, interpret=True, input_layout="BCTF", featurize=featurize,
+    ))(variables, jnp.asarray(audio))
+
+    model = model_from_config(cfg)
+    from_jax_variables(variables, model)
+    attention = model.seld_block.tcn.attention
+    assert attention.embed_size // attention.num_heads == head_dim
+    sed, doa = fused_infer(model, torch.from_numpy(audio), input_layout="BCTF",
+                           featurize=lambda a: stft_mag(a, out_dtype=torch.float32))
+    for got, want in ((sed, sed_ref), (doa, doa_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), rtol=0, atol=1e-4)
