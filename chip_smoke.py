@@ -10,8 +10,9 @@ Phases, each printing its own lines:
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    nvcc per source, all at once); prints ptxas' registers, shared memory and
    spills per kernel and the HMMA / HGMMA count in the SASS of each bfloat16
-   tensor-core kernel (TC_KERNELS: K1's bf16 GEMM and K2's bf16 stage 1
-   among them), failing if one has none;
+   tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
+   GEMM tile of K10a and K2w and K4 / K6 past head dim 128 among them),
+   failing if one has none;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8
    within one ulp of its plain version) against its plain PyTorch version
@@ -31,7 +32,12 @@ Phases, each printing its own lines:
    bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
    addmm's device time from the profiler; K1's bf16 kernel and torch.stft,
    K2, K3 and cuDNN's conv, K4 and scaled_dot_product_attention timed back
-   to back (stream_ms), with K4's floor of exponentials beside;
+   to back (stream_ms), with K4's floor of exponentials beside; K4 and K6
+   at head dims 160, 256 and 320 (128-column slices) with the slice
+   kernels' registers and spills, and at D 48, 160 and 256 beside SDPA and
+   its backward back to back; K2w's and K10a's bf16 operand builds
+   (the torch pack, the patch kernel) and products alone, and both beside
+   cuDNN back to back, at the flagship's stages;
 4. serving path: builds the full-width flagship DualQSELD-TCN
    (config/DQSELD-TCN-S1-PHI_8ch.txt) with seeded random weights, serves 3
    requests of 4 one-minute 8-channel clips through ``seld_tpu_torch.serve``,
@@ -79,12 +85,14 @@ Phases, each printing its own lines:
    K2w, the wide pack) beside 'thin' on the flagship in bf16, in turns, 3
    requests of 4 one-minute clips each: K2w at one launch per 'wide' request
    and K2 at none, clip 0 against the float32 plain path; then a window of
-   HOST_WINDOW requests of each, in turns, as audio-hours/s; (b) ``fused_infer`` on the full-width R-domain config
+   HOST_WINDOW requests of each, in turns, as audio-hours/s, and one
+   profiled request of each with K2w's and K2's device time read out; (b)
+   ``fused_infer`` on the full-width R-domain config
    (``config/SELD-TCN-S1-PHI_8ch.txt``) with 10 and 12 input channels (stage
    1 on K2w, then on K10b), float32 at batch 2, each against its plain
    ``model(x)``; (c) ``python -m seld_tpu_torch.profile_stages`` at
-   PROF_BATCH=4 over every section: every row timed, K2w, K10a and K10b
-   launched.
+   PROF_BATCH=4 over every section: every row timed, K2w, K10a (its patch
+   kernel and its product) and K10b launched.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -176,6 +184,12 @@ FRONTEND_KERNELS = {  # phase 8: the serving stage's other packs and the profile
                               "seld_tpu/ops/pallas/conv2d_pool.py:363"),
     "conv3x3_im2col": ("seld_tpu_torch/csrc/conv3x3_im2col.cu",
                        "seld_tpu/ops/pallas/conv2d_pool.py:100"),
+    # K10a's patches, built in XLA around the TPU kernel (conv2d_pool.py:129-138):
+    # one CUDA pass here, since the torch build took longer than the product; its
+    # launches are those of the profiler's K10a rows, not of its rows that time
+    # the patches alone
+    "im2col_patches": ("seld_tpu_torch/csrc/conv3x3_im2col.cu",
+                       "seld_tpu/ops/pallas/conv2d_pool.py:129"),
     "conv3x3_windows": ("seld_tpu_torch/csrc/conv3x3_windows.cu",
                         "seld_tpu/ops/pallas/conv2d_pool.py:749"),
 }
@@ -207,13 +221,15 @@ PTQ_TOL = {"sed": 0.08, "doa": 0.15}   # the JAX package's int8 bounds (tests/te
 PREDICT_STEPS_TIMED = 3
 # the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
 # K9 F1 and dh bodies and K5's F1 and g_z bodies, the dW tile (K9's 32-channel Cin
-# tile, K5's 16-channel one), K4's forward, K6's two backward passes, K7, K1's
-# bf16-output GEMM and K2's bf16 stage 1
+# tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
+# three at head dims past 128, in 128-column slices), K7, K1's bf16-output GEMM,
+# K2's bf16 stage 1, and the GEMM tile of K10a and K2w
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
-              "flash_dkv_tc_kernel", "hamilton_tc_kernel", "stft_mag_tc_kernel",
-              "smallcin_tc_kernel")
+              "flash_dkv_tc_kernel", "flash_fwd_slice_tc_kernel", "flash_dq_slice_tc_kernel",
+              "flash_dkv_slice_tc_kernel", "hamilton_tc_kernel", "stft_mag_tc_kernel",
+              "smallcin_tc_kernel", "im2col_tc_kernel", "smallcin_wide_tc_kernel")
 # device kernels read out of the step profiles (phases 5b, 6 and 7), by demangled
 # name: K6's three launches, K9's and K5's dW (K5's B2: the g_z pass and the
 # dW tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
@@ -256,6 +272,9 @@ SERVE_ON_CARD_BATCHES = (4, 16)   # the serving forward with the audio already o
 CARD_WINDOW = 100   # timed requests per batch with the audio on the card
 HOST_WINDOW = 30    # timed requests from host memory (phase 4; phase 8a: each variant)
 PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,attn,v3"
+
+
+PTXAS = {}   # kernel -> ptxas' registers, shared memory and spills (phase 2)
 
 
 class SmokeFailure(RuntimeError):
@@ -319,7 +338,7 @@ def phase_build() -> None:
     print(f"[build] kernels {'loaded' if prebuilt else 'built with nvcc and loaded'} "
           f"in {time.perf_counter() - t0:.1f} s: {path.name}")
     log = path.with_suffix(".log")   # nvcc's command line and ptxas' report
-    ptxas = {}
+    ptxas = PTXAS
     if log.exists():
         entry, spill = "?", ""
         for line in log.read_text().splitlines():   # ptxas -v: entry, spills, registers
@@ -469,11 +488,13 @@ def phase_kernels(torch, card: str) -> dict:
 
     summary = {}
 
-    def record(name, d, timed, flops, moved, dtype_name, library_ms=None):
-        """The JSON entry of one kernel, from its flagship bf16 run."""
+    def record(name, d, timed, flops, moved, dtype_name, library_ms=None, **extra):
+        """The JSON entry of one kernel, from its flagship bf16 run; ``extra``
+        keys (parts of ``ms`` timed apart) follow the contract's."""
         bound_ms, bound_by = bound(flops, moved, dtype_name)
         summary[name] = {"max_abs_err": d, "ms": timed[0], "plain_ms": timed[1],
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         **extra}
         print(f"[kernel] {name}: {timed[0]:.3f} ms, plain {timed[1]:.3f} ms, library "
               f"{'none' if library_ms is None else f'{library_ms:.3f} ms'}, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({card})")
@@ -567,15 +588,21 @@ def phase_kernels(torch, card: str) -> dict:
     phase_tile(torch, card, randn)
 
     # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8 and 130 = 2 * 64 + 2,
-    # every head dim the kernel is built for, and 8 and 24 (zero-padded to 16 and 32)
+    # every head dim the kernel is built for, and 8 and 24 (zero-padded to 16 and 32);
+    # past 128 ("sliced"), D 160, 256 and 320 (zero-padded to 256 and 384, two and
+    # three 128-column slices), ragged key tiles
     attn_cases = [
         ("ragged", 2, 200, 3, 48),
         ("ragged", 1, 130, 2, 32),
         *(("ragged", b, t, h, d) for t in (130, 200)
           for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48), (2, 1, 64), (1, 2, 128),
                           (2, 3, 8), (1, 2, 24))),
+        ("sliced", 2, 200, 3, 160), ("sliced", 1, 130, 2, 256), ("sliced", 2, 65, 2, 320),
         ("flagship", 2, 2400, 8, 48),
     ]
+    for fn, regs in sorted(PTXAS.items()):
+        if "slice" in fn and "flash" in fn:
+            print(f"[kernel] head dims past 128: {fn}: {regs}")
     for tag, b, t, h, d_head in attn_cases:
         qf, kf, vf = (randn(b, t, h, d_head) for _ in range(3))
         scale = d_head ** -0.5
@@ -626,7 +653,7 @@ def phase_kernels(torch, card: str) -> dict:
                 # dQ); the dq pass's recompute of S and dP is the kernel's choice
                 record("flash_attn_bwd", d, timed, 10.0 * b * h * t * t * d_head,
                        nbytes(q, k_, v, out_r, dout, lse_r, *got), "bfloat16", lib_ms)
-            elif tag == "ragged":
+            elif tag in ("ragged", "sliced"):
                 # the autograd Function (K4 + K6) against autograd of full attention
                 grads = []
                 for fn in (flash_attention_train, attend_full):
@@ -660,6 +687,25 @@ def phase_kernels(torch, card: str) -> dict:
         compare(torch, "flash_attn_lse", f"batch {b}", lse, lse_ref, torch.float32, card)
         del q, k_, v, o, lse, o_ref, lse_ref
     require(block_rows == {64, 128}, f"flash_attn_fwd: only {block_rows}-query blocks checked")
+
+    # past head dim 128 (the slice kernels) beside SDPA and its backward, back to
+    # back, at the flagship's attention shape (B 2, T 2400, 8 heads), D 48 for reference
+    for d_head in (48, 160, 256):
+        q, k_, v, dout = (randn(2, t, h, d_head).to(torch.bfloat16) for _ in range(4))
+        scale = d_head ** -0.5
+        o, lse = (a.contiguous() for a in flash_attention(q, k_, v, scale))
+        qt, kt, vt, dout_t = (a.transpose(1, 2).contiguous() for a in (q, k_, v, dout))
+        leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
+        o_lib = F.scaled_dot_product_attention(*leaves)
+        ms = [stream_ms(torch, fn) for fn in (
+            lambda: flash_attention(q, k_, v, scale),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            lambda: flash_attention_bwd(q, k_, v, o, dout, lse, scale),
+            lambda: torch.autograd.grad(o_lib, leaves, dout_t, retain_graph=True))]
+        print(f"[kernel] flash_attn bfloat16 (B 2, T {t}, H {h}, D {d_head}) back to back: "
+              f"K4 {ms[0]:.4f} ms, SDPA {ms[1]:.4f} ms; K6 {ms[2]:.4f} ms, SDPA backward "
+              f"{ms[3]:.4f} ms ({card})")
+        del q, k_, v, dout, o, lse, qt, kt, vt, dout_t, leaves, o_lib
 
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
@@ -1127,12 +1173,20 @@ def phase_k7_k8(torch, card: str, record) -> None:
 
 
 def phase_frontend_kernels(torch, card: str, randn, record) -> None:
-    """K2w, K10a and K10b against their plain versions at ragged multi-tile
-    shapes and at the flagship's stages (batch 2), float32 and bfloat16,
-    each flagship run beside cuDNN's conv of the stage; records K2w and
-    K10a at stage 1 and K10b at stage 2 (bf16). The bound is the function's
-    (x + w + out bytes, 2 * 9 * Cin * Cout operations per output pixel):
-    the packs' bytes are the designs' cost."""
+    """K2w, K10a (with its patch build) and K10b against their plain versions
+    at ragged multi-tile shapes and at the flagship's stages (batch 2),
+    float32 and bfloat16, each flagship run beside cuDNN's conv of the
+    stage. For K2w and K10a in bf16 also: the operand build alone (K2w's
+    torch pack, K10a's patch kernel) and the product alone on the built
+    operands (the two public functions each wrapper calls), and wrapper and
+    cuDNN back to back. Records, bf16, K2w, K10a and K10a's patch kernel at
+    stage 1 and K10b at stage 2. Every ``ms`` is its wrapper's, as
+    ``plain_ms`` and ``library_ms`` are the whole function's; K2w's and
+    K10a's entries add ``operands_ms`` and ``product_ms`` (the wrapper's
+    two parts), ``stream_ms`` and ``library_stream_ms`` (back to back). The
+    bound is the function's (x + w + out bytes, 2 * 9 * Cin * Cout
+    operations per output pixel; the patch build: x + patches): the packs'
+    bytes are the designs' cost."""
     from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 
     F = torch.nn.functional
@@ -1143,6 +1197,18 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
                            pool.conv2d_im2col_bn_relu_fpool_plain),
         "conv3x3_windows": (pool.conv2d_windows_bn_relu_fpool, pool.conv2d_bn_relu_fpool_plain),
     }
+
+    def operands(name, x, w, scale, bias, pf):
+        """(the wrapper's operand build, its product on the built operands):
+        the two public functions each wrapper calls in turn"""
+        if name == "conv3x3_smallcin_wide":
+            built = pool.smallcin_pack(x, w)
+            return (lambda: pool.smallcin_pack(x, w),
+                    lambda: pool.smallcin_wide_product(*built, scale, bias, pf, x.shape[3]))
+        built = pool.im2col_operands(x, w)
+        return (lambda: pool.im2col_operands(x, w),
+                lambda: pool.im2col_product(*built, scale, bias, pf))
+
     stage = {1: (2, CHANNELS, 256, 4800, 192, 8), 2: (2, 192, 32, 4800, 192, 8),
              3: (2, 192, 4, 4800, 192, 2)}
     cases = [  # name, tag, (B, Cin, F, T, Cout, pf): 3 T tiles (the last ragged), >= 2
@@ -1176,14 +1242,40 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
             timed = (time_ms(torch, k), time_ms(torch, p)) if flag else None
             got = k()
             d = compare(torch, name, tag, got, p(), dt, card, timed)
+            if name == "conv3x3_im2col":   # the patch kernel, bit for bit the torch build
+                k_align = 8 if dt == torch.bfloat16 else 1
+                patches, want = pool.im2col(x, k_align), pool.im2col_patches(x, k_align)
+                require(torch.equal(patches, want), f"im2col_patches {tag} {dt}: differs "
+                        f"from the torch build")
+                if flag and dt == torch.bfloat16 and tag == recorded[name]:
+                    record("im2col_patches", 0.0,
+                           (time_ms(torch, lambda: pool.im2col(x, 8)),
+                            time_ms(torch, lambda: pool.im2col_patches(x, 8))),
+                           0.0, nbytes(x, patches), "bfloat16", None)
+                del patches, want
             if not flag:
                 continue
             w_nchw = w.permute(3, 2, 0, 1).contiguous()
-            lib_ms = time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1))
+            lib = lambda: F.conv2d(x, w_nchw, padding=1)
+            lib_ms = time_ms(torch, lib)
             flops, moved = 2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got)
             dt_name = str(dt)[6:]
+            parts = {}
+            if dt == torch.bfloat16 and name != "conv3x3_windows":
+                build, product = operands(name, x, w, scale, bias, pf)
+                parts = {"operands_ms": time_ms(torch, build),
+                         "product_ms": time_ms(torch, product),
+                         "stream_ms": stream_ms(torch, k),
+                         "library_stream_ms": stream_ms(torch, lib)}
+                print(f"[kernel] {name} {tag} bfloat16: wrapper {timed[0]:.3f} ms (back to back "
+                      f"{parts['stream_ms']:.3f}) = operands built {parts['operands_ms']:.3f} ms "
+                      f"(back to back {stream_ms(torch, build):.3f}) + product "
+                      f"{parts['product_ms']:.3f} ms (back to back "
+                      f"{stream_ms(torch, product):.3f}); cuDNN {lib_ms:.3f} ms, back to back "
+                      f"{parts['library_stream_ms']:.3f} ms ({card})")
+                del build, product
             if dt == torch.bfloat16 and recorded[name] == tag:
-                record(name, d, timed, flops, moved, "bfloat16", lib_ms)
+                record(name, d, timed, flops, moved, "bfloat16", lib_ms, **parts)
             else:
                 bound_ms, bound_by = bound(flops, moved, dt_name)
                 print(f"[kernel] {name} {tag} {dt_name}: {timed[0]:.3f} ms, plain "
@@ -1965,7 +2057,7 @@ def phase_frontend_paths(torch, card: str) -> dict:
     pick = lambda name: {name: FRONTEND_KERNELS[name]}
     return {"serving, smallcin_impl='wide'": (pick("conv3x3_smallcin_wide"), wide),
             "fused_infer, R config with 12 input channels": (pick("conv3x3_windows"), general),
-            "profile_stages": (pick("conv3x3_im2col"), profiled)}
+            "profile_stages": ({**pick("im2col_patches"), **pick("conv3x3_im2col")}, profiled)}
 
 
 def frontend_serving(torch, card: str) -> dict:
@@ -2024,6 +2116,14 @@ def frontend_serving(torch, card: str) -> dict:
     for impl, window in windows.items():
         print(f"[variants] serve smallcin_impl='{impl}', bf16, {CLIPS_PER_REQUEST} clips per "
               f"request from host memory, in turns: {window_summary(window, audio_h)} ({card})")
+    # one profiled request of each: stage 1's share of the device time
+    watch = {"K2w": ("smallcin_wide_tc_kernel",), "K2": ("smallcin_tc_kernel",)}
+    for impl in ("wide", "thin"):
+        profiled = profile_step(torch, lambda: serve(
+            model, torch.from_numpy(requests[0]).to(dev), smallcin_impl=impl), card, top=8,
+            label=f"'{impl}' serving request, batch {CLIPS_PER_REQUEST}", watch=watch)
+        print(f"[variants] one profiled '{impl}' request: {device_shares(profiled, watch)} "
+              f"({card})")
     clip = torch.from_numpy(requests[0][:1]).to(dev)
     with torch.no_grad():
         feats = stft_mag_plain(clip, out_dtype=torch.float32).transpose(-1, -2)
@@ -2086,7 +2186,8 @@ def frontend_general_cin(torch, card: str) -> dict:
 def frontend_profiler(torch) -> dict:
     """(c) ``python -m seld_tpu_torch.profile_stages`` at PROF_BATCH=4 over
     every section: every row timed (no FAILED), K2w, K10a and K10b launched.
-    Its output goes to chip_tmp/profile_stages.log. Returns its launches."""
+    Its output goes to chip_tmp/profile_stages.log. Returns its launches,
+    the patch kernel's those of K10a's rows."""
     import os
 
     torch.cuda.empty_cache()   # the profiler is another process on the same card
@@ -2111,7 +2212,14 @@ def frontend_profiler(torch) -> dict:
     counts = json.loads(lines[-1])["launch_counts"]
     require(all(counts[k] > 0 for k in FRONTEND_KERNELS),
             f"profile_stages launched {counts}")
-    return counts
+    # the rows that time K10a's patches alone launch the patch kernel too (one
+    # warm-up and ITERS timed calls a row): K10a's path counts its own rows' alone
+    from seld_tpu_torch.profile_stages import ITERS
+    alone = sum("patches alone" in r for r in rows) * (ITERS + 1)
+    require(alone > 0 and counts["im2col_patches"] == counts["conv3x3_im2col"] + alone,
+            f"profile_stages: {counts['im2col_patches']} patch launches, K10a "
+            f"{counts['conv3x3_im2col']}, {alone} from the rows of the patches alone")
+    return {**counts, "im2col_patches": counts["im2col_patches"] - alone}
 
 
 def main() -> int:

@@ -42,6 +42,8 @@ SIGNATURES = {
     "seld_conv3x3_smallcin_wide": [_P] * 5 + [_I] * 8 + [_P],
     # patches, w, scale, bias, out, batch, k, f, t, cout, pf, dtype, stream
     "seld_conv3x3_im2col": [_P] * 5 + [_I] * 7 + [_P],
+    # x, patches, batch, cin, f, t, k_pad, dtype, stream
+    "seld_im2col_patches": [_P, _P] + [_I] * 6 + [_P],
     # q, k, v, out, lse, batch, t, heads, d, scale, dtype, stream
     "seld_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t, heads, d, scale, dtype, stream

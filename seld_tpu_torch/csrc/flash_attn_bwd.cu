@@ -23,6 +23,10 @@
 // past T get P = 0 (the exp of a -inf score), so they add exactly nothing;
 // rows past T read lse and delta as 0 and are not stored.
 //
+// Head dims past 128 (a multiple of 128, the wrapper zero-pads) take the
+// slice kernels below (flash_dq_slice_tc_kernel, flash_dkv_slice_tc_kernel;
+// SIMT in float32): one 128-column slice of the gradients a block.
+//
 // bfloat16: FlashAttention-2's backward on the tensor cores
 // (flash_dq_tc_kernel, flash_dkv_tc_kernel), built on K4's tiles
 // (flash_attn_tc.cuh): 4 warps of 16 rows, the block's own Q and dO (dq
@@ -444,6 +448,371 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv, base, tstride, k0, t_dim, dv_acc, 1.f);
 }
 
+// ---- head dims past 128: D in 128-column slices ----------------------------
+// As K4's slice kernels: a block owns one 128-column slice z of its dq (or
+// dk and dv) and sums S and dP over every slice of D before it multiplies;
+// delta is taken over all of D by delta_kernel.
+
+// bfloat16 dq: units per 64-key tile j, two tiles each: (Q_r, K_jr) and
+// (dO_r, V_jr) for each slice r, then (K_jz, -).
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dq_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int t_dim, int heads, int d, float scale,
+                         float scale_log2) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int q0 = blockIdx.x * kTcB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+  const int per_tile = 2 * nd + 1, units = ceil_div(t_dim, kTcB) * per_tile;
+  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile, r = u % per_tile;
+      if (r < 2 * nd) {
+        const size_t off = base + (r / 2) * kSliceD;
+        attn_load_rows<kSliceD>(stage(u), r % 2 ? dout : q, off, tstride, q0, t_dim);
+        attn_load_rows<kSliceD>(stage(u) + kSliceTile, r % 2 ? v : k, off, tstride, j * kTcB,
+                                t_dim);
+      } else {
+        attn_load_rows<kSliceD>(stage(u), k, base + zs, tstride, j * kTcB, t_dim);
+      }
+    }
+    cp_async_commit();
+  };
+  float lse2[2], dl[2];   // rows g and g + 8: lse in log2 units, delta; 0 past T
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + warp * 16 + lane / 4 + 8 * hh;
+    const size_t at = static_cast<size_t>(bh) * t_dim + t;
+    lse2[hh] = t < t_dim ? lse[at] * kLog2e : 0.f;
+    dl[hh] = t < t_dim ? delta[at] : 0.f;
+  }
+
+  float acc[kSliceD / 8][4];
+  zero_acc<kSliceD>(acc);
+  float s[kTcB / 8][4], dp[kTcB / 8][4];
+  load_unit(0);
+  for (int u = 0; u < units; ++u) {
+    load_unit(u + 1);   // the other stage: its readers passed the last barrier
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const int j = u / per_tile, r = u % per_tile;
+    const bf16* tile = stage(u);
+    if (r == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+    if (r < 2 * nd) {
+      if (r % 2) attn_mma_abt_acc<kSliceD>(dp, SliceFrag{tile}, tile + kSliceTile);
+      else attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * kTcB + nt * 8 + 2 * quad + (e % 2);
+          const float p = key < t_dim ? exp2f(s[nt][e] * scale_log2 - lse2[e / 2]) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - dl[e / 2]);   // dS
+        }
+      attn_mma_pv<kSliceD>(acc, s, tile);   // dQ += dS K_z
+    }
+    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+  }
+  store_rows<kSliceD>(dq + zs, base, tstride, q0, t_dim, acc, scale);
+}
+
+// bfloat16 dk / dv: units per 64-query tile j: (K_r, Q_jr) and (V_r, dO_jr)
+// for each slice r (S^T and dP^T), then (Q_jz, dO_jz); the tile's lse and
+// delta are staged during its first unit.
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dkv_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int t_dim, int heads,
+                          int d, float scale, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  float* stats = reinterpret_cast<float*>(ring + 4 * kSliceTile);   // lse2 [64], delta [64]
+  const int lane = threadIdx.x % 32, quad = lane % 4;
+  const int k0 = blockIdx.x * kTcB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+  const int per_tile = 2 * nd + 1, units = ceil_div(t_dim, kTcB) * per_tile;
+  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile, r = u % per_tile;
+      if (r < 2 * nd) {
+        const size_t off = base + (r / 2) * kSliceD;
+        attn_load_rows<kSliceD>(stage(u), r % 2 ? v : k, off, tstride, k0, t_dim);
+        attn_load_rows<kSliceD>(stage(u) + kSliceTile, r % 2 ? dout : q, off, tstride,
+                                j * kTcB, t_dim);
+      } else {
+        attn_load_rows<kSliceD>(stage(u), q, base + zs, tstride, j * kTcB, t_dim);
+        attn_load_rows<kSliceD>(stage(u) + kSliceTile, dout, base + zs, tstride, j * kTcB,
+                                t_dim);
+      }
+    }
+    cp_async_commit();
+  };
+  // threads 0-63 carry a query's lse (log2 units), 64-127 its delta; 0 past T
+  const float* stat_src = threadIdx.x < kTcB ? lse : delta;
+  const float stat_mul = threadIdx.x < kTcB ? kLog2e : 1.f;
+
+  float dk_acc[kSliceD / 8][4], dv_acc[kSliceD / 8][4];
+  zero_acc<kSliceD>(dk_acc);
+  zero_acc<kSliceD>(dv_acc);
+  float s[kTcB / 8][4], dp[kTcB / 8][4];
+  load_unit(0);
+  for (int u = 0; u < units; ++u) {
+    load_unit(u + 1);   // the other stage: its readers passed the last barrier
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const int j = u / per_tile, r = u % per_tile;
+    const bf16* tile = stage(u);
+    if (r == 0) {
+      // read at this tile's last unit, past at least one barrier; the last
+      // tile's readers finished before this unit's
+      const int t = j * kTcB + threadIdx.x % kTcB;
+      stats[threadIdx.x] =
+          t < t_dim ? stat_src[static_cast<size_t>(bh) * t_dim + t] * stat_mul : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    }
+    if (r < 2 * nd) {
+      if (r % 2) attn_mma_abt_acc<kSliceD>(dp, SliceFrag{tile}, tile + kSliceTile);  // dP^T
+      else attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);         // S^T
+    } else {
+      const float* ls = stats;
+      const float* dls = stats + kTcB;
+#pragma unroll
+      for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + 2 * quad + (e % 2);
+          const float p = j * kTcB + c < t_dim ? exp2f(s[nt][e] * scale_log2 - ls[c]) : 0.f;
+          s[nt][e] = p;                            // P^T
+          dp[nt][e] = p * (dp[nt][e] - dls[c]);    // dS^T
+        }
+      attn_mma_pv<kSliceD>(dv_acc, s, tile + kSliceTile);   // dV += P^T dO_z
+      attn_mma_pv<kSliceD>(dk_acc, dp, tile);               // dK += dS^T Q_z
+    }
+    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+  }
+  store_rows<kSliceD>(dk + zs, base, tstride, k0, t_dim, dk_acc, scale);
+  store_rows<kSliceD>(dv + zs, base, tstride, k0, t_dim, dv_acc, 1.f);
+}
+
+// float32: dq_kernel's and dkv_kernel's threads (four per row); S and dP
+// summed over the slices of D staged one after another, then the slice z
+// the products read.
+constexpr int kSW = kSliceW;   // padded row of a staged float slice
+
+// acc[j] += a[row] . b[sub + 4 j] over one staged slice
+static __device__ __forceinline__ void slice_dots(float (&acc)[kB / 4],
+                                                  const float* __restrict__ a,
+                                                  const float* __restrict__ b, int row,
+                                                  int sub) {
+#pragma unroll
+  for (int j = 0; j < kB / 4; ++j)
+    acc[j] += dot_row<kSliceD>(a + row * kSW, b + (sub + 4 * j) * kSW);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int t_dim, int heads,
+                int d, float scale) {
+  extern __shared__ float smem[];
+  float* as = smem;             // [kB][kSW]: Q_r or dO_r
+  float* bs = as + kB * kSW;    // [kB][kSW]: K_jr or V_jr, then K_jz
+  float* dss = bs + kB * kSW;   // [kB][kPW]
+  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
+  const int q0 = blockIdx.x * kB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+  const int t = q0 + row;
+  const float lse_r = t < t_dim ? lse[static_cast<size_t>(bh) * t_dim + t] : 0.f;
+  const float delta_r = t < t_dim ? delta[static_cast<size_t>(bh) * t_dim + t] : 0.f;
+
+  constexpr int kE = kSliceD / 4;
+  float acc[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+  for (int k0 = 0; k0 < t_dim; k0 += kB) {
+    float s[kB / 4], dp[kB / 4];
+#pragma unroll
+    for (int j = 0; j < kB / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int r = 0; r < 2 * nd; ++r) {
+      __syncthreads();   // the previous slice's (or tile's) readers are done
+      stage_slice_f32(as, r % 2 ? dout : q, base, tstride, q0, (r / 2) * kSliceD, t_dim);
+      stage_slice_f32(bs, r % 2 ? v : k, base, tstride, k0, (r / 2) * kSliceD, t_dim);
+      __syncthreads();
+      if (r % 2) slice_dots(dp, as, bs, row, sub);
+      else slice_dots(s, as, bs, row, sub);
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 4; ++j) {
+      const int c = sub + 4 * j;
+      const float sc = k0 + c < t_dim ? s[j] * scale : -CUDART_INF_F;
+      dss[row * kPW + c] = expf(sc - lse_r) * (dp[j] - delta_r);
+    }
+    __syncthreads();
+    stage_slice_f32(bs, k, base, tstride, k0, zs, t_dim);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kB; ++c) {
+      const float ds = dss[row * kPW + c];
+      const float* kr = bs + c * kSW + sub;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] = fmaf(ds, kr[4 * e], acc[e]);
+    }
+  }
+  if (t < t_dim) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      store_f(dq + base + t * tstride + zs + sub + 4 * e, acc[e] * scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dkv_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                 int t_dim, int heads, int d, float scale) {
+  extern __shared__ float smem[];
+  float* as = smem;               // [kB][kSW]: K_r or V_r, then Q_jz
+  float* bs = as + kB * kSW;      // [kB][kSW]: Q_jr or dO_jr, then dO_jz
+  float* ls = bs + kB * kSW;      // [kB] lse of the query tile
+  float* dls = ls + kB;           // [kB] delta of the query tile
+  float* pts = dls + kB;          // [kB keys][kPW queries]
+  float* dsts = pts + kB * kPW;   // [kB keys][kPW queries]
+  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
+  const int k0 = blockIdx.x * kB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+
+  constexpr int kE = kSliceD / 4;
+  float dk_acc[kE], dv_acc[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  for (int q0 = 0; q0 < t_dim; q0 += kB) {
+    float s[kB / 4], dp[kB / 4];
+#pragma unroll
+    for (int j = 0; j < kB / 4; ++j) s[j] = dp[j] = 0.f;
+    for (int r = 0; r < 2 * nd; ++r) {
+      __syncthreads();   // the previous slice's (or tile's) readers are done
+      stage_slice_f32(as, r % 2 ? v : k, base, tstride, k0, (r / 2) * kSliceD, t_dim);
+      stage_slice_f32(bs, r % 2 ? dout : q, base, tstride, q0, (r / 2) * kSliceD, t_dim);
+      if (r == 0 && tid < kB) {
+        const bool ok = q0 + tid < t_dim;
+        ls[tid] = ok ? lse[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
+        dls[tid] = ok ? delta[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      if (r % 2) slice_dots(dp, as, bs, row, sub);
+      else slice_dots(s, as, bs, row, sub);
+    }
+#pragma unroll
+    for (int j = 0; j < kB / 4; ++j) {
+      const int c = sub + 4 * j;
+      const float sc = q0 + c < t_dim ? s[j] * scale : -CUDART_INF_F;
+      const float p = expf(sc - ls[c]);
+      pts[row * kPW + c] = p;
+      dsts[row * kPW + c] = p * (dp[j] - dls[c]);
+    }
+    __syncthreads();
+    stage_slice_f32(as, q, base, tstride, q0, zs, t_dim);
+    stage_slice_f32(bs, dout, base, tstride, q0, zs, t_dim);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kB; ++c) {
+      const float p = pts[row * kPW + c];
+      const float ds = dsts[row * kPW + c];
+      const float* dr = bs + c * kSW + sub;
+      const float* qr = as + c * kSW + sub;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        dv_acc[e] = fmaf(p, dr[4 * e], dv_acc[e]);
+        dk_acc[e] = fmaf(ds, qr[4 * e], dk_acc[e]);
+      }
+    }
+  }
+  const int t = k0 + row;
+  if (t < t_dim) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      store_f(dk + base + t * tstride + zs + sub + 4 * e, dk_acc[e] * scale);
+      store_f(dv + base + t * tstride + zs + sub + 4 * e, dv_acc[e]);
+    }
+  }
+}
+
+// delta over all of D, then the dq and dk / dv slice passes.
+template <typename T>
+cudaError_t launch_slices(const void* q, const void* k, const void* v, const void* out,
+                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, int batch, int t_dim, int heads, int d, float scale,
+                          cudaStream_t s) {
+  const int rows = batch * t_dim * heads;
+  delta_kernel<T><<<ceil_div(rows, 256), 256, 0, s>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows, t_dim, heads, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(t_dim, kB), batch * heads, d / kSliceD);
+  if constexpr (sizeof(T) == 2) {
+    const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+    err = set_smem(flash_dq_slice_tc_kernel, kSliceSmem);
+    if (err != cudaSuccess) return err;
+    flash_dq_slice_tc_kernel<<<grid, kAttnThreads, kSliceSmem, s>>>(
+        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), t_dim, heads, d, scale,
+        scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem_dkv = kSliceSmem + sizeof(float) * 2 * kTcB;
+    err = set_smem(flash_dkv_slice_tc_kernel, smem_dkv);
+    if (err != cudaSuccess) return err;
+    flash_dkv_slice_tc_kernel<<<grid, kAttnThreads, smem_dkv, s>>>(
+        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_dim,
+        heads, d, scale, scale * kLog2e);
+  } else {
+    const size_t smem_dq = sizeof(float) * (2 * kB * kSW + kB * kPW);
+    err = set_smem(dq_slice_kernel<T>, smem_dq);
+    if (err != cudaSuccess) return err;
+    dq_slice_kernel<T><<<grid, kThreads, smem_dq, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, d, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem_dkv = sizeof(float) * (2 * kB * kSW + 2 * kB + 2 * kB * kPW);
+    err = set_smem(dkv_slice_kernel<T>, smem_dkv);
+    if (err != cudaSuccess) return err;
+    dkv_slice_kernel<T><<<grid, kThreads, smem_dkv, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        t_dim, heads, d, scale);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -506,13 +875,18 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
     case 48: return launch<T, 48>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d > kSliceD && d % kSliceD == 0)
+        return launch_slices<T>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim,
+                                heads, d, scale, s);
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Head dims supported: 16, 32, 48, 64, 128. delta: (B, H, T) float scratch.
+// Head dims supported: 16, 32, 48, 64, 128 and every multiple of 128 past it.
+// delta: (B, H, T) float scratch.
 extern "C" int seld_flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int batch, int t_dim, int heads, int d,

@@ -23,9 +23,11 @@
 // cp.async ring with one barrier per tile: tile j + 2 loads while tile j is
 // used. S = Q K^T is mma.sync.m16n8k16 with float accumulators (D in {16,
 // 32, 48, 64, 128}, all multiples of 16; the wrapper zero-pads any other D
-// up to one of them). The next tile's S is issued before this tile's
-// softmax, so the tensor cores and the exponentials (the MUFU's 16 a clock
-// an SM, about as long as the products at D = 48) overlap within a warp.
+// up to one of them, and past 128 to a multiple of 128, which
+// flash_fwd_slice_tc_kernel below walks in 128-column slices). The next
+// tile's S is issued before this tile's softmax, so the tensor cores and
+// the exponentials (the MUFU's 16 a clock an SM, about as long as the
+// products at D = 48) overlap within a warp.
 // Only the last tile's keys past T are masked. The online
 // softmax runs on the accumulator fragments (the row max across the four
 // lanes of a quad, then one fma with scale * log2(e) and one ex2.approx a
@@ -325,6 +327,244 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, fl
   return cudaGetLastError();
 }
 
+// ---- head dims past 128: D in 128-column slices ----------------------------
+// A block owns 64 queries of one (b, h) and output columns [128 z, 128 z +
+// 128) (grid z): per 64-key tile it sums S over every slice of D, then runs
+// the online softmax and O += P V on its slice of V. Every block of a query
+// tile recomputes the same S (nd times the S products in all, on a path no
+// shipped config takes); the z = 0 block writes the logsumexp.
+
+// bfloat16: units per key tile, two tiles each through the two-stage ring:
+// (Q slice r, K slice r) for r < nd, then (V slice z, -).
+__global__ void __launch_bounds__(kAttnThreads)
+flash_fwd_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ out,
+                          float* __restrict__ lse, int t_dim, int heads, int d,
+                          float scale_log2) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, quad = lane % 4;
+  const int q0 = blockIdx.x * kTcK, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+  const int n_tiles = ceil_div(t_dim, kTcK);
+  const int last_valid = t_dim - (n_tiles - 1) * kTcK;
+  const int units = n_tiles * (nd + 1);
+  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / (nd + 1), r = u % (nd + 1);
+      if (r < nd) {
+        attn_load_rows<kSliceD>(stage(u), q, base + r * kSliceD, tstride, q0, t_dim);
+        attn_load_rows<kSliceD>(stage(u) + kSliceTile, k, base + r * kSliceD, tstride,
+                                j * kTcK, t_dim);
+      } else {
+        attn_load_rows<kSliceD>(stage(u), v, base + zs, tstride, j * kTcK, t_dim);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float o[kSliceD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kSliceD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // as flash_fwd_tc_kernel's
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint32_t ones = pack_bf16(1.f, 1.f);
+  float s[kTcK / 8][4];
+
+  load_unit(0);
+  for (int u = 0; u < units; ++u) {
+    load_unit(u + 1);   // the other stage: its readers passed the last barrier
+    cp_async_wait_group<1>();
+    __syncthreads();
+    const int j = u / (nd + 1), r = u % (nd + 1);
+    const bf16* tile = stage(u);
+    if (r == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+    if (r < nd) {
+      attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);
+    } else {
+      if (j == n_tiles - 1 && last_valid < kTcK) mask_keys(s, last_valid);
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m_run[hh], mx[hh] * scale_log2);
+        alpha[hh] = fast_exp2(m_run[hh] - m_new);
+        m_run[hh] = m_new;
+        neg_m[hh] = -m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = fast_exp2(fmaf(s[nt][e], scale_log2, neg_m[e / 2]));
+#pragma unroll
+      for (int dt = 0; dt < kSliceD / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e] *= alpha[e / 2];
+      attn_mma_pv<kSliceD>(o, s, tile);
+#pragma unroll
+      for (int kk = 0; kk < kTcK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        mma_bf16(l, a, ones, ones);
+      }
+    }
+    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lr = l[2 * hh];
+    const int t = q0 + warp * 16 + g + 8 * hh;
+    if (t >= t_dim) continue;
+    const float inv = 1.f / lr;
+    bf16* orow = out + base + static_cast<size_t>(t) * tstride + zs;
+#pragma unroll
+    for (int dt = 0; dt < kSliceD / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * quad) =
+          __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+    if (quad == 0 && blockIdx.z == 0)
+      lse[static_cast<size_t>(bh) * t_dim + t] = (m_run[hh] + log2f(lr)) * 0.69314718055994531f;
+  }
+}
+
+// float32: flash_fwd_kernel's threads (four per query row), its scores summed
+// over the slices of D staged one after another, the V slice staged after.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       T* __restrict__ out, float* __restrict__ lse, int t_dim, int heads,
+                       int d, float scale) {
+  constexpr int kW = kSliceW;
+  extern __shared__ float smem[];
+  float* qs = smem;              // [kBQ][kW]: Q slice r
+  float* ks = qs + kBQ * kW;     // [kBK][kW]: K slice r, then V slice z
+  float* ps = ks + kBK * kW;     // [kBQ][kBK + 1]
+
+  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
+  const int q0 = blockIdx.x * kBQ, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
+  const size_t tstride = static_cast<size_t>(heads) * d;
+
+  constexpr int kE = kSliceD / 4;   // output lanes per thread: d = zs + sub + 4 e
+  float acc[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+  float m = -CUDART_INF_F;
+  float l = 0.f;
+
+  for (int k0 = 0; k0 < t_dim; k0 += kBK) {
+    float s[kBK / 4];
+#pragma unroll
+    for (int j = 0; j < kBK / 4; ++j) s[j] = 0.f;
+    for (int r = 0; r < nd; ++r) {
+      __syncthreads();   // the previous slice's (or tile's) readers are done
+      stage_slice_f32(qs, q, base, tstride, q0, r * kSliceD, t_dim);
+      stage_slice_f32(ks, k, base, tstride, k0, r * kSliceD, t_dim);
+      __syncthreads();
+      const float* qr = qs + row * kW;
+#pragma unroll
+      for (int j = 0; j < kBK / 4; ++j) {
+        const float* kr = ks + (sub + 4 * j) * kW;
+        float dot = s[j];
+#pragma unroll 16
+        for (int c = 0; c < kSliceD; ++c) dot = fmaf(qr[c], kr[c], dot);
+        s[j] = dot;
+      }
+    }
+    float smax = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kBK / 4; ++j) {
+      s[j] = k0 + sub + 4 * j < t_dim ? s[j] * scale : -CUDART_INF_F;
+      smax = fmaxf(smax, s[j]);
+    }
+    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 1));
+    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 2));
+    const float m_new = fmaxf(m, smax);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 4; ++j) {
+      const float p = expf(s[j] - m_new);
+      psum += p;
+      ps[row * (kBK + 1) + sub + 4 * j] = p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    const float alpha = expf(m - m_new);
+    l = l * alpha + psum;
+    m = m_new;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[e] *= alpha;
+    __syncthreads();   // every reader of the K slice is done
+    stage_slice_f32(ks, v, base, tstride, k0, zs, t_dim);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float p = ps[row * (kBK + 1) + c];
+      const float* vr = ks + c * kW + sub;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] = fmaf(p, vr[4 * e], acc[e]);
+    }
+  }
+
+  const int t = q0 + row;
+  if (t < t_dim) {
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int e = 0; e < kE; ++e)
+      store_f(out + base + t * tstride + zs + sub + 4 * e, acc[e] * inv);
+    if (sub == 0 && blockIdx.z == 0) lse[static_cast<size_t>(bh) * t_dim + t] = m + logf(l);
+  }
+}
+
+template <typename T>
+cudaError_t launch_slices(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int batch, int t_dim, int heads, int d, float scale,
+                          cudaStream_t stream) {
+  const dim3 grid(ceil_div(t_dim, kBQ), batch * heads, d / kSliceD);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    const void* rows[] = {q, k, v, out};
+    for (const void* p : rows)
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+    err = set_smem(flash_fwd_slice_tc_kernel, kSliceSmem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_slice_tc_kernel<<<grid, kAttnThreads, kSliceSmem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(out), lse, t_dim, heads, d, scale * 1.4426950408889634f);
+  } else {
+    const size_t smem = sizeof(float) * ((kBQ + kBK) * (kSliceD + 1) + kBQ * (kBK + 1));
+    err = set_smem(flash_fwd_slice_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_slice_kernel<T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, t_dim, heads, d, scale);
+  }
+  return cudaGetLastError();
+}
+
 int sm_count() {
   static int n = [] {
     int dev = 0, count = 0;
@@ -368,13 +608,16 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, f
     case 48: return launch<T, 48>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (d > kSliceD && d % kSliceD == 0)
+        return launch_slices<T>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Head dims supported: 16, 32, 48, 64, 128.
+// Head dims supported: 16, 32, 48, 64, 128 and every multiple of 128 past it.
 extern "C" int seld_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int batch, int t_dim, int heads, int d,
                                    float scale, int dtype, void* stream) {

@@ -49,16 +49,14 @@ static __device__ __forceinline__ void attn_ldsm_a(const bf16* __restrict__ tile
           a);
 }
 
-// s = A B^T over D: afrag(kd, a) gives A's fragment of step kd, `rows` is a
+// s += A B^T over D: afrag(kd, a) gives A's fragment of step kd, `rows` is a
 // staged [64][D + 8] tile; s[nt] is columns (tile rows) 8 nt .. 8 nt + 7.
+// The head dims past 128 sum S over 128-column slices of D with it.
 template <int D, typename AFrag>
-static __device__ __forceinline__ void attn_mma_abt(float (&s)[kAttnRows / 8][4], AFrag&& afrag,
-                                                    const bf16* __restrict__ rows) {
+static __device__ __forceinline__ void attn_mma_abt_acc(float (&s)[kAttnRows / 8][4],
+                                                        AFrag&& afrag,
+                                                        const bf16* __restrict__ rows) {
   const int lane = threadIdx.x % 32, jq = lane / 8, r8 = lane % 8;
-#pragma unroll
-  for (int nt = 0; nt < kAttnRows / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
   for (int kd = 0; kd < D / 16; ++kd) {
     uint32_t a[4];
@@ -71,6 +69,17 @@ static __device__ __forceinline__ void attn_mma_abt(float (&s)[kAttnRows / 8][4]
       mma_bf16(s[2 * np + 1], a, t4[2], t4[3]);
     }
   }
+}
+
+// s = A B^T over D (attn_mma_abt_acc from zero).
+template <int D, typename AFrag>
+static __device__ __forceinline__ void attn_mma_abt(float (&s)[kAttnRows / 8][4], AFrag&& afrag,
+                                                    const bf16* __restrict__ rows) {
+#pragma unroll
+  for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  attn_mma_abt_acc<D>(s, afrag, rows);
 }
 
 // o += p `rows`: p (16 x 64, S-shaped) rounded to bf16 as the A operand,
@@ -96,5 +105,40 @@ static __device__ __forceinline__ void attn_mma_pv(float (&o)[D / 8][4],
     }
   }
 }
+
+// ---- head dims past 128 (flash_attn_fwd.cu, flash_attn_bwd.cu) -----------
+// D, a multiple of 128 there (the wrapper zero-pads it), is walked in
+// 128-column slices: a block owns one slice of its outputs (grid z) and sums
+// every S (and dP) over all of D, slice by slice, so each product keeps the
+// D = 128 tile's registers whatever D is. The (rows, slice) tiles stream
+// through a two-stage cp.async ring of units of two [64][136] tiles.
+constexpr int kSliceD = 128;
+constexpr int kSliceP = kSliceD + 8;
+constexpr int kSliceTile = kAttnRows * kSliceP;   // bf16 elements of one staged tile
+constexpr size_t kSliceSmem = sizeof(bf16) * 2 * 2 * kSliceTile;
+
+// float32 (the SIMT slice kernels, 256 threads): rows [r0, r0 + 64) of a
+// (B, T, H, d) tensor at base, columns [c0, c0 + 128) -> dst [64][kSliceW]
+// floats, zeros past T.
+constexpr int kSliceW = kSliceD + 1;
+template <typename T>
+static __device__ __forceinline__ void stage_slice_f32(float* __restrict__ dst,
+                                                       const T* __restrict__ src, size_t base,
+                                                       size_t tstride, int r0, int c0,
+                                                       int t_dim) {
+  for (int e = threadIdx.x; e < kAttnRows * kSliceD; e += 256) {
+    const int r = e / kSliceD, c = e % kSliceD;
+    dst[r * kSliceW + c] =
+        r0 + r < t_dim ? to_f(src[base + (r0 + r) * tstride + c0 + c]) : 0.f;
+  }
+}
+
+// The A fragment of step kd of this warp's rows of a staged slice tile.
+struct SliceFrag {
+  const bf16* tile;
+  __device__ __forceinline__ void operator()(int kd, uint32_t (&a)[4]) const {
+    attn_ldsm_a<kSliceD>(tile, kd, a);
+  }
+};
 
 }  // namespace

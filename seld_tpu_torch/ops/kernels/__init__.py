@@ -18,6 +18,7 @@ launch_counts = {
     "conv3x3_widecin": 0,
     "conv3x3_smallcin_wide": 0,
     "conv3x3_im2col": 0,
+    "im2col_patches": 0,
     "conv3x3_windows": 0,
     "flash_attn_fwd": 0,
     "flash_attn_bwd": 0,

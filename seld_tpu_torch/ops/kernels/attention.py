@@ -18,16 +18,18 @@ from seld_tpu_torch.ops.kernels import (
 )
 
 HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernels are instantiated for
+SLICE_D = 128   # past HEAD_DIMS, D runs in slices of this many columns
 
 
 def padded_head_dim(d: int) -> int:
-    """The instantiated head dim a head dim ``d`` runs at: the least of
-    :data:`HEAD_DIMS` >= d. Past 128 there is none (K4 and K6 would need a
-    256 instantiation with fewer query rows a block)."""
+    """The head dim a head dim ``d`` runs at: the least of :data:`HEAD_DIMS`
+    >= d, or past 128 the next multiple of :data:`SLICE_D` (as the JAX kernel
+    pads D to a multiple of 128, ``seld_tpu/ops/pallas/attention.py:261``),
+    which the kernels walk in 128-column slices."""
     for hd in HEAD_DIMS:
         if hd >= d:
             return hd
-    raise ValueError(f"no kernel for head dim {d}; the kernels take d <= {HEAD_DIMS[-1]}")
+    return -(-d // SLICE_D) * SLICE_D
 
 
 def pad_heads(d_pad: int, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -79,7 +81,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
     ``seld_flash_attn_fwd`` at D, or at :func:`padded_head_dim` (D) on
-    zero-padded q, k, v (:func:`pad_heads`), out sliced back to D."""
+    zero-padded q, k, v (:func:`pad_heads`), out sliced back to D; past 128
+    one block per 128 output columns (grid z), each summing the scores over
+    all of D."""
     _check(q, k, v)
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)

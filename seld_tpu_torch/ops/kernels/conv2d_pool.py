@@ -16,7 +16,9 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
 - K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
   :func:`conv2d_smallcin_wide_bn_relu_fpool`, ``csrc/conv3x3_smallcin_wide.cu``;
 - K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
-  :func:`conv2d_im2col_bn_relu_fpool`, ``csrc/conv3x3_im2col.cu``;
+  :func:`conv2d_im2col_bn_relu_fpool`, ``csrc/conv3x3_im2col.cu``
+  (K2w and K10a in bfloat16 on the GEMM tile of ``csrc/pool_gemm_tc.cuh``,
+  float32 SIMT);
 - K10b ``conv2d_bn_relu_fpool`` (any Cin, per-tap windows):
   :func:`conv2d_windows_bn_relu_fpool`, ``csrc/conv3x3_windows.cu``.
 
@@ -112,10 +114,8 @@ def tc_block_rows(pool_f: int) -> int:
     return TC_SLOTS if pool_f <= 2 else pool_f
 
 
-def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes, chunk=None) -> torch.Tensor:
-    """Check the operands of a CUDA launch, launch ``seld_<name>`` with
-    (x, w, scale, bias, out, *sizes, pool_f[, chunk], dtype, stream) and
-    count it."""
+def _check_launch(x, w, scale, bias, out_shape) -> int:
+    """Check the operands of a CUDA launch; returns x's dtype code."""
     require_contiguous(x=x, w=w, scale=scale, bias=bias)
     if w.dtype != x.dtype:
         raise TypeError(f"w is {w.dtype}, x is {x.dtype}")
@@ -123,7 +123,14 @@ def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes, chunk=None) -> t
         raise TypeError("scale and bias must be float32")
     if out_shape[0] * out_shape[2] > GRID_Z_MAX:
         raise ValueError("B * F / pool_f exceeds the grid's z range")
-    code = dtype_code(x)
+    return dtype_code(x)
+
+
+def _launch(name, x, w, scale, bias, pool_f, out_shape, *sizes, chunk=None) -> torch.Tensor:
+    """Check the operands of a CUDA launch, launch ``seld_<name>`` with
+    (x, w, scale, bias, out, *sizes, pool_f[, chunk], dtype, stream) and
+    count it."""
+    code = _check_launch(x, w, scale, bias, out_shape)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     fn = getattr(_build.load(), f"seld_{name}")
     err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -288,11 +295,35 @@ def conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> 
     float32 (float64 for float64 input), affine, ReLU and pool; frames >= T
     dropped."""
     _check(x, w, scale, bias, pool_f)
-    p0, wk = smallcin_pack(x, w)
-    adt, f = _acc_dtype(x), x.shape[2]
+    return smallcin_wide_product_plain(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3])
+
+
+def smallcin_wide_product_plain(p0, wk, scale, bias, pool_f: int, t: int) -> torch.Tensor:
+    """Plain version of :func:`smallcin_wide_product`: per conv row f wk @
+    p0[:, f:f + 3] flattened to (3 * kg, tpad) in float32 (float64 for
+    float64 input), affine, ReLU and pool; frames >= t dropped."""
+    adt, f = _acc_dtype(p0), p0.shape[1] - 2
     stack = torch.cat([p0[:, dy:dy + f] for dy in range(3)], dim=2)   # (B, F, 3 kg, tpad)
     y = torch.einsum("ok,bfkt->boft", wk.to(adt), stack.to(adt))
-    return _epilogue(y[..., :x.shape[3]], scale, bias, pool_f, x.dtype).contiguous()
+    return _epilogue(y[..., :t], scale, bias, pool_f, p0.dtype).contiguous()
+
+
+def smallcin_wide_product(p0: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, pool_f: int, t: int) -> torch.Tensor:
+    """K2w's kernel on a built pack (:func:`smallcin_pack`): p0 (B, F + 2,
+    kg, tpad), wk (Cout, 3 * kg) in one dtype, scale/bias (Cout,) float32,
+    the input's T frames -> (B, Cout, F/pool_f, T). CUDA tensors launch
+    ``seld_conv3x3_smallcin_wide`` (bfloat16 on the tensor cores, float32
+    SIMT); CPU tensors take :func:`smallcin_wide_product_plain`."""
+    b, f2, kg, tpad = p0.shape
+    f, cout = f2 - 2, wk.shape[0]
+    if wk.shape != (cout, 3 * kg) or scale.shape != (cout,) or bias.shape != (cout,):
+        raise ValueError(f"wk {tuple(wk.shape)}, scale {tuple(scale.shape)} and bias "
+                         f"{tuple(bias.shape)} do not fit a pack of kg {kg}")
+    if not on_cuda(p0, wk, scale, bias):
+        return smallcin_wide_product_plain(p0, wk, scale, bias, pool_f, t)
+    return _launch("conv3x3_smallcin_wide", p0, wk, scale, bias, pool_f,
+                   (b, cout, f // pool_f, t), b, kg, f, t, tpad, cout)
 
 
 def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
@@ -303,29 +334,60 @@ def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
     F/pool_f, T) in x's dtype.
 
     The pack (:func:`smallcin_pack`) runs in torch, as the JAX package builds
-    it in XLA; CUDA tensors then launch ``seld_conv3x3_smallcin_wide`` on it,
-    CPU tensors take :func:`conv2d_smallcin_wide_bn_relu_fpool_plain`."""
+    it in XLA; CUDA tensors then launch K2w's kernel on it
+    (:func:`smallcin_wide_product`), CPU tensors take
+    :func:`conv2d_smallcin_wide_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
-    b, cin, f, t = x.shape
     if not on_cuda(x, w, scale, bias):
         return conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    p0, wk = smallcin_pack(x, w)
-    cout = w.shape[3]
-    return _launch("conv3x3_smallcin_wide", p0, wk, scale, bias, pool_f,
-                   (b, cout, f // pool_f, t), b, p0.shape[2], f, t, p0.shape[3], cout)
+    return smallcin_wide_product(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3])
 
 
 # ---- K10a: im2col -------------------------------------------------------------
 
-def im2col_patches(x: torch.Tensor) -> torch.Tensor:
+def im2col_patches(x: torch.Tensor, k_align: int = 1) -> torch.Tensor:
     """x (B, Cin, F, T) -> patches (B, F, T, 9 * Cin) of the zero-padded
     input, column (dy * 3 + dx) * Cin + c = x[c, f + dy - 1, t + dx - 1]
     (``conv2d_pool.py:129-138``), so patches @ w.reshape(9 * Cin, Cout) is
-    the conv."""
+    the conv; zero columns after them up to a multiple of ``k_align``."""
     b, cin, f, t = x.shape
     xp = F.pad(x, (1, 1, 1, 1)).permute(0, 2, 3, 1)            # (B, F + 2, T + 2, C)
-    return torch.cat([xp[:, dy:dy + f, dx:dx + t] for dy in range(3) for dx in range(3)],
-                     dim=-1).contiguous()
+    cols = [xp[:, dy:dy + f, dx:dx + t] for dy in range(3) for dx in range(3)]
+    if (9 * cin) % k_align:
+        cols.append(x.new_zeros(b, f, t, -(9 * cin) % k_align))
+    return torch.cat(cols, dim=-1).contiguous()
+
+
+def im2col(x: torch.Tensor, k_align: int = 1) -> torch.Tensor:
+    """K10a's patch build: :func:`im2col_patches` in one pass. CUDA tensors
+    launch ``seld_im2col_patches`` (x read once, the patches written with
+    their zero columns); CPU tensors take :func:`im2col_patches`."""
+    if not on_cuda(x):
+        return im2col_patches(x, k_align)
+    require_contiguous(x=x)
+    b, cin, f, t = x.shape
+    k_pad = -(-9 * cin // k_align) * k_align
+    patches = torch.empty((b, f, t, k_pad), dtype=x.dtype, device=x.device)
+    err = _build.load().seld_im2col_patches(x.data_ptr(), patches.data_ptr(), b, cin, f, t,
+                                            k_pad, dtype_code(x), stream_handle(x.device))
+    _build.check(err, "seld_im2col_patches")
+    launch_counts["im2col_patches"] += 1
+    return patches
+
+
+def im2col_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The patches (:func:`im2col`) and the (K, Cout) weights K10a's kernel
+    multiplies. The bfloat16 kernel copies 16-byte rows: its K is padded to
+    a multiple of 8 (zero patch columns, zero weight rows) and its weight
+    rows to a multiple of 8 channels (zero columns); float32 takes them as
+    they are."""
+    cout = w.shape[3]
+    wk = w.reshape(-1, cout)
+    if x.dtype != torch.bfloat16:
+        return im2col(x), wk
+    patches = im2col(x, 8)
+    pad = (0, -cout % 8, 0, patches.shape[-1] - wk.shape[0])
+    return patches, F.pad(wk, pad).contiguous()
 
 
 def conv2d_im2col_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> torch.Tensor:
@@ -333,26 +395,54 @@ def conv2d_im2col_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> torch.T
     one product with w.reshape(9 * Cin, Cout) in float32 (float64 for
     float64 input), then affine, ReLU and pool."""
     _check(x, w, scale, bias, pool_f)
-    adt = _acc_dtype(x)
-    y = torch.matmul(im2col_patches(x).to(adt), w.reshape(-1, w.shape[3]).to(adt))
-    return _epilogue(y.permute(0, 3, 1, 2), scale, bias, pool_f, x.dtype).contiguous()
+    return im2col_product_plain(im2col_patches(x), w.reshape(-1, w.shape[3]), scale, bias,
+                                pool_f)
+
+
+def im2col_product_plain(patches, wk, scale, bias, pool_f: int) -> torch.Tensor:
+    """Plain version of :func:`im2col_product`: patches @ wk in float32
+    (float64 for float64 input), the first Cout columns, then affine, ReLU
+    and pool."""
+    adt = _acc_dtype(patches)
+    y = torch.matmul(patches.to(adt), wk[:, :scale.shape[0]].to(adt))
+    return _epilogue(y.permute(0, 3, 1, 2), scale, bias, pool_f, patches.dtype).contiguous()
+
+
+def im2col_product(patches: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, pool_f: int) -> torch.Tensor:
+    """K10a's kernel on built operands (:func:`im2col_operands`): patches
+    (B, F, T, K), wk (K, Cout; bfloat16: K % 8 == 0 and Cout rounded up to
+    8 columns) in one dtype, scale/bias (Cout,) float32 -> (B, Cout,
+    F/pool_f, T). CUDA tensors launch
+    ``seld_conv3x3_im2col`` (bfloat16 on the tensor cores, float32 SIMT);
+    CPU tensors take :func:`im2col_product_plain`."""
+    b, f, t, k = patches.shape
+    cout = scale.shape[0]
+    bf16 = patches.dtype == torch.bfloat16
+    if wk.shape != (k, -(-cout // 8) * 8 if bf16 else cout) or (bf16 and k % 8) \
+            or bias.shape != (cout,):
+        raise ValueError(f"patches {tuple(patches.shape)}, wk {tuple(wk.shape)}, Cout {cout}: "
+                         f"not operands of im2col_operands")
+    if not on_cuda(patches, wk, scale, bias):
+        return im2col_product_plain(patches, wk, scale, bias, pool_f)
+    return _launch("conv3x3_im2col", patches, wk, scale, bias, pool_f,
+                   (b, cout, f // pool_f, t), b, k, f, t, cout)
 
 
 def conv2d_im2col_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                                 bias: torch.Tensor, pool_f: int) -> torch.Tensor:
     """K10a: the stage as one K = 9 * Cin product over materialized patches
-    (:func:`im2col_patches`, 9x the input bytes), any Cin and T. x (B, Cin,
+    (:func:`im2col_operands`, 9x the input bytes), any Cin and T. x (B, Cin,
     F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,) float32 ->
     (B, Cout, F/pool_f, T) in x's dtype. CUDA tensors launch
-    ``seld_conv3x3_im2col``; CPU tensors take
-    :func:`conv2d_im2col_bn_relu_fpool_plain`."""
+    ``seld_im2col_patches``, then the product (:func:`im2col_product`); CPU
+    tensors take :func:`conv2d_im2col_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
     if not on_cuda(x, w, scale, bias):
         return conv2d_im2col_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    b, cin, f, t = x.shape
-    cout = w.shape[3]
-    return _launch("conv3x3_im2col", im2col_patches(x), w, scale, bias, pool_f,
-                   (b, cout, f // pool_f, t), b, 9 * cin, f, t, cout)
+    b, _, f, t = x.shape
+    _check_launch(x, w, scale, bias, (b, w.shape[3], f // pool_f, t))   # before the patches
+    return im2col_product(*im2col_operands(x, w), scale, bias, pool_f)
 
 
 # ---- K10b: per-tap windows ------------------------------------------------------

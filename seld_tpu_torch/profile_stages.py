@@ -13,14 +13,16 @@ dispatch baseline, always runs. Sections:
 - ``tcn``: one ResBlock's DQ convs (dilation 55), the pointwise conv and the
   dilated conv alone;
 - ``fused``: K2 (the smallcin kernel) at stage 1, K10a (im2col) and K10b
-  (per-tap windows) at stages 1-3, float32 scale and bias;
+  (per-tap windows) at stages 1-3, float32 scale and bias, and K10a's
+  operands (the patch kernel and the padded weights) alone at each stage;
 - ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
 - ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
   tile) beside cuDNN's weight gradient on the same g_z;
 - ``attn``: K4 and K6 (bfloat16) at the flagship's attention (T = frames
   / 2 after the TCN's time pool, 8 heads of 48) beside
   ``scaled_dot_product_attention`` and its backward on the same inputs;
-- ``v3``: K2w at stage 1, then the flagship's ``model(x)`` beside
+- ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
+  ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
 
 Each row prints the median of 5 timed runs after one warm-up: CUDA events on
@@ -139,6 +141,7 @@ def fused(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_im2col_bn_relu_fpool, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+        im2col_operands,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -157,6 +160,7 @@ def fused(batch, device, shapes=FLAGSHIP):
         (x1, w1)
     yield f"fused1: K10a im2col (K={9 * cin})", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \
         (x1, w1)
+    yield f"fused1: K10a patches alone (K={9 * cin})", im2col_operands, (x1, w1)
     yield f"fused1: K10a im2col (K={9 * cin}) b4", stage(conv2d_im2col_bn_relu_fpool, pools[0]), \
         (x1s, w1)
     yield "fused1: K10b windows b4", stage(conv2d_windows_bn_relu_fpool, pools[0]), (x1s, w1)
@@ -169,6 +173,7 @@ def fused(batch, device, shapes=FLAGSHIP):
         xi = _randn(device, batch, c, fi, t, dtype=bf16, gen=gen)
         yield f"fused{i}: K10a im2col (K={9 * c})", stage(conv2d_im2col_bn_relu_fpool, pool_f), \
             (xi, w2)
+        yield f"fused{i}: K10a patches alone (K={9 * c})", im2col_operands, (xi, w2)
         yield f"fused{i}: K10b windows (K={c}/tap)", stage(conv2d_windows_bn_relu_fpool, pool_f), \
             (xi, w2)
         del xi
@@ -249,7 +254,9 @@ def attn(batch, device, shapes=FLAGSHIP):
 def v3(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.models.fused_infer import fused_infer
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
-    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_smallcin_wide_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_smallcin_wide_bn_relu_fpool, smallcin_pack,
+    )
     from seld_tpu_torch.serve import build_flagship
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -260,6 +267,7 @@ def v3(batch, device, shapes=FLAGSHIP):
     s1, b1 = _randn(device, c, gen=gen), _randn(device, c, gen=gen)
     yield "v3 stage1: K2w wide pack (K=96)", \
         lambda x, w: conv2d_smallcin_wide_bn_relu_fpool(x, w, s1, b1, shapes["pools"][0]), (x1, w1)
+    yield "v3 stage1: K2w pack alone (torch)", smallcin_pack, (x1, w1)
     del x1, w1
     model = build_flagship(shapes["config"], bf16, device, torch.Generator().manual_seed(0))
     x = _randn(device, batch, cin, f, t, gen=gen)

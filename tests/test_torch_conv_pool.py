@@ -110,6 +110,53 @@ def test_im2col_patches_tap_order(rng):
             assert np.array_equal(got[..., tap:tap + 3], want)
 
 
+@pytest.mark.parametrize("cin,cout", [(3, 80), (12, 64), (20, 200), (8, 70)])
+def test_im2col_operands_pad_k_and_cout_for_bf16(rng, cin, cout):
+    """The bfloat16 kernel's operands: K padded to a multiple of 8 with zero
+    patch columns and zero weight rows, weight rows padded to a multiple of
+    8 channels with zeros; the product's first Cout columns are the
+    unpadded product exactly (float64 sums of bf16 values). float32 takes
+    the patches and weights as they are."""
+    x, w, _, _ = _inputs(rng, 2, cin, 6, 9, cout)
+    xb, wb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    patches, wk = pool.im2col_operands(xb, wb)
+    k, kp = 9 * cin, -(-9 * cin // 8) * 8
+    assert patches.shape == (2, 6, 9, kp) and wk.shape == (kp, -(-cout // 8) * 8)
+    assert patches.is_contiguous() and wk.is_contiguous()
+    assert torch.equal(patches[..., :k], pool.im2col_patches(xb))
+    assert not patches[..., k:].any() and not wk[k:].any() and not wk[:, cout:].any()
+    assert torch.equal(wk[:k, :cout], wb.reshape(k, cout))
+    got = patches.double() @ wk.double()
+    want = pool.im2col_patches(xb).double() @ wb.reshape(k, cout).double()
+    assert torch.equal(got[..., :cout], want)
+    p32, w32 = pool.im2col_operands(torch.from_numpy(x), torch.from_numpy(w))
+    assert p32.shape[-1] == k and torch.equal(w32, torch.from_numpy(w).reshape(k, cout))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,cin,cout", [("wide", 5, 7), ("wide", 10, 12),
+                                           ("im2col", 3, 7), ("im2col", 12, 16)])
+def test_products_on_built_operands_are_the_wrappers(rng, dtype, name, cin, cout):
+    """The wrappers are the operand build, then the product on its
+    operands: ``smallcin_wide_product`` on ``smallcin_pack``'s, bit for bit,
+    and ``im2col_product`` on ``im2col_operands``' (in bfloat16 K and Cout
+    padded with zeros, so the float32 sums may round apart: 1e-5 x max, or
+    1e-2 x max where the output is bfloat16, under one bf16 ulp)."""
+    x, w, scale, bias = (torch.from_numpy(a) for a in _inputs(rng, 2, cin, 8, 33, cout))
+    x, w = x.to(dtype), w.to(dtype)
+    if name == "wide":
+        got = pool.smallcin_wide_product(*pool.smallcin_pack(x, w), scale, bias, 4, 33)
+        want = pool.conv2d_smallcin_wide_bn_relu_fpool(x, w, scale, bias, 4)
+        assert torch.equal(got, want)
+        return
+    got = pool.im2col_product(*pool.im2col_operands(x, w), scale, bias, 4)
+    want = pool.conv2d_im2col_bn_relu_fpool(x, w, scale, bias, 4)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape == (2, cout, 2, 33)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * want.float().abs().max().item())
+
+
 @pytest.mark.parametrize("name,cin,t,pf", [
     ("wide", 4, 40, 2), ("wide", 10, 130, 4),
     ("im2col", 3, 40, 2), ("im2col", 12, 33, 8),
@@ -160,7 +207,8 @@ def test_dispatcher_takes_the_routed_plain_version(rng, impl, cin):
 
 @pytest.mark.parametrize("call", ["wide_cin", "wide_w", "wide_pool", "im2col_w",
                                   "im2col_scale", "windows_pool", "windows_x",
-                                  "impl", "route_impl", "route_cin"])
+                                  "impl", "route_impl", "route_cin", "wide_product_wk",
+                                  "im2col_product_wk", "im2col_product_k"])
 def test_wrappers_reject_bad_inputs(call):
     x = torch.zeros(2, 11, 16, 10)
     w = torch.zeros(3, 3, 11, 4)
@@ -177,6 +225,14 @@ def test_wrappers_reject_bad_inputs(call):
         "impl": lambda: pool.conv2d_bn_relu_fpool(x, w, s, s, 2, smallcin_impl="auto"),
         "route_impl": lambda: pool.frontend_stage_kernel(8, "pallas"),
         "route_cin": lambda: pool.frontend_stage_kernel(0),
+        # the products take only their operand builds' shapes
+        "wide_product_wk": lambda: pool.smallcin_wide_product(
+            torch.zeros(2, 18, 32, 128), torch.zeros(4, 48), s, s, 2, 10),
+        "im2col_product_wk": lambda: pool.im2col_product(
+            torch.zeros(2, 16, 10, 99), torch.zeros(99, 8), s, s, 2),
+        "im2col_product_k": lambda: pool.im2col_product(
+            torch.zeros(2, 16, 10, 99, dtype=torch.bfloat16),
+            torch.zeros(99, 8, dtype=torch.bfloat16), s, s, 2),
     }
     with pytest.raises((ValueError, TypeError)):
         cases[call]()

@@ -221,11 +221,17 @@ def test_flash_attention_kernel(gen, dtype, b, t, h, d):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 8), (1, 130, 2, 24), (64, 300, 8, 24)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 8), (1, 130, 2, 24), (64, 300, 8, 24),
+                                     (2, 200, 3, 160), (1, 130, 2, 256), (2, 65, 2, 320),
+                                     (16, 300, 8, 160)])
 def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
-    """Head dims without an instantiation (8 and 24) run zero-padded to the
-    next one (16, 32): K4, K6 and the autograd Function against their plain
-    versions; the 64 x 8 heads at T 300 take K4's 128-query blocks."""
+    """Head dims without an instantiation run zero-padded: 8 and 24 to the
+    next one (16, 32), 160, 256 and 320 to a multiple of 128 (256, 384),
+    walked in 128-column slices. K4, K6 and the autograd Function against
+    their plain versions, ragged key tiles; the 64 x 8 heads at T 300 take
+    K4's 128-query blocks, and 16 x 8 heads at T 300 at D 160 are a grid on
+    which a D <= 128 forward would too. K6 reruns bitwise equal (no
+    atomics)."""
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                      for _ in range(4))
     scale = d ** -0.5
@@ -239,6 +245,8 @@ def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
     for a, b_ in zip(got, flash_attention_bwd_plain(q, k, v, out_r, dout, lse_r, scale)):
         assert a.shape == q.shape
         _close(a, b_, dtype)
+    for a, b_ in zip(flash_attention_bwd(q, k, v, out_r, dout, lse_r, scale), got):
+        assert torch.equal(a, b_)
     grads = []
     for fn in (flash_attention_train, attend_full):
         leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
@@ -246,7 +254,7 @@ def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
         grads.append([a.grad for a in leaves])
     for a, b_ in zip(*grads):
         _close(a, b_, dtype)
-    assert launch_counts["flash_attn_fwd"] == 2 and launch_counts["flash_attn_bwd"] == 2
+    assert launch_counts["flash_attn_fwd"] == 2 and launch_counts["flash_attn_bwd"] == 3
 
 
 def k5_inputs(gen, b, cin, f, t, cout, dtype):
@@ -392,19 +400,21 @@ def test_cuda_tensors_never_take_the_plain_path(gen):
     s = torch.ones(8, device="cuda")
     with pytest.raises(ValueError):
         conv2d_bn_relu_fpool(x[:, :8], w[:, :, :8].cpu(), s, s, 2)
-    q = torch.randn(1, 10, 2, 160, device="cuda")
-    with pytest.raises(ValueError):   # head dims past 128 have no instantiation
+    q = torch.zeros(1, 1, 65536, 16, device="cuda")
+    with pytest.raises(ValueError):   # B * H past the grid's y range
         flash_attention(q, q, q, 0.2)
     assert all(v == 0 for v in launch_counts.values())
-    # a pool past one float32 halo staging (48 rows) and head dim 24 run on the
-    # kernels (in chunks; zero-padded to 32) and match the plain versions
+    # a pool past one float32 halo staging (48 rows) and head dims 24 and 160 run
+    # on the kernels (in chunks; zero-padded to 32, and to 256 in 128-column
+    # slices) and match the plain versions
     x4, w4 = torch.randn(1, 4, 50, 20, generator=gen, device="cuda"), w[:, :, :4].contiguous()
     _close(conv2d_bn_relu_fpool(x4, w4, s, s, 50), conv2d_bn_relu_fpool_plain(x4, w4, s, s, 50),
            torch.float32)
-    q = torch.randn(1, 10, 2, 24, generator=gen, device="cuda")
-    _close(flash_attention(q, q, q, 0.2)[0], flash_attention_plain(q, q, q, 0.2)[0],
-           torch.float32)
-    assert launch_counts["conv3x3_smallcin"] == 1 and launch_counts["flash_attn_fwd"] == 1
+    for d in (24, 160):
+        q = torch.randn(1, 10, 2, d, generator=gen, device="cuda")
+        _close(flash_attention(q, q, q, 0.2)[0], flash_attention_plain(q, q, q, 0.2)[0],
+               torch.float32)
+    assert launch_counts["conv3x3_smallcin"] == 1 and launch_counts["flash_attn_fwd"] == 2
 
 
 def test_fused_frontend_raises_where_k5_cannot_run(gen):
@@ -661,14 +671,21 @@ def test_predict_cli_on_the_card_launches_k7_and_k8(gen, tmp_path):
 # ---- K2w (wide pack), K10a (im2col), K10b (per-tap windows) -------------------
 
 # (b, cin, f, t, cout, pf): 3 T tiles with a ragged last one, >= 2 Cout tiles
-# with a ragged last one, several pool groups, F borders
+# with a ragged last one, several pool groups, F borders. In bf16 K2w and K10a
+# run the GEMM tile (64 channels x 128 frames): T 300 and 257 are three frame
+# tiles (257 odd: frame by frame stores), Cout 80 / 136 / 200 / 70 two to four
+# channel tiles (70: K10a's weight rows padded to 72); K2w at Cin 5 (kg 16), 8
+# and 10 (kg 32), K10a at Cin 3, 12 and 20 (K 27, 108, 180 padded to
+# multiples of 8 with zero columns; 27 and 180 end in a short k16 chunk)
 FRONTEND_CASES = {
     "conv3x3_smallcin_wide": (pool.conv2d_smallcin_wide_bn_relu_fpool,
                               [(2, 5, 24, 300, 80, 8), (2, 8, 8, 130, 64, 2),
-                               (1, 10, 12, 257, 200, 4)]),
+                               (1, 10, 12, 257, 200, 4), (2, 8, 16, 257, 200, 2),
+                               (1, 10, 12, 300, 136, 4)]),
     "conv3x3_im2col": (pool.conv2d_im2col_bn_relu_fpool,
                        [(2, 3, 24, 300, 80, 8), (2, 12, 8, 130, 64, 2),
-                        (1, 20, 12, 257, 200, 4)]),
+                        (1, 20, 12, 257, 200, 4), (1, 12, 16, 257, 200, 2),
+                        (2, 20, 12, 300, 70, 4)]),
     "conv3x3_windows": (pool.conv2d_windows_bn_relu_fpool,
                         [(2, 12, 24, 300, 80, 8), (2, 20, 9, 130, 64, 3),
                          (1, 200, 12, 257, 72, 4)]),
@@ -676,6 +693,22 @@ FRONTEND_CASES = {
 PLAIN = {"conv3x3_smallcin_wide": pool.conv2d_smallcin_wide_bn_relu_fpool_plain,
          "conv3x3_im2col": pool.conv2d_im2col_bn_relu_fpool_plain,
          "conv3x3_windows": pool.conv2d_bn_relu_fpool_plain}
+# K2w's and K10a's operand builds and their products on the built operands,
+# the two public functions each wrapper calls (timed apart by chip_smoke.py)
+PRODUCTS = {
+    "conv3x3_smallcin_wide": (pool.smallcin_pack, lambda ops, s, b, pf, t:
+                              pool.smallcin_wide_product(*ops, s, b, pf, t)),
+    "conv3x3_im2col": (pool.im2col_operands, lambda ops, s, b, pf, t:
+                       pool.im2col_product(*ops, s, b, pf)),
+}
+# launches of one call: K10a builds its patches with a kernel of its own first
+LAUNCHES = {"conv3x3_smallcin_wide": {"conv3x3_smallcin_wide": 1},
+            "conv3x3_im2col": {"im2col_patches": 1, "conv3x3_im2col": 1},
+            "conv3x3_windows": {"conv3x3_windows": 1}}
+
+
+def _launched() -> dict:
+    return {k: v for k, v in launch_counts.items() if v}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -683,8 +716,10 @@ PLAIN = {"conv3x3_smallcin_wide": pool.conv2d_smallcin_wide_bn_relu_fpool_plain,
                                        for c in cs])
 def test_frontend_variant_kernel(gen, dtype, name, case):
     """K2w, K10a and K10b against their plain versions (K10b: Cin 200 ends in
-    a ragged chunk of 8, pf 3 an odd pool window); then a CUDA tensor
-    they cannot take raises and launches nothing."""
+    a ragged chunk of 8, pf 3 an odd pool window), with their launches (K10a
+    its patch kernel and its product); K2w's and K10a's products on their
+    built operands bit for bit the wrappers; then a CUDA tensor they cannot
+    take raises and launches nothing."""
     b, cin, f, t, cout, pf = case
     fn = FRONTEND_CASES[name][0]
     x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
@@ -692,8 +727,14 @@ def test_frontend_variant_kernel(gen, dtype, name, case):
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
     bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
     got = fn(x, w, scale, bias, pf)
-    assert launch_counts[name] == 1 and sum(launch_counts.values()) == 1
+    assert _launched() == LAUNCHES[name] and got.shape == (b, cout, f // pf, t)
     _close(got, PLAIN[name](x, w, scale, bias, pf), dtype)
+    if name in PRODUCTS:   # the wrapper is its operand build, then its product
+        build, product = PRODUCTS[name]
+        operands = build(x, w)
+        reset_launch_counts()
+        assert torch.equal(product(operands, scale, bias, pf, t), got)
+        assert _launched() == {name: 1}
     reset_launch_counts()
     with pytest.raises(TypeError):    # no float64 kernel
         fn(x.double(), w.double(), scale, bias, pf)
@@ -706,6 +747,21 @@ def test_frontend_variant_kernel(gen, dtype, name, case):
         with pytest.raises(ValueError):   # 3 * Cin > 32: beyond the wide pack
             fn(x11, torch.zeros(3, 3, 11, 8, device="cuda", dtype=dtype), scale[:8], bias[:8], 2)
     assert not any(launch_counts.values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,cin,f,t,k_align", [(2, 3, 5, 45, 8), (1, 8, 4, 257, 8),
+                                               (2, 12, 3, 70, 8), (1, 20, 6, 33, 1),
+                                               (1, 130, 3, 65, 8), (2, 192, 2, 40, 8)])
+def test_im2col_patch_kernel(gen, dtype, b, cin, f, t, k_align):
+    """K10a's patch build (``conv2d_pool.im2col``): bit for bit the torch
+    build's patches and zero columns, F and T borders, T ragged against its
+    32-frame tiles, Cin ragged against its 64-channel chunks (130) and not
+    a multiple of the 16-byte vector (3, 12, 20: element by element)."""
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
+    got = pool.im2col(x, k_align)
+    assert _launched() == {"im2col_patches": 1}
+    assert torch.equal(got, pool.im2col_patches(x, k_align))
 
 
 @pytest.mark.parametrize("cin,impl,name", [(8, "wide", "conv3x3_smallcin_wide"),

@@ -1,9 +1,11 @@
 """Two entry limits the port's kernels had and the JAX kernels lack, closed.
 
-- K4 / K6 take any head dim up to 128: the wrappers zero-pad D to the next
-  instantiated dim (``attention.padded_head_dim`` / ``pad_heads``) and slice
-  the outputs back. Here the padding runs through the plain versions (the
-  CPU path of the kernels) at D 8 and 24 and is held to the unpadded plain
+- K4 / K6 take any head dim: the wrappers zero-pad D to the next
+  instantiated dim, or past 128 to the next multiple of 128, which the
+  kernels walk in 128-column slices (``attention.padded_head_dim`` /
+  ``pad_heads``), and slice the outputs back. Here the padding runs through
+  the plain versions (the CPU path of the kernels) at D 8, 24, 160 and 300
+  and is held to the unpadded plain
   version (float64, 1e-12 x max|ref|: zero columns add exact zeros, only
   the summation's blocking may differ) and to the JAX ``flash_attention`` in
   interpret mode (float32, 2e-4 x max|ref|, as tests/test_torch_train_kernels.py
@@ -12,9 +14,10 @@
   rows in chunks of ``smallcin_max_pool_f`` rows
   (``conv2d_pool.smallcin_pool_chunks``, whose rows per chunk the wrapper
   hands the kernel), each pool row exactly once.
-- The port's ``fused_infer`` at tiny configs whose attention head dim is 8
-  and 24 (V[0] = 64 and 192, 8 heads; otherwise tests/test_torch_fused_infer.py's
-  slice) against the JAX package's, float32, 1e-4 as that file.
+- The port's ``fused_infer`` at tiny configs whose attention head dim is 8,
+  24 and 160 (V[0] = 64, 192 and 1280, 8 heads; otherwise
+  tests/test_torch_fused_infer.py's slice) against the JAX package's,
+  float32, 1e-4 as that file.
 """
 
 import jax
@@ -51,11 +54,12 @@ def test_padded_head_dim_is_the_next_instantiation():
     assert [padded_head_dim(d) for d in (1, 8, 16, 24, 40, 48, 49, 96, 128)] == [
         16, 16, 16, 32, 48, 48, 64, 128, 128]
     assert all(padded_head_dim(d) == d for d in HEAD_DIMS)
-    with pytest.raises(ValueError):
-        padded_head_dim(129)
+    # past 128: the next multiple of 128, as the JAX kernel pads D
+    assert [padded_head_dim(d) for d in (129, 160, 256, 257, 300, 320, 384)] == [
+        256, 256, 256, 384, 384, 384, 384]
 
 
-@pytest.mark.parametrize("d", [8, 24])
+@pytest.mark.parametrize("d", [8, 24, 160, 300])
 def test_padded_attention_matches_unpadded_and_jax(rng, d):
     b, t, h = 2, 70, 3
     q, k, v, g = (rng.standard_normal((b, t, h, d)) for _ in range(4))
@@ -95,7 +99,7 @@ def test_smallcin_pool_chunks_cover_each_row_once(pool_f, dtype):
     assert pool.smallcin_pool_chunks(step, 8, dtype) == [(0, step)]
 
 
-@pytest.mark.parametrize("v0,head_dim", [(64, 8), (192, 24)])
+@pytest.mark.parametrize("v0,head_dim", [(64, 8), (192, 24), (1280, 160)])
 def test_fused_infer_at_small_head_dims_matches_jax(rng, v0, head_dim):
     cfg = tiny_config(freq_dim=256, time_dim=32, cnn_filters=[8, 16, 16],
                       pool_size=[[8, 2], [8, 2], [2, 2]], D=[3], G=16, U=16, V=[v0, 16],
