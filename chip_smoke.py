@@ -9,13 +9,14 @@ Phases, each printing its own lines:
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
 2. build: compiles ``seld_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    nvcc per source, all at once); prints ptxas' registers, shared memory and
-   spills per kernel and the HMMA / HGMMA count in the SASS of each bfloat16
+   spills per kernel and the HMMA / HGMMA / IMMA count in the SASS of each
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
-   GEMM tile of K10a and K2w and K4 / K6 past head dim 128 among them),
-   failing if one has none;
+   GEMM tile of K10a and K2w, K4 / K6 past head dim 128 and K8's int8 GEMM
+   among them), failing if one has none;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
-   K10b included, K8
-   within one ulp of its plain version) against its plain PyTorch version
+   K10b included, K8 within one ulp of its plain version at both row
+   tiles, K1's float32 FFT at nperseg 64-2048 and within 1e-5 x
+   max of float64) against its plain PyTorch version
    on the card, at multi-tile shapes with ragged tails and at the
    flagship's shapes (batch 2), in float32 (TF32 off) and bfloat16 (K1's
    and K2's tensor-core kernels also at STFT_TC_CASES and SMALLCIN_TC_CASES:
@@ -30,7 +31,10 @@ Phases, each printing its own lines:
    tile, B2 beside cuDNN's weight gradient) and, at the flagship's stage 1
    on random bf16 inputs, K5's F2 and g_z routing against the tile's rows
    bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
-   addmm's device time from the profiler; K1's bf16 kernel and torch.stft,
+   addmm's device time from the profiler; K8 by events, back to back and in
+   device time beside torch._int_mm and bf16 addmm, and its two row tiles
+   in turns at M 600-9600 (device time); K1's bf16 kernel, K1's float32 FFT
+   and torch.stft,
    K2, K3 and cuDNN's conv, K4 and scaled_dot_product_attention timed back
    to back (stream_ms), with K4's floor of exponentials beside; K4 and K6
    at head dims 160, 256 and 320 (128-column slices) with the slice
@@ -78,7 +82,9 @@ Phases, each printing its own lines:
    ``--qconv_impl=int8`` in bf16 (K1, K8, K4); each writes three valid CSVs
    with K7 / K8 at 22 launches per clip, and its clip 0 is held to the
    float32 ``xla`` apply path (K7 f32 at 2e-4 x max, bf16 at 0.05, int8 at
-   the JAX package's PTQ bounds 0.08 / 0.15); then the bf16 batch-8 train
+   the JAX package's PTQ bounds 0.08 / 0.15), the apply runs' K1 on the FFT
+   kernel; one more int8 clip profiled (K1's and K8's device time a clip);
+   then the bf16 batch-8 train
    step with ``qconv_impl='pallas'`` (K7 forward and dx) beside ``'xla'``,
    in turns, with ms per step and peak device memory, both profiled;
 8. front-end variants: (a) ``serve(..., smallcin_impl='wide')`` (stage 1 on
@@ -177,6 +183,9 @@ PREDICT_KERNELS = {  # the predict CLI's apply path: qconv_impl 'pallas' (K7) an
     "hamilton_matmul": ("seld_tpu_torch/csrc/hamilton_matmul.cu",
                         "seld_tpu/ops/pallas/qmatmul.py:95"),
     "int8_matmul": ("seld_tpu_torch/csrc/int8_matmul.cu", "seld_tpu/ops/pallas/quant.py:56"),
+    # K1's float32 output (the apply path's featurizer): the FFT kernel, its
+    # launches counted as stft_mag_fft (COUNTED_AS)
+    "stft_mag_f32": ("seld_tpu_torch/csrc/stft_mag.cu", "seld_tpu/ops/pallas/stft.py:322"),
 }
 KERNELS = {**KERNELS, **PREDICT_KERNELS}
 FRONTEND_KERNELS = {  # phase 8: the serving stage's other packs and the profiler's kernels
@@ -195,7 +204,7 @@ FRONTEND_KERNELS = {  # phase 8: the serving stage's other packs and the profile
 }
 KERNELS = {**KERNELS, **FRONTEND_KERNELS}
 COUNTED_AS = {"conv_train_fwd": "conv3x3_windows",   # summary row -> launch-count name
-              "ct_train_fwd": "conv3x3_widecin"}
+              "ct_train_fwd": "conv3x3_widecin", "stft_mag_f32": "stft_mag_fft"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
 # the float32 step (phase 5a): K5's SIMT passes, F2 on K2's kernel and no g_z pass
 TRAINING_PATH_F32 = [{"conv3x3_windows": "conv3x3_smallcin"}.get(n, n) for n in TRAINING_PATH
@@ -223,13 +232,15 @@ PREDICT_STEPS_TIMED = 3
 # K9 F1 and dh bodies and K5's F1 and g_z bodies, the dW tile (K9's 32-channel Cin
 # tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
 # three at head dims past 128, in 128-column slices), K7, K1's bf16-output GEMM,
-# K2's bf16 stage 1, and the GEMM tile of K10a and K2w
+# K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's int8 GEMM (IMMA)
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
               "flash_dkv_tc_kernel", "flash_fwd_slice_tc_kernel", "flash_dq_slice_tc_kernel",
               "flash_dkv_slice_tc_kernel", "hamilton_tc_kernel", "stft_mag_tc_kernel",
-              "smallcin_tc_kernel", "im2col_tc_kernel", "smallcin_wide_tc_kernel")
+              "smallcin_tc_kernel", "im2col_tc_kernel", "smallcin_wide_tc_kernel",
+              "int8_matmul_tc_kernel")
+TC_OPS = re.compile(r"\b(?:HG?MMA|IMMA)\b")   # bf16 (HMMA, HGMMA) and int8 (IMMA) products
 # device kernels read out of the step profiles (phases 5b, 6 and 7), by demangled
 # name: K6's three launches, K9's and K5's dW (K5's B2: the g_z pass and the
 # dW tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
@@ -253,6 +264,19 @@ PROFILE_BATCH = 4
 TILE_CASES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 300, 80, 2),
               (1, 24, 12, 296, 200, 2), (2, 12, 16, 129, 80, 4), (1, 40, 12, 65, 72, 3),
               (2, 16, 10, 257, 100, 5), (1, 24, 6, 257, 64, 1)]
+# K1's float32 FFT kernel beside the flagship's nperseg 512: (audio shape, nperseg,
+# noverlap, audio dtype) at nperseg 64, 256, 1024 and 2048, frames ragged against
+# the block's 2048 / (nperseg / 2) frames, odd n, an odd hop (no pair loads), bf16
+# audio; nperseg 480 stays on the SIMT DFT (route checked)
+STFT_FFT_CASES = [((2, 30_001), 64, 16, "float32"), ((3, 40_003), 256, 128, "float32"),
+                  ((2, 100_700), 1024, 512, "float32"), ((2, 100_999), 2048, 1024, "float32"),
+                  ((3, 120_000), 512, 112, "bfloat16"), ((2, 50_001), 512, 113, "float32")]
+# K8's row tiles, each forced by setting quant.ROW_TILES: held to the
+# wrapper's bits, and timed in turns at the M of a predict clip's head calls
+# (600), the flagship's batch-2 heads (1200), a clip's TCN (4800) and batch 2
+# (9600); the wrapper's rule takes 32 rows at the first two, 64 at the others
+K8_TILES = {"64-row": (64,), "32-row": (32,)}
+K8_AB_M = (600, 1200, 4800, 9600)
 # K1's bf16 kernel: (audio shape, nperseg, noverlap, audio dtype). Frames ragged
 # against its 256-frame tiles (300, 293, 250, 325 frames); bins ragged against 64
 # (240, 244; 244 % 8 != 0 writes element by element); nperseg 488 ragged against
@@ -325,9 +349,9 @@ def kernel_name(mangled: str) -> str:
 
 def phase_build() -> None:
     """Build (or load) the kernels; print ptxas' registers, shared memory and
-    spills per kernel, and the tensor-core instructions (HMMA / HGMMA) in
-    the SASS of each bfloat16 tile kernel (TC_KERNELS), failing if one has
-    none."""
+    spills per kernel, and the tensor-core instructions (HMMA / HGMMA, IMMA
+    for int8) in the SASS of each tensor-core kernel (TC_KERNELS), failing if
+    one has none."""
     from seld_tpu_torch import _build
 
     nvcc = _build.find_nvcc()
@@ -356,16 +380,16 @@ def phase_build() -> None:
         if "Function :" in line:
             fn = kernel_name(line.split("Function :")[1].strip())
             mma[fn] = 0
-        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+        elif fn is not None and TC_OPS.search(line):
             mma[fn] += 1
     tiles = {fn: n for fn, n in mma.items() if any(k in fn for k in TC_KERNELS)}
     for fn, n in sorted(tiles.items()):
-        print(f"[build] tensor cores: {fn}: {n} HMMA/HGMMA in its SASS; ptxas: "
+        print(f"[build] tensor cores: {fn}: {n} HMMA/HGMMA/IMMA in its SASS; ptxas: "
               f"{ptxas.get(fn, '?')}")
     found = {k for k in TC_KERNELS if any(k in fn for fn in tiles)}
-    require(found == set(TC_KERNELS), f"bf16 tile kernels missing from the SASS: "
+    require(found == set(TC_KERNELS), f"tensor-core kernels missing from the SASS: "
             f"{set(TC_KERNELS) - found}")
-    require(all(tiles.values()), f"bf16 tile kernels without tensor-core instructions: "
+    require(all(tiles.values()), f"tensor-core kernels without tensor-core instructions: "
             f"{[fn for fn, n in tiles.items() if not n]}")
 
 
@@ -419,6 +443,11 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     it launches, from torch.profiler over iters calls (no host time; the
     event timings of time_ms include the host's launch path where it is the
     longer)."""
+    return sum(device_split(torch, fn, iters).values())
+
+
+def device_split(torch, fn, iters: int = 20) -> dict:
+    """device_ms by kernel: {profiler name: device ms per fn() call}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,8 +457,18 @@ def device_ms(torch, fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def int8_matmul_tiles(k8, tiles, *args):
+    """K8's wrapper with ``k8.ROW_TILES`` set to ``tiles`` for the call."""
+    saved = k8.ROW_TILES
+    k8.ROW_TILES = tiles
+    try:
+        return k8.int8_matmul(*args)
+    finally:
+        k8.ROW_TILES = saved
 
 
 def launched_kernels(torch, fn) -> list:
@@ -477,7 +516,7 @@ def phase_kernels(torch, card: str) -> dict:
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain, conv2d_smallcin_bn_relu_fpool,
     )
-    from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain
+    from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain, stft_route
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -511,10 +550,15 @@ def phase_kernels(torch, card: str) -> dict:
             k = lambda: stft_mag(x, nperseg, noverlap, out_dtype=dt)
             p = lambda: stft_mag_plain(x, nperseg, noverlap, out_dtype=dt)
             timed = (time_ms(torch, k), time_ms(torch, p)) if tag == "flagship" else None
+            fft_before = launch_counts["stft_mag_fft"]
             got = k()
-            d = compare(torch, "stft_mag", tag, got, p(), dt, card, timed)
-            # a 512 x 512 DFT product per frame: bf16 on the tensor cores for bf16
-            # output, float32 SIMT for float32 output
+            fft = launch_counts["stft_mag_fft"] - fft_before
+            require(fft == (stft_route(nperseg, dt) == "fft"),
+                    f"stft_mag {tag} {nperseg} {dt}: {fft} FFT launches, route "
+                    f"{stft_route(nperseg, dt)}")
+            d = compare(torch, "stft_mag", f"{tag} {stft_route(nperseg, dt)}", got, p(), dt, card,
+                        timed)
+            # bf16 output: a 512 x 512 DFT product per frame on the tensor cores
             flops = 2.0 * (got.numel() // got.shape[-1]) * nperseg * nperseg
             if tag == "flagship" and dt == torch.bfloat16:
                 # the library's |STFT| with K1's window and hop, uncentred (the
@@ -529,9 +573,35 @@ def phase_kernels(torch, card: str) -> dict:
                       f"({card})")
                 record("stft_mag", d, timed, flops, nbytes(x, got), "bfloat16", lib_ms)
             elif tag == "flagship":
-                b_ms, b_by = bound(flops, nbytes(x, got), "float32")
-                print(f"[kernel] stft_mag float32 output: {timed[0]:.3f} ms, bound "
-                      f"{b_ms:.4f} ms by {b_by} ({card})")
+                # float32 output: the FFT's operations a frame, an M-point complex
+                # FFT (5 M log2 M), the window (2 N), the split and |X| (~13 M);
+                # the same library call as the bf16 row, against float32 audio
+                m_pts = nperseg // 2
+                fft_flops = (got.numel() // got.shape[-1]) * (
+                    5 * m_pts * (m_pts.bit_length() - 1) + 2 * nperseg + 13 * m_pts)
+                # float64 plain DFT on the same audio: the FFT's rounding
+                want64 = stft_mag_plain(x.double(), nperseg, noverlap, out_dtype=torch.float64)
+                d64 = (got.double() - want64).abs().max().item() / want64.abs().max().item()
+                require(d64 <= 1e-5, f"stft_mag f32 flagship: {d64:.2e} x max from float64")
+                del want64
+                win = torch.hamming_window(nperseg, periodic=True, device=dev)
+                rows = x.reshape(-1, x.shape[-1])
+                lib = lambda: torch.stft(rows, nperseg, nperseg - noverlap, window=win,
+                                         center=False, return_complex=True).abs()
+                lib_ms = time_ms(torch, lib)
+                k_stream, lib_stream = stream_ms(torch, k), stream_ms(torch, lib)
+                print(f"[kernel] stft_mag float32 (FFT) back to back: kernel {k_stream:.4f} ms, "
+                      f"torch.stft {lib_stream:.4f} ms; max|d| from float64 {d64:.2e} x max "
+                      f"({card})")
+                record("stft_mag_f32", d, timed, fft_flops, nbytes(x, got), "float32", lib_ms,
+                       stream_ms=k_stream, library_stream_ms=lib_stream)
+    for shape, nperseg, noverlap, xdt in STFT_FFT_CASES:   # float32 output, the FFT
+        x = randn(*shape).to(getattr(torch, xdt))
+        before = launch_counts["stft_mag_fft"]
+        got = stft_mag(x, nperseg, noverlap, out_dtype=torch.float32)
+        require(launch_counts["stft_mag_fft"] == before + 1, "stft_mag: no FFT launch counted")
+        compare(torch, "stft_mag", f"fft {nperseg}", got,
+                stft_mag_plain(x, nperseg, noverlap, out_dtype=torch.float32), torch.float32, card)
     for shape, nperseg, noverlap, xdt in STFT_TC_CASES:   # bf16 output only
         x = randn(*shape).to(getattr(torch, xdt))
         before = launch_counts["stft_mag"]
@@ -1134,7 +1204,9 @@ def phase_k7_k8(torch, card: str, record) -> None:
     k8_cases = [  # tag, M, Cin, Cout
         ("ragged", 1037, 48, 80),
         ("ragged", 129, 30, 7),
+        ("ragged", 20, 30, 80),   # under one block; Cin 30: k padded to 32, x element by element
         ("flagship", 9600, 384, 384),
+        ("flagship", 4800, 384, 384),   # a clip
         ("flagship", 1200, 384, 384),
     ]
     for tag, m, cin, cout in k8_cases:
@@ -1158,18 +1230,50 @@ def phase_k7_k8(torch, card: str, record) -> None:
             print(msg)
             require(apart == 0 and torch.equal(got[3].float(), bias.float()),
                     f"int8_matmul {tag} {dt}: {apart} elements beyond one ulp")
-            if m == 9600 and dt == torch.bfloat16:
+            for name, tiles in K8_TILES.items():   # each row tile: the same bits
+                require(torch.equal(int8_matmul_tiles(k8, tiles, x, w_q, w_s, bias), got),
+                        f"int8_matmul {tag}/{m} {dt}: {name} blocks not bit-equal")
+            if tag == "flagship" and dt == torch.bfloat16 and m != 4800:
                 # no single PyTorch call quantizes the rows and dequantizes: the
-                # int8 GEMM alone on the pre-quantized operands, and a bf16 addmm
+                # int8 GEMM alone on the pre-quantized operands, and a bf16 addmm;
+                # each by events, back to back and in device time (the profiler)
                 xq = k8.quantize_rows(x)[0].to(torch.int8)
-                gemm_ms = time_ms(torch, lambda: torch._int_mm(xq, w_q))
                 w_deq = (w_q.float() * w_s).to(dt)
-                addmm_ms = time_ms(torch, lambda: torch.addmm(bias, x, w_deq))
-                print(f"[kernel] int8_matmul yardsticks M {m}: torch._int_mm on the "
-                      f"pre-quantized operands (the GEMM alone) {gemm_ms:.3f} ms; bf16 addmm "
-                      f"{addmm_ms:.3f} ms ({card})")
-                record("int8_matmul", d, timed, 2.0 * m * cin * cout,
-                       nbytes(x, w_q, w_s, bias, got), "int8", None)
+                calls = {"K8": kern, "torch._int_mm": lambda: torch._int_mm(xq, w_q),
+                         "bf16 addmm": lambda: torch.addmm(bias, x, w_deq)}
+                ms = {n: (time_ms(torch, f), stream_ms(torch, f),
+                          statistics.median(device_ms(torch, f) for _ in range(3)))
+                      for n, f in calls.items()}
+                print(f"[kernel] int8_matmul M {m} bf16, events / back to back / device (ms): "
+                      + "; ".join(f"{n} {a:.4f} / {b:.4f} / {c:.4f}" for n, (a, b, c)
+                                  in ms.items()) + f" ({card})")
+                print(f"[kernel] int8_matmul M {m} bf16, K8's device time by kernel: "
+                      + "; ".join(f"{k[:60]} {v:.4f} ms" for k, v in
+                                  device_split(torch, kern).items()) + f" ({card})")
+                if m == 9600:
+                    record("int8_matmul", d, timed, 2.0 * m * cin * cout,
+                           nbytes(x, w_q, w_s, bias, got), "int8", None,
+                           stream_ms=ms["K8"][1], device_ms=ms["K8"][2],
+                           int_mm_ms=ms["torch._int_mm"][0],
+                           int_mm_device_ms=ms["torch._int_mm"][2],
+                           addmm_ms=ms["bf16 addmm"][0], addmm_device_ms=ms["bf16 addmm"][2])
+
+    # K8's two row tiles, device time in turns (each, then each again in
+    # reverse) at Cin = Cout = 384, bf16; each reading the median of three
+    # profiles, since the profiler drops a window's launches in some runs
+    # (host-bound back-to-back events cannot resolve them)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in K8_AB_M:
+        w_q, w_s = k8.quantize_weight_per_channel(randn(384, 384) / 384 ** 0.5)
+        x, bias = randn(m, 384).bfloat16(), randn(384).bfloat16()
+        times = {name: [] for name in K8_TILES}
+        for names in (list(K8_TILES), list(reversed(K8_TILES))):
+            for name in names:
+                run = lambda: int8_matmul_tiles(k8, K8_TILES[name], x, w_q, w_s, bias)
+                times[name].append(statistics.median(device_ms(torch, run) for _ in range(3)))
+        print(f"[kernel] int8_matmul row tiles M {m} bf16, device ms in turns: "
+              + "; ".join(f"{n} {' / '.join(f'{v:.4f}' for v in t)}" for n, t in times.items())
+              + f"; the wrapper's tile {k8.row_tile(m, 384, 384, sms)} ({card})")
 
 
 def phase_frontend_kernels(torch, card: str, randn, record) -> None:
@@ -1946,14 +2050,16 @@ def predict_runs(torch, card: str) -> dict:
                                        "conv3x3_widecin": 2, "flash_attn_fwd": 1},
                               {"sed": MAIN_TOL, "doa": MAIN_TOL}),
         "b_apply_pallas_f32": (["--impl=apply", "--qconv_impl=pallas"],
-                               {"stft_mag": 1, "hamilton_matmul": QMM_PER_FORWARD},
+                               {"stft_mag": 1, "stft_mag_fft": 1,
+                                "hamilton_matmul": QMM_PER_FORWARD},
                                {"sed": F32_TOL * np.abs(ref_sed).max(),
                                 "doa": F32_TOL * np.abs(ref_doa).max()}),
         "c_apply_pallas_bf16": (["--impl=apply", "--qconv_impl=pallas", bf16],
-                                {"stft_mag": 1, "hamilton_matmul": QMM_PER_FORWARD,
+                                {"stft_mag": 1, "stft_mag_fft": 1,
+                                 "hamilton_matmul": QMM_PER_FORWARD,
                                  "flash_attn_fwd": 1}, {"sed": MAIN_TOL, "doa": MAIN_TOL}),
         "d_apply_int8_bf16": (["--impl=apply", "--qconv_impl=int8", bf16],
-                              {"stft_mag": 1, "int8_matmul": QMM_PER_FORWARD,
+                              {"stft_mag": 1, "stft_mag_fft": 1, "int8_matmul": QMM_PER_FORWARD,
                                "flash_attn_fwd": 1}, PTQ_TOL),
     }
     total = {}
@@ -1974,7 +2080,27 @@ def predict_runs(torch, card: str) -> dict:
         require(all(d[k] <= tol[k] for k in d), f"predict {tag}: clip 0 {d} beyond {tol}")
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
+    predict_int8_profile(torch, card, lambda: run("d_profiled", runs["d_apply_int8_bf16"][0],
+                                                  clips[:1]))
     return total
+
+
+def predict_int8_profile(torch, card: str, run_one_clip) -> None:
+    """One more int8 apply clip under the profiler: K1's (the FFT) and K8's
+    device time a clip; K1 also back to back at the clip's shape, since the
+    profiler has dropped K1's launches in some runs."""
+    from seld_tpu_torch.ops.kernels.stft import stft_mag
+
+    watch = {"K1 f32 (FFT)": ("stft_mag_fft_kernel",),
+             "K8": ("int8_matmul_tc_kernel", "int8_prepare_kernel")}
+    profiled = profile_step(torch, run_one_clip, card, top=10,
+                            label="predict, --impl apply --qconv_impl=int8 bf16, one clip",
+                            watch=watch)
+    audio = torch.randn(CHANNELS, SR * CLIP_SECONDS, device="cuda")
+    k1 = stream_ms(torch, lambda: stft_mag(audio, out_dtype=torch.float32))
+    print(f"[profile] predict int8 clip: {device_shares(profiled, watch)}; K1 f32 back to back "
+          f"at the clip's shape {k1:.4f} ms ({card})")
+    del audio
 
 
 def predict_train_steps(torch, card: str) -> None:

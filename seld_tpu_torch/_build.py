@@ -33,6 +33,8 @@ SIGNATURES = {
     "seld_stft_mag": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, tiles, out, rows, n, n_frames, nperseg, hop, k_pad, x_dtype, stream
     "seld_stft_mag_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, win, tw, out, rows, n, n_frames, nperseg, hop, x_dtype, stream
+    "seld_stft_mag_fft": [_P] * 4 + [_I] * 6 + [_P],
     # x, w, scale, bias, out, batch, cin, f, t, cout, pf, chunk, dtype, stream
     "seld_conv3x3_smallcin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scale, bias, out, batch, cin, f, t, cout, pf, dtype, stream
@@ -74,8 +76,9 @@ SIGNATURES = {
     "seld_ct_train_dx": [_P] * 3 + [_I] * 6 + [_P],
     # x, comps, bias, out, m, n_comp, cin_c, cout_c, linear_table, dtype, stream
     "seld_hamilton_matmul": [_P] * 4 + [_I] * 6 + [_P],
-    # x, w_q, w_scale, bias, out, m, cin, cout, dtype, stream
-    "seld_int8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    # x, w_q, w_t, w_scale, bias, out, xq, xs, m, cin, k_pad, cout, bm, two_pass, dtype,
+    # bias_dtype, stream
+    "seld_int8_matmul": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

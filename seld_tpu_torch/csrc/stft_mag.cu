@@ -10,8 +10,8 @@
 // groups and shifted tables only existed to keep lane reads 128-aligned;
 // here each block gathers its frames (hop-strided, overlapping) itself.
 //
-// Two kernels, picked by the output type, as the TPU kernel picks its
-// compute type (stft.py:389):
+// Three kernels, picked by the output type, as the TPU kernel picks its
+// compute type (stft.py:389), and for float32 by nperseg:
 //
 // - bfloat16 output: stft_mag_tc_kernel, a GEMM on the tensor cores
 //   (mma.sync.m16n8k16, bf16 operands, float sums): M = frames, N = table
@@ -34,11 +34,28 @@
 //   batch 2, 0.048 ms, against 0.041 ms of bf16 tensor work at the dense
 //   peak); in this design the audio reaches the SMs once per bin tile (4x,
 //   plus the frames' 1.28x overlap), from L2.
-// - float32 output: stft_mag_kernel, SIMT FMA in float (TF32 off): one
-//   block per (row, 64 frames, 64 bins), 256 threads, each holding a
-//   4-frame x 4-bin tile of cos and sin sums; 32-tap slices of the frames
-//   and of the float32 table staged through shared memory. nperseg % 32 ==
-//   0. Ragged frame and bin tails are masked at the store.
+// - float32 output at a power-of-two nperseg (64-2048): stft_mag_fft_kernel,
+//   a real FFT in float. The TPU needed the DFT as a GEMM to use its MXU; in
+//   float32 a GEMM's operations (0.601 ms at the flagship's batch 2 at the
+//   f32 peak) outweigh its bytes, while an FFT needs ~40x fewer operations
+//   and leaves the kernel bound by bytes (123 MB of f32 audio read and 78.6
+//   MB written, 0.060 ms). Frame t's N windowed samples become M = N/2
+//   complex points z[m] = xw[2m] + i xw[2m+1] (one 8-byte load a pair,
+//   consecutive threads on consecutive pairs, each frame's pairs from global
+//   memory: staging the block's overlapping span once through shared memory
+//   ran ~5% slower, PERF.md §6); an M-point Stockham FFT
+//   (radix 8 stages, then one of 4 or 2: 8 x 8 x 4 at N = 512) runs with
+//   8 points a thread, M / 8 threads a frame, 256 threads a block, each
+//   stage's outputs exchanged through padded shared memory (two buffers,
+//   one barrier a stage); the split X[k] = (Z[k] + Z*[M-k]) / 2 - i W^k
+//   (Z[k] - Z*[M-k]) / 2 (W = e^{-2 pi i / N}; X[M] = Re Z[0] - Im Z[0])
+//   gives bins 1..M, written as |X| with 16-byte stores. Window (with
+//   1/sum(win)) and twiddles are float64-built tables rounded once to float.
+// - float32 output at other nperseg (% 32 == 0): stft_mag_kernel, the DFT as
+//   SIMT FMA in float (TF32 off): one block per (row, 64 frames, 64 bins),
+//   256 threads, each holding a 4-frame x 4-bin tile of cos and sin sums;
+//   32-tap slices of the frames and of the float32 table staged through
+//   shared memory. Ragged frame and bin tails are masked at the store.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -135,6 +152,230 @@ cudaError_t launch_f32(const void* x, const float* table, float* out, int rows, 
   stft_mag_kernel<TI><<<grid, kThreads, 0, stream>>>(static_cast<const TI*>(x), table, out,
                                                      n, n_frames, nperseg, hop, n_bins);
   return cudaGetLastError();
+}
+
+// ---- float32 output at a power-of-two nperseg: a shared-memory FFT ----------
+
+constexpr int kFftThreads = 256;
+constexpr int kFftPts = 8;   // complex points a thread holds
+
+static __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+static __device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+static __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+static __device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
+
+// In-place R-point DFTs, v[o + s] = sum_r v[o + r] e^{-2 pi i r s / R}.
+template <int R>
+static __device__ __forceinline__ void dft(float2 (&v)[kFftPts], int o);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2 (&v)[kFftPts], int o) {
+  const float2 a = v[o], b = v[o + 1];
+  v[o] = cadd(a, b);
+  v[o + 1] = csub(a, b);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&v)[kFftPts], int o) {
+  const float2 t0 = cadd(v[o], v[o + 2]), t1 = csub(v[o], v[o + 2]);
+  const float2 t2 = cadd(v[o + 1], v[o + 3]), t3 = mul_neg_i(csub(v[o + 1], v[o + 3]));
+  v[o] = cadd(t0, t2);
+  v[o + 1] = cadd(t1, t3);
+  v[o + 2] = csub(t0, t2);
+  v[o + 3] = csub(t1, t3);
+}
+
+// radix 8 as two radix-4 DFTs (even and odd points) and a radix-2 layer
+template <>
+__device__ __forceinline__ void dft<8>(float2 (&v)[kFftPts], int o) {
+  constexpr float c = 0.70710678118654752440f;   // sqrt(1/2)
+  float2 e[kFftPts] = {v[o], v[o + 2], v[o + 4], v[o + 6]};
+  float2 d[kFftPts] = {v[o + 1], v[o + 3], v[o + 5], v[o + 7]};
+  dft<4>(e, 0);
+  dft<4>(d, 0);
+  d[1] = make_float2(c * (d[1].x + d[1].y), c * (d[1].y - d[1].x));    // x W8 = (1 - i) c
+  d[2] = mul_neg_i(d[2]);                                              // x W8^2 = -i
+  d[3] = make_float2(c * (d[3].y - d[3].x), -c * (d[3].x + d[3].y));   // x W8^3 = (-1 - i) c
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    v[o + s] = cadd(e[s], d[s]);
+    v[o + s + 4] = csub(e[s], d[s]);
+  }
+}
+
+// Index of point i of a frame in its padded shared-memory row: one pad word
+// every 8 spreads the radix-8 strides over the banks.
+static __device__ __forceinline__ int fpad(int i) { return i + (i >> 3); }
+
+// Stage kS of the M = 2^kLogM-point plan: radix 8 while 8 divides what is
+// left, the last stage radix 4 or 2; Ns, the product of the earlier radices.
+template <int kLogM, int kS>
+struct FftStage {
+  static constexpr int kM = 1 << kLogM;
+  static constexpr int kCount = (kLogM + 2) / 3;
+  static constexpr int kR = (kS < kCount - 1 || kLogM % 3 == 0) ? 8 : (1 << (kLogM % 3));
+  static constexpr int kNs = 1 << (3 * kS);
+};
+
+// Stockham stages kS.. of one frame (Govindaraju et al., 2008): butterfly jj
+// of a radix-R stage takes in[jj + r M / R] (r < R), twiddles them by
+// W_M^{r (jj % Ns) M / (Ns R)} = tw[2 r (jj % Ns) M / (Ns R)], takes their
+// R-point DFT and writes it to out[(jj / Ns) Ns R + jj % Ns + s Ns] (s <
+// R): natural order after the last stage, no digit reversal. A thread owns
+// 8 / R butterflies, jj = j + q M / 8. Stage kS writes buffer kS % 2 and
+// reads buffer (kS - 1) % 2; stage 0 takes its points from v, as loaded.
+template <int kLogM, int kS>
+static __device__ __forceinline__ void fft_stages(float2 (&v)[kFftPts], int j, float* const (&re)[2],
+                                                  float* const (&im)[2],
+                                                  const float2* __restrict__ tw) {
+  using St = FftStage<kLogM, kS>;
+  if constexpr (kS < St::kCount) {
+    constexpr int kM = St::kM, kR = St::kR, kNs = St::kNs, kTf = kM / 8;
+    if constexpr (kS > 0) {
+      const float* ire = re[(kS - 1) % 2];
+      const float* iim = im[(kS - 1) % 2];
+#pragma unroll
+      for (int q = 0; q < 8 / kR; ++q)
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const int i = fpad(j + q * kTf + r * (kM / kR));
+          v[q * kR + r] = make_float2(ire[i], iim[i]);
+        }
+    }
+    float* ore = re[kS % 2];
+    float* oim = im[kS % 2];
+#pragma unroll
+    for (int q = 0; q < 8 / kR; ++q) {
+      const int jj = j + q * kTf, k = jj % kNs;
+      if constexpr (kS > 0) {
+#pragma unroll
+        for (int r = 1; r < kR; ++r)
+          v[q * kR + r] = cmul(v[q * kR + r], __ldg(tw + 2 * r * k * (kM / (kNs * kR))));
+      }
+      dft<kR>(v, q * kR);
+      const int base = (jj / kNs) * kNs * kR + k;
+#pragma unroll
+      for (int s = 0; s < kR; ++s) {
+        const int i = fpad(base + s * kNs);
+        ore[i] = v[q * kR + s].x;
+        oim[i] = v[q * kR + s].y;
+      }
+    }
+    __syncthreads();
+    fft_stages<kLogM, kS + 1>(v, j, re, im, tw);
+  }
+}
+
+static __device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 u = *reinterpret_cast<const float2*>(p);
+  a = u.x;
+  b = u.y;
+}
+static __device__ __forceinline__ void load_pair(const bf16* p, float& a, float& b) {
+  const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(u);
+  b = __high2float(u);
+}
+
+// x (rows, n) in TI; win (M,) float2: the periodic Hamming window over
+// 1/sum(win), pairs (w[2m], w[2m + 1]); tw (N,) float2: e^{-2 pi i q / N};
+// out (rows, n_frames, M) float. vec: 8-byte (float) / 4-byte (bf16) pair
+// loads allowed (hop and n even, x 8-byte aligned). Block (frame group, row):
+// 256 / (M / 8) frames, M / 8 threads each.
+template <typename TI, int kLogM>
+__global__ void __launch_bounds__(kFftThreads)
+stft_mag_fft_kernel(const TI* __restrict__ x, const float2* __restrict__ win,
+                    const float2* __restrict__ tw, float* __restrict__ out, int n, int n_frames,
+                    int hop, bool vec) {
+  constexpr int kM = 1 << kLogM, kTf = kM / 8, kFpb = kFftThreads / kTf;
+  constexpr int kMp = kM + kM / 8;   // a frame's padded row
+  constexpr int kLast = (FftStage<kLogM, 0>::kCount - 1) % 2;
+  __shared__ float sbuf[4][kFpb * kMp];   // re 0, im 0, re 1, im 1
+  const int f = threadIdx.x / kTf, j = threadIdx.x % kTf;
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kFpb, t = t0 + f;
+  const TI* xr = x + static_cast<size_t>(row) * n;
+  const int s0 = t * hop - kM;   // the frame's first sample: nperseg / 2 = M before t * hop
+
+  float2 v[kFftPts];
+#pragma unroll
+  for (int r = 0; r < kFftPts; ++r) {   // stage 0's points: z[j + r M / 8]
+    const int mm = j + r * kTf, s = s0 + 2 * mm;
+    float a = 0.f, b = 0.f;
+    if (t < n_frames) {
+      if (vec && s >= 0 && s + 1 < n) {
+        load_pair(xr + s, a, b);
+      } else {
+        if (s >= 0 && s < n) a = to_f(xr[s]);
+        if (s + 1 >= 0 && s + 1 < n) b = to_f(xr[s + 1]);
+      }
+    }
+    const float2 w = __ldg(win + mm);
+    v[r] = make_float2(a * w.x, b * w.y);
+  }
+  float* const re[2] = {sbuf[0] + f * kMp, sbuf[2] + f * kMp};
+  float* const im[2] = {sbuf[1] + f * kMp, sbuf[3] + f * kMp};
+  fft_stages<kLogM, 0>(v, j, re, im, tw);
+
+  // the split and |X| of bins 1..M, four a thread-step, 16-byte stores
+  float* orow = out + static_cast<size_t>(row) * n_frames * kM;
+  for (int e = threadIdx.x; e < kFpb * kM / 4; e += kFftThreads) {
+    const int ff = 4 * e / kM, k0 = 4 * e % kM + 1;
+    if (t0 + ff >= n_frames) continue;
+    const float* zr = sbuf[2 * kLast] + ff * kMp;
+    const float* zi = sbuf[2 * kLast + 1] + ff * kMp;
+    float mag[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + i;
+      if (k == kM) {
+        mag[i] = fabsf(zr[0] - zi[0]);
+      } else {
+        const float ar = zr[fpad(k)], ai = zi[fpad(k)];
+        const float cr = zr[fpad(kM - k)], ci = zi[fpad(kM - k)];
+        const float er = 0.5f * (ar + cr), ei = 0.5f * (ai - ci);   // (Z[k] + Z*[M-k]) / 2
+        const float dr = 0.5f * (ar - cr), di = 0.5f * (ai + ci);   // (Z[k] - Z*[M-k]) / 2
+        const float2 w = __ldg(tw + k);
+        const float xr_ = er + w.x * di + w.y * dr;   // E - i W D
+        const float xi_ = ei - w.x * dr + w.y * di;
+        mag[i] = sqrtf(xr_ * xr_ + xi_ * xi_);
+      }
+    }
+    *reinterpret_cast<float4*>(orow + static_cast<size_t>(t0 + ff) * kM + k0 - 1) =
+        make_float4(mag[0], mag[1], mag[2], mag[3]);
+  }
+}
+
+template <typename TI, int kLogM>
+cudaError_t launch_fft_m(const void* x, const float* win, const float* tw, float* out, int rows,
+                         int n, int n_frames, int hop, cudaStream_t stream) {
+  constexpr int kFpb = kFftThreads / ((1 << kLogM) / 8);
+  const bool vec = hop % 2 == 0 && n % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  dim3 grid(ceil_div(n_frames, kFpb), rows);
+  stft_mag_fft_kernel<TI, kLogM><<<grid, kFftThreads, 0, stream>>>(
+      static_cast<const TI*>(x), reinterpret_cast<const float2*>(win),
+      reinterpret_cast<const float2*>(tw), out, n, n_frames, hop, vec);
+  return cudaGetLastError();
+}
+
+template <typename TI>
+cudaError_t launch_fft(const void* x, const float* win, const float* tw, float* out, int rows,
+                       int n, int n_frames, int nperseg, int hop, cudaStream_t stream) {
+  switch (nperseg) {
+    case 64: return launch_fft_m<TI, 5>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    case 128: return launch_fft_m<TI, 6>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    case 256: return launch_fft_m<TI, 7>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    case 512: return launch_fft_m<TI, 8>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    case 1024: return launch_fft_m<TI, 9>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    case 2048: return launch_fft_m<TI, 10>(x, win, tw, out, rows, n, n_frames, hop, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---- bfloat16 output: the tensor-core GEMM --------------------------------------
@@ -387,6 +628,29 @@ extern "C" int seld_stft_mag(const void* x, const void* table, void* out, int ro
     err = launch_f32<float>(x, tb, o, rows, n, n_frames, nperseg, hop, s);
   else if (x_dtype == kBF16)
     err = launch_f32<__nv_bfloat16>(x, tb, o, rows, n, n_frames, nperseg, hop, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// float32 output at a power-of-two nperseg (64-2048), by the FFT. x as
+// above; win (nperseg,) float: the window over sum(win); tw (nperseg, 2)
+// float: cos and -sin of 2 pi q / nperseg; out (rows, n_frames, nperseg/2)
+// float.
+extern "C" int seld_stft_mag_fft(const void* x, const void* win, const void* tw, void* out,
+                                 int rows, int n, int n_frames, int nperseg, int hop,
+                                 int x_dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto w = static_cast<const float*>(win);
+  auto t = static_cast<const float*>(tw);
+  auto o = static_cast<float*>(out);
+  cudaError_t err;
+  if (rows <= 0 || rows > 65535 || n_frames <= 0 || hop <= 0)
+    err = cudaErrorInvalidValue;
+  else if (x_dtype == kF32)
+    err = launch_fft<float>(x, w, t, o, rows, n, n_frames, nperseg, hop, s);
+  else if (x_dtype == kBF16)
+    err = launch_fft<__nv_bfloat16>(x, w, t, o, rows, n, n_frames, nperseg, hop, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

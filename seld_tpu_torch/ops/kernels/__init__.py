@@ -14,6 +14,7 @@ import torch
 # wrapper name -> launches since the last reset
 launch_counts = {
     "stft_mag": 0,
+    "stft_mag_fft": 0,   # the float32 FFT kernel's launches, also counted in stft_mag
     "conv3x3_smallcin": 0,
     "conv3x3_widecin": 0,
     "conv3x3_smallcin_wide": 0,
@@ -32,7 +33,7 @@ launch_counts = {
     "ct_train_dw": 0,
     "ct_train_dx": 0,
     "hamilton_matmul": 0,
-    "int8_matmul": 0,
+    "int8_matmul": 0,    # calls: each launches two kernels (the quantize pass, the GEMM)
 }
 
 

@@ -4,10 +4,13 @@ Counterpart of ``seld_tpu/ops/pallas/stft.py::stft_mag_pallas`` with
 ``out_layout='TF'``: x (..., n) audio -> (..., T, nperseg/2) magnitudes with
 scipy.signal.stft semantics (periodic Hamming window, zero boundary of
 nperseg/2, tail padded to whole hops, 1/sum(win) scaling, DC bin and last
-frame dropped). The kernels are in ``csrc/stft_mag.cu``: bfloat16 output
-runs the DFT as a GEMM on the tensor cores (``seld_stft_mag_tc``: bf16
-audio and table, float sums, the JAX kernel's arithmetic for that output),
-float32 output a SIMT kernel in float (``seld_stft_mag``).
+frame dropped). The kernels are in ``csrc/stft_mag.cu``, picked by
+:func:`stft_route`: bfloat16 output runs the DFT as a GEMM on the tensor
+cores (``seld_stft_mag_tc``: bf16 audio and table, float sums, the JAX
+kernel's arithmetic for that output); float32 output at a power-of-two
+nperseg (64-2048) a real FFT in float (``seld_stft_mag_fft``: the port of
+K1's contract, not of the TPU's DFT GEMM), at any other nperseg % 32 == 0 the
+DFT as a SIMT kernel in float (``seld_stft_mag``).
 """
 
 from __future__ import annotations
@@ -30,9 +33,39 @@ SMEM_BYTES = 232_448   # shared memory one block may use on the H100
 TC_MAX_TAPS = (SMEM_BYTES // 2 - 2 * TC_FRAMES * (TC_TAPS + 8)) // (2 * TC_BINS + 8) \
     // TC_TAPS * TC_TAPS
 SIMT_TAPS = 32  # taps per slice of the float32 kernel (kBK)
+FFT_NPERSEG = (64, 128, 256, 512, 1024, 2048)   # the FFT kernel's instances
 
 _TABLES: dict[tuple[int, str], torch.Tensor] = {}
 _TILES: dict[tuple[int, str], torch.Tensor] = {}
+_FFT_TABLES: dict[tuple[int, str, torch.dtype], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def stft_route(nperseg: int, out_dtype: torch.dtype) -> str:
+    """The kernel a CUDA call takes: 'tc' (bfloat16 output, the tensor-core
+    GEMM), 'fft' (float32 output at a power-of-two nperseg of 64-2048) or
+    'simt' (float32 output otherwise; nperseg % 32 == 0, else the wrapper
+    raises)."""
+    if out_dtype == torch.bfloat16:
+        return "tc"
+    return "fft" if nperseg in FFT_NPERSEG else "simt"
+
+
+def fft_tables(nperseg: int, device, dtype: torch.dtype = torch.float32
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The FFT kernel's tables, built in float64 and rounded once to
+    ``dtype``: the periodic Hamming window over sum(win), (nperseg,) (the
+    same window and scale as :func:`dft_table`), and the twiddles
+    e^{-2 pi i q / nperseg}, (nperseg, 2) as [cos, -sin]. Cached per device."""
+    device = torch.device(device)
+    key = (nperseg, str(device), dtype)
+    if key not in _FFT_TABLES:
+        q = np.arange(nperseg)
+        win = 0.54 - 0.46 * np.cos(2.0 * np.pi * q / nperseg)
+        angle = 2.0 * np.pi * q / nperseg
+        tw = np.stack([np.cos(angle), -np.sin(angle)], axis=1)
+        _FFT_TABLES[key] = (torch.from_numpy(win / win.sum()).to(device, dtype),
+                            torch.from_numpy(tw).to(device, dtype).contiguous())
+    return _FFT_TABLES[key]
 
 
 def dft_table(nperseg: int, device) -> torch.Tensor:
@@ -121,20 +154,22 @@ def stft_mag(x: torch.Tensor, nperseg: int = 512, noverlap: int = 112,
              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (..., n) float32 or bfloat16 audio -> (..., T, nperseg/2) in
     ``out_dtype``. CPU tensors take :func:`stft_mag_plain`; CUDA tensors
-    launch ``seld_stft_mag_tc`` for bfloat16 output (any even nperseg whose
-    table fits shared memory: up to TC_MAX_TAPS) and ``seld_stft_mag`` for
-    float32 output (nperseg % 32 == 0)."""
+    launch the kernel :func:`stft_route` names: ``seld_stft_mag_tc`` for
+    bfloat16 output (any even nperseg whose table fits shared memory: up to
+    TC_MAX_TAPS), ``seld_stft_mag_fft`` for float32 output at a power-of-two
+    nperseg (64-2048) and ``seld_stft_mag`` for float32 output at any other
+    nperseg % 32 == 0."""
     _check(x, nperseg, noverlap)
     if not on_cuda(x):
         return stft_mag_plain(x, nperseg, noverlap, out_dtype)
     require_contiguous(x=x)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernels write float32 or bfloat16, not {out_dtype}")
-    tc = out_dtype == torch.bfloat16
-    if tc and -(-nperseg // TC_TAPS) * TC_TAPS > TC_MAX_TAPS:
+    route = stft_route(nperseg, out_dtype)
+    if route == "tc" and -(-nperseg // TC_TAPS) * TC_TAPS > TC_MAX_TAPS:
         raise ValueError(f"the bf16 kernel holds at most {TC_MAX_TAPS} taps of its table "
                          f"in shared memory, got nperseg {nperseg}")
-    if not tc and nperseg % SIMT_TAPS:
+    if route == "simt" and nperseg % SIMT_TAPS:
         raise ValueError(f"the float32 kernel stages {SIMT_TAPS}-tap slices: "
                          f"nperseg % {SIMT_TAPS} != 0 ({nperseg})")
     lead, n = x.shape[:-1], x.shape[-1]
@@ -145,12 +180,19 @@ def stft_mag(x: torch.Tensor, nperseg: int = 512, noverlap: int = 112,
     out = torch.empty((*lead, t, nperseg // 2), dtype=out_dtype, device=x.device)
     x_code = dtype_code(x)
     lib = _build.load()
-    if tc:
+    if route == "tc":
         tiles = dft_table_tiles(nperseg, x.device)
         err = lib.seld_stft_mag_tc(x.data_ptr(), tiles.data_ptr(), out.data_ptr(), rows, n, t,
                                    nperseg, nperseg - noverlap, tiles.shape[1], x_code,
                                    stream_handle(x.device))
         _build.check(err, "seld_stft_mag_tc")
+    elif route == "fft":
+        win, tw = fft_tables(nperseg, x.device)
+        err = lib.seld_stft_mag_fft(x.data_ptr(), win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                                    rows, n, t, nperseg, nperseg - noverlap, x_code,
+                                    stream_handle(x.device))
+        _build.check(err, "seld_stft_mag_fft")
+        launch_counts["stft_mag_fft"] += 1
     else:
         err = lib.seld_stft_mag(x.data_ptr(), dft_table(nperseg, x.device).data_ptr(),
                                 out.data_ptr(), rows, n, t, nperseg, nperseg - noverlap, x_code,

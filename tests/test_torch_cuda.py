@@ -62,6 +62,39 @@ def test_stft_kernel(gen, dtype, shape, nperseg, noverlap):
     _close(got, stft_mag_plain(x, nperseg, noverlap, out_dtype=dtype), dtype)
 
 
+# K1's float32 FFT kernel: (audio shape, nperseg, noverlap, audio dtype) at
+# nperseg 64-2048, frames ragged against the block's 2048 / (nperseg / 2)
+# frames, n % 4 != 0 and odd n (element-by-element gathers at the row's end),
+# an odd hop (no pair loads), bf16 audio and 40 rows
+STFT_FFT_CASES = [((3, 40_003), 256, 128, torch.float32), ((2, 117_123), 512, 112, torch.float32),
+                  ((2, 100_700), 1024, 512, torch.float32),
+                  ((2, 100_999), 2048, 1024, torch.float32),
+                  ((3, 120_000), 512, 112, torch.bfloat16), ((40, 130_000), 512, 112, torch.float32),
+                  ((2, 50_001), 512, 113, torch.float32), ((2, 30_001), 64, 16, torch.float32)]
+
+
+@pytest.mark.parametrize("shape,nperseg,noverlap,xdt", STFT_FFT_CASES)
+def test_stft_fft_kernel(gen, shape, nperseg, noverlap, xdt):
+    """The FFT kernel against the plain version (float32, 2e-4 x max) and the
+    plain DFT in float64 (1e-5 x max: the FFT's rounding grows as log N)."""
+    x = torch.randn(*shape, generator=gen, device="cuda").to(xdt)
+    got = stft_mag(x, nperseg, noverlap, out_dtype=torch.float32)
+    assert launch_counts["stft_mag"] == 1 and launch_counts["stft_mag_fft"] == 1
+    _close(got, stft_mag_plain(x, nperseg, noverlap, out_dtype=torch.float32), torch.float32)
+    want = stft_mag_plain(x.double(), nperseg, noverlap, out_dtype=torch.float64)
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("nperseg,noverlap,fft", [(512, 112, 1), (480, 80, 0), (2048, 1024, 1),
+                                                  (96, 48, 0)])
+def test_stft_float32_route_on_the_card(gen, nperseg, noverlap, fft):
+    """Power-of-two nperseg takes the FFT kernel, 480 and 96 the SIMT DFT."""
+    x = torch.randn(2, 20_000, generator=gen, device="cuda")
+    got = stft_mag(x, nperseg, noverlap, out_dtype=torch.float32)
+    assert launch_counts["stft_mag"] == 1 and launch_counts["stft_mag_fft"] == fft
+    _close(got, stft_mag_plain(x, nperseg, noverlap, out_dtype=torch.float32), torch.float32)
+
+
 # K1's bf16-output kernel (the tensor-core GEMM): frames ragged against its
 # 256-frame tiles, bins ragged against 64 (240, 244), nperseg 488 ragged against
 # its 32-tap chunks, n % 4 != 0 (element-by-element gathers), bf16 audio, and 40
@@ -627,23 +660,56 @@ def test_hamilton_matmul_function_gradients(gen, dtype, m, n, cin_c, cout_c, lin
         _close(got, want, dtype)
 
 
+# (M, Cin, Cout): M below one block (20), ragged against both row tiles, the
+# flagship's 4800 (a clip: 64-row blocks) and 9600 (batch 2), and under 2816
+# at Cout 384 (32-row blocks by the tile rule); Cin 30 and 48 (k padded to 32
+# and 64: a half k chunk; 30 * 4 bytes not a 16-byte row, x quantized element
+# by element), 384, and 3200 (32-row blocks: 64 rows do not fit shared
+# memory); Cout 7 (odd: element by element stores), 80 and 384 (three
+# 128-column passes)
+K8_CASES = [(1037, 48, 80), (300, 384, 384), (129, 30, 7), (20, 30, 80), (20, 384, 7),
+            (4800, 384, 384), (9600, 384, 384), (9600, 48, 7), (4800, 30, 384),
+            (300, 3200, 80)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,cin,cout", [(1037, 48, 80), (300, 384, 384), (129, 30, 7)])
-def test_int8_matmul_kernel(gen, dtype, m, cin, cout):
-    """K8 against its plain version: within one ulp of the output dtype (the
-    same arithmetic; expected bit-equal), a zero row giving the bias."""
+@pytest.mark.parametrize("m,cin,cout", K8_CASES)
+def test_int8_matmul_kernel(gen, dtype, m, cin, cout, monkeypatch):
+    """K8 against its plain version at the wrapper's row tile, then with
+    64- and 32-row blocks forced where they fit: no element beyond one ulp
+    (the same arithmetic with the int32 sum exact in any order; the plain
+    epilogue rounds through float64, which may differ from one fma's
+    rounding at a tie), the tiles bit-equal, a zero row giving the bias."""
     x = torch.randn(m, cin, generator=gen, device="cuda")
     x = (x * torch.rand(m, 1, generator=gen, device="cuda") * 10).to(dtype)
     x[5] = 0
     w_q, w_s = k8.quantize_weight_per_channel(
         torch.randn(cin, cout, generator=gen, device="cuda"))
     bias = torch.randn(cout, generator=gen, device="cuda").to(dtype)
-    got = k8.int8_matmul(x, w_q, w_s, bias)
-    assert launch_counts["int8_matmul"] == 1
     want = k8.int8_matmul_plain(x, w_q, w_s, bias)
-    assert got.dtype == dtype and got.shape == want.shape
-    assert ulps_apart(got, want, dtype) == 0
-    assert torch.equal(got[5].float(), bias.float())
+    first = None
+    variants = [k8.ROW_TILES] + [(bm,) for bm in k8.ROW_TILES
+                                 if k8.smem_bytes(bm, cin) <= k8.SMEM_BYTES]
+    for i, tiles in enumerate(variants):
+        monkeypatch.setattr(k8, "ROW_TILES", tiles)
+        got = k8.int8_matmul(x, w_q, w_s, bias)
+        assert launch_counts["int8_matmul"] == i + 1
+        assert got.dtype == dtype and got.shape == want.shape
+        assert ulps_apart(got, want, dtype) == 0, tiles
+        assert torch.equal(got[5].float(), bias.float())
+        first = got if first is None else first
+        assert torch.equal(got, first), tiles
+
+
+def test_int8_matmul_bias_as_it_comes(gen):
+    """K8 reads the bias in float32, in bf16 (as the layers pass it) or none."""
+    x = torch.randn(1037, 48, generator=gen, device="cuda").to(torch.bfloat16)
+    w_q, w_s = k8.quantize_weight_per_channel(torch.randn(48, 80, generator=gen, device="cuda"))
+    bias = torch.randn(80, generator=gen, device="cuda")
+    for b in (None, bias, bias.to(torch.bfloat16)):
+        got = k8.int8_matmul(x, w_q, w_s, b)
+        assert ulps_apart(got, k8.int8_matmul_plain(x, w_q, w_s, b), torch.bfloat16) == 0
+    assert launch_counts["int8_matmul"] == 3
 
 
 def test_predict_cli_on_the_card_launches_k7_and_k8(gen, tmp_path):
