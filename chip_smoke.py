@@ -12,7 +12,8 @@ Phases, each printing its own lines:
    spills per kernel and the HMMA / HGMMA / IMMA count in the SASS of each
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128 and K8's int8 GEMM
-   among them), failing if one has none;
+   among them), failing if one has none or if a K4 / K6 kernel past head
+   dim 128 spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8 within one ulp of its plain version at both row
    tiles, K1's float32 FFT at nperseg 64-2048 and within 1e-5 x
@@ -37,9 +38,14 @@ Phases, each printing its own lines:
    and torch.stft,
    K2, K3 and cuDNN's conv, K4 and scaled_dot_product_attention timed back
    to back (stream_ms), with K4's floor of exponentials beside; K4 and K6
-   at head dims 160, 256 and 320 (128-column slices) with the slice
-   kernels' registers and spills, and at D 48, 160 and 256 beside SDPA and
-   its backward back to back; K2w's and K10a's bf16 operand builds
+   at head dims 136-512 (bf16: column groups of at most 256; float32:
+   128-column slices) with their kernels' registers and spills, and at D
+   48, 160, 192, 256 and 320 beside SDPA and its backward back to back with
+   each bound (at D 160 the wide kernels launched alone, no pad copy); the
+   float32 flagship instances of K2, K3, K4, K5 F1 / F2, K6, K9 F1 / F2 /
+   dW / dx, K2w, K10a and K10b beside their library call in float32 with
+   TF32 off and their float32 bound (the ``[f32]`` lines); K2w's and
+   K10a's bf16 operand builds
    (the torch pack, the patch kernel) and products alone, and both beside
    cuDNN back to back, at the flagship's stages;
 4. serving path: builds the full-width flagship DualQSELD-TCN
@@ -231,13 +237,15 @@ PREDICT_STEPS_TIMED = 3
 # the bfloat16 tensor-core kernels (mangled-name stems): the conv tile's K3 / K10b,
 # K9 F1 and dh bodies and K5's F1 and g_z bodies, the dW tile (K9's 32-channel Cin
 # tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
-# three at head dims past 128, in 128-column slices), K7, K1's bf16-output GEMM,
-# K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's int8 GEMM (IMMA)
+# three at head dims past 128, in column groups: WIDE_ATTN_KERNELS), K7, K1's
+# bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
+# int8 GEMM (IMMA)
+WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
+                     "flash_dkv_wide_tc_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
-              "flash_dkv_tc_kernel", "flash_fwd_slice_tc_kernel", "flash_dq_slice_tc_kernel",
-              "flash_dkv_slice_tc_kernel", "hamilton_tc_kernel", "stft_mag_tc_kernel",
+              "flash_dkv_tc_kernel", *WIDE_ATTN_KERNELS, "hamilton_tc_kernel", "stft_mag_tc_kernel",
               "smallcin_tc_kernel", "im2col_tc_kernel", "smallcin_wide_tc_kernel",
               "int8_matmul_tc_kernel")
 TC_OPS = re.compile(r"\b(?:HG?MMA|IMMA)\b")   # bf16 (HMMA, HGMMA) and int8 (IMMA) products
@@ -299,6 +307,9 @@ PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,attn,v3"
 
 
 PTXAS = {}   # kernel -> ptxas' registers, shared memory and spills (phase 2)
+# K4 / K6 timed beside SDPA at the flagship's attention shape (B 2, T 2400, 8 heads):
+# the flagship's D 48, then head dims past 128 in one, two and three column groups
+PAST_128_DIMS = (48, 160, 192, 256, 320, 640)
 
 
 class SmokeFailure(RuntimeError):
@@ -391,6 +402,10 @@ def phase_build() -> None:
             f"{set(TC_KERNELS) - found}")
     require(all(tiles.values()), f"tensor-core kernels without tensor-core instructions: "
             f"{[fn for fn, n in tiles.items() if not n]}")
+    # the attention kernels past head dim 128 keep every accumulator in registers
+    wide = {fn: r for fn, r in ptxas.items() if any(k in fn for k in WIDE_ATTN_KERNELS)}
+    require(wide and all("0 bytes spill stores" in r for r in wide.values()),
+            f"attention kernels past head dim 128 spill or are missing: {wide}")
 
 
 def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
@@ -399,6 +414,16 @@ def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def f32_row(card: str, name: str, tag: str, kernel_ms: float, library_ms: float,
+            flops: float, moved: float) -> None:
+    """One float32 flagship instance beside its library call in float32 (TF32
+    off, ``seld_tpu_torch.disable_tf32``) and its float32 bound (67 TFLOP/s
+    outside the tensor cores, or bytes), marked where the kernel loses."""
+    bound_ms, bound_by = bound(flops, moved, "float32")
+    print(f"[f32] {name} {tag}: kernel {kernel_ms:.3f} ms, library {library_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms by {bound_by}{', loses' if kernel_ms > library_ms else ''} ({card})")
 
 
 def nbytes(*tensors) -> int:
@@ -511,7 +536,7 @@ def phase_kernels(torch, card: str) -> dict:
     from seld_tpu_torch.ops.kernels import launch_counts
     from seld_tpu_torch.ops.kernels.attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_plain,
-        flash_attention_train,
+        flash_attention_train, head_dim_plan,
     )
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain, conv2d_smallcin_bn_relu_fpool,
@@ -525,7 +550,7 @@ def phase_kernels(torch, card: str) -> dict:
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    summary = {}
+    summary, past_128 = {}, {}
 
     def record(name, d, timed, flops, moved, dtype_name, library_ms=None, **extra):
         """The JSON entry of one kernel, from its flagship bf16 run; ``extra``
@@ -635,6 +660,11 @@ def phase_kernels(torch, card: str) -> dict:
             label = f"{tag}" if tag != "flagship" else f"stage{1 + (cin > 8) + (f == 4)}"
             got = k()
             d = compare(torch, name, label, got, p(), dt, card, timed)
+            if tag == "flagship" and dt == torch.float32:
+                w_nchw = w.permute(3, 2, 0, 1).contiguous()
+                f32_row(card, name, label, timed[0],
+                        time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1)),
+                        2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got))
             # the summary line carries stage 1 (smallcin) and stage 2 (widecin)
             if tag == "flagship" and dt == torch.bfloat16 and f != 4:
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
@@ -659,8 +689,12 @@ def phase_kernels(torch, card: str) -> dict:
 
     # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8 and 130 = 2 * 64 + 2,
     # every head dim the kernel is built for, and 8 and 24 (zero-padded to 16 and 32);
-    # past 128 ("sliced"), D 160, 256 and 320 (zero-padded to 256 and 384, two and
-    # three 128-column slices), ragged key tiles
+    # past 128 ("sliced"): bfloat16 D 136 -> 160, 160, 192, 224 and 256 in one
+    # column group, 300 -> 320, 320 and 512 in two equal ones, 288 and 480 in two
+    # with a narrower last, 640 in three (K and V streamed with each tile in the
+    # dk/dv pass, Q and dO in the dq pass) and 1280 in five (Q streamed in the
+    # forward too) (the wide kernels); float32 the same D padded to multiples of
+    # 128 in 128-column slices; ragged key tiles
     attn_cases = [
         ("ragged", 2, 200, 3, 48),
         ("ragged", 1, 130, 2, 32),
@@ -668,10 +702,14 @@ def phase_kernels(torch, card: str) -> dict:
           for b, h, d in ((1, 4, 16), (2, 2, 32), (1, 3, 48), (2, 1, 64), (1, 2, 128),
                           (2, 3, 8), (1, 2, 24))),
         ("sliced", 2, 200, 3, 160), ("sliced", 1, 130, 2, 256), ("sliced", 2, 65, 2, 320),
+        ("sliced", 2, 65, 3, 136), ("sliced", 1, 130, 2, 192), ("sliced", 2, 200, 2, 224),
+        ("sliced", 1, 200, 2, 320), ("sliced", 2, 130, 1, 512), ("sliced", 1, 65, 2, 512),
+        ("sliced", 2, 200, 2, 300), ("sliced", 2, 65, 2, 288), ("sliced", 1, 200, 2, 480),
+        ("sliced", 2, 130, 1, 640), ("sliced", 1, 65, 1, 1280),
         ("flagship", 2, 2400, 8, 48),
     ]
     for fn, regs in sorted(PTXAS.items()):
-        if "slice" in fn and "flash" in fn:
+        if ("slice" in fn or "wide" in fn) and "flash" in fn:
             print(f"[kernel] head dims past 128: {fn}: {regs}")
     for tag, b, t, h, d_head in attn_cases:
         qf, kf, vf = (randn(b, t, h, d_head) for _ in range(3))
@@ -685,6 +723,10 @@ def phase_kernels(torch, card: str) -> dict:
             d = compare(torch, "flash_attn_fwd", tag, o, o_ref, dt, card, timed)
             compare(torch, "flash_attn_lse", tag, lse, lse_ref, torch.float32, card)
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k_, v))
+            if tag == "flagship" and dt == torch.float32:
+                f32_row(card, "flash_attn_fwd", tag, timed[0],
+                        time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                        4.0 * b * h * t * t * d_head, nbytes(q, k_, v, o, lse))
             if tag == "flagship" and dt == torch.bfloat16:
                 lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
                 lib_ms = time_ms(torch, lib)
@@ -712,13 +754,17 @@ def phase_kernels(torch, card: str) -> dict:
             # two passes, no atomics: a rerun is bitwise equal
             require(all(torch.equal(a, b_) for a, b_ in zip(kern(), got)),
                     f"flash_attn_bwd {tag} {dt} (B {b}, T {t}, H {h}, D {d_head}): not repeatable")
-            if tag == "flagship" and dt == torch.bfloat16:
+            if tag == "flagship":
                 # the library's backward: autograd of scaled_dot_product_attention
                 leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
                 o_lib = F.scaled_dot_product_attention(*leaves)
                 dout_t = dout.transpose(1, 2).contiguous()
                 lib_ms = time_ms(torch, lambda: torch.autograd.grad(
                     o_lib, leaves, dout_t, retain_graph=True))
+            if tag == "flagship" and dt == torch.float32:
+                f32_row(card, "flash_attn_bwd", tag, timed[0], lib_ms,
+                        10.0 * b * h * t * t * d_head, nbytes(q, k_, v, out_r, dout, lse_r, *got))
+            if tag == "flagship" and dt == torch.bfloat16:
                 # five (T, T, D) products the function needs (S, dP, dV, dK,
                 # dQ); the dq pass's recompute of S and dP is the kernel's choice
                 record("flash_attn_bwd", d, timed, 10.0 * b * h * t * t * d_head,
@@ -758,24 +804,55 @@ def phase_kernels(torch, card: str) -> dict:
         del q, k_, v, o, lse, o_ref, lse_ref
     require(block_rows == {64, 128}, f"flash_attn_fwd: only {block_rows}-query blocks checked")
 
-    # past head dim 128 (the slice kernels) beside SDPA and its backward, back to
-    # back, at the flagship's attention shape (B 2, T 2400, 8 heads), D 48 for reference
-    for d_head in (48, 160, 256):
+    # past head dim 128 (the wide kernels) beside SDPA and its backward, back to
+    # back, at the flagship's attention shape (B 2, T 2400, 8 heads), D 48 for
+    # reference, with each kernel's bound (K4 4 B H T^2 D FLOP, K6 10 B H T^2 D,
+    # at the bf16 peak; the exponentials' floor: one ex2 a score a column group);
+    # at D 160 the wrapper launches the wide kernels alone (no pad copy)
+    clock, sms = max_sm_clock_hz(), torch.cuda.get_device_properties(0).multi_processor_count
+    for d_head in PAST_128_DIMS:
         q, k_, v, dout = (randn(2, t, h, d_head).to(torch.bfloat16) for _ in range(4))
         scale = d_head ** -0.5
         o, lse = (a.contiguous() for a in flash_attention(q, k_, v, scale))
         qt, kt, vt, dout_t = (a.transpose(1, 2).contiguous() for a in (q, k_, v, dout))
         leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
         o_lib = F.scaled_dot_product_attention(*leaves)
+        fwd = lambda: flash_attention(q, k_, v, scale)
+        bwd = lambda: flash_attention_bwd(q, k_, v, o, dout, lse, scale)
         ms = [stream_ms(torch, fn) for fn in (
-            lambda: flash_attention(q, k_, v, scale),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt),
-            lambda: flash_attention_bwd(q, k_, v, o, dout, lse, scale),
+            fwd, lambda: F.scaled_dot_product_attention(qt, kt, vt), bwd,
             lambda: torch.autograd.grad(o_lib, leaves, dout_t, retain_graph=True))]
-        print(f"[kernel] flash_attn bfloat16 (B 2, T {t}, H {h}, D {d_head}) back to back: "
-              f"K4 {ms[0]:.4f} ms, SDPA {ms[1]:.4f} ms; K6 {ms[2]:.4f} ms, SDPA backward "
-              f"{ms[3]:.4f} ms ({card})")
+        flops = 2.0 * 2 * h * t * t * d_head   # one (T, T, D) product at B 2
+        d_pad, width = head_dim_plan(d_head, torch.bfloat16)
+        groups = -(-d_pad // width)
+        b_fwd, by_fwd = bound(2 * flops, nbytes(q, k_, v, o, lse), "bfloat16")
+        b_bwd, by_bwd = bound(5 * flops, nbytes(q, k_, v, o, dout, lse, q, k_, v), "bfloat16")
+        exp_floor = groups * 2 * h * t * t / (16 * sms * clock) * 1e3
+        print(f"[kernel] flash_attn bfloat16 (B 2, T {t}, H {h}, D {d_head}, {groups} column "
+              f"group(s)) back to back: K4 {ms[0]:.4f} ms, SDPA {ms[1]:.4f} ms "
+              f"({ms[0] / ms[1]:.2f}x), bound {b_fwd:.4f} ms by {by_fwd}, exp floor "
+              f"{exp_floor:.4f} ms; K6 {ms[2]:.4f} ms, SDPA backward {ms[3]:.4f} ms "
+              f"({ms[2] / ms[3]:.2f}x), bound {b_bwd:.4f} ms by {by_bwd} ({card})")
+        past_128[d_head] = {"ms": ms[0], "sdpa_ms": ms[1], "bound_ms": b_fwd,
+                            "bwd_ms": ms[2], "sdpa_bwd_ms": ms[3], "bwd_bound_ms": b_bwd}
+        if d_head == 160:
+            names = {"forward": launched_kernels(torch, fwd),
+                     "backward": launched_kernels(torch, bwd)}
+            print(f"[kernel] flash_attn bfloat16 D 160, launched: {names}")
+            split = device_split(torch, bwd)
+            print(f"[kernel] flash_attn bfloat16 D 160, K6's device time by kernel: "
+                  + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in split.items()) + f" ({card})")
+            require(len(names["forward"]) == 1 and WIDE_ATTN_KERNELS[0] in names["forward"][0],
+                    f"K4 at D 160 launched {names['forward']}, not the wide kernel alone")
+            require(len(names["backward"]) == 3 and
+                    all(any(k in n for n in names["backward"]) for k in WIDE_ATTN_KERNELS[1:]),
+                    f"K6 at D 160 launched {names['backward']}")
         del q, k_, v, dout, o, lse, qt, kt, vt, dout_t, leaves, o_lib
+    summary["flash_attn_fwd"]["past_128"] = {str(d): {k: v for k, v in r.items() if "bwd" not in k}
+                                             for d, r in past_128.items()}
+    summary["flash_attn_bwd"]["past_128"] = {
+        str(d): {"ms": r["bwd_ms"], "sdpa_ms": r["sdpa_bwd_ms"], "bound_ms": r["bwd_bound_ms"]}
+        for d, r in past_128.items()}
 
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
@@ -942,7 +1019,8 @@ def phase_k5(torch, card: str, randn, record) -> None:
                 dw_fn = lambda: k5.conv_train_dw(*b2_args)
             pass_ms = {}
             for name, kern, plain, tol_dt, flops, moved, library in passes:
-                timed = (time_ms(torch, kern), time_ms(torch, plain)) if flag else None
+                timed = ((time_ms(torch, kern), time_ms(torch, plain)) if tag == "flagship"
+                         else None)
                 got, want = kern(), plain()
                 if name == "conv_train_gz":   # (g_z, the routed sums)
                     compare(torch, name, f"{tag} sums", got[1], want[1], torch.float32, card)
@@ -962,6 +1040,9 @@ def phase_k5(torch, card: str, randn, record) -> None:
                           f"{exact.abs().max().item():.3e})")
                     want, label = exact, f"{label}/f64-ref"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
+                if tag == "flagship" and not bf16 and name in ("conv_train_stats",
+                                                               "conv_train_fwd"):
+                    f32_row(card, name, tag, timed[0], time_ms(torch, library), flops, moved)
                 if flag:
                     pass_ms[name] = timed[0]
                     lib_ms = None if library is None else time_ms(torch, library)
@@ -1068,6 +1149,7 @@ def phase_k9(torch, card: str, record) -> None:
             # each pass on the same inputs as its plain version
             flag = tag == "stage2" and dt == torch.bfloat16
             timed_tag = tag != "ragged" and dt == torch.bfloat16
+            f32_tag = tag == "stage2" and dt == torch.float32
             n = b * f * t
             sums, pre = k9.ct_train_stats(h, w, pf)
             mean = sums[:cout] / n
@@ -1106,13 +1188,16 @@ def phase_k9(torch, card: str, record) -> None:
             ]
             pass_ms = {}
             for name, kern, plain, tol_dt, flops, moved, library in passes:
-                timed = (time_ms(torch, kern), time_ms(torch, plain)) if timed_tag else None
+                timed = ((time_ms(torch, kern), time_ms(torch, plain)) if timed_tag or f32_tag
+                         else None)
                 got, want = kern(), plain()
                 if name == "ct_train_stats":   # (sums, pre)
                     compare(torch, name, f"{tag} pre", got[1], want[1], torch.float32, card)
                     got, want = got[0], want[0]
                 label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
+                if f32_tag and library is not None:
+                    f32_row(card, name, tag, timed[0], time_ms(torch, library), flops, moved)
                 if timed_tag:
                     pass_ms[name] = timed[0]
                 if flag:
@@ -1380,11 +1465,13 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
                 del build, product
             if dt == torch.bfloat16 and recorded[name] == tag:
                 record(name, d, timed, flops, moved, "bfloat16", lib_ms, **parts)
+            elif dt == torch.float32:
+                f32_row(card, name, tag, timed[0], lib_ms, flops, moved)
             else:
                 bound_ms, bound_by = bound(flops, moved, dt_name)
                 print(f"[kernel] {name} {tag} {dt_name}: {timed[0]:.3f} ms, plain "
                       f"{timed[1]:.3f} ms, library {lib_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-                      f"{bound_by} ({card})")
+                      f"{bound_by}{', loses' if timed[0] > lib_ms else ''} ({card})")
         del xf, wf
 
 

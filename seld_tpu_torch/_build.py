@@ -46,10 +46,11 @@ SIGNATURES = {
     "seld_conv3x3_im2col": [_P] * 5 + [_I] * 7 + [_P],
     # x, patches, batch, cin, f, t, k_pad, dtype, stream
     "seld_im2col_patches": [_P, _P] + [_I] * 6 + [_P],
-    # q, k, v, out, lse, batch, t, heads, d, scale, dtype, stream
-    "seld_flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t, heads, d, scale, dtype, stream
-    "seld_flash_attn_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, batch, t, heads, d, group, scale, dtype, stream
+    "seld_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t, heads, d, group, scale, dtype,
+    # stream
+    "seld_flash_attn_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
     # x, w, partials, sums, batch, cin, f, t, cout, pf, tiles_per_block, dtype, stream
     "seld_conv3x3_train_stats": [_P] * 4 + [_I] * 8 + [_P],
     # out, g, p, q, partials, sums, batch, cout, f_out, t, dtype, stream

@@ -2,12 +2,15 @@
 
     python -m seld_tpu_torch.ab_variants --sections train [--batch 2] \\
         --patch csrc/conv3x3_train.cu 'pf <= kGzStageRows' 'pf <= 0' [--patch ...] \\
-        [--device=cpu]
+        [--base-tree DIR] [--device=cpu]
 
 Copies the package and ``config/`` twice under ``chip_tmp/ab_variants/``:
-``base`` as it stands, and ``patched`` with every ``--patch FILE OLD NEW``
-applied (FILE a path under ``seld_tpu_torch/``, OLD found there exactly
-once). Builds both
+``base`` as it stands (or, with ``--base-tree DIR``, DIR's package, such as
+an unpacked ``git archive`` of an earlier commit, with this tree's
+``profile_stages.py`` over it, so that both versions time the same rows),
+and ``patched`` with every ``--patch FILE OLD NEW`` applied (FILE a path
+under ``seld_tpu_torch/``, OLD found there exactly once; none needed with
+``--base-tree``). Builds both
 copies' kernels at once, one process each, then runs ``python -m
 seld_tpu_torch.profile_stages`` in each copy in the order base, patched,
 patched, base (``PROF_BATCH``, ``PROF_SECTIONS``), so that drift on the card
@@ -33,16 +36,20 @@ ORDER = ("base", "patched", "patched", "base")
 ROW = re.compile(r"^(.*\S)\s+(\d+\.\d+) ms$")
 
 
-def make_copies(patches: list, work: Path | None = None) -> dict:
+def make_copies(patches: list, work: Path | None = None, base_tree: Path | None = None) -> dict:
     """{version: directory holding its copy of seld_tpu_torch/ and config/}."""
     work = work or WORK
     shutil.rmtree(work, ignore_errors=True)
     dirs = {}
     for name in ("base", "patched"):
         d = work / name
+        src = base_tree if name == "base" and base_tree is not None else ROOT
         for sub in ("seld_tpu_torch", "config"):
-            shutil.copytree(ROOT / sub, d / sub,
+            shutil.copytree(src / sub, d / sub,
                             ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        if src != ROOT:
+            shutil.copy2(ROOT / "seld_tpu_torch" / "profile_stages.py",
+                         d / "seld_tpu_torch" / "profile_stages.py")
         dirs[name] = d
     for rel, old, new in patches:
         path = dirs["patched"] / "seld_tpu_torch" / rel
@@ -58,9 +65,10 @@ def _env(d: Path, batch: int, sections: str) -> dict:
             "PROF_SECTIONS": sections}
 
 
-def run(patches: list, sections: str, batch: int, device: str) -> dict:
+def run(patches: list, sections: str, batch: int, device: str,
+        base_tree: Path | None = None) -> dict:
     """Profile both versions in ORDER; returns {version: {row: [ms, ...]}}."""
-    dirs = make_copies(patches)
+    dirs = make_copies(patches, base_tree=base_tree)
     if device == "cuda":   # both builds at once: one nvcc process tree each
         builds = [subprocess.Popen([sys.executable, "-c",
                                     "from seld_tpu_torch import _build; _build.load()"],
@@ -90,11 +98,13 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=2, help="PROF_BATCH of both runs")
     parser.add_argument("--patch", nargs=3, action="append", default=[],
                         metavar=("FILE", "OLD", "NEW"), help="a change of the patched copy")
+    parser.add_argument("--base-tree", type=Path, default=None,
+                        help="a tree whose package the base version takes")
     parser.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = parser.parse_args(argv)
-    if not args.patch:
-        parser.error("give at least one --patch")
-    times = run(args.patch, args.sections, args.batch, args.device)
+    if not args.patch and args.base_tree is None:
+        parser.error("give at least one --patch, or --base-tree")
+    times = run(args.patch, args.sections, args.batch, args.device, args.base_tree)
     for row in times["base"]:
         cells = "  ".join(f"{name} " + " / ".join(f"{ms:.3f}" for ms in times[name].get(row, []))
                           for name in times)

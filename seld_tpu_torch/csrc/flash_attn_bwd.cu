@@ -23,9 +23,11 @@
 // past T get P = 0 (the exp of a -inf score), so they add exactly nothing;
 // rows past T read lse and delta as 0 and are not stored.
 //
-// Head dims past 128 (a multiple of 128, the wrapper zero-pads) take the
-// slice kernels below (flash_dq_slice_tc_kernel, flash_dkv_slice_tc_kernel;
-// SIMT in float32): one 128-column slice of the gradients a block.
+// Head dims past 128 take, in bfloat16, the wide kernels below
+// (flash_dq_wide_tc_kernel, flash_dkv_wide_tc_kernel: D a multiple of 32,
+// one column group of up to 256 gradient columns a block, S and dP once per
+// group); in float32 the SIMT slice kernels, D a multiple of 128, one
+// 128-column slice a block.
 //
 // bfloat16: FlashAttention-2's backward on the tensor cores
 // (flash_dq_tc_kernel, flash_dkv_tc_kernel), built on K4's tiles
@@ -70,6 +72,36 @@ __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ do
   const int t = (r / heads) % t_dim;
   const int b = r / (heads * t_dim);
   delta[(static_cast<size_t>(b) * heads + h) * t_dim + t] = s;
+}
+
+// delta of the wide kernels: one warp per (b, t, h) row, 16-byte loads of
+// out and dout across the lanes (d a multiple of 8), float sums reduced by
+// shuffles (delta_kernel's one thread per row reads each row's own
+// addresses, which no two lanes of a warp share).
+__global__ void delta_rows_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                                  float* __restrict__ delta, int rows, int t_dim, int heads,
+                                  int d) {
+  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const size_t off = static_cast<size_t>(r) * d;
+  float s = 0.f;
+  for (int c = 8 * lane; c < d; c += 256) {
+    const uint4 o = *reinterpret_cast<const uint4*>(out + off + c);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + off + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
+      s = fmaf(gf.x, of.x, fmaf(gf.y, of.y, s));
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m /= 2) s += __shfl_xor_sync(0xffffffffu, s, m);
+  if (lane == 0) {
+    const int h = r % heads, t = (r / heads) % t_dim, b = r / (heads * t_dim);
+    delta[(static_cast<size_t>(b) * heads + h) * t_dim + t] = s;
+  }
 }
 
 // rows [r0, r0 + kB) of a (B, T, H, D) tensor at (b, h) into dst[kB][ld]; zeros past T
@@ -448,38 +480,96 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv, base, tstride, k0, t_dim, dv_acc, 1.f);
 }
 
-// ---- head dims past 128: D in 128-column slices ----------------------------
-// As K4's slice kernels: a block owns one 128-column slice z of its dq (or
-// dk and dv) and sums S and dP over every slice of D before it multiplies;
-// delta is taken over all of D by delta_kernel.
+// ---- head dims past 128, bfloat16: S and dP once per tile pair -------------
+// D a multiple of 32 (attention.head_dim_plan), the gradients' columns in
+// ceil(D / 256) groups of GW (grid z; the last narrower where GW does not
+// divide D). Both passes run 8 warps on 64 rows of one (b, h) and one
+// group; warps w and w + 4 share 16 rows (16 (w % 4) ..). For the S-shaped
+// products each of the pair takes 32 of the streamed tile's 64 rows
+// (32 (w / 4) ..), over all of D, so S and dP of a (query tile, key tile)
+// pair are computed once per column group, with no product repeated within
+// it. For the accumulators each of the pair owns half of the group's
+// columns (GW / 2 = 80-128: GW / 2 floats a thread for dk and dv together),
+// which keeps every accumulator in registers where 4 warps would need 256
+// floats a thread for the dk/dv pass at GW 256. The pair's P^T and dS^T (or
+// dS) go through shared memory as bf16 (16 rows x 64, rounded as K6's D <=
+// 128 kernels round them before their products) behind a 64-thread named
+// barrier, as FlashAttention-2's head-dim-256 backward stages them. The
+// block's own rows (Q and dO, or K and V) are staged once at the whole
+// padded D and read by ldmatrix for every tile while they fit (up to D 576
+// in the dk/dv pass, 608 in the dq pass); past that they stream with the
+// tile, chunk by chunk. The streamed tiles go through a two-stage cp.async
+// ring of units, one barrier a unit: per tile, the streamed pair (and the
+// block's own rows where they are not resident) in nc chunks of kc columns
+// (nc = 1 wherever the block's rows and two whole units fit shared memory:
+// up to D 256), then, where nc > 1, the group's columns as units of their
+// own (the dq pass's K; the dk/dv pass's dO, then Q). delta takes a warp a
+// row (delta_rows_kernel: coalesced, where a thread a row is not). No
+// atomics: a rerun is bitwise equal. Rows and columns past T or past the
+// group are computed as at D <= 128 (P = 0 past T) or on stale shared
+// memory and not stored. What bounds both passes: 14 B H T^2 D FLOP on
+// mma.sync (the dq pass recomputes S and dP, as the D <= 128 kernels do).
+constexpr int kWideThreads = 256;   // 8 warps
+constexpr int kXP = kTcB + 8;       // pitch of the bf16 exchange tiles [64][kXP]
 
-// bfloat16 dq: units per 64-key tile j, two tiles each: (Q_r, K_jr) and
-// (dO_r, V_jr) for each slice r, then (K_jz, -).
-__global__ void __launch_bounds__(kAttnThreads)
-flash_dq_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int t_dim, int heads, int d, float scale,
-                         float scale_log2) {
+// bytes of either pass's shared memory at (d, kc, GW): the block's two row
+// tiles where they are resident, `xtiles` exchange tiles and the ring of
+// units (a chunk unit: two [64][kc + 8] tiles, four where the rows stream; a
+// group unit: one [64][GW + 8])
+static size_t wide_bwd_smem(int d, int kc, int gw, int xtiles, bool res) {
+  const size_t chunk = (res ? 2 : 4) * static_cast<size_t>(kc + 8);
+  const size_t unit = chunk > static_cast<size_t>(gw + 8) ? chunk : gw + 8;
+  return sizeof(bf16) * kTcB *
+         ((res ? 2 * static_cast<size_t>(d + 8) : 0) + xtiles * kXP + kWideStages * unit);
+}
+
+// dq rows [q0, q0 + 64) of one (b, h), group z. Per 64-key tile j: S = Q K^T
+// and dP = dO V^T (16 query rows x the warp's 32 keys), P = exp2(S * scale *
+// log2 e - lse * log2 e) with keys past T at P = 0, dS = P (dP - delta) into
+// the exchange tile as bf16, then dQ[:, the warp's half] += dS K (K's group
+// columns read transposed by ldmatrix.trans).
+template <int GW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_dq_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int t_dim, int heads, int d, int kc, bool res,
+                        float scale, float scale_log2) {
+  constexpr int kHW = GW / 2, kPg = GW + 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  const int dp = d + 8, pc = kc + 8, nc = ceil_div(d, kc), rp = res ? dp : 0;
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [64][dp] where resident
+  bf16* dos = qs + kTcB * rp;                    // [64][dp] where resident
+  bf16* xs = dos + kTcB * rp;                    // dS [64][kXP]
+  bf16* ring = xs + kTcB * kXP;
+  const int unit = kTcB * max((res ? 2 : 4) * pc, kPg);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
-  const int q0 = blockIdx.x * kTcB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int rw = 16 * (warp % 4), half = warp / 4;
+  const int q0 = blockIdx.x * kTcB;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
-  const int per_tile = 2 * nd + 1, units = ceil_div(t_dim, kTcB) * per_tile;
-  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const int per_tile = nc > 1 ? nc + 1 : 1, units = ceil_div(t_dim, kTcB) * per_tile;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit (j, r): r < nc, K and V's chunk r (then Q's and dO's where they
+  // stream); r == nc, K's group columns
   const auto load_unit = [&](int u) {
     if (u < units) {
       const int j = u / per_tile, r = u % per_tile;
-      if (r < 2 * nd) {
-        const size_t off = base + (r / 2) * kSliceD;
-        attn_load_rows<kSliceD>(stage(u), r % 2 ? dout : q, off, tstride, q0, t_dim);
-        attn_load_rows<kSliceD>(stage(u) + kSliceTile, r % 2 ? v : k, off, tstride, j * kTcB,
-                                t_dim);
+      if (r < nc) {
+        const int c0 = r * kc, w = min(kc, d - c0);
+        wide_load_rows<kWideThreads>(stage(u), pc, k, base + c0, tstride, j * kTcB, t_dim, w);
+        wide_load_rows<kWideThreads>(stage(u) + kTcB * pc, pc, v, base + c0, tstride,
+                                     j * kTcB, t_dim, w);
+        if (!res) {
+          wide_load_rows<kWideThreads>(stage(u) + 2 * kTcB * pc, pc, q, base + c0, tstride, q0,
+                                       t_dim, w);
+          wide_load_rows<kWideThreads>(stage(u) + 3 * kTcB * pc, pc, dout, base + c0, tstride,
+                                       q0, t_dim, w);
+        }
       } else {
-        attn_load_rows<kSliceD>(stage(u), k, base + zs, tstride, j * kTcB, t_dim);
+        wide_load_rows<kWideThreads>(stage(u), kPg, k, base + g0, tstride, j * kTcB, t_dim, gw);
       }
     }
     cp_async_commit();
@@ -487,135 +577,225 @@ flash_dq_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float lse2[2], dl[2];   // rows g and g + 8: lse in log2 units, delta; 0 past T
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int t = q0 + warp * 16 + lane / 4 + 8 * hh;
+    const int t = q0 + rw + lane / 4 + 8 * hh;
     const size_t at = static_cast<size_t>(bh) * t_dim + t;
     lse2[hh] = t < t_dim ? lse[at] * kLog2e : 0.f;
     dl[hh] = t < t_dim ? delta[at] : 0.f;
   }
 
-  float acc[kSliceD / 8][4];
-  zero_acc<kSliceD>(acc);
-  float s[kTcB / 8][4], dp[kTcB / 8][4];
-  load_unit(0);
+  if (res) {   // with unit 0
+    wide_load_rows<kWideThreads>(qs, dp, q, base, tstride, q0, t_dim, d);
+    wide_load_rows<kWideThreads>(dos, dp, dout, base, tstride, q0, t_dim, d);
+  }
+  for (int u = 0; u < kWideStages - 1; ++u) load_unit(u);
+
+  float acc[kHW / 8][4];
+  zero_acc<kHW>(acc);
+  float s[4][4], dpp[4][4];   // 16 query rows x the warp's 32 keys
   for (int u = 0; u < units; ++u) {
-    load_unit(u + 1);   // the other stage: its readers passed the last barrier
-    cp_async_wait_group<1>();
-    __syncthreads();
+    cp_async_wait_group<kWideStages - 2>();
+    __syncthreads();   // unit u has landed; every warp is done with unit u - 1
+    load_unit(u + kWideStages - 1);
     const int j = u / per_tile, r = u % per_tile;
     const bf16* tile = stage(u);
     if (r == 0) {
 #pragma unroll
-      for (int nt = 0; nt < kTcB / 8; ++nt)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[nt][e] = dpp[nt][e] = 0.f;
     }
-    if (r < 2 * nd) {
-      if (r % 2) attn_mma_abt_acc<kSliceD>(dp, SliceFrag{tile}, tile + kSliceTile);
-      else attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);
-    } else {
+    if (r < nc) {   // Q's and dO's rows resident, or in the unit
+      const int c0 = r * kc, w = min(kc, d - c0), ap = res ? dp : pc;
+      const bf16* qa = res ? qs + rw * dp + c0 : tile + (2 * kTcB + rw) * pc;
+      const bf16* da = res ? dos + rw * dp + c0 : tile + (3 * kTcB + rw) * pc;
+      wide_mma_abt<32>(s, qa, ap, tile + 32 * half * pc, pc, w);                  // S
+      wide_mma_abt<32>(dpp, da, ap, tile + (kTcB + 32 * half) * pc, pc, w);       // dP
+    }
+    if (r != per_tile - 1) continue;
 #pragma unroll
-      for (int nt = 0; nt < kTcB / 8; ++nt)
+    for (int nt = 0; nt < 4; ++nt) {
+      const int key = j * kTcB + 32 * half + nt * 8 + 2 * quad;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = j * kTcB + nt * 8 + 2 * quad + (e % 2);
-          const float p = key < t_dim ? exp2f(s[nt][e] * scale_log2 - lse2[e / 2]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - dl[e / 2]);   // dS
+      for (int hh = 0; hh < 2; ++hh) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = key + e < t_dim
+                              ? exp2f(s[nt][2 * hh + e] * scale_log2 - lse2[hh]) : 0.f;
+          ds[e] = p * (dpp[nt][2 * hh + e] - dl[hh]);
         }
-      attn_mma_pv<kSliceD>(acc, s, tile);   // dQ += dS K_z
+        *reinterpret_cast<uint32_t*>(xs + (rw + lane / 4 + 8 * hh) * kXP + 32 * half + nt * 8 +
+                                     2 * quad) = pack_bf16(ds[0], ds[1]);
+      }
     }
-    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+    pair_barrier();   // the pair's dS rows are whole
+    uint32_t a[kTcB / 16][4];
+    wide_ldsm_a(xs + rw * kXP, kXP, a);
+    // dQ += dS K over the group's columns: in the chunk (nc = 1) or a unit of its own
+    if (nc == 1) wide_mma_av<kHW>(acc, a, tile + g0 + half * kHW, pc);
+    else wide_mma_av<kHW>(acc, a, tile + half * kHW, kPg);
   }
-  store_rows<kSliceD>(dq + zs, base, tstride, q0, t_dim, acc, scale);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + rw + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    bf16* row = dq + base + static_cast<size_t>(t) * tstride + g0 + half * kHW;
+#pragma unroll
+    for (int dt = 0; dt < kHW / 8; ++dt)
+      if (half * kHW + dt * 8 < gw)
+        *reinterpret_cast<__nv_bfloat162*>(row + dt * 8 + 2 * quad) =
+            __floats2bfloat162_rn(acc[dt][2 * hh] * scale, acc[dt][2 * hh + 1] * scale);
+  }
 }
 
-// bfloat16 dk / dv: units per 64-query tile j: (K_r, Q_jr) and (V_r, dO_jr)
-// for each slice r (S^T and dP^T), then (Q_jz, dO_jz); the tile's lse and
-// delta are staged during its first unit.
-__global__ void __launch_bounds__(kAttnThreads)
-flash_dkv_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int t_dim, int heads,
-                          int d, float scale, float scale_log2) {
+// dk, dv rows [k0, k0 + 64) of one (b, h), group z. Per 64-query tile j: S^T
+// = K Q^T and dP^T = V dO^T (16 key rows x the warp's 32 queries), P^T =
+// exp2(S^T * scale * log2 e - lse * log2 e) (queries past T at P = 0), dS^T
+// = P^T (dP^T - delta), both into exchange tiles as bf16; then dV[:, the
+// warp's half] += P^T dO and dK[:, half] += dS^T Q over the group's columns.
+template <int GW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int t_dim, int heads,
+                         int d, int kc, bool res, float scale, float scale_log2) {
+  constexpr int kHW = GW / 2, kPg = GW + 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
-  float* stats = reinterpret_cast<float*>(ring + 4 * kSliceTile);   // lse2 [64], delta [64]
-  const int lane = threadIdx.x % 32, quad = lane % 4;
-  const int k0 = blockIdx.x * kTcB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int dp = d + 8, pc = kc + 8, nc = ceil_div(d, kc), rp = res ? dp : 0;
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);   // [64][dp] where resident
+  bf16* vs = ks + kTcB * rp;                     // [64][dp] where resident
+  bf16* pts = vs + kTcB * rp;                    // P^T [64 keys][kXP]
+  bf16* dsts = pts + kTcB * kXP;                 // dS^T [64 keys][kXP]
+  bf16* ring = dsts + kTcB * kXP;
+  const int unit = kTcB * max((res ? 2 : 4) * pc, kPg);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int rw = 16 * (warp % 4), half = warp / 4;
+  const int k0 = blockIdx.x * kTcB;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
-  const int per_tile = 2 * nd + 1, units = ceil_div(t_dim, kTcB) * per_tile;
-  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const int per_tile = nc > 1 ? nc + 2 : 1, units = ceil_div(t_dim, kTcB) * per_tile;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit (j, r): r < nc, Q and dO's chunk r (then K's and V's where they
+  // stream); r == nc, dO's group columns; r == nc + 1, Q's
   const auto load_unit = [&](int u) {
     if (u < units) {
       const int j = u / per_tile, r = u % per_tile;
-      if (r < 2 * nd) {
-        const size_t off = base + (r / 2) * kSliceD;
-        attn_load_rows<kSliceD>(stage(u), r % 2 ? v : k, off, tstride, k0, t_dim);
-        attn_load_rows<kSliceD>(stage(u) + kSliceTile, r % 2 ? dout : q, off, tstride,
-                                j * kTcB, t_dim);
+      if (r < nc) {
+        const int c0 = r * kc, w = min(kc, d - c0);
+        wide_load_rows<kWideThreads>(stage(u), pc, q, base + c0, tstride, j * kTcB, t_dim, w);
+        wide_load_rows<kWideThreads>(stage(u) + kTcB * pc, pc, dout, base + c0, tstride,
+                                     j * kTcB, t_dim, w);
+        if (!res) {
+          wide_load_rows<kWideThreads>(stage(u) + 2 * kTcB * pc, pc, k, base + c0, tstride, k0,
+                                       t_dim, w);
+          wide_load_rows<kWideThreads>(stage(u) + 3 * kTcB * pc, pc, v, base + c0, tstride, k0,
+                                       t_dim, w);
+        }
       } else {
-        attn_load_rows<kSliceD>(stage(u), q, base + zs, tstride, j * kTcB, t_dim);
-        attn_load_rows<kSliceD>(stage(u) + kSliceTile, dout, base + zs, tstride, j * kTcB,
-                                t_dim);
+        wide_load_rows<kWideThreads>(stage(u), kPg, r == nc ? dout : q, base + g0, tstride,
+                                     j * kTcB, t_dim, gw);
       }
     }
     cp_async_commit();
   };
-  // threads 0-63 carry a query's lse (log2 units), 64-127 its delta; 0 past T
-  const float* stat_src = threadIdx.x < kTcB ? lse : delta;
-  const float stat_mul = threadIdx.x < kTcB ? kLog2e : 1.f;
 
-  float dk_acc[kSliceD / 8][4], dv_acc[kSliceD / 8][4];
-  zero_acc<kSliceD>(dk_acc);
-  zero_acc<kSliceD>(dv_acc);
-  float s[kTcB / 8][4], dp[kTcB / 8][4];
-  load_unit(0);
+  if (res) {   // with unit 0
+    wide_load_rows<kWideThreads>(ks, dp, k, base, tstride, k0, t_dim, d);
+    wide_load_rows<kWideThreads>(vs, dp, v, base, tstride, k0, t_dim, d);
+  }
+  for (int u = 0; u < kWideStages - 1; ++u) load_unit(u);
+
+  float dk_acc[kHW / 8][4], dv_acc[kHW / 8][4];
+  zero_acc<kHW>(dk_acc);
+  zero_acc<kHW>(dv_acc);
+  float s[4][4], dpp[4][4];        // 16 key rows x the warp's 32 queries
+  float lq[4][2], dlq[4][2];       // the warp's queries' lse (log2 units) and delta
   for (int u = 0; u < units; ++u) {
-    load_unit(u + 1);   // the other stage: its readers passed the last barrier
-    cp_async_wait_group<1>();
-    __syncthreads();
+    cp_async_wait_group<kWideStages - 2>();
+    __syncthreads();   // unit u has landed; every warp is done with unit u - 1
+    load_unit(u + kWideStages - 1);
     const int j = u / per_tile, r = u % per_tile;
     const bf16* tile = stage(u);
     if (r == 0) {
-      // read at this tile's last unit, past at least one barrier; the last
-      // tile's readers finished before this unit's
-      const int t = j * kTcB + threadIdx.x % kTcB;
-      stats[threadIdx.x] =
-          t < t_dim ? stat_src[static_cast<size_t>(bh) * t_dim + t] * stat_mul : 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kTcB / 8; ++nt)
+      for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-    if (r < 2 * nd) {
-      if (r % 2) attn_mma_abt_acc<kSliceD>(dp, SliceFrag{tile}, tile + kSliceTile);  // dP^T
-      else attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);         // S^T
-    } else {
-      const float* ls = stats;
-      const float* dls = stats + kTcB;
+        for (int e = 0; e < 4; ++e) s[nt][e] = dpp[nt][e] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < kTcB / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + 2 * quad + (e % 2);
-          const float p = j * kTcB + c < t_dim ? exp2f(s[nt][e] * scale_log2 - ls[c]) : 0.f;
-          s[nt][e] = p;                            // P^T
-          dp[nt][e] = p * (dp[nt][e] - dls[c]);    // dS^T
+        for (int e = 0; e < 2; ++e) {   // queries column 8 nt + 2 quad + e of the half; 0 past T
+          const int t = j * kTcB + 32 * half + nt * 8 + 2 * quad + e;
+          const size_t at = static_cast<size_t>(bh) * t_dim + t;
+          lq[nt][e] = t < t_dim ? lse[at] * kLog2e : 0.f;
+          dlq[nt][e] = t < t_dim ? delta[at] : 0.f;
         }
-      attn_mma_pv<kSliceD>(dv_acc, s, tile + kSliceTile);   // dV += P^T dO_z
-      attn_mma_pv<kSliceD>(dk_acc, dp, tile);               // dK += dS^T Q_z
+      }
     }
-    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+    if (r < nc) {   // K's and V's rows resident, or in the unit
+      const int c0 = r * kc, w = min(kc, d - c0), ap = res ? dp : pc;
+      const bf16* ka = res ? ks + rw * dp + c0 : tile + (2 * kTcB + rw) * pc;
+      const bf16* va = res ? vs + rw * dp + c0 : tile + (3 * kTcB + rw) * pc;
+      wide_mma_abt<32>(s, ka, ap, tile + 32 * half * pc, pc, w);                  // S^T
+      wide_mma_abt<32>(dpp, va, ap, tile + (kTcB + 32 * half) * pc, pc, w);       // dP^T
+    }
+    if (r == nc - 1) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = 32 * half + nt * 8 + 2 * quad;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = j * kTcB + c + e < t_dim
+                       ? exp2f(s[nt][2 * hh + e] * scale_log2 - lq[nt][e]) : 0.f;
+            ds[e] = p[e] * (dpp[nt][2 * hh + e] - dlq[nt][e]);
+          }
+          const int at = (rw + lane / 4 + 8 * hh) * kXP + c;
+          *reinterpret_cast<uint32_t*>(pts + at) = pack_bf16(p[0], p[1]);
+          *reinterpret_cast<uint32_t*>(dsts + at) = pack_bf16(ds[0], ds[1]);
+        }
+      }
+      pair_barrier();   // the pair's P^T and dS^T rows are whole
+    }
+    uint32_t a[kTcB / 16][4];
+    if (nc == 1) {   // dO's and Q's group columns are in the chunk
+      wide_ldsm_a(pts + rw * kXP, kXP, a);
+      wide_mma_av<kHW>(dv_acc, a, tile + kTcB * pc + g0 + half * kHW, pc);   // dV += P^T dO
+      wide_ldsm_a(dsts + rw * kXP, kXP, a);
+      wide_mma_av<kHW>(dk_acc, a, tile + g0 + half * kHW, pc);               // dK += dS^T Q
+    } else if (r == nc) {
+      wide_ldsm_a(pts + rw * kXP, kXP, a);
+      wide_mma_av<kHW>(dv_acc, a, tile + half * kHW, kPg);
+    } else if (r == nc + 1) {
+      wide_ldsm_a(dsts + rw * kXP, kXP, a);
+      wide_mma_av<kHW>(dk_acc, a, tile + half * kHW, kPg);
+    }
   }
-  store_rows<kSliceD>(dk + zs, base, tstride, k0, t_dim, dk_acc, scale);
-  store_rows<kSliceD>(dv + zs, base, tstride, k0, t_dim, dv_acc, 1.f);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = k0 + rw + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    const size_t off = base + static_cast<size_t>(t) * tstride + g0 + half * kHW;
+#pragma unroll
+    for (int dt = 0; dt < kHW / 8; ++dt)
+      if (half * kHW + dt * 8 < gw) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + dt * 8 + 2 * quad) =
+            __floats2bfloat162_rn(dk_acc[dt][2 * hh] * scale, dk_acc[dt][2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + dt * 8 + 2 * quad) =
+            __floats2bfloat162_rn(dv_acc[dt][2 * hh], dv_acc[dt][2 * hh + 1]);
+      }
+  }
 }
 
-// float32: dq_kernel's and dkv_kernel's threads (four per row); S and dP
-// summed over the slices of D staged one after another, then the slice z
-// the products read.
+// ---- head dims past 128, float32: 128-column slices
+// A block owns one 128-column slice z of its dq (or dk and dv) and sums S
+// and dP over every slice of D before it multiplies; delta is taken over all
+// of D by delta_kernel. dq_kernel's and dkv_kernel's threads (four per row);
+// S and dP summed over the slices of D staged one after another, then the
+// slice z the products read.
 constexpr int kSW = kSliceW;   // padded row of a staged float slice
 
 // acc[j] += a[row] . b[sub + 4 j] over one staged slice
@@ -762,7 +942,7 @@ dkv_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// delta over all of D, then the dq and dk / dv slice passes.
+// delta over all of D, then the dq and dk / dv slice passes (SIMT).
 template <typename T>
 cudaError_t launch_slices(const void* q, const void* k, const void* v, const void* out,
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -774,42 +954,70 @@ cudaError_t launch_slices(const void* q, const void* k, const void* v, const voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(t_dim, kB), batch * heads, d / kSliceD);
-  if constexpr (sizeof(T) == 2) {
-    const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
-    for (const void* p : ptrs)
-      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
-    err = set_smem(flash_dq_slice_tc_kernel, kSliceSmem);
-    if (err != cudaSuccess) return err;
-    flash_dq_slice_tc_kernel<<<grid, kAttnThreads, kSliceSmem, s>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), t_dim, heads, d, scale,
-        scale * kLog2e);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t smem_dkv = kSliceSmem + sizeof(float) * 2 * kTcB;
-    err = set_smem(flash_dkv_slice_tc_kernel, smem_dkv);
-    if (err != cudaSuccess) return err;
-    flash_dkv_slice_tc_kernel<<<grid, kAttnThreads, smem_dkv, s>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_dim,
-        heads, d, scale, scale * kLog2e);
-  } else {
-    const size_t smem_dq = sizeof(float) * (2 * kB * kSW + kB * kPW);
-    err = set_smem(dq_slice_kernel<T>, smem_dq);
-    if (err != cudaSuccess) return err;
-    dq_slice_kernel<T><<<grid, kThreads, smem_dq, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, d, scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t smem_dkv = sizeof(float) * (2 * kB * kSW + 2 * kB + 2 * kB * kPW);
-    err = set_smem(dkv_slice_kernel<T>, smem_dkv);
-    if (err != cudaSuccess) return err;
-    dkv_slice_kernel<T><<<grid, kThreads, smem_dkv, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        t_dim, heads, d, scale);
+  const size_t smem_dq = sizeof(float) * (2 * kB * kSW + kB * kPW);
+  err = set_smem(dq_slice_kernel<T>, smem_dq);
+  if (err != cudaSuccess) return err;
+  dq_slice_kernel<T><<<grid, kThreads, smem_dq, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_dkv = sizeof(float) * (2 * kB * kSW + 2 * kB + 2 * kB * kPW);
+  err = set_smem(dkv_slice_kernel<T>, smem_dkv);
+  if (err != cudaSuccess) return err;
+  dkv_slice_kernel<T><<<grid, kThreads, smem_dkv, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      t_dim, heads, d, scale);
+  return cudaGetLastError();
+}
+
+// delta over all of D, then the bf16 dq and dk / dv passes in column groups of GW.
+template <int GW>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* out,
+                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int batch, int t_dim, int heads, int d, float scale,
+                        cudaStream_t s) {
+  const void* ptrs[] = {q, k, v, dout, dq, dk, dv};   // 16-byte copies, bf16x2 stores
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  // the block's rows resident with the widest chunk that fits beside them, else streamed
+  bool res_dq = true, res_dkv = true;
+  int kc_dq = wide_chunk(d, [&](int c) { return wide_bwd_smem(d, c, GW, 1, true); });
+  int kc_dkv = wide_chunk(d, [&](int c) { return wide_bwd_smem(d, c, GW, 2, true); });
+  if (kc_dq == 0) {
+    res_dq = false;
+    kc_dq = wide_chunk(d, [&](int c) { return wide_bwd_smem(d, c, GW, 1, false); });
   }
+  if (kc_dkv == 0) {
+    res_dkv = false;
+    kc_dkv = wide_chunk(d, [&](int c) { return wide_bwd_smem(d, c, GW, 2, false); });
+  }
+  if (kc_dq == 0 || kc_dkv == 0) return cudaErrorInvalidValue;
+  const int rows = batch * t_dim * heads;
+  if (reinterpret_cast<uintptr_t>(out) % 16) return cudaErrorMisalignedAddress;
+  delta_rows_kernel<<<ceil_div(rows, 8), 256, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, rows, t_dim, heads,
+      d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *db = static_cast<const bf16*>(dout);
+  const dim3 grid(ceil_div(t_dim, kTcB), batch * heads, ceil_div(d, GW));
+  const size_t smem_dq = wide_bwd_smem(d, kc_dq, GW, 1, res_dq);
+  err = set_smem(flash_dq_wide_tc_kernel<GW>, smem_dq);
+  if (err != cudaSuccess) return err;
+  flash_dq_wide_tc_kernel<GW><<<grid, kWideThreads, smem_dq, s>>>(
+      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), t_dim, heads, d, kc_dq, res_dq, scale,
+      scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem_dkv = wide_bwd_smem(d, kc_dkv, GW, 2, res_dkv);
+  err = set_smem(flash_dkv_wide_tc_kernel<GW>, smem_dkv);
+  if (err != cudaSuccess) return err;
+  flash_dkv_wide_tc_kernel<GW><<<grid, kWideThreads, smem_dkv, s>>>(
+      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_dim, heads,
+      d, kc_dkv, res_dkv, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -864,43 +1072,59 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   return cudaGetLastError();
 }
 
+// d and the column-group width of attention.head_dim_plan, as the forward's
+// dispatch_d takes them.
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* out,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int batch, int t_dim, int heads, int d, float scale,
+                       void* dv, int batch, int t_dim, int heads, int d, int group, float scale,
                        cudaStream_t s) {
+  if (d <= kSliceD && group != d) return cudaErrorInvalidValue;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 48: return launch<T, 48>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
-    default:
-      if (d > kSliceD && d % kSliceD == 0)
-        return launch_slices<T>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim,
-                                heads, d, scale, s);
-      return cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= kSliceD) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    if (group == kSliceD && d % kSliceD == 0)
+      return launch_slices<T>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads,
+                              d, scale, s);
+  } else {
+    if (d % 32 == 0) {
+      switch (group) {
+        case 160: return launch_wide<160>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+        case 192: return launch_wide<192>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+        case 224: return launch_wide<224>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+        case 256: return launch_wide<256>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+        default: break;
+      }
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Head dims supported: 16, 32, 48, 64, 128 and every multiple of 128 past it.
+// Head dims and column groups: attention.head_dim_plan's (dispatch_d).
 // delta: (B, H, T) float scratch.
 extern "C" int seld_flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    void* dk, void* dv, int batch, int t_dim, int heads, int d,
-                                   float scale, int dtype, void* stream) {
+                                   int group, float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto dl = static_cast<float*>(delta);
   cudaError_t err;
   if (dtype == kF32)
     err = dispatch_d<float>(q, k, v, out, dout, l, dl, dq, dk, dv, batch, t_dim, heads, d,
-                            scale, s);
+                            group, scale, s);
   else if (dtype == kBF16)
     err = dispatch_d<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, batch, t_dim,
-                                    heads, d, scale, s);
+                                    heads, d, group, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

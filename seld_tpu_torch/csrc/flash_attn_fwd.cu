@@ -23,8 +23,8 @@
 // cp.async ring with one barrier per tile: tile j + 2 loads while tile j is
 // used. S = Q K^T is mma.sync.m16n8k16 with float accumulators (D in {16,
 // 32, 48, 64, 128}, all multiples of 16; the wrapper zero-pads any other D
-// up to one of them, and past 128 to a multiple of 128, which
-// flash_fwd_slice_tc_kernel below walks in 128-column slices). The next
+// up to one of them, and past 128 to a multiple of 32, which
+// flash_fwd_wide_tc_kernel below takes in column groups). The next
 // tile's S is issued before this tile's softmax, so the tensor cores and
 // the exponentials (the MUFU's 16 a clock an SM, about as long as the
 // products at D = 48) overlap within a warp.
@@ -176,10 +176,11 @@ static __device__ __forceinline__ float fast_exp2(float x) {
 
 // Keys past T to -inf in the accumulator fragments of the last tile
 // (columns 8 nt + 2 quad + e % 2; `valid` keys of the tile are real).
-static __device__ __forceinline__ void mask_keys(float (&s)[kTcK / 8][4], int valid) {
+template <int kNT>
+static __device__ __forceinline__ void mask_keys(float (&s)[kNT][4], int valid) {
   const int quad = threadIdx.x % 4;
 #pragma unroll
-  for (int nt = 0; nt < kTcK / 8; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (nt * 8 + 2 * quad + (e % 2) >= valid) s[nt][e] = -CUDART_INF_F;
@@ -327,49 +328,82 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, fl
   return cudaGetLastError();
 }
 
-// ---- head dims past 128: D in 128-column slices ----------------------------
-// A block owns 64 queries of one (b, h) and output columns [128 z, 128 z +
-// 128) (grid z): per 64-key tile it sums S over every slice of D, then runs
-// the online softmax and O += P V on its slice of V. Every block of a query
-// tile recomputes the same S (nd times the S products in all, on a path no
-// shipped config takes); the z = 0 block writes the logsumexp.
+// ---- head dims past 128, bfloat16: S once per key tile ---------------------
+// The wrapper pads D to a multiple of 32 (attention.head_dim_plan); the
+// output columns split into ceil(D / 256) groups of GW (grid z; the last
+// group narrower where GW does not divide D), and a block owns kQ queries
+// of one (b, h) and one group. Its Q rows are staged into shared memory
+// once, at the whole padded D, and read by ldmatrix for every key tile (at
+// D 256, 16 rows x 256 columns of O are 128 float registers a thread, so
+// Q's fragments cannot stay in registers); past the D at which they fit
+// (about 1200 at 64 queries) Q streams with K instead, chunk by chunk.
+// Per 64-key tile the block computes S = Q K^T once over all of D, runs one
+// online softmax (as flash_fwd_tc_kernel: ex2.approx on the fragments, P
+// rounded to bf16 in registers as the A operand, row sums as a product with
+// a column of ones, only the last tile masked) and O += P V over its group's
+// columns of V. So S is computed once per column group, and no product runs
+// on the padding of a 128-column rule. Units stream through a two-stage
+// cp.async ring, one barrier a unit: per key tile, K in nc chunks of kc
+// columns (nc = 1, the whole of K, wherever Q and two units fit shared
+// memory: up to D 416 at 64 queries), each chunk with Q's where Q is not
+// resident, the last chunk's unit carrying the group's columns of V. The
+// group's last columns past D (a narrower last group) are computed on stale
+// shared memory and not stored. What bounds it: the products (4 B H T^2 D
+// FLOP) and the exponentials (B H T^2 ex2 per group), as at D <= 128.
+static size_t wide_fwd_smem(int d, int kc, int gw, int kq, bool q_res) {
+  const size_t rows = q_res ? static_cast<size_t>(kq) * (d + 8) : 0;
+  const size_t unit = kTcK * static_cast<size_t>(kc + 8 + gw + 8) +
+                      (q_res ? 0 : static_cast<size_t>(kq) * (kc + 8));
+  return sizeof(bf16) * (rows + kWideStages * unit);
+}
 
-// bfloat16: units per key tile, two tiles each through the two-stage ring:
-// (Q slice r, K slice r) for r < nd, then (V slice z, -).
-__global__ void __launch_bounds__(kAttnThreads)
-flash_fwd_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                          float* __restrict__ lse, int t_dim, int heads, int d,
-                          float scale_log2) {
+template <int GW, int kQ>
+__global__ void __launch_bounds__(2 * kQ)
+flash_fwd_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ lse, int t_dim, int heads, int d, int kc,
+                         bool q_res, float scale_log2) {
+  constexpr int kBlock = 2 * kQ;   // 32 threads a warp of 16 query rows
+  constexpr int kPg = GW + 8;      // pitch of the V group tile
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  const int dp = d + 8, pc = kc + 8, nc = ceil_div(d, kc);
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [kQ][dp] where Q is resident
+  // per stage: K chunk [64][pc], V [64][kPg], and Q's chunk [kQ][pc] where Q streams
+  bf16* ring = qs + (q_res ? kQ * dp : 0);
+  const int unit = kTcK * (pc + kPg) + (q_res ? 0 : kQ * pc);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, quad = lane % 4;
-  const int q0 = blockIdx.x * kTcK, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+  const int q0 = blockIdx.x * kQ;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
   const int n_tiles = ceil_div(t_dim, kTcK);
   const int last_valid = t_dim - (n_tiles - 1) * kTcK;
-  const int units = n_tiles * (nd + 1);
-  const auto stage = [&](int u) { return ring + (u % 2) * 2 * kSliceTile; };
+  const int units = n_tiles * nc;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit u: key tile u / nc, K's chunk u % nc, and V's group with the last chunk
   const auto load_unit = [&](int u) {
     if (u < units) {
-      const int j = u / (nd + 1), r = u % (nd + 1);
-      if (r < nd) {
-        attn_load_rows<kSliceD>(stage(u), q, base + r * kSliceD, tstride, q0, t_dim);
-        attn_load_rows<kSliceD>(stage(u) + kSliceTile, k, base + r * kSliceD, tstride,
-                                j * kTcK, t_dim);
-      } else {
-        attn_load_rows<kSliceD>(stage(u), v, base + zs, tstride, j * kTcK, t_dim);
-      }
+      const int j = u / nc, c0 = (u % nc) * kc;
+      wide_load_rows<kBlock>(stage(u), pc, k, base + c0, tstride, j * kTcK, t_dim,
+                             min(kc, d - c0));
+      if (!q_res)
+        wide_load_rows<kBlock, kQ>(stage(u) + kTcK * (pc + kPg), pc, q, base + c0, tstride, q0,
+                                   t_dim, min(kc, d - c0));
+      if (u % nc == nc - 1)
+        wide_load_rows<kBlock>(stage(u) + kTcK * pc, kPg, v, base + g0, tstride, j * kTcK,
+                               t_dim, gw);
     }
     cp_async_commit();
   };
 
-  float o[kSliceD / 8][4];
+  if (q_res) wide_load_rows<kBlock, kQ>(qs, dp, q, base, tstride, q0, t_dim, d);   // with unit 0
+  for (int u = 0; u < kWideStages - 1; ++u) load_unit(u);
+
+  float o[GW / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < kSliceD / 8; ++dt)
+  for (int dt = 0; dt < GW / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // as flash_fwd_tc_kernel's
@@ -377,60 +411,57 @@ flash_fwd_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const uint32_t ones = pack_bf16(1.f, 1.f);
   float s[kTcK / 8][4];
 
-  load_unit(0);
   for (int u = 0; u < units; ++u) {
-    load_unit(u + 1);   // the other stage: its readers passed the last barrier
-    cp_async_wait_group<1>();
+    // unit u has landed, and every warp is done with unit u - 1, whose stage
+    // unit u + 1 now takes
+    cp_async_wait_group<kWideStages - 2>();
     __syncthreads();
-    const int j = u / (nd + 1), r = u % (nd + 1);
+    load_unit(u + kWideStages - 1);
+    const int j = u / nc, c0 = (u % nc) * kc;
     const bf16* tile = stage(u);
-    if (r == 0) {
+    if (c0 == 0) {
 #pragma unroll
       for (int nt = 0; nt < kTcK / 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     }
-    if (r < nd) {
-      attn_mma_abt_acc<kSliceD>(s, SliceFrag{tile}, tile + kSliceTile);
-    } else {
-      if (j == n_tiles - 1 && last_valid < kTcK) mask_keys(s, last_valid);
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    // this warp's 16 query rows, resident or in the unit
+    if (q_res) wide_mma_abt<kTcK>(s, qs + warp * 16 * dp + c0, dp, tile, pc, min(kc, d - c0));
+    else wide_mma_abt<kTcK>(s, tile + kTcK * (pc + kPg) + warp * 16 * pc, pc, tile, pc,
+                            min(kc, d - c0));
+    if (u % nc != nc - 1) continue;
+    if (j == n_tiles - 1 && last_valid < kTcK) mask_keys(s, last_valid);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int nt = 0; nt < kTcK / 8; ++nt)
+    for (int nt = 0; nt < kTcK / 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
-      float alpha[2], neg_m[2];
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+    float alpha[2], neg_m[2];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float m_new = fmaxf(m_run[hh], mx[hh] * scale_log2);
-        alpha[hh] = fast_exp2(m_run[hh] - m_new);
-        m_run[hh] = m_new;
-        neg_m[hh] = -m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < kTcK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[nt][e] = fast_exp2(fmaf(s[nt][e], scale_log2, neg_m[e / 2]));
-#pragma unroll
-      for (int dt = 0; dt < kSliceD / 8; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e] *= alpha[e / 2];
-      attn_mma_pv<kSliceD>(o, s, tile);
-#pragma unroll
-      for (int kk = 0; kk < kTcK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        mma_bf16(l, a, ones, ones);
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_run[hh], mx[hh] * scale_log2);
+      alpha[hh] = fast_exp2(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+      neg_m[hh] = -m_new;
     }
-    __syncthreads();   // this stage's readers are done before unit u + 2 fills it
+#pragma unroll
+    for (int nt = 0; nt < kTcK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = fast_exp2(fmaf(s[nt][e], scale_log2, neg_m[e / 2]));
+#pragma unroll
+    for (int dt = 0; dt < GW / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e] *= alpha[e / 2];
+    // O += P V and l += P 1, P rounded to bf16 in registers as the A operand
+    uint32_t pa[kTcK / 16][4];
+    wide_pack_a(s, pa);
+    wide_mma_av<GW>(o, pa, tile + kTcK * pc, kPg);
+#pragma unroll
+    for (int kk = 0; kk < kTcK / 16; ++kk) mma_bf16(l, pa[kk], ones, ones);
   }
 
 #pragma unroll
@@ -439,18 +470,76 @@ flash_fwd_slice_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int t = q0 + warp * 16 + g + 8 * hh;
     if (t >= t_dim) continue;
     const float inv = 1.f / lr;
-    bf16* orow = out + base + static_cast<size_t>(t) * tstride + zs;
+    bf16* orow = out + base + static_cast<size_t>(t) * tstride + g0;
 #pragma unroll
-    for (int dt = 0; dt < kSliceD / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * quad) =
-          __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+    for (int dt = 0; dt < GW / 8; ++dt)
+      if (dt * 8 < gw)
+        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * quad) =
+            __floats2bfloat162_rn(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
     if (quad == 0 && blockIdx.z == 0)
       lse[static_cast<size_t>(bh) * t_dim + t] = (m_run[hh] + log2f(lr)) * 0.69314718055994531f;
   }
 }
 
-// float32: flash_fwd_kernel's threads (four per query row), its scores summed
-// over the slices of D staged one after another, the V slice staged after.
+int sm_count() {
+  static int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
+
+// Q resident with the widest chunk of K that fits beside it, else Q streamed
+template <int GW, int kQ>
+cudaError_t launch_wide_rows(const bf16* q, const bf16* k, const bf16* v, bf16* out, float* lse,
+                             int batch, int t_dim, int heads, int d, float scale,
+                             cudaStream_t stream) {
+  bool q_res = true;
+  int kc = wide_chunk(d, [&](int c) { return wide_fwd_smem(d, c, GW, kQ, true); });
+  if (kc == 0) {
+    q_res = false;
+    kc = wide_chunk(d, [&](int c) { return wide_fwd_smem(d, c, GW, kQ, false); });
+  }
+  if (kc == 0) return cudaErrorInvalidValue;
+  const size_t smem = wide_fwd_smem(d, kc, GW, kQ, q_res);
+  cudaError_t err = set_smem(flash_fwd_wide_tc_kernel<GW, kQ>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(t_dim, kQ), batch * heads, ceil_div(d, GW));
+  flash_fwd_wide_tc_kernel<GW, kQ><<<grid, 2 * kQ, smem, stream>>>(
+      q, k, v, out, lse, t_dim, heads, d, kc, q_res, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// 128-query blocks (8 warps: each K and V tile serves twice the queries)
+// where Q and the ring fit shared memory with K whole (nc = 1: up to D
+// 320), else 64. (Measured at T 2400, 8 heads: 64-query blocks ran within
+// 5% at D 160 and 1.34x slower at D 256 at B 2, 1.05x and 1.3x slower at B
+// 1; warps of 32 rows x 32 keys, FlashAttention-2's tile at head dim 160,
+// 1.14x slower at D 160; PERF.md section 6.)
+template <int GW>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int batch, int t_dim, int heads, int d, float scale,
+                        cudaStream_t stream) {
+  const void* rows[] = {q, k, v, out};   // 16-byte copies and bf16x2 stores
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  const auto qb = static_cast<const bf16*>(q), kb = static_cast<const bf16*>(k),
+             vb = static_cast<const bf16*>(v);
+  const auto ob = static_cast<bf16*>(out);
+  if (wide_fwd_smem(d, d, GW, 128, true) <= static_cast<size_t>(max_smem_optin()))
+    return launch_wide_rows<GW, 128>(qb, kb, vb, ob, lse, batch, t_dim, heads, d, scale, stream);
+  return launch_wide_rows<GW, 64>(qb, kb, vb, ob, lse, batch, t_dim, heads, d, scale, stream);
+}
+
+// ---- head dims past 128, float32: 128-column slices
+// A block owns 64 queries of one (b, h) and output columns [128 z, 128 z +
+// 128) (grid z): per 64-key tile it sums S over every slice of D, then runs
+// the online softmax and O += P V on its slice of V; the z = 0 block writes
+// the logsumexp. flash_fwd_kernel's threads (four per query row), its
+// scores summed over the slices of D staged one after another, the V slice
+// staged after.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -539,40 +628,19 @@ flash_fwd_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   }
 }
 
+// float32 past 128: the SIMT slice kernel.
 template <typename T>
 cudaError_t launch_slices(const void* q, const void* k, const void* v, void* out, float* lse,
                           int batch, int t_dim, int heads, int d, float scale,
                           cudaStream_t stream) {
   const dim3 grid(ceil_div(t_dim, kBQ), batch * heads, d / kSliceD);
-  cudaError_t err;
-  if constexpr (sizeof(T) == 2) {
-    const void* rows[] = {q, k, v, out};
-    for (const void* p : rows)
-      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-    err = set_smem(flash_fwd_slice_tc_kernel, kSliceSmem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_slice_tc_kernel<<<grid, kAttnThreads, kSliceSmem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), lse, t_dim, heads, d, scale * 1.4426950408889634f);
-  } else {
-    const size_t smem = sizeof(float) * ((kBQ + kBK) * (kSliceD + 1) + kBQ * (kBK + 1));
-    err = set_smem(flash_fwd_slice_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_slice_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, t_dim, heads, d, scale);
-  }
+  const size_t smem = sizeof(float) * ((kBQ + kBK) * (kSliceD + 1) + kBQ * (kBK + 1));
+  cudaError_t err = set_smem(flash_fwd_slice_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_slice_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, t_dim, heads, d, scale);
   return cudaGetLastError();
-}
-
-int sm_count() {
-  static int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  return n;
 }
 
 template <typename T, int D>
@@ -598,36 +666,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
+// d and the column-group width of attention.head_dim_plan: d in {16, 32, 48,
+// 64, 128} (one group of d); float32, a multiple of 128 in 128-column groups
+// (the slice kernel); bfloat16, a multiple of 32 in groups of 160, 192, 224
+// or 256 (the wide kernel).
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int batch, int t_dim, int heads, int d, float scale,
+                       int batch, int t_dim, int heads, int d, int group, float scale,
                        cudaStream_t s) {
+  if (d <= kSliceD && group != d) return cudaErrorInvalidValue;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 48: return launch<T, 48>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
-    default:
-      if (d > kSliceD && d % kSliceD == 0)
-        return launch_slices<T>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-      return cudaErrorInvalidValue;
+    default: break;
   }
+  if (d <= kSliceD) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {
+    if (group == kSliceD && d % kSliceD == 0)
+      return launch_slices<T>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+  } else {
+    if (d % 32 == 0) {
+      switch (group) {
+        case 160: return launch_wide<160>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+        case 192: return launch_wide<192>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+        case 224: return launch_wide<224>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+        case 256: return launch_wide<256>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+        default: break;
+      }
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Head dims supported: 16, 32, 48, 64, 128 and every multiple of 128 past it.
+// Head dims and column groups: attention.head_dim_plan's (dispatch_d).
 extern "C" int seld_flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
-                                   void* lse, int batch, int t_dim, int heads, int d,
+                                   void* lse, int batch, int t_dim, int heads, int d, int group,
                                    float scale, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   cudaError_t err;
   if (dtype == kF32)
-    err = dispatch_d<float>(q, k, v, out, l, batch, t_dim, heads, d, scale, s);
+    err = dispatch_d<float>(q, k, v, out, l, batch, t_dim, heads, d, group, scale, s);
   else if (dtype == kBF16)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, out, l, batch, t_dim, heads, d, scale, s);
+    err = dispatch_d<__nv_bfloat16>(q, k, v, out, l, batch, t_dim, heads, d, group, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

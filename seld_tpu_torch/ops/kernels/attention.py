@@ -18,18 +18,35 @@ from seld_tpu_torch.ops.kernels import (
 )
 
 HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernels are instantiated for
-SLICE_D = 128   # past HEAD_DIMS, D runs in slices of this many columns
+SLICE_D = 128     # float32 past 128: 128-column slices
+WIDE_STEP = 32    # bfloat16 past 128: D padded to a multiple of this
+WIDE_GROUPS = (160, 192, 224, 256)   # column-group widths the bf16 kernels are built for
 
 
-def padded_head_dim(d: int) -> int:
-    """The head dim a head dim ``d`` runs at: the least of :data:`HEAD_DIMS`
-    >= d, or past 128 the next multiple of :data:`SLICE_D` (as the JAX kernel
-    pads D to a multiple of 128, ``seld_tpu/ops/pallas/attention.py:261``),
-    which the kernels walk in 128-column slices."""
+def head_dim_plan(d: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(d_pad, group width) a head dim ``d`` runs at: the padded D, and the
+    width of the output column groups, ceil(d_pad / width) of them (grid z),
+    the last narrower where the width does not divide d_pad; each group's
+    block computes S over all of d_pad. The kernels' dispatch derives the
+    same groups from these two numbers.
+
+    - D <= 128: the least of :data:`HEAD_DIMS` >= d, one group.
+    - bfloat16 past 128: d padded to the next multiple of :data:`WIDE_STEP`
+      (a D that is one needs no pad copy), in ceil(d_pad / 256) groups whose
+      width, one of :data:`WIDE_GROUPS`, is d_pad over the groups rounded up
+      to a multiple of 32, so S is computed once per group.
+    - float32 past 128: the next multiple of :data:`SLICE_D` in 128-column
+      groups (the SIMT slice kernels), as the JAX kernel pads D to a
+      multiple of 128 (``seld_tpu/ops/pallas/attention.py:261``).
+    """
     for hd in HEAD_DIMS:
         if hd >= d:
-            return hd
-    return -(-d // SLICE_D) * SLICE_D
+            return hd, hd
+    if dtype == torch.bfloat16:
+        d_pad = -(-d // WIDE_STEP) * WIDE_STEP
+        groups = -(-d_pad // WIDE_GROUPS[-1])
+        return d_pad, -(-d_pad // (groups * WIDE_STEP)) * WIDE_STEP
+    return -(-d // SLICE_D) * SLICE_D, SLICE_D
 
 
 def pad_heads(d_pad: int, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -80,16 +97,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v (B, T, H, D) -> (out (B, T, H, D), lse (B, H, T) float32).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
-    ``seld_flash_attn_fwd`` at D, or at :func:`padded_head_dim` (D) on
-    zero-padded q, k, v (:func:`pad_heads`), out sliced back to D; past 128
-    one block per 128 output columns (grid z), each summing the scores over
-    all of D."""
+    ``seld_flash_attn_fwd`` at the padded D of :func:`head_dim_plan` on
+    zero-padded q, k, v (:func:`pad_heads`; no copy where D is already it),
+    one block per column group and query tile, out sliced back to D."""
     _check(q, k, v)
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)
     require_contiguous(q=q, k=k, v=v)
     b, t, h, d_true = q.shape
-    d = padded_head_dim(d_true)
+    d, group = head_dim_plan(d_true, q.dtype)
     q, k, v = pad_heads(d, q, k, v)
     if b * h > 65535:
         raise ValueError("B * H exceeds the grid's y range")
@@ -99,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     err = lib.seld_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, t, h, d, float(scale), code, stream_handle(q.device),
+        b, t, h, d, group, float(scale), code, stream_handle(q.device),
     )
     _build.check(err, "seld_flash_attn_fwd")
     launch_counts["flash_attn_fwd"] += 1
@@ -128,9 +144,9 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, scale: float):
 def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     """q, k, v, out, dout (B, T, H, D) of one dtype, lse (B, H, T) float32 ->
     (dq, dk, dv). CPU tensors take :func:`flash_attention_bwd_plain`; CUDA
-    tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes), at
-    :func:`padded_head_dim` (D) on zero-padded operands where D is not an
-    instantiated dim, the gradients sliced back to D."""
+    tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes) at
+    the padded D and column groups of :func:`head_dim_plan`, on zero-padded
+    operands where D is not the padded one, the gradients sliced back to D."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "
@@ -144,7 +160,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"out / dout must be {q.dtype} and lse float32, got "
                         f"{out.dtype}, {dout.dtype}, {lse.dtype}")
-    d_true, d = d, padded_head_dim(d)
+    d_true, (d, group) = d, head_dim_plan(d, q.dtype)
     q, k, v, out, dout = pad_heads(d, q, k, v, out, dout)
     if b * h > 65535:
         raise ValueError("B * H exceeds the grid's y range")
@@ -154,7 +170,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     err = lib.seld_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, float(scale), dtype_code(q), stream_handle(q.device),
+        b, t, h, d, group, float(scale), dtype_code(q), stream_handle(q.device),
     )
     _build.check(err, "seld_flash_attn_bwd")
     launch_counts["flash_attn_bwd"] += 1

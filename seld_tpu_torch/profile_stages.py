@@ -19,7 +19,8 @@ dispatch baseline, always runs. Sections:
 - ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
   tile) beside cuDNN's weight gradient on the same g_z;
 - ``attn``: K4 and K6 (bfloat16) at the flagship's attention (T = frames
-  / 2 after the TCN's time pool, 8 heads of 48) beside
+  / 2 after the TCN's time pool, 8 heads of 48, then of 160, 256 and 640:
+  ``ATTN_WIDE_DIMS``, the kernels past head dim 128) beside
   ``scaled_dot_product_attention`` and its backward on the same inputs;
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
@@ -64,6 +65,7 @@ FLAGSHIP = {
     "config": ROOT / "config" / "DQSELD-TCN-S1-PHI_8ch.txt",
 }
 DEFAULT_SECTIONS = "stft,cnn,tcn"
+ATTN_WIDE_DIMS = (160, 256, 640)   # the attn section's head dims past 128
 ITERS = 5
 
 
@@ -234,21 +236,26 @@ def attn(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
 
     gen = torch.Generator(device=device).manual_seed(0)
-    bf16, t, h, d = torch.bfloat16, shapes["frames"] // 2, shapes["heads"], shapes["head_dim"]
-    q, k, v, dout = (_randn(device, batch, t, h, d, dtype=bf16, gen=gen) for _ in range(4))
-    scale = d ** -0.5
-    out, lse = flash_attention(q, k, v, scale)
-    yield f"attn: K4 forward (T {t}, {h} x {d})", \
-        lambda a, b_, c: flash_attention(a, b_, c, scale), (q, k, v)
-    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    yield "attn: SDPA forward", \
-        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, scale=scale), (qt, kt, vt)
-    yield "attn: K6 backward", lambda *a: flash_attention_bwd(*a, scale), (q, k, v, out, dout, lse)
-    leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
-    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
-    yield "attn: SDPA backward", \
-        lambda g: torch.autograd.grad(o_lib, leaves, g, retain_graph=True), \
-        (dout.transpose(1, 2).contiguous(),)
+    bf16, t, h = torch.bfloat16, shapes["frames"] // 2, shapes["heads"]
+    for d in (shapes["head_dim"], *ATTN_WIDE_DIMS):
+        tag = "" if d == shapes["head_dim"] else f" (D {d})"
+        q, k, v, dout = (_randn(device, batch, t, h, d, dtype=bf16, gen=gen) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = flash_attention(q, k, v, scale)
+        yield (f"attn: K4 forward (T {t}, {h} x {d})",
+               lambda a, b_, c, s_=scale: flash_attention(a, b_, c, s_), (q, k, v))
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        yield (f"attn: SDPA forward{tag}",
+               lambda a, b_, c, s_=scale: F.scaled_dot_product_attention(a, b_, c, scale=s_),
+               (qt, kt, vt))
+        yield (f"attn: K6 backward{tag}",
+               lambda *a, s_=scale: flash_attention_bwd(*a, s_), (q, k, v, out, dout, lse))
+        leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+        yield (f"attn: SDPA backward{tag}",
+               lambda g, o_=o_lib, l_=leaves: torch.autograd.grad(o_, l_, g, retain_graph=True),
+               (dout.transpose(1, 2).contiguous(),))
+        del q, k, v, dout, out, lse, qt, kt, vt, leaves, o_lib
 
 
 def v3(batch, device, shapes=FLAGSHIP):

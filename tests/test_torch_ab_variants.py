@@ -29,3 +29,20 @@ def test_runs_both_versions_in_turns(tmp_path, monkeypatch, capsys):
 def test_a_patch_must_match_once(tmp_path):
     with pytest.raises(ValueError, match="occurs 0 times"):
         ab.make_copies([("profile_stages.py", "no such text", "x")], tmp_path)
+
+
+def test_base_tree_takes_its_package_and_this_profiler(tmp_path):
+    """--base-tree: the base copy is the given tree's package (here a marker
+    file stands for an earlier commit's sources) with this tree's
+    profile_stages.py over it; the patched copy is this tree's."""
+    tree = tmp_path / "earlier"
+    (tree / "seld_tpu_torch").mkdir(parents=True)
+    (tree / "seld_tpu_torch" / "marker.py").write_text("EARLIER = True\n")
+    (tree / "seld_tpu_torch" / "profile_stages.py").write_text("# the earlier profiler\n")
+    (tree / "config").mkdir()
+    dirs = ab.make_copies([], tmp_path / "work", base_tree=tree)
+    base, patched = (dirs[v] / "seld_tpu_torch" for v in ("base", "patched"))
+    assert (base / "marker.py").exists() and not (patched / "marker.py").exists()
+    here = (ab.ROOT / "seld_tpu_torch" / "profile_stages.py").read_text()
+    assert (base / "profile_stages.py").read_text() == here
+    assert (patched / "profile_stages.py").read_text() == here

@@ -256,15 +256,23 @@ def test_flash_attention_kernel(gen, dtype, b, t, h, d):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,t,h,d", [(2, 200, 3, 8), (1, 130, 2, 24), (64, 300, 8, 24),
                                      (2, 200, 3, 160), (1, 130, 2, 256), (2, 65, 2, 320),
-                                     (16, 300, 8, 160)])
+                                     (16, 300, 8, 160), (2, 65, 3, 136), (1, 130, 2, 192),
+                                     (2, 200, 2, 224), (1, 200, 2, 320), (2, 130, 1, 512),
+                                     (1, 65, 2, 512), (2, 200, 2, 300), (1, 130, 1, 600),
+                                     (2, 65, 2, 288), (1, 200, 2, 480), (2, 130, 1, 640),
+                                     (1, 65, 1, 1280)])
 def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
-    """Head dims without an instantiation run zero-padded: 8 and 24 to the
-    next one (16, 32), 160, 256 and 320 to a multiple of 128 (256, 384),
-    walked in 128-column slices. K4, K6 and the autograd Function against
-    their plain versions, ragged key tiles; the 64 x 8 heads at T 300 take
-    K4's 128-query blocks, and 16 x 8 heads at T 300 at D 160 are a grid on
-    which a D <= 128 forward would too. K6 reruns bitwise equal (no
-    atomics)."""
+    """Head dims without an instantiation run zero-padded (attention.
+    head_dim_plan): 8 and 24 to the next one (16, 32); past 128, bfloat16 to a
+    multiple of 32 in ceil(D / 256) column groups (136 -> 160, 300 -> 320 and
+    600 -> 608; 320 and 512 in two equal groups; 288, 480, 600 and 640 with a
+    narrower last group; 1280 in five), float32 to a multiple of 128 in
+    128-column slices. In bf16 the dk/dv pass streams K and V with each tile
+    from D 600 on, the dq pass Q and dO from 640, the forward Q at 1280. K4,
+    K6 and the autograd Function against their plain versions (bf16 2e-2 x
+    max|ref|, float32 2e-4 x max|ref| with TF32 off), ragged key tiles (T
+    65, 130, 200); the 64 x 8 heads at T 300 take K4's 128-query blocks. K6
+    reruns bitwise equal (no atomics)."""
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                      for _ in range(4))
     scale = d ** -0.5

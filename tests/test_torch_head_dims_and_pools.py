@@ -1,11 +1,14 @@
 """Two entry limits the port's kernels had and the JAX kernels lack, closed.
 
 - K4 / K6 take any head dim: the wrappers zero-pad D to the next
-  instantiated dim, or past 128 to the next multiple of 128, which the
-  kernels walk in 128-column slices (``attention.padded_head_dim`` /
-  ``pad_heads``), and slice the outputs back. Here the padding runs through
-  the plain versions (the CPU path of the kernels) at D 8, 24, 160 and 300
-  and is held to the unpadded plain
+  instantiated dim, or past 128 to the next multiple of 32 in bfloat16 (in
+  column groups of at most 256) and of 128 in float32 (128-column slices),
+  as ``attention.head_dim_plan`` gives, with ``pad_heads``, and slice the
+  outputs back. The plan covers every column once, pads bf16 by less than
+  32 and groups no wider than 256 (exact integers). Here the padding runs
+  through the plain versions (the CPU path of the kernels) at D 8, 24, 136,
+  160, 192, 300 and 320 to both dtypes' padded D and is held to the
+  unpadded plain
   version (float64, 1e-12 x max|ref|: zero columns add exact zeros, only
   the summation's blocking may differ) and to the JAX ``flash_attention`` in
   interpret mode (float32, 2e-4 x max|ref|, as tests/test_torch_train_kernels.py
@@ -34,7 +37,8 @@ from seld_tpu_torch.models.fused_infer import fused_infer
 from seld_tpu_torch.models.seld import model_from_config
 from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 from seld_tpu_torch.ops.kernels.attention import (
-    HEAD_DIMS, flash_attention_bwd_plain, flash_attention_plain, pad_heads, padded_head_dim,
+    HEAD_DIMS, WIDE_GROUPS, flash_attention_bwd_plain, flash_attention_plain,
+    head_dim_plan, pad_heads,
 )
 from seld_tpu_torch.ops.kernels.stft import stft_mag
 from seld_tpu_torch.utils.jax_bridge import from_jax_variables
@@ -51,34 +55,86 @@ def _close(got, want, tol):
 
 
 def test_padded_head_dim_is_the_next_instantiation():
-    assert [padded_head_dim(d) for d in (1, 8, 16, 24, 40, 48, 49, 96, 128)] == [
-        16, 16, 16, 32, 48, 48, 64, 128, 128]
-    assert all(padded_head_dim(d) == d for d in HEAD_DIMS)
-    # past 128: the next multiple of 128, as the JAX kernel pads D
-    assert [padded_head_dim(d) for d in (129, 160, 256, 257, 300, 320, 384)] == [
+    pads = lambda dims, dt: [head_dim_plan(d, dt)[0] for d in dims]
+    for dt in (torch.float32, torch.bfloat16):
+        assert pads((1, 8, 16, 24, 40, 48, 49, 96, 128), dt) == [
+            16, 16, 16, 32, 48, 48, 64, 128, 128]
+        assert all(head_dim_plan(d, dt) == (d, d) for d in HEAD_DIMS)
+    # past 128: float32 the next multiple of 128, as the JAX kernel pads D;
+    # bfloat16 the next multiple of 32
+    assert pads((129, 160, 256, 257, 300, 320, 384), torch.float32) == [
         256, 256, 256, 384, 384, 384, 384]
+    assert pads((129, 160, 256, 257, 300, 320, 384), torch.bfloat16) == [
+        160, 160, 256, 288, 320, 320, 384]
+    assert pads((136, 200, 512, 513), torch.bfloat16) == [160, 224, 512, 544]
 
 
-@pytest.mark.parametrize("d", [8, 24, 160, 300])
+def plan_groups(d_pad: int, width: int) -> list:
+    """[start, stop) output columns of each group, as the kernels' dispatch
+    derives them from (d_pad, width): ceil(d_pad / width) blocks on grid z,
+    block z owning [z width, min((z + 1) width, d_pad))."""
+    return [(c, min(c + width, d_pad)) for c in range(0, d_pad, width)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_plan_covers_every_column_once(dtype):
+    """Every column of d_pad in exactly one group, in order; bf16 past 128:
+    d_pad - D < 32, one group up to 256 and ceil(d_pad / 256) past it, the
+    width one the kernels are built for (so no group is wider than 256; the
+    last may be narrower, a multiple of 32); float32: multiples of 128 in
+    128-column groups; D <= 128: one group of the next instantiated dim."""
+    for d in range(1, 2561):
+        d_pad, width = head_dim_plan(d, dtype)
+        groups = plan_groups(d_pad, width)
+        cols = [c for c0, c1 in groups for c in range(c0, c1)]
+        assert cols == list(range(d_pad)) and d_pad >= d
+        widths = [c1 - c0 for c0, c1 in groups]
+        if d <= 128:
+            assert groups == [(0, d_pad)] and d_pad in HEAD_DIMS
+        elif dtype == torch.bfloat16:
+            assert d_pad % 32 == 0 and d_pad - d < 32
+            assert len(groups) == -(-d_pad // 256)
+            assert width in WIDE_GROUPS and widths[-1] % 32 == 0
+        else:
+            assert d_pad % 128 == 0 and d_pad - d < 128 and set(widths) == {128}
+
+
+@pytest.mark.parametrize("d,d_pad,widths", [
+    (288, 288, [160, 128]), (300, 320, [160, 160]), (480, 480, [256, 224]),
+    (600, 608, [224, 224, 160]), (640, 640, [224, 224, 192]), (1280, 1280, [256] * 5)])
+def test_head_dim_plan_groups_at_the_card_tests_dims(d, d_pad, widths):
+    """The bf16 groups of the head dims the card tests run past 256, among
+    them those whose last group is narrower (288, 480, 600, 640)."""
+    got_pad, width = head_dim_plan(d, torch.bfloat16)
+    assert got_pad == d_pad
+    assert [c1 - c0 for c0, c1 in plan_groups(got_pad, width)] == widths
+
+
+@pytest.mark.parametrize("d", [8, 24, 136, 160, 192, 300, 320])
 def test_padded_attention_matches_unpadded_and_jax(rng, d):
     b, t, h = 2, 70, 3
     q, k, v, g = (rng.standard_normal((b, t, h, d)) for _ in range(4))
     scale = d ** -0.5
-    dp = padded_head_dim(d)
     q64, k64, v64, g64 = (torch.from_numpy(a) for a in (q, k, v, g))
-    qp, kp, vp = pad_heads(dp, q64, k64, v64)
-    assert qp.shape == (b, t, h, dp) and torch.equal(qp[..., :d], q64)
-    assert not qp[..., d:].any()
-    out_p, lse_p = flash_attention_plain(qp, kp, vp, scale)
     out, lse = flash_attention_plain(q64, k64, v64, scale)
-    _close(out_p[..., :d], out, F64_TOL)
-    _close(lse_p, lse, F64_TOL)
-    # the backward on the padded operands, sliced back
-    grads_p = flash_attention_bwd_plain(qp, kp, vp, *pad_heads(dp, out_p, g64), lse_p, scale)
     grads = flash_attention_bwd_plain(q64, k64, v64, out, g64, lse, scale)
-    for a, w_ in zip(grads_p, grads):
-        _close(a[..., :d], w_, F64_TOL)
-    # against the Pallas kernel in interpret mode, float32
+    # both dtypes' padded D (bf16 past 128: a multiple of 32; float32 of 128)
+    for dp in sorted({head_dim_plan(d, dt)[0] for dt in (torch.bfloat16, torch.float32)}):
+        qp, kp, vp = pad_heads(dp, q64, k64, v64)
+        assert qp.shape == (b, t, h, dp) and torch.equal(qp[..., :d], q64)
+        assert not qp[..., d:].any()
+        out_p, lse_p = flash_attention_plain(qp, kp, vp, scale)
+        _close(out_p[..., :d], out, F64_TOL)
+        _close(lse_p, lse, F64_TOL)
+        # the backward on the padded operands, sliced back
+        grads_p = flash_attention_bwd_plain(qp, kp, vp, *pad_heads(dp, out_p, g64), lse_p, scale)
+        for a, w_ in zip(grads_p, grads):
+            _close(a[..., :d], w_, F64_TOL)
+    # against the Pallas kernel in interpret mode, float32, from the bf16 plan's padding
+    dp = head_dim_plan(d, torch.bfloat16)[0]
+    qp, kp, vp = pad_heads(dp, q64, k64, v64)
+    out_p, lse_p = flash_attention_plain(qp, kp, vp, scale)
+    grads_p = flash_attention_bwd_plain(qp, kp, vp, *pad_heads(dp, out_p, g64), lse_p, scale)
     want, vjp = jax.vjp(lambda a, b_, c: jflash(a, b_, c, scale, block_q=32, block_k=32,
                                                 interpret=True),
                         *(jnp.asarray(a, jnp.float32) for a in (q, k, v)))
