@@ -51,15 +51,16 @@
 // has blocks. In bfloat16 the dW pass is the tensor-core GEMM of
 // conv3x3_dw_tc.cuh (ct_dw_tc_kernel: 9 taps x 32 Cin x 64 Cout per
 // block, the frames as the depth, the tap shift built from aligned words by
-// byte permutes); in float32 it stays SIMT FMA (ct_dw_kernel: a 64 Cout x 8
-// Cin x 9 tap tile, 18 outputs per thread, a sliding 3-frame window of h in
-// registers), TF32 off.
+// byte permutes); in float32 the same GEMM in split TF32 (ct_dw_tf32_kernel
+// of conv3x3_dw_tf32.cuh: three TF32 products a product, the A operand's
+// tap shift a one-word offset, each 64-frame step summed apart and added to
+// the accumulators rounded to nearest).
 #include "conv3x3_dw_tc.cuh"
+#include "conv3x3_dw_tf32.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
 
-constexpr int kGzW = kBT + 1;   // padded row of the staged gz tile (no bank conflicts)
 constexpr int kCols = 6;        // rows of the per-channel columns: scale, bias, mean, inv, c1, c2
 
 // The first row r < pf whose relu(pre * scale + bias) is the window's max
@@ -190,86 +191,6 @@ ct_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
       const float xhat = (prow[at] - mu) * iv;
       store_f(zrow + at, sc * ((r == sel ? gv : 0.f) - c1 - xhat * c2));
     }
-  }
-}
-
-// dW partial tile of one block: Cout [co0, co0 + 64) x Cin [c0, c0 + 8) x 9
-// taps over its share of the depth, split as ct_dw_tc_kernel's (rows [row0,
-// row1), frames [t_lo, t_hi)); thread (ci = tid % 8, cp = tid / 8) holds
-// channels co0 + cp and co0 + cp + 32.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ct_dw_kernel(const T* __restrict__ h, const T* __restrict__ gz, float* __restrict__ partials,
-             int batch, int cin, int f_dim, int t_dim, int cout, int rows_per_split,
-             int frames_per_split) {
-  extern __shared__ float smem[];
-  float* hs = smem;                    // [3][kCC][kXW]: h rows f-1..f+1, frames t0-1..
-  float* gs = smem + 3 * kCC * kXW;    // [kBCO][kGzW]: gz row f, frames t0..
-  const int tid = threadIdx.x;
-  const int ci_l = tid % kCC, cp = tid / kCC;
-  const int co0 = blockIdx.y * kBCO, c0 = blockIdx.z * kCC;
-  const int frame_splits = ceil_div(t_dim, frames_per_split);
-  const int rs = blockIdx.x / frame_splits, fs = blockIdx.x % frame_splits;
-  const int row0 = rs * rows_per_split;
-  const int row1 = min(batch * f_dim, row0 + rows_per_split);
-  const int t_lo = fs * frames_per_split, t_hi = min(t_dim, t_lo + frames_per_split);
-  float acc0[9], acc1[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc0[k] = acc1[k] = 0.f;
-
-  for (int row = row0; row < row1; ++row) {
-    const int b = row / f_dim, f = row % f_dim;
-    const T* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
-    const T* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
-    for (int t0 = t_lo; t0 < t_hi; t0 += kBT) {
-      __syncthreads();   // the previous tile's readers are done
-      stage_x(hs, hb, 3, f - 1, c0, t0, cin, f_dim, t_dim);
-      for (int e = tid; e < kBCO * kBT; e += kThreads) {
-        const int tl = e % kBT, c = e / kBT;
-        const int co = co0 + c, t = t0 + tl;
-        gs[c * kGzW + tl] = (co < cout && t < t_hi)
-                                ? to_f(gb[(static_cast<size_t>(co) * f_dim + f) * t_dim + t])
-                                : 0.f;
-      }
-      __syncthreads();
-      const float* g0 = gs + cp * kGzW;
-      const float* g1 = gs + (cp + 32) * kGzW;
-      const float* xr[3];
-      float xw[3][3];   // [dy][dx]: h at frames t - 1, t, t + 1 of row f + dy - 1
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        xr[dy] = hs + (dy * kCC + ci_l) * kXW;
-        xw[dy][0] = xr[dy][0];
-        xw[dy][1] = xr[dy][1];
-      }
-#pragma unroll 4
-      for (int t = 0; t < kBT; ++t) {
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) xw[dy][2] = xr[dy][t + 2];
-        const float a = g0[t], c = g1[t];
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            acc0[dy * 3 + dx] = fmaf(a, xw[dy][dx], acc0[dy * 3 + dx]);
-            acc1[dy * 3 + dx] = fmaf(c, xw[dy][dx], acc1[dy * 3 + dx]);
-          }
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          xw[dy][0] = xw[dy][1];
-          xw[dy][1] = xw[dy][2];
-        }
-      }
-    }
-  }
-  // the partial row is dW in w's layout: [tap][ci][co]
-  float* prow = partials + static_cast<size_t>(blockIdx.x) * 9 * cin * cout;
-  const int ci = c0 + ci_l;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const size_t at = (static_cast<size_t>(k) * cin + ci) * cout + co0 + cp;
-    if (co0 + cp < cout) prow[at] = acc0[k];
-    if (co0 + cp + 32 < cout) prow[at + 32] = acc1[k];
   }
 }
 
@@ -416,7 +337,6 @@ cudaError_t by_dtype(int dtype, F&& f) {
 }
 
 constexpr size_t kConvSmem = sizeof(float) * (3 * kCC * kXW + 9 * kCC * kBCO);
-constexpr size_t kDwSmem = sizeof(float) * (3 * kCC * kXW + kBCO * kGzW);
 
 }  // namespace
 
@@ -524,12 +444,12 @@ extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, v
           static_cast<const bf16*>(h), static_cast<const bf16*>(gz), part, batch, cin, f_dim,
           t_dim, cout, rows_per_split, frames_per_split);
     } else {
-      cudaError_t e = set_smem(ct_dw_kernel<T>, kDwSmem);
+      cudaError_t e = set_smem(ct_dw_tf32_kernel, kDwfSmem);
       if (e != cudaSuccess) return e;
-      const dim3 grid(splits, ceil_div(cout, kBCO), cin / kCC);
-      ct_dw_kernel<T><<<grid, kThreads, kDwSmem, s>>>(
-          static_cast<const T*>(h), static_cast<const T*>(gz), part, batch, cin, f_dim, t_dim,
-          cout, rows_per_split, frames_per_split);
+      const dim3 grid(splits, ceil_div(cout, kDwfCo), ceil_div(cin, kDwfCi));
+      ct_dw_tf32_kernel<<<grid, kDwfThreads, kDwfSmem, s>>>(
+          static_cast<const float*>(h), static_cast<const float*>(gz), part, batch, cin, f_dim,
+          t_dim, cout, rows_per_split, frames_per_split);
     }
     return cudaGetLastError();
   });

@@ -45,10 +45,8 @@
 // stays within the bf16 tolerance (2e-2 x max|ref|) of
 // flash_attention_bwd_plain on the card, at every head dim and ragged T.
 //
-// float32: the SIMT kernels (dq_kernel, dkv_kernel), TF32 off: 256 threads,
-// four per row as in K4's float32 forward; each thread scores 16 keys (or
-// queries) of its row with fmaf dot products out of float shared tiles, and
-// dS (and P^T) go through shared tiles into D/4 float accumulator lanes.
+// float32: the same two passes on the tensor cores in split TF32
+// (flash_dq_tf32_kernel, flash_dkv_tf32_kernel), see below.
 #include <math_constants.h>
 
 #include "flash_attn_tc.cuh"
@@ -104,17 +102,6 @@ __global__ void delta_rows_kernel(const bf16* __restrict__ out, const bf16* __re
   }
 }
 
-// rows [r0, r0 + kB) of a (B, T, H, D) tensor at (b, h) into dst[kB][ld]; zeros past T
-template <typename T, int D>
-static __device__ __forceinline__ void stage_rows(float* __restrict__ dst, int ld,
-                                                  const T* __restrict__ src, size_t base,
-                                                  size_t tstride, int r0, int t_dim) {
-  for (int e = threadIdx.x; e < kB * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * ld + c] = r0 + r < t_dim ? to_f(src[base + (r0 + r) * tstride + c]) : 0.f;
-  }
-}
-
 template <int D>
 static __device__ __forceinline__ float dot_row(const float* __restrict__ a,
                                                 const float* __restrict__ b) {
@@ -122,141 +109,6 @@ static __device__ __forceinline__ float dot_row(const float* __restrict__ a,
 #pragma unroll
   for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
   return s;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int t_dim, int heads,
-          float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kB][D + 1]
-  float* dos = qs + kB * (D + 1);   // [kB][D + 1]
-  float* ks = dos + kB * (D + 1);   // [kB][D + 1]
-  float* vs = ks + kB * (D + 1);    // [kB][D + 1]
-  float* dss = vs + kB * (D + 1);   // [kB][kPW]
-
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int q0 = blockIdx.x * kB;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
-  const size_t tstride = static_cast<size_t>(heads) * D;
-  const int t = q0 + row;
-  const float lse_r = t < t_dim ? lse[static_cast<size_t>(bh) * t_dim + t] : 0.f;
-  const float delta_r = t < t_dim ? delta[static_cast<size_t>(bh) * t_dim + t] : 0.f;
-
-  stage_rows<T, D>(qs, D + 1, q, base, tstride, q0, t_dim);
-  stage_rows<T, D>(dos, D + 1, dout, base, tstride, q0, t_dim);
-
-  constexpr int kE = D / 4;   // dq lanes per thread: d = sub + 4 e
-  float acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-
-  for (int k0 = 0; k0 < t_dim; k0 += kB) {
-    __syncthreads();   // the previous tile's readers are done (and q, dout are staged)
-    stage_rows<T, D>(ks, D + 1, k, base, tstride, k0, t_dim);
-    stage_rows<T, D>(vs, D + 1, v, base, tstride, k0, t_dim);
-    __syncthreads();
-    const float* qr = qs + row * (D + 1);
-    const float* dr = dos + row * (D + 1);
-#pragma unroll 4
-    for (int j = 0; j < kB / 4; ++j) {
-      const int c = sub + 4 * j;
-      const float s = k0 + c < t_dim ? dot_row<D>(qr, ks + c * (D + 1)) * scale : -CUDART_INF_F;
-      const float p = expf(s - lse_r);
-      const float dp = dot_row<D>(dr, vs + c * (D + 1));
-      dss[row * kPW + c] = p * (dp - delta_r);
-    }
-    __syncwarp();   // a row's four threads share one warp and one dS row
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float ds = dss[row * kPW + c];
-      const float* kr = ks + c * (D + 1) + sub;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] = fmaf(ds, kr[4 * e], acc[e]);
-    }
-  }
-  if (t < t_dim) {
-#pragma unroll
-    for (int e = 0; e < kE; ++e) store_f(dq + base + t * tstride + sub + 4 * e, acc[e] * scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int t_dim,
-           int heads, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;                 // [kB][D + 1]
-  float* vs = ks + kB * (D + 1);    // [kB][D + 1]
-  float* qs = vs + kB * (D + 1);    // [kB][D + 1]
-  float* dos = qs + kB * (D + 1);   // [kB][D + 1]
-  float* ls = dos + kB * (D + 1);   // [kB] lse of the query tile
-  float* dls = ls + kB;             // [kB] delta of the query tile
-  float* pts = dls + kB;            // [kB keys][kPW queries]
-  float* dsts = pts + kB * kPW;     // [kB keys][kPW queries]
-
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int k0 = blockIdx.x * kB;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
-  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
-  const size_t tstride = static_cast<size_t>(heads) * D;
-
-  stage_rows<T, D>(ks, D + 1, k, base, tstride, k0, t_dim);
-  stage_rows<T, D>(vs, D + 1, v, base, tstride, k0, t_dim);
-
-  constexpr int kE = D / 4;
-  float dk_acc[kE], dv_acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-
-  for (int q0 = 0; q0 < t_dim; q0 += kB) {
-    __syncthreads();
-    stage_rows<T, D>(qs, D + 1, q, base, tstride, q0, t_dim);
-    stage_rows<T, D>(dos, D + 1, dout, base, tstride, q0, t_dim);
-    if (tid < kB) {
-      const bool ok = q0 + tid < t_dim;
-      ls[tid] = ok ? lse[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
-      dls[tid] = ok ? delta[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    const float* kr = ks + row * (D + 1);
-    const float* vr = vs + row * (D + 1);
-#pragma unroll 4
-    for (int j = 0; j < kB / 4; ++j) {
-      const int c = sub + 4 * j;
-      const float s = q0 + c < t_dim ? dot_row<D>(kr, qs + c * (D + 1)) * scale : -CUDART_INF_F;
-      const float p = expf(s - ls[c]);
-      const float dp = dot_row<D>(vr, dos + c * (D + 1));
-      pts[row * kPW + c] = p;
-      dsts[row * kPW + c] = p * (dp - dls[c]);
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float p = pts[row * kPW + c];
-      const float ds = dsts[row * kPW + c];
-      const float* dr = dos + c * (D + 1) + sub;
-      const float* qr = qs + c * (D + 1) + sub;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        dv_acc[e] = fmaf(p, dr[4 * e], dv_acc[e]);
-        dk_acc[e] = fmaf(ds, qr[4 * e], dk_acc[e]);
-      }
-    }
-  }
-  const int t = k0 + row;
-  if (t < t_dim) {
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      store_f(dk + base + t * tstride + sub + 4 * e, dk_acc[e] * scale);
-      store_f(dv + base + t * tstride + sub + 4 * e, dv_acc[e]);
-    }
-  }
 }
 
 // ---- bfloat16: FlashAttention-2 backward on mma.sync.m16n8k16 ------------
@@ -478,6 +330,306 @@ flash_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   store_rows<D>(dk, base, tstride, k0, t_dim, dk_acc, scale);
   store_rows<D>(dv, base, tstride, k0, t_dim, dv_acc, 1.f);
+}
+
+// ---- float32: the same two passes on mma.sync.m16n8k8.tf32 in split TF32 ----
+// flash_dq_tf32_kernel and flash_dkv_tf32_kernel have the bf16 kernels'
+// shape: 4 warps of 16 rows, 64-row blocks, the block's own rows (Q and dO,
+// or K and V) staged once, the streamed 64-row tiles through a two-stage
+// cp.async ring; here every tile is float, [64][D + 4] (D % 4 == 0 at every
+// instantiated dim, so rows take 16-byte copies), and every product is
+// mma_3xtf32 (mma.cuh): operands split into hi + lo as the fragments are
+// read, three TF32 products on float accumulators. TF32's dense rate (494
+// TFLOP/s) over three products is ~2.5x the FMA pipes' 67, at float32's
+// accuracy. What the design does about the three hazards:
+// - Layout. The m16n8k8 accumulator holds columns 2t, 2t + 1 of a row, the
+//   A operand columns t, t + 4. P and dS (P^T, dS^T) go straight from the
+//   accumulators into the next product's A operand by permuting the keys
+//   (queries) of each 8-group: k slot t is key 2t, slot t + 4 key 2t + 1,
+//   and the B operand (K, or Q / dO, read as [row][d]) reads rows 2t and 2t
+//   + 1 the same way. The sum over keys does not care about their order.
+// - Bank conflicts. A row pitch of D + 4 floats is 4 mod 8 words, so the 8
+//   rows x 4 columns of a fragment read (S = Q K^T: rows g, columns t) and
+//   the 4 row pairs x 8 columns of the permuted one (dQ += dS K: rows 2t, 2t
+//   + 1, columns g) each hit 32 distinct banks.
+// - Rounding. The tensor cores add a product into its accumulator without
+//   rounding to nearest (an ulp of the largest addend lost each time), so
+//   every product, S and dP over D as well as dQ (dK, dV) over keys
+//   (queries), is summed in two levels (mma_3xtf32_add): each k8 step's
+//   three products on the tensor cores from zero, then added to the float
+//   accumulator in registers, rounded to nearest (chains of 24 additions,
+//   S over D 64 or a 64-row tile's share, strayed several times further
+//   from float64 than float32's sums at T 65-200).
+//   At D = 128 the dk/dv pass takes each query tile in eight slices of 8
+//   (S^T and dP^T 8 floats a thread), which keeps its two 128-column
+//   accumulators in registers.
+// What bounds it: 14 B H T^2 D multiply-adds a pass pair (the dq pass
+// recomputes S and dP), three TF32 products each, the four float additions
+// of each k8 step's two-level sum, and the splits (an operand element as it
+// is read: cvt.rna for hi, a subtraction, and an add and a mask for lo;
+// mma.cuh).
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {   // q, dout [64][D + 4]; two stages of (k, v)
+  return sizeof(float) * 6 * kTcB * (D + 4);
+}
+
+template <int D>
+constexpr size_t dkv_tf32_smem_bytes() {   // k, v; two stages of (q, dout) and of (lse, delta)
+  return sizeof(float) * (6 * kTcB * (D + 4) + 4 * kTcB);
+}
+
+// rows [r0, r0 + 64) of a (B, T, H, D) float tensor at base -> dst [64][D +
+// 4], rows past T zero-filled, by 16-byte cp.async copies.
+template <int D>
+static __device__ __forceinline__ void tf32_load_rows(float* __restrict__ dst,
+                                                      const float* __restrict__ src, size_t base,
+                                                      size_t tstride, int r0, int t_dim) {
+  constexpr int kVecs = D / 4;
+  for (int e = threadIdx.x; e < kTcB * kVecs; e += kAttnThreads) {
+    const int r = e / kVecs, c = e % kVecs;
+    const bool ok = r0 + r < t_dim;
+    cp_async16(dst + r * (D + 4) + 4 * c,
+               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 4 * c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// s (16 x kN) = A B^T over D: A this warp's 16 rows at `a`, B kN rows of a
+// tile from `b`; both [row][D + 4]. s[nt] is columns (B rows) 8 nt .. 8 nt + 7.
+template <int D, int kN = kTcB>
+static __device__ __forceinline__ void tf32_abt(float (&s)[kN / 8][4], const float* __restrict__ a,
+                                                const float* __restrict__ b) {
+  constexpr int kP = D + 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < kN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  const float* ar = a + g * kP + t;
+  const float* br = b + g * kP + t;
+#pragma unroll 2
+  for (int kd = 0; kd < D / 8; ++kd) {
+    uint32_t ah[4], al[4];
+    split_tf32(ar[8 * kd], ah[0], al[0]);
+    split_tf32(ar[8 * kP + 8 * kd], ah[1], al[1]);
+    split_tf32(ar[8 * kd + 4], ah[2], al[2]);
+    split_tf32(ar[8 * kP + 8 * kd + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      uint32_t bh[2], bl[2];
+      split_tf32(br[8 * nt * kP + 8 * kd], bh[0], bl[0]);
+      split_tf32(br[8 * nt * kP + 8 * kd + 4], bh[1], bl[1]);
+      mma_3xtf32_add(s[nt], ah, al, bh, bl);
+    }
+  }
+}
+
+// o (16 x D) += p (16 x kK, S-shaped accumulators) times kK rows x D of a
+// tile from `rows` ([row][D + 4]), keys permuted as above; kC 8-column
+// tiles of o at a time (all of D up to 64; at D 128 four, which keeps the
+// dk/dv pass's registers from spilling).
+template <int D, int kK = kTcB, int kC = (D / 8 <= 8 ? D / 8 : 4)>
+static __device__ __forceinline__ void tf32_fold_pv(float (&o)[D / 8][4],
+                                                    const float (&p)[kK / 8][4],
+                                                    const float* __restrict__ rows) {
+  constexpr int kP = D + 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* rr = rows + 2 * t * kP + g;
+#pragma unroll
+  for (int c0 = 0; c0 < D / 8; c0 += kC)
+#pragma unroll
+    for (int kk = 0; kk < kK / 8; ++kk) {
+      uint32_t ah[4], al[4];   // slots t, t + 4 = keys 2t, 2t + 1: c0, c2, c1, c3
+      split_tf32(p[kk][0], ah[0], al[0]);
+      split_tf32(p[kk][2], ah[1], al[1]);
+      split_tf32(p[kk][1], ah[2], al[2]);
+      split_tf32(p[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int dt = c0; dt < c0 + kC; ++dt) {
+        const float* r = rr + 8 * kk * kP + 8 * dt;
+        uint32_t bh[2], bl[2];
+        split_tf32(r[0], bh[0], bl[0]);
+        split_tf32(r[kP], bh[1], bl[1]);
+        mma_3xtf32_add(o[dt], ah, al, bh, bl);
+      }
+    }
+}
+
+// rows g and g + 8 of this warp's 16, float2 stores of acc * mul, rows past T skipped
+template <int D>
+static __device__ __forceinline__ void store_rows_f32(float* __restrict__ dst, size_t base,
+                                                      size_t tstride, int r0, int t_dim,
+                                                      const float (&acc)[D / 8][4], float mul) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = r0 + warp * 16 + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    float* row = dst + base + static_cast<size_t>(t) * tstride;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<float2*>(row + dt * 8 + 2 * (lane % 4)) =
+          make_float2(acc[dt][2 * hh] * mul, acc[dt][2 * hh + 1] * mul);
+  }
+}
+
+// dq rows [q0, q0 + 64) of one (b, h). Per 64-key tile: S = Q K^T and dP =
+// dO V^T, P = exp(S * scale - lse) with keys past T at P = 0, dS = P (dP -
+// delta), then dQ += dS K (the fold above).
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, int t_dim, int heads, float scale) {
+  constexpr int kP = D + 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* qs = reinterpret_cast<float*>(tc_smem);   // [64][kP]
+  float* dos = qs + kTcB * kP;                     // [64][kP]
+  float* kv = dos + kTcB * kP;                     // per stage: k [64][kP], v [64][kP]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int q0 = blockIdx.x * kTcB;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kTcB);
+
+  tf32_load_rows<D>(qs, q, base, tstride, q0, t_dim);
+  tf32_load_rows<D>(dos, dout, base, tstride, q0, t_dim);
+  tf32_load_rows<D>(kv, k, base, tstride, 0, t_dim);
+  tf32_load_rows<D>(kv + kTcB * kP, v, base, tstride, 0, t_dim);
+  cp_async_commit();
+  float ls[2], dl[2];   // rows g and g + 8: lse, delta; 0 past T
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + warp * 16 + lane / 4 + 8 * hh;
+    const size_t at = static_cast<size_t>(bh) * t_dim + t;
+    ls[hh] = t < t_dim ? lse[at] : 0.f;
+    dl[hh] = t < t_dim ? delta[at] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const float* qw = qs + warp * 16 * kP;
+  const float* dw = dos + warp * 16 * kP;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const float* ks = kv + (j & 1) * 2 * kTcB * kP;
+    const float* vs = ks + kTcB * kP;
+    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
+      float* nk = kv + ((j + 1) & 1) * 2 * kTcB * kP;
+      tf32_load_rows<D>(nk, k, base, tstride, (j + 1) * kTcB, t_dim);
+      tf32_load_rows<D>(nk + kTcB * kP, v, base, tstride, (j + 1) * kTcB, t_dim);
+      cp_async_commit();
+    }
+    float s[kTcB / 8][4], dp[kTcB / 8][4];
+    tf32_abt<D>(s, qw, ks);
+    tf32_abt<D>(dp, dw, vs);
+#pragma unroll
+    for (int nt = 0; nt < kTcB / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = j * kTcB + nt * 8 + 2 * quad + (e % 2);
+        const float p = key < t_dim ? expf(s[nt][e] * scale - ls[e / 2]) : 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[e / 2]);   // dS
+      }
+    tf32_fold_pv<D>(acc, s, ks);   // dQ += dS K
+    cp_async_wait_all();
+    __syncthreads();   // the next stage is complete; this one's readers are done
+  }
+  store_rows_f32<D>(dq, base, tstride, q0, t_dim, acc, scale);
+}
+
+// dk, dv rows [k0, k0 + 64) of one (b, h). Per 64-query tile: S^T = K Q^T
+// and dP^T = V dO^T, P^T = exp(S^T * scale - lse) (queries past T at P =
+// 0), dS^T = P^T (dP^T - delta), then dV += P^T dO and dK += dS^T Q (the
+// fold above).
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int t_dim, int heads,
+                      float scale) {
+  constexpr int kP = D + 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* ks = reinterpret_cast<float*>(tc_smem);   // [64][kP]
+  float* vs = ks + kTcB * kP;                      // [64][kP]
+  float* qd = vs + kTcB * kP;                      // per stage: q [64][kP], dout [64][kP]
+  float* stats = qd + 4 * kTcB * kP;               // per stage: lse, delta [64]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int k0 = blockIdx.x * kTcB;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kTcB);
+  // threads 0-63 carry a query's lse, 64-127 its delta; 0 past T
+  const float* stat_src = threadIdx.x < kTcB ? lse : delta;
+  const auto stat = [&](int q0) {
+    const int t = q0 + threadIdx.x % kTcB;
+    return t < t_dim ? stat_src[static_cast<size_t>(bh) * t_dim + t] : 0.f;
+  };
+
+  tf32_load_rows<D>(ks, k, base, tstride, k0, t_dim);
+  tf32_load_rows<D>(vs, v, base, tstride, k0, t_dim);
+  tf32_load_rows<D>(qd, q, base, tstride, 0, t_dim);
+  tf32_load_rows<D>(qd + kTcB * kP, dout, base, tstride, 0, t_dim);
+  cp_async_commit();
+  stats[threadIdx.x] = stat(0);
+  cp_async_wait_all();
+  __syncthreads();
+  const float* kw = ks + warp * 16 * kP;
+  const float* vw = vs + warp * 16 * kP;
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const float* qs = qd + (j & 1) * 2 * kTcB * kP;
+    const float* dos = qs + kTcB * kP;
+    const float* lq = stats + (j & 1) * 2 * kTcB;
+    const float* dlq = lq + kTcB;
+    float next_stat = 0.f;
+    if (j + 1 < n_tiles) {   // the next tile loads while this one multiplies
+      float* nq = qd + ((j + 1) & 1) * 2 * kTcB * kP;
+      tf32_load_rows<D>(nq, q, base, tstride, (j + 1) * kTcB, t_dim);
+      tf32_load_rows<D>(nq + kTcB * kP, dout, base, tstride, (j + 1) * kTcB, t_dim);
+      cp_async_commit();
+      next_stat = stat((j + 1) * kTcB);
+    }
+    // at D 128 the tile's queries go in eight slices of 8, which keeps S^T
+    // and dP^T to 8 registers beside dK's and dV's 128 (with the two-level
+    // sums, quarters of 16 spilled)
+    constexpr int kH = D < 128 ? kTcB : kTcB / 8;
+#pragma unroll 1
+    for (int h0 = 0; h0 < kTcB; h0 += kH) {
+      float s[kH / 8][4], dp[kH / 8][4];
+      tf32_abt<D, kH>(s, kw, qs + h0 * kP);    // S^T: rows keys, columns queries
+      tf32_abt<D, kH>(dp, vw, dos + h0 * kP);  // dP^T
+#pragma unroll
+      for (int nt = 0; nt < kH / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = h0 + nt * 8 + 2 * quad + (e % 2);
+          const float p = j * kTcB + c < t_dim ? expf(s[nt][e] * scale - lq[c]) : 0.f;
+          s[nt][e] = p;                            // P^T
+          dp[nt][e] = p * (dp[nt][e] - dlq[c]);    // dS^T
+        }
+      tf32_fold_pv<D, kH>(dv_acc, s, dos + h0 * kP);   // dV += P^T dO
+      tf32_fold_pv<D, kH>(dk_acc, dp, qs + h0 * kP);   // dK += dS^T Q
+    }
+    if (j + 1 < n_tiles) stats[((j + 1) & 1) * 2 * kTcB + threadIdx.x] = next_stat;
+    cp_async_wait_all();
+    __syncthreads();   // the next stage is complete; this one's readers are done
+  }
+  store_rows_f32<D>(dk, base, tstride, k0, t_dim, dk_acc, scale);
+  store_rows_f32<D>(dv, base, tstride, k0, t_dim, dv_acc, 1.f);
 }
 
 // ---- head dims past 128, bfloat16: S and dP once per tile pair -------------
@@ -793,9 +945,9 @@ flash_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---- head dims past 128, float32: 128-column slices
 // A block owns one 128-column slice z of its dq (or dk and dv) and sums S
 // and dP over every slice of D before it multiplies; delta is taken over all
-// of D by delta_kernel. dq_kernel's and dkv_kernel's threads (four per row);
-// S and dP summed over the slices of D staged one after another, then the
-// slice z the products read.
+// of D by delta_kernel. SIMT, TF32 off: 256 threads, four per row, fmaf dot
+// products out of float shared slices; S and dP summed over the slices of D
+// staged one after another, then the slice z the products read.
 constexpr int kSW = kSliceW;   // padded row of a staged float slice
 
 // acc[j] += a[row] . b[sub + 4 j] over one staged slice
@@ -1053,21 +1205,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
         qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_dim,
         heads, scale, scale_log2);
   } else {
-    const size_t smem_dq = sizeof(float) * (4 * kB * (D + 1) + kB * kPW);
-    err = set_smem(dq_kernel<T, D>, smem_dq);
+    const void* ptrs[] = {q, k, v, dout, dq, dk, dv};   // 16-byte copies, float2 stores
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+                *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+    constexpr size_t smem_dq = dq_tf32_smem_bytes<D>();
+    err = set_smem(flash_dq_tf32_kernel<D>, smem_dq);
     if (err != cudaSuccess) return err;
-    dq_kernel<T, D><<<grid, kThreads, smem_dq, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, scale);
+    flash_dq_tf32_kernel<D><<<grid, kAttnThreads, smem_dq, s>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dq), t_dim, heads, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const size_t smem_dkv = sizeof(float) * (4 * kB * (D + 1) + 2 * kB + 2 * kB * kPW);
-    err = set_smem(dkv_kernel<T, D>, smem_dkv);
+    constexpr size_t smem_dkv = dkv_tf32_smem_bytes<D>();
+    err = set_smem(flash_dkv_tf32_kernel<D>, smem_dkv);
     if (err != cudaSuccess) return err;
-    dkv_kernel<T, D><<<grid, kThreads, smem_dkv, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        t_dim, heads, scale);
+    flash_dkv_tf32_kernel<D><<<grid, kAttnThreads, smem_dkv, s>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), t_dim,
+        heads, scale);
   }
   return cudaGetLastError();
 }

@@ -209,7 +209,10 @@ def ct_gz(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor, pool_f: int) -
 
 def ct_dw(h: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     """h (B, C, F, T), gz (B, Cout, F, T) of one dtype -> dW (3, 3, C, Cout)
-    float32."""
+    float32: the dW tile of ``csrc/conv3x3_dw_tc.cuh`` in bfloat16, the
+    split-TF32 tile of ``csrc/conv3x3_dw_tf32.cuh`` in float32, each block a
+    share of the depth (:func:`conv2d_train.dw_split`) reduced in a fixed
+    order."""
     if h.ndim != 4 or gz.ndim != 4 or h.shape[0] != gz.shape[0] or h.shape[2:] != gz.shape[2:]:
         raise ValueError(f"h {tuple(h.shape)} and gz {tuple(gz.shape)} must be (B, *, F, T) "
                          "of one B, F and T")

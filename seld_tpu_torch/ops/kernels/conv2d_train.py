@@ -57,7 +57,7 @@ TILES_PER_BLOCK = 4     # frame tiles one block walks (sizes the partial-sum row
 MAX_CIN = 10            # the reference's wide-pack range, 3 * Cin <= 32
 DW_SPLITS = 64          # the dW tile shares its depth (B * F rows x T frames) among ~this many
 DW_SPLITS_STAGE1 = 512  # K5's: one Cin tile per block, so more depth shares fill the card
-DW_FRAME_STEP = 64      # frames per depth step of the bf16 dW tile (kDwT): a frame share's unit
+DW_FRAME_STEP = 64      # frames per depth step of the dW tiles (kDwT, kDwfT): a frame share's unit
 DW_MAX_CIN = 16         # K5's dW tile: one 16-channel Cin tile (kDwCiStage1)
 
 
@@ -335,9 +335,10 @@ def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
 
 
 def dw_split(b: int, f: int, t: int, target: int = DW_SPLITS) -> tuple[int, int, int]:
-    """(rows_per_split, frames_per_split, splits) of the bf16 dW tile: the B *
-    F rows shared among at most ``target`` blocks, and where there are fewer
-    rows than that (K9's stage 3: 8 at batch 2), each row's frames split in
+    """(rows_per_split, frames_per_split, splits) of the dW tiles (bf16, and
+    K9's float32 split-TF32 tile): the B * F rows shared among at most
+    ``target`` blocks, and where there are fewer rows than that (K9's stage
+    3: 8 at batch 2), each row's frames split in
     multiples of DW_FRAME_STEP until about ``target`` shares. ``splits`` is
     the kernels' grid.x and the partials' row count; block x takes rows
     share x // frame_splits and frames share x % frame_splits, frame_splits

@@ -4,7 +4,7 @@
 
 Counterpart of ``tools/profile_stages.py``. Environment, as there:
 ``PROF_BATCH`` (default 16) and ``PROF_SECTIONS`` (comma-separated, default
-``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train``, ``attn`` and ``v3``). The ``noop`` row, the
+``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train``, ``attn``, ``f32`` and ``v3``). The ``noop`` row, the
 dispatch baseline, always runs. Sections:
 
 - ``stft``: K1 (float32 and bfloat16 out) beside its plain version;
@@ -22,6 +22,10 @@ dispatch baseline, always runs. Sections:
   / 2 after the TCN's time pool, 8 heads of 48, then of 160, 256 and 640:
   ``ATTN_WIDE_DIMS``, the kernels past head dim 128) beside
   ``scaled_dot_product_attention`` and its backward on the same inputs;
+- ``f32``: the float32 kernels of the training step in split TF32 beside
+  their library call in float32 (TF32 off): K6 at the flagship's attention
+  (T = frames / 2, 8 heads of 48) beside SDPA's backward, and K9's dW at
+  stage 2 beside cuDNN's weight gradient, on the same inputs;
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -258,6 +262,31 @@ def attn(batch, device, shapes=FLAGSHIP):
         del q, k, v, dout, out, lse, qt, kt, vt, leaves, o_lib
 
 
+def f32(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    t, h, d = shapes["frames"] // 2, shapes["heads"], shapes["head_dim"]
+    q, k, v, dout = (_randn(device, batch, t, h, d, gen=gen) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = flash_attention(q, k, v, scale)
+    yield (f"f32: K6 backward (T {t}, {h} x {d})",
+           lambda *a: flash_attention_bwd(*a, scale), (q, k, v, out, dout, lse))
+    leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+    yield ("f32: SDPA backward",
+           lambda g: torch.autograd.grad(o_lib, leaves, g, retain_graph=True),
+           (dout.transpose(1, 2).contiguous(),))
+    del q, k, v, dout, out, lse, leaves, o_lib
+    c, f, t = shapes["filters"], shapes["freq"] // shapes["pools"][0], shapes["frames"]
+    x = _randn(device, batch, c, f, t, gen=gen)
+    gz = _randn(device, batch, c, f, t, gen=gen) / 100
+    yield f"f32: K9 dW stage 2 ({c} x {f} x {t})", k9.ct_dw, (x, gz)
+    yield "f32: cuDNN wgrad stage 2", \
+        lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, c, 3, 3), zz, padding=1), (x, gz)
+
+
 def v3(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.models.fused_infer import fused_infer
     from seld_tpu_torch.ops.hamilton import assemble_dq_conv_kernel
@@ -290,7 +319,7 @@ def v3(batch, device, shapes=FLAGSHIP):
 
 
 SECTIONS = {"noop": noop, "stft": stft, "cnn": cnn, "tcn": tcn, "fused": fused, "qmm": qmm,
-            "train": train, "attn": attn, "v3": v3}
+            "train": train, "attn": attn, "f32": f32, "v3": v3}
 
 
 def time_ms(fn, args, device: torch.device, iters: int = ITERS) -> float:

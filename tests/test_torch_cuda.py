@@ -433,6 +433,69 @@ def test_flash_attention_bwd_kernel(gen, dtype, b, t, h, d):
         assert torch.equal(a, b_)
 
 
+# K6 in float32 (split TF32): every instantiated head dim at T 65 (one ragged
+# tile), 200 (three and a ragged tail) and the flagship's 2400 (38 tiles)
+K6_F32_CASES = [(b, t, h, d) for d in (16, 32, 48, 64, 128)
+                for b, t, h in ((2, 65, 3), (1, 200, 2), (1, 2400, 2))]
+
+
+def _f64_gate(name, got, plain, exact):
+    """max|d| from float64 of a split-TF32 kernel's output within 4x the
+    float32 plain version's (TF32 off); both printed (``pytest -s``)."""
+    d_kernel, d_plain = ((a.double() - exact).abs().max().item() for a in (got, plain))
+    print(f"[f64] {name}: kernel {d_kernel:.3e}, float32 plain {d_plain:.3e} "
+          f"({d_kernel / max(d_plain, 1e-300):.2f}x; gate 4x)")
+    assert d_kernel <= 4 * d_plain, (name, d_kernel, d_plain)
+
+
+@pytest.mark.parametrize("b,t,h,d", K6_F32_CASES)
+def test_flash_attention_bwd_tf32(gen, b, t, h, d):
+    """K6's float32 passes (flash_dq_tf32_kernel, flash_dkv_tf32_kernel)
+    against the plain version in float32, TF32 off; each gradient within 4x
+    the plain version's distance from float64; bitwise on a rerun."""
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(4))
+    out, lse = (a.contiguous() for a in flash_attention_plain(q, k, v, d ** -0.5))
+    got = flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5)
+    assert launch_counts["flash_attn_bwd"] == 1
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, d ** -0.5)
+    exact = flash_attention_bwd_plain(*(a.double() for a in (q, k, v, out, dout, lse)),
+                                      d ** -0.5)
+    for n, a, b_, e in zip(("dq", "dk", "dv"), got, want, exact):
+        _f64_gate(f"K6 D {d} T {t} {n}", a, b_, e)
+        _close(a, b_, torch.float32)
+    for a, b_ in zip(flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5), got):
+        assert torch.equal(a, b_)
+
+
+def _put_nan(x, at, bits):
+    """x with the float32 whose bits are ``bits`` (a NaN) at index ``at``."""
+    x = x.clone()
+    x.view(torch.int32)[at] = bits
+    return x
+
+
+# float('nan') and the card's own NaN, 0x7fffffff, whose rounding to TF32 by
+# the bits plus half an ulp would carry into the sign and give a zero
+NAN_BITS = [0x7FC00000, 0x7FFFFFFF]
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+@pytest.mark.parametrize("d", [48, 128])
+def test_flash_attention_bwd_tf32_keeps_nans(gen, bits, d):
+    """A NaN in q (batch 0) or in dO (batch 1) of K6's float32 passes comes
+    out NaN exactly where the plain version's does: out and lse are those of
+    the finite inputs, so only the split operands carry it."""
+    b, t, h = 2, 200, 2
+    q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(4))
+    out, lse = (a.contiguous() for a in flash_attention_plain(q, k, v, d ** -0.5))
+    q, dout = _put_nan(q, (0, 70, 1, 5), bits), _put_nan(dout, (1, 131, 0, 9), bits)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, d ** -0.5)
+    for a, b_ in zip(got, want):
+        assert bool(torch.isnan(b_[0]).any()) and bool(torch.isnan(b_[1]).any())
+        assert torch.equal(torch.isnan(a), torch.isnan(b_))
+
+
 def test_cuda_tensors_never_take_the_plain_path(gen):
     """A CUDA tensor launches or raises: mixed devices and unsupported shapes
     raise instead of running the plain version."""
@@ -575,6 +638,44 @@ def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
     _close(k9.ct_dx(gz, w), k9.ct_dx_plain(gz, w), dtype)
     # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
     assert torch.equal(k9.ct_dw(h, gz), dw)
+
+
+def _dw_plain_f32(h, gz):
+    """dW in float32 without cuDNN (im2col and a float32 GEMM, TF32 off):
+    cuDNN's float32 wgrad at the flagship's stage 2 is no float32-faithful
+    reference (its distance from float64 is ~300x the kernel's)."""
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        return k5.dw_plain(h, gz)
+
+
+@pytest.mark.parametrize("b,c,f,t,cout", [s[:5] for s in K9_SHAPES] + [(2, 192, 32, 4800, 192)])
+def test_ct_dw_tf32(gen, b, c, f, t, cout):
+    """K9's float32 dW pass (ct_dw_tf32_kernel) at K9_SHAPES (T 777 and 130
+    stage frame by frame) and at the flagship's stage 2 (batch 2, 307,200
+    frames of depth) on real-valued h and g_z: within 2e-4 x max of the
+    plain version (cuDNN's float32 wgrad, TF32 off), within 4x the float32
+    plain version's distance from float64 (without cuDNN), and bitwise on a
+    rerun."""
+    h = torch.randn(b, c, f, t, generator=gen, device="cuda")
+    gz = torch.randn(b, cout, f, t, generator=gen, device="cuda") / 100
+    got = k9.ct_dw(h, gz)
+    assert launch_counts["ct_train_dw"] == 1
+    _f64_gate(f"K9 dW {b}x{c}x{f}x{t}->{cout}", got, _dw_plain_f32(h, gz),
+              k5.dw_plain(h.double(), gz.double()))
+    _close(got, k5.dw_plain(h, gz), torch.float32)
+    assert torch.equal(k9.ct_dw(h, gz), got)
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_ct_dw_tf32_keeps_nans(gen, bits):
+    """A NaN in h (batch 0) or in g_z (batch 1) of K9's float32 dW comes out
+    NaN exactly where the plain version's does (without cuDNN)."""
+    b, c, f, t, cout = 2, 24, 8, 130, 40
+    h = _put_nan(torch.randn(b, c, f, t, generator=gen, device="cuda"), (0, 5, 3, 60), bits)
+    gz = _put_nan(torch.randn(b, cout, f, t, generator=gen, device="cuda"), (1, 17, 6, 99), bits)
+    got, want = k9.ct_dw(h, gz), _dw_plain_f32(h, gz)
+    assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
 
 
 def test_conv_tile_f1_f2_bitwise_at_stage_2(gen):

@@ -1,0 +1,126 @@
+"""The split-TF32 arithmetic of the float32 tensor-core kernels (K6's
+backward passes and K9's dW, ``csrc/mma.cuh``), through its plain version
+``ops/kernels/tf32.py``, on the CPU: the rounding is ``cvt.rna.tf32.f32``'s
+(held to a float64 reference written independently of the bit trick), a
+non-finite operand never gives a finite product, hi + lo recovers x within
+2^-22 |x|, and the three-term product summed over a K9
+stage-2 depth stays as close to float64 as the float32 plain version. The
+tensor cores' own accumulation is the card's (``tests/test_torch_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
+from seld_tpu_torch.ops.kernels.tf32 import (
+    tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
+)
+
+LOW_BITS = 0x1FFF
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.numpy().view(np.uint32)
+
+
+def _tf32_reference(x: np.ndarray) -> np.ndarray:
+    """x rounded to 11 significant bits, halves away from zero, in float64."""
+    m, e = np.frexp(x.astype(np.float64))          # |m| in [0.5, 1)
+    r = np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5) / 2.0**11
+    return np.ldexp(r, e)
+
+
+@pytest.mark.parametrize("scale", [1e-30, 1e-3, 1.0, 3e4, 1e30])
+def test_rounding_is_cvt_rna(scale):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(20_000) * scale).astype(np.float32))
+    got = tf32_round_plain(x)
+    assert not (_bits(got) & LOW_BITS).any()
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), _tf32_reference(x.numpy()))
+
+
+def test_ties_round_away_from_zero():
+    # a fraction whose dropped 13 bits are exactly half a TF32 ulp (0x1000),
+    # with the kept bits even and odd, at both signs
+    bits = np.array([0x3F801000, 0x3F803000, 0xBF801000, 0xBF803000, 0x7F7FF000],
+                    dtype=np.uint32)
+    got = _bits(tf32_round_plain(torch.from_numpy(bits.view(np.float32))))
+    np.testing.assert_array_equal(got, [0x3F802000, 0x3F804000, 0xBF802000, 0xBF804000,
+                                        0x7F800000])
+    # just under half rounds down, in magnitude
+    under = np.array([0x3F800FFF, 0xBF800FFF], dtype=np.uint32).view(np.float32)
+    np.testing.assert_array_equal(_bits(tf32_round_plain(torch.from_numpy(under))),
+                                  [0x3F800000, 0xBF800000])
+
+
+# NaNs: float('nan'), the card's own 0x7fffffff and its negative, payloads
+# only in the low 13 bits, and fractions whose top ten bits are all ones
+NANS = np.array([0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001, 0xFF801FFF, 0x7FFFF000,
+                 0x7FFFE001], dtype=np.uint32)
+
+
+def test_non_finite_values_pass_through():
+    """hi (cvt.rna) keeps every NaN a NaN and an infinity the infinity; the
+    add-and-mask form that lo takes would turn 0x7fffffff into a zero."""
+    nans = torch.from_numpy(NANS.view(np.float32))
+    assert bool(torch.isnan(tf32_round_plain(nans)).all())
+    inf = torch.tensor([float("inf"), -float("inf")])
+    assert torch.equal(tf32_round_plain(inf), inf)
+    np.testing.assert_array_equal(_bits(tf32_round_plain(torch.tensor([0.0, -0.0]))),
+                                  [0, 0x80000000])
+    assert _bits(tf32_add_half_and_mask(nans[1:3])).tolist() == [0x80000000, 0]
+    hi, lo = tf32_split_plain(torch.cat([nans, inf]))
+    assert not bool(torch.isfinite(hi).any())
+    assert bool((torch.isnan(lo) | (lo == 0)).all())
+
+
+def test_a_non_finite_operand_gives_a_non_finite_product():
+    """The three-term product of split operands, each term in float64: NaN
+    where either operand is a NaN, and never finite where one is infinite."""
+    a = torch.cat([torch.from_numpy(NANS.view(np.float32)), torch.tensor([float("inf")])])
+    b = torch.tensor([1.5, -3.0e-7, 2.0 ** 20, 1.0 + 2.0 ** -20, 0.7, -1e30, 4.0, 3.0])
+    (ah, al), (bh, bl) = tf32_split_plain(a), tf32_split_plain(b)
+    prod = sum(x.double() * y.double() for x, y in ((al, bh), (ah, bl), (ah, bh)))
+    assert bool(torch.isnan(prod[:-1]).all()) and not bool(torch.isfinite(prod[-1]))
+    (bh, bl), (ah, al) = (ah, al), tf32_split_plain(b)   # the NaN as the B operand
+    prod = sum(x.double() * y.double() for x, y in ((al, bh), (ah, bl), (ah, bh)))
+    assert bool(torch.isnan(prod[:-1]).all())
+
+
+def test_lo_rounding_is_cvt_rna_on_finite_values():
+    """On every finite float32 (random bit patterns, all exponents) the
+    kernels' add-and-mask rounding of lo equals cvt.rna's."""
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 2**32, 200_000, dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.float32))
+    x = x[torch.isfinite(x)]
+    np.testing.assert_array_equal(_bits(tf32_add_half_and_mask(x)), _bits(tf32_round_plain(x)))
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1.0, 1e20])
+def test_split_recovers_x(scale):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal(50_000) * scale).astype(np.float32))
+    hi, lo = tf32_split_plain(x)
+    assert not (_bits(hi) & LOW_BITS).any() and not (_bits(lo) & LOW_BITS).any()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0**-22 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_three_term_dw_at_stage_2_depth(seed):
+    """dW over K9's stage-2 depth (B * F * T = 2 * 32 * 4800 = 307,200
+    frames), narrow channels: the split product summed in float64 stays
+    within 4x the float32 plain version's distance from float64."""
+    rng = np.random.default_rng(seed)
+    b, c, f, t, cout = 2, 8, 32, 4800, 8
+    h = torch.from_numpy(rng.standard_normal((b, c, f, t)).astype(np.float32))
+    gz = torch.from_numpy((rng.standard_normal((b, cout, f, t)) * 1e-2).astype(np.float32))
+    exact = dw_plain(h.double(), gz.double())
+    (hh, hl), (gh, gl) = tf32_split_plain(h), tf32_split_plain(gz)
+    split = sum(dw_plain(x.double(), y.double()) for x, y in ((hl, gh), (hh, gl), (hh, gh)))
+    plain = dw_plain(h, gz)
+    d_split = (split - exact).abs().max().item()
+    d_plain = (plain.double() - exact).abs().max().item()
+    assert d_split <= 4 * d_plain, (d_split, d_plain)
