@@ -12,7 +12,7 @@ Phases, each printing its own lines:
    spills per kernel and the HMMA / HGMMA / IMMA count in the SASS of each
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128, K8's int8 GEMM and
-   the split-TF32 float32 kernels of K6 and K9's dW among them), failing if
+   the split-TF32 float32 kernels of K4, K6, K7 and K9's dW among them), failing if
    one has none or if a K4 / K6 kernel past head dim 128 or a split-TF32
    kernel spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
@@ -46,8 +46,9 @@ Phases, each printing its own lines:
    float32 flagship instances of K2, K3, K4, K5 F1 / F2 / B2, K6, K7, K9 F1
    / F2 / dW / dx, K2w, K10a and K10b (and K4 / K6 at D 160) beside their
    library call in float32 with TF32 off and their float32 bound (the
-   ``[f32]`` lines), the split-TF32 kernels (K6 at D 48, K9's dW at stage 2,
-   on the grid's inputs and on real-valued ones) also held to float64: each
+   ``[f32]`` lines), the split-TF32 kernels (K4 and K6 at D 48, K7 at M 9600
+   with dx through the autograd Function, K9's dW at stage 2, on the grid's
+   inputs and on real-valued ones) also held to float64: each
    within F64_FACTOR x the float32 plain version's distance from the plain
    version in float64 (K9's dW: the plain version with cuDNN off, whose
    float32 wgrad is printed beside); K2w's and
@@ -250,9 +251,10 @@ PREDICT_STEPS_TIMED = 3
 # tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
 # three at head dims past 128, in column groups: WIDE_ATTN_KERNELS), K7, K1's
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
-# int8 GEMM (IMMA); and the float32 kernels of K6 and K9's dW in split TF32
-# (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product)
-TF32_KERNELS = ("flash_dq_tf32_kernel", "flash_dkv_tf32_kernel", "ct_dw_tf32_kernel")
+# int8 GEMM (IMMA); and the float32 kernels of K4, K6, K7 and K9's dW in split
+# TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product)
+TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
+                "hamilton_tf32_kernel", "ct_dw_tf32_kernel")
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
                      "flash_dkv_wide_tc_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
@@ -264,15 +266,16 @@ TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
 # bf16 and TF32 (HMMA, HGMMA) and int8 (IMMA) products
 TC_OPS = re.compile(r"\b(?:HG?MMA|IMMA)\b")
 # device kernels read out of the step profiles (phases 5a, 5b, 6 and 7), by
-# demangled name: K6's three launches (bf16, or float32 in phase 5a's profiled
-# float32 step), K9's and K5's dW (K5's B2: the g_z pass and the dW tile;
-# their reductions share reduce_kernel with other passes), K5's F1 and K7
-PROFILE_WATCH = {"K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
+# demangled name: K4's and K6's launches (bf16, or float32 in phase 5a's
+# profiled float32 step), K9's and K5's dW (K5's B2: the g_z pass and the dW
+# tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
+PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
+                 "K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                         "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"),
                  "K9 dW": ("ct_dw_tc_kernel<32>", "ct_dw_tf32_kernel"),
                  "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
                  "K5 F1": ("train_stats_tc_kernel",),
-                 "K7": ("hamilton_tc_kernel",)}
+                 "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
 # device kernels read out of the serving profiles (phase 4), by demangled name
 SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
                  "K3": ("conv3x3_tc_kernel",), "K4": ("flash_fwd_tc_kernel",)}
@@ -775,7 +778,13 @@ def phase_kernels(torch, card: str) -> dict:
             if tag == "flagship" and dt == torch.float32:
                 f32_row(card, "flash_attn_fwd", tag, timed[0],
                         time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                        4.0 * b * h * t * t * d_head, nbytes(q, k_, v, o, lse))
+                        4.0 * b * h * t * t * d_head, nbytes(q, k_, v, o, lse),
+                        split_tf32=True)
+                # the split-TF32 forward against the plain version in float64
+                exact = flash_attention_plain(q.double(), k_.double(), v.double(), scale)
+                for n, a, w_, e in zip(("out", "lse"), (o, lse), (o_ref, lse_ref), exact):
+                    f64_gate(card, "flash_attn_fwd", f"{tag} {n}", a, w_, e)
+                del exact
             if tag == "flagship" and dt == torch.bfloat16:
                 lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)
                 lib_ms = time_ms(torch, lib)
@@ -1378,7 +1387,25 @@ def phase_k7_k8(torch, card: str, record) -> None:
                     print(f"[kernel] hamilton_matmul f32 M {m}: {timed[0]:.3f} ms, plain "
                           f"{timed[1]:.3f} ms, library (addmm) {lib_ms:.3f} ms, bound "
                           f"{bound_ms:.4f} ms by {bound_by} ({card})")
-                    f32_row(card, "hamilton_matmul", f"M {m}", timed[0], lib_ms, flops, moved)
+                    f32_row(card, "hamilton_matmul", f"M {m}", timed[0], lib_ms, flops, moved,
+                            split_tf32=True)
+                    # the split-TF32 kernel against the plain version in float64: the
+                    # forward, and dx through the autograd Function (K7 on the conjugate)
+                    f64_gate(card, "hamilton_matmul", f"M {m} out", got, plain(),
+                             k7.hamilton_matmul_plain(x.double(), comps.double(),
+                                                      bias.double(), n, table))
+                    g = randn(m, n * cout_c)
+                    dx = []
+                    for fn, dt_ in ((k7._HamiltonMatmulFn.apply, torch.float32),
+                                    (k7.hamilton_matmul_plain, torch.float32),
+                                    (k7.hamilton_matmul_plain, torch.float64)):
+                        leaf = x.detach().to(dt_).clone().requires_grad_()
+                        (fn(leaf, comps.to(dt_), bias.to(dt_), n, table) * g.to(dt_)).sum() \
+                            .backward()
+                        dx.append(leaf.grad)
+                    f64_gate(card, "hamilton_matmul", f"M {m} dx", *dx)
+                    require(torch.equal(kern(), got), f"hamilton_matmul f32 M {m}: "
+                            "not repeatable")
             if tag == "ragged":
                 # the autograd Function (K7 forward, K7 on the conjugate for dx)
                 g = randn(m, n * cout_c).to(dt)

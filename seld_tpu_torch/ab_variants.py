@@ -26,8 +26,9 @@ them.
 seld_tpu_torch.ab_variants --digest`` once in each copy (this tree's
 ``ab_variants.py`` goes over the base's, as the profiler does): one line
 per case of :func:`hash_cases`, the first 16 hex digits of the sha256 of
-the output's bytes, for every bfloat16 kernel and the float32 slice kernels
-past head dim 128, on inputs from one seeded generator on the device. Equal
+the output's bytes, for every bfloat16 kernel, the float32 slice kernels
+past head dim 128 and the split-TF32 K4 (D 48) and K7, on inputs from one
+seeded generator on the device. Equal
 code gives equal bits (every kernel there reduces in a fixed order); the
 runner exits 1 where a case differs. ``--tests`` runs the given tests
 (pytest node ids under ``tests/``) once in each copy, each version's package
@@ -205,8 +206,13 @@ def hash_cases(device):
         tag = f"D {d} {'bf16' if dt == bf16 else 'f32'}"
         out.append((f"K4 {tag}", lambda q=q, k=k, v=v, d=d: flash_attention(q, k, v, d ** -0.5)))
         out.append((f"K6 {tag}", lambda q=q, k=k, v=v, do=do, d=d: k6(q, k, v, do, d ** -0.5)))
+    # K4 in float32 at D 48 (split TF32)
+    q, k, v = (randn(2, 200, 3, 48, dt=torch.float32) for _ in range(3))
+    out.append(("K4 D 48 f32", lambda: flash_attention(q, k, v, 48 ** -0.5)))
     xm, comps, bm = randn(1037, 8 * 48), randn(8, 48, 48, sc=48 ** -0.5), randn(8 * 48)
     out.append(("K7 bf16", lambda: (hamilton_matmul(xm, comps, bm, 8, False),)))
+    xf, cf, bf = (a.float() for a in (xm, comps, bm))
+    out.append(("K7 f32", lambda: (hamilton_matmul(xf, cf, bf, 8, False),)))
     w_q, w_s = quantize_weight_per_channel(randn(384, 384, dt=torch.float32, sc=384 ** -0.5))
     xq = randn(1200, 384)
     out.append(("K8 bf16", lambda: (int8_matmul(xq, w_q, w_s, None),)))

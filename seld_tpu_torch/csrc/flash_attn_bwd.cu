@@ -378,22 +378,6 @@ constexpr size_t dkv_tf32_smem_bytes() {   // k, v; two stages of (q, dout) and 
   return sizeof(float) * (6 * kTcB * (D + 4) + 4 * kTcB);
 }
 
-// rows [r0, r0 + 64) of a (B, T, H, D) float tensor at base -> dst [64][D +
-// 4], rows past T zero-filled, by 16-byte cp.async copies.
-template <int D>
-static __device__ __forceinline__ void tf32_load_rows(float* __restrict__ dst,
-                                                      const float* __restrict__ src, size_t base,
-                                                      size_t tstride, int r0, int t_dim) {
-  constexpr int kVecs = D / 4;
-  for (int e = threadIdx.x; e < kTcB * kVecs; e += kAttnThreads) {
-    const int r = e / kVecs, c = e % kVecs;
-    const bool ok = r0 + r < t_dim;
-    cp_async16(dst + r * (D + 4) + 4 * c,
-               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 4 * c : src,
-               ok ? 16 : 0);
-  }
-}
-
 // s (16 x kN) = A B^T over D: A this warp's 16 rows at `a`, B kN rows of a
 // tile from `b`; both [row][D + 4]. s[nt] is columns (B rows) 8 nt .. 8 nt + 7.
 template <int D, int kN = kTcB>

@@ -40,11 +40,16 @@
 // tolerance (2e-2 x max|ref|), as the plain version, which rounds the
 // normalized probabilities to v's dtype, shows on the card.
 //
-// float32: the SIMT kernel (flash_fwd_kernel): 256 threads, four per query
-// row; each thread scores 16 keys of its row, the row's max and sum are
-// reduced across its four threads with warp shuffles, and the running max,
-// sum and the D-wide output accumulator (D/4 floats per thread) are kept in
-// float; TF32 stays off.
+// float32 at D <= 128: the same shape in split TF32 (flash_fwd_tf32_kernel,
+// below): every product three mma.sync.m16n8k8 TF32 products on hi + lo
+// splits of its operands (mma.cuh), each k8 step's three summed from zero
+// on the tensor cores, then added to float accumulators rounded to nearest;
+// the softmax in float with expf; held to float64 on the card (within 4x
+// the float32 plain version's distance, TF32 off). What bounds it: 4 B H T^2
+// D multiply-adds, three TF32 products each (0.107 ms at B 2, T 2400, 8
+// heads of 48), and the issue slots of the splits, the two-level sums' adds
+// and the exponentials beside them.
+// Past 128, float32 takes the SIMT slice kernel at the end of this file.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -52,119 +57,11 @@
 
 namespace {
 
+// the float32 slice kernel past 128: 64 queries a block, 64-key tiles, four
+// threads a query row
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
-constexpr int kThreads = 256;   // four per query row
-
-template <int D>
-constexpr size_t smem_floats() {
-  return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int t_dim, int heads,
-                 float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kBQ][D + 1]
-  float* ks = qs + kBQ * (D + 1);          // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);          // [kBK][D]
-  float* ps = vs + kBK * D;                // [kBQ][kBK + 1]
-
-  const int tid = threadIdx.x;
-  const int row = tid / 4;
-  const int sub = tid % 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  // element (b, t, h, d) of a (B, T, H, D) tensor
-  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
-  const size_t tstride = static_cast<size_t>(heads) * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    qs[r * (D + 1) + d] = q0 + r < t_dim ? to_f(q[base + (q0 + r) * tstride + d]) : 0.f;
-  }
-
-  constexpr int kE = D / 4;   // output lanes per thread: d = sub + 4 e
-  float acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < t_dim; k0 += kBK) {
-    __syncthreads();   // previous tile's readers are done (and qs is staged)
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      const bool ok = k0 + r < t_dim;
-      const size_t off = base + (k0 + r) * tstride + d;
-      ks[r * (D + 1) + d] = ok ? to_f(k[off]) : 0.f;
-      vs[r * D + d] = ok ? to_f(v[off]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kBK / 4];
-    float smax = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      const int c = sub + 4 * j;
-      const float* qr = qs + row * (D + 1);
-      const float* kr = ks + c * (D + 1);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      s[j] = k0 + c < t_dim ? dot * scale : -CUDART_INF_F;
-      smax = fmaxf(smax, s[j]);
-    }
-    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 1));
-    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 2));
-    const float m_new = fmaxf(m, smax);   // finite: every tile holds a valid key
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      ps[row * (kBK + 1) + sub + 4 * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) acc[e] *= alpha;
-    __syncwarp();   // a row's four threads share one warp and one ps row
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float p = ps[row * (kBK + 1) + c];
-      const float* vr = vs + c * D + sub;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] = fmaf(p, vr[4 * e], acc[e]);
-    }
-  }
-
-  const int t = q0 + row;
-  if (t < t_dim) {
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) store_f(out + base + t * tstride + sub + 4 * e, acc[e] * inv);
-    if (sub == 0) lse[static_cast<size_t>(bh) * t_dim + t] = m + logf(l);
-  }
-}
-
-// ---- bfloat16: FlashAttention-2 on mma.sync.m16n8k16 ----------------------
-
-constexpr int kTcK = kAttnRows;   // keys per tile
-constexpr int kTcStages = 3;      // (k, v) tiles in the ring
-
-// kQ queries a block (64 or 128): kQ / 16 warps of 16 query rows.
-template <int D, int kQ>
-constexpr size_t tc_smem_bytes() {   // q, then kTcStages (k, v) stages, rows padded to D + 8
-  return sizeof(bf16) * (kQ + 2 * kTcStages * kTcK) * (D + 8);
-}
+constexpr int kThreads = 256;
 
 // 2^x on the MUFU alone (ex2.approx.ftz: results below 2^-126 flush to 0,
 // -inf gives 0); exp2f adds a range fix-up around it.
@@ -184,6 +81,259 @@ static __device__ __forceinline__ void mask_keys(float (&s)[kNT][4], int valid) 
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       if (nt * 8 + 2 * quad + (e % 2) >= valid) s[nt][e] = -CUDART_INF_F;
+}
+
+// ---- float32 at D <= 128: split TF32 on mma.sync.m16n8k8 -------------------
+// K and V are split into hi + lo once, as each tile lands, up to this D (the
+// planes take two more tiles of shared memory: at D 128 the ring, Q and the
+// planes would not fit), past it by each warp as it reads its fragments. At
+// D 48 the split at staging ran 1-11% faster than on read, in turns
+// (PERF.md section 6).
+constexpr int kSplitAtStagingMaxD = 64;
+constexpr int kTfStages = 2;   // (k, v) tiles in the ring
+
+template <int D>
+constexpr size_t fwd_tf32_smem_bytes() {   // the ring's (k, v) tiles, then K's and V's lo planes, or Q
+  return sizeof(float) * (2 * kTfStages + (D <= kSplitAtStagingMaxD ? 2 : 1)) * kAttnRows *
+         (D + 4);
+}
+
+// hi + lo of this thread's own copies of a landed [64][D + 4] tile
+// (tf32_load_rows' pattern, so no other thread's copies are read): hi in
+// place, lo into `lo` at the same offsets.
+template <int D>
+static __device__ __forceinline__ void tf32_split_rows(float* __restrict__ tile,
+                                                       uint32_t* __restrict__ lo) {
+  constexpr int kVecs = D / 4;
+  for (int e = threadIdx.x; e < kAttnRows * kVecs; e += kAttnThreads) {
+    const int at = (e / kVecs) * (D + 4) + 4 * (e % kVecs);
+    const float4 x = *reinterpret_cast<const float4*>(tile + at);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(tile + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
+// The B fragment (hi, lo) at word `at` of a tile and `at + step`: the staged
+// planes (hi in place, lo beside) where kStaged, else split as it is read.
+template <bool kStaged>
+static __device__ __forceinline__ void tf32_b(const float* __restrict__ tile,
+                                              const uint32_t* __restrict__ lo, int at, int step,
+                                              uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  if constexpr (kStaged) {
+    bh[0] = __float_as_uint(tile[at]);
+    bh[1] = __float_as_uint(tile[at + step]);
+    bl[0] = lo[at];
+    bl[1] = lo[at + step];
+  } else {
+    split_tf32(tile[at], bh[0], bl[0]);
+    split_tf32(tile[at + step], bh[1], bl[1]);
+  }
+}
+
+// One block per (b*h, 64-query tile): 4 warps of 16 query rows, Q staged
+// once (its split fragments kept in registers up to D 64, read and split
+// again each tile at D 128), 64-key tiles of K and V through a two-stage
+// cp.async ring, two barriers a tile: K and V split into their planes (where
+// kStaged), then the products, then the tile's stage freed for tile j + 2.
+// Per tile: S = Q K^T, each k8 step through mma_3xtf32_add; keys past T to
+// -inf; the online softmax on the accumulator fragments in float (the row
+// max across the quad, expf, a thread's share of the row sum l in float:
+// a column of ones on the tensor cores would round P to TF32); O += P V
+// with P split as it leaves the accumulators and fed as the A operand by
+// permuting the keys of each 8-group (slot t is key 2t, slot t + 4 key 2t +
+// 1; V read at rows 2t and 2t + 1, as K6's float passes do). Rows past T
+// are computed on zeros and not stored.
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int t_dim, int heads, float scale) {
+  constexpr int kP = D + 4, kT = kAttnRows * kP;
+  constexpr bool kStaged = D <= kSplitAtStagingMaxD, kQRegs = D <= 64;
+  static_assert(!kStaged || kQRegs, "the lo planes take Q's place");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* ring = reinterpret_cast<float*>(tc_smem);   // per stage: k, v [64][kP]
+  float* extra = ring + 2 * kTfStages * kT;          // K's, V's lo planes (Q first), or Q
+  uint32_t* klo = reinterpret_cast<uint32_t*>(extra);
+  uint32_t* vlo = klo + kT;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kAttnRows;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * D;
+  const size_t tstride = static_cast<size_t>(heads) * D;
+  const int n_tiles = ceil_div(t_dim, kAttnRows);
+  const int last_valid = t_dim - (n_tiles - 1) * kAttnRows;   // keys of the last tile
+  const auto stage = [&](int j) { return ring + (j % kTfStages) * 2 * kT; };
+  // tile j's k and v, one commit group (empty past the last tile)
+  const auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      tf32_load_rows<D>(stage(j), k, base, tstride, j * kAttnRows, t_dim);
+      tf32_load_rows<D>(stage(j) + kT, v, base, tstride, j * kAttnRows, t_dim);
+    }
+    cp_async_commit();
+  };
+
+  tf32_load_rows<D>(extra, q, base, tstride, q0, t_dim);   // with tile 0
+  load_tile(0);
+  load_tile(1);
+  cp_async_wait_group<1>();
+  __syncthreads();
+
+  // this warp's 16 query rows: A fragments (rows g, g + 8 x d t, t + 4) of
+  // each k8 step, split
+  const float* qw = extra + warp * 16 * kP + g * kP + t;
+  const auto qsplit = [&](int kd, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    split_tf32(qw[8 * kd], ah[0], al[0]);
+    split_tf32(qw[8 * kP + 8 * kd], ah[1], al[1]);
+    split_tf32(qw[8 * kd + 4], ah[2], al[2]);
+    split_tf32(qw[8 * kP + 8 * kd + 4], ah[3], al[3]);
+  };
+  uint32_t qh[kQRegs ? D / 8 : 1][4], ql[kQRegs ? D / 8 : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kd = 0; kd < D / 8; ++kd) qsplit(kd, qh[kd], ql[kd]);
+  }
+  if constexpr (kStaged) __syncthreads();   // Q is in registers before the planes take its place
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // rows g and g + 8, scaled scores
+  float l_run[2] = {0.f, 0.f};   // this thread's share of the rows' sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_group<1>();   // tile j's copies by this thread have landed
+    float* ks = stage(j);
+    float* vs = ks + kT;
+    if constexpr (kStaged) {
+      tf32_split_rows<D>(ks, klo);
+      tf32_split_rows<D>(vs, vlo);
+    }
+    __syncthreads();   // tile j (and its planes) complete
+
+    float s[kAttnRows / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 8; ++kd) {
+      uint32_t ah[4], al[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[kd][i];
+          al[i] = ql[kd][i];
+        }
+      } else {
+        qsplit(kd, ah, al);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kAttnRows / 8; ++nt) {   // K rows (keys) 8 nt + g, d t, t + 4
+        uint32_t bh_[2], bl_[2];
+        tf32_b<kStaged>(ks, klo, (8 * nt + g) * kP + 8 * kd + t, 4, bh_, bl_);
+        mma_3xtf32_add(s[nt], ah, al, bh_, bl_);
+      }
+    }
+    if (j == n_tiles - 1 && last_valid < kAttnRows) mask_keys(s, last_valid);
+
+    // the online softmax on the fragments, in float
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      // finite: every tile holds a key; scale > 0 keeps the max's place
+      const float m_new = fmaxf(m_run[hh], mx[hh] * scale);
+      alpha[hh] = expf(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+      l_run[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(fmaf(s[nt][e], scale, -m_run[e / 2]));
+        l_run[e / 2] += s[nt][e];
+      }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+
+    // O += P V: P split as the A operand, keys permuted within each 8-group
+#pragma unroll
+    for (int kk = 0; kk < kAttnRows / 8; ++kk) {
+      uint32_t ah[4], al[4];   // slots t, t + 4 = keys 2t, 2t + 1: c0, c2, c1, c3
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {   // V rows 8 kk + 2t, + 1, column 8 dt + g
+        uint32_t bh_[2], bl_[2];
+        tf32_b<kStaged>(vs, vlo, (8 * kk + 2 * t) * kP + 8 * dt + g, kP, bh_, bl_);
+        mma_3xtf32_add(o[dt], ah, al, bh_, bl_);
+      }
+    }
+    __syncthreads();   // every warp is done with tile j's stage and planes
+    load_tile(j + 2);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lr = l_run[hh];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row >= t_dim) continue;
+    const float inv = 1.f / lr;
+    float* orow = out + base + static_cast<size_t>(row) * tstride;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
+          make_float2(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+    if (t == 0) lse[static_cast<size_t>(bh) * t_dim + row] = m_run[hh] + logf(lr);
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, float* out, float* lse,
+                        int batch, int t_dim, int heads, float scale, cudaStream_t stream) {
+  const void* rows[] = {q, k, v, out};   // 16-byte copies and float2 stores
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  constexpr size_t smem = fwd_tf32_smem_bytes<D>();
+  cudaError_t err = set_smem(flash_fwd_tf32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(t_dim, kAttnRows), batch * heads);
+  flash_fwd_tf32_kernel<D><<<grid, kAttnThreads, smem, stream>>>(q, k, v, out, lse, t_dim, heads,
+                                                                  scale);
+  return cudaGetLastError();
+}
+
+// ---- bfloat16: FlashAttention-2 on mma.sync.m16n8k16 ----------------------
+
+constexpr int kTcK = kAttnRows;   // keys per tile
+constexpr int kTcStages = 3;      // (k, v) tiles in the ring
+
+// kQ queries a block (64 or 128): kQ / 16 warps of 16 query rows.
+template <int D, int kQ>
+constexpr size_t tc_smem_bytes() {   // q, then kTcStages (k, v) stages, rows padded to D + 8
+  return sizeof(bf16) * (kQ + 2 * kTcStages * kTcK) * (D + 8);
 }
 
 template <int D, int kQ>
@@ -537,9 +687,10 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, 
 // A block owns 64 queries of one (b, h) and output columns [128 z, 128 z +
 // 128) (grid z): per 64-key tile it sums S over every slice of D, then runs
 // the online softmax and O += P V on its slice of V; the z = 0 block writes
-// the logsumexp. flash_fwd_kernel's threads (four per query row), its
-// scores summed over the slices of D staged one after another, the V slice
-// staged after.
+// the logsumexp. 256 threads, four per query row (each scores 16 keys of its
+// row; the row's max and sum reduced across its four threads by shuffles),
+// its scores summed over the slices of D staged one after another, the V
+// slice staged after. SIMT FMA, TF32 off.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -655,15 +806,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
       return launch_tc<D, 128>(q, k, v, out, lse, batch, t_dim, heads, scale, stream);
     return launch_tc<D, 64>(q, k, v, out, lse, batch, t_dim, heads, scale, stream);
   } else {
-    const size_t smem = sizeof(float) * smem_floats<D>();
-    cudaError_t err = set_smem(flash_fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(ceil_div(t_dim, kBQ), batch * heads);
-    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, t_dim, heads, scale);
+    return launch_tf32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
+                          static_cast<const float*>(v), static_cast<float*>(out), lse, batch,
+                          t_dim, heads, scale, stream);
   }
-  return cudaGetLastError();
 }
 
 // d and the column-group width of attention.head_dim_plan: d in {16, 32, 48,

@@ -41,6 +41,24 @@ static __device__ __forceinline__ void attn_load_rows(bf16* __restrict__ dst,
   }
 }
 
+// The float tiles of the split-TF32 kernels (K4's flash_fwd_tf32_kernel,
+// K6's flash_dq_tf32_kernel and flash_dkv_tf32_kernel): rows [r0, r0 + 64)
+// of a (B, T, H, D) float tensor at base -> dst [64][D + 4] (a pitch of 4
+// mod 8 words), rows past T zero-filled, by 16-byte cp.async copies.
+template <int D>
+static __device__ __forceinline__ void tf32_load_rows(float* __restrict__ dst,
+                                                      const float* __restrict__ src, size_t base,
+                                                      size_t tstride, int r0, int t_dim) {
+  constexpr int kVecs = D / 4;
+  for (int e = threadIdx.x; e < kAttnRows * kVecs; e += kAttnThreads) {
+    const int r = e / kVecs, c = e % kVecs;
+    const bool ok = r0 + r < t_dim;
+    cp_async16(dst + r * (D + 4) + 4 * c,
+               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 4 * c : src,
+               ok ? 16 : 0);
+  }
+}
+
 // The A fragment (16 rows x 16 of D, step kd) of this warp's rows of a
 // staged [64][D + 8] tile.
 template <int D>

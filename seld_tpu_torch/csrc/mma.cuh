@@ -4,8 +4,9 @@
 // mma.sync.m16n8k16 with float accumulators, cp.async 16-byte copies and
 // bf16 packing. The fragment layouts are PTX's for m16n8k16: lane l holds
 // rows l / 4 (+ 8) and columns 2 (l % 4) (+ 1, + 8). The float32 kernels of
-// K6 (flash_attn_bwd.cu) and of K9's dW (conv3x3_dw_tf32.cuh) multiply with
-// the split-TF32 helpers (split_tf32, mma_3xtf32).
+// K4 (flash_attn_fwd.cu), K6 (flash_attn_bwd.cu), K7 (hamilton_matmul.cu)
+// and K9's dW (conv3x3_dw_tf32.cuh) multiply with the split-TF32 helpers
+// (split_tf32, mma_3xtf32, mma_3xtf32_add).
 #pragma once
 
 #include <cstdint>

@@ -15,10 +15,12 @@ as the JAX ``custom_vjp``: dx is K7 again on the cotangent with the
 components' axes 1 and 2 swapped and the other table (the Hamilton
 conjugate), dcomps the signed block sums of x^T g (:func:`structured_dw`,
 x^T g a plain float32 matmul, as XLA computes it outside the JAX kernel), db
-the row sum of g. The kernels are in ``csrc/hamilton_matmul.cu``: float32
-runs a SIMT FMA kernel (TF32 off), bfloat16 an ``mma.sync`` tensor-core
-GEMM that assembles the weight tile in shared memory; one entry point picks
-by dtype, so forward and dx take the same kernel.
+the row sum of g. The kernels are in ``csrc/hamilton_matmul.cu``, both
+``mma.sync`` tensor-core GEMMs that assemble the weight tile in shared
+memory: float32 in split TF32 (three TF32 products for each float32 one,
+float32's accuracy; ``ops/kernels/tf32.py`` repeats its arithmetic on the
+CPU), bfloat16 on bf16 operands; one entry point picks by dtype, so forward
+and dx take the same kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def hamilton_matmul(x2d: torch.Tensor, comps: torch.Tensor, bias: Optional[torch
     """x2d (M, n cin) @ assemble(comps (n, cin, cout)) + bias -> (M, n cout)
     in x's dtype (float32 or bfloat16; comps in the same dtype). CPU tensors
     take :func:`hamilton_matmul_plain`; CUDA tensors launch
-    ``seld_hamilton_matmul`` (the SIMT kernel in float32, the tensor-core one
+    ``seld_hamilton_matmul`` (the split-TF32 kernel in float32, the bf16 one
     in bfloat16)."""
     _check(x2d, comps, bias, n_comp)
     tensors = (x2d, comps) if bias is None else (x2d, comps, bias)

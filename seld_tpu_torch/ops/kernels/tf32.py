@@ -1,5 +1,6 @@
-"""The split-TF32 arithmetic of the float32 tensor-core kernels (K6's
-``flash_dq_tf32_kernel`` / ``flash_dkv_tf32_kernel`` and K9's
+"""The split-TF32 arithmetic of the float32 tensor-core kernels (K4's
+``flash_fwd_tf32_kernel``, K6's ``flash_dq_tf32_kernel`` /
+``flash_dkv_tf32_kernel``, K7's ``hamilton_tf32_kernel`` and K9's
 ``ct_dw_tf32_kernel``, helpers in ``csrc/mma.cuh``), in plain PyTorch for
 the tests: no wrapper calls it.
 
@@ -8,12 +9,19 @@ tf32 rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
 zero, the low 13 of the 23 fraction bits zero). A product a b is taken as
 a_lo b_hi + a_hi b_lo + a_hi b_hi, three TF32 products, each exact in
 float64 (two TF32 values' product has 22 significant bits); the kernels add
-them on float accumulators.
+them on float accumulators, each k8 step's three from zero, then the step's
+partial into the float accumulator rounded to nearest (``mma_3xtf32_add``).
+:func:`hamilton_matmul_tf32_plain` and :func:`flash_attention_tf32_plain`
+repeat K7's and K4's arithmetic so: each step's partial summed in float64
+and rounded once to float32 (the tensor cores sum a step's products in
+their own order and truncate, which the card's tests hold to float64).
 """
 
 from __future__ import annotations
 
 import torch
+
+from seld_tpu_torch.ops.hamilton import assemble_hamilton
 
 _LOW = 0x1FFF         # the 13 fraction bits TF32 drops
 _HALF = 0x1000        # half a TF32 ulp in them
@@ -59,3 +67,57 @@ def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     infinity, lo a NaN or a zero."""
     hi = tf32_round_plain(x)
     return hi, tf32_add_half_and_mask(x - hi)
+
+
+def _split_products(a_hi, a_lo, b_hi, b_lo, acc=None) -> torch.Tensor:
+    """acc + the sum over k8 steps of (a_lo b_hi + a_hi b_lo + a_hi b_hi)[step]
+    (a (..., K), b (..., K, N)), each step's three products in float64 rounded
+    once to float32 and added to the float32 accumulator in order."""
+    for k0 in range(0, a_hi.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        step = sum(x[..., sl].double() @ y[..., sl, :].double()
+                   for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))).float()
+        acc = step if acc is None else acc + step
+    return acc
+
+
+def hamilton_matmul_tf32_plain(x2d: torch.Tensor, comps: torch.Tensor, bias, n_comp: int,
+                               linear_table: bool) -> torch.Tensor:
+    """K7's float32 arithmetic (``hamilton_tf32_kernel``): x and the
+    assembled weight (signs exact) split into hi + lo, x (M, n cin) times
+    the weight in k8 steps of three products, then the bias added in
+    float32; ``hamilton_matmul_plain``'s contract."""
+    w = assemble_hamilton(comps, linear_table)
+    (xh, xl), (wh, wl) = tf32_split_plain(x2d), tf32_split_plain(w)
+    out = _split_products(xh, xl, wh, wl)
+    return out if bias is None else out + bias
+
+
+def flash_attention_tf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                               tile: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's float32 arithmetic (``flash_fwd_tf32_kernel``) on q, k, v (B, T,
+    H, D) float32: per tile of ``tile`` keys, S = Q K^T in k8 steps of three
+    products over D; the online softmax in float32 (the running max of the
+    scaled scores, p = exp(s * scale - m) with s * scale - m rounded once as
+    the kernel's fma, the row sums in float32); O += P V in k8 steps of three
+    products over the tile's keys; then out = O * (1 / l), lse = m + log l.
+    ``flash_attention_plain``'s contract: (out (B, T, H, D), lse (B, H, T))."""
+    qt, kt, vt = (a.permute(0, 2, 1, 3) for a in (q, k, v))   # (B, H, T, D)
+    (qh, ql) = tf32_split_plain(qt.contiguous())
+    b, h, t, d = qt.shape
+    m = torch.full((b, h, t), -float("inf"))
+    l = torch.zeros((b, h, t))
+    o = torch.zeros((b, h, t, d))
+    for j0 in range(0, t, tile):
+        (kh, kl), (vh, vl) = (tf32_split_plain(a[:, :, j0:j0 + tile].contiguous())
+                              for a in (kt, vt))
+        s = _split_products(qh, ql, kh.transpose(-1, -2), kl.transpose(-1, -2))
+        m_new = torch.maximum(m, s.max(-1).values * scale)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp((s.double() * scale - m_new.double()[..., None]).float())
+        l = l * alpha + p.sum(-1)
+        ph, pl = tf32_split_plain(p)
+        o = _split_products(ph, pl, vh, vl, o * alpha[..., None])
+        m = m_new
+    out = o * (1.0 / l)[..., None]
+    return out.permute(0, 2, 1, 3).contiguous(), m + torch.log(l)

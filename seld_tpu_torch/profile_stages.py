@@ -22,10 +22,12 @@ dispatch baseline, always runs. Sections:
   / 2 after the TCN's time pool, 8 heads of 48, then of 160, 256 and 640:
   ``ATTN_WIDE_DIMS``, the kernels past head dim 128) beside
   ``scaled_dot_product_attention`` and its backward on the same inputs;
-- ``f32``: the float32 kernels of the training step in split TF32 beside
-  their library call in float32 (TF32 off): K6 at the flagship's attention
-  (T = frames / 2, 8 heads of 48) beside SDPA's backward, and K9's dW at
-  stage 2 beside cuDNN's weight gradient, on the same inputs;
+- ``f32``: the float32 kernels in split TF32 beside their library call in
+  float32 (TF32 off), on the same inputs: K4 and K6 at the flagship's
+  attention (T = frames / 2, 8 heads of 48) beside SDPA's forward and
+  backward, K7 (the DQ conv table) at the flagship's pointwise convs (M =
+  batch x frames, 384 x 384) beside ``addmm`` on the assembled weight, and
+  K9's dW at stage 2 beside cuDNN's weight gradient;
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -263,22 +265,38 @@ def attn(batch, device, shapes=FLAGSHIP):
 
 
 def f32(batch, device, shapes=FLAGSHIP):
+    from seld_tpu_torch.ops.hamilton import assemble_hamilton
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
     from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
+    from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul
 
     gen = torch.Generator(device=device).manual_seed(0)
     t, h, d = shapes["frames"] // 2, shapes["heads"], shapes["head_dim"]
     q, k, v, dout = (_randn(device, batch, t, h, d, gen=gen) for _ in range(4))
     scale = d ** -0.5
     out, lse = flash_attention(q, k, v, scale)
+    yield (f"f32: K4 forward (T {t}, {h} x {d})",
+           lambda a, b_, c: flash_attention(a, b_, c, scale), (q, k, v))
+    leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+    yield ("f32: SDPA forward",
+           lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, scale=scale),
+           [a.detach() for a in leaves])
     yield (f"f32: K6 backward (T {t}, {h} x {d})",
            lambda *a: flash_attention_bwd(*a, scale), (q, k, v, out, dout, lse))
-    leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
     yield ("f32: SDPA backward",
            lambda g: torch.autograd.grad(o_lib, leaves, g, retain_graph=True),
            (dout.transpose(1, 2).contiguous(),))
     del q, k, v, dout, out, lse, leaves, o_lib
+    width, rows = shapes["tcn_width"], batch * shapes["frames"]
+    x = _randn(device, rows, width, gen=gen)
+    comps = _randn(device, 8, width // 8, width // 8, gen=gen) / (width // 8) ** 0.5
+    bias = _randn(device, width, gen=gen)
+    w_full = assemble_hamilton(comps, False)
+    yield (f"f32: K7 DQ (M {rows}, {width}x{width})",
+           lambda xx, cc: hamilton_matmul(xx, cc, bias, 8, False), (x, comps))
+    yield "f32: addmm", lambda xx, ww: torch.addmm(bias, xx, ww), (x, w_full)
+    del x, comps, bias, w_full
     c, f, t = shapes["filters"], shapes["freq"] // shapes["pools"][0], shapes["frames"]
     x = _randn(device, batch, c, f, t, gen=gen)
     gz = _randn(device, batch, c, f, t, gen=gen) / 100

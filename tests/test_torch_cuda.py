@@ -496,6 +496,43 @@ def test_flash_attention_bwd_tf32_keeps_nans(gen, bits, d):
         assert torch.equal(torch.isnan(a), torch.isnan(b_))
 
 
+@pytest.mark.parametrize("b,t,h,d", K6_F32_CASES)
+def test_flash_attention_fwd_tf32(gen, b, t, h, d):
+    """K4's float32 forward (flash_fwd_tf32_kernel: K and V split at staging
+    up to D 64, as read at D 128) against the plain version in float32, TF32
+    off: out and lse within 4x the plain version's distance from float64,
+    within 2e-4 x max of it, one launch, and bitwise on a rerun."""
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(3))
+    scale = d ** -0.5
+    got = flash_attention(q, k, v, scale)
+    assert launch_counts["flash_attn_fwd"] == 1
+    want = flash_attention_plain(q, k, v, scale)
+    exact = flash_attention_plain(q.double(), k.double(), v.double(), scale)
+    for n, a, b_, e in zip(("out", "lse"), got, want, exact):
+        _f64_gate(f"K4 D {d} T {t} {n}", a, b_, e)
+        _close(a, b_, torch.float32)
+    for a, b_ in zip(flash_attention(q, k, v, scale), got):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+@pytest.mark.parametrize("d", [48, 128])
+def test_flash_attention_fwd_tf32_keeps_nans(gen, bits, d):
+    """A NaN in q (batch 0), k (batch 1) or v (batch 2) of K4's float32
+    forward comes out NaN in out and lse exactly where the plain version's
+    does: q's row, all of k's (b, h), v's column."""
+    b, t, h = 3, 200, 2
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(3))
+    q, k = _put_nan(q, (0, 70, 1, 5), bits), _put_nan(k, (1, 131, 0, 9), bits)
+    v = _put_nan(v, (2, 17, 1, 3), bits)
+    got = flash_attention(q, k, v, d ** -0.5)
+    want = flash_attention_plain(q, k, v, d ** -0.5)
+    for bb in range(b):
+        assert bool(torch.isnan(want[0][bb]).any()) and not bool(torch.isnan(want[0][bb]).all())
+    for a, b_ in zip(got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b_))
+
+
 def test_cuda_tensors_never_take_the_plain_path(gen):
     """A CUDA tensor launches or raises: mixed devices and unsupported shapes
     raise instead of running the plain version."""
@@ -767,6 +804,65 @@ def test_hamilton_matmul_function_gradients(gen, dtype, m, n, cin_c, cout_c, lin
     assert launch_counts["hamilton_matmul"] == 2   # forward and dx
     for got, want in zip(*results):
         _close(got, want, dtype)
+
+
+def _misaligned(a):
+    """a's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary (K7 then stages that operand element by element)."""
+    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = flat[1:].view(a.shape)
+    out.copy_(a)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("m,n,cin_c,cout_c,linear_table", K7_CASES)
+def test_hamilton_matmul_tf32(gen, m, n, cin_c, cout_c, linear_table):
+    """K7 in float32 (hamilton_tf32_kernel), with bias and without, x and
+    comps also unaligned (element-by-element staging; cout_c 10 and 6 force
+    it for the weight anyway): within 2e-4 x max of the plain version and
+    within 4x its distance from float64, bitwise on a rerun; dx through the
+    autograd Function (K7 on the conjugate) within 4x the plain autograd's
+    distance from float64."""
+    x = torch.randn(m, n * cin_c, generator=gen, device="cuda")
+    comps = torch.randn(n, cin_c, cout_c, generator=gen, device="cuda") / cin_c ** 0.5
+    bias = torch.randn(n * cout_c, generator=gen, device="cuda")
+    for xx, cc in ((x, comps), (_misaligned(x), _misaligned(comps))):
+        for b in (bias, None):
+            reset_launch_counts()
+            got = k7.hamilton_matmul(xx, cc, b, n, linear_table)
+            assert launch_counts["hamilton_matmul"] == 1
+            exact = k7.hamilton_matmul_plain(xx.double(), cc.double(),
+                                             None if b is None else b.double(), n, linear_table)
+            want = k7.hamilton_matmul_plain(xx, cc, b, n, linear_table)
+            _f64_gate(f"K7 {m}x{n}x{cin_c}x{cout_c} {linear_table} bias {b is not None}",
+                      got, want, exact)
+            _close(got, want, torch.float32)
+            assert torch.equal(k7.hamilton_matmul(xx, cc, b, n, linear_table), got)
+    g = torch.randn(m, n * cout_c, generator=gen, device="cuda")
+    dx = []
+    for fn, dt in ((k7._HamiltonMatmulFn.apply, torch.float32),
+                   (k7.hamilton_matmul_plain, torch.float32),
+                   (k7.hamilton_matmul_plain, torch.float64)):
+        leaf = x.detach().to(dt).clone().requires_grad_()
+        (fn(leaf, comps.to(dt), bias.to(dt), n, linear_table) * g.to(dt)).sum().backward()
+        dx.append(leaf.grad)
+    _f64_gate(f"K7 dx {m}x{n}x{cin_c}x{cout_c} {linear_table}", *dx)
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_hamilton_matmul_tf32_keeps_nans(gen, bits):
+    """A NaN in x or in comps of K7's float32 kernel comes out NaN exactly
+    where the plain version's does (x's row; the columns of every block the
+    component takes part in, zero corner included for x)."""
+    m, n, cin_c, cout_c = 300, 8, 48, 48
+    x = _put_nan(torch.randn(m, n * cin_c, generator=gen, device="cuda"), (5, 17), bits)
+    comps = _put_nan(torch.randn(n, cin_c, cout_c, generator=gen, device="cuda"), (2, 7, 30), bits)
+    for table in (False, True):
+        got = k7.hamilton_matmul(x, comps, None, n, table)
+        want = k7.hamilton_matmul_plain(x, comps, None, n, table)
+        assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
 
 
 # (M, Cin, Cout): M below one block (20), ragged against both row tiles, the

@@ -1,20 +1,28 @@
-"""The split-TF32 arithmetic of the float32 tensor-core kernels (K6's
-backward passes and K9's dW, ``csrc/mma.cuh``), through its plain version
-``ops/kernels/tf32.py``, on the CPU: the rounding is ``cvt.rna.tf32.f32``'s
-(held to a float64 reference written independently of the bit trick), a
-non-finite operand never gives a finite product, hi + lo recovers x within
-2^-22 |x|, and the three-term product summed over a K9
-stage-2 depth stays as close to float64 as the float32 plain version. The
-tensor cores' own accumulation is the card's (``tests/test_torch_cuda.py``).
+"""The split-TF32 arithmetic of the float32 tensor-core kernels (K4's
+forward, K6's backward passes, K7 and K9's dW, ``csrc/mma.cuh``), through
+its plain version ``ops/kernels/tf32.py``, on the CPU: the rounding is
+``cvt.rna.tf32.f32``'s (held to a float64 reference written independently
+of the bit trick), a non-finite operand never gives a finite product, hi +
+lo recovers x within 2^-22 |x|, the split is odd in the sign, the
+three-term product summed over a K9 stage-2 depth stays as close to float64
+as the float32 plain version, and so do K7's and K4's whole arithmetic
+(``hamilton_matmul_tf32_plain``, ``flash_attention_tf32_plain``), which
+also agree with the JAX package's functions on the CPU. The tensor cores'
+own accumulation is the card's (``tests/test_torch_cuda.py``). The two
+tests that call the JAX package import it themselves: the rest of the
+module also runs where JAX is not installed (``ab_variants --tests``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from seld_tpu_torch.ops.kernels.attention import flash_attention_plain
 from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
+from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
-    tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
+    flash_attention_tf32_plain, hamilton_matmul_tf32_plain, tf32_add_half_and_mask,
+    tf32_round_plain, tf32_split_plain,
 )
 
 LOW_BITS = 0x1FFF
@@ -124,3 +132,89 @@ def test_three_term_dw_at_stage_2_depth(seed):
     d_split = (split - exact).abs().max().item()
     d_plain = (plain.double() - exact).abs().max().item()
     assert d_split <= 4 * d_plain, (d_split, d_plain)
+
+
+def test_split_is_odd_in_the_sign():
+    """split(-x) = -split(x) on finite x, all exponents: hi bit for bit, and
+    lo bit for bit wherever it is not zero; where lo is zero, it is zero at
+    both signs, but its own sign need not flip (x - hi = +0 for a TF32 value
+    x of either sign), and a zero of either sign adds nothing to a sum. So
+    K7 may negate a component before or after splitting it."""
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2**32, 200_000, dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(bits.view(np.float32))
+    x = torch.cat([x[torch.isfinite(x)], tf32_round_plain(x[torch.isfinite(x)][:1000]),
+                   torch.tensor([0.0, -0.0])])
+    (hi, lo), (hi_n, lo_n) = tf32_split_plain(x), tf32_split_plain(-x)
+    np.testing.assert_array_equal(_bits(hi_n), _bits(-hi))
+    nz = lo != 0
+    assert int((~nz).sum()) >= 1000
+    np.testing.assert_array_equal(_bits(lo_n[nz]), _bits(-lo[nz]))
+    assert bool((lo_n[~nz] == 0).all())
+
+
+def _dist(a, exact):
+    return (a.double() - exact).abs().max().item()
+
+
+# (name, n, cin_c, cout_c, linear_table, the JAX op's name and keywords): the
+# flagship's depth of 384 in each orientation
+K7_OPS = [
+    ("q", 4, 96, 24, False, "pallas_q_linear", {}),
+    ("dq_linear", 8, 48, 48, True, "pallas_dq_linear", {}),
+    ("dq_conv", 8, 48, 48, False, "pallas_dq_linear", {"conv_table": True}),
+]
+
+
+@pytest.mark.parametrize("name,n,cin_c,cout_c,table,jax_op,kw", K7_OPS,
+                         ids=[o[0] for o in K7_OPS])
+def test_k7_split_arithmetic_at_the_flagship_depth(name, n, cin_c, cout_c, table, jax_op, kw):
+    """K7's float32 arithmetic at K = 384: within 4x the float32 plain
+    version's max|d| from float64, and within 1e-5 x max of the Pallas op in
+    interpret mode (the JAX package's bound for its kernel)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from seld_tpu.ops.pallas import qmatmul as jqm
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((96, n * cin_c)).astype(np.float32)
+    comps = (rng.standard_normal((n, cin_c, cout_c)) / cin_c ** 0.5).astype(np.float32)
+    bias = rng.standard_normal(n * cout_c).astype(np.float32)
+    xt, ct, bt = map(torch.from_numpy, (x, comps, bias))
+    got = hamilton_matmul_tf32_plain(xt, ct, bt, n, table)
+    exact = hamilton_matmul_plain(xt.double(), ct.double(), bt.double(), n, table)
+    d_split, d_plain = _dist(got, exact), _dist(hamilton_matmul_plain(xt, ct, bt, n, table), exact)
+    assert d_split <= 4 * d_plain, (d_split, d_plain)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(getattr(jqm, jax_op)(jnp.asarray(x), jnp.asarray(comps),
+                                               jnp.asarray(bias), **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("t", [65, 200])
+def test_k4_split_arithmetic(t, d):
+    """K4's float32 arithmetic (64-key tiles, a ragged last one): out and
+    lse within 4x the float32 plain version's max|d| from float64; out
+    within 2e-4 x max of the JAX ``flash_attention`` on the CPU (at these T
+    its chunked XLA path) and lse of the float64 logsumexp."""
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas.attention import flash_attention as jflash
+
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((2, t, 3, d)).astype(np.float32) for _ in range(3))
+    scale = d ** -0.5
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    out, lse = flash_attention_tf32_plain(qt, kt, vt, scale)
+    exact = flash_attention_plain(qt.double(), kt.double(), vt.double(), scale)
+    plain = flash_attention_plain(qt, kt, vt, scale)
+    for got, p, e in zip((out, lse), plain, exact):
+        assert got.shape == e.shape
+        assert _dist(got, e) <= 4 * _dist(p, e), (_dist(got, e), _dist(p, e))
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                             interpret=True))
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
+    lse_64 = exact[1].numpy()
+    np.testing.assert_allclose(lse.numpy(), lse_64, rtol=0, atol=2e-4 * np.abs(lse_64).max())
