@@ -29,10 +29,13 @@ Phases, each printing its own lines:
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
    dh, and K3's pooled output against K9 F1's pre bit for bit on random
    bf16 inputs at the flagship's stage 2; K5 in both dtypes (float32's SIMT
-   passes, bfloat16's tensor-core ones: F1, F2, the g_z pass and the dW
-   tile, B2 beside cuDNN's weight gradient) and, at the flagship's stage 1
-   on random bf16 inputs, K5's F2 and g_z routing against the tile's rows
-   bit for bit; K6's, K9's and K5's dW rerun bitwise equal; K7's and
+   F1, F2 and g_z pass and split-TF32 dW tile, bfloat16's tensor-core
+   passes: F1, F2, the g_z pass and the dW tile; B2 as g_z + dW beside
+   cuDNN's weight gradient and, in float32, its bounds) and, at the
+   flagship's stage 1 on random inputs in both
+   dtypes, K5's F2 and g_z routing against the conv rows bit for bit, and
+   K5's float32 g_z pass and dW tile keeping NaNs where their plain versions
+   do; K6's, K9's and K5's dW and K5's g_z rerun bitwise equal; K7's and
    addmm's device time from the profiler; K8 by events, back to back and in
    device time beside torch._int_mm and bf16 addmm, and its two row tiles
    in turns at M 600-9600 (device time); K1's bf16 kernel, K1's float32 FFT
@@ -43,15 +46,16 @@ Phases, each printing its own lines:
    128-column slices) with their kernels' registers and spills, and at D
    48, 160, 192, 256 and 320 beside SDPA and its backward back to back with
    each bound (at D 160 the wide kernels launched alone, no pad copy); the
-   float32 flagship instances of K2, K3, K4, K5 F1 / F2 / B2, K6, K7, K9 F1
-   / F2 / dW / dx, K2w, K10a and K10b (and K4 / K6 at D 160) beside their
-   library call in float32 with TF32 off and their float32 bound (the
-   ``[f32]`` lines), the split-TF32 kernels (K4 and K6 at D 48, K7 at M 9600
-   with dx through the autograd Function, K9's dW at stage 2, on the grid's
+   float32 flagship instances of K2, K3, K4, K5 F1 / F2 / B1 / g_z / dW,
+   K6, K7, K9 F1 / F2 / B1 / g_z / dW / dx, K2w, K10a and K10b (and K4 / K6
+   at D 160) beside their library call in float32 with TF32 off, where
+   there is one, and their float32 bound (the ``[f32]`` lines), the
+   split-TF32 kernels (K4 and K6 at D 48, K7 at M 9600 with dx through the
+   autograd Function, K9's dW at stage 2 and K5's at stage 1, on the grid's
    inputs and on real-valued ones) also held to float64: each
    within F64_FACTOR x the float32 plain version's distance from the plain
-   version in float64 (K9's dW: the plain version with cuDNN off, whose
-   float32 wgrad is printed beside); K2w's and
+   version in float64 (the dW tiles: the plain version with cuDNN off,
+   whose float32 wgrad is printed beside); K2w's and
    K10a's bf16 operand builds
    (the torch pack, the patch kernel) and products alone, and both beside
    cuDNN back to back, at the flagship's stages;
@@ -67,8 +71,9 @@ Phases, each printing its own lines:
    read out (SERVING_WATCH);
 5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
    off, on the kernel path (K5, K4 + K6), on the ``ct`` kernel path (K5,
-   K9 at stages 2-3, K4 + K6; one more of its steps profiled, K6's and K9
-   dW's device time read out), on the plain path (plain stage 0, full
+   K9 at stages 2-3, K4 + K6), each with K5's g_z pass and dW tile launched
+   once and one more of its steps profiled (K5's passes', K4's, K6's and K9
+   dW's device time read out, F32_STEP_WATCH), on the plain path (plain stage 0, full
    attention) and on the plain path in float64, from the same weights and
    batch: kernel and plain losses within 1e-4, and every gradient of the
    kernel path within 1e-3 (relative norm) of float64 or no further from it
@@ -224,9 +229,8 @@ KERNELS = {**KERNELS, **FRONTEND_KERNELS}
 COUNTED_AS = {"conv_train_fwd": "conv3x3_windows",   # summary row -> launch-count name
               "ct_train_fwd": "conv3x3_widecin", "stft_mag_f32": "stft_mag_fft"}
 TRAINING_PATH = [*(COUNTED_AS.get(n, n) for n in TRAINING_KERNELS), "flash_attn_fwd"]
-# the float32 step (phase 5a): K5's SIMT passes, F2 on K2's kernel and no g_z pass
-TRAINING_PATH_F32 = [{"conv3x3_windows": "conv3x3_smallcin"}.get(n, n) for n in TRAINING_PATH
-                     if n != "conv_train_gz"]
+# the float32 step (phase 5a): K5's passes with F2 on K2's kernel, then K4 and K6
+TRAINING_PATH_F32 = [{"conv3x3_windows": "conv3x3_smallcin"}.get(n, n) for n in TRAINING_PATH]
 # launches per pallas-ct training step: K5's passes once (F2 is conv3x3_windows),
 # K9's twice (stages 2 and 3; F2 is conv3x3_widecin), K4 and K6 at least once
 CT_PER_STEP = {**{COUNTED_AS.get(n, n): 1 for n in TRAINING_KERNELS if n != "flash_attn_bwd"},
@@ -251,10 +255,12 @@ PREDICT_STEPS_TIMED = 3
 # tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
 # three at head dims past 128, in column groups: WIDE_ATTN_KERNELS), K7, K1's
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
-# int8 GEMM (IMMA); and the float32 kernels of K4, K6, K7 and K9's dW in split
-# TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product)
+# int8 GEMM (IMMA); and the float32 kernels of K4, K6, K7 and the dW tile in split
+# TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product; the
+# dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones K5's)
 TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
-                "hamilton_tf32_kernel", "ct_dw_tf32_kernel")
+                "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E", "ct_dw_tf32_kernelILi16E",
+                "ct_dw_tf32_kernelILi8E")
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
                      "flash_dkv_wide_tc_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
@@ -272,10 +278,16 @@ TC_OPS = re.compile(r"\b(?:HG?MMA|IMMA)\b")
 PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
                  "K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                         "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"),
-                 "K9 dW": ("ct_dw_tc_kernel<32>", "ct_dw_tf32_kernel"),
+                 "K9 dW": ("ct_dw_tc_kernel<32>", "ct_dw_tf32_kernel<32>"),
                  "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
                  "K5 F1": ("train_stats_tc_kernel",),
                  "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
+# the profiled float32 steps of phase 5a: K5's passes apart (F1 SIMT, F2 K2's
+# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's dW
+F32_STEP_WATCH = {"K5 F1": ("::stats_kernel<float",), "K5 F2": ("conv3x3_kernel<float, true",),
+                  "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_kernel<",),
+                  "K5 dW": ("ct_dw_tf32_kernel<8>",),
+                  **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")}}
 # device kernels read out of the serving profiles (phase 4), by demangled name
 SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
                  "K3": ("conv3x3_tc_kernel",), "K4": ("flash_fwd_tc_kernel",)}
@@ -439,21 +451,23 @@ def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def f32_row(card: str, name: str, tag: str, kernel_ms: float, library_ms: float,
+def f32_row(card: str, name: str, tag: str, kernel_ms: float, library_ms: float | None,
             flops: float, moved: float, split_tf32: bool = False) -> None:
     """One float32 flagship instance beside its library call in float32 (TF32
-    off, ``seld_tpu_torch.disable_tf32``) and its float32 bound (67 TFLOP/s
-    outside the tensor cores, or bytes), marked where the kernel loses; a
-    split-TF32 kernel also beside the bound of its three TF32 products."""
+    off, ``seld_tpu_torch.disable_tf32``), where one computes the same
+    function, and its float32 bound (67 TFLOP/s outside the tensor cores, or
+    bytes), marked where the kernel loses; a split-TF32 kernel also beside
+    the bound of its three TF32 products."""
     bound_ms, bound_by = bound(flops, moved, "float32")
     row = {"ms": kernel_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     extra = ""
     if split_tf32:
         row["tf32x3_bound_ms"] = bound(3 * flops, moved, "tf32")[0]
         extra = f", three TF32 products' bound {row['tf32x3_bound_ms']:.4f} ms"
-    print(f"[f32] {name} {tag}: kernel {kernel_ms:.3f} ms, library {library_ms:.3f} ms, bound "
-          f"{bound_ms:.4f} ms by {bound_by}{extra}{', loses' if kernel_ms > library_ms else ''} "
-          f"({card})")
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    loses = library_ms is not None and kernel_ms > library_ms
+    print(f"[f32] {name} {tag}: kernel {kernel_ms:.3f} ms, library {lib}, bound "
+          f"{bound_ms:.4f} ms by {bound_by}{extra}{', loses' if loses else ''} ({card})")
     F32_ROWS.setdefault(name, {})[tag] = row
 
 
@@ -1013,12 +1027,15 @@ def k5_inputs(torch, b, cin, f, t, cout, dtype, gen):
 def phase_k5(torch, card: str, randn, record) -> None:
     """K5: the autograd op against autograd of the plain op, and each pass
     against its plain version, at ragged multi-tile shapes and at the
-    flagship's stage 1 (batch 2): in float32 the SIMT passes (F2 K2's
-    kernel), in bfloat16 the tensor-core ones (F1 and g_z on the conv tile,
-    F2 K3's tile through K10b's entry, dW on the dW tile); records the
-    flagship bf16 passes, prints B2 (g_z + dW) beside cuDNN's weight
-    gradient, requires the dW passes to rerun bitwise equal, then checks
-    the bf16 routing against F2 on random inputs (k5_routing_identity)."""
+    flagship's stage 1 (batch 2): in float32 the SIMT F1, F2 (K2's kernel)
+    and g_z pass and the split-TF32 dW tile, in bfloat16 the tensor-core
+    passes (F1 and g_z on the conv tile, F2 K3's tile through K10b's entry,
+    dW on the dW tile); the dW tiles against dW in float64, the float32 one
+    also within F64_FACTOR x the float32 plain version's distance (cuDNN's
+    float32 wgrad printed beside); records the flagship bf16 passes, prints
+    B2 (g_z + dW) beside cuDNN's weight gradient in both dtypes, requires
+    the g_z and dW passes to rerun bitwise equal, then checks the routing
+    against F2 on random inputs in both dtypes (k5_routing_identity)."""
     from seld_tpu_torch.ops.kernels import conv2d_train as k5
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
@@ -1083,29 +1100,19 @@ def phase_k5(torch, card: str, randn, record) -> None:
                  5.0 * out.numel(), nbytes(out) + g_read + 8 * cout, None),
             ]
             b2_args = (xc, w, gc, scale, bias, a_col, b_col, pf)
-            if bf16:
-                gz, _ = k5.conv_train_gz(*b2_args)
-                passes += [
-                    # g_z needs the conv again (no pre is kept) and writes (B, Cout, F, T)
-                    ("conv_train_gz", lambda: k5.conv_train_gz(*b2_args),
-                     lambda: k5.conv_train_gz_plain(*b2_args), dt, conv_flops,
-                     nbytes(xc, w, gc, gz) + 8 * cout, None),
-                    ("conv_train_dw", lambda: k5.conv_train_dw_gz(xc, gz),
-                     lambda: k5.dw_plain(xc, gz), torch.float32, conv_flops,
-                     nbytes(xc, gz) + 4 * w.numel(),
-                     lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, gz, padding=1)),
-                ]
-                dw_fn = lambda: k5.conv_train_dw_gz(xc, gz)
-            else:
-                # float32's B2 fuses the routing, g_z and dW in one SIMT pass; its
-                # library row is cuDNN's wgrad alone, on the plain version's g_z
-                gz32 = k5.conv_train_gz_plain(*b2_args)[0]
-                passes.append(
-                    ("conv_train_dw", lambda: k5.conv_train_dw(*b2_args),
-                     lambda: k5.conv_train_dw_plain(*b2_args), torch.float32, 2 * conv_flops,
-                     nbytes(xc, w) + g_read + 4 * cout * 74,
-                     lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, gz32, padding=1)))
-                dw_fn = lambda: k5.conv_train_dw(*b2_args)
+            gz, gz_sums = k5.conv_train_gz(*b2_args)
+            passes += [
+                # g_z needs the conv again (no pre is kept), reads g where it
+                # routes and writes (B, Cout, F, T)
+                ("conv_train_gz", lambda: k5.conv_train_gz(*b2_args),
+                 lambda: k5.conv_train_gz_plain(*b2_args), dt, conv_flops,
+                 nbytes(xc, w, gz) + g_read + 8 * cout, None),
+                ("conv_train_dw", lambda: k5.conv_train_dw_gz(xc, gz),
+                 lambda: k5.dw_plain(xc, gz), torch.float32, conv_flops,
+                 nbytes(xc, gz) + 4 * w.numel(),
+                 lambda: torch.nn.grad.conv2d_weight(xc, w_nchw.shape, gz, padding=1)),
+            ]
+            dw_fn = lambda: k5.conv_train_dw_gz(xc, gz)
             pass_ms = {}
             for name, kern, plain, tol_dt, flops, moved, library in passes:
                 timed = ((time_ms(torch, kern), time_ms(torch, plain)) if tag == "flagship"
@@ -1115,7 +1122,7 @@ def phase_k5(torch, card: str, randn, record) -> None:
                     compare(torch, name, f"{tag} sums", got[1], want[1], torch.float32, card)
                     got, want = got[0], want[0]
                 label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
-                if bf16 and name == "conv_train_dw":
+                if name == "conv_train_dw":
                     # the plain dW in float32 sums B * F * T products per weight (2.46M
                     # at the flagship) in an order of its own, with an error of its own
                     # near the tolerance: the tile is held to the plain version's
@@ -1129,73 +1136,167 @@ def phase_k5(torch, card: str, randn, record) -> None:
                           f"{exact.abs().max().item():.3e})")
                     want, label = exact, f"{label}/f64-ref"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
-                if tag == "flagship" and not bf16 and name in ("conv_train_stats",
-                                                               "conv_train_fwd", "conv_train_dw"):
-                    f32_row(card, name, tag, timed[0], time_ms(torch, library), flops, moved)
+                if tag == "flagship" and not bf16:
+                    f32_row(card, name, tag, timed[0],
+                            None if library is None else time_ms(torch, library), flops, moved,
+                            split_tf32=name == "conv_train_dw")
+                    pass_ms[name] = timed[0]
+                if not bf16 and name == "conv_train_dw":
+                    # the split-TF32 tile, the float32 plain version without cuDNN
+                    # and cuDNN's float32 wgrad against dW in float64: on the
+                    # grid's x (x_lo = 0) and the kernel's g_z, then on real-valued
+                    # x and g_z
+                    for sub, xx, zz in (
+                            (tag, xc, gz),
+                            (f"{tag} randn", randn(*xc.shape), randn(*gz.shape, scale=0.01))):
+                        f64_gate(card, name, sub, k5.conv_train_dw_gz(xx, zz),
+                                 dw_plain_f32(xx, zz), k5.dw_plain(xx.double(), zz.double()),
+                                 library=k5.dw_plain(xx, zz))
+                        del xx, zz
                 if flag:
                     pass_ms[name] = timed[0]
                     lib_ms = None if library is None else time_ms(torch, library)
                     record(name, d, timed, flops, moved, "bfloat16", lib_ms)
             # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
             require(torch.equal(dw_fn(), dw_fn()), f"K5 dW {tag} {dt}: not repeatable")
-            if flag:
+            require(all(torch.equal(u, v) for u, v in zip(k5.conv_train_gz(*b2_args),
+                                                          (gz, gz_sums))),
+                    f"K5 g_z {tag} {dt}: not repeatable")
+            if tag == "flagship":
                 wgrad_ms = time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
                     xc, w_nchw.shape, gz, padding=1))
-                print(f"[kernel] K5 B2 stage 1 bf16 batch {b}: g_z {pass_ms['conv_train_gz']:.3f}"
-                      f" + dW {pass_ms['conv_train_dw']:.3f} = "
-                      f"{pass_ms['conv_train_gz'] + pass_ms['conv_train_dw']:.3f} ms; cuDNN "
-                      f"wgrad {wgrad_ms:.3f} ms ({card})")
-            del xc, gc, out
+                b2_ms = pass_ms["conv_train_gz"] + pass_ms["conv_train_dw"]
+                print(f"[kernel] K5 B2 stage 1 {str(dt)[6:]} batch {b}: g_z "
+                      f"{pass_ms['conv_train_gz']:.3f} + dW {pass_ms['conv_train_dw']:.3f} = "
+                      f"{b2_ms:.3f} ms; cuDNN wgrad {wgrad_ms:.3f} ms ({card})")
+                if not bf16:
+                    # B2's bounds: the function (two convs' operations, as the
+                    # TPU kernel counts them), the g_z pass's recompute, the dW
+                    # tile's three TF32 products, and g_z's round trip
+                    fn_ms = bound(2 * conv_flops, nbytes(xc, w) + g_read, "float32")[0]
+                    rc_ms = bound(conv_flops, 0, "float32")[0]
+                    dw_ms = bound(3 * conv_flops, 0, "tf32")[0]
+                    rt_ms = bound(0, 2 * nbytes(gz), "float32")[0]
+                    print(f"[f32] K5 B2 flagship: g_z {pass_ms['conv_train_gz']:.3f} + dW "
+                          f"{pass_ms['conv_train_dw']:.3f} = {b2_ms:.3f} ms; cuDNN's float32 "
+                          f"wgrad alone {wgrad_ms:.3f} ms; bounds: B2 {fn_ms:.4f} ms "
+                          f"(operations), the recompute {rc_ms:.4f} (operations), dW "
+                          f"{dw_ms:.4f} (three TF32 products), g_z's round trip {rt_ms:.4f} "
+                          f"(bytes) ({card})")
+            del xc, gc, out, gz
+    k5_f32_nans(torch, card, randn)
     k5_routing_identity(torch, card, randn)
+
+
+def k5_f32_nans(torch, card: str, randn) -> None:
+    """K5's float32 B2 keeps NaNs where its plain versions do: the g_z pass
+    with a NaN in x (batch 0) and in g (batch 1), the dW tile with one in x
+    (batch 0) and in g_z (batch 1), each as float('nan') and as the card's
+    own 0x7fffffff (the dW tile against its plain version without cuDNN)."""
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+
+    b, cin, f, t, cout, pf = 2, 8, 16, 300, 72, 8
+
+    def nan_at(v, at, bits):
+        v = v.clone()
+        v.view(torch.int32)[at] = bits
+        return v
+
+    for bits in (0x7FC00000, 0x7FFFFFFF):
+        x = nan_at(randn(b, cin, f, t), (0, 3, 5, 100), bits)
+        w = randn(3, 3, cin, cout, scale=0.1)
+        scale = randn(cout, scale=0.2) + 1.0
+        bias, a, c = (randn(cout, scale=0.2) for _ in range(3))
+        g = nan_at(randn(b, cout, f // pf, t), (1, 40, 1, 250), bits)
+        args = (x, w, g, scale, bias, a, c, pf)
+        gz, want_gz = k5.conv_train_gz(*args)[0], k5.conv_train_gz_plain(*args)[0]
+        xz = nan_at(randn(b, cin, f, t), (0, 3, 5, 100), bits)
+        zz = nan_at(randn(b, cout, f, t), (1, 17, 6, 99), bits)
+        dw, want_dw = k5.conv_train_dw_gz(xz, zz), dw_plain_f32(xz, zz)
+        torch.cuda.synchronize()
+        same = [torch.equal(torch.isnan(u), torch.isnan(v)) for u, v in ((gz, want_gz),
+                                                                         (dw, want_dw))]
+        print(f"[kernel] K5 f32 NaN 0x{bits:08x}: g_z NaN at {int(torch.isnan(gz).sum())} "
+              f"places (plain {int(torch.isnan(want_gz).sum())}), dW at "
+              f"{int(torch.isnan(dw).sum())} of {dw.numel()} (plain "
+              f"{int(torch.isnan(want_dw).sum())}) ({card})")
+        require(all(same) and bool(torch.isnan(want_gz[1]).any())
+                and 0 < int(torch.isnan(want_dw).sum()) < want_dw.numel(),
+                f"K5 f32 B2 with NaN 0x{bits:08x}: NaNs not where the plain versions' are")
+
+
+def fma_f32(torch, a, b, c):
+    """a * b + c rounded once to float32 (the kernels' fmaf), from float32
+    tensors: the product is exact in float64 and the float64 sum's error is
+    recovered exactly (two-sum); only where that sum falls on a midpoint
+    between two floats does the error decide the rounding, which a plain
+    float64 sum rounded to float32 would get wrong there."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    y = s.float()
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    down = torch.nextafter(y, torch.full_like(y, -float("inf")))
+    y = torch.where(((y.double() + up.double()) / 2 == s) & (err > 0), up, y)
+    return torch.where(((y.double() + down.double()) / 2 == s) & (err < 0), down, y)
 
 
 def k5_routing_identity(torch, card: str, randn) -> None:
     """At the flagship's stage 1 (B 2, Cin 8, F 256, T 4800, pf 8) on random
-    (not integer-grid) bf16 inputs: K5's F2 (K3's tile through K10b's
-    entry) pools max_r relu(pre * scale + bias) of K9 F1's pre (the same
-    tile rows; the affine as one fma: the float64 product of two floats is
-    exact) bit for bit, and K5's g_z pass, fed g = 1 and a = b = 0 so that
-    g_z = scale > 0 exactly where it routes, routes every window to the
-    first row holding that max, where the max is > 0."""
+    (not integer-grid) inputs, in both dtypes: K5's F2 (bfloat16: K3's tile
+    through K10b's entry; float32: K2's kernel) pools max_r relu(pre * scale
+    + bias) of K9 F1's pre (the same conv rows: bfloat16's tile, float32's
+    conv_rows with 8 staged channels; the affine as one fma) bit for bit,
+    and K5's g_z pass, fed g = 1 and a = b = 0 so that g_z = scale > 0
+    exactly where it routes, routes every window to the first row holding
+    that max, where the max is > 0."""
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
     from seld_tpu_torch.ops.kernels import conv2d_train as k5
-    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_windows_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    )
 
     b, cin, f, t, cout, pf = 2, CHANNELS, 256, 4800, 192, 8
-    x = randn(b, cin, f, t, dtype=torch.bfloat16)
-    w = randn(3, 3, cin, cout, dtype=torch.bfloat16, scale=(9 * cin) ** -0.5)
-    scale = randn(cout, scale=0.3).abs() + 0.5
-    bias = randn(cout, scale=0.3)
-    pre = k9.ct_train_stats(x, w, pf)[1]
-    out = conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf)
-    col = lambda v: v.double()[:, None, None]
-    y = torch.relu((pre.double() * col(scale) + col(bias)).float())
-    del pre
-    y = y.view(b, cout, f // pf, pf, t)
-    best, row = y[:, :, :, 0], torch.zeros(y[:, :, :, 0].shape, dtype=torch.uint8,
-                                           device=y.device)
-    for r in range(1, pf):   # strict >: ties keep the earlier row
-        up = y[:, :, :, r] > best
-        best = torch.where(up, y[:, :, :, r], best)
-        row = torch.where(up, r, row)
-    differ_out = int((out != best.to(torch.bfloat16)).sum())
-    want = (torch.arange(pf, device=y.device).view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
-        best > 0).unsqueeze(3)
-    del y
-    zero = torch.zeros(cout, device=x.device)
-    ones = torch.ones(b, cout, f // pf, t, dtype=torch.bfloat16, device=x.device)
-    gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
-    routed = (gz != 0).view(want.shape)
-    differ_route = int((routed != want).sum())
-    print(f"[kernel] K5 routing, stage 1 bf16 random inputs: {differ_out} of {out.numel()} "
-          f"pooled outputs differ from max_r relu(pre * scale + bias); {differ_route} of "
-          f"{routed.numel()} conv outputs routed otherwise than the first max > 0; routed "
-          f"windows {int(want.sum())}")
-    require(differ_out == 0, f"K5's F2 differs from the tile's rows in {differ_out} places")
-    require(differ_route == 0, f"K5's g_z pass routes {differ_route} outputs otherwise")
-    require(torch.equal(sums[:cout], want.sum((0, 2, 3, 4)).float()),
-            "K5's routed S_g is not the routed count")
-    del x, gz, routed, want, out
+    for dt in (torch.bfloat16, torch.float32):
+        f2 = conv2d_windows_bn_relu_fpool if dt == torch.bfloat16 else conv2d_smallcin_bn_relu_fpool
+        x = randn(b, cin, f, t, dtype=dt)
+        w = randn(3, 3, cin, cout, dtype=dt, scale=(9 * cin) ** -0.5)
+        scale = randn(cout, scale=0.3).abs() + 0.5
+        bias = randn(cout, scale=0.3)
+        pre = k9.ct_train_stats(x, w, pf)[1]
+        out = f2(x, w, scale, bias, pf)
+        y = torch.relu(fma_f32(torch, pre, scale[:, None, None], bias[:, None, None]))
+        del pre
+        y = y.view(b, cout, f // pf, pf, t)
+        best, row = y[:, :, :, 0], torch.zeros(y[:, :, :, 0].shape, dtype=torch.uint8,
+                                               device=y.device)
+        for r in range(1, pf):   # strict >: ties keep the earlier row
+            up = y[:, :, :, r] > best
+            best = torch.where(up, y[:, :, :, r], best)
+            row = torch.where(up, r, row)
+        differ_out = int((out != best.to(dt)).sum())
+        want = (torch.arange(pf, device=y.device).view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
+            best > 0).unsqueeze(3)
+        del y
+        zero = torch.zeros(cout, device=x.device)
+        ones = torch.ones(b, cout, f // pf, t, dtype=dt, device=x.device)
+        gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
+        routed = (gz != 0).view(want.shape)
+        differ_route = int((routed != want).sum())
+        name = str(dt)[6:]
+        print(f"[kernel] K5 routing, stage 1 {name} random inputs: {differ_out} of "
+              f"{out.numel()} pooled outputs differ from max_r relu(pre * scale + bias); "
+              f"{differ_route} of {routed.numel()} conv outputs routed otherwise than the first "
+              f"max > 0; routed windows {int(want.sum())}")
+        require(differ_out == 0, f"K5's F2 ({name}) differs from the conv rows in {differ_out} "
+                "places")
+        require(differ_route == 0, f"K5's g_z pass ({name}) routes {differ_route} outputs "
+                "otherwise")
+        require(torch.equal(sums[:cout], want.sum((0, 2, 3, 4)).float()),
+                f"K5's routed S_g ({name}) is not the routed count")
+        del x, gz, routed, want, out, ones
 
 
 def phase_k9(torch, card: str, record) -> None:
@@ -1285,8 +1386,9 @@ def phase_k9(torch, card: str, record) -> None:
                     got, want = got[0], want[0]
                 label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
-                if f32_tag and library is not None:
-                    f32_row(card, name, tag, timed[0], time_ms(torch, library), flops, moved,
+                if f32_tag:
+                    f32_row(card, name, tag, timed[0],
+                            None if library is None else time_ms(torch, library), flops, moved,
                             split_tf32=name == "ct_train_dw")
                 if f32_tag and name == "ct_train_dw":
                     # the split-TF32 tile, the float32 plain version without
@@ -1958,13 +2060,21 @@ def phase_training(torch, card: str) -> dict:
                       if p.grad is not None}
         print(f"[train] f32 batch 2, {tag} path: loss {losses[tag]:.8f}, one step "
               f"{1e3 * (time.perf_counter() - t0):.1f} ms")
-        if tag == "kernel ct":   # K6's and K9 dW's float32 kernels in a step
+        if tag in ("kernel", "kernel ct"):   # K5's, K4's, K6's (and K9 dW's) float32 kernels
             f32_step = profile_step(torch, lambda: step(state, x.to(dt), y.to(dt)), card,
-                                    label="one f32 pallas-ct step at batch 2")
-            print(f"[train] f32 pallas-ct step: {device_shares(f32_step)} ({card})")
+                                    label=f"one f32 {tag} step at batch 2",
+                                    watch=F32_STEP_WATCH)
+            k5_ms = sum(f32_step[k] for k in F32_STEP_WATCH if k.startswith("K5"))
+            print(f"[train] f32 {tag} step: {device_shares(f32_step, F32_STEP_WATCH)}; K5's "
+                  f"passes {k5_ms:.2f} ms ({100 * k5_ms / f32_step['busy']:.1f}%) ({card})")
         del model, state
     require(all(counts["kernel"][k] > 0 for k in TRAINING_PATH_F32),
             f"f32 kernel path: a training kernel never ran: {counts['kernel']}")
+    # K5's B2 in float32: the g_z pass and the split-TF32 dW tile, once a step
+    b2_counts = {tag: [counts[tag][k] for k in ("conv_train_gz", "conv_train_dw")]
+                 for tag in ("kernel", "kernel ct")}
+    require(all(c == [1, 1] for c in b2_counts.values()),
+            f"f32 steps: K5's g_z pass or dW tile not launched once: {b2_counts}")
     require(all(counts["kernel ct"][k] > 0 for k in (*CT_TRAIN_KERNELS, "flash_attn_bwd")
                 if k != "ct_train_fwd"), f"f32 pallas-ct path: a kernel never ran: "
             f"{counts['kernel ct']}")

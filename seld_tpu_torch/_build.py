@@ -55,9 +55,6 @@ SIGNATURES = {
     "seld_conv3x3_train_stats": [_P] * 4 + [_I] * 8 + [_P],
     # out, g, p, q, partials, sums, batch, cout, f_out, t, dtype, stream
     "seld_conv3x3_train_sel_stats": [_P] * 6 + [_I] * 5 + [_P],
-    # x, w, scale, bias, a, b, g, partials, sums, batch, cin, f, t, cout, pf,
-    # tiles_per_block, dtype, stream
-    "seld_conv3x3_train_dw": [_P] * 9 + [_I] * 8 + [_P],
     # x, w, scale, bias, a, b, g, gz, partials, sums, batch, cin, f, t, cout, pf,
     # tiles_per_block, dtype, stream
     "seld_conv3x3_train_gz": [_P] * 10 + [_I] * 8 + [_P],

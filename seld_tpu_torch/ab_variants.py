@@ -27,14 +27,15 @@ seld_tpu_torch.ab_variants --digest`` once in each copy (this tree's
 ``ab_variants.py`` goes over the base's, as the profiler does): one line
 per case of :func:`hash_cases`, the first 16 hex digits of the sha256 of
 the output's bytes, for every bfloat16 kernel, the float32 slice kernels
-past head dim 128 and the split-TF32 K4 (D 48) and K7, on inputs from one
-seeded generator on the device. Equal
-code gives equal bits (every kernel there reduces in a fixed order); the
-runner exits 1 where a case differs. ``--tests`` runs the given tests
-(pytest node ids under ``tests/``) once in each copy, each version's package
-imported in place of this tree's; a mutated kernel that a precision gate
-must fail is checked this way. With ``--device=cpu`` the cases and tests run
-the plain versions, which checks the runner, not the kernels.
+past head dim 128, the split-TF32 K4 (D 48) and K7 and K5's float32 B2
+(the g_z pass and the dW tile at Cin 8 and 10), on inputs from one seeded
+generator on the device. Equal code gives equal bits (every kernel there
+reduces in a fixed order); the runner exits 1 where a case differs.
+``--tests`` runs the given tests (pytest node ids under ``tests/``) once in
+each copy, each version's package imported in place of this tree's; a
+mutated kernel that a precision gate must fail is checked this way. With
+``--device=cpu`` the cases and tests run the plain versions, which checks
+the runner, not the kernels.
 """
 
 from __future__ import annotations
@@ -185,6 +186,14 @@ def hash_cases(device):
     out.append(("K5 F1 bf16", lambda: (k5.conv_train_stats(x, w, 8),)))
     out.append(("K5 g_z bf16", lambda: k5.conv_train_gz(*b2)))
     out.append(("K5 dW bf16", lambda: (k5.conv_train_dw_gz(x, k5.conv_train_gz(*b2)[0]),)))
+    # K5's float32 B2: the g_z pass and the split-TF32 dW tile, at Cin 8 and 10
+    for cin5 in (8, 10):
+        x5, w5 = randn(2, cin5, 32, 300, dt=torch.float32), randn(3, 3, cin5, 72, dt=torch.float32,
+                                                                   sc=0.1)
+        b2f = (x5, w5, g.float(), *cols, 8)
+        out.append((f"K5 g_z Cin {cin5} f32", lambda b2f=b2f: k5.conv_train_gz(*b2f)))
+        out.append((f"K5 dW Cin {cin5} f32", lambda x5=x5, b2f=b2f: (
+            k5.conv_train_dw_gz(x5, k5.conv_train_gz(*b2f)[0]),)))
     h, w9 = randn(2, 24, 16, 300), randn(3, 3, 24, 72, sc=0.1)
     g9 = randn(2, 72, 4, 300)
     ccols = torch.stack([randn(72, dt=torch.float32, sc=0.1) + d

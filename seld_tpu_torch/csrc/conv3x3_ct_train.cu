@@ -51,7 +51,7 @@
 // has blocks. In bfloat16 the dW pass is the tensor-core GEMM of
 // conv3x3_dw_tc.cuh (ct_dw_tc_kernel: 9 taps x 32 Cin x 64 Cout per
 // block, the frames as the depth, the tap shift built from aligned words by
-// byte permutes); in float32 the same GEMM in split TF32 (ct_dw_tf32_kernel
+// byte permutes); in float32 the same GEMM in split TF32 (ct_dw_tf32_kernel<32>
 // of conv3x3_dw_tf32.cuh: three TF32 products a product, the A operand's
 // tap shift a one-word offset, each 64-frame step summed apart and added to
 // the accumulators rounded to nearest).
@@ -444,10 +444,11 @@ extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, v
           static_cast<const bf16*>(h), static_cast<const bf16*>(gz), part, batch, cin, f_dim,
           t_dim, cout, rows_per_split, frames_per_split);
     } else {
-      cudaError_t e = set_smem(ct_dw_tf32_kernel, kDwfSmem);
+      constexpr size_t smem = dwf_smem<kDwfCi>();
+      cudaError_t e = set_smem(ct_dw_tf32_kernel<kDwfCi>, smem);
       if (e != cudaSuccess) return e;
       const dim3 grid(splits, ceil_div(cout, kDwfCo), ceil_div(cin, kDwfCi));
-      ct_dw_tf32_kernel<<<grid, kDwfThreads, kDwfSmem, s>>>(
+      ct_dw_tf32_kernel<kDwfCi><<<grid, dwf_threads<kDwfCi>(), smem, s>>>(
           static_cast<const float*>(h), static_cast<const float*>(gz), part, batch, cin, f_dim,
           t_dim, cout, rows_per_split, frames_per_split);
     }

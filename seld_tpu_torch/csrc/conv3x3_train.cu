@@ -12,21 +12,24 @@
 // pooled, so F1, F2 and B2 run one conv row function per dtype and get its
 // rows bit for bit:
 //
-// float32 (SIMT FMA, TF32 off): conv_rows<CC> (conv3x3_common.cuh), CC = 8
-// staged channels for Cin <= 8 and 16 for Cin 9-10 (zero-filled past Cin).
+// float32 (SIMT FMA for the conv rows, TF32 off): conv_rows<CC>
+// (conv3x3_common.cuh), CC = 8 staged channels for Cin <= 8 and 16 for Cin
+// 9-10 (zero-filled past Cin).
 // - F1  seld_conv3x3_train_stats (stats_kernel): per-channel sum and sum of
 //       squares of the conv over (B, F, T), recomputed per tile.
 // - F2  K2's seld_conv3x3_smallcin (conv3x3_bn_relu_fpool.cu).
-// - B2  seld_conv3x3_train_dw (dw_kernel): recomputes each pool row's conv,
-//       routes g to the FIRST row holding the max (a strict > running
-//       argmax, reduce_window's first-match rule) where that max is > 0,
-//       forms g_z = g_pre * scale - acc * A - Bc (the batch-stats BN
-//       backward scale * (g_pre - S_g/N - xhat * S_gx/N) with A = inv *
-//       scale * S_gx/N, Bc = scale * S_g/N - mean * A: the subtraction
-//       happens before the dW product), and accumulates dW[co][tap][ci] +=
-//       g_z * x (ci padded to CC), with the exact routed sums S_g and sum
-//       g_pre * acc, from which the caller forms dgamma and dbeta. Two
-//       recomputes (argmax, then g_z) and the dW product, all SIMT.
+// - B2  split as bfloat16's and K9's: seld_conv3x3_train_gz
+//       (train_gz_kernel), one recompute of each pool row's conv on F1's and
+//       F2's rows that routes g to the FIRST row holding the max (a strict >
+//       running argmax, reduce_window's first-match rule) where that max is
+//       > 0, writes g_z = g_pre * scale - acc * A - Bc in float32 (the
+//       batch-stats BN backward scale * (g_pre - S_g/N - xhat * S_gx/N) with
+//       A = inv * scale * S_gx/N, Bc = scale * S_g/N - mean * A: the
+//       subtraction happens before the dW product) and the exact routed sums
+//       S_g and sum g_pre * acc, from which the caller forms dgamma and
+//       dbeta; then seld_conv3x3_train_dw_tc, dW[dy][dx][ci][co] = sum g_z *
+//       x on the split-TF32 dW tile of conv3x3_dw_tf32.cuh (CI 8 with the
+//       dx taps stacked in M for Cin <= 8, CI 16 for Cin 9-10).
 // bfloat16 (mma.sync.m16n8k16, bf16 operands, float accumulators): the
 // tiles of conv3x3_tc.cuh, Cin <= 16 in one zero-filled 16-channel chunk,
 // on one K walk (so their conv rows are bitwise alike).
@@ -34,11 +37,11 @@
 //       TbPipe): the same sums, no pre written (float pre would be
 //       1.9 GB at batch 2).
 // - F2  K3's tile through K10b's entry seld_conv3x3_windows.
-// - B2  split as K9's: seld_conv3x3_train_gz (train_gz_tc_kernel), one
-//       recompute on the row tile conv_rows_tc that writes g_z in bf16 with the same routing
-//       and the exact routed sums, then seld_conv3x3_train_dw_tc, the dW
-//       GEMM over the frames of conv3x3_dw_tc.cuh with a 16-channel Cin
-//       tile.
+// - B2  the same split: seld_conv3x3_train_gz (train_gz_tc_kernel), one
+//       recompute on the row tile conv_rows_tc that writes g_z in bf16 with
+//       the same routing and the exact routed sums, then
+//       seld_conv3x3_train_dw_tc, the dW GEMM over the frames of
+//       conv3x3_dw_tc.cuh with a 16-channel Cin tile.
 // - B1  seld_conv3x3_train_sel_stats (both dtypes): S_g = sum g and S_gx =
 //       sum g * xhat over the positions where out > 0, from (out, g) alone:
 //       there the pool-selected pre-activation equals out, so xhat = out * p
@@ -50,25 +53,25 @@
 //
 // What bounds it on the H100. Each conv is 2 * 9 * Cin * Cout operations
 // per conv pixel (68 GFLOP at Cin 8 for a flagship stage 1 at batch 2: 0.07
-// ms on the bf16 tensor cores, 1.0 ms at float32's 67 TFLOP/s). In bf16 the
-// bytes bound the backward: g_z (B, Cout, F, T) is 944 MB at batch 2,
-// written once by the g_z pass and read once by dW (0.28 ms each at 3.35
-// TB/s). The float32 design keeps the K2 tile (64 channels x 128 frames per
-// block, 256 threads, halo and weights in shared memory; a block walks
-// kTilesPerBlock frame tiles so that the partial rows stay small) and never
-// writes g_z: B2 keeps the argmax row per output in registers (pass A),
-// recomputes each row (pass B), stages that row's g_z tile in shared memory
-// and forms the 64 x 72 dW tile from it, 18 outputs per thread (36 for CC
-// = 16). The bf16 design writes g_z once to move the dW product onto the
-// tensor cores: the g_z pass keeps each window's running best conv value
-// and row in registers (one recompute), and the dW tile reads x and g_z
+// ms on the bf16 tensor cores, 1.0 ms at float32's 67 TFLOP/s, 0.41 ms as
+// three TF32 products at 495). B2 moves g_z (B, Cout, F, T) through memory:
+// 944 MB in bf16 and 1.89 GB in float32 at batch 2, written once by the g_z
+// pass and read once by dW (0.28 ms each in bf16, 0.56 in float32, at 3.35
+// TB/s). So B2 in float32 is bound by its one FMA recompute of the conv
+// (1.0 ms) beside g_z's round trip (1.13 ms), and not by the dW product,
+// which the split-TF32 tile takes off the FMA pipes. The g_z passes keep
+// each window's running best conv value and row in registers (one
+// recompute). A whole staged window of float32 rows would not fit shared
+// memory beside the halo (8 x 64 x 128 floats are 262 KB), so the float32
+// pass stages the window's last rows (5 of 8 at Cin <= 8) and writes the
+// earlier ones' off-route g_z, -acc * A - Bc, as it is computed, rewriting
+// their routed elements at the window's end. The dW tiles read x and g_z
 // once per 64-frame depth step.
 #include "conv3x3_dw_tc.cuh"
+#include "conv3x3_dw_tf32.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
-
-constexpr int kGzW = kBT + 1;   // padded row of the g_z tile (no bank conflicts)
 
 template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
@@ -156,23 +159,56 @@ sel_stats_kernel(const T* __restrict__ out, const T* __restrict__ g,
   }
 }
 
-template <typename T, int CC>
-__global__ void __launch_bounds__(kThreads)
-dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ scale,
-          const float* __restrict__ bias, const float* __restrict__ a_col,
-          const float* __restrict__ b_col, const T* __restrict__ g,
-          float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf,
-          int tiles_per_block) {
-  constexpr int kK = 9 * CC;                 // the dW row per output channel
-  extern __shared__ float smem[];
+// The float32 g_z pass stages at most this many of a window's last rows in
+// shared memory (kGzFP floats a channel row; as many as fit beside the halo
+// and the weights); the window's earlier rows go straight to gz.
+constexpr int kGzF32MaxStageRows = 8;
+constexpr int kGzFP = kBT;   // a staged channel row: 128 floats, pairs of rows swizzled
+constexpr int kGzF32RowFloats = kBCO * kGzFP;   // one staged conv row of the block's tile
+
+// The staged g_z element (channel m of the tile, frame t of the row): odd
+// channels' frames XOR 16, so the two channel rows of a warp's store land
+// on all 32 banks; 4-frame chunks stay contiguous.
+static __device__ __forceinline__ int gz_swz(int m, int t) {
+  return m * kGzFP + (t ^ ((m & 1) << 4));
+}
+
+// B2's g_z pass in float32: one recompute of the pool rows on conv_rows<CC>,
+// F1's and F2's rows bit for bit. Each row's g_z is first formed as if off
+// the route, -acc * A - Bc (one fma), while each element keeps its window's
+// running first max in registers: its conv value (the relu value is
+// recomputed from it for each comparison) and its row, one byte per
+// element. At the window's end, where that max is > 0, g is routed to it:
+// the element becomes g * scale - acc * A - Bc and the exact routed sums S_g
+// and sum g_pre * acc are taken. The window's last `stage_rows` rows wait in
+// shared memory, take their routed elements there and leave in 16-byte
+// stores; its earlier rows are stored as they are computed and their routed
+// elements rewritten in place, 4-byte stores scattered over the rows. The
+// launch stages as many rows as fit beside the halo (5 of 8 at Cin <= 8):
+// 4-5% faster than staging none, and than none at two blocks an SM, at the
+// flagship's stage 1 (PERF.md). gz (B, Cout, F, T) float; one partial row
+// [S_g | sum g_pre * acc] per block. One block an SM.
+template <int CC>
+__global__ void __launch_bounds__(kThreads, 1)
+train_gz_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                const float* __restrict__ a_col, const float* __restrict__ b_col,
+                const float* __restrict__ g, float* __restrict__ gz,
+                float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf,
+                int tiles_per_block, int stage_rows) {
+  extern __shared__ __align__(16) float smem[];
   float* xs = smem;                          // [pf + 2][CC][kXW]
   float* ws = xs + (pf + 2) * CC * kXW;      // [9][CC][kBCO]
-  float* gz = ws + 9 * CC * kBCO;            // [kBCO][kGzW]
+  float* zs = ws + 9 * CC * kBCO;            // [stage_rows][kBCO][kGzFP], swizzled
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int co0 = blockIdx.y * kBCO;
   const int f_out = f_dim / pf;
   const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
-  const T* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const int r_staged = pf - stage_rows;      // the first staged row
+  const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const size_t plane = static_cast<size_t>(f_dim) * t_dim;   // one channel of gz
+  float* gzb = gz + static_cast<size_t>(b) * cout * plane + static_cast<size_t>(fo) * pf * t_dim;
+  const bool vec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(gz) % 16 == 0;
 
   float sc[4], bi[4], ac[4], bc[4];
 #pragma unroll
@@ -184,30 +220,24 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
     ac[i] = ok ? a_col[co] : 0.f;
     bc[i] = ok ? b_col[co] : 0.f;
   }
-  // dW outputs of this thread: channel co0 + dw_co, k = dw_k0 + 4 j (k = tap * CC + ci)
-  const int dw_co = tid % kBCO, dw_k0 = tid / kBCO;
-  int x_off[kK / 4];   // offset of (dy, ci, dx) in xs relative to the conv row
-#pragma unroll
-  for (int j = 0; j < kK / 4; ++j) {
-    const int k = dw_k0 + 4 * j, tap = k / CC, ci = k % CC;
-    x_off[j] = ((tap / 3) * CC + ci) * kXW + tap % 3;
-  }
-  float dw[kK / 4];
-#pragma unroll
-  for (int j = 0; j < kK / 4; ++j) dw[j] = 0.f;
   float sg[4] = {0.f, 0.f, 0.f, 0.f}, sga[4] = {0.f, 0.f, 0.f, 0.f};
 
   stage_w<CC>(ws, w, 0, co0, cin, cout);
   for (int tile = 0; tile < tiles_per_block; ++tile) {
     const int t0 = (blockIdx.x * tiles_per_block + tile) * kBT;
     if (t0 >= t_dim) break;
-    __syncthreads();
+    __syncthreads();   // the previous tile's readers (halo and staged rows) are done
     stage_x<CC>(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
     __syncthreads();
 
-    // pass A: the first row holding each output's max
-    float m[4][8];
-    unsigned char sel[4][8];
+    float best[4][8];      // each window's running first max: its conv value
+    uint32_t sel[4][2];    // and its row, byte j % 4 of sel[i][j / 4]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sel[i][0] = sel[i][1] = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) best[i][j] = 0.f;
+    }
     for (int r = 0; r < pf; ++r) {
       float acc[4][8];
 #pragma unroll
@@ -215,75 +245,90 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restr
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
       conv_rows<CC>(xs, ws, r, tx, ty, acc);
+      const bool staged = r >= r_staged;
+      float* zr = zs + max(r - r_staged, 0) * kGzF32RowFloats;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int m = ty + 16 * i, co = co0 + m;
+        float* zrow = gzb + min(co, cout - 1) * plane + static_cast<size_t>(r) * t_dim;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const float y = bn_relu(acc[i][j], sc[i], bi[i]);
-          if (r == 0 || y > m[i][j]) {
-            m[i][j] = y;
-            sel[i][j] = static_cast<unsigned char>(r);
+          const int tl = tx + 16 * j, t = t0 + tl;
+          const float v = acc[i][j], z = fmaf(-v, ac[i], -bc[i]);
+          if (staged)
+            zr[gz_swz(m, tl)] = z;
+          else if (co < cout && t < t_dim)
+            zrow[t] = z;
+          if (r == 0 || bn_relu(v, sc[i], bi[i]) > bn_relu(best[i][j], sc[i], bi[i])) {
+            best[i][j] = v;
+            const int sh = 8 * (j % 4);
+            sel[i][j / 4] = (sel[i][j / 4] & ~(0xffu << sh)) | (static_cast<uint32_t>(r) << sh);
           }
         }
+      }
     }
-    // the routed cotangent: nonzero only where the selected row's ReLU passes
+    // the windows' ends: the tile's g, all 32 loads in flight at once (each
+    // loaded where its route is known, before its rewrite, the pass took
+    // 1.15x as long; loaded before the last row's conv, 1.25x; PERF.md),
+    // then g to the first max where that max is > 0
     float gv[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int co = co0 + ty + 16 * i;
-      const T* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
+      const float* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int t = t0 + tx + 16 * j;
-        gv[i][j] = (co < cout && t < t_dim && m[i][j] > 0.f) ? to_f(grow[t]) : 0.f;
+        gv[i][j] = co < cout && t < t_dim ? grow[t] : 0.f;
       }
     }
-
-    // pass B: per row, g_z into shared memory, then the dW tile
-    for (int r = 0; r < pf; ++r) {
-      float acc[4][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int m = ty + 16 * i, co = co0 + m;
+      if (co >= cout) continue;
+      float* zc = gzb + co * plane;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows<CC>(xs, ws, r, tx, ty, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bool valid = t0 + tx + 16 * j < t_dim;
-          const float gp = sel[i][j] == r ? gv[i][j] : 0.f;
-          sg[i] += gp;
-          sga[i] = fmaf(gp, acc[i][j], sga[i]);
-          float z = valid ? gp * sc[i] - acc[i][j] * ac[i] - bc[i] : 0.f;
-          gz[(ty + 16 * i) * kGzW + tx + 16 * j] = z;
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int tl = tx + 16 * j, t = t0 + tl;
+        const float v = best[i][j];
+        if (t >= t_dim || !(bn_relu(v, sc[i], bi[i]) > 0.f)) continue;
+        const float gp = gv[i][j];
+        sg[i] += gp;
+        sga[i] = fmaf(gp, v, sga[i]);
+        const int r = (sel[i][j / 4] >> (8 * (j % 4))) & 0xff;
+        const float z = gp * sc[i] - v * ac[i] - bc[i];
+        if (r >= r_staged)
+          zs[(r - r_staged) * kGzF32RowFloats + gz_swz(m, tl)] = z;
+        else
+          zc[static_cast<size_t>(r) * t_dim + t] = z;
+      }
+    }
+    if (stage_rows > 0) {   // the staged rows out: 16-byte stores along the frames
       __syncthreads();
-      const float* xr = xs + r * CC * kXW;
-      const float* gr = gz + dw_co * kGzW;
-#pragma unroll 2
-      for (int t = 0; t < kBT; ++t) {
-        const float zv = gr[t];
-#pragma unroll
-        for (int j = 0; j < kK / 4; ++j) dw[j] = fmaf(zv, xr[x_off[j] + t], dw[j]);
+      constexpr int units = kBT / 4;   // 16-byte units of a staged channel row
+      for (int e = threadIdx.x; e < stage_rows * kBCO * units; e += kThreads) {
+        const int u = e % units, rm = e / units;   // rm = staged row * kBCO + m
+        const int m = rm % kBCO, c = co0 + m, t = t0 + 4 * u;
+        if (c >= cout || t >= t_dim) continue;
+        const float* src = zs + (rm / kBCO) * kGzF32RowFloats + gz_swz(m, 4 * u);
+        float* dst = gzb + c * plane + static_cast<size_t>(r_staged + rm / kBCO) * t_dim + t;
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+        } else {
+          for (int k = 0; k < 4 && t + k < t_dim; ++k) dst[k] = src[k];
+        }
       }
-      __syncthreads();   // gz is rewritten by the next row
     }
   }
 
-  const size_t width = static_cast<size_t>(cout) * (kK + 2);
-  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * width;
-  if (co0 + dw_co < cout) {
-#pragma unroll
-    for (int j = 0; j < kK / 4; ++j) row[(co0 + dw_co) * kK + dw_k0 + 4 * j] = dw[j];
-  }
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float a = sum_tx(sg[i]), q = sum_tx(sga[i]);
     const int co = co0 + ty + 16 * i;
     if (tx == 0 && co < cout) {
-      row[static_cast<size_t>(cout) * kK + co] = a;
-      row[static_cast<size_t>(cout) * (kK + 1) + co] = q;
+      row[co] = a;
+      row[cout + co] = q;
     }
   }
 }
@@ -562,31 +607,46 @@ cudaError_t launch_stats(const void* x, const void* w, float* partials, int batc
   }
 }
 
-template <typename T, int CC>
-cudaError_t launch_dw_cc(const void* x, const void* w, const float* scale, const float* bias,
-                         const float* a_col, const float* b_col, const void* g,
-                         float* partials, int batch, int cin, int f_dim, int t_dim, int cout,
-                         int pf, int tpb, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO + kBCO * kGzW);
-  cudaError_t err = set_smem(dw_kernel<T, CC>, smem);
+template <int CC>
+cudaError_t launch_gz_f32(const void* x, const void* w, const void* scale, const void* bias,
+                          const void* a, const void* b, const void* g, void* gz, float* partials,
+                          int batch, int cin, int f_dim, int t_dim, int cout, int pf, int tpb,
+                          cudaStream_t s) {
+  // the halo and the weights, then as many of the window's last rows as fit
+  const size_t fixed = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO);
+  const size_t row_bytes = sizeof(float) * kGzF32RowFloats;
+  const int stage_rows =
+      fixed > kBlockSmem ? 0
+                         : min(min(pf, kGzF32MaxStageRows),
+                               static_cast<int>((kBlockSmem - fixed) / row_bytes));
+  const size_t smem = fixed + row_bytes * stage_rows;
+  cudaError_t err = set_smem(train_gz_kernel<CC>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  dw_kernel<T, CC><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), scale, bias, a_col, b_col,
-      static_cast<const T*>(g), partials, cin, f_dim, t_dim, cout, pf, tpb);
+  const dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
+  train_gz_kernel<CC><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(g),
+      static_cast<float*>(gz), partials, cin, f_dim, t_dim, cout, pf, tpb, stage_rows);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(const void* x, const void* w, const float* scale, const float* bias,
-                      const float* a_col, const float* b_col, const void* g, float* partials,
-                      int batch, int cin, int f_dim, int t_dim, int cout, int pf, int tpb,
-                      cudaStream_t s) {
-  if (staged_channels(cin) == kCC)
-    return launch_dw_cc<T, kCC>(x, w, scale, bias, a_col, b_col, g, partials, batch, cin,
-                                f_dim, t_dim, cout, pf, tpb, s);
-  return launch_dw_cc<T, 2 * kCC>(x, w, scale, bias, a_col, b_col, g, partials, batch, cin,
-                                  f_dim, t_dim, cout, pf, tpb, s);
+// Cin at or below which K5's float32 dW takes the 8-channel tile with the dx
+// taps stacked in M; above it, the 16-channel tile (one m16 per dx).
+constexpr int kDwfStackMaxCin = kDwfCiStacked;
+
+template <int CI>
+cudaError_t launch_dw_tf32(const void* x, const void* gz, float* partials, int splits,
+                           int batch, int cin, int f_dim, int t_dim, int cout,
+                           int rows_per_split, int frames_per_split, cudaStream_t s) {
+  constexpr size_t smem = dwf_smem<CI>();
+  cudaError_t err = set_smem(ct_dw_tf32_kernel<CI>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, ceil_div(cout, kDwfCo), ceil_div(cin, CI));
+  ct_dw_tf32_kernel<CI><<<grid, dwf_threads<CI>(), smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gz), partials, batch, cin, f_dim,
+      t_dim, cout, rows_per_split, frames_per_split);
+  return cudaGetLastError();
 }
 
 bool bad_shape(int cin, int cout, int pf) {
@@ -645,37 +705,11 @@ extern "C" int seld_conv3x3_train_sel_stats(const void* out, const void* g, cons
                                         2 * cout, s));
 }
 
-// B2 in float32 + its reduction: sums (Cout * (9 CC + 2),) = [dW (Cout, 9 taps, CC ci) |
-// S_g | sum g_pre * acc], CC = 8 for Cin <= 8, else 16. scale, bias, a, b:
-// (Cout,) float; g: (B, Cout, F/pf, T); partials: (B * F/pf * n_split,
-// Cout * (9 CC + 2)).
-extern "C" int seld_conv3x3_train_dw(const void* x, const void* w, const void* scale,
-                                     const void* bias, const void* a, const void* b,
-                                     const void* g, void* partials, void* sums, int batch,
-                                     int cin, int f_dim, int t_dim, int cout, int pf,
-                                     int tiles_per_block, int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto part = static_cast<float*>(partials);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
-  auto ac = static_cast<const float*>(a);
-  auto bc = static_cast<const float*>(b);
-  if (bad_shape(cin, cout, pf) || tiles_per_block < 1) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (dtype == kF32)   // bfloat16's B2 is seld_conv3x3_train_gz + seld_conv3x3_train_dw_tc
-    err = launch_dw<float>(x, w, sc, bi, ac, bc, g, part, batch, cin, f_dim, t_dim, cout, pf,
-                           tiles_per_block, s);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = batch * (f_dim / pf) * n_split(t_dim, tiles_per_block);
-  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows,
-                                        cout * (9 * staged_channels(cin) + 2), s));
-}
-
-// B2 in bfloat16, g_z + its reduction: gz (B, Cout, F, T) bf16 and sums
-// (2 * Cout,) = [S_g | sum g_pre * acc]. x, w, scale, bias, a, b, g as for
-// seld_conv3x3_train_dw; partials (B * F/pf * n_split, 2 * Cout).
+// B2, g_z + its reduction: gz (B, Cout, F, T) in x's dtype and sums (2 *
+// Cout,) = [S_g | sum g_pre * acc]. x (B, Cin, F, T), w (3, 3, Cin, Cout), g
+// (B, Cout, F/pf, T) in one dtype; scale, bias, a, b: (Cout,) float;
+// partials (B * F/pf * n_split, 2 * Cout). float32: train_gz_kernel on
+// conv_rows<CC>; bfloat16: train_gz_tc_kernel on the row tile.
 extern "C" int seld_conv3x3_train_gz(const void* x, const void* w, const void* scale,
                                      const void* bias, const void* a, const void* b,
                                      const void* g, void* gz, void* partials, void* sums,
@@ -683,41 +717,64 @@ extern "C" int seld_conv3x3_train_gz(const void* x, const void* w, const void* s
                                      int tiles_per_block, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (dtype != kBF16 || bad_shape(cin, cout, pf) || f_dim % pf || tiles_per_block < 1)
+  if (bad_shape(cin, cout, pf) || f_dim % pf || tiles_per_block < 1)
     return cudaErrorInvalidValue;
-  cudaError_t err =
-      pf <= kGzStageRows
-          ? launch_gz<true>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim, cout,
-                            pf, tiles_per_block, s)
-          : launch_gz<false>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim,
-                             cout, pf, tiles_per_block, s);
+  cudaError_t err;
+  if (dtype == kF32)
+    err = staged_channels(cin) == kCC
+              ? launch_gz_f32<kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim,
+                                   t_dim, cout, pf, tiles_per_block, s)
+              : launch_gz_f32<2 * kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim,
+                                       t_dim, cout, pf, tiles_per_block, s);
+  else if (dtype == kBF16)
+    err = pf <= kGzStageRows
+              ? launch_gz<true>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim,
+                                cout, pf, tiles_per_block, s)
+              : launch_gz<false>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim,
+                                 cout, pf, tiles_per_block, s);
+  else
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = batch * (f_dim / pf) * n_split(t_dim, tiles_per_block);
   return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows, 2 * cout, s));
 }
 
-// B2 in bfloat16, dW + its reduction: sums (3, 3, Cin, Cout) float from x
-// (B, Cin, F, T) and gz (B, Cout, F, T) on the dW tile of conv3x3_dw_tc.cuh
-// with a 16-channel Cin tile; the depth split as seld_ct_train_dw's
-// (conv2d_train.dw_split); partials (that many shares, 9 * Cin * Cout).
+// B2, dW + its reduction: sums (3, 3, Cin, Cout) float from x (B, Cin, F,
+// T) and gz (B, Cout, F, T) of one dtype, Cin <= 16: in bfloat16 the dW
+// tile of conv3x3_dw_tc.cuh with a 16-channel Cin tile, in float32 the
+// split-TF32 tile of conv3x3_dw_tf32.cuh (8 channels with the dx taps
+// stacked for Cin <= kDwfStackMaxCin, else 16); the depth split as
+// seld_ct_train_dw's (conv2d_train.dw_split); partials (that many shares,
+// 9 * Cin * Cout).
 extern "C" int seld_conv3x3_train_dw_tc(const void* x, const void* gz, void* partials,
                                         void* sums, int batch, int cin, int f_dim, int t_dim,
                                         int cout, int rows_per_split, int frames_per_split,
                                         int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (dtype != kBF16 || cin < 1 || cin > kDwCiStage1 || cout < 1 || rows_per_split < 1 ||
+  if (cin < 1 || cin > kDwCiStage1 || cout < 1 || rows_per_split < 1 ||
       frames_per_split < 1 || (frames_per_split < t_dim && frames_per_split % kDwT))
     return cudaErrorInvalidValue;
   const int splits = ceil_div(batch * f_dim, rows_per_split) * ceil_div(t_dim, frames_per_split);
-  constexpr size_t smem = dw_tc_smem<kDwCiStage1>();
-  cudaError_t err = set_smem(ct_dw_tc_kernel<kDwCiStage1>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(splits, ceil_div(cout, kDwCo), 1);
-  ct_dw_tc_kernel<kDwCiStage1><<<grid, kDwThreads, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gz), part, batch, cin, f_dim, t_dim,
-      cout, rows_per_split, frames_per_split);
-  err = cudaGetLastError();
+  cudaError_t err;
+  if (dtype == kBF16) {
+    constexpr size_t smem = dw_tc_smem<kDwCiStage1>();
+    err = set_smem(ct_dw_tc_kernel<kDwCiStage1>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(splits, ceil_div(cout, kDwCo), 1);
+    ct_dw_tc_kernel<kDwCiStage1><<<grid, kDwThreads, smem, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(gz), part, batch, cin, f_dim,
+        t_dim, cout, rows_per_split, frames_per_split);
+    err = cudaGetLastError();
+  } else if (dtype == kF32) {
+    err = cin <= kDwfStackMaxCin
+              ? launch_dw_tf32<kDwfCiStacked>(x, gz, part, splits, batch, cin, f_dim, t_dim, cout,
+                                              rows_per_split, frames_per_split, s)
+              : launch_dw_tf32<kDwfCiStage1>(x, gz, part, splits, batch, cin, f_dim, t_dim, cout,
+                                             rows_per_split, frames_per_split, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), splits,
                                         9 * cin * cout, s));

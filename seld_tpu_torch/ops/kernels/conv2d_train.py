@@ -13,7 +13,8 @@ first row holding the max.
 
 The passes, each a wrapper that launches its kernel (``csrc/conv3x3_train.cu``)
 for CUDA tensors and runs its plain version for CPU tensors. Which kernels
-run depends on the dtype alone (:func:`tensor_core_path`):
+F1 and F2 run depends on the dtype alone (:func:`tensor_core_path`); B2 is
+the same two passes in both dtypes:
 
 - F1 :func:`conv_train_stats` — per-channel sum and sum of squares of the conv;
 - (torch) mean, var, the BN affine;
@@ -25,9 +26,10 @@ run depends on the dtype alone (:func:`tensor_core_path`):
   ``conv3x3_windows``); on CPU tensors :func:`conv_train_fwd_plain`;
 - B1 :func:`sel_stats` — S_g, S_gx from (out, cotangent) where out > 0;
 - B2 — dW, and the exact routed S_g and sum g * acc that give dgamma and
-  dbeta: in float32 one SIMT pass, :func:`conv_train_dw`; in bfloat16 two,
-  as K9's: :func:`conv_train_gz` (g_z written once, on the conv tile) and
-  :func:`conv_train_dw_gz` (the dW tile, a GEMM over the frames).
+  dbeta, in two passes as K9's: :func:`conv_train_gz` (one recompute of the
+  conv that routes g and writes g_z once: SIMT in float32, the conv tile in
+  bfloat16) and :func:`conv_train_dw_gz` (the dW tile, a GEMM over the
+  frames: split-TF32 products in float32, bf16 products in bfloat16).
 
 One conv row function per dtype serves F1, F2 and B2's recompute, so B2's
 routing recomputes F2's pooled rows bit for bit: in float32 the SIMT rows
@@ -49,7 +51,7 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
-    BLOCK_CO, BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
     halo_max_pool_f, staged_channels, tc_block_rows,
 )
 
@@ -68,11 +70,13 @@ def kdim(cin: int) -> int:
 
 
 def max_pool_f(cin: int) -> int:
-    """The largest pool_f K5 takes at this Cin, in both dtypes: float32's B2
-    keeps the pool_f + 2 halo rows, the weights and a g_z tile in one
-    block's shared memory (41 rows for Cin <= 8, 17 for Cin 9-10); the
-    bfloat16 tiles walk the rows one at a time and take any of these."""
-    return halo_max_pool_f(cin, 4 * BLOCK_CO * (BLOCK_T + 1))
+    """The largest pool_f K5 takes at this Cin, in both dtypes: float32's F1
+    and g_z pass keep the pool_f + 2 halo rows and the weights in one
+    block's shared memory (:func:`halo_max_pool_f`: 48 rows for Cin <= 8,
+    21 for Cin 9-10; the g_z pass stages g_z rows in what is left);
+    float32's F2 (K2's kernel) walks the rows in chunks and the bfloat16
+    tiles one at a time, so they take any of these."""
+    return halo_max_pool_f(cin)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -80,10 +84,13 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def tensor_core_path(x: torch.Tensor) -> bool:
-    """True where K5 runs its bfloat16 passes (F1 and g_z on the tensor-core
-    conv tile, F2 on K3's tile through K10b's entry, dW on the dW tile; on
-    CPU tensors their plain versions), False where it runs the SIMT passes
-    (float32, TF32 off; float64 on the CPU takes their plain versions)."""
+    """True where K5's forward runs its bfloat16 passes (F1 on the
+    tensor-core conv tile, F2 on K3's tile through K10b's entry; on CPU
+    tensors their plain versions), False where it runs the SIMT ones (F1,
+    F2 on K2's kernel: float32, TF32 off; float64 on the CPU takes their
+    plain versions). B2 takes :func:`conv_train_gz` and
+    :func:`conv_train_dw_gz` in every dtype; each picks its kernel by
+    dtype."""
     return x.dtype == torch.bfloat16
 
 
@@ -237,8 +244,9 @@ def _route_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
 
 def dw_plain(x, gz) -> torch.Tensor:
     """(3, 3, Cin, Cout) = sum over (b, f, t) of gz * the shifted x, in
-    float: the weight gradient of a zero-padded 3x3 conv (the dW tile's
-    function, for K5 and K9)."""
+    float: the weight gradient of a zero-padded 3x3 conv (the dW tiles'
+    function, for K5 and K9; ``ops/kernels/tf32.py::conv_dw_tf32_plain``
+    repeats the float32 tile's split-TF32 arithmetic)."""
     cdt = _acc_dtype(x)
     dw = torch.nn.grad.conv2d_weight(x.to(cdt), (gz.shape[1], x.shape[1], 3, 3),
                                      gz.to(cdt), padding=1)
@@ -248,7 +256,8 @@ def dw_plain(x, gz) -> torch.Tensor:
 def conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
     """(Cout * (K + 2),) = [dW (Cout, 9 taps, CC ci) | S_g | sum g_pre * acc]
     with CC = :func:`staged_channels` and K = 9 * CC (74 or 146 per channel):
-    float32's fused B2 (see :func:`_route_gz_plain`)."""
+    B2 as one function (see :func:`_route_gz_plain`), the oracle the tests
+    hold :func:`conv_train_gz` and :func:`conv_train_dw_gz` to."""
     g_z, sg, sga = _route_gz_plain(x, w, g, scale, bias, a, b, pool_f)
     cin = x.shape[1]
     dw = dw_plain(x, g_z).permute(3, 0, 1, 2)                      # (Cout, 3, 3, Cin)
@@ -264,62 +273,30 @@ def _check_g(x, w, g, pool_f) -> None:
         raise ValueError(f"g must be {want}, got {tuple(g.shape)}")
 
 
-def _b2_prelude(x, w, g, name, bf16: bool):
-    """Check a B2 launch's operands; the float32 pass and the bfloat16 pair
-    each take their own dtype only."""
-    if tensor_core_path(x) != bf16:
-        want = "bfloat16" if bf16 else "float32 (bfloat16 takes conv_train_gz)"
-        raise TypeError(f"{name} takes {want}, got {x.dtype}")
-    code, lib = _launch_prelude(x, w, name)
-    require_contiguous(g=g)
-    if g.dtype != x.dtype:
-        raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
-    return code, lib
-
-
-def conv_train_dw(x, w, g, scale, bias, a, b, pool_f: int) -> torch.Tensor:
-    """float32's B2: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf,
-    T) in x's dtype, per-channel scale, bias, a, b -> (Cout * (kdim(Cin) +
-    2),) float32 sums (:func:`conv_train_dw_plain`'s layout)."""
-    _check_g(x, w, g, pool_f)
-    bsz, cin, f, t = x.shape
-    cout = w.shape[3]
-    if not on_cuda(x, w, g, scale, bias, a, b):
-        return conv_train_dw_plain(x, w, g, scale, bias, a, b, pool_f)
-    code, lib = _b2_prelude(x, w, g, "conv_train_dw", bf16=False)
-    width = cout * (kdim(cin) + 2)
-    partials = torch.empty((_grid_rows(x, pool_f), width), dtype=torch.float32,
-                           device=x.device)
-    sums = torch.empty(width, dtype=torch.float32, device=x.device)
-    cols = [_col(v) for v in (scale, bias, a, b)]
-    err = lib.seld_conv3x3_train_dw(
-        x.data_ptr(), w.data_ptr(), *[c.data_ptr() for c in cols], g.data_ptr(),
-        partials.data_ptr(), sums.data_ptr(), bsz, cin, f, t, cout, pool_f,
-        TILES_PER_BLOCK, code, stream_handle(x.device))
-    _build.check(err, "seld_conv3x3_train_dw")
-    launch_counts["conv_train_dw"] += 1
-    return sums
-
-
 def conv_train_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
     """(g_z (B, Cout, F, T) in x's dtype, (2 * Cout,) = [S_g | sum g_pre *
     acc]): :func:`_route_gz_plain`'s routing and g_z, the first half of
-    bfloat16's B2."""
+    B2."""
     g_z, sg, sga = _route_gz_plain(x, w, g, scale, bias, a, b, pool_f)
     return g_z.to(x.dtype), torch.cat([sg, sga])
 
 
 def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
-    """bfloat16's B2, g_z: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout,
-    F/pf, T) in bfloat16, per-channel scale, bias, a, b -> (g_z (B, Cout, F,
-    T) bf16, (2 * Cout,) float32 routed sums). CUDA tensors launch
-    ``seld_conv3x3_train_gz``; CPU tensors take :func:`conv_train_gz_plain`."""
+    """B2, g_z: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf, T)
+    in one dtype, per-channel scale, bias, a, b -> (g_z (B, Cout, F, T) in
+    x's dtype, (2 * Cout,) float32 routed sums). CUDA tensors launch
+    ``seld_conv3x3_train_gz`` (float32: one recompute on F1's and F2's SIMT
+    rows; bfloat16: the conv tile's rows); CPU tensors take
+    :func:`conv_train_gz_plain`."""
     _check_g(x, w, g, pool_f)
     bsz, cin, f, t = x.shape
     cout = w.shape[3]
     if not on_cuda(x, w, g, scale, bias, a, b):
         return conv_train_gz_plain(x, w, g, scale, bias, a, b, pool_f)
-    code, lib = _b2_prelude(x, w, g, "conv_train_gz", bf16=True)
+    code, lib = _launch_prelude(x, w, "conv_train_gz")
+    require_contiguous(g=g)
+    if g.dtype != x.dtype:
+        raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
     gz = torch.empty((bsz, cout, f, t), dtype=x.dtype, device=x.device)
     partials = torch.empty((_grid_rows(x, pool_f), 2 * cout), dtype=torch.float32,
                            device=x.device)
@@ -336,7 +313,7 @@ def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
 
 def dw_split(b: int, f: int, t: int, target: int = DW_SPLITS) -> tuple[int, int, int]:
     """(rows_per_split, frames_per_split, splits) of the dW tiles (bf16, and
-    K9's float32 split-TF32 tile): the B * F rows shared among at most
+    the float32 split-TF32 tile): the B * F rows shared among at most
     ``target`` blocks, and where there are fewer rows than that (K9's stage
     3: 8 at batch 2), each row's frames split in
     multiples of DW_FRAME_STEP until about ``target`` shares. ``splits`` is
@@ -355,11 +332,13 @@ def dw_split(b: int, f: int, t: int, target: int = DW_SPLITS) -> tuple[int, int,
 
 
 def conv_train_dw_gz(x: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
-    """bfloat16's B2, dW: x (B, Cin, F, T) with Cin <= 16 and gz (B, Cout, F,
-    T) from :func:`conv_train_gz` -> dW (3, 3, Cin, Cout) float32. CUDA
-    tensors launch ``seld_conv3x3_train_dw_tc`` (the dW tile with a
-    16-channel Cin tile, depth shared by :func:`dw_split` among about
-    DW_SPLITS_STAGE1 blocks); CPU tensors take :func:`dw_plain`."""
+    """B2, dW: x (B, Cin, F, T) with Cin <= 16 and gz (B, Cout, F, T) from
+    :func:`conv_train_gz`, one dtype -> dW (3, 3, Cin, Cout) float32. CUDA
+    tensors launch ``seld_conv3x3_train_dw_tc`` (bfloat16: the dW tile with
+    a 16-channel Cin tile; float32: the split-TF32 tile, 8 channels with the
+    three dx taps stacked in M at Cin <= 8, else 16; depth shared by
+    :func:`dw_split` among about DW_SPLITS_STAGE1 blocks); CPU tensors take
+    :func:`dw_plain`."""
     if x.ndim != 4 or gz.ndim != 4 or x.shape[0] != gz.shape[0] or x.shape[2:] != gz.shape[2:]:
         raise ValueError(f"x {tuple(x.shape)} and gz {tuple(gz.shape)} must be (B, *, F, T) "
                          "of one B, F and T")
@@ -368,8 +347,9 @@ def conv_train_dw_gz(x: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     if not on_cuda(x, gz):
         return dw_plain(x, gz)
     require_contiguous(x=x, gz=gz)
-    if not x.dtype == gz.dtype == torch.bfloat16:
-        raise TypeError(f"conv_train_dw_gz takes bfloat16 x and gz, got {x.dtype} and {gz.dtype}")
+    if x.dtype != gz.dtype:
+        raise TypeError(f"conv_train_dw_gz takes x and gz of one dtype, got {x.dtype} and "
+                        f"{gz.dtype}")
     code, lib = dtype_code(x), _build.load()
     b, cin, f, t = x.shape
     cout = gz.shape[1]
@@ -429,7 +409,7 @@ class _ConvTrainFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_mean, _g_var):
         x, w, out, mean, inv, scale, bias = ctx.saved_tensors
-        cout, n, cin = w.shape[3], ctx.n, x.shape[1]
+        cout, n = w.shape[3], ctx.n
         g = g_out.to(out.dtype).contiguous()
         # B1: the correction terms' sums, from the pooled output; a channel
         # with scale == 0 has no recoverable xhat and gets p = q = 0 (its
@@ -443,16 +423,10 @@ class _ConvTrainFn(torch.autograd.Function):
         a = inv * scale * c2
         b = scale * c1 - mean * a
         # B2: dW and the exact routed sums (dgamma, dbeta come from these)
-        if tensor_core_path(x):
-            gz, sums = conv_train_gz(x, w, g, scale, bias, a, b, ctx.pool_f)
-            dw = conv_train_dw_gz(x, gz)
-            del gz
-            sg, sga = sums[:cout], sums[cout:]
-        else:
-            sums = conv_train_dw(x, w, g, scale, bias, a, b, ctx.pool_f)
-            kd = kdim(cin)
-            dw = sums[:cout * kd].view(cout, 3, 3, kd // 9)[..., :cin].permute(1, 2, 3, 0)
-            sg, sga = sums[cout * kd:cout * (kd + 1)], sums[cout * (kd + 1):]
+        gz, sums = conv_train_gz(x, w, g, scale, bias, a, b, ctx.pool_f)
+        dw = conv_train_dw_gz(x, gz)
+        del gz
+        sg, sga = sums[:cout], sums[cout:]
         dgamma = inv * (sga - mean * sg)
         g_dt, b_dt = ctx.param_dtypes
         return None, dw.to(w.dtype).contiguous(), dgamma.to(g_dt), sg.to(b_dt), None, None

@@ -1,8 +1,8 @@
 """The split-TF32 arithmetic of the float32 tensor-core kernels (K4's
 ``flash_fwd_tf32_kernel``, K6's ``flash_dq_tf32_kernel`` /
-``flash_dkv_tf32_kernel``, K7's ``hamilton_tf32_kernel`` and K9's
-``ct_dw_tf32_kernel``, helpers in ``csrc/mma.cuh``), in plain PyTorch for
-the tests: no wrapper calls it.
+``flash_dkv_tf32_kernel``, K7's ``hamilton_tf32_kernel`` and the dW tile
+``ct_dw_tf32_kernel`` of K9 and K5, helpers in ``csrc/mma.cuh``), in plain
+PyTorch for the tests: no wrapper calls it.
 
 A float32 x is split as x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
 tf32 rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
@@ -15,13 +15,18 @@ partial into the float accumulator rounded to nearest (``mma_3xtf32_add``).
 repeat K7's and K4's arithmetic so: each step's partial summed in float64
 and rounded once to float32 (the tensor cores sum a step's products in
 their own order and truncate, which the card's tests hold to float64).
+:func:`conv_dw_tf32_plain` repeats the dW tile's, whose two levels are a
+64-frame step (eight k8 steps) and the block's float accumulator, and
+whose blocks' partial rows are summed in float64.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from seld_tpu_torch.ops.hamilton import assemble_hamilton
+from seld_tpu_torch.ops.kernels.conv2d_train import DW_FRAME_STEP, DW_SPLITS_STAGE1, dw_split
 
 _LOW = 0x1FFF         # the 13 fraction bits TF32 drops
 _HALF = 0x1000        # half a TF32 ulp in them
@@ -121,3 +126,44 @@ def flash_attention_tf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         m = m_new
     out = o * (1.0 / l)[..., None]
     return out.permute(0, 2, 1, 3).contiguous(), m + torch.log(l)
+
+
+def conv_dw_tf32_plain(x: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
+    """The float32 dW tile's arithmetic (``ct_dw_tf32_kernel``) on x (B, Cin,
+    F, T) and gz (B, Cout, F, T) float32 -> dW (3, 3, Cin, Cout), as
+    ``conv2d_train.dw_plain`` contracts it: x and gz split into hi + lo;
+    per (b, f) row and 64-frame step, the three products summed over the
+    step (in float64, rounded once to float32: the tensor cores' chain from
+    zero); each block's share of the depth (:func:`conv2d_train.dw_split`
+    over K5's DW_SPLITS_STAGE1) adds its steps to a float32 accumulator,
+    rows then steps in order; the shares are summed in float64 and rounded
+    once (``launch_reduce``)."""
+    b, cin, f, t = x.shape
+    cout = gz.shape[1]
+    step = DW_FRAME_STEP
+    steps = -(-t // step)
+    tp = steps * step
+    gh, gl = (a.double().view(b, cout, f, steps, step)
+              for a in tf32_split_plain(F.pad(gz, (0, tp - t)).contiguous()))
+    xh, xl = tf32_split_plain(F.pad(x, (1, 1 + tp - t, 1, 1)).contiguous())
+    parts = torch.empty(b, f, steps, 9, cin, cout)   # each step's partial, float32
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        ah, al = (a[:, :, dy:dy + f, dx:dx + tp].double().reshape(b, cin, f, steps, step)
+                  for a in (xh, xl))
+        prod = sum(torch.einsum("bcfsk,bofsk->bfsco", u, v)
+                   for u, v in ((al, gh), (ah, gl), (ah, gh)))
+        parts[:, :, :, tap] = prod.float()
+    # the blocks' shares: rows_per_split rows x spf steps each, in that order
+    rows_per_split, frames_per_split, _ = dw_split(b, f, t, DW_SPLITS_STAGE1)
+    spf = steps if frames_per_split >= t else frames_per_split // step
+    rows, row_splits, frame_splits = b * f, -(-(b * f) // rows_per_split), -(-steps // spf)
+    width = 9 * cin * cout
+    p = torch.zeros(row_splits * rows_per_split, frame_splits * spf, width)
+    p[:rows, :steps] = parts.view(rows, steps, width)
+    p = p.view(row_splits, rows_per_split, frame_splits, spf, width)
+    acc = torch.zeros(row_splits, frame_splits, width)
+    for k in range(rows_per_split):
+        for j in range(spf):
+            acc = acc + p[:, k, :, j]
+    return acc.double().sum((0, 1)).float().view(3, 3, cin, cout)

@@ -26,8 +26,9 @@ dispatch baseline, always runs. Sections:
   float32 (TF32 off), on the same inputs: K4 and K6 at the flagship's
   attention (T = frames / 2, 8 heads of 48) beside SDPA's forward and
   backward, K7 (the DQ conv table) at the flagship's pointwise convs (M =
-  batch x frames, 384 x 384) beside ``addmm`` on the assembled weight, and
-  K9's dW at stage 2 beside cuDNN's weight gradient;
+  batch x frames, 384 x 384) beside ``addmm`` on the assembled weight,
+  K9's dW at stage 2 and K5's B2 at stage 1 (its float32 g_z pass, then
+  the split-TF32 dW tile) each beside cuDNN's weight gradient;
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -267,6 +268,7 @@ def attn(batch, device, shapes=FLAGSHIP):
 def f32(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.hamilton import assemble_hamilton
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
     from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
     from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul
 
@@ -303,6 +305,19 @@ def f32(batch, device, shapes=FLAGSHIP):
     yield f"f32: K9 dW stage 2 ({c} x {f} x {t})", k9.ct_dw, (x, gz)
     yield "f32: cuDNN wgrad stage 2", \
         lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, c, 3, 3), zz, padding=1), (x, gz)
+    del x, gz
+    cin, f, pf = shapes["channels"], shapes["freq"], shapes["pools"][0]
+    x = _randn(device, batch, cin, f, t, gen=gen)
+    w = _randn(device, 3, 3, cin, c, gen=gen) / 8
+    g = _randn(device, batch, c, f // pf, t, gen=gen)
+    scale = _randn(device, c, gen=gen).abs() + 0.5
+    bias, a, b = (_randn(device, c, gen=gen) / 4 for _ in range(3))
+    b2 = (x, w, g, scale, bias, a, b, pf)
+    gz = k5.conv_train_gz(*b2)[0]
+    yield f"f32: K5 g_z pass stage 1 ({cin} -> {c} x {f} x {t}, pf {pf})", k5.conv_train_gz, b2
+    yield "f32: K5 dW tile stage 1", k5.conv_train_dw_gz, (x, gz)
+    yield "f32: cuDNN wgrad stage 1", \
+        lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, cin, 3, 3), zz, padding=1), (x, gz)
 
 
 def v3(batch, device, shapes=FLAGSHIP):

@@ -321,12 +321,12 @@ K5_SHAPES = [(2, 8, 24, 1300, 200, 8),   # 3 T splits, 4 Cout tiles, B * F' = 6
 
 def k5_launches(dtype) -> dict:
     """K5's launches for one forward and backward of the op: F2 is K2's kernel
-    in float32 and K3's tile through K10b's entry in bfloat16, whose B2 is
-    the g_z pass and the dW tile."""
+    in float32 and K3's tile through K10b's entry in bfloat16; B2 is the g_z
+    pass and the dW tile in both."""
     bf16 = dtype == torch.bfloat16
     return {"conv_train_stats": 1, "conv3x3_smallcin": int(not bf16),
             "conv3x3_windows": int(bf16), "conv_train_sel_stats": 1,
-            "conv_train_gz": int(bf16), "conv_train_dw": 1}
+            "conv_train_gz": 1, "conv_train_dw": 1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -352,8 +352,10 @@ def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", [*K5_SHAPES[:2], *K5_SHAPES[3:]])
 def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     """Each K5 pass against its plain version on the same inputs: float32's
-    SIMT passes, bfloat16's tensor-core ones (F2 K3's tile through K10b's
-    entry; B2 the g_z pass and the dW tile)."""
+    SIMT F1, F2 (K2's kernel) and g_z pass and split-TF32 dW tile (also
+    within 4x the float32 plain version's distance from float64),
+    bfloat16's tensor-core ones (F2 K3's tile through K10b's entry); B2 the
+    g_z pass and the dW tile in both."""
     x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, dtype)
     x = x.permute(0, 3, 1, 2).contiguous()
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
@@ -370,18 +372,20 @@ def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     a, c = 1e-3 * torch.randn(cout, generator=gen, device="cuda"), 1e-3 * torch.randn(
         cout, generator=gen, device="cuda")
     args = (x, w, g, scale, bias, a, c, pf)
-    if bf16:
-        gz, sums = k5.conv_train_gz(*args)
-        want_gz, want_sums = k5.conv_train_gz_plain(*args)
-        _close(gz, want_gz, dtype)
-        _close(sums, want_sums, torch.float32)
-        dw_fn = lambda: k5.conv_train_dw_gz(x, gz)
-        _close(dw_fn(), k5.dw_plain(x, gz), torch.float32)
-    else:
-        dw_fn = lambda: k5.conv_train_dw(*args)
-        _close(dw_fn(), k5.conv_train_dw_plain(*args), torch.float32)
+    gz, sums = k5.conv_train_gz(*args)
+    want_gz, want_sums = k5.conv_train_gz_plain(*args)
+    _close(gz, want_gz, dtype)
+    _close(sums, want_sums, torch.float32)
+    dw = k5.conv_train_dw_gz(x, gz)
+    _close(dw, k5.dw_plain(x, gz), torch.float32)
+    if not bf16:
+        _f64_gate(f"K5 dW {b}x{cin}x{f}x{t}->{cout}", dw, _dw_plain_f32(x, gz),
+                  k5.dw_plain(x.double(), gz.double()))
+    assert [launch_counts[n] for n in ("conv_train_gz", "conv_train_dw")] == [1, 1]
     # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
-    assert torch.equal(dw_fn(), dw_fn())
+    assert torch.equal(k5.conv_train_dw_gz(x, gz), dw)
+    for a_, b_ in zip(k5.conv_train_gz(*args), (gz, sums)):
+        assert torch.equal(a_, b_)
     assert torch.equal(k5.conv_train_stats(x, w, pf), k5.conv_train_stats(x, w, pf))
 
 
@@ -413,6 +417,84 @@ def test_conv_train_bf16_routing_equals_f2_bitwise(gen):
     gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
     assert torch.equal((gz != 0).view(want.shape), want)
     assert torch.equal(sums[:cout], want.sum((0, 2, 3, 4)).float())
+
+
+def _fma_f32(a, b, c):
+    """a * b + c rounded once to float32, as fmaf: the float64 product is
+    exact and the float64 sum's error is recovered (two-sum), which decides
+    the rounding where that sum falls on a midpoint between two floats."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    y = s.float()
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    down = torch.nextafter(y, torch.full_like(y, -float("inf")))
+    y = torch.where(((y.double() + up.double()) / 2 == s) & (err > 0), up, y)
+    return torch.where(((y.double() + down.double()) / 2 == s) & (err < 0), down, y)
+
+
+def test_conv_train_f32_routing_equals_f2_bitwise(gen):
+    """The float32 twin, with K2's kernel as F2: on random (not
+    integer-grid) float32 inputs at Cin 8 and 10 (8 and 16 staged
+    channels), K5's float32 g_z pass, fed g = 1 and a = b = 0 (g_z = scale
+    exactly where it routes, 0 elsewhere), routes each window once where
+    F2's pooled max is > 0 and nowhere else; at Cin 8 F2 pools max_r
+    relu(pre * scale + bias) of the SIMT conv rows (K9 F1's pre: conv_rows
+    with 8 staged channels, K5's rows at Cin <= 8) bit for bit, and the
+    pass routes to the first row holding that max."""
+    b, f, t, cout, pf = 2, 64, 1000, 80, 8
+    for cin in (8, 10):
+        x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+        w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+        scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+        bias = 0.3 * torch.randn(cout, generator=gen, device="cuda")
+        out = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+        zero = torch.zeros(cout, device="cuda")
+        ones = torch.ones(b, cout, f // pf, t, device="cuda")
+        gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
+        routed = (gz != 0).view(b, cout, f // pf, pf, t)
+        assert int(routed.sum(3).max()) <= 1
+        assert torch.equal(routed.any(3), out > 0)
+        at = scale.view(1, cout, 1, 1, 1).expand(routed.shape)
+        assert torch.equal(gz.view(routed.shape)[routed], at[routed])
+        assert torch.equal(sums[:cout], (out > 0).sum((0, 2, 3)).float())
+        if cin != 8:
+            continue
+        pre = k9.ct_train_stats(x, w, pf)[1]
+        y = torch.relu(_fma_f32(pre, scale[:, None, None], bias[:, None, None]))
+        y = y.view(b, cout, f // pf, pf, t)
+        best, row = y[:, :, :, 0], torch.zeros_like(y[:, :, :, 0], dtype=torch.long)
+        for r in range(1, pf):
+            up = y[:, :, :, r] > best
+            best, row = torch.where(up, y[:, :, :, r], best), torch.where(up, r, row)
+        assert torch.equal(out, best)
+        want = (torch.arange(pf, device="cuda").view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
+            best > 0).unsqueeze(3)
+        assert torch.equal(routed, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cin", [8, 10])
+def test_conv_train_op_at_the_top_pool(gen, dtype, cin):
+    """K5 at its largest pool_f (conv2d_train.max_pool_f: 48 rows at Cin
+    <= 8, 21 at Cin 9-10), in both dtypes: the op's outputs and gradients
+    against the plain composition, every pass launched once."""
+    pf = k5.max_pool_f(cin)
+    assert pf == (48 if cin <= 8 else 21)
+    b, f, t, cout = 2, 2 * pf, 300, 72
+    x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
+    g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
+    results = []
+    for fn in (k5.conv2d_bn_relu_fpool_train, k5.conv2d_bn_relu_fpool_train_plain):
+        wr, gr, br = (v.clone().requires_grad_() for v in (w, gamma, beta))
+        out, mean, var = fn(x, wr, gr, br, pf)
+        (out.float() * g.float()).sum().backward()
+        results.append((out, mean, var, wr.grad, gr.grad, br.grad))
+    want_launches = k5_launches(dtype)
+    assert {n: launch_counts[n] for n in want_launches} == want_launches
+    for got, want in zip(*results):
+        _close(got, want, dtype if got.dtype == dtype else torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -713,6 +795,55 @@ def test_ct_dw_tf32_keeps_nans(gen, bits):
     got, want = k9.ct_dw(h, gz), _dw_plain_f32(h, gz)
     assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_conv_train_f32_b2_keeps_nans(gen, bits):
+    """A NaN in x (batch 0) or in g (batch 1) of K5's float32 g_z pass, and
+    in x (batch 0) or in g_z (batch 1) of its dW tile, comes out NaN exactly
+    where the plain version's does (the dW tile's: without cuDNN). A NaN in
+    x reaches every channel of g_z around it, and through g_z every weight,
+    so the dW tile takes a g_z of its own."""
+    b, cin, f, t, cout, pf = 2, 8, 16, 300, 72, 8
+    x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, torch.float32)
+    x = _put_nan(x.permute(0, 3, 1, 2).contiguous(), (0, 3, 5, 100), bits)
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias, a, c = (0.2 * torch.randn(cout, generator=gen, device="cuda") for _ in range(3))
+    g = _put_nan(torch.randn(b, cout, f // pf, t, generator=gen, device="cuda"),
+                 (1, 40, 1, 250), bits)
+    args = (x, w, g, scale, bias, a, c, pf)
+    gz = k5.conv_train_gz(*args)[0]
+    want_gz = k5.conv_train_gz_plain(*args)[0]
+    assert bool(torch.isnan(want_gz[0]).any()) and bool(torch.isnan(want_gz[1]).any())
+    assert torch.equal(torch.isnan(gz), torch.isnan(want_gz))
+    x = _put_nan(torch.randn(x.shape, generator=gen, device="cuda"), (0, 3, 5, 100), bits)
+    gz = _put_nan(torch.randn(gz.shape, generator=gen, device="cuda"), (1, 17, 6, 99), bits)
+    got, want = k5.conv_train_dw_gz(x, gz), _dw_plain_f32(x, gz)
+    assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout", [(2, 5, 24, 1100, 80), (2, 8, 24, 1300, 200),
+                                            (2, 9, 16, 700, 80), (1, 10, 24, 1300, 72),
+                                            (1, 8, 4, 515, 12), (2, 8, 256, 4800, 192)])
+def test_conv_train_dw_tf32(gen, b, cin, f, t, cout):
+    """K5's float32 dW tile (ct_dw_tf32_kernel<8>, the dx taps stacked, at
+    Cin 5 and 8; <16> at Cin 9 and 10) at ragged multi-tile shapes (Cout
+    tiles ragged, T 515 staged frame by frame, B * F = 4 splitting each
+    row's frames) and at the flagship's stage 1 (batch 2, 2,457,600 frames
+    of depth) on real-valued x and g_z: within 4x the float32 plain
+    version's distance from float64 and within 2e-4 x max of it (both
+    without cuDNN: cuDNN's float32 wgrad over this depth strays further than
+    2e-4 x max from float64), and bitwise on a rerun."""
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    gz = torch.randn(b, cout, f, t, generator=gen, device="cuda") / 100
+    got = k5.conv_train_dw_gz(x, gz)
+    assert launch_counts["conv_train_dw"] == 1
+    plain = _dw_plain_f32(x, gz)
+    _f64_gate(f"K5 dW {b}x{cin}x{f}x{t}->{cout}", got, plain,
+              k5.dw_plain(x.double(), gz.double()))
+    _close(got, plain, torch.float32)
+    assert torch.equal(k5.conv_train_dw_gz(x, gz), got)
 
 
 def test_conv_tile_f1_f2_bitwise_at_stage_2(gen):

@@ -19,7 +19,7 @@ from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 TINY = dict(prof.FLAGSHIP, samples=12800, frames=32, filters=16, tcn_width=16, dilation=3)
 # attn: four rows at the flagship's head dim and at each of prof.ATTN_WIDE_DIMS
 ROWS = {"noop": 1, "stft": 3, "cnn": 5, "tcn": 3, "fused": 12, "qmm": 9, "train": 5,
-        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 8, "v3": 5}
+        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 11, "v3": 5}
 
 
 @pytest.mark.parametrize("section", sorted(prof.SECTIONS))

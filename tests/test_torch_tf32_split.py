@@ -5,9 +5,11 @@ its plain version ``ops/kernels/tf32.py``, on the CPU: the rounding is
 of the bit trick), a non-finite operand never gives a finite product, hi +
 lo recovers x within 2^-22 |x|, the split is odd in the sign, the
 three-term product summed over a K9 stage-2 depth stays as close to float64
-as the float32 plain version, and so do K7's and K4's whole arithmetic
-(``hamilton_matmul_tf32_plain``, ``flash_attention_tf32_plain``), which
-also agree with the JAX package's functions on the CPU. The tensor cores'
+as the float32 plain version, and so do K5's dW tile
+(``conv_dw_tf32_plain``, at the flagship's stage-1 depth) and K7's and
+K4's whole arithmetic (``hamilton_matmul_tf32_plain``,
+``flash_attention_tf32_plain``), which also agree with the JAX package's
+functions on the CPU. The tensor cores'
 own accumulation is the card's (``tests/test_torch_cuda.py``). The two
 tests that call the JAX package import it themselves: the rest of the
 module also runs where JAX is not installed (``ab_variants --tests``).
@@ -21,8 +23,8 @@ from seld_tpu_torch.ops.kernels.attention import flash_attention_plain
 from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
 from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
-    flash_attention_tf32_plain, hamilton_matmul_tf32_plain, tf32_add_half_and_mask,
-    tf32_round_plain, tf32_split_plain,
+    conv_dw_tf32_plain, flash_attention_tf32_plain, hamilton_matmul_tf32_plain,
+    tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
 )
 
 LOW_BITS = 0x1FFF
@@ -131,6 +133,24 @@ def test_three_term_dw_at_stage_2_depth(seed):
     plain = dw_plain(h, gz)
     d_split = (split - exact).abs().max().item()
     d_plain = (plain.double() - exact).abs().max().item()
+    assert d_split <= 4 * d_plain, (d_split, d_plain)
+
+
+@pytest.mark.parametrize("b,c,f,t,cout", [(2, 8, 256, 4800, 8), (1, 5, 4, 1000, 12)],
+                         ids=["stage-1-depth", "frame-shares"])
+def test_k5_dw_tile_at_stage_1_depth(b, c, f, t, cout):
+    """K5's float32 dW tile as the kernel sums it (``conv_dw_tf32_plain``:
+    64-frame steps summed from zero, 512 depth shares each adding its steps
+    in float32, the shares in float64) over the flagship's stage-1 depth (B
+    * F * T = 2 * 256 * 4800 = 2,457,600 frames, one (b, f) row a share) at
+    Cin 8, narrow Cout, and at Cin 5 over 4 rows, whose frames split into
+    shares of 64-frame steps: within 4x the float32 plain version's max|d|
+    from float64."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((b, c, f, t)).astype(np.float32))
+    gz = torch.from_numpy((rng.standard_normal((b, cout, f, t)) * 1e-2).astype(np.float32))
+    exact = dw_plain(x.double(), gz.double())
+    d_split, d_plain = _dist(conv_dw_tf32_plain(x, gz), exact), _dist(dw_plain(x, gz), exact)
     assert d_split <= 4 * d_plain, (d_split, d_plain)
 
 

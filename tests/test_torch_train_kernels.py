@@ -6,8 +6,9 @@ of each wrapper), against the JAX package.
   in interpret mode (float32 at HIGHEST precision; the thin pack for Cin
   <= 8, the wide pack for Cin 9 and 10, the reference's 3 * Cin <= 32): out,
   mean, var, and dW / dgamma / dbeta from ``jax.vjp``, 2e-4 x max|ref|, with
-  cases of Cout not a multiple of 8 and a ragged T; through float32's fused
-  B2 and through bfloat16's split one (the g_z pass and the dW tile).
+  cases of Cout not a multiple of 8 and a ragged T; B2 is the g_z pass and
+  the dW tile in every dtype, held to B2 as one function
+  (``conv_train_dw_plain``), and the op in float32 to ``jax.vjp`` as well.
 - K6: ``flash_attention_train``'s backward against ``jax.vjp`` of the Pallas
   ``flash_attention`` in interpret mode (float32, 2e-4 x max|ref|) and
   against torch autograd of ``attend_full`` (float64, 1e-12 x max|ref|).
@@ -88,6 +89,36 @@ def test_k5_plain_matches_pallas_train_op(rng, b, f, t, cin, cout, pf):
         _close(g_, w_)
 
 
+@pytest.mark.parametrize("b,f,t,cin,cout,pf", [(2, 16, 40, 8, 16, 8), (1, 16, 33, 10, 16, 8)])
+def test_k5_float32_op_matches_pallas_vjp(rng, monkeypatch, b, f, t, cin, cout, pf):
+    """The op on float32 tensors (its CPU path: the plain versions of F1,
+    F2, B1, the g_z pass and the dW tile, in float32) against jax.vjp of the
+    Pallas op in interpret mode (float32, HIGHEST): out, mean, var, dW,
+    dgamma and dbeta at 2e-4 x max|ref|; B2 goes through the g_z pass and
+    the dW tile."""
+    calls = []
+    for name in ("conv_train_gz", "conv_train_dw_gz"):
+        fn = getattr(k5, name)
+        monkeypatch.setattr(k5, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    x, w, gamma, beta, probe = _k5_case(rng, b, f, t, cin, cout, pf)
+
+    def jfn(w_, g_, b_):
+        return jk5(jnp.asarray(x), w_, g_, b_, pf, 1e-5, True, jax.lax.Precision.HIGHEST,
+                   pack="thin" if cin <= 8 else "wide")
+
+    (out, mean, var), vjp = jax.vjp(jfn, *map(jnp.asarray, (w, gamma, beta)))
+    want = [out, mean, var, *vjp((jnp.asarray(probe), jnp.zeros_like(mean),
+                                  jnp.zeros_like(var)))]
+    wt, gt, bt = (torch.from_numpy(a).requires_grad_() for a in (w, gamma, beta))
+    res = k5.conv2d_bn_relu_fpool_train(torch.from_numpy(x), wt, gt, bt, pf)
+    (res[0] * torch.from_numpy(probe)).sum().backward()
+    got = [a.detach().numpy() for a in (*res, wt.grad, gt.grad, bt.grad)]
+    assert calls == ["conv_train_gz", "conv_train_dw_gz"]
+    for name, g_, w_ in zip(("out", "mean", "var", "dw", "dgamma", "dbeta"), got, want):
+        assert g_.dtype == np.float32 and np.isfinite(g_).all(), name
+        _close(g_, w_)
+
+
 def test_k5_backward_matches_autograd_of_the_plain_op(rng):
     """The hand-derived backward (B1 recovery, B2 routing, subtract-before-dot)
     against torch autograd of the plain composition, float64."""
@@ -112,7 +143,7 @@ def test_k5_bf16_passes_match_pallas_train_op(rng, monkeypatch, b, f, t, cin, co
     max|ref|."""
     monkeypatch.setattr(k5, "tensor_core_path", lambda x: True)
     calls = []
-    for name in ("conv_train_gz", "conv_train_dw_gz", "conv_train_dw"):
+    for name in ("conv_train_gz", "conv_train_dw_gz"):
         fn = getattr(k5, name)
         monkeypatch.setattr(k5, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
     x, w, gamma, beta, probe = _k5_case(rng, b, f, t, cin, cout, pf)
@@ -131,35 +162,46 @@ def test_k5_bf16_passes_match_pallas_train_op(rng, monkeypatch, b, f, t, cin, co
         _close(g_, w_)
 
 
-@pytest.mark.parametrize("b,f,t,cin,cout,pf", K5_TC_CASES)
-def test_k5_gz_pass_and_dw_tile_equal_the_fused_b2(rng, b, f, t, cin, cout, pf):
-    """conv_train_gz_plain + dw_plain give float32's fused B2
-    (conv_train_dw_plain) in float64: dW, S_g and sum g_pre * acc, 1e-12 x
-    max|ref|; g_z is (B, Cout, F, T) in x's dtype."""
+# float64 at K5_TC_CASES (their ids as before), and float32 at Cin 5 and 8
+GZ_DW_CASES = [(*c, torch.float64) for c in K5_TC_CASES] + [
+    (2, 16, 37, 5, 12, 4, torch.float32), (2, 24, 45, 8, 16, 8, torch.float32)]
+GZ_DW_IDS = ["-".join(map(str, c[:6])) + ("" if c[6] == torch.float64 else "-float32")
+             for c in GZ_DW_CASES]
+
+
+@pytest.mark.parametrize("b,f,t,cin,cout,pf,dtype", GZ_DW_CASES, ids=GZ_DW_IDS)
+def test_k5_gz_pass_and_dw_tile_equal_the_fused_b2(rng, b, f, t, cin, cout, pf, dtype):
+    """conv_train_gz_plain + dw_plain give B2 as one function
+    (conv_train_dw_plain): dW, S_g and sum g_pre * acc, 1e-12 x max|ref| in
+    float64 and 1e-6 in float32 (the same sums, so equal but for the order
+    of the float32 ones); g_z is (B, Cout, F, T) in x's dtype."""
     x, w, _, _, _ = _k5_case(rng, b, f, t, cin, cout, pf)
-    xc = torch.from_numpy(x).double().permute(0, 3, 1, 2).contiguous()
-    wt = torch.from_numpy(w).double()
-    col = lambda s_: torch.from_numpy(s_ * rng.standard_normal(cout))
-    g = torch.from_numpy(rng.standard_normal((b, cout, f // pf, t)))
+    xc = torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2).contiguous()
+    wt = torch.from_numpy(w).to(dtype)
+    col = lambda s_: torch.from_numpy(s_ * rng.standard_normal(cout)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((b, cout, f // pf, t))).to(dtype)
     scale, bias, a, c = 1.0 + col(0.2), col(0.2), col(1e-2), col(1e-2)
     gz, sums = k5.conv_train_gz(xc, wt, g, scale, bias, a, c, pf)
-    assert gz.shape == (b, cout, f, t) and gz.dtype == torch.float64
+    assert gz.shape == (b, cout, f, t) and gz.dtype == dtype
     fused = k5.conv_train_dw_plain(xc, wt, g, scale, bias, a, c, pf).numpy()
     kd = k5.kdim(cin)
     want_dw = fused[:cout * kd].reshape(cout, 3, 3, kd // 9)[..., :cin].transpose(1, 2, 3, 0)
-    _close(k5.conv_train_dw_gz(xc, gz).numpy(), want_dw, 1e-12)
-    _close(sums.numpy(), fused[cout * kd:], 1e-12)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    _close(k5.conv_train_dw_gz(xc, gz).numpy(), want_dw, tol)
+    _close(sums.numpy(), fused[cout * kd:], tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k5_routes_b2_by_dtype(monkeypatch, dtype):
-    """bfloat16 takes the tensor-core passes (on CPU tensors their plain
-    versions): the g_z pass, then the dW tile; float32 takes the fused SIMT
-    B2. The route depends on the dtype alone (tensor_core_path)."""
+    """Both dtypes take B2 as two passes (on CPU tensors their plain
+    versions): the g_z pass, then the dW tile; no fused float32 B2 is left
+    to fall back to. The forward's F1 / F2 route depends on the dtype alone
+    (tensor_core_path)."""
     assert k5.tensor_core_path(torch.zeros(1, dtype=dtype)) == (dtype == torch.bfloat16)
     assert not k5.tensor_core_path(torch.zeros(1, dtype=torch.float64))
+    assert not hasattr(k5, "conv_train_dw")
     calls = []
-    for name in ("conv_train_gz", "conv_train_dw_gz", "conv_train_dw"):
+    for name in ("conv_train_gz", "conv_train_dw_gz"):
         fn = getattr(k5, name)
         monkeypatch.setattr(k5, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
     gen = torch.Generator().manual_seed(0)
@@ -168,8 +210,7 @@ def test_k5_routes_b2_by_dtype(monkeypatch, dtype):
     gamma, beta = torch.ones(12, requires_grad=True), torch.zeros(12, requires_grad=True)
     out, _, _ = k5.conv2d_bn_relu_fpool_train(x, w, gamma, beta, 4)
     out.float().sum().backward()
-    bf16 = dtype == torch.bfloat16
-    assert calls == (["conv_train_gz", "conv_train_dw_gz"] if bf16 else ["conv_train_dw"])
+    assert calls == ["conv_train_gz", "conv_train_dw_gz"]
     assert w.grad.dtype == dtype and bool(torch.isfinite(w.grad).all())
 
 
@@ -193,17 +234,18 @@ def test_k5_rejects_what_the_kernels_do_not_take():
         k5.conv2d_bn_relu_fpool_train(x, w, s, s, 2)
     with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
         k5.conv2d_bn_relu_fpool_train(x[..., :8], w[:, :, :8], s, s, 3)
-    x = torch.zeros(1, 18, 10, 10)
-    with pytest.raises(ValueError):   # pool 18 > K5's 17 rows at Cin 10
-        k5.conv2d_bn_relu_fpool_train(x, w[:, :, :10], s, s, 18)
+    x = torch.zeros(1, 22, 10, 10)
+    with pytest.raises(ValueError):   # pool 22 > K5's 21 rows at Cin 10
+        k5.conv2d_bn_relu_fpool_train(x, w[:, :, :10], s, s, 22)
 
 
 @pytest.mark.parametrize("cin", [1, 8, 9, 10])
 def test_pool_f_limits_are_the_kernels_shared_memory(cin):
     """K2's and K5's largest pool_f are the largest whose shared memory (as
     conv3x3_bn_relu_fpool.cu and conv3x3_train.cu size it: pool_f + 2 halo
-    rows of CC x (128 + 2) floats, 9 x CC x 64 weights, and K5's 64 x 129
-    g_z tile) fits 232,448 bytes, capped at MAX_POOL_F."""
+    rows of CC x (128 + 2) floats and 9 x CC x 64 weights, K5's F1 and g_z
+    pass alike; the g_z pass stages g_z rows only in what is left) fits
+    232,448 bytes, capped at MAX_POOL_F."""
     from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 
     cc = 8 if cin <= 8 else 16
@@ -211,11 +253,11 @@ def test_pool_f_limits_are_the_kernels_shared_memory(cin):
     def fits(pf, extra):
         return 4 * ((pf + 2) * cc * 130 + 9 * cc * 64 + extra) <= 232_448
 
-    for top, extra in ((pool.smallcin_max_pool_f(cin), 0), (k5.max_pool_f(cin), 64 * 129)):
+    for top, extra in ((pool.smallcin_max_pool_f(cin), 0), (k5.max_pool_f(cin), 0)):
         assert fits(top, extra)
         assert top == pool.MAX_POOL_F or not fits(top + 1, extra)
-    assert (k5.max_pool_f(cin), pool.smallcin_max_pool_f(cin)) == ((41, 48) if cin <= 8
-                                                                   else (17, 21))
+    assert (k5.max_pool_f(cin), pool.smallcin_max_pool_f(cin)) == ((48, 48) if cin <= 8
+                                                                   else (21, 21))
 
 
 def _stage0_block(cin, frontend_impl, n_stages=1):
