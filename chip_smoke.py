@@ -12,9 +12,9 @@ Phases, each printing its own lines:
    spills per kernel and the HMMA / HGMMA / IMMA count in the SASS of each
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128, K8's int8 GEMM and
-   the split-TF32 float32 kernels of K4, K6, K7 and K9's dW among them), failing if
-   one has none or if a K4 / K6 kernel past head dim 128 or a split-TF32
-   kernel spills;
+   the split-TF32 float32 kernels of K4, K6 (past head dim 128 too), K7 and
+   K9's dW among them), failing if one has none or if a K4 / K6 kernel past
+   head dim 128 or a split-TF32 kernel spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8 within one ulp of its plain version at both row
    tiles, K1's float32 FFT at nperseg 64-2048 and within 1e-5 x
@@ -42,17 +42,18 @@ Phases, each printing its own lines:
    and torch.stft,
    K2, K3 and cuDNN's conv, K4 and scaled_dot_product_attention timed back
    to back (stream_ms), with K4's floor of exponentials beside; K4 and K6
-   at head dims 136-512 (bf16: column groups of at most 256; float32:
-   128-column slices) with their kernels' registers and spills, and at D
-   48, 160, 192, 256 and 320 beside SDPA and its backward back to back with
-   each bound (at D 160 the wide kernels launched alone, no pad copy); the
+   at head dims 136-1280 (both dtypes in column groups of at most 256, the
+   wide kernels; float32's in split TF32) with their kernels' registers and
+   spills, and at D 48, 160, 192, 256, 320 and 640 beside SDPA and its
+   backward back to back with each bound (at D 160 the wide kernels launched
+   alone, no pad copy, in both dtypes); the
    float32 flagship instances of K2, K3, K4, K5 F1 / F2 / B1 / g_z / dW,
    K6, K7, K9 F1 / F2 / B1 / g_z / dW / dx, K2w, K10a and K10b (and K4 / K6
    at D 160) beside their library call in float32 with TF32 off, where
    there is one, and their float32 bound (the ``[f32]`` lines), the
-   split-TF32 kernels (K4 and K6 at D 48, K7 at M 9600 with dx through the
-   autograd Function, K9's dW at stage 2 and K5's at stage 1, on the grid's
-   inputs and on real-valued ones) also held to float64: each
+   split-TF32 kernels (K4 and K6 at D 48 and 160, K7 at M 9600 with dx
+   through the autograd Function, K9's dW at stage 2 and K5's at stage 1,
+   on the grid's inputs and on real-valued ones) also held to float64: each
    within F64_FACTOR x the float32 plain version's distance from the plain
    version in float64 (the dW tiles: the plain version with cuDNN off,
    whose float32 wgrad is printed beside); K2w's and
@@ -255,14 +256,17 @@ PREDICT_STEPS_TIMED = 3
 # tile, K5's 16-channel one), K4's forward, K6's two backward passes (and the
 # three at head dims past 128, in column groups: WIDE_ATTN_KERNELS), K7, K1's
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
-# int8 GEMM (IMMA); and the float32 kernels of K4, K6, K7 and the dW tile in split
+# int8 GEMM (IMMA); and the float32 kernels of K4, K6 (and their three past head
+# dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7 and the dW tile in split
 # TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product; the
 # dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones K5's)
-TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
-                "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E", "ct_dw_tf32_kernelILi16E",
-                "ct_dw_tf32_kernelILi8E")
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
                      "flash_dkv_wide_tc_kernel")
+WIDE_TF32_ATTN_KERNELS = ("flash_fwd_wide_tf32_kernel", "flash_dq_wide_tf32_kernel",
+                          "flash_dkv_wide_tf32_kernel")
+TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
+                *WIDE_TF32_ATTN_KERNELS, "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E",
+                "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
@@ -755,12 +759,15 @@ def phase_kernels(torch, card: str) -> dict:
 
     # ---- K4: q, k, v (B, T, H, D); ragged T = 200 = 3 * 64 + 8 and 130 = 2 * 64 + 2,
     # every head dim the kernel is built for, and 8 and 24 (zero-padded to 16 and 32);
-    # past 128 ("sliced"): bfloat16 D 136 -> 160, 160, 192, 224 and 256 in one
-    # column group, 300 -> 320, 320 and 512 in two equal ones, 288 and 480 in two
-    # with a narrower last, 640 in three (K and V streamed with each tile in the
-    # dk/dv pass, Q and dO in the dq pass) and 1280 in five (Q streamed in the
-    # forward too) (the wide kernels); float32 the same D padded to multiples of
-    # 128 in 128-column slices; ragged key tiles
+    # past 128 ("sliced", the wide kernels, both dtypes on one plan): D 136 -> 160,
+    # 160, 192, 224 and 256 in one column group, 300 -> 320, 320 and 512 in two
+    # equal ones, 288 and 480 in two with a narrower last, 640 in three and 1280
+    # in five. bfloat16 streams K and V with each tile in the dk/dv pass from 600,
+    # Q and dO in the dq pass from 640, Q in the forward at 1280; float32 (split
+    # TF32, twice the bytes) streams the backward's pair in chunks from 160, the
+    # block's own rows from 192 (dk/dv) and 224 (dq); its forward takes
+    # 128-query blocks up to 192 (K and V split at staging at 160), 64 past it,
+    # Q streamed from 480; ragged key tiles
     attn_cases = [
         ("ragged", 2, 200, 3, 48),
         ("ragged", 1, 130, 2, 32),
@@ -775,7 +782,7 @@ def phase_kernels(torch, card: str) -> dict:
         ("flagship", 2, 2400, 8, 48),
     ]
     for fn, regs in sorted(PTXAS.items()):
-        if ("slice" in fn or "wide" in fn) and "flash" in fn:
+        if "wide" in fn and "flash" in fn:
             print(f"[kernel] head dims past 128: {fn}: {regs}")
     for tag, b, t, h, d_head in attn_cases:
         qf, kf, vf = (randn(b, t, h, d_head) for _ in range(3))
@@ -927,26 +934,47 @@ def phase_kernels(torch, card: str) -> dict:
                     all(any(k in n for n in names["backward"]) for k in WIDE_ATTN_KERNELS[1:]),
                     f"K6 at D 160 launched {names['backward']}")
         del q, k_, v, dout, o, lse, qt, kt, vt, dout_t, leaves, o_lib
-    # float32 past head dim 128 (D 160 padded to 256, two 128-column slices)
-    # beside SDPA and its backward in float32, TF32 off
+    # float32 past head dim 128 (D 160 unpadded, one column group: the split-TF32
+    # wide kernels alone) beside SDPA and its backward in float32, TF32 off, with
+    # both bounds; out, lse, dq, dk and dv held to float64
     d_head = 160
     q, k_, v, dout = (randn(2, t, h, d_head) for _ in range(4))
     scale = d_head ** -0.5
-    o, lse = (a.contiguous() for a in flash_attention(q, k_, v, scale))
+    fwd = lambda: flash_attention(q, k_, v, scale)
+    o, lse = (a.contiguous() for a in fwd())
+    bwd = lambda: flash_attention_bwd(q, k_, v, o, dout, lse, scale)
+    names = {"forward": launched_kernels(torch, fwd), "backward": launched_kernels(torch, bwd)}
+    print(f"[kernel] flash_attn float32 D {d_head}, launched: {names}")
+    require(len(names["forward"]) == 1 and WIDE_TF32_ATTN_KERNELS[0] in names["forward"][0],
+            f"float32 K4 at D {d_head} launched {names['forward']}")
+    require(len(names["backward"]) == 3 and
+            all(any(k in n for n in names["backward"]) for k in WIDE_TF32_ATTN_KERNELS[1:]),
+            f"float32 K6 at D {d_head} launched {names['backward']}")
+    split = device_split(torch, bwd)
+    print(f"[kernel] flash_attn float32 D {d_head}, K6's device time by kernel: "
+          + "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in split.items()) + f" ({card})")
     qt, kt, vt, dout_t = (a.transpose(1, 2).contiguous() for a in (q, k_, v, dout))
     leaves = [a.detach().requires_grad_() for a in (qt, kt, vt)]
     o_lib = F.scaled_dot_product_attention(*leaves)
-    got = flash_attention_bwd(q, k_, v, o, dout, lse, scale)
+    got = bwd()
     flops = 2.0 * 2 * h * t * t * d_head   # one (T, T, D) product at B 2
-    f32_row(card, "flash_attn_fwd", f"D {d_head}",
-            time_ms(torch, lambda: flash_attention(q, k_, v, scale)),
+    f32_row(card, "flash_attn_fwd", f"D {d_head}", time_ms(torch, fwd),
             time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            2 * flops, nbytes(q, k_, v, o, lse))
-    f32_row(card, "flash_attn_bwd", f"D {d_head}",
-            time_ms(torch, lambda: flash_attention_bwd(q, k_, v, o, dout, lse, scale)),
+            2 * flops, nbytes(q, k_, v, o, lse), split_tf32=True)
+    f32_row(card, "flash_attn_bwd", f"D {d_head}", time_ms(torch, bwd),
             time_ms(torch, lambda: torch.autograd.grad(o_lib, leaves, dout_t, retain_graph=True)),
-            5 * flops, nbytes(q, k_, v, o, dout, lse, *got))
-    del q, k_, v, dout, o, lse, qt, kt, vt, dout_t, leaves, o_lib, got
+            5 * flops, nbytes(q, k_, v, o, dout, lse, *got), split_tf32=True)
+    del qt, kt, vt, dout_t, leaves, o_lib
+    plain_fwd = flash_attention_plain(q, k_, v, scale)
+    exact = flash_attention_plain(q.double(), k_.double(), v.double(), scale)
+    for n, a, w_, e in zip(("out", "lse"), (o, lse), plain_fwd, exact):
+        f64_gate(card, "flash_attn_fwd", f"D {d_head} {n}", a, w_, e)
+    del plain_fwd, exact
+    plain_bwd = flash_attention_bwd_plain(q, k_, v, o, dout, lse, scale)
+    exact = flash_attention_bwd_plain(*(a.double() for a in (q, k_, v, o, dout, lse)), scale)
+    for n, a, w_, e in zip(("dq", "dk", "dv"), got, plain_bwd, exact):
+        f64_gate(card, "flash_attn_bwd", f"D {d_head} {n}", a, w_, e)
+    del q, k_, v, dout, o, lse, got, plain_bwd, exact
     summary["flash_attn_fwd"]["past_128"] = {str(d): {k: v for k, v in r.items() if "bwd" not in k}
                                              for d, r in past_128.items()}
     summary["flash_attn_bwd"]["past_128"] = {

@@ -26,10 +26,10 @@ them.
 seld_tpu_torch.ab_variants --digest`` once in each copy (this tree's
 ``ab_variants.py`` goes over the base's, as the profiler does): one line
 per case of :func:`hash_cases`, the first 16 hex digits of the sha256 of
-the output's bytes, for every bfloat16 kernel, the float32 slice kernels
-past head dim 128, the split-TF32 K4 (D 48) and K7 and K5's float32 B2
-(the g_z pass and the dW tile at Cin 8 and 10), on inputs from one seeded
-generator on the device. Equal code gives equal bits (every kernel there
+the output's bytes, for every bfloat16 kernel, the split-TF32 wide kernels
+past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7 and K5's
+float32 B2 (the g_z pass and the dW tile at Cin 8 and 10), on inputs from
+one seeded generator on the device. Equal code gives equal bits (every kernel there
 reduces in a fixed order); the runner exits 1 where a case differs.
 ``--tests`` runs the given tests (pytest node ids under ``tests/``) once in
 each copy, each version's package imported in place of this tree's; a
@@ -205,7 +205,7 @@ def hash_cases(device):
     out.append(("K9 g_z bf16", lambda: (gz9(),)))
     out.append(("K9 dW bf16", lambda: (k9.ct_dw(h, gz9()),)))
     out.append(("K9 dh bf16", lambda: (k9.ct_dx(gz9(), w9),)))
-    # K4 and K6: the flagship's D 48, and 160 (bf16 wide kernels, float32 slices)
+    # K4 and K6: the flagship's D 48, and 160 (the bf16 and float32 wide kernels)
     def k6(q, k, v, do, scale):
         o, lse = flash_attention(q, k, v, scale)
         return flash_attention_bwd(q, k, v, o.contiguous(), do, lse.contiguous(), scale)

@@ -23,11 +23,11 @@
 // past T get P = 0 (the exp of a -inf score), so they add exactly nothing;
 // rows past T read lse and delta as 0 and are not stored.
 //
-// Head dims past 128 take, in bfloat16, the wide kernels below
-// (flash_dq_wide_tc_kernel, flash_dkv_wide_tc_kernel: D a multiple of 32,
-// one column group of up to 256 gradient columns a block, S and dP once per
-// group); in float32 the SIMT slice kernels, D a multiple of 128, one
-// 128-column slice a block.
+// Head dims past 128 take the wide kernels below: D a multiple of 32, one
+// column group of up to 256 gradient columns a block, S and dP once per
+// group; in bfloat16 flash_dq_wide_tc_kernel and flash_dkv_wide_tc_kernel,
+// in float32 flash_dq_wide_tf32_kernel and flash_dkv_wide_tf32_kernel (the
+// same plan in split TF32).
 //
 // bfloat16: FlashAttention-2's backward on the tensor cores
 // (flash_dq_tc_kernel, flash_dkv_tc_kernel), built on K4's tiles
@@ -53,9 +53,6 @@
 
 namespace {
 
-constexpr int kB = 64;          // queries or keys per block and per streamed tile
-constexpr int kThreads = 256;   // four per row
-constexpr int kPW = kB + 1;     // padded row of the shared P / dS tiles
 
 template <typename T>
 __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
@@ -76,39 +73,42 @@ __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ do
 // out and dout across the lanes (d a multiple of 8), float sums reduced by
 // shuffles (delta_kernel's one thread per row reads each row's own
 // addresses, which no two lanes of a warp share).
-__global__ void delta_rows_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+static __device__ __forceinline__ float dot16(const uint4& o, const uint4& g, float s,
+                                              const bf16*) {
+  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
+    s = fmaf(gf.x, of.x, fmaf(gf.y, of.y, s));
+  }
+  return s;
+}
+
+static __device__ __forceinline__ float dot16(const uint4& o, const uint4& g, float s,
+                                              const float*) {
+  const float4 of = *reinterpret_cast<const float4*>(&o), gf = *reinterpret_cast<const float4*>(&g);
+  return fmaf(gf.x, of.x, fmaf(gf.y, of.y, fmaf(gf.z, of.z, fmaf(gf.w, of.w, s))));
+}
+
+template <typename T>
+__global__ void delta_rows_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                                   float* __restrict__ delta, int rows, int t_dim, int heads,
                                   int d) {
+  constexpr int kVec = 16 / sizeof(T);
   const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (r >= rows) return;
   const size_t off = static_cast<size_t>(r) * d;
   float s = 0.f;
-  for (int c = 8 * lane; c < d; c += 256) {
-    const uint4 o = *reinterpret_cast<const uint4*>(out + off + c);
-    const uint4 g = *reinterpret_cast<const uint4*>(dout + off + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
-      s = fmaf(gf.x, of.x, fmaf(gf.y, of.y, s));
-    }
-  }
+  for (int c = kVec * lane; c < d; c += 32 * kVec)
+    s = dot16(*reinterpret_cast<const uint4*>(out + off + c),
+              *reinterpret_cast<const uint4*>(dout + off + c), s, out);
 #pragma unroll
   for (int m = 16; m > 0; m /= 2) s += __shfl_xor_sync(0xffffffffu, s, m);
   if (lane == 0) {
     const int h = r % heads, t = (r / heads) % t_dim, b = r / (heads * t_dim);
     delta[(static_cast<size_t>(b) * heads + h) * t_dim + t] = s;
   }
-}
-
-template <int D>
-static __device__ __forceinline__ float dot_row(const float* __restrict__ a,
-                                                const float* __restrict__ b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
 }
 
 // ---- bfloat16: FlashAttention-2 backward on mma.sync.m16n8k16 ------------
@@ -926,185 +926,348 @@ flash_dkv_wide_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- head dims past 128, float32: 128-column slices
-// A block owns one 128-column slice z of its dq (or dk and dv) and sums S
-// and dP over every slice of D before it multiplies; delta is taken over all
-// of D by delta_kernel. SIMT, TF32 off: 256 threads, four per row, fmaf dot
-// products out of float shared slices; S and dP summed over the slices of D
-// staged one after another, then the slice z the products read.
-constexpr int kSW = kSliceW;   // padded row of a staged float slice
+// ---- head dims past 128, float32: the wide passes in split TF32 ----------
+// flash_dq_wide_tc_kernel's and flash_dkv_wide_tc_kernel's plan in float
+// tiles (pitch width + 4): 8 warps on 64 rows of one (b, h) and one column
+// group, warps w and w + 4 sharing 16 rows and splitting the streamed tile's
+// 64 rows for S and dP (32 each, over all of D) and the group's columns for
+// the accumulators (GW / 2 each). Every product is split TF32 with the
+// two-level sums (wide_tf32_abt, wide_tf32_av; each k8 step's three products
+// from zero, then added in float), P = exp(S * scale - lse) in float (as
+// flash_dq_tf32_kernel). The pair's dS (P^T and dS^T) go through shared
+// memory as float, never rounded, behind the 64-thread named barrier
+// ([64][kXPf] tiles, a pitch of 8 mod 32 words: the float2 stores from the
+// accumulators and the float2 reads of the permuted A fragment, tf32_xfrag,
+// are free of bank conflicts). Per streamed tile, two phases, each a unit
+// of the two-stage ring at a time: the pair's nc chunks of kc columns (S and
+// dP), then the group's columns, each a unit of its own (the dq pass's K;
+// the dk/dv pass's dO, then Q), so S and dP are dead while the accumulators
+// take their products (one loop over units, S and dP live across all of
+// them, spilled the dk/dv pass at GW 160 and 192). Float tiles take twice
+// bf16's bytes: the block's rows and two whole (K, V) units would need 252
+// KB at D 160, so the pair goes in two chunks there, and the block's rows
+// stream with the tile from D 192 in the dk/dv pass and from D 224 in the
+// dq pass. delta takes a warp a row (delta_rows_kernel). No atomics: a
+// rerun is bitwise equal.
+// What bounds both passes: 14 B H T^2 D multiply-adds (the dq pass
+// recomputes S and dP), three TF32 products each, with the splits and the
+// two-level sums' adds beside them.
+constexpr int kXPf = kTcB + 8;   // pitch of the float exchange tiles [64][kXPf]
 
-// acc[j] += a[row] . b[sub + 4 j] over one staged slice
-static __device__ __forceinline__ void slice_dots(float (&acc)[kB / 4],
-                                                  const float* __restrict__ a,
-                                                  const float* __restrict__ b, int row,
-                                                  int sub) {
-#pragma unroll
-  for (int j = 0; j < kB / 4; ++j)
-    acc[j] += dot_row<kSliceD>(a + row * kSW, b + (sub + 4 * j) * kSW);
+// bytes of either float pass's shared memory at (d, kc, GW): the block's two
+// row tiles where they are resident, `xtiles` exchange tiles and the ring of
+// units (a chunk unit: two [64][kc + 4] tiles, four where the rows stream; a
+// group unit: one [64][GW + 4])
+static size_t wide_bwd_tf32_smem(int d, int kc, int gw, int xtiles, bool res) {
+  const size_t chunk = (res ? 2 : 4) * static_cast<size_t>(kc + 4);
+  const size_t unit = chunk > static_cast<size_t>(gw + 4) ? chunk : gw + 4;
+  return sizeof(float) * kTcB *
+         ((res ? 2 * static_cast<size_t>(d + 4) : 0) + xtiles * kXPf + kWideStages * unit);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dq_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int t_dim, int heads,
-                int d, float scale) {
-  extern __shared__ float smem[];
-  float* as = smem;             // [kB][kSW]: Q_r or dO_r
-  float* bs = as + kB * kSW;    // [kB][kSW]: K_jr or V_jr, then K_jz
-  float* dss = bs + kB * kSW;   // [kB][kPW]
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int q0 = blockIdx.x * kB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+// dq rows [q0, q0 + 64) of one (b, h), group z. Per 64-key tile j: S = Q K^T
+// and dP = dO V^T (16 query rows x the warp's 32 keys), P = exp(S * scale -
+// lse) with keys past T at P = 0, dS = P (dP - delta) into the exchange tile,
+// then dQ[:, the warp's half] += dS K over K's group columns.
+template <int GW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_dq_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, int t_dim, int heads, int d, int kc, bool res,
+                          float scale) {
+  constexpr int kHW = GW / 2, kPg = GW + 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int dp = d + 4, pc = kc + 4, nc = ceil_div(d, kc), rp = res ? dp : 0;
+  float* qs = reinterpret_cast<float*>(tc_smem);   // [64][dp] where resident
+  float* dos = qs + kTcB * rp;                     // [64][dp] where resident
+  float* xs = dos + kTcB * rp;                     // dS [64][kXPf]
+  float* ring = xs + kTcB * kXPf;
+  const int unit = kTcB * max((res ? 2 : 4) * pc, kPg);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int rw = 16 * (warp % 4), half = warp / 4;
+  const int q0 = blockIdx.x * kTcB;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
-  const int t = q0 + row;
-  const float lse_r = t < t_dim ? lse[static_cast<size_t>(bh) * t_dim + t] : 0.f;
-  const float delta_r = t < t_dim ? delta[static_cast<size_t>(bh) * t_dim + t] : 0.f;
-
-  constexpr int kE = kSliceD / 4;
-  float acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-  for (int k0 = 0; k0 < t_dim; k0 += kB) {
-    float s[kB / 4], dp[kB / 4];
-#pragma unroll
-    for (int j = 0; j < kB / 4; ++j) s[j] = dp[j] = 0.f;
-    for (int r = 0; r < 2 * nd; ++r) {
-      __syncthreads();   // the previous slice's (or tile's) readers are done
-      stage_slice_f32(as, r % 2 ? dout : q, base, tstride, q0, (r / 2) * kSliceD, t_dim);
-      stage_slice_f32(bs, r % 2 ? v : k, base, tstride, k0, (r / 2) * kSliceD, t_dim);
-      __syncthreads();
-      if (r % 2) slice_dots(dp, as, bs, row, sub);
-      else slice_dots(s, as, bs, row, sub);
+  const int n_tiles = ceil_div(t_dim, kTcB), per_tile = nc + 1, units = n_tiles * per_tile;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit (j, r): r < nc, K and V's chunk r (then Q's and dO's where they
+  // stream); r == nc, K's group columns
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile, r = u % per_tile;
+      if (r < nc) {
+        const int c0 = r * kc, w = min(kc, d - c0);
+        wide_load_rows<kWideThreads>(stage(u), pc, k, base + c0, tstride, j * kTcB, t_dim, w);
+        wide_load_rows<kWideThreads>(stage(u) + kTcB * pc, pc, v, base + c0, tstride,
+                                     j * kTcB, t_dim, w);
+        if (!res) {
+          wide_load_rows<kWideThreads>(stage(u) + 2 * kTcB * pc, pc, q, base + c0, tstride, q0,
+                                       t_dim, w);
+          wide_load_rows<kWideThreads>(stage(u) + 3 * kTcB * pc, pc, dout, base + c0, tstride,
+                                       q0, t_dim, w);
+        }
+      } else {
+        wide_load_rows<kWideThreads>(stage(u), kPg, k, base + g0, tstride, j * kTcB, t_dim, gw);
+      }
     }
-#pragma unroll
-    for (int j = 0; j < kB / 4; ++j) {
-      const int c = sub + 4 * j;
-      const float sc = k0 + c < t_dim ? s[j] * scale : -CUDART_INF_F;
-      dss[row * kPW + c] = expf(sc - lse_r) * (dp[j] - delta_r);
-    }
+    cp_async_commit();
+  };
+  int u = 0;
+  const auto next_unit = [&]() {   // landed; every warp done with the one before
+    cp_async_wait_group<kWideStages - 2>();
     __syncthreads();
-    stage_slice_f32(bs, k, base, tstride, k0, zs, t_dim);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float ds = dss[row * kPW + c];
-      const float* kr = bs + c * kSW + sub;
+    load_unit(u + kWideStages - 1);
+    return static_cast<const float*>(stage(u++));
+  };
+  float ls[2], dl[2];   // rows g and g + 8: lse, delta; 0 past T
 #pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] = fmaf(ds, kr[4 * e], acc[e]);
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + rw + lane / 4 + 8 * hh;
+    const size_t at = static_cast<size_t>(bh) * t_dim + t;
+    ls[hh] = t < t_dim ? lse[at] : 0.f;
+    dl[hh] = t < t_dim ? delta[at] : 0.f;
   }
-  if (t < t_dim) {
+
+  if (res) {   // with unit 0
+    wide_load_rows<kWideThreads>(qs, dp, q, base, tstride, q0, t_dim, d);
+    wide_load_rows<kWideThreads>(dos, dp, dout, base, tstride, q0, t_dim, d);
+  }
+  for (int w = 0; w < kWideStages - 1; ++w) load_unit(w);
+
+  float acc[kHW / 8][4];
+  zero_acc<kHW>(acc);
+  const auto xfrag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    tf32_xfrag(xs + rw * kXPf, kXPf, kk, ah, al);
+  };
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[4][4], dpp[4][4];   // 16 query rows x the warp's 32 keys
 #pragma unroll
-    for (int e = 0; e < kE; ++e)
-      store_f(dq + base + t * tstride + zs + sub + 4 * e, acc[e] * scale);
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dpp[nt][e] = 0.f;
+    for (int r = 0; r < nc; ++r) {   // Q's and dO's rows resident, or in the unit
+      const float* tile = next_unit();
+      const int c0 = r * kc, w = min(kc, d - c0), ap = res ? dp : pc;
+      const float* qa = res ? qs + rw * dp + c0 : tile + (2 * kTcB + rw) * pc;
+      const float* da = res ? dos + rw * dp + c0 : tile + (3 * kTcB + rw) * pc;
+      wide_tf32_abt<32>(s, qa, ap, tile + 32 * half * pc, pc, w);              // S
+      wide_tf32_abt<32>(dpp, da, ap, tile + (kTcB + 32 * half) * pc, pc, w);   // dP
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int key = j * kTcB + 32 * half + nt * 8 + 2 * quad;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = key + e < t_dim ? expf(s[nt][2 * hh + e] * scale - ls[hh]) : 0.f;
+          ds[e] = p * (dpp[nt][2 * hh + e] - dl[hh]);
+        }
+        *reinterpret_cast<float2*>(xs + (rw + lane / 4 + 8 * hh) * kXPf + 32 * half + nt * 8 +
+                                   2 * quad) = make_float2(ds[0], ds[1]);
+      }
+    }
+    pair_barrier();   // the pair's dS rows are whole
+    // dQ += dS K over the group's columns, a unit of their own
+    wide_tf32_av<kHW>(acc, xfrag, next_unit() + half * kHW, kPg);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = q0 + rw + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    float* row = dq + base + static_cast<size_t>(t) * tstride + g0 + half * kHW;
+#pragma unroll
+    for (int dt = 0; dt < kHW / 8; ++dt)
+      if (half * kHW + dt * 8 < gw)
+        *reinterpret_cast<float2*>(row + dt * 8 + 2 * quad) =
+            make_float2(acc[dt][2 * hh] * scale, acc[dt][2 * hh + 1] * scale);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dkv_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                 int t_dim, int heads, int d, float scale) {
-  extern __shared__ float smem[];
-  float* as = smem;               // [kB][kSW]: K_r or V_r, then Q_jz
-  float* bs = as + kB * kSW;      // [kB][kSW]: Q_jr or dO_jr, then dO_jz
-  float* ls = bs + kB * kSW;      // [kB] lse of the query tile
-  float* dls = ls + kB;           // [kB] delta of the query tile
-  float* pts = dls + kB;          // [kB keys][kPW queries]
-  float* dsts = pts + kB * kPW;   // [kB keys][kPW queries]
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int k0 = blockIdx.x * kB, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+// dk, dv rows [k0, k0 + 64) of one (b, h), group z. Per 64-query tile j: S^T
+// = K Q^T and dP^T = V dO^T (16 key rows x the warp's 32 queries), P^T =
+// exp(S^T * scale - lse) (queries past T at P = 0), dS^T = P^T (dP^T -
+// delta), both into exchange tiles; then dV[:, the warp's half] += P^T dO
+// and dK[:, half] += dS^T Q over the group's columns.
+template <int GW>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_dkv_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv, int t_dim, int heads,
+                           int d, int kc, bool res, float scale) {
+  constexpr int kHW = GW / 2, kPg = GW + 4;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int dp = d + 4, pc = kc + 4, nc = ceil_div(d, kc), rp = res ? dp : 0;
+  float* ks = reinterpret_cast<float*>(tc_smem);   // [64][dp] where resident
+  float* vs = ks + kTcB * rp;                      // [64][dp] where resident
+  float* pts = vs + kTcB * rp;                     // P^T [64 keys][kXPf]
+  float* dsts = pts + kTcB * kXPf;                 // dS^T [64 keys][kXPf]
+  float* ring = dsts + kTcB * kXPf;
+  const int unit = kTcB * max((res ? 2 : 4) * pc, kPg);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, quad = lane % 4;
+  const int rw = 16 * (warp % 4), half = warp / 4;
+  const int k0 = blockIdx.x * kTcB;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
+  const int n_tiles = ceil_div(t_dim, kTcB), per_tile = nc + 2, units = n_tiles * per_tile;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit (j, r): r < nc, Q and dO's chunk r (then K's and V's where they
+  // stream); r == nc, dO's group columns; r == nc + 1, Q's
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile, r = u % per_tile;
+      if (r < nc) {
+        const int c0 = r * kc, w = min(kc, d - c0);
+        wide_load_rows<kWideThreads>(stage(u), pc, q, base + c0, tstride, j * kTcB, t_dim, w);
+        wide_load_rows<kWideThreads>(stage(u) + kTcB * pc, pc, dout, base + c0, tstride,
+                                     j * kTcB, t_dim, w);
+        if (!res) {
+          wide_load_rows<kWideThreads>(stage(u) + 2 * kTcB * pc, pc, k, base + c0, tstride, k0,
+                                       t_dim, w);
+          wide_load_rows<kWideThreads>(stage(u) + 3 * kTcB * pc, pc, v, base + c0, tstride, k0,
+                                       t_dim, w);
+        }
+      } else {
+        wide_load_rows<kWideThreads>(stage(u), kPg, r == nc ? dout : q, base + g0, tstride,
+                                     j * kTcB, t_dim, gw);
+      }
+    }
+    cp_async_commit();
+  };
+  int u = 0;
+  const auto next_unit = [&]() {   // landed; every warp done with the one before
+    cp_async_wait_group<kWideStages - 2>();
+    __syncthreads();
+    load_unit(u + kWideStages - 1);
+    return static_cast<const float*>(stage(u++));
+  };
 
-  constexpr int kE = kSliceD / 4;
-  float dk_acc[kE], dv_acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-  for (int q0 = 0; q0 < t_dim; q0 += kB) {
-    float s[kB / 4], dp[kB / 4];
-#pragma unroll
-    for (int j = 0; j < kB / 4; ++j) s[j] = dp[j] = 0.f;
-    for (int r = 0; r < 2 * nd; ++r) {
-      __syncthreads();   // the previous slice's (or tile's) readers are done
-      stage_slice_f32(as, r % 2 ? v : k, base, tstride, k0, (r / 2) * kSliceD, t_dim);
-      stage_slice_f32(bs, r % 2 ? dout : q, base, tstride, q0, (r / 2) * kSliceD, t_dim);
-      if (r == 0 && tid < kB) {
-        const bool ok = q0 + tid < t_dim;
-        ls[tid] = ok ? lse[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
-        dls[tid] = ok ? delta[static_cast<size_t>(bh) * t_dim + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      if (r % 2) slice_dots(dp, as, bs, row, sub);
-      else slice_dots(s, as, bs, row, sub);
-    }
-#pragma unroll
-    for (int j = 0; j < kB / 4; ++j) {
-      const int c = sub + 4 * j;
-      const float sc = q0 + c < t_dim ? s[j] * scale : -CUDART_INF_F;
-      const float p = expf(sc - ls[c]);
-      pts[row * kPW + c] = p;
-      dsts[row * kPW + c] = p * (dp[j] - dls[c]);
-    }
-    __syncthreads();
-    stage_slice_f32(as, q, base, tstride, q0, zs, t_dim);
-    stage_slice_f32(bs, dout, base, tstride, q0, zs, t_dim);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      const float p = pts[row * kPW + c];
-      const float ds = dsts[row * kPW + c];
-      const float* dr = bs + c * kSW + sub;
-      const float* qr = as + c * kSW + sub;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) {
-        dv_acc[e] = fmaf(p, dr[4 * e], dv_acc[e]);
-        dk_acc[e] = fmaf(ds, qr[4 * e], dk_acc[e]);
-      }
-    }
+  if (res) {   // with unit 0
+    wide_load_rows<kWideThreads>(ks, dp, k, base, tstride, k0, t_dim, d);
+    wide_load_rows<kWideThreads>(vs, dp, v, base, tstride, k0, t_dim, d);
   }
-  const int t = k0 + row;
-  if (t < t_dim) {
+  for (int w = 0; w < kWideStages - 1; ++w) load_unit(w);
+
+  float dk_acc[kHW / 8][4], dv_acc[kHW / 8][4];
+  zero_acc<kHW>(dk_acc);
+  zero_acc<kHW>(dv_acc);
+  const auto pfrag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    tf32_xfrag(pts + rw * kXPf, kXPf, kk, ah, al);
+  };
+  const auto dsfrag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    tf32_xfrag(dsts + rw * kXPf, kXPf, kk, ah, al);
+  };
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[4][4], dpp[4][4];   // 16 key rows x the warp's 32 queries
+    float lq[4][2], dlq[4][2];  // the warp's queries' lse and delta
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      store_f(dk + base + t * tstride + zs + sub + 4 * e, dk_acc[e] * scale);
-      store_f(dv + base + t * tstride + zs + sub + 4 * e, dv_acc[e]);
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dpp[nt][e] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {   // queries column 8 nt + 2 quad + e of the half; 0 past T
+        const int t = j * kTcB + 32 * half + nt * 8 + 2 * quad + e;
+        const size_t at = static_cast<size_t>(bh) * t_dim + t;
+        lq[nt][e] = t < t_dim ? lse[at] : 0.f;
+        dlq[nt][e] = t < t_dim ? delta[at] : 0.f;
+      }
     }
+    for (int r = 0; r < nc; ++r) {   // K's and V's rows resident, or in the unit
+      const float* tile = next_unit();
+      const int c0 = r * kc, w = min(kc, d - c0), ap = res ? dp : pc;
+      const float* ka = res ? ks + rw * dp + c0 : tile + (2 * kTcB + rw) * pc;
+      const float* va = res ? vs + rw * dp + c0 : tile + (3 * kTcB + rw) * pc;
+      wide_tf32_abt<32>(s, ka, ap, tile + 32 * half * pc, pc, w);              // S^T
+      wide_tf32_abt<32>(dpp, va, ap, tile + (kTcB + 32 * half) * pc, pc, w);   // dP^T
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = 32 * half + nt * 8 + 2 * quad;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = j * kTcB + c + e < t_dim ? expf(s[nt][2 * hh + e] * scale - lq[nt][e]) : 0.f;
+          ds[e] = p[e] * (dpp[nt][2 * hh + e] - dlq[nt][e]);
+        }
+        const int at = (rw + lane / 4 + 8 * hh) * kXPf + c;
+        *reinterpret_cast<float2*>(pts + at) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(dsts + at) = make_float2(ds[0], ds[1]);
+      }
+    }
+    pair_barrier();   // the pair's P^T and dS^T rows are whole
+    // the group's columns, each a unit of its own
+    wide_tf32_av<kHW>(dv_acc, pfrag, next_unit() + half * kHW, kPg);   // dV += P^T dO
+    wide_tf32_av<kHW>(dk_acc, dsfrag, next_unit() + half * kHW, kPg);  // dK += dS^T Q
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = k0 + rw + lane / 4 + 8 * hh;
+    if (t >= t_dim) continue;
+    const size_t off = base + static_cast<size_t>(t) * tstride + g0 + half * kHW;
+#pragma unroll
+    for (int dt = 0; dt < kHW / 8; ++dt)
+      if (half * kHW + dt * 8 < gw) {
+        *reinterpret_cast<float2*>(dk + off + dt * 8 + 2 * quad) =
+            make_float2(dk_acc[dt][2 * hh] * scale, dk_acc[dt][2 * hh + 1] * scale);
+        *reinterpret_cast<float2*>(dv + off + dt * 8 + 2 * quad) =
+            make_float2(dv_acc[dt][2 * hh], dv_acc[dt][2 * hh + 1]);
+      }
   }
 }
 
-// delta over all of D, then the dq and dk / dv slice passes (SIMT).
-template <typename T>
-cudaError_t launch_slices(const void* q, const void* k, const void* v, const void* out,
-                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                          void* dv, int batch, int t_dim, int heads, int d, float scale,
-                          cudaStream_t s) {
+// delta over all of D, then the float32 dq and dk / dv passes in column groups of GW.
+template <int GW>
+cudaError_t launch_wide_tf32(const void* q, const void* k, const void* v, const void* out,
+                             const void* dout, const float* lse, float* delta, void* dq,
+                             void* dk, void* dv, int batch, int t_dim, int heads, int d,
+                             float scale, cudaStream_t s) {
+  const void* ptrs[] = {q, k, v, out, dout, dq, dk, dv};   // 16-byte copies, float2 stores
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  // the block's rows resident with the widest chunk that fits beside them, else streamed
+  bool res_dq = true, res_dkv = true;
+  int kc_dq = wide_chunk(d, [&](int c) { return wide_bwd_tf32_smem(d, c, GW, 1, true); });
+  int kc_dkv = wide_chunk(d, [&](int c) { return wide_bwd_tf32_smem(d, c, GW, 2, true); });
+  if (kc_dq == 0) {
+    res_dq = false;
+    kc_dq = wide_chunk(d, [&](int c) { return wide_bwd_tf32_smem(d, c, GW, 1, false); });
+  }
+  if (kc_dkv == 0) {
+    res_dkv = false;
+    kc_dkv = wide_chunk(d, [&](int c) { return wide_bwd_tf32_smem(d, c, GW, 2, false); });
+  }
+  if (kc_dq == 0 || kc_dkv == 0) return cudaErrorInvalidValue;
   const int rows = batch * t_dim * heads;
-  delta_kernel<T><<<ceil_div(rows, 256), 256, 0, s>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows, t_dim, heads, d);
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v), *df = static_cast<const float*>(dout);
+  delta_rows_kernel<float><<<ceil_div(rows, 8), 256, 0, s>>>(static_cast<const float*>(out), df,
+                                                             delta, rows, t_dim, heads, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(ceil_div(t_dim, kB), batch * heads, d / kSliceD);
-  const size_t smem_dq = sizeof(float) * (2 * kB * kSW + kB * kPW);
-  err = set_smem(dq_slice_kernel<T>, smem_dq);
+  const dim3 grid(ceil_div(t_dim, kTcB), batch * heads, ceil_div(d, GW));
+  const size_t smem_dq = wide_bwd_tf32_smem(d, kc_dq, GW, 1, res_dq);
+  err = set_smem(flash_dq_wide_tf32_kernel<GW>, smem_dq);
   if (err != cudaSuccess) return err;
-  dq_slice_kernel<T><<<grid, kThreads, smem_dq, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), t_dim, heads, d, scale);
+  flash_dq_wide_tf32_kernel<GW><<<grid, kWideThreads, smem_dq, s>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dq), t_dim, heads, d, kc_dq, res_dq,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_dkv = sizeof(float) * (2 * kB * kSW + 2 * kB + 2 * kB * kPW);
-  err = set_smem(dkv_slice_kernel<T>, smem_dkv);
+  const size_t smem_dkv = wide_bwd_tf32_smem(d, kc_dkv, GW, 2, res_dkv);
+  err = set_smem(flash_dkv_wide_tf32_kernel<GW>, smem_dkv);
   if (err != cudaSuccess) return err;
-  dkv_slice_kernel<T><<<grid, kThreads, smem_dkv, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      t_dim, heads, d, scale);
+  flash_dkv_wide_tf32_kernel<GW><<<grid, kWideThreads, smem_dkv, s>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), t_dim, heads,
+      d, kc_dkv, res_dkv, scale);
   return cudaGetLastError();
 }
 
@@ -1132,7 +1295,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
   if (kc_dq == 0 || kc_dkv == 0) return cudaErrorInvalidValue;
   const int rows = batch * t_dim * heads;
   if (reinterpret_cast<uintptr_t>(out) % 16) return cudaErrorMisalignedAddress;
-  delta_rows_kernel<<<ceil_div(rows, 8), 256, 0, s>>>(
+  delta_rows_kernel<bf16><<<ceil_div(rows, 8), 256, 0, s>>>(
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta, rows, t_dim, heads,
       d);
   cudaError_t err = cudaGetLastError();
@@ -1166,7 +1329,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
       static_cast<const T*>(out), static_cast<const T*>(dout), delta, rows, t_dim, heads, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(t_dim, kB), batch * heads);
+  dim3 grid(ceil_div(t_dim, kTcB), batch * heads);
 
   if constexpr (sizeof(T) == 2) {
     const void* ptrs[] = {q, k, v, dout, dq, dk, dv};   // 16-byte copies, bf16x2 stores
@@ -1218,7 +1381,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int batch, int t_dim, int heads, int d, int group, float scale,
                        cudaStream_t s) {
-  if (d <= kSliceD && group != d) return cudaErrorInvalidValue;
+  if (d <= 128 && group != d) return cudaErrorInvalidValue;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
@@ -1227,23 +1390,15 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
     case 128: return launch<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, scale, s);
     default: break;
   }
-  if (d <= kSliceD) return cudaErrorInvalidValue;
-  if constexpr (sizeof(T) == 4) {
-    if (group == kSliceD && d % kSliceD == 0)
-      return launch_slices<T>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads,
-                              d, scale, s);
-  } else {
-    if (d % 32 == 0) {
-      switch (group) {
-        case 160: return launch_wide<160>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
-        case 192: return launch_wide<192>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
-        case 224: return launch_wide<224>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
-        case 256: return launch_wide<256>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
-        default: break;
-      }
-    }
+  if (d <= 128 || d % 32 != 0) return cudaErrorInvalidValue;
+  constexpr bool kF = sizeof(T) == 4;
+  switch (group) {
+    case 160: return (kF ? launch_wide_tf32<160> : launch_wide<160>)(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+    case 192: return (kF ? launch_wide_tf32<192> : launch_wide<192>)(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+    case 224: return (kF ? launch_wide_tf32<224> : launch_wide<224>)(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+    case 256: return (kF ? launch_wide_tf32<256> : launch_wide<256>)(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, t_dim, heads, d, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -49,19 +49,15 @@
 // D multiply-adds, three TF32 products each (0.107 ms at B 2, T 2400, 8
 // heads of 48), and the issue slots of the splits, the two-level sums' adds
 // and the exponentials beside them.
-// Past 128, float32 takes the SIMT slice kernel at the end of this file.
+// Past 128, float32 takes flash_fwd_wide_tf32_kernel (the end of this
+// file): the bf16 wide kernel's column groups, S once per key tile, in the
+// same split-TF32 arithmetic.
 #include <math_constants.h>
 
 #include "common.cuh"
 #include "flash_attn_tc.cuh"
 
 namespace {
-
-// the float32 slice kernel past 128: 64 queries a block, 64-key tiles, four
-// threads a query row
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
 
 // 2^x on the MUFU alone (ex2.approx.ftz: results below 2^-126 flush to 0,
 // -inf gives 0); exp2f adds a range fix-up around it.
@@ -683,115 +679,247 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, 
   return launch_wide_rows<GW, 64>(qb, kb, vb, ob, lse, batch, t_dim, heads, d, scale, stream);
 }
 
-// ---- head dims past 128, float32: 128-column slices
-// A block owns 64 queries of one (b, h) and output columns [128 z, 128 z +
-// 128) (grid z): per 64-key tile it sums S over every slice of D, then runs
-// the online softmax and O += P V on its slice of V; the z = 0 block writes
-// the logsumexp. 256 threads, four per query row (each scores 16 keys of its
-// row; the row's max and sum reduced across its four threads by shuffles),
-// its scores summed over the slices of D staged one after another, the V
-// slice staged after. SIMT FMA, TF32 off.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_slice_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ out, float* __restrict__ lse, int t_dim, int heads,
-                       int d, float scale) {
-  constexpr int kW = kSliceW;
-  extern __shared__ float smem[];
-  float* qs = smem;              // [kBQ][kW]: Q slice r
-  float* ks = qs + kBQ * kW;     // [kBK][kW]: K slice r, then V slice z
-  float* ps = ks + kBK * kW;     // [kBQ][kBK + 1]
+// ---- head dims past 128, float32: S once per key tile, in split TF32 ------
+// flash_fwd_wide_tc_kernel's plan in float tiles (pitch width + 4): a block
+// owns kQ queries of one (b, h), 16 a warp, and one column group of GW (grid
+// z; the wrapper pads D to a multiple of 32, attention.head_dim_plan), its Q
+// rows staged once at the whole padded D while they fit (else streamed with
+// K, chunk by chunk). Per 64-key tile it computes S = Q K^T once over all of
+// D (wide_tf32_abt: 20 k8 steps at D 160, each through the two-level sum),
+// runs the online softmax in float with expf (flash_fwd_tf32_kernel's: no
+// bf16 P, a thread's share of the row sums in float) and O += P V over the
+// group's columns of V, P split as it leaves the accumulators (tf32_pfrag).
+// Units stream through the two-stage cp.async ring, one barrier a unit:
+// where Q, the whole of K and V's group fit twice beside Q, one unit a key
+// tile; else V's group takes a unit of its own after K's nc chunks of kc
+// columns (nc = 1 up to D 288), so float tiles, twice bf16's bytes, keep the
+// chunks wide. A block takes 128 queries (8 warps: each unit serves twice
+// the queries, and each scheduler has two warps to switch between) where Q
+// and two whole K and V units fit (up to D 192), else 64; at D 160 a lo
+// plane fits too (210 KB), and each unit is split once as it lands
+// (kStaged: hi in place, a second barrier) instead of once a warp as it is
+// read. At B 2, T 2400, 8 heads of 160 (NVIDIA H100 80GB HBM3, 700 W;
+// `ab_variants --sections f32`, PERF.md section 6): 64 queries 4.06-4.08
+// ms, 128 split as read 2.77-2.83, 128 split at staging 2.58-2.61. The
+// group's last columns past D (a narrower last group) are computed on stale
+// shared memory and not stored. What bounds it: 4 B H T^2 D multiply-adds,
+// three TF32 products each, with the operands' splits and the two-level
+// sums beside them, and B H T^2 expf per group.
 
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int q0 = blockIdx.x * kBQ, nd = d / kSliceD, zs = blockIdx.z * kSliceD;
+// bytes of the float32 wide forward's shared memory at kq queries: Q where
+// resident, the ring's units and, where staged, one unit's lo plane
+static size_t wide_fwd_tf32_smem(int d, int kc, int gw, int kq, bool q_res, bool split_v,
+                                 bool staged) {
+  const size_t rows = q_res ? static_cast<size_t>(kq) * (d + 4) : 0;
+  const size_t chunk = static_cast<size_t>(kAttnRows + (q_res ? 0 : kq)) * (kc + 4);
+  const size_t group = static_cast<size_t>(kAttnRows) * (gw + 4);
+  const size_t unit = split_v ? (chunk > group ? chunk : group) : chunk + group;
+  return sizeof(float) * (rows + (kWideStages + staged) * unit);
+}
+
+template <int GW, int kQ, bool kStaged>
+__global__ void __launch_bounds__(2 * kQ)
+flash_fwd_wide_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out,
+                           float* __restrict__ lse, int t_dim, int heads, int d, int kc,
+                           bool q_res, bool split_v, float scale) {
+  constexpr int kBlock = 2 * kQ;   // 32 threads a warp of 16 query rows
+  constexpr int kPg = GW + 4;      // pitch of the V group tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int dp = d + 4, pc = kc + 4, nc = ceil_div(d, kc);
+  float* qs = reinterpret_cast<float*>(tc_smem);   // [kQ][dp] where Q is resident
+  // per stage: K's chunk [64][pc] (then Q's [kQ][pc] where Q streams) and,
+  // where !split_v, V's group [64][kPg]; else V's group alone
+  float* ring = qs + (q_res ? kQ * dp : 0);
+  const int chunk = (kAttnRows + (q_res ? 0 : kQ)) * pc;
+  const int unit = split_v ? max(chunk, kAttnRows * kPg) : chunk + kAttnRows * kPg;
+  float* lo_plane = ring + kWideStages * unit;   // where kStaged (Q resident): a unit's lo
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * kQ;
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int g0 = blockIdx.z * GW, gw = min(GW, d - g0);
   const size_t base = (static_cast<size_t>(b) * t_dim * heads + h) * d;
   const size_t tstride = static_cast<size_t>(heads) * d;
-
-  constexpr int kE = kSliceD / 4;   // output lanes per thread: d = zs + sub + 4 e
-  float acc[kE];
-#pragma unroll
-  for (int e = 0; e < kE; ++e) acc[e] = 0.f;
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < t_dim; k0 += kBK) {
-    float s[kBK / 4];
-#pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) s[j] = 0.f;
-    for (int r = 0; r < nd; ++r) {
-      __syncthreads();   // the previous slice's (or tile's) readers are done
-      stage_slice_f32(qs, q, base, tstride, q0, r * kSliceD, t_dim);
-      stage_slice_f32(ks, k, base, tstride, k0, r * kSliceD, t_dim);
-      __syncthreads();
-      const float* qr = qs + row * kW;
-#pragma unroll
-      for (int j = 0; j < kBK / 4; ++j) {
-        const float* kr = ks + (sub + 4 * j) * kW;
-        float dot = s[j];
-#pragma unroll 16
-        for (int c = 0; c < kSliceD; ++c) dot = fmaf(qr[c], kr[c], dot);
-        s[j] = dot;
+  const int n_tiles = ceil_div(t_dim, kAttnRows);
+  const int last_valid = t_dim - (n_tiles - 1) * kAttnRows;
+  const int per_tile = split_v ? nc + 1 : 1, units = n_tiles * per_tile;
+  const auto stage = [&](int u) { return ring + (u % kWideStages) * unit; };
+  // unit (j, r): r < nc, K's chunk r (with Q's where Q streams, and V's
+  // group where !split_v); r == nc, V's group
+  const auto load_unit = [&](int u) {
+    if (u < units) {
+      const int j = u / per_tile, r = u % per_tile;
+      if (r < nc) {
+        const int c0 = r * kc, w = min(kc, d - c0);
+        wide_load_rows<kBlock>(stage(u), pc, k, base + c0, tstride, j * kAttnRows, t_dim, w);
+        if (!q_res)
+          wide_load_rows<kBlock, kQ>(stage(u) + kAttnRows * pc, pc, q, base + c0, tstride, q0,
+                                     t_dim, w);
+        if (!split_v)
+          wide_load_rows<kBlock>(stage(u) + chunk, kPg, v, base + g0, tstride, j * kAttnRows,
+                                 t_dim, gw);
+      } else {
+        wide_load_rows<kBlock>(stage(u), kPg, v, base + g0, tstride, j * kAttnRows, t_dim, gw);
       }
     }
-    float smax = -CUDART_INF_F;
+    cp_async_commit();
+  };
+
+  if (q_res) wide_load_rows<kBlock, kQ>(qs, dp, q, base, tstride, q0, t_dim, d);
+  for (int u = 0; u < kWideStages - 1; ++u) load_unit(u);   // with Q
+
+  float o[GW / 8][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      s[j] = k0 + sub + 4 * j < t_dim ? s[j] * scale : -CUDART_INF_F;
-      smax = fmaxf(smax, s[j]);
-    }
-    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 1));
-    smax = fmaxf(smax, __shfl_xor_sync(0xffffffffu, smax, 2));
-    const float m_new = fmaxf(m, smax);
-    float psum = 0.f;
+  for (int dt = 0; dt < GW / 8; ++dt)
 #pragma unroll
-    for (int j = 0; j < kBK / 4; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      ps[row * (kBK + 1) + sub + 4 * j] = p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) acc[e] *= alpha;
-    __syncthreads();   // every reader of the K slice is done
-    stage_slice_f32(ks, v, base, tstride, k0, zs, t_dim);
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};   // rows g and g + 8, scaled scores
+  float l_run[2] = {0.f, 0.f};   // this thread's share of the rows' sums
+  float s[kAttnRows / 8][4];
+
+  for (int u = 0; u < units; ++u) {
+    // unit u has landed, and every warp is done with unit u - 1, whose stage
+    // unit u + 1 now takes
+    cp_async_wait_group<kWideStages - 2>();
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      const float p = ps[row * (kBK + 1) + c];
-      const float* vr = ks + c * kW + sub;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[e] = fmaf(p, vr[4 * e], acc[e]);
+    load_unit(u + kWideStages - 1);
+    const int j = u / per_tile, r = u % per_tile;
+    float* tile = stage(u);
+    const int lo = static_cast<int>(lo_plane - tile);
+    if constexpr (kStaged) {   // the unit split once, then read by every warp
+      wide_tf32_split_unit<kBlock>(tile, lo, unit);
+      __syncthreads();
     }
+    if (r == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+    if (r < nc) {   // this warp's 16 query rows, resident or in the unit
+      const int c0 = r * kc, w = min(kc, d - c0);
+      if (q_res)
+        wide_tf32_abt<kAttnRows, kStaged>(s, qs + warp * 16 * dp + c0, dp, tile, pc, w, lo);
+      else
+        wide_tf32_abt<kAttnRows>(s, tile + (kAttnRows + warp * 16) * pc, pc, tile, pc, w);
+    }
+    if (r == nc - 1) {   // S whole: the online softmax on the fragments, in float
+      if (j == n_tiles - 1 && last_valid < kAttnRows) mask_keys(s, last_valid);
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        // finite: every tile holds a key; scale > 0 keeps the max's place
+        const float m_new = fmaxf(m_run[hh], mx[hh] * scale);
+        alpha[hh] = expf(m_run[hh] - m_new);
+        m_run[hh] = m_new;
+        l_run[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kAttnRows / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = expf(fmaf(s[nt][e], scale, -m_run[e / 2]));
+          l_run[e / 2] += s[nt][e];
+        }
+#pragma unroll
+      for (int dt = 0; dt < GW / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e / 2];
+    }
+    if (r != per_tile - 1) continue;
+    // O += P V over the group's columns: V beside K's chunk, or a unit of its own
+    const auto pfrag = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+      tf32_pfrag(s, kk, ah, al);
+    };
+    wide_tf32_av<GW, kStaged>(o, pfrag, split_v ? tile : tile + chunk, kPg, lo);
   }
 
-  const int t = q0 + row;
-  if (t < t_dim) {
-    const float inv = 1.f / l;
 #pragma unroll
-    for (int e = 0; e < kE; ++e)
-      store_f(out + base + t * tstride + zs + sub + 4 * e, acc[e] * inv);
-    if (sub == 0 && blockIdx.z == 0) lse[static_cast<size_t>(bh) * t_dim + t] = m + logf(l);
+  for (int hh = 0; hh < 2; ++hh) {
+    float lr = l_run[hh];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = q0 + warp * 16 + g + 8 * hh;
+    if (row >= t_dim) continue;
+    const float inv = 1.f / lr;
+    float* orow = out + base + static_cast<size_t>(row) * tstride + g0;
+#pragma unroll
+    for (int dt = 0; dt < GW / 8; ++dt)
+      if (dt * 8 < gw)
+        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t) =
+            make_float2(o[dt][2 * hh] * inv, o[dt][2 * hh + 1] * inv);
+    if (t == 0 && blockIdx.z == 0)
+      lse[static_cast<size_t>(bh) * t_dim + row] = m_run[hh] + logf(lr);
   }
 }
 
-// float32 past 128: the SIMT slice kernel.
-template <typename T>
-cudaError_t launch_slices(const void* q, const void* k, const void* v, void* out, float* lse,
-                          int batch, int t_dim, int heads, int d, float scale,
-                          cudaStream_t stream) {
-  const dim3 grid(ceil_div(t_dim, kBQ), batch * heads, d / kSliceD);
-  const size_t smem = sizeof(float) * ((kBQ + kBK) * (kSliceD + 1) + kBQ * (kBK + 1));
-  cudaError_t err = set_smem(flash_fwd_slice_kernel<T>, smem);
+// Q resident with K whole and V's group in one unit where that fits; else V's
+// group in a unit of its own, Q resident with the widest chunk of K that fits
+// beside it, else Q streamed (never where kStaged: the caller has checked
+// that Q, two whole K and V units and a lo plane fit).
+template <int GW, int kQ, bool kStaged>
+cudaError_t launch_wide_tf32_rows(const float* q, const float* k, const float* v, float* out,
+                                  float* lse, int batch, int t_dim, int heads, int d,
+                                  float scale, cudaStream_t stream) {
+  const size_t limit = static_cast<size_t>(max_smem_optin());
+  bool q_res = true, split_v = false;
+  int kc = d;
+  if (wide_fwd_tf32_smem(d, d, GW, kQ, true, false, kStaged) > limit) {
+    split_v = true;
+    kc = wide_chunk(d, [&](int c) {
+      return wide_fwd_tf32_smem(d, c, GW, kQ, true, true, kStaged);
+    });
+    if (kc == 0 && !kStaged) {
+      q_res = false;
+      kc = wide_chunk(d, [&](int c) {
+        return wide_fwd_tf32_smem(d, c, GW, kQ, false, true, false);
+      });
+    }
+  }
+  if (kc == 0) return cudaErrorInvalidValue;
+  const size_t smem = wide_fwd_tf32_smem(d, kc, GW, kQ, q_res, split_v, kStaged);
+  cudaError_t err = set_smem(flash_fwd_wide_tf32_kernel<GW, kQ, kStaged>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_slice_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, t_dim, heads, d, scale);
+  const dim3 grid(ceil_div(t_dim, kQ), batch * heads, ceil_div(d, GW));
+  flash_fwd_wide_tf32_kernel<GW, kQ, kStaged><<<grid, 2 * kQ, smem, stream>>>(
+      q, k, v, out, lse, t_dim, heads, d, kc, q_res, split_v, scale);
   return cudaGetLastError();
+}
+
+template <int GW>
+cudaError_t launch_wide_tf32(const void* q, const void* k, const void* v, void* out, float* lse,
+                             int batch, int t_dim, int heads, int d, float scale,
+                             cudaStream_t stream) {
+  const void* rows[] = {q, k, v, out};   // 16-byte copies and float2 stores
+  for (const void* p : rows)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  const auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k),
+             vf = static_cast<const float*>(v);
+  const auto of = static_cast<float*>(out);
+  const size_t limit = static_cast<size_t>(max_smem_optin());
+  // 128-query blocks where Q and two whole K and V units fit (never past GW
+  // 192: 228 KB at D 224), K and V split at staging where a lo plane fits
+  // too (only at D 160: 210 KB; 250 KB at 192), else 64 queries, split as read
+  if constexpr (GW == 160) {
+    if (wide_fwd_tf32_smem(d, d, GW, 128, true, true, true) <= limit)
+      return launch_wide_tf32_rows<GW, 128, true>(qf, kf, vf, of, lse, batch, t_dim, heads, d,
+                                                  scale, stream);
+  }
+  if constexpr (GW <= 192) {
+    if (wide_fwd_tf32_smem(d, d, GW, 128, true, true, false) <= limit)
+      return launch_wide_tf32_rows<GW, 128, false>(qf, kf, vf, of, lse, batch, t_dim, heads, d,
+                                                   scale, stream);
+  }
+  return launch_wide_tf32_rows<GW, 64, false>(qf, kf, vf, of, lse, batch, t_dim, heads, d, scale,
+                                              stream);
 }
 
 template <typename T, int D>
@@ -813,14 +941,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }
 
 // d and the column-group width of attention.head_dim_plan: d in {16, 32, 48,
-// 64, 128} (one group of d); float32, a multiple of 128 in 128-column groups
-// (the slice kernel); bfloat16, a multiple of 32 in groups of 160, 192, 224
-// or 256 (the wide kernel).
+// 64, 128} (one group of d); past 128, a multiple of 32 in groups of 160,
+// 192, 224 or 256 (the wide kernels: bfloat16's, float32's in split TF32).
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse,
                        int batch, int t_dim, int heads, int d, int group, float scale,
                        cudaStream_t s) {
-  if (d <= kSliceD && group != d) return cudaErrorInvalidValue;
+  if (d <= 128 && group != d) return cudaErrorInvalidValue;
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     case 32: return launch<T, 32>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
@@ -829,22 +956,15 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out, f
     case 128: return launch<T, 128>(q, k, v, out, lse, batch, t_dim, heads, scale, s);
     default: break;
   }
-  if (d <= kSliceD) return cudaErrorInvalidValue;
-  if constexpr (sizeof(T) == 4) {
-    if (group == kSliceD && d % kSliceD == 0)
-      return launch_slices<T>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-  } else {
-    if (d % 32 == 0) {
-      switch (group) {
-        case 160: return launch_wide<160>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-        case 192: return launch_wide<192>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-        case 224: return launch_wide<224>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-        case 256: return launch_wide<256>(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
-        default: break;
-      }
-    }
+  if (d <= 128 || d % 32 != 0) return cudaErrorInvalidValue;
+  constexpr bool kF = sizeof(T) == 4;
+  switch (group) {
+    case 160: return (kF ? launch_wide_tf32<160> : launch_wide<160>)(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+    case 192: return (kF ? launch_wide_tf32<192> : launch_wide<192>)(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+    case 224: return (kF ? launch_wide_tf32<224> : launch_wide<224>)(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+    case 256: return (kF ? launch_wide_tf32<256> : launch_wide<256>)(q, k, v, out, lse, batch, t_dim, heads, d, scale, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace

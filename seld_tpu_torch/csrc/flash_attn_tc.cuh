@@ -12,8 +12,10 @@
 //   to bf16 in registers: its fragment is already the A operand) times the
 //   tile (P V, dS K, and the backward's P^T dO, dS^T Q).
 // Past head dim 128 the bf16 kernels (flash_fwd_wide_tc_kernel,
-// flash_dq_wide_tc_kernel, flash_dkv_wide_tc_kernel) use the wide_* helpers
-// below, whose tiles take their row pitch and D at run time.
+// flash_dq_wide_tc_kernel, flash_dkv_wide_tc_kernel) and their float32
+// counterparts in split TF32 (flash_fwd_wide_tf32_kernel,
+// flash_dq_wide_tf32_kernel, flash_dkv_wide_tf32_kernel) use the wide_*
+// helpers below, whose tiles take their row pitch and D at run time.
 #pragma once
 
 #include "common.cuh"
@@ -119,47 +121,29 @@ static __device__ __forceinline__ void attn_mma_pv(float (&o)[D / 8][4],
 }
 
 // ---- head dims past 128 ------------------------------------------------
-// float32 (the SIMT slice kernels, 256 threads; bfloat16 past the wide
-// kernels' largest D too): D, a multiple of 128, is walked in 128-column
-// slices, one output slice a block (grid z).
-constexpr int kSliceD = 128;
-constexpr int kSliceW = kSliceD + 1;   // padded row of a staged float slice
-
-// rows [r0, r0 + 64) of a (B, T, H, d) tensor at base, columns [c0, c0 +
-// 128) -> dst [64][kSliceW] floats, zeros past T.
-template <typename T>
-static __device__ __forceinline__ void stage_slice_f32(float* __restrict__ dst,
-                                                       const T* __restrict__ src, size_t base,
-                                                       size_t tstride, int r0, int c0,
-                                                       int t_dim) {
-  for (int e = threadIdx.x; e < kAttnRows * kSliceD; e += 256) {
-    const int r = e / kSliceD, c = e % kSliceD;
-    dst[r * kSliceW + c] =
-        r0 + r < t_dim ? to_f(src[base + (r0 + r) * tstride + c0 + c]) : 0.f;
-  }
-}
-
-// bfloat16 (the wide kernels): D a multiple of 32 (the wrapper zero-pads it,
-// attention.head_dim_plan), output columns in groups of GW in {160, 192,
-// 224, 256} (grid z). Tiles are staged with a row pitch of their width + 8
-// (a multiple of 16 plus 8: 16-byte units per row odd, so the eight row
-// addresses of an ldmatrix phase hit distinct banks).
+// The wide kernels, bfloat16 and float32: D a multiple of 32 (the wrapper
+// zero-pads it, attention.head_dim_plan), output columns in groups of GW in
+// {160, 192, 224, 256} (grid z). bf16 tiles are staged with a row pitch of
+// their width + 8 (a multiple of 16 plus 8: 16-byte units per row odd, so
+// the eight row addresses of an ldmatrix phase hit distinct banks); float
+// tiles with their width + 4 (4 mod 8 words, as tf32_load_rows').
 constexpr int kWideStages = 2;   // units in a wide kernel's cp.async ring
 
-// rows [r0, r0 + kRows) of a (B, T, H, d) tensor from base (its column 0),
-// columns [0, width) -> dst [kRows][pitch], rows past T zero-filled, by
-// 16-byte cp.async copies of a block of kThreads threads.
-template <int kThreads, int kRows = kAttnRows>
-static __device__ __forceinline__ void wide_load_rows(bf16* __restrict__ dst, int pitch,
-                                                      const bf16* __restrict__ src,
-                                                      size_t base, size_t tstride, int r0,
-                                                      int t_dim, int width) {
-  const int vecs = width / 8;
+// rows [r0, r0 + kRows) of a (B, T, H, d) bf16 or float tensor from base
+// (its column 0), columns [0, width) -> dst [kRows][pitch], rows past T
+// zero-filled, by 16-byte cp.async copies of a block of kThreads threads.
+template <int kThreads, int kRows = kAttnRows, typename T>
+static __device__ __forceinline__ void wide_load_rows(T* __restrict__ dst, int pitch,
+                                                      const T* __restrict__ src, size_t base,
+                                                      size_t tstride, int r0, int t_dim,
+                                                      int width) {
+  constexpr int kVec = 16 / sizeof(T);   // elements a copy
+  const int vecs = width / kVec;
   for (int e = threadIdx.x; e < kRows * vecs; e += kThreads) {
     const int r = e / vecs, c = e - r * vecs;
     const bool ok = r0 + r < t_dim;
-    cp_async16(dst + r * pitch + 8 * c,
-               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + 8 * c : src,
+    cp_async16(dst + r * pitch + kVec * c,
+               ok ? src + base + static_cast<size_t>(r0 + r) * tstride + kVec * c : src,
                ok ? 16 : 0);
   }
 }
@@ -229,6 +213,124 @@ static __device__ __forceinline__ void wide_mma_av(float (&o)[kW / 8][4],
       ldsm_x4_t(rp + kk * 16 * pr + dp * 16, t4);
       mma_bf16(o[2 * dp], a[kk], t4[0], t4[1]);
       mma_bf16(o[2 * dp + 1], a[kk], t4[2], t4[3]);
+    }
+  }
+}
+
+// ---- float32 past 128: the wide kernels' tiles in split TF32 -------------
+// Every product is mma_3xtf32_add (mma.cuh): each k8 step's three products
+// summed from zero and added in float. Operands are split into hi + lo as
+// their fragments are read, or (kStaged: K4's streamed tiles where a plane
+// fits beside them) once a unit lands, hi in place and lo into a plane at
+// `lo` floats from it (wide_tf32_split_unit), so that the block splits each
+// element once instead of once a warp. The P (dS) operand of a product over
+// keys takes them permuted within each 8-group, slot t = key 2t, slot t + 4
+// = key 2t + 1 (K6's float passes at D <= 128), and the B tile is read at
+// rows 2t and 2t + 1, which a pitch of 4 mod 8 words keeps free of bank
+// conflicts.
+
+// hi + lo of n floats (a multiple of 4) from x, hi in place and lo at x + lo,
+// by the block's kThreads threads.
+template <int kThreads>
+static __device__ __forceinline__ void wide_tf32_split_unit(float* __restrict__ x, int lo, int n) {
+  for (int e = 4 * threadIdx.x; e < n; e += 4 * kThreads) {
+    const float4 v = *reinterpret_cast<const float4*>(x + e);
+    uint4 h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(x + e) = h;
+    *reinterpret_cast<uint4*>(x + e + lo) = l;
+  }
+}
+
+// The B fragment (hi, lo) at p and p + step: split as it is read, or read
+// from the split unit (hi in place, lo at p + lo).
+template <bool kStaged>
+static __device__ __forceinline__ void tf32_bfrag(const float* __restrict__ p, int step, int lo,
+                                                  uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  if constexpr (kStaged) {
+    bh[0] = __float_as_uint(p[0]);
+    bh[1] = __float_as_uint(p[step]);
+    bl[0] = __float_as_uint(p[lo]);
+    bl[1] = __float_as_uint(p[lo + step]);
+  } else {
+    split_tf32(p[0], bh[0], bl[0]);
+    split_tf32(p[step], bh[1], bl[1]);
+  }
+}
+
+// s (16 x kN) += A B^T over `width` columns (a multiple of 8): A the 16 rows
+// of a staged float tile from `a` (pitch pa), B kN rows from `b` (pitch pb;
+// split at `lo` where kStaged); s[nt] is columns (B rows) 8 nt .. 8 nt + 7.
+// One k8 step at a time (unrolled by 2, K4's 256-column group spilled).
+template <int kN, bool kStaged = false>
+static __device__ __forceinline__ void wide_tf32_abt(float (&s)[kN / 8][4],
+                                                     const float* __restrict__ a, int pa,
+                                                     const float* __restrict__ b, int pb,
+                                                     int width, int lo = 0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* ar = a + g * pa + t;
+  const float* br = b + g * pb + t;
+#pragma unroll 1
+  for (int kd = 0; kd < width; kd += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(ar[kd], ah[0], al[0]);
+    split_tf32(ar[8 * pa + kd], ah[1], al[1]);
+    split_tf32(ar[kd + 4], ah[2], al[2]);
+    split_tf32(ar[8 * pa + kd + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      uint32_t bh[2], bl[2];
+      tf32_bfrag<kStaged>(br + 8 * nt * pb + kd, 4, lo, bh, bl);
+      mma_3xtf32_add(s[nt], ah, al, bh, bl);
+    }
+  }
+}
+
+// The permuted A fragment (hi, lo) of keys 8 kk .. 8 kk + 7 of a 16 x 64
+// S-shaped accumulator p: slots t, t + 4 = keys 2t, 2t + 1, so c0, c2, c1, c3.
+static __device__ __forceinline__ void tf32_pfrag(const float (&p)[kAttnRows / 8][4], int kk,
+                                                  uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  split_tf32(p[kk][0], ah[0], al[0]);
+  split_tf32(p[kk][2], ah[1], al[1]);
+  split_tf32(p[kk][1], ah[2], al[2]);
+  split_tf32(p[kk][3], ah[3], al[3]);
+}
+
+// The same fragment of 16 rows x 64 keys staged as floats at x (pitch px):
+// rows g and g + 8, keys 8 kk + 2t and + 1 (one float2 each).
+static __device__ __forceinline__ void tf32_xfrag(const float* __restrict__ x, int px, int kk,
+                                                  uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  const int lane = threadIdx.x % 32;
+  const float* xr = x + (lane / 4) * px + 8 * kk + 2 * (lane % 4);
+  const float2 r0 = *reinterpret_cast<const float2*>(xr);
+  const float2 r1 = *reinterpret_cast<const float2*>(xr + 8 * px);
+  split_tf32(r0.x, ah[0], al[0]);
+  split_tf32(r1.x, ah[1], al[1]);
+  split_tf32(r0.y, ah[2], al[2]);
+  split_tf32(r1.y, ah[3], al[3]);
+}
+
+// o (16 x kW) += A (16 x 64, afrag(kk, hi, lo) its permuted k8 fragments)
+// times 64 rows x kW columns of a staged float tile from `rows` (pitch pr;
+// split at `lo` where kStaged).
+template <int kW, bool kStaged = false, typename AFrag>
+static __device__ __forceinline__ void wide_tf32_av(float (&o)[kW / 8][4], AFrag&& afrag,
+                                                    const float* __restrict__ rows, int pr,
+                                                    int lo = 0) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* rr = rows + 2 * t * pr + g;
+#pragma unroll
+  for (int kk = 0; kk < kAttnRows / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    afrag(kk, ah, al);
+#pragma unroll
+    for (int dt = 0; dt < kW / 8; ++dt) {   // rows 8 kk + 2t, + 1, column 8 dt + g
+      uint32_t bh[2], bl[2];
+      tf32_bfrag<kStaged>(rr + 8 * kk * pr + 8 * dt, pr, lo, bh, bl);
+      mma_3xtf32_add(o[dt], ah, al, bh, bl);
     }
   }
 }

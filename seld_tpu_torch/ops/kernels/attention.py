@@ -18,35 +18,35 @@ from seld_tpu_torch.ops.kernels import (
 )
 
 HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernels are instantiated for
-SLICE_D = 128     # float32 past 128: 128-column slices
-WIDE_STEP = 32    # bfloat16 past 128: D padded to a multiple of this
-WIDE_GROUPS = (160, 192, 224, 256)   # column-group widths the bf16 kernels are built for
+WIDE_STEP = 32    # past 128: D padded to a multiple of this
+WIDE_GROUPS = (160, 192, 224, 256)   # column-group widths the wide kernels are built for
 
 
 def head_dim_plan(d: int, dtype: torch.dtype) -> tuple[int, int]:
     """(d_pad, group width) a head dim ``d`` runs at: the padded D, and the
     width of the output column groups, ceil(d_pad / width) of them (grid z),
     the last narrower where the width does not divide d_pad; each group's
-    block computes S over all of d_pad. The kernels' dispatch derives the
-    same groups from these two numbers.
+    block computes S over all of d_pad, once per key tile. The kernels'
+    dispatch derives the same groups from these two numbers.
 
     - D <= 128: the least of :data:`HEAD_DIMS` >= d, one group.
-    - bfloat16 past 128: d padded to the next multiple of :data:`WIDE_STEP`
-      (a D that is one needs no pad copy), in ceil(d_pad / 256) groups whose
-      width, one of :data:`WIDE_GROUPS`, is d_pad over the groups rounded up
-      to a multiple of 32, so S is computed once per group.
-    - float32 past 128: the next multiple of :data:`SLICE_D` in 128-column
-      groups (the SIMT slice kernels), as the JAX kernel pads D to a
-      multiple of 128 (``seld_tpu/ops/pallas/attention.py:261``).
+    - Past 128, in both dtypes: d padded to the next multiple of
+      :data:`WIDE_STEP` (a D that is one needs no pad copy), in ceil(d_pad /
+      256) groups whose width, one of :data:`WIDE_GROUPS`, is d_pad over the
+      groups rounded up to a multiple of 32. float32 keeps bfloat16's widths
+      (its wide kernels, in split TF32, are built for the same ones): its
+      tiles take twice the bytes, which the kernels meet by streaming K (and
+      the backward's operands) in chunks of D, not by narrower groups, so S
+      is still computed once per group. The JAX kernel pads D to a multiple
+      of 128 (``seld_tpu/ops/pallas/attention.py:155-158``), a TPU lane rule.
     """
+    del dtype   # one plan for both dtypes
     for hd in HEAD_DIMS:
         if hd >= d:
             return hd, hd
-    if dtype == torch.bfloat16:
-        d_pad = -(-d // WIDE_STEP) * WIDE_STEP
-        groups = -(-d_pad // WIDE_GROUPS[-1])
-        return d_pad, -(-d_pad // (groups * WIDE_STEP)) * WIDE_STEP
-    return -(-d // SLICE_D) * SLICE_D, SLICE_D
+    d_pad = -(-d // WIDE_STEP) * WIDE_STEP
+    groups = -(-d_pad // WIDE_GROUPS[-1])
+    return d_pad, -(-d_pad // (groups * WIDE_STEP)) * WIDE_STEP
 
 
 def pad_heads(d_pad: int, *tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -99,7 +99,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
     ``seld_flash_attn_fwd`` at the padded D of :func:`head_dim_plan` on
     zero-padded q, k, v (:func:`pad_heads`; no copy where D is already it),
-    one block per column group and query tile, out sliced back to D."""
+    one block per column group and query tile, out sliced back to D. Past
+    head dim 128 that is the wide kernel of the dtype: bfloat16's on
+    ``mma.sync``, float32's in split TF32 (``flash_fwd_wide_tf32_kernel``)."""
     _check(q, k, v)
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, scale)
@@ -146,7 +148,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, scale: float):
     (dq, dk, dv). CPU tensors take :func:`flash_attention_bwd_plain`; CUDA
     tensors launch ``seld_flash_attn_bwd`` (delta, dq and dk/dv passes) at
     the padded D and column groups of :func:`head_dim_plan`, on zero-padded
-    operands where D is not the padded one, the gradients sliced back to D."""
+    operands where D is not the padded one, the gradients sliced back to D;
+    past head dim 128 the dtype's wide passes (float32's in split TF32:
+    ``flash_dq_wide_tf32_kernel``, ``flash_dkv_wide_tf32_kernel``)."""
     _check(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must be "

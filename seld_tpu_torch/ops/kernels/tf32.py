@@ -1,6 +1,7 @@
 """The split-TF32 arithmetic of the float32 tensor-core kernels (K4's
-``flash_fwd_tf32_kernel``, K6's ``flash_dq_tf32_kernel`` /
-``flash_dkv_tf32_kernel``, K7's ``hamilton_tf32_kernel`` and the dW tile
+``flash_fwd_tf32_kernel`` and ``flash_fwd_wide_tf32_kernel``, K6's
+``flash_dq_tf32_kernel`` / ``flash_dkv_tf32_kernel`` and their wide
+counterparts past head dim 128, K7's ``hamilton_tf32_kernel`` and the dW tile
 ``ct_dw_tf32_kernel`` of K9 and K5, helpers in ``csrc/mma.cuh``), in plain
 PyTorch for the tests: no wrapper calls it.
 
@@ -11,10 +12,11 @@ a_lo b_hi + a_hi b_lo + a_hi b_hi, three TF32 products, each exact in
 float64 (two TF32 values' product has 22 significant bits); the kernels add
 them on float accumulators, each k8 step's three from zero, then the step's
 partial into the float accumulator rounded to nearest (``mma_3xtf32_add``).
-:func:`hamilton_matmul_tf32_plain` and :func:`flash_attention_tf32_plain`
-repeat K7's and K4's arithmetic so: each step's partial summed in float64
-and rounded once to float32 (the tensor cores sum a step's products in
-their own order and truncate, which the card's tests hold to float64).
+:func:`hamilton_matmul_tf32_plain`, :func:`flash_attention_tf32_plain` and
+:func:`flash_attention_bwd_tf32_plain` repeat K7's, K4's and K6's arithmetic
+so: each step's partial summed in float64 and rounded once to float32 (the
+tensor cores sum a step's products in their own order and truncate, which
+the card's tests hold to float64).
 :func:`conv_dw_tf32_plain` repeats the dW tile's, whose two levels are a
 64-frame step (eight k8 steps) and the block's float accumulator, and
 whose blocks' partial rows are summed in float64.
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from seld_tpu_torch.ops.hamilton import assemble_hamilton
+from seld_tpu_torch.ops.kernels.attention import head_dim_plan, pad_heads
 from seld_tpu_torch.ops.kernels.conv2d_train import DW_FRAME_STEP, DW_SPLITS_STAGE1, dw_split
 
 _LOW = 0x1FFF         # the 13 fraction bits TF32 drops
@@ -98,34 +101,81 @@ def hamilton_matmul_tf32_plain(x2d: torch.Tensor, comps: torch.Tensor, bias, n_c
     return out if bias is None else out + bias
 
 
+def _heads_first(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(B, T, H, D) -> contiguous (B, H, T, D)."""
+    return tuple(a.permute(0, 2, 1, 3).contiguous() for a in tensors)
+
+
 def flash_attention_tf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                                tile: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's float32 arithmetic (``flash_fwd_tf32_kernel``) on q, k, v (B, T,
-    H, D) float32: per tile of ``tile`` keys, S = Q K^T in k8 steps of three
-    products over D; the online softmax in float32 (the running max of the
-    scaled scores, p = exp(s * scale - m) with s * scale - m rounded once as
-    the kernel's fma, the row sums in float32); O += P V in k8 steps of three
-    products over the tile's keys; then out = O * (1 / l), lse = m + log l.
-    ``flash_attention_plain``'s contract: (out (B, T, H, D), lse (B, H, T))."""
-    qt, kt, vt = (a.permute(0, 2, 1, 3) for a in (q, k, v))   # (B, H, T, D)
-    (qh, ql) = tf32_split_plain(qt.contiguous())
-    b, h, t, d = qt.shape
-    m = torch.full((b, h, t), -float("inf"))
-    l = torch.zeros((b, h, t))
-    o = torch.zeros((b, h, t, d))
-    for j0 in range(0, t, tile):
-        (kh, kl), (vh, vl) = (tf32_split_plain(a[:, :, j0:j0 + tile].contiguous())
-                              for a in (kt, vt))
-        s = _split_products(qh, ql, kh.transpose(-1, -2), kl.transpose(-1, -2))
-        m_new = torch.maximum(m, s.max(-1).values * scale)
-        alpha = torch.exp(m - m_new)
-        p = torch.exp((s.double() * scale - m_new.double()[..., None]).float())
-        l = l * alpha + p.sum(-1)
-        ph, pl = tf32_split_plain(p)
-        o = _split_products(ph, pl, vh, vl, o * alpha[..., None])
-        m = m_new
-    out = o * (1.0 / l)[..., None]
-    return out.permute(0, 2, 1, 3).contiguous(), m + torch.log(l)
+    """K4's float32 arithmetic (``flash_fwd_tf32_kernel`` at D <= 128,
+    ``flash_fwd_wide_tf32_kernel`` past it) on q, k, v (B, T, H, D) float32,
+    at the padded D and column groups of ``attention.head_dim_plan``: per
+    column group and tile of ``tile`` keys, S = Q K^T in k8 steps of three
+    products over all of the padded D (so once per group); the online
+    softmax in float32 (the running max of the scaled scores, p = exp(s *
+    scale - m) with s * scale - m rounded once as the kernel's fma, the row
+    sums in float32); O += P V over the group's columns in k8 steps of three
+    products over the tile's keys; then out = O * (1 / l), lse = m + log l
+    (the first group's). ``flash_attention_plain``'s contract: (out (B, T,
+    H, D), lse (B, H, T))."""
+    d_true = q.shape[-1]
+    d_pad, width = head_dim_plan(d_true, q.dtype)
+    qt, kt, vt = _heads_first(*pad_heads(d_pad, q, k, v))   # (B, H, T, d_pad)
+    qh, ql = tf32_split_plain(qt)
+    b, h, t, _ = qt.shape
+    outs, lse = [], None
+    for g0 in range(0, d_pad, width):   # one block's columns of out
+        m = torch.full((b, h, t), -float("inf"))
+        l = torch.zeros((b, h, t))
+        o = torch.zeros((b, h, t, min(width, d_pad - g0)))
+        for j0 in range(0, t, tile):
+            kh, kl = tf32_split_plain(kt[:, :, j0:j0 + tile].contiguous())
+            vh, vl = tf32_split_plain(vt[:, :, j0:j0 + tile, g0:g0 + width].contiguous())
+            s = _split_products(qh, ql, kh.transpose(-1, -2), kl.transpose(-1, -2))
+            m_new = torch.maximum(m, s.max(-1).values * scale)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp((s.double() * scale - m_new.double()[..., None]).float())
+            l = l * alpha + p.sum(-1)
+            ph, pl = tf32_split_plain(p)
+            o = _split_products(ph, pl, vh, vl, o * alpha[..., None])
+            m = m_new
+        outs.append(o * (1.0 / l)[..., None])
+        lse = m + torch.log(l) if lse is None else lse
+    out = torch.cat(outs, -1)[..., :d_true]
+    return out.permute(0, 2, 1, 3).contiguous(), lse
+
+
+def flash_attention_bwd_tf32_plain(q, k, v, out, dout, lse, scale: float):
+    """K6's float32 arithmetic (``flash_dq_tf32_kernel`` /
+    ``flash_dkv_tf32_kernel`` at D <= 128, ``flash_dq_wide_tf32_kernel`` /
+    ``flash_dkv_wide_tf32_kernel`` past it) on float32 (B, T, H, D) operands
+    and lse (B, H, T), at the padded D of ``attention.head_dim_plan``: delta
+    = rowsum(dout * out) in float32; S = Q K^T and dP = dO V^T in k8 steps of
+    three products over all of the padded D; P = exp(S * scale - lse), the
+    argument rounded once (the kernels' fma); dS = P (dP - delta) in
+    float32; dQ = dS K, dK = dS^T Q and dV = P^T dO in k8 steps of three
+    products over the keys (queries), each step's partial added to the
+    float32 accumulator in order; dq and dk times the scale.
+    ``flash_attention_bwd_plain``'s contract: (dq, dk, dv). Every column
+    group's block computes the same S and dP, and a gradient column's sums
+    do not depend on the others, so the groups change no value here and all
+    columns are taken at once."""
+    d_true = q.shape[-1]
+    d_pad, _ = head_dim_plan(d_true, q.dtype)
+    qt, kt, vt, ot, dot = _heads_first(*pad_heads(d_pad, q, k, v, out, dout))
+    delta = (dot * ot).sum(-1)                                   # (B, H, T)
+    (qh, ql), (kh, kl), (vh, vl), (dh, dl) = (tf32_split_plain(a) for a in (qt, kt, vt, dot))
+    tr = lambda a: a.transpose(-1, -2).contiguous()
+    s = _split_products(qh, ql, tr(kh), tr(kl))
+    dp = _split_products(dh, dl, tr(vh), tr(vl))
+    p = torch.exp((s.double() * scale - lse.double()[..., None]).float())
+    ds = p * (dp - delta[..., None])
+    (ph, pl), (sh, sl) = tf32_split_plain(tr(p)), tf32_split_plain(ds)
+    dq = _split_products(sh, sl, kh, kl) * scale
+    dk = _split_products(*tf32_split_plain(tr(ds)), qh, ql) * scale
+    dv = _split_products(ph, pl, dh, dl)
+    return tuple(g[..., :d_true].permute(0, 2, 1, 3).contiguous() for g in (dq, dk, dv))
 
 
 def conv_dw_tf32_plain(x: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ dispatch baseline, always runs. Sections:
   ``scaled_dot_product_attention`` and its backward on the same inputs;
 - ``f32``: the float32 kernels in split TF32 beside their library call in
   float32 (TF32 off), on the same inputs: K4 and K6 at the flagship's
-  attention (T = frames / 2, 8 heads of 48) beside SDPA's forward and
+  attention (T = frames / 2, 8 heads of 48, then of 160, ``F32_WIDE_DIM``:
+  the wide kernels past head dim 128) beside SDPA's forward and
   backward, K7 (the DQ conv table) at the flagship's pointwise convs (M =
   batch x frames, 384 x 384) beside ``addmm`` on the assembled weight,
   K9's dW at stage 2 and K5's B2 at stage 1 (its float32 g_z pass, then
@@ -73,6 +74,7 @@ FLAGSHIP = {
 }
 DEFAULT_SECTIONS = "stft,cnn,tcn"
 ATTN_WIDE_DIMS = (160, 256, 640)   # the attn section's head dims past 128
+F32_WIDE_DIM = 160   # the f32 section's head dim past 128
 ITERS = 5
 
 
@@ -273,23 +275,25 @@ def f32(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul
 
     gen = torch.Generator(device=device).manual_seed(0)
-    t, h, d = shapes["frames"] // 2, shapes["heads"], shapes["head_dim"]
-    q, k, v, dout = (_randn(device, batch, t, h, d, gen=gen) for _ in range(4))
-    scale = d ** -0.5
-    out, lse = flash_attention(q, k, v, scale)
-    yield (f"f32: K4 forward (T {t}, {h} x {d})",
-           lambda a, b_, c: flash_attention(a, b_, c, scale), (q, k, v))
-    leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
-    yield ("f32: SDPA forward",
-           lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, scale=scale),
-           [a.detach() for a in leaves])
-    yield (f"f32: K6 backward (T {t}, {h} x {d})",
-           lambda *a: flash_attention_bwd(*a, scale), (q, k, v, out, dout, lse))
-    o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
-    yield ("f32: SDPA backward",
-           lambda g: torch.autograd.grad(o_lib, leaves, g, retain_graph=True),
-           (dout.transpose(1, 2).contiguous(),))
-    del q, k, v, dout, out, lse, leaves, o_lib
+    t, h = shapes["frames"] // 2, shapes["heads"]
+    for d in (shapes["head_dim"], F32_WIDE_DIM):
+        tag = "" if d == shapes["head_dim"] else f" (D {d})"
+        q, k, v, dout = (_randn(device, batch, t, h, d, gen=gen) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = flash_attention(q, k, v, scale)
+        yield (f"f32: K4 forward (T {t}, {h} x {d})",
+               lambda a, b_, c, s_=scale: flash_attention(a, b_, c, s_), (q, k, v))
+        leaves = [a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v)]
+        yield (f"f32: SDPA forward{tag}",
+               lambda a, b_, c, s_=scale: F.scaled_dot_product_attention(a, b_, c, scale=s_),
+               [a.detach() for a in leaves])
+        yield (f"f32: K6 backward (T {t}, {h} x {d})",
+               lambda *a, s_=scale: flash_attention_bwd(*a, s_), (q, k, v, out, dout, lse))
+        o_lib = F.scaled_dot_product_attention(*leaves, scale=scale)
+        yield (f"f32: SDPA backward{tag}",
+               lambda g, o_=o_lib, l_=leaves: torch.autograd.grad(o_, l_, g, retain_graph=True),
+               (dout.transpose(1, 2).contiguous(),))
+        del q, k, v, dout, out, lse, leaves, o_lib
     width, rows = shapes["tcn_width"], batch * shapes["frames"]
     x = _randn(device, rows, width, gen=gen)
     comps = _randn(device, 8, width // 8, width // 8, gen=gen) / (width // 8) ** 0.5

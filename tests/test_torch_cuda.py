@@ -266,13 +266,19 @@ def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
     head_dim_plan): 8 and 24 to the next one (16, 32); past 128, bfloat16 to a
     multiple of 32 in ceil(D / 256) column groups (136 -> 160, 300 -> 320 and
     600 -> 608; 320 and 512 in two equal groups; 288, 480, 600 and 640 with a
-    narrower last group; 1280 in five), float32 to a multiple of 128 in
-    128-column slices. In bf16 the dk/dv pass streams K and V with each tile
-    from D 600 on, the dq pass Q and dO from 640, the forward Q at 1280. K4,
-    K6 and the autograd Function against their plain versions (bf16 2e-2 x
-    max|ref|, float32 2e-4 x max|ref| with TF32 off), ragged key tiles (T
-    65, 130, 200); the 64 x 8 heads at T 300 take K4's 128-query blocks. K6
-    reruns bitwise equal (no atomics)."""
+    narrower last group; 1280 in five), float32 the same (its wide kernels
+    in split TF32). In bf16 the dk/dv pass streams K and V with each tile
+    from D 600 on, the dq pass Q and dO from 640, the forward Q at 1280; in
+    float32 the backward streams the pair in chunks from D 160, the block's
+    own rows from 192 (dk/dv) and 224 (dq), and the forward takes 128-query
+    blocks up to D 192 (K and V split at staging at 160), 64 past it, Q
+    streamed from 480. K4, K6 and the autograd Function against
+    their plain versions (bf16 2e-2 x max|ref|, float32 2e-4 x max|ref| with
+    TF32 off), ragged key tiles (T 65, 130, 200); the 64 x 8 heads at T 300
+    take K4's bf16 128-query blocks. K6 reruns bitwise equal (no atomics).
+    The kernels launched are the dtype's own: past 128 the wide ones
+    (``flash_*_wide_tc_kernel``, ``flash_*_wide_tf32_kernel``), and no other
+    attention kernel."""
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
                      for _ in range(4))
     scale = d ** -0.5
@@ -296,6 +302,26 @@ def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
     for a, b_ in zip(*grads):
         _close(a, b_, dtype)
     assert launch_counts["flash_attn_fwd"] == 2 and launch_counts["flash_attn_bwd"] == 3
+    kind = ("wide_" if d > 128 else "") + ("tf32" if dtype == torch.float32 else "tc")
+    fwd = _attention_kernels(lambda: flash_attention(q, k, v, scale))
+    bwd = _attention_kernels(lambda: flash_attention_bwd(q, k, v, out_r, dout, lse_r, scale))
+    assert len(fwd) == 1 and f"flash_fwd_{kind}_kernel" in fwd[0], fwd
+    assert len(bwd) == 2 and all(any(f"flash_{p}_{kind}_kernel" in n for n in bwd)
+                                 for p in ("dq", "dkv")), bwd
+
+
+def _attention_kernels(fn) -> list:
+    """The flash_* device kernels one fn() call launches, by the profiler's
+    (demangled) names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "flash_" in e.key]
 
 
 def k5_inputs(gen, b, cin, f, t, cout, dtype):
@@ -515,9 +541,12 @@ def test_flash_attention_bwd_kernel(gen, dtype, b, t, h, d):
         assert torch.equal(a, b_)
 
 
-# K6 in float32 (split TF32): every instantiated head dim at T 65 (one ragged
-# tile), 200 (three and a ragged tail) and the flagship's 2400 (38 tiles)
-K6_F32_CASES = [(b, t, h, d) for d in (16, 32, 48, 64, 128)
+# K4 / K6 in float32 (split TF32): every instantiated head dim, and past 128
+# the wide kernels at D 160 (K4's 128-query blocks, K and V split at staging;
+# K6's pair in two chunks) and 256 (K4's 64-query blocks, split as read; K6
+# streaming the block's rows), at T 65 (one ragged tile), 200 (three and a
+# ragged tail) and the flagship's 2400 (38 tiles)
+K6_F32_CASES = [(b, t, h, d) for d in (16, 32, 48, 64, 128, 160, 256)
                 for b, t, h in ((2, 65, 3), (1, 200, 2), (1, 2400, 2))]
 
 
@@ -532,9 +561,10 @@ def _f64_gate(name, got, plain, exact):
 
 @pytest.mark.parametrize("b,t,h,d", K6_F32_CASES)
 def test_flash_attention_bwd_tf32(gen, b, t, h, d):
-    """K6's float32 passes (flash_dq_tf32_kernel, flash_dkv_tf32_kernel)
-    against the plain version in float32, TF32 off; each gradient within 4x
-    the plain version's distance from float64; bitwise on a rerun."""
+    """K6's float32 passes (flash_dq_tf32_kernel, flash_dkv_tf32_kernel; past
+    128 their wide counterparts) against the plain version in float32, TF32
+    off; each gradient within 4x the plain version's distance from float64;
+    bitwise on a rerun."""
     q, k, v, dout = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(4))
     out, lse = (a.contiguous() for a in flash_attention_plain(q, k, v, d ** -0.5))
     got = flash_attention_bwd(q, k, v, out, dout, lse, d ** -0.5)
@@ -562,7 +592,7 @@ NAN_BITS = [0x7FC00000, 0x7FFFFFFF]
 
 
 @pytest.mark.parametrize("bits", NAN_BITS)
-@pytest.mark.parametrize("d", [48, 128])
+@pytest.mark.parametrize("d", [48, 128, 160, 256])
 def test_flash_attention_bwd_tf32_keeps_nans(gen, bits, d):
     """A NaN in q (batch 0) or in dO (batch 1) of K6's float32 passes comes
     out NaN exactly where the plain version's does: out and lse are those of
@@ -581,9 +611,11 @@ def test_flash_attention_bwd_tf32_keeps_nans(gen, bits, d):
 @pytest.mark.parametrize("b,t,h,d", K6_F32_CASES)
 def test_flash_attention_fwd_tf32(gen, b, t, h, d):
     """K4's float32 forward (flash_fwd_tf32_kernel: K and V split at staging
-    up to D 64, as read at D 128) against the plain version in float32, TF32
-    off: out and lse within 4x the plain version's distance from float64,
-    within 2e-4 x max of it, one launch, and bitwise on a rerun."""
+    up to D 64, as read at D 128; past 128 flash_fwd_wide_tf32_kernel, split
+    at staging at D 160, as read at 256) against the plain version in
+    float32, TF32 off: out and lse
+    within 4x the plain version's distance from float64, within 2e-4 x max
+    of it, one launch, and bitwise on a rerun."""
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(3))
     scale = d ** -0.5
     got = flash_attention(q, k, v, scale)
@@ -598,7 +630,7 @@ def test_flash_attention_fwd_tf32(gen, b, t, h, d):
 
 
 @pytest.mark.parametrize("bits", NAN_BITS)
-@pytest.mark.parametrize("d", [48, 128])
+@pytest.mark.parametrize("d", [48, 128, 160, 256])
 def test_flash_attention_fwd_tf32_keeps_nans(gen, bits, d):
     """A NaN in q (batch 0), k (batch 1) or v (batch 2) of K4's float32
     forward comes out NaN in out and lse exactly where the plain version's
@@ -628,8 +660,8 @@ def test_cuda_tensors_never_take_the_plain_path(gen):
         flash_attention(q, q, q, 0.2)
     assert all(v == 0 for v in launch_counts.values())
     # a pool past one float32 halo staging (48 rows) and head dims 24 and 160 run
-    # on the kernels (in chunks; zero-padded to 32, and to 256 in 128-column
-    # slices) and match the plain versions
+    # on the kernels (in chunks; 24 zero-padded to 32, 160 on the wide kernel
+    # unpadded) and match the plain versions
     x4, w4 = torch.randn(1, 4, 50, 20, generator=gen, device="cuda"), w[:, :, :4].contiguous()
     _close(conv2d_bn_relu_fpool(x4, w4, s, s, 50), conv2d_bn_relu_fpool_plain(x4, w4, s, s, 50),
            torch.float32)

@@ -1,13 +1,13 @@
 """Two entry limits the port's kernels had and the JAX kernels lack, closed.
 
 - K4 / K6 take any head dim: the wrappers zero-pad D to the next
-  instantiated dim, or past 128 to the next multiple of 32 in bfloat16 (in
-  column groups of at most 256) and of 128 in float32 (128-column slices),
-  as ``attention.head_dim_plan`` gives, with ``pad_heads``, and slice the
-  outputs back. The plan covers every column once, pads bf16 by less than
-  32 and groups no wider than 256 (exact integers). Here the padding runs
+  instantiated dim, or past 128 to the next multiple of 32 in column groups
+  of at most 256 (bfloat16's wide kernels and float32's, in split TF32), as
+  ``attention.head_dim_plan`` gives, with ``pad_heads``, and slice the
+  outputs back. The plan covers every column once, pads by less than 32 and
+  groups no wider than 256 (exact integers). Here the padding runs
   through the plain versions (the CPU path of the kernels) at D 8, 24, 136,
-  160, 192, 300 and 320 to both dtypes' padded D and is held to the
+  160, 192, 300 and 320 to the padded D and is held to the
   unpadded plain
   version (float64, 1e-12 x max|ref|: zero columns add exact zeros, only
   the summation's blocking may differ) and to the JAX ``flash_attention`` in
@@ -60,13 +60,12 @@ def test_padded_head_dim_is_the_next_instantiation():
         assert pads((1, 8, 16, 24, 40, 48, 49, 96, 128), dt) == [
             16, 16, 16, 32, 48, 48, 64, 128, 128]
         assert all(head_dim_plan(d, dt) == (d, d) for d in HEAD_DIMS)
-    # past 128: float32 the next multiple of 128, as the JAX kernel pads D;
-    # bfloat16 the next multiple of 32
-    assert pads((129, 160, 256, 257, 300, 320, 384), torch.float32) == [
-        256, 256, 256, 384, 384, 384, 384]
-    assert pads((129, 160, 256, 257, 300, 320, 384), torch.bfloat16) == [
-        160, 160, 256, 288, 320, 320, 384]
-    assert pads((136, 200, 512, 513), torch.bfloat16) == [160, 224, 512, 544]
+    # past 128, both dtypes: the next multiple of 32 (the JAX kernel pads D to
+    # a multiple of 128, a TPU lane rule)
+    for dt in (torch.float32, torch.bfloat16):
+        assert pads((129, 160, 256, 257, 300, 320, 384), dt) == [
+            160, 160, 256, 288, 320, 320, 384]
+        assert pads((136, 200, 512, 513), dt) == [160, 224, 512, 544]
 
 
 def plan_groups(d_pad: int, width: int) -> list:
@@ -78,11 +77,11 @@ def plan_groups(d_pad: int, width: int) -> list:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_head_dim_plan_covers_every_column_once(dtype):
-    """Every column of d_pad in exactly one group, in order; bf16 past 128:
-    d_pad - D < 32, one group up to 256 and ceil(d_pad / 256) past it, the
-    width one the kernels are built for (so no group is wider than 256; the
-    last may be narrower, a multiple of 32); float32: multiples of 128 in
-    128-column groups; D <= 128: one group of the next instantiated dim."""
+    """Every column of d_pad in exactly one group, in order; past 128, in
+    both dtypes: d_pad - D < 32, one group up to 256 and ceil(d_pad / 256)
+    past it, the width one the wide kernels are built for (so no group is
+    wider than 256; the last may be narrower, a multiple of 32); D <= 128:
+    one group of the next instantiated dim."""
     for d in range(1, 2561):
         d_pad, width = head_dim_plan(d, dtype)
         groups = plan_groups(d_pad, width)
@@ -91,23 +90,22 @@ def test_head_dim_plan_covers_every_column_once(dtype):
         widths = [c1 - c0 for c0, c1 in groups]
         if d <= 128:
             assert groups == [(0, d_pad)] and d_pad in HEAD_DIMS
-        elif dtype == torch.bfloat16:
+        else:
             assert d_pad % 32 == 0 and d_pad - d < 32
             assert len(groups) == -(-d_pad // 256)
             assert width in WIDE_GROUPS and widths[-1] % 32 == 0
-        else:
-            assert d_pad % 128 == 0 and d_pad - d < 128 and set(widths) == {128}
 
 
 @pytest.mark.parametrize("d,d_pad,widths", [
     (288, 288, [160, 128]), (300, 320, [160, 160]), (480, 480, [256, 224]),
     (600, 608, [224, 224, 160]), (640, 640, [224, 224, 192]), (1280, 1280, [256] * 5)])
 def test_head_dim_plan_groups_at_the_card_tests_dims(d, d_pad, widths):
-    """The bf16 groups of the head dims the card tests run past 256, among
-    them those whose last group is narrower (288, 480, 600, 640)."""
-    got_pad, width = head_dim_plan(d, torch.bfloat16)
-    assert got_pad == d_pad
-    assert [c1 - c0 for c0, c1 in plan_groups(got_pad, width)] == widths
+    """The groups (both dtypes) of the head dims the card tests run past 256,
+    among them those whose last group is narrower (288, 480, 600, 640)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        got_pad, width = head_dim_plan(d, dtype)
+        assert got_pad == d_pad
+        assert [c1 - c0 for c0, c1 in plan_groups(got_pad, width)] == widths
 
 
 @pytest.mark.parametrize("d", [8, 24, 136, 160, 192, 300, 320])
@@ -118,7 +116,7 @@ def test_padded_attention_matches_unpadded_and_jax(rng, d):
     q64, k64, v64, g64 = (torch.from_numpy(a) for a in (q, k, v, g))
     out, lse = flash_attention_plain(q64, k64, v64, scale)
     grads = flash_attention_bwd_plain(q64, k64, v64, out, g64, lse, scale)
-    # both dtypes' padded D (bf16 past 128: a multiple of 32; float32 of 128)
+    # both dtypes' padded D (past 128: a multiple of 32)
     for dp in sorted({head_dim_plan(d, dt)[0] for dt in (torch.bfloat16, torch.float32)}):
         qp, kp, vp = pad_heads(dp, q64, k64, v64)
         assert qp.shape == (b, t, h, dp) and torch.equal(qp[..., :d], q64)

@@ -17,9 +17,10 @@ from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 # the flagship's frequency path (its config's 256 bins) at 32 frames, narrow CNN
 # and TCN sections; the v3 section builds the full-width flagship
 TINY = dict(prof.FLAGSHIP, samples=12800, frames=32, filters=16, tcn_width=16, dilation=3)
-# attn: four rows at the flagship's head dim and at each of prof.ATTN_WIDE_DIMS
+# attn: four rows at the flagship's head dim and at each of prof.ATTN_WIDE_DIMS;
+# f32: four attention rows at the flagship's head dim and at prof.F32_WIDE_DIM
 ROWS = {"noop": 1, "stft": 3, "cnn": 5, "tcn": 3, "fused": 12, "qmm": 9, "train": 5,
-        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 11, "v3": 5}
+        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 15, "v3": 5}
 
 
 @pytest.mark.parametrize("section", sorted(prof.SECTIONS))

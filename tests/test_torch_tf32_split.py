@@ -6,11 +6,12 @@ of the bit trick), a non-finite operand never gives a finite product, hi +
 lo recovers x within 2^-22 |x|, the split is odd in the sign, the
 three-term product summed over a K9 stage-2 depth stays as close to float64
 as the float32 plain version, and so do K5's dW tile
-(``conv_dw_tf32_plain``, at the flagship's stage-1 depth) and K7's and
-K4's whole arithmetic (``hamilton_matmul_tf32_plain``,
-``flash_attention_tf32_plain``), which also agree with the JAX package's
-functions on the CPU. The tensor cores'
-own accumulation is the card's (``tests/test_torch_cuda.py``). The two
+(``conv_dw_tf32_plain``, at the flagship's stage-1 depth) and K7's, K4's
+and K6's whole arithmetic (``hamilton_matmul_tf32_plain``,
+``flash_attention_tf32_plain``, ``flash_attention_bwd_tf32_plain``; K4
+and K6 also past head dim 128, at the wide kernels' padded D), which also
+agree with the JAX package's functions on the CPU. The tensor cores' own
+accumulation is the card's (``tests/test_torch_cuda.py``). The three
 tests that call the JAX package import it themselves: the rest of the
 module also runs where JAX is not installed (``ab_variants --tests``).
 """
@@ -19,11 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from seld_tpu_torch.ops.kernels.attention import flash_attention_plain
+from seld_tpu_torch.ops.kernels.attention import flash_attention_bwd_plain, flash_attention_plain
 from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
 from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
-    conv_dw_tf32_plain, flash_attention_tf32_plain, hamilton_matmul_tf32_plain,
+    conv_dw_tf32_plain, flash_attention_bwd_tf32_plain, flash_attention_tf32_plain,
+    hamilton_matmul_tf32_plain,
     tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
 )
 
@@ -212,13 +214,19 @@ def test_k7_split_arithmetic_at_the_flagship_depth(name, n, cin_c, cout_c, table
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+# every instantiated head dim, and past 128 the wide kernels' plan: 136 (padded
+# to 160), 160 and 256, one column group each
+ATTN_DIMS = [16, 32, 48, 64, 128, 136, 160, 256]
+
+
+@pytest.mark.parametrize("d", ATTN_DIMS)
 @pytest.mark.parametrize("t", [65, 200])
 def test_k4_split_arithmetic(t, d):
-    """K4's float32 arithmetic (64-key tiles, a ragged last one): out and
-    lse within 4x the float32 plain version's max|d| from float64; out
-    within 2e-4 x max of the JAX ``flash_attention`` on the CPU (at these T
-    its chunked XLA path) and lse of the float64 logsumexp."""
+    """K4's float32 arithmetic (64-key tiles, a ragged last one; past head
+    dim 128 at the wide kernels' padded D, S over all of it): out and lse
+    within 4x the float32 plain version's max|d| from float64; out within
+    2e-4 x max of the JAX ``flash_attention`` on the CPU (at these T its
+    chunked XLA path) and lse of the float64 logsumexp."""
     import jax.numpy as jnp
 
     from seld_tpu.ops.pallas.attention import flash_attention as jflash
@@ -238,3 +246,35 @@ def test_k4_split_arithmetic(t, d):
     np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
     lse_64 = exact[1].numpy()
     np.testing.assert_allclose(lse.numpy(), lse_64, rtol=0, atol=2e-4 * np.abs(lse_64).max())
+
+
+@pytest.mark.parametrize("d", ATTN_DIMS)
+@pytest.mark.parametrize("t", [65, 200])
+def test_k6_split_arithmetic(t, d):
+    """K6's float32 arithmetic (``flash_attention_bwd_tf32_plain``: S and dP
+    over the padded D, dQ, dK and dV over the keys and queries, every
+    product in k8 steps of three, summed in two levels) from the float32
+    plain forward's out and lse: dq, dk and dv each within 4x the float32
+    plain backward's max|d| from float64, and within 2e-4 x max of the
+    gradients of the JAX ``flash_attention`` (``jax.vjp``, interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas.attention import flash_attention as jflash
+
+    rng = np.random.default_rng(7)
+    q, k, v, g = (rng.standard_normal((2, t, 3, d)).astype(np.float32) for _ in range(4))
+    scale = d ** -0.5
+    qt, kt, vt, gt = map(torch.from_numpy, (q, k, v, g))
+    out, lse = flash_attention_plain(qt, kt, vt, scale)
+    got = flash_attention_bwd_tf32_plain(qt, kt, vt, out, gt, lse, scale)
+    exact = flash_attention_bwd_plain(*(a.double() for a in (qt, kt, vt, out, gt, lse)), scale)
+    plain = flash_attention_bwd_plain(qt, kt, vt, out, gt, lse, scale)
+    for a, p, e in zip(got, plain, exact):
+        assert a.shape == e.shape
+        assert _dist(a, e) <= 4 * _dist(p, e), (_dist(a, e), _dist(p, e))
+    _, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, scale, interpret=True),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    for a, want in zip(got, vjp(jnp.asarray(g))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(a.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
