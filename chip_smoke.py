@@ -12,8 +12,9 @@ Phases, each printing its own lines:
    spills per kernel and the HMMA / HGMMA / IMMA count in the SASS of each
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128, K8's int8 GEMM and
-   the split-TF32 float32 kernels of K4, K6 (past head dim 128 too), K7 and
-   K9's dW among them), failing if one has none or if a K4 / K6 kernel past
+   the split-TF32 float32 kernels of K4, K6 (past head dim 128 too), K7,
+   the dW tile of K9 and K5, K2w and K10a among them), failing if one has
+   none or if a K4 / K6 kernel past
    head dim 128 or a split-TF32 kernel spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8 within one ulp of its plain version at both row
@@ -53,11 +54,12 @@ Phases, each printing its own lines:
    there is one, and their float32 bound (the ``[f32]`` lines), the
    split-TF32 kernels (K4 and K6 at D 48 and 160, K7 at M 9600 with dx
    through the autograd Function, K9's dW at stage 2 and K5's at stage 1,
-   on the grid's inputs and on real-valued ones) also held to float64: each
+   on the grid's inputs and on real-valued ones; K2w at stage 1 and K10a
+   at stages 1-3, rerun bitwise) also held to float64: each
    within F64_FACTOR x the float32 plain version's distance from the plain
    version in float64 (the dW tiles: the plain version with cuDNN off,
-   whose float32 wgrad is printed beside); K2w's and
-   K10a's bf16 operand builds
+   whose float32 wgrad is printed beside); K2w's and K10a's operand builds
+   in both dtypes
    (the torch pack, the patch kernel) and products alone, and both beside
    cuDNN back to back, at the flagship's stages;
 4. serving path: builds the full-width flagship DualQSELD-TCN
@@ -257,16 +259,18 @@ PREDICT_STEPS_TIMED = 3
 # three at head dims past 128, in column groups: WIDE_ATTN_KERNELS), K7, K1's
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
 # int8 GEMM (IMMA); and the float32 kernels of K4, K6 (and their three past head
-# dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7 and the dW tile in split
-# TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32 product; the
-# dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones K5's)
+# dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7, the dW tile and the GEMM
+# tile of K2w and K10a in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three
+# products a float32 product; the dW tile's 32-channel Cin tile is K9's, its 16-
+# and 8-channel ones K5's; K2w's instances walk 8-32 pack rows)
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
                      "flash_dkv_wide_tc_kernel")
 WIDE_TF32_ATTN_KERNELS = ("flash_fwd_wide_tf32_kernel", "flash_dq_wide_tf32_kernel",
                           "flash_dkv_wide_tf32_kernel")
 TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                 *WIDE_TF32_ATTN_KERNELS, "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E",
-                "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E")
+                "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E", "smallcin_wide_tf32_kernel",
+                "im2col_tf32_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
@@ -1626,17 +1630,20 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
     """K2w, K10a (with its patch build) and K10b against their plain versions
     at ragged multi-tile shapes and at the flagship's stages (batch 2),
     float32 and bfloat16, each flagship run beside cuDNN's conv of the
-    stage. For K2w and K10a in bf16 also: the operand build alone (K2w's
-    torch pack, K10a's patch kernel) and the product alone on the built
-    operands (the two public functions each wrapper calls), and wrapper and
-    cuDNN back to back. Records, bf16, K2w, K10a and K10a's patch kernel at
-    stage 1 and K10b at stage 2. Every ``ms`` is its wrapper's, as
-    ``plain_ms`` and ``library_ms`` are the whole function's; K2w's and
-    K10a's entries add ``operands_ms`` and ``product_ms`` (the wrapper's
-    two parts), ``stream_ms`` and ``library_stream_ms`` (back to back). The
-    bound is the function's (x + w + out bytes, 2 * 9 * Cin * Cout
-    operations per output pixel; the patch build: x + patches): the packs'
-    bytes are the designs' cost."""
+    stage. For K2w and K10a in both dtypes also: the operand build alone
+    (K2w's torch pack, K10a's patch kernel) and the product alone on the
+    built operands (the two public functions each wrapper calls), and
+    wrapper and cuDNN back to back; in float32 (the split-TF32 tile) the
+    float64 gate (F64_FACTOR) at the flagship's stages (K2w stage 1, K10a
+    stages 1-3) and the three TF32 products' bound. Records, bf16, K2w,
+    K10a and K10a's patch kernel at stage 1 and K10b at stage 2. Every
+    ``ms`` is its wrapper's, as ``plain_ms`` and ``library_ms`` are the
+    whole function's; K2w's and K10a's entries add ``operands_ms`` and
+    ``product_ms`` (the wrapper's two parts), ``stream_ms`` and
+    ``library_stream_ms`` (back to back), and their float32 rows the same
+    under ``f32``. The bound is the function's (x + w + out bytes, 2 * 9 *
+    Cin * Cout operations per output pixel; the patch build: x +
+    patches): the packs' bytes are the designs' cost."""
     from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 
     F = torch.nn.functional
@@ -1654,7 +1661,8 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
         if name == "conv3x3_smallcin_wide":
             built = pool.smallcin_pack(x, w)
             return (lambda: pool.smallcin_pack(x, w),
-                    lambda: pool.smallcin_wide_product(*built, scale, bias, pf, x.shape[3]))
+                    lambda: pool.smallcin_wide_product(*built, scale, bias, pf, x.shape[3],
+                                                       x.shape[1]))
         built = pool.im2col_operands(x, w)
         return (lambda: pool.im2col_operands(x, w),
                 lambda: pool.im2col_product(*built, scale, bias, pf))
@@ -1711,13 +1719,13 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
             flops, moved = 2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got)
             dt_name = str(dt)[6:]
             parts = {}
-            if dt == torch.bfloat16 and name != "conv3x3_windows":
+            if name != "conv3x3_windows":
                 build, product = operands(name, x, w, scale, bias, pf)
                 parts = {"operands_ms": time_ms(torch, build),
                          "product_ms": time_ms(torch, product),
                          "stream_ms": stream_ms(torch, k),
                          "library_stream_ms": stream_ms(torch, lib)}
-                print(f"[kernel] {name} {tag} bfloat16: wrapper {timed[0]:.3f} ms (back to back "
+                print(f"[kernel] {name} {tag} {dt_name}: wrapper {timed[0]:.3f} ms (back to back "
                       f"{parts['stream_ms']:.3f}) = operands built {parts['operands_ms']:.3f} ms "
                       f"(back to back {stream_ms(torch, build):.3f}) + product "
                       f"{parts['product_ms']:.3f} ms (back to back "
@@ -1727,7 +1735,16 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
             if dt == torch.bfloat16 and recorded[name] == tag:
                 record(name, d, timed, flops, moved, "bfloat16", lib_ms, **parts)
             elif dt == torch.float32:
-                f32_row(card, name, tag, timed[0], lib_ms, flops, moved)
+                split = name != "conv3x3_windows"   # K2w and K10a: the split-TF32 tile
+                f32_row(card, name, tag, timed[0], lib_ms, flops, moved, split_tf32=split)
+                F32_ROWS[name][tag].update(parts)
+                if split:
+                    # within F64_FACTOR x the float32 plain version's distance
+                    # from float64, and bitwise on a rerun
+                    exact = plain_fn(x.double(), w.double(), scale.double(), bias.double(), pf)
+                    f64_gate(card, name, tag, got, p(), exact)
+                    require(torch.equal(k(), got), f"{name} {tag} float32: not repeatable")
+                    del exact
             else:
                 bound_ms, bound_by = bound(flops, moved, dt_name)
                 print(f"[kernel] {name} {tag} {dt_name}: {timed[0]:.3f} ms, plain "

@@ -40,8 +40,8 @@ SIGNATURES = {
     # x, w, scale, bias, out, batch, cin, f, t, cout, pf, dtype, stream
     "seld_conv3x3_widecin": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "seld_conv3x3_windows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # p0, wk, scale, bias, out, batch, kg, f, t, tpad, cout, pf, dtype, stream
-    "seld_conv3x3_smallcin_wide": [_P] * 5 + [_I] * 8 + [_P],
+    # p0, wk, scale, bias, out, batch, kg, rows, f, t, tpad, cout, pf, dtype, stream
+    "seld_conv3x3_smallcin_wide": [_P] * 5 + [_I] * 9 + [_P],
     # patches, w, scale, bias, out, batch, k, f, t, cout, pf, dtype, stream
     "seld_conv3x3_im2col": [_P] * 5 + [_I] * 7 + [_P],
     # x, patches, batch, cin, f, t, k_pad, dtype, stream

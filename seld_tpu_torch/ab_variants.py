@@ -27,8 +27,9 @@ seld_tpu_torch.ab_variants --digest`` once in each copy (this tree's
 ``ab_variants.py`` goes over the base's, as the profiler does): one line
 per case of :func:`hash_cases`, the first 16 hex digits of the sha256 of
 the output's bytes, for every bfloat16 kernel, the split-TF32 wide kernels
-past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7 and K5's
-float32 B2 (the g_z pass and the dW tile at Cin 8 and 10), on inputs from
+past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7, K5's
+float32 B2 (the g_z pass and the dW tile at Cin 8 and 10) and the
+conv-pool stages in float32 (K2, K2w, K3, K10a, K10b), on inputs from
 one seeded generator on the device. Equal code gives equal bits (every kernel there
 reduces in a fixed order); the runner exits 1 where a case differs.
 ``--tests`` runs the given tests (pytest node ids under ``tests/``) once in
@@ -176,8 +177,10 @@ def hash_cases(device):
         if 3 * cin <= 32:
             ops["conv3x3_smallcin_wide"] = pool.conv2d_smallcin_wide_bn_relu_fpool
         for name, op in ops.items():
-            out.append((f"{name} Cin {cin} bf16",
-                        lambda op=op, x=x, w=w, sc=sc, bi=bi, pf=pf: (op(x, w, sc, bi, pf),)))
+            for dt, tag in ((bf16, "bf16"), (torch.float32, "f32")):
+                xd, wd = x.to(dt), w.to(dt)
+                out.append((f"{name} Cin {cin} {tag}", lambda op=op, x=xd, w=wd, sc=sc, bi=bi,
+                            pf=pf: (op(x, w, sc, bi, pf),)))
     # K5's bf16 passes at Cin 8, K9's at C 24
     x, w = randn(2, 8, 32, 300), randn(3, 3, 8, 72, sc=0.1)
     g = randn(2, 72, 4, 300)

@@ -115,7 +115,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        best[i][j] = fmaxf(best[i][j], bn_relu(acc[i][j], sc[i], bi[i]));
+        best[i][j] = max_nan(best[i][j], bn_relu(acc[i][j], sc[i], bi[i]));
   }
 
 #pragma unroll
@@ -177,7 +177,7 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
           auto* p = reinterpret_cast<__nv_bfloat162*>(bs + m * kTbBP + tb_n(half, lane, ni, 0));
           const __nv_bfloat162 v = __floats2bfloat162_rn(bn_relu(acc[mi][ni][2 * h], sc, bi),
                                                          bn_relu(acc[mi][ni][2 * h + 1], sc, bi));
-          *p = first ? v : __hmax2(*p, v);
+          *p = first ? v : __hmax2_nan(*p, v);
         }
       }
   }
@@ -195,7 +195,7 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
         best + (wd * spw * kTcCo + m) * kTbBP + n);
     for (int s2 = 1; s2 < spw; ++s2)
-      v = __hmax2(v, *reinterpret_cast<const __nv_bfloat162*>(
+      v = __hmax2_nan(v, *reinterpret_cast<const __nv_bfloat162*>(
                          best + ((wd * spw + s2) * kTcCo + m) * kTbBP + n));
     bf16* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo0 + wd) * t_dim;
     if (pairs) {
@@ -400,7 +400,7 @@ smallcin_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
             for (int e2 = 0; e2 < 2; ++e2)
               best[mi][ni][2 * h + e2] =
-                  fmaxf(best[mi][ni][2 * h + e2], bn_relu(acc[mi][ni][2 * h + e2], sc, bi));
+                  max_nan(best[mi][ni][2 * h + e2], bn_relu(acc[mi][ni][2 * h + e2], sc, bi));
         }
     }
     if (r0 + chunk >= pf) break;

@@ -3,7 +3,7 @@
 // launches too), the train-mode stage 1
 // (conv3x3_train.cu) and the train-mode stages 2-3 (conv3x3_ct_train.cu);
 // the wide-pack and im2col stages (conv3x3_smallcin_wide.cu,
-// conv3x3_im2col.cu) take its tile sizes and epilogue.
+// conv3x3_im2col.cu) take its epilogue (bn_relu, max_nan).
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels
@@ -138,9 +138,19 @@ static __device__ __forceinline__ void conv_row_widecin(float* __restrict__ xs,
   }
 }
 
-// relu(acc * scale + bias), the one expression every conv-pool kernel uses.
+// max(a, b) keeping a NaN, as jnp.maximum / jnp.max and torch.relu /
+// max_pool2d do (fmaxf returns the operand that is not NaN): PTX max.NaN,
+// the canonical NaN where either operand is one, else fmaxf's result.
+static __device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// relu(acc * scale + bias), the one expression every conv-pool kernel uses;
+// a NaN stays a NaN. Each pool's running max takes max_nan too.
 static __device__ __forceinline__ float bn_relu(float acc, float scale, float bias) {
-  return fmaxf(fmaf(acc, scale, bias), 0.f);
+  return max_nan(fmaf(acc, scale, bias), 0.f);
 }
 
 // Sum v over the 16 frame lanes (tx) that share a channel lane; every lane

@@ -41,110 +41,26 @@
 // nine (tap, chunk) runs of the patch row as 16-byte vectors where Cin
 // keeps them aligned, else element by element.
 //
-// float32: im2col_kernel, SIMT, TF32 off: one block per (b, pooled row,
-// 64-channel Cout tile, 128-frame T tile), 256 threads, each holding a
-// 4-channel x 8-frame float accumulator. K is walked in chunks of 32: each
-// chunk stages a [32][128] patch tile, read as 32 consecutive columns per
-// frame (coalesced) and stored transposed with a padded row (no bank
-// conflicts), and the [32][64] weight slice; the ragged last chunk is
-// zero-filled. Pool rows are computed one after another into the same
-// accumulator and folded into a running max after the affine and ReLU.
-#include "pool_gemm_tc.cuh"
+// float32: im2col_tf32_kernel, the same block on the float tile of
+// pool_gemm_tf32.cuh (split TF32: three m16n8k8 TF32 products a float32
+// product, each k8 step summed from zero, then added in float; stage 2's K
+// 1728 is 216 such steps into the float accumulators). K = 9 Cin as it
+// comes, walked in 32-deep chunks (four k8 steps; the last one short, its
+// ragged k zero-filled) through a three-stage ring, one barrier a chunk, the
+// (pool row, chunk) units in one loop, each pool row's chunks into the same
+// accumulators as in bfloat16. A stage holds the [128 frames][32 k] patch
+// tile in rows of 36 words (4 mod 8: a B fragment's 8 frames x 4 k hit 32
+// banks), by 16-byte cp.async where K % 4 == 0 and the patches are aligned,
+// else by 4-byte cp.async, and the [32 k][64 channels] weight tile split
+// once into hi and lo planes of 72-word rows (8 mod 32): after a chunk's
+// products each thread loads, splits and stores its 8 weights of the chunk
+// two ahead. 108 KB of shared memory and 128 registers: two blocks an SM
+// (the tile's accumulators and fragments take ~125 registers, so the loop
+// keeps few scalars live: per-thread offsets are recomputed where used; at
+// one block an SM, 152 registers, it ran 1.2-1.3x slower).
+#include "pool_gemm_tf32.cuh"
 
 namespace {
-
-constexpr int kKC = 32;          // K per shared-memory chunk
-constexpr int kXS = kBT + 1;     // padded row of the transposed patch tile
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-im2col_kernel(const T* __restrict__ patches, const T* __restrict__ w,
-              const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ out, int k_dim, int f_dim, int t_dim, int cout, int pf) {
-  __shared__ float xs[kKC * kXS];     // [k][t]
-  __shared__ float ws[kKC * kBCO];    // [k][co]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;   // frame lane: frames t0 + tx + 16 j
-  const int ty = tid / 16;   // channel lane: channels co0 + ty + 16 i
-  const int t0 = blockIdx.x * kBT;
-  const int co0 = blockIdx.y * kBCO;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.z / f_out;
-  const int fo = blockIdx.z % f_out;
-
-  float sc[4], bi[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = co0 + ty + 16 * i;
-    sc[i] = co < cout ? scale[co] : 0.f;
-    bi[i] = co < cout ? bias[co] : 0.f;
-  }
-  // relu output is >= 0, so 0 is the identity of the running max
-  float best[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) best[i][j] = 0.f;
-
-  for (int r = 0; r < pf; ++r) {
-    const T* prow = patches + (static_cast<size_t>(b) * f_dim + fo * pf + r) * t_dim * k_dim;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < k_dim; k0 += kKC) {
-      __syncthreads();   // the previous chunk's readers are done
-      for (int e = tid; e < kKC * kBT; e += kThreads) {
-        const int k = e % kKC;
-        const int tl = e / kKC;
-        const int t = t0 + tl;
-        xs[k * kXS + tl] = (t < t_dim && k0 + k < k_dim)
-                               ? to_f(prow[static_cast<size_t>(t) * k_dim + k0 + k])
-                               : 0.f;
-      }
-      for (int e = tid; e < kKC * kBCO; e += kThreads) {
-        const int col = e % kBCO;
-        const int k = e / kBCO;
-        const int co = co0 + col;
-        ws[e] = (k0 + k < k_dim && co < cout)
-                    ? to_f(w[static_cast<size_t>(k0 + k) * cout + co])
-                    : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kKC; ++k) {
-        float w4[4], x8[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w4[i] = ws[k * kBCO + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) x8[j] = xs[k * kXS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(w4[i], x8[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        best[i][j] = fmaxf(best[i][j], bn_relu(acc[i][j], sc[i], bi[i]));
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = co0 + ty + 16 * i;
-    if (co >= cout) continue;
-    T* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = t0 + tx + 16 * j;
-      if (t < t_dim) store_f(orow + t, best[i][j]);
-    }
-  }
-}
 
 // ---- the patches ------------------------------------------------------------
 
@@ -317,14 +233,143 @@ cudaError_t launch_tc(const void* patches, const void* w, const float* scale, co
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* patches, const void* w, const float* scale, const float* bias,
-                   void* out, int batch, int k_dim, int f_dim, int t_dim, int cout, int pf,
-                   cudaStream_t stream) {
-  dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  im2col_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(patches), static_cast<const T*>(w), scale, bias,
-      static_cast<T*>(out), k_dim, f_dim, t_dim, cout, pf);
+// ---- float32: the split-TF32 tile -------------------------------------------
+
+constexpr int kIfK = 32;                  // K per ring stage: four k8 steps
+constexpr int kIfBP = kIfK + 4;           // words per staged patch row (4 mod 8)
+constexpr int kIfWP = kPgCo + 8;          // words per staged weight k row (8 mod 32)
+constexpr int kIfStages = 3;
+constexpr int kIfWPer = kIfK * kPgCo / kPgThreads;          // weights a thread stages a chunk
+constexpr int kIfStage = kPgT * kIfBP + 2 * kIfK * kIfWP;   // words: patches, w hi, w lo
+constexpr size_t kIfSmem = sizeof(float) * kIfStages * kIfStage;
+
+// grid: x Cout tile, y T tile, z b * (F / pf) + pooled row. kVec: 16-byte
+// copies of the patch rows (K % 4 == 0, aligned patches), else 4-byte ones
+template <bool kVec>
+__global__ void __launch_bounds__(kPgThreads, 2)
+im2col_tf32_kernel(const float* __restrict__ patches, const float* __restrict__ w,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   float* __restrict__ out, int k_dim, int f_dim, int t_dim, int cout, int pf) {
+  constexpr int kPer = kVec ? kIfK / 4 : kIfK;   // copies of a frame's chunk
+  constexpr int kCopyRows = kPgThreads / kPer;   // frames one pass of the block copies
+  extern __shared__ __align__(16) unsigned char if_smem[];
+  float* ring = reinterpret_cast<float*>(if_smem);
+  // This thread's patch copies: frames t0 + tl + i * kCopyRows (i <
+  // kPgT / kCopyRows) of a unit's rows, at k offset kk of its chunk; and
+  // its weights: k rows kw + 4 i (i < kIfWPer) of a chunk, channel co. (Each
+  // taken from threadIdx where it is used: held, they took the registers
+  // that kept the tile from spilling at two blocks an SM.)
+  const auto tl = [] { return static_cast<int>(threadIdx.x) / kPer; };
+  const auto kk = [] { return (kVec ? 4 : 1) * static_cast<int>(threadIdx.x % kPer); };
+  const auto t_first = [&] { return static_cast<int>(blockIdx.y) * kPgT + tl(); };
+
+  // Units (pool row, K chunk) in order, into the stages in turn. The next
+  // one to load: its first patch copy's source, its chunk's k and its
+  // stage; its patch tile goes by cp.async, one commit group a unit, zeros
+  // past T and K, and its weight tile split into its stage's planes, zeros
+  // past K and Cout.
+  const int f_out = f_dim / pf;
+  const float* ld_src = patches + ((static_cast<size_t>(blockIdx.z / f_out) * f_dim +
+                                    blockIdx.z % f_out * pf) * t_dim + t_first()) * k_dim + kk();
+  int ld_k = 0, ld_stage = 0;
+  const auto load_next = [&](bool any) {
+    if (any) {
+      float* dst = ring + ld_stage * kIfStage + tl() * kIfBP + kk();
+#pragma unroll
+      for (int i = 0; i < kPgT / kCopyRows; ++i) {
+        const bool ok = t_first() + i * kCopyRows < t_dim && ld_k + kk() < k_dim;
+        const float* from = ok ? ld_src + static_cast<size_t>(i * kCopyRows) * k_dim : patches;
+        if constexpr (kVec)
+          cp_async16(dst + i * kCopyRows * kIfBP, from, ok ? 16 : 0);
+        else
+          cp_async4(dst + i * kCopyRows * kIfBP, from, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  const auto put_w = [&]() {
+    const int kw = threadIdx.x / kPgCo, co = blockIdx.x * kPgCo + threadIdx.x % kPgCo;
+    float wv[kIfWPer];
+#pragma unroll
+    for (int i = 0; i < kIfWPer; ++i) {
+      const int k = ld_k + kw + 4 * i;
+      wv[i] = k < k_dim && co < cout ? __ldg(w + static_cast<size_t>(k) * cout + co) : 0.f;
+    }
+    uint32_t* hi = reinterpret_cast<uint32_t*>(ring + ld_stage * kIfStage + kPgT * kIfBP) +
+                   kw * kIfWP + threadIdx.x % kPgCo;
+#pragma unroll
+    for (int i = 0; i < kIfWPer; ++i)
+      split_tf32(wv[i], hi[4 * i * kIfWP], hi[kIfK * kIfWP + 4 * i * kIfWP]);
+  };
+  const auto advance = [&]() {
+    ld_k += kIfK;
+    ld_src += kIfK;
+    if (ld_k >= k_dim) {   // the next pool row
+      ld_src += static_cast<size_t>(t_dim) * k_dim - ld_k;
+      ld_k = 0;
+    }
+    ld_stage = ld_stage == kIfStages - 1 ? 0 : ld_stage + 1;
+  };
+
+  int left = pf * ceil_div(k_dim, kIfK);   // units to multiply, the next one included
+  load_next(true);   // units 0 and 1, their weights stored at once
+  put_w();
+  advance();
+  load_next(left > 1);
+  if (left > 1) put_w();
+  advance();
+  PgAcc acc, best;
+  pg_zero(best);
+  pg_zero(acc);
+  for (int k0 = 0; left > 0; --left) {
+    cp_async_wait_group<1>();   // this unit's patches have landed
+    __syncthreads();            // its weights are stored; every warp is done with the last
+    // this unit's stage: the one after the stage of the unit two ahead
+    const float* bs = ring + (ld_stage == kIfStages - 1 ? 0 : ld_stage + 1) * kIfStage;
+    load_next(left > 2);        // two units ahead, into the last unit's stage
+    const uint32_t* w_hi = reinterpret_cast<const uint32_t*>(bs + kPgT * kIfBP);
+    const uint32_t* w_lo = w_hi + kIfK * kIfWP;
+    // B (k t, n g): frame warp_n * 32 + ni * 8 + g of the tile, k t of the step
+    const float* xr = bs + (threadIdx.x / 32 % 4 * 32 + threadIdx.x % 32 / 4) * kIfBP +
+                      threadIdx.x % 4;
+    const int steps = min(kIfK, k_dim - k0 + 7) / 8;
+#pragma unroll
+    for (int st = 0; st < kIfK / 8; ++st) {
+      if (st >= steps) break;
+      uint32_t ah[2][4], al[2][4];
+      pgf_load_a<false>(w_hi, w_lo, kIfWP, 8 * st, ah, al);
+      float bv[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        bv[ni][0] = xr[ni * 8 * kIfBP + 8 * st];
+        bv[ni][1] = xr[ni * 8 * kIfBP + 8 * st + 4];
+      }
+      pgf_mma(acc, ah, al, bv);
+    }
+    if (left > 2) put_w();      // the loaded unit's weights, its stage free since the barrier
+    advance();
+    k0 += kIfK;
+    if (k0 >= k_dim) {   // the pool row's last chunk
+      PgAffine(scale, bias, blockIdx.x * kPgCo, cout).fold(best, acc);
+      pg_zero(acc);
+      k0 = 0;
+    }
+  }
+  pgf_store(out, best, blockIdx.z / f_out, blockIdx.z % f_out, f_out, blockIdx.x * kPgCo,
+            blockIdx.y * kPgT, cout, t_dim);
+}
+
+cudaError_t launch_tf32(const void* patches, const void* w, const float* scale,
+                        const float* bias, void* out, int batch, int k_dim, int f_dim, int t_dim,
+                        int cout, int pf, cudaStream_t stream) {
+  const bool vec = k_dim % 4 == 0 && reinterpret_cast<uintptr_t>(patches) % 16 == 0;
+  const auto kernel = vec ? im2col_tf32_kernel<true> : im2col_tf32_kernel<false>;
+  cudaError_t err = set_smem(kernel, kIfSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(cout, kPgCo), ceil_div(t_dim, kPgT), batch * (f_dim / pf));
+  kernel<<<grid, kPgThreads, kIfSmem, stream>>>(
+      static_cast<const float*>(patches), static_cast<const float*>(w), scale, bias,
+      static_cast<float*>(out), k_dim, f_dim, t_dim, cout, pf);
   return cudaGetLastError();
 }
 
@@ -340,7 +385,7 @@ extern "C" int seld_conv3x3_im2col(const void* patches, const void* w, const voi
   auto bi = static_cast<const float*>(bias);
   cudaError_t err;
   if (dtype == kF32)
-    err = launch<float>(patches, w, sc, bi, out, batch, k_dim, f_dim, t_dim, cout, pf, s);
+    err = launch_tf32(patches, w, sc, bi, out, batch, k_dim, f_dim, t_dim, cout, pf, s);
   else if (dtype == kBF16)
     err = launch_tc(patches, w, sc, bi, out, batch, k_dim, f_dim, t_dim, cout, pf, s);
   else

@@ -4,9 +4,10 @@
 // mma.sync.m16n8k16 with float accumulators, cp.async 16-byte copies and
 // bf16 packing. The fragment layouts are PTX's for m16n8k16: lane l holds
 // rows l / 4 (+ 8) and columns 2 (l % 4) (+ 1, + 8). The float32 kernels of
-// K4 (flash_attn_fwd.cu), K6 (flash_attn_bwd.cu), K7 (hamilton_matmul.cu)
-// and K9's dW (conv3x3_dw_tf32.cuh) multiply with the split-TF32 helpers
-// (split_tf32, mma_3xtf32, mma_3xtf32_add).
+// K4 (flash_attn_fwd.cu), K6 (flash_attn_bwd.cu), K7 (hamilton_matmul.cu),
+// the dW tile of K9 and K5 (conv3x3_dw_tf32.cuh) and the conv-pool GEMM
+// tile of K2w and K10a (pool_gemm_tf32.cuh) multiply with the split-TF32
+// helpers (split_tf32, mma_3xtf32, mma_3xtf32_add).
 #pragma once
 
 #include <cstdint>
@@ -118,6 +119,14 @@ static __device__ __forceinline__ void mma_3xtf32_add(float (&acc)[4], const uin
 // 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing.
 static __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (an unaligned or ragged row); src_bytes 0 writes a zero.
+static __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
                : "memory");

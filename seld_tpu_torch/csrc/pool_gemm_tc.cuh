@@ -73,7 +73,7 @@ struct PgAffine {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           best[mi][ni][e] =
-              fmaxf(best[mi][ni][e], bn_relu(acc[mi][ni][e], sc[mi][e / 2], bi[mi][e / 2]));
+              max_nan(best[mi][ni][e], bn_relu(acc[mi][ni][e], sc[mi][e / 2], bi[mi][e / 2]));
   }
 };
 

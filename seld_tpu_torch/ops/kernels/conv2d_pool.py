@@ -18,7 +18,7 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
 - K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
   :func:`conv2d_im2col_bn_relu_fpool`, ``csrc/conv3x3_im2col.cu``
   (K2w and K10a in bfloat16 on the GEMM tile of ``csrc/pool_gemm_tc.cuh``,
-  float32 SIMT);
+  in float32 on its split-TF32 counterpart ``csrc/pool_gemm_tf32.cuh``);
 - K10b ``conv2d_bn_relu_fpool`` (any Cin, per-tap windows):
   :func:`conv2d_windows_bn_relu_fpool`, ``csrc/conv3x3_windows.cu``.
 
@@ -255,6 +255,14 @@ def smallcin_kg(cin: int) -> int:
     return 16 if 3 * cin <= 16 else 32
 
 
+def smallcin_rows(cin: int) -> int:
+    """Rows of each kg group of the wide pack that K2w's float32 kernel
+    walks: 3 * Cin rounded up to 8 (its k8 steps). The pack's rows from 3 *
+    Cin on are zero by contract, so the rows past this count add nothing
+    and are never read."""
+    return -(-3 * cin // 8) * 8
+
+
 def smallcin_tpad(t: int) -> int:
     """Packed frames: T + 1 rounded up to a multiple of 128."""
     return -(-(t + 1) // 128) * 128
@@ -295,35 +303,44 @@ def conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f: int) -> 
     float32 (float64 for float64 input), affine, ReLU and pool; frames >= T
     dropped."""
     _check(x, w, scale, bias, pool_f)
-    return smallcin_wide_product_plain(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3])
+    return smallcin_wide_product_plain(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3],
+                                       x.shape[1])
 
 
-def smallcin_wide_product_plain(p0, wk, scale, bias, pool_f: int, t: int) -> torch.Tensor:
+def smallcin_wide_product_plain(p0, wk, scale, bias, pool_f: int, t: int,
+                                cin: int) -> torch.Tensor:
     """Plain version of :func:`smallcin_wide_product`: per conv row f wk @
     p0[:, f:f + 3] flattened to (3 * kg, tpad) in float32 (float64 for
-    float64 input), affine, ReLU and pool; frames >= t dropped."""
-    adt, f = _acc_dtype(p0), p0.shape[1] - 2
-    stack = torch.cat([p0[:, dy:dy + f] for dy in range(3)], dim=2)   # (B, F, 3 kg, tpad)
-    y = torch.einsum("ok,bfkt->boft", wk.to(adt), stack.to(adt))
+    float64 input), over the :func:`smallcin_rows` rows of each kg group
+    that the kernel walks, affine, ReLU and pool; frames >= t dropped."""
+    adt, f, kg = _acc_dtype(p0), p0.shape[1] - 2, p0.shape[2]
+    rows = smallcin_rows(cin)
+    stack = torch.cat([p0[:, dy:dy + f, :rows] for dy in range(3)], dim=2)   # (B, F, 3 rows, T')
+    wr = torch.cat([wk[:, dy * kg:dy * kg + rows] for dy in range(3)], dim=1)
+    y = torch.einsum("ok,bfkt->boft", wr.to(adt), stack.to(adt))
     return _epilogue(y[..., :t], scale, bias, pool_f, p0.dtype).contiguous()
 
 
 def smallcin_wide_product(p0: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
-                          bias: torch.Tensor, pool_f: int, t: int) -> torch.Tensor:
+                          bias: torch.Tensor, pool_f: int, t: int, cin: int) -> torch.Tensor:
     """K2w's kernel on a built pack (:func:`smallcin_pack`): p0 (B, F + 2,
     kg, tpad), wk (Cout, 3 * kg) in one dtype, scale/bias (Cout,) float32,
-    the input's T frames -> (B, Cout, F/pool_f, T). CUDA tensors launch
-    ``seld_conv3x3_smallcin_wide`` (bfloat16 on the tensor cores, float32
-    SIMT); CPU tensors take :func:`smallcin_wide_product_plain`."""
+    the input's T frames and Cin channels -> (B, Cout, F/pool_f, T). CUDA
+    tensors launch ``seld_conv3x3_smallcin_wide`` (bfloat16 on the tensor
+    cores over all kg rows of each group; float32 in split TF32 over the
+    :func:`smallcin_rows` rows, the pack's rows past them never read); CPU
+    tensors take :func:`smallcin_wide_product_plain`."""
     b, f2, kg, tpad = p0.shape
     f, cout = f2 - 2, wk.shape[0]
     if wk.shape != (cout, 3 * kg) or scale.shape != (cout,) or bias.shape != (cout,):
         raise ValueError(f"wk {tuple(wk.shape)}, scale {tuple(scale.shape)} and bias "
                          f"{tuple(bias.shape)} do not fit a pack of kg {kg}")
+    if smallcin_kg(cin) != kg:
+        raise ValueError(f"a pack of Cin {cin} has kg {smallcin_kg(cin)}, not {kg}")
     if not on_cuda(p0, wk, scale, bias):
-        return smallcin_wide_product_plain(p0, wk, scale, bias, pool_f, t)
+        return smallcin_wide_product_plain(p0, wk, scale, bias, pool_f, t, cin)
     return _launch("conv3x3_smallcin_wide", p0, wk, scale, bias, pool_f,
-                   (b, cout, f // pool_f, t), b, kg, f, t, tpad, cout)
+                   (b, cout, f // pool_f, t), b, kg, smallcin_rows(cin), f, t, tpad, cout)
 
 
 def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
@@ -340,7 +357,8 @@ def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, scale, bias, pool_f)
     if not on_cuda(x, w, scale, bias):
         return conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    return smallcin_wide_product(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3])
+    return smallcin_wide_product(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3],
+                                 x.shape[1])
 
 
 # ---- K10a: im2col -------------------------------------------------------------
@@ -414,8 +432,8 @@ def im2col_product(patches: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
     (B, F, T, K), wk (K, Cout; bfloat16: K % 8 == 0 and Cout rounded up to
     8 columns) in one dtype, scale/bias (Cout,) float32 -> (B, Cout,
     F/pool_f, T). CUDA tensors launch
-    ``seld_conv3x3_im2col`` (bfloat16 on the tensor cores, float32 SIMT);
-    CPU tensors take :func:`im2col_product_plain`."""
+    ``seld_conv3x3_im2col`` (bfloat16 on the tensor cores, float32 in split
+    TF32 on them); CPU tensors take :func:`im2col_product_plain`."""
     b, f, t, k = patches.shape
     cout = scale.shape[0]
     bf16 = patches.dtype == torch.bfloat16

@@ -1,9 +1,10 @@
 """The split-TF32 arithmetic of the float32 tensor-core kernels (K4's
 ``flash_fwd_tf32_kernel`` and ``flash_fwd_wide_tf32_kernel``, K6's
 ``flash_dq_tf32_kernel`` / ``flash_dkv_tf32_kernel`` and their wide
-counterparts past head dim 128, K7's ``hamilton_tf32_kernel`` and the dW tile
-``ct_dw_tf32_kernel`` of K9 and K5, helpers in ``csrc/mma.cuh``), in plain
-PyTorch for the tests: no wrapper calls it.
+counterparts past head dim 128, K7's ``hamilton_tf32_kernel``, the dW tile
+``ct_dw_tf32_kernel`` of K9 and K5, and the conv-pool GEMM tile of K2w and
+K10a, ``smallcin_wide_tf32_kernel`` / ``im2col_tf32_kernel``; helpers in
+``csrc/mma.cuh``), in plain PyTorch for the tests: no wrapper calls it.
 
 A float32 x is split as x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
 tf32 rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
@@ -17,6 +18,9 @@ partial into the float accumulator rounded to nearest (``mma_3xtf32_add``).
 so: each step's partial summed in float64 and rounded once to float32 (the
 tensor cores sum a step's products in their own order and truncate, which
 the card's tests hold to float64).
+:func:`smallcin_wide_product_tf32_plain` and :func:`im2col_product_tf32_plain`
+repeat K2w's and K10a's products so, in K order (K2w's over the pack rows
+it walks), before the plain epilogue.
 :func:`conv_dw_tf32_plain` repeats the dW tile's, whose two levels are a
 64-frame step (eight k8 steps) and the block's float accumulator, and
 whose blocks' partial rows are summed in float64.
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 
 from seld_tpu_torch.ops.hamilton import assemble_hamilton
 from seld_tpu_torch.ops.kernels.attention import head_dim_plan, pad_heads
+from seld_tpu_torch.ops.kernels.conv2d_pool import _epilogue
 from seld_tpu_torch.ops.kernels.conv2d_train import DW_FRAME_STEP, DW_SPLITS_STAGE1, dw_split
 
 _LOW = 0x1FFF         # the 13 fraction bits TF32 drops
@@ -99,6 +104,35 @@ def hamilton_matmul_tf32_plain(x2d: torch.Tensor, comps: torch.Tensor, bias, n_c
     (xh, xl), (wh, wl) = tf32_split_plain(x2d), tf32_split_plain(w)
     out = _split_products(xh, xl, wh, wl)
     return out if bias is None else out + bias
+
+
+def smallcin_wide_product_tf32_plain(p0: torch.Tensor, wk: torch.Tensor, scale, bias,
+                                     pool_f: int, t: int, rows: int) -> torch.Tensor:
+    """K2w's float32 arithmetic (``smallcin_wide_tf32_kernel<ROWS>``) on a
+    float32 pack p0 (B, F + 2, kg, tpad) and wk (Cout, 3 kg): per conv row,
+    the first ``rows`` rows of each kg group of pack rows f .. f + 2 (the
+    kernel's walk: ``conv2d_pool.smallcin_rows``, or all kg) and wk's
+    matching columns split into hi + lo, then k8 steps of three products in
+    (dy, row) order; the plain epilogue; frames >= t dropped.
+    ``smallcin_wide_product_plain``'s contract."""
+    f, kg = p0.shape[1] - 2, p0.shape[2]
+    stack = torch.cat([p0[:, dy:dy + f, :rows, :t] for dy in range(3)], dim=2).contiguous()
+    wr = torch.cat([wk[:, dy * kg:dy * kg + rows] for dy in range(3)], dim=1).contiguous()
+    (xh, xl), (wh, wl) = tf32_split_plain(stack), tf32_split_plain(wr)
+    y = _split_products(wh, wl, xh, xl)                         # (B, F, Cout, T)
+    return _epilogue(y.transpose(1, 2), scale, bias, pool_f, p0.dtype).contiguous()
+
+
+def im2col_product_tf32_plain(patches: torch.Tensor, wk: torch.Tensor, scale, bias,
+                              pool_f: int) -> torch.Tensor:
+    """K10a's float32 arithmetic (``im2col_tf32_kernel``) on float32 patches
+    (B, F, T, K) and wk (K, Cout): both split into hi + lo, k8 steps of three
+    products over K in order (the kernel's 32-deep chunks feed the same
+    accumulators), then the plain epilogue. ``im2col_product_plain``'s
+    contract."""
+    (ph, pl), (wh, wl) = tf32_split_plain(patches), tf32_split_plain(wk.contiguous())
+    y = _split_products(ph, pl, wh, wl)                         # (B, F, T, Cout)
+    return _epilogue(y.permute(0, 3, 1, 2), scale, bias, pool_f, patches.dtype).contiguous()
 
 
 def _heads_first(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:

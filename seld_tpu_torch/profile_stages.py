@@ -29,7 +29,9 @@ dispatch baseline, always runs. Sections:
   backward, K7 (the DQ conv table) at the flagship's pointwise convs (M =
   batch x frames, 384 x 384) beside ``addmm`` on the assembled weight,
   K9's dW at stage 2 and K5's B2 at stage 1 (its float32 g_z pass, then
-  the split-TF32 dW tile) each beside cuDNN's weight gradient;
+  the split-TF32 dW tile) each beside cuDNN's weight gradient, K2w at
+  stage 1 and K10a at stages 1-3 (the conv-pool GEMM tile, each wrapper
+  with its operand build) beside cuDNN's float32 conv of the stage;
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -270,6 +272,7 @@ def attn(batch, device, shapes=FLAGSHIP):
 def f32(batch, device, shapes=FLAGSHIP):
     from seld_tpu_torch.ops.hamilton import assemble_hamilton
     from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels import conv2d_pool as pool
     from seld_tpu_torch.ops.kernels import conv2d_train as k5
     from seld_tpu_torch.ops.kernels.attention import flash_attention, flash_attention_bwd
     from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul
@@ -322,6 +325,23 @@ def f32(batch, device, shapes=FLAGSHIP):
     yield "f32: K5 dW tile stage 1", k5.conv_train_dw_gz, (x, gz)
     yield "f32: cuDNN wgrad stage 1", \
         lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, cin, 3, 3), zz, padding=1), (x, gz)
+    del x, w, g, gz, b2
+    pools = shapes["pools"]
+    stages = ((cin, f, pools[0]), (c, f // pools[0], pools[1]),
+              (c, f // pools[0] // pools[1], pools[2]))
+    for i, (ci, fi, pf_i) in enumerate(stages, start=1):
+        x = _randn(device, batch, ci, fi, t, gen=gen)
+        w = _randn(device, 3, 3, ci, c, gen=gen) / (9 * ci) ** 0.5
+        if i == 1:
+            yield (f"f32: K2w stage 1 (K {3 * pool.smallcin_rows(ci)})",
+                   lambda xx, ww, pf_=pf_i: pool.conv2d_smallcin_wide_bn_relu_fpool(
+                       xx, ww, scale, bias, pf_), (x, w))
+        yield (f"f32: K10a stage {i} (K {9 * ci})",
+               lambda xx, ww, pf_=pf_i: pool.conv2d_im2col_bn_relu_fpool(xx, ww, scale, bias, pf_),
+               (x, w))
+        yield (f"f32: cuDNN conv stage {i}", lambda xx, ww: F.conv2d(xx, ww, padding=1),
+               (x, w.permute(3, 2, 0, 1).contiguous()))
+        del x, w
 
 
 def v3(batch, device, shapes=FLAGSHIP):

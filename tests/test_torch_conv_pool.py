@@ -78,6 +78,22 @@ def test_smallcin_wide_plain_matches_pallas(rng, cin, pf, t):
     _close(got, want)
 
 
+@pytest.mark.parametrize("cin", [1, 2, 3, 5, 6, 8, 9, 10])
+def test_smallcin_rows_are_the_packs_non_zero_rows(rng, cin):
+    """K2w's float32 walk (``smallcin_rows``: 3 * Cin rounded up to 8, at
+    most kg) covers every non-zero row of the pack; the plain product on
+    the rows past it set to NaN gives the clean pack's bits."""
+    rows, kg = pool.smallcin_rows(cin), pool.smallcin_kg(cin)
+    assert 3 * cin <= rows <= kg and rows % 8 == 0 and rows - 3 * cin < 8
+    x, w, scale, bias = (torch.from_numpy(a) for a in _inputs(rng, 2, cin, 8, 20, 6))
+    p0, wk = pool.smallcin_pack(x, w)
+    assert not p0[:, :, 3 * cin:].any() and not wk.view(6, 3, kg)[..., 3 * cin:].any()
+    poisoned = p0.clone()
+    poisoned[:, :, rows:] = float("nan")
+    want = pool.smallcin_wide_product(p0, wk, scale, bias, 2, 20, cin)
+    assert torch.equal(pool.smallcin_wide_product(poisoned, wk, scale, bias, 2, 20, cin), want)
+
+
 @pytest.mark.parametrize("cin", [4, 8, 12])
 def test_im2col_plain_matches_pallas(rng, cin):
     x, w, scale, bias = _inputs(rng, 2, cin, 8, 32, 12)
@@ -94,6 +110,53 @@ def test_windows_plain_matches_pallas(rng, cin):
     want = jpool.conv2d_bn_relu_fpool(*_jax_args(x, w, scale, bias), pool_f=2, block_t=16,
                                       interpret=True)
     _close(got, want)
+
+
+def _nan_jax(name, x, w, scale, bias, pf):
+    """The JAX package's Pallas function of each serving-stage kernel in
+    interpret mode on x (B, Cin, F, T); its output as (B, Cout, F / pf, T)."""
+    b, cin, f, t = x.shape
+    if name == "k3":   # CT layout (B, F, C, T_pad), columns >= t zero by contract
+        h_ct = np.pad(x.transpose(0, 2, 1, 3), ((0, 0), (0, 0), (0, 0), (0, 24)))
+        out = jpool.conv2d_widecin_ct_bn_relu_fpool(
+            jnp.asarray(h_ct), t, jnp.asarray(w), jnp.asarray(scale), jnp.asarray(bias),
+            pool_f=pf, interpret=True)
+        return np.asarray(out)[..., :t].transpose(0, 2, 1, 3)
+    fn, kw = {"k2": (jpool.conv2d_smallcin_thin_bn_relu_fpool, {}),
+              "k10b": (jpool.conv2d_bn_relu_fpool, {"block_t": 16}),
+              "k2w": (jpool.conv2d_smallcin_bn_relu_fpool, {}),
+              "k10a": (jpool.conv2d_im2col_bn_relu_fpool, {"block_t": 16})}[name]
+    out = fn(*_jax_args(x, w, scale, bias), pool_f=pf, interpret=True, **kw)
+    return np.asarray(out).transpose(0, 3, 1, 2)
+
+
+NAN_CASES = {  # kernel -> (the port's wrapper, whose CPU path is its plain version; Cin)
+    "k2": (pool.conv2d_smallcin_bn_relu_fpool, 8),
+    "k3": (pool.conv2d_widecin_bn_relu_fpool, 16),
+    "k10b": (pool.conv2d_windows_bn_relu_fpool, 12),
+    "k2w": (pool.conv2d_smallcin_wide_bn_relu_fpool, 8),
+    "k10a": (pool.conv2d_im2col_bn_relu_fpool, 12),
+}
+
+
+@pytest.mark.parametrize("name", list(NAN_CASES))
+def test_plain_versions_keep_nans_as_jax(rng, name):
+    """A NaN in x stays NaN through ReLU and the pool in the port's plain
+    versions (torch.relu, max_pool2d) exactly where the JAX package's
+    Pallas function keeps it (jnp.maximum, jnp.max); the finite outputs
+    within 1e-5 x max. The kernels are held to these plain versions, NaN
+    for NaN, on the card (``test_conv_pool_keeps_nans``)."""
+    fn, cin = NAN_CASES[name]
+    x, w, scale, bias = _inputs(rng, 2, cin, 8, 32, 12)
+    x[0, 1, 3, 10] = np.nan
+    x[1, cin - 1, 7, 31] = np.nan
+    got = fn(*map(torch.from_numpy, (x, w, scale, bias)), 2).numpy()
+    want = _nan_jax(name, x, w, scale, bias, 2)
+    nan = np.isnan(want)
+    assert nan[0].any() and nan[1].any() and not nan.all()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(np.where(nan, 0, got), np.where(nan, 0, want), rtol=0,
+                               atol=F32_TOL * np.abs(want[~nan]).max())
 
 
 def test_im2col_patches_tap_order(rng):
@@ -145,7 +208,7 @@ def test_products_on_built_operands_are_the_wrappers(rng, dtype, name, cin, cout
     x, w, scale, bias = (torch.from_numpy(a) for a in _inputs(rng, 2, cin, 8, 33, cout))
     x, w = x.to(dtype), w.to(dtype)
     if name == "wide":
-        got = pool.smallcin_wide_product(*pool.smallcin_pack(x, w), scale, bias, 4, 33)
+        got = pool.smallcin_wide_product(*pool.smallcin_pack(x, w), scale, bias, 4, 33, cin)
         want = pool.conv2d_smallcin_wide_bn_relu_fpool(x, w, scale, bias, 4)
         assert torch.equal(got, want)
         return
@@ -208,6 +271,7 @@ def test_dispatcher_takes_the_routed_plain_version(rng, impl, cin):
 @pytest.mark.parametrize("call", ["wide_cin", "wide_w", "wide_pool", "im2col_w",
                                   "im2col_scale", "windows_pool", "windows_x",
                                   "impl", "route_impl", "route_cin", "wide_product_wk",
+                                  "wide_product_cin",
                                   "im2col_product_wk", "im2col_product_k"])
 def test_wrappers_reject_bad_inputs(call):
     x = torch.zeros(2, 11, 16, 10)
@@ -227,7 +291,9 @@ def test_wrappers_reject_bad_inputs(call):
         "route_cin": lambda: pool.frontend_stage_kernel(0),
         # the products take only their operand builds' shapes
         "wide_product_wk": lambda: pool.smallcin_wide_product(
-            torch.zeros(2, 18, 32, 128), torch.zeros(4, 48), s, s, 2, 10),
+            torch.zeros(2, 18, 32, 128), torch.zeros(4, 48), s, s, 2, 10, 8),
+        "wide_product_cin": lambda: pool.smallcin_wide_product(
+            torch.zeros(2, 18, 32, 128), torch.zeros(4, 96), s, s, 2, 10, 5),
         "im2col_product_wk": lambda: pool.im2col_product(
             torch.zeros(2, 16, 10, 99), torch.zeros(99, 8), s, s, 2),
         "im2col_product_k": lambda: pool.im2col_product(

@@ -1130,9 +1130,9 @@ PLAIN = {"conv3x3_smallcin_wide": pool.conv2d_smallcin_wide_bn_relu_fpool_plain,
 # K2w's and K10a's operand builds and their products on the built operands,
 # the two public functions each wrapper calls (timed apart by chip_smoke.py)
 PRODUCTS = {
-    "conv3x3_smallcin_wide": (pool.smallcin_pack, lambda ops, s, b, pf, t:
-                              pool.smallcin_wide_product(*ops, s, b, pf, t)),
-    "conv3x3_im2col": (pool.im2col_operands, lambda ops, s, b, pf, t:
+    "conv3x3_smallcin_wide": (pool.smallcin_pack, lambda ops, s, b, pf, t, cin:
+                              pool.smallcin_wide_product(*ops, s, b, pf, t, cin)),
+    "conv3x3_im2col": (pool.im2col_operands, lambda ops, s, b, pf, t, cin:
                        pool.im2col_product(*ops, s, b, pf)),
 }
 # launches of one call: K10a builds its patches with a kernel of its own first
@@ -1167,7 +1167,7 @@ def test_frontend_variant_kernel(gen, dtype, name, case):
         build, product = PRODUCTS[name]
         operands = build(x, w)
         reset_launch_counts()
-        assert torch.equal(product(operands, scale, bias, pf, t), got)
+        assert torch.equal(product(operands, scale, bias, pf, t, cin), got)
         assert _launched() == {name: 1}
     reset_launch_counts()
     with pytest.raises(TypeError):    # no float64 kernel
@@ -1181,6 +1181,99 @@ def test_frontend_variant_kernel(gen, dtype, name, case):
         with pytest.raises(ValueError):   # 3 * Cin > 32: beyond the wide pack
             fn(x11, torch.zeros(3, 3, 11, 8, device="cuda", dtype=dtype), scale[:8], bias[:8], 2)
     assert not any(launch_counts.values())
+
+
+# ---- float32 K2w and K10a on the split-TF32 tile (pool_gemm_tf32.cuh) ----------
+
+# (b, cin, f, t, cout, pf): K2w at Cin 5 (rows 16 of kg 16), 8 (24 of 32) and 10
+# (32 of 32); K10a at Cin 3 (K 27: 4-byte copies, one ragged chunk), 20 (K 180)
+# and 192 (K 1728, stage 2's depth, 54 chunks); frame tiles ragged (300, 257),
+# Cout tiles ragged (80, 200, 136), odd T (frame by frame stores)
+TF32_FRONTEND_CASES = [
+    ("conv3x3_smallcin_wide", (2, 5, 24, 300, 80, 8)),
+    ("conv3x3_smallcin_wide", (2, 8, 16, 257, 200, 2)),
+    ("conv3x3_smallcin_wide", (1, 10, 12, 300, 136, 4)),
+    ("conv3x3_im2col", (2, 3, 24, 300, 80, 8)),
+    ("conv3x3_im2col", (1, 20, 12, 257, 200, 4)),
+    ("conv3x3_im2col", (1, 192, 8, 300, 136, 2)),
+]
+
+
+@pytest.mark.parametrize("name,case", TF32_FRONTEND_CASES)
+def test_frontend_tf32(gen, name, case):
+    """Float32 K2w (smallcin_wide_tf32_kernel) and K10a (im2col_tf32_kernel)
+    against their plain versions in float32 (TF32 off): within 4x the
+    plain version's distance from float64 and within 2e-4 x max of it,
+    one launch, and bitwise on a rerun."""
+    b, cin, f, t, cout, pf = case
+    fn = FRONTEND_CASES[name][0]
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = fn(x, w, scale, bias, pf)
+    assert launch_counts[name] == 1
+    plain = PLAIN[name](x, w, scale, bias, pf)
+    exact = PLAIN[name](x.double(), w.double(), scale.double(), bias.double(), pf)
+    _f64_gate(f"{name} {case}", got, plain, exact)
+    _close(got, plain, torch.float32)
+    assert torch.equal(fn(x, w, scale, bias, pf), got)
+
+
+@pytest.mark.parametrize("cin", [2, 7, 8])
+def test_smallcin_wide_tf32_never_reads_the_zero_rows(gen, cin):
+    """K2w's float32 product walks only the first 3 Cin rounded up to 8 rows
+    of each kg group (``conv2d_pool.smallcin_rows``: 8 of 16 at Cin 2, 24 of
+    32 at Cin 7 and 8): on a pack whose rows past them hold NaN it gives the
+    clean pack's bits."""
+    b, f, t, cout, pf = 2, 8, 257, 80, 4
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    p0, wk = pool.smallcin_pack(x, w)
+    rows = pool.smallcin_rows(cin)
+    assert rows < p0.shape[2]
+    poisoned = p0.clone()
+    poisoned[:, :, rows:] = float("nan")
+    clean = pool.smallcin_wide_product(p0, wk, scale, bias, pf, t, cin)
+    assert bool(torch.isfinite(clean).all())
+    assert torch.equal(pool.smallcin_wide_product(poisoned, wk, scale, bias, pf, t, cin), clean)
+
+
+# the serving stage's kernels: (wrapper, Cin) of K2, K3, K10b, K2w and K10a
+NAN_STAGE_KERNELS = {
+    "conv3x3_smallcin": (pool.conv2d_smallcin_bn_relu_fpool, 8),
+    "conv3x3_widecin": (pool.conv2d_widecin_bn_relu_fpool, 16),
+    "conv3x3_windows": (pool.conv2d_windows_bn_relu_fpool, 12),
+    "conv3x3_smallcin_wide": (pool.conv2d_smallcin_wide_bn_relu_fpool, 8),
+    "conv3x3_im2col": (pool.conv2d_im2col_bn_relu_fpool, 12),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(NAN_STAGE_KERNELS))
+def test_conv_pool_keeps_nans(gen, dtype, name):
+    """A NaN in x (batch 0, and batch 1 at a window's last row) comes out of
+    each conv-pool kernel NaN exactly where its plain version's does (ReLU
+    and the pool keep a NaN, as jnp.maximum and jnp.max do), and every other
+    output within the dtype's tolerance of it."""
+    fn, cin = NAN_STAGE_KERNELS[name]
+    b, f, t, cout, pf = 2, 16, 300, 80, 4
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    x[0, 1, 5, 100] = float("nan")
+    x[1, cin - 1, 11, 257] = float("nan")
+    x = x.to(dtype)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = fn(x, w, scale, bias, pf)
+    assert launch_counts[name] == 1
+    want = pool.conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    nan = torch.isnan(want)
+    assert bool(nan[0].any()) and bool(nan[1].any()) and not bool(nan.all())
+    assert torch.equal(torch.isnan(got), nan)
+    _close(got.masked_fill(nan, 0), want.masked_fill(nan, 0), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -6,26 +6,29 @@ of the bit trick), a non-finite operand never gives a finite product, hi +
 lo recovers x within 2^-22 |x|, the split is odd in the sign, the
 three-term product summed over a K9 stage-2 depth stays as close to float64
 as the float32 plain version, and so do K5's dW tile
-(``conv_dw_tf32_plain``, at the flagship's stage-1 depth) and K7's, K4's
-and K6's whole arithmetic (``hamilton_matmul_tf32_plain``,
+(``conv_dw_tf32_plain``, at the flagship's stage-1 depth), K2w's and
+K10a's products (``smallcin_wide_product_tf32_plain``,
+``im2col_product_tf32_plain``, at stage-1 and stage-2 depth) and K7's,
+K4's and K6's whole arithmetic (``hamilton_matmul_tf32_plain``,
 ``flash_attention_tf32_plain``, ``flash_attention_bwd_tf32_plain``; K4
 and K6 also past head dim 128, at the wide kernels' padded D), which also
 agree with the JAX package's functions on the CPU. The tensor cores' own
-accumulation is the card's (``tests/test_torch_cuda.py``). The three
-tests that call the JAX package import it themselves: the rest of the
-module also runs where JAX is not installed (``ab_variants --tests``).
+accumulation is the card's (``tests/test_torch_cuda.py``). The tests
+that call the JAX package import it themselves: the rest of the module
+also runs where JAX is not installed (``ab_variants --tests``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 from seld_tpu_torch.ops.kernels.attention import flash_attention_bwd_plain, flash_attention_plain
 from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
 from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
     conv_dw_tf32_plain, flash_attention_bwd_tf32_plain, flash_attention_tf32_plain,
-    hamilton_matmul_tf32_plain,
+    hamilton_matmul_tf32_plain, im2col_product_tf32_plain, smallcin_wide_product_tf32_plain,
     tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
 )
 
@@ -278,3 +281,74 @@ def test_k6_split_arithmetic(t, d):
     for a, want in zip(got, vjp(jnp.asarray(g))):
         want = np.asarray(want)
         np.testing.assert_allclose(a.numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
+
+
+def _frontend_inputs(seed, b, cin, f, t, cout):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, cin, f, t)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(np.float32)
+    scale = (1.0 + 0.3 * rng.standard_normal(cout)).astype(np.float32)
+    bias = (0.3 * rng.standard_normal(cout)).astype(np.float32)
+    return tuple(map(torch.from_numpy, (x, w, scale, bias)))
+
+
+def _frontend_tf32(name, x, w, scale, bias, pf, rows=None):
+    """K2w's (over ``rows`` rows of each kg group, by default its walk) or
+    K10a's float32 kernel arithmetic on x."""
+    if name == "k2w":
+        cin = x.shape[1]
+        return smallcin_wide_product_tf32_plain(*pool.smallcin_pack(x, w), scale, bias, pf,
+                                                x.shape[3], rows or pool.smallcin_rows(cin))
+    return im2col_product_tf32_plain(pool.im2col_patches(x), w.reshape(-1, w.shape[3]), scale,
+                                     bias, pf)
+
+
+# (kernel, b, cin, f, t, cout, pf): stage-1 depth (K2w at Cin 8: K 72 of the
+# pack's 96; K10a: K 72) and stage-2 depth (K10a at Cin 192: K 1728), narrow
+FRONTEND_DEPTHS = [("k2w", 2, 8, 16, 300, 12, 8), ("k10a", 2, 8, 16, 300, 12, 8),
+                   ("k10a", 1, 192, 4, 64, 12, 2)]
+
+
+@pytest.mark.parametrize("name,b,cin,f,t,cout,pf", FRONTEND_DEPTHS,
+                         ids=["k2w-stage-1", "k10a-stage-1", "k10a-stage-2"])
+def test_k2w_k10a_split_arithmetic(name, b, cin, f, t, cout, pf):
+    """K2w's and K10a's float32 arithmetic (split operands, each k8 step's
+    three products summed once, added in K order to a float32
+    accumulator, then the epilogue) within 4x the float32 plain version's
+    max|d| from float64 at stage-1 and stage-2 depth; K2w walking only the
+    pack's first 3 Cin rounded up to 8 rows of each group gives the same
+    bits as walking all of them (the skipped steps add zeros)."""
+    x, w, scale, bias = _frontend_inputs(3, b, cin, f, t, cout)
+    plain_fn = {"k2w": pool.conv2d_smallcin_wide_bn_relu_fpool,
+                "k10a": pool.conv2d_im2col_bn_relu_fpool}[name]
+    got = _frontend_tf32(name, x, w, scale, bias, pf)
+    exact = plain_fn(x.double(), w.double(), scale.double(), bias.double(), pf)
+    d_split, d_plain = _dist(got, exact), _dist(plain_fn(x, w, scale, bias, pf), exact)
+    assert d_split <= 4 * d_plain, (d_split, d_plain)
+    if name == "k2w":
+        assert pool.smallcin_rows(cin) < pool.smallcin_kg(cin)
+        walk_all = _frontend_tf32(name, x, w, scale, bias, pf, rows=pool.smallcin_kg(cin))
+        assert torch.equal(walk_all, got)
+
+
+@pytest.mark.parametrize("name,cin,pf", [("k2w", 5, 4), ("k2w", 10, 2), ("k10a", 3, 4),
+                                         ("k10a", 12, 2)])
+def test_k2w_k10a_split_arithmetic_matches_jax(name, cin, pf):
+    """K2w's and K10a's float32 kernel arithmetic against the JAX package's
+    ``conv2d_smallcin_bn_relu_fpool`` / ``conv2d_im2col_bn_relu_fpool`` in
+    interpret mode on the same inputs, within 1e-5 x max (the conv-pool
+    tests' bound)."""
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas import conv2d_pool as jpool
+
+    x, w, scale, bias = _frontend_inputs(4, 2, cin, 8, 32, 12)
+    got = _frontend_tf32(name, x, w, scale, bias, pf)
+    args = (jnp.asarray(x.numpy().transpose(0, 2, 3, 1)), *(jnp.asarray(a.numpy())
+                                                          for a in (w, scale, bias)))
+    if name == "k2w":
+        want = jpool.conv2d_smallcin_bn_relu_fpool(*args, pool_f=pf, interpret=True)
+    else:
+        want = jpool.conv2d_im2col_bn_relu_fpool(*args, pool_f=pf, block_t=16, interpret=True)
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
