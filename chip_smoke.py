@@ -13,7 +13,8 @@ Phases, each printing its own lines:
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128, K8's int8 GEMM and
    the split-TF32 float32 kernels of K4, K6 (past head dim 128 too), K7,
-   the dW tile of K9 and K5, K2w and K10a among them), failing if one has
+   the dW tile of K9 and K5, K2w and K10a, and the conv block tile of K3,
+   K10b and K9's F1 / F2 among them), failing if one has
    none or if a K4 / K6 kernel past
    head dim 128 or a split-TF32 kernel spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
@@ -55,10 +56,13 @@ Phases, each printing its own lines:
    split-TF32 kernels (K4 and K6 at D 48 and 160, K7 at M 9600 with dx
    through the autograd Function, K9's dW at stage 2 and K5's at stage 1,
    on the grid's inputs and on real-valued ones; K2w at stage 1 and K10a
-   at stages 1-3, rerun bitwise) also held to float64: each
+   at stages 1-3, K3 at stages 2-3, K10b at stages 1-3 and K9's F1 / F2 at
+   stage 2 on real-valued inputs, rerun bitwise) also held to float64: each
    within F64_FACTOR x the float32 plain version's distance from the plain
    version in float64 (the dW tiles: the plain version with cuDNN off,
-   whose float32 wgrad is printed beside); K2w's and K10a's operand builds
+   whose float32 wgrad is printed beside); K9's B1 and g_z routing nothing
+   for a pool window that holds a NaN, in both dtypes, as the plain version
+   (and JAX's _route_group); K2w's and K10a's operand builds
    in both dtypes
    (the torch pack, the patch kernel) and products alone, and both beside
    cuDNN back to back, at the flagship's stages;
@@ -75,8 +79,8 @@ Phases, each printing its own lines:
 5. training path: (a) one float32 ``make_train_step`` at batch 2, dropout
    off, on the kernel path (K5, K4 + K6), on the ``ct`` kernel path (K5,
    K9 at stages 2-3, K4 + K6), each with K5's g_z pass and dW tile launched
-   once and one more of its steps profiled (K5's passes', K4's, K6's and K9
-   dW's device time read out, F32_STEP_WATCH), on the plain path (plain stage 0, full
+   once and one more of its steps profiled (K5's passes', K4's, K6's and K9's
+   F1, F2, dW and dx device time read out, F32_STEP_WATCH), on the plain path (plain stage 0, full
    attention) and on the plain path in float64, from the same weights and
    batch: kernel and plain losses within 1e-4, and every gradient of the
    kernel path within 1e-3 (relative norm) of float64 or no further from it
@@ -260,9 +264,10 @@ PREDICT_STEPS_TIMED = 3
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
 # int8 GEMM (IMMA); and the float32 kernels of K4, K6 (and their three past head
 # dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7, the dW tile and the GEMM
-# tile of K2w and K10a in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three
-# products a float32 product; the dW tile's 32-channel Cin tile is K9's, its 16-
-# and 8-channel ones K5's; K2w's instances walk 8-32 pack rows)
+# tile of K2w and K10a and the conv block tile of K3 / K10b / K9's F2 and K9's F1
+# in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32
+# product; the dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones
+# K5's; K2w's instances walk 8-32 pack rows)
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
                      "flash_dkv_wide_tc_kernel")
 WIDE_TF32_ATTN_KERNELS = ("flash_fwd_wide_tf32_kernel", "flash_dq_wide_tf32_kernel",
@@ -270,7 +275,7 @@ WIDE_TF32_ATTN_KERNELS = ("flash_fwd_wide_tf32_kernel", "flash_dq_wide_tf32_kern
 TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                 *WIDE_TF32_ATTN_KERNELS, "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E",
                 "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E", "smallcin_wide_tf32_kernel",
-                "im2col_tf32_kernel")
+                "im2col_tf32_kernel", "conv3x3_tf32_kernel", "ct_stats_tf32_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
@@ -291,11 +296,15 @@ PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
                  "K5 F1": ("train_stats_tc_kernel",),
                  "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
 # the profiled float32 steps of phase 5a: K5's passes apart (F1 SIMT, F2 K2's
-# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's dW
-F32_STEP_WATCH = {"K5 F1": ("::stats_kernel<float",), "K5 F2": ("conv3x3_kernel<float, true",),
+# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's F1 and
+# F2 (the split-TF32 block tile), dW and dx (SIMT) in the pallas-ct step
+F32_STEP_WATCH = {"K5 F1": ("::stats_kernel<float",),
+                  "K5 F2": ("conv3x3_smallcin_kernel<float",),
                   "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_kernel<",),
                   "K5 dW": ("ct_dw_tf32_kernel<8>",),
-                  **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")}}
+                  **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")},
+                  "K9 F1": ("ct_stats_tf32_kernel",), "K9 F2": ("conv3x3_tf32_kernel",),
+                  "K9 dx": ("ct_dx_kernel<float",)}
 # device kernels read out of the serving profiles (phase 4), by demangled name
 SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
                  "K3": ("conv3x3_tc_kernel",), "K4": ("flash_fwd_tc_kernel",)}
@@ -736,9 +745,16 @@ def phase_kernels(torch, card: str) -> dict:
             d = compare(torch, name, label, got, p(), dt, card, timed)
             if tag == "flagship" and dt == torch.float32:
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
+                tile = name == "conv3x3_widecin"   # K3: the split-TF32 block tile
                 f32_row(card, name, label, timed[0],
                         time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1)),
-                        2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got))
+                        2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got), split_tf32=tile)
+                if tile:
+                    exact = conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(),
+                                                       bias.double(), pf)
+                    f64_gate(card, name, label, got, p(), exact)
+                    require(torch.equal(k(), got), f"{name} {label} float32: not repeatable")
+                    del exact
             # the summary line carries stage 1 (smallcin) and stage 2 (widecin)
             if tag == "flagship" and dt == torch.bfloat16 and f != 4:
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
@@ -987,6 +1003,7 @@ def phase_kernels(torch, card: str) -> dict:
 
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
+    k9_nan_routing(torch, card)
     phase_k7_k8(torch, card, record)
     phase_frontend_kernels(torch, card, randn, record)
     require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
@@ -995,9 +1012,10 @@ def phase_kernels(torch, card: str) -> dict:
 
 
 def phase_tile(torch, card: str, randn) -> None:
-    """The conv tile that K3, K10b and K9's F1, F2 and dh share (SIMT in
-    float32, tensor cores in bfloat16), launched as K3 (any Cin) and as K9's
-    dh, against the plain versions at the ragged shapes of TILE_CASES; then
+    """The conv tile that K3, K10b and K9's F1, F2 and dh share (the block
+    tile: split TF32 in float32, where dh stays SIMT; mma.sync in bfloat16),
+    launched as K3 (any Cin) and as K9's dh, against the plain versions at
+    the ragged shapes of TILE_CASES; then
     the F1 / F2 identity at the flagship's stage 2 on random (not
     integer-grid) bf16 inputs: K3's pooled output equals max_r relu(pre *
     scale + bias) from F1's pre bit for bit (the affine as one fma: the
@@ -1279,8 +1297,9 @@ def k5_routing_identity(torch, card: str, randn) -> None:
     """At the flagship's stage 1 (B 2, Cin 8, F 256, T 4800, pf 8) on random
     (not integer-grid) inputs, in both dtypes: K5's F2 (bfloat16: K3's tile
     through K10b's entry; float32: K2's kernel) pools max_r relu(pre * scale
-    + bias) of K9 F1's pre (the same conv rows: bfloat16's tile, float32's
-    conv_rows with 8 staged channels; the affine as one fma) bit for bit,
+    + bias) of the same conv rows (the affine as one fma) bit for bit
+    (bfloat16: K9 F1's pre, the same tile; float32: the g_z pass's own
+    SIMT recompute, fed g = 0, a = -1 and b = 0 so that g_z = acc exactly),
     and K5's g_z pass, fed g = 1 and a = b = 0 so that g_z = scale > 0
     exactly where it routes, routes every window to the first row holding
     that max, where the max is > 0."""
@@ -1297,7 +1316,12 @@ def k5_routing_identity(torch, card: str, randn) -> None:
         w = randn(3, 3, cin, cout, dtype=dt, scale=(9 * cin) ** -0.5)
         scale = randn(cout, scale=0.3).abs() + 0.5
         bias = randn(cout, scale=0.3)
-        pre = k9.ct_train_stats(x, w, pf)[1]
+        zero = torch.zeros(cout, device=x.device)
+        if dt == torch.bfloat16:
+            pre = k9.ct_train_stats(x, w, pf)[1]
+        else:
+            pre = k5.conv_train_gz(x, w, torch.zeros(b, cout, f // pf, t, device=x.device),
+                                   scale, bias, -torch.ones_like(zero), zero, pf)[0]
         out = f2(x, w, scale, bias, pf)
         y = torch.relu(fma_f32(torch, pre, scale[:, None, None], bias[:, None, None]))
         del pre
@@ -1312,7 +1336,6 @@ def k5_routing_identity(torch, card: str, randn) -> None:
         want = (torch.arange(pf, device=y.device).view(1, 1, 1, pf, 1) == row.unsqueeze(3)) & (
             best > 0).unsqueeze(3)
         del y
-        zero = torch.zeros(cout, device=x.device)
         ones = torch.ones(b, cout, f // pf, t, dtype=dt, device=x.device)
         gz, sums = k5.conv_train_gz(x, w, ones, scale, bias, zero, zero, pf)
         routed = (gz != 0).view(want.shape)
@@ -1421,7 +1444,7 @@ def phase_k9(torch, card: str, record) -> None:
                 if f32_tag:
                     f32_row(card, name, tag, timed[0],
                             None if library is None else time_ms(torch, library), flops, moved,
-                            split_tf32=name == "ct_train_dw")
+                            split_tf32=name in ("ct_train_stats", "ct_train_fwd", "ct_train_dw"))
                 if f32_tag and name == "ct_train_dw":
                     # the split-TF32 tile, the float32 plain version without
                     # cuDNN and cuDNN's float32 wgrad against dW in float64:
@@ -1440,6 +1463,8 @@ def phase_k9(torch, card: str, record) -> None:
                     record(name, d, timed, flops, moved, "bfloat16", lib_ms)
             # partial sums reduced in a fixed order, no atomics: a rerun is bitwise equal
             require(torch.equal(k9.ct_dw(h, gz), k9.ct_dw(h, gz)), f"{tag}: dW not repeatable")
+            if f32_tag:
+                k9_tile_f64(torch, card, gen, h.shape, w.shape, scale, bias, pf)
             if timed_tag:
                 # the whole op: its kernels' sum against cuDNN's three convs of
                 # the stage; the bound counts the function's three products
@@ -1451,6 +1476,77 @@ def phase_k9(torch, card: str, record) -> None:
                       f"fwd + wgrad + dgrad {lib_ms:.3f} ms; bound {bound_ms:.4f} ms by "
                       f"{bound_by} ({card})")
             del h, w, g, pre, gz, out
+
+
+def k9_tile_f64(torch, card: str, gen, h_shape, w_shape, scale, bias, pf: int) -> None:
+    """K9's float32 F1 and F2 (the split-TF32 block tile) on real-valued h
+    and w of the given shapes (the grid's inputs make every conv exact):
+    F1's pre and F2's pooled output each within F64_FACTOR x the float32
+    plain version's distance from float64, F2 equal to max_r relu(fma(pre,
+    scale, bias)) of F1's pre bit for bit, and both bitwise on a rerun."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_widecin_bn_relu_fpool
+    from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain
+
+    dev = scale.device
+    h = torch.randn(h_shape, generator=gen, device=dev)
+    w = torch.randn(w_shape, generator=gen, device=dev) / (9 * h_shape[1]) ** 0.5
+    pre = k9.ct_train_stats(h, w, pf)[1]
+    f64_gate(card, "ct_train_stats", "stage2 randn pre", pre, k9.ct_train_stats_plain(h, w)[1],
+             k9.ct_train_stats_plain(h.double(), w.double())[1])
+    out = conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
+    f64_gate(card, "ct_train_fwd", "stage2 randn", out,
+             conv_train_fwd_plain(h, w, scale, bias, pf),
+             conv_train_fwd_plain(h.double(), w.double(), scale.double(), bias.double(), pf))
+    y = fma_f32(torch, pre, scale[:, None, None], bias[:, None, None])
+    differ = int((out != torch.nn.functional.max_pool2d(torch.relu(y), (pf, 1))).sum())
+    print(f"[kernel] K9 float32 F1 / F2 identity, stage 2 random inputs: {differ} of "
+          f"{out.numel()} pooled outputs differ from max_r relu(fma(pre, scale, bias))")
+    require(differ == 0, f"K9's float32 F2 differs from F1's pre in {differ} places")
+    require(torch.equal(k9.ct_train_stats(h, w, pf)[1], pre) and
+            torch.equal(conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf), out),
+            "K9's float32 F1 / F2: not repeatable")
+
+
+def k9_nan_routing(torch, card: str) -> None:
+    """K9's B1 and g_z on a pre holding NaNs in row 0 and in later rows of
+    some pool windows, both dtypes: a window that holds a NaN routes nothing
+    (JAX's _route_group), as the plain version: S_g with g = 1 counts the
+    routed windows exactly, S_gx and g_z are NaN exactly where the plain
+    version's are, and within its tolerance elsewhere."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    b, cout, f, t, pf = 2, 72, 16, 300, 8
+    pre = torch.randn(b, cout, f, t, generator=gen, device=dev)
+    for at in ((0, 0, 0, 3), (0, 1, 5, 7), (1, 70, 15, 299), (1, 3, 9, 100), (0, 3, 8, 100)):
+        pre[at] = float("nan")
+    cols = torch.stack([1.0 + 0.2 * torch.randn(cout, generator=gen, device=dev),
+                        0.2 * torch.randn(cout, generator=gen, device=dev),
+                        0.1 * torch.randn(cout, generator=gen, device=dev),
+                        1.0 + 0.1 * torch.rand(cout, generator=gen, device=dev),
+                        1e-3 * torch.randn(cout, generator=gen, device=dev),
+                        1e-3 * torch.randn(cout, generator=gen, device=dev)])
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn(b, cout, f // pf, t, generator=gen, device=dev).to(dt)
+        ones = torch.ones_like(g)
+        got, want = k9.ct_sel_stats(pre, ones, cols, pf), k9.ct_sel_stats_plain(pre, ones, cols, pf)
+        gz, gz_want = k9.ct_gz(pre, g, cols, pf), k9.ct_gz_plain(pre, g, cols, pf)
+        torch.cuda.synchronize()
+        routed, want_routed = int(got[:cout].sum()), int(want[:cout].sum())
+        nan_sgx, nan_gz = torch.isnan(want[cout:]), torch.isnan(gz_want)
+        fin = ~nan_gz
+        d = (gz.float()[fin] - gz_want.float()[fin]).abs().max().item()
+        print(f"[kernel] K9 NaN routing {str(dt)[6:]}: {routed} windows routed (plain "
+              f"{want_routed}), S_gx NaN in {int(torch.isnan(got[cout:]).sum())} channels "
+              f"(plain {int(nan_sgx.sum())}), g_z NaN at {int(torch.isnan(gz).sum())} (plain "
+              f"{int(nan_gz.sum())}), max|d| elsewhere {d:.3e} ({card})")
+        require(torch.equal(got[:cout], want[:cout]), f"K9 B1 {dt}: routes past a NaN")
+        require(torch.equal(torch.isnan(got[cout:]), nan_sgx) and
+                torch.equal(torch.isnan(gz), nan_gz), f"K9 B1 / g_z {dt}: NaNs differ")
+        require(d <= (2e-4 if dt == torch.float32 else 2e-2) * gz_want.float()[fin].abs().max(),
+                f"K9 g_z {dt}: {d:.3e} from the plain version past the NaNs")
 
 
 def dw_plain_f32(h, gz):
@@ -1734,17 +1830,15 @@ def phase_frontend_kernels(torch, card: str, randn, record) -> None:
                 del build, product
             if dt == torch.bfloat16 and recorded[name] == tag:
                 record(name, d, timed, flops, moved, "bfloat16", lib_ms, **parts)
-            elif dt == torch.float32:
-                split = name != "conv3x3_windows"   # K2w and K10a: the split-TF32 tile
-                f32_row(card, name, tag, timed[0], lib_ms, flops, moved, split_tf32=split)
+            elif dt == torch.float32:   # K2w, K10a, K10b: split-TF32 tiles
+                f32_row(card, name, tag, timed[0], lib_ms, flops, moved, split_tf32=True)
                 F32_ROWS[name][tag].update(parts)
-                if split:
-                    # within F64_FACTOR x the float32 plain version's distance
-                    # from float64, and bitwise on a rerun
-                    exact = plain_fn(x.double(), w.double(), scale.double(), bias.double(), pf)
-                    f64_gate(card, name, tag, got, p(), exact)
-                    require(torch.equal(k(), got), f"{name} {tag} float32: not repeatable")
-                    del exact
+                # within F64_FACTOR x the float32 plain version's distance
+                # from float64, and bitwise on a rerun
+                exact = plain_fn(x.double(), w.double(), scale.double(), bias.double(), pf)
+                f64_gate(card, name, tag, got, p(), exact)
+                require(torch.equal(k(), got), f"{name} {tag} float32: not repeatable")
+                del exact
             else:
                 bound_ms, bound_by = bound(flops, moved, dt_name)
                 print(f"[kernel] {name} {tag} {dt_name}: {timed[0]:.3f} ms, plain "
@@ -2110,8 +2204,10 @@ def phase_training(torch, card: str) -> dict:
                                     label=f"one f32 {tag} step at batch 2",
                                     watch=F32_STEP_WATCH)
             k5_ms = sum(f32_step[k] for k in F32_STEP_WATCH if k.startswith("K5"))
+            k9_ms = f32_step["K9 F1"] + f32_step["K9 F2"]
             print(f"[train] f32 {tag} step: {device_shares(f32_step, F32_STEP_WATCH)}; K5's "
-                  f"passes {k5_ms:.2f} ms ({100 * k5_ms / f32_step['busy']:.1f}%) ({card})")
+                  f"passes {k5_ms:.2f} ms ({100 * k5_ms / f32_step['busy']:.1f}%); K9's F1 + F2 "
+                  f"{k9_ms:.2f} ms ({100 * k9_ms / f32_step['busy']:.1f}%) ({card})")
         del model, state
     require(all(counts["kernel"][k] > 0 for k in TRAINING_PATH_F32),
             f"f32 kernel path: a training kernel never ran: {counts['kernel']}")

@@ -16,17 +16,18 @@
 // What bounds it on the H100: arithmetic (2*9*Cin*Cout FLOP per output
 // pixel: stage 2 of the flagship is 102 GFLOP per clip), and, without the
 // fusion, memory: stage 1's unpooled (B, 192, 256, T) activation is 1.9 GB
-// per clip in bf16. Design: one block per (b, pooled row, 64-channel Cout
-// tile, 128-frame T tile), 256 threads. float32: each thread holds a
-// 4-channel x 8-frame float accumulator (SIMT FMA, TF32 off); bfloat16
-// widecin: the tensor-core tile of conv3x3_tc.cuh (mma.sync, bf16 operands
-// staged through a two-stage ring, float accumulators in the m16n8
-// fragment layout), its epilogue folding each row into the running max.
-// The input halo (conv rows x 8 channels x (T tile + 2)) and the matching
-// 9 x 8 x 64 weight slice are staged in shared memory with
-// the conv's zero padding written at the F and T borders, so the inner loop
-// never branches. The pool rows are computed one after another into the
-// same accumulator and folded into a running max, so only one row of
+// per clip in bf16. Design: smallcin, one block per (b, pooled row, 64-channel
+// Cout tile, 128-frame T tile), 256 threads, in float32 each thread holding a
+// 4-channel x 8-frame float accumulator (SIMT FMA, TF32 off); widecin, the
+// block tiles (64 channels x 64 frames x 4 conv rows a pass): bfloat16 on
+// mma.sync (conv3x3_tc.cuh), float32 in split TF32 (conv3x3_tf32.cuh), each
+// staging its operands through a two-stage ring, float accumulators in the
+// m16n8 fragment layout, its epilogue folding each row into the running max.
+// In the smallcin kernels the input halo (conv rows x channels x (T tile +
+// 2)) and the matching 9 x channels x 64 weight slice are staged in shared
+// memory with the conv's zero padding written at the F and T borders, so the
+// inner loop never branches. The pool rows are computed one after another
+// into the same accumulator and folded into a running max, so only one row of
 // accumulators lives in registers whatever pf is. The smallcin kernels
 // stage the pool window's rows in chunks of at most kScChunkRows (80, on
 // the tensor cores) or simt_chunk_rows (48, or 21 for 16 staged channels):
@@ -43,29 +44,29 @@
 //   bytes). float32, and bfloat16 at Cin 9-10 (reached only by a direct
 //   call: the router sends Cin <= 8 here, and K5's bf16 forward takes the
 //   tile), stay SIMT.
-// - widecin: Cin is walked in chunks. float32: 8 channels
-//   (conv_row_widecin) for each pool row, each step staging that row's
-//   3-row halo and weight chunk. bfloat16: the block tile (TbPipe of
-//   conv3x3_tc.cuh), 16 channels a chunk for 4 conv rows at once, 64
-//   channels x 64 frames a block. The train-mode stages 2-3 share both
-//   tiles, so that their conv rows equal these bitwise. The staging
-//   zero-fills channels >= Cin, so a ragged last chunk is exact and any Cin
-//   works; the Python router sends only Cin % 8 == 0 here as K3.
-#include "conv3x3_tc.cuh"
+// - widecin: Cin is walked in chunks, 4 conv rows at once, 64 channels x 64
+//   frames a block. bfloat16: the block tile (TbPipe of conv3x3_tc.cuh), 16
+//   channels a chunk. float32: its split-TF32 counterpart (FtPipe of
+//   conv3x3_tf32.cuh), 8 channels a chunk, three TF32 products a float32
+//   product. The train-mode stages 2-3 (K9's F1) share both tiles, so that
+//   their conv rows equal these bitwise. The staging zero-fills channels >=
+//   Cin, so a ragged last chunk is exact and any Cin works; the Python
+//   router sends only Cin % 8 == 0 here as K3.
+#include "conv3x3_tf32.cuh"
 
 namespace {
 
-// CC: the channels staged at once (kCC, or 2 * kCC for the smallcin entry's
-// Cin 9-10; the widecin path walks chunks of kCC).
-// chunk (kSmall): pool rows per halo staging.
-template <typename T, bool kSmall, int CC = kCC>
+// The smallcin SIMT kernel (float32, and bfloat16 at Cin 9-10): every tap
+// and channel staged once, the window's rows `chunk` at a time. CC: the
+// channels staged at once (kCC, or 2 * kCC for Cin 9-10).
+template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               T* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf,
-               int chunk) {
+conv3x3_smallcin_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const float* __restrict__ scale, const float* __restrict__ bias,
+                        T* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf,
+                        int chunk) {
   extern __shared__ float smem[];
-  const int rows = kSmall ? min(pf, chunk) + 2 : 3;
+  const int rows = min(pf, chunk) + 2;
   float* xs = smem;                   // [rows][CC][kXW]
   float* ws = smem + rows * CC * kXW; // [9][CC][kBCO]
 
@@ -93,9 +94,9 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j) best[i][j] = 0.f;
 
-  if (kSmall) stage_w<CC>(ws, w, 0, co0, cin, cout);
+  stage_w<CC>(ws, w, 0, co0, cin, cout);
   for (int r = 0; r < pf; ++r) {
-    if (kSmall && r % chunk == 0) {   // the next chunk's rows and their halo
+    if (r % chunk == 0) {             // the next chunk's rows and their halo
       if (r > 0) __syncthreads();     // the previous chunk's readers are done
       stage_x<CC>(xs, xb, min(chunk, pf - r) + 2, fo * pf + r - 1, 0, t0, cin, f_dim, t_dim);
       __syncthreads();
@@ -105,12 +106,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    if (kSmall) {
-      conv_rows<CC>(xs, ws, r % chunk, tx, ty, acc);
-    } else {
-      conv_row_widecin(xs, ws, xb, w, fo * pf + r, co0, t0, cin, f_dim, t_dim, cout, tx, ty,
-                       acc);
-    }
+    conv_rows<CC>(xs, ws, r % chunk, tx, ty, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -200,6 +196,84 @@ conv3x3_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     bf16* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo0 + wd) * t_dim;
     if (pairs) {
       *reinterpret_cast<__nv_bfloat162*>(orow + t) = v;
+    } else {
+      orow[t] = v.x;
+      if (t + 1 < t_dim) orow[t + 1] = v.y;
+    }
+  }
+}
+
+// K3's float32 body on the float block tile (FtPipe, conv3x3_tf32.cuh):
+// the bfloat16 body's rows, slots and epilogue with float maxima. Each warp
+// keeps the running max of relu(acc * scale + bias) over its rows in shared
+// memory; the block then takes the max over the row slots of each window
+// and stores it along the frames.
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    float* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  const int t0 = blockIdx.x * kTbT;
+  const int co0 = blockIdx.y * kTcCo;
+  const int rows = tb_block_rows(pf);
+  const int blocks_f = ceil_div(f_dim, rows);
+  const int b = blockIdx.z / blocks_f;
+  const int f_first = (blockIdx.z % blocks_f) * rows;
+  const int n_rows = min(rows, f_dim - f_first);
+  const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+
+  FtPipe pipe(reinterpret_cast<float*>(ft_smem), xb, w, f_first, n_rows, co0, t0, cin, f_dim,
+              t_dim, cout);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
+    // per row slot, [64][kFtBP] float maxima, after the ring; this thread's
+    // place in it taken here, not held across the pipeline
+    const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
+    float* bs = reinterpret_cast<float*>(ft_smem + ft_ring_bytes()) +
+                (threadIdx.x / 64) * kTcCo * kFtBP;
+    const bool first = pipe.row < kTbSlots;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = tb_m(lane, mi, 2 * h);
+        const int co = min(co0 + m, cout - 1);
+        const float sc = __ldg(scale + co), bi = __ldg(bias + co);
+#pragma unroll
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          float2* p = reinterpret_cast<float2*>(bs + m * kFtBP + tb_n(half, lane, ni, 0));
+          float2 v = make_float2(bn_relu(acc[mi][ni][2 * h], sc, bi),
+                                 bn_relu(acc[mi][ni][2 * h + 1], sc, bi));
+          if (!first) {
+            const float2 o = *p;
+            v = make_float2(max_nan(o.x, v.x), max_nan(o.y, v.y));
+          }
+          *p = v;
+        }
+      }
+  }
+
+  __syncthreads();   // every slot's maxima are in place
+  // slot s holds rows of window s / spw (its rows s, s + 4, ... for pf >= 4)
+  const float* best = reinterpret_cast<const float*>(ft_smem + ft_ring_bytes());
+  const int spw = min(pf, kTbSlots), windows = n_rows / pf;
+  const int f_out = f_dim / pf, fo0 = f_first / pf;
+  const bool pairs = t_dim % 2 == 0;
+  for (int e = threadIdx.x; e < windows * kTcCo * (kTbT / 2); e += kTcThreads) {
+    const int n = 2 * (e % (kTbT / 2)), rest = e / (kTbT / 2);
+    const int m = rest % kTcCo, wd = rest / kTcCo;
+    const int co = co0 + m, t = t0 + n;
+    if (co >= cout || t >= t_dim) continue;
+    float2 v = *reinterpret_cast<const float2*>(best + (wd * spw * kTcCo + m) * kFtBP + n);
+    for (int s2 = 1; s2 < spw; ++s2) {
+      const float2 o =
+          *reinterpret_cast<const float2*>(best + ((wd * spw + s2) * kTcCo + m) * kFtBP + n);
+      v = make_float2(max_nan(v.x, o.x), max_nan(v.y, o.y));
+    }
+    float* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo0 + wd) * t_dim;
+    if (pairs) {
+      *reinterpret_cast<float2*>(orow + t) = v;
     } else {
       orow[t] = v.x;
       if (t + 1 < t_dim) orow[t + 1] = v.y;
@@ -444,20 +518,39 @@ cudaError_t launch_smallcin_tc(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
-template <typename T, bool kSmall, int CC>
-cudaError_t launch_cc(const void* x, const void* w, const float* scale, const float* bias,
-                      void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
-                      int chunk, cudaStream_t stream) {
-  if (kSmall && chunk > simt_chunk_rows<CC>()) return cudaErrorInvalidValue;
-  const int rows = kSmall ? min(pf, chunk) + 2 : 3;
-  const size_t smem = sizeof(float) * (rows * CC * kXW + 9 * CC * kBCO);
-  cudaError_t err = set_smem(conv3x3_kernel<T, kSmall, CC>, smem);
+template <typename T, int CC>
+cudaError_t launch_smallcin_simt(const void* x, const void* w, const float* scale,
+                                 const float* bias, void* out, int batch, int cin, int f_dim,
+                                 int t_dim, int cout, int pf, int chunk, cudaStream_t stream) {
+  if (chunk > simt_chunk_rows<CC>()) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((min(pf, chunk) + 2) * CC * kXW + 9 * CC * kBCO);
+  cudaError_t err = set_smem(conv3x3_smallcin_kernel<T, CC>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  conv3x3_kernel<T, kSmall, CC><<<grid, kThreads, smem, stream>>>(
+  conv3x3_smallcin_kernel<T, CC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, bias,
       static_cast<T*>(out), cin, f_dim, t_dim, cout, pf, chunk);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_smallcin(const void* x, const void* w, const float* scale, const float* bias,
+                            void* out, int batch, int cin, int f_dim, int t_dim, int cout,
+                            int pf, int chunk, cudaStream_t stream) {
+  if (sizeof(T) == 2 && cin <= kCC)
+    return launch_smallcin_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf,
+                              chunk, stream);
+  if (cin > kCC)
+    return launch_smallcin_simt<T, 2 * kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim,
+                                            cout, pf, chunk, stream);
+  return launch_smallcin_simt<T, kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout,
+                                      pf, chunk, stream);
+}
+
+// The block tiles' grid: 64 frames, 64 channels, tb_block_rows(pf) rows a block.
+dim3 block_tile_grid(int batch, int f_dim, int t_dim, int cout, int pf) {
+  return dim3(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
+              batch * ceil_div(f_dim, tb_block_rows(pf)));
 }
 
 cudaError_t launch_tc(const void* x, const void* w, const float* scale, const float* bias,
@@ -466,52 +559,23 @@ cudaError_t launch_tc(const void* x, const void* w, const float* scale, const fl
   constexpr size_t smem = tb_ring_bytes<false>() + sizeof(bf16) * kTbSlots * kTcCo * kTbBP;
   cudaError_t err = set_smem(conv3x3_tc_kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
-            batch * ceil_div(f_dim, tb_block_rows(pf)));
-  conv3x3_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, bias,
-      static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf);
+  conv3x3_tc_kernel<<<block_tile_grid(batch, f_dim, t_dim, cout, pf), kTcThreads, smem,
+                      stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale,
+                                bias, static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf);
   return cudaGetLastError();
 }
 
-template <typename T, bool kSmall>
-cudaError_t launch(const void* x, const void* w, const float* scale, const float* bias,
-                   void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
-                   int chunk, cudaStream_t stream) {
-  if constexpr (!kSmall && sizeof(T) == 2) {
-    return launch_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, stream);
-  } else {
-    if (kSmall && sizeof(T) == 2 && cin <= kCC)
-      return launch_smallcin_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf,
-                                chunk, stream);
-    if (kSmall && cin > kCC)
-      return launch_cc<T, true, 2 * kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim,
-                                         cout, pf, chunk, stream);
-    return launch_cc<T, kSmall, kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout,
-                                     pf, chunk, stream);
-  }
-}
-
-template <bool kSmall>
-int dispatch(const void* x, const void* w, const void* scale, const void* bias, void* out,
-             int batch, int cin, int f_dim, int t_dim, int cout, int pf, int chunk,
-             int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
-  if (cin < 1 || cout < 1 || pf < 1 || f_dim % pf || chunk < 1 ||
-      (kSmall && cin > kMaxStagedCin))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dtype == kF32)
-    err = launch<float, kSmall>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
-                                s);
-  else if (dtype == kBF16)
-    err = launch<__nv_bfloat16, kSmall>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout,
-                                        pf, chunk, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+cudaError_t launch_tf32(const void* x, const void* w, const float* scale, const float* bias,
+                        void* out, int batch, int cin, int f_dim, int t_dim, int cout, int pf,
+                        cudaStream_t stream) {
+  constexpr size_t smem = ft_ring_bytes() + sizeof(float) * kTbSlots * kTcCo * kFtBP;
+  cudaError_t err = set_smem(conv3x3_tf32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  conv3x3_tf32_kernel<<<block_tile_grid(batch, f_dim, t_dim, cout, pf), kTcThreads, smem,
+                        stream>>>(static_cast<const float*>(x), static_cast<const float*>(w),
+                                  scale, bias, static_cast<float*>(out), cin, f_dim, t_dim,
+                                  cout, pf);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -523,16 +587,35 @@ extern "C" int seld_conv3x3_smallcin(const void* x, const void* w, const void* s
                                      const void* bias, void* out, int batch, int cin,
                                      int f_dim, int t_dim, int cout, int pf, int chunk,
                                      int dtype, void* stream) {
-  return dispatch<true>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
-                        dtype, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto sc = static_cast<const float*>(scale);
+  auto bi = static_cast<const float*>(bias);
+  if (cin < 1 || cin > kMaxStagedCin || cout < 1 || pf < 1 || f_dim % pf || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == kF32)
+    err = launch_smallcin<float>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
+                                 s);
+  else if (dtype == kBF16)
+    err = launch_smallcin<bf16>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
+                                s);
+  return static_cast<int>(err);
 }
 
-// Cin walked in chunks (8 in float32, 16 on bfloat16's tensor cores), the
-// last one ragged (K3 routes Cin % 8 == 0).
+// Any Cin, walked in chunks (8 channels on float32's split-TF32 tile, 16 on
+// bfloat16's), the last one ragged (K3 routes Cin % 8 == 0).
 extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* scale,
                                     const void* bias, void* out, int batch, int cin,
                                     int f_dim, int t_dim, int cout, int pf, int dtype,
                                     void* stream) {
-  return dispatch<false>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf, 1,
-                         dtype, stream);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto sc = static_cast<const float*>(scale);
+  auto bi = static_cast<const float*>(bias);
+  if (cin < 1 || cout < 1 || pf < 1 || f_dim % pf) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == kF32)
+    err = launch_tf32(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, s);
+  else if (dtype == kBF16)
+    err = launch_tc(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, s);
+  return static_cast<int>(err);
 }

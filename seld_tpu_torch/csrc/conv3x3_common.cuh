@@ -1,20 +1,18 @@
-// The 3x3 conv tile shared by the CNN-frontend kernels: the serving stages
-// (conv3x3_bn_relu_fpool.cu, whose general-Cin kernel conv3x3_windows.cu
-// launches too), the train-mode stage 1
-// (conv3x3_train.cu) and the train-mode stages 2-3 (conv3x3_ct_train.cu);
-// the wide-pack and im2col stages (conv3x3_smallcin_wide.cu,
-// conv3x3_im2col.cu) take its epilogue (bn_relu, max_nan).
+// The SIMT 3x3 conv tile shared by the CNN-frontend kernels that stay on
+// FMA in float32: the smallcin serving stage (conv3x3_bn_relu_fpool.cu), the
+// train-mode stage 1 (conv3x3_train.cu) and the float32 dh of the train-mode
+// stages 2-3 (conv3x3_ct_train.cu); every conv-pool kernel takes its
+// epilogue (bn_relu, max_nan).
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels
 // co0 + ty + 16 i (i < 4) at frames t0 + tx + 16 j (j < 8). The train-mode
 // backwards route the pool gradient by comparing conv rows with the
 // forward's, so every kernel must get bitwise the same values: they share
-// conv_rows (one fixed fmaf order), conv_row_widecin (one fixed Cin chunk
-// order) and bn_relu below. These SIMT tiles stage float operands; the
-// bfloat16 stages 2-3 run the tensor-core tile of conv3x3_tc.cuh instead.
-// conv_rows, stage_x and stage_w take the staged channel count CC as a
-// template argument: kCC, or 2 * kCC for K5's and K2's Cin 9-10.
+// conv_rows (one fixed fmaf order) and bn_relu below. The stages 2-3 run the
+// block tiles instead: conv3x3_tc.cuh in bfloat16, conv3x3_tf32.cuh in
+// float32. conv_rows, stage_x and stage_w take the staged channel count CC
+// as a template argument: kCC, or 2 * kCC for K5's and K2's Cin 9-10.
 #pragma once
 
 #include "common.cuh"
@@ -114,11 +112,12 @@ static __device__ __forceinline__ void stage_w_t(float* __restrict__ ws, const T
   }
 }
 
-// acc += conv row f_row of the block's tile, Cin walked in chunks of kCC in
-// increasing order; each chunk stages its 3-row halo and weight slice into
-// xs ([3][kCC][kXW]) and ws. kTransposedW stages w with stage_w_t. Every
-// thread of the block must call it (it synchronises).
-template <bool kTransposedW = false, typename T>
+// acc += conv row f_row of the transposed conv (K9's float32 dh): the
+// output gradient's channels walked in chunks of kCC in increasing order;
+// each chunk stages its 3-row halo into xs ([3][kCC][kXW]) and its slice of
+// the flipped, transposed weights (stage_w_t) into ws. Every thread of the
+// block must call it (it synchronises).
+template <typename T>
 static __device__ __forceinline__ void conv_row_widecin(float* __restrict__ xs,
                                                         float* __restrict__ ws,
                                                         const T* __restrict__ xb,
@@ -128,10 +127,7 @@ static __device__ __forceinline__ void conv_row_widecin(float* __restrict__ xs,
                                                         float (&acc)[4][8]) {
   for (int c0 = 0; c0 < cin; c0 += kCC) {
     __syncthreads();   // the previous chunk's readers are done
-    if (kTransposedW)
-      stage_w_t(ws, w, c0, co0, cin, cout);
-    else
-      stage_w(ws, w, c0, co0, cin, cout);
+    stage_w_t(ws, w, c0, co0, cin, cout);
     stage_x(xs, xb, 3, f_row - 1, c0, t0, cin, f_dim, t_dim);
     __syncthreads();
     conv_rows(xs, ws, 0, tx, ty, acc);

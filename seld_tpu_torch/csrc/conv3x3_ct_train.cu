@@ -11,24 +11,25 @@
 // (B, Cin, F, T), w (3, 3, Cin, Cout), out and its cotangent g
 // (B, Cout, F/pf, T); every pass reads only t < T.
 //
-// - F1  seld_ct_train_stats: the conv rows with the serving kernel's row
-//       (conv_row_widecin in float32, the block tile in bfloat16: same Cin
+// - F1  seld_ct_train_stats: the conv rows on the serving kernel's block
+//       tile (FtPipe, split TF32, in float32; TbPipe in bfloat16: same Cin
 //       chunk order, same products, so bitwise the values F2 pools), written
 //       once as pre (B, Cout, F, T) float, and per-channel partial sums and
 //       sums of squares.
 // - B1  seld_ct_train_sel_stats: routes g to the FIRST row of each pool
 //       window holding the max of relu(pre * scale + bias) (a strict >
 //       running argmax, reduce_window's first-match rule) where that max is
-//       > 0, and sums S_g = sum g_pre and S_gx = sum g_pre * xhat with
-//       xhat = (pre - mean) * inv.
+//       > 0 (a window holding a NaN routes nothing, as JAX's), and sums S_g
+//       = sum g_pre and S_gx = sum g_pre * xhat with xhat = (pre - mean) *
+//       inv.
 // - B2  seld_ct_train_gz: the same routing, then the batch-stats BN backward
 //       g_z = scale * (g_pre - S_g/N - xhat * S_gx/N) (the subtraction before
 //       any product), rounded to the input dtype and written once as
 //       gz (B, Cout, F, T); seld_ct_train_dw: dW[dy][dx][ci][co] = sum over
 //       (b, f, t) of gz[b][co][f][t] * h[b][ci][f + dy - 1][t + dx - 1].
 // - B3  seld_ct_train_dx: dh = the transposed conv of gz with w (taps
-//       flipped, Cin and Cout swapped): conv_row_widecin with the weights
-//       staged by stage_w_t in float32, TbPipe<true> (the weights
+//       flipped, Cin and Cout swapped): conv_row_widecin (the weights
+//       staged by stage_w_t) in float32, TbPipe<true> (the weights
 //       staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
 // - the sums (F1, B1, dW) go through per-block partial rows and
 //   launch_reduce: a fixed order in double, no atomics, so a run repeats
@@ -41,10 +42,11 @@
 // which pools on the fly and keeps no pre-activation), B2 and B3 one product
 // each; the TPU kernel's recomputes in B1, B2 and B3 become reads of pre and
 // gz, which an 80 GB card holds (944 MB of pre and 472 MB of bf16 gz for
-// that stage). Design: F1 and B3 are K3's tile (256 threads, halo and
-// weights in shared memory: SIMT in float32, 64 channels x 128 frames; the
-// tensor-core block tile of conv3x3_tc.cuh in bfloat16, 64 channels x 64
-// frames x 4 rows a pass); B1 and B2's gz pass
+// that stage). Design: F1 is K3's block tile (64 channels x 64 frames x 4
+// rows a pass, 256 threads: conv3x3_tc.cuh's in bfloat16, its split-TF32
+// counterpart conv3x3_tf32.cuh in float32); B3 the block tile in bfloat16,
+// the SIMT row of conv3x3_common.cuh in float32 (64 channels x 128 frames,
+// halo and weights in shared memory); B1 and B2's gz pass
 // stream one (b, channel, pooled row) per block; the dW pass gives each
 // block a share of the depth, split over the (b, f) rows and, where B * F
 // is small (stage 3: 8 rows at batch 2), over frames, so that every SM
@@ -57,77 +59,33 @@
 // the accumulators rounded to nearest).
 #include "conv3x3_dw_tc.cuh"
 #include "conv3x3_dw_tf32.cuh"
-#include "conv3x3_tc.cuh"
+#include "conv3x3_tf32.cuh"
 
 namespace {
 
 constexpr int kCols = 6;        // rows of the per-channel columns: scale, bias, mean, inv, c1, c2
 
-// The first row r < pf whose relu(pre * scale + bias) is the window's max
-// (strict >, so ties keep the earlier row); returns that max and sets `sel`.
+// The window's max of relu(pre * scale + bias) over its pf rows, and `sel`,
+// the first row holding it (strict >, so ties keep the earlier row). The max
+// is taken with max_nan: a NaN in any row makes it NaN, so the caller's
+// `> 0.f` routes nothing for that window. That is JAX's _route_group
+// (seld_tpu/ops/pallas/conv2d_ct_train.py:97-112): jnp.maximum over the
+// rows, then the first row equal to the max (none equals a NaN), where its
+// pre-activation is > 0. Finite windows route as the strict > alone does.
 static __device__ __forceinline__ float route_first_max(const float* __restrict__ prow,
                                                         size_t row_stride, int pf, int t,
                                                         float sc, float bi, int& sel) {
-  float m = 0.f;
+  float best = 0.f, m = 0.f;
   sel = 0;
   for (int r = 0; r < pf; ++r) {
     const float y = bn_relu(prow[r * row_stride + t], sc, bi);
-    if (r == 0 || y > m) {
-      m = y;
+    if (r == 0 || y > best) {
+      best = y;
       sel = r;
     }
+    m = max_nan(m, y);
   }
   return m;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ct_stats_kernel(const T* __restrict__ h, const T* __restrict__ w, float* __restrict__ pre,
-                float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf) {
-  extern __shared__ float smem[];
-  float* xs = smem;                    // [3][kCC][kXW]
-  float* ws = smem + 3 * kCC * kXW;    // [9][kCC][kBCO]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int t0 = blockIdx.x * kBT;
-  const int co0 = blockIdx.y * kBCO;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
-  const T* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
-
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r = 0; r < pf; ++r) {
-    const int f = fo * pf + r;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    conv_row_widecin(xs, ws, hb, w, f, co0, t0, cin, f_dim, t_dim, cout, tx, ty, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int co = co0 + ty + 16 * i;
-      if (co >= cout) continue;
-      float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = t0 + tx + 16 * j;
-        if (t >= t_dim) continue;
-        prow[t] = acc[i][j];
-        s1[i] += acc[i][j];
-        s2[i] = fmaf(acc[i][j], acc[i][j], s2[i]);
-      }
-    }
-  }
-  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = sum_tx(s1[i]), q = sum_tx(s2[i]);
-    const int co = co0 + ty + 16 * i;
-    if (tx == 0 && co < cout) {
-      row[co] = a;
-      row[cout + co] = q;
-    }
-  }
 }
 
 template <typename T>
@@ -146,10 +104,13 @@ ct_sel_stats_kernel(const float* __restrict__ pre, const T* __restrict__ g,
   float sg = 0.f, sgx = 0.f;
   for (int t = threadIdx.x; t < t_dim; t += kThreads) {
     int sel;
-    if (route_first_max(prow, t_dim, pf, t, sc, bi, sel) > 0.f) {
+    const float m = route_first_max(prow, t_dim, pf, t, sc, bi, sel);
+    if (m > 0.f) {
       const float gv = to_f(grow[t]);
       sg += gv;
       sgx = fmaf(gv, (prow[static_cast<size_t>(sel) * t_dim + t] - mu) * iv, sgx);
+    } else if (m != m) {
+      sgx += m;   // a NaN window routes nothing, but JAX's sum of g_pre * xhat is NaN
     }
   }
   red[0][threadIdx.x] = sg;
@@ -213,7 +174,7 @@ ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ 
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  conv_row_widecin<true>(xs, ws, gb, w, f, c0, t0, cout, f_dim, t_dim, cin, tx, ty, acc);
+  conv_row_widecin(xs, ws, gb, w, f, c0, t0, cout, f_dim, t_dim, cin, tx, ty, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = c0 + ty + 16 * i;
@@ -227,6 +188,45 @@ ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ 
   }
 }
 
+// F1's epilogue of one pass on either block tile: this warp's conv row f of
+// acc (64 channels x 32 frames) written once to pre, its per-channel sums
+// added to red (tb_add_sums) in a fixed order.
+static __device__ __forceinline__ void tb_stats_row(float* __restrict__ pre,
+                                                    float* __restrict__ red, const TbAcc& acc,
+                                                    int b, int f, int co0, int t0, int cout,
+                                                    int f_dim, int t_dim) {
+  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
+  float s1[4][2] = {}, s2[4][2] = {};
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int co = co0 + tb_m(lane, mi, 2 * hh);
+      if (co >= cout) continue;
+      float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
+#pragma unroll
+      for (int ni = 0; ni < kTbNi; ++ni) {
+        const int t = t0 + tb_n(half, lane, ni, 0);
+        const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+        if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(prow + t) % 8 == 0) {
+          *reinterpret_cast<float2*>(prow + t) = make_float2(v0, v1);
+        } else {
+          if (t < t_dim) prow[t] = v0;
+          if (t + 1 < t_dim) prow[t + 1] = v1;
+        }
+        if (t < t_dim) {
+          s1[mi][hh] += v0;
+          s2[mi][hh] = fmaf(v0, v0, s2[mi][hh]);
+        }
+        if (t + 1 < t_dim) {
+          s1[mi][hh] += v1;
+          s2[mi][hh] = fmaf(v1, v1, s2[mi][hh]);
+        }
+      }
+    }
+  tb_add_sums(red, s1, s2);
+}
+
 // F1's bfloat16 body: K3's block tile (TbPipe, the same rows of a
 // block, chunks and fragments as conv3x3_tc_kernel, so pre equals F2's conv
 // rows bitwise), written once as pre, with per-channel sums over the
@@ -237,7 +237,6 @@ ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float
                    int pf) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   float* red = reinterpret_cast<float*>(tc_smem + tb_ring_bytes<false>());
-  const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2;
   const int t0 = blockIdx.x * kTbT;
   const int co0 = blockIdx.y * kTcCo;
   const int rows = tb_block_rows(pf);
@@ -252,36 +251,36 @@ ct_stats_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w, float
   TbAcc acc;
   while (pipe.pass(acc)) {
     if (pipe.row >= n_rows) continue;
-    const int f = f_first + pipe.row;
-    float s1[4][2] = {}, s2[4][2] = {};
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int co = co0 + tb_m(lane, mi, 2 * hh);
-        if (co >= cout) continue;
-        float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + f) * t_dim;
-#pragma unroll
-        for (int ni = 0; ni < kTbNi; ++ni) {
-          const int t = t0 + tb_n(half, lane, ni, 0);
-          const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
-          if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(prow + t) % 8 == 0) {
-            *reinterpret_cast<float2*>(prow + t) = make_float2(v0, v1);
-          } else {
-            if (t < t_dim) prow[t] = v0;
-            if (t + 1 < t_dim) prow[t + 1] = v1;
-          }
-          if (t < t_dim) {
-            s1[mi][hh] += v0;
-            s2[mi][hh] = fmaf(v0, v0, s2[mi][hh]);
-          }
-          if (t + 1 < t_dim) {
-            s1[mi][hh] += v1;
-            s2[mi][hh] = fmaf(v1, v1, s2[mi][hh]);
-          }
-        }
-      }
-    tb_add_sums(red, s1, s2);
+    tb_stats_row(pre, red, acc, b, f_first + pipe.row, co0, t0, cout, f_dim, t_dim);
+  }
+  float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
+  tb_channel_sums(red, co0, cout, row);
+}
+
+// F1's float32 body: the same on the split-TF32 tile (FtPipe of
+// conv3x3_tf32.cuh), whose rows equal conv3x3_tf32_kernel's (K3's float32
+// body, F2) bitwise.
+__global__ void __launch_bounds__(kTcThreads, 1)
+ct_stats_tf32_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                     float* __restrict__ pre, float* __restrict__ partials, int cin, int f_dim,
+                     int t_dim, int cout, int pf) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  float* red = reinterpret_cast<float*>(ft_smem + ft_ring_bytes());
+  const int t0 = blockIdx.x * kTbT;
+  const int co0 = blockIdx.y * kTcCo;
+  const int rows = tb_block_rows(pf);
+  const int blocks_f = ceil_div(f_dim, rows);
+  const int b = blockIdx.z / blocks_f, f_first = (blockIdx.z % blocks_f) * rows;
+  const float* hb = h + static_cast<size_t>(b) * cin * f_dim * t_dim;
+
+  const int n_rows = min(rows, f_dim - f_first);
+  tb_zero_sums(red);
+  FtPipe pipe(reinterpret_cast<float*>(ft_smem), hb, w, f_first, n_rows, co0, t0, cin, f_dim,
+              t_dim, cout);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
+    tb_stats_row(pre, red, acc, b, f_first + pipe.row, co0, t0, cout, f_dim, t_dim);
   }
   float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
   tb_channel_sums(red, co0, cout, row);
@@ -342,19 +341,16 @@ constexpr size_t kConvSmem = sizeof(float) * (3 * kCC * kXW + 9 * kCC * kBCO);
 
 // F1 + its reduction: pre (B, Cout, F, T) float = conv(h, w); sums
 // (2 * Cout,) = [sum | sum of squares] of pre over (B, F, T). partials:
-// (B * F/pf * ceil(T / 128), 2 * Cout) float, or in bf16 (the block tile's
-// grid) (B * ceil(F / tb_block_rows(pf)) * ceil(T / 64), 2 * Cout).
+// (B * ceil(F / tb_block_rows(pf)) * ceil(T / 64), 2 * Cout) float, the
+// block tiles' grid (both dtypes).
 extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void* partials,
                                    void* sums, int batch, int cin, int f_dim, int t_dim,
                                    int cout, int pf, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
   if (cin < 1 || cin % kCC || cout < 1 || pf < 1 || f_dim % pf) return cudaErrorInvalidValue;
-  // bf16: the block tile's grid (64 frames, tb_block_rows(pf) rows a block)
-  const bool tc = dtype == kBF16;
-  const dim3 grid = tc ? dim3(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
-                              batch * ceil_div(f_dim, tb_block_rows(pf)))
-                       : dim3(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
+  const dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cout, kTcCo),
+                  batch * ceil_div(f_dim, tb_block_rows(pf)));
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     if constexpr (sizeof(T) == 2) {
@@ -365,11 +361,12 @@ extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void
           static_cast<const bf16*>(h), static_cast<const bf16*>(w), static_cast<float*>(pre),
           part, cin, f_dim, t_dim, cout, pf);
     } else {
-      cudaError_t e = set_smem(ct_stats_kernel<T>, kConvSmem);
+      constexpr size_t smem = ft_ring_bytes() + sizeof(float) * kTbRed;
+      cudaError_t e = set_smem(ct_stats_tf32_kernel, smem);
       if (e != cudaSuccess) return e;
-      ct_stats_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
-          static_cast<const T*>(h), static_cast<const T*>(w), static_cast<float*>(pre), part,
-          cin, f_dim, t_dim, cout, pf);
+      ct_stats_tf32_kernel<<<grid, kTcThreads, smem, s>>>(
+          static_cast<const float*>(h), static_cast<const float*>(w), static_cast<float*>(pre),
+          part, cin, f_dim, t_dim, cout, pf);
     }
     return cudaGetLastError();
   });

@@ -14,11 +14,12 @@
 // Design: the TPU kernel read pre-packed overlapping windows because Mosaic
 // cannot DMA a halo slice; here each block stages its halo straight from x,
 // with the conv's zero padding written at the F and T borders, so no packed
-// copy exists. That is K3's kernel body (conv3x3_bn_relu_fpool.cu, one conv
-// row at a time, Cin walked in chunks of 8 by conv_row_widecin): its staging
-// zero-fills the channels of a ragged last chunk, so the same kernel takes
-// any Cin, and this entry point launches it under K10b's own name and launch
-// count. K5's bfloat16 forward (F2) launches it too, for Cin <= 10: its
+// copy exists. That is K3's kernel body (conv3x3_bn_relu_fpool.cu: the
+// block tile, 4 conv rows a pass, Cin walked in chunks of 16 in bfloat16 and
+// of 8 in float32's split TF32): its staging zero-fills the channels of a
+// ragged last chunk, so the same kernel takes any Cin, and this entry point
+// launches it under K10b's own name and launch count. K5's bfloat16 forward
+// (F2) launches it too, for Cin <= 10: its
 // rows are then those of K5's F1 and g_z passes (conv3x3_train.cu).
 
 extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* scale,
@@ -26,7 +27,7 @@ extern "C" int seld_conv3x3_widecin(const void* x, const void* w, const void* sc
                                     int f_dim, int t_dim, int cout, int pf, int dtype,
                                     void* stream);
 
-// Any Cin: Cin walked in chunks of 8, the last one ragged.
+// Any Cin: Cin walked in chunks, the last one ragged.
 extern "C" int seld_conv3x3_windows(const void* x, const void* w, const void* scale,
                                     const void* bias, void* out, int batch, int cin,
                                     int f_dim, int t_dim, int cout, int pf, int dtype,

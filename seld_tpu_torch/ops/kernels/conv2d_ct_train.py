@@ -23,7 +23,7 @@ CUDA tensors and runs its plain version for CPU tensors:
   ``conv2d_pool.conv2d_widecin_bn_relu_fpool`` (K3's
   ``seld_conv3x3_widecin`` whatever C is, its launches counted under that
   name) fed the batch-statistics affine; its conv rows equal ``pre`` bit for
-  bit (one shared conv row: SIMT in float32, the tensor-core tile in
+  bit (one shared block tile: split TF32 in float32, ``mma.sync`` in
   bfloat16); on CPU tensors ``conv2d_train.conv_train_fwd_plain``;
 - B1 :func:`ct_sel_stats` — S_g and S_gx, routed from ``pre``;
 - B2 :func:`ct_gz` — g_z, written once in the input dtype, and
@@ -45,7 +45,7 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
-    BLOCK_T, TC_BLOCK_T, conv2d_widecin_bn_relu_fpool, tc_block_rows,
+    TC_BLOCK_T, conv2d_widecin_bn_relu_fpool, tc_block_rows,
 )
 from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_plain, dw_split
 
@@ -113,9 +113,9 @@ def ct_train_stats_plain(h, w):
 
 def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
     """h (B, C, F, T), w (3, 3, C, Cout) -> (sums (2 * Cout,) float32, pre
-    (B, Cout, F, T) float32). ``pool_f`` sets the kernel's tiling as F2's
-    (float32: one block per pooled row; bfloat16: ``tc_block_rows(pool_f)``
-    rows a block)."""
+    (B, Cout, F, T) float32). ``pool_f`` sets the kernel's tiling as F2's:
+    the block tile's ``tc_block_rows(pool_f)`` rows a block (bfloat16 on
+    ``mma.sync``, float32 in split TF32)."""
     _check(h, w, pool_f)
     if not on_cuda(h, w):
         return ct_train_stats_plain(h, w)
@@ -125,10 +125,7 @@ def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
     if b * (f // pool_f) > GRID_MAX:
         raise ValueError("B * F / pool_f exceeds the grid's z range")
     pre = torch.empty((b, cout, f, t), dtype=torch.float32, device=h.device)
-    if h.dtype == torch.bfloat16:   # the block tile's grid
-        rows = b * -(-f // tc_block_rows(pool_f)) * -(-t // TC_BLOCK_T)
-    else:
-        rows = b * (f // pool_f) * -(-t // BLOCK_T)
+    rows = b * -(-f // tc_block_rows(pool_f)) * -(-t // TC_BLOCK_T)   # the block tile's grid
     partials = torch.empty((rows, 2 * cout), dtype=torch.float32, device=h.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=h.device)
     err = lib.seld_ct_train_stats(
@@ -144,7 +141,9 @@ def ct_train_stats(h: torch.Tensor, w: torch.Tensor, pool_f: int):
 def _route_plain(pre, g, cols, pool_f):
     """(g_pre, xhat), both (B, Cout, F, T): g routed to the first row of each
     pool window holding the max of relu(pre * scale + bias), where that max
-    is > 0; xhat = (pre - mean) * inv."""
+    is > 0; xhat = (pre - mean) * inv. A window holding a NaN has a NaN max
+    (``torch.max`` propagates it), so it routes nothing, as JAX's
+    ``_route_group`` and the kernels' ``route_first_max``."""
     b, cout, f, t = pre.shape
     col = lambda i: cols[i].to(pre.dtype)[:, None, None]
     y = torch.relu(pre * col(0) + col(1)).view(b, cout, f // pool_f, pool_f, t)

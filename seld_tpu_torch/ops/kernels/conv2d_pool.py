@@ -11,8 +11,9 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
   ``conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0):
   :func:`conv2d_widecin_bn_relu_fpool`, both ``csrc/conv3x3_bn_relu_fpool.cu``
   (K2 in bfloat16 on the tensor cores with K = 9 taps x 8 channels, padded to
-  80; K3 in bfloat16 on the tensor-core tile of ``csrc/conv3x3_tc.cuh``;
-  float32 SIMT);
+  80, in float32 SIMT; K3 on the block tile, bfloat16 on ``mma.sync``
+  (``csrc/conv3x3_tc.cuh``), float32 in split TF32
+  (``csrc/conv3x3_tf32.cuh``));
 - K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
   :func:`conv2d_smallcin_wide_bn_relu_fpool`, ``csrc/conv3x3_smallcin_wide.cu``;
 - K10a ``conv2d_im2col_bn_relu_fpool`` (any Cin, materialized patches):
@@ -20,7 +21,8 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
   (K2w and K10a in bfloat16 on the GEMM tile of ``csrc/pool_gemm_tc.cuh``,
   in float32 on its split-TF32 counterpart ``csrc/pool_gemm_tf32.cuh``);
 - K10b ``conv2d_bn_relu_fpool`` (any Cin, per-tap windows):
-  :func:`conv2d_windows_bn_relu_fpool`, ``csrc/conv3x3_windows.cu``.
+  :func:`conv2d_windows_bn_relu_fpool`, ``csrc/conv3x3_windows.cu`` (K3's
+  kernel under its own entry and count).
 
 :func:`conv2d_bn_relu_fpool` is the serving stage's dispatcher; it picks one
 of four kernels per stage by :func:`frontend_stage_kernel`, as
@@ -48,10 +50,10 @@ from seld_tpu_torch.ops.kernels import (
 
 MAX_POOL_F = 48  # most pool rows one SIMT smallcin halo staging takes (rows + 2 staged)
 SMALLCIN_MAX_CIN = 10   # K2's kernel: Cin <= 8, and 9-10 (3 * Cin <= 32) for K5's forward
-BLOCK_T = 128           # frames per kernel tile (kBT in conv3x3_common.cuh)
+BLOCK_T = 128           # frames per SIMT kernel tile (kBT in conv3x3_common.cuh)
 BLOCK_CO = 64           # output channels per kernel tile (kBCO)
 SMEM_BYTES = 232_448    # shared memory one block may use on the H100
-TC_BLOCK_T = 64         # frames per block of the bf16 block tile (kTbT in conv3x3_tc.cuh)
+TC_BLOCK_T = 64         # frames per block of the block tiles (kTbT in conv3x3_tc.cuh)
 TC_SLOTS = 4            # conv rows per pass of the block tile (kTbSlots)
 SMALLCIN_IMPLS = ("thin", "wide")
 GRID_Z_MAX = 65535
@@ -108,7 +110,7 @@ def frontend_stage_kernel(cin: int, smallcin_impl: str = "thin") -> str:
 
 
 def tc_block_rows(pool_f: int) -> int:
-    """Conv rows one block of the bf16 block tile takes (``tb_block_rows``):
+    """Conv rows one block of the block tiles takes (``tb_block_rows``):
     one pool window, or 4 rows (4 / pool_f windows) where pool_f is 1 or 2,
     so that a pass fills its 4 row slots."""
     return TC_SLOTS if pool_f <= 2 else pool_f
@@ -234,9 +236,10 @@ def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch
 def conv2d_widecin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                                  bias: torch.Tensor, pool_f: int) -> torch.Tensor:
     """K3's kernel (``seld_conv3x3_widecin``): Cin walked in chunks, any Cin
-    (the router sends Cin % 8 == 0 here); bfloat16 runs on the tensor-core
-    tile that K9's F1 and dh share, so K9's forward calls it whatever C is.
-    CPU tensors take :func:`conv2d_bn_relu_fpool_plain`."""
+    (the router sends Cin % 8 == 0 here), on the block tile that K9's F1
+    shares (bfloat16 on ``mma.sync``, float32 in split TF32), so K9's
+    forward calls it whatever C is. CPU tensors take
+    :func:`conv2d_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
     if not on_cuda(x, w, scale, bias):
         return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)

@@ -2,9 +2,11 @@
 ``flash_fwd_tf32_kernel`` and ``flash_fwd_wide_tf32_kernel``, K6's
 ``flash_dq_tf32_kernel`` / ``flash_dkv_tf32_kernel`` and their wide
 counterparts past head dim 128, K7's ``hamilton_tf32_kernel``, the dW tile
-``ct_dw_tf32_kernel`` of K9 and K5, and the conv-pool GEMM tile of K2w and
-K10a, ``smallcin_wide_tf32_kernel`` / ``im2col_tf32_kernel``; helpers in
-``csrc/mma.cuh``), in plain PyTorch for the tests: no wrapper calls it.
+``ct_dw_tf32_kernel`` of K9 and K5, the conv-pool GEMM tile of K2w and
+K10a, ``smallcin_wide_tf32_kernel`` / ``im2col_tf32_kernel``, and the conv
+block tile of K3, K10b and K9's F1 / F2, ``conv3x3_tf32_kernel`` /
+``ct_stats_tf32_kernel``; helpers in ``csrc/mma.cuh``), in plain PyTorch for
+the tests: no wrapper calls it.
 
 A float32 x is split as x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
 tf32 rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
@@ -20,7 +22,9 @@ tensor cores sum a step's products in their own order and truncate, which
 the card's tests hold to float64).
 :func:`smallcin_wide_product_tf32_plain` and :func:`im2col_product_tf32_plain`
 repeat K2w's and K10a's products so, in K order (K2w's over the pack rows
-it walks), before the plain epilogue.
+it walks), before the plain epilogue; :func:`conv_rows_tf32_plain` and
+:func:`conv_pool_tf32_plain` the block tile's, in its K walk (chunks of 8
+channels, the nine taps in each).
 :func:`conv_dw_tf32_plain` repeats the dW tile's, whose two levels are a
 64-frame step (eight k8 steps) and the block's float accumulator, and
 whose blocks' partial rows are summed in float64.
@@ -133,6 +137,42 @@ def im2col_product_tf32_plain(patches: torch.Tensor, wk: torch.Tensor, scale, bi
     (ph, pl), (wh, wl) = tf32_split_plain(patches), tf32_split_plain(wk.contiguous())
     y = _split_products(ph, pl, wh, wl)                         # (B, F, T, Cout)
     return _epilogue(y.permute(0, 3, 1, 2), scale, bias, pool_f, patches.dtype).contiguous()
+
+
+CONV_CHUNK = 8   # input channels per K chunk of the float conv block tile (kFtCc)
+
+
+def conv_rows_tf32_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The float conv block tile's conv rows (``FtPipe`` of
+    ``csrc/conv3x3_tf32.cuh``: K9's F1 writes them as ``pre``, K3 / K10b /
+    K9's F2 pool them) on float32 x (B, Cin, F, T) and w (3, 3, Cin, Cout)
+    -> (B, Cout, F, T) float32: x (zero-padded by one frame and one row, its
+    channels to a multiple of 8) and w split into hi + lo; per chunk of 8
+    channels in increasing order and per tap (dy, dx) in row-major order, one
+    k8 step of three products summed in float64 and rounded once, added to a
+    float32 accumulator that starts at zero."""
+    b, cin, f, t = x.shape
+    cp = -(-cin // CONV_CHUNK) * CONV_CHUNK
+    (xh, xl) = tf32_split_plain(F.pad(x, (1, 1, 1, 1, 0, cp - cin)).contiguous())
+    (wh, wl) = tf32_split_plain(F.pad(w, (0, 0, 0, cp - cin)).contiguous())
+    acc = None
+    for c0 in range(0, cp, CONV_CHUNK):
+        ch = slice(c0, c0 + CONV_CHUNK)
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            step = sum(torch.einsum("bcft,co->boft", u[:, ch, dy:dy + f, dx:dx + t].double(),
+                                    v[dy, dx, ch].double())
+                       for u, v in ((xh, wl), (xl, wh), (xh, wh))).float()
+            acc = step if acc is None else acc + step
+    return acc
+
+
+def conv_pool_tf32_plain(x: torch.Tensor, w: torch.Tensor, scale, bias,
+                         pool_f: int) -> torch.Tensor:
+    """K3's, K10b's and K9's F2 float32 arithmetic (``conv3x3_tf32_kernel``):
+    :func:`conv_rows_tf32_plain`, then the plain epilogue (affine, ReLU,
+    max over pool_f rows). ``conv2d_bn_relu_fpool_plain``'s contract."""
+    return _epilogue(conv_rows_tf32_plain(x, w), scale, bias, pool_f, x.dtype).contiguous()
 
 
 def _heads_first(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:

@@ -161,6 +161,44 @@ def test_dw_split_covers_every_frame_once(b, f, t):
     assert (seen == 1).all()
 
 
+def test_route_skips_nan_windows_as_jax(rng):
+    """The pool gradient's routing (``_route_plain``, which B1 and B2 share)
+    against JAX's ``_route_group`` on the same float32 rows: a pool window
+    holding a NaN in row 0 or in a later row routes nothing, and every
+    finite window routes as before, bit for bit; S_g counts only routed
+    windows (g = 1) and S_gx is NaN in a channel with a NaN, as JAX's sum of
+    g_pre * xhat."""
+    from seld_tpu.ops.pallas.conv2d_ct_train import _route_group
+
+    b, cout, pf, windows, t = 1, 6, 4, 3, 40
+    f = pf * windows
+    pre = rng.standard_normal((b, cout, f, t)).astype(np.float32)
+    g = rng.standard_normal((b, cout, windows, t)).astype(np.float32)
+    cols = np.stack([1.0 + 0.2 * rng.standard_normal(cout), 0.3 * rng.standard_normal(cout),
+                     0.1 * rng.standard_normal(cout), 1.0 + 0.1 * rng.standard_normal(cout),
+                     np.zeros(cout), np.zeros(cout)]).astype(np.float32)
+    nans = [(0, 0, 3), (1, 2, 5), (2, 3, 7), (4, 5, 9)]   # (channel, row, frame): row 0 and later
+    for c, r, tt in nans:
+        pre[0, c, r, tt] = np.nan
+    g_pre, _ = k9._route_plain(*map(torch.from_numpy, (pre, g, cols)), pf)
+    g_pre = g_pre.numpy()
+    for fo in range(windows):
+        rows = [jnp.asarray(pre[0, :, fo * pf + r]) for r in range(pf)]
+        routed = _route_group(rows, jnp.asarray(cols[0][:, None]), jnp.asarray(cols[1][:, None]),
+                              jnp.asarray(g[0, :, fo]))
+        for r, (want, _) in enumerate(routed):
+            np.testing.assert_array_equal(g_pre[0, :, fo * pf + r], np.asarray(want))
+    for c, r, tt in nans:   # nothing routed in the windows that hold a NaN
+        fo = r // pf
+        assert not g_pre[0, c, fo * pf:(fo + 1) * pf, tt].any()
+    assert np.count_nonzero(g_pre) > windows * cout * t // 2   # the finite windows route
+    sel = k9.ct_sel_stats_plain(*map(torch.from_numpy, (pre, np.ones_like(g), cols)), pf).numpy()
+    finite = np.isfinite(pre).all(axis=(0, 2, 3))
+    assert np.isfinite(sel[:cout]).all() and (np.isnan(sel[cout:]) == ~finite).all()
+    routed_windows = (g_pre != 0).sum(axis=(0, 2, 3))   # g = 1 routes a one where g_pre != 0
+    np.testing.assert_array_equal(sel[:cout], routed_windows)
+
+
 # ---- the pallas-ct training step ----------------------------------------------
 
 def _ct_cfg(**kw):

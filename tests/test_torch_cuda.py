@@ -224,9 +224,10 @@ TILE_SHAPES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 30
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", TILE_SHAPES)
 def test_conv_tile_ragged(gen, dtype, b, cin, f, t, cout, pf):
-    """K3's kernel (the tensor-core tile in bfloat16, SIMT in float32)
-    against its plain version at ragged shapes; then K9's dh pass, the
-    transposed tile, on the same shapes (Cin and Cout swapped)."""
+    """K3's kernel (the block tile: bfloat16 on mma.sync, float32 in split
+    TF32) against its plain version at ragged shapes; then K9's dh pass (the
+    transposed block tile in bfloat16, SIMT in float32) on the same shapes
+    (Cin and Cout swapped)."""
     x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
@@ -466,9 +467,9 @@ def test_conv_train_f32_routing_equals_f2_bitwise(gen):
     channels), K5's float32 g_z pass, fed g = 1 and a = b = 0 (g_z = scale
     exactly where it routes, 0 elsewhere), routes each window once where
     F2's pooled max is > 0 and nowhere else; at Cin 8 F2 pools max_r
-    relu(pre * scale + bias) of the SIMT conv rows (K9 F1's pre: conv_rows
-    with 8 staged channels, K5's rows at Cin <= 8) bit for bit, and the
-    pass routes to the first row holding that max."""
+    relu(pre * scale + bias) of the SIMT conv rows bit for bit (pre: the g_z
+    pass's own recompute, fed g = 0, a = -1 and b = 0, so that g_z = acc
+    exactly), and the pass routes to the first row holding that max."""
     b, f, t, cout, pf = 2, 64, 1000, 80, 8
     for cin in (8, 10):
         x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
@@ -487,7 +488,8 @@ def test_conv_train_f32_routing_equals_f2_bitwise(gen):
         assert torch.equal(sums[:cout], (out > 0).sum((0, 2, 3)).float())
         if cin != 8:
             continue
-        pre = k9.ct_train_stats(x, w, pf)[1]
+        pre = k5.conv_train_gz(x, w, torch.zeros_like(ones), scale, bias, -torch.ones_like(zero),
+                               zero, pf)[0]
         y = torch.relu(_fma_f32(pre, scale[:, None, None], bias[:, None, None]))
         y = y.view(b, cout, f // pf, pf, t)
         best, row = y[:, :, :, 0], torch.zeros_like(y[:, :, :, 0], dtype=torch.long)
@@ -895,6 +897,128 @@ def test_conv_tile_f1_f2_bitwise_at_stage_2(gen):
     y = (pre.double() * scale.double()[:, None, None] + bias.double()[:, None, None]).float()
     want = torch.nn.functional.max_pool2d(torch.relu(y), (pf, 1)).to(torch.bfloat16)
     assert torch.equal(out, want)
+
+
+# the float32 block tile (split TF32): (b, cin, f, t, cout, pf), several blocks
+# in every grid dimension (T tiles of 64 frames, Cout tiles of 64 channels, row
+# blocks) with ragged T, Cout and Cin chunk tails: K3 at Cin 24 / 200 (a
+# ragged last chunk past 8 channels' multiples is K10b's), K10b at Cin 8 and
+# 12 (stage 1's one chunk; a ragged second chunk), pf 1-8, T % 4 != 0 (4-byte
+# staging) and T % 4 == 0 (16-byte)
+TF32_TILE_CASES = [("conv3x3_widecin", (2, 24, 24, 300, 80, 8)),
+                   ("conv3x3_widecin", (1, 200, 12, 257, 136, 4)),
+                   ("conv3x3_widecin", (2, 16, 10, 129, 72, 5)),
+                   ("conv3x3_windows", (2, 8, 16, 300, 80, 8)),
+                   ("conv3x3_windows", (2, 12, 8, 193, 100, 2)),
+                   ("conv3x3_windows", (1, 12, 12, 65, 64, 3)),
+                   ("conv3x3_windows", (1, 20, 6, 130, 200, 1))]
+TF32_TILE_FNS = {"conv3x3_widecin": pool.conv2d_widecin_bn_relu_fpool,
+                 "conv3x3_windows": pool.conv2d_windows_bn_relu_fpool}
+
+
+@pytest.mark.parametrize("name,case", TF32_TILE_CASES)
+def test_conv_tile_tf32(gen, name, case):
+    """Float32 K3 / K10b (conv3x3_tf32_kernel) and, where Cin % 8 == 0, K9's
+    F1 (ct_stats_tf32_kernel) against their plain versions: within 4x the
+    float32 plain version's distance from float64, within 2e-4 x max of it,
+    one launch each, bitwise on a rerun; K9's F2 (K3's kernel) equals
+    max_r relu(fma(pre, scale, bias)) from F1's pre bit for bit."""
+    b, cin, f, t, cout, pf = case
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    fn = TF32_TILE_FNS[name]
+    got = fn(x, w, scale, bias, pf)
+    assert launch_counts[name] == 1
+    plain = conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    exact = conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(), bias.double(), pf)
+    _f64_gate(f"{name} {case}", got, plain, exact)
+    _close(got, plain, torch.float32)
+    assert torch.equal(fn(x, w, scale, bias, pf), got)
+    if cin % 8:
+        return
+    sums, pre = k9.ct_train_stats(x, w, pf)
+    assert launch_counts["ct_train_stats"] == 1
+    want_sums, want_pre = k9.ct_train_stats_plain(x, w)
+    _f64_gate(f"ct_train_stats pre {case}", pre, want_pre, k9.ct_train_stats_plain(
+        x.double(), w.double())[1])
+    _close(sums, want_sums, torch.float32)
+    rerun = k9.ct_train_stats(x, w, pf)
+    assert torch.equal(rerun[0], sums) and torch.equal(rerun[1], pre)
+    out = pool.conv2d_widecin_bn_relu_fpool(x, w, scale, bias, pf)
+    y = _fma_f32(pre, scale[:, None, None], bias[:, None, None])
+    assert torch.equal(out, torch.nn.functional.max_pool2d(torch.relu(y), (pf, 1)))
+
+
+def test_conv_tile_tf32_f1_f2_bitwise_at_stage_2(gen):
+    """test_conv_tile_f1_f2_bitwise_at_stage_2 in float32: at the flagship's
+    stage 2 on random inputs K3's pooled output (the split-TF32 tile) equals
+    max_r relu(fma(pre, scale, bias)) from K9 F1's pre bit for bit."""
+    b, c, f, t, cout, pf = 2, 192, 32, 4800, 192, 8
+    h = torch.randn(b, c, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, c, cout, generator=gen, device="cuda") / (9 * c) ** 0.5
+    _, pre = k9.ct_train_stats(h, w, pf)
+    scale = 0.5 + torch.rand(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    out = pool.conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
+    y = _fma_f32(pre, scale[:, None, None], bias[:, None, None])
+    assert torch.equal(out, torch.nn.functional.max_pool2d(torch.relu(y), (pf, 1)))
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+@pytest.mark.parametrize("name", ["conv3x3_widecin", "conv3x3_windows", "ct_train_stats"])
+def test_conv_tile_tf32_keeps_nans(gen, bits, name):
+    """A NaN in x (batch 0, and batch 1 at a window's last row) comes out of
+    the float32 tile NaN exactly where the plain version's does: K3's and
+    K10b's pooled output, K9 F1's pre."""
+    cin = 12 if name == "conv3x3_windows" else 16
+    b, f, t, cout, pf = 2, 16, 300, 80, 4
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    x = _put_nan(_put_nan(x, (0, 1, 5, 100), bits), (1, cin - 1, 11, 257), bits)
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    if name == "ct_train_stats":
+        got, want = k9.ct_train_stats(x, w, pf)[1], k9.ct_train_stats_plain(x, w)[1]
+    else:
+        got = TF32_TILE_FNS[name](x, w, scale, bias, pf)
+        want = conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    assert launch_counts[name] == 1
+    nan = torch.isnan(want)
+    assert bool(nan[0].any()) and bool(nan[1].any()) and not bool(nan.all())
+    assert torch.equal(torch.isnan(got), nan)
+    _close(got.masked_fill(nan, 0), want.masked_fill(nan, 0), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ct_train_routes_nothing_past_a_nan(gen, dtype):
+    """K9's B1 and g_z on a pre holding NaNs in row 0 and in later rows of
+    some pool windows: a window that holds a NaN routes nothing (JAX's
+    _route_group), as the plain version: S_g with g = 1 counts the routed
+    windows exactly, S_gx is NaN in exactly the channels with a NaN, and g_z
+    is NaN where the plain version's is and within tolerance elsewhere."""
+    b, cout, f, t, pf = 2, 72, 16, 300, 8
+    pre = torch.randn(b, cout, f, t, generator=gen, device="cuda")
+    for at in ((0, 0, 0, 3), (0, 1, 5, 7), (1, 70, 15, 299), (1, 3, 9, 100), (0, 3, 8, 100)):
+        pre[at] = float("nan")
+    g = torch.randn(b, cout, f // pf, t, generator=gen, device="cuda").to(dtype)
+    cols = torch.stack([1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda"),
+                        0.2 * torch.randn(cout, generator=gen, device="cuda"),
+                        0.1 * torch.randn(cout, generator=gen, device="cuda"),
+                        1.0 + 0.1 * torch.rand(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda")])
+    ones = torch.ones_like(g)
+    got, want = k9.ct_sel_stats(pre, ones, cols, pf), k9.ct_sel_stats_plain(pre, ones, cols, pf)
+    assert torch.equal(got[:cout], want[:cout])   # whole counts, exact in float
+    nan = torch.isnan(want[cout:])
+    assert int(nan.sum()) == 4 and torch.equal(torch.isnan(got[cout:]), nan)
+    _close(got[cout:].masked_fill(nan, 0), want[cout:].masked_fill(nan, 0), torch.float32)
+    gz, gz_want = k9.ct_gz(pre, g, cols, pf), k9.ct_gz_plain(pre, g, cols, pf)
+    nan = torch.isnan(gz_want)
+    assert int(nan.sum()) == 5 and torch.equal(torch.isnan(gz), nan)
+    _close(gz.masked_fill(nan, 0), gz_want.masked_fill(nan, 0), dtype)
 
 
 def test_ct_frontend_raises_where_the_kernels_cannot_run(gen):

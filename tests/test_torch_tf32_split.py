@@ -8,7 +8,9 @@ three-term product summed over a K9 stage-2 depth stays as close to float64
 as the float32 plain version, and so do K5's dW tile
 (``conv_dw_tf32_plain``, at the flagship's stage-1 depth), K2w's and
 K10a's products (``smallcin_wide_product_tf32_plain``,
-``im2col_product_tf32_plain``, at stage-1 and stage-2 depth) and K7's,
+``im2col_product_tf32_plain``, at stage-1 and stage-2 depth), the conv
+block tile of K3, K10b and K9's F1 / F2 (``conv_rows_tf32_plain``,
+``conv_pool_tf32_plain``, at K3's stage-2 depth and K10b's Cin 12) and K7's,
 K4's and K6's whole arithmetic (``hamilton_matmul_tf32_plain``,
 ``flash_attention_tf32_plain``, ``flash_attention_bwd_tf32_plain``; K4
 and K6 also past head dim 128, at the wide kernels' padded D), which also
@@ -28,8 +30,9 @@ from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
 from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
     conv_dw_tf32_plain, flash_attention_bwd_tf32_plain, flash_attention_tf32_plain,
-    hamilton_matmul_tf32_plain, im2col_product_tf32_plain, smallcin_wide_product_tf32_plain,
-    tf32_add_half_and_mask, tf32_round_plain, tf32_split_plain,
+    conv_pool_tf32_plain, conv_rows_tf32_plain, hamilton_matmul_tf32_plain,
+    im2col_product_tf32_plain, smallcin_wide_product_tf32_plain, tf32_add_half_and_mask,
+    tf32_round_plain, tf32_split_plain,
 )
 
 LOW_BITS = 0x1FFF
@@ -352,3 +355,70 @@ def test_k2w_k10a_split_arithmetic_matches_jax(name, cin, pf):
         want = jpool.conv2d_im2col_bn_relu_fpool(*args, pool_f=pf, block_t=16, interpret=True)
     want = np.asarray(want).transpose(0, 3, 1, 2)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# (b, cin, f, t, cout, pf): K3 at the flagship's stage-2 depth (Cin 192: 24
+# chunks of 8 channels), K10b at Cin 12 (a ragged second chunk) and Cin 8 (one
+# chunk, stage 1); T ragged against the tile's 64 frames, Cout against its 64
+# channels, several blocks of rows
+CONV_TILE_DEPTHS = [(1, 192, 8, 70, 72, 4), (2, 12, 16, 130, 20, 8), (2, 8, 16, 70, 12, 8)]
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", CONV_TILE_DEPTHS,
+                         ids=["k3-stage-2", "k10b-cin-12", "k10b-cin-8"])
+def test_conv_tile_split_arithmetic(b, cin, f, t, cout, pf):
+    """The float conv block tile's arithmetic (split operands, each k8 step
+    of one tap x 8 channels summed once, added to a float32 accumulator in
+    the K walk: chunks, then taps) within 4x the float32 plain version's
+    max|d| from float64 (the card's gate), on the pooled output (K3, K10b,
+    K9's F2) and on the conv rows (K9's F1 ``pre``); F2's pooled output is
+    the epilogue of F1's rows, bit for bit."""
+    x, w, scale, bias = _frontend_inputs(5, b, cin, f, t, cout)
+    got = conv_pool_tf32_plain(x, w, scale, bias, pf)
+    exact = pool.conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(),
+                                            bias.double(), pf)
+    plain = pool.conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    assert _dist(got, exact) <= 4 * _dist(plain, exact), (_dist(got, exact), _dist(plain, exact))
+    rows = conv_rows_tf32_plain(x, w)
+    conv = lambda a, b_: torch.nn.functional.conv2d(a, b_.permute(3, 2, 0, 1), padding=1)
+    exact_rows = conv(x.double(), w.double())
+    assert _dist(rows, exact_rows) <= 4 * _dist(conv(x, w), exact_rows)
+    assert torch.equal(pool._epilogue(rows, scale, bias, pf, torch.float32), got)
+
+
+@pytest.mark.parametrize("name,cin,pf", [("k3", 16, 2), ("k3", 24, 4), ("k10b", 12, 2),
+                                         ("k10b", 8, 4), ("k9", 16, 2), ("k9", 24, 4)])
+def test_conv_tile_split_arithmetic_matches_jax(name, cin, pf):
+    """The float conv block tile's arithmetic against the JAX package's
+    ``conv2d_widecin_ct_bn_relu_fpool`` (K3), ``conv2d_bn_relu_fpool``
+    (K10b) and ``conv2d_widecin_ct_bn_relu_fpool_train``'s forward (K9:
+    out, mean and var from F1's rows, the batch statistics in float64 as the
+    kernels' fixed-order reduction takes them) in interpret mode on the same
+    inputs: K3 and K10b within 1e-5 x max (the conv-pool tests' bound), K9
+    within 2e-4 x max (the bound ``tests/test_torch_ct_train.py`` holds the
+    op's forward to)."""
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas.conv2d_ct_train import conv2d_widecin_ct_bn_relu_fpool_train
+    from tests.test_torch_conv_pool import _nan_jax
+
+    b, f, t, cout = 2, 8, 40, 12
+    x, w, scale, bias = _frontend_inputs(6, b, cin, f, t, cout)
+    if name != "k9":
+        got = conv_pool_tf32_plain(x, w, scale, bias, pf)
+        want = _nan_jax(name, *(a.numpy() for a in (x, w, scale, bias)), pf)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+        return
+    gamma, beta, eps = scale, bias, 1e-5
+    pre = conv_rows_tf32_plain(x, w).double()
+    mean = pre.mean((0, 2, 3))
+    var = torch.clamp((pre * pre).mean((0, 2, 3)) - mean * mean, min=0.0)
+    sc = gamma.double() * torch.rsqrt(var + eps)
+    out = conv_pool_tf32_plain(x, w, sc.float(), (beta.double() - mean * sc).float(), pf)
+    h_ct = jnp.asarray(x.numpy().transpose(0, 2, 1, 3))
+    jout, jmean, jvar = conv2d_widecin_ct_bn_relu_fpool_train(
+        h_ct, t, *(jnp.asarray(a.numpy()) for a in (w, gamma, beta)), pf, eps, interpret=True)
+    want_out = np.asarray(jout)[..., :t].transpose(0, 2, 1, 3)
+    for g_, w_ in ((out, want_out), (mean, jmean), (var, jvar)):
+        w_ = np.asarray(w_, np.float64)
+        np.testing.assert_allclose(g_.double().numpy(), w_, rtol=0, atol=2e-4 * np.abs(w_).max())
