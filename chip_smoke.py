@@ -50,17 +50,18 @@ Phases, each printing its own lines:
    backward back to back with each bound (at D 160 the wide kernels launched
    alone, no pad copy, in both dtypes); the
    float32 flagship instances of K2, K3, K4, K5 F1 / F2 / B1 / g_z / dW,
-   K6, K7, K9 F1 / F2 / B1 / g_z / dW / dx, K2w, K10a and K10b (and K4 / K6
-   at D 160) beside their library call in float32 with TF32 off, where
+   K6, K7, K9 F1 / F2 / B1 / g_z / dW / dx (dx also at stage 3), K2w, K10a
+   and K10b (and K4 / K6 at D 160) beside their library call in float32 with TF32 off, where
    there is one, and their float32 bound (the ``[f32]`` lines), the
    split-TF32 kernels (K4 and K6 at D 48 and 160, K7 at M 9600 with dx
    through the autograd Function, K9's dW at stage 2 and K5's at stage 1,
    on the grid's inputs and on real-valued ones; K2w at stage 1 and K10a
-   at stages 1-3, K3 at stages 2-3, K10b at stages 1-3 and K9's F1 / F2 at
-   stage 2 on real-valued inputs, rerun bitwise) also held to float64: each
-   within F64_FACTOR x the float32 plain version's distance from the plain
-   version in float64 (the dW tiles: the plain version with cuDNN off,
-   whose float32 wgrad is printed beside); K9's B1 and g_z routing nothing
+   at stages 1-3, K3 at stages 2-3, K10b at stages 1-3, K9's F1 / F2 at
+   stage 2 and K9's dx at stages 2-3 on real-valued inputs, rerun bitwise)
+   also held to float64: each within F64_FACTOR x the float32 plain
+   version's distance from the plain version in float64 (the dW tiles and
+   dx: the plain version with cuDNN off, whose float32 wgrad and dgrad
+   are printed beside); K9's B1 and g_z routing nothing
    for a pool window that holds a NaN, in both dtypes, as the plain version
    (and JAX's _route_group); K2w's and K10a's operand builds
    in both dtypes
@@ -129,10 +130,18 @@ Phases, each printing its own lines:
    PROF_BATCH=4 over every section: every row timed, K2w, K10a (its patch
    kernel and its product) and K10b launched.
 
+Every torch.profiler capture goes through
+``seld_tpu_torch.utils.profiling.device_events``: a capture whose first or
+last kernel is not one of its bracket kernels is taken again with twice the
+leading brackets (the profiler left out the first kernels of every capture
+for stretches of some runs), at most CAPTURE_TRIES times; the count taken
+again is printed before the kernels' line.
+
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
-result. Needs one CUDA device; imports no JAX.
+``{"ok": true, "device": {...}}``. Any failure exits non-zero, prints no
+result, and prints its reason to both standard output and standard error.
+Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -264,8 +273,8 @@ PREDICT_STEPS_TIMED = 3
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
 # int8 GEMM (IMMA); and the float32 kernels of K4, K6 (and their three past head
 # dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7, the dW tile and the GEMM
-# tile of K2w and K10a and the conv block tile of K3 / K10b / K9's F2 and K9's F1
-# in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32
+# tile of K2w and K10a and the conv block tile of K3 / K10b / K9's F2, K9's F1 and
+# K9's dh in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32
 # product; the dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones
 # K5's; K2w's instances walk 8-32 pack rows)
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
@@ -275,7 +284,8 @@ WIDE_TF32_ATTN_KERNELS = ("flash_fwd_wide_tf32_kernel", "flash_dq_wide_tf32_kern
 TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel",
                 *WIDE_TF32_ATTN_KERNELS, "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E",
                 "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E", "smallcin_wide_tf32_kernel",
-                "im2col_tf32_kernel", "conv3x3_tf32_kernel", "ct_stats_tf32_kernel")
+                "im2col_tf32_kernel", "conv3x3_tf32_kernel", "ct_stats_tf32_kernel",
+                "ct_dx_tf32_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
@@ -296,15 +306,15 @@ PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
                  "K5 F1": ("train_stats_tc_kernel",),
                  "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
 # the profiled float32 steps of phase 5a: K5's passes apart (F1 SIMT, F2 K2's
-# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's F1 and
-# F2 (the split-TF32 block tile), dW and dx (SIMT) in the pallas-ct step
+# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's F1,
+# F2 and dx (the split-TF32 block tile) and dW in the pallas-ct step
 F32_STEP_WATCH = {"K5 F1": ("::stats_kernel<float",),
                   "K5 F2": ("conv3x3_smallcin_kernel<float",),
                   "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_kernel<",),
                   "K5 dW": ("ct_dw_tf32_kernel<8>",),
                   **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")},
                   "K9 F1": ("ct_stats_tf32_kernel",), "K9 F2": ("conv3x3_tf32_kernel",),
-                  "K9 dx": ("ct_dx_kernel<float",)}
+                  "K9 dx": ("ct_dx_tf32_kernel",)}
 # device kernels read out of the serving profiles (phase 4), by demangled name
 SERVING_WATCH = {"K1": ("stft_mag_tc_kernel",), "K2": ("smallcin_tc_kernel",),
                  "K3": ("conv3x3_tc_kernel",), "K4": ("flash_fwd_tc_kernel",)}
@@ -556,17 +566,11 @@ def device_ms(torch, fn, iters: int = 20) -> float:
 
 def device_split(torch, fn, iters: int = 20) -> dict:
     """device_ms by kernel: {profiler name: device ms per fn() call}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from seld_tpu_torch.utils.profiling import device_events
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    events, _ = device_events(lambda: [fn() for _ in range(iters)])
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in events}
 
 
 def int8_matmul_tiles(k8, tiles, *args):
@@ -581,15 +585,10 @@ def int8_matmul_tiles(k8, tiles, *args):
 
 def launched_kernels(torch, fn) -> list:
     """The device kernels one fn() call launches, by the profiler's name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from seld_tpu_torch.utils.profiling import device_events
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return [e.key for e in device_events(fn)[0]]
 
 
 def compare(torch, name, shape_tag, got, want, dtype, card, timed=None):
@@ -1013,8 +1012,9 @@ def phase_kernels(torch, card: str) -> dict:
 
 def phase_tile(torch, card: str, randn) -> None:
     """The conv tile that K3, K10b and K9's F1, F2 and dh share (the block
-    tile: split TF32 in float32, where dh stays SIMT; mma.sync in bfloat16),
-    launched as K3 (any Cin) and as K9's dh, against the plain versions at
+    tile: split TF32 in float32, mma.sync in bfloat16; dh on the transposed
+    weights), launched as K3 (any Cin) and as K9's dh, against the plain
+    versions at
     the ragged shapes of TILE_CASES; then
     the F1 / F2 identity at the flagship's stage 2 on random (not
     integer-grid) bf16 inputs: K3's pooled output equals max_r relu(pre *
@@ -1395,6 +1395,7 @@ def phase_k9(torch, card: str, record) -> None:
             flag = tag == "stage2" and dt == torch.bfloat16
             timed_tag = tag != "ragged" and dt == torch.bfloat16
             f32_tag = tag == "stage2" and dt == torch.float32
+            f32_dx = tag != "ragged" and dt == torch.float32   # dx at stages 2 and 3
             n = b * f * t
             sums, pre = k9.ct_train_stats(h, w, pf)
             mean = sums[:cout] / n
@@ -1433,7 +1434,8 @@ def phase_k9(torch, card: str, record) -> None:
             ]
             pass_ms = {}
             for name, kern, plain, tol_dt, flops, moved, library in passes:
-                timed = ((time_ms(torch, kern), time_ms(torch, plain)) if timed_tag or f32_tag
+                f32_line = f32_tag or (f32_dx and name == "ct_train_dx")
+                timed = ((time_ms(torch, kern), time_ms(torch, plain)) if timed_tag or f32_line
                          else None)
                 got, want = kern(), plain()
                 if name == "ct_train_stats":   # (sums, pre)
@@ -1441,10 +1443,23 @@ def phase_k9(torch, card: str, record) -> None:
                     got, want = got[0], want[0]
                 label = tag if tol_dt == dt else f"{tag}/{str(dt)[6:]}-in"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
-                if f32_tag:
+                if f32_line:
                     f32_row(card, name, tag, timed[0],
                             None if library is None else time_ms(torch, library), flops, moved,
-                            split_tf32=name in ("ct_train_stats", "ct_train_fwd", "ct_train_dw"))
+                            split_tf32=name in ("ct_train_stats", "ct_train_fwd", "ct_train_dw",
+                                                "ct_train_dx"))
+                if f32_dx and name == "ct_train_dx":
+                    # the split-TF32 dh on real-valued g_z and w against float64,
+                    # beside the float32 plain version without cuDNN and cuDNN's
+                    # float32 dgrad; bitwise on a rerun
+                    zz = torch.randn(gz.shape, generator=gen, device=dev)
+                    ww = torch.randn(w.shape, generator=gen, device=dev) / (9 * cout) ** 0.5
+                    dh = k9.ct_dx(zz, ww)
+                    f64_gate(card, name, f"{tag} randn", dh, dx_plain_f32(zz, ww),
+                             k9.ct_dx_plain(zz.double(), ww.double()),
+                             library=k9.ct_dx_plain(zz, ww))
+                    require(torch.equal(k9.ct_dx(zz, ww), dh), f"{tag}: float32 dh not repeatable")
+                    del zz, ww, dh
                 if f32_tag and name == "ct_train_dw":
                     # the split-TF32 tile, the float32 plain version without
                     # cuDNN and cuDNN's float32 wgrad against dW in float64:
@@ -1547,6 +1562,17 @@ def k9_nan_routing(torch, card: str) -> None:
                 torch.equal(torch.isnan(gz), nan_gz), f"K9 B1 / g_z {dt}: NaNs differ")
         require(d <= (2e-4 if dt == torch.float32 else 2e-2) * gz_want.float()[fin].abs().max(),
                 f"K9 g_z {dt}: {d:.3e} from the plain version past the NaNs")
+
+
+def dx_plain_f32(gz, w):
+    """dh in float32 without cuDNN (a float32 GEMM and col2im, TF32 off), the
+    float32 plain version of dh's float64 gate, whatever algorithm cuDNN's
+    float32 dgrad picks (printed beside as the library)."""
+    import torch
+    from seld_tpu_torch.ops.kernels.conv2d_ct_train import ct_dx_plain
+
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        return ct_dx_plain(gz, w)
 
 
 def dw_plain_f32(h, gz):
@@ -1969,16 +1995,14 @@ def serve_on_card(torch, model, card: str) -> None:
                                 watch=SERVING_WATCH)
         print(f"[profile] serving request, batch {batch}: "
               f"{device_shares(profiled, SERVING_WATCH)} ({card})")
-        # K1 and K2 back to back at the request's shapes: the profile's K1 can
-        # miss launches; a missed K1 is added to the request's busy time
+        # K1 and K2 back to back at the request's shapes, beside the profile
         k1 = stream_ms(torch, lambda: stft_mag(audio, out_dtype=torch.bfloat16))
         x1 = torch.randn(batch, CHANNELS, 256, 4800, generator=gen, device="cuda").bfloat16()
         k2 = stream_ms(torch, lambda: conv2d_smallcin_bn_relu_fpool(x1, w1, s1, b1, 8))
-        busy = profiled["busy"] + (k1 if profiled["K1"] < 0.5 * k1 else 0.0)
+        busy = profiled["busy"]
         print(f"[profile] serving request, batch {batch}, K1 and K2 back to back at its "
               f"shapes: K1 {k1:.2f} ms ({100 * k1 / busy:.1f}%), K2 {k2:.2f} ms "
-              f"({100 * k2 / busy:.1f}%) of {busy:.1f} ms busy, K1 "
-              f"{'recorded' if profiled['K1'] >= 0.5 * k1 else 'added'} ({card})")
+              f"({100 * k2 / busy:.1f}%) of {busy:.1f} ms busy ({card})")
         del audio, sed, x1
     torch.cuda.empty_cache()
 
@@ -1998,18 +2022,11 @@ def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 st
     ``top`` by self device time) and the device's idle share of the step;
     returns the device ms of each ``watch`` group in it and of the whole
     step ("busy")."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from seld_tpu_torch.utils.profiling import device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    self_ms = lambda e: e.self_device_time_total / 1e3
     # device kernels only: a CPU op also reports the device time it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events, wall_ms = device_events(run, cpu=True)
+    self_ms = lambda e: e.self_device_time_total / 1e3
     busy = sum(self_ms(e) for e in events)
     print(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall_ms:.3f}, {sum(e.count for e in events)} device "
@@ -2883,7 +2900,11 @@ def main() -> int:
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
+        print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    from seld_tpu_torch.utils.profiling import CAPTURES
+    print(f"[profile] torch.profiler captures: {CAPTURES['whole']} whole, "
+          f"{CAPTURES['retaken']} taken again (a bracket kernel missing)")
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
              "predict": (PREDICT_KERNELS, predicted), **variants}

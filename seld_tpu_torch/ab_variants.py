@@ -30,7 +30,7 @@ the output's bytes, for every bfloat16 kernel, the split-TF32 wide kernels
 past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7, K5's
 float32 B2 (the g_z pass and the dW tile at Cin 8 and 10), the
 conv-pool stages in float32 (K2, K2w, K3, K10a, K10b) and K9's float32
-F1, B1 and g_z (B1 and g_z on a drawn pre), on inputs from
+F1, B1, g_z and dh (B1, g_z and dh on a drawn pre), on inputs from
 one seeded generator on the device. Equal code gives equal bits (every kernel there
 reduces in a fixed order); the runner exits 1 where a case differs.
 ``--tests`` runs the given tests (pytest node ids under ``tests/``) once in
@@ -230,12 +230,14 @@ def hash_cases(device):
     xq = randn(1200, 384)
     out.append(("K8 bf16", lambda: (int8_matmul(xq, w_q, w_s, None),)))
     # K9 in float32: F1 on the split-TF32 block tile, B1 and g_z on a drawn pre
-    # (their routing alone, whatever F1 gives)
+    # (their routing alone, whatever F1 gives), dh on the same tile with the
+    # drawn pre standing in for g_z
     h32, w32 = h.float(), w9.float()
     pre32, g32 = randn(2, 72, 16, 300, dt=torch.float32), g9.float()
     out.append(("K9 F1 f32", lambda: k9.ct_train_stats(h32, w32, 4)))
     out.append(("K9 B1 f32", lambda: (k9.ct_sel_stats(pre32, g32, ccols, 4),)))
     out.append(("K9 g_z f32", lambda: (k9.ct_gz(pre32, g32, ccols, 4),)))
+    out.append(("K9 dh f32", lambda: (k9.ct_dx(pre32, w32),)))
     return out
 
 

@@ -222,8 +222,8 @@ conv3x3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int n_rows = min(rows, f_dim - f_first);
   const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
 
-  FtPipe pipe(reinterpret_cast<float*>(ft_smem), xb, w, f_first, n_rows, co0, t0, cin, f_dim,
-              t_dim, cout);
+  FtPipe<false> pipe(reinterpret_cast<float*>(ft_smem), xb, w, f_first, n_rows, co0, t0, cin,
+                     f_dim, t_dim, cout);
   TbAcc acc;
   while (pipe.pass(acc)) {
     if (pipe.row >= n_rows) continue;

@@ -1,8 +1,7 @@
 // The SIMT 3x3 conv tile shared by the CNN-frontend kernels that stay on
-// FMA in float32: the smallcin serving stage (conv3x3_bn_relu_fpool.cu), the
-// train-mode stage 1 (conv3x3_train.cu) and the float32 dh of the train-mode
-// stages 2-3 (conv3x3_ct_train.cu); every conv-pool kernel takes its
-// epilogue (bn_relu, max_nan).
+// FMA in float32: the smallcin serving stage (conv3x3_bn_relu_fpool.cu) and
+// the train-mode stage 1 (conv3x3_train.cu); every conv-pool kernel takes
+// its epilogue (bn_relu, max_nan).
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels
@@ -91,46 +90,6 @@ static __device__ __forceinline__ void stage_w(float* __restrict__ ws, const T* 
     ws[e] = (ci < cin && co < cout)
                 ? to_f(w[(static_cast<size_t>(tap) * cin + ci) * cout + co])
                 : 0.f;
-  }
-}
-
-// Stage the transposed conv's weights: ws[tap][ci][co] = w[8 - tap][co][ci]
-// for w stored (3, 3, cout, cin), i.e. the input gradient of a conv whose
-// weights are w runs as a conv of its output gradient with these weights.
-template <typename T>
-static __device__ __forceinline__ void stage_w_t(float* __restrict__ ws, const T* __restrict__ w,
-                                                 int c0, int co0, int cin, int cout) {
-  for (int e = threadIdx.x; e < 9 * kCC * kBCO; e += kThreads) {
-    const int col = e % kBCO;
-    const int rest = e / kBCO;
-    const int ci = c0 + rest % kCC;
-    const int tap = rest / kCC;
-    const int co = co0 + col;
-    ws[e] = (ci < cin && co < cout)
-                ? to_f(w[(static_cast<size_t>(8 - tap) * cout + co) * cin + ci])
-                : 0.f;
-  }
-}
-
-// acc += conv row f_row of the transposed conv (K9's float32 dh): the
-// output gradient's channels walked in chunks of kCC in increasing order;
-// each chunk stages its 3-row halo into xs ([3][kCC][kXW]) and its slice of
-// the flipped, transposed weights (stage_w_t) into ws. Every thread of the
-// block must call it (it synchronises).
-template <typename T>
-static __device__ __forceinline__ void conv_row_widecin(float* __restrict__ xs,
-                                                        float* __restrict__ ws,
-                                                        const T* __restrict__ xb,
-                                                        const T* __restrict__ w, int f_row,
-                                                        int co0, int t0, int cin, int f_dim,
-                                                        int t_dim, int cout, int tx, int ty,
-                                                        float (&acc)[4][8]) {
-  for (int c0 = 0; c0 < cin; c0 += kCC) {
-    __syncthreads();   // the previous chunk's readers are done
-    stage_w_t(ws, w, c0, co0, cin, cout);
-    stage_x(xs, xb, 3, f_row - 1, c0, t0, cin, f_dim, t_dim);
-    __syncthreads();
-    conv_rows(xs, ws, 0, tx, ty, acc);
   }
 }
 

@@ -28,9 +28,9 @@
 //       gz (B, Cout, F, T); seld_ct_train_dw: dW[dy][dx][ci][co] = sum over
 //       (b, f, t) of gz[b][co][f][t] * h[b][ci][f + dy - 1][t + dx - 1].
 // - B3  seld_ct_train_dx: dh = the transposed conv of gz with w (taps
-//       flipped, Cin and Cout swapped): conv_row_widecin (the weights
-//       staged by stage_w_t) in float32, TbPipe<true> (the weights
-//       staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
+//       flipped, Cin and Cout swapped) on the block tile with transposed
+//       weights: FtPipe<true> (split TF32) in float32, TbPipe<true> (the
+//       weights staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
 // - the sums (F1, B1, dW) go through per-block partial rows and
 //   launch_reduce: a fixed order in double, no atomics, so a run repeats
 //   bitwise.
@@ -44,9 +44,8 @@
 // gz, which an 80 GB card holds (944 MB of pre and 472 MB of bf16 gz for
 // that stage). Design: F1 is K3's block tile (64 channels x 64 frames x 4
 // rows a pass, 256 threads: conv3x3_tc.cuh's in bfloat16, its split-TF32
-// counterpart conv3x3_tf32.cuh in float32); B3 the block tile in bfloat16,
-// the SIMT row of conv3x3_common.cuh in float32 (64 channels x 128 frames,
-// halo and weights in shared memory); B1 and B2's gz pass
+// counterpart conv3x3_tf32.cuh in float32), and so is B3 on the
+// transposed weights; B1 and B2's gz pass
 // stream one (b, channel, pooled row) per block; the dW pass gives each
 // block a share of the depth, split over the (b, f) rows and, where B * F
 // is small (stage 3: 8 rows at batch 2), over frames, so that every SM
@@ -155,39 +154,6 @@ ct_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
   }
 }
 
-// dh row f of the block's tile: the conv of gz (channels cout) with the
-// transposed, flipped weights, giving channels [c0, c0 + 64) of cin.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ct_dx_kernel(const T* __restrict__ gz, const T* __restrict__ w, T* __restrict__ dh, int cin,
-             int f_dim, int t_dim, int cout) {
-  extern __shared__ float smem[];
-  float* xs = smem;                    // [3][kCC][kXW]
-  float* ws = smem + 3 * kCC * kXW;    // [9][kCC][kBCO]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int t0 = blockIdx.x * kBT;
-  const int c0 = blockIdx.y * kBCO;
-  const int b = blockIdx.z / f_dim, f = blockIdx.z % f_dim;
-  const T* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  conv_row_widecin(xs, ws, gb, w, f, c0, t0, cout, f_dim, t_dim, cin, tx, ty, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty + 16 * i;
-    if (c >= cin) continue;
-    T* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + f) * t_dim;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int t = t0 + tx + 16 * j;
-      if (t < t_dim) store_f(drow + t, acc[i][j]);
-    }
-  }
-}
-
 // F1's epilogue of one pass on either block tile: this warp's conv row f of
 // acc (64 channels x 32 frames) written once to pre, its per-channel sums
 // added to red (tb_add_sums) in a fixed order.
@@ -275,8 +241,8 @@ ct_stats_tf32_kernel(const float* __restrict__ h, const float* __restrict__ w,
 
   const int n_rows = min(rows, f_dim - f_first);
   tb_zero_sums(red);
-  FtPipe pipe(reinterpret_cast<float*>(ft_smem), hb, w, f_first, n_rows, co0, t0, cin, f_dim,
-              t_dim, cout);
+  FtPipe<false> pipe(reinterpret_cast<float*>(ft_smem), hb, w, f_first, n_rows, co0, t0, cin,
+                     f_dim, t_dim, cout);
   TbAcc acc;
   while (pipe.pass(acc)) {
     if (pipe.row >= n_rows) continue;
@@ -327,6 +293,50 @@ ct_dx_tc_kernel(const bf16* __restrict__ gz, const bf16* __restrict__ w, bf16* _
   }
 }
 
+// dh's float32 body: the same rows on the split-TF32 tile (FtPipe<true>:
+// the weights w[8 - tap][c][co] split once at staging, gz's rows split as
+// read), each warp's 64 x 32 tile of row f0 + pipe.row stored in float32
+// (pairs of frames where aligned), masked to c < Cin and t < T. At 255
+// registers a thread: the row taken once a pass (fr); with f0 + pipe.row in
+// each row's address ptxas spilled 8 bytes (PERF.md §6).
+__global__ void __launch_bounds__(kTcThreads, 1)
+ct_dx_tf32_kernel(const float* __restrict__ gz, const float* __restrict__ w,
+                  float* __restrict__ dh, int cin, int f_dim, int t_dim, int cout) {
+  extern __shared__ __align__(16) unsigned char ft_smem[];
+  const int t0 = blockIdx.x * kTbT;
+  const int c0 = blockIdx.y * kTcCo;
+  const int blocks_f = ceil_div(f_dim, kTbSlots);
+  const int b = blockIdx.z / blocks_f, f0 = (blockIdx.z % blocks_f) * kTbSlots;
+  const float* gb = gz + static_cast<size_t>(b) * cout * f_dim * t_dim;
+  const int n_rows = min(kTbSlots, f_dim - f0);
+  FtPipe<true> pipe(reinterpret_cast<float*>(ft_smem), gb, w, f0, n_rows, c0, t0, cout, f_dim,
+                    t_dim, cin);
+  TbAcc acc;
+  while (pipe.pass(acc)) {
+    if (pipe.row >= n_rows) continue;
+    const int lane = threadIdx.x % 32, half = (threadIdx.x / 32) % 2, fr = f0 + pipe.row;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = c0 + tb_m(lane, mi, 2 * hh);
+        if (c >= cin) continue;
+        float* drow = dh + ((static_cast<size_t>(b) * cin + c) * f_dim + fr) * t_dim;
+#pragma unroll
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          const int t = t0 + tb_n(half, lane, ni, 0);
+          const float v0 = acc[mi][ni][2 * hh], v1 = acc[mi][ni][2 * hh + 1];
+          if (t + 1 < t_dim && reinterpret_cast<uintptr_t>(drow + t) % 8 == 0) {
+            *reinterpret_cast<float2*>(drow + t) = make_float2(v0, v1);
+          } else {
+            if (t < t_dim) drow[t] = v0;
+            if (t + 1 < t_dim) drow[t + 1] = v1;
+          }
+        }
+      }
+  }
+}
+
 // Run f(T{}) with T the storage type of `dtype`.
 template <typename F>
 cudaError_t by_dtype(int dtype, F&& f) {
@@ -334,8 +344,6 @@ cudaError_t by_dtype(int dtype, F&& f) {
   if (dtype == kBF16) return f(__nv_bfloat16{});
   return cudaErrorInvalidValue;
 }
-
-constexpr size_t kConvSmem = sizeof(float) * (3 * kCC * kXW + 9 * kCC * kBCO);
 
 }  // namespace
 
@@ -456,29 +464,30 @@ extern "C" int seld_ct_train_dw(const void* h, const void* gz, void* partials, v
                                         9 * cin * cout, s));
 }
 
-// B3: dh (B, Cin, F, T) in the input dtype from gz (B, Cout, F, T) and w.
+// B3: dh (B, Cin, F, T) in the input dtype from gz (B, Cout, F, T) and w,
+// on the block tiles' grid (64 frames x 64 channels x 4 rows a block).
 extern "C" int seld_ct_train_dx(const void* gz, const void* w, void* dh, int batch, int cin,
                                 int f_dim, int t_dim, int cout, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (cin < 1 || cout < 1 || batch * f_dim > 65535) return cudaErrorInvalidValue;
+  if (cin < 1 || cout < 1 || batch * ceil_div(f_dim, kTbSlots) > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cin, kTcCo), batch * ceil_div(f_dim, kTbSlots));
   return static_cast<int>(by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
     if constexpr (sizeof(T) == 2) {
       constexpr size_t smem = tb_ring_bytes<true>();
       cudaError_t e = set_smem(ct_dx_tc_kernel, smem);
       if (e != cudaSuccess) return e;
-      const dim3 grid(ceil_div(t_dim, kTbT), ceil_div(cin, kTcCo),
-                      batch * ceil_div(f_dim, kTbSlots));
       ct_dx_tc_kernel<<<grid, kTcThreads, smem, s>>>(
           static_cast<const bf16*>(gz), static_cast<const bf16*>(w), static_cast<bf16*>(dh),
           cin, f_dim, t_dim, cout);
     } else {
-      cudaError_t e = set_smem(ct_dx_kernel<T>, kConvSmem);
+      constexpr size_t smem = ft_ring_bytes();
+      cudaError_t e = set_smem(ct_dx_tf32_kernel, smem);
       if (e != cudaSuccess) return e;
-      const dim3 grid(ceil_div(t_dim, kBT), ceil_div(cin, kBCO), batch * f_dim);
-      ct_dx_kernel<T><<<grid, kThreads, kConvSmem, s>>>(
-          static_cast<const T*>(gz), static_cast<const T*>(w), static_cast<T*>(dh), cin,
-          f_dim, t_dim, cout);
+      ct_dx_tf32_kernel<<<grid, kTcThreads, smem, s>>>(
+          static_cast<const float*>(gz), static_cast<const float*>(w), static_cast<float*>(dh),
+          cin, f_dim, t_dim, cout);
     }
     return cudaGetLastError();
   }));

@@ -1,6 +1,6 @@
 // The tensor-core 3x3 conv tiles of the bfloat16 CNN stages. In float32 the
 // block tile has a split-TF32 counterpart (conv3x3_tf32.cuh: K3, K10b, K9's
-// F1 and F2); the other float32 stages keep the SIMT tile of
+// F1, F2 and dh); the other float32 stages keep the SIMT tile of
 // conv3x3_common.cuh.
 //
 // Two tiles share one K walk (below). TbPipe, the block tile, serves

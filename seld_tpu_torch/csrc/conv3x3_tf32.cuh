@@ -1,8 +1,8 @@
 // The float32 block tile of the CNN stages 2-3: TbPipe's geometry
 // (conv3x3_tc.cuh) in split TF32. It serves K3 and K10b
-// (conv3x3_bn_relu_fpool.cu: the serving stage and K9's F2) and K9's F1
-// (conv3x3_ct_train.cu) in float32; K9's float32 dh stays on the SIMT row of
-// conv3x3_common.cuh.
+// (conv3x3_bn_relu_fpool.cu: the serving stage and K9's F2) and K9's F1 and
+// dh (conv3x3_ct_train.cu; dh on the transposed weights, FtPipe<true>) in
+// float32.
 //
 // A conv row is an implicit GEMM: M = 64 output channels, N = frames, K = 9
 // taps x Cin, walked in chunks of 8 input channels, one m16n8k8 TF32 step per
@@ -97,9 +97,12 @@ static __device__ __forceinline__ void ft_stage_x(float* __restrict__ xs,
 // This thread's weight items of the chunk at channel c0, by 4-byte
 // cp.async into the stage's lo plane, where ft_split_w splits them: item e =
 // threadIdx.x + 256 j is the A fragment of tap e / 128, m16 tile (e / 32) % 4
-// and lane e % 32 (g = lane / 4, t = lane % 4), its four words a0 (co g, ci
-// t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of w (3, 3, Cin, Cout)
-// at e * 4, zero past Cin and Cout.
+// and lane e % 32 (g = lane / 4, t = lane % 4), its four words a0 (m g, k
+// t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) at e * 4, zero past K
+// (cin) and M (cout). Forward (kT false): (tap, k, m) is w[tap][k][m] of w
+// (3, 3, K, M). Transposed (kT true, dh): it is w[8 - tap][m][k] of w stored
+// (3, 3, M, K), the flipped taps with the channels swapped.
+template <bool kT>
 static __device__ __forceinline__ void ft_load_w(uint32_t* __restrict__ w_hi,
                                                  const float* __restrict__ w, int c0, int co0,
                                                  int cin, int cout) {
@@ -114,8 +117,9 @@ static __device__ __forceinline__ void ft_load_w(uint32_t* __restrict__ w_hi,
     for (int r = 0; r < 4; ++r) {
       const int m = co + (r % 2) * 8, k = ci + (r / 2) * 4;
       const bool ok = k < cin && m < cout;
-      cp_async4(raw + 4 * e + r, ok ? w + (static_cast<size_t>(tap) * cin + k) * cout + m : w,
-                ok ? 4 : 0);
+      const float* src = kT ? w + (static_cast<size_t>(8 - tap) * cout + m) * cin + k
+                            : w + (static_cast<size_t>(tap) * cin + k) * cout + m;
+      cp_async4(raw + 4 * e + r, ok ? src : w, ok ? 4 : 0);
     }
   }
 }
@@ -183,7 +187,9 @@ static __device__ __forceinline__ void ft_mma_chunk(const float* __restrict__ xs
 // every (pass, chunk): chunk i + 1 loads while chunk i multiplies, the next
 // pass's first chunk during this pass's last. Every thread of the block must
 // construct it and call pass() until it returns false. Each pass ends in a
-// barrier, before its epilogue.
+// barrier, before its epilogue. kT: the weights as ft_load_w<kT> reads them
+// (true: dh's transposed conv, x = gz with K its channels, M dh's).
+template <bool kT>
 struct FtPipe {
   float* smem;
   const float* xb;
@@ -201,7 +207,7 @@ struct FtPipe {
     it = 0;
     next_pass = 0;
     row = threadIdx.x / 64;
-    ft_load_w(reinterpret_cast<uint32_t*>(smem + kFtXWords), w, 0, co0, cin, cout);
+    ft_load_w<kT>(reinterpret_cast<uint32_t*>(smem + kFtXWords), w, 0, co0, cin, cout);
     ft_stage_x(smem, xb, f_first - 1, 0, t0, cin, f_dim, t_dim, xvec);
     cp_async_commit();
     cp_async_wait_all();
@@ -229,7 +235,7 @@ struct FtPipe {
       if (more) {   // the next (pass, chunk) by cp.async: weights raw, x
         const int nf = f_first + (last ? next_pass : next_pass - 1) * kTbSlots - 1;
         const int nc = (last ? 0 : chunk + 1) * kFtCc;
-        ft_load_w(reinterpret_cast<uint32_t*>(nxt + kFtXWords), w, nc, co0, cin, cout);
+        ft_load_w<kT>(reinterpret_cast<uint32_t*>(nxt + kFtXWords), w, nc, co0, cin, cout);
         ft_stage_x(nxt, xb, nf, nc, t0, cin, f_dim, t_dim, xvec);
         cp_async_commit();
       }

@@ -28,7 +28,9 @@ CUDA tensors and runs its plain version for CPU tensors:
 - B1 :func:`ct_sel_stats` — S_g and S_gx, routed from ``pre``;
 - B2 :func:`ct_gz` — g_z, written once in the input dtype, and
   :func:`ct_dw` — dW from g_z and h;
-- B3 :func:`ct_dx` — dh, the transposed conv of g_z with w.
+- B3 :func:`ct_dx` — dh, the transposed conv of g_z with w, on the block
+  tile with the weights read flipped and transposed (split TF32 in float32,
+  ``mma.sync`` in bfloat16).
 
 B1 and B2 read ``pre`` where the TPU kernel recomputed the conv: on an 80 GB
 card the float pre-activation of a flagship stage 2 at batch 8 (944 MB) is
@@ -45,7 +47,7 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
-    TC_BLOCK_T, conv2d_widecin_bn_relu_fpool, tc_block_rows,
+    TC_BLOCK_T, TC_SLOTS, conv2d_widecin_bn_relu_fpool, tc_block_rows,
 )
 from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_plain, dw_split
 
@@ -245,7 +247,9 @@ def ct_dx_plain(gz, w) -> torch.Tensor:
 
 def ct_dx(gz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """gz (B, Cout, F, T), w (3, 3, C, Cout) of one dtype -> dh (B, C, F, T)
-    in that dtype."""
+    in that dtype: the block tile on the transposed weights (``FtPipe<true>``
+    in float32, ``TbPipe<true>`` in bfloat16), 64 channels x 64 frames x 4
+    rows a block."""
     if gz.ndim != 4 or w.ndim != 4 or tuple(w.shape[:2]) != (3, 3) or w.shape[3] != gz.shape[1]:
         raise ValueError(f"gz {tuple(gz.shape)} and w {tuple(w.shape)} must be (B, Cout, F, T) "
                          "and (3, 3, C, Cout)")
@@ -254,8 +258,8 @@ def ct_dx(gz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     code, lib = _launch_prelude(gz, w, "ct_dx")
     b, cout, f, t = gz.shape
     c = w.shape[2]
-    if b * f > GRID_MAX:
-        raise ValueError("B * F exceeds the grid's z range")
+    if b * -(-f // TC_SLOTS) > GRID_MAX:
+        raise ValueError("B * F / 4 exceeds the grid's z range")
     dh = torch.empty((b, c, f, t), dtype=gz.dtype, device=gz.device)
     err = lib.seld_ct_train_dx(gz.data_ptr(), w.data_ptr(), dh.data_ptr(), b, c, f, t, cout,
                                code, stream_handle(gz.device))

@@ -4,9 +4,9 @@
 counterparts past head dim 128, K7's ``hamilton_tf32_kernel``, the dW tile
 ``ct_dw_tf32_kernel`` of K9 and K5, the conv-pool GEMM tile of K2w and
 K10a, ``smallcin_wide_tf32_kernel`` / ``im2col_tf32_kernel``, and the conv
-block tile of K3, K10b and K9's F1 / F2, ``conv3x3_tf32_kernel`` /
-``ct_stats_tf32_kernel``; helpers in ``csrc/mma.cuh``), in plain PyTorch for
-the tests: no wrapper calls it.
+block tile of K3, K10b and K9's F1 / F2 / dh, ``conv3x3_tf32_kernel`` /
+``ct_stats_tf32_kernel`` / ``ct_dx_tf32_kernel``; helpers in
+``csrc/mma.cuh``), in plain PyTorch for the tests: no wrapper calls it.
 
 A float32 x is split as x = hi + lo with hi = tf32(x) and lo = tf32(x - hi),
 tf32 rounding as ``cvt.rna.tf32.f32`` does (to nearest, ties away from
@@ -22,9 +22,9 @@ tensor cores sum a step's products in their own order and truncate, which
 the card's tests hold to float64).
 :func:`smallcin_wide_product_tf32_plain` and :func:`im2col_product_tf32_plain`
 repeat K2w's and K10a's products so, in K order (K2w's over the pack rows
-it walks), before the plain epilogue; :func:`conv_rows_tf32_plain` and
-:func:`conv_pool_tf32_plain` the block tile's, in its K walk (chunks of 8
-channels, the nine taps in each).
+it walks), before the plain epilogue; :func:`conv_rows_tf32_plain`,
+:func:`conv_pool_tf32_plain` and :func:`ct_dx_tf32_plain` the block tile's,
+in its K walk (chunks of 8 channels, the nine taps in each).
 :func:`conv_dw_tf32_plain` repeats the dW tile's, whose two levels are a
 64-frame step (eight k8 steps) and the block's float accumulator, and
 whose blocks' partial rows are summed in float64.
@@ -173,6 +173,17 @@ def conv_pool_tf32_plain(x: torch.Tensor, w: torch.Tensor, scale, bias,
     :func:`conv_rows_tf32_plain`, then the plain epilogue (affine, ReLU,
     max over pool_f rows). ``conv2d_bn_relu_fpool_plain``'s contract."""
     return _epilogue(conv_rows_tf32_plain(x, w), scale, bias, pool_f, x.dtype).contiguous()
+
+
+def ct_dx_tf32_plain(gz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K9's float32 dh arithmetic (``ct_dx_tf32_kernel``, the block tile on
+    the transposed weights) on gz (B, Cout, F, T) and w (3, 3, Cin, Cout)
+    float32 -> (B, Cin, F, T) float32: :func:`conv_rows_tf32_plain` of gz
+    with w flipped in both taps and its channels swapped (tap (dy, dx) takes
+    w[2 - dy][2 - dx] transposed), so the K walk is gz's channels in chunks
+    of 8, the nine taps in each. ``conv2d_ct_train.ct_dx_plain``'s
+    contract."""
+    return conv_rows_tf32_plain(gz, w.flip(0, 1).transpose(2, 3))
 
 
 def _heads_first(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:

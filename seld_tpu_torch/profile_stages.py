@@ -31,8 +31,9 @@ dispatch baseline, always runs. Sections:
   K9's dW at stage 2 and K5's B2 at stage 1 (its float32 g_z pass, then
   the split-TF32 dW tile) each beside cuDNN's weight gradient, K2w at
   stage 1 and K10a at stages 1-3 (the conv-pool GEMM tile, each wrapper
-  with its operand build), and at stage 2 K3, K10b and K9's F1 (the conv
-  block tile), beside cuDNN's float32 conv of the stage;
+  with its operand build), at stage 2 K3, K10b and K9's F1 (the conv
+  block tile), beside cuDNN's float32 conv of the stage, and K9's dh at
+  stages 2 and 3 (the block tile on the transposed weights);
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -349,6 +350,8 @@ def f32(batch, device, shapes=FLAGSHIP):
                        xx, ww, scale, bias, pf_), (x, w))
             yield "f32: K9 F1 stage 2", lambda xx, ww, pf_=pf_i: k9.ct_train_stats(xx, ww, pf_), \
                 (x, w)
+        if i > 1:   # K9's dh on the same tile, x standing in for g_z (Cin = Cout here)
+            yield f"f32: K9 dh stage {i}", lambda zz, ww: k9.ct_dx(zz, ww), (x, w)
         yield (f"f32: cuDNN conv stage {i}", lambda xx, ww: F.conv2d(xx, ww, padding=1),
                (x, w.permute(3, 2, 0, 1).contiguous()))
         del x, w

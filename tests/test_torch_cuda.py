@@ -226,7 +226,7 @@ TILE_SHAPES = [(2, 12, 24, 300, 80, 8), (1, 24, 16, 129, 200, 4), (2, 200, 8, 30
 def test_conv_tile_ragged(gen, dtype, b, cin, f, t, cout, pf):
     """K3's kernel (the block tile: bfloat16 on mma.sync, float32 in split
     TF32) against its plain version at ragged shapes; then K9's dh pass (the
-    transposed block tile in bfloat16, SIMT in float32) on the same shapes
+    block tile on the transposed weights, in both dtypes) on the same shapes
     (Cin and Cout swapped)."""
     x = torch.randn(b, cin, f, t, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5).to(dtype)
@@ -313,16 +313,10 @@ def test_flash_attention_padded_head_dims(gen, dtype, b, t, h, d):
 
 def _attention_kernels(fn) -> list:
     """The flash_* device kernels one fn() call launches, by the profiler's
-    (demangled) names."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    (demangled) names, from a capture checked whole (``device_events``)."""
+    from seld_tpu_torch.utils.profiling import device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+    return [e.key for e in device_events(fn)[0] if "flash_" in e.key]
 
 
 def k5_inputs(gen, b, cin, f, t, cout, dtype):
@@ -829,6 +823,57 @@ def test_ct_dw_tf32_keeps_nans(gen, bits):
     got, want = k9.ct_dw(h, gz), _dw_plain_f32(h, gz)
     assert bool(torch.isnan(want).any()) and not bool(torch.isnan(want).all())
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+def _dx_plain_f32(gz, w):
+    """dh in float32 without cuDNN (a float32 GEMM and col2im, TF32 off): the
+    float32 plain version of dh's float64 gate and NaN check, whatever
+    algorithm cuDNN's dgrad would pick."""
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        return k9.ct_dx_plain(gz, w)
+
+
+# K9's float32 dh (ct_dx_tf32_kernel): (b, cin, f, t, cout), several blocks in
+# every grid dimension (64-frame tiles, 64-channel tiles of dh's Cin, passes
+# of 4 rows): Cout 100 and 72 (a ragged last gz chunk of 4; 9 whole chunks),
+# Cin 12 / 200 (ragged dh channels), T 65 / 257 / 300 (one frame in the last
+# tile; T % 4 != 0: 4-byte staging and single stores; 16-byte staging and
+# float2 stores), F 6 / 10 (a short last pass)
+CT_DX_TF32_CASES = [(2, 12, 10, 300, 100), (1, 200, 6, 257, 72), (2, 24, 6, 65, 100),
+                    (3, 200, 10, 300, 100)]
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout", CT_DX_TF32_CASES)
+def test_ct_dx_tf32(gen, b, cin, f, t, cout):
+    """K9's float32 dh (the split-TF32 block tile on the transposed weights)
+    on real-valued gz and w: one launch, within 4x the float32 plain
+    version's distance from float64, within 2e-4 x max of ct_dx_plain, and
+    bitwise on a rerun."""
+    gz = torch.randn(b, cout, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cout) ** 0.5
+    got = k9.ct_dx(gz, w)
+    assert launch_counts["ct_train_dx"] == 1
+    _f64_gate(f"K9 dh {b}x{cout}x{f}x{t}->{cin}", got, _dx_plain_f32(gz, w),
+              k9.ct_dx_plain(gz.double(), w.double()))
+    _close(got, k9.ct_dx_plain(gz, w), torch.float32)
+    assert torch.equal(k9.ct_dx(gz, w), got)
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_ct_dx_tf32_keeps_nans(gen, bits):
+    """A NaN in gz (batch 0 inside a tile, batch 1 at the last frame of the
+    last gz channel) of K9's float32 dh comes out NaN exactly where the plain
+    version's does (without cuDNN), and the rest within tolerance."""
+    b, cin, f, t, cout = 2, 72, 10, 300, 100
+    gz = torch.randn(b, cout, f, t, generator=gen, device="cuda")
+    gz = _put_nan(_put_nan(gz, (0, 5, 3, 60), bits), (1, cout - 1, 9, t - 1), bits)
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cout) ** 0.5
+    got, want = k9.ct_dx(gz, w), _dx_plain_f32(gz, w)
+    assert launch_counts["ct_train_dx"] == 1
+    nan = torch.isnan(want)
+    assert bool(nan[0].any()) and bool(nan[1].any()) and not bool(nan.all())
+    assert torch.equal(torch.isnan(got), nan)
+    _close(got.masked_fill(nan, 0), want.masked_fill(nan, 0), torch.float32)
 
 
 @pytest.mark.parametrize("bits", NAN_BITS)

@@ -10,7 +10,9 @@ as the float32 plain version, and so do K5's dW tile
 K10a's products (``smallcin_wide_product_tf32_plain``,
 ``im2col_product_tf32_plain``, at stage-1 and stage-2 depth), the conv
 block tile of K3, K10b and K9's F1 / F2 (``conv_rows_tf32_plain``,
-``conv_pool_tf32_plain``, at K3's stage-2 depth and K10b's Cin 12) and K7's,
+``conv_pool_tf32_plain``, at K3's stage-2 depth and K10b's Cin 12), K9's dh
+on the same tile (``ct_dx_tf32_plain``, at the stage-2 depth and a ragged
+Cout chunk) and K7's,
 K4's and K6's whole arithmetic (``hamilton_matmul_tf32_plain``,
 ``flash_attention_tf32_plain``, ``flash_attention_bwd_tf32_plain``; K4
 and K6 also past head dim 128, at the wide kernels' padded D), which also
@@ -30,7 +32,7 @@ from seld_tpu_torch.ops.kernels.conv2d_train import dw_plain
 from seld_tpu_torch.ops.kernels.qmatmul import hamilton_matmul_plain
 from seld_tpu_torch.ops.kernels.tf32 import (
     conv_dw_tf32_plain, flash_attention_bwd_tf32_plain, flash_attention_tf32_plain,
-    conv_pool_tf32_plain, conv_rows_tf32_plain, hamilton_matmul_tf32_plain,
+    conv_pool_tf32_plain, conv_rows_tf32_plain, ct_dx_tf32_plain, hamilton_matmul_tf32_plain,
     im2col_product_tf32_plain, smallcin_wide_product_tf32_plain, tf32_add_half_and_mask,
     tf32_round_plain, tf32_split_plain,
 )
@@ -422,3 +424,71 @@ def test_conv_tile_split_arithmetic_matches_jax(name, cin, pf):
     for g_, w_ in ((out, want_out), (mean, jmean), (var, jvar)):
         w_ = np.asarray(w_, np.float64)
         np.testing.assert_allclose(g_.double().numpy(), w_, rtol=0, atol=2e-4 * np.abs(w_).max())
+
+
+# (b, cin, f, t, cout): dh's K = 9 x Cout, gz's channels in chunks of 8: K9's
+# stage-2 depth (Cout 192: 24 chunks) and a ragged last chunk (Cout 100), Cin
+# (dh's channels) against the tile's 64, T against its 64 frames
+CT_DX_DEPTHS = [(1, 72, 8, 70, 192), (2, 12, 10, 130, 100)]
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout", CT_DX_DEPTHS, ids=["stage-2-depth", "cout-100"])
+def test_ct_dx_split_arithmetic(b, cin, f, t, cout):
+    """K9's float32 dh arithmetic (the block tile on the transposed weights:
+    gz and w split, each k8 step of one tap x 8 gz channels summed once,
+    added to a float32 accumulator in the K walk) within 4x the float32
+    plain version's max|d| from float64 (the card's gate)."""
+    from seld_tpu_torch.ops.kernels.conv2d_ct_train import ct_dx_plain
+
+    rng = np.random.default_rng(7)
+    gz = torch.from_numpy(rng.standard_normal((b, cout, f, t)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cout))
+                         .astype(np.float32))
+    got = ct_dx_tf32_plain(gz, w)
+    exact = ct_dx_plain(gz.double(), w.double())
+    d_split, d_plain = _dist(got, exact), _dist(ct_dx_plain(gz, w), exact)
+    assert got.dtype == torch.float32 and got.shape == (b, cin, f, t)
+    assert d_split <= 4 * d_plain, (d_split, d_plain)
+
+
+@pytest.mark.parametrize("cin,cout,pf", [(16, 12, 2), (24, 20, 4)])
+def test_ct_dx_split_arithmetic_matches_jax(cin, cout, pf):
+    """K9's float32 dh arithmetic, fed the g_z of the port's backward (F1's
+    rows on the split tile, the batch statistics in float64 as the kernels'
+    fixed-order reduction takes them, B1 and g_z's plain versions), against
+    the dh of the JAX package's ``conv2d_widecin_ct_bn_relu_fpool_train``
+    through ``jax.vjp`` in interpret mode on the same inputs and cotangent,
+    within 2e-4 x max (the bound ``tests/test_torch_ct_train.py`` holds the
+    op's forward to); Cout 12 and 20 end in a ragged gz chunk."""
+    import jax
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas.conv2d_ct_train import conv2d_widecin_ct_bn_relu_fpool_train
+    from seld_tpu_torch.ops.kernels.conv2d_ct_train import ct_gz_plain, ct_sel_stats_plain
+
+    b, f, t, eps = 2, 8, 40, 1e-5
+    x, w, gamma, beta = _frontend_inputs(8, b, cin, f, t, cout)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((b, cout, f // pf, t))
+                         .astype(np.float32))
+    pre = conv_rows_tf32_plain(x, w)
+    mean = pre.double().mean((0, 2, 3))
+    var = torch.clamp((pre.double() ** 2).mean((0, 2, 3)) - mean * mean, min=0.0)
+    mean, inv = mean.float(), torch.rsqrt(var.float() + eps)
+    scale = gamma * inv
+    bias, zero, n = beta - mean * scale, torch.zeros(cout), b * f * t
+    sel = ct_sel_stats_plain(pre, g, torch.stack([scale, bias, mean, inv, zero, zero]), pf)
+    gz = ct_gz_plain(pre, g, torch.stack([scale, bias, mean, inv, sel[:cout] / n,
+                                          sel[cout:] / n]), pf)
+    got = ct_dx_tf32_plain(gz, w)
+
+    def jfn(h_):
+        return conv2d_widecin_ct_bn_relu_fpool_train(
+            h_, t, *(jnp.asarray(a.numpy()) for a in (w, gamma, beta)), pf, eps, interpret=True)
+
+    (out, mean_j, var_j), vjp = jax.vjp(jfn, jnp.asarray(x.numpy().transpose(0, 2, 1, 3)))
+    cot = np.zeros(out.shape, np.float32)                          # (B, F', Cout, tpad)
+    cot[..., :t] = g.numpy().transpose(0, 2, 1, 3)
+    (dh,) = vjp((jnp.asarray(cot), jnp.zeros_like(mean_j), jnp.zeros_like(var_j)))
+    want = np.asarray(dh, np.float64).transpose(0, 2, 1, 3)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
