@@ -13,8 +13,9 @@ Phases, each printing its own lines:
    tensor-core kernel (TC_KERNELS: K1's bf16 GEMM, K2's bf16 stage 1, the
    GEMM tile of K10a and K2w, K4 / K6 past head dim 128, K8's int8 GEMM and
    the split-TF32 float32 kernels of K4, K6 (past head dim 128 too), K7,
-   the dW tile of K9 and K5, K2w and K10a, and the conv block tile of K3,
-   K10b and K9's F1 / F2 among them), failing if one has
+   the dW tile of K9 and K5, K2w and K10a, the conv block tile of K3,
+   K10b and K9's F1 / F2, and the float smallcin tile of K2 and K5's F1 /
+   F2 / g_z among them), failing if one has
    none or if a K4 / K6 kernel past
    head dim 128 or a split-TF32 kernel spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
@@ -30,8 +31,10 @@ Phases, each printing its own lines:
    plain version and of one PyTorch library call where there is one; the
    conv tile at ragged Cin, Cout, T and pf (TILE_CASES) as K3 and as K9's
    dh, and K3's pooled output against K9 F1's pre bit for bit on random
-   bf16 inputs at the flagship's stage 2; K5 in both dtypes (float32's SIMT
-   F1, F2 and g_z pass and split-TF32 dW tile, bfloat16's tensor-core
+   bf16 inputs at the flagship's stage 2, and K2's float32 output against
+   K10b's bit for bit at the flagship's stage 1 on random inputs; K5 in
+   both dtypes (float32's F1, F2 and g_z pass on the float smallcin tile,
+   F1's sums held to float64, and the split-TF32 dW tile, bfloat16's tensor-core
    passes: F1, F2, the g_z pass and the dW tile; B2 as g_z + dW beside
    cuDNN's weight gradient and, in float32, its bounds) and, at the
    flagship's stage 1 on random inputs in both
@@ -55,7 +58,8 @@ Phases, each printing its own lines:
    there is one, and their float32 bound (the ``[f32]`` lines), the
    split-TF32 kernels (K4 and K6 at D 48 and 160, K7 at M 9600 with dx
    through the autograd Function, K9's dW at stage 2 and K5's at stage 1,
-   on the grid's inputs and on real-valued ones; K2w at stage 1 and K10a
+   on the grid's inputs and on real-valued ones; K2 and K5's F1 sums at
+   stage 1, K2w at stage 1 and K10a
    at stages 1-3, K3 at stages 2-3, K10b at stages 1-3, K9's F1 / F2 at
    stage 2 and K9's dx at stages 2-3 on real-valued inputs, rerun bitwise)
    also held to float64: each within F64_FACTOR x the float32 plain
@@ -273,8 +277,9 @@ PREDICT_STEPS_TIMED = 3
 # bf16-output GEMM, K2's bf16 stage 1, the GEMM tile of K10a and K2w, and K8's
 # int8 GEMM (IMMA); and the float32 kernels of K4, K6 (and their three past head
 # dim 128, in column groups: WIDE_TF32_ATTN_KERNELS), K7, the dW tile and the GEMM
-# tile of K2w and K10a and the conv block tile of K3 / K10b / K9's F2, K9's F1 and
-# K9's dh in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32
+# tile of K2w and K10a, the conv block tile of K3 / K10b / K9's F2, K9's F1 and
+# K9's dh, and the float smallcin tile of K2 / K5's F2, K5's F1 and K5's g_z pass
+# in split TF32 (TF32_KERNELS: HMMA.1688.F32.TF32, three products a float32
 # product; the dW tile's 32-channel Cin tile is K9's, its 16- and 8-channel ones
 # K5's; K2w's instances walk 8-32 pack rows)
 WIDE_ATTN_KERNELS = ("flash_fwd_wide_tc_kernel", "flash_dq_wide_tc_kernel",
@@ -285,7 +290,8 @@ TF32_KERNELS = ("flash_fwd_tf32_kernel", "flash_dq_tf32_kernel", "flash_dkv_tf32
                 *WIDE_TF32_ATTN_KERNELS, "hamilton_tf32_kernel", "ct_dw_tf32_kernelILi32E",
                 "ct_dw_tf32_kernelILi16E", "ct_dw_tf32_kernelILi8E", "smallcin_wide_tf32_kernel",
                 "im2col_tf32_kernel", "conv3x3_tf32_kernel", "ct_stats_tf32_kernel",
-                "ct_dx_tf32_kernel")
+                "ct_dx_tf32_kernel", "smallcin_tf32_kernel", "train_stats_tf32_kernel",
+                "train_gz_tf32_kernel")
 TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "train_stats_tc_kernel", "train_gz_tc_kernel", "ct_dw_tc_kernelILi32E",
               "ct_dw_tc_kernelILi16E", "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
@@ -305,12 +311,13 @@ PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
                  "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
                  "K5 F1": ("train_stats_tc_kernel",),
                  "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
-# the profiled float32 steps of phase 5a: K5's passes apart (F1 SIMT, F2 K2's
-# SIMT kernel, B1, the g_z pass, the split-TF32 dW tile), K4, K6 and K9's F1,
-# F2 and dx (the split-TF32 block tile) and dW in the pallas-ct step
-F32_STEP_WATCH = {"K5 F1": ("::stats_kernel<float",),
-                  "K5 F2": ("conv3x3_smallcin_kernel<float",),
-                  "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_kernel<",),
+# the profiled float32 steps of phase 5a: K5's passes apart (F1, F2 = K2's
+# kernel and the g_z pass on the float smallcin tile, B1, the split-TF32 dW
+# tile), K4, K6 and K9's F1, F2 and dx (the split-TF32 block tile) and dW in the
+# pallas-ct step
+F32_STEP_WATCH = {"K5 F1": ("train_stats_tf32_kernel<",),
+                  "K5 F2": ("smallcin_tf32_kernel<",),
+                  "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_tf32_kernel<",),
                   "K5 dW": ("ct_dw_tf32_kernel<8>",),
                   **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")},
                   "K9 F1": ("ct_stats_tf32_kernel",), "K9 F2": ("conv3x3_tf32_kernel",),
@@ -622,6 +629,7 @@ def phase_kernels(torch, card: str) -> dict:
     )
     from seld_tpu_torch.ops.kernels.conv2d_pool import (
         conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain, conv2d_smallcin_bn_relu_fpool,
+        conv2d_windows_bn_relu_fpool,
     )
     from seld_tpu_torch.ops.kernels.stft import stft_mag, stft_mag_plain, stft_route
 
@@ -743,17 +751,24 @@ def phase_kernels(torch, card: str) -> dict:
             got = k()
             d = compare(torch, name, label, got, p(), dt, card, timed)
             if tag == "flagship" and dt == torch.float32:
+                # K2 on the float smallcin tile, K3 on the float block tile
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
-                tile = name == "conv3x3_widecin"   # K3: the split-TF32 block tile
                 f32_row(card, name, label, timed[0],
                         time_ms(torch, lambda: F.conv2d(x, w_nchw, padding=1)),
-                        2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got), split_tf32=tile)
-                if tile:
-                    exact = conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(),
-                                                       bias.double(), pf)
-                    f64_gate(card, name, label, got, p(), exact)
-                    require(torch.equal(k(), got), f"{name} {label} float32: not repeatable")
-                    del exact
+                        2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got), split_tf32=True)
+                exact = conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(),
+                                                   bias.double(), pf)
+                f64_gate(card, name, label, got, p(), exact)
+                require(torch.equal(k(), got), f"{name} {label} float32: not repeatable")
+                del exact
+                if name == "conv3x3_smallcin":
+                    # one K walk: the smallcin tile's rows are the block tile's (K10b's)
+                    k10b = conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf)
+                    differ = int((k10b != got).sum())
+                    print(f"[kernel] K2 float32 against K10b float32, {label} random inputs: "
+                          f"{differ} of {got.numel()} pooled outputs differ")
+                    require(differ == 0, f"K2 float32 differs from K10b in {differ} places")
+                    del k10b
             # the summary line carries stage 1 (smallcin) and stage 2 (widecin)
             if tag == "flagship" and dt == torch.bfloat16 and f != 4:
                 w_nchw = w.permute(3, 2, 0, 1).contiguous()
@@ -1077,8 +1092,10 @@ def k5_inputs(torch, b, cin, f, t, cout, dtype, gen):
 def phase_k5(torch, card: str, randn, record) -> None:
     """K5: the autograd op against autograd of the plain op, and each pass
     against its plain version, at ragged multi-tile shapes and at the
-    flagship's stage 1 (batch 2): in float32 the SIMT F1, F2 (K2's kernel)
-    and g_z pass and the split-TF32 dW tile, in bfloat16 the tensor-core
+    flagship's stage 1 (batch 2): in float32 F1, F2 (K2's kernel) and the
+    g_z pass on the float smallcin tile (F1's sums on real-valued x also
+    within F64_FACTOR x the float32 plain version's distance from float64)
+    and the split-TF32 dW tile, in bfloat16 the tensor-core
     passes (F1 and g_z on the conv tile, F2 K3's tile through K10b's entry,
     dW on the dW tile); the dW tiles against dW in float64, the float32 one
     also within F64_FACTOR x the float32 plain version's distance (cuDNN's
@@ -1187,10 +1204,18 @@ def phase_k5(torch, card: str, randn, record) -> None:
                     want, label = exact, f"{label}/f64-ref"
                 d = compare(torch, name, label, got, want, tol_dt, card, timed)
                 if tag == "flagship" and not bf16:
+                    # every float32 pass but B1 runs split-TF32 products
                     f32_row(card, name, tag, timed[0],
                             None if library is None else time_ms(torch, library), flops, moved,
-                            split_tf32=name == "conv_train_dw")
+                            split_tf32=name != "conv_train_sel_stats")
                     pass_ms[name] = timed[0]
+                if tag == "flagship" and name == "conv_train_stats" and not bf16:
+                    # F1's sums on real-valued x (the grid's x has no lo part)
+                    xr = randn(*xc.shape)
+                    f64_gate(card, name, f"{tag} randn", k5.conv_train_stats(xr, w, pf),
+                             k5.conv_train_stats_plain(xr, w),
+                             k5.conv_train_stats_plain(xr.double(), w.double()))
+                    del xr
                 if not bf16 and name == "conv_train_dw":
                     # the split-TF32 tile, the float32 plain version without cuDNN
                     # and cuDNN's float32 wgrad against dW in float64: on the
@@ -1296,10 +1321,11 @@ def fma_f32(torch, a, b, c):
 def k5_routing_identity(torch, card: str, randn) -> None:
     """At the flagship's stage 1 (B 2, Cin 8, F 256, T 4800, pf 8) on random
     (not integer-grid) inputs, in both dtypes: K5's F2 (bfloat16: K3's tile
-    through K10b's entry; float32: K2's kernel) pools max_r relu(pre * scale
-    + bias) of the same conv rows (the affine as one fma) bit for bit
-    (bfloat16: K9 F1's pre, the same tile; float32: the g_z pass's own
-    SIMT recompute, fed g = 0, a = -1 and b = 0 so that g_z = acc exactly),
+    through K10b's entry; float32: K2's kernel on the float smallcin tile)
+    pools max_r relu(pre * scale + bias) of the same conv rows (the affine
+    as one fma) bit for bit (bfloat16: K9 F1's pre, the same tile; float32:
+    the g_z pass's own recompute on the float smallcin tile, fed g = 0, a =
+    -1 and b = 0 so that g_z = acc exactly),
     and K5's g_z pass, fed g = 1 and a = b = 0 so that g_z = scale > 0
     exactly where it routes, routes every window to the first row holding
     that max, where the max is > 0."""

@@ -28,7 +28,7 @@ seld_tpu_torch.ab_variants --digest`` once in each copy (this tree's
 per case of :func:`hash_cases`, the first 16 hex digits of the sha256 of
 the output's bytes, for every bfloat16 kernel, the split-TF32 wide kernels
 past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7, K5's
-float32 B2 (the g_z pass and the dW tile at Cin 8 and 10), the
+float32 F1 and B2 (F1, the g_z pass and the dW tile at Cin 8 and 10), the
 conv-pool stages in float32 (K2, K2w, K3, K10a, K10b) and K9's float32
 F1, B1, g_z and dh (B1, g_z and dh on a drawn pre), on inputs from
 one seeded generator on the device. Equal code gives equal bits (every kernel there
@@ -190,11 +190,13 @@ def hash_cases(device):
     out.append(("K5 F1 bf16", lambda: (k5.conv_train_stats(x, w, 8),)))
     out.append(("K5 g_z bf16", lambda: k5.conv_train_gz(*b2)))
     out.append(("K5 dW bf16", lambda: (k5.conv_train_dw_gz(x, k5.conv_train_gz(*b2)[0]),)))
-    # K5's float32 B2: the g_z pass and the split-TF32 dW tile, at Cin 8 and 10
+    # K5's float32 F1, g_z pass and split-TF32 dW tile, at Cin 8 and 10
     for cin5 in (8, 10):
         x5, w5 = randn(2, cin5, 32, 300, dt=torch.float32), randn(3, 3, cin5, 72, dt=torch.float32,
                                                                    sc=0.1)
         b2f = (x5, w5, g.float(), *cols, 8)
+        out.append((f"K5 F1 Cin {cin5} f32", lambda x5=x5, w5=w5: (
+            k5.conv_train_stats(x5, w5, 8),)))
         out.append((f"K5 g_z Cin {cin5} f32", lambda b2f=b2f: k5.conv_train_gz(*b2f)))
         out.append((f"K5 dW Cin {cin5} f32", lambda x5=x5, b2f=b2f: (
             k5.conv_train_dw_gz(x5, k5.conv_train_gz(*b2f)[0]),)))

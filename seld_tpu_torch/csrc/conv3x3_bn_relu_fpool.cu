@@ -16,34 +16,33 @@
 // What bounds it on the H100: arithmetic (2*9*Cin*Cout FLOP per output
 // pixel: stage 2 of the flagship is 102 GFLOP per clip), and, without the
 // fusion, memory: stage 1's unpooled (B, 192, 256, T) activation is 1.9 GB
-// per clip in bf16. Design: smallcin, one block per (b, pooled row, 64-channel
-// Cout tile, 128-frame T tile), 256 threads, in float32 each thread holding a
-// 4-channel x 8-frame float accumulator (SIMT FMA, TF32 off); widecin, the
-// block tiles (64 channels x 64 frames x 4 conv rows a pass): bfloat16 on
-// mma.sync (conv3x3_tc.cuh), float32 in split TF32 (conv3x3_tf32.cuh), each
-// staging its operands through a two-stage ring, float accumulators in the
-// m16n8 fragment layout, its epilogue folding each row into the running max.
-// In the smallcin kernels the input halo (conv rows x channels x (T tile +
-// 2)) and the matching 9 x channels x 64 weight slice are staged in shared
-// memory with the conv's zero padding written at the F and T borders, so the
-// inner loop never branches. The pool rows are computed one after another
-// into the same accumulator and folded into a running max, so only one row of
-// accumulators lives in registers whatever pf is. The smallcin kernels
-// stage the pool window's rows in chunks of at most kScChunkRows (80, on
-// the tensor cores) or simt_chunk_rows (48, or 21 for 16 staged channels):
-// what one staging of chunk + 2 halo rows and the weights fits in shared
-// memory. The running max is carried in registers from chunk to chunk, so
-// any pf dividing F runs; a window that fits one chunk is staged once.
-// - smallcin: all taps and channels (K = 9 x 8 = 72, or 9 x 16 for Cin
-//   9-10) and all pf + 2 halo rows are staged once per block. bfloat16 at
-//   Cin <= 8 (K2 on the serving path): smallcin_tc_kernel below, on the
-//   tensor cores with K = 72 padded to 80 (five k16 steps of two taps x 8
-//   channels; the tile would take nine steps of 16 channels) and the
-//   weights' A fragments held in registers across the pf rows. What bounds
-//   it: operations (0.0687 ms at the flagship's batch 2, against 0.047 ms of
-//   bytes). float32, and bfloat16 at Cin 9-10 (reached only by a direct
-//   call: the router sends Cin <= 8 here, and K5's bf16 forward takes the
-//   tile), stay SIMT.
+// per clip in bf16. Every kernel keeps float accumulators in the m16n8
+// fragment layout of mma.sync, except the SIMT kernel of bfloat16 at Cin
+// 9-10, and folds each conv row into a running max, so only one row of
+// accumulators lives in registers whatever pf is.
+// - smallcin, Cin <= 10, one block per (b, pooled row, 64-channel Cout
+//   tile, frame tiles): all taps and channels of a tile (K = 9 x 8 = 72, or
+//   9 x 16 past Cin 8) and the window's rows + 2 halo rows staged in shared
+//   memory with the conv's zero padding, in chunks of rows: kScChunkRows
+//   (80) in bfloat16 at Cin <= 8, scf_chunk_rows (42, or 16 for 16 staged
+//   channels) in float32, kSimtChunkRows (21) for the rest: what one
+//   staging of chunk + 2 rows fits in shared memory beside the weights.
+//   The running max is carried in registers from chunk to chunk, so any pf
+//   dividing F runs; a window that fits one chunk is staged once.
+//   - bfloat16, Cin <= 8 (K2 on the serving path): smallcin_tc_kernel
+//     below, K = 72 padded to 80 (five k16 steps of two taps x 8 channels)
+//     with the weights' A fragments held in registers across the pf rows.
+//     What bounds it: operations (0.0687 ms at the flagship's batch 2,
+//     against 0.047 ms of bytes).
+//   - float32, Cin <= 10 (K2, and K5's float32 F2): smallcin_tf32_kernel
+//     on the float smallcin tile of conv3x3_smallcin_tf32.cuh, split TF32
+//     (K = 72 is nine m16n8k8 steps; the split weights stay in shared
+//     memory for the block's life), on the float block tile's K walk: its
+//     rows equal K10b's in float32 bit for bit. K5's float32 F1 and g_z
+//     pass share its row function, so F2 pools their rows.
+//   - bfloat16 at Cin 9-10 (reached only by a direct call: the router sends
+//     Cin <= 8 here, and K5's bf16 forward takes the block tile) stays SIMT
+//     (conv3x3_smallcin_kernel on conv_rows<16>, conv3x3_common.cuh).
 // - widecin: Cin is walked in chunks, 4 conv rows at once, 64 channels x 64
 //   frames a block. bfloat16: the block tile (TbPipe of conv3x3_tc.cuh), 16
 //   channels a chunk. float32: its split-TF32 counterpart (FtPipe of
@@ -52,13 +51,14 @@
 //   their conv rows equal these bitwise. The staging zero-fills channels >=
 //   Cin, so a ragged last chunk is exact and any Cin works; the Python
 //   router sends only Cin % 8 == 0 here as K3.
-#include "conv3x3_tf32.cuh"
+#include "conv3x3_smallcin_tf32.cuh"
 
 namespace {
 
-// The smallcin SIMT kernel (float32, and bfloat16 at Cin 9-10): every tap
-// and channel staged once, the window's rows `chunk` at a time. CC: the
-// channels staged at once (kCC, or 2 * kCC for Cin 9-10).
+// The smallcin SIMT kernel, bfloat16 at Cin 9-10 (reached only by a direct
+// call of the entry: the router sends Cin <= 8 here, and K5's bfloat16
+// forward takes the block tile): every tap and channel staged once, the
+// window's rows `chunk` at a time, 2 * kCC staged channels.
 template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_smallcin_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -124,6 +124,83 @@ conv3x3_smallcin_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int t = t0 + tx + 16 * j;
       if (t < t_dim) store_f(orow + t, best[i][j]);
     }
+  }
+}
+
+// K2 in float32 (also K5's float32 F2): the float smallcin tile of
+// conv3x3_smallcin_tf32.cuh, scf_window's rows folded into the running max
+// of relu(acc * scale + bias) (max_nan: a NaN stays a NaN), carried across
+// the window's stagings; the pooled row stored along the frames. A block
+// walks kScfTiles frame tiles of one window and one Cout tile, its weights
+// split once.
+constexpr int kScfTiles = 2;
+
+template <int CC>
+__global__ void __launch_bounds__(kScfThreads, 2)
+smallcin_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     float* __restrict__ out, int cin, int f_dim, int t_dim, int cout, int pf,
+                     int chunk) {
+  extern __shared__ __align__(16) float scf_smem[];
+  uint32_t* w_hi = reinterpret_cast<uint32_t*>(scf_smem);
+  float4* cols = reinterpret_cast<float4*>(scf_smem + 2 * scf_w_words<CC>());
+  float* xs = scf_smem + 2 * scf_w_words<CC>() + kScfCols;
+  const int co0 = blockIdx.y * kTcCo;
+  const int f_out = f_dim / pf;
+  const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
+  const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const bool vec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
+  const bool pairs = t_dim % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+
+  scf_load_w<CC>(w_hi, w, co0, cin, cout);
+  scf_stage_cols(cols, scale, bias, nullptr, nullptr, co0, cout);
+  bool split_w = true;
+  for (int tile = 0; tile < kScfTiles; ++tile) {
+    const int t0 = (blockIdx.x * kScfTiles + tile) * kScfT;
+    if (t0 >= t_dim) break;
+    // relu output is >= 0, so 0 is the identity of the running max
+    float best[4][kTbNi][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kTbNi; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) best[mi][ni][e] = 0.f;
+    scf_window<CC, 1>(xs, w_hi, xb, fo * pf, pf, chunk, t0, cin, f_dim, t_dim, vec, split_w,
+                      [&](int, int, const TbAcc& acc) {
+#pragma unroll
+                     for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+                       for (int h = 0; h < 2; ++h) {
+                         const float4 c = cols[scf_m(mi, 2 * h)];
+#pragma unroll
+                         for (int ni = 0; ni < kTbNi; ++ni)
+#pragma unroll
+                           for (int e2 = 0; e2 < 2; ++e2) {
+                             float& m = best[mi][ni][2 * h + e2];
+                             m = max_nan(m, bn_relu(acc[mi][ni][2 * h + e2], c.x, c.y));
+                           }
+                       }
+                   });
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + scf_m(mi, 2 * h);
+        if (co >= cout) continue;
+        float* orow = out + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
+#pragma unroll
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          const int t = t0 + scf_n(ni, 0);
+          const float v0 = best[mi][ni][2 * h], v1 = best[mi][ni][2 * h + 1];
+          if (pairs && t + 1 < t_dim) {
+            *reinterpret_cast<float2*>(orow + t) = make_float2(v0, v1);
+          } else {
+            if (t < t_dim) orow[t] = v0;
+            if (t + 1 < t_dim) orow[t + 1] = v1;
+          }
+        }
+      }
   }
 }
 
@@ -308,19 +385,15 @@ __host__ __device__ constexpr size_t smallcin_tc_smem_bytes(int rows) {
 }
 
 // Pool rows per halo staging: the most whose rows + 2 staged rows and the
-// weights fit one block. The tensor-core kernel: 80. SIMT: 48 (capped as
-// conv2d_pool.MAX_POOL_F), or 21 for 16 staged channels. Python's
-// conv2d_pool.smallcin_max_pool_f gives the same numbers.
+// weights fit one block. The tensor-core kernel: 80; the SIMT kernel (16
+// staged channels): 21. Python's conv2d_pool.smallcin_max_pool_f gives the
+// same numbers, and scf_chunk_rows's for float32.
 constexpr int kScChunkRows =
     static_cast<int>((kBlockSmem - sizeof(bf16) * kScK * kScWP) /
                      (sizeof(uint32_t) * kScRowWords)) - 2;
-constexpr int kMaxPoolRows = 48;
-template <int CC>
-constexpr int simt_chunk_rows() {
-  const int rows = static_cast<int>((kBlockSmem - sizeof(float) * 9 * CC * kBCO) /
-                                    (sizeof(float) * CC * kXW)) - 2;
-  return rows < kMaxPoolRows ? rows : kMaxPoolRows;
-}
+constexpr int kSimtChunkRows =
+    static_cast<int>((kBlockSmem - sizeof(float) * 9 * 2 * kCC * kBCO) /
+                     (sizeof(float) * 2 * kCC * kXW)) - 2;
 
 // The window's pf rows go in stagings of `chunk` rows (one where pf <= chunk).
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -518,33 +591,37 @@ cudaError_t launch_smallcin_tc(const void* x, const void* w, const float* scale,
   return cudaGetLastError();
 }
 
-template <typename T, int CC>
+// bfloat16 at Cin 9-10: the SIMT kernel with 2 * kCC staged channels.
 cudaError_t launch_smallcin_simt(const void* x, const void* w, const float* scale,
                                  const float* bias, void* out, int batch, int cin, int f_dim,
                                  int t_dim, int cout, int pf, int chunk, cudaStream_t stream) {
-  if (chunk > simt_chunk_rows<CC>()) return cudaErrorInvalidValue;
+  constexpr int CC = 2 * kCC;
+  if (chunk > kSimtChunkRows) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((min(pf, chunk) + 2) * CC * kXW + 9 * CC * kBCO);
-  cudaError_t err = set_smem(conv3x3_smallcin_kernel<T, CC>, smem);
+  cudaError_t err = set_smem(conv3x3_smallcin_kernel<bf16, CC>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(ceil_div(t_dim, kBT), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  conv3x3_smallcin_kernel<T, CC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), scale, bias,
-      static_cast<T*>(out), cin, f_dim, t_dim, cout, pf, chunk);
+  conv3x3_smallcin_kernel<bf16, CC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, bias,
+      static_cast<bf16*>(out), cin, f_dim, t_dim, cout, pf, chunk);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_smallcin(const void* x, const void* w, const float* scale, const float* bias,
-                            void* out, int batch, int cin, int f_dim, int t_dim, int cout,
-                            int pf, int chunk, cudaStream_t stream) {
-  if (sizeof(T) == 2 && cin <= kCC)
-    return launch_smallcin_tc(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout, pf,
-                              chunk, stream);
-  if (cin > kCC)
-    return launch_smallcin_simt<T, 2 * kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim,
-                                            cout, pf, chunk, stream);
-  return launch_smallcin_simt<T, kCC>(x, w, scale, bias, out, batch, cin, f_dim, t_dim, cout,
-                                      pf, chunk, stream);
+// float32: the float smallcin tile, kScfTiles frame tiles a block.
+template <int CC>
+cudaError_t launch_smallcin_tf32(const void* x, const void* w, const float* scale,
+                                 const float* bias, void* out, int batch, int cin, int f_dim,
+                                 int t_dim, int cout, int pf, int chunk, cudaStream_t stream) {
+  if (chunk > scf_chunk_rows<CC>()) return cudaErrorInvalidValue;
+  const size_t smem = scf_smem_bytes<CC>(min(pf, chunk));
+  cudaError_t err = set_smem(smallcin_tf32_kernel<CC>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(ceil_div(t_dim, kScfT), kScfTiles), ceil_div(cout, kTcCo),
+            batch * (f_dim / pf));
+  smallcin_tf32_kernel<CC><<<grid, kScfThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), scale, bias,
+      static_cast<float*>(out), cin, f_dim, t_dim, cout, pf, chunk);
+  return cudaGetLastError();
 }
 
 // The block tiles' grid: 64 frames, 64 channels, tb_block_rows(pf) rows a block.
@@ -582,7 +659,9 @@ cudaError_t launch_tf32(const void* x, const void* w, const float* scale, const 
 
 // Cin <= 10: every tap and channel staged once (K = 72, or 144 past Cin 8);
 // a pool window's rows staged `chunk` at a time (conv2d_pool.smallcin_pool_chunks:
-// at most kScChunkRows, or simt_chunk_rows, else cudaErrorInvalidValue).
+// at most kScChunkRows, scf_chunk_rows or kSimtChunkRows, else
+// cudaErrorInvalidValue). float32 runs the float smallcin tile, bfloat16
+// the tensor-core kernel at Cin <= 8 and the SIMT one past it.
 extern "C" int seld_conv3x3_smallcin(const void* x, const void* w, const void* scale,
                                      const void* bias, void* out, int batch, int cin,
                                      int f_dim, int t_dim, int cout, int pf, int chunk,
@@ -594,11 +673,15 @@ extern "C" int seld_conv3x3_smallcin(const void* x, const void* w, const void* s
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == kF32)
-    err = launch_smallcin<float>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
-                                 s);
+    err = cin <= kCC ? launch_smallcin_tf32<kCC>(x, w, sc, bi, out, batch, cin, f_dim, t_dim,
+                                                 cout, pf, chunk, s)
+                     : launch_smallcin_tf32<2 * kCC>(x, w, sc, bi, out, batch, cin, f_dim,
+                                                     t_dim, cout, pf, chunk, s);
   else if (dtype == kBF16)
-    err = launch_smallcin<bf16>(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf, chunk,
-                                s);
+    err = cin <= kCC ? launch_smallcin_tc(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout, pf,
+                                          chunk, s)
+                     : launch_smallcin_simt(x, w, sc, bi, out, batch, cin, f_dim, t_dim, cout,
+                                            pf, chunk, s);
   return static_cast<int>(err);
 }
 

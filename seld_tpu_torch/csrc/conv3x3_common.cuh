@@ -1,17 +1,18 @@
-// The SIMT 3x3 conv tile shared by the CNN-frontend kernels that stay on
-// FMA in float32: the smallcin serving stage (conv3x3_bn_relu_fpool.cu) and
-// the train-mode stage 1 (conv3x3_train.cu); every conv-pool kernel takes
-// its epilogue (bn_relu, max_nan).
+// The SIMT 3x3 conv tile that stays for one instance, K2's bfloat16 entry at
+// Cin 9-10 (conv3x3_smallcin_kernel in conv3x3_bn_relu_fpool.cu, reached only
+// by a direct call: the router sends Cin <= 8 to K2, and K5's bfloat16
+// forward takes the block tile), and the helpers every conv-pool and
+// train-mode kernel shares: max_nan, bn_relu and the fixed-order reduction
+// of per-block partial sums. Every other conv runs a tensor-core tile: the
+// block tiles (conv3x3_tc.cuh in bfloat16, conv3x3_tf32.cuh in float32), and
+// in float32 at stage 1 the float smallcin tile (conv3x3_smallcin_tf32.cuh:
+// K2, K5's F1, F2 and g_z pass).
 //
 // A block covers kBCO output channels x kBT frames of one conv row at a time
 // with 256 threads; thread (tx = tid % 16, ty = tid / 16) holds channels
-// co0 + ty + 16 i (i < 4) at frames t0 + tx + 16 j (j < 8). The train-mode
-// backwards route the pool gradient by comparing conv rows with the
-// forward's, so every kernel must get bitwise the same values: they share
-// conv_rows (one fixed fmaf order) and bn_relu below. The stages 2-3 run the
-// block tiles instead: conv3x3_tc.cuh in bfloat16, conv3x3_tf32.cuh in
-// float32. conv_rows, stage_x and stage_w take the staged channel count CC
-// as a template argument: kCC, or 2 * kCC for K5's and K2's Cin 9-10.
+// co0 + ty + 16 i (i < 4) at frames t0 + tx + 16 j (j < 8). conv_rows,
+// stage_x and stage_w take the staged channel count CC as a template
+// argument (2 * kCC for Cin 9-10).
 #pragma once
 
 #include "common.cuh"
@@ -106,14 +107,6 @@ static __device__ __forceinline__ float max_nan(float a, float b) {
 // a NaN stays a NaN. Each pool's running max takes max_nan too.
 static __device__ __forceinline__ float bn_relu(float acc, float scale, float bias) {
   return max_nan(fmaf(acc, scale, bias), 0.f);
-}
-
-// Sum v over the 16 frame lanes (tx) that share a channel lane; every lane
-// gets the total. The 16 lanes are one half of a warp.
-static __device__ __forceinline__ float sum_tx(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // out[m] = sum over p of partials[p][m], p in increasing order within each of

@@ -1,7 +1,7 @@
 // The tensor-core 3x3 conv tiles of the bfloat16 CNN stages. In float32 the
 // block tile has a split-TF32 counterpart (conv3x3_tf32.cuh: K3, K10b, K9's
-// F1, F2 and dh); the other float32 stages keep the SIMT tile of
-// conv3x3_common.cuh.
+// F1, F2 and dh), and stage 1 the float smallcin tile
+// (conv3x3_smallcin_tf32.cuh: K2, K5's F1, F2 and g_z pass).
 //
 // Two tiles share one K walk (below). TbPipe, the block tile, serves
 // K3 and K10b (conv3x3_bn_relu_fpool.cu: the serving stage, K9's F2 and

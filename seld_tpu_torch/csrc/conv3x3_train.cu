@@ -9,20 +9,23 @@
 // serving kernel fed the batch-statistics affine. Layout: x (B, Cin, F, T),
 // w (3, 3, Cin, Cout), out and its cotangent g (B, Cout, F/pf, T); every
 // pass reads only t < T. B2 routes g by recomputing the conv rows that F2
-// pooled, so F1, F2 and B2 run one conv row function per dtype and get its
-// rows bit for bit:
+// pooled, so F1, F2 and B2 run one K walk per dtype and get its rows bit
+// for bit:
 //
-// float32 (SIMT FMA for the conv rows, TF32 off): conv_rows<CC>
-// (conv3x3_common.cuh), CC = 8 staged channels for Cin <= 8 and 16 for Cin
-// 9-10 (zero-filled past Cin).
-// - F1  seld_conv3x3_train_stats (stats_kernel): per-channel sum and sum of
-//       squares of the conv over (B, F, T), recomputed per tile.
-// - F2  K2's seld_conv3x3_smallcin (conv3x3_bn_relu_fpool.cu).
+// float32 (split TF32 on the tensor cores): the float smallcin tile of
+// conv3x3_smallcin_tf32.cuh, whose row function scf_window (CC = 8 staged
+// channels for Cin <= 8, 16 for Cin 9-10, zero-filled past Cin; the
+// window's rows staged in chunks, so any pf <= 255 runs) serves all three;
+// its rows are also the float block tile's (K10b's) bit for bit.
+// - F1  seld_conv3x3_train_stats (train_stats_tf32_kernel): per-channel sum
+//       and sum of squares of the conv over (B, F, T).
+// - F2  K2's seld_conv3x3_smallcin (smallcin_tf32_kernel,
+//       conv3x3_bn_relu_fpool.cu).
 // - B2  split as bfloat16's and K9's: seld_conv3x3_train_gz
-//       (train_gz_kernel), one recompute of each pool row's conv on F1's and
-//       F2's rows that routes g to the FIRST row holding the max (a strict >
-//       running argmax, reduce_window's first-match rule) where that max is
-//       > 0, writes g_z = g_pre * scale - acc * A - Bc in float32 (the
+//       (train_gz_tf32_kernel), one recompute of each pool row's conv on F1's
+//       and F2's rows that routes g to the FIRST row holding the max (a strict
+//       > running argmax, reduce_window's first-match rule) where that max
+//       is > 0, writes g_z = g_pre * scale - acc * A - Bc in float32 (the
 //       batch-stats BN backward scale * (g_pre - S_g/N - xhat * S_gx/N) with
 //       A = inv * scale * S_gx/N, Bc = scale * S_g/N - mean * A: the
 //       subtraction happens before the dW product) and the exact routed sums
@@ -57,71 +60,64 @@
 // three TF32 products at 495). B2 moves g_z (B, Cout, F, T) through memory:
 // 944 MB in bf16 and 1.89 GB in float32 at batch 2, written once by the g_z
 // pass and read once by dW (0.28 ms each in bf16, 0.56 in float32, at 3.35
-// TB/s). So B2 in float32 is bound by its one FMA recompute of the conv
-// (1.0 ms) beside g_z's round trip (1.13 ms), and not by the dW product,
-// which the split-TF32 tile takes off the FMA pipes. The g_z passes keep
-// each window's running best conv value and row in registers (one
-// recompute). A whole staged window of float32 rows would not fit shared
-// memory beside the halo (8 x 64 x 128 floats are 262 KB), so the float32
-// pass stages the window's last rows (5 of 8 at Cin <= 8) and writes the
-// earlier ones' off-route g_z, -acc * A - Bc, as it is computed, rewriting
-// their routed elements at the window's end. The dW tiles read x and g_z
-// once per 64-frame depth step.
+// TB/s). So float32's g_z pass is bound by g_z's bytes (0.56 ms) beside its
+// recompute's three TF32 products (0.41 ms). The g_z passes keep each
+// window's running best conv value and row in registers (one recompute);
+// the float32 pass stages the window's last rows that fit beside the halo
+// (each warp its own), and writes the earlier ones' off-route g_z, -acc * A
+// - Bc, as it is computed, rewriting their routed elements at the window's
+// end. The dW tiles read x and g_z once per 64-frame depth step.
 #include "conv3x3_dw_tc.cuh"
 #include "conv3x3_dw_tf32.cuh"
+#include "conv3x3_smallcin_tf32.cuh"
 #include "conv3x3_tc.cuh"
 
 namespace {
 
-template <typename T, int CC>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ x, const T* __restrict__ w, float* __restrict__ partials,
-             int cin, int f_dim, int t_dim, int cout, int pf, int tiles_per_block) {
-  extern __shared__ float smem[];
-  float* xs = smem;                         // [pf + 2][CC][kXW]
-  float* ws = smem + (pf + 2) * CC * kXW;   // [9][CC][kBCO]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int co0 = blockIdx.y * kBCO;
+// F1 in float32: the float smallcin tile's rows (scf_window, the rows K2's
+// float32 kernel pools as F2), their per-channel sum and sum of squares over
+// t < T in a fixed order; one partial row per block. A block walks
+// tiles_per_block frame tiles of one pool window and one Cout tile.
+template <int CC>
+__global__ void __launch_bounds__(kScfThreads, 2)
+train_stats_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                        float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout,
+                        int pf, int chunk, int tiles_per_block) {
+  extern __shared__ __align__(16) float scf_smem[];
+  uint32_t* w_hi = reinterpret_cast<uint32_t*>(scf_smem);
+  float* xs = scf_smem + 2 * scf_w_words<CC>() + kScfCols;
+  const int co0 = blockIdx.y * kTcCo;
   const int f_out = f_dim / pf;
   const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
-  const T* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
+  const bool vec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
 
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
-  stage_w<CC>(ws, w, 0, co0, cin, cout);
+  float s1[4][2] = {}, s2[4][2] = {};
+  scf_load_w<CC>(w_hi, w, co0, cin, cout);
+  bool split_w = true;
   for (int tile = 0; tile < tiles_per_block; ++tile) {
-    const int t0 = (blockIdx.x * tiles_per_block + tile) * kBT;
+    const int t0 = (blockIdx.x * tiles_per_block + tile) * kScfT;
     if (t0 >= t_dim) break;
-    __syncthreads();   // the previous tile's readers are done
-    stage_x<CC>(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
-    __syncthreads();
-    for (int r = 0; r < pf; ++r) {
-      float acc[4][8];
+    scf_window<CC, 1>(xs, w_hi, xb, fo * pf, pf, chunk, t0, cin, f_dim, t_dim, vec, split_w,
+                      [&](int, int, const TbAcc& acc) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+                     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows<CC>(xs, ws, r, tx, ty, acc);
+                       for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (t0 + tx + 16 * j >= t_dim) continue;
+                         for (int ni = 0; ni < kTbNi; ++ni)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s1[i] += acc[i][j];
-          s2[i] = fmaf(acc[i][j], acc[i][j], s2[i]);
-        }
-      }
-    }
+                           for (int e2 = 0; e2 < 2; ++e2) {
+                             const float v = acc[mi][ni][2 * h + e2];
+                             if (t0 + scf_n(ni, e2) < t_dim) {
+                               s1[mi][h] += v;
+                               s2[mi][h] = fmaf(v, v, s2[mi][h]);
+                             }
+                           }
+                   });
   }
   float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = sum_tx(s1[i]), q = sum_tx(s2[i]);
-    const int co = co0 + ty + 16 * i;
-    if (tx == 0 && co < cout) {
-      row[co] = a;
-      row[cout + co] = q;
-    }
-  }
+  scf_channel_sums(xs, s1, s2, co0, cout, row);
 }
 
 template <typename T>
@@ -160,177 +156,193 @@ sel_stats_kernel(const T* __restrict__ out, const T* __restrict__ g,
 }
 
 // The float32 g_z pass stages at most this many of a window's last rows in
-// shared memory (kGzFP floats a channel row; as many as fit beside the halo
-// and the weights); the window's earlier rows go straight to gz.
+// shared memory (each warp its own 64 channels x 32 frames of a row); the
+// launch stages as many as fit beside the halo at two blocks an SM.
 constexpr int kGzF32MaxStageRows = 8;
-constexpr int kGzFP = kBT;   // a staged channel row: 128 floats, pairs of rows swizzled
-constexpr int kGzF32RowFloats = kBCO * kGzFP;   // one staged conv row of the block's tile
+// The g_z pass takes each row's K walk in parts of the 64 channels, two of
+// 32 (four of 16 at 16 staged channels, whose two K chunks take more
+// registers): beside its running max and rows, a whole 64 x 32 tile's
+// accumulators spilled (164-244 bytes; two parts at CC 16 still 4).
+template <int CC>
+__host__ __device__ constexpr int gz_parts() { return CC == 8 ? 2 : 4; }
+constexpr size_t kTwoBlockSmem = 115712;   // shared memory a block may use at two blocks an SM
 
-// The staged g_z element (channel m of the tile, frame t of the row): odd
-// channels' frames XOR 16, so the two channel rows of a warp's store land
-// on all 32 banks; 4-frame chunks stay contiguous.
-static __device__ __forceinline__ int gz_swz(int m, int t) {
-  return m * kGzFP + (t ^ ((m & 1) << 4));
+// A staged g_z element of a warp's row (channel m, frame n of the warp's 32):
+// the frames rotated by 8 (m % 4), so a warp's fragment-order float2 stores
+// and its 16-byte reads of 4 frames both land on 32 banks.
+static __device__ __forceinline__ int gz_swz(int m, int n) {
+  return m * 32 + ((n + 8 * (m % 4)) & 31);
 }
 
-// B2's g_z pass in float32: one recompute of the pool rows on conv_rows<CC>,
-// F1's and F2's rows bit for bit. Each row's g_z is first formed as if off
-// the route, -acc * A - Bc (one fma), while each element keeps its window's
-// running first max in registers: its conv value (the relu value is
-// recomputed from it for each comparison) and its row, one byte per
-// element. At the window's end, where that max is > 0, g is routed to it:
-// the element becomes g * scale - acc * A - Bc and the exact routed sums S_g
-// and sum g_pre * acc are taken. The window's last `stage_rows` rows wait in
-// shared memory, take their routed elements there and leave in 16-byte
-// stores; its earlier rows are stored as they are computed and their routed
-// elements rewritten in place, 4-byte stores scattered over the rows. The
-// launch stages as many rows as fit beside the halo (5 of 8 at Cin <= 8):
-// 4-5% faster than staging none, and than none at two blocks an SM, at the
-// flagship's stage 1 (PERF.md). gz (B, Cout, F, T) float; one partial row
-// [S_g | sum g_pre * acc] per block. One block an SM.
+// B2's g_z pass in float32 on the float smallcin tile: one recompute of the
+// window's rows on scf_window, F1's and F2's rows bit for bit. Each row's
+// g_z is first formed as if off the route, -acc * A - Bc (one fma), while
+// each element keeps its window's running first max in registers (strict >
+// on the relu values, recomputed from the kept conv value; row 0 taken as
+// it is, so a NaN there stays and routes nothing): its conv value and its
+// row, one byte per element. At the window's end the tile's g is loaded in
+// bulk, then routed where the max is > 0: the element becomes g * scale -
+// acc * A - Bc and the exact routed sums S_g and sum g_pre * acc are taken.
+// The window's last `stage_rows` rows wait in shared memory, take their
+// routed elements there and leave in 16-byte stores; its earlier rows are
+// stored as they are computed (float2 stores along the frames) and their
+// routed elements rewritten in place. gz (B, Cout, F, T) float; one partial
+// row [S_g | sum g_pre * acc] per block.
 template <int CC>
-__global__ void __launch_bounds__(kThreads, 1)
-train_gz_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ scale, const float* __restrict__ bias,
-                const float* __restrict__ a_col, const float* __restrict__ b_col,
-                const float* __restrict__ g, float* __restrict__ gz,
-                float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf,
-                int tiles_per_block, int stage_rows) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                          // [pf + 2][CC][kXW]
-  float* ws = xs + (pf + 2) * CC * kXW;      // [9][CC][kBCO]
-  float* zs = ws + 9 * CC * kBCO;            // [stage_rows][kBCO][kGzFP], swizzled
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int co0 = blockIdx.y * kBCO;
+__global__ void __launch_bounds__(kScfThreads, 2)
+train_gz_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ scale, const float* __restrict__ bias,
+                     const float* __restrict__ a_col, const float* __restrict__ b_col,
+                     const float* __restrict__ g, float* __restrict__ gz,
+                     float* __restrict__ partials, int cin, int f_dim, int t_dim, int cout, int pf,
+                     int chunk, int tiles_per_block, int stage_rows) {
+  extern __shared__ __align__(16) float scf_smem[];
+  uint32_t* w_hi = reinterpret_cast<uint32_t*>(scf_smem);
+  float4* cols = reinterpret_cast<float4*>(scf_smem + 2 * scf_w_words<CC>());
+  float* xs = scf_smem + 2 * scf_w_words<CC>() + kScfCols;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // [stage_rows][4 warps][64][32], swizzled: this warp's rows
+  float* zw = xs + (min(pf, chunk) + 2) * CC * kScfXS + warp * kScfZRow;
+  const int co0 = blockIdx.y * kTcCo;
   const int f_out = f_dim / pf;
   const int b = blockIdx.z / f_out, fo = blockIdx.z % f_out;
   const int r_staged = pf - stage_rows;      // the first staged row
   const float* xb = x + static_cast<size_t>(b) * cin * f_dim * t_dim;
   const size_t plane = static_cast<size_t>(f_dim) * t_dim;   // one channel of gz
   float* gzb = gz + static_cast<size_t>(b) * cout * plane + static_cast<size_t>(fo) * pf * t_dim;
-  const bool vec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(gz) % 16 == 0;
+  const float* gb = g + (static_cast<size_t>(b) * cout * f_out + fo) * t_dim;
+  const bool vec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
+  const bool zvec = t_dim % 4 == 0 && reinterpret_cast<uintptr_t>(gz) % 16 == 0;
+  const bool pairs = t_dim % 2 == 0 && reinterpret_cast<uintptr_t>(gz) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(g) % 8 == 0;
 
-  float sc[4], bi[4], ac[4], bc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int co = co0 + ty + 16 * i;
-    const bool ok = co < cout;
-    sc[i] = ok ? scale[co] : 0.f;
-    bi[i] = ok ? bias[co] : 0.f;
-    ac[i] = ok ? a_col[co] : 0.f;
-    bc[i] = ok ? b_col[co] : 0.f;
-  }
-  float sg[4] = {0.f, 0.f, 0.f, 0.f}, sga[4] = {0.f, 0.f, 0.f, 0.f};
-
-  stage_w<CC>(ws, w, 0, co0, cin, cout);
+  float sg[4][2] = {}, sga[4][2] = {};
+  scf_load_w<CC>(w_hi, w, co0, cin, cout);
+  scf_stage_cols(cols, scale, bias, a_col, b_col, co0, cout);
+  bool split_w = true;
   for (int tile = 0; tile < tiles_per_block; ++tile) {
-    const int t0 = (blockIdx.x * tiles_per_block + tile) * kBT;
+    const int t0 = (blockIdx.x * tiles_per_block + tile) * kScfT;
     if (t0 >= t_dim) break;
-    __syncthreads();   // the previous tile's readers (halo and staged rows) are done
-    stage_x<CC>(xs, xb, pf + 2, fo * pf - 1, 0, t0, cin, f_dim, t_dim);
-    __syncthreads();
-
-    float best[4][8];      // each window's running first max: its conv value
-    uint32_t sel[4][2];    // and its row, byte j % 4 of sel[i][j / 4]
+    float best[4][kTbNi][4];   // each window's running first max: its conv value
+    uint32_t sel[4][kTbNi];    // and its row, byte e of sel[mi][ni]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sel[i][0] = sel[i][1] = 0u;
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) best[i][j] = 0.f;
-    }
-    for (int r = 0; r < pf; ++r) {
-      float acc[4][8];
+      for (int ni = 0; ni < kTbNi; ++ni) {
+        sel[mi][ni] = 0u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) best[mi][ni][e] = 0.f;
+      }
+    constexpr int kGzParts = gz_parts<CC>();
+    scf_window<CC, kGzParts>(
+        xs, w_hi, xb, fo * pf, pf, chunk, t0, cin, f_dim, t_dim, vec, split_w,
+        [&](int r, int part, const float (&acc)[4 / kGzParts][kTbNi][4]) {
+          const bool staged = r >= r_staged;
+          float* zr = zw + max(r - r_staged, 0) * 4 * kScfZRow;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      conv_rows<CC>(xs, ws, r, tx, ty, acc);
-      const bool staged = r >= r_staged;
-      float* zr = zs + max(r - r_staged, 0) * kGzF32RowFloats;
+          for (int i = 0; i < 4 / kGzParts; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = ty + 16 * i, co = co0 + m;
-        float* zrow = gzb + min(co, cout - 1) * plane + static_cast<size_t>(r) * t_dim;
+            for (int h = 0; h < 2; ++h) {
+              const int mi = part * (4 / kGzParts) + i;
+              const int m = scf_m(mi, 2 * h), co = co0 + m;
+              const float4 c = cols[m];
+              float* zrow = gzb + min(co, cout - 1) * plane + static_cast<size_t>(r) * t_dim;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int tl = tx + 16 * j, t = t0 + tl;
-          const float v = acc[i][j], z = fmaf(-v, ac[i], -bc[i]);
-          if (staged)
-            zr[gz_swz(m, tl)] = z;
-          else if (co < cout && t < t_dim)
-            zrow[t] = z;
-          if (r == 0 || bn_relu(v, sc[i], bi[i]) > bn_relu(best[i][j], sc[i], bi[i])) {
-            best[i][j] = v;
-            const int sh = 8 * (j % 4);
-            sel[i][j / 4] = (sel[i][j / 4] & ~(0xffu << sh)) | (static_cast<uint32_t>(r) << sh);
+              for (int ni = 0; ni < kTbNi; ++ni) {
+                const float v0 = acc[i][ni][2 * h], v1 = acc[i][ni][2 * h + 1];
+                const float z0 = fmaf(-v0, c.z, -c.w), z1 = fmaf(-v1, c.z, -c.w);
+                const int n = scf_n(ni, 0), t = t0 + n;
+                if (staged) {
+                  *reinterpret_cast<float2*>(zr + gz_swz(m, n % 32)) = make_float2(z0, z1);
+                } else if (co < cout) {
+                  if (pairs && t + 1 < t_dim) {
+                    *reinterpret_cast<float2*>(zrow + t) = make_float2(z0, z1);
+                  } else {
+                    if (t < t_dim) zrow[t] = z0;
+                    if (t + 1 < t_dim) zrow[t + 1] = z1;
+                  }
+                }
+#pragma unroll
+                for (int e2 = 0; e2 < 2; ++e2) {
+                  const int e = 2 * h + e2;
+                  const float v = acc[i][ni][e];
+                  if (r == 0 || bn_relu(v, c.x, c.y) > bn_relu(best[mi][ni][e], c.x, c.y)) {
+                    best[mi][ni][e] = v;
+                    sel[mi][ni] = (sel[mi][ni] & ~(0xffu << (8 * e))) |
+                                  (static_cast<uint32_t>(r) << (8 * e));
+                  }
+                }
+              }
+            }
+        });
+    // the window's end: the tile's g, every load in flight at once, then g
+    // to the first max where that max is > 0
+    float gv[4][kTbNi][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + scf_m(mi, 2 * h);
+        const float* grow = gb + static_cast<size_t>(min(co, cout - 1)) * f_out * t_dim;
+#pragma unroll
+        for (int ni = 0; ni < kTbNi; ++ni) {
+          const int t = t0 + scf_n(ni, 0);
+          float2 v = make_float2(0.f, 0.f);
+          if (pairs && t + 1 < t_dim) {
+            v = *reinterpret_cast<const float2*>(grow + t);
+          } else {
+            if (t < t_dim) v.x = grow[t];
+            if (t + 1 < t_dim) v.y = grow[t + 1];
           }
+          gv[mi][ni][2 * h] = v.x;
+          gv[mi][ni][2 * h + 1] = v.y;
         }
       }
-    }
-    // the windows' ends: the tile's g, all 32 loads in flight at once (each
-    // loaded where its route is known, before its rewrite, the pass took
-    // 1.15x as long; loaded before the last row's conv, 1.25x; PERF.md),
-    // then g to the first max where that max is > 0
-    float gv[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int co = co0 + ty + 16 * i;
-      const float* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
+    for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = t0 + tx + 16 * j;
-        gv[i][j] = co < cout && t < t_dim ? grow[t] : 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int m = scf_m(mi, 2 * h), co = co0 + m;
+        if (co >= cout) continue;
+        const float4 c = cols[m];
+        float* zc = gzb + co * plane;
+#pragma unroll
+        for (int ni = 0; ni < kTbNi; ++ni)
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int e = 2 * h + e2;
+            const int n = scf_n(ni, e2), t = t0 + n;
+            const float v = best[mi][ni][e];
+            if (t >= t_dim || !(bn_relu(v, c.x, c.y) > 0.f)) continue;
+            const float gp = gv[mi][ni][e];
+            sg[mi][h] += gp;
+            sga[mi][h] = fmaf(gp, v, sga[mi][h]);
+            const int r = (sel[mi][ni] >> (8 * e)) & 0xff;
+            const float z = gp * c.x - v * c.z - c.w;
+            if (r >= r_staged)
+              zw[(r - r_staged) * 4 * kScfZRow + gz_swz(m, n % 32)] = z;
+            else
+              zc[static_cast<size_t>(r) * t_dim + t] = z;
+          }
+      }
+    // the staged rows out: each warp its own, 16-byte stores along the frames
+    __syncwarp();
+    for (int e = lane; e < stage_rows * kTcCo * 8; e += 32) {
+      const int u = e % 8, rm = e / 8;   // rm = staged row * 64 + m
+      const int m = rm % kTcCo, co = co0 + m, t = t0 + warp * 32 + 4 * u;
+      if (co >= cout || t >= t_dim) continue;
+      const float* src = zw + (rm / kTcCo) * 4 * kScfZRow + gz_swz(m, 4 * u);
+      float* dst = gzb + co * plane + static_cast<size_t>(r_staged + rm / kTcCo) * t_dim + t;
+      if (zvec) {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int k = 0; k < 4 && t + k < t_dim; ++k) dst[k] = src[k];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty + 16 * i, co = co0 + m;
-      if (co >= cout) continue;
-      float* zc = gzb + co * plane;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int tl = tx + 16 * j, t = t0 + tl;
-        const float v = best[i][j];
-        if (t >= t_dim || !(bn_relu(v, sc[i], bi[i]) > 0.f)) continue;
-        const float gp = gv[i][j];
-        sg[i] += gp;
-        sga[i] = fmaf(gp, v, sga[i]);
-        const int r = (sel[i][j / 4] >> (8 * (j % 4))) & 0xff;
-        const float z = gp * sc[i] - v * ac[i] - bc[i];
-        if (r >= r_staged)
-          zs[(r - r_staged) * kGzF32RowFloats + gz_swz(m, tl)] = z;
-        else
-          zc[static_cast<size_t>(r) * t_dim + t] = z;
-      }
-    }
-    if (stage_rows > 0) {   // the staged rows out: 16-byte stores along the frames
-      __syncthreads();
-      constexpr int units = kBT / 4;   // 16-byte units of a staged channel row
-      for (int e = threadIdx.x; e < stage_rows * kBCO * units; e += kThreads) {
-        const int u = e % units, rm = e / units;   // rm = staged row * kBCO + m
-        const int m = rm % kBCO, c = co0 + m, t = t0 + 4 * u;
-        if (c >= cout || t >= t_dim) continue;
-        const float* src = zs + (rm / kBCO) * kGzF32RowFloats + gz_swz(m, 4 * u);
-        float* dst = gzb + c * plane + static_cast<size_t>(r_staged + rm / kBCO) * t_dim + t;
-        if (vec) {
-          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-        } else {
-          for (int k = 0; k < 4 && t + k < t_dim; ++k) dst[k] = src[k];
-        }
-      }
-    }
+    __syncwarp();   // this warp's staged rows are free for the next tile
   }
-
   float* row = partials + (static_cast<size_t>(blockIdx.z) * gridDim.x + blockIdx.x) * 2 * cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float a = sum_tx(sg[i]), q = sum_tx(sga[i]);
-    const int co = co0 + ty + 16 * i;
-    if (tx == 0 && co < cout) {
-      row[co] = a;
-      row[cout + co] = q;
-    }
-  }
+  scf_channel_sums(xs, sg, sga, co0, cout, row);
 }
 
 // ---- bfloat16: F1 and B2's g_z pass on the conv tile of conv3x3_tc.cuh ----
@@ -570,64 +582,60 @@ cudaError_t launch_gz(const void* x, const void* w, const void* scale, const voi
   return cudaGetLastError();
 }
 
-// The staged channels of a Cin: 8, or 16 for Cin 9-10.
-int staged_channels(int cin) { return cin <= kCC ? kCC : 2 * kCC; }
-
-template <typename T, int CC>
-cudaError_t launch_stats_cc(const void* x, const void* w, float* partials, int batch, int cin,
-                            int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO);
-  cudaError_t err = set_smem(stats_kernel<T, CC>, smem);
+// float32 F1: the float smallcin tile, windows staged in chunks of at most
+// scf_chunk_rows<CC> rows.
+template <int CC>
+cudaError_t launch_stats_tf32(const void* x, const void* w, float* partials, int batch, int cin,
+                              int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
+  const int chunk = min(pf, scf_chunk_rows<CC>());
+  const size_t smem = scf_smem_bytes<CC>(chunk);
+  cudaError_t err = set_smem(train_stats_tf32_kernel<CC>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  stats_kernel<T, CC><<<grid, kThreads, smem, s>>>(static_cast<const T*>(x),
-                                                   static_cast<const T*>(w), partials, cin,
-                                                   f_dim, t_dim, cout, pf, tpb);
+  const dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+  train_stats_tf32_kernel<CC><<<grid, kScfThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), partials, cin, f_dim, t_dim,
+      cout, pf, chunk, tpb);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_stats(const void* x, const void* w, float* partials, int batch, int cin,
-                         int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {   // the block tile: tb_block_rows(pf) rows a block
-    constexpr size_t smem = tb_ring_bytes<false>() + sizeof(float) * kTbRed;
-    cudaError_t err = set_smem(train_stats_tc_kernel, smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo),
-              batch * ceil_div(f_dim, tb_block_rows(pf)));
-    train_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(static_cast<const bf16*>(x),
-                                                         static_cast<const bf16*>(w), partials,
-                                                         cin, f_dim, t_dim, cout, pf, tpb);
-    return cudaGetLastError();
-  } else {
-    if (staged_channels(cin) == kCC)
-      return launch_stats_cc<T, kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb, s);
-    return launch_stats_cc<T, 2 * kCC>(x, w, partials, batch, cin, f_dim, t_dim, cout, pf, tpb,
-                                       s);
-  }
+cudaError_t launch_stats_tc(const void* x, const void* w, float* partials, int batch, int cin,
+                            int f_dim, int t_dim, int cout, int pf, int tpb, cudaStream_t s) {
+  // the block tile: tb_block_rows(pf) rows a block
+  constexpr size_t smem = tb_ring_bytes<false>() + sizeof(float) * kTbRed;
+  cudaError_t err = set_smem(train_stats_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo),
+            batch * ceil_div(f_dim, tb_block_rows(pf)));
+  train_stats_tc_kernel<<<grid, kTcThreads, smem, s>>>(static_cast<const bf16*>(x),
+                                                       static_cast<const bf16*>(w), partials,
+                                                       cin, f_dim, t_dim, cout, pf, tpb);
+  return cudaGetLastError();
 }
 
+// float32 g_z: the float smallcin tile, and as many of the window's last
+// rows staged as fit beside the halo at two blocks an SM (none where the
+// halo alone takes more).
 template <int CC>
-cudaError_t launch_gz_f32(const void* x, const void* w, const void* scale, const void* bias,
-                          const void* a, const void* b, const void* g, void* gz, float* partials,
-                          int batch, int cin, int f_dim, int t_dim, int cout, int pf, int tpb,
-                          cudaStream_t s) {
-  // the halo and the weights, then as many of the window's last rows as fit
-  const size_t fixed = sizeof(float) * ((pf + 2) * CC * kXW + 9 * CC * kBCO);
-  const size_t row_bytes = sizeof(float) * kGzF32RowFloats;
+cudaError_t launch_gz_tf32(const void* x, const void* w, const void* scale, const void* bias,
+                           const void* a, const void* b, const void* g, void* gz,
+                           float* partials, int batch, int cin, int f_dim, int t_dim, int cout,
+                           int pf, int tpb, cudaStream_t s) {
+  const int chunk = min(pf, scf_chunk_rows<CC>());
+  const size_t fixed = scf_smem_bytes<CC>(chunk);
+  const size_t row_bytes = sizeof(float) * 4 * kScfZRow;
   const int stage_rows =
-      fixed > kBlockSmem ? 0
-                         : min(min(pf, kGzF32MaxStageRows),
-                               static_cast<int>((kBlockSmem - fixed) / row_bytes));
+      fixed >= kTwoBlockSmem
+          ? 0
+          : min(min(pf, kGzF32MaxStageRows), static_cast<int>((kTwoBlockSmem - fixed) / row_bytes));
   const size_t smem = fixed + row_bytes * stage_rows;
-  cudaError_t err = set_smem(train_gz_kernel<CC>, smem);
+  cudaError_t err = set_smem(train_gz_tf32_kernel<CC>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kBCO), batch * (f_dim / pf));
-  train_gz_kernel<CC><<<grid, kThreads, smem, s>>>(
+  const dim3 grid(n_split(t_dim, tpb), ceil_div(cout, kTcCo), batch * (f_dim / pf));
+  train_gz_tf32_kernel<CC><<<grid, kScfThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(g),
-      static_cast<float*>(gz), partials, cin, f_dim, t_dim, cout, pf, tpb, stage_rows);
+      static_cast<float*>(gz), partials, cin, f_dim, t_dim, cout, pf, chunk, tpb, stage_rows);
   return cudaGetLastError();
 }
 
@@ -657,19 +665,24 @@ bool bad_shape(int cin, int cout, int pf) {
 }  // namespace
 
 // F1 + its reduction: sums (2 * Cout,) = [sum | sum of squares] of the conv
-// output over (B, F, T). partials: (B * F/pf * n_split, 2 * Cout) float.
+// output over (B, F, T). partials: (B * F/pf * n_split, 2 * Cout) float in
+// float32 (train_stats_tf32_kernel, one block a window), (B * ceil(F /
+// tb_block_rows(pf)) * n_split, 2 * Cout) in bfloat16 (the block tile).
 extern "C" int seld_conv3x3_train_stats(const void* x, const void* w, void* partials, void* sums,
                                         int batch, int cin, int f_dim, int t_dim, int cout,
                                         int pf, int tiles_per_block, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (bad_shape(cin, cout, pf) || tiles_per_block < 1) return cudaErrorInvalidValue;
+  if (bad_shape(cin, cout, pf) || f_dim % pf || tiles_per_block < 1)
+    return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == kF32)
-    err = launch_stats<float>(x, w, part, batch, cin, f_dim, t_dim, cout, pf, tiles_per_block, s);
+    err = cin <= kCC ? launch_stats_tf32<kCC>(x, w, part, batch, cin, f_dim, t_dim, cout, pf,
+                                              tiles_per_block, s)
+                     : launch_stats_tf32<2 * kCC>(x, w, part, batch, cin, f_dim, t_dim, cout, pf,
+                                                  tiles_per_block, s);
   else if (dtype == kBF16)
-    err = launch_stats<__nv_bfloat16>(x, w, part, batch, cin, f_dim, t_dim, cout, pf,
-                                      tiles_per_block, s);
+    err = launch_stats_tc(x, w, part, batch, cin, f_dim, t_dim, cout, pf, tiles_per_block, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -708,8 +721,8 @@ extern "C" int seld_conv3x3_train_sel_stats(const void* out, const void* g, cons
 // B2, g_z + its reduction: gz (B, Cout, F, T) in x's dtype and sums (2 *
 // Cout,) = [S_g | sum g_pre * acc]. x (B, Cin, F, T), w (3, 3, Cin, Cout), g
 // (B, Cout, F/pf, T) in one dtype; scale, bias, a, b: (Cout,) float;
-// partials (B * F/pf * n_split, 2 * Cout). float32: train_gz_kernel on
-// conv_rows<CC>; bfloat16: train_gz_tc_kernel on the row tile.
+// partials (B * F/pf * n_split, 2 * Cout). float32: train_gz_tf32_kernel on
+// the float smallcin tile; bfloat16: train_gz_tc_kernel on the row tile.
 extern "C" int seld_conv3x3_train_gz(const void* x, const void* w, const void* scale,
                                      const void* bias, const void* a, const void* b,
                                      const void* g, void* gz, void* partials, void* sums,
@@ -721,11 +734,10 @@ extern "C" int seld_conv3x3_train_gz(const void* x, const void* w, const void* s
     return cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == kF32)
-    err = staged_channels(cin) == kCC
-              ? launch_gz_f32<kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim,
-                                   t_dim, cout, pf, tiles_per_block, s)
-              : launch_gz_f32<2 * kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim,
-                                       t_dim, cout, pf, tiles_per_block, s);
+    err = cin <= kCC ? launch_gz_tf32<kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin,
+                                           f_dim, t_dim, cout, pf, tiles_per_block, s)
+                     : launch_gz_tf32<2 * kCC>(x, w, scale, bias, a, b, g, gz, part, batch, cin,
+                                               f_dim, t_dim, cout, pf, tiles_per_block, s);
   else if (dtype == kBF16)
     err = pf <= kGzStageRows
               ? launch_gz<true>(x, w, scale, bias, a, b, g, gz, part, batch, cin, f_dim, t_dim,

@@ -5,9 +5,11 @@
 // bf16 packing. The fragment layouts are PTX's for m16n8k16: lane l holds
 // rows l / 4 (+ 8) and columns 2 (l % 4) (+ 1, + 8). The float32 kernels of
 // K4 (flash_attn_fwd.cu), K6 (flash_attn_bwd.cu), K7 (hamilton_matmul.cu),
-// the dW tile of K9 and K5 (conv3x3_dw_tf32.cuh) and the conv-pool GEMM
-// tile of K2w and K10a (pool_gemm_tf32.cuh) multiply with the split-TF32
-// helpers (split_tf32, mma_3xtf32, mma_3xtf32_add).
+// the dW tile of K9 and K5 (conv3x3_dw_tf32.cuh), the conv-pool GEMM tile
+// of K2w and K10a (pool_gemm_tf32.cuh) and the float conv tiles
+// (conv3x3_tf32.cuh; conv3x3_smallcin_tf32.cuh: K2, K5's F1, F2, g_z)
+// multiply with the split-TF32 helpers (split_tf32, mma_3xtf32,
+// mma_3xtf32_add).
 #pragma once
 
 #include <cstdint>

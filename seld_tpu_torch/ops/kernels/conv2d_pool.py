@@ -11,7 +11,9 @@ the TPU's CT/CTH layouts. Counterparts of ``seld_tpu/ops/pallas/conv2d_pool.py``
   ``conv2d_widecin_ct_bn_relu_fpool`` (Cin % 8 == 0):
   :func:`conv2d_widecin_bn_relu_fpool`, both ``csrc/conv3x3_bn_relu_fpool.cu``
   (K2 in bfloat16 on the tensor cores with K = 9 taps x 8 channels, padded to
-  80, in float32 SIMT; K3 on the block tile, bfloat16 on ``mma.sync``
+  80, in float32 in split TF32 on the float smallcin tile
+  (``csrc/conv3x3_smallcin_tf32.cuh``, K = 72 as nine k8 steps, the block
+  tile's K walk); K3 on the block tile, bfloat16 on ``mma.sync``
   (``csrc/conv3x3_tc.cuh``), float32 in split TF32
   (``csrc/conv3x3_tf32.cuh``));
 - K2w ``conv2d_smallcin_bn_relu_fpool`` (3 * Cin <= 32, the wide pack):
@@ -48,9 +50,9 @@ from seld_tpu_torch.ops.kernels import (
     dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
 )
 
-MAX_POOL_F = 48  # most pool rows one SIMT smallcin halo staging takes (rows + 2 staged)
+MAX_POOL_F = 48  # cap of the SIMT smallcin halo staging's rows; K9's pool limit
 SMALLCIN_MAX_CIN = 10   # K2's kernel: Cin <= 8, and 9-10 (3 * Cin <= 32) for K5's forward
-BLOCK_T = 128           # frames per SIMT kernel tile (kBT in conv3x3_common.cuh)
+BLOCK_T = 128           # frames per tile of K2's and K5's kernels (kBT, kScfT)
 BLOCK_CO = 64           # output channels per kernel tile (kBCO)
 SMEM_BYTES = 232_448    # shared memory one block may use on the H100
 TC_BLOCK_T = 64         # frames per block of the block tiles (kTbT in conv3x3_tc.cuh)
@@ -169,34 +171,55 @@ def staged_channels(cin: int) -> int:
     return 8 if cin <= 8 else 16
 
 
-def halo_max_pool_f(cin: int, extra_bytes: int = 0) -> int:
+def halo_max_pool_f(cin: int) -> int:
     """The largest pool_f whose pool_f + 2 float halo rows of
-    :func:`staged_channels` channels, the 9 x channels x BLOCK_CO float
-    weights and ``extra_bytes`` fit one block's shared memory."""
+    :func:`staged_channels` channels and the 9 x channels x BLOCK_CO float
+    weights fit one block's shared memory, capped at MAX_POOL_F: the SIMT
+    kernel's rows per staging (``kSimtChunkRows``), which K2's bfloat16
+    entry runs at Cin 9-10."""
     cc = staged_channels(cin)
-    fixed = 4 * 9 * cc * BLOCK_CO + extra_bytes
+    fixed = 4 * 9 * cc * BLOCK_CO
     return min(MAX_POOL_F, (SMEM_BYTES - fixed) // (4 * cc * (BLOCK_T + 2)) - 2)
 
 
 TC_SMALLCIN_PAIRS = 4     # channel pairs the bf16 smallcin kernel stages (kScPairs)
 TC_SMALLCIN_K = 80        # its weight rows: 9 taps x 8 channels, padded (kScK)
 TC_PAIR_WORDS = 168       # staged words per (row, channel pair) (kTcXS)
+FLOAT_TILE_ROW_WORDS = BLOCK_T + 8   # the float smallcin tile's staged (row, ci): kScfXS
+FLOAT_TILE_A_WORDS = 4 * 9 * 4 * 32  # a weight plane's words per 8-channel chunk (kFtWItems x 4)
+FLOAT_TILE_COLS = 4 * BLOCK_CO       # its per-channel columns (kScfCols)
+
+
+def float_tile_max_pool_f(cin: int) -> int:
+    """Rows one halo staging of the float smallcin tile takes
+    (``scf_chunk_rows``: K2 and K5's F1, F2 and g_z pass in float32): the
+    most whose rows + 2 staged rows of :func:`staged_channels` channels x
+    FLOAT_TILE_ROW_WORDS floats fit one block's shared memory beside the
+    split weights (hi and lo planes of FLOAT_TILE_A_WORDS words a chunk of
+    8 channels) and the columns: 42 at Cin <= 8, 16 at Cin 9-10."""
+    cc = staged_channels(cin)
+    fixed = 4 * (2 * cc // 8 * FLOAT_TILE_A_WORDS + FLOAT_TILE_COLS)
+    return (SMEM_BYTES - fixed) // (4 * cc * FLOAT_TILE_ROW_WORDS) - 2
 
 
 def smallcin_max_pool_f(cin: int, dtype: torch.dtype = torch.float32) -> int:
     """The most pool rows one halo staging of K2's kernel holds at this Cin
-    and dtype (``kScChunkRows`` / ``simt_chunk_rows``): the largest count
-    whose rows + 2 halo rows fit one block's shared memory beside the
-    weights, for the kernel the entry launches. The tensor-core kernel
-    (bfloat16 at Cin <= 8) stages rows + 2 rows of 4 channel-pair rows of
-    TC_PAIR_WORDS words and 80 x (BLOCK_CO + 8) bf16 weights; the SIMT
-    kernel (the rest) :func:`halo_max_pool_f`. A larger pool_f runs in
-    chunks of this many rows (:func:`smallcin_pool_chunks`); the kernel
-    refuses a chunk above its own count of the same limit."""
-    if dtype == torch.bfloat16 and cin <= 8:
-        fixed = 2 * TC_SMALLCIN_K * (BLOCK_CO + 8)
-        return (SMEM_BYTES - fixed) // (4 * TC_SMALLCIN_PAIRS * TC_PAIR_WORDS) - 2
-    return halo_max_pool_f(cin)
+    and dtype (``kScChunkRows`` / ``scf_chunk_rows`` / ``kSimtChunkRows``):
+    the largest count whose rows + 2 halo rows fit one block's shared
+    memory beside the weights, for the kernel the entry launches. The
+    bfloat16 tensor-core kernel (Cin <= 8) stages rows + 2 rows of 4
+    channel-pair rows of TC_PAIR_WORDS words and 80 x (BLOCK_CO + 8) bf16
+    weights; float32 the float smallcin tile
+    (:func:`float_tile_max_pool_f`); the SIMT kernel (bfloat16 at Cin 9-10)
+    :func:`halo_max_pool_f`. A larger pool_f runs in chunks of this many
+    rows (:func:`smallcin_pool_chunks`); the kernel refuses a chunk above
+    its own count of the same limit."""
+    if dtype == torch.bfloat16:
+        if cin <= 8:
+            fixed = 2 * TC_SMALLCIN_K * (BLOCK_CO + 8)
+            return (SMEM_BYTES - fixed) // (4 * TC_SMALLCIN_PAIRS * TC_PAIR_WORDS) - 2
+        return halo_max_pool_f(cin)
+    return float_tile_max_pool_f(cin)
 
 
 def smallcin_pool_chunks(pool_f: int, cin: int,
@@ -217,9 +240,11 @@ def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch
     """K2's kernel (``seld_conv3x3_smallcin``): every tap and channel of a
     tile staged once, Cin <= 10, any pool_f dividing F (the window's rows
     staged in :func:`smallcin_pool_chunks`). bfloat16 at Cin <= 8 runs on
-    the tensor cores, the rest SIMT. The router sends Cin <= 8 here; K5's float32
-    forward calls it for Cin 9-10 too, so that its pooled rows are the conv
-    rows K5's backward recomputes. CPU tensors take
+    the tensor cores, at Cin 9-10 SIMT; float32 in split TF32 on the float
+    smallcin tile (``smallcin_tf32_kernel``), whose rows are K5's F1 and g_z
+    pass's and the block tile's bit for bit. The router sends Cin <= 8 here;
+    K5's float32 forward calls it for Cin 9-10 too, so that its pooled rows
+    are the conv rows K5's backward recomputes. CPU tensors take
     :func:`conv2d_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
     if not on_cuda(x, w, scale, bias):

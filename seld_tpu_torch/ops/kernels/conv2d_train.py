@@ -27,18 +27,21 @@ the same two passes in both dtypes:
 - B1 :func:`sel_stats` — S_g, S_gx from (out, cotangent) where out > 0;
 - B2 — dW, and the exact routed S_g and sum g * acc that give dgamma and
   dbeta, in two passes as K9's: :func:`conv_train_gz` (one recompute of the
-  conv that routes g and writes g_z once: SIMT in float32, the conv tile in
-  bfloat16) and :func:`conv_train_dw_gz` (the dW tile, a GEMM over the
-  frames: split-TF32 products in float32, bf16 products in bfloat16).
+  conv that routes g and writes g_z once: the float smallcin tile in
+  float32, the conv tile in bfloat16) and :func:`conv_train_dw_gz` (the dW
+  tile, a GEMM over the frames: split-TF32 products in float32, bf16
+  products in bfloat16).
 
-One conv row function per dtype serves F1, F2 and B2's recompute, so B2's
-routing recomputes F2's pooled rows bit for bit: in float32 the SIMT rows
-stage all Cin channels of a tile at once, 8 for Cin <= 8 and 16 for Cin
-9-10 (:func:`staged_channels`); in bfloat16 the tensor-core tile takes Cin
-<= 16 as one zero-filled 16-channel chunk. (The reference runs Cin 9-10
-through its wide pack, whose forward and backward likewise share one packed
-row.) The kernels work in (B, C, F, T): the public function takes and
-returns the JAX package's channel-last layout as permuted views of it.
+One K walk per dtype serves F1, F2 and B2's recompute, so B2's routing
+recomputes F2's pooled rows bit for bit: in float32 the float smallcin tile
+(``csrc/conv3x3_smallcin_tf32.cuh``, split TF32, the float block tile's K
+walk) stages all Cin channels of a tile at once, 8 for Cin <= 8 and 16 for
+Cin 9-10 (:func:`staged_channels`), its weights split once a block; in
+bfloat16 the tensor-core tiles take Cin <= 16 as one zero-filled 16-channel
+chunk. (The reference runs Cin 9-10 through its wide pack, whose forward and
+backward likewise share one packed row.) The kernels work in (B, C, F, T):
+the public function takes and returns the JAX package's channel-last layout
+as permuted views of it.
 """
 
 from __future__ import annotations
@@ -52,10 +55,12 @@ from seld_tpu_torch.ops.kernels import (
 )
 from seld_tpu_torch.ops.kernels.conv2d_pool import (
     BLOCK_T, MAX_POOL_F, conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
-    halo_max_pool_f, staged_channels, tc_block_rows,
+    staged_channels, tc_block_rows,
 )
 
 TILES_PER_BLOCK = 4     # frame tiles one block walks (sizes the partial-sum rows)
+F32_TILES_PER_BLOCK = 2   # the float smallcin tile's (F1 and the g_z pass, as K2's kScfTiles)
+MAX_POOL_ROWS = 255     # the g_z passes keep each window's routed row in a byte
 MAX_CIN = 10            # the reference's wide-pack range, 3 * Cin <= 32
 DW_SPLITS = 64          # the dW tile shares its depth (B * F rows x T frames) among ~this many
 DW_SPLITS_STAGE1 = 512  # K5's: one Cin tile per block, so more depth shares fill the card
@@ -70,13 +75,12 @@ def kdim(cin: int) -> int:
 
 
 def max_pool_f(cin: int) -> int:
-    """The largest pool_f K5 takes at this Cin, in both dtypes: float32's F1
-    and g_z pass keep the pool_f + 2 halo rows and the weights in one
-    block's shared memory (:func:`halo_max_pool_f`: 48 rows for Cin <= 8,
-    21 for Cin 9-10; the g_z pass stages g_z rows in what is left);
-    float32's F2 (K2's kernel) walks the rows in chunks and the bfloat16
-    tiles one at a time, so they take any of these."""
-    return halo_max_pool_f(cin)
+    """The largest pool_f K5 takes at this Cin, in both dtypes: every pass
+    walks a window's rows in stagings (float32's on the float smallcin
+    tile in chunks of ``conv2d_pool.float_tile_max_pool_f(cin)`` rows,
+    bfloat16's block tile 4 rows a pass), so the bound is the g_z passes'
+    routed row, one byte an element (the C entries refuse pf > 255)."""
+    return MAX_POOL_ROWS
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -85,12 +89,13 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
 
 def tensor_core_path(x: torch.Tensor) -> bool:
     """True where K5's forward runs its bfloat16 passes (F1 on the
-    tensor-core conv tile, F2 on K3's tile through K10b's entry; on CPU
-    tensors their plain versions), False where it runs the SIMT ones (F1,
-    F2 on K2's kernel: float32, TF32 off; float64 on the CPU takes their
-    plain versions). B2 takes :func:`conv_train_gz` and
-    :func:`conv_train_dw_gz` in every dtype; each picks its kernel by
-    dtype."""
+    tensor-core block tile, F2 on K3's tile through K10b's entry: bf16
+    products on ``mma.sync``; on CPU tensors their plain versions), False
+    where it runs the float32 ones (F1 and F2, K2's kernel, on the float
+    smallcin tile: split-TF32 products on the tensor cores, the library's
+    TF32 flags off; float64 on the CPU takes their plain versions). B2
+    takes :func:`conv_train_gz` and :func:`conv_train_dw_gz` in every
+    dtype; each picks its kernel by dtype."""
     return x.dtype == torch.bfloat16
 
 
@@ -147,8 +152,9 @@ def conv_train_stats_plain(x, w) -> torch.Tensor:
 
 def conv_train_stats(x: torch.Tensor, w: torch.Tensor, pool_f: int) -> torch.Tensor:
     """x (B, Cin, F, T), w (3, 3, Cin, Cout) -> (2 * Cout,) float32 sums.
-    ``pool_f`` only sets the kernel's tiling (float32: one block per pooled
-    row; bfloat16: ``tc_block_rows(pool_f)`` rows a block)."""
+    ``pool_f`` only sets the kernel's tiling (float32: the float smallcin
+    tile, one block per pooled row and F32_TILES_PER_BLOCK frame tiles;
+    bfloat16: the block tile, ``tc_block_rows(pool_f)`` rows a block)."""
     _check(x, w, pool_f)
     if not on_cuda(x, w):
         return conv_train_stats_plain(x, w)
@@ -158,7 +164,7 @@ def conv_train_stats(x: torch.Tensor, w: torch.Tensor, pool_f: int) -> torch.Ten
     # bf16 runs the block tile: tc_block_rows(pool_f) rows and one frame tile
     # a block (its one pipeline per block; one block an SM)
     bf16 = x.dtype == torch.bfloat16
-    rows, tpb = (tc_block_rows(pool_f), 1) if bf16 else (pool_f, TILES_PER_BLOCK)
+    rows, tpb = (tc_block_rows(pool_f), 1) if bf16 else (pool_f, F32_TILES_PER_BLOCK)
     partials = torch.empty((_grid_rows(x, pool_f, rows, tpb), 2 * cout), dtype=torch.float32,
                            device=x.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=x.device)
@@ -229,8 +235,14 @@ def _route_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
     S_g, sum g_pre * acc): g_pre is the pooled cotangent g routed to the
     first row holding each window's max where that max is > 0; g_z = g_pre *
     scale - acc * a - b, the dW product's operand."""
-    cdt = _acc_dtype(x)
-    acc = _conv_plain(x, w)                                       # (B, C, F, T)
+    return route_rows_plain(_conv_plain(x, w), g, scale, bias, a, b, pool_f, x.dtype)
+
+
+def route_rows_plain(acc, g, scale, bias, a, b, pool_f: int, dtype):
+    """:func:`_route_gz_plain` on given conv rows acc (B, Cout, F, T) in the
+    float type (the plain conv's, or ``tf32.conv_rows_tf32_plain``'s: the
+    float32 kernels' rows), g_z rounded to ``dtype``."""
+    cdt = acc.dtype
     bsz, cout, f, t = acc.shape
     col = lambda v: v.to(cdt)[:, None, None]
     y = torch.relu(acc * col(scale) + col(bias)).view(bsz, cout, f // pool_f, pool_f, t)
@@ -238,7 +250,7 @@ def _route_gz_plain(x, w, g, scale, bias, a, b, pool_f: int):
     gsel = torch.where(m > 0, g.to(cdt), torch.zeros((), dtype=cdt, device=g.device))
     g_pre = torch.zeros_like(y).scatter_(3, idx.unsqueeze(3), gsel.unsqueeze(3))
     g_pre = g_pre.view(bsz, cout, f, t)
-    g_z = (g_pre * col(scale) - acc * col(a) - col(b)).to(x.dtype).to(cdt)
+    g_z = (g_pre * col(scale) - acc * col(a) - col(b)).to(dtype).to(cdt)
     return g_z, g_pre.sum((0, 2, 3)), (g_pre * acc).sum((0, 2, 3))
 
 
@@ -285,9 +297,9 @@ def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
     """B2, g_z: x (B, Cin, F, T), w (3, 3, Cin, Cout), g (B, Cout, F/pf, T)
     in one dtype, per-channel scale, bias, a, b -> (g_z (B, Cout, F, T) in
     x's dtype, (2 * Cout,) float32 routed sums). CUDA tensors launch
-    ``seld_conv3x3_train_gz`` (float32: one recompute on F1's and F2's SIMT
-    rows; bfloat16: the conv tile's rows); CPU tensors take
-    :func:`conv_train_gz_plain`."""
+    ``seld_conv3x3_train_gz`` (float32: one recompute on the float smallcin
+    tile, F1's and F2's rows; bfloat16: the conv tile's rows); CPU tensors
+    take :func:`conv_train_gz_plain`."""
     _check_g(x, w, g, pool_f)
     bsz, cin, f, t = x.shape
     cout = w.shape[3]
@@ -298,14 +310,15 @@ def conv_train_gz(x, w, g, scale, bias, a, b, pool_f: int):
     if g.dtype != x.dtype:
         raise TypeError(f"g is {g.dtype}, x is {x.dtype}")
     gz = torch.empty((bsz, cout, f, t), dtype=x.dtype, device=x.device)
-    partials = torch.empty((_grid_rows(x, pool_f), 2 * cout), dtype=torch.float32,
-                           device=x.device)
+    tpb = TILES_PER_BLOCK if x.dtype == torch.bfloat16 else F32_TILES_PER_BLOCK
+    partials = torch.empty((_grid_rows(x, pool_f, tiles_per_block=tpb), 2 * cout),
+                           dtype=torch.float32, device=x.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=x.device)
     cols = [_col(v) for v in (scale, bias, a, b)]
     err = lib.seld_conv3x3_train_gz(
         x.data_ptr(), w.data_ptr(), *[c.data_ptr() for c in cols], g.data_ptr(), gz.data_ptr(),
-        partials.data_ptr(), sums.data_ptr(), bsz, cin, f, t, cout, pool_f, TILES_PER_BLOCK,
-        code, stream_handle(x.device))
+        partials.data_ptr(), sums.data_ptr(), bsz, cin, f, t, cout, pool_f, tpb, code,
+        stream_handle(x.device))
     _build.check(err, "seld_conv3x3_train_gz")
     launch_counts["conv_train_gz"] += 1
     return gz, sums
@@ -389,11 +402,16 @@ class _ConvTrainFn(torch.autograd.Function):
         cout = w.shape[3]
         n = x.shape[0] * x.shape[2] * x.shape[3]
         sums = conv_train_stats(x, w, pool_f)
-        mean = sums[:cout] / n
-        var = torch.clamp(sums[cout:] / n - mean * mean, min=0.0)
+        # the batch statistics and the BN affine in float64 from F1's sums,
+        # each column rounded once where a kernel takes it: stage 1's affine
+        # is where a float32 step is most sensitive (an ulp of its bias moves
+        # every gradient by ~1e-3 at the flagship's size)
+        s64 = sums.double()
+        mean = s64[:cout] / n
+        var = torch.clamp(s64[cout:] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
-        scale = gamma.to(inv.dtype) * inv
-        bias = beta.to(inv.dtype) - mean * scale
+        scale = gamma.double() * inv
+        bias = beta.double() - mean * scale
         if on_cuda(x, w):   # F2, fed the batch-statistics affine
             f2 = (conv2d_windows_bn_relu_fpool if tensor_core_path(x)
                   else conv2d_smallcin_bn_relu_fpool)
@@ -403,8 +421,9 @@ class _ConvTrainFn(torch.autograd.Function):
         ctx.save_for_backward(x, w, out, mean, inv, scale, bias)
         ctx.pool_f, ctx.n = pool_f, n
         ctx.param_dtypes = (gamma.dtype, beta.dtype)
-        ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
+        mean_out, var_out = mean.to(sums.dtype), var.to(sums.dtype)
+        ctx.mark_non_differentiable(mean_out, var_out)
+        return out, mean_out, var_out
 
     @staticmethod
     def backward(ctx, g_out, _g_mean, _g_var):

@@ -28,8 +28,9 @@ dispatch baseline, always runs. Sections:
   the wide kernels past head dim 128) beside SDPA's forward and
   backward, K7 (the DQ conv table) at the flagship's pointwise convs (M =
   batch x frames, 384 x 384) beside ``addmm`` on the assembled weight,
-  K9's dW at stage 2 and K5's B2 at stage 1 (its float32 g_z pass, then
-  the split-TF32 dW tile) each beside cuDNN's weight gradient, K2w at
+  K9's dW at stage 2 and, at stage 1, K5's F1 and K2 (K5's F2; both on
+  the float smallcin tile) and K5's B2 (its g_z pass on the same tile,
+  then the split-TF32 dW tile) beside cuDNN's weight gradient, K2w at
   stage 1 and K10a at stages 1-3 (the conv-pool GEMM tile, each wrapper
   with its operand build), at stage 2 K3, K10b and K9's F1 (the conv
   block tile), beside cuDNN's float32 conv of the stage, and K9's dh at
@@ -323,6 +324,10 @@ def f32(batch, device, shapes=FLAGSHIP):
     bias, a, b = (_randn(device, c, gen=gen) / 4 for _ in range(3))
     b2 = (x, w, g, scale, bias, a, b, pf)
     gz = k5.conv_train_gz(*b2)[0]
+    yield f"f32: K5 F1 stats stage 1 (pf {pf})", lambda xx, ww: k5.conv_train_stats(xx, ww, pf), \
+        (x, w)
+    yield "f32: K2 stage 1 (K5's F2)", \
+        lambda xx, ww: pool.conv2d_smallcin_bn_relu_fpool(xx, ww, scale, bias, pf), (x, w)
     yield f"f32: K5 g_z pass stage 1 ({cin} -> {c} x {f} x {t}, pf {pf})", k5.conv_train_gz, b2
     yield "f32: K5 dW tile stage 1", k5.conv_train_dw_gz, (x, gz)
     yield "f32: cuDNN wgrad stage 1", \

@@ -350,11 +350,23 @@ def k5_launches(dtype) -> dict:
             "conv_train_gz": 1, "conv_train_dw": 1}
 
 
+# the device kernels of one K5 forward and backward, by the profiler's names:
+# float32 on the float smallcin tile (F1, F2 = K2's kernel, the g_z pass) and
+# the split-TF32 dW tile, bfloat16 on the block, row and dW tiles
+K5_KERNELS = {torch.float32: ("train_stats_tf32_kernel", "smallcin_tf32_kernel",
+                              "sel_stats_kernel", "train_gz_tf32_kernel", "ct_dw_tf32_kernel"),
+              torch.bfloat16: ("train_stats_tc_kernel", "conv3x3_tc_kernel", "sel_stats_kernel",
+                               "train_gz_tc_kernel", "ct_dw_tc_kernel")}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", K5_SHAPES)
 def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
     """K5's kernels through the autograd op against autograd of the plain
-    composition: out, mean, var, dW, dgamma, dbeta."""
+    composition: out, mean, var, dW, dgamma, dbeta; one launch of each pass
+    and, on a profiled rerun, each pass's kernel (K5_KERNELS) launched."""
+    from seld_tpu_torch.utils.profiling import device_events
+
     x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
     g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
     results = []
@@ -368,15 +380,23 @@ def test_conv_train_op(gen, dtype, b, cin, f, t, cout, pf):
     for got, want in zip(*results):
         _close(got, want, dtype if got.dtype == dtype else torch.float32)
 
+    def step():
+        wr, gr, br = (v.clone().requires_grad_() for v in (w, gamma, beta))
+        out = k5.conv2d_bn_relu_fpool_train(x, wr, gr, br, pf)[0]
+        (out.float() * g.float()).sum().backward()
+
+    names = [e.key for e in device_events(step)[0]]
+    assert all(any(k in n for n in names) for k in K5_KERNELS[dtype]), names
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", [*K5_SHAPES[:2], *K5_SHAPES[3:]])
 def test_conv_train_passes(gen, dtype, b, cin, f, t, cout, pf):
     """Each K5 pass against its plain version on the same inputs: float32's
-    SIMT F1, F2 (K2's kernel) and g_z pass and split-TF32 dW tile (also
-    within 4x the float32 plain version's distance from float64),
-    bfloat16's tensor-core ones (F2 K3's tile through K10b's entry); B2 the
-    g_z pass and the dW tile in both."""
+    F1, F2 (K2's kernel) and g_z pass on the float smallcin tile and its
+    split-TF32 dW tile (also within 4x the float32 plain version's distance
+    from float64), bfloat16's tensor-core ones (F2 K3's tile through K10b's
+    entry); B2 the g_z pass and the dW tile in both."""
     x, w, _, _ = k5_inputs(gen, b, cin, f, t, cout, dtype)
     x = x.permute(0, 3, 1, 2).contiguous()
     scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
@@ -461,9 +481,10 @@ def test_conv_train_f32_routing_equals_f2_bitwise(gen):
     channels), K5's float32 g_z pass, fed g = 1 and a = b = 0 (g_z = scale
     exactly where it routes, 0 elsewhere), routes each window once where
     F2's pooled max is > 0 and nowhere else; at Cin 8 F2 pools max_r
-    relu(pre * scale + bias) of the SIMT conv rows bit for bit (pre: the g_z
-    pass's own recompute, fed g = 0, a = -1 and b = 0, so that g_z = acc
-    exactly), and the pass routes to the first row holding that max."""
+    relu(pre * scale + bias) of the float smallcin tile's conv rows bit for
+    bit (pre: the g_z pass's own recompute, fed g = 0, a = -1 and b = 0, so
+    that g_z = acc exactly), and the pass routes to the first row holding
+    that max."""
     b, f, t, cout, pf = 2, 64, 1000, 80, 8
     for cin in (8, 10):
         x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
@@ -499,11 +520,12 @@ def test_conv_train_f32_routing_equals_f2_bitwise(gen):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("cin", [8, 10])
 def test_conv_train_op_at_the_top_pool(gen, dtype, cin):
-    """K5 at its largest pool_f (conv2d_train.max_pool_f: 48 rows at Cin
-    <= 8, 21 at Cin 9-10), in both dtypes: the op's outputs and gradients
-    against the plain composition, every pass launched once."""
+    """K5 at its largest pool_f (conv2d_train.max_pool_f: 255 rows, the g_z
+    passes' routed row in a byte; float32's passes walk it in stagings of 42
+    rows at Cin <= 8 and 16 at Cin 9-10), in both dtypes: the op's outputs
+    and gradients against the plain composition, every pass launched once."""
     pf = k5.max_pool_f(cin)
-    assert pf == (48 if cin <= 8 else 21)
+    assert pf == 255
     b, f, t, cout = 2, 2 * pf, 300, 72
     x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
     g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
@@ -923,6 +945,97 @@ def test_conv_train_dw_tf32(gen, b, cin, f, t, cout):
               k5.dw_plain(x.double(), gz.double()))
     _close(got, plain, torch.float32)
     assert torch.equal(k5.conv_train_dw_gz(x, gz), got)
+
+
+# the float smallcin tile (K2 in float32, K5's float32 F1, F2 and g_z pass):
+# (b, cin, f, t, cout, pf) at Cin 1, 5, 8, 9 and 10 (one or two 8-channel
+# chunks), T ragged against the 128-frame tile and the two tiles a block walks
+# (129, 300, 515 staged frame by frame, 1300 by 16-byte copies), Cout ragged
+# against 64 (72, 80, 200), several blocks in every grid dimension, pf 1, 8
+# and 16, the stagings' limits (42 rows at Cin <= 8, 16 at 9-10: pf 48 and 21
+# run in two chunks) and the SIMT passes' old top pools (48, 21)
+SCF_CASES = [(2, 1, 8, 300, 72, 1), (2, 5, 24, 1300, 80, 8), (3, 8, 32, 515, 200, 16),
+             (1, 8, 96, 129, 72, 48), (2, 9, 16, 300, 80, 8), (1, 10, 42, 1300, 72, 21),
+             (2, 10, 16, 129, 200, 16), (2, 8, 42, 300, 64, 42)]
+
+
+@pytest.mark.parametrize("b,cin,f,t,cout,pf", SCF_CASES)
+def test_smallcin_tf32(gen, b, cin, f, t, cout, pf):
+    """The float smallcin tile on real-valued inputs: K2 in float32
+    (smallcin_tf32_kernel) within 4x the float32 plain version's distance
+    from float64 and 2e-4 x max of it, bit for bit K10b's float32 output
+    (the block tile, one K walk), bitwise on a rerun; K5's F1
+    (train_stats_tf32_kernel) sums within 2e-4 x max of the plain sums and
+    within 4x their distance from float64, bitwise on a rerun; K5's g_z pass
+    (train_gz_tf32_kernel) against its plain version (g_z within 2e-4 x
+    max where both route alike: off the route g_z = -acc * a - b) and
+    bitwise on a rerun; one launch of each."""
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+    assert launch_counts["conv3x3_smallcin"] == 1
+    plain = conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    exact = conv2d_bn_relu_fpool_plain(x.double(), w.double(), scale.double(), bias.double(), pf)
+    _f64_gate(f"K2 f32 {b}x{cin}x{f}x{t}->{cout} pf {pf}", got, plain, exact)
+    _close(got, plain, torch.float32)
+    assert torch.equal(pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf), got)
+    assert torch.equal(pool.conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf), got)
+    sums = k5.conv_train_stats(x, w, pf)
+    assert launch_counts["conv_train_stats"] == 1
+    want = k5.conv_train_stats_plain(x, w)
+    _f64_gate(f"K5 F1 f32 {b}x{cin}x{f}x{t}->{cout} pf {pf}", sums, want,
+              k5.conv_train_stats_plain(x.double(), w.double()))
+    _close(sums, want, torch.float32)
+    assert torch.equal(k5.conv_train_stats(x, w, pf), sums)
+    g = torch.randn(b, cout, f // pf, t, generator=gen, device="cuda")
+    a, c = 1e-3 * torch.randn(cout, generator=gen, device="cuda"), 1e-3 * torch.randn(
+        cout, generator=gen, device="cuda")
+    args = (x, w, g, scale, bias, a, c, pf)
+    gz, gz_sums = k5.conv_train_gz(*args)
+    assert launch_counts["conv_train_gz"] == 1
+    want_gz = k5.conv_train_gz_plain(*args)[0]
+    # near-ties of real-valued rows may route apart: compare off the route
+    off = (gz - want_gz).abs() <= 2e-4 * want_gz.abs().max()
+    assert float(off.float().mean()) > 0.99
+    for u, v in zip(k5.conv_train_gz(*args), (gz, gz_sums)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("bits", NAN_BITS)
+def test_smallcin_tf32_keeps_nans(gen, bits):
+    """A NaN operand (float('nan') or the card's 0x7fffffff) in x (batch 0,
+    and batch 1 at a window's last row) comes out of float32 K2 NaN exactly
+    where the plain version's does, and makes K5's F1 sums NaN in every
+    channel, as the plain sums are."""
+    b, cin, f, t, cout, pf = 2, 8, 16, 300, 80, 4
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    x = _put_nan(_put_nan(x, (0, 1, 5, 100), bits), (1, cin - 1, 11, 257), bits)
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    got = pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf)
+    want = conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+    nan = torch.isnan(want)
+    assert bool(nan[0].any()) and bool(nan[1].any()) and not bool(nan.all())
+    assert torch.equal(torch.isnan(got), nan)
+    _close(got.masked_fill(nan, 0), want.masked_fill(nan, 0), torch.float32)
+    sums, want = k5.conv_train_stats(x, w, pf), k5.conv_train_stats_plain(x, w)
+    assert bool(torch.isnan(want).all()) and torch.equal(torch.isnan(sums), torch.isnan(want))
+
+
+def test_smallcin_tf32_equals_k10b_at_stage_1(gen):
+    """At the flagship's stage 1 (B 2, Cin 8, F 256, T 4800, Cout 192, pf 8)
+    on random float32 inputs, K2's float32 output (the float smallcin tile)
+    equals K10b's (the float block tile) bit for bit: one K walk."""
+    b, cin, f, t, cout, pf = 2, 8, 256, 4800, 192, 8
+    x = torch.randn(b, cin, f, t, generator=gen, device="cuda")
+    w = torch.randn(3, 3, cin, cout, generator=gen, device="cuda") / (9 * cin) ** 0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(cout, generator=gen, device="cuda")
+    assert torch.equal(pool.conv2d_smallcin_bn_relu_fpool(x, w, scale, bias, pf),
+                       pool.conv2d_windows_bn_relu_fpool(x, w, scale, bias, pf))
 
 
 def test_conv_tile_f1_f2_bitwise_at_stage_2(gen):

@@ -143,19 +143,26 @@ def test_dft_table_tiles_hold_the_bf16_table(nperseg):
 
 @pytest.mark.parametrize("cin", [1, 5, 8, 9])
 def test_smallcin_pool_limit_is_the_launched_kernels(cin):
-    """K2's pool_f limit in bf16 is the tensor-core kernel's at Cin <= 8: the
-    largest pool_f whose pool_f + 2 halo rows of 4 channel-pair rows of 168
-    words and 80 x 72 bf16 weights fit 232,448 bytes; at Cin 9 and in float32
-    it is the SIMT kernel's."""
+    """K2's pool_f limit per halo staging is the launched kernel's: in bf16
+    at Cin <= 8 the tensor-core kernel's (the largest pool_f whose pool_f +
+    2 halo rows of 4 channel-pair rows of 168 words and 80 x 72 bf16
+    weights fit 232,448 bytes), in bf16 at Cin 9 the SIMT kernel's; in
+    float32 the float smallcin tile's (pool_f + 2 rows of CC x 136 floats
+    beside the split weights, two planes of 9 x 4 x 32 x 4 words a chunk of
+    8 channels, and 4 x 64 floats of columns)."""
     from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 
     top = pool.smallcin_max_pool_f(cin, torch.bfloat16)
+    cc = 8 if cin <= 8 else 16
+    fits32 = lambda pf: 4 * ((pf + 2) * cc * 136 + 2 * (cc // 8) * 4608 + 256) <= 232_448
+    top32 = pool.smallcin_max_pool_f(cin)
+    assert top32 == pool.float_tile_max_pool_f(cin) == (42 if cin <= 8 else 16)
+    assert fits32(top32) and not fits32(top32 + 1)
     if cin > 8:
-        assert top == pool.smallcin_max_pool_f(cin) == pool.halo_max_pool_f(cin)
+        assert top == pool.halo_max_pool_f(cin) == 21
         return
     fits = lambda pf: 4 * (pf + 2) * 4 * 168 + 2 * 80 * 72 <= 232_448
     assert fits(top) and not fits(top + 1) and top == 80
-    assert pool.smallcin_max_pool_f(cin) == pool.halo_max_pool_f(cin) == 48
 
 
 def _conv_inputs(rng, b, cin, f, t, cout):

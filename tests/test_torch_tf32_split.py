@@ -361,13 +361,17 @@ def test_k2w_k10a_split_arithmetic_matches_jax(name, cin, pf):
 
 # (b, cin, f, t, cout, pf): K3 at the flagship's stage-2 depth (Cin 192: 24
 # chunks of 8 channels), K10b at Cin 12 (a ragged second chunk) and Cin 8 (one
-# chunk, stage 1); T ragged against the tile's 64 frames, Cout against its 64
-# channels, several blocks of rows
-CONV_TILE_DEPTHS = [(1, 192, 8, 70, 72, 4), (2, 12, 16, 130, 20, 8), (2, 8, 16, 70, 12, 8)]
+# chunk, stage 1); the float smallcin tile's stage 1 (K2, K5's F1 / F2 / g_z
+# rows, the same K walk) at Cin 5 and 8 (one zero-filled chunk) and 10 (a
+# second chunk of 2 channels); T ragged against the tiles' 64 and 128 frames,
+# Cout against their 64 channels, several blocks of rows
+CONV_TILE_DEPTHS = [(1, 192, 8, 70, 72, 4), (2, 12, 16, 130, 20, 8), (2, 8, 16, 70, 12, 8),
+                    (2, 5, 16, 130, 20, 4), (1, 8, 32, 70, 72, 16), (2, 10, 16, 70, 12, 8)]
 
 
 @pytest.mark.parametrize("b,cin,f,t,cout,pf", CONV_TILE_DEPTHS,
-                         ids=["k3-stage-2", "k10b-cin-12", "k10b-cin-8"])
+                         ids=["k3-stage-2", "k10b-cin-12", "k10b-cin-8", "k2-cin-5", "k2-cin-8",
+                              "k5-cin-10"])
 def test_conv_tile_split_arithmetic(b, cin, f, t, cout, pf):
     """The float conv block tile's arithmetic (split operands, each k8 step
     of one tap x 8 channels summed once, added to a float32 accumulator in
@@ -389,24 +393,32 @@ def test_conv_tile_split_arithmetic(b, cin, f, t, cout, pf):
 
 
 @pytest.mark.parametrize("name,cin,pf", [("k3", 16, 2), ("k3", 24, 4), ("k10b", 12, 2),
-                                         ("k10b", 8, 4), ("k9", 16, 2), ("k9", 24, 4)])
+                                         ("k10b", 8, 4), ("k9", 16, 2), ("k9", 24, 4),
+                                         ("k2", 5, 4), ("k2", 8, 2), ("k5", 5, 4), ("k5", 8, 2),
+                                         ("k5", 10, 4)])
 def test_conv_tile_split_arithmetic_matches_jax(name, cin, pf):
-    """The float conv block tile's arithmetic against the JAX package's
+    """The float conv tiles' arithmetic (the block tile's and, on the same
+    K walk, the float smallcin tile's) against the JAX package's
     ``conv2d_widecin_ct_bn_relu_fpool`` (K3), ``conv2d_bn_relu_fpool``
-    (K10b) and ``conv2d_widecin_ct_bn_relu_fpool_train``'s forward (K9:
-    out, mean and var from F1's rows, the batch statistics in float64 as the
-    kernels' fixed-order reduction takes them) in interpret mode on the same
-    inputs: K3 and K10b within 1e-5 x max (the conv-pool tests' bound), K9
-    within 2e-4 x max (the bound ``tests/test_torch_ct_train.py`` holds the
-    op's forward to)."""
+    (K10b), ``conv2d_smallcin_thin_bn_relu_fpool`` (K2),
+    ``conv2d_widecin_ct_bn_relu_fpool_train``'s forward (K9) and
+    ``conv2d_smallcin_bn_relu_fpool_train``'s (K5; thin pack at Cin <= 8,
+    wide at 10; HIGHEST precision): out, mean and var from F1's rows, the
+    batch statistics in float64 as the kernels' fixed-order reduction takes
+    them, in interpret mode on the same inputs: K3, K10b and K2 within 1e-5
+    x max (the conv-pool tests' bound), K9 and K5 within 2e-4 x max (the
+    bound ``tests/test_torch_ct_train.py`` and
+    ``tests/test_torch_train_kernels.py`` hold the ops' forwards to)."""
+    import jax
     import jax.numpy as jnp
 
     from seld_tpu.ops.pallas.conv2d_ct_train import conv2d_widecin_ct_bn_relu_fpool_train
+    from seld_tpu.ops.pallas.conv2d_train import conv2d_smallcin_bn_relu_fpool_train
     from tests.test_torch_conv_pool import _nan_jax
 
     b, f, t, cout = 2, 8, 40, 12
     x, w, scale, bias = _frontend_inputs(6, b, cin, f, t, cout)
-    if name != "k9":
+    if name not in ("k9", "k5"):
         got = conv_pool_tf32_plain(x, w, scale, bias, pf)
         want = _nan_jax(name, *(a.numpy() for a in (x, w, scale, bias)), pf)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
@@ -417,10 +429,17 @@ def test_conv_tile_split_arithmetic_matches_jax(name, cin, pf):
     var = torch.clamp((pre * pre).mean((0, 2, 3)) - mean * mean, min=0.0)
     sc = gamma.double() * torch.rsqrt(var + eps)
     out = conv_pool_tf32_plain(x, w, sc.float(), (beta.double() - mean * sc).float(), pf)
-    h_ct = jnp.asarray(x.numpy().transpose(0, 2, 1, 3))
-    jout, jmean, jvar = conv2d_widecin_ct_bn_relu_fpool_train(
-        h_ct, t, *(jnp.asarray(a.numpy()) for a in (w, gamma, beta)), pf, eps, interpret=True)
-    want_out = np.asarray(jout)[..., :t].transpose(0, 2, 1, 3)
+    params = [jnp.asarray(a.numpy()) for a in (w, gamma, beta)]
+    if name == "k5":
+        jout, jmean, jvar = conv2d_smallcin_bn_relu_fpool_train(
+            jnp.asarray(x.numpy().transpose(0, 2, 3, 1)), *params, pf, eps, True,
+            jax.lax.Precision.HIGHEST, pack="thin" if cin <= 8 else "wide")
+        want_out = np.asarray(jout).transpose(0, 3, 1, 2)
+    else:
+        h_ct = jnp.asarray(x.numpy().transpose(0, 2, 1, 3))
+        jout, jmean, jvar = conv2d_widecin_ct_bn_relu_fpool_train(
+            h_ct, t, *params, pf, eps, interpret=True)
+        want_out = np.asarray(jout)[..., :t].transpose(0, 2, 1, 3)
     for g_, w_ in ((out, want_out), (mean, jmean), (var, jvar)):
         w_ = np.asarray(w_, np.float64)
         np.testing.assert_allclose(g_.double().numpy(), w_, rtol=0, atol=2e-4 * np.abs(w_).max())
@@ -492,3 +511,59 @@ def test_ct_dx_split_arithmetic_matches_jax(cin, cout, pf):
     want = np.asarray(dh, np.float64).transpose(0, 2, 1, 3)
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.double().numpy(), want, rtol=0, atol=2e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("cin,pf", [(5, 4), (8, 8), (10, 4)])
+def test_k5_routing_on_split_rows_matches_jax_vjp(cin, pf):
+    """K5's float32 backward on the float smallcin tile's rows: F1's rows
+    (``conv_rows_tf32_plain``, batch statistics in float64 as the kernels'
+    fixed-order reduction takes them), F2 their pool, B1's sums from the
+    pooled output, the g_z pass's routing of g to each window's first max
+    of those rows (``route_rows_plain``) and the dW tile's arithmetic on its
+    g_z (``conv_dw_tf32_plain``), then dgamma = inv (sum g_pre * acc - mean
+    S_g) and dbeta = S_g; against ``jax.vjp`` of the JAX package's
+    ``conv2d_smallcin_bn_relu_fpool_train`` in interpret mode (HIGHEST; thin
+    pack at Cin <= 8, wide at 10) on the same inputs and cotangent, within
+    2e-4 x max (the op's bound in ``tests/test_torch_train_kernels.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from seld_tpu.ops.pallas.conv2d_train import conv2d_smallcin_bn_relu_fpool_train
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+
+    b, f, t, cout, eps = 2, 16, 40, 12, 1e-5
+    x, w, gamma, beta = _frontend_inputs(9, b, cin, f, t, cout)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (b, cout, f // pf, t)).astype(np.float32))
+    rows = conv_rows_tf32_plain(x, w)
+    pre = rows.double()
+    n = b * f * t
+    mean = pre.mean((0, 2, 3))
+    var = torch.clamp((pre * pre).mean((0, 2, 3)) - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    scale = (gamma.double() * inv).float()
+    bias = (beta.double() - mean * gamma.double() * inv).float()
+    mean, inv = mean.float(), inv.float()
+    out = conv_pool_tf32_plain(x, w, scale, bias, pf)
+    p, q = inv / scale, (bias / scale + mean) * inv
+    sel = k5.sel_stats_plain(out, g, p, q)
+    a = inv * scale * sel[cout:] / n
+    c = scale * sel[:cout] / n - mean * a
+    gz, sg, sga = k5.route_rows_plain(rows, g, scale, bias, a, c, pf, torch.float32)
+    dw = conv_dw_tf32_plain(x, gz)
+    dgamma, dbeta = inv * (sga - mean * sg), sg
+
+    def jfn(w_, g_, b_):
+        return conv2d_smallcin_bn_relu_fpool_train(
+            jnp.asarray(x.numpy().transpose(0, 2, 3, 1)), w_, g_, b_, pf, eps, True,
+            jax.lax.Precision.HIGHEST, pack="thin" if cin <= 8 else "wide")
+
+    (jout, jmean, jvar), vjp = jax.vjp(jfn, *(jnp.asarray(v.numpy()) for v in (w, gamma, beta)))
+    jdw, jdgamma, jdbeta = vjp((jnp.asarray(g.numpy().transpose(0, 2, 3, 1)),
+                                jnp.zeros_like(jmean), jnp.zeros_like(jvar)))
+    want_out = np.asarray(jout).transpose(0, 3, 1, 2)
+    for got, want in ((out, want_out), (dw, jdw), (dgamma, jdgamma), (dbeta, jdbeta)):
+        want = np.asarray(want, np.float64)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=0,
+                                   atol=2e-4 * np.abs(want).max())

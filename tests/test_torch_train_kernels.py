@@ -234,30 +234,31 @@ def test_k5_rejects_what_the_kernels_do_not_take():
         k5.conv2d_bn_relu_fpool_train(x, w, s, s, 2)
     with pytest.raises(ValueError):   # F = 8 does not divide into pool 3
         k5.conv2d_bn_relu_fpool_train(x[..., :8], w[:, :, :8], s, s, 3)
-    x = torch.zeros(1, 22, 10, 10)
-    with pytest.raises(ValueError):   # pool 22 > K5's 21 rows at Cin 10
-        k5.conv2d_bn_relu_fpool_train(x, w[:, :, :10], s, s, 22)
+    x = torch.zeros(1, 256, 10, 10)
+    with pytest.raises(ValueError):   # pool 256 > K5's 255 rows (the routed row's byte)
+        k5.conv2d_bn_relu_fpool_train(x, w[:, :, :10], s, s, 256)
 
 
 @pytest.mark.parametrize("cin", [1, 8, 9, 10])
 def test_pool_f_limits_are_the_kernels_shared_memory(cin):
-    """K2's and K5's largest pool_f are the largest whose shared memory (as
-    conv3x3_bn_relu_fpool.cu and conv3x3_train.cu size it: pool_f + 2 halo
-    rows of CC x (128 + 2) floats and 9 x CC x 64 weights, K5's F1 and g_z
-    pass alike; the g_z pass stages g_z rows only in what is left) fits
-    232,448 bytes, capped at MAX_POOL_F."""
+    """K2's float32 rows per halo staging are the largest whose shared
+    memory, as conv3x3_smallcin_tf32.cuh sizes it (pool_f + 2 halo rows of
+    CC x (128 + 8) floats beside the split weights, hi and lo planes of 9 x
+    CC x 64 floats, and 4 x 64 floats of columns), fits 232,448 bytes; K5's
+    float32 F1 and g_z pass walk the same stagings, so K5's largest pool_f
+    is the g_z passes' routed row in a byte (255, the C entries' bound),
+    above the 48 / 21 rows of the SIMT passes it replaced."""
     from seld_tpu_torch.ops.kernels import conv2d_pool as pool
 
     cc = 8 if cin <= 8 else 16
 
-    def fits(pf, extra):
-        return 4 * ((pf + 2) * cc * 130 + 9 * cc * 64 + extra) <= 232_448
+    def fits(pf):
+        return 4 * ((pf + 2) * cc * 136 + 2 * 9 * cc * 64 + 4 * 64) <= 232_448
 
-    for top, extra in ((pool.smallcin_max_pool_f(cin), 0), (k5.max_pool_f(cin), 0)):
-        assert fits(top, extra)
-        assert top == pool.MAX_POOL_F or not fits(top + 1, extra)
-    assert (k5.max_pool_f(cin), pool.smallcin_max_pool_f(cin)) == ((48, 48) if cin <= 8
-                                                                   else (21, 21))
+    top = pool.smallcin_max_pool_f(cin)
+    assert fits(top) and not fits(top + 1)
+    assert top == (42 if cin <= 8 else 16)
+    assert k5.max_pool_f(cin) == k5.MAX_POOL_ROWS == 255 >= (48 if cin <= 8 else 21)
 
 
 def _stage0_block(cin, frontend_impl, n_stages=1):
