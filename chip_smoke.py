@@ -17,7 +17,8 @@ Phases, each printing its own lines:
    K10b and K9's F1 / F2, and the float smallcin tile of K2 and K5's F1 /
    F2 / g_z among them), failing if one has
    none or if a K4 / K6 kernel past
-   head dim 128 or a split-TF32 kernel spills;
+   head dim 128, a split-TF32 kernel or K9's B1 / g_z walker
+   (ROUTE_KERNELS, its registers printed) spills;
 3. kernel vs plain: every kernel of every path (K7, K8, K2w, K10a and
    K10b included, K8 within one ulp of its plain version at both row
    tiles, K1's float32 FFT at nperseg 64-2048 and within 1e-5 x
@@ -65,7 +66,10 @@ Phases, each printing its own lines:
    also held to float64: each within F64_FACTOR x the float32 plain
    version's distance from the plain version in float64 (the dW tiles and
    dx: the plain version with cuDNN off, whose float32 wgrad and dgrad
-   are printed beside); K9's B1 and g_z routing nothing
+   are printed beside); K9's B1 and g_z at the flagship's stages 2 and 3,
+   batches 2 and 8, both dtypes, by events, back to back and in device
+   time, with the achieved TB/s and the share of the byte bound (stage 3
+   after an L2 flush: ``k9_route_times``); K9's B1 and g_z routing nothing
    for a pool window that holds a NaN, in both dtypes, as the plain version
    (and JAX's _route_group); K2w's and K10a's operand builds
    in both dtypes
@@ -140,6 +144,10 @@ last kernel is not one of its bracket kernels is taken again with twice the
 leading brackets (the profiler left out the first kernels of every capture
 for stretches of some runs), at most CAPTURE_TRIES times; the count taken
 again is printed before the kernels' line.
+
+``python3 chip_smoke.py --k9-route [DIR]`` runs phase 1 and phase 3's K9
+B1 / g_z timing alone (``k9_route_times``) on the package of DIR, an
+unpacked ``git archive`` of another commit, or of this checkout.
 
 The line before the last is the card (``nvidia-smi``'s name and power limit);
 the one before that is the kernels' JSON summary; the last line is
@@ -298,28 +306,35 @@ TC_KERNELS = ("conv3x3_tc_kernel", "ct_stats_tc_kernel", "ct_dx_tc_kernel",
               "flash_dkv_tc_kernel", *WIDE_ATTN_KERNELS, "hamilton_tc_kernel", "stft_mag_tc_kernel",
               "smallcin_tc_kernel", "im2col_tc_kernel", "smallcin_wide_tc_kernel",
               "int8_matmul_tc_kernel", *TF32_KERNELS)
+# K9's B1 and g_z: the streaming walker (route_walk), two instances a dtype
+# (two quads a lane at pf <= 4, one above); phase 2 prints their registers
+# and fails on a spill
+ROUTE_KERNELS = ("ct_route_stats_kernel", "ct_route_gz_kernel")
 # bf16 and TF32 (HMMA, HGMMA) and int8 (IMMA) products
 TC_OPS = re.compile(r"\b(?:HG?MMA|IMMA)\b")
 # device kernels read out of the step profiles (phases 5a, 5b, 6 and 7), by
-# demangled name: K4's and K6's launches (bf16, or float32 in phase 5a's
-# profiled float32 step), K9's and K5's dW (K5's B2: the g_z pass and the dW
-# tile; their reductions share reduce_kernel with other passes), K5's F1 and K7
+# demangled name, each stem anchored at the start of a name (watched(): a stem
+# never matches inside a longer name, so no kernel counts in two groups): K4's
+# and K6's launches (bf16, or float32 in phase 5a's profiled float32 step),
+# K9's and K5's dW (K5's B2: the g_z pass and the dW tile; their reductions
+# share reduce_kernel with other passes), K5's F1, K9's B1 and g_z (the
+# streaming walker, both dtypes) and K7
 PROFILE_WATCH = {"K4": ("flash_fwd_tc_kernel", "flash_fwd_tf32_kernel"),
                  "K6": ("delta_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel",
                         "flash_dq_tf32_kernel", "flash_dkv_tf32_kernel"),
                  "K9 dW": ("ct_dw_tc_kernel<32>", "ct_dw_tf32_kernel<32>"),
                  "K5 dW": ("train_gz_tc_kernel", "ct_dw_tc_kernel<16>"),
                  "K5 F1": ("train_stats_tc_kernel",),
+                 "K9 B1": ("ct_route_stats_kernel<",), "K9 g_z": ("ct_route_gz_kernel<",),
                  "K7": ("hamilton_tc_kernel", "hamilton_tf32_kernel")}
 # the profiled float32 steps of phase 5a: K5's passes apart (F1, F2 = K2's
 # kernel and the g_z pass on the float smallcin tile, B1, the split-TF32 dW
-# tile), K4, K6 and K9's F1, F2 and dx (the split-TF32 block tile) and dW in the
-# pallas-ct step
+# tile), K4, K6 and K9's F1, F2, B1, g_z and dx and dW in the pallas-ct step
 F32_STEP_WATCH = {"K5 F1": ("train_stats_tf32_kernel<",),
                   "K5 F2": ("smallcin_tf32_kernel<",),
                   "K5 B1": ("sel_stats_kernel<float>",), "K5 g_z": ("train_gz_tf32_kernel<",),
                   "K5 dW": ("ct_dw_tf32_kernel<8>",),
-                  **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW")},
+                  **{k: PROFILE_WATCH[k] for k in ("K4", "K6", "K9 dW", "K9 B1", "K9 g_z")},
                   "K9 F1": ("ct_stats_tf32_kernel",), "K9 F2": ("conv3x3_tf32_kernel",),
                   "K9 dx": ("ct_dx_tf32_kernel",)}
 # device kernels read out of the serving profiles (phase 4), by demangled name
@@ -469,9 +484,13 @@ def phase_build() -> None:
     require(all(tiles.values()), f"tensor-core kernels without tensor-core instructions: "
             f"{[fn for fn, n in tiles.items() if not n]}")
     # the attention kernels past head dim 128 and the split-TF32 kernels keep
-    # every accumulator in registers
+    # every accumulator in registers, K9's walker its rows
+    for fn, r in sorted(ptxas.items()):
+        if any(k in fn for k in ROUTE_KERNELS):
+            print(f"[build] K9 B1 / g_z walker: {fn}: ptxas: {r}")
     for group, what in ((WIDE_ATTN_KERNELS, "attention kernels past head dim 128"),
-                        (TF32_KERNELS, "split-TF32 kernels")):
+                        (TF32_KERNELS, "split-TF32 kernels"),
+                        (ROUTE_KERNELS, "K9's B1 / g_z walker kernels")):
         regs = {fn: r for fn, r in ptxas.items() if any(k in fn for k in group)}
         require(regs and all(re.search(r"\b0 bytes spill stores", r) for r in regs.values()),
                 f"{what} spill or are missing: {regs}")
@@ -530,12 +549,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def time_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
-    """Median milliseconds of fn() over iters launches, CUDA events."""
+def time_ms(torch, fn, warmup: int = 2, iters: int = 10, before=None) -> float:
+    """Median milliseconds of fn() over iters launches, CUDA events; ``before``
+    (an L2 flush) runs ahead of each, outside the events."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1018,6 +1040,15 @@ def phase_kernels(torch, card: str) -> dict:
     phase_k5(torch, card, randn, record)
     phase_k9(torch, card, record)
     k9_nan_routing(torch, card)
+    k9_route_ragged(torch, card)
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+    route = k9_route_times(torch, card, k9)
+    for name, part, kernel in (("ct_train_sel_stats", "B1", "ct_route_stats_kernel"),
+                               ("ct_train_gz", "g_z", "ct_route_gz_kernel")):
+        flag = route[f"stage 2 batch 2 bfloat16 {part}"]
+        summary[name].update(kernel=kernel, stream_ms=flag["stream_ms"],
+                             device_ms=flag["device_ms"],
+                             route={k: v for k, v in route.items() if k.endswith(part)})
     phase_k7_k8(torch, card, record)
     phase_frontend_kernels(torch, card, randn, record)
     require(all(launch_counts[COUNTED_AS.get(n, n)] > 0 for n in KERNELS),
@@ -1431,6 +1462,8 @@ def phase_k9(torch, card: str, record) -> None:
             out = conv2d_widecin_bn_relu_fpool(h, w, scale, bias, pf)
             cols = torch.stack([scale, bias, mean, inv, zero, zero])
             sel = k9.ct_sel_stats(pre, g, cols, pf)
+            require(torch.equal(k9.ct_sel_stats(pre, g, cols, pf), sel),
+                    f"{tag}: B1 not repeatable")
             cols = torch.stack([scale, bias, mean, inv, sel[:cout] / n, sel[cout:] / n])
             gz = k9.ct_gz(pre, g, cols, pf)
             conv_flops = 2.0 * 9 * c * cout * n
@@ -1588,6 +1621,137 @@ def k9_nan_routing(torch, card: str) -> None:
                 torch.equal(torch.isnan(gz), nan_gz), f"K9 B1 / g_z {dt}: NaNs differ")
         require(d <= (2e-4 if dt == torch.float32 else 2e-2) * gz_want.float()[fin].abs().max(),
                 f"K9 g_z {dt}: {d:.3e} from the plain version past the NaNs")
+
+
+# K9's B1 and g_z at ragged shapes: (B, Cout, F, T, pf, g misaligned): T % 4 != 0
+# (one frame at a time: 130, 515, 777), T % 4 == 0 (16-byte quads: 300, 4800),
+# a g view one element off its 16-byte boundary (quads one frame at a time),
+# pf 1, 2 and 3 (two quads a lane), 8 and 16 (one; 16 in two chunks of rows)
+ROUTE_CASES = [(2, 72, 16, 130, 1, False), (2, 72, 16, 515, 2, False),
+               (1, 40, 24, 777, 3, False), (2, 72, 16, 300, 8, False),
+               (1, 24, 32, 4800, 16, False), (2, 40, 16, 300, 16, True),
+               (1, 72, 4, 1000, 2, False)]
+
+
+def k9_route_ragged(torch, card: str) -> None:
+    """K9's B1 and g_z at ROUTE_CASES in both dtypes against their plain
+    versions, on pre on a grid of quarters (ties in most windows) with scale
+    and bias on grids (the kernels' fused pre * scale + bias and the plain
+    version's then equal, so both route alike), and B1 bitwise on a rerun."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for b, cout, f, t, pf, shifted in ROUTE_CASES:
+        # pre, scale and bias on grids: pre * scale + bias exact, fused or not
+        pre = torch.randint(-8, 9, (b, cout, f, t), generator=gen, device=dev).float() / 4
+        grid = lambda lo, hi, step: torch.randint(lo, hi, (cout,), generator=gen,
+                                                  device=dev).float() * step
+        cols = torch.stack([0.5 + grid(0, 9, 1 / 8), grid(-4, 5, 1 / 16),
+                            0.1 * torch.randn(cout, generator=gen, device=dev),
+                            0.5 + torch.rand(cout, generator=gen, device=dev),
+                            1e-3 * torch.randn(cout, generator=gen, device=dev),
+                            1e-3 * torch.randn(cout, generator=gen, device=dev)])
+        for dt in (torch.float32, torch.bfloat16):
+            n = b * cout * (f // pf) * t
+            flat = torch.randn(n + 1, generator=gen, device=dev).to(dt)
+            g = (flat[1:] if shifted else flat[:n]).view(b, cout, f // pf, t)
+            tag = f"B {b} Cout {cout} F {f} T {t} pf {pf}{' g off 16 B' if shifted else ''}"
+            sel = k9.ct_sel_stats(pre, g, cols, pf)
+            compare(torch, "ct_train_sel_stats", f"T{t} pf{pf}", sel,
+                    k9.ct_sel_stats_plain(pre, g, cols, pf), torch.float32, card)
+            require(torch.equal(k9.ct_sel_stats(pre, g, cols, pf), sel),
+                    f"K9 B1 {tag} {dt}: not repeatable")
+            compare(torch, "ct_train_gz", f"T{t} pf{pf}", k9.ct_gz(pre, g, cols, pf),
+                    k9.ct_gz_plain(pre, g, cols, pf), dt, card)
+            print(f"[kernel] K9 B1 / g_z {tag} {str(dt)[6:]}: within tolerance, B1 bitwise "
+                  f"on a rerun ({card})")
+        del pre, cols
+
+
+# K9's B1 and g_z timed at the flagship's stages 2 and 3 (Cout 192, T 4800), and
+# at stage 2's F with pf 16, where g_z reads the first 8 rows of a window again:
+# (label, F, pf, L2 flushed); stage 3's pre (29.5 MB at batch 2) fits in the 50
+# MB L2
+ROUTE_STAGES = (("stage 2", 32, 8, False), ("stage 3", 4, 2, True),
+                ("stage 2 pf 16", 32, 16, False))
+ROUTE_BATCHES = (2, 8)
+L2_FLUSH_BYTES = 64 << 20
+
+
+def k9_route_times(torch, card: str, k9, batches=ROUTE_BATCHES) -> dict:
+    """K9's B1 (``k9.ct_sel_stats``) and g_z (``k9.ct_gz``) at ROUTE_STAGES,
+    per batch and dtype, on random pre and g: CUDA events (time_ms, the
+    wrapper's host path included), back to back (stream_ms) and device time
+    (the profiler's self device time of every kernel a call launches, B1's
+    reduction included), with the achieved TB/s and the share of the byte
+    bound (pre and g read once, gz written once, over 3.35 TB/s) of the
+    device time. Stage 3 runs each launch after a 64 MB write that flushes
+    the L2, as the pallas-ct step finds pre cold; the write is outside the
+    events, and taken off the back-to-back and device times. ``k9`` is a
+    ``conv2d_ct_train`` module (this tree's, or another tree's with
+    ``--k9-route DIR``). Returns {"<stage> batch B dtype pass": numbers}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.fill_(1)
+    flush_keys = set(device_split(torch, flush))
+    flush_b2b = stream_ms(torch, flush)
+    cout, t = 192, 4800
+    out = {}
+    for stage, f, pf, cold in ROUTE_STAGES:
+        for b in batches:
+            pre = torch.randn(b, cout, f, t, generator=gen, device=dev)
+            cols = torch.stack([1.0 + 0.2 * torch.randn(cout, generator=gen, device=dev),
+                                0.2 * torch.randn(cout, generator=gen, device=dev),
+                                0.1 * torch.randn(cout, generator=gen, device=dev),
+                                1.0 + 0.1 * torch.rand(cout, generator=gen, device=dev),
+                                1e-3 * torch.randn(cout, generator=gen, device=dev),
+                                1e-3 * torch.randn(cout, generator=gen, device=dev)])
+            for dt in (torch.bfloat16, torch.float32):
+                g = torch.randn(b, cout, f // pf, t, generator=gen, device=dev).to(dt)
+                gz = k9.ct_gz(pre, g, cols, pf)
+                for name, fn, moved in (
+                        ("B1", lambda: k9.ct_sel_stats(pre, g, cols, pf), nbytes(pre, g)),
+                        ("g_z", lambda: k9.ct_gz(pre, g, cols, pf), nbytes(pre, g, gz))):
+                    run = (lambda fn=fn: (flush(), fn())) if cold else fn
+                    ev = time_ms(torch, fn, before=flush if cold else None)
+                    b2b = stream_ms(torch, run) - (flush_b2b if cold else 0.0)
+                    split = whole_device_split(torch, run, flush_keys)
+                    dev_ms = sum(split.values())
+                    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+                    tag = f"{stage} batch {b} {str(dt)[6:]} {name}"
+                    out[tag] = {"ms": ev, "stream_ms": b2b, "device_ms": dev_ms,
+                                "bound_ms": bound_ms, "tb_s": moved / dev_ms / 1e9,
+                                "share": bound_ms / dev_ms,
+                                "kernels": sorted(re.search(r"\w+_kernel(<[^()]*>)?", k)[0]
+                                                  for k in split)}
+                    print(f"[k9 route] {tag}{' (L2 flushed)' if cold else ''}: events {ev:.4f} "
+                          f"ms, back to back {b2b:.4f} ms, device {dev_ms:.4f} ms; "
+                          f"{moved / dev_ms / 1e9:.3f} TB/s, {100 * bound_ms / dev_ms:.1f}% of "
+                          f"the byte bound {bound_ms:.4f} ms ({card})")
+                del g, gz
+            del pre, cols
+    del flush_buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def whole_device_split(torch, fn, leave_out=(), iters: int = 20, tries: int = 3) -> dict:
+    """device_split of fn() without the kernels named in ``leave_out``, taken
+    again (at most ``tries`` times) until every kernel left ran ``iters``
+    times: a capture that lost a launch read K9's float32 B1 at batch 8
+    above its byte bound."""
+    from seld_tpu_torch.utils.profiling import device_events
+
+    fn()
+    for _ in range(tries):
+        events, _ = device_events(lambda: [fn() for _ in range(iters)])
+        kept = [e for e in events if e.key not in leave_out]
+        if kept and all(e.count == iters for e in kept):
+            return {e.key: e.self_device_time_total / 1e3 / iters for e in kept}
+    raise SmokeFailure(f"no whole capture of {iters} calls in {tries} tries: "
+                       f"{[(e.key[:60], e.count) for e in kept]}")
 
 
 def dx_plain_f32(gz, w):
@@ -2060,9 +2224,20 @@ def profile_step(torch, run, card: str, top: int = 14, label: str = "one bf16 st
     for e in sorted(events, key=self_ms, reverse=True)[:top]:
         print(f"[profile]   {self_ms(e):8.2f} ms {100 * self_ms(e) / busy:5.1f}% "
               f"x{e.count:<5d} {e.key[:90]}")
-    watched = {name: sum(self_ms(e) for e in events if any(k in e.key for k in keys))
-               for name, keys in watch.items()}
-    return {"busy": busy, **watched}
+    twice = [e.key for e in events if len(watched(e.key, watch)) > 1]
+    require(not twice, f"{label}: kernels in two watch groups: {twice}")
+    groups = {name: sum(self_ms(e) for e in events if name in watched(e.key, watch))
+              for name in watch}
+    return {"busy": busy, **groups}
+
+
+def watched(key: str, watch: dict) -> list:
+    """The ``watch`` groups whose stems match the device kernel ``key`` (the
+    profiler's demangled name): a stem matches where no letter, digit or _
+    precedes it, so ``sel_stats_kernel<float>`` (K5's B1) is not found in a
+    longer name that ends the same way."""
+    return [name for name, stems in watch.items()
+            if any(re.search(r"(?<!\w)" + re.escape(k), key) for k in stems)]
 
 
 def device_shares(profiled: dict, watch: dict = PROFILE_WATCH) -> str:
@@ -2898,7 +3073,33 @@ def frontend_profiler(torch) -> dict:
     return {**counts, "im2col_patches": counts["im2col_patches"] - alone}
 
 
-def main() -> int:
+def route_only(torch, package_root: Path) -> int:
+    """``--k9-route [DIR]``: the environment and k9_route_times alone, on the
+    package of DIR (an unpacked ``git archive`` of another commit; default
+    this checkout), printing the times as one JSON line; its kernels build
+    under DIR."""
+    if not (package_root / "seld_tpu_torch" / "__init__.py").is_file():
+        print(f"FAIL: {package_root} holds no seld_tpu_torch package")
+        return 1
+    sys.path.insert(0, str(package_root))
+    import seld_tpu_torch
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+
+    seld_tpu_torch.disable_tf32()
+    try:
+        card = phase_environment(torch)
+        print(f"[k9 route] package {Path(seld_tpu_torch.__file__).parent}")
+        route = k9_route_times(torch, card, k9)
+    except SmokeFailure as e:
+        print(f"FAIL: {e}")
+        return 1
+    print(json.dumps({"k9_route": route}))
+    print(card)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     try:
         import torch
     except ImportError as e:
@@ -2906,6 +3107,11 @@ def main() -> int:
         return 1
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
+        return 1
+    if argv[:1] == ["--k9-route"]:
+        return route_only(torch, Path(argv[1]).resolve() if len(argv) > 1 else ROOT)
+    if argv:
+        print(f"FAIL: unknown arguments {argv}; run with none, or --k9-route [DIR]")
         return 1
     if not (ROOT / "seld_tpu_torch" / "__init__.py").is_file() or not FLAGSHIP_CONFIG.is_file():
         print(f"FAIL: {ROOT} holds no seld_tpu_torch checkout")

@@ -63,10 +63,11 @@ SIGNATURES = {
     "seld_conv3x3_train_dw_tc": [_P] * 4 + [_I] * 8 + [_P],
     # h, w, pre, partials, sums, batch, cin, f, t, cout, pf, dtype, stream
     "seld_ct_train_stats": [_P] * 5 + [_I] * 7 + [_P],
-    # pre, g, cols, partials, sums, batch, cout, f, t, pf, dtype, stream
-    "seld_ct_train_sel_stats": [_P] * 5 + [_I] * 6 + [_P],
-    # pre, g, cols, gz, batch, cout, f, t, pf, dtype, stream
-    "seld_ct_train_gz": [_P] * 4 + [_I] * 6 + [_P],
+    # pre, g, cols, partials, sums, batch, cout, f, t, pf, frames_per_span, blocks, dtype,
+    # stream
+    "seld_ct_train_sel_stats": [_P] * 5 + [_I] * 8 + [_P],
+    # pre, g, cols, gz, batch, cout, f, t, pf, frames_per_span, blocks, dtype, stream
+    "seld_ct_train_gz": [_P] * 4 + [_I] * 8 + [_P],
     # h, gz, partials, sums, batch, cin, f, t, cout, rows_per_split, frames_per_split,
     # dtype, stream
     "seld_ct_train_dw": [_P] * 4 + [_I] * 8 + [_P],

@@ -30,7 +30,8 @@ the output's bytes, for every bfloat16 kernel, the split-TF32 wide kernels
 past head dim 128 (D 160), the split-TF32 K4 (D 48) and K7, K5's
 float32 F1 and B2 (F1, the g_z pass and the dW tile at Cin 8 and 10), the
 conv-pool stages in float32 (K2, K2w, K3, K10a, K10b) and K9's float32
-F1, B1, g_z and dh (B1, g_z and dh on a drawn pre), on inputs from
+F1, B1, g_z and dh (B1, g_z and dh on a drawn pre; g_z also at T 515, pf
+16 and at pf 1), on inputs from
 one seeded generator on the device. Equal code gives equal bits (every kernel there
 reduces in a fixed order); the runner exits 1 where a case differs.
 ``--tests`` runs the given tests (pytest node ids under ``tests/``) once in
@@ -240,6 +241,16 @@ def hash_cases(device):
     out.append(("K9 B1 f32", lambda: (k9.ct_sel_stats(pre32, g32, ccols, 4),)))
     out.append(("K9 g_z f32", lambda: (k9.ct_gz(pre32, g32, ccols, 4),)))
     out.append(("K9 dh f32", lambda: (k9.ct_dx(pre32, w32),)))
+    # K9's g_z beside the cases above (T 300, pf 4): one frame at a time (T 515)
+    # with two chunks of rows (pf 16), and one row a window (pf 1)
+    for t9, pf9 in ((515, 16), (300, 1)):
+        pre9 = randn(2, 40, 16, t9, dt=torch.float32)
+        cols9 = torch.stack([randn(40, dt=torch.float32, sc=0.1) + d
+                             for d in (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)])
+        for dt, tag in ((bf16, "bf16"), (torch.float32, "f32")):
+            g99 = randn(2, 40, 16 // pf9, t9, dt=dt)
+            out.append((f"K9 g_z {tag} T {t9} pf {pf9}", lambda pre9=pre9, g99=g99, cols9=cols9,
+                        pf9=pf9: (k9.ct_gz(pre9, g99, cols9, pf9),)))
     return out
 
 

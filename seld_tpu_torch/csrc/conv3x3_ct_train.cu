@@ -31,8 +31,8 @@
 //       flipped, Cin and Cout swapped) on the block tile with transposed
 //       weights: FtPipe<true> (split TF32) in float32, TbPipe<true> (the
 //       weights staged [tap][co][ci]) in bfloat16; no affine, ReLU or pool.
-// - the sums (F1, B1, dW) go through per-block partial rows and
-//   launch_reduce: a fixed order in double, no atomics, so a run repeats
+// - the sums (F1, B1, dW) go through partial rows, one per block (B1: one
+//   per work unit, in a slot fixed by the unit), and launch_reduce: a fixed order in double, no atomics, so a run repeats
 //   bitwise.
 //
 // What bounds it on the H100: arithmetic. The function needs three
@@ -45,8 +45,13 @@
 // that stage). Design: F1 is K3's block tile (64 channels x 64 frames x 4
 // rows a pass, 256 threads: conv3x3_tc.cuh's in bfloat16, its split-TF32
 // counterpart conv3x3_tf32.cuh in float32), and so is B3 on the
-// transposed weights; B1 and B2's gz pass
-// stream one (b, channel, pooled row) per block; the dW pass gives each
+// transposed weights. B1 and B2's gz pass are bound by bytes (pre read,
+// g read, gz written: 0.075 and 0.110 ms at the flagship's stage 2, batch 2,
+// in bf16) and share one streaming walker, route_walk below: a lane owns 4
+// frames of a pool window (16-byte loads of pre, a window's rows loaded
+// before any is used, pre read once at pf <= 8), a warp walks (b, channel,
+// pooled row, frame span) units on a persistent grid sized so that stage 3's
+// few windows still fill every SM. The dW pass gives each
 // block a share of the depth, split over the (b, f) rows and, where B * F
 // is small (stage 3: 8 rows at batch 2), over frames, so that every SM
 // has blocks. In bfloat16 the dW pass is the tensor-core GEMM of
@@ -56,102 +61,278 @@
 // of conv3x3_dw_tf32.cuh: three TF32 products a product, the A operand's
 // tap shift a one-word offset, each 64-frame step summed apart and added to
 // the accumulators rounded to nearest).
+#include <climits>
+
 #include "conv3x3_dw_tc.cuh"
 #include "conv3x3_dw_tf32.cuh"
 #include "conv3x3_tf32.cuh"
 
 namespace {
 
-constexpr int kCols = 6;        // rows of the per-channel columns: scale, bias, mean, inv, c1, c2
+// ---- B1 and g_z: one streaming row walker ----------------------------------
+//
+// A lane owns a quad: 4 consecutive frames of one pool window, that is one
+// 16-byte load of each of the window's pf rows of pre, one 8-byte (bf16) or
+// 16-byte (float32) load of g and, in g_z, one 8- or 16-byte store of each
+// row of gz. A warp is one walker: it takes work units (b, channel, pooled
+// row, frame span) u = warp * gridDim.x + blockIdx.x, then u + 8 * gridDim.x,
+// ..., and its lanes take the span's quads lane, lane + 32 kG, ... . The grid
+// is persistent (route_split in ops/kernels/conv2d_ct_train.py: at most SMs x
+// kRouteStatsBlocks or kRouteGzBlocks blocks, the span chosen so that the
+// units' rounds come out whole), so stage 3's 768 windows at batch 2 fill the
+// card as stage 2's do.
+// Rows are loaded into registers in chunks of kRouteRows float4 a lane (kG
+// quads of kRouteRows / kG rows) before any is used; pf > 8 takes several
+// chunks with the running max, `sel` and the NaN state carried between them,
+// and there g_z reads every chunk but the last again when it writes. At pf <= 8
+// pre is read from device memory once.
+constexpr int kRouteThreads = 256;   // 8 warps a block, each warp one walker
+// Blocks an SM (route_split's persistent grid): B1 at <= 80 registers a
+// thread; g_z holds a chunk's rows until `sel` is known and then every
+// row's output, and at 80 it spilled (24-156 bytes), so <= 128.
+constexpr int kRouteStatsBlocks = 3;
+constexpr int kRouteGzBlocks = 2;
+constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr int kRouteRows = 8;        // float4 rows of pre a lane holds at once
+constexpr int kQuad = 4;             // frames a lane owns
 
-// The window's max of relu(pre * scale + bias) over its pf rows, and `sel`,
-// the first row holding it (strict >, so ties keep the earlier row). The max
-// is taken with max_nan: a NaN in any row makes it NaN, so the caller's
-// `> 0.f` routes nothing for that window. That is JAX's _route_group
-// (seld_tpu/ops/pallas/conv2d_ct_train.py:97-112): jnp.maximum over the
-// rows, then the first row equal to the max (none equals a NaN), where its
-// pre-activation is > 0. Finite windows route as the strict > alone does.
-static __device__ __forceinline__ float route_first_max(const float* __restrict__ prow,
-                                                        size_t row_stride, int pf, int t,
-                                                        float sc, float bi, int& sel) {
-  float best = 0.f, m = 0.f;
-  sel = 0;
-  for (int r = 0; r < pf; ++r) {
-    const float y = bn_relu(prow[r * row_stride + t], sc, bi);
-    if (r == 0 || y > best) {
-      best = y;
-      sel = r;
-    }
-    m = max_nan(m, y);
-  }
-  return m;
+static __device__ __forceinline__ float& quad_at(float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ct_sel_stats_kernel(const float* __restrict__ pre, const T* __restrict__ g,
-                    const float* __restrict__ cols, float* __restrict__ partials, int cout,
-                    int f_dim, int t_dim, int pf) {
-  __shared__ float red[2][kThreads];
-  const int co = blockIdx.x;
+// Frames t .. t + 3 of a row: one 16-byte load where `vec` (T % 4 == 0 and
+// every base 16-byte aligned), else one frame at a time, frames >= T as 0.
+// kStream loads evict-first (ld.global.cs): B1's pre, which B1 reads once
+// (faster in bf16 at the flagship's stages 2 and 3 than the read-only path;
+// g_z, which also writes, was slower at stage 2 with cs loads and stores:
+// PERF.md §6).
+template <bool kStream = false>
+static __device__ __forceinline__ float4 load_quad(const float* __restrict__ row, int t,
+                                                   int t_dim, bool vec) {
+  if (vec) {
+    const auto* q = reinterpret_cast<const float4*>(row + t);
+    return kStream ? __ldcs(q) : __ldg(q);
+  }
+  float4 v = make_float4(__ldg(row + t), 0.f, 0.f, 0.f);
+  if (t + 1 < t_dim) v.y = __ldg(row + t + 1);
+  if (t + 2 < t_dim) v.z = __ldg(row + t + 2);
+  if (t + 3 < t_dim) v.w = __ldg(row + t + 3);
+  return v;
+}
+
+static __device__ __forceinline__ float4 load_quad(const bf16* __restrict__ row, int t,
+                                                   int t_dim, bool vec) {
+  if (vec) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + t));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  float4 v = make_float4(__bfloat162float(row[t]), 0.f, 0.f, 0.f);
+  if (t + 1 < t_dim) v.y = __bfloat162float(row[t + 1]);
+  if (t + 2 < t_dim) v.z = __bfloat162float(row[t + 2]);
+  if (t + 3 < t_dim) v.w = __bfloat162float(row[t + 3]);
+  return v;
+}
+
+static __device__ __forceinline__ void store_quad(float* __restrict__ row, int t, int t_dim,
+                                                  bool vec, float4 v) {
+  if (vec) {
+    *reinterpret_cast<float4*>(row + t) = v;
+    return;
+  }
+  row[t] = v.x;
+  if (t + 1 < t_dim) row[t + 1] = v.y;
+  if (t + 2 < t_dim) row[t + 2] = v.z;
+  if (t + 3 < t_dim) row[t + 3] = v.w;
+}
+
+// Rounded to nearest as store_f, whether packed in pairs or one at a time.
+static __device__ __forceinline__ void store_quad(bf16* __restrict__ row, int t, int t_dim,
+                                                  bool vec, float4 v) {
+  if (vec) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(row + t) =
+        make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+    return;
+  }
+  row[t] = __float2bfloat16(v.x);
+  if (t + 1 < t_dim) row[t + 1] = __float2bfloat16(v.y);
+  if (t + 2 < t_dim) row[t + 2] = __float2bfloat16(v.z);
+  if (t + 3 < t_dim) row[t + 3] = __float2bfloat16(v.w);
+}
+
+// One chunk of rows r0 .. r0 + kR - 1 (those < pf) of the lane's kG quads;
+// quads past the span read as 0.
+template <bool kStream, int kG, int kR>
+static __device__ __forceinline__ void load_rows(float4 (&p)[kG][kR],
+                                                 const float* __restrict__ prow,
+                                                 const int (&tq)[kG], const bool (&ok)[kG],
+                                                 int r0, int pf, int t_dim, bool vec) {
+#pragma unroll
+  for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      p[gi][r] = ok[gi] && r0 + r < pf
+                     ? load_quad<kStream>(prow + static_cast<size_t>(r0 + r) * t_dim, tq[gi],
+                                          t_dim, vec)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// B1 (kGz false) and g_z (kGz true) of every unit this warp walks. Routing,
+// per frame: the window's max m of relu(pre * scale + bias) over its pf rows
+// with max_nan, and `sel`, the first row holding it (strict >, so ties keep
+// the earlier row); routed where m > 0, so a window holding a NaN (m NaN)
+// routes nothing. That is JAX's _route_group (seld_tpu/ops/pallas/
+// conv2d_ct_train.py:97-112): jnp.maximum over the rows, then the first row
+// equal to the max (none equals a NaN), where its pre-activation is > 0. The
+// running max stands in for the running best: for finite rows they are
+// equal (every y >= 0), and once m is NaN nothing routes. B1 sums S_g = sum
+// g_pre and S_gx = sum g_pre * xhat, xhat = (pre - mean) * inv, per lane in
+// frame order, then down the warp's lanes in a fixed order, into the unit's
+// partial row ((b * F' + fo) * spans + span, channel); a NaN window adds its
+// NaN to S_gx, as JAX's sum of g_pre * xhat. g_z writes scale * (g_pre - c1
+// - xhat * c2) with the product-sum fused and rounded once, then rounded to
+// g's dtype.
+template <bool kGz, int kG, typename T>
+static __device__ __forceinline__ void route_walk(const float* __restrict__ pre,
+                                                  const T* __restrict__ g,
+                                                  const float* __restrict__ cols,
+                                                  float* __restrict__ partials,
+                                                  T* __restrict__ gz, int batch, int cout,
+                                                  int f_dim, int t_dim, int pf,
+                                                  int frames_per_span, bool vec) {
+  constexpr int kR = kRouteRows / kG;
+  const int lane = threadIdx.x % 32;
   const int f_out = f_dim / pf;
-  const int b = blockIdx.y / f_out, fo = blockIdx.y % f_out;
-  const float* prow = pre + ((static_cast<size_t>(b) * cout + co) * f_dim + fo * pf) * t_dim;
-  const T* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
-  const float sc = cols[co], bi = cols[cout + co];
-  const float mu = cols[2 * cout + co], iv = cols[3 * cout + co];
-  float sg = 0.f, sgx = 0.f;
-  for (int t = threadIdx.x; t < t_dim; t += kThreads) {
-    int sel;
-    const float m = route_first_max(prow, t_dim, pf, t, sc, bi, sel);
-    if (m > 0.f) {
-      const float gv = to_f(grow[t]);
-      sg += gv;
-      sgx = fmaf(gv, (prow[static_cast<size_t>(sel) * t_dim + t] - mu) * iv, sgx);
-    } else if (m != m) {
-      sgx += m;   // a NaN window routes nothing, but JAX's sum of g_pre * xhat is NaN
+  const int spans = ceil_div(t_dim, frames_per_span);
+  const int units = batch * cout * f_out * spans;
+  const int chunks = ceil_div(pf, kR);
+  for (int u = threadIdx.x / 32 * gridDim.x + blockIdx.x; u < units;
+       u += kRouteWarps * gridDim.x) {
+    const int span = u % spans, window = u / spans;   // window = (b * cout + co) * f_out + fo
+    const int fo = window % f_out, bc = window / f_out, co = bc % cout;
+    const float sc = cols[co], bi = cols[cout + co];
+    const float mu = cols[2 * cout + co], iv = cols[3 * cout + co];
+    const size_t base = (static_cast<size_t>(bc) * f_dim + static_cast<size_t>(fo) * pf) * t_dim;
+    const float* prow = pre + base;
+    const T* grow = g + static_cast<size_t>(window) * t_dim;
+    const int t_first = span * frames_per_span;
+    const int t_end = min(t_dim, t_first + frames_per_span);
+    float sg = 0.f, sgx = 0.f;
+    for (int t0 = t_first + kQuad * lane; t0 < t_end; t0 += kQuad * 32 * kG) {
+      int tq[kG];
+      bool ok[kG];
+      float4 gv[kG];
+#pragma unroll
+      for (int gi = 0; gi < kG; ++gi) {
+        tq[gi] = t0 + kQuad * 32 * gi;
+        ok[gi] = tq[gi] < t_end;
+        gv[gi] = ok[gi] ? load_quad(grow, tq[gi], t_dim, vec) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float4 p[kG][kR];
+      float m[kG][kQuad], xs[kG][kQuad];
+      int sel[kG][kQuad];
+      for (int c = 0; c < chunks; ++c) {
+        const int r0 = c * kR;
+        load_rows<!kGz>(p, prow, tq, ok, r0, pf, t_dim, vec);
+#pragma unroll
+        for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            if (r0 + r >= pf) continue;
+#pragma unroll
+            for (int j = 0; j < kQuad; ++j) {
+              const float x = quad_at(p[gi][r], j);
+              const float y = bn_relu(x, sc, bi);
+              if (r0 + r == 0) {   // max_nan(0, y) = y: bn_relu's y is >= 0 or NaN
+                m[gi][j] = y;
+                sel[gi][j] = 0;
+                xs[gi][j] = x;
+              } else {
+                if (y > m[gi][j]) {
+                  sel[gi][j] = r0 + r;
+                  xs[gi][j] = x;
+                }
+                m[gi][j] = max_nan(m[gi][j], y);
+              }
+            }
+          }
+      }
+      if constexpr (!kGz) {
+#pragma unroll
+        for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j) {
+            if (!ok[gi] || tq[gi] + j >= t_dim) continue;
+            if (m[gi][j] > 0.f) {
+              const float gval = quad_at(gv[gi], j);
+              sg += gval;
+              sgx = __fmaf_rn(gval, __fmul_rn(__fsub_rn(xs[gi][j], mu), iv), sgx);
+            } else if (m[gi][j] != m[gi][j]) {
+              sgx += m[gi][j];
+            }
+          }
+      } else {
+        const float c1 = cols[4 * cout + co], c2 = cols[5 * cout + co];
+#pragma unroll
+        for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j)
+            if (!(m[gi][j] > 0.f)) quad_at(gv[gi], j) = 0.f;
+        // the chunk still held first, then (pf > kR only) the others again
+        for (int k = 0; k < chunks; ++k) {
+          const int r0 = (k == 0 ? chunks - 1 : k - 1) * kR;
+          if (k > 0) load_rows<!kGz>(p, prow, tq, ok, r0, pf, t_dim, vec);
+#pragma unroll
+          for (int gi = 0; gi < kG; ++gi)
+#pragma unroll
+            for (int r = 0; r < kR; ++r) {
+              if (!ok[gi] || r0 + r >= pf) continue;
+              float4 z;
+#pragma unroll
+              for (int j = 0; j < kQuad; ++j) {
+                const float xhat = __fmul_rn(__fsub_rn(quad_at(p[gi][r], j), mu), iv);
+                const float gsel = sel[gi][j] == r0 + r ? quad_at(gv[gi], j) : 0.f;
+                quad_at(z, j) = __fmul_rn(sc, __fmaf_rn(-xhat, c2, __fsub_rn(gsel, c1)));
+              }
+              store_quad(gz + base + static_cast<size_t>(r0 + r) * t_dim, tq[gi], t_dim, vec, z);
+            }
+        }
+      }
     }
-  }
-  red[0][threadIdx.x] = sg;
-  red[1][threadIdx.x] = sgx;
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < s) {
-      red[0][threadIdx.x] += red[0][threadIdx.x + s];
-      red[1][threadIdx.x] += red[1][threadIdx.x + s];
+    if constexpr (!kGz) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sg += __shfl_down_sync(0xffffffffu, sg, off);
+        sgx += __shfl_down_sync(0xffffffffu, sgx, off);
+      }
+      if (lane == 0) {
+        float* row = partials + static_cast<size_t>((bc / cout * f_out + fo) * spans + span) *
+                                    2 * cout;
+        row[co] = sg;
+        row[cout + co] = sgx;
+      }
     }
-  }
-  if (threadIdx.x == 0) {
-    float* row = partials + static_cast<size_t>(blockIdx.y) * 2 * cout;
-    row[co] = red[0][0];
-    row[cout + co] = red[1][0];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ct_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
-             const float* __restrict__ cols, T* __restrict__ gz, int cout, int f_dim,
-             int t_dim, int pf) {
-  const int co = blockIdx.x;
-  const int f_out = f_dim / pf;
-  const int b = blockIdx.y / f_out, fo = blockIdx.y % f_out;
-  const size_t base = ((static_cast<size_t>(b) * cout + co) * f_dim + fo * pf) * t_dim;
-  const float* prow = pre + base;
-  T* zrow = gz + base;
-  const T* grow = g + ((static_cast<size_t>(b) * cout + co) * f_out + fo) * t_dim;
-  const float sc = cols[co], bi = cols[cout + co];
-  const float mu = cols[2 * cout + co], iv = cols[3 * cout + co];
-  const float c1 = cols[4 * cout + co], c2 = cols[5 * cout + co];
-  for (int t = threadIdx.x; t < t_dim; t += kThreads) {
-    int sel;
-    const float gv = route_first_max(prow, t_dim, pf, t, sc, bi, sel) > 0.f ? to_f(grow[t]) : 0.f;
-    for (int r = 0; r < pf; ++r) {
-      const size_t at = static_cast<size_t>(r) * t_dim + t;
-      const float xhat = (prow[at] - mu) * iv;
-      store_f(zrow + at, sc * ((r == sel ? gv : 0.f) - c1 - xhat * c2));
-    }
-  }
+template <typename T, int kG>
+__global__ void __launch_bounds__(kRouteThreads, kRouteStatsBlocks)
+ct_route_stats_kernel(const float* __restrict__ pre, const T* __restrict__ g,
+                      const float* __restrict__ cols, float* __restrict__ partials, int batch,
+                      int cout, int f_dim, int t_dim, int pf, int frames_per_span, bool vec) {
+  route_walk<false, kG, T>(pre, g, cols, partials, nullptr, batch, cout, f_dim, t_dim, pf,
+                           frames_per_span, vec);
+}
+
+template <typename T, int kG>
+__global__ void __launch_bounds__(kRouteThreads, kRouteGzBlocks)
+ct_route_gz_kernel(const float* __restrict__ pre, const T* __restrict__ g,
+                   const float* __restrict__ cols, T* __restrict__ gz, int batch, int cout,
+                   int f_dim, int t_dim, int pf, int frames_per_span, bool vec) {
+  route_walk<true, kG, T>(pre, g, cols, nullptr, gz, batch, cout, f_dim, t_dim, pf,
+                          frames_per_span, vec);
 }
 
 // F1's epilogue of one pass on either block tile: this warp's conv row f of
@@ -383,43 +564,84 @@ extern "C" int seld_ct_train_stats(const void* h, const void* w, void* pre, void
                                         static_cast<int>(grid.x * grid.z), 2 * cout, s));
 }
 
+// B1's and g_z's split (route_split in ops/kernels/conv2d_ct_train.py):
+// frames_per_span a multiple of 4, spans = ceil(T / frames_per_span), the
+// units B * Cout * (F / pf) * spans in an int, and `blocks` the persistent
+// grid, at least one.
+static bool route_split_ok(int batch, int cout, int f_dim, int t_dim, int pf,
+                           int frames_per_span, int blocks) {
+  if (batch < 1 || cout < 1 || t_dim < 1 || pf < 1 || f_dim < pf || f_dim % pf ||
+      frames_per_span < kQuad || frames_per_span % kQuad || blocks < 1)
+    return false;
+  const long long units = static_cast<long long>(batch) * cout * (f_dim / pf) *
+                          ceil_div(t_dim, frames_per_span);
+  return units <= INT_MAX;
+}
+
+// True where every quad is one aligned 16-byte load of pre (and 8- or 16-byte
+// load or store of g and gz): T % 4 == 0 and the bases aligned.
+template <typename T>
+static bool route_vec(const void* pre, const void* g, const void* gz, int t_dim) {
+  const auto aligned = [](const void* p, size_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  return t_dim % kQuad == 0 && aligned(pre, 16) && aligned(g, kQuad * sizeof(T)) &&
+         (gz == nullptr || aligned(gz, kQuad * sizeof(T)));
+}
+
 // B1 + its reduction: sums (2 * Cout,) = [S_g | S_gx]. pre (B, Cout, F, T)
 // float, g (B, Cout, F/pf, T), cols (6, Cout) float (rows scale, bias, mean,
-// inv used), partials (B * F/pf, 2 * Cout).
+// inv used), partials (B * F/pf * ceil(T / frames_per_span), 2 * Cout): one
+// row per (b, pooled row, span), one column pair per channel.
 extern "C" int seld_ct_train_sel_stats(const void* pre, const void* g, const void* cols,
                                        void* partials, void* sums, int batch, int cout,
-                                       int f_dim, int t_dim, int pf, int dtype, void* stream) {
+                                       int f_dim, int t_dim, int pf, int frames_per_span,
+                                       int blocks, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto part = static_cast<float*>(partials);
-  if (cout < 1 || cout > 65535 || pf < 1 || f_dim % pf || batch * (f_dim / pf) > 65535)
+  if (!route_split_ok(batch, cout, f_dim, t_dim, pf, frames_per_span, blocks))
     return cudaErrorInvalidValue;
-  const dim3 grid(cout, batch * (f_dim / pf));
   cudaError_t err = by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    ct_sel_stats_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(pre), static_cast<const T*>(g),
-        static_cast<const float*>(cols), part, cout, f_dim, t_dim, pf);
+    const bool vec = route_vec<T>(pre, g, nullptr, t_dim);
+    const auto* p = static_cast<const float*>(pre);
+    const auto* gp = static_cast<const T*>(g);
+    const auto* c = static_cast<const float*>(cols);
+    if (pf <= kRouteRows / 2)   // two quads a lane in flight
+      ct_route_stats_kernel<T, 2><<<blocks, kRouteThreads, 0, s>>>(
+          p, gp, c, part, batch, cout, f_dim, t_dim, pf, frames_per_span, vec);
+    else
+      ct_route_stats_kernel<T, 1><<<blocks, kRouteThreads, 0, s>>>(
+          p, gp, c, part, batch, cout, f_dim, t_dim, pf, frames_per_span, vec);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums),
-                                        static_cast<int>(grid.y), 2 * cout, s));
+  const int rows = batch * (f_dim / pf) * ceil_div(t_dim, frames_per_span);
+  return static_cast<int>(launch_reduce(part, static_cast<float*>(sums), rows, 2 * cout, s));
 }
 
-// B2, g_z: gz (B, Cout, F, T) in the input dtype. pre, g as for B1; cols
-// (6, Cout) float: scale, bias, mean, inv, c1 = S_g / N, c2 = S_gx / N.
+// B2, g_z: gz (B, Cout, F, T) in the input dtype. pre, g and the split as
+// for B1; cols (6, Cout) float: scale, bias, mean, inv, c1 = S_g / N, c2 =
+// S_gx / N.
 extern "C" int seld_ct_train_gz(const void* pre, const void* g, const void* cols, void* gz,
-                                int batch, int cout, int f_dim, int t_dim, int pf, int dtype,
-                                void* stream) {
+                                int batch, int cout, int f_dim, int t_dim, int pf,
+                                int frames_per_span, int blocks, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (cout < 1 || cout > 65535 || pf < 1 || f_dim % pf || batch * (f_dim / pf) > 65535)
+  if (!route_split_ok(batch, cout, f_dim, t_dim, pf, frames_per_span, blocks))
     return cudaErrorInvalidValue;
-  const dim3 grid(cout, batch * (f_dim / pf));
   return static_cast<int>(by_dtype(dtype, [&](auto tag) {
     using T = decltype(tag);
-    ct_gz_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(pre), static_cast<const T*>(g),
-        static_cast<const float*>(cols), static_cast<T*>(gz), cout, f_dim, t_dim, pf);
+    const bool vec = route_vec<T>(pre, g, gz, t_dim);
+    const auto* p = static_cast<const float*>(pre);
+    const auto* gp = static_cast<const T*>(g);
+    const auto* c = static_cast<const float*>(cols);
+    auto* z = static_cast<T*>(gz);
+    if (pf <= kRouteRows / 2)
+      ct_route_gz_kernel<T, 2><<<blocks, kRouteThreads, 0, s>>>(
+          p, gp, c, z, batch, cout, f_dim, t_dim, pf, frames_per_span, vec);
+    else
+      ct_route_gz_kernel<T, 1><<<blocks, kRouteThreads, 0, s>>>(
+          p, gp, c, z, batch, cout, f_dim, t_dim, pf, frames_per_span, vec);
     return cudaGetLastError();
   }));
 }

@@ -34,10 +34,14 @@ CUDA tensors and runs its plain version for CPU tensors:
 
 B1 and B2 read ``pre`` where the TPU kernel recomputed the conv: on an 80 GB
 card the float pre-activation of a flagship stage 2 at batch 8 (944 MB) is
-cheaper to keep than a fourth and fifth conv.
+cheaper to keep than a fourth and fifth conv. Both are bound by those bytes
+and run one streaming walker (16-byte loads, a window's rows loaded before
+use) on a persistent grid split by :func:`route_split`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +57,13 @@ from seld_tpu_torch.ops.kernels.conv2d_train import conv_train_fwd_plain, dw_pla
 
 CIN_CHUNK = 8        # input channels the conv tile stages at a time (kCC)
 GRID_MAX = 65535     # the grid's y and z range
+# B1 and g_z: the streaming walker of csrc/conv3x3_ct_train.cu (route_walk)
+ROUTE_QUAD = 4             # kQuad: frames a lane owns, one 16-byte load of a float row
+ROUTE_WARPS = 8            # kRouteWarps: walkers (warps) a block
+# the persistent grid's blocks an SM (kRouteStatsBlocks, kRouteGzBlocks: the
+# kernels' __launch_bounds__, which hold B1 to 80 registers a thread, g_z to 128)
+ROUTE_BLOCKS_PER_SM = {"stats": 3, "gz": 2}
+H100_SMS = 132
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -99,9 +110,51 @@ def _rows_prelude(pre, g, cols, name):
     require_contiguous(pre=pre, g=g, cols=cols)
     if pre.dtype != torch.float32 or cols.dtype != torch.float32:
         raise TypeError(f"{name}: pre and cols must be float32")
-    if pre.shape[1] > GRID_MAX or g.shape[0] * g.shape[2] > GRID_MAX:
-        raise ValueError(f"{name}: Cout or B * F' exceeds the grid's range")
     return dtype_code(g), _build.load()
+
+
+@functools.lru_cache(maxsize=256)   # on every launch's host path: ~17 us a search
+def route_split(b: int, cout: int, f_out: int, t: int, sms: int = H100_SMS,
+                blocks_per_sm: int = ROUTE_BLOCKS_PER_SM["stats"]) -> tuple[int, int, int]:
+    """(frames_per_span, spans, blocks) of B1's or g_z's walker (``blocks_per_sm``
+    its kernel's resident blocks, :data:`ROUTE_BLOCKS_PER_SM`). Its work
+    units are (b, channel, pooled row, frame span), B * Cout * F' * spans of
+    them, unit u = window * spans + span with window = (b * Cout + channel)
+    * F' + pooled row; span s holds frames [s * frames_per_span, min(T, (s +
+    1) * frames_per_span)). ``blocks`` (at most ``sms`` x ``blocks_per_sm``,
+    all resident at once) x ROUTE_WARPS warps walk them, each warp taking u
+    = warp * blocks + block, then every ROUTE_WARPS x blocks-th unit after,
+    and each lane one quad of 4 frames in 32. The span is the one whose
+    longest walk is shortest: the units' rounds over the warps, times the
+    quads a lane takes in a unit plus one for the unit's set-up and sums.
+    For B1 at batch 2 that is one whole round at stage 2 (1536 windows, 2
+    spans) and at stage 3 (768 windows, 4 spans) on 132 SMs. B1's partials have B * F' * spans rows,
+    row (b * F' + pooled row) * spans + span."""
+    warps = sms * blocks_per_sm * ROUTE_WARPS
+    windows = b * cout * f_out
+    quads = -(-t // ROUTE_QUAD)
+    best = None
+    for want in range(1, max(1, quads // 32) + 1):   # at least a quad a lane, but for T < 128
+        span_quads = -(-quads // want)
+        spans = -(-quads // span_quads)
+        walk = -(-(windows * spans) // warps) * (-(-span_quads // 32) + 1)
+        if best is None or walk < best[0]:
+            best = (walk, span_quads, spans)
+    _, span_quads, spans = best
+    blocks = min(-(-(windows * spans) // ROUTE_WARPS), sms * blocks_per_sm)
+    return ROUTE_QUAD * span_quads, spans, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _route_launch(pre, pool_f, kernel):
+    """(frames_per_span, spans, blocks) of a launch of ``kernel`` ('stats' or
+    'gz') on pre's card."""
+    b, cout, f, t = pre.shape
+    return route_split(b, cout, f // pool_f, t, _sms(pre.device), ROUTE_BLOCKS_PER_SM[kernel])
 
 
 # ---- F1: the conv, once, and its batch statistics ----------------------------
@@ -165,18 +218,22 @@ def ct_sel_stats_plain(pre, g, cols, pool_f: int) -> torch.Tensor:
 def ct_sel_stats(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor,
                  pool_f: int) -> torch.Tensor:
     """pre (B, Cout, F, T) float, g (B, Cout, F/pf, T), cols (6, Cout) float
-    (rows scale, bias, mean, inv; rows 4-5 unused) -> (2 * Cout,) float."""
+    (rows scale, bias, mean, inv; rows 4-5 unused) -> (2 * Cout,) float.
+    CUDA tensors launch ``ct_route_stats_kernel``: the streaming walker of
+    :func:`route_split`'s units, one partial row per (b, pooled row, span),
+    reduced in a fixed order (a rerun is bitwise equal)."""
     _check_rows(pre, g, cols, pool_f)
     if not on_cuda(pre, g, cols):
         return ct_sel_stats_plain(pre, g, cols, pool_f)
     code, lib = _rows_prelude(pre, g, cols, "ct_sel_stats")
     b, cout, f, t = pre.shape
-    partials = torch.empty((b * (f // pool_f), 2 * cout), dtype=torch.float32,
+    frames_per_span, spans, blocks = _route_launch(pre, pool_f, "stats")
+    partials = torch.empty((b * (f // pool_f) * spans, 2 * cout), dtype=torch.float32,
                            device=pre.device)
     sums = torch.empty(2 * cout, dtype=torch.float32, device=pre.device)
     err = lib.seld_ct_train_sel_stats(
         pre.data_ptr(), g.data_ptr(), cols.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-        b, cout, f, t, pool_f, code, stream_handle(pre.device))
+        b, cout, f, t, pool_f, frames_per_span, blocks, code, stream_handle(pre.device))
     _build.check(err, "seld_ct_train_sel_stats")
     launch_counts["ct_train_sel_stats"] += 1
     return sums
@@ -192,15 +249,20 @@ def ct_gz_plain(pre, g, cols, pool_f: int) -> torch.Tensor:
 
 def ct_gz(pre: torch.Tensor, g: torch.Tensor, cols: torch.Tensor, pool_f: int) -> torch.Tensor:
     """pre, g as for :func:`ct_sel_stats`; cols (6, Cout): scale, bias, mean,
-    inv, c1 = S_g / N, c2 = S_gx / N -> g_z (B, Cout, F, T) in g's dtype."""
+    inv, c1 = S_g / N, c2 = S_gx / N -> g_z (B, Cout, F, T) in g's dtype.
+    CUDA tensors launch ``ct_route_gz_kernel``, B1's walker split for its
+    own grid, which routes from the rows it holds and writes each once (pre
+    read once at pf <= 8)."""
     _check_rows(pre, g, cols, pool_f)
     if not on_cuda(pre, g, cols):
         return ct_gz_plain(pre, g, cols, pool_f)
     code, lib = _rows_prelude(pre, g, cols, "ct_gz")
     b, cout, f, t = pre.shape
+    frames_per_span, _, blocks = _route_launch(pre, pool_f, "gz")
     gz = torch.empty(pre.shape, dtype=g.dtype, device=pre.device)
     err = lib.seld_ct_train_gz(pre.data_ptr(), g.data_ptr(), cols.data_ptr(), gz.data_ptr(),
-                               b, cout, f, t, pool_f, code, stream_handle(pre.device))
+                               b, cout, f, t, pool_f, frames_per_span, blocks, code,
+                               stream_handle(pre.device))
     _build.check(err, "seld_ct_train_gz")
     launch_counts["ct_train_gz"] += 1
     return gz

@@ -17,7 +17,8 @@ dispatch baseline, always runs. Sections:
   operands (the patch kernel and the padded weights) alone at each stage;
 - ``qmm``: K7 (Q and DQ, float32 and bfloat16) beside the plain ops, and K8;
 - ``train``: K5's bfloat16 passes at stage 1 (F1, F2, B2's g_z pass and dW
-  tile) beside cuDNN's weight gradient on the same g_z;
+  tile) beside cuDNN's weight gradient on the same g_z, then K9's B1 and
+  g_z at stages 2 and 3 (bf16 g; pre warm in the L2 where it fits);
 - ``attn``: K4 and K6 (bfloat16) at the flagship's attention (T = frames
   / 2 after the TCN's time pool, 8 heads of 48, then of 160, 256 and 640:
   ``ATTN_WIDE_DIMS``, the kernels past head dim 128) beside
@@ -33,8 +34,9 @@ dispatch baseline, always runs. Sections:
   then the split-TF32 dW tile) beside cuDNN's weight gradient, K2w at
   stage 1 and K10a at stages 1-3 (the conv-pool GEMM tile, each wrapper
   with its operand build), at stage 2 K3, K10b and K9's F1 (the conv
-  block tile), beside cuDNN's float32 conv of the stage, and K9's dh at
-  stages 2 and 3 (the block tile on the transposed weights);
+  block tile), beside cuDNN's float32 conv of the stage, K9's dh at
+  stages 2 and 3 (the block tile on the transposed weights), and K9's B1
+  and g_z at stages 2 and 3 (float32 g);
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
   ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
@@ -244,6 +246,28 @@ def train(batch, device, shapes=FLAGSHIP):
     yield "train1: K5 B2 dW tile", k5.conv_train_dw_gz, (x, gz)
     yield "train1: cuDNN wgrad on g_z", \
         lambda xx, zz: torch.nn.grad.conv2d_weight(xx, (c, cin, 3, 3), zz, padding=1), (x, gz)
+    del x, w, g, gz, b2
+    yield from _k9_route(batch, device, shapes, bf16, "train", gen)
+
+
+def _k9_route(batch, device, shapes, dtype, prefix, gen):
+    """K9's B1 and g_z (the streaming walker) at the flagship's stages 2 and
+    3 on random pre and g of ``dtype``; pre stays in the L2 where it fits
+    (stage 3: 29.5 MB at batch 2), so these rows are warm."""
+    from seld_tpu_torch.ops.kernels import conv2d_ct_train as k9
+
+    c, t, pools = shapes["filters"], shapes["frames"], shapes["pools"]
+    f = shapes["freq"] // pools[0]
+    for stage, fi, pf in ((2, f, pools[1]), (3, f // pools[1], pools[2])):
+        pre = _randn(device, batch, c, fi, t, gen=gen)
+        g = _randn(device, batch, c, fi // pf, t, dtype=dtype, gen=gen)
+        cols = torch.stack([_randn(device, c, gen=gen).abs() + 0.5,
+                            *(_randn(device, c, gen=gen) / 4 for _ in range(5))])
+        yield f"{prefix}: K9 B1 stage {stage} ({c} x {fi} x {t}, pf {pf})", \
+            lambda pp, gg, cc, pf_=pf: k9.ct_sel_stats(pp, gg, cc, pf_), (pre, g, cols)
+        yield f"{prefix}: K9 g_z stage {stage}", \
+            lambda pp, gg, cc, pf_=pf: k9.ct_gz(pp, gg, cc, pf_), (pre, g, cols)
+        del pre, g, cols
 
 
 def attn(batch, device, shapes=FLAGSHIP):
@@ -360,6 +384,7 @@ def f32(batch, device, shapes=FLAGSHIP):
         yield (f"f32: cuDNN conv stage {i}", lambda xx, ww: F.conv2d(xx, ww, padding=1),
                (x, w.permute(3, 2, 0, 1).contiguous()))
         del x, w
+    yield from _k9_route(batch, device, shapes, torch.float32, "f32", gen)
 
 
 def v3(batch, device, shapes=FLAGSHIP):

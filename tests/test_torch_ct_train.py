@@ -13,6 +13,10 @@ training step of the port against the JAX package, on the CPU.
   of the plain op, float64, 1e-10 x max|ref|;
 - the dW pass's depth split over rows and frames (``dw_split``): every
   (b, f, t) in exactly one block's share, as many shares as partial rows;
+- B1's and g_z's split (``route_split``), walked as the kernels walk it:
+  every (b, channel, pooled row, frame) in one lane's quad, every partial
+  slot written once; the plain routing, S_g / S_gx and g_z (the card's
+  oracle) against a composition of JAX's ``_route_group`` with ties;
 - one train step of a tiny model with every CNN stage on the kernel ops:
   the port in float64 against ``seld_tpu.training.steps.make_train_step``
   with ``frontend_impl='xla'`` in float64 on bridged weights (1e-9), and the
@@ -159,6 +163,105 @@ def test_dw_split_covers_every_frame_once(b, f, t):
         assert r0 < r1 and t0 < t1
         seen[r0:r1, t0:t1] += 1
     assert (seen == 1).all()
+
+
+def _route_walk_cover(b, cout, f_out, t, pf, sms, blocks_per_sm):
+    """Walk route_split's units as the kernels do (route_walk in
+    csrc/conv3x3_ct_train.cu): warp w of block k takes units w * blocks + k,
+    then every ROUTE_WARPS * blocks-th after; lane l of a unit's span takes
+    the quads of frames from span start + 4 l in steps of 128 * kG, as kG
+    quads 128 frames apart (kG 2 at pf <= 4). Returns (frames seen per (b,
+    channel, pooled row, frame), writes per partial slot (row, channel),
+    partial rows)."""
+    frames_per_span, spans, blocks = k9.route_split(b, cout, f_out, t, sms, blocks_per_sm)
+    kg = 2 if pf <= 4 else 1
+    quad = k9.ROUTE_QUAD
+    units = b * cout * f_out * spans
+    rows = b * f_out * spans
+    seen = np.zeros((b * cout * f_out, t), np.int64)
+    slots = np.zeros((rows, cout), np.int64)
+    for warp in range(k9.ROUTE_WARPS):
+        for block in range(blocks):
+            for u in range(warp * blocks + block, units, k9.ROUTE_WARPS * blocks):
+                span, window = u % spans, u // spans
+                fo, bc = window % f_out, window // f_out
+                t_first = span * frames_per_span
+                t_end = min(t, t_first + frames_per_span)
+                lanes = t_first + quad * np.arange(32)
+                steps = np.arange(lanes[0], t_end, quad * 32 * kg) - lanes[0]
+                starts = (lanes[:, None, None] + steps[None, :, None]
+                          + quad * 32 * np.arange(kg)[None, None, :]).ravel()
+                starts = starts[starts < t_end]
+                frames = (starts[:, None] + np.arange(quad)).ravel()
+                np.add.at(seen[window], frames[frames < t], 1)
+                slots[(bc // cout * f_out + fo) * spans + span, bc % cout] += 1
+    return seen, slots, rows
+
+
+@pytest.mark.parametrize("kernel", sorted(k9.ROUTE_BLOCKS_PER_SM))
+@pytest.mark.parametrize("b,cout,f,t,pf,sms", [
+    (2, 192, 32, 4800, 8, 132), (2, 192, 4, 4800, 2, 132),   # stages 2 and 3, batch 2
+    (8, 192, 4, 4800, 2, 132), (2, 24, 32, 4800, 16, 132),   # stage 3 at batch 8; pf 16
+    (2, 8, 16, 1, 1, 132), (1, 6, 16, 3, 16, 132), (2, 12, 8, 130, 2, 132),
+    (3, 5, 16, 515, 8, 132), (2, 40, 16, 515, 1, 7), (1, 72, 4, 1000, 2, 3),
+    (2, 16, 32, 4800, 8, 5),   # few SMs: several rounds of units
+])
+def test_route_split_covers_every_frame_once(b, cout, f, t, pf, sms, kernel):
+    """B1's and g_z's split (``route_split``, the kernels' spans, grid and
+    partial rows): walked as the kernels walk it, every (b, channel, pooled
+    row, frame) falls in exactly one lane's quad, every partial slot (row,
+    channel) is written exactly once, the partials have B * F' * spans rows,
+    and the grid is at most the card's resident blocks."""
+    f_out, per_sm = f // pf, k9.ROUTE_BLOCKS_PER_SM[kernel]
+    frames_per_span, spans, blocks = k9.route_split(b, cout, f_out, t, sms, per_sm)
+    assert frames_per_span % k9.ROUTE_QUAD == 0 and spans == -(-t // frames_per_span)
+    assert 1 <= blocks <= sms * per_sm
+    seen, slots, rows = _route_walk_cover(b, cout, f_out, t, pf, sms, per_sm)
+    assert rows == b * f_out * spans
+    assert (seen == 1).all()
+    assert (slots == 1).all()
+
+
+@pytest.mark.parametrize("pf,t", [(1, 130), (3, 37), (3, 130), (16, 515)])
+def test_route_plain_matches_jax_route_group_with_ties(rng, pf, t):
+    """The card's oracle (``ct_sel_stats_plain``, ``ct_gz_plain``) against
+    a composition of JAX's ``_route_group`` on the same float32 rows, at T %
+    4 != 0 and with ties: pre on an integer grid ties the max of most
+    windows, scale and bias on grids make pre * scale + bias exact. The
+    routed g_pre is equal bit for bit; S_g / S_gx and g_z (scale * (g_pre -
+    c1 - xhat * c2), xhat = (pre - mean) * inv) within 1e-6 x max."""
+    from seld_tpu.ops.pallas.conv2d_ct_train import _route_group
+
+    b, cout, windows = 2, 5, 3
+    f = pf * windows
+    pre = rng.integers(-3, 4, (b, cout, f, t)).astype(np.float32)
+    g = rng.standard_normal((b, cout, windows, t)).astype(np.float32)
+    cols = np.stack([rng.integers(4, 13, cout) / 8, rng.integers(-4, 5, cout) / 8,
+                     0.1 * rng.standard_normal(cout), 1.0 + 0.1 * rng.standard_normal(cout),
+                     1e-2 * rng.standard_normal(cout),
+                     1e-2 * rng.standard_normal(cout)]).astype(np.float32)
+    g_pre = np.zeros_like(pre)
+    for bi in range(b):
+        for fo in range(windows):
+            rows = [jnp.asarray(pre[bi, :, fo * pf + r]) for r in range(pf)]
+            routed = _route_group(rows, jnp.asarray(cols[0][:, None]),
+                                  jnp.asarray(cols[1][:, None]), jnp.asarray(g[bi, :, fo]))
+            for r, (want, _) in enumerate(routed):
+                g_pre[bi, :, fo * pf + r] = np.asarray(want)
+    y = np.maximum(pre * cols[0][:, None, None] + cols[1][:, None, None], 0).reshape(
+        b, cout, windows, pf, t)
+    ties = ((y == y.max(axis=3, keepdims=True)).sum(axis=3) > 1) & (y.max(axis=3) > 0)
+    assert pf == 1 or ties.sum() > ties.size // 20   # ties in many routed windows
+    tp = lambda a: torch.from_numpy(a)
+    got, _ = k9._route_plain(tp(pre), tp(g), tp(cols), pf)
+    np.testing.assert_array_equal(got.numpy(), g_pre)
+    col = lambda i: cols[i][:, None, None].astype(np.float64)
+    xhat = (pre - col(2)) * col(3)
+    sums = np.concatenate([g_pre.sum((0, 2, 3), dtype=np.float64),
+                           (g_pre * xhat).sum((0, 2, 3))])
+    _close(k9.ct_sel_stats_plain(tp(pre), tp(g), tp(cols), pf).numpy(), sums, 1e-6)
+    gz = col(0) * (g_pre - col(4) - xhat * col(5))
+    _close(k9.ct_gz_plain(tp(pre), tp(g), tp(cols), pf).numpy(), gz, 1e-6)
 
 
 def test_route_skips_nan_windows_as_jax(rng):

@@ -809,6 +809,45 @@ def test_conv_ct_train_passes(gen, dtype, b, c, f, t, cout, pf):
     assert torch.equal(k9.ct_dw(h, gz), dw)
 
 
+# K9's B1 and g_z (the streaming walker): (B, Cout, F, T, pf, g misaligned). T %
+# 4 != 0 walks one frame at a time (130, 515, 777), T % 4 == 0 in 16-byte quads
+# (300, 4800), as does a g view one element off its 16-byte boundary; pf 1, 2
+# and 3 take two quads a lane, 8 and 16 one (16 in two chunks of rows); B * F'
+# <= 4 (as stage 3) splits each window's frames into spans
+ROUTE_CASES = [(2, 72, 16, 130, 1, False), (2, 72, 16, 515, 2, False),
+               (1, 40, 24, 777, 3, False), (2, 72, 16, 300, 8, False),
+               (1, 24, 32, 4800, 16, False), (2, 40, 16, 300, 16, True),
+               (2, 40, 24, 777, 8, False), (2, 72, 16, 130, 16, False),
+               (1, 72, 4, 1000, 2, False), (2, 192, 4, 4800, 2, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,cout,f,t,pf,shifted", ROUTE_CASES)
+def test_ct_route_passes(gen, dtype, b, cout, f, t, pf, shifted):
+    """K9's B1 and g_z against their plain versions, one launch each a call,
+    B1 bitwise on a rerun. pre on a grid of quarters puts ties in most
+    windows; scale and bias on grids make the kernels' fused pre * scale +
+    bias equal the plain version's, so both route alike."""
+    pre = torch.randint(-8, 9, (b, cout, f, t), generator=gen, device="cuda").float() / 4
+    grid = lambda lo, hi, step: torch.randint(lo, hi, (cout,), generator=gen,
+                                              device="cuda").float() * step
+    cols = torch.stack([0.5 + grid(0, 9, 1 / 8), grid(-4, 5, 1 / 16),
+                        0.1 * torch.randn(cout, generator=gen, device="cuda"),
+                        0.5 + torch.rand(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda"),
+                        1e-3 * torch.randn(cout, generator=gen, device="cuda")])
+    size = b * cout * (f // pf) * t
+    flat = torch.randn(size + 1, generator=gen, device="cuda").to(dtype)
+    g = (flat[1:] if shifted else flat[:size]).view(b, cout, f // pf, t)
+    sel = k9.ct_sel_stats(pre, g, cols, pf)
+    _close(sel, k9.ct_sel_stats_plain(pre, g, cols, pf), torch.float32)
+    assert torch.equal(k9.ct_sel_stats(pre, g, cols, pf), sel)
+    gz = k9.ct_gz(pre, g, cols, pf)
+    _close(gz, k9.ct_gz_plain(pre, g, cols, pf), dtype)
+    assert gz.dtype == dtype
+    assert [launch_counts[n] for n in ("ct_train_sel_stats", "ct_train_gz")] == [2, 1]
+
+
 def _dw_plain_f32(h, gz):
     """dW in float32 without cuDNN (im2col and a float32 GEMM, TF32 off):
     cuDNN's float32 wgrad at the flagship's stage 2 is no float32-faithful

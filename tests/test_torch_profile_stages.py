@@ -22,9 +22,10 @@ TINY = dict(prof.FLAGSHIP, samples=12800, frames=32, filters=16, tcn_width=16, d
 # and addmm, K9's dW, K5's F1, K2 at stage 1 (K5's F2) and K5's B2 with the
 # wgrads, K2w at stage 1, K10a and
 # cuDNN's conv at each of the three stages, K3, K10b and K9's F1 at stage 2, and
-# K9's dh at stages 2 and 3
-ROWS = {"noop": 1, "stft": 3, "cnn": 5, "tcn": 3, "fused": 12, "qmm": 9, "train": 5,
-        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 29, "v3": 5}
+# K9's dh at stages 2 and 3; train and f32 end with K9's B1 and g_z at stages 2
+# and 3
+ROWS = {"noop": 1, "stft": 3, "cnn": 5, "tcn": 3, "fused": 12, "qmm": 9, "train": 9,
+        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 33, "v3": 5}
 
 
 @pytest.mark.parametrize("section", sorted(prof.SECTIONS))

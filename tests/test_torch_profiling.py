@@ -87,3 +87,42 @@ def test_device_events_takes_a_capture_again_until_it_is_whole(monkeypatch, capt
     want = ([torch.profiler.ProfilerActivity.CPU] if whole else []) + [
         torch.profiler.ProfilerActivity.CUDA]
     assert FakeProfile.seen == [want] * calls
+
+
+# ---- chip_smoke.py's watch groups: each device kernel in one group at most ----
+
+def _csrc_kernel_keys():
+    """Profiler-style names of every kernel in ``seld_tpu_torch/csrc`` at a few
+    template arguments, and of K9's B1 before it became the walker
+    (``ct_sel_stats_kernel<float>``, whose name ends as K5's B1 does)."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(profiling.__file__).resolve().parents[1] / "csrc"
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    names = {n for src in csrc.glob("*.cu*") for n in decl.findall(src.read_text())}
+    assert {"sel_stats_kernel", "ct_route_stats_kernel", "ct_route_gz_kernel"} <= names
+    args = ("", "<float>", "<__nv_bfloat16>", "<32>", "<16>", "<8>", "<float, 1>",
+            "<__nv_bfloat16, 2>")
+    keys = [f"void (anonymous namespace)::{n}{a}(float const*, int)" for n in sorted(names)
+            for a in args]
+    return keys + ["void (anonymous namespace)::ct_sel_stats_kernel<float>(float const*, int)"]
+
+
+@pytest.mark.parametrize("watch", ["PROFILE_WATCH", "F32_STEP_WATCH", "SERVING_WATCH"])
+def test_watch_groups_count_each_kernel_once(watch):
+    """``chip_smoke.watched`` anchors each stem at the start of a name: no
+    kernel falls in two groups of a watch, K5's B1 (``sel_stats_kernel<float>``)
+    is not found in K9's old ``ct_sel_stats_kernel<float>``, and K9's B1 and
+    g_z (the walker's two kernels) have groups of their own."""
+    import chip_smoke
+
+    groups = getattr(chip_smoke, watch)
+    for key in _csrc_kernel_keys():
+        assert len(chip_smoke.watched(key, groups)) <= 1, (key, chip_smoke.watched(key, groups))
+    if watch == "F32_STEP_WATCH":
+        k = "void (anonymous namespace)::{}(float const*, int)".format
+        assert chip_smoke.watched(k("sel_stats_kernel<float>"), groups) == ["K5 B1"]
+        assert chip_smoke.watched(k("ct_sel_stats_kernel<float>"), groups) == []
+        assert chip_smoke.watched(k("ct_route_stats_kernel<float, 1>"), groups) == ["K9 B1"]
+        assert chip_smoke.watched(k("ct_route_gz_kernel<float, 2>"), groups) == ["K9 g_z"]
