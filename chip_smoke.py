@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship serving and training paths, its
-training and predict entry points, and its front-end variants and per-stage
-profiler, once on one NVIDIA GPU.
+training and predict entry points, its front-end variants and per-stage
+profiler, and the shipped magnitude + phase configs, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -136,7 +136,29 @@ Phases, each printing its own lines:
    1 on K2w, then on K10b), float32 at batch 2, each against its plain
    ``model(x)``; (c) ``python -m seld_tpu_torch.profile_stages`` at
    PROF_BATCH=4 over every section: every row timed, K2w, K10a (its patch
-   kernel and its product) and K10b launched.
+   kernel and its product) and K10b launched;
+9. shipped configurations: (a) ``config/DQSELD-TCN-S1-PHI_micAMagPhaseParallelmicBMagPhase.txt``
+   (two DQ trunks on each microphone's magnitude + phase channels) at full
+   width in bf16 through ``serve(..., phase=True)``: REQUESTS requests of
+   CLIPS_PER_REQUEST one-minute 8-channel clips, K2 once and K3 twice a
+   trunk, K4 once a trunk and no K1 a request, clip 0 against the float32
+   plain ``model(x)`` on the same float32 features, the wall per request,
+   the featurizer's device time and one profiled request; (b)
+   ``config/DQSELD-TCN-S1-PHI_16chMagPhase.txt`` through ``fused_infer`` in
+   float32 at batch 2 (against its plain ``model(x)`` within F32_TOL x max)
+   and bf16 at batch 4, stage 1 on K3 (3 launches, K2 none), and K3 alone at
+   that stage (Cin 16, F 256, pf 8) in both dtypes against its plain version
+   beside cuDNN; (c) the flagship with ``use_se_block=True`` in bf16 through
+   ``serve``, the same launches as without SE, clip 0 against float32 plain;
+   (d) MagPhase-Parallel training in bf16 at batch 4 under pallas-ct: one
+   warm-up and CONFIGS_STEPS timed steps, K5's passes twice, K9's four
+   times, K4 and K6 twice a step, finite losses and both trunks' parameters
+   moved, then one float32 batch-1 step on the ct and the plain path, losses
+   within TRAIN_LOSS_TOL; (e) the predict CLI on MagPhase-Parallel (seeded
+   random init) over one clip, ``auto`` (fused bf16: K2, K3 per trunk, no K1)
+   and ``--impl apply`` (float32), valid CSVs within MAIN_TOL of each other;
+   then K5's B1 at the flagship's stage 1, batches 2 and 8, both dtypes, in
+   device time beside its byte bound (``k5_b1_device_times``).
 
 Every torch.profiler capture goes through
 ``seld_tpu_torch.utils.profiling.device_events``: a capture whose first or
@@ -384,6 +406,24 @@ SERVE_ON_CARD_BATCHES = (4, 16)   # the serving forward with the audio already o
 CARD_WINDOW = 100   # timed requests per batch with the audio on the card
 HOST_WINDOW = 30    # timed requests from host memory (phase 4; phase 8a: each variant)
 PROFILE_SECTIONS = "stft,cnn,tcn,fused,qmm,attn,f32,v3"
+# phase 9: the shipped magnitude + phase configs (DQ trunks, 16 feature channels
+# from 8-channel audio) and the kernels on their paths
+MAGPHASE_CONFIG = ROOT / "config" / "DQSELD-TCN-S1-PHI_micAMagPhaseParallelmicBMagPhase.txt"
+MAG16_CONFIG = ROOT / "config" / "DQSELD-TCN-S1-PHI_16chMagPhase.txt"
+CONFIG_KERNELS = {name: KERNELS[name] for name in (
+    "conv3x3_smallcin", "conv3x3_widecin", "flash_attn_fwd", *TRAINING_KERNELS,
+    *CT_TRAIN_KERNELS)}
+# a MagPhase-Parallel request (two trunks): K2 once and K3 twice a trunk, K4 once
+# a trunk, no K1 (phase configs featurize in plain torch, as the JAX package does)
+MAGPHASE_PER_REQUEST = {"conv3x3_smallcin": 2, "conv3x3_widecin": 4, "flash_attn_fwd": 2}
+# a MagPhase-Parallel pallas-ct step: K5's passes once a trunk, K9's at stages 2-3
+# of each trunk (F2 counted as K3's), K4 and K6 once a trunk
+MAGPHASE_PER_STEP = {**{COUNTED_AS.get(n, n): 2 for n in TRAINING_KERNELS},
+                     **{COUNTED_AS.get(n, n): 4 for n in CT_TRAIN_KERNELS}, "flash_attn_fwd": 2}
+CONFIGS_STEPS = 3
+CONFIGS_PREDICT_DIR = ROOT / "chip_tmp" / "predict_configs"
+K3_CIN16 = (2, 16, 256, 4800, 192, 8)   # K3 at the 16chMagPhase config's stage 1
+K3_CIN16_ROWS = {}   # dtype -> K3's numbers there (phase 9), in the JSON as "stage1_cin16"
 
 
 PTXAS = {}   # kernel -> ptxas' registers, shared memory and spills (phase 2)
@@ -3073,6 +3113,403 @@ def frontend_profiler(torch) -> dict:
     return {**counts, "im2col_patches": counts["im2col_patches"] - alone}
 
 
+def phase_configs(torch, card: str) -> dict:
+    """Phase 9, the shipped magnitude + phase configurations and the SE block:
+    (a) MagPhase-Parallel serving, (b) 16chMagPhase with stage 1 on K3, (c)
+    the SE block, (d) MagPhase-Parallel training under pallas-ct, (e) the
+    predict CLI on MagPhase-Parallel. Returns the launches of (a)'s requests
+    and (d)'s timed steps together, each kernel's own: K3's are the
+    requests', K9's F2 (counted as K3's) and K5's F2 (as K10b's) the steps'."""
+    t0 = time.perf_counter()
+    serving = configs_serving(torch, card)
+    configs_16ch(torch, card)
+    configs_se(torch, card)
+    training = configs_training(torch, card)
+    configs_predict(torch, card)
+    print(f"[configs] phase 9 took {time.perf_counter() - t0:.1f} s")
+    total = {k: serving.get(k, 0) + training.get(k, 0) for k in {*serving, *training}}
+    return {**total, "conv3x3_widecin": serving["conv3x3_widecin"],
+            "ct_train_fwd": training["conv3x3_widecin"],
+            "conv_train_fwd": training["conv3x3_windows"]}
+
+
+def launches_of(torch, run) -> dict:
+    """The launch counts of one ``run()``, from zero, after the card is idle."""
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(launch_counts)
+
+
+def require_launches(tag: str, counts: dict, want: dict) -> None:
+    """``counts`` equal ``want`` for its names and 0 for every other."""
+    full = {k: want.get(k, 0) for k in {*counts, *want}}
+    require(counts == full, f"{tag}: launches { {k: v for k, v in counts.items() if v} }, "
+            f"want { {k: v for k, v in full.items() if v} }")
+
+
+def check_outputs(torch, tag: str, sed, doa, batch: int) -> None:
+    require(tuple(sed.shape) == (batch, 600, 42) and tuple(doa.shape) == (batch, 600, 126),
+            f"{tag}: shapes {tuple(sed.shape)} {tuple(doa.shape)}")
+    require(bool(torch.isfinite(sed).all() and torch.isfinite(doa).all()),
+            f"{tag}: non-finite output")
+
+
+def max_diff(got, want) -> float:
+    return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+
+def configs_serving(torch, card: str) -> dict:
+    """(a) The MagPhase-Parallel config in bf16 through ``serve(...,
+    phase=True)``: REQUESTS requests of CLIPS_PER_REQUEST one-minute 8-channel
+    clips from host memory; K2 once and K3 twice a trunk, K4 once a trunk and
+    no K1 a request; clip 0 against the float32 plain ``model(x)`` on the
+    same float32 features; the wall per request, the featurizer's device
+    time per request and one profiled request. Returns the requests'
+    launches."""
+    import numpy as np
+
+    from seld_tpu_torch.data.features import spectrum_fast_batch
+    from seld_tpu_torch.serve import NOVERLAP, NPERSEG, build_flagship, serve
+
+    dev = torch.device("cuda")
+    model = build_flagship(str(MAGPHASE_CONFIG), torch.bfloat16, dev,
+                           torch.Generator().manual_seed(9))
+    require(model.trunk_names == ("branch_A", "branch_B") and model.input_channels == 16,
+            f"MagPhase-Parallel built {model.trunk_names}, {model.input_channels} channels")
+    rng = np.random.default_rng(9)
+    requests = [rng.standard_normal((CLIPS_PER_REQUEST, CHANNELS, SR * CLIP_SECONDS),
+                                    dtype=np.float32) for _ in range(REQUESTS)]
+    serve(model, torch.from_numpy(requests[0]).to(dev), phase=True)   # first call: builds
+    total, walls, first = {}, [], None
+    for i, audio in enumerate(requests):
+        t0 = time.perf_counter()
+        (sed, doa), counts = launches_of(torch, lambda: serve(
+            model, torch.from_numpy(audio).to(dev), phase=True))
+        walls.append(time.perf_counter() - t0)
+        check_outputs(torch, f"MagPhase-Parallel request {i}", sed, doa, CLIPS_PER_REQUEST)
+        require_launches(f"MagPhase-Parallel request {i}", counts, MAGPHASE_PER_REQUEST)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if i == 0:
+            first = (sed[:1], doa[:1])
+    audio0 = torch.from_numpy(requests[0]).to(dev)
+    feat_ms = device_ms(torch, lambda: spectrum_fast_batch(
+        audio0, nperseg=NPERSEG, noverlap=NOVERLAP, output_phase=True, return_layout="CTF"),
+        iters=5)
+    print(f"[configs] MagPhase-Parallel serving, bf16, {CLIPS_PER_REQUEST} clips a request from "
+          f"host memory: launches { {k: v for k, v in total.items() if v} } in {REQUESTS} "
+          f"requests; wall per request {[round(1e3 * v, 1) for v in walls]} ms; the "
+          f"featurizer's device time {feat_ms:.3f} ms a request ({card})")
+    watch = {"K2": ("smallcin_tc_kernel",), "K3": ("conv3x3_tc_kernel",),
+             "K4": ("flash_fwd_tc_kernel",)}
+    profiled = profile_step(torch, lambda: serve(model, audio0, phase=True), card, top=10,
+                            label="MagPhase-Parallel request, batch 4, audio on the card",
+                            watch=watch)
+    print(f"[profile] MagPhase-Parallel request: {device_shares(profiled, watch)}; the "
+          f"featurizer {feat_ms:.2f} ms ({100 * feat_ms / profiled['busy']:.1f}%) ({card})")
+    with torch.no_grad():
+        feats = spectrum_fast_batch(audio0[:1], nperseg=NPERSEG, noverlap=NOVERLAP,
+                                    output_phase=True)
+        ref = model(feats)
+    d = max_diff(first, ref)
+    print(f"[configs] MagPhase-Parallel clip 0, kernels bf16 vs plain f32 on the same float32 "
+          f"features: max|d| {d:.3e} (tol {MAIN_TOL})")
+    require(d <= MAIN_TOL, "MagPhase-Parallel served clip disagrees with the plain path")
+    del model, audio0, feats
+    torch.cuda.empty_cache()
+    return total
+
+
+def configs_16ch(torch, card: str) -> None:
+    """(b) The 16chMagPhase config through ``fused_infer``: float32 at batch 2
+    (held to the plain ``model(x)`` within F32_TOL x max) and bf16 at batch 4
+    (clip 0 within MAIN_TOL of float32 plain), stage 1 on K3 (3 launches, K2
+    none); then K3 alone at stage 1 (B 2, Cin 16, F 256, T 4800, pf 8) in
+    both dtypes against its plain version, beside cuDNN's conv."""
+    import numpy as np
+
+    from seld_tpu_torch.data.features import spectrum_fast_batch
+    from seld_tpu_torch.models.fused_infer import fused_infer
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_bn_relu_fpool, conv2d_bn_relu_fpool_plain,
+    )
+    from seld_tpu_torch.serve import NOVERLAP, NPERSEG, build_flagship
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(16)
+    audio = torch.from_numpy(rng.standard_normal((4, CHANNELS, SR * CLIP_SECONDS),
+                                                 dtype=np.float32)).to(dev)
+    feats = spectrum_fast_batch(audio, nperseg=NPERSEG, noverlap=NOVERLAP, output_phase=True)
+    want = {"conv3x3_widecin": 3, "flash_attn_fwd": 1}
+    for dt, b in ((torch.float32, 2), (torch.bfloat16, 4)):
+        model = build_flagship(str(MAG16_CONFIG), dt, dev, torch.Generator().manual_seed(16))
+        require(model.input_channels == 16 and len(model.trunks) == 1, "16chMagPhase built wrong")
+        x = feats[:b].contiguous()
+        (sed, doa), counts = launches_of(torch, lambda: fused_infer(model, x))
+        check_outputs(torch, f"16chMagPhase {dt}", sed, doa, b)
+        require_launches(f"16chMagPhase {dt}", counts, want)
+        n = b if dt == torch.float32 else 1
+        with torch.no_grad():
+            ref = model(x[:n])
+        if dt == torch.float32:
+            d = max_diff((sed, doa), ref)
+            tol = F32_TOL * max(r.abs().max().item() for r in ref)
+            what = f"(tol F32_TOL x max = {tol:.3e})"
+        else:
+            d, tol = max_diff((sed[:1], doa[:1]), ref), MAIN_TOL
+            what = f"on clip 0 (tol {MAIN_TOL})"
+        ms = time_ms(torch, lambda: fused_infer(model, x), warmup=1, iters=3)
+        print(f"[configs] 16chMagPhase fused_infer {str(dt)[6:]} batch {b}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }; against the float32 plain "
+              f"model(x): max|d| {d:.3e} {what}; {ms:.1f} ms a call ({card})")
+        require(d <= tol, f"16chMagPhase {dt}: {d:.3e} from the plain path")
+        del model, ref
+    del audio, feats
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, cin, f, t, cout, pf = K3_CIN16
+    xf = torch.randn(b, cin, f, t, generator=gen, device=dev).abs()
+    wf = torch.randn(3, 3, cin, cout, generator=gen, device=dev) * (9 * cin) ** -0.5
+    scale = 1.0 + 0.2 * torch.randn(cout, generator=gen, device=dev)
+    bias = 0.2 * torch.randn(cout, generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x, w = xf.to(dt), wf.to(dt)
+        k = lambda: conv2d_bn_relu_fpool(x, w, scale, bias, pf)
+        p = lambda: conv2d_bn_relu_fpool_plain(x, w, scale, bias, pf)
+        w_nchw = w.permute(3, 2, 0, 1).contiguous()
+        lib = lambda: F.conv2d(x, w_nchw, padding=1)
+        (got, counts) = launches_of(torch, k)
+        require_launches(f"K3 at Cin 16 {dt}", counts, {"conv3x3_widecin": 1})
+        timed = (time_ms(torch, k), time_ms(torch, p))
+        d = compare(torch, "conv3x3_widecin", "stage1 c16", got, p(), dt, card, timed)
+        flops, moved = 2.0 * 9 * cin * cout * b * f * t, nbytes(x, w, got)
+        dt_name = str(dt)[6:]
+        bound_ms, bound_by = bound(flops, moved, dt_name)
+        lib_ms = time_ms(torch, lib)
+        k_b2b, lib_b2b = stream_ms(torch, k), stream_ms(torch, lib)
+        print(f"[kernel] conv3x3_widecin stage1 c16 {dt_name} back to back: kernel "
+              f"{k_b2b:.4f} ms, cuDNN {lib_b2b:.4f} ms; events kernel {timed[0]:.3f} ms, cuDNN "
+              f"{lib_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} ({card})")
+        K3_CIN16_ROWS[dt_name] = {"max_abs_err": d, "ms": timed[0], "plain_ms": timed[1],
+                                  "stream_ms": k_b2b, "library_ms": lib_ms,
+                                  "library_stream_ms": lib_b2b, "bound_ms": bound_ms,
+                                  "bound_by": bound_by}
+        if dt == torch.float32:
+            f32_row(card, "conv3x3_widecin", "stage1 c16", timed[0], lib_ms, flops, moved,
+                    split_tf32=True)
+        del x, w, got
+    del xf, wf
+    torch.cuda.empty_cache()
+
+
+def configs_se(torch, card: str) -> None:
+    """(c) The flagship with ``use_se_block=True`` in bf16 at batch 2 through
+    ``serve`` (``fused_infer`` after K1): the same launches as the flagship
+    without SE, and clip 0 within MAIN_TOL of its float32 plain ``model(x)``."""
+    from seld_tpu_torch.ops.kernels.stft import stft_mag_plain
+    from seld_tpu_torch.serve import build_flagship, serve
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    audio = torch.randn(2, CHANNELS, SR * CLIP_SECONDS, generator=gen, device=dev)
+    counts, out = {}, None
+    for se in (False, True):
+        model = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, dev,
+                               torch.Generator().manual_seed(18), use_se_block=se)
+        require(hasattr(model.seld_block, "se_0") == se, f"use_se_block={se}: se_0 wrong")
+        (sed, doa), counts[se] = launches_of(torch, lambda: serve(model, audio))
+        check_outputs(torch, f"SE {se}", sed, doa, 2)
+        out = (sed[:1], doa[:1])
+        if not se:
+            del model
+    require(counts[True] == counts[False], f"SE serving launched {counts[True]}, without SE "
+            f"{counts[False]}")
+    with torch.no_grad():
+        feats = stft_mag_plain(audio[:1], out_dtype=torch.float32).transpose(-1, -2)
+        ref = model(feats.contiguous())
+    d = max_diff(out, ref)
+    print(f"[configs] SE block, flagship bf16 batch 2 through serve: launches "
+          f"{ {k: v for k, v in counts[True].items() if v} } (as without SE); clip 0 vs "
+          f"plain f32: max|d| {d:.3e} (tol {MAIN_TOL})")
+    require(d <= MAIN_TOL, "SE served clip disagrees with the plain path")
+    del model, audio, feats
+    torch.cuda.empty_cache()
+
+
+def configs_training(torch, card: str) -> dict:
+    """(d) The MagPhase-Parallel config training in bf16 at its batch (4) under
+    pallas-ct through ``make_train_step``: one warm-up and CONFIGS_STEPS
+    timed steps, each with K5's passes twice, K9's four times (stages 2-3 of
+    two trunks), K4 and K6 twice; finite losses, parameters of both trunks
+    changed; then one float32 batch-1 step on the ct path and on the plain
+    path from the same weights and batch, losses within TRAIN_LOSS_TOL.
+    Returns the timed steps' launches."""
+    import copy
+
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import make_task2_batch
+    from seld_tpu_torch.serve import build_flagship
+    from seld_tpu_torch.training import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = load_config(str(MAGPHASE_CONFIG))
+    rng = np.random.default_rng(19)
+
+    def batch(n):
+        x, y = make_task2_batch(rng, n, channels=cfg.input_channels, freq=cfg.freq_dim,
+                                time_frames=4800, label_frames=600)
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    cfg16 = cfg.replace(compute_dtype="bfloat16", frontend_impl="pallas-ct")
+    model = build_flagship(str(MAGPHASE_CONFIG), torch.bfloat16, dev,
+                           torch.Generator().manual_seed(19), frontend_impl="pallas-ct")
+    require(all(t.frontend_impl == "ct" for t in model.trunks), "trunks not on pallas-ct")
+    state = create_train_state(model, cfg16, torch.Generator(device=dev).manual_seed(19))
+    step = make_train_step(cfg16)
+    x, y = batch(cfg.batch_size)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, x, y)
+    total, times, losses = {}, [], []
+    for i in range(CONFIGS_STEPS):
+        t0 = time.perf_counter()
+        (state, loss), counts = launches_of(torch, lambda: step(state, x, y))
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        require_launches(f"MagPhase-Parallel pallas-ct step {i}", counts, MAGPHASE_PER_STEP)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    require(all(np.isfinite(losses)), f"non-finite MagPhase-Parallel losses {losses}")
+    moved = {t: sum(not torch.equal(before[n], p.detach())
+                    for n, p in model.named_parameters() if n.startswith(t + "."))
+             for t in model.trunk_names}
+    require(all(moved.values()), f"a trunk's parameters never moved: {moved}")
+    ms = statistics.median(times) * 1e3
+    print(f"[configs] MagPhase-Parallel pallas-ct training, bf16 batch {cfg.batch_size}: "
+          f"losses {[round(v, 5) for v in losses]}; step {ms:.1f} ms (median of "
+          f"{CONFIGS_STEPS}; {[round(1e3 * v, 1) for v in times]}); parameters moved per trunk "
+          f"{moved}; launches { {k: v for k, v in total.items() if v} }; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    del model, state, before, x, y
+    torch.cuda.empty_cache()
+
+    # float32 batch 1: the ct path (K5, K9, K4 + K6 in each trunk) and the
+    # plain path (plain stages, full attention) from the same weights and batch
+    cfg32 = cfg.replace(compute_dtype="float32", dropout_perc=0.0, spatial_dropout_rate=0.0)
+    base = build_flagship(str(MAGPHASE_CONFIG), torch.float32, dev,
+                          torch.Generator().manual_seed(20))
+    set_dropout(base, 0.0)
+    step = make_train_step(cfg32)
+    x, y = batch(1)
+    f32 = {}
+    for tag, frontend, attention in (("ct", "ct", "flash"), ("plain", "xla", "full")):
+        model = copy.deepcopy(base)
+        for trunk in model.trunks:
+            trunk.frontend_impl, trunk.tcn.attention.impl = frontend, attention
+        state = create_train_state(model, cfg32, torch.Generator(device=dev).manual_seed(1))
+        (state, loss), counts = launches_of(torch, lambda: step(state, x, y))
+        f32[tag] = float(loss)
+        if tag == "ct":
+            require(counts["ct_train_dx"] == 4 and counts["conv_train_gz"] == 2,
+                    f"f32 ct step launches {counts}")
+        else:
+            require(not any(counts.values()), f"f32 plain step launched {counts}")
+        del model, state
+    d = abs(f32["ct"] - f32["plain"]) / abs(f32["plain"])
+    print(f"[configs] MagPhase-Parallel f32 batch 1: ct loss {f32['ct']:.8f}, plain "
+          f"{f32['plain']:.8f}, rel {d:.3e} (tol {TRAIN_LOSS_TOL})")
+    require(d <= TRAIN_LOSS_TOL, f"MagPhase-Parallel f32 losses differ by {d:.3e}")
+    del base, x, y
+    torch.cuda.empty_cache()
+    return total
+
+
+def configs_predict(torch, card: str) -> None:
+    """(e) The port's predict CLI on the MagPhase-Parallel config (seeded
+    random init) over one one-minute clip: ``--impl auto`` with
+    ``--compute_dtype=bfloat16`` (the fused path: K2 and K3 per trunk, K4, no
+    K1) and ``--impl apply`` (float32, the plain featurizer and model); both
+    CSVs valid and the two outputs within MAIN_TOL."""
+    import numpy as np
+
+    from seld_tpu_torch import predict
+    from seld_tpu_torch.config import load_config
+
+    cfg = load_config(str(MAGPHASE_CONFIG))
+    CONFIGS_PREDICT_DIR.mkdir(parents=True, exist_ok=True)
+    clip = CONFIGS_PREDICT_DIR / "clip.npy"
+    np.save(clip, np.random.default_rng(21).standard_normal((CHANNELS, SR * CLIP_SECONDS),
+                                                            dtype=np.float32))
+    results = {}
+    for tag, flags, want in (("auto", ["--compute_dtype=bfloat16"], MAGPHASE_PER_REQUEST),
+                             ("apply", ["--impl=apply"], {})):
+        (r,), counts = launches_of(torch, lambda: predict.main([
+            f"--TextArgs={MAGPHASE_CONFIG}", "--inputs", str(clip),
+            f"--out-dir={CONFIGS_PREDICT_DIR / tag}", *flags]))
+        require_launches(f"predict {tag}", counts, want)
+        rows = check_submission(r["csv"], cfg)
+        results[tag] = r
+        print(f"[configs] predict MagPhase-Parallel --impl={tag}: {rows} rows, launches "
+              f"{ {k: v for k, v in counts.items() if v} }, {1e3 * r['seconds']:.1f} ms ({card})")
+    d = max(float(np.abs(results["auto"][k] - results["apply"][k]).max()) for k in ("sed", "doa"))
+    print(f"[configs] predict auto (fused bf16) vs apply (f32): max|d| {d:.3e} (tol {MAIN_TOL})")
+    require(d <= MAIN_TOL, "predict auto and apply disagree")
+
+
+def k5_b1_device_times(torch, card: str) -> dict:
+    """K5's B1 (``sel_stats``) at the flagship's stage 1 (Cin 8, F 256, T
+    4800, Cout 192, pf 8), batches 2 and 8, both dtypes: device time
+    (device_ms, the profiler's self device time of its kernels) beside its
+    events time, and the share of its byte bound (the pooled output read
+    once, g where the output routes, 8 bytes a channel written)."""
+    from seld_tpu_torch.ops.kernels import conv2d_train as k5
+    from seld_tpu_torch.ops.kernels.conv2d_pool import (
+        conv2d_smallcin_bn_relu_fpool, conv2d_windows_bn_relu_fpool,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cin, f, t, cout, pf = CHANNELS, 256, 4800, 192, 8
+    out_rows = {}
+    for b in (2, 8):
+        for dt in (torch.bfloat16, torch.float32):
+            x, w, gamma, beta = k5_inputs(torch, b, cin, f, t, cout, dt, gen)
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            del x
+            gc = torch.randn(b, cout, f // pf, t, generator=gen, device="cuda").to(dt)
+            n = b * f * t
+            sums = k5.conv_train_stats(xc, w, pf)
+            mean = sums[:cout] / n
+            var = torch.clamp(sums[cout:] / n - mean * mean, min=0.0)
+            inv = torch.rsqrt(var + 1e-5)
+            scale = gamma * inv
+            bias = beta - mean * scale
+            p_col, q_col = inv / scale, (bias / scale + mean) * inv
+            f2 = (conv2d_windows_bn_relu_fpool if dt == torch.bfloat16
+                  else conv2d_smallcin_bn_relu_fpool)
+            out = f2(xc, w, scale, bias, pf)
+            fn = lambda: k5.sel_stats(out, gc, p_col, q_col)
+            moved = nbytes(out) + gc.element_size() * int((out > 0).sum()) + 8 * cout
+            dev_ms, ev_ms = device_ms(torch, fn), time_ms(torch, fn)
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
+            tag = f"batch {b} {str(dt)[6:]}"
+            out_rows[tag] = {"device_ms": dev_ms, "ms": ev_ms, "bound_ms": bound_ms,
+                             "share": bound_ms / dev_ms}
+            print(f"[k5 b1] stage 1 {tag}: device {dev_ms:.4f} ms, events {ev_ms:.4f} ms; byte "
+                  f"bound {bound_ms:.4f} ms, {100 * bound_ms / dev_ms:.1f}% of it in device time "
+                  f"({card})")
+            del xc, gc, out
+    torch.cuda.empty_cache()
+    return out_rows
+
+
 def route_only(torch, package_root: Path) -> int:
     """``--k9-route [DIR]``: the environment and k9_route_times alone, on the
     package of DIR (an unpacked ``git archive`` of another commit; default
@@ -3129,6 +3566,8 @@ def main(argv=None) -> int:
         entry = phase_entry(torch, card)
         predicted = phase_predict(torch, card)
         variants = phase_frontend_paths(torch, card)
+        configs = phase_configs(torch, card)
+        k5_b1 = k5_b1_device_times(torch, card)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -3139,11 +3578,16 @@ def main(argv=None) -> int:
           f"{CAPTURES['retaken']} taken again (a bracket kernel missing)")
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
-             "predict": (PREDICT_KERNELS, predicted), **variants}
+             "predict": (PREDICT_KERNELS, predicted), **variants,
+             "configs": (CONFIG_KERNELS, configs)}
+    extra = {"conv3x3_widecin": {"stage1_cin16": K3_CIN16_ROWS},
+             "conv_train_sel_stats": {"device": k5_b1}}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
-         "launches": counts.get(COUNTED_AS.get(name, name), 0), **summary[name],
-         **({"f32": F32_ROWS[name]} if name in F32_ROWS else {})}
+         "launches": counts.get(name, counts.get(COUNTED_AS.get(name, name), 0)),
+         **summary[name],
+         **({"f32": F32_ROWS[name]} if name in F32_ROWS else {}),
+         **(extra.get(name, {}) if path == "configs" else {})}
         for path, (names, counts) in paths.items()
         for name, (src, rep) in names.items()
     ]

@@ -1,6 +1,6 @@
 """SELD-TCN building blocks: gated ResBlock, TC block, CNN front-end.
 
-Counterpart of ``seld_tpu/models/blocks.py`` (single-trunk forward). The TCN
+Counterpart of ``seld_tpu/models/blocks.py`` (one trunk's forward). The TCN
 works on channel-last ``(B, T, L)``, the CNN front-end on ``(B, F, T, C)``.
 Two reference quirks are kept: the residual is added to the pre-activated
 ``h`` (``tanh(bn_pre(x))``), not to the block input; and the CNN output is
@@ -14,7 +14,9 @@ each ResBlock's gate and the dropout after each CNN stage, drawing from
 (``ops/kernels/conv2d_train.py``), as ``ConvTCBlock._fused_train_ok`` decides;
 with ``frontend_impl='ct'`` every CNN stage runs a kernel op in the (B, C, F,
 T) layout, K5 for stage 0 and K9 (``ops/kernels/conv2d_ct_train.py``) for
-the stages after it (``ConvTCBlock._ct_train_ok``). ``qconv_impl`` ('xla',
+the stages after it (``ConvTCBlock._ct_train_ok``); neither kernel route takes
+a trunk with the SE block, which trains on the plain stages, as the JAX
+package's does. ``qconv_impl`` ('xla',
 'pallas', 'int8') reaches every conv, as in the JAX package; only the
 pointwise ones (each ResBlock's skip and res) take it (``layers.py``).
 """
@@ -30,7 +32,8 @@ from torch import nn
 
 from seld_tpu_torch.models.attention import MultiHeadAttention
 from seld_tpu_torch.models.layers import (
-    BN_EPS, BatchNorm, Dropout, SpatialDropout1D, make_conv, max_pool_2d, max_pool_time,
+    BN_EPS, BatchNorm, Dropout, SEBlock, SpatialDropout1D, make_conv, max_pool_2d,
+    max_pool_time,
 )
 from seld_tpu_torch.ops.kernels import conv2d_ct_train, conv2d_train
 
@@ -150,8 +153,9 @@ class TCBlock(nn.Module):
 
 class ConvTCBlock(nn.Module):
     """CNN front-end + TCN on (B, F, T, C) -> (B, T_pooled, V[-1]): per stage
-    conv2d k3 p1 -> BN -> ReLU -> MaxPool2d([p_freq, p_time or 1]) ->
-    dropout, then the channel-major flatten to L = cnn_filters[-1] * F'."""
+    conv2d k3 p1 -> BN -> ReLU -> MaxPool2d([p_freq, p_time or 1]) -> SE
+    (``se_{i}``, with ``use_se_block``) -> dropout, then the channel-major
+    flatten to L = cnn_filters[-1] * F'."""
 
     def __init__(self, domain: str, input_channels: int, freq_dim: int,
                  cnn_filters: Sequence[int], kernel_size_cnn_blocks: int, pool_size,
@@ -159,7 +163,8 @@ class ConvTCBlock(nn.Module):
                  kernel_size_dilated_conv: int, V: Sequence[int], V_kernel_size: int,
                  use_bias: bool, batch_norm: str, attention_impl: str,
                  spatial_dropout_rate: float = 0.5, dropout_perc: float = 0.3,
-                 frontend_impl: str = "auto", *, qconv_impl: str = "xla", device=None,
+                 frontend_impl: str = "auto", use_se_block: bool = False, *,
+                 qconv_impl: str = "xla", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if frontend_impl not in FRONTEND_IMPLS:
@@ -168,6 +173,7 @@ class ConvTCBlock(nn.Module):
         self.kernel_size, self.use_bias = kernel_size_cnn_blocks, use_bias
         self.dropout = Dropout(dropout_perc)
         self.use_bn = batch_norm in BN_ON_CNN
+        self.use_se_block = use_se_block
         self.pools = [(int(p[0]), int(p[1]) if pool_time == "CNN" else 1) for p in pool_size]
         self.n_stages = len(cnn_filters)
         self.cnn_filters = tuple(int(c) for c in cnn_filters)
@@ -178,6 +184,8 @@ class ConvTCBlock(nn.Module):
                 impl=qconv_impl, device=device, generator=generator))
             if self.use_bn:
                 setattr(self, f"cnn_bn_{i}", BatchNorm(c, device=device))
+            if use_se_block:
+                setattr(self, f"se_{i}", SEBlock(c, device=device, generator=generator))
             cin, f = c, f // self.pools[i][0]
         self.tcn = TCBlock(
             domain, cin * f, G, U, V, V_kernel_size, pool_size, D, dilation_mode, pool_time,
@@ -188,7 +196,7 @@ class ConvTCBlock(nn.Module):
         """Whether train mode runs every CNN stage through the kernel ops
         (``frontend_impl='ct'``): the conditions of
         ``seld_tpu/models/blocks.py::ConvTCBlock._ct_train_ok`` (3x3 bias-free
-        conv, BN on, 3 * Cin <= 32 for stage 0, frequency-only pools dividing F
+        conv, BN on, no SE block, 3 * Cin <= 32 for stage 0, frequency-only pools dividing F
         at every stage, stage 0's within K5's range, every stage's width a
         multiple of 8). On a CUDA tensor
         that fails them it raises; on the CPU it warns and the plain stages
@@ -201,12 +209,13 @@ class ConvTCBlock(nn.Module):
             f //= max(pf, 1)
         cin = x.shape[-1]
         ok = (ok and self.kernel_size == 3 and not self.use_bias and self.use_bn
-              and 3 * cin <= 32 and self.pools[0][0] <= conv2d_train.max_pool_f(cin)
+              and not self.use_se_block and 3 * cin <= 32
+              and self.pools[0][0] <= conv2d_train.max_pool_f(cin)
               and all(c % conv2d_ct_train.CIN_CHUNK == 0 for c in self.cnn_filters))
         if not ok:
             msg = ("frontend_impl='ct' asked for, but the CNN stages do not meet the K5/K9 "
-                   "conditions (3x3 bias-free conv, BN on, 3 * Cin <= 32, frequency-only "
-                   "pools dividing F, stage widths a multiple of 8)")
+                   "conditions (3x3 bias-free conv, BN on, no SE block, 3 * Cin <= 32, "
+                   "frequency-only pools dividing F, stage widths a multiple of 8)")
             if x.is_cuda:   # a CUDA tensor launches the kernels or raises
                 raise ValueError(msg)
             warnings.warn(f"{msg}: the plain stages run", stacklevel=3)
@@ -240,7 +249,7 @@ class ConvTCBlock(nn.Module):
         """Whether train-mode stage 0 runs the K5 op: 'auto' on a float32 or
         bfloat16 CUDA tensor, or 'fused', when the structural conditions of
         ``seld_tpu/models/blocks.py::ConvTCBlock._fused_train_ok`` hold (3x3
-        bias-free conv, BN on, 3 * Cin <= 32, a frequency-only pool dividing F
+        bias-free conv, BN on, no SE block, 3 * Cin <= 32, a frequency-only pool dividing F
         and within K5's range)."""
         if self.frontend_impl == "xla":
             return False
@@ -249,12 +258,12 @@ class ConvTCBlock(nn.Module):
             return False
         cin = x.shape[-1]
         ok = (self.kernel_size == 3 and not self.use_bias and self.use_bn
-              and 3 * cin <= 32 and pool[1] == 1
+              and not self.use_se_block and 3 * cin <= 32 and pool[1] == 1
               and pool[0] <= conv2d_train.max_pool_f(cin) and x.shape[1] % pool[0] == 0)
         if not ok and self.frontend_impl == "fused":
             msg = ("frontend_impl='fused' asked for, but stage 0 does not meet the K5 "
-                   "conditions (3x3 bias-free conv, BN on, 3 * Cin <= 32, a frequency-only "
-                   "pool dividing F)")
+                   "conditions (3x3 bias-free conv, BN on, no SE block, 3 * Cin <= 32, a "
+                   "frequency-only pool dividing F)")
             if x.is_cuda:   # a CUDA tensor launches the kernel or raises
                 raise ValueError(msg)
             warnings.warn(f"{msg}: the plain stage runs", stacklevel=3)
@@ -284,6 +293,8 @@ class ConvTCBlock(nn.Module):
                 if self.use_bn:
                     x = getattr(self, f"cnn_bn_{i}")(x, train)
                 x = max_pool_2d(torch.relu(x), self.pools[i])
+                if self.use_se_block:
+                    x = getattr(self, f"se_{i}")(x)
             x = self.dropout(x, train, generator)
         b, f, t, c = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, c * f)

@@ -1,8 +1,11 @@
 """Fused serving forward: kernel CNN front-end, restructured TCN, direct heads.
 
-Counterpart of ``seld_tpu/models/fused_infer.py::fused_infer`` for the
-single-trunk models. It runs an eval-mode :class:`SELDModel` from its own
-parameters, in ``model.compute_dtype``:
+Counterpart of ``seld_tpu/models/fused_infer.py::fused_infer``. It runs an
+eval-mode :class:`SELDModel` from its own parameters, in
+``model.compute_dtype``, one trunk or two (2Parallel / ``parallel_magphase``:
+the features split on the channel axis as ``SELDModel.split_channels`` does,
+each trunk's front end and TCN run from its own modules, their outputs
+concatenated on the feature axis before the heads):
 
 - every CNN stage runs a fused conv + folded BN + ReLU + frequency-pool
   kernel (``ops/kernels/conv2d_pool.py::conv2d_bn_relu_fpool``), in float32
@@ -11,7 +14,9 @@ parameters, in ``model.compute_dtype``:
   pack) for 3 * Cin <= 32, else K3 for Cin % 8 == 0, else K10b (per-tap
   windows, any Cin; the JAX package runs an XLA conv there); the stages stay
   in (B, C, F, T) between kernels and the flatten to the TCN's channel-major
-  (B, C * F', T) is a reshape;
+  (B, C * F', T) is a reshape; with ``use_se_block`` the SE epilogue scales
+  each stage's output (``_apply_se``: the squeeze in float32, the scale cast
+  to the stage's dtype);
 - per ResBlock, eval BN is folded into affines and conv weights, the filter
   and gate dilated convs are merged into one L -> 2G conv, and the skip and
   res 1x1 convs into one G -> (U + L) matmul;
@@ -29,8 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from seld_tpu_torch.models.blocks import ResBlock
-from seld_tpu_torch.models.layers import BatchNorm
+from seld_tpu_torch.models.blocks import ConvTCBlock, ResBlock
+from seld_tpu_torch.models.layers import BatchNorm, SEBlock
 from seld_tpu_torch.models.seld import SELDModel
 from seld_tpu_torch.ops.kernels.conv2d_pool import conv2d_bn_relu_fpool
 
@@ -45,10 +50,17 @@ def folded_affine(bn: BatchNorm, conv) -> tuple[torch.Tensor, torch.Tensor]:
     return inv.float(), shift.float()
 
 
-def _frontend(model: SELDModel, x: torch.Tensor, dtype: torch.dtype,
+def _apply_se(se: SEBlock, h: torch.Tensor) -> torch.Tensor:
+    """Eval SE epilogue on a stage output h (B, C, F, T)
+    (``seld_tpu/models/fused_infer.py::_apply_se``): the squeeze in float32,
+    the per-(batch, channel) scale cast to h's dtype."""
+    s = se.excite(h.float().mean((2, 3)))
+    return h * s[:, :, None, None].to(h.dtype)
+
+
+def _frontend(trunk: ConvTCBlock, x: torch.Tensor, dtype: torch.dtype,
               smallcin_impl: str) -> torch.Tensor:
-    """CNN stages on x (B, C, F, T) -> channel-major (B, C' * F', T)."""
-    trunk = model.seld_block
+    """One trunk's CNN stages on x (B, C, F, T) -> channel-major (B, C' * F', T)."""
     h = x.to(dtype).contiguous()
     for i in range(trunk.n_stages):
         pf = trunk.pools[i][0]
@@ -56,6 +68,8 @@ def _frontend(model: SELDModel, x: torch.Tensor, dtype: torch.dtype,
         w = conv.dense_kernel().to(dtype).contiguous()    # (3, 3, Cin, Cout)
         scale, bias = folded_affine(bn, conv)
         h = conv2d_bn_relu_fpool(h, w, scale, bias, pf, smallcin_impl=smallcin_impl)
+        if trunk.use_se_block:
+            h = _apply_se(getattr(trunk, f"se_{i}"), h)
     b, c, f, t = h.shape
     return h.reshape(b, c * f, t)
 
@@ -83,9 +97,9 @@ def _resblock(blk: ResBlock, h: torch.Tensor, dtype: torch.dtype):
     return hpre + z[:, u:], z[:, :u]
 
 
-def _tcn(model: SELDModel, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Eval TCN on channel-major (B, L, T) -> (B, T_pooled, V[-1])."""
-    tcn = model.seld_block.tcn
+def _tcn(trunk: ConvTCBlock, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One trunk's eval TCN on channel-major (B, L, T) -> (B, T_pooled, V[-1])."""
+    tcn = trunk.tcn
     skip_sum = None
     for idx in range(tcn.n_blocks):
         h, skip = _resblock(getattr(tcn, f"resblock_{idx}"), h, dtype)
@@ -101,7 +115,7 @@ def _tcn(model: SELDModel, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def fused_infer(model: SELDModel, x: torch.Tensor, input_layout: str = "BCFT",
                 featurize=None, smallcin_impl: str = "thin") -> tuple[torch.Tensor, torch.Tensor]:
-    """(sed, doa) float32 for an eval-mode single-trunk SELDModel.
+    """(sed, doa) float32 for an eval-mode SELDModel, one trunk or two.
 
     x: (B, C, F, T) features as ``model(x)`` takes them, or (B, C, T, F) with
     ``input_layout='BCTF'`` (the STFT kernel's native order). With
@@ -122,7 +136,9 @@ def fused_infer(model: SELDModel, x: torch.Tensor, input_layout: str = "BCFT",
         feats = featurize(x) if featurize is not None else x
         if input_layout == "BCTF":
             feats = feats.transpose(2, 3)
-        h = _tcn(model, _frontend(model, feats, dtype, smallcin_impl), dtype).float()
+        h = torch.cat([_tcn(trunk, _frontend(trunk, part, dtype, smallcin_impl), dtype).float()
+                       for trunk, part in zip(model.trunks, model.split_channels(feats))],
+                      dim=-1)
         sed = torch.sigmoid(model.head(h, "sed", qconv_impl="xla"))
         doa = torch.tanh(model.head(h, "doa", qconv_impl="xla"))
     return sed, doa

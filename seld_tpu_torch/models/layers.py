@@ -183,6 +183,33 @@ class Dense(nn.Module):
         return linear(x, self.kernel, self.bias)
 
 
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation over the channels of (B, ..., C)
+    (``seld_tpu/models/layers.py::SEBlock``, reduction 8): the mean over
+    every axis but batch and channel, ``Dense_0`` (C -> max(C // 8, 1)),
+    ReLU, ``Dense_1`` (back to C), sigmoid, then x scaled per (batch,
+    channel) in x's dtype. The squeeze runs in x's dtype promoted with the
+    weights' (float32 for a bfloat16 stage, as flax's Dense promotes)."""
+
+    def __init__(self, channels: int, reduction: int = 8, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.Dense_0 = Dense(channels, hidden, device=device, generator=generator)
+        self.Dense_1 = Dense(hidden, channels, device=device, generator=generator)
+
+    def excite(self, s: torch.Tensor) -> torch.Tensor:
+        """(B, C) channel means -> (B, C) sigmoid scales, in s's dtype
+        promoted with the weights'."""
+        s = s.to(torch.promote_types(s.dtype, self.Dense_0.kernel.dtype))
+        return torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(s))))
+
+    def forward(self, x):
+        axes = tuple(range(1, x.ndim - 1))
+        s = self.excite(x.mean(axes))
+        return x * s.reshape(s.shape[0], *([1] * len(axes)), s.shape[-1]).to(x.dtype)
+
+
 def make_conv(domain: str, in_features: int, features: int, kernel_size: IntOrTuple,
               ndim: int, *, padding: IntOrTuple = 0, dilation: IntOrTuple = 1,
               use_bias: bool = True, impl: str = "xla", device=None,

@@ -1,12 +1,16 @@
-"""The SELD model: single trunk + SED/DOA heads.
+"""The SELD model: one or two ConvTC trunks + SED/DOA heads.
 
 Counterpart of ``seld_tpu/models/seld.py`` and of
 ``seld_tpu/models/__init__.py::model_from_config``. Takes the reference
 layout (B, C, F, T) and returns ``(sed (B, T_out, classes * overlaps), doa
 (B, T_out, 3 * classes * overlaps))``. Domains R / Q / DQ and a separately
-typed classifier (``domain_classifier``) are supported; the 2Parallel /
-``parallel_magphase`` topologies and the SE block are not ported yet and
-raise.
+typed classifier (``domain_classifier``) are supported, and so are the
+topologies of the JAX package: one trunk (``seld_block``), or, under the
+2Parallel spellings of ``parallel_ConvTC_block`` (``PARALLEL_2``), two
+(``branch_A`` and ``branch_B``) on the two halves of the channels or, with
+``parallel_magphase``, on each microphone's magnitude + phase channels, their
+outputs concatenated on the feature axis before the heads; and the SE block
+after every CNN stage (``use_se_block``, ``models/blocks.py``).
 
 ``forward(x, train=False, generator=None)`` computes in the input's dtype.
 In eval mode with ``qconv_impl='xla'`` it is the unfused oracle of the fused
@@ -16,7 +20,7 @@ K8 (the predict CLI's ``apply`` path, ``seld_tpu_torch/predict.py``). In
 train mode
 (``training/steps.py``) BN uses batch statistics, the dropouts draw from
 ``generator``, and the kernels of the training path run where their
-conditions hold (K5 in CNN stage 0, K4 + K6 in the attention).
+conditions hold (K5 in CNN stage 0, K4 + K6 in the attention), in each trunk.
 ``compute_dtype`` is the dtype the serving path and the train step run in.
 """
 
@@ -80,10 +84,6 @@ class SELDModel(nn.Module):
                  frontend_impl: str = "auto", qconv_impl: str = "xla", device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if parallel_ConvTC_block in PARALLEL_2:
-            raise NotImplementedError("2Parallel / parallel_magphase trunks are not ported yet")
-        if use_se_block:
-            raise NotImplementedError("the SE block is not ported yet")
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}")
         self.freq_dim, self.input_channels = freq_dim, input_channels
@@ -100,23 +100,46 @@ class SELDModel(nn.Module):
         self.use_bias_conv, self.use_bias_linear = use_bias_conv, use_bias_linear
         self.batch_norm, self.attention_impl = batch_norm, attention_impl
         self.parallel_ConvTC_block = parallel_ConvTC_block
+        self.parallel = parallel_ConvTC_block in PARALLEL_2
+        self.parallel_magphase, self.use_se_block = parallel_magphase, use_se_block
         self.compute_dtype, self.qconv_impl = compute_dtype, qconv_impl
 
-        self.seld_block = ConvTCBlock(
-            domain, input_channels, freq_dim, cnn_filters, kernel_size_cnn_blocks,
-            self.pool_size, pool_time, D, dilation_mode, G, U, kernel_size_dilated_conv, V,
-            V_kernel_size, use_bias_conv, batch_norm, attention_impl, spatial_dropout_rate,
-            dropout_perc, frontend_impl, qconv_impl=qconv_impl, device=device,
-            generator=generator)
+        self.trunk_names = ("branch_A", "branch_B") if self.parallel else ("seld_block",)
+        probe = torch.empty(1, input_channels, 0)
+        for name, part in zip(self.trunk_names, self.split_channels(probe)):
+            setattr(self, name, ConvTCBlock(
+                domain, part.shape[1], freq_dim, cnn_filters, kernel_size_cnn_blocks,
+                self.pool_size, pool_time, D, dilation_mode, G, U, kernel_size_dilated_conv,
+                V, V_kernel_size, use_bias_conv, batch_norm, attention_impl,
+                spatial_dropout_rate, dropout_perc, frontend_impl, use_se_block,
+                qconv_impl=qconv_impl, device=device, generator=generator))
         sed_out = int(output_classes * class_overlaps)
         kw = dict(device=device, generator=generator)
         for prefix, out_size in (("sed", sed_out), ("doa", 3 * sed_out)):
-            width = self.V[-1]
+            width = self.V[-1] * len(self.trunk_names)
             for li, fc in enumerate(self.fc_layers):
                 setattr(self, f"{prefix}_fc{li}", make_linear(
                     self.classifier_domain, width, fc, use_bias_linear, impl=qconv_impl, **kw))
                 width = fc
             setattr(self, f"{prefix}_out", Dense(width, out_size, use_bias_linear, **kw))
+
+    @property
+    def trunks(self) -> list:
+        """The ConvTCBlock of each trunk, in the order of :meth:`split_channels`."""
+        return [getattr(self, name) for name in self.trunk_names]
+
+    def split_channels(self, x: torch.Tensor) -> tuple:
+        """x (B, C, ...) -> one input per trunk, split on axis 1 as
+        ``seld_tpu/models/seld.py:132-142`` splits the channel axis: the whole
+        of x for one trunk; under 2Parallel the two halves, or with
+        ``parallel_magphase`` microphone A's magnitude + phase channels [0:4]
+        + [8:12] and microphone B's [4:8] + [12:]."""
+        if not self.parallel:
+            return (x,)
+        if self.parallel_magphase:
+            return (torch.cat([x[:, 0:4], x[:, 8:12]], 1), torch.cat([x[:, 4:8], x[:, 12:]], 1))
+        half = self.input_channels // 2
+        return x[:, :half], x[:, half:]
 
     @property
     def classifier_domain(self) -> str:
@@ -152,7 +175,8 @@ class SELDModel(nn.Module):
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         """x (B, C, F, T) -> (sed, doa) in x's dtype promoted to >= float32."""
-        h = self.seld_block(x.permute(0, 2, 3, 1), train, generator)
+        h = torch.cat([trunk(part.permute(0, 2, 3, 1), train, generator)
+                       for trunk, part in zip(self.trunks, self.split_channels(x))], dim=-1)
         dt = torch.promote_types(h.dtype, torch.float32)
         sed = torch.sigmoid(self.head(h, "sed", train, generator).to(dt))
         doa = torch.tanh(self.head(h, "doa", train, generator).to(dt))

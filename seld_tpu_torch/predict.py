@@ -12,14 +12,16 @@ checkpoint is one the port's Trainer wrote (only its model state is read);
 without one the model keeps a seeded random init and a warning is printed.
 
 Serving paths (``--impl``): ``fused`` is ``serve.serve`` (K1 featurizer,
-then ``fused_infer``: K2/K3 CNN stages, K4 attention); ``apply`` featurizes
-with K1 in float32 and runs the eval model in the config's compute dtype,
-where ``--qconv_impl=pallas`` puts the pointwise convs and the FC heads on K7
-and ``--qconv_impl=int8`` on K8. ``auto`` picks ``fused`` on a CUDA device for
-bfloat16 BN configs that pool time in the TCN, ``apply`` otherwise. It runs
-on the CUDA card unless ``--device=cpu`` asks for the CPU (each kernel's
-plain version). Phase (mag + phase) configs raise: the port has no phase
-featurizer yet.
+or for a ``--phase=True`` config the magnitude + phase featurizer
+``data/features.py::spectrum_fast_batch``, then ``fused_infer``: K2/K3 CNN
+stages, K4 attention, per trunk); ``apply`` featurizes in float32, with K1
+for magnitude configs and ``data/features.py::spectrum_fast`` for phase
+configs (the root ``predict.py:126-129``), and runs the eval model in the
+config's compute dtype, where ``--qconv_impl=pallas`` puts the pointwise
+convs and the FC heads on K7 and ``--qconv_impl=int8`` on K8. ``auto`` picks
+``fused`` on a CUDA device for bfloat16 BN configs that pool time in the
+TCN, ``apply`` otherwise. It runs on the CUDA card unless ``--device=cpu``
+asks for the CPU (each kernel's plain version).
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def main(argv=None):
 
     from seld_tpu_torch import disable_tf32
     from seld_tpu_torch.config import load_config, tokens_to_config
+    from seld_tpu_torch.data.features import spectrum_fast
     from seld_tpu_torch.metrics import gen_submission_list_task2
     from seld_tpu_torch.models.seld import model_from_config
     from seld_tpu_torch.ops.kernels.stft import stft_mag
@@ -88,8 +91,6 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("predict: no CUDA device; pass --device=cpu to run on the CPU")
-    if cfg.phase:
-        raise NotImplementedError("phase (magnitude + phase) features are not ported yet")
     disable_tf32()
     model = model_from_config(cfg, device=device, generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
@@ -116,10 +117,14 @@ def main(argv=None):
         audio = torch.from_numpy(clip).to(device)
         with torch.no_grad():
             if fused:
-                sed, doa = serve(model, audio[None])
+                sed, doa = serve(model, audio[None], phase=cfg.phase)
             else:
-                feats = stft_mag(audio, NPERSEG, NOVERLAP, out_dtype=torch.float32)
-                x = feats.transpose(-1, -2)[None].to(dtype).contiguous()   # (1, C, F, T)
+                if cfg.phase:
+                    feats = spectrum_fast(audio, NPERSEG, NOVERLAP, output_phase=True)
+                else:
+                    feats = stft_mag(audio, NPERSEG, NOVERLAP,
+                                     out_dtype=torch.float32).transpose(-1, -2)
+                x = feats[None].to(dtype).contiguous()   # (1, C, F, T)
                 sed, doa = model(x, train=False)
             sed, doa = sed[0].float().cpu().numpy(), doa[0].float().cpu().numpy()
         seconds = time.perf_counter() - t0

@@ -108,8 +108,10 @@ class Trainer:
 
     def setup_model(self, seed: int = 0):
         """The model from the config, with weights drawn from a CPU generator
-        seeded ``seed``, Adam, the steps and the LR schedule. A config the
-        port's model cannot build (2Parallel, SE) raises NotImplementedError."""
+        seeded ``seed``, Adam, the steps and the LR schedule. Every topology
+        of the JAX package builds: one trunk or the 2Parallel / magnitude +
+        phase trunks, with or without the SE block; each trunk's CNN stages
+        take the kernels their conditions allow (``models/blocks.py``)."""
         cfg = self.cfg
         self.model = model_from_config(cfg, device=self.device,
                                        generator=torch.Generator().manual_seed(seed))

@@ -93,8 +93,24 @@ def test_flagship_schedule_and_receptive_field():
     assert receptive_field([10], 3, "fibonacci") == (287, 10)
 
 
-@pytest.mark.parametrize("kw", [dict(parallel_ConvTC_block="2Parallel"),
+@pytest.mark.parametrize("kw", [dict(parallel_ConvTC_block="2Parallel", domain="Q"),
                                 dict(use_se_block=True)])
-def test_unported_topologies_raise(kw):
-    with pytest.raises(NotImplementedError):
-        SELDModel(**kw)
+def test_unported_topologies_raise(rng, kw):
+    """The two topologies that raised before the port had them (2Parallel
+    trunks on the channel halves, the SE block) now build and match JAX's
+    ``model.apply`` in float64 (more of them: ``tests/test_torch_configs.py``)."""
+    cfg = tiny_config(**kw)
+    x = rng.standard_normal((2, 8, 32, 32))
+    jmodel = jax_model_from_config(cfg)
+    variables = random_variables(jmodel, x.shape, rng)
+    with enable_x64(True):
+        sed_ref, doa_ref = jax.jit(lambda v, a: jmodel.apply(v, a, train=False))(
+            jax.tree_util.tree_map(jnp.asarray, variables), jnp.asarray(x))
+    model = model_from_config(cfg).double()
+    from_jax_variables(variables, model)
+    assert isinstance(model, SELDModel) and len(model.trunks) == (
+        2 if "parallel_ConvTC_block" in kw else 1)
+    with torch.no_grad():
+        sed, doa = model(torch.from_numpy(x))
+    np.testing.assert_allclose(sed.numpy(), np.asarray(sed_ref), rtol=0, atol=F64_TOL)
+    np.testing.assert_allclose(doa.numpy(), np.asarray(doa_ref), rtol=0, atol=F64_TOL)

@@ -20,6 +20,8 @@ package, on the CPU.
   shape list, and the default device raises without a card.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -230,6 +232,9 @@ def test_predict_cli_needs_a_card_unless_asked_for_the_cpu(tmp_path, rng, monkey
     cfg_file.write_text(CLI_CFG)
     with pytest.raises(RuntimeError, match="--device=cpu"):
         predict.main([f"--TextArgs={cfg_file}", "--inputs", *_inputs(tmp_path, rng)])
-    with pytest.raises(NotImplementedError):
-        predict.main([f"--TextArgs={cfg_file}", "--inputs", "x.npy", "--device=cpu",
-                      "--phase=True"])
+    # a magnitude + phase config runs: 8-channel audio, 16 feature channels
+    (r,) = predict.main([f"--TextArgs={cfg_file}", "--inputs", _inputs(tmp_path, rng)[0],
+                         "--device=cpu", f"--out-dir={tmp_path / 'phase'}", "--phase=True",
+                         "--input_channels=16"])
+    assert r["sed"].shape == (10, 42) and r["doa"].shape == (10, 126)
+    assert np.isfinite(r["sed"]).all() and os.path.isfile(r["csv"])

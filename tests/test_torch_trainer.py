@@ -220,6 +220,9 @@ def test_trainer_without_a_card_raises_unless_asked_for_the_cpu(monkeypatch):
         Trainer(SELDConfig())
     with pytest.raises(NotImplementedError, match="parallel"):
         Trainer(SELDConfig(mesh_data=2), device="cpu")
-    trainer = Trainer(SELDConfig(parallel_ConvTC_block="2Parallel"), device="cpu")
-    with pytest.raises(NotImplementedError, match="2Parallel"):
-        trainer.setup_model()
+    # the 2Parallel trunks build (their training: tests/test_torch_configs.py)
+    trainer = Trainer(SELDConfig(parallel_ConvTC_block="2Parallel", input_channels=16),
+                      device="cpu", verbose=False)
+    trainer.setup_model()
+    assert trainer.model.trunk_names == ("branch_A", "branch_B")
+    assert [t.cnn_0.w.shape[-2] * 8 for t in trainer.model.trunks] == [8, 8]
