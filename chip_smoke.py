@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship serving and training paths, its
 training and predict entry points, its front-end variants and per-stage
-profiler, and the shipped magnitude + phase configs, once on one NVIDIA GPU.
+profiler, the shipped magnitude + phase configs, and checkpoints written
+by the JAX package, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -158,7 +159,21 @@ Phases, each printing its own lines:
    random init) over one clip, ``auto`` (fused bf16: K2, K3 per trunk, no K1)
    and ``--impl apply`` (float32), valid CSVs within MAIN_TOL of each other;
    then K5's B1 at the flagship's stage 1, batches 2 and 8, both dtypes, in
-   device time beside its byte bound (``k5_b1_device_times``).
+   device time beside its byte bound (``k5_b1_device_times``);
+10. checkpoints from outside the port, on the flagship at full width: phase
+   6's model directory after two epochs and phase 7's served checkpoint
+   rewritten in the JAX package's format (``write_seld_tpu_checkpoint``: a
+   pickle naming the JAX classes, written without JAX; the latest read back
+   through the port's restricted reader bit for bit); the predict CLI with
+   the rewritten file over phase 7's clips on the fused bf16 path, its CSVs
+   equal to phase 7's bit for bit; then three copies of the model directory
+   (the port's files, the rewritten ones, and the rewritten ones with the
+   latest checkpoint's Adam moments zeroed, a control) each resumed for a
+   third epoch through the train CLI at once (pallas-ct, bf16, dropout
+   off): "Resuming from" in each format, the step count and the schedule
+   continued, the pallas-ct kernels in every step, and the rewritten file's
+   train loss within RESUME_TOL of the port file's, the control's distance
+   printed beside; the JSON's ``checkpoints`` path.
 
 Every torch.profiler capture goes through
 ``seld_tpu_torch.utils.profiling.device_events``: a capture whose first or
@@ -187,6 +202,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_CONFIG = ROOT / "config" / "DQSELD-TCN-S1-PHI_8ch.txt"
@@ -294,6 +310,9 @@ CT_STEPS_TIMED = 5
 CT_SED_RATE = 0.5
 PREDICT_DIR = ROOT / "chip_tmp" / "predict"   # phase 6 leaves its best checkpoint here
 PREDICT_CLIPS = 3
+# a clip through the fused bf16 predict path: K1, K2, K3 at stages 2-3, K4
+FUSED_PER_CLIP = {"stft_mag": 1, "conv3x3_smallcin": 1, "conv3x3_widecin": 2,
+                  "flash_attn_fwd": 1}
 # Hamilton matmuls per flagship forward: 10 ResBlocks x (skip, res) + 2 FC heads;
 # a train step's backward runs K7 for dx on all but the last ResBlock's res conv,
 # whose output feeds nothing (autograd never reaches it)
@@ -424,6 +443,16 @@ CONFIGS_STEPS = 3
 CONFIGS_PREDICT_DIR = ROOT / "chip_tmp" / "predict_configs"
 K3_CIN16 = (2, 16, 256, 4800, 192, 8)   # K3 at the 16chMagPhase config's stage 1
 K3_CIN16_ROWS = {}   # dtype -> K3's numbers there (phase 9), in the JSON as "stage1_cin16"
+# phase 10: checkpoints from outside the port. Phase 6 leaves its dataset and its
+# model directory after two epochs here, and its CLI overrides and the model
+# directory's path in a run directory in the fixture dict main() passes along;
+# phase 7 its clips (PREDICT_DIR) and its fused run's outputs (the fixture's
+# "fused")
+CHECKPOINTS_DIR = ROOT / "chip_tmp" / "checkpoints"
+CHECKPOINT_KERNELS = {name: KERNELS[name] for name in (
+    *SERVING_KERNELS, *TRAINING_KERNELS, *CT_TRAIN_KERNELS)}
+RESUME_TOL = 1e-4   # relative: epoch 3's train loss resumed from the seld_tpu file vs the port's
+RESUME_FLAGS = ["--dropout_perc=0", "--spatial_dropout_rate=0"]
 
 
 PTXAS = {}   # kernel -> ptxas' registers, shared memory and spills (phase 2)
@@ -2579,34 +2608,57 @@ def phase_training(torch, card: str) -> dict:
     return counts
 
 
-def run_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path) -> str:
-    """``python -m seld_tpu_torch.train`` on the flagship config from
-    ``run_dir``; returns its output (also written to ``log``)."""
+def start_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path):
+    """Start ``python -m seld_tpu_torch.train`` on the flagship config in
+    ``run_dir``, its output going to ``log``; returns (process, command,
+    start time) for :func:`finish_train_cli`."""
     import os
 
     cmd = [sys.executable, "-m", "seld_tpu_torch.train", f"--TextArgs={FLAGSHIP_CONFIG}",
            *overrides, f"--max_epochs={max_epochs}"]
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=run_dir, env=env, capture_output=True, text=True,
-                          timeout=600)
-    text = proc.stdout + proc.stderr
     log.parent.mkdir(parents=True, exist_ok=True)
-    log.write_text(" ".join(cmd) + "\n" + text)
-    print(f"[entry] train CLI, --max_epochs={max_epochs}: exit {proc.returncode} in "
+    with open(log, "w") as f:
+        f.write(" ".join(cmd) + "\n")
+        f.flush()
+        proc = subprocess.Popen(cmd, cwd=run_dir, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                text=True)
+    return proc, cmd, time.perf_counter()
+
+
+def finish_train_cli(started, max_epochs: int, log: Path, tag: str = "[entry]") -> str:
+    """Wait for a :func:`start_train_cli` run (killed past 600 s); returns
+    its output, printing its epoch, test and resume lines."""
+    proc, cmd, t0 = started
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    text = log.read_text().split("\n", 1)[1]
+    print(f"{tag} train CLI, --max_epochs={max_epochs}: exit {proc.returncode} in "
           f"{time.perf_counter() - t0:.1f} s (log {log.relative_to(ROOT)})")
     for line in text.splitlines():
         if line.startswith(("epoch ", "TEST epoch", "Resuming from", "train_loss ",
                             "val_loss ", "test_loss ")):
-            print(f"[entry]   {line}")
+            print(f"{tag}   {line}")
     require(proc.returncode == 0, f"train CLI failed:\n{text[-3000:]}")
     return text
 
 
-def phase_entry(torch, card: str) -> dict:
+def run_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path) -> str:
+    """``python -m seld_tpu_torch.train`` on the flagship config from
+    ``run_dir``; returns its output (also written to ``log``)."""
+    return finish_train_cli(start_train_cli(run_dir, overrides, max_epochs, log), max_epochs,
+                            log)
+
+
+def phase_entry(torch, card: str, fixture: dict) -> dict:
     """The port's training entry point at full width with every CNN stage on
     a kernel; then the pallas-ct step beside the auto step. Returns the
-    launches of the CLI's first run's training steps."""
+    launches of the CLI's first run's training steps; leaves its dataset and
+    its model directory after two epochs under CHECKPOINTS_DIR and their
+    use in ``fixture``, for phase 10."""
     import shutil
 
     import numpy as np
@@ -2621,10 +2673,14 @@ def phase_entry(torch, card: str) -> dict:
     cfg = load_config(str(FLAGSHIP_CONFIG))
     run_dir = ROOT / "chip_tmp" / "train_cli"
     shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.rmtree(CHECKPOINTS_DIR, ignore_errors=True)
+    run_dir.mkdir(parents=True)
     try:
         t0 = time.perf_counter()
+        # the dataset outlives this phase: phase 10 resumes on it
         paths = gen_fake_task2_dataset(
-            str(run_dir / "data"), n_train=CT_CLIPS["train"], n_val=CT_CLIPS["validation"],
+            str(CHECKPOINTS_DIR / "data"), n_train=CT_CLIPS["train"],
+            n_val=CT_CLIPS["validation"],
             n_test=CT_CLIPS["test"], channels=CHANNELS, freq=cfg.freq_dim, time_frames=4800,
             label_frames=600, sed_rate=CT_SED_RATE)
         print(f"[entry] synthetic dataset of {sum(CT_CLIPS.values())} one-minute clips "
@@ -2643,6 +2699,9 @@ def phase_entry(torch, card: str) -> dict:
         model_dir = model_dirs[0]
         records = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
                    .splitlines()]
+        # the model directory after two epochs, for phase 10's resumes
+        shutil.copytree(model_dir, CHECKPOINTS_DIR / "epoch2")
+        fixture.update(overrides=overrides, model_dir=model_dir.relative_to(run_dir))
         second = run_train_cli(run_dir, overrides, 3, logs / "run2.log")
         require("Resuming from" in second, "the second run did not resume")
         records2 = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
@@ -2758,25 +2817,21 @@ def check_submission(path: str, cfg) -> int:
     return len(rows)
 
 
-def phase_predict(torch, card: str) -> dict:
+def phase_predict(torch, card: str, fixture: dict) -> dict:
     """The port's predict CLI on the full-width flagship with phase 6's best
     checkpoint: three one-minute clips (two .npy, one int16 .wav) through
     (a) auto -> fused bf16, (b) apply with K7 in float32, (c) apply with K7
     in bf16, (d) apply with K8 in bf16, each checked for its CSVs and its
     launches, and clip 0 of each against the float32 'xla' apply path; then
     the bf16 batch-8 train step with qconv_impl 'pallas' beside 'xla', in
-    turns. Returns the launches of runs (a)-(d)."""
-    import shutil
-
-    try:
-        total = predict_runs(torch, card)
-    finally:
-        shutil.rmtree(PREDICT_DIR, ignore_errors=True)
+    turns. Returns the launches of runs (a)-(d); leaves its clips, and run
+    (a)'s outputs and checkpoint in ``fixture``, for phase 10."""
+    total = predict_runs(torch, card, fixture)   # its clips stay for phase 10
     predict_train_steps(torch, card)
     return total
 
 
-def predict_runs(torch, card: str) -> dict:
+def predict_runs(torch, card: str, fixture: dict) -> dict:
     """Phase 7's four CLI runs and the reference run; returns their launches."""
     import numpy as np
     import scipy.io.wavfile as wavfile
@@ -2811,9 +2866,7 @@ def predict_runs(torch, card: str) -> dict:
     ref_sed, ref_doa = ref[0]["sed"], ref[0]["doa"]
     bf16 = "--compute_dtype=bfloat16"
     runs = {  # tag: flags, launches per clip (every other count 0), tolerance on clip 0
-        "a_auto_fused_bf16": ([bf16], {"stft_mag": 1, "conv3x3_smallcin": 1,
-                                       "conv3x3_widecin": 2, "flash_attn_fwd": 1},
-                              {"sed": MAIN_TOL, "doa": MAIN_TOL}),
+        "a_auto_fused_bf16": ([bf16], FUSED_PER_CLIP, {"sed": MAIN_TOL, "doa": MAIN_TOL}),
         "b_apply_pallas_f32": (["--impl=apply", "--qconv_impl=pallas"],
                                {"stft_mag": 1, "stft_mag_fft": 1,
                                 "hamilton_matmul": QMM_PER_FORWARD},
@@ -2832,6 +2885,9 @@ def predict_runs(torch, card: str) -> dict:
         results, counts, wall = run(tag, flags, clips)
         want = {k: per_clip.get(k, 0) * len(clips) for k in counts}
         require(counts == want, f"predict {tag}: launches {counts}, want {want}")
+        if tag == "a_auto_fused_bf16":   # phase 10 serves the same weights from a seld_tpu file
+            fixture["fused"] = {"clips": clips, "results": results, "checkpoint": ckpt,
+                                "flags": flags}
         rows = [check_submission(r["csv"], cfg) for r in results]
         d = {"sed": float(np.abs(results[0]["sed"] - ref_sed).max()),
              "doa": float(np.abs(results[0]["doa"] - ref_doa).max())}
@@ -3510,6 +3566,322 @@ def k5_b1_device_times(torch, card: str) -> dict:
     return out_rows
 
 
+# ---------------------------------------------------------------- phase 10
+# A seld_tpu checkpoint, written without JAX: the JAX package pickles a host copy
+# of its TrainState (seld_tpu/training/checkpoint.py:36-55), whose pickle names
+# these classes. The stand-ins below are pickled under those names (GLOBAL
+# opcodes) in the opcode forms of the real ones: the flax struct dataclass as
+# NEWOBJ () + BUILD(fields), the optax NamedTuples as NEWOBJ(fields).
+class SeldTpuTrainState:
+    """Written as ``seld_tpu.training.steps.TrainState``."""
+
+    def __init__(self, **fields):
+        self.fields = fields
+
+    def __reduce_ex__(self, protocol):
+        import copyreg
+
+        return copyreg.__newobj__, (type(self),), dict(self.fields)
+
+
+class SeldTpuAdamState(NamedTuple):   # optax._src.transform.ScaleByAdamState
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class SeldTpuEmptyState(NamedTuple):   # optax._src.base.EmptyState
+    pass
+
+
+class SeldTpuInjectState(NamedTuple):   # optax.schedules._inject.InjectStatefulHyperparamsState
+    count: Any
+    hyperparams: Any
+    hyperparams_states: Any
+    inner_state: Any
+
+
+def seld_tpu_train_state(state, zero_moments: bool = False) -> SeldTpuTrainState:
+    """The JAX TrainState of a port ``TrainState``: params and batch_stats at
+    their flax paths (``to_jax_variables``), Adam's ``mu`` / ``nu`` / ``count``
+    from each parameter's torch state (zeros where a parameter has none, as
+    optax keeps them; all zeros with ``zero_moments``), the learning rate,
+    betas and eps as float32 hyperparameters, the step, and the dropout
+    generator's seed as the PRNG key's two words."""
+    import numpy as np
+
+    from seld_tpu_torch.utils.jax_bridge import to_jax_variables
+
+    tree = to_jax_variables(state.model)
+    group = state.optimizer.param_groups[0]
+    moments = {"mu": {}, "nu": {}}
+    counts = set()
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state.get(p, {})
+        if "step" in st:
+            counts.add(int(st["step"]))
+        *path, leaf = name.split(".")
+        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            node = moments[moment]
+            for k in path:
+                node = node.setdefault(k, {})
+            value = st[key].detach().cpu().numpy() if key in st else None
+            node[leaf] = (np.zeros(tuple(p.shape), np.float32) if value is None or zero_moments
+                          else np.ascontiguousarray(value))
+    require(len(counts) <= 1, f"parameters at different Adam steps: {sorted(counts)}")
+    count = np.asarray(counts.pop() if counts else 0, np.int32)
+    f32 = lambda v: np.asarray(v, np.float32)
+    hyper = {"b1": f32(group["betas"][0]), "b2": f32(group["betas"][1]), "eps": f32(group["eps"]),
+             "eps_root": f32(0.0), "learning_rate": f32(group["lr"])}
+    seed = state.generator.initial_seed()
+    return SeldTpuTrainState(
+        step=np.asarray(state.step, np.int32), params=tree["params"],
+        batch_stats=tree["batch_stats"],
+        opt_state=SeldTpuInjectState(count, hyper, {}, (
+            SeldTpuAdamState(count.copy(), moments["mu"], moments["nu"]), SeldTpuEmptyState())),
+        rng=np.asarray([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32))
+
+
+def write_seld_tpu_checkpoint(path, state, loop_state: dict, sched, np_rng_state,
+                              zero_moments: bool = False) -> None:
+    """Write a port ``TrainState`` (with the loop state, the StepLRState and a
+    numpy generator's state) as the JAX package's ``save_checkpoint`` writes
+    its own: a pickle of ``{format_version: 1, train_state, loop_state, sched,
+    np_rng_state}`` that names six globals, the four classes above under
+    their JAX names, ``numpy.dtype`` and numpy's ``_frombuffer``. The pure
+    Python pickler writes each as a GLOBAL opcode and refuses anything else."""
+    import dataclasses
+    import pickle
+    import types
+
+    import numpy as np
+
+    frombuffer = np.zeros(1).__reduce_ex__(5)[0]
+    names = {SeldTpuTrainState: ("seld_tpu.training.steps", "TrainState"),
+             SeldTpuAdamState: ("optax._src.transform", "ScaleByAdamState"),
+             SeldTpuEmptyState: ("optax._src.base", "EmptyState"),
+             SeldTpuInjectState: ("optax.schedules._inject", "InjectStatefulHyperparamsState"),
+             np.dtype: ("numpy", "dtype"),
+             frombuffer: (frombuffer.__module__, frombuffer.__name__)}
+
+    class Pickler(pickle._Pickler):
+        # functions too go through save_global below (the base table holds its own)
+        dispatch = {**pickle._Pickler.dispatch,
+                    types.FunctionType: lambda self, obj: self.save_global(obj)}
+
+        def save_global(self, obj, name=None):
+            if obj not in names:
+                raise pickle.PicklingError(f"a seld_tpu checkpoint names no {obj!r}")
+            module, qualname = names[obj]
+            self.write(pickle.GLOBAL + f"{module}\n{qualname}\n".encode())
+            self.memoize(obj)
+
+    payload = {"format_version": 1,
+               "train_state": seld_tpu_train_state(state, zero_moments),
+               "loop_state": dict(loop_state),
+               "sched": dataclasses.asdict(sched) if sched is not None else None,
+               "np_rng_state": np_rng_state}
+    with open(path, "wb") as f:
+        Pickler(f, protocol=5).dump(payload)
+
+
+def checkpoint_fixtures(torch, fixture: dict) -> dict:
+    """Phase 10's files: phase 6's model directory after two epochs copied
+    three times under CHECKPOINTS_DIR (``port`` as it is; ``jax`` with every
+    role rewritten as a seld_tpu file; ``control`` as ``jax`` with the Adam
+    moments of ``checkpoint`` zeroed) and phase 7's served checkpoint as a
+    seld_tpu file; each seld_tpu ``checkpoint`` read back through the port
+    into the same tensors, bit for bit. Returns the run directories and the
+    served file."""
+    import shutil
+
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.models.seld import model_from_config
+    from seld_tpu_torch.training import ROLES, create_train_state, load_checkpoint
+    from seld_tpu_torch.training.checkpoint import SELD_TPU, checkpoint_format
+
+    require(bool(fixture.get("fused")) and "model_dir" in fixture,
+            "phases 6 and 7 left no checkpoint fixture")
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    rel = fixture["model_dir"]
+    runs = {tag: CHECKPOINTS_DIR / tag for tag in ("port", "jax", "control")}
+    for run_dir in runs.values():
+        shutil.copytree(CHECKPOINTS_DIR / "epoch2", run_dir / rel)
+
+    # one port state takes every file in turn (a flagship build takes seconds); the
+    # model stays on the host, the dropout generator is the card's, as the files'
+    state = create_train_state(model_from_config(cfg, generator=torch.Generator().manual_seed(0)),
+                               cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def read(path):
+        np_rng = np.random.default_rng(0)
+        _, loop, sched = load_checkpoint(str(path), state, np_rng)
+        return state, loop, sched, np_rng.bit_generator.state
+
+    def snapshot():
+        return ({k: v.clone() for k, v in state.model.state_dict().items()},
+                [{k: v.clone() for k, v in state.optimizer.state.get(p, {}).items()}
+                 for p in state.model.parameters()], state.step)
+
+    t0 = time.perf_counter()
+    written = []
+    for role in ROLES.values():
+        src = runs["port"] / rel / role
+        if not src.is_file():
+            continue
+        args = read(src)
+        write_seld_tpu_checkpoint(runs["jax"] / rel / role, *args)
+        if role == ROLES["checkpoint"]:
+            write_seld_tpu_checkpoint(runs["control"] / rel / role, *args, zero_moments=True)
+            latest = snapshot()
+        else:
+            shutil.copyfile(runs["jax"] / rel / role, runs["control"] / rel / role)
+        written.append(role)
+    served = CHECKPOINTS_DIR / "served" / ROLES["checkpoint_best"]
+    served.parent.mkdir(parents=True)
+    write_seld_tpu_checkpoint(served, *read(fixture["fused"]["checkpoint"]))
+    seconds = time.perf_counter() - t0
+    require(ROLES["checkpoint"] in written, f"phase 6 left no latest checkpoint: {written}")
+
+    # the seld_tpu file through the port's reader: every tensor as the port file's
+    path = runs["jax"] / rel / ROLES["checkpoint"]
+    require(checkpoint_format(str(path)) == SELD_TPU, f"{path} is not read as a seld_tpu file")
+    read(path)
+    back = snapshot()
+    for (name, a), b in zip(latest[0].items(), back[0].values()):
+        require(torch.equal(a, b), f"{name} differs after the seld_tpu round trip")
+    n_moments, adam_steps = 0, set()
+    for s_, t_ in zip(latest[1], back[1], strict=True):
+        for key in ("exp_avg", "exp_avg_sq"):
+            require(torch.equal(s_[key], t_[key]) if key in s_ else not bool(t_[key].any()),
+                    f"Adam {key} differs after the seld_tpu round trip")
+            n_moments += 1
+        require(float(t_["step"]) == float(s_.get("step", t_["step"])), "Adam step differs")
+        adam_steps.add(float(t_["step"]))
+    require(back[2] == latest[2], f"step {back[2]} != {latest[2]}")
+    print(f"[checkpoints] {len(written) + 1} seld_tpu files written (roles {written} of "
+          f"{rel}, phase 7's {ROLES['checkpoint_best']}) in {seconds:.1f} s, "
+          f"{path.stat().st_size / 2**20:.1f} MiB each; the latest read back through the port: "
+          f"{len(latest[0])} model tensors and {n_moments} Adam moments bit for bit, step "
+          f"{back[2]}, Adam step {sorted(adam_steps)}")
+    return {"runs": runs, "served": served}
+
+
+def checkpoints_predict(torch, card: str, served: Path, fixture: dict) -> dict:
+    """The predict CLI on phase 7's clips through the fused bf16 path, with
+    phase 7's checkpoint as a seld_tpu file: CSVs equal to phase 7's bit for
+    bit. Returns the launches."""
+    import numpy as np
+
+    from seld_tpu_torch import predict
+
+    fused = fixture["fused"]
+    out_dir = CHECKPOINTS_DIR / "predict"
+    results, counts = launches_of(torch, lambda: predict.main([
+        f"--TextArgs={FLAGSHIP_CONFIG}", f"--checkpoint={served}", "--inputs",
+        *map(str, fused["clips"]), f"--out-dir={out_dir}", *fused["flags"]]))
+    require_launches("predict from the seld_tpu file", counts,
+                     {k: v * len(results) for k, v in FUSED_PER_CLIP.items()})
+    same = [Path(a["csv"]).read_bytes() == Path(b["csv"]).read_bytes()
+            for a, b in zip(results, fused["results"], strict=True)]
+    d = {k: max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(results, fused["results"]))
+         for k in ("sed", "doa")}
+    print(f"[checkpoints] predict --checkpoint=<seld_tpu file>, fused bf16, {len(results)} "
+          f"clips: CSVs equal to phase 7's port-format run {same}, rows "
+          f"{[r['events'] for r in results]}; max|d sed| {d['sed']:.3e}, max|d doa| "
+          f"{d['doa']:.3e}; launches per clip "
+          f"{ {k: v // len(results) for k, v in counts.items() if v} } ({card})")
+    require(all(same), "predict from the seld_tpu file wrote other rows than phase 7")
+    return counts
+
+
+def checkpoints_resume(torch, card: str, runs: dict, fixture: dict) -> dict:
+    """One more epoch through the train CLI from each copy of phase 6's
+    model directory, the three runs at once, under phase 6's overrides with
+    dropout off: each resumes at epoch 3 from its format, continues the
+    step counter and the schedule and launches the pallas-ct kernels in
+    every step; the seld_tpu file's train loss within RESUME_TOL of the port
+    file's, the zeroed-moments control printed beside. Returns the launches
+    of the seld_tpu run's epoch."""
+    from seld_tpu_torch.training import ROLES
+
+    rel = fixture["model_dir"]
+    steps = -(-CT_CLIPS["train"] // CT_BATCH)   # per epoch
+    base = torch.load(CHECKPOINTS_DIR / "epoch2" / ROLES["checkpoint"], map_location="cpu",
+                      weights_only=True)
+    logs = ROOT / "chip_tmp" / "train_cli_logs"
+    torch.cuda.empty_cache()
+    started = {}
+    try:
+        for tag, run_dir in runs.items():
+            started[tag] = start_train_cli(run_dir, fixture["overrides"] + RESUME_FLAGS,
+                                           3, logs / f"resume_{tag}.log")
+        texts = {tag: finish_train_cli(started[tag], 3, logs / f"resume_{tag}.log",
+                                       f"[checkpoints] {tag}:") for tag in runs}
+    finally:
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    loss, launches = {}, {}
+    for tag, run_dir in runs.items():
+        fmt = "port" if tag == "port" else "seld_tpu"
+        want_line = f"Resuming from {rel / ROLES['checkpoint']} ({fmt} checkpoint)"
+        require(want_line in texts[tag], f"{tag}: no line '{want_line}'")
+        record = json.loads((run_dir / rel / "metrics.jsonl").read_text().splitlines()[-1])
+        after = torch.load(run_dir / rel / ROLES["checkpoint"], map_location="cpu",
+                           weights_only=True)
+        require(record["epoch"] == 3 and record["step"] == base["loop_state"]["step"] + steps
+                and after["loop_state"]["epochs"] == 3
+                and after["step"] == base["step"] + steps
+                and after["sched"]["steps_taken"] == base["sched"]["steps_taken"] + 1,
+                f"{tag}: epoch {record['epoch']}, step {record['step']} / {after['step']}, "
+                f"schedule {after['sched']} after resuming from step {base['step']}, "
+                f"schedule {base['sched']}")
+        got = record["kernel_launches"]
+        want = {k: v * steps for k, v in CT_PER_STEP.items()}
+        require(all(got.get(k) == v for k, v in want.items())
+                and all(got.get(k, 0) >= steps for k in CT_AT_LEAST),
+                f"{tag}: launches {got}, want {want} and >= {steps} of {CT_AT_LEAST}")
+        loss[tag], launches[tag] = record["train_loss"], got
+    rel_d = {tag: abs(loss[tag] - loss["port"]) / abs(loss["port"]) for tag in ("jax", "control")}
+    print(f"[checkpoints] epoch 3 resumed, dropout off: train loss from the port file "
+          f"{loss['port']:.8f}, from the seld_tpu file {loss['jax']:.8f} (rel {rel_d['jax']:.3e}, "
+          f"tol {RESUME_TOL}), control with the Adam moments zeroed {loss['control']:.8f} (rel "
+          f"{rel_d['control']:.3e}, {rel_d['control'] / RESUME_TOL:.1f}x the tol); step "
+          f"{base['step']} -> {base['step'] + steps}, schedule steps "
+          f"{base['sched']['steps_taken']} -> {base['sched']['steps_taken'] + 1}; seld_tpu "
+          f"run's launches {launches['jax']} ({card})")
+    require(rel_d["jax"] <= RESUME_TOL, f"resumed train losses differ by {rel_d['jax']:.3e}")
+    return launches["jax"]
+
+
+def phase_checkpoints(torch, card: str, fixture: dict) -> dict:
+    """Phase 10, checkpoints from outside the port at the flagship's full
+    width: phase 6's and phase 7's checkpoints rewritten as seld_tpu files
+    (``write_seld_tpu_checkpoint``), served through the predict CLI and
+    resumed through the train CLI. Returns the launches of the predict run
+    and the seld_tpu resume's epoch, each kernel's own: K3's are predict's,
+    K9's F2 (counted as K3's) and K5's F2 (as K10b's) the resume's."""
+    import shutil
+
+    t0 = time.perf_counter()
+    try:
+        files = checkpoint_fixtures(torch, fixture)
+        served = checkpoints_predict(torch, card, files["served"], fixture)
+        resumed = checkpoints_resume(torch, card, files["runs"], fixture)
+    finally:
+        shutil.rmtree(CHECKPOINTS_DIR, ignore_errors=True)
+        shutil.rmtree(PREDICT_DIR, ignore_errors=True)
+    print(f"[checkpoints] phase 10 took {time.perf_counter() - t0:.1f} s ({card})")
+    total = {k: served.get(k, 0) + resumed.get(k, 0) for k in {*served, *resumed}}
+    return {**total, "conv3x3_widecin": served["conv3x3_widecin"],
+            "ct_train_fwd": resumed["conv3x3_widecin"],
+            "conv_train_fwd": resumed["conv3x3_windows"]}
+
+
 def route_only(torch, package_root: Path) -> int:
     """``--k9-route [DIR]``: the environment and k9_route_times alone, on the
     package of DIR (an unpacked ``git archive`` of another commit; default
@@ -3563,11 +3935,13 @@ def main(argv=None) -> int:
         summary = phase_kernels(torch, card)
         serving = phase_main_path(torch, card)
         training = phase_training(torch, card)
-        entry = phase_entry(torch, card)
-        predicted = phase_predict(torch, card)
+        fixture = {}   # what phases 6 and 7 leave for phase 10
+        entry = phase_entry(torch, card, fixture)
+        predicted = phase_predict(torch, card, fixture)
         variants = phase_frontend_paths(torch, card)
         configs = phase_configs(torch, card)
         k5_b1 = k5_b1_device_times(torch, card)
+        checkpoints = phase_checkpoints(torch, card, fixture)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -3579,7 +3953,8 @@ def main(argv=None) -> int:
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
              "predict": (PREDICT_KERNELS, predicted), **variants,
-             "configs": (CONFIG_KERNELS, configs)}
+             "configs": (CONFIG_KERNELS, configs),
+             "checkpoints": (CHECKPOINT_KERNELS, checkpoints)}
     extra = {"conv3x3_widecin": {"stage1_cin16": K3_CIN16_ROWS},
              "conv_train_sel_stats": {"device": k5_b1}}
     kernels = [

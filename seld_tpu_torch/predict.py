@@ -8,8 +8,10 @@ submission CSVs, with the root ``predict.py``'s surface:
 
 Inputs are .npy arrays (channels, samples) or .wav files at the configured
 sample rate; one CSV of ``[frame, class, x, y, z]`` rows per clip. The
-checkpoint is one the port's Trainer wrote (only its model state is read);
-without one the model keeps a seeded random init and a warning is printed.
+checkpoint is one that the port's Trainer or the JAX package's Trainer
+wrote, told apart by its first bytes (only its model state is read; a JAX
+file through the port's restricted reader, without JAX); without one the
+model keeps a seeded random init and a warning is printed.
 
 Serving paths (``--impl``): ``fused`` is ``serve.serve`` (K1 featurizer,
 or for a ``--phase=True`` config the magnitude + phase featurizer
@@ -64,7 +66,8 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--TextArgs", type=str, default=None)
     ap.add_argument("--checkpoint", type=str, default=None,
-                    help="a checkpoint of the port's Trainer (default: seeded random init)")
+                    help="a checkpoint of the port's or the JAX package's Trainer "
+                         "(default: seeded random init)")
     ap.add_argument("--inputs", nargs="+", required=True)
     ap.add_argument("--out-dir", type=str, default="submissions")
     ap.add_argument("--impl", type=str, default="auto", choices=["auto", "fused", "apply"])

@@ -9,6 +9,13 @@ temporary file, then ``os.replace``), so a crash leaves the old file whole.
 The trainer keeps four roles per model directory, named as the JAX trainer
 names them (reference train.py:577-616, 658-669): :data:`ROLES`. The predict
 CLI reads only a checkpoint's model state (:func:`load_model_weights`).
+
+Both loaders also read the JAX package's checkpoints, told apart by the
+file's first bytes (:func:`checkpoint_format`): a ``torch.save`` zip starts
+with ``PK\x03\x04``, a pickle with ``\x80``. A ``seld_tpu`` file goes
+through ``training/jax_checkpoint.py`` (a restricted unpickler, no JAX)
+and ``utils/jax_bridge.py::load_jax_train_state``; the port writes only its
+own format.
 """
 
 from __future__ import annotations
@@ -21,10 +28,12 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from seld_tpu_torch.training.jax_checkpoint import read_checkpoint
 from seld_tpu_torch.training.schedule import StepLRState
 from seld_tpu_torch.training.steps import TrainState
 
 FORMAT_VERSION = 1
+PORT, SELD_TPU = "port", "seld_tpu"   # the two formats of checkpoint_format
 # role -> file name: latest, best on validation, the previous best, best on test
 ROLES = {
     "checkpoint": "checkpoint",
@@ -55,18 +64,45 @@ def save_checkpoint(path: str, state: TrainState, loop_state: Dict[str, Any],
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, state: TrainState,
-                    np_rng: Optional[np.random.Generator] = None
-                    ) -> Tuple[TrainState, Dict[str, Any], Optional[StepLRState]]:
-    """Load a checkpoint into ``state`` (model, optimizer, step, generator) and
-    ``np_rng`` in place; returns (state, loop_state, sched)."""
+def checkpoint_format(path: str) -> str:
+    """:data:`PORT` for a file of :func:`save_checkpoint` (a ``torch.save``
+    zip), :data:`SELD_TPU` for one of the JAX package (a pickle); raises
+    ``ValueError`` on anything else."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return PORT
+    if head[:1] == b"\x80":
+        return SELD_TPU
+    raise ValueError(f"{path}: neither a port checkpoint (a torch.save zip) nor a seld_tpu "
+                     f"one (a pickle); it starts with {head!r}")
+
+
+def _read_port(path: str) -> Dict[str, Any]:
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if payload.get("format_version") != FORMAT_VERSION:
         raise ValueError(f"unsupported checkpoint format: {payload.get('format_version')}")
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.step = int(payload["step"])
-    state.generator.set_state(payload["generator"])
+    return payload
+
+
+def load_checkpoint(path: str, state: TrainState,
+                    np_rng: Optional[np.random.Generator] = None
+                    ) -> Tuple[TrainState, Dict[str, Any], Optional[StepLRState]]:
+    """Load a checkpoint of either format into ``state`` (model, optimizer,
+    step, generator) and ``np_rng`` in place; returns (state, loop_state,
+    sched). A ``seld_tpu`` file carries everything but the dropout
+    generator's state (``load_jax_train_state``)."""
+    if checkpoint_format(path) == SELD_TPU:
+        from seld_tpu_torch.utils.jax_bridge import load_jax_train_state
+
+        payload = read_checkpoint(path)
+        load_jax_train_state(payload["train_state"], state, source=path)
+    else:
+        payload = _read_port(path)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        state.generator.set_state(payload["generator"])
     if np_rng is not None and payload["np_rng_state"] is not None:
         np_rng.bit_generator.state = payload["np_rng_state"]
     sched = StepLRState(**payload["sched"]) if payload["sched"] is not None else None
@@ -105,13 +141,21 @@ class CheckpointMismatch(ValueError):
 
 def load_model_weights(path: str, model: torch.nn.Module) -> None:
     """Load only the model state (parameters and BN running statistics) of a
-    checkpoint into ``model``, for inference; the optimizer, generators and
-    loop state are not read. Raises :class:`CheckpointMismatch` when its
-    names or shapes differ from the model's."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if payload.get("format_version") != FORMAT_VERSION:
-        raise ValueError(f"unsupported checkpoint format: {payload.get('format_version')}")
-    state = payload["model"]
+    checkpoint of either format into ``model``, for inference; the
+    optimizer, generators and loop state are not read. Raises
+    :class:`CheckpointMismatch` when its names or shapes differ from the
+    model's (flax paths for a ``seld_tpu`` file)."""
+    if checkpoint_format(path) == SELD_TPU:
+        from seld_tpu_torch.utils.jax_bridge import from_jax_variables, variable_mismatches
+
+        tree = read_checkpoint(path)["train_state"]
+        variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+        diffs = variable_mismatches(variables, model)
+        if diffs:
+            raise CheckpointMismatch(path, diffs)
+        from_jax_variables(variables, model)
+        return
+    state = _read_port(path)["model"]
     diffs = state_shape_mismatches(model.state_dict(), state)
     if diffs:
         raise CheckpointMismatch(path, diffs)

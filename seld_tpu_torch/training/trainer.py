@@ -10,7 +10,9 @@ of the reference training script (reference train.py:207-716):
 - per-epoch validation; StepLR with its floor (train.py:570-571);
 - four checkpoint roles (``training/checkpoint.py::ROLES``): latest, best on
   validation, the previous best, best on test (train.py:577-616, 658-669),
-  and resume from the latest;
+  and resume from the latest, a file of the port or of the JAX Trainer
+  (``training/checkpoint.py::checkpoint_format``): a model directory the
+  JAX Trainer left resumes here;
 - per-epoch ``<name>_training_metrics.csv`` row and per-test
   ``<name>_test_metrics.csv`` 16-column row (train.py:620-621, 634-643);
 - a test every ``test_step`` epochs with ``test_mode='test_best'``: the
@@ -49,7 +51,7 @@ from seld_tpu_torch.metrics import (
 from seld_tpu_torch.models.seld import model_from_config
 from seld_tpu_torch.ops.kernels import launch_counts
 from seld_tpu_torch.training.checkpoint import (
-    ROLES, archive_checkpoints, load_checkpoint, save_checkpoint,
+    ROLES, archive_checkpoints, checkpoint_format, load_checkpoint, save_checkpoint,
 )
 from seld_tpu_torch.training.loss import seld_loss
 from seld_tpu_torch.training.schedule import schedule_from_config
@@ -136,9 +138,9 @@ class Trainer:
         return to(x), to(y)
 
     def _weights_of(self, path: str) -> tuple:
-        """The checkpoint at ``path`` loaded into a state that shares the
-        model (its weights are replaced) with an optimizer and generator of
-        its own; returns (state, loop_state)."""
+        """The checkpoint at ``path`` (either format) loaded into a state that
+        shares the model (its weights are replaced) with an optimizer and
+        generator of its own; returns (state, loop_state)."""
         state = TrainState(self.model, make_optimizer(self.model.parameters(), self.cfg.lr),
                            torch.Generator(device=self.device))
         state, loop, _ = load_checkpoint(path, state)
@@ -213,7 +215,7 @@ class Trainer:
 
         # auto-resume from the latest checkpoint, like train.py:467,525-528
         if os.path.isfile(ckpt):
-            self._log(f"Resuming from {ckpt}")
+            self._log(f"Resuming from {ckpt} ({checkpoint_format(ckpt)} checkpoint)")
             self.state, loop, sched = load_checkpoint(ckpt, self.state, self.np_rng)
             if sched is not None:
                 self.sched = sched

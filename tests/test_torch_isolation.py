@@ -2,9 +2,11 @@
 ``chip_smoke.py`` imports JAX or anything of the JAX package ``seld_tpu``
 (the card's host has no JAX).
 
-Two checks: every import statement, read with ``ast``; and a fresh
+Three checks: every import statement, read with ``ast``; a fresh
 interpreter that imports the port's entry points and then finds neither
-``jax`` nor ``seld_tpu`` in ``sys.modules``.
+``jax`` nor ``seld_tpu`` in ``sys.modules``; and a fresh interpreter that
+reads the repository's ``seld_tpu`` checkpoint into a port model and then
+finds none of ``jax``, ``jaxlib``, ``flax``, ``optax`` or ``seld_tpu``.
 """
 
 import ast
@@ -59,11 +61,35 @@ def test_importing_the_entry_points_loads_no_jax():
         "import seld_tpu_torch.ops.kernels.conv2d_ct_train\n"
         "import seld_tpu_torch.predict, seld_tpu_torch.ops.kernels.qmatmul\n"
         "import seld_tpu_torch.ops.kernels.quant, seld_tpu_torch.profile_stages\n"
+        "import seld_tpu_torch.training.jax_checkpoint, seld_tpu_torch.utils.torch_import\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(' '.join(bad))\n"
     )
     proc = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"loaded: {proc.stdout.strip()}"
+
+
+def test_reading_a_seld_tpu_checkpoint_loads_no_jax():
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "from seld_tpu_torch.config import SELDConfig\n"
+        "from seld_tpu_torch.models.seld import model_from_config\n"
+        "from seld_tpu_torch.training.checkpoint import load_model_weights\n"
+        "cfg = SELDConfig(domain='Q', input_channels=8, freq_dim=16, time_dim=16,\n"
+        "                 cnn_filters=[8, 8, 8], pool_size=[[2, 2], [2, 2], [2, 2]], D=[2],\n"
+        "                 G=8, U=8, V=[16, 16], fc_layers=[16], use_bias_conv=False,\n"
+        "                 pool_time='TCN', attention_impl='full')\n"
+        "load_model_weights(sys.argv[2], model_from_config(cfg))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(' '.join(bad))\n"
+    )
+    ckpt = (ROOT / "RESULTS_Original" / "Task2" / "seldnet_augmented"
+            / "QSELD-TCN-PHI-S1_BN_RF5_2RB" / "checkpoint_best_model")
+    proc = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT), str(ckpt)],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"loaded: {proc.stdout.strip()}"
