@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship serving and training paths, its
 training and predict entry points, its front-end variants and per-stage
-profiler, the shipped magnitude + phase configs, and checkpoints written
-by the JAX package, once on one NVIDIA GPU.
+profiler, the shipped magnitude + phase configs, checkpoints written by the
+JAX package, and training from a ``.seldpak`` file and across processes,
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -173,7 +174,23 @@ Phases, each printing its own lines:
    off): "Resuming from" in each format, the step count and the schedule
    continued, the pallas-ct kernels in every step, and the rewritten file's
    train loss within RESUME_TOL of the port file's, the control's distance
-   printed beside; the JSON's ``checkpoints`` path.
+   printed beside; the JSON's ``checkpoints`` path;
+11. training from a ``.seldpak`` file and across processes: (a) phase 6's
+   six pickles packed by the port's ``pack_dataset`` and every tensor read
+   back bit for bit, the C++ gather against its numpy plain version on
+   shuffled batches, both timed; (b) the train CLI one epoch from the file
+   (pallas-ct, bf16, batch 8), its losses within PAK_LOSS_TOL of phase 6's
+   first epoch from the pickles, its launches as phase 6's; (c) two ranks
+   (``--dp-rank``, two processes on the one card over gloo: NCCL takes one
+   rank a device; also over nccl where two cards are visible) of two float32
+   pallas-ct steps at a global batch of 4, 2 a rank, with K5's and K9's F1 /
+   B1 sums and the TCN's BN statistics all-reduced: both ranks' losses and
+   averaged gradients bit for bit alike, each rank's K5 / K9 launches and
+   all-reduces printed and checked, and the loss and every parameter's
+   gradient at each step no further from the float64 plain path than
+   max(TRAIN_GRAD_TOL, CONTROL_FACTOR x) one process's float32 step at
+   batch 4 (phase 5a's measure); the JSON's ``training entry, .seldpak``
+   and ``two ranks, pallas-ct f32`` paths.
 
 Every torch.profiler capture goes through
 ``seld_tpu_torch.utils.profiling.device_events``: a capture whose first or
@@ -181,6 +198,11 @@ last kernel is not one of its bracket kernels is taken again with twice the
 leading brackets (the profiler left out the first kernels of every capture
 for stretches of some runs), at most CAPTURE_TRIES times; the count taken
 again is printed before the kernels' line.
+
+``python3 chip_smoke.py --parallel`` runs phases 1 and 2, a one-epoch
+stand-in for phase 6 and phase 11 alone; on a host with several cards
+phase 11 adds its nccl legs: (c) one rank a card, and (d) the train CLI
+as one nccl rank a card from the .seldpak beside one process.
 
 ``python3 chip_smoke.py --k9-route [DIR]`` runs phase 1 and phase 3's K9
 B1 / g_z timing alone (``k9_route_times``) on the package of DIR, an
@@ -453,6 +475,23 @@ CHECKPOINT_KERNELS = {name: KERNELS[name] for name in (
     *SERVING_KERNELS, *TRAINING_KERNELS, *CT_TRAIN_KERNELS)}
 RESUME_TOL = 1e-4   # relative: epoch 3's train loss resumed from the seld_tpu file vs the port's
 RESUME_FLAGS = ["--dropout_perc=0", "--spatial_dropout_rate=0"]
+# phase 11: training from a .seldpak file and across processes. Phase 6's dataset
+# packed into one container (under CHECKPOINTS_DIR, removed at the end); the
+# train CLI from it; then DP_RANKS ranks of one float32 pallas-ct step on the
+# card (gloo: NCCL takes one rank a device) at a global batch of DP_BATCH
+DP_RANKS, DP_BATCH, DP_STEPS = 2, 4, 2
+DP_TIMEOUT_S = 600
+PAK_LOSS_TOL = 1e-2   # relative: epoch 1's losses from the .seldpak vs phase 6's from pickles
+PAK_GATHER_BATCHES = 20   # timed C++ / numpy gathers of CT_BATCH clips
+# the float32 pallas-ct step's kernels: K5's passes (F2 on K2's kernel,
+# conv3x3_smallcin), K9's (F2 counted as conv3x3_widecin), K4 and K6
+PARALLEL_KERNELS = {name: KERNELS[name] for name in (
+    "conv_train_stats", "conv3x3_smallcin", "conv_train_sel_stats", "conv_train_gz",
+    "conv_train_dw", *CT_TRAIN_KERNELS, "flash_attn_fwd", "flash_attn_bwd")}
+# the all-reduces of one rank's step: K5's F1 and B1 sums, K9's at stages 2-3, the
+# TCN's 30 BatchNorms (10 ResBlocks x 3) forward and backward, the gradients once
+DP_REDUCES_PER_STEP = {"K5 F1": 1, "K5 B1": 1, "K9 F1": 2, "K9 B1": 2, "BN": 30,
+                       "BN grad": 30, "grads": 1}
 
 
 PTXAS = {}   # kernel -> ptxas' registers, shared memory and spills (phase 2)
@@ -2325,7 +2364,7 @@ def take_bn_statistics_in_float64(torch, model) -> None:
 
     from seld_tpu_torch.models.layers import BN_EPS, BatchNorm
 
-    def forward(self, x, train=False):
+    def forward(self, x, train=False, cross_rank=None):
         if not train:
             return BatchNorm.forward(self, x, train)
         axes = tuple(range(x.ndim - 1))
@@ -2608,15 +2647,17 @@ def phase_training(torch, card: str) -> dict:
     return counts
 
 
-def start_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path):
+def start_train_cli(run_dir: Path, overrides: list, max_epochs: int, log: Path,
+                    env: dict | None = None):
     """Start ``python -m seld_tpu_torch.train`` on the flagship config in
-    ``run_dir``, its output going to ``log``; returns (process, command,
-    start time) for :func:`finish_train_cli`."""
+    ``run_dir`` with ``env`` added to the environment, its output going to
+    ``log``; returns (process, command, start time) for
+    :func:`finish_train_cli`."""
     import os
 
     cmd = [sys.executable, "-m", "seld_tpu_torch.train", f"--TextArgs={FLAGSHIP_CONFIG}",
            *overrides, f"--max_epochs={max_epochs}"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), **(env or {})}
     log.parent.mkdir(parents=True, exist_ok=True)
     with open(log, "w") as f:
         f.write(" ".join(cmd) + "\n")
@@ -2701,7 +2742,8 @@ def phase_entry(torch, card: str, fixture: dict) -> dict:
                    .splitlines()]
         # the model directory after two epochs, for phase 10's resumes
         shutil.copytree(model_dir, CHECKPOINTS_DIR / "epoch2")
-        fixture.update(overrides=overrides, model_dir=model_dir.relative_to(run_dir))
+        fixture.update(overrides=overrides, model_dir=model_dir.relative_to(run_dir),
+                       data_paths=paths, epoch1=records[0])
         second = run_train_cli(run_dir, overrides, 3, logs / "run2.log")
         require("Resuming from" in second, "the second run did not resume")
         records2 = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
@@ -3872,14 +3914,409 @@ def phase_checkpoints(torch, card: str, fixture: dict) -> dict:
         files = checkpoint_fixtures(torch, fixture)
         served = checkpoints_predict(torch, card, files["served"], fixture)
         resumed = checkpoints_resume(torch, card, files["runs"], fixture)
-    finally:
-        shutil.rmtree(CHECKPOINTS_DIR, ignore_errors=True)
+    finally:   # phase 6's dataset stays for phase 11
+        for child in CHECKPOINTS_DIR.glob("*"):
+            if child.name != "data":
+                shutil.rmtree(child, ignore_errors=True)
         shutil.rmtree(PREDICT_DIR, ignore_errors=True)
     print(f"[checkpoints] phase 10 took {time.perf_counter() - t0:.1f} s ({card})")
     total = {k: served.get(k, 0) + resumed.get(k, 0) for k in {*served, *resumed}}
     return {**total, "conv3x3_widecin": served["conv3x3_widecin"],
             "ct_train_fwd": resumed["conv3x3_widecin"],
             "conv_train_fwd": resumed["conv3x3_windows"]}
+
+
+# ---------------------------------------------------------------- phase 11
+def dp_model(torch, dev, dtype, frontend: str, attention: str):
+    """Phase 11's model: the flagship at full width from seed 0 (the same
+    weights in every process), dropout off, in ``dtype`` on ``dev``."""
+    from seld_tpu_torch.serve import build_flagship
+
+    model = build_flagship(str(FLAGSHIP_CONFIG), torch.float32, dev,
+                           torch.Generator().manual_seed(0)).to(dtype)
+    set_dropout(model, 0.0)
+    model.seld_block.frontend_impl, model.seld_block.tcn.attention.impl = frontend, attention
+    return model
+
+
+def dp_batch():
+    """Phase 11's global batch (numpy, the same in every process)."""
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import make_task2_batch
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    return make_task2_batch(np.random.default_rng(11), DP_BATCH, channels=CHANNELS,
+                            freq=cfg.freq_dim, time_frames=4800, label_frames=600)
+
+
+def dp_steps(torch, model, x, y, mesh=None) -> dict:
+    """DP_STEPS float32 train steps (``make_train_step(cfg, mesh)``) of
+    ``model`` on (x, y): the losses, each step's gradients (averaged over the
+    ranks under ``mesh``; float64 on the host), the launches and the times."""
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from seld_tpu_torch.training import create_train_state, make_train_step
+
+    cfg = load_config(str(FLAGSHIP_CONFIG)).replace(
+        compute_dtype="float32", dropout_perc=0.0, spatial_dropout_rate=0.0)
+    state = create_train_state(model, cfg, torch.Generator(device=x.device).manual_seed(1))
+    step = make_train_step(cfg, mesh)
+    losses, grads, times = [], [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        grads.append({n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    return {"losses": losses, "grads": grads, "launches": dict(launch_counts),
+            "ms": [1e3 * t for t in times]}
+
+
+def dp_rank(torch, rank: int, port: int, out: Path, backend: str) -> int:
+    """``chip_smoke.py --dp-rank RANK PORT OUT BACKEND``: one rank of phase
+    11's step, on CUDA device RANK modulo the visible ones; its losses,
+    gradients, launches and all-reduces to ``out`` (torch.save)."""
+    sys.path.insert(0, str(ROOT))
+    import seld_tpu_torch
+    from seld_tpu_torch.parallel import make_mesh, multihost, shard_batch
+
+    seld_tpu_torch.disable_tf32()
+    multihost.initialize(f"localhost:{port}", DP_RANKS, rank, backend=backend, device="cuda",
+                         timeout_s=DP_TIMEOUT_S)
+    dev = multihost.local_device()
+    mesh = make_mesh(-1)
+    x, y = shard_batch(mesh, *dp_batch(), device=dev)
+    run = dp_steps(torch, dp_model(torch, dev, torch.float32, "ct", "flash"), x, y, mesh)
+    run.update(rank=rank, device=str(dev), rows=x.shape[0], backend=backend,
+               reduces=dict(mesh.cross_rank.counts))
+    multihost.barrier("phase 11 steps")
+    torch.save(run, out)
+    print(json.dumps({k: run[k] for k in ("rank", "device", "rows", "losses", "ms",
+                                          "launches", "reduces")}))
+    multihost.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def pak_container(torch, card: str, fixture: dict) -> Path:
+    """(a) Phase 6's six pickles packed into one .seldpak by the port's
+    ``pack_dataset``; every split read back bit for bit; the C++ gather
+    against its numpy plain version on shuffled batches, both timed."""
+    import pickle
+
+    import numpy as np
+
+    from seld_tpu_torch.config import SELDConfig
+    from seld_tpu_torch.data.native import PakReader, build_library, pack_dataset
+
+    t0 = time.perf_counter()
+    lib = build_library()
+    build_s = time.perf_counter() - t0
+    paths = fixture["data_paths"]
+    cfg = SELDConfig(training_predictors_path=paths["train"][0],
+                     training_target_path=paths["train"][1],
+                     validation_predictors_path=paths["validation"][0],
+                     validation_target_path=paths["validation"][1],
+                     test_predictors_path=paths["test"][0], test_target_path=paths["test"][1])
+    pak = CHECKPOINTS_DIR / "data" / "task2.seldpak"
+    t0 = time.perf_counter()
+    pack_dataset(cfg, str(pak))
+    pack_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    with PakReader(str(pak)) as reader:
+        for split, (xi, yi) in zip(("train", "validation", "test"), PakReader.SPLITS.values()):
+            for i, path in zip((xi, yi), paths[split]):
+                with open(path, "rb") as f:
+                    want = np.asarray(pickle.load(f), dtype=np.float32)
+                require(np.array_equal(reader.tensor(i), want),
+                        f".seldpak tensor {i} ({split}) differs from {path}")
+        n = reader.shape(0)[0]
+        batches = [rng.permutation(n)[:CT_BATCH] for _ in range(PAK_GATHER_BATCHES)]
+        times = {"C++": [], "numpy": []}
+        for idx in batches:
+            for tag, fn in (("C++", reader.gather), ("numpy", reader.gather_plain)):
+                t0 = time.perf_counter()
+                got = fn(0, idx)
+                times[tag].append(time.perf_counter() - t0)
+            require(np.array_equal(reader.gather(0, idx), reader.gather_plain(0, idx)),
+                    f"the C++ gather differs from numpy at rows {idx.tolist()}")
+        row_bytes = 4 * int(np.prod(reader.shape(0)[1:]))
+    ms = {tag: 1e3 * statistics.median(v) for tag, v in times.items()}
+    gbs = {tag: CT_BATCH * row_bytes / (v / 1e3) / 1e9 for tag, v in ms.items()}
+    print(f"[parallel] (a) {pak.relative_to(ROOT)}: {pak.stat().st_size / 2**20:.1f} MiB packed "
+          f"in {pack_s:.2f} s (reader built in {build_s:.2f} s, {lib.name}); six tensors read "
+          f"back bit for bit; the C++ gather equals numpy's on {PAK_GATHER_BATCHES} shuffled "
+          f"batches of {CT_BATCH} clips: median {ms['C++']:.2f} ms ({gbs['C++']:.2f} GB/s) "
+          f"against numpy's {ms['numpy']:.2f} ms ({gbs['numpy']:.2f} GB/s), page cache warm "
+          f"(host of {card})")
+    return pak
+
+
+def pak_train_cli(torch, card: str, pak: Path, fixture: dict) -> dict:
+    """(b) The train CLI from the .seldpak file: phase 6's run (pallas-ct,
+    bf16, batch CT_BATCH) for one epoch; its losses beside phase 6's first
+    epoch from the pickles. Returns the epoch's launches."""
+    import shutil
+
+    import numpy as np
+
+    run_dir = ROOT / "chip_tmp" / "pak_cli"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    overrides = [o for o in fixture["overrides"] if not o.startswith("--training_predictors")]
+    overrides.append(f"--training_predictors_path={pak}")
+    try:
+        run_train_cli(run_dir, overrides, 1, ROOT / "chip_tmp" / "train_cli_logs" / "pak.log")
+        records = [json.loads(line) for line in next(
+            (run_dir / "RESULTS_Original").glob("Task2/*/*/metrics.jsonl")).read_text()
+            .splitlines()]
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    require(len(records) == 1, f"epochs logged: {records}")
+    got, want = records[0], fixture["epoch1"]
+    steps = CT_CLIPS["train"] // CT_BATCH
+    launches = got["kernel_launches"]
+    require(all(launches.get(k) == v * steps for k, v in CT_PER_STEP.items()),
+            f".seldpak epoch launches {launches}")
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("train_loss", "val_loss")}
+    print(f"[parallel] (b) train CLI from the .seldpak, pallas-ct bf16 batch {CT_BATCH}, one "
+          f"epoch ({steps} steps): train loss {got['train_loss']:.6f}, val {got['val_loss']:.6f}; "
+          f"phase 6 from the pickles: train {want['train_loss']:.6f}, val "
+          f"{want['val_loss']:.6f} (rel {rel['train_loss']:.2e} / {rel['val_loss']:.2e}, tol "
+          f"{PAK_LOSS_TOL}); launches {launches} ({card})")
+    require(all(np.isfinite(got[k]) for k in rel) and max(rel.values()) <= PAK_LOSS_TOL,
+            f"losses from the .seldpak differ from the pickles' by {rel}")
+    return launches
+
+
+def dp_two_ranks(torch, card: str, backend: str) -> dict:
+    """(c) DP_RANKS processes, one float32 pallas-ct step each at DP_BATCH /
+    DP_RANKS rows, DP_STEPS steps; against one process at DP_BATCH and the
+    plain path in float64 (phase 5a's measure). Returns rank 0's launches."""
+    import shutil
+
+    import numpy as np
+
+    out_dir = ROOT / "chip_tmp" / f"dp_{backend}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    port = free_port()
+    logs = [out_dir / f"rank{r}.log" for r in range(DP_RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DP_RANKS):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r), str(port),
+                     str(out_dir / f"rank{r}.pt"), backend],
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"{backend} rank {r} failed ({p.returncode}):\n"
+                f"{log.read_text()[-3000:]}")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for run in ranks:
+        print(f"[parallel] (c) {backend} rank {run['rank']} on {run['device']}, {run['rows']} "
+              f"rows: losses {[round(v, 8) for v in run['losses']]}, step ms "
+              f"{[round(v, 1) for v in run['ms']]}; K5 "
+              f"{ {k: v for k, v in run['launches'].items() if k.startswith('conv_train')} }, "
+              f"K9 { {k: v for k, v in run['launches'].items() if k.startswith('ct_train')} }, "
+              f"all-reduces {run['reduces']}")
+        require(all(run["launches"].get(k, 0) > 0 for k in
+                    (COUNTED_AS.get(n, n) for n in PARALLEL_KERNELS)),
+                f"{backend} rank {run['rank']}: a kernel never ran: {run['launches']}")
+        want = {k: v * DP_STEPS for k, v in DP_REDUCES_PER_STEP.items()}
+        require(run["reduces"] == want, f"{backend} rank {run['rank']}: all-reduces "
+                f"{run['reduces']}, want {want}")
+        require(run["losses"] == ranks[0]["losses"]
+                and all(torch.equal(a[n], b[n]) for a, b in zip(run["grads"], ranks[0]["grads"])
+                        for n in a), f"{backend}: rank {run['rank']}'s averaged step differs "
+                "from rank 0's")
+
+    # one process at the global batch: float32 pallas-ct, and the plain path in float64
+    dev = torch.device("cuda")
+    x, y = (torch.from_numpy(a).to(dev) for a in dp_batch())
+    ref = {}
+    for tag, dt, frontend, attention in (("one f32", torch.float32, "ct", "flash"),
+                                         ("f64", torch.float64, "xla", "full")):
+        torch.cuda.reset_peak_memory_stats()
+        model = dp_model(torch, dev, dt, frontend, attention)
+        ref[tag] = dp_steps(torch, model, x.to(dt), y.to(dt))
+        ref[tag]["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        del model
+        torch.cuda.empty_cache()
+    two, one, f64 = ranks[0], ref["one f32"], ref["f64"]
+
+    def rel(run, i):
+        return {n: ((run["grads"][i][n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                for n, g in f64["grads"][i].items()}
+
+    over = []
+    for i in range(DP_STEPS):
+        d2, d1 = rel(two, i), rel(one, i)
+        l2, l1 = (abs(r["losses"][i] - f64["losses"][i]) / abs(f64["losses"][i])
+                  for r in (two, one))
+        worst = max(d2, key=lambda n: d2[n] / max(TRAIN_GRAD_TOL, CONTROL_FACTOR * d1[n]))
+        print(f"[parallel] (c) step {i + 1} from float64: loss {DP_RANKS} ranks {l2:.3e}, one "
+              f"process {l1:.3e}; gradients {DP_RANKS} ranks worst {max(d2.values()):.3e} / "
+              f"median {statistics.median(d2.values()):.3e}, one process worst "
+              f"{max(d1.values()):.3e} / median {statistics.median(d1.values()):.3e}; nearest "
+              f"its bound: {worst} {d2[worst]:.3e} (one process {d1[worst]:.3e})")
+        over += [(i + 1, n, d2[n], d1[n]) for n in d2
+                 if d2[n] > max(TRAIN_GRAD_TOL, CONTROL_FACTOR * d1[n])]
+        if l2 > max(TRAIN_LOSS_TOL, CONTROL_FACTOR * l1):
+            over.append((i + 1, "loss", l2, l1))
+    cards = len({run["device"] for run in ranks})
+    print(f"[parallel] (c) {DP_RANKS} ranks over {backend} on {cards} card(s) in {wall:.1f} s "
+          f"(processes started, kernels loaded, {DP_STEPS} steps); one process at batch "
+          f"{DP_BATCH}: float32 pallas-ct step ms {[round(v, 1) for v in one['ms']]}, peak "
+          f"{one['peak']:.2f} GiB; float64 plain peak {f64['peak']:.2f} GiB ({card})")
+    require(not over, f"{DP_RANKS}-rank step further from float64 than max({TRAIN_GRAD_TOL}, "
+            f"{CONTROL_FACTOR} x one process's): {over[:8]}")
+    return two["launches"]
+
+
+def cli_ranks(torch, card: str, pak: Path, fixture: dict) -> None:
+    """(d), where more than one card is visible: the train CLI from the
+    .seldpak as one nccl rank a card (the ``JAX_*`` variables) beside one
+    process at the same global batch, one epoch, all at once: every rank
+    logs the same lines, rank 0 alone writes the files; the one process's
+    numbers printed beside (bf16, so not gated)."""
+    import shutil
+
+    n = torch.cuda.device_count()
+    runs = ROOT / "chip_tmp" / "cli_ranks"
+    shutil.rmtree(runs, ignore_errors=True)
+    overrides = [o for o in fixture["overrides"] if not o.startswith("--training_predictors")]
+    overrides.append(f"--training_predictors_path={pak}")
+    port = free_port()
+    started = []
+    try:
+        for r in range(n + 1):   # n ranks, then one process
+            run_dir = runs / ("one" if r == n else "ranks")
+            run_dir.mkdir(parents=True, exist_ok=True)
+            env = {} if r == n else {"JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
+                                     "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(r)}
+            started.append(start_train_cli(run_dir, overrides, 1, runs / f"cli{r}.log", env))
+        texts = [finish_train_cli(proc, 1, runs / f"cli{r}.log",
+                                  f"[parallel] (d) {'rank ' + str(r) if r < n else 'one'}:")
+                 for r, proc in enumerate(started)]
+    finally:
+        for proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    keep = ("epoch ", "TEST epoch", "train_loss ", "val_loss ", "test_loss ")
+    logged = [[line.split(" (")[0] for line in t.splitlines() if line.startswith(keep)]
+              for t in texts]
+    writes = sorted(p.name for p in (runs / "ranks" / "RESULTS_Original").glob("Task2/*/*/*"))
+    records = [len(p.read_text().splitlines())
+               for p in (runs / "ranks" / "RESULTS_Original").glob("Task2/*/*/metrics.jsonl")]
+    shutil.rmtree(runs, ignore_errors=True)
+    print(f"[parallel] (d) train CLI as {n} nccl ranks, one a card: every rank logs alike "
+          f"{all(lines == logged[0] for lines in logged[:n])}; files {writes} ({card})")
+    require(all(lines == logged[0] for lines in logged[:n]), "the ranks logged apart")
+    require(records == [1], f"metrics.jsonl lines per model directory: {records} (one "
+            "epoch, rank 0 alone writes)")
+
+
+def parallel_fixture(torch, card: str) -> dict:
+    """``--parallel``'s stand-in for phase 6: its synthetic dataset and the
+    CLI's first epoch from the pickles, in the fixture phase 11 reads."""
+    import shutil
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import gen_fake_task2_dataset
+
+    cfg = load_config(str(FLAGSHIP_CONFIG))
+    shutil.rmtree(CHECKPOINTS_DIR, ignore_errors=True)
+    paths = gen_fake_task2_dataset(
+        str(CHECKPOINTS_DIR / "data"), n_train=CT_CLIPS["train"], n_val=CT_CLIPS["validation"],
+        n_test=CT_CLIPS["test"], channels=CHANNELS, freq=cfg.freq_dim, time_frames=4800,
+        label_frames=600, sed_rate=CT_SED_RATE)
+    flags = {"training": "train", "validation": "validation", "test": "test"}
+    overrides = [f"--{k}_{kind}_path={paths[split][i]}" for k, split in flags.items()
+                 for i, kind in enumerate(("predictors", "target"))]
+    overrides += ["--results_path=results", "--frontend_impl=pallas-ct",
+                  "--compute_dtype=bfloat16", f"--batch_size={CT_BATCH}", "--test_step=1",
+                  "--checkpoint_step=1"]
+    run_dir = ROOT / "chip_tmp" / "train_cli"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    try:
+        run_train_cli(run_dir, overrides, 1, ROOT / "chip_tmp" / "train_cli_logs" / "run1.log")
+        record = json.loads(next((run_dir / "RESULTS_Original").glob(
+            "Task2/*/*/metrics.jsonl")).read_text().splitlines()[0])
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return {"overrides": overrides, "data_paths": paths, "epoch1": record}
+
+
+def phase_parallel(torch, card: str, fixture: dict) -> dict:
+    """Phase 11: training from a .seldpak container and across processes
+    ((a) pack and read, (b) the train CLI from the file, (c) two ranks of one
+    float32 pallas-ct step on the card; where more than one card is visible,
+    (c) over nccl too, one rank a card, and (d) the CLI as one nccl rank a
+    card). Returns rank 0's launches in (c), and (b)'s under the key 'pak'."""
+    import shutil
+
+    t0 = time.perf_counter()
+    try:
+        pak = pak_container(torch, card, fixture)
+        pak_launches = pak_train_cli(torch, card, pak, fixture)
+        launches = dp_two_ranks(torch, card, "gloo")
+        if torch.cuda.device_count() >= DP_RANKS:
+            dp_two_ranks(torch, card, "nccl")
+            cli_ranks(torch, card, pak, fixture)
+        else:
+            print(f"[parallel] (c) nccl not run: {torch.cuda.device_count()} card visible, and "
+                  "NCCL takes one rank a device")
+    finally:
+        shutil.rmtree(CHECKPOINTS_DIR, ignore_errors=True)
+    print(f"[parallel] phase 11 took {time.perf_counter() - t0:.1f} s ({card})")
+    return {**launches, "pak": pak_launches}
+
+
+def parallel_only(torch) -> int:
+    """``--parallel``: phases 1 and 2, a one-epoch stand-in for phase 6, and
+    phase 11 (on several cards: its nccl legs), without the others."""
+    sys.path.insert(0, str(ROOT))
+    import seld_tpu_torch
+
+    seld_tpu_torch.disable_tf32()
+    try:
+        card = phase_environment(torch)
+        phase_build()
+        phase_parallel(torch, card, parallel_fixture(torch, card))
+    except SmokeFailure as e:
+        print(f"FAIL: {e}")
+        return 1
+    print(card)
+    return 0
+
 
 
 def route_only(torch, package_root: Path) -> int:
@@ -3919,8 +4356,12 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == ["--k9-route"]:
         return route_only(torch, Path(argv[1]).resolve() if len(argv) > 1 else ROOT)
+    if argv[:1] == ["--dp-rank"] and len(argv) == 5:   # one of phase 11's ranks
+        return dp_rank(torch, int(argv[1]), int(argv[2]), Path(argv[3]), argv[4])
+    if argv == ["--parallel"]:
+        return parallel_only(torch)
     if argv:
-        print(f"FAIL: unknown arguments {argv}; run with none, or --k9-route [DIR]")
+        print(f"FAIL: unknown arguments {argv}; run with none, --parallel or --k9-route [DIR]")
         return 1
     if not (ROOT / "seld_tpu_torch" / "__init__.py").is_file() or not FLAGSHIP_CONFIG.is_file():
         print(f"FAIL: {ROOT} holds no seld_tpu_torch checkout")
@@ -3942,6 +4383,7 @@ def main(argv=None) -> int:
         configs = phase_configs(torch, card)
         k5_b1 = k5_b1_device_times(torch, card)
         checkpoints = phase_checkpoints(torch, card, fixture)
+        parallel = phase_parallel(torch, card, fixture)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -3954,7 +4396,9 @@ def main(argv=None) -> int:
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
              "predict": (PREDICT_KERNELS, predicted), **variants,
              "configs": (CONFIG_KERNELS, configs),
-             "checkpoints": (CHECKPOINT_KERNELS, checkpoints)}
+             "checkpoints": (CHECKPOINT_KERNELS, checkpoints),
+             "training entry, .seldpak": (CT_TRAIN_KERNELS, parallel.pop("pak")),
+             "two ranks, pallas-ct f32": (PARALLEL_KERNELS, parallel)}
     extra = {"conv3x3_widecin": {"stage1_cin16": K3_CIN16_ROWS},
              "conv_train_sel_stats": {"device": k5_b1}}
     kernels = [

@@ -13,8 +13,10 @@ the JAX package (``tests/test_torch_isolation.py``). Layout mirrors
   ``fused_infer`` serving
 - ``training``         — loss, StepLR, train / eval / infer steps, checkpoints;
   ``training.trainer`` the epoch loop
-- ``data``             — seeded synthetic Task-2 sets, the pickle loader,
-  normalization
+- ``data``             — seeded synthetic Task-2 sets, the pickle and
+  ``.seldpak`` loaders (``data.native``: the C++ reader), normalization
+- ``parallel``         — data parallelism, one process a device: multihost,
+  the data mesh, the cross-rank batch statistics, the per-rank-BN step
 - ``metrics``          — the L3DAS21 and DCASE21 metrics and the decode
 - ``utils``            — JAX variables tree <-> port state_dict, CSV rows,
   step timing, model summary

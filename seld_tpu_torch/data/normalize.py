@@ -1,8 +1,11 @@
 """Dataset normalization modes.
 
-The port's own copy of ``seld_tpu/data/normalize.py`` (``normalize_dataset``,
-``dq_unitnorm``, the z-score modes; numpy only). It reimplements the
-reference trainer's normalization block (reference ``train.py:241-424``):
+The port's own copy of ``seld_tpu/data/normalize.py`` (numpy only):
+``normalize_dataset`` for splits held in memory, and for the ``.seldpak``
+loader's batches ``compute_norm_stats`` (each split's statistics streamed
+once out of its memory map) with ``make_batch_transform`` (the same
+normalization, one gathered batch at a time). It reimplements the reference
+trainer's normalization block (reference ``train.py:241-424``):
 
 - ``'UnitNorm'`` family (``DQ_Normalization``/``UnitNormNormalization``/
   ``UnitNorm``): dual-quaternion Gram-Schmidt on the first 8 magnitude
@@ -18,7 +21,7 @@ reference trainer's normalization block (reference ``train.py:241-424``):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -47,6 +50,74 @@ def _zscore_inplace(x: np.ndarray, sl: slice) -> None:
     std = np.std(x[:, sl])
     x[:, sl] -= mean
     x[:, sl] /= std
+
+
+def compute_norm_stats(x: np.ndarray, mode: str = "True", n_mics: int = 1,
+                       phase: bool = False, domain: str = "DQ") -> Optional[Dict[str, float]]:
+    """One split's statistics for :func:`make_batch_transform`: for z-score
+    the split-global mean / std of each channel group, summed in float64
+    (the reference's whole-split statistics, train.py:344-408), streamed
+    from ``x`` (a memory-mapped view is read a chunk of rows at a time).
+    UnitNorm and 'off' need none (None)."""
+    if mode in _OFF:
+        return None
+    if mode in _DQ_MODES and n_mics == 2 and domain in _DQ_DOMAINS:
+        if phase:
+            raise ValueError(
+                "DATASET NORMALIZATION FOR PHASE DUAL QUATERNION NOT YET IMPLEMENTED"
+            )
+        return None
+    n_mag = 4 * n_mics
+    mm, ms = _streaming_mean_std(x, 0, n_mag)
+    stats = {"mag_mean": mm, "mag_std": ms}
+    if phase:
+        stats["phase_mean"], stats["phase_std"] = _streaming_mean_std(x, n_mag, x.shape[1])
+    return stats
+
+
+def _streaming_mean_std(x, c0: int, c1: int, rows_per_chunk: int = 16):
+    """Split-global mean / std of x[:, c0:c1] from float64 sums and sums of
+    squares over chunks of rows, so that peak memory is about one chunk.
+    Population std (ddof 0), as :func:`normalize_dataset`'s np.std; the
+    reference's torch.std is ddof 1, a < 1e-8 relative difference at split
+    scale (reference train.py:344-408)."""
+    n, total, sq = 0, 0.0, 0.0
+    for i in range(0, x.shape[0], rows_per_chunk):
+        c = np.asarray(x[i:i + rows_per_chunk, c0:c1], dtype=np.float64)
+        n += c.size
+        total += float(c.sum())
+        sq += float(np.square(c).sum())
+    mean = total / n
+    return float(mean), float(np.sqrt(max(sq / n - mean * mean, 0.0)))
+
+
+def make_batch_transform(mode: str = "True", n_mics: int = 1, phase: bool = False,
+                         domain: str = "DQ", stats: Optional[Dict[str, float]] = None):
+    """``fn(batch) -> batch``: :func:`normalize_dataset`'s normalization of
+    one freshly gathered batch. UnitNorm is per sample; z-score takes the
+    split statistics of :func:`compute_norm_stats`."""
+    if mode in _OFF:
+        return lambda x: x
+    if mode in _DQ_MODES and n_mics == 2 and domain in _DQ_DOMAINS:
+        if phase:
+            raise ValueError(
+                "DATASET NORMALIZATION FOR PHASE DUAL QUATERNION NOT YET IMPLEMENTED"
+            )
+        return dq_unitnorm
+    if stats is None:
+        raise ValueError("the z-score transform needs the split's compute_norm_stats()")
+    n_mag = 4 * n_mics
+
+    def transform(x: np.ndarray) -> np.ndarray:
+        x = np.array(x, copy=True, dtype=np.float64)
+        x[:, :n_mag] -= stats["mag_mean"]
+        x[:, :n_mag] /= stats["mag_std"]
+        if phase:
+            x[:, n_mag:] -= stats["phase_mean"]
+            x[:, n_mag:] /= stats["phase_std"]
+        return x.astype(np.float32)
+
+    return transform
 
 
 def normalize_dataset(

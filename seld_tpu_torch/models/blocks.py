@@ -16,7 +16,10 @@ with ``frontend_impl='ct'`` every CNN stage runs a kernel op in the (B, C, F,
 T) layout, K5 for stage 0 and K9 (``ops/kernels/conv2d_ct_train.py``) for
 the stages after it (``ConvTCBlock._ct_train_ok``); neither kernel route takes
 a trunk with the SE block, which trains on the plain stages, as the JAX
-package's does. ``qconv_impl`` ('xla',
+package's does. ``cross_rank`` (``parallel/cross_rank.py``), under data
+parallelism, reaches every train-mode BatchNorm, K5, K9 and dropout of the
+trunk: their batch statistics are the global batch's, their masks its rows.
+``qconv_impl`` ('xla',
 'pallas', 'int8') reaches every conv, as in the JAX package; only the
 pointwise ones (each ResBlock's skip and res) take it (``layers.py``).
 """
@@ -102,12 +105,14 @@ class ResBlock(nn.Module):
         self.conv_res = make_conv(domain, G, L, 1, 1, **conv)
         self.spatial_dropout = SpatialDropout1D(spatial_dropout_rate)
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        h = torch.tanh(self.bn_pre(x, train)) if self.use_bn else x
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
+        h = torch.tanh(self.bn_pre(x, train, cross_rank)) if self.use_bn else x
         y_f, y_g = self.conv_filter(h), self.conv_gate(h)
         if self.use_bn:
-            y_f, y_g = self.bn_filter(y_f, train), self.bn_gate(y_g, train)
-        y = self.spatial_dropout(torch.tanh(y_f) * torch.sigmoid(y_g), train, generator)
+            y_f, y_g = self.bn_filter(y_f, train, cross_rank), self.bn_gate(y_g, train, cross_rank)
+        y = self.spatial_dropout(torch.tanh(y_f) * torch.sigmoid(y_g), train, generator,
+                                 cross_rank)
         return h + self.conv_res(y), self.conv_skip(y)
 
 
@@ -140,10 +145,11 @@ class TCBlock(nn.Module):
     def _pool(self, x, i):
         return max_pool_time(x, int(self.pool_size[i][1])) if self.pool_time == "TCN" else x
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
         skip_sum = None
         for idx in range(self.n_blocks):
-            x, skip = getattr(self, f"resblock_{idx}")(x, train, generator)
+            x, skip = getattr(self, f"resblock_{idx}")(x, train, generator, cross_rank)
             skip_sum = skip if skip_sum is None else skip_sum + skip
         out = self.conv1(self._pool(torch.relu(skip_sum), 0))
         out = self.attention(out, out, out)
@@ -221,14 +227,16 @@ class ConvTCBlock(nn.Module):
             warnings.warn(f"{msg}: the plain stages run", stacklevel=3)
         return ok
 
-    def _frontend_ct_train(self, x, generator):
+    def _frontend_ct_train(self, x, generator, cross_rank=None):
         """Train-mode CNN front-end in the (B, C, F, T) layout: stage 0
         through the K5 op (``out_layout='CT'``), the later stages through the
         K9 op, dropout after each stage (drawn on the (B, C, F, T) tensor, so
         its masks differ from the channel-last stages' for the same
         generator). Each stage's BN running statistics update with
-        n = B * F * T of its conv output. Returns (B, C', F', T)."""
+        n = B * F * T of its conv output (every rank's rows with
+        ``cross_rank``). Returns (B, C', F', T)."""
         b, f_cur, t, _ = x.shape
+        ranks = cross_rank.world if cross_rank is not None else 1
         h = None
         for i in range(self.n_stages):
             pf = self.pools[i][0]
@@ -236,13 +244,14 @@ class ConvTCBlock(nn.Module):
             w = getattr(self, f"cnn_{i}").dense_kernel().to(x.dtype)
             if i == 0:
                 h, mean, var = conv2d_train.conv2d_bn_relu_fpool_train(
-                    x, w, bn.scale, bn.bias, pf, BN_EPS, out_layout="CT")
+                    x, w, bn.scale, bn.bias, pf, BN_EPS, out_layout="CT",
+                    cross_rank=cross_rank)
             else:
                 h, mean, var = conv2d_ct_train.conv2d_ct_bn_relu_fpool_train(
-                    h, w, bn.scale, bn.bias, pf, BN_EPS)
-            bn.update_running(mean, var, b * f_cur * t)
+                    h, w, bn.scale, bn.bias, pf, BN_EPS, cross_rank=cross_rank)
+            bn.update_running(mean, var, ranks * b * f_cur * t)
             f_cur //= pf
-            h = self.dropout(h, True, generator)
+            h = self.dropout(h, True, generator, cross_rank)
         return h
 
     def _fused_train_ok(self, x, pool) -> bool:
@@ -269,33 +278,36 @@ class ConvTCBlock(nn.Module):
             warnings.warn(f"{msg}: the plain stage runs", stacklevel=3)
         return ok
 
-    def _stage0_fused_train(self, x, pool):
+    def _stage0_fused_train(self, x, pool, cross_rank=None):
         """Train-mode stage 0 through the K5 op; updates cnn_bn_0's running
-        statistics with n = B * F * T (the conv output before the pool)."""
+        statistics with n = B * F * T (the conv output before the pool; every
+        rank's rows with ``cross_rank``)."""
         bn = self.cnn_bn_0
         w = self.cnn_0.dense_kernel().to(x.dtype)
         out, mean, var = conv2d_train.conv2d_bn_relu_fpool_train(
-            x, w, bn.scale, bn.bias, pool[0], BN_EPS)
-        bn.update_running(mean, var, x.shape[0] * x.shape[1] * x.shape[2])
+            x, w, bn.scale, bn.bias, pool[0], BN_EPS, cross_rank=cross_rank)
+        ranks = cross_rank.world if cross_rank is not None else 1
+        bn.update_running(mean, var, ranks * x.shape[0] * x.shape[1] * x.shape[2])
         return out
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
         if train and self._ct_train_ok(x):
-            h = self._frontend_ct_train(x, generator)             # (B, C, F', T)
+            h = self._frontend_ct_train(x, generator, cross_rank)   # (B, C, F', T)
             b, c, f, t = h.shape
             x = h.permute(0, 3, 1, 2).reshape(b, t, c * f)
-            return self.tcn(x, train, generator)
+            return self.tcn(x, train, generator, cross_rank)
         for i in range(self.n_stages):
             if i == 0 and train and self._fused_train_ok(x, self.pools[0]):
-                x = self._stage0_fused_train(x, self.pools[0])
+                x = self._stage0_fused_train(x, self.pools[0], cross_rank)
             else:
                 x = getattr(self, f"cnn_{i}")(x)
                 if self.use_bn:
-                    x = getattr(self, f"cnn_bn_{i}")(x, train)
+                    x = getattr(self, f"cnn_bn_{i}")(x, train, cross_rank)
                 x = max_pool_2d(torch.relu(x), self.pools[i])
                 if self.use_se_block:
                     x = getattr(self, f"se_{i}")(x)
-            x = self.dropout(x, train, generator)
+            x = self.dropout(x, train, generator, cross_rank)
         b, f, t, c = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, c * f)
-        return self.tcn(x, train, generator)
+        return self.tcn(x, train, generator, cross_rank)

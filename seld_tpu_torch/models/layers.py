@@ -243,7 +243,10 @@ class BatchNorm(nn.Module):
     (``train=True``, ``seld_tpu/models/layers.py::BatchNorm``) normalizes with
     the biased batch variance, E[x^2] - E[x]^2 in float32 (float64 for
     float64 input), and updates the running statistics in place with
-    retention 0.9, the variance with torch's unbiased ``var * n / (n - 1)``."""
+    retention 0.9, the variance with torch's unbiased ``var * n / (n - 1)``.
+    With a ``cross_rank`` hook (``parallel/cross_rank.py``) the statistics
+    are the global batch's: the sum and the sum of squares are summed over
+    the ranks (their gradient too), and n counts every rank's rows."""
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -266,13 +269,21 @@ class BatchNorm(nn.Module):
         self.mean.copy_(keep * self.mean + (1 - keep) * mean.to(rdt))
         self.var.copy_(keep * self.var + (1 - keep) * var.to(rdt) * (n / max(n - 1, 1)))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, cross_rank=None):
         if train:
             axes = tuple(range(x.ndim - 1))
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xs.mean(axes)
-            var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
-            self.update_running(mean, var, x.numel() // x.shape[-1])
+            n = x.numel() // x.shape[-1]
+            if cross_rank is None:
+                mean = xs.mean(axes)
+                var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+            else:
+                sums = cross_rank.sum_differentiable(
+                    torch.stack([xs.sum(axes), (xs * xs).sum(axes)]), "BN")
+                n *= cross_rank.world
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+            self.update_running(mean, var, n)
             mul = torch.rsqrt(var + BN_EPS) * self.scale.to(xs.dtype)
             return ((xs - mean) * mul + self.bias.to(xs.dtype)).to(x.dtype)
         # flax _normalize's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
@@ -282,10 +293,14 @@ class BatchNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator], broadcast_dims: Sequence[int] = ()):
+            generator: Optional[torch.Generator], broadcast_dims: Sequence[int] = (),
+            cross_rank=None):
     """flax ``nn.Dropout``: in train mode keep each element with probability
     1 - rate and scale it by 1 / (1 - rate); the mask has size 1 along
-    ``broadcast_dims``. Draws from ``generator`` (on x's device)."""
+    ``broadcast_dims``. Draws from ``generator`` (on x's device). With a
+    ``cross_rank`` hook x is this rank's rows of a global batch: the mask is
+    drawn at the global batch and this rank takes its rows, so ranks whose
+    generators agree draw what one process would at the global batch."""
     if not train or rate == 0.0:
         return x
     if rate >= 1.0:
@@ -294,7 +309,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         raise ValueError("train-mode dropout needs a torch.Generator")
     shape = [1 if d in broadcast_dims else n for d, n in enumerate(x.shape)]
     keep = 1.0 - rate
+    if cross_rank is not None:
+        shape[0] *= cross_rank.world
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if cross_rank is not None:
+        mask = mask[cross_rank.rows(x.shape[0])]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -305,8 +324,9 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        return dropout(x, self.rate, train, generator)
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
+        return dropout(x, self.rate, train, generator, cross_rank=cross_rank)
 
 
 class SpatialDropout1D(Dropout):
@@ -314,8 +334,10 @@ class SpatialDropout1D(Dropout):
     (``seld_tpu/models/layers.py::SpatialDropout1D``): a dropped channel is
     dropped across all of time."""
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        return dropout(x, self.rate, train, generator, broadcast_dims=(1,))
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
+        return dropout(x, self.rate, train, generator, broadcast_dims=(1,),
+                       cross_rank=cross_rank)
 
 
 def max_pool_time(x: torch.Tensor, pool: int) -> torch.Tensor:

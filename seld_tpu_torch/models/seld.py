@@ -157,7 +157,7 @@ class SELDModel(nn.Module):
 
     def head(self, h: torch.Tensor, prefix: str, train: bool = False,
              generator: Optional[torch.Generator] = None,
-             qconv_impl: Optional[str] = None) -> torch.Tensor:
+             qconv_impl: Optional[str] = None, cross_rank=None) -> torch.Tensor:
         """FC stack and output layer of one head, before its activation; in
         train mode dropout after every FC layer (``fc_dropout`` 'all') or
         after the stack ('last'). ``qconv_impl`` overrides the FC layers'
@@ -168,18 +168,23 @@ class SELDModel(nn.Module):
             if self.fc_activations in _RELU:
                 y = torch.relu(y)
             if self.fc_dropout in _FC_DROPOUT_ALL:
-                y = self.dropout(y, train, generator)
+                y = self.dropout(y, train, generator, cross_rank)
         if self.fc_dropout in _FC_DROPOUT_LAST:
-            y = self.dropout(y, train, generator)
+            y = self.dropout(y, train, generator, cross_rank)
         return getattr(self, f"{prefix}_out")(y)
 
-    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        """x (B, C, F, T) -> (sed, doa) in x's dtype promoted to >= float32."""
-        h = torch.cat([trunk(part.permute(0, 2, 3, 1), train, generator)
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None,
+                cross_rank=None):
+        """x (B, C, F, T) -> (sed, doa) in x's dtype promoted to >= float32.
+        ``cross_rank`` (train mode under data parallelism,
+        ``parallel/cross_rank.py``): x is this rank's rows of a global batch,
+        and every batch statistic and dropout mask is the global batch's."""
+        h = torch.cat([trunk(part.permute(0, 2, 3, 1), train, generator, cross_rank)
                        for trunk, part in zip(self.trunks, self.split_channels(x))], dim=-1)
         dt = torch.promote_types(h.dtype, torch.float32)
-        sed = torch.sigmoid(self.head(h, "sed", train, generator).to(dt))
-        doa = torch.tanh(self.head(h, "doa", train, generator).to(dt))
+        sed = torch.sigmoid(self.head(h, "sed", train, generator,
+                                      cross_rank=cross_rank).to(dt))
+        doa = torch.tanh(self.head(h, "doa", train, generator, cross_rank=cross_rank).to(dt))
         return sed, doa
 
 

@@ -347,13 +347,18 @@ def conv2d_ct_bn_relu_fpool_train_plain(h, w, gamma, beta, pool_f: int, eps: flo
 
 
 class _ConvCTTrainFn(torch.autograd.Function):
-    """(h (B, C, F, T), w, gamma, beta) -> (out (B, Cout, F/pf, T), mean, var)."""
+    """(h (B, C, F, T), w, gamma, beta) -> (out (B, Cout, F/pf, T), mean, var).
+    With a ``cross_rank`` hook (data parallelism) F1's and B1's sums are summed
+    over the ranks between the passes, and n counts every rank's rows."""
 
     @staticmethod
-    def forward(ctx, h, w, gamma, beta, pool_f, eps):
+    def forward(ctx, h, w, gamma, beta, pool_f, eps, cross_rank):
         cout = w.shape[3]
         n = h.shape[0] * h.shape[2] * h.shape[3]
         sums, pre = ct_train_stats(h, w, pool_f)
+        if cross_rank is not None:   # the statistics formed once, from every rank's sums
+            sums = cross_rank.sum(sums, "K9 F1")
+            n *= cross_rank.world
         mean = sums[:cout] / n
         var = torch.clamp(sums[cout:] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -365,7 +370,7 @@ class _ConvCTTrainFn(torch.autograd.Function):
         else:
             out = conv_train_fwd_plain(h, w, scale, bias, pool_f)
         ctx.save_for_backward(h, w, pre, mean, inv, scale, bias)
-        ctx.pool_f, ctx.n = pool_f, n
+        ctx.pool_f, ctx.n, ctx.cross_rank = pool_f, n, cross_rank
         ctx.param_dtypes = (gamma.dtype, beta.dtype)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
@@ -377,21 +382,29 @@ class _ConvCTTrainFn(torch.autograd.Function):
         g = g_out.to(h.dtype).contiguous()
         zero = torch.zeros_like(scale)
         sel = ct_sel_stats(pre, g, torch.stack([scale, bias, mean, inv, zero, zero]), pf)
-        sg, sgx = sel[:cout], sel[cout:]
-        gz = ct_gz(pre, g, torch.stack([scale, bias, mean, inv, sg / n, sgx / n]), pf)
+        sg, sgx = sel[:cout], sel[cout:]   # dbeta, dgamma: this rank's share
+        # g_z's correction terms: the global batch's sums
+        tot = ctx.cross_rank.sum(sel, "K9 B1") if ctx.cross_rank is not None else sel
+        gz = ct_gz(pre, g, torch.stack([scale, bias, mean, inv, tot[:cout] / n,
+                                        tot[cout:] / n]), pf)
         dw = ct_dw(h, gz)
         dh = ct_dx(gz, w) if ctx.needs_input_grad[0] else None
         g_dt, b_dt = ctx.param_dtypes
-        return dh, dw.to(w.dtype), sgx.to(g_dt), sg.to(b_dt), None, None
+        return dh, dw.to(w.dtype), sgx.to(g_dt), sg.to(b_dt), None, None, None
 
 
 def conv2d_ct_bn_relu_fpool_train(h: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
-                                  beta: torch.Tensor, pool_f: int, eps: float = 1e-5):
+                                  beta: torch.Tensor, pool_f: int, eps: float = 1e-5,
+                                  cross_rank=None):
     """h (B, C, F, T) with C % 8 == 0, w (3, 3, C, Cout) in h's dtype,
     gamma / beta (Cout,) -> (out (B, Cout, F/pf, T) in h's dtype, mean
     (Cout,), var (Cout,)).
 
     Differentiable in h, w, gamma and beta; mean and var are the biased
-    batch statistics for the caller's running-average update."""
+    batch statistics for the caller's running-average update. ``cross_rank``
+    (``parallel/cross_rank.py``): h is this rank's rows of a global batch, and
+    the statistics are the global batch's; dh, dW, dgamma and dbeta stay this
+    rank's share of the gradient of the ranks' summed losses."""
     _check(h, w, pool_f)
-    return _ConvCTTrainFn.apply(h.contiguous(), w.contiguous(), gamma, beta, pool_f, eps)
+    return _ConvCTTrainFn.apply(h.contiguous(), w.contiguous(), gamma, beta, pool_f, eps,
+                                cross_rank)

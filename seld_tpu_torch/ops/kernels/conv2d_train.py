@@ -395,18 +395,24 @@ def conv2d_bn_relu_fpool_train_plain(x, w, gamma, beta, pool_f: int, eps: float 
 
 
 class _ConvTrainFn(torch.autograd.Function):
-    """(x (B, Cin, F, T), w, gamma, beta) -> (out (B, Cout, F/pf, T), mean, var)."""
+    """(x (B, Cin, F, T), w, gamma, beta) -> (out (B, Cout, F/pf, T), mean, var).
+    With a ``cross_rank`` hook (data parallelism) F1's and B1's sums are summed
+    over the ranks between the passes, and n counts every rank's rows."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, pool_f, eps):
+    def forward(ctx, x, w, gamma, beta, pool_f, eps, cross_rank):
         cout = w.shape[3]
         n = x.shape[0] * x.shape[2] * x.shape[3]
         sums = conv_train_stats(x, w, pool_f)
         # the batch statistics and the BN affine in float64 from F1's sums,
         # each column rounded once where a kernel takes it: stage 1's affine
         # is where a float32 step is most sensitive (an ulp of its bias moves
-        # every gradient by ~1e-3 at the flagship's size)
+        # every gradient by ~1e-3 at the flagship's size); across ranks the
+        # float64 copies are summed, so the statistics are formed once from them
         s64 = sums.double()
+        if cross_rank is not None:
+            s64 = cross_rank.sum(s64, "K5 F1")
+            n *= cross_rank.world
         mean = s64[:cout] / n
         var = torch.clamp(s64[cout:] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -419,7 +425,7 @@ class _ConvTrainFn(torch.autograd.Function):
         else:
             out = conv_train_fwd_plain(x, w, scale, bias, pool_f)
         ctx.save_for_backward(x, w, out, mean, inv, scale, bias)
-        ctx.pool_f, ctx.n = pool_f, n
+        ctx.pool_f, ctx.n, ctx.cross_rank = pool_f, n, cross_rank
         ctx.param_dtypes = (gamma.dtype, beta.dtype)
         mean_out, var_out = mean.to(sums.dtype), var.to(sums.dtype)
         ctx.mark_non_differentiable(mean_out, var_out)
@@ -438,6 +444,8 @@ class _ConvTrainFn(torch.autograd.Function):
         p = torch.where(zero, torch.zeros_like(scale), inv / safe)
         q = torch.where(zero, torch.zeros_like(scale), (bias / safe + mean) * inv)
         sel = sel_stats(out, g, p, q)
+        if ctx.cross_rank is not None:   # the correction terms of the global batch
+            sel = ctx.cross_rank.sum(sel, "K5 B1")
         c1, c2 = sel[:cout] / n, sel[cout:] / n
         a = inv * scale * c2
         b = scale * c1 - mean * a
@@ -448,12 +456,12 @@ class _ConvTrainFn(torch.autograd.Function):
         sg, sga = sums[:cout], sums[cout:]
         dgamma = inv * (sga - mean * sg)
         g_dt, b_dt = ctx.param_dtypes
-        return None, dw.to(w.dtype).contiguous(), dgamma.to(g_dt), sg.to(b_dt), None, None
+        return None, dw.to(w.dtype).contiguous(), dgamma.to(g_dt), sg.to(b_dt), None, None, None
 
 
 def conv2d_bn_relu_fpool_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                                beta: torch.Tensor, pool_f: int, eps: float = 1e-5,
-                               out_layout: str = "channel_last"):
+                               out_layout: str = "channel_last", cross_rank=None):
     """x (B, F, T, Cin) with 3 * Cin <= 32, w (3, 3, Cin, Cout) in x's dtype,
     gamma / beta (Cout,) -> (out (B, F/pf, T, Cout) in x's dtype, mean
     (Cout,), var (Cout,)); pool_f <= :func:`max_pool_f` (Cin).
@@ -461,9 +469,14 @@ def conv2d_bn_relu_fpool_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Te
     Differentiable in w, gamma and beta (not x); mean and var are the biased
     batch statistics for the caller's running-average update. out is a
     channel-last view of the kernels' (B, Cout, F/pf, T) result, or that
-    result itself with ``out_layout='CT'`` (the layout stages 2-3 take)."""
+    result itself with ``out_layout='CT'`` (the layout stages 2-3 take).
+    ``cross_rank`` (``parallel/cross_rank.py``): x is this rank's rows of a
+    global batch, and the statistics (mean and var too) are the global
+    batch's; dW, dgamma and dbeta stay this rank's share of the gradient of
+    the ranks' summed losses."""
     if out_layout not in ("channel_last", "CT"):
         raise ValueError(f"out_layout {out_layout!r} not in ('channel_last', 'CT')")
     xc = x.permute(0, 3, 1, 2).contiguous()
-    out, mean, var = _ConvTrainFn.apply(xc, w.contiguous(), gamma, beta, pool_f, eps)
+    out, mean, var = _ConvTrainFn.apply(xc, w.contiguous(), gamma, beta, pool_f, eps,
+                                        cross_rank)
     return (out if out_layout == "CT" else out.permute(0, 2, 3, 1)), mean, var

@@ -20,6 +20,19 @@ microbatches, run in order: BN normalizes per microbatch with running
 statistics chained through them, dropout draws fresh masks for each, and
 the gradients are averaged into one update (a batch that does not divide
 runs as one).
+
+Under data parallelism (``make_train_step(cfg, mesh)`` with a data axis of
+more than one rank, ``parallel/mesh.py``) each rank passes its rows of the
+global batch and the step is the one-process step at the global batch, as
+GSPMD makes the JAX Trainer's: every batch statistic is summed over the
+ranks (the mesh's ``cross_rank`` hook reaches K5, K9 and every BatchNorm),
+each dropout mask is this rank's rows of the mask one process would draw at
+the global batch (the ranks' generators agree), and after the backward the
+gradients and the loss are averaged over the ranks in one all-reduce before
+``optimizer.step()``. With accumulation, microbatch i of the global batch
+is every rank's i-th share of its rows. A batch passed with
+``sharded=False`` (the whole global batch on every rank,
+``multihost.global_batch``'s remainder) runs as one process would run it.
 """
 
 from __future__ import annotations
@@ -73,35 +86,60 @@ def _input(cfg, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" else x
 
 
-def make_train_step(cfg):
-    """Returns ``train_step(state, x, y) -> (state, loss)``; x (B, C, F, T),
-    y (B, T', 4 * classes * overlaps). The loss is a detached 0-d tensor (the
-    mean over microbatches when accumulating)."""
+def average_over_ranks(params, loss: torch.Tensor, cross_rank) -> torch.Tensor:
+    """Average every gradient of ``params`` and ``loss`` over the ranks of
+    ``cross_rank`` in one all-reduce of a flat buffer; returns the averaged
+    loss. Every rank's parameters must have gradients alike."""
+    grads = [p.grad for p in params if p.grad is not None]
+    dtype = grads[0].dtype if grads else loss.dtype
+    flat = torch.cat([g.reshape(-1).to(dtype) for g in grads]
+                     + [loss.reshape(1).to(dtype)])
+    flat = cross_rank.sum(flat, "grads") / cross_rank.world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1].to(loss.dtype)
+
+
+def make_train_step(cfg, mesh=None):
+    """Returns ``train_step(state, x, y, sharded=True) -> (state, loss)``; x
+    (B, C, F, T), y (B, T', 4 * classes * overlaps). The loss is a detached
+    0-d tensor (the mean over microbatches when accumulating). With a
+    ``mesh`` of more than one rank, x and y are this rank's rows of the
+    global batch (``sharded``) or the whole global batch (``sharded=False``),
+    and the loss is the global batch's."""
     if cfg.compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in {_COMPUTE_DTYPES}")
     if cfg.compute_dtype == "float32":
         disable_tf32()
     accum = max(int(getattr(cfg, "grad_accum_steps", 1) or 1), 1)
     loss_of = _loss_fn(cfg)
+    cross_rank = mesh.cross_rank if mesh is not None else None
 
-    def forward_backward(state: TrainState, x, y) -> torch.Tensor:
-        sed, doa = state.model(_input(cfg, x), train=True, generator=state.generator)
+    def forward_backward(state: TrainState, x, y, hook) -> torch.Tensor:
+        sed, doa = state.model(_input(cfg, x), train=True, generator=state.generator,
+                               cross_rank=hook)
         loss = loss_of(sed, doa, y)
         loss.backward()
         return loss.detach()
 
-    def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+    def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor,
+                   sharded: bool = True):
+        hook = cross_rank if sharded else None
         state.optimizer.zero_grad(set_to_none=True)
         b = x.shape[0]
         if accum > 1 and b % accum == 0:
-            losses = [forward_backward(state, xi, yi)
+            losses = [forward_backward(state, xi, yi, hook)
                       for xi, yi in zip(x.chunk(accum), y.chunk(accum))]
             for p in state.model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
             loss = torch.stack(losses).mean()
         else:
-            loss = forward_backward(state, x, y)
+            loss = forward_backward(state, x, y, hook)
+        if cross_rank is not None:
+            loss = average_over_ranks(state.model.parameters(), loss, cross_rank)
         state.optimizer.step()
         state.step += 1
         return state, loss

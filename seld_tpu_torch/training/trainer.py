@@ -4,7 +4,10 @@ periodic metric testing.
 The port's counterpart of ``seld_tpu/training/trainer.py``, itself a mirror
 of the reference training script (reference train.py:207-716):
 
-- dataset load (6-pickle layout) + normalization (train.py:226-424);
+- dataset load + normalization (train.py:226-424): the six pickles, or a
+  ``.seldpak`` container (``training_predictors_path`` ending in
+  ``.seldpak``), whose batches the C++ reader gathers out of its memory map
+  and which are normalized one at a time from statistics streamed once;
 - the epoch loop with early stopping: run while ``worse_epochs < patience or
   epoch < min_n_epochs`` (train.py:538), ``max_epochs`` a hard cap;
 - per-epoch validation; StepLR with its floor (train.py:570-571);
@@ -27,8 +30,15 @@ many times each kernel wrapper launched during that epoch's train steps
 (``ops/kernels.launch_counts``; empty on the CPU).
 
 One process trains on one device: ``device`` defaults to "cuda" and raises
-without a card; the tests pass ``device="cpu"``. The mesh and multihost
-paths of the JAX trainer are not ported (ROADMAP, "Parallel").
+without a card; the tests pass ``device="cpu"``. Under a process group
+(``parallel/multihost.initialize``) the ranks form the data axis
+(``mesh_data`` -1, or the world size; ``mesh_model > 1`` raises): every
+loader yields this rank's rows of each global batch (the training loader
+drops its remainder), the step computes the global batch's statistics and
+averages the gradients (``training/steps.py``), the validation loss is the
+global batch's, the metric pass runs on every rank's rows gathered onto each,
+so every rank logs the same numbers, and rank 0 alone writes the files while
+the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -43,13 +53,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from seld_tpu_torch.data.loader import BatchIterator, load_task2_pickles, make_loaders
-from seld_tpu_torch.data.normalize import normalize_dataset
+from seld_tpu_torch.data.loader import (
+    BatchIterator, load_task2_pickles, make_loaders, make_pak_loaders,
+)
+from seld_tpu_torch.data.normalize import (
+    compute_norm_stats, make_batch_transform, normalize_dataset,
+)
 from seld_tpu_torch.metrics import (
     SELDMetrics, gen_submission_list_task2, location_sensitive_detection, segment_labels,
 )
 from seld_tpu_torch.models.seld import model_from_config
 from seld_tpu_torch.ops.kernels import launch_counts
+from seld_tpu_torch.parallel import multihost
+from seld_tpu_torch.parallel.mesh import make_mesh
 from seld_tpu_torch.training.checkpoint import (
     ROLES, archive_checkpoints, checkpoint_format, load_checkpoint, save_checkpoint,
 )
@@ -81,15 +97,15 @@ def evaluate_test_outputs(sed: np.ndarray, doa: np.ndarray, target: np.ndarray,
 
 class Trainer:
     """Config-driven trainer (the ``python -m seld_tpu_torch.train
-    --TextArgs=...`` engine) on one device."""
+    --TextArgs=...`` engine) on one device a process."""
 
     def __init__(self, cfg, verbose: bool = True, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
-        if cfg.mesh_model > 1 or cfg.mesh_data > 1:
-            raise NotImplementedError("Trainer: mesh_data / mesh_model > 1 (data and model "
-                                      "parallel training) is not ported yet")
+        self.rank, self.n_hosts = multihost.process_info()
+        mesh = make_mesh(cfg.mesh_data, max(1, cfg.mesh_model))
+        self.mesh = mesh if mesh.n_data > 1 else None
         self.cfg = cfg
         self.verbose = verbose
         self.np_rng = np.random.default_rng(1 if cfg.fixed_seed else None)
@@ -102,11 +118,29 @@ class Trainer:
     # ------------------------------------------------------------------ setup
     def setup_data(self):
         cfg = self.cfg
-        predictors, targets = load_task2_pickles(cfg)
-        predictors = normalize_dataset(predictors, mode=cfg.dataset_normalization,
-                                       n_mics=cfg.n_mics, phase=cfg.phase, domain=cfg.domain)
-        self.loaders = make_loaders(predictors, targets, cfg.batch_size, seed=1)
-        self.n_time_frames = predictors["test"].shape[-1]
+        shard = dict(num_shards=self.n_hosts, shard_id=self.rank)
+        norm = dict(mode=cfg.dataset_normalization, n_mics=cfg.n_mics, phase=cfg.phase,
+                    domain=cfg.domain)
+        if str(cfg.training_predictors_path).endswith(".seldpak"):
+            # the splits stay in the memory map: each batch is gathered by the
+            # C++ reader and normalized from its split's statistics, streamed once
+            from seld_tpu_torch.data.native import PakReader
+
+            self._pak_reader = reader = PakReader(cfg.training_predictors_path)
+            transforms = {split: make_batch_transform(
+                stats=compute_norm_stats(reader.split(split)[0], **norm), **norm)
+                for split in ("train", "val", "test")}
+            self.loaders = make_pak_loaders(reader, cfg.batch_size, seed=1,
+                                            transforms=transforms, **shard)
+            test_shape = reader.shape(reader.SPLITS["test"][0])
+        else:
+            predictors, targets = load_task2_pickles(cfg)
+            predictors = normalize_dataset(predictors, **norm)
+            self.loaders = make_loaders(predictors, targets, cfg.batch_size, seed=1, **shard)
+            test_shape = predictors["test"].shape
+        if self.mesh is not None:
+            self.loaders["train"].drop_last = True
+        self.n_time_frames = test_shape[-1]
 
     def setup_model(self, seed: int = 0):
         """The model from the config, with weights drawn from a CPU generator
@@ -119,7 +153,11 @@ class Trainer:
                                        generator=torch.Generator().manual_seed(seed))
         self.state = create_train_state(
             self.model, cfg, torch.Generator(device=self.device).manual_seed(seed))
-        self.train_step = make_train_step(cfg)
+        if self.mesh is not None:   # every rank starts from rank 0's weights
+            from seld_tpu_torch.parallel.dp_step import replicate_state
+
+            replicate_state(self.state, self.mesh)
+        self.train_step = make_train_step(cfg, self.mesh)
         self.infer_step = make_infer_step(cfg)
         self.sched = schedule_from_config(cfg)
         self.n_params = sum(p.numel() for p in self.model.parameters())
@@ -134,8 +172,21 @@ class Trainer:
 
     # ------------------------------------------------------------- primitives
     def _device_batch(self, x, y):
+        """(x, y, sharded): this rank's rows on the device, or under a mesh
+        the whole global batch where it does not split (``sharded`` False;
+        ``multihost.global_batch``)."""
+        if self.mesh is not None:
+            (x, y), sharded = multihost.global_batch(
+                self.mesh, np.asarray(x, np.float32), np.asarray(y, np.float32),
+                device=self.device)
+            return x, y, sharded
         to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
-        return to(x), to(y)
+        return to(x), to(y), True
+
+    def _sync(self, name: str) -> None:
+        """Under a mesh, wait for rank 0's writes before anyone reads them."""
+        if self.mesh is not None:
+            multihost.barrier(name)
 
     def _weights_of(self, path: str) -> tuple:
         """The checkpoint at ``path`` (either format) loaded into a state that
@@ -151,11 +202,16 @@ class Trainer:
         cfg = self.cfg
         losses = []
         for x, y in loader:
-            x, y = self._device_batch(x, y)
+            x, y, _ = self._device_batch(x, y)
             sed, doa = self.infer_step(self.model, x)
             loss = seld_loss(sed, doa, y, output_classes=cfg.output_classes,
                              class_overlaps=int(cfg.class_overlaps),
                              sed_weight=cfg.sed_loss_weight, doa_weight=cfg.doa_loss_weight)
+            if self.mesh is not None:   # the global batch's: the ranks' losses by rows
+                n = x.shape[0]
+                tot = self.mesh.cross_rank.sum(torch.tensor(
+                    [float(loss) * n, n], dtype=torch.float64, device=self.device), "eval")
+                loss = tot[0] / tot[1]
             losses.append(float(loss))
         return float(np.mean(losses)) if losses else float("nan")
 
@@ -166,8 +222,12 @@ class Trainer:
         eval_metrics = SELDMetrics(nb_classes=cfg.output_classes,
                                    doa_threshold=cfg.Dcase21_metrics_DOA_threshold)
         for x, y in loader:
-            xb, _ = self._device_batch(x, y)
+            xb, _, sharded = self._device_batch(x, y)
             sed, doa = (a.float().cpu().numpy() for a in self.infer_step(self.model, xb))
+            if self.mesh is not None:   # every rank scores the global batch alike
+                if sharded:
+                    sed, doa = multihost.allgather_rows(sed), multihost.allgather_rows(doa)
+                y = multihost.allgather_rows(np.asarray(y))
             for b in range(sed.shape[0]):
                 tp, fp, fn = evaluate_test_outputs(sed[b], doa[b], np.asarray(y[b]),
                                                    eval_metrics, cfg)
@@ -237,9 +297,9 @@ class Trainer:
             launches0 = dict(launch_counts)
             batch_losses = []
             for x, y in self.loaders["train"]:
-                x, y = self._device_batch(x, y)
+                x, y, sharded = self._device_batch(x, y)
                 with step_timer:
-                    self.state, loss = self.train_step(self.state, x, y)
+                    self.state, loss = self.train_step(self.state, x, y, sharded)
                 batch_losses.append(loss)
                 loop["step"] += 1
             launches = {k: v - launches0[k] for k, v in launch_counts.items() if v > launches0[k]}
@@ -250,9 +310,10 @@ class Trainer:
             val_hist.append(val_loss)
             self._log(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
                       f"({time.time() - t0:.1f}s)")
-            metrics_log.log(loop["step"], epoch=epoch, train_loss=train_loss,
-                            val_loss=val_loss, lr=lr, **step_timer.summary(),
-                            kernel_launches=launches)
+            if self.rank == 0:
+                metrics_log.log(loop["step"], epoch=epoch, train_loss=train_loss,
+                                val_loss=val_loss, lr=lr, **step_timer.summary(),
+                                kernel_launches=launches)
 
             # early-stopping bookkeeping + 4-role checkpointing (train.py:588-616)
             if val_loss >= loop["best_loss"]:
@@ -261,21 +322,27 @@ class Trainer:
                 if new_best:
                     best_loss_checkpoint = loop["best_loss"]
                     best_epoch_checkpoint = loop["best_epoch"]
-                    if os.path.exists(ckpt_best):
+                    if self.rank == 0 and os.path.exists(ckpt_best):
                         shutil.copyfile(ckpt_best, ckpt_best_backup)
                 self._log("MODEL IMPROVED ON VALIDATION SET!")
                 loop["worse_epochs"] = 0
                 loop["best_loss"] = val_loss
                 loop["best_epoch"] = epoch
                 new_best = True
-                save_checkpoint(ckpt_best, self.state, loop, self.sched, self.np_rng)
+                if self.rank == 0:
+                    save_checkpoint(ckpt_best, self.state, loop, self.sched, self.np_rng)
             if val_loss < best_loss_checkpoint and (
                     val_loss != loop["best_loss"] or best_loss_checkpoint == float("inf")):
                 best_loss_checkpoint = val_loss
                 best_epoch_checkpoint = epoch
-                save_checkpoint(ckpt_best_backup, self.state, loop, self.sched, self.np_rng)
-            save_checkpoint(ckpt, self.state, loop, self.sched, self.np_rng)
-            save_array_to_csv(f"{unique_name}_training_metrics.csv", [epoch, train_loss, val_loss])
+                if self.rank == 0:
+                    save_checkpoint(ckpt_best_backup, self.state, loop, self.sched,
+                                    self.np_rng)
+            if self.rank == 0:
+                save_checkpoint(ckpt, self.state, loop, self.sched, self.np_rng)
+                save_array_to_csv(f"{unique_name}_training_metrics.csv",
+                                  [epoch, train_loss, val_loss])
+            self._sync(f"checkpoints of epoch {epoch}")
 
             # periodic test (train.py:628-674)
             if epoch % cfg.test_step == 0:
@@ -290,22 +357,25 @@ class Trainer:
                 else:
                     test_epoch = epoch
                 results_row = self.evaluate_test(self.loaders["test"], epoch=test_epoch)
-                save_array_to_csv(f"{unique_name}_test_metrics.csv", results_row)
+                if self.rank == 0:
+                    save_array_to_csv(f"{unique_name}_test_metrics.csv", results_row)
                 if results_row[10] <= best_test_metric:
                     self._log("Saving BEST TEST model...")
                     best_test_metric = results_row[10]
                     loop["best_test_epoch"] = test_epoch
-                    save_checkpoint(ckpt_best_test, tested, loop, self.sched, self.np_rng)
+                    if self.rank == 0:
+                        save_checkpoint(ckpt_best_test, tested, loop, self.sched, self.np_rng)
                 if current is not None:
                     self.model.load_state_dict(current)
                 new_best = False
 
-            if epoch % cfg.checkpoint_step == 0:
+            if epoch % cfg.checkpoint_step == 0 and self.rank == 0:
                 archive_checkpoints(model_dir, epoch, {
                     "checkpoint_best": ckpt_best, "checkpoint": ckpt,
                     "checkpoint_best_model_on_Test": ckpt_best_test,
                     "checkpoint_best_model_checkpoint": ckpt_best_backup,
                 })
+            self._sync(f"tests and archives of epoch {epoch}")
 
         # final: reload best-on-test and evaluate everything (train.py:692-716)
         self._log("TESTING")
@@ -318,9 +388,10 @@ class Trainer:
             "train_loss_hist": train_hist,
             "val_loss_hist": val_hist,
         }
-        os.makedirs(cfg.results_path, exist_ok=True)
-        with open(os.path.join(cfg.results_path, "results_dict.json"), "w") as f:
-            json.dump(results, f, indent=2)
+        if self.rank == 0:
+            os.makedirs(cfg.results_path, exist_ok=True)
+            with open(os.path.join(cfg.results_path, "results_dict.json"), "w") as f:
+                json.dump(results, f, indent=2)
         results["final_test"] = self.evaluate_test(
             self.loaders["test"], epoch=loop_final.get("best_test_epoch", 0))
         return results

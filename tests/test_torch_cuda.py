@@ -1634,3 +1634,107 @@ def test_fused_infer_routes_stage_one(gen, cin, impl, name):
     assert launch_counts[name] == 1 and launch_counts["conv3x3_widecin"] == 2
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=1e-4)
+
+
+# ---- the reduction hook of data parallelism at one rank, and the .seldpak reader ----
+
+@pytest.fixture
+def one_rank(gen):
+    """A one-rank gloo group in this process and its reduction hook
+    (``parallel/cross_rank.py``): at world size 1 an all-reduce is the
+    identity, so K5 and K9 must give the bits they give without the hook."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from seld_tpu_torch.parallel import CrossRank
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield CrossRank()
+    finally:
+        dist.destroy_process_group()
+
+
+def _op_grads(fn, inputs, g, **kw):
+    """(outputs..., grads of the differentiable inputs) of one forward and
+    backward of ``fn``."""
+    first, *rest = inputs
+    leaves = [v.clone().requires_grad_() for v in rest]
+    out, mean, var = fn(first, *leaves, **kw)
+    (out.float() * g.float()).sum().backward()
+    return [out, mean, var, *(v.grad for v in leaves)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_train_op_with_the_hook_at_one_rank(one_rank, gen, dtype):
+    """K5 with the hook at world size 1: out, mean, var, dW, dgamma and dbeta
+    bit for bit as without it; F1's and B1's sums through the hook once each."""
+    b, cin, f, t, cout, pf = K5_SHAPES[0]
+    x, w, gamma, beta = k5_inputs(gen, b, cin, f, t, cout, dtype)
+    x = x + 0.25 * torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, f // pf, t, cout, generator=gen, device="cuda").to(dtype)
+    want = _op_grads(lambda *a: k5.conv2d_bn_relu_fpool_train(*a, pf), (x, w, gamma, beta), g)
+    reset_launch_counts()
+    got = _op_grads(lambda *a: k5.conv2d_bn_relu_fpool_train(*a, pf, cross_rank=one_rank),
+                    (x, w, gamma, beta), g)
+    assert {n: launch_counts[n] for n in k5_launches(dtype)} == k5_launches(dtype)
+    assert dict(one_rank.counts) == {"K5 F1": 1, "K5 B1": 1}
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_ct_train_with_the_hook_at_one_rank(one_rank, gen, dtype):
+    """K9 with the hook at world size 1: out, mean, var, dh, dW, dgamma and
+    dbeta bit for bit as without it; F1's and B1's sums through the hook once
+    each."""
+    b, c, f, t, cout, pf = K9_SHAPES[0]
+    h, w, gamma, beta = k9_inputs(gen, b, c, f, t, cout, dtype)
+    h = h + 0.25 * torch.randn(h.shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(b, cout, f // pf, t, generator=gen, device="cuda").to(dtype)
+    inputs = (h, w, gamma, beta)
+
+    def run(**kw):
+        hr = h.clone().requires_grad_()
+        out = _op_grads(lambda _, *a: k9.conv2d_ct_bn_relu_fpool_train(hr, *a, pf, **kw),
+                        inputs, g)
+        return out + [hr.grad]
+
+    want = run()
+    reset_launch_counts()
+    got = run(cross_rank=one_rank)
+    assert all(launch_counts[n] == 1 for n in ("ct_train_stats", "ct_train_sel_stats",
+                                               "ct_train_gz", "ct_train_dw", "ct_train_dx"))
+    assert dict(one_rank.counts) == {"K9 F1": 1, "K9 B1": 1}
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+def test_seldpak_gather_on_the_cards_host(gen, tmp_path):
+    """The .seldpak reader built and run on the card's host: the C++ gather
+    equals its numpy plain version on shuffled batches of one-minute clips'
+    feature rows (8 x 256 x 480 a row here), and the batch reaches the card."""
+    import numpy as np
+
+    from seld_tpu_torch.data.native import PakReader, write_pak
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((24, 8, 256, 480)).astype(np.float32)
+    y = rng.standard_normal((24, 60, 168)).astype(np.float32)
+    path = str(tmp_path / "d.seldpak")
+    write_pak(path, [x, y])
+    with PakReader(path) as reader:
+        for _ in range(5):
+            idx = rng.permutation(24)[:8]
+            for i in (0, 1):
+                got = reader.gather(i, idx)
+                assert np.array_equal(got, reader.gather_plain(i, idx))
+                assert np.array_equal(got, [x, y][i][idx])
+            on_card = torch.from_numpy(reader.gather(0, idx)).to("cuda")
+            assert torch.equal(on_card.cpu(), torch.from_numpy(x[idx]))

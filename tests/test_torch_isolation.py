@@ -2,11 +2,15 @@
 ``chip_smoke.py`` imports JAX or anything of the JAX package ``seld_tpu``
 (the card's host has no JAX).
 
-Three checks: every import statement, read with ``ast``; a fresh
-interpreter that imports the port's entry points and then finds neither
-``jax`` nor ``seld_tpu`` in ``sys.modules``; and a fresh interpreter that
-reads the repository's ``seld_tpu`` checkpoint into a port model and then
-finds none of ``jax``, ``jaxlib``, ``flax``, ``optax`` or ``seld_tpu``.
+Checks: every import statement, read with ``ast``; a fresh interpreter
+that imports the port's entry points (the ``.seldpak`` reader and the
+``parallel`` modules among them) and then finds neither ``jax`` nor
+``seld_tpu`` in ``sys.modules``; a fresh interpreter that reads the
+repository's ``seld_tpu`` checkpoint into a port model and then finds none of
+``jax``, ``jaxlib``, ``flax``, ``optax`` or ``seld_tpu``; and nothing of the
+port names or maps the JAX package's native loader (``seld_tpu/data/native``):
+the port reads ``.seldpak`` files through its own ``loader.cc``, built into
+``seld_tpu_torch/_build/``.
 """
 
 import ast
@@ -62,6 +66,8 @@ def test_importing_the_entry_points_loads_no_jax():
         "import seld_tpu_torch.predict, seld_tpu_torch.ops.kernels.qmatmul\n"
         "import seld_tpu_torch.ops.kernels.quant, seld_tpu_torch.profile_stages\n"
         "import seld_tpu_torch.training.jax_checkpoint, seld_tpu_torch.utils.torch_import\n"
+        "import seld_tpu_torch.data.native, seld_tpu_torch.parallel\n"
+        "import seld_tpu_torch.parallel.dp_step, seld_tpu_torch.parallel.multihost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(' '.join(bad))\n"
@@ -93,3 +99,57 @@ def test_reading_a_seld_tpu_checkpoint_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "", f"loaded: {proc.stdout.strip()}"
+
+
+NATIVE = ROOT / "seld_tpu" / "data" / "native"
+
+
+def _literals(path: Path):
+    """(line, text) of every string constant of ``path`` but its docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_opens_the_jax_packages_native_loader(path):
+    names = ("seld_tpu/data/native", "seld_tpu.data.native", "libseldio.so", "data/native/")
+    bad = [f"{path.name}:{line} {text!r}" for line, text in _literals(path)
+           if any(n in text for n in names)]
+    assert not bad, bad
+
+
+def test_the_literal_walk_skips_docstrings_only(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text('"""seld_tpu/data/native"""\ndef f():\n    """libseldio.so"""\n'
+                     '    return "seld_tpu/data/native/libseldio.so"\n')
+    assert [line for line, _ in _literals(probe)] == [4]
+
+
+def test_reading_a_seldpak_maps_only_the_ports_library(tmp_path):
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import numpy as np\n"
+        "from seld_tpu_torch.data.native import PakReader, write_pak\n"
+        "write_pak(sys.argv[2], [np.arange(12, dtype=np.float32).reshape(4, 3)])\n"
+        "with PakReader(sys.argv[2]) as r:\n"
+        "    assert r.gather(0, np.array([2, 0])).tolist() == [[6, 7, 8], [0, 1, 2]]\n"
+        "    maps = [l.split()[-1] for l in open('/proc/self/maps') if 'libseldio' in l]\n"
+        "print(' '.join(sorted(set(maps))))\n"
+    )
+    proc = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT),
+                           str(tmp_path / "t.seldpak")],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    maps = proc.stdout.split()
+    assert maps and all(m.startswith(str(ROOT / "seld_tpu_torch" / "_build") + "/")
+                        for m in maps), maps
+    assert not any(m.startswith(str(NATIVE)) for m in maps), maps

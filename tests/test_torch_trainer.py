@@ -117,7 +117,7 @@ def test_synthetic_dataset_and_pickle_loading_equal_the_jax_package(tmp_path):
                      test_predictors_path=got["test"][0], test_target_path=got["test"][1])
     predictors, targets = loader.load_task2_pickles(cfg)
     assert [len(predictors[s]) for s in ("train", "val", "test")] == [3, 2, 1]
-    with pytest.raises(NotImplementedError, match="seldpak"):
+    with pytest.raises(FileNotFoundError, match="seldpak"):
         loader.load_task2_pickles(cfg.replace(training_predictors_path="data.seldpak"))
     with pytest.raises(FileNotFoundError, match="validation_target_path"):
         loader.load_task2_pickles(cfg.replace(validation_target_path=str(tmp_path / "none")))
@@ -218,8 +218,10 @@ def test_trainer_without_a_card_raises_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(SELDConfig())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="world size"):   # one process: a data axis of 1
         Trainer(SELDConfig(mesh_data=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        Trainer(SELDConfig(mesh_model=2), device="cpu")
     # the 2Parallel trunks build (their training: tests/test_torch_configs.py)
     trainer = Trainer(SELDConfig(parallel_ConvTC_block="2Parallel", input_channels=16),
                       device="cpu", verbose=False)
