@@ -2,8 +2,8 @@
 """Drive the PyTorch port's flagship serving and training paths, its
 training and predict entry points, its front-end variants and per-stage
 profiler, the shipped magnitude + phase configs, checkpoints written by the
-JAX package, and training from a ``.seldpak`` file and across processes,
-once on one NVIDIA GPU.
+JAX package, training from a ``.seldpak`` file and across processes, and
+its serving pipeline as a ``torch.export`` artifact, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -190,14 +190,36 @@ Phases, each printing its own lines:
    gradient at each step no further from the float64 plain path than
    max(TRAIN_GRAD_TOL, CONTROL_FACTOR x) one process's float32 step at
    batch 4 (phase 5a's measure); the JSON's ``training entry, .seldpak``
-   and ``two ranks, pallas-ct f32`` paths.
+   and ``two ranks, pallas-ct f32`` paths;
+12. export (run after phase 7, whose checkpoint and clips phase 10 removes):
+   ``python -m seld_tpu_torch.export_serving`` on the full-width flagship
+   with phase 7's served checkpoint, (a) fused bf16 at batch 4 (the trace
+   seconds and the file's bytes printed); (b) the artifact loaded by a
+   process that imports torch and ``seld_tpu_torch.ops.kernels.library``
+   alone (no model code, no JAX) serving phase 4's seeded requests, K1 1,
+   K2 1, K3 2 and K4 1 launches a request counted in the ops' CUDA impls,
+   each request against eager ``serve`` on the same weights within MAIN_TOL
+   (max|d| and bit-for-bit equality printed); (c) in that process a second
+   seeded weight set through ``load_state_dict``, against eager ``serve``
+   of it; (d) ``--impl apply`` with ``--qconv_impl=pallas`` (float32, run
+   in (b)'s process, whose TF32 is off only by the op library's import) and
+   ``int8`` (bf16) at batch 1 on phase 7's clip 0, to phase 7's tolerances
+   against its float32 ``xla`` apply path, with 22 K7 / K8 launches; (e)
+   eager ``serve`` and (a)'s artifact at batch 4, audio on the card, in
+   turns (printed, not gated); the JSON's ``export`` path.
+
+After each phase a ``[time]`` line gives its seconds and the seconds since
+the start.
 
 Every torch.profiler capture goes through
 ``seld_tpu_torch.utils.profiling.device_events``: a capture whose first or
-last kernel is not one of its bracket kernels is taken again with twice the
-leading brackets (the profiler left out the first kernels of every capture
-for stretches of some runs), at most CAPTURE_TRIES times; the count taken
-again is printed before the kernels' line.
+last kernel in launch order is not one of its bracket kernels is taken
+again with twice the leading brackets and the host's idle time at each end
+of its window (the profiler left out the first kernels of every capture for
+stretches of some runs, and maps the card's timestamps onto the host's
+clock with a shift, dropping the kernels that fall outside its window), at
+most CAPTURE_TRIES times; the count taken again is printed before the
+kernels' line.
 
 ``python3 chip_smoke.py --parallel`` runs phases 1 and 2, a one-epoch
 stand-in for phase 6 and phase 11 alone; on a host with several cards
@@ -2906,6 +2928,7 @@ def predict_runs(torch, card: str, fixture: dict) -> dict:
 
     ref, _, _ = run("ref", ["--impl=apply", "--qconv_impl=xla"], clips[:1])
     ref_sed, ref_doa = ref[0]["sed"], ref[0]["doa"]
+    fixture["apply_ref"] = {"sed": ref_sed, "doa": ref_doa}   # phase 12 holds its apply to it
     bf16 = "--compute_dtype=bfloat16"
     runs = {  # tag: flags, launches per clip (every other count 0), tolerance on clip 0
         "a_auto_fused_bf16": ([bf16], FUSED_PER_CLIP, {"sed": MAIN_TOL, "doa": MAIN_TOL}),
@@ -4344,6 +4367,271 @@ def route_only(torch, package_root: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 12
+EXPORT_DIR = ROOT / "chip_tmp" / "export"
+EXPORT_BATCH = 4   # the fused bf16 artifact's batch: phase 4's requests of CLIPS_PER_REQUEST
+EXPORT_SEED = 12   # the second weight set served through load_state_dict
+EXPORT_WINDOW = 20   # (e)'s timed requests per turn
+EXPORT_KERNELS = {  # the kernels phase 12's loaded artifacts launch, from the ops' CUDA impls
+    **SERVING_KERNELS,
+    **{k: PREDICT_KERNELS[k] for k in ("hamilton_matmul", "int8_matmul", "stft_mag_f32")},
+}
+# launches per clip of the apply artifacts (phase 7's apply runs'): K1 on its float32
+# FFT kernel, K7 or K8 on every Hamilton matmul, K4 in bf16 only (float32 attention
+# takes the chunked plain path)
+EXPORT_APPLY = {  # tag: (export flags, launches per clip, tolerance against phase 7's ref)
+    "apply_pallas_f32": (["--impl=apply", "--qconv_impl=pallas"],
+                         {"stft_mag": 1, "stft_mag_fft": 1, "hamilton_matmul": QMM_PER_FORWARD},
+                         None),   # F32_TOL x max|ref|; run in the loading process
+    "apply_int8_bf16": (["--impl=apply", "--qconv_impl=int8", "--compute_dtype=bfloat16"],
+                        {"stft_mag": 1, "stft_mag_fft": 1, "int8_matmul": QMM_PER_FORWARD,
+                         "flash_attn_fwd": 1}, PTQ_TOL),
+}
+LOADED_APPLY = "apply_pallas_f32"   # the float32 artifact (d) runs on a serving host
+# a serving host: torch and the op library, no model code, TF32 as torch leaves it until
+# the library's import; it serves phase 4's seeded requests, then request 0 again with the
+# second weight set, then phase 7's clip 0 through the float32 apply artifact
+_LOAD_ARTIFACT = """
+import json, sys, time
+import numpy as np
+import torch
+root, artifact, other, out, apply_artifact, clip = sys.argv[1:7]
+sys.path.insert(0, root)
+import seld_tpu_torch.ops.kernels.library   # the seld:: ops the artifact calls
+from seld_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+t0 = time.perf_counter()
+module = torch.export.load(artifact).module()
+load_s = time.perf_counter() - t0
+
+
+def requests():
+    rng = np.random.default_rng(0)
+    for _ in range({requests}):
+        yield torch.from_numpy(rng.standard_normal(({clips}, {channels}, {n}),
+                                                   dtype=np.float32)).cuda()
+
+
+def run(audio):
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sed, doa = module(audio)
+    torch.cuda.synchronize()
+    counts.append(dict(launch_counts))
+    return sed.cpu(), doa.cpu()
+
+
+counts = []
+with torch.no_grad():
+    served = [run(audio) for audio in requests()]
+    module.load_state_dict(torch.load(other))
+    second = run(next(requests()))
+    module = torch.export.load(apply_artifact).module()
+    applied = run(torch.from_numpy(np.load(clip)[None]).cuda())
+torch.save({{"served": served, "second": second, "applied": applied}}, out)
+names = ("seld_tpu_torch.models", "seld_tpu_torch.config", "seld_tpu_torch.serve", "jax",
+         "seld_tpu")
+loaded = sorted(m for m in sys.modules if any(m == n or m.startswith(n + ".") for n in names))
+tf32 = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+print(json.dumps({{"counts": counts, "load_s": load_s, "loaded": loaded, "tf32": tf32}}))
+"""
+
+
+def phase_export(torch, card: str, fixture: dict) -> dict:
+    """Phase 12, the serving pipeline as a torch.export artifact
+    (``python -m seld_tpu_torch.export_serving``) with phase 7's served
+    checkpoint: (a) fused bf16 at batch 4; (b) loaded by a process that
+    imports torch and the op library alone, serving phase 4's requests, held
+    to eager ``serve`` on the same weights; (c) a second seeded weight set
+    through load_state_dict; (d) apply with K7 (float32, in (b)'s process)
+    and K8 (bf16, here) at batch 1 on phase 7's clip 0; (e) eager serve and
+    (a)'s artifact in turns. Returns the launches of (b)-(d)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    loading = None
+    try:
+        program, model, other, loading = export_fused(torch, card, fixture)
+        total = {}
+        for counts in [*export_apply(torch, card, fixture).values(),
+                       check_loaded(torch, card, loading, model, other, fixture)]:
+            total = {k: total.get(k, 0) + counts.get(k, 0) for k in {*total, *counts}}
+        export_timing(torch, card, model, program.module())
+    finally:
+        if loading is not None and loading.poll() is None:
+            loading.kill()
+            loading.wait()
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    print(f"[export] phase 12 took {time.perf_counter() - t0:.1f} s ({card})")
+    return total
+
+
+def export_cli(card: str, fixture: dict, tag: str, flags: list, batch: int):
+    """The export CLI on the flagship with phase 7's served checkpoint; prints
+    the trace seconds and the artifact's bytes. Returns the file's path and
+    the exported program, whose module (d)'s bf16 leg and (e) run: the
+    file's, as (b) shows bit for bit, without a load of 16-25 s."""
+    from seld_tpu_torch import export_serving
+
+    path = EXPORT_DIR / f"{tag}_b{batch}.pt2"
+    done = export_serving.main([f"--TextArgs={FLAGSHIP_CONFIG}",
+                                f"--checkpoint={fixture['fused']['checkpoint']}", *flags,
+                                f"--batch={batch}", f"--out={path}"])
+    print(f"[export] {tag}: impl {done['impl']}, audio {done['audio_shape']}, traced in "
+          f"{done['trace_seconds']:.2f} s, {done['bytes']} bytes ({card})")
+    return path, done["program"]
+
+
+def served_model(torch, fixture: dict, dtype_name: str, **overrides):
+    """The flagship with phase 7's served checkpoint, eval, on the card."""
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.models.seld import model_from_config
+    from seld_tpu_torch.training.checkpoint import load_model_weights
+
+    cfg = load_config(str(FLAGSHIP_CONFIG)).replace(compute_dtype=dtype_name, **overrides)
+    model = model_from_config(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    load_model_weights(str(fixture["fused"]["checkpoint"]), model)
+    return cfg, model.eval()
+
+
+def export_fused(torch, card: str, fixture: dict):
+    """(a) and (d)'s float32 export, then the loading process of (b), (c)
+    and (d)'s float32 leg started: returns the exported program, the eager
+    model, the second weight set's model and the running process."""
+    from seld_tpu_torch.export_serving import build_pipeline
+    from seld_tpu_torch.serve import build_flagship
+
+    fused, program = export_cli(card, fixture, "fused_bf16",
+                                ["--compute_dtype=bfloat16", "--impl=fused"], EXPORT_BATCH)
+    applied = export_cli(card, fixture, LOADED_APPLY, EXPORT_APPLY[LOADED_APPLY][0], 1)[0]
+    cfg, model = served_model(torch, fixture, "bfloat16")
+    other = build_flagship(str(FLAGSHIP_CONFIG), torch.bfloat16, "cuda",
+                           torch.Generator().manual_seed(EXPORT_SEED))
+    other_sd = EXPORT_DIR / "other_state_dict.pt"
+    torch.save(build_pipeline(cfg, other, "fused").state_dict(), other_sd)
+    script = _LOAD_ARTIFACT.format(requests=REQUESTS, clips=CLIPS_PER_REQUEST,
+                                   channels=CHANNELS, n=SR * CLIP_SECONDS)
+    loading = subprocess.Popen([sys.executable, "-c", script, str(ROOT), str(fused),
+                                str(other_sd), str(EXPORT_DIR / "served.pt"), str(applied),
+                                str(fixture["fused"]["clips"][0])],
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return program, model, other, loading
+
+
+def check_loaded(torch, card: str, loading, model, other, fixture: dict) -> dict:
+    """(b)-(c) and (d)'s float32 leg: the loading process's report, and its
+    outputs against eager ``serve`` of the same weights and phase 7's apply
+    reference; returns its launches."""
+    import numpy as np
+
+    from seld_tpu_torch.serve import serve
+
+    stdout, stderr = loading.communicate(timeout=600)
+    require(loading.returncode == 0, f"the loading process failed:\n{stdout}\n{stderr}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    print(f"[export] (b) a process with torch and the op library alone: artifact loaded in "
+          f"{report['load_s']:.2f} s; model code or JAX loaded: {report['loaded']} ({card})")
+    require(report["loaded"] == [], f"the loading process imported {report['loaded']}")
+    require(report["tf32"] == [False, False],
+            f"the loading process left TF32 on (cudnn, matmul): {report['tf32']}")
+    *fused_counts, applied_counts = report["counts"]
+    for i, counts in enumerate(fused_counts):
+        require_launches(f"export (b) request {i}", counts, FUSED_PER_CLIP)
+    got = torch.load(EXPORT_DIR / "served.pt")
+    check_apply(torch, card, LOADED_APPLY, *got["applied"], applied_counts, fixture,
+                "in the loading process")
+    rng = np.random.default_rng(0)   # phase 4's requests
+    dists, equal = [], True
+    with torch.no_grad():
+        for i, (sed, doa) in enumerate(got["served"]):
+            audio = torch.from_numpy(rng.standard_normal((CLIPS_PER_REQUEST, CHANNELS,
+                                                           SR * CLIP_SECONDS),
+                                                          dtype=np.float32)).cuda()
+            check_outputs(torch, f"export (b) request {i}", sed, doa, CLIPS_PER_REQUEST)
+            want = [t.cpu() for t in serve(model, audio)]
+            dists.append(max_diff((sed, doa), want))
+            equal &= torch.equal(sed, want[0]) and torch.equal(doa, want[1])
+            if i == 0:
+                want_other = [t.cpu() for t in serve(other, audio)]
+        d_other = max_diff(got["second"], want_other)
+        equal_other = all(torch.equal(g, w) for g, w in zip(got["second"], want_other))
+        d_weights = max_diff(got["second"], got["served"][0])
+    print(f"[export] (b) {REQUESTS} requests of {CLIPS_PER_REQUEST} clips, launches per request "
+          f"{ {k: v for k, v in fused_counts[0].items() if v} }; against eager serve on "
+          f"the same weights: max|d| {[f'{d:.3e}' for d in dists]}, bit for bit {equal} "
+          f"(gate {MAIN_TOL}) ({card})")
+    print(f"[export] (c) a second weight set through load_state_dict: max|d| {d_other:.3e} "
+          f"from eager serve of it, bit for bit {equal_other} (gate {MAIN_TOL}); "
+          f"{d_weights:.3e} from the first set's outputs ({card})")
+    require(max(dists) <= MAIN_TOL and d_other <= MAIN_TOL,
+            f"export: the artifact's outputs {dists}, {d_other} beyond {MAIN_TOL}")
+    require(d_weights > 0, "export (c): the second weight set changed no output")
+    total = {}
+    for counts in report["counts"]:
+        total = {k: total.get(k, 0) + counts.get(k, 0) for k in {*total, *counts}}
+    return total
+
+
+def check_apply(torch, card: str, tag: str, sed, doa, counts: dict, fixture: dict,
+                where: str) -> None:
+    """(d): one apply artifact's outputs on phase 7's clip 0 and its launches,
+    against phase 7's float32 ``xla`` apply path at EXPORT_APPLY's tolerance."""
+    import numpy as np
+
+    _, per_clip, tol = EXPORT_APPLY[tag]
+    ref = fixture["apply_ref"]
+    check_outputs(torch, f"export (d) {tag}", sed, doa, 1)
+    require_launches(f"export (d) {tag}", counts, per_clip)
+    tol = tol or {k: F32_TOL * float(np.abs(ref[k]).max()) for k in ("sed", "doa")}
+    d = {"sed": float(np.abs(sed[0].float().cpu().numpy() - ref["sed"]).max()),
+         "doa": float(np.abs(doa[0].float().cpu().numpy() - ref["doa"]).max())}
+    print(f"[export] (d) {tag}, {where}: launches {({k: v for k, v in counts.items() if v})}; "
+          f"clip 0 vs phase 7's f32 xla apply path: max|d sed| {d['sed']:.3e} (tol "
+          f"{tol['sed']:.3e}), max|d doa| {d['doa']:.3e} (tol {tol['doa']:.3e}) ({card})")
+    require(all(d[k] <= tol[k] for k in d), f"export (d) {tag}: clip 0 {d} beyond {tol}")
+
+
+def export_apply(torch, card: str, fixture: dict) -> dict:
+    """(d)'s artifacts but the loaded one, at batch 1 on phase 7's clip 0,
+    each exported program's module run here; returns their launches by tag."""
+    import numpy as np
+
+    clip = torch.from_numpy(np.load(fixture["fused"]["clips"][0])[None]).cuda()
+    launches = {}
+    for tag, (flags, _, _) in EXPORT_APPLY.items():
+        if tag == LOADED_APPLY:
+            continue
+        module = export_cli(card, fixture, tag, flags, 1)[1].module()
+        with torch.no_grad():
+            (sed, doa), counts = launches_of(torch, lambda: module(clip))
+        check_apply(torch, card, tag, sed, doa, counts, fixture, "here")
+        launches[tag] = counts
+        del module
+    return launches
+
+
+def export_timing(torch, card: str, model, module) -> None:
+    """(e): eager ``serve`` and (a)'s artifact ``module`` at EXPORT_BATCH, audio
+    on the card, in turns (eager, artifact, artifact, eager) of EXPORT_WINDOW
+    requests; printed, not gated."""
+    from seld_tpu_torch.serve import serve
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    audio = torch.randn(EXPORT_BATCH, CHANNELS, SR * CLIP_SECONDS, generator=gen, device="cuda")
+    runs = {"eager": lambda i: serve(model, audio), "artifact": lambda i: module(audio)}
+    times = {name: [] for name in runs}
+    with torch.no_grad():
+        for name in runs:
+            timed_window(torch, 2, runs[name])   # warm-up
+        for name in ("eager", "artifact", "artifact", "eager"):
+            times[name] += timed_window(torch, EXPORT_WINDOW, runs[name])
+    audio_h = EXPORT_BATCH * CLIP_SECONDS / 3600.0
+    for name, t in times.items():
+        print(f"[export] (e) {name}, batch {EXPORT_BATCH}, audio on the card, in turns: "
+              f"{window_summary(t, audio_h)} ({card})")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     try:
@@ -4370,20 +4658,33 @@ def main(argv=None) -> int:
     import seld_tpu_torch
 
     seld_tpu_torch.disable_tf32()
+    start = time.perf_counter()
+
+    def timed(phase: str, run, *args):
+        """run(*args), then the seconds it took and since the start (the
+        script has 1200 s in all)."""
+        t0 = time.perf_counter()
+        out = run(*args)
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - t0:.1f} s, {now - start:.1f} s in all")
+        return out
+
     try:
-        card = phase_environment(torch)
-        phase_build()
-        summary = phase_kernels(torch, card)
-        serving = phase_main_path(torch, card)
-        training = phase_training(torch, card)
-        fixture = {}   # what phases 6 and 7 leave for phase 10
-        entry = phase_entry(torch, card, fixture)
-        predicted = phase_predict(torch, card, fixture)
-        variants = phase_frontend_paths(torch, card)
-        configs = phase_configs(torch, card)
-        k5_b1 = k5_b1_device_times(torch, card)
-        checkpoints = phase_checkpoints(torch, card, fixture)
-        parallel = phase_parallel(torch, card, fixture)
+        card = timed("1", phase_environment, torch)
+        timed("2", phase_build)
+        summary = timed("3", phase_kernels, torch, card)
+        serving = timed("4", phase_main_path, torch, card)
+        training = timed("5", phase_training, torch, card)
+        fixture = {}   # what phases 6 and 7 leave for phases 10 and 12
+        entry = timed("6", phase_entry, torch, card, fixture)
+        predicted = timed("7", phase_predict, torch, card, fixture)
+        # before phase 10 removes phase 7's checkpoint and clips
+        exported = timed("12", phase_export, torch, card, fixture)
+        variants = timed("8", phase_frontend_paths, torch, card)
+        configs = timed("9", phase_configs, torch, card)
+        k5_b1 = timed("9, K5 B1", k5_b1_device_times, torch, card)
+        checkpoints = timed("10", phase_checkpoints, torch, card, fixture)
+        parallel = timed("11", phase_parallel, torch, card, fixture)
         require("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"FAIL: {e}")
@@ -4394,7 +4695,8 @@ def main(argv=None) -> int:
           f"{CAPTURES['retaken']} taken again (a bracket kernel missing)")
     paths = {"serving": (SERVING_KERNELS, serving), "training": (TRAINING_KERNELS, training),
              "training entry, pallas-ct": (CT_TRAIN_KERNELS, entry),
-             "predict": (PREDICT_KERNELS, predicted), **variants,
+             "predict": (PREDICT_KERNELS, predicted), "export": (EXPORT_KERNELS, exported),
+             **variants,
              "configs": (CONFIG_KERNELS, configs),
              "checkpoints": (CHECKPOINT_KERNELS, checkpoints),
              "training entry, .seldpak": (CT_TRAIN_KERNELS, parallel.pop("pak")),

@@ -20,9 +20,12 @@ the JAX package (``tests/test_torch_isolation.py``). Layout mirrors
 - ``metrics``          — the L3DAS21 and DCASE21 metrics and the decode
 - ``utils``            — JAX variables tree <-> port state_dict, CSV rows,
   step timing, model summary
-- ``serve``            — flagship serving entry: audio -> (sed, doa)
+- ``serve``            — serving entry: audio -> (sed, doa), fused or apply
 - ``train``            — the training CLI (``python -m seld_tpu_torch.train``)
 - ``predict``          — the inference CLI (``python -m seld_tpu_torch.predict``)
+- ``export_serving``   — the serving pipeline as a ``torch.export`` artifact
+  (``python -m seld_tpu_torch.export_serving``); its kernel calls are the
+  ``seld::`` custom ops of ``ops.kernels.library``
 
 Parameters keep the JAX package's names and layouts, so weights move between
 the two packages by a tree walk.

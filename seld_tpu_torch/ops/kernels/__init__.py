@@ -5,6 +5,14 @@ Every public wrapper takes the plain version for CPU tensors only (the
 tests' path); for CUDA tensors it launches its kernel or raises. Each
 launch adds one to the wrapper's entry in :data:`launch_counts`, so a run
 can show that it went through the kernels.
+
+The serving kernels (K1, K2, K2w, K3, K10b, K4, K7, K8) are reached through
+``torch.library`` custom ops in the ``seld`` namespace (:mod:`.library`,
+imported at the end of this module): their wrappers call the op, whose CPU
+impl is the plain version and whose CUDA impl launches the kernel and counts
+it, so that ``torch.export`` records the op and a loaded artifact launches
+(and counts) the same kernels. The training kernels (K5, K6, K9) and K10a
+are launched by their wrappers.
 """
 
 from __future__ import annotations
@@ -66,6 +74,12 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     return True
 
 
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is on one CUDA device (the ops' CUDA impls)."""
+    if not on_cuda(*tensors):
+        raise ValueError("a CUDA impl was given CPU tensors")
+
+
 def require_contiguous(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if not t.is_contiguous():
@@ -74,3 +88,7 @@ def require_contiguous(**tensors: torch.Tensor) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# last: the op library imports the wrapper modules, which import the names above
+from seld_tpu_torch.ops.kernels import library  # noqa: E402,F401  (registers the seld:: ops)

@@ -5,7 +5,9 @@ Counterpart of ``seld_tpu/ops/pallas/attention.py::flash_attention``:
 unmasked softmax(q k^T * scale) v over (B, T, H, D) tensors. The forward
 also returns the per-row logsumexp (B, H, T) float32, which the backward
 reads to recompute the probabilities (FlashAttention-2). The kernels are
-``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``.
+``csrc/flash_attn_fwd.cu`` and ``csrc/flash_attn_bwd.cu``; the forward is
+reached through the op ``seld::flash_attn_fwd`` (``library.py``, CUDA impl
+:func:`flash_attention_cuda`), the backward through its wrapper.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
-    dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
+    dtype_code, launch_counts, on_cuda, require_contiguous, require_cuda, stream_handle,
 )
 
 HEAD_DIMS = (16, 32, 48, 64, 128)  # head dims the kernels are instantiated for
@@ -94,17 +96,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v (B, T, H, D) -> (out (B, T, H, D), lse (B, H, T) float32).
+    """q, k, v (B, T, H, D) -> (out (B, T, H, D), lse (B, H, T) float32),
+    through the op ``seld::flash_attn_fwd``: CPU tensors take
+    :func:`flash_attention_plain`, CUDA tensors
+    :func:`flash_attention_cuda`."""
+    _check(q, k, v)
+    return torch.ops.seld.flash_attn_fwd(q, k, v, scale)
 
-    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA impl of ``seld::flash_attn_fwd``: launches
     ``seld_flash_attn_fwd`` at the padded D of :func:`head_dim_plan` on
     zero-padded q, k, v (:func:`pad_heads`; no copy where D is already it),
-    one block per column group and query tile, out sliced back to D. Past
-    head dim 128 that is the wide kernel of the dtype: bfloat16's on
-    ``mma.sync``, float32's in split TF32 (``flash_fwd_wide_tf32_kernel``)."""
+    one block per column group and query tile, out sliced back to D (a
+    copy: out never shares storage with q), or raises. Past head dim 128
+    that is the wide kernel of the dtype: bfloat16's on ``mma.sync``,
+    float32's in split TF32 (``flash_fwd_wide_tf32_kernel``)."""
     _check(q, k, v)
-    if not on_cuda(q, k, v):
-        return flash_attention_plain(q, k, v, scale)
+    require_cuda(q, k, v)
     require_contiguous(q=q, k=k, v=v)
     b, t, h, d_true = q.shape
     d, group = head_dim_plan(d_true, q.dtype)

@@ -38,6 +38,11 @@ of four kernels per stage by :func:`frontend_stage_kernel`, as
 
 K10a is reached from the per-stage profiler only
 (``python -m seld_tpu_torch.profile_stages``), as in the JAX package.
+
+K2, K3 and K10b are one op, ``seld::conv3x3_fpool`` (the kernel named by
+its ``kernel`` argument), and K2w's product is ``seld::smallcin_wide_product``
+(``library.py``): their CUDA impls (:func:`conv3x3_fpool_cuda`,
+:func:`smallcin_wide_product_cuda`) launch; K10a is launched by its wrapper.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 
 from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
-    dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
+    dtype_code, launch_counts, on_cuda, require_contiguous, require_cuda, stream_handle,
 )
 
 MAX_POOL_F = 48  # cap of the SIMT smallcin halo staging's rows; K9's pool limit
@@ -59,6 +64,8 @@ TC_BLOCK_T = 64         # frames per block of the block tiles (kTbT in conv3x3_t
 TC_SLOTS = 4            # conv rows per pass of the block tile (kTbSlots)
 SMALLCIN_IMPLS = ("thin", "wide")
 GRID_Z_MAX = 65535
+# the kernels of the op seld::conv3x3_fpool (library.py), by launch-count name
+FPOOL_KERNELS = ("conv3x3_smallcin", "conv3x3_widecin", "conv3x3_windows")
 
 
 def _check(x, w, scale, bias, pool_f) -> None:
@@ -244,18 +251,11 @@ def conv2d_smallcin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch
     smallcin tile (``smallcin_tf32_kernel``), whose rows are K5's F1 and g_z
     pass's and the block tile's bit for bit. The router sends Cin <= 8 here;
     K5's float32 forward calls it for Cin 9-10 too, so that its pooled rows
-    are the conv rows K5's backward recomputes. CPU tensors take
+    are the conv rows K5's backward recomputes. Through the op
+    ``seld::conv3x3_fpool``: CPU tensors take
     :func:`conv2d_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
-    if not on_cuda(x, w, scale, bias):
-        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    b, cin, f, t = x.shape
-    if cin > SMALLCIN_MAX_CIN:
-        raise ValueError(f"K2's kernel stages at most {SMALLCIN_MAX_CIN} channels, got {cin}")
-    cout = w.shape[3]
-    chunk = smallcin_pool_chunks(pool_f, cin, x.dtype)[0][1]
-    return _launch("conv3x3_smallcin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
-                   b, cin, f, t, cout, chunk=chunk)
+    return torch.ops.seld.conv3x3_fpool(x, w, scale, bias, pool_f, "conv3x3_smallcin")
 
 
 def conv2d_widecin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -263,15 +263,30 @@ def conv2d_widecin_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.
     """K3's kernel (``seld_conv3x3_widecin``): Cin walked in chunks, any Cin
     (the router sends Cin % 8 == 0 here), on the block tile that K9's F1
     shares (bfloat16 on ``mma.sync``, float32 in split TF32), so K9's
-    forward calls it whatever C is. CPU tensors take
-    :func:`conv2d_bn_relu_fpool_plain`."""
+    forward calls it whatever C is. Through the op ``seld::conv3x3_fpool``:
+    CPU tensors take :func:`conv2d_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
-    if not on_cuda(x, w, scale, bias):
-        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
+    return torch.ops.seld.conv3x3_fpool(x, w, scale, bias, pool_f, "conv3x3_widecin")
+
+
+def conv3x3_fpool_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, pool_f: int, kernel: str) -> torch.Tensor:
+    """The CUDA impl of ``seld::conv3x3_fpool``: launches ``seld_<kernel>``,
+    one of :data:`FPOOL_KERNELS` (K2, K3 or K10b), or raises. K2's pool
+    window is staged in chunks of :func:`smallcin_pool_chunks` rows."""
+    _check(x, w, scale, bias, pool_f)
+    require_cuda(x, w, scale, bias)
+    if kernel not in FPOOL_KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {FPOOL_KERNELS}")
     b, cin, f, t = x.shape
     cout = w.shape[3]
-    return _launch("conv3x3_widecin", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
-                   b, cin, f, t, cout)
+    out_shape = (b, cout, f // pool_f, t)
+    if kernel != "conv3x3_smallcin":
+        return _launch(kernel, x, w, scale, bias, pool_f, out_shape, b, cin, f, t, cout)
+    if cin > SMALLCIN_MAX_CIN:
+        raise ValueError(f"K2's kernel stages at most {SMALLCIN_MAX_CIN} channels, got {cin}")
+    chunk = smallcin_pool_chunks(pool_f, cin, x.dtype)[0][1]
+    return _launch(kernel, x, w, scale, bias, pool_f, out_shape, b, cin, f, t, cout, chunk=chunk)
 
 
 # ---- K2w: the wide pack ------------------------------------------------------
@@ -353,20 +368,35 @@ def smallcin_wide_product(p0: torch.Tensor, wk: torch.Tensor, scale: torch.Tenso
                           bias: torch.Tensor, pool_f: int, t: int, cin: int) -> torch.Tensor:
     """K2w's kernel on a built pack (:func:`smallcin_pack`): p0 (B, F + 2,
     kg, tpad), wk (Cout, 3 * kg) in one dtype, scale/bias (Cout,) float32,
-    the input's T frames and Cin channels -> (B, Cout, F/pool_f, T). CUDA
-    tensors launch ``seld_conv3x3_smallcin_wide`` (bfloat16 on the tensor
-    cores over all kg rows of each group; float32 in split TF32 over the
-    :func:`smallcin_rows` rows, the pack's rows past them never read); CPU
+    the input's T frames and Cin channels -> (B, Cout, F/pool_f, T), through
+    the op ``seld::smallcin_wide_product``: CUDA tensors launch
+    ``seld_conv3x3_smallcin_wide`` (:func:`smallcin_wide_product_cuda`), CPU
     tensors take :func:`smallcin_wide_product_plain`."""
-    b, f2, kg, tpad = p0.shape
-    f, cout = f2 - 2, wk.shape[0]
+    _check_pack(p0, wk, scale, bias, cin)
+    return torch.ops.seld.smallcin_wide_product(p0, wk, scale, bias, pool_f, t, cin)
+
+
+def _check_pack(p0, wk, scale, bias, cin: int) -> None:
+    kg, cout = p0.shape[2], wk.shape[0]
     if wk.shape != (cout, 3 * kg) or scale.shape != (cout,) or bias.shape != (cout,):
         raise ValueError(f"wk {tuple(wk.shape)}, scale {tuple(scale.shape)} and bias "
                          f"{tuple(bias.shape)} do not fit a pack of kg {kg}")
     if smallcin_kg(cin) != kg:
         raise ValueError(f"a pack of Cin {cin} has kg {smallcin_kg(cin)}, not {kg}")
-    if not on_cuda(p0, wk, scale, bias):
-        return smallcin_wide_product_plain(p0, wk, scale, bias, pool_f, t, cin)
+
+
+def smallcin_wide_product_cuda(p0: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
+                               bias: torch.Tensor, pool_f: int, t: int,
+                               cin: int) -> torch.Tensor:
+    """The CUDA impl of ``seld::smallcin_wide_product``: launches
+    ``seld_conv3x3_smallcin_wide`` (bfloat16 on the tensor cores over all kg
+    rows of each group; float32 in split TF32 over the
+    :func:`smallcin_rows` rows, the pack's rows past them never read), or
+    raises."""
+    _check_pack(p0, wk, scale, bias, cin)
+    require_cuda(p0, wk, scale, bias)
+    b, f2, kg, tpad = p0.shape
+    f, cout = f2 - 2, wk.shape[0]
     return _launch("conv3x3_smallcin_wide", p0, wk, scale, bias, pool_f,
                    (b, cout, f // pool_f, t), b, kg, smallcin_rows(cin), f, t, tpad, cout)
 
@@ -379,12 +409,10 @@ def conv2d_smallcin_wide_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor,
     F/pool_f, T) in x's dtype.
 
     The pack (:func:`smallcin_pack`) runs in torch, as the JAX package builds
-    it in XLA; CUDA tensors then launch K2w's kernel on it
-    (:func:`smallcin_wide_product`), CPU tensors take
-    :func:`conv2d_smallcin_wide_bn_relu_fpool_plain`."""
+    it in XLA; then K2w's product (:func:`smallcin_wide_product`): its
+    kernel on CUDA tensors, on CPU tensors its plain version, which makes
+    this :func:`conv2d_smallcin_wide_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
-    if not on_cuda(x, w, scale, bias):
-        return conv2d_smallcin_wide_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
     return smallcin_wide_product(*smallcin_pack(x, w), scale, bias, pool_f, x.shape[3],
                                  x.shape[1])
 
@@ -498,13 +526,8 @@ def conv2d_windows_bn_relu_fpool(x: torch.Tensor, w: torch.Tensor, scale: torch.
     """K10b, the JAX package's ``conv2d_bn_relu_fpool``: nine per-tap
     products summed over Cin, any Cin >= 1, T and pool_f dividing F. x (B,
     Cin, F, T), w (3, 3, Cin, Cout) in x's dtype, scale/bias (Cout,) float32
-    -> (B, Cout, F/pool_f, T) in x's dtype. CUDA tensors launch
-    ``seld_conv3x3_windows``; CPU tensors take
-    :func:`conv2d_bn_relu_fpool_plain`."""
+    -> (B, Cout, F/pool_f, T) in x's dtype. Through the op
+    ``seld::conv3x3_fpool``: CUDA tensors launch ``seld_conv3x3_windows``,
+    CPU tensors take :func:`conv2d_bn_relu_fpool_plain`."""
     _check(x, w, scale, bias, pool_f)
-    if not on_cuda(x, w, scale, bias):
-        return conv2d_bn_relu_fpool_plain(x, w, scale, bias, pool_f)
-    b, cin, f, t = x.shape
-    cout = w.shape[3]
-    return _launch("conv3x3_windows", x, w, scale, bias, pool_f, (b, cout, f // pool_f, t),
-                   b, cin, f, t, cout)
+    return torch.ops.seld.conv3x3_fpool(x, w, scale, bias, pool_f, "conv3x3_windows")

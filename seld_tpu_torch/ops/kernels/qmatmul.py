@@ -20,7 +20,8 @@ the row sum of g. The kernels are in ``csrc/hamilton_matmul.cu``, both
 memory: float32 in split TF32 (three TF32 products for each float32 one,
 float32's accuracy; ``ops/kernels/tf32.py`` repeats its arithmetic on the
 CPU), bfloat16 on bf16 operands; one entry point picks by dtype, so forward
-and dx take the same kernel.
+and dx take the same kernel, both through the op ``seld::hamilton_matmul``
+(``library.py``, CUDA impl :func:`hamilton_matmul_cuda`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from seld_tpu_torch import _build
 from seld_tpu_torch.ops.hamilton import Q_TABLE, assemble_hamilton
 from seld_tpu_torch.ops.kernels import (
-    dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
+    dtype_code, launch_counts, require_contiguous, require_cuda, stream_handle,
 )
 
 
@@ -62,14 +63,22 @@ def hamilton_matmul_plain(x2d: torch.Tensor, comps: torch.Tensor, bias: Optional
 def hamilton_matmul(x2d: torch.Tensor, comps: torch.Tensor, bias: Optional[torch.Tensor],
                     n_comp: int, linear_table: bool) -> torch.Tensor:
     """x2d (M, n cin) @ assemble(comps (n, cin, cout)) + bias -> (M, n cout)
-    in x's dtype (float32 or bfloat16; comps in the same dtype). CPU tensors
-    take :func:`hamilton_matmul_plain`; CUDA tensors launch
-    ``seld_hamilton_matmul`` (the split-TF32 kernel in float32, the bf16 one
-    in bfloat16)."""
+    in x's dtype (float32 or bfloat16; comps in the same dtype), through the
+    op ``seld::hamilton_matmul``: CPU tensors take
+    :func:`hamilton_matmul_plain`, CUDA tensors
+    :func:`hamilton_matmul_cuda`."""
     _check(x2d, comps, bias, n_comp)
-    tensors = (x2d, comps) if bias is None else (x2d, comps, bias)
-    if not on_cuda(*tensors):
-        return hamilton_matmul_plain(x2d, comps, bias, n_comp, linear_table)
+    return torch.ops.seld.hamilton_matmul(x2d, comps, bias, n_comp, linear_table)
+
+
+def hamilton_matmul_cuda(x2d: torch.Tensor, comps: torch.Tensor,
+                         bias: Optional[torch.Tensor], n_comp: int,
+                         linear_table: bool) -> torch.Tensor:
+    """The CUDA impl of ``seld::hamilton_matmul``: launches
+    ``seld_hamilton_matmul`` (the split-TF32 kernel in float32, the bf16 one
+    in bfloat16), or raises."""
+    _check(x2d, comps, bias, n_comp)
+    require_cuda(*((x2d, comps) if bias is None else (x2d, comps, bias)))
     require_contiguous(x=x2d, comps=comps)
     if comps.dtype != x2d.dtype:
         raise TypeError(f"comps must be {x2d.dtype}, got {comps.dtype}")

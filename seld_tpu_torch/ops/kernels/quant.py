@@ -9,7 +9,9 @@ the output carries no gradient. The kernel is ``csrc/int8_matmul.cu``, on
 the int8 tensor cores (``mma.sync`` m16n8k32 s8), in two launches: the first
 quantizes each row once and writes the weight transposed and zero-padded
 along Cin, the second is the GEMM, whose blocks take :func:`row_tile` rows
-(64, or 32 where 64-row blocks would not fill the card).
+(64, or 32 where 64-row blocks would not fill the card). The wrapper calls
+the op ``seld::int8_matmul`` (``library.py``, CUDA impl
+:func:`int8_matmul_cuda`).
 
 The arithmetic is the JAX kernel's as XLA compiles it (``quant.py:41-53``),
 bit for bit on the same inputs:
@@ -30,7 +32,7 @@ import torch
 
 from seld_tpu_torch import _build
 from seld_tpu_torch.ops.hamilton import assemble_hamilton
-from seld_tpu_torch.ops.kernels import dtype_code, launch_counts, on_cuda, stream_handle
+from seld_tpu_torch.ops.kernels import dtype_code, launch_counts, require_cuda, stream_handle
 
 QMAX = 127
 INV_QMAX = float(np.float32(1.0 / QMAX))   # float32(1/127), the compiled form's constant
@@ -130,37 +132,49 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., Cin) float32 or bfloat16 @ dequant(w_q int8 (Cin, Cout),
     w_scale (Cout,)) + bias -> (..., Cout) in x's dtype, with the rows of x
-    quantized to int8 on the fly. CPU tensors take :func:`int8_matmul_plain`;
-    CUDA tensors launch ``seld_int8_matmul``, two kernels that count as one
-    in ``launch_counts['int8_matmul']``."""
+    quantized to int8 on the fly. The rows go flat through the op
+    ``seld::int8_matmul``, detached (the output carries no gradient): CPU
+    tensors take :func:`int8_matmul_plain`, CUDA tensors
+    :func:`int8_matmul_cuda`, two kernels that count as one in
+    ``launch_counts['int8_matmul']``."""
     _check(x, w_q, w_scale, bias)
-    tensors = (x, w_q, w_scale) if bias is None else (x, w_q, w_scale, bias)
-    if not on_cuda(*tensors):
-        return int8_matmul_plain(x, w_q, w_scale, bias)
     lead, cin, cout = x.shape[:-1], x.shape[-1], w_q.shape[1]
-    x2 = x.detach().reshape(-1, cin).contiguous()
-    m = x2.shape[0]
-    ws = w_scale.detach().float().contiguous()
+    out = torch.ops.seld.int8_matmul(x.detach().reshape(-1, cin), w_q, w_scale.detach(),
+                                     None if bias is None else bias.detach())
+    return out.reshape(*lead, cout)
+
+
+def int8_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA impl of ``seld::int8_matmul`` on x2 (M, Cin): launches
+    ``seld_int8_matmul`` with GEMM blocks of :func:`row_tile` rows, or
+    raises."""
+    _check(x2, w_q, w_scale, bias)
+    require_cuda(*((x2, w_q, w_scale) if bias is None else (x2, w_q, w_scale, bias)))
+    if x2.ndim != 2:
+        raise ValueError(f"x must be (M, Cin), got {tuple(x2.shape)}")
+    (m, cin), cout = x2.shape, w_q.shape[1]
+    x2 = x2.contiguous()
+    ws = w_scale.float().contiguous()
     # the bias as it comes (the layers round it to x's dtype), float32 otherwise
     if bias is not None:
-        bias = bias.detach()
         bias = (bias if bias.dtype in (torch.float32, torch.bfloat16) else bias.float()).contiguous()
-    out = torch.empty((m, cout), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, cout), dtype=x2.dtype, device=x2.device)
     if m:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
         bm = row_tile(m, cin, cout, sms)
         k_pad = padded_k(cin)
         w_q = w_q.contiguous()
         # scratch of the first launch: the weight as (Cout, k_pad), the int8 rows and their scales
-        w_t = torch.empty((cout, k_pad), dtype=torch.int8, device=x.device)
-        xq = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
-        xs = torch.empty(m, dtype=torch.float32, device=x.device)
+        w_t = torch.empty((cout, k_pad), dtype=torch.int8, device=x2.device)
+        xq = torch.empty((m, k_pad), dtype=torch.int8, device=x2.device)
+        xs = torch.empty(m, dtype=torch.float32, device=x2.device)
         lib = _build.load()
         err = lib.seld_int8_matmul(
             x2.data_ptr(), w_q.data_ptr(), w_t.data_ptr(), ws.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), xq.data_ptr(),
             xs.data_ptr(), m, cin, k_pad, cout, bm, dtype_code(x2),
-            -1 if bias is None else dtype_code(bias), stream_handle(x.device))
+            -1 if bias is None else dtype_code(bias), stream_handle(x2.device))
         _build.check(err, "seld_int8_matmul")
         launch_counts["int8_matmul"] += 1   # one call: the quantize launch and the GEMM
-    return out.reshape(*lead, cout)
+    return out

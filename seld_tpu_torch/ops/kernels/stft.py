@@ -10,7 +10,9 @@ cores (``seld_stft_mag_tc``: bf16 audio and table, float sums, the JAX
 kernel's arithmetic for that output); float32 output at a power-of-two
 nperseg (64-2048) a real FFT in float (``seld_stft_mag_fft``: the port of
 K1's contract, not of the TPU's DFT GEMM), at any other nperseg % 32 == 0 the
-DFT as a SIMT kernel in float (``seld_stft_mag``).
+DFT as a SIMT kernel in float (``seld_stft_mag``). The wrapper calls the op
+``seld::stft_mag`` (``library.py``), whose CUDA impl is
+:func:`stft_mag_cuda`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 from seld_tpu_torch import _build
 from seld_tpu_torch.ops.kernels import (
-    dtype_code, launch_counts, on_cuda, require_contiguous, stream_handle,
+    dtype_code, launch_counts, require_contiguous, require_cuda, stream_handle,
 )
 
 TC_BINS = 64    # bins per block of the tensor-core kernel (kStBins in stft_mag.cu)
@@ -153,15 +155,23 @@ def stft_mag_plain(x: torch.Tensor, nperseg: int = 512, noverlap: int = 112,
 def stft_mag(x: torch.Tensor, nperseg: int = 512, noverlap: int = 112,
              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (..., n) float32 or bfloat16 audio -> (..., T, nperseg/2) in
-    ``out_dtype``. CPU tensors take :func:`stft_mag_plain`; CUDA tensors
-    launch the kernel :func:`stft_route` names: ``seld_stft_mag_tc`` for
-    bfloat16 output (any even nperseg whose table fits shared memory: up to
-    TC_MAX_TAPS), ``seld_stft_mag_fft`` for float32 output at a power-of-two
-    nperseg (64-2048) and ``seld_stft_mag`` for float32 output at any other
-    nperseg % 32 == 0."""
+    ``out_dtype``, through the op ``seld::stft_mag``
+    (``ops/kernels/library.py``): CPU tensors take :func:`stft_mag_plain`,
+    CUDA tensors :func:`stft_mag_cuda`."""
     _check(x, nperseg, noverlap)
-    if not on_cuda(x):
-        return stft_mag_plain(x, nperseg, noverlap, out_dtype)
+    return torch.ops.seld.stft_mag(x, nperseg, noverlap, out_dtype)
+
+
+def stft_mag_cuda(x: torch.Tensor, nperseg: int, noverlap: int,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The CUDA impl of ``seld::stft_mag``: launches the kernel
+    :func:`stft_route` names, ``seld_stft_mag_tc`` for bfloat16 output (any
+    even nperseg whose table fits shared memory: up to TC_MAX_TAPS),
+    ``seld_stft_mag_fft`` for float32 output at a power-of-two nperseg
+    (64-2048) and ``seld_stft_mag`` for float32 output at any other nperseg
+    % 32 == 0, or raises."""
+    _check(x, nperseg, noverlap)
+    require_cuda(x)
     require_contiguous(x=x)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernels write float32 or bfloat16, not {out_dtype}")

@@ -33,8 +33,6 @@ import os
 import sys
 import time
 
-NPERSEG, NOVERLAP = 512, 112   # the canonical L3DAS21 featurization
-
 
 def load_audio(path: str, sr: int):
     """(channels, samples) float32 from a .npy array or a .wav file at ``sr``;
@@ -80,11 +78,9 @@ def main(argv=None):
 
     from seld_tpu_torch import disable_tf32
     from seld_tpu_torch.config import load_config, tokens_to_config
-    from seld_tpu_torch.data.features import spectrum_fast
     from seld_tpu_torch.metrics import gen_submission_list_task2
     from seld_tpu_torch.models.seld import model_from_config
-    from seld_tpu_torch.ops.kernels.stft import stft_mag
-    from seld_tpu_torch.serve import serve
+    from seld_tpu_torch.serve import serve, serve_apply
     from seld_tpu_torch.training.checkpoint import CheckpointMismatch, load_model_weights
     from seld_tpu_torch.utils.io import write_submission_csv
 
@@ -110,7 +106,6 @@ def main(argv=None):
     fused = args.impl == "fused" or (
         args.impl == "auto" and device.type == "cuda" and cfg.compute_dtype == "bfloat16"
         and cfg.batch_norm == "BN" and cfg.pool_time == "TCN")
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
     os.makedirs(args.out_dir, exist_ok=True)
     results = []
@@ -119,16 +114,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         audio = torch.from_numpy(clip).to(device)
         with torch.no_grad():
-            if fused:
-                sed, doa = serve(model, audio[None], phase=cfg.phase)
-            else:
-                if cfg.phase:
-                    feats = spectrum_fast(audio, NPERSEG, NOVERLAP, output_phase=True)
-                else:
-                    feats = stft_mag(audio, NPERSEG, NOVERLAP,
-                                     out_dtype=torch.float32).transpose(-1, -2)
-                x = feats[None].to(dtype).contiguous()   # (1, C, F, T)
-                sed, doa = model(x, train=False)
+            sed, doa = (serve if fused else serve_apply)(model, audio[None], phase=cfg.phase)
             sed, doa = sed[0].float().cpu().numpy(), doa[0].float().cpu().numpy()
         seconds = time.perf_counter() - t0
         events, _ = gen_submission_list_task2(

@@ -4,7 +4,7 @@
 
 Counterpart of ``tools/profile_stages.py``. Environment, as there:
 ``PROF_BATCH`` (default 16) and ``PROF_SECTIONS`` (comma-separated, default
-``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train``, ``attn``, ``f32`` and ``v3``). The ``noop`` row, the
+``stft,cnn,tcn``; also ``fused``, ``qmm``, ``train``, ``attn``, ``f32``, ``v3`` and ``walls``). The ``noop`` row, the
 dispatch baseline, always runs. Sections:
 
 - ``stft``: K1 (float32 and bfloat16 out) beside its plain version;
@@ -39,7 +39,15 @@ dispatch baseline, always runs. Sections:
   and g_z at stages 2 and 3 (float32 g);
 - ``v3``: K2w at stage 1 and its pack (torch) alone, then the flagship's
   ``model(x)`` beside
-  ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide'.
+  ``fused_infer`` in bfloat16 under ``smallcin_impl`` 'thin' and 'wide';
+- ``walls``: the host-bound paths, whose events time the host's dispatch
+  with the device's work: ``WALL_CALLS`` back-to-back K7 wrapper calls at
+  M 64 (the host's cost of one call, in µs, is the row's ms), a fused bf16
+  ``serve`` request of ``batch`` clips with the audio on the card, the
+  flagship's apply forward of one clip in float32 on K7 and in bf16 on K8,
+  and one bf16 training step at ``batch``. It calls only entry points that
+  the package's earlier versions have too, so that ``ab_variants
+  --base-tree`` times an earlier tree's walls against this one's.
 
 Each row prints the median of 5 timed runs after one warm-up: CUDA events on
 the card, whose name and power limit the first line gives; the host clock
@@ -82,6 +90,7 @@ FLAGSHIP = {
 DEFAULT_SECTIONS = "stft,cnn,tcn"
 ATTN_WIDE_DIMS = (160, 256, 640)   # the attn section's head dims past 128
 F32_WIDE_DIM = 160   # the f32 section's head dim past 128
+WALL_CALLS = 1000   # the walls section's back-to-back K7 wrapper calls
 ITERS = 5
 
 
@@ -418,8 +427,61 @@ def v3(batch, device, shapes=FLAGSHIP):
         (x,)
 
 
+def walls(batch, device, shapes=FLAGSHIP):
+    import numpy as np
+
+    from seld_tpu_torch.config import load_config
+    from seld_tpu_torch.data.synthetic import make_task2_batch
+    from seld_tpu_torch.ops.kernels.qmatmul import pallas_q_linear
+    from seld_tpu_torch.serve import build_flagship, serve
+    from seld_tpu_torch.training import create_train_state, make_train_step
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    xs, w4 = _randn(device, 64, 32, gen=gen), _randn(device, 4, 8, 8, gen=gen)
+
+    def k7_calls(x, w):
+        for _ in range(WALL_CALLS):
+            pallas_q_linear(x, w, None)
+
+    yield f"walls: K7 wrapper x{WALL_CALLS} (M 64)", k7_calls, (xs, w4)
+    cfg_path, cin = shapes["config"], shapes["channels"]
+    model = build_flagship(cfg_path, torch.bfloat16, device, torch.Generator().manual_seed(0))
+    audio = _randn(device, batch, cin, shapes["samples"], gen=gen)
+
+    def request(a):
+        with torch.no_grad():
+            return serve(model, a)
+
+    yield f"walls: serve fused bf16, batch {batch}", request, (audio,)
+    del audio
+    x1 = _randn(device, 1, cin, shapes["freq"], shapes["frames"], gen=gen)
+    for dtype, qconv, tag in ((torch.float32, "pallas", "f32 K7"), (torch.bfloat16, "int8",
+                                                                     "bf16 K8")):
+        applied = build_flagship(cfg_path, dtype, device, torch.Generator().manual_seed(0),
+                                 qconv_impl=qconv)
+
+        def apply(xx, m=applied, dt=dtype):
+            with torch.no_grad():
+                return m(xx.to(dt))
+
+        yield f"walls: apply {tag}, one clip", apply, (x1,)
+        del applied
+    cfg = load_config(str(cfg_path)).replace(compute_dtype="bfloat16")
+    state = [create_train_state(model, cfg, torch.Generator(device=device).manual_seed(2))]
+    step = make_train_step(cfg)
+    x, y = make_task2_batch(np.random.default_rng(0), batch, channels=cin, freq=shapes["freq"],
+                            time_frames=shapes["frames"], label_frames=shapes["frames"] // 8)
+
+    def train_step(xx, yy):
+        state[0], loss = step(state[0], xx, yy)
+        return loss
+
+    yield f"walls: train step bf16, batch {batch}", train_step, \
+        (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+
+
 SECTIONS = {"noop": noop, "stft": stft, "cnn": cnn, "tcn": tcn, "fused": fused, "qmm": qmm,
-            "train": train, "attn": attn, "f32": f32, "v3": v3}
+            "train": train, "attn": attn, "f32": f32, "v3": v3, "walls": walls}
 
 
 def time_ms(fn, args, device: torch.device, iters: int = ITERS) -> float:

@@ -24,6 +24,10 @@ featurizer has no TPU kernel to port. On a CUDA device every kernel of the
 path launches (K1 for magnitude configs; K2, or K2w with
 ``smallcin_impl='wide'``, K3 and K4 inside ``fused_infer``, per trunk); on
 the CPU each kernel's plain version runs instead.
+
+:func:`serve_apply` is the unfused route (the predict CLI's and the export
+tool's ``--impl apply``): float32 features, then the eval model, whose
+``qconv_impl`` puts the pointwise convs and FC heads on K7 or K8.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from seld_tpu_torch import disable_tf32
 from seld_tpu_torch.config import load_config
-from seld_tpu_torch.data.features import spectrum_fast_batch
+from seld_tpu_torch.data.features import spectrum_fast, spectrum_fast_batch
 from seld_tpu_torch.models.layers import BatchNorm
 from seld_tpu_torch.models.seld import SELDModel, model_from_config
 from seld_tpu_torch.models.fused_infer import fused_infer
@@ -112,3 +116,21 @@ def serve(model: SELDModel, audio: torch.Tensor, smallcin_impl: str = "thin",
         featurize = lambda a: stft_mag(a.contiguous(), NPERSEG, NOVERLAP, out_dtype=out_dtype)
     return fused_infer(model, audio, input_layout="BCTF", featurize=featurize,
                        smallcin_impl=smallcin_impl)
+
+
+def serve_apply(model: SELDModel, audio: torch.Tensor,
+                phase: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """audio (B, C, n) -> (sed, doa) float32 through the unfused eval model,
+    as the root ``predict.py:126-129`` serves: float32 features (K1 for a
+    magnitude config, ``spectrum_fast`` magnitude + phase with ``phase``),
+    cast to the model's compute dtype, then ``model(x)`` (its Hamilton
+    layers on K7 under ``qconv_impl='pallas'``, on K8 under ``'int8'``; K4
+    where its attention takes the kernel)."""
+    dtype = torch.bfloat16 if model.compute_dtype == "bfloat16" else torch.float32
+    with torch.no_grad():
+        if phase:
+            feats = spectrum_fast(audio, NPERSEG, NOVERLAP, output_phase=True)
+        else:
+            feats = stft_mag(audio.contiguous(), NPERSEG, NOVERLAP,
+                             out_dtype=torch.float32).transpose(-1, -2)
+        return model(feats.to(dtype).contiguous(), train=False)

@@ -25,11 +25,13 @@ import torch
 
 # torch.cuda._sleep's kernel, launched before and after the call a capture
 # holds (device_events); BRACKET_CYCLES spins a few microseconds; a first
-# capture's leading brackets, doubled on each retake
+# capture's leading brackets and the host's idle seconds at each end of its
+# window, both doubled on each retake
 BRACKET_KERNEL = "spin_kernel"
 BRACKET_CYCLES = 10_000
 LEAD_BRACKETS = 4
-CAPTURE_TRIES = 5
+PAD_S = 0.02
+CAPTURE_TRIES = 6
 # device_events' captures this process: "whole" and "retaken"
 CAPTURES: Counter = Counter()
 
@@ -103,15 +105,20 @@ def device_events(run, cpu: bool = False):
     events (``key_averages()``'s, by kernel name) and its wall milliseconds.
 
     On the H100 the profiler left out the first one or two kernels of every
-    capture for stretches of a run (all of a one-kernel call's, K1 of a
-    serving request), whatever the host waited first. So the call comes
-    after LEAD_BRACKETS ``torch.cuda._sleep`` kernels (the leading brackets)
-    and before one more (the trailing bracket), with a synchronize after
-    each group; the capture is whole only where its first and its last
-    device event, in time, are brackets. Else it is taken again with twice
-    the leading brackets, ``run()`` once more, at most CAPTURE_TRIES
-    captures in all, and then this raises. The brackets are left out of the events.
-    ``cpu`` records host activities too."""
+    capture for stretches of a run; it also maps the card's timestamps onto
+    the host's clock with a shift, either way (a kernel can read as starting
+    before its launch, or before kernels launched ahead of it), and drops
+    what then falls outside its window: a capture's first kernels, its
+    last, or all of them. So the window opens and closes with PAD_S seconds
+    of host idle time, the call comes after LEAD_BRACKETS
+    ``torch.cuda._sleep`` kernels (the leading brackets) and before one more
+    (the trailing bracket), with a synchronize after each group; the
+    capture is whole only where its first and its last device event in
+    launch order (the CUPTI correlation id, not the shifted times; ranges of
+    ``record_function`` left out) are brackets. Else it is taken again with
+    twice the leading brackets and the idle time, ``run()`` once more, at
+    most CAPTURE_TRIES captures in all, and then this raises. The brackets and the ranges are left out of
+    the events. ``cpu`` records host activities too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,6 +129,7 @@ def device_events(run, cpu: bool = False):
     for attempt in range(CAPTURE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
+            time.sleep(PAD_S * 2 ** attempt)
             for _ in range(LEAD_BRACKETS * 2 ** attempt):
                 torch.cuda._sleep(BRACKET_CYCLES)
             torch.cuda.synchronize()
@@ -131,14 +139,17 @@ def device_events(run, cpu: bool = False):
             wall_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda._sleep(BRACKET_CYCLES)
             torch.cuda.synchronize()
-        order = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                       key=lambda e: e.time_range.start)
+            time.sleep(PAD_S * 2 ** attempt)
+        # a record_function range on the card's timeline (Adam.step) is no launch
+        order = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation), key=lambda e: e.id)
         if order and all(BRACKET_KERNEL in e.name for e in (order[0], order[-1])):
             CAPTURES["whole"] += 1
             return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                    and BRACKET_KERNEL not in e.key], wall_ms
+                    and not e.is_user_annotation and BRACKET_KERNEL not in e.key], wall_ms
         CAPTURES["retaken"] += 1
-        seen.append(f"{len(order)} device events" + (
+        brackets = sum(BRACKET_KERNEL in e.name for e in order)
+        seen.append(f"{len(order)} device events, {brackets} of them brackets" + (
             f", first {order[0].name[:48]}, last {order[-1].name[:48]}" if order else ""))
     raise RuntimeError(f"torch.profiler recorded no whole capture in {CAPTURE_TRIES} tries: "
                        + "; ".join(seen))

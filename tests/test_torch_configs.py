@@ -394,7 +394,7 @@ def test_entry_points_run_on_the_card_by_default(tmp_path, monkeypatch):
     and names the CPU switch: none moves to the CPU by itself (the phase +
     2Parallel config here; the predict and train CLIs' own tests do it for
     the flagship's)."""
-    from seld_tpu_torch import ab_variants, profile_stages, train
+    from seld_tpu_torch import ab_variants, export_serving, profile_stages, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -408,6 +408,8 @@ def test_entry_points_run_on_the_card_by_default(tmp_path, monkeypatch):
         profile_stages.main([])
     with pytest.raises(RuntimeError, match="--device=cpu"):
         ab_variants.main(["--digest"])
+    with pytest.raises(RuntimeError, match="--device=cpu"):
+        export_serving.main([f"--TextArgs={cfg_file}"])
 
 
 @pytest.mark.parametrize("topology", ["2parallel", "magphase", "se_dq"])

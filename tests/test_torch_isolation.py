@@ -3,11 +3,12 @@
 (the card's host has no JAX).
 
 Checks: every import statement, read with ``ast``; a fresh interpreter
-that imports the port's entry points (the ``.seldpak`` reader and the
-``parallel`` modules among them) and then finds neither ``jax`` nor
-``seld_tpu`` in ``sys.modules``; a fresh interpreter that reads the
-repository's ``seld_tpu`` checkpoint into a port model and then finds none of
-``jax``, ``jaxlib``, ``flax``, ``optax`` or ``seld_tpu``; and nothing of the
+that imports the port's entry points (the ``.seldpak`` reader, the
+``parallel`` modules, the export tool and its op library among them) and
+then finds neither ``jax`` nor ``seld_tpu`` in ``sys.modules``; a fresh
+interpreter that reads the repository's ``seld_tpu`` checkpoint into a port
+model and then finds none of ``jax``, ``jaxlib``, ``flax``, ``optax`` or
+``seld_tpu``; and nothing of the
 port names or maps the JAX package's native loader (``seld_tpu/data/native``):
 the port reads ``.seldpak`` files through its own ``loader.cc``, built into
 ``seld_tpu_torch/_build/``.
@@ -68,6 +69,7 @@ def test_importing_the_entry_points_loads_no_jax():
         "import seld_tpu_torch.training.jax_checkpoint, seld_tpu_torch.utils.torch_import\n"
         "import seld_tpu_torch.data.native, seld_tpu_torch.parallel\n"
         "import seld_tpu_torch.parallel.dp_step, seld_tpu_torch.parallel.multihost\n"
+        "import seld_tpu_torch.export_serving, seld_tpu_torch.ops.kernels.library\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(' '.join(bad))\n"

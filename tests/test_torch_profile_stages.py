@@ -23,9 +23,10 @@ TINY = dict(prof.FLAGSHIP, samples=12800, frames=32, filters=16, tcn_width=16, d
 # wgrads, K2w at stage 1, K10a and
 # cuDNN's conv at each of the three stages, K3, K10b and K9's F1 at stage 2, and
 # K9's dh at stages 2 and 3; train and f32 end with K9's B1 and g_z at stages 2
-# and 3
+# and 3; walls: the K7 wrapper calls, a serve request, two apply forwards and a
+# training step, at full width like v3
 ROWS = {"noop": 1, "stft": 3, "cnn": 5, "tcn": 3, "fused": 12, "qmm": 9, "train": 9,
-        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 33, "v3": 5}
+        "attn": 4 * (1 + len(prof.ATTN_WIDE_DIMS)), "f32": 33, "v3": 5, "walls": 5}
 
 
 @pytest.mark.parametrize("section", sorted(prof.SECTIONS))
